@@ -13,12 +13,17 @@ for the TPU are CUDA kernels written for Hopper (``csrc/``), built with
     height in one launch),
   * K2 ingest   — ``data/crop.py`` (uint8 decode, bilinear crop,
     ImageNet normalisation, cast),
-  * K3 skinning — ``models/body/lbs.py``.
+  * K3 skinning — ``models/body/lbs.py``,
+  * K8a P2P-20k point error — ``eval/metrics.py`` (sparse point
+    regression of both meshes, translation alignment, distances),
+  * K8b aligned point error — ``eval/metrics.py`` (none / root /
+    translation / scale / Procrustes alignment, then the error).
 
 Each kernel's wrapper runs the kernel's plain PyTorch version for CPU
-tensors and launches the kernel (or raises) for CUDA tensors.
+tensors and launches the kernel (or raises) for CUDA tensors. Entry
+points run on the card unless the caller asks for the CPU.
 
-This package never imports ``jax``.
+This package never imports ``jax``, ``yaml`` or ``shapy_tpu``.
 """
 
 __version__ = "0.1.0"

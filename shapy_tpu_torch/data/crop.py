@@ -5,21 +5,52 @@
 :func:`crop_normalize` is the main-path entry: its CUDA path is kernel K2
 (``csrc/ingest.cu``), which decodes uint8, samples bilinearly through the
 crop->image affine, normalises and casts in one pass.
+
+``IMAGENET_MEAN`` / ``IMAGENET_STD`` and :func:`crop_to_image_affine` are
+numpy copies of the JAX package's (``data/transforms.py``,
+``data/crop.py``): the port imports nothing of ``shapy_tpu``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
-from shapy_tpu.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from shapy_tpu_torch.utils.cuda_kernels import CudaKernel, check_cuda_input
+
+IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
+REF_BBOX_SIZE = 200.0
 
 INGEST_KERNEL = CudaKernel("ingest.cu",
                            {"ingest_forward": "ppp iiiiiii ffffff p"})
 _IN_KINDS = {torch.uint8: 0, torch.float32: 1}
 _OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def crop_to_image_affine(center: Sequence[float], scale: float,
+                         res: Tuple[int, int], rot_deg: float = 0.0
+                         ) -> np.ndarray:
+    """3x3 f64 matrix mapping crop pixel coords -> image pixel coords: the
+    crop spans ``200 * scale`` px centred at ``center``, optionally
+    rotated by ``rot_deg`` about the crop centre (the hourglass
+    convention of the reference's ``get_transform``, inverted)."""
+    h = REF_BBOX_SIZE * scale
+    out_h, out_w = res
+    A = np.array([[h / out_w, 0.0, center[0] - 0.5 * h],
+                  [0.0, h / out_h, center[1] - 0.5 * h],
+                  [0.0, 0.0, 1.0]], dtype=np.float64)
+    if rot_deg != 0.0:
+        rad = np.deg2rad(rot_deg)
+        sn, cs = np.sin(rad), np.cos(rad)
+        c = np.array([out_w / 2.0, out_h / 2.0])
+        R = np.array([[cs, -sn, c[0] - cs * c[0] + sn * c[1]],
+                      [sn, cs, c[1] - sn * c[0] - cs * c[1]],
+                      [0.0, 0.0, 1.0]])
+        A = A @ R
+    return A
 
 
 def bilinear_crop(images: torch.Tensor, affines: torch.Tensor,

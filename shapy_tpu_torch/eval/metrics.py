@@ -1,0 +1,360 @@
+"""Evaluation metrics and alignments (port of ``shapy_tpu/eval/metrics.py``).
+
+Plain functions on tensors with the JAX package's layouts: ``(B, P, 3)``
+point sets, ``(P, K)`` padded regressor rows. Two kernels carry the
+evaluator's per-point errors on the card:
+
+  * K8b (``csrc/align_error.cu``) — :func:`aligned_point_error`, any of
+    the alignments below followed by :func:`point_error`, behind
+    :class:`PointError`;
+  * K8a (``csrc/point_regress.cu``) — :func:`point_regress_error`, the
+    P2P-20k error of :class:`SparsePointRegressor`.
+
+Each wrapper runs its plain version (``*_plain``) for CPU tensors and
+launches its kernel, or raises, for CUDA tensors. The alignment functions
+themselves are plain PyTorch on every device (``procrustes_align`` uses
+``torch.linalg.svd`` like the JAX code).
+
+``point_fscore`` and its nearest-neighbour search (K9) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Callable, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from shapy_tpu_torch.utils.cuda_kernels import CudaKernel, check_cuda_input
+from shapy_tpu_torch.utils.device import get_device
+
+ALIGN_KERNEL = CudaKernel("align_error.cu",
+                          {"align_error_forward": "pppp iiii p"})
+REGRESS_KERNEL = CudaKernel("point_regress.cu",
+                            {"point_regress_forward": "pppppppp iiiiiii p"})
+_REGRESS_TILE = 256  # points per block of csrc/point_regress.cu
+
+
+# -- point errors -----------------------------------------------------------
+
+
+def point_error(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """Per-point Euclidean error, (..., P, 3) -> (..., P)."""
+    return torch.sqrt(torch.sum((pred - gt) ** 2, dim=-1))
+
+
+# -- alignments -------------------------------------------------------------
+
+
+def no_alignment(est, gt):
+    return est, gt
+
+
+def root_align(est: torch.Tensor, gt: torch.Tensor, root=(0,)):
+    """Subtract the mean of the root joints from each set."""
+    idx = torch.as_tensor(tuple(root), dtype=torch.long, device=est.device)
+    return (est - est[..., idx, :].mean(dim=-2, keepdim=True),
+            gt - gt[..., idx, :].mean(dim=-2, keepdim=True))
+
+
+def translation_align(est: torch.Tensor, gt: torch.Tensor):
+    """Mean-centre both point sets."""
+    return (est - est.mean(dim=-2, keepdim=True),
+            gt - gt.mean(dim=-2, keepdim=True))
+
+
+def scale_align(est: torch.Tensor, gt: torch.Tensor):
+    """Scale + translation: est is scaled by sqrt(var(gt) / var(est)) about
+    its mean, then translated onto gt's mean."""
+    mu1 = est.mean(dim=-2, keepdim=True)
+    mu2 = gt.mean(dim=-2, keepdim=True)
+    x1 = est - mu1
+    x2 = gt - mu2
+    var1 = torch.sum(x1 * x1, dim=(-1, -2))
+    var2 = torch.sum(x2 * x2, dim=(-1, -2))
+    scale = torch.sqrt(var2 / torch.clamp(var1, min=1e-12))
+    return scale[..., None, None] * x1 + mu2, gt
+
+
+def procrustes_align(est: torch.Tensor, gt: torch.Tensor):
+    """Similarity (sR, t) alignment of est onto gt, batched over leading
+    dims, with the reflection fix Z = diag(1, 1, sign(det(U V^T)))."""
+    mu1 = est.mean(dim=-2, keepdim=True)
+    mu2 = gt.mean(dim=-2, keepdim=True)
+    x1 = est - mu1
+    x2 = gt - mu2
+    var1 = torch.sum(x1 * x1, dim=(-1, -2))
+    K = torch.einsum("...pi,...pj->...ij", x1, x2)
+    U, _, Vt = torch.linalg.svd(K)
+    det = torch.linalg.det(U @ Vt)
+    Z = torch.eye(3, dtype=K.dtype, device=K.device).expand(K.shape).clone()
+    Z[..., 2, 2] = Z[..., 2, 2] * torch.sign(det)
+    # R aligns x1 onto x2: R = V Z U^T
+    R = torch.einsum("...ji,...jk,...lk->...il", Vt, Z, U)
+    scale = torch.einsum("...ij,...ji->...", R, K) / torch.clamp(var1,
+                                                                 min=1e-12)
+    est_hat = scale[..., None, None] * torch.einsum(
+        "...ij,...pj->...pi", R, x1) + mu2
+    return est_hat, gt
+
+
+ALIGNMENTS: Dict[str, Callable] = {
+    "none": no_alignment,
+    "no": no_alignment,
+    "root": root_align,
+    "translation": translation_align,
+    "scale": scale_align,
+    "procrustes": procrustes_align,
+}
+# K8b's mode for each alignment name.
+_ALIGN_MODES = {"none": 0, "no": 0, "root": 1, "translation": 2, "scale": 3,
+                "procrustes": 4}
+
+
+def build_alignment(name: str, root=None) -> Callable:
+    """Alignment function by name; ``root`` joint ids for "root"."""
+    if name == "root":
+        root = tuple(root or (0,))
+        return lambda est, gt: root_align(est, gt, root)
+    if name not in ALIGNMENTS:
+        raise ValueError(f"Unknown alignment type: {name}")
+    return ALIGNMENTS[name]
+
+
+def aligned_point_error_plain(est: torch.Tensor, gt: torch.Tensor,
+                              alignment: str = "none",
+                              root: Sequence[int] = (0,)) -> torch.Tensor:
+    """Plain version of K8b: ``point_error(*align(est, gt))``, (B, P)."""
+    return point_error(*build_alignment(alignment, root)(est, gt))
+
+
+def aligned_point_error(est: torch.Tensor, gt: torch.Tensor,
+                        alignment: str = "none",
+                        root: Sequence[int] = (0,)) -> torch.Tensor:
+    """Per-point error (B, P) of est (B, P, 3) aligned onto gt (B, P, 3):
+    the plain version for CPU tensors, kernel K8b for CUDA tensors
+    (forward only; contiguous f32)."""
+    if est.device.type == "cpu":
+        return aligned_point_error_plain(est, gt, alignment, root)
+    if est.device.type != "cuda":
+        raise ValueError(f"aligned_point_error: unsupported device "
+                         f"{est.device}")
+    if alignment not in _ALIGN_MODES:
+        raise ValueError(f"Unknown alignment type: {alignment}")
+    B, P = est.shape[:2]
+    dev = est.device
+    check_cuda_input(est, "est", torch.float32, (B, P, 3), dev)
+    check_cuda_input(gt, "gt", torch.float32, (B, P, 3), dev)
+    out = torch.empty((B, P), dtype=torch.float32, device=dev)
+    if B == 0 or P == 0:
+        return out
+    root = tuple(int(r) for r in (root or (0,)))
+    if alignment == "root":
+        # The kernel reads these ids unchecked.
+        if min(root) < 0 or max(root) >= P:
+            raise ValueError(f"root joints {root} outside [0, {P})")
+        root_ids = torch.tensor(root, dtype=torch.int32, device=dev)
+    else:
+        root_ids = out  # not read
+    ALIGN_KERNEL.launches += 1
+    ALIGN_KERNEL.launch("align_error_forward", [
+        est, gt, root_ids, out, B, P, len(root), _ALIGN_MODES[alignment]])
+    return out
+
+
+class PointError:
+    """Alignment + per-point error; K8b on the card."""
+
+    def __init__(self, alignment: str = "none", root=None, name: str = ""):
+        if alignment not in ALIGNMENTS:
+            raise ValueError(f"Unknown alignment type: {alignment}")
+        self.alignment_name = alignment
+        self.root = tuple(root or (0,))
+        self.align = build_alignment(alignment, self.root)
+        self.name = name or alignment
+
+    def set_root(self, root) -> None:
+        if self.alignment_name == "root":
+            self.root = tuple(root)
+            self.align = build_alignment("root", self.root)
+
+    def __call__(self, est: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+        return aligned_point_error(est.contiguous(), gt.contiguous(),
+                                   self.alignment_name, self.root)
+
+    def plain(self, est: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+        """The plain version on any device (the kernel's reference)."""
+        return point_error(*self.align(est, gt))
+
+
+# -- sparse HD point regressor (P2P-20k) ------------------------------------
+
+
+def regress_points(vertices: torch.Tensor, indices: torch.Tensor,
+                   weights: torch.Tensor) -> torch.Tensor:
+    """(B, V, 3) vertices, (P, K) indices and weights -> (B, P, 3)."""
+    gathered = vertices[:, indices.long()]  # (B, P, K, 3)
+    return torch.sum(gathered * weights[None, ..., None], dim=-2)
+
+
+def point_regress_error_plain(input_vertices, target_vertices, indices,
+                              weights, target_indices, target_weights,
+                              align: bool = True) -> torch.Tensor:
+    """Plain version of K8a: regress both meshes, translate the first set
+    onto the second's mean (``align``), per-point distance (B, P)."""
+    p1 = regress_points(input_vertices, indices, weights)
+    p2 = regress_points(target_vertices, target_indices, target_weights)
+    if align:
+        p1 = p1 + (p2.mean(dim=1, keepdim=True)
+                   - p1.mean(dim=1, keepdim=True))
+    return point_error(p1, p2)
+
+
+def point_regress_error(input_vertices: torch.Tensor,
+                        target_vertices: torch.Tensor,
+                        indices: torch.Tensor, weights: torch.Tensor,
+                        target_indices: torch.Tensor,
+                        target_weights: torch.Tensor, align: bool = True
+                        ) -> torch.Tensor:
+    """P2P error (B, P) between input_vertices (B, V1, 3) regressed with
+    (indices, weights) (P, K1) and target_vertices (B, V2, 3) regressed
+    with (target_indices, target_weights) (P, K2): the plain version for
+    CPU tensors, kernel K8a for CUDA tensors (forward only; contiguous
+    f32 vertices and weights, int32 indices, which the caller keeps
+    inside [0, V))."""
+    if input_vertices.device.type == "cpu":
+        return point_regress_error_plain(input_vertices, target_vertices,
+                                         indices, weights, target_indices,
+                                         target_weights, align)
+    if input_vertices.device.type != "cuda":
+        raise ValueError(f"point_regress_error: unsupported device "
+                         f"{input_vertices.device}")
+    B, V1 = input_vertices.shape[:2]
+    V2 = target_vertices.shape[1]
+    P, K1 = indices.shape
+    K2 = target_indices.shape[1]
+    dev = input_vertices.device
+    check_cuda_input(input_vertices, "input_vertices", torch.float32,
+                     (B, V1, 3), dev)
+    check_cuda_input(target_vertices, "target_vertices", torch.float32,
+                     (B, V2, 3), dev)
+    check_cuda_input(indices, "indices", torch.int32, (P, K1), dev)
+    check_cuda_input(weights, "weights", torch.float32, (P, K1), dev)
+    check_cuda_input(target_indices, "target_indices", torch.int32, (P, K2),
+                     dev)
+    check_cuda_input(target_weights, "target_weights", torch.float32,
+                     (P, K2), dev)
+    out = torch.empty((B, P), dtype=torch.float32, device=dev)
+    if B == 0 or P == 0:
+        return out
+    tiles = -(-P // _REGRESS_TILE)
+    partials = torch.empty((B, tiles, 6), dtype=torch.float64, device=dev)
+    REGRESS_KERNEL.launches += 1
+    REGRESS_KERNEL.launch("point_regress_forward", [
+        input_vertices, target_vertices, indices, weights, target_indices,
+        target_weights, partials, out, B, V1, V2, P, K1, K2, int(align)])
+    return out
+
+
+class SparsePointRegressor:
+    """Cross-topology point metric (P2P-20k): regress ~20k surface points
+    from each mesh's vertices with a sparse matrix, translation-align, mean
+    distance. Rows are stored padded, (P, K) int32 vertex indices + f32
+    weights (padding: index 0, weight 0), on ``device``."""
+
+    def __init__(self, indices: np.ndarray, weights: np.ndarray,
+                 align: bool = True, device: str | torch.device = "cuda"):
+        device = get_device(device)
+        indices = np.asarray(indices)
+        if indices.size and indices.min() < 0:
+            raise ValueError("negative vertex index in the point regressor")
+        # The kernel gathers unchecked: remember the bound to test against.
+        self.num_vertices = int(indices.max()) + 1 if indices.size else 0
+        self.indices = torch.as_tensor(
+            np.ascontiguousarray(indices, np.int32), device=device)
+        self.weights = torch.as_tensor(
+            np.ascontiguousarray(weights, np.float32), device=device)
+        self.align = align
+
+    @classmethod
+    def from_scipy(cls, matrix, align: bool = True,
+                   device: str | torch.device = "cuda"
+                   ) -> "SparsePointRegressor":
+        m = matrix.tocsr()
+        P = m.shape[0]
+        counts = np.diff(m.indptr)
+        K = int(max(1, counts.max()))
+        idx = np.zeros((P, K), np.int64)
+        w = np.zeros((P, K), np.float64)
+        for i in range(P):
+            s, e = m.indptr[i], m.indptr[i + 1]
+            idx[i, : e - s] = m.indices[s:e]
+            w[i, : e - s] = m.data[s:e]
+        return cls(idx, w, align=align, device=device)
+
+    @classmethod
+    def from_pickle(cls, path: str, align: bool = True,
+                    device: str | torch.device = "cuda"
+                    ) -> "SparsePointRegressor":
+        import pickle
+
+        with open(path, "rb") as f:
+            matrix = pickle.load(f, encoding="latin1")
+        return cls.from_scipy(matrix, align=align, device=device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.indices.device
+
+    def to(self, device: str | torch.device) -> "SparsePointRegressor":
+        """This regressor with its rows on ``device`` (self if they are
+        there already)."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        out = copy.copy(self)
+        out.indices = self.indices.to(device)
+        out.weights = self.weights.to(device)
+        return out
+
+    def regress(self, vertices: torch.Tensor) -> torch.Tensor:
+        """(B, V, 3) -> (B, P, 3), plain PyTorch on every device."""
+        return regress_points(vertices, self.indices, self.weights)
+
+    def check_mesh(self, vertices: torch.Tensor) -> None:
+        """Raise unless every index of this regressor lies inside the
+        (B, V, 3) mesh (kernel K8a gathers unchecked)."""
+        if self.num_vertices > vertices.shape[1]:
+            raise ValueError(f"point regressor indexes {self.num_vertices} "
+                             f"vertices, mesh has {vertices.shape[1]}")
+
+    def _args(self, input_vertices, target_vertices, target_regressor):
+        tr = target_regressor or self
+        self.check_mesh(input_vertices)
+        tr.check_mesh(target_vertices)
+        return (input_vertices.contiguous(), target_vertices.contiguous(),
+                self.indices, self.weights, tr.indices, tr.weights,
+                self.align)
+
+    def __call__(self, input_vertices: torch.Tensor,
+                 target_vertices: torch.Tensor,
+                 target_regressor: Optional["SparsePointRegressor"] = None
+                 ) -> torch.Tensor:
+        """Per-point distances (B, P) between the regressed point sets;
+        K8a on the card."""
+        return point_regress_error(*self._args(
+            input_vertices, target_vertices, target_regressor))
+
+    def plain(self, input_vertices, target_vertices, target_regressor=None
+              ) -> torch.Tensor:
+        """The plain version on any device (the kernel's reference)."""
+        return point_regress_error_plain(*self._args(
+            input_vertices, target_vertices, target_regressor))
+
+
+def mpjpe(pred_joints: torch.Tensor, gt_joints: torch.Tensor,
+          alignment: str = "root", root=(0,)) -> torch.Tensor:
+    """Mean per-joint position error under an alignment."""
+    est, gt = build_alignment(alignment, root)(pred_joints, gt_joints)
+    return point_error(est, gt).mean(dim=-1)

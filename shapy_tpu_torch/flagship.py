@@ -15,7 +15,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from shapy_tpu.data.crop import crop_to_image_affine
+from shapy_tpu_torch.data.crop import crop_to_image_affine
 from shapy_tpu_torch.measure.measurements import (
     BodyMeasurements,
     MeasurementAnchors,
@@ -40,11 +40,19 @@ FLAGSHIP_BODY_CFG = {
         "body_pose": {"param_type": "cont_rot_repr"},
     }
 }
+# The reference config's metric sets (v2v over procrustes / scale /
+# translation, v2v_t over scale / translation, mpjpe root + procrustes;
+# mpjpe14 roots on the hips [2, 3]).
+REFERENCE_EVAL_CFG = {"evaluation": {"body": {
+    "v2v": ["procrustes", "scale", "translation"],
+    "v2v_t": ["scale", "translation"],
+    "mpjpe": {"alignments": ["root", "procrustes"]},
+}}}
 
 
 def build_flagship(subdivisions: int = 2, exact_counts: bool = False,
                    mlp_layers: Sequence[int] = (1024, 1024),
-                   device: str | torch.device = "cpu", seed: int = 0,
+                   device: str | torch.device = "cuda", seed: int = 0,
                    num_hull_directions: int = 256) -> SMPLXRegressor:
     """The flagship regressor on ``device``, weights initialised as the
     JAX package initialises them, drawn from ``seed``. Call
@@ -115,3 +123,74 @@ def synthetic_requests(batch: int, height: int, width: int, crop_size: int,
                                           (crop_size, crop_size),
                                           rot_deg=rng.uniform(-30, 30))
     return images, affines
+
+
+def synthetic_eval_data(regressor: SMPLXRegressor, num_batches: int,
+                        batch: int, height: int, width: int, crop_size: int,
+                        seed: int, p2p_points: int = 20000) -> dict:
+    """Synthetic HBW-style evaluation data on the regressor's device.
+
+    Returns ``batches``, the collate output that
+    ``eval.loop.adapt_eval_batches`` consumes (uint8 full images and crop
+    affines from :func:`synthetic_requests`; GT ``v_shaped`` and posed
+    ``vertices`` / ``joints3d`` of SMPL-X bodies with ||beta|| <= 6 and
+    random body poses; GT measurements from K1 on all faces, as the HBW
+    dataset precomputes them; ``joints14`` through the J14 regressor with
+    one sample per batch marked invalid; genders), ``p2p``, a
+    :class:`SparsePointRegressor` of ``p2p_points`` surface points with
+    barycentric weights on random faces (the P2P-20k regressor's shape),
+    and ``j14``, a (14, V) regressor mixing 8 random vertices per joint.
+    Everything is drawn from ``seed`` with numpy."""
+    from shapy_tpu_torch.eval.metrics import SparsePointRegressor
+
+    rng = np.random.default_rng(seed)
+    model, meas = regressor.model, regressor.body_measurements
+    dev = regressor.param_mean.device
+    faces, V = model.faces, model.num_verts
+    tri = faces[rng.integers(0, len(faces), size=p2p_points)]
+    w = rng.dirichlet(np.ones(3), size=p2p_points)
+    p2p = SparsePointRegressor(tri, w, device=dev)
+    j14 = np.zeros((14, V), np.float32)
+    for j in range(14):
+        cols = rng.choice(V, size=8, replace=False)
+        ww = rng.uniform(size=8)
+        j14[j, cols] = ww / ww.sum()
+    j14_t = torch.from_numpy(j14).to(dev)
+    names = ("female", "male", "neutral")
+    batches = []
+    for i in range(num_batches):
+        betas = rng.normal(size=(batch, model.num_betas)) * 1.5
+        betas *= np.minimum(1.0, 6.0 / np.linalg.norm(betas, axis=1,
+                                                      keepdims=True))
+        pose = rng.normal(size=(batch, model.NUM_BODY_JOINTS, 3)) * 0.2
+        with torch.inference_mode():
+            gt = model(betas=torch.tensor(betas, dtype=torch.float32,
+                                          device=dev),
+                       body_pose=torch.tensor(pose, dtype=torch.float32,
+                                              device=dev))
+            m = meas.forward_from_vertices(
+                gt["v_shaped"].contiguous(),
+                use_face_subsets=False)["measurements"]
+            joints = gt["joints"][:, :25]
+            joints3d = torch.cat([joints, torch.ones_like(joints[..., :1])],
+                                 dim=-1)
+            joints14 = torch.einsum("jv,bvn->bjn", j14_t, gt["vertices"])
+        images, affines = synthetic_requests(batch, height, width, crop_size,
+                                             seed + 1 + i)
+        gender = rng.integers(0, 3, size=batch)
+        valid = np.ones(batch, np.float32)
+        valid[(1 + i) % batch] = 0.0  # one sample without J14 GT
+        batches.append({
+            "images": torch.from_numpy(images).to(dev),
+            "crop_to_image_affines": torch.from_numpy(affines).to(dev),
+            "gt_v_shaped": gt["v_shaped"].contiguous(),
+            "gt_vertices": gt["vertices"].contiguous(),
+            "joints3d": joints3d,
+            "joints14": joints14,
+            "joints14_valid": torch.from_numpy(valid).to(dev),
+            **{f"{k}_gt": m[k]["tensor"] for k in
+               ("height", "chest", "waist", "hips", "mass")},
+            "gender": torch.from_numpy(gender).to(dev),
+            "genders": [names[g] for g in gender],
+        })
+    return {"batches": batches, "p2p": p2p, "j14": j14}

@@ -16,8 +16,11 @@ import numpy as np
 import pytest
 import torch
 
+from shapy_tpu.data import crop as jcrop
+from shapy_tpu.data import transforms as jtransforms
 from shapy_tpu.data.crop import crop_to_image_affine, jax_bilinear_crop
 from shapy_tpu.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+from shapy_tpu_torch.data import crop as tcrop
 from shapy_tpu_torch.data.crop import crop_normalize
 
 torch.set_num_threads(2)
@@ -66,3 +69,24 @@ def test_crop_normalize_bf16_output_is_the_rounded_f32():
     bf16 = crop_normalize(images, affines, 32, out_dtype=torch.bfloat16)
     assert bf16.dtype == torch.bfloat16
     torch.testing.assert_close(bf16, f32.to(torch.bfloat16), rtol=0, atol=0)
+
+
+def test_normalisation_constants_are_the_jax_packages():
+    for name in ("IMAGENET_MEAN", "IMAGENET_STD"):
+        got, want = getattr(tcrop, name), getattr(jtransforms, name)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    assert tcrop.REF_BBOX_SIZE == jcrop.REF_BBOX_SIZE
+
+
+@pytest.mark.parametrize("center,scale,res,rot", [
+    ((48.0, 40.0), 0.35, (64, 64), 20.0),
+    ((240.0, 180.0), 1.1, (256, 256), 0.0),
+    ((10.0, 80.0), 0.5, (48, 32), -40.0),
+])
+def test_crop_to_image_affine_is_the_jax_packages(center, scale, res, rot):
+    """The port's copy gives identical f64 affines."""
+    got = tcrop.crop_to_image_affine(center, scale, res, rot_deg=rot)
+    want = jcrop.crop_to_image_affine(center, scale, res, rot_deg=rot)
+    assert got.dtype == want.dtype == np.float64
+    np.testing.assert_array_equal(got, want)

@@ -8,6 +8,7 @@ skip without a card; run them on a machine with one:
 GPU machine need not have.)
 
 ``chip_smoke.py`` runs the same comparisons at the main path's shapes.
+Tolerances are stated beside each test, with their reason.
 """
 
 import numpy as np
@@ -20,6 +21,16 @@ from shapy_tpu_torch.data.crop import (
     INGEST_KERNEL,
     crop_normalize,
     crop_normalize_plain,
+)
+from shapy_tpu_torch.eval import metrics
+from shapy_tpu_torch.eval.metrics import (
+    ALIGN_KERNEL,
+    REGRESS_KERNEL,
+    SparsePointRegressor,
+    aligned_point_error,
+    aligned_point_error_plain,
+    point_regress_error,
+    point_regress_error_plain,
 )
 from shapy_tpu_torch.measure.measurements import (
     MEASURE_KERNEL,
@@ -112,3 +123,124 @@ def test_skin_kernel_matches_plain(dev, body):
     assert SKIN_KERNEL.launches == before + 1
     torch.testing.assert_close(
         got, skin_plain(model.lbs_weights, rel, v), rtol=0, atol=1e-5)
+
+
+def _clouds(dev, B, P, seed):
+    """Well-conditioned clouds (distinct extents per axis) and a noisy,
+    rotated, scaled and shifted copy."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((B, P, 3), generator=gen) * torch.tensor([0.8, 0.3, 0.15])
+    R = torch.linalg.qr(torch.randn((B, 3, 3), generator=gen))[0]
+    R = R * torch.linalg.det(R).sign()[:, None, None]  # proper rotations
+    y = 1.3 * torch.einsum("bij,bpj->bpi", R, x) + torch.tensor(
+        [0.2, -1.0, 3.0])
+    noise = 0.01 * torch.randn((B, P, 3), generator=gen)
+    return x.to(dev), y.to(dev), (y + noise).to(dev)
+
+
+@pytest.mark.parametrize("P", [10475, 55, 14], ids=["v2v", "mpjpe",
+                                                     "mpjpe14"])
+@pytest.mark.parametrize("alignment", ["none", "root", "translation",
+                                       "scale", "procrustes"])
+def test_align_error_kernel_matches_plain(dev, alignment, P):
+    """K8b at the evaluator's shapes (B=32), against the plain version in
+    f64 (atol 1e-5 m: the kernel forms the aligned points in f32) and in
+    f32 (atol 1e-5 m for sums in another order; 3e-5 m for procrustes,
+    whose f32 SVD gives a rotation good to ~3e-6, and points lie up to
+    ~4 m from the centroid)."""
+    x, _, y = _clouds(dev, 32, P, seed=P)
+    root = (2, 3)
+    before = ALIGN_KERNEL.launches
+    got = aligned_point_error(y, x, alignment, root)
+    assert ALIGN_KERNEL.launches == before + 1
+    exact = aligned_point_error_plain(y.double(), x.double(), alignment, root)
+    torch.testing.assert_close(got, exact.float(), rtol=0, atol=1e-5)
+    want = aligned_point_error_plain(y, x, alignment, root)
+    tol = 3e-5 if alignment == "procrustes" else 1e-5
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    # fixed-order reductions: the same bits on every run
+    assert torch.equal(got, aligned_point_error(y, x, alignment, root))
+
+
+def test_procrustes_kernel_recovers_a_similarity_and_keeps_mirrors(dev):
+    x, y, _ = _clouds(dev, 32, 10475, seed=1)
+    err = aligned_point_error(y, x, "procrustes")
+    assert float(err.max()) < 1e-5  # an exact similarity: error ~ 0
+    mirrored = (x * torch.tensor([-1.0, 1.0, 1.0], device=dev)).contiguous()
+    got = aligned_point_error(mirrored, x, "procrustes")
+    assert float(got.mean(dim=1).min()) > 1e-3  # no reflections
+    # against the plain version in f64, as above (atol 1e-5 m)
+    exact = aligned_point_error_plain(mirrored.double(), x.double(),
+                                      "procrustes")
+    torch.testing.assert_close(got, exact.float(), rtol=0, atol=1e-5)
+
+
+def _regressor(dev, V, P, K, seed):
+    gen = torch.Generator().manual_seed(seed)
+    idx = torch.randint(0, V, (P, K), generator=gen)
+    w = torch.rand((P, K), generator=gen)
+    return SparsePointRegressor(idx.numpy(), (w / w.sum(1, keepdim=True))
+                                .numpy(), device=dev)
+
+
+@pytest.mark.parametrize("case", ["same", "target", "no-align"])
+def test_point_regress_kernel_matches_plain(dev, case):
+    """K8a at the P2P-20k shapes: B=32, V=10475, P=20000, K=3; a separate
+    target regressor (V=6890, K=2); align=False. Tolerance atol 1e-5 m:
+    the translation's means are summed in another order."""
+    gen = torch.Generator().manual_seed(2)
+    v_in = torch.randn((32, 10475, 3), generator=gen).to(dev)
+    reg = _regressor(dev, 10475, 20000, 3, seed=3)
+    tr = reg
+    v_tgt = (v_in + 0.01 * torch.randn((32, 10475, 3), generator=gen)
+             .to(dev) + 0.5)
+    if case == "target":
+        tr = _regressor(dev, 6890, 20000, 2, seed=4)
+        v_tgt = torch.randn((32, 6890, 3), generator=gen).to(dev)
+    args = (v_in, v_tgt, reg.indices, reg.weights, tr.indices, tr.weights,
+            case != "no-align")
+    before = REGRESS_KERNEL.launches
+    got = point_regress_error(*args)
+    assert REGRESS_KERNEL.launches == before + 1
+    torch.testing.assert_close(got, point_regress_error_plain(*args),
+                               rtol=0, atol=1e-5)
+    assert torch.equal(got, point_regress_error(*args))
+    if case == "same":  # a constant offset is removed by the alignment
+        shifted = (v_in + torch.tensor([1.0, -2.0, 0.5], device=dev))
+        assert float(reg(shifted.contiguous(), v_in).max()) < 1e-5
+
+
+def test_k8_wrappers_reject_what_the_kernels_do_not_take(dev):
+    x, y, _ = _clouds(dev, 2, 50, seed=5)
+    with pytest.raises(TypeError):
+        aligned_point_error(y.double(), x.double(), "procrustes")
+    with pytest.raises(ValueError):
+        aligned_point_error(y, x[:, :40].contiguous(), "procrustes")
+    with pytest.raises(ValueError, match="contiguous"):
+        aligned_point_error(y.transpose(1, 2).transpose(1, 2)[:, ::2],
+                            x[:, ::2], "scale")
+    with pytest.raises(ValueError, match="root"):
+        aligned_point_error(y, x, "root", root=(50,))
+    reg = _regressor(dev, 50, 30, 3, seed=6)
+    with pytest.raises(TypeError):
+        point_regress_error(y, x, reg.indices.long(), reg.weights,
+                            reg.indices, reg.weights)
+    with pytest.raises(ValueError):
+        point_regress_error(y, x.cpu(), reg.indices, reg.weights,
+                            reg.indices, reg.weights)
+    with pytest.raises(ValueError, match="indexes"):
+        reg(y[:, :10].contiguous(), x)
+
+
+def test_k8_cuda_tensors_never_fall_back_to_plain(dev, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    monkeypatch.setattr(metrics, "aligned_point_error_plain", refuse)
+    monkeypatch.setattr(metrics, "point_regress_error_plain", refuse)
+    x, y, _ = _clouds(dev, 2, 60, seed=7)
+    reg = _regressor(dev, 60, 40, 3, seed=8)
+    a, r = ALIGN_KERNEL.launches, REGRESS_KERNEL.launches
+    metrics.PointError("procrustes")(y, x)
+    reg(y, x)
+    assert (ALIGN_KERNEL.launches, REGRESS_KERNEL.launches) == (a + 1, r + 1)

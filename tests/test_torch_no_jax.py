@@ -1,20 +1,29 @@
-"""The port runs where neither jax nor yaml is installed, so it never
-imports them. Every module of the port and ``chip_smoke``'s helpers are
-imported in a fresh interpreter in which importing jax or yaml raises."""
+"""The port runs where neither jax nor yaml is installed, and stands
+apart from the JAX package, so it never imports jax, yaml or any module
+of ``shapy_tpu`` (numpy-only ones included). Every module of the port and
+``chip_smoke``'s helpers are imported in a fresh interpreter in which
+importing any of them raises; ``shapy_tpu_torch`` itself is matched by its
+exact top-level name and still imports."""
 
+import inspect
 import os
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
+import torch
 
 REPO = Path(__file__).resolve().parents[1]
 
 SCRIPT = r"""
 import importlib, importlib.abc, pkgutil, sys
 
+BLOCKED = ("jax", "jaxlib", "yaml", "shapy_tpu")
+
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "yaml"):
+        if name.split(".")[0] in BLOCKED:
             raise ImportError(f"blocked import of {name}")
         return None
 
@@ -26,7 +35,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 chip_smoke.kernels()
-bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "yaml")]
+bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not bad, bad
 print(len(names))
 """
@@ -38,3 +47,16 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 20  # every module was walked
+
+
+def test_build_flagship_asks_for_the_card(monkeypatch):
+    """The entry point runs on the card unless the caller asks for the
+    CPU: without CUDA, the default raises instead of building on the
+    CPU."""
+    from shapy_tpu_torch.flagship import build_flagship
+
+    default = inspect.signature(build_flagship).parameters["device"].default
+    assert default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_flagship(subdivisions=1)
