@@ -6,16 +6,22 @@ GPU: the quickest proof that the port still starts on the card.
 
 Phases, each of which raises on failure (exit code 1):
 
-1. Prints the card's name and power limit, and builds the five
-   hand-written CUDA kernels (K1 measure, K2 ingest, K3 skinning, K8a P2P
-   point error, K8b aligned point error) from ``shapy_tpu_torch/csrc/``,
-   one nvcc process each, all started together.
+1. Prints the card's name and power limit, and builds the seven
+   hand-written CUDA sources (K1 measure, K2 ingest, K3 skinning forward
+   and backward, K3-chain forward and backward, K4 train-mode BatchNorm
+   forward and backward, K8a P2P point error, K8b aligned point error)
+   from ``shapy_tpu_torch/csrc/``, one nvcc process each, all started
+   together, and prints each kernel's registers and stack.
 2. Holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes (batch 32, SMPL-X 10475 vertices / 20908 faces,
    K=256 hull directions, 480x360 uint8 images -> 256x256 crops, a
    P2P regressor of 20000 points x 3 vertices, alignments over 10475
-   vertices) and times both with CUDA events; computes each kernel's
-   bound (bytes or FLOPs of this run's inputs at 3.35 TB/s / 67 TFLOP/s).
+   vertices; for training batch 48: the chain of 55 joints, skinning's
+   backward, and K4 on the stem's first BN and a stage-4 BN in bf16 and
+   f32, the backwards first against autograd through the plain versions
+   in f64) and times both with CUDA events, and K4 beside
+   ``F.batch_norm(training=True)``; computes each kernel's bound (bytes
+   or FLOPs of this run's inputs at 3.35 TB/s / 67 TFLOP/s).
 3. Serves the flagship (HRNet-W48 at full width, 3-stage head with MLP
    (1024, 1024), SMPL-X, measurements; bf16 backbone) through
    ``apply_from_full_images``: one warm-up, then 3 requests of batch 32.
@@ -24,7 +30,9 @@ Phases, each of which raises on failure (exit code 1):
    K1, K2 and K3 were launched by this run.
 4. Cross-device parity: the same weights at batch 2 with an f32 backbone
    and TF32 off, the CPU port (plain versions) against the CUDA port
-   (kernels): outputs, and the evaluator's metrics on them.
+   (kernels): outputs, and the evaluator's metrics on them; then one train
+   step (dropout 0): losses, each module's gradient norm and cosine, the
+   head's gradients elementwise, and the updated parameters.
 5. Evaluates the flagship of phase 3 at batch 32: 3 batches of synthetic
    ground truth (shaped and posed SMPL-X bodies from seeded betas and
    poses, GT measurements from K1 on all faces, genders and BMI buckets,
@@ -38,10 +46,21 @@ Phases, each of which raises on failure (exit code 1):
    with ``cli.evaluate_hbw.evaluate_submission`` (K8b V2V, K8a P2P, K1 on
    all faces); checks the launches, finite errors and the plain versions'
    numbers.
+7. Trains the flagship at full width (bf16 backbone, dropout 0.5, the
+   losses and the Adam optimizer of ``configs/train_shapy.yaml`` that need
+   no files) with ``Trainer.fit``: 2 warm-up steps, then 10 steps on one
+   fixed synthetic batch of 48. Checks finite losses and a last total
+   below the first, that every BN running stat moved and ``param_mean``
+   did not, and that K1, K3 and K3-chain (forward and backward) and K4
+   (forward and backward) were launched by these 10 steps; prints steps/s,
+   images/s and the peak device memory beside the card.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Without CUDA, or without
-the repository beside this file, it exits non-zero and prints no result.
+The line before the last is a JSON object with one entry per kernel
+function (forward and backward separately); ``launches`` counts the
+training phase for the kernels it runs and the evaluation phase for the
+others. The last line is ``{"ok": true, "device": {...}}``. Without CUDA,
+or without the repository beside this file, it exits non-zero and prints
+no result.
 """
 
 from __future__ import annotations
@@ -65,6 +84,8 @@ BETA_BOUND = 8.0  # candidate_faces' bound: the subsets are exact inside it
 EVAL_BATCHES = 3
 P2P_POINTS = 20000
 SUBMISSION = 64
+TRAIN_B = 48  # train_shapy.yaml's batch
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
 # The H100 SXM's published peaks (at its 700 W limit): HBM bytes/s and
 # f32 FLOP/s outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
@@ -114,7 +135,7 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def max_err(a, b) -> float:
-    return float((a.float() - b.float()).abs().max())
+    return float((a.detach().float() - b.detach().float()).abs().max())
 
 
 def bound(nbytes: float, flops: float) -> tuple:
@@ -124,42 +145,93 @@ def bound(nbytes: float, flops: float) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return max_err(got, want) / max(float(want.float().abs().max()), 1e-30)
+
+
+def record_kernel(results, name, err, fn, plain_fn, nbytes, flops,
+                  library_fn=None):
+    ms, plain_ms = time_ms(fn), time_ms(plain_fn)
+    library_ms = None if library_fn is None else time_ms(library_fn)
+    bound_ms, bound_by = bound(nbytes, flops)
+    results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": library_ms}
+    lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+    print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, bound "
+          f"{bound_ms:.4f} ms ({bound_by}; {nbytes / 1e6:.2f} MB, "
+          f"{flops / 1e6:.1f} MFLOP), kernel at {bound_ms / ms:.1%} of its "
+          "bound")
+    return results[name]
+
+
 def kernels():
-    """(name, CudaKernel, source, replaced TPU-side function) of the
-    paths."""
+    """(name, CudaKernel, exported function, source, replaced TPU-side
+    function) of every kernel of the paths; forward and backward are
+    separate entries."""
+    from shapy_tpu_torch.core.kinematics import CHAIN_KERNEL
     from shapy_tpu_torch.data.crop import INGEST_KERNEL
     from shapy_tpu_torch.eval.metrics import ALIGN_KERNEL, REGRESS_KERNEL
     from shapy_tpu_torch.measure.measurements import MEASURE_KERNEL
+    from shapy_tpu_torch.models.backbones.layers import BN_KERNEL
     from shapy_tpu_torch.models.body.lbs import SKIN_KERNEL
 
+    csrc = "shapy_tpu_torch/csrc/"
     return [
-        ("K1_measure", MEASURE_KERNEL, "shapy_tpu_torch/csrc/measure.cu",
+        ("K1_measure", MEASURE_KERNEL, "measure_forward", csrc + "measure.cu",
          "shapy_tpu/ops/plane_slice.py:74"),
-        ("K2_ingest", INGEST_KERNEL, "shapy_tpu_torch/csrc/ingest.cu",
+        ("K2_ingest", INGEST_KERNEL, "ingest_forward", csrc + "ingest.cu",
          "shapy_tpu/data/crop.py:96"),
-        ("K3_skinning", SKIN_KERNEL, "shapy_tpu_torch/csrc/skinning.cu",
+        ("K3_skinning", SKIN_KERNEL, "skin_forward", csrc + "skinning.cu",
          "shapy_tpu/models/body/lbs.py:97"),
-        ("K8a_point_regress", REGRESS_KERNEL,
-         "shapy_tpu_torch/csrc/point_regress.cu",
-         "shapy_tpu/eval/metrics.py:228"),
-        ("K8b_align_error", ALIGN_KERNEL,
-         "shapy_tpu_torch/csrc/align_error.cu",
-         "shapy_tpu/eval/metrics.py:123"),
+        ("K3_skinning_backward", SKIN_KERNEL, "skin_backward",
+         csrc + "skinning.cu", "shapy_tpu/models/body/lbs.py:97"),
+        ("K3chain_forward", CHAIN_KERNEL, "chain_forward",
+         csrc + "kinematic_chain.cu", "shapy_tpu/core/kinematics.py:54"),
+        ("K3chain_backward", CHAIN_KERNEL, "chain_backward",
+         csrc + "kinematic_chain.cu", "shapy_tpu/core/kinematics.py:54"),
+        ("K4_bn_forward", BN_KERNEL, "bn_forward", csrc + "batch_norm.cu",
+         "shapy_tpu/models/backbones/layers.py:174"),
+        ("K4_bn_backward", BN_KERNEL, "bn_backward", csrc + "batch_norm.cu",
+         "shapy_tpu/models/backbones/layers.py:198"),
+        ("K8a_point_regress", REGRESS_KERNEL, "point_regress_forward",
+         csrc + "point_regress.cu", "shapy_tpu/eval/metrics.py:228"),
+        ("K8b_align_error", ALIGN_KERNEL, "align_error_forward",
+         csrc + "align_error.cu", "shapy_tpu/eval/metrics.py:123"),
     ]
 
 
+# The kernels each path runs.
+SERVE_KERNELS = ("K1_measure", "K2_ingest", "K3_skinning", "K3chain_forward")
+EVAL_KERNELS = SERVE_KERNELS + ("K8a_point_regress", "K8b_align_error")
+SCORE_KERNELS = ("K1_measure", "K8a_point_regress", "K8b_align_error")
+TRAIN_KERNELS = ("K1_measure", "K3_skinning", "K3_skinning_backward",
+                 "K3chain_forward", "K3chain_backward", "K4_bn_forward",
+                 "K4_bn_backward")
+
+
+def sources():
+    """Each CudaKernel once (one nvcc per source)."""
+    unique = {}
+    for _, kernel, _, _, _ in kernels():
+        unique.setdefault(kernel.source, kernel)
+    return list(unique.values())
+
+
 def reset_launches() -> None:
-    for _, kernel, _, _ in kernels():
-        kernel.launches = 0
+    for kernel in sources():
+        kernel.reset_counts()
 
 
 def read_launches() -> dict:
-    return {name: kernel.launches for name, kernel, _, _ in kernels()}
+    return {name: kernel.counts[fn] for name, kernel, fn, _, _ in kernels()}
 
 
 def check_kernels(regressor, requests, eval_data, dev):
     """Each kernel against its plain version at the main paths' shapes.
-    Returns {name: dict(max_abs_err, ms, plain_ms, bound_ms, bound_by)}."""
+    Returns {name: dict(max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    library_ms)}."""
     import torch
 
     from shapy_tpu_torch.core.kinematics import batch_rigid_transform
@@ -184,16 +256,6 @@ def check_kernels(regressor, requests, eval_data, dev):
     gen = torch.Generator().manual_seed(SEED + 1)
     model = regressor.model
     meas = regressor.body_measurements
-
-    def record(name, err, fn, plain_fn, nbytes, flops):
-        ms, plain_ms = time_ms(fn), time_ms(plain_fn)
-        bound_ms, bound_by = bound(nbytes, flops)
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by}
-        print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}; {nbytes / 1e6:.2f} MB, "
-              f"{flops / 1e6:.1f} MFLOP), kernel at "
-              f"{bound_ms / ms:.1%} of its bound")
 
     # K1: bodies with ||beta|| <= 6, on the candidate subsets (the main
     # path) and on all faces. Tolerances: mass / height rel 1e-5 (f32 sums
@@ -239,7 +301,7 @@ def check_kernels(regressor, requests, eval_data, dev):
     F = meas.faces.shape[0]
     n_cand = sum(int(ids.shape[0]) for ids in subsets)
     k1 = (v_shaped, meas.faces, subsets, meas.anchors)
-    record("K1_measure", k1_err,
+    record_kernel(results, "K1_measure", k1_err,
            lambda: measure_reference(*k1, meas.anchor_face, meas.anchor_bary,
                                      meas.hull_cos, meas.hull_sin,
                                      meas.density),
@@ -265,7 +327,7 @@ def check_kernels(regressor, requests, eval_data, dev):
     check(err16 <= 2.0 ** -6, f"K2 bf16 err {err16}")
     # Per output pixel: the affine map (8 FLOP) and, per channel, the
     # bilinear blend (11) and the normalisation (2).
-    record("K2_ingest", err16,
+    record_kernel(results, "K2_ingest", err16,
            lambda: crop_normalize(images, affines, CROP,
                                   out_dtype=torch.bfloat16),
            lambda: crop_normalize_plain(images, affines, CROP,
@@ -289,7 +351,7 @@ def check_kernels(regressor, requests, eval_data, dev):
     check(err <= 1e-5, f"K3 err {err}")
     V, J = model.lbs_weights.shape
     # Per vertex: 12 multiply-adds per joint, then the 3x4 transform.
-    record("K3_skinning", err,
+    record_kernel(results, "K3_skinning", err,
            lambda: skin(model.lbs_weights, rel, v_posed),
            lambda: skin_plain(model.lbs_weights, rel, v_posed),
            (V * J + rel.numel() + 2 * v_posed.numel()) * 4,
@@ -313,7 +375,7 @@ def check_kernels(regressor, requests, eval_data, dev):
     P, K = reg.indices.shape
     # Per (body, point): two K-term regressions (6K FLOP each), the
     # translation and the distance (~15 FLOP).
-    record("K8a_point_regress", err,
+    record_kernel(results, "K8a_point_regress", err,
            lambda: point_regress_error(*k8a, True),
            lambda: point_regress_error_plain(*k8a, True),
            (pred_v.numel() + gt_v.numel()) * 4 + P * K * 8 + B * P * 4,
@@ -345,7 +407,7 @@ def check_kernels(regressor, requests, eval_data, dev):
     Pv = gt_p.shape[1]
     # Per (body, point), procrustes: means (6), centred moments (~24) and
     # the rotated, scaled point and its error (~40).
-    record("K8b_align_error", err,
+    record_kernel(results, "K8b_align_error", err,
            lambda: aligned_point_error(est, gt_p, "procrustes"),
            lambda: aligned_point_error_plain(est, gt_p, "procrustes"),
            (est.numel() + gt_p.numel()) * 4 + B * Pv * 4,
@@ -384,7 +446,7 @@ def serve(regressor, requests):
     spread = float(betas.std(dim=0).max())
     check(beta_norm < BETA_BOUND, f"||beta|| {beta_norm} outside the bound")
     check(spread > 1e-3, "betas do not vary per image")
-    for name in ("K1_measure", "K2_ingest", "K3_skinning"):
+    for name in SERVE_KERNELS:
         check(launches[name] > 0, f"{name} was not launched by serving")
     rate = 3 * B / elapsed
     meas = {k: [round(float(v.min()), 4), round(float(v.max()), 4)]
@@ -492,8 +554,8 @@ def evaluate(regressor, eval_data, serve_rate):
     elapsed = time.perf_counter() - start
     launches = read_launches()
 
-    for name, n in launches.items():
-        check(n > 0, f"{name} was not launched by the eval path")
+    for name in EVAL_KERNELS:
+        check(launches[name] > 0, f"{name} was not launched by the eval path")
     metric_names = [k for k in results if "/" not in k]
     check(len(metric_names) == 15, f"metrics {sorted(metric_names)}")
     check(all(math.isfinite(v) for v in results.values()),
@@ -557,7 +619,7 @@ def score(regressor, eval_data, dev):
                                   "smplx", reg, reg, meas, meas,
                                   batch_size=B, device=dev)
     launches = read_launches()
-    for name in ("K1_measure", "K8a_point_regress", "K8b_align_error"):
+    for name in SCORE_KERNELS:
         check(launches[name] > 0, f"{name} was not launched by the scorer")
     check(all(math.isfinite(v) for v in results.values()) and
           len(results) == 7, f"scorer results {results}")
@@ -593,6 +655,362 @@ def score(regressor, eval_data, dev):
           f"{max(abs(results[k] - v) for k, v in plain.items()):.2e}")
 
 
+def check_train_kernels(model, dev):
+    """Phase 2, the training path's kernels at its shapes (batch 48):
+    K3-chain forward and backward, K3's backward, and K4 forward and
+    backward on the stem's first BN (64 x 128 x 128) and on a stage-4
+    branch-3 BN (384 x 8 x 8), in bf16 and f32. The backwards are first
+    held against autograd through the plain versions in f64, then timed
+    against the plain versions' backwards."""
+    import torch
+    import torch.nn.functional as F
+
+    from shapy_tpu_torch.core.kinematics import (
+        batch_rigid_transform,
+        batch_rigid_transform_plain,
+    )
+    from shapy_tpu_torch.core.rotations import aa_to_rotmat
+    from shapy_tpu_torch.models.backbones.layers import (
+        batch_norm_train,
+        batch_norm_train_backward_plain,
+        batch_norm_train_plain,
+    )
+    from shapy_tpu_torch.models.body.lbs import skin, skin_plain
+
+    results = {}
+    gen = torch.Generator().manual_seed(SEED + 7)
+    Bt, J = TRAIN_B, model.num_joints
+    parents, levels = model.parents, model.levels
+    betas = (torch.randn((Bt, model.num_betas), generator=gen) * 1.5).to(dev)
+    v_shaped = model.forward_shape(betas)["v_shaped"].contiguous()
+    joints = torch.matmul(model.J_regressor, v_shaped).contiguous()
+    rot = aa_to_rotmat((torch.randn((Bt, J, 3), generator=gen) * 0.3)
+                       .to(dev)).contiguous()
+    cts = [torch.randn(s, generator=gen).to(dev) for s in
+           ((Bt, J, 3), (Bt, J, 4, 4), (Bt, J, 4, 4))]
+
+    # K3-chain. Tolerances atol 1e-5: 3x4 products over 8 levels in f32.
+    def chain_graph(fn, dtype):
+        r = rot.to(dtype, copy=True).requires_grad_()
+        j = joints.to(dtype, copy=True).requires_grad_()
+        return fn(r, j), (r, j)
+
+    kern = lambda r, j: batch_rigid_transform(r, j, parents)  # noqa: E731
+    plain = lambda r, j: batch_rigid_transform_plain(  # noqa: E731
+        r, j, parents, levels)
+    outs, ins = chain_graph(kern, torch.float32)
+    got = torch.autograd.grad(outs, ins, cts, retain_graph=True)
+    fwd_err = max(max_err(a, b) for a, b in
+                  zip(outs, plain(rot, joints)))
+    bwd_err = 0.0
+    for dtype in (torch.float64, torch.float32):
+        p_outs, p_ins = chain_graph(plain, dtype)
+        want = torch.autograd.grad(p_outs, p_ins,
+                                   [c.to(dtype) for c in cts])
+        bwd_err = max(bwd_err, *(max_err(a, b) for a, b in zip(got, want)))
+    again = torch.autograd.grad(*chain_graph(kern, torch.float32), cts)
+    print(f"K3-chain (batch {Bt}, {J} joints): forward err {fwd_err:.3e}, "
+          f"backward err vs plain autograd f64/f32 {bwd_err:.3e} (tol 1e-5); "
+          f"two runs bit-equal: "
+          f"{all(torch.equal(a, b) for a, b in zip(got, again))}")
+    check(fwd_err <= 1e-5 and bwd_err <= 1e-5, "K3-chain vs plain")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "K3-chain backward is not deterministic")
+    p_outs, p_ins = chain_graph(plain, torch.float32)
+    n_in, n_out = Bt * J * 12, Bt * J * 35
+    record_kernel(results, "K3chain_forward", fwd_err,
+                  lambda: batch_rigid_transform(rot, joints, parents),
+                  lambda: batch_rigid_transform_plain(rot, joints, parents,
+                                                      levels),
+                  (n_in + n_out) * 4, Bt * J * (60 + 15))
+    record_kernel(results, "K3chain_backward", bwd_err,
+                  lambda: torch.autograd.grad(outs, ins, cts,
+                                              retain_graph=True),
+                  lambda: torch.autograd.grad(p_outs, p_ins, cts,
+                                              retain_graph=True),
+                  (n_in + Bt * J * 16 + n_out + n_in) * 4, Bt * J * 160)
+
+    # K3 backward at the train path's shapes: tolerance 1e-5 of the
+    # largest gradient (sums over 10475 vertices in f32).
+    _, rel, _ = batch_rigid_transform(rot, joints, parents)
+    rel = rel.contiguous()
+    v_posed = (v_shaped + 0.01 * torch.randn(v_shaped.shape, generator=gen)
+               .to(dev)).contiguous()
+    dv = torch.randn(v_posed.shape, generator=gen).to(dev)
+    W = model.lbs_weights
+    V = W.shape[0]
+
+    def skin_graph(fn, dtype):
+        a = rel.to(dtype, copy=True).requires_grad_()
+        b = v_posed.to(dtype, copy=True).requires_grad_()
+        return fn(W.to(dtype), a, b), (a, b)
+
+    out, s_ins = skin_graph(skin, torch.float32)
+    got = torch.autograd.grad(out, s_ins, dv, retain_graph=True)
+    err = 0.0
+    for dtype in (torch.float64, torch.float32):
+        want = torch.autograd.grad(*skin_graph(skin_plain, dtype),
+                                   dv.to(dtype))
+        err = max(err, *(max_err(a, b) / max(1.0, float(b.abs().max()))
+                         for a, b in zip(got, want)))
+    again = torch.autograd.grad(*skin_graph(skin, torch.float32), dv)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    print(f"K3 skinning backward (batch {Bt}): err vs plain autograd "
+          f"f64/f32 {err:.3e} of the largest gradient (tol 1e-5); two runs "
+          f"bit-equal: {same}")
+    check(err <= 1e-5 and same, "K3 backward vs plain")
+    p_out, p_ins = skin_graph(skin_plain, torch.float32)
+    # Per vertex: the transform again (24 J), d v_posed (15), the outer
+    # product (12) and 24 FLOP per joint into d A.
+    record_kernel(results, "K3_skinning_backward", err,
+                  lambda: torch.autograd.grad(out, s_ins, dv,
+                                              retain_graph=True),
+                  lambda: torch.autograd.grad(p_out, p_ins, dv,
+                                              retain_graph=True),
+                  (V * J + 2 * rel.numel() + 3 * v_posed.numel()) * 4,
+                  Bt * V * (48 * J + 27))
+
+    # K4: tolerances rel 1e-4 in f32 (sums in another order), one bf16
+    # step (2^-7 of the largest value) in bf16; parameter gradients rel
+    # 1e-4 (f32 sums) in both.
+    cases = {"K4_bn_forward": [], "K4_bn_backward": []}
+    for layer, shape in (("stem bn1", (Bt, 64, 128, 128)),
+                         ("stage4 branch3", (Bt, 384, 8, 8))):
+        for dtype in (torch.bfloat16, torch.float32):
+            C = shape[1]
+            x = (torch.randn(shape, generator=gen) * 2 + 0.3).to(dev, dtype)
+            x = x.contiguous(memory_format=torch.channels_last)
+            dy = torch.randn(shape, generator=gen).to(dev, dtype).contiguous(
+                memory_format=torch.channels_last)
+            g = (torch.rand(C, generator=gen) + 0.5).to(dev)
+            b = torch.randn(C, generator=gen).to(dev)
+            rm, rv = torch.zeros(C, device=dev), torch.ones(C, device=dev)
+            xs, gs, bs = (t.clone().requires_grad_() for t in (x, g, b))
+            y = batch_norm_train(xs, gs, bs, rm, rv)
+            dx, dg, db = torch.autograd.grad(y, (xs, gs, bs), dy,
+                                             retain_graph=True)
+            y_p, mean_p, var_p = batch_norm_train_plain(x, g, b)
+            inv_p = torch.rsqrt(var_p + 1e-5)
+            dx_p, dg_p, db_p = batch_norm_train_backward_plain(
+                dy, x, g, mean_p, inv_p)
+            tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+            errs = {"y": rel_err(y, y_p), "dx": rel_err(dx, dx_p),
+                    "dgamma": rel_err(dg, dg_p), "dbeta": rel_err(db, db_p)}
+            tols = {"y": tol, "dx": tol, "dgamma": 1e-4, "dbeta": 1e-4}
+            name = f"K4 {layer} {str(dtype)[6:]} {tuple(shape)}"
+            print(f"{name}: rel err " + ", ".join(
+                f"{k} {v:.3e} (tol {tols[k]:.1e})" for k, v in errs.items()))
+            for k, v in errs.items():
+                check(v <= tols[k], f"{name} {k} rel err {v}")
+            again = torch.autograd.grad(
+                batch_norm_train(xs, gs, bs), (xs, gs, bs), dy)
+            check(all(torch.equal(u, w) for u, w in
+                      zip((dx, dg, db), again)), f"{name} not deterministic")
+            n, es = x.numel(), x.element_size()
+            xl, gl, bl = (t.clone().requires_grad_() for t in (x, g, b))
+            y_l = F.batch_norm(xl, rm.clone(), rv.clone(), gl, bl, True,
+                               0.1, 1e-5)
+            common = {"layer": layer, "dtype": str(dtype)[6:],
+                      "shape": list(shape)}
+            fwd = record_kernel(
+                {}, f"K4_bn_forward ({layer}, {common['dtype']})",
+                max_err(y, y_p),
+                lambda: batch_norm_train(x, g, b, rm, rv),
+                lambda: batch_norm_train_plain(x, g, b),
+                2 * n * es + 8 * C * 4, 7 * n,
+                lambda: F.batch_norm(x, rm, rv, g, b, True, 0.1, 1e-5))
+            bwd = record_kernel(
+                {}, f"K4_bn_backward ({layer}, {common['dtype']})",
+                max(max_err(dx, dx_p), max_err(dg, dg_p), max_err(db, db_p)),
+                lambda: torch.autograd.grad(y, (xs, gs, bs), dy,
+                                            retain_graph=True),
+                lambda: batch_norm_train_backward_plain(dy, x, g, mean_p,
+                                                        inv_p),
+                3 * n * es + 6 * C * 4, 10 * n,
+                lambda: torch.autograd.grad(y_l, (xl, gl, bl), dy,
+                                            retain_graph=True))
+            cases["K4_bn_forward"].append({**common, **fwd,
+                                           "rel_err": errs["y"]})
+            cases["K4_bn_backward"].append({**common, **bwd,
+                                            "rel_err": max(errs["dx"],
+                                                           errs["dgamma"],
+                                                           errs["dbeta"])})
+    # The kernels line's numbers: the main path's dtype (bf16) on the
+    # largest layer (the stem); every case beside them.
+    for name, rows in cases.items():
+        results[name] = dict(rows[0], cases=rows)
+    return results
+
+
+def _train_step_once(reg, batch, device):
+    """One train step of ``reg`` on ``device``: (losses, gradients,
+    parameters before and after), on the CPU."""
+    from shapy_tpu_torch.flagship import (
+        FLAGSHIP_OPTIM_CFG,
+        FLAGSHIP_TRAIN_LOSS_CFG,
+    )
+    from shapy_tpu_torch.train.losses import RegressorLosses
+    from shapy_tpu_torch.train.step import init_train_state, make_train_step
+
+    step = make_train_step(reg, RegressorLosses(FLAGSHIP_TRAIN_LOSS_CFG),
+                           init_train_state(reg, FLAGSHIP_OPTIM_CFG))
+    b = {k: v.to(device) for k, v in batch.items()}
+    images = b.pop("images")
+    before = {k: p.detach().cpu() for k, p in reg.named_parameters()}
+    loss = step.forward(images, b)
+    step.backward(loss)
+    grads = {k: p.grad.detach().cpu() for k, p in reg.named_parameters()}
+    step.update()
+    return ({k: float(v.detach()) for k, v in loss.items()}, grads, before,
+            {k: p.detach().cpu() for k, p in reg.named_parameters()})
+
+
+def _module(name: str) -> str:
+    parts = name.split(".")
+    if parts[0] != "backbone":
+        return parts[0]
+    if parts[1] in ("conv1", "bn1", "conv2", "bn2"):
+        return "backbone.stem"
+    return ".".join(parts[:2])
+
+
+def train_parity(base, dev):
+    """Phase 4, training: one train step of the same weights at batch 2,
+    f32, TF32 off, dropout 0, on the CPU port (plain versions) and the
+    CUDA port (kernels): the losses, the gradient of each module (norm
+    and cosine), the head's gradients elementwise, and the updated
+    parameters."""
+    import torch
+
+    from shapy_tpu_torch.flagship import (
+        FLAGSHIP_OPTIM_CFG,
+        synthetic_train_batches,
+    )
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        runs = []
+        for device in ("cpu", dev):
+            reg = copy.deepcopy(base).to(device)
+            reg.head.dropout = 0.0
+            reg.prepare_for_train_(torch.float32)
+            batch = synthetic_train_batches(reg, 1, 2, CROP, SEED + 8)[0]
+            runs.append(_train_step_once(reg, batch, device))
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    (loss_c, grad_c, old, new_c), (loss_g, grad_g, _, new_g) = runs
+    loss_rel = max(abs(loss_g[k] - v) / abs(v) for k, v in loss_c.items())
+    sums = {}
+    for k, gc in grad_c.items():
+        gc, gg = gc.double(), grad_g[k].double()
+        acc = sums.setdefault(_module(k), [0.0, 0.0, 0.0])
+        acc[0] += float((gc * gc).sum())
+        acc[1] += float((gg * gg).sum())
+        acc[2] += float((gc * gg).sum())
+    norm_rel = max(abs(b ** 0.5 - a ** 0.5) / a ** 0.5
+                   for a, b, _ in sums.values())
+    cos = min(c / (a * b) ** 0.5 for a, b, c in sums.values())
+    # the head's gradients carry those of the body model's kernels (K3,
+    # K3-chain, through the betas and poses it predicts): elementwise,
+    # relative to each tensor's largest
+    head_err = max(float((grad_g[k] - gc).abs().max() / gc.abs().max())
+                   for k, gc in grad_c.items() if k.startswith("head."))
+    # Adam's first update is lr x sign(g + wd p): elements whose decayed
+    # gradient has the same sign on both sides (and is above 1e-6) must
+    # agree to 1e-5; any element to 2 lr.
+    flipped = total = 0
+    same_err = all_err = 0.0
+    wd = FLAGSHIP_OPTIM_CFG["weight_decay"]
+    for k, gc in grad_c.items():
+        decay = 0.0 if "bias" in k else wd * old[k]  # no decay on biases
+        tc, tg = gc + decay, grad_g[k] + decay
+        same = (torch.sign(tc) == torch.sign(tg)) & (tc.abs() > 1e-6) & (
+            tg.abs() > 1e-6)
+        d = (new_c[k] - new_g[k]).abs()
+        if same.any():
+            same_err = max(same_err, float(d[same].max()))
+        all_err = max(all_err, float(d.max()))
+        flipped += int(((torch.sign(tc) != torch.sign(tg)) & (
+            tc.abs() > 1e-6) & (tg.abs() > 1e-6)).sum())
+        total += d.numel()
+    print(f"cross-device train step (batch 2, f32, no TF32): loss "
+          f"{loss_c['total']:.6f} vs {loss_g['total']:.6f}, terms rel err "
+          f"{loss_rel:.3e} (tol 1e-4); gradients of {len(sums)} modules: "
+          f"norm rel err <= {norm_rel:.3e} (tol 2e-2), cosine >= {cos:.6f} "
+          f"(tol 0.998); head gradients err <= {head_err:.3e} of each "
+          f"tensor's largest (tol 2e-3); updated params err "
+          f"{same_err:.3e} (tol 1e-5) where the decayed gradients agree in "
+          f"sign, {all_err:.3e} on all (tol "
+          f"2 lr = 2e-4); signs turned over on {flipped} of {total} "
+          "(tol 5%)")
+    check(loss_rel <= 1e-4, f"cross-device train loss {loss_rel}")
+    check(norm_rel <= 2e-2 and cos >= 0.998,
+          f"cross-device gradients: norm {norm_rel}, cosine {cos}")
+    check(head_err <= 2e-3, f"cross-device head gradients {head_err}")
+    check(same_err <= 1e-5, f"cross-device updated params {same_err}")
+    check(all_err <= 2e-4 + 1e-6, f"cross-device updated params {all_err}")
+    check(flipped < 0.05 * total, f"gradient signs turned over on "
+          f"{flipped / total}")
+
+
+def train(base, dev):
+    """Phase 7: ``Trainer.fit`` on the flagship at full width, batch 48,
+    bf16 backbone, dropout 0.5: 2 warm-up steps, then 10 steps on one
+    fixed synthetic batch. Returns the launches of the 10 steps."""
+    import torch
+
+    from shapy_tpu_torch.flagship import (
+        FLAGSHIP_OPTIM_CFG,
+        FLAGSHIP_TRAIN_LOSS_CFG,
+        synthetic_train_batches,
+    )
+    from shapy_tpu_torch.train.losses import RegressorLosses
+    from shapy_tpu_torch.train.trainer import Trainer
+
+    reg = copy.deepcopy(base).to(dev).prepare_for_train_(torch.bfloat16)
+    batch = synthetic_train_batches(reg, 1, TRAIN_B, CROP, SEED + 9)
+    trainer = Trainer(reg, RegressorLosses(FLAGSHIP_TRAIN_LOSS_CFG),
+                      FLAGSHIP_OPTIM_CFG,
+                      summary_steps=TRAIN_WARMUP + TRAIN_STEPS, device=dev)
+    trainer.fit({"train": batch}, TRAIN_WARMUP, seed=SEED)
+    mean0 = reg.param_mean.clone()
+    stats0 = {k: v.clone() for k, v in reg.named_buffers()
+              if "running_" in k}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    totals = []
+    reset_launches()
+    start = time.perf_counter()
+    last = trainer.fit({"train": batch}, TRAIN_STEPS, seed=SEED,
+                       on_step=lambda s, m: totals.append(m["total"]))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+
+    totals = [float(t) for t in totals]
+    check(len(totals) == TRAIN_STEPS and all(map(math.isfinite, totals)),
+          f"train losses {totals}")
+    check(all(math.isfinite(v) for v in last.values()), f"losses {last}")
+    check(totals[-1] < totals[0], f"the loss did not fall: {totals}")
+    moved = sum(not torch.equal(v, stats0[k]) for k, v in
+                reg.named_buffers() if "running_" in k)
+    check(moved == len(stats0), f"{len(stats0) - moved} BN running stats "
+          "did not move")
+    check(torch.equal(reg.param_mean, mean0), "param_mean moved")
+    for name in TRAIN_KERNELS:
+        check(launches[name] > 0, f"{name} was not launched by training")
+    print(f"train: {TRAIN_STEPS} steps of batch {TRAIN_B} in "
+          f"{elapsed * 1e3:.1f} ms = {TRAIN_STEPS / elapsed:.3f} steps/s = "
+          f"{TRAIN_STEPS * TRAIN_B / elapsed:.1f} images/s; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; total loss {totals[0]:.4f} -> "
+          f"{totals[-1]:.4f}; last losses {json.dumps(last)}; {moved} BN "
+          f"running stats moved, param_mean fixed; launches {launches}; "
+          f"{gpu_line()}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -612,18 +1030,18 @@ def main() -> int:
           f"cuda {torch.version.cuda}")
     dev = torch.device("cuda", 0)
 
-    def build(entry):
-        name, kernel, _, _ = entry
+    def build(kernel):
         t = time.perf_counter()
         kernel.build()
-        return name, time.perf_counter() - t, kernel.build_log
+        return kernel.source, time.perf_counter() - t, kernel.build_log
 
-    with ThreadPoolExecutor(len(kernels())) as pool:
-        for name, secs, log in pool.map(build, kernels()):
-            regs = [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln]
+    with ThreadPoolExecutor(len(sources())) as pool:
+        for name, secs, log in pool.map(build, sources()):
+            usage = [ln.split("ptxas info    :")[-1].strip()
+                     for ln in log.splitlines()
+                     if "registers" in ln or "stack frame" in ln]
             print(f"built {name} in {secs:.1f} s; "
-                  f"{' | '.join(regs) or 'cached build'}")
+                  f"{' | '.join(usage) or 'cached build'}")
 
     base = build_flagship(subdivisions=5, exact_counts=True, device="cpu",
                           seed=SEED)
@@ -636,25 +1054,35 @@ def main() -> int:
                                     IMAGE_W, CROP, SEED + 5, P2P_POINTS)
 
     checked = check_kernels(regressor, requests, eval_data, dev)
+    checked.update(check_train_kernels(regressor.model, dev))
     serve_launches, serve_rate = serve(regressor, requests)
     parity(base, tuple(t.cpu() for t in requests), eval_data, dev)
+    train_parity(base, dev)
     eval_launches, _ = evaluate(regressor, eval_data, serve_rate)
     score(regressor, eval_data, dev)
+    train_launches = train(base, dev)
 
     entries = []
-    for name, _, source, replaces in kernels():
+    for name, _, _, source, replaces in kernels():
         c = checked[name]
-        entries.append({
+        entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            # this slice's main path: the eval phase (phase 5)
-            "launches": eval_launches[name],
+            # this slice's main path is training (phase 7); kernels off
+            # it count their own path's run (phase 5, evaluation)
+            "launches": (train_launches[name] if name in TRAIN_KERNELS
+                         else eval_launches[name]),
+            "launches_train": train_launches[name],
+            "launches_eval": eval_launches[name],
             "launches_serve": serve_launches[name],
-            "max_abs_err": c["max_abs_err"], "ms": c["ms"],
-            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-            "bound_by": c["bound_by"],
-            # no single PyTorch call computes any of these functions
-            "library_ms": None})
+            **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by")},
+            # K4: F.batch_norm(training=True); no single PyTorch call
+            # computes any of the others
+            "library_ms": c.get("library_ms")}
+        if "cases" in c:
+            entry["cases"] = c["cases"]
+        entries.append(entry)
         check(all(math.isfinite(c[k]) for k in ("ms", "plain_ms",
                                                 "bound_ms")), "timing")
     print(gpu_line())

@@ -13,14 +13,19 @@ for the TPU are CUDA kernels written for Hopper (``csrc/``), built with
     height in one launch),
   * K2 ingest   — ``data/crop.py`` (uint8 decode, bilinear crop,
     ImageNet normalisation, cast),
-  * K3 skinning — ``models/body/lbs.py``,
+  * K3 skinning — ``models/body/lbs.py`` (forward and backward),
+  * K3-chain    — ``core/kinematics.py`` (the kinematic chain, forward
+    and backward),
+  * K4 train-mode BatchNorm — ``models/backbones/layers.py`` (moments,
+    running-stat EMA, normalise, fused backward; bf16 / f32),
   * K8a P2P-20k point error — ``eval/metrics.py`` (sparse point
     regression of both meshes, translation alignment, distances),
   * K8b aligned point error — ``eval/metrics.py`` (none / root /
     translation / scale / Procrustes alignment, then the error).
 
 Each kernel's wrapper runs the kernel's plain PyTorch version for CPU
-tensors and launches the kernel (or raises) for CUDA tensors. Entry
+tensors and launches the kernel (or raises) for CUDA tensors; a kernel
+with a backward is a ``torch.autograd.Function``. Entry
 points run on the card unless the caller asks for the CPU.
 
 This package never imports ``jax``, ``yaml`` or ``shapy_tpu``.

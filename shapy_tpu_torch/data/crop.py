@@ -18,7 +18,11 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from shapy_tpu_torch.utils.cuda_kernels import CudaKernel, check_cuda_input
+from shapy_tpu_torch.utils.cuda_kernels import (
+    CudaKernel,
+    check_cuda_input,
+    check_no_grad,
+)
 
 IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
@@ -133,11 +137,12 @@ def crop_normalize(images: torch.Tensor, affines: torch.Tensor,
     dev = images.device
     check_cuda_input(images, "images", images.dtype, (B, H, W, 3), dev)
     check_cuda_input(affines, "affines", torch.float32, (B, 3, 3), dev)
+    check_no_grad(images, "images")
+    check_no_grad(affines, "affines")
     out = torch.empty((B, crop_size, crop_size, 3), dtype=out_dtype,
                       device=dev)
     if B == 0:
         return out
-    INGEST_KERNEL.launches += 1
     INGEST_KERNEL.launch("ingest_forward", [
         images, affines, out, B, H, W, crop_size, crop_size,
         _IN_KINDS[images.dtype], _OUT_KINDS[out_dtype],

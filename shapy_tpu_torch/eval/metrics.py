@@ -26,7 +26,11 @@ from typing import Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from shapy_tpu_torch.utils.cuda_kernels import CudaKernel, check_cuda_input
+from shapy_tpu_torch.utils.cuda_kernels import (
+    CudaKernel,
+    check_cuda_input,
+    check_no_grad,
+)
 from shapy_tpu_torch.utils.device import get_device
 
 ALIGN_KERNEL = CudaKernel("align_error.cu",
@@ -146,6 +150,8 @@ def aligned_point_error(est: torch.Tensor, gt: torch.Tensor,
     dev = est.device
     check_cuda_input(est, "est", torch.float32, (B, P, 3), dev)
     check_cuda_input(gt, "gt", torch.float32, (B, P, 3), dev)
+    check_no_grad(est, "est")
+    check_no_grad(gt, "gt")
     out = torch.empty((B, P), dtype=torch.float32, device=dev)
     if B == 0 or P == 0:
         return out
@@ -157,7 +163,6 @@ def aligned_point_error(est: torch.Tensor, gt: torch.Tensor,
         root_ids = torch.tensor(root, dtype=torch.int32, device=dev)
     else:
         root_ids = out  # not read
-    ALIGN_KERNEL.launches += 1
     ALIGN_KERNEL.launch("align_error_forward", [
         est, gt, root_ids, out, B, P, len(root), _ALIGN_MODES[alignment]])
     return out
@@ -245,12 +250,14 @@ def point_regress_error(input_vertices: torch.Tensor,
                      dev)
     check_cuda_input(target_weights, "target_weights", torch.float32,
                      (P, K2), dev)
+    for t, name in ((input_vertices, "input_vertices"),
+                    (target_vertices, "target_vertices")):
+        check_no_grad(t, name)
     out = torch.empty((B, P), dtype=torch.float32, device=dev)
     if B == 0 or P == 0:
         return out
     tiles = -(-P // _REGRESS_TILE)
     partials = torch.empty((B, tiles, 6), dtype=torch.float64, device=dev)
-    REGRESS_KERNEL.launches += 1
     REGRESS_KERNEL.launch("point_regress_forward", [
         input_vertices, target_vertices, indices, weights, target_indices,
         target_weights, partials, out, B, V1, V2, P, K1, K2, int(align)])

@@ -15,7 +15,12 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from shapy_tpu_torch.data.crop import crop_to_image_affine
+from shapy_tpu_torch.core.rotations import aa_to_rotmat
+from shapy_tpu_torch.data.crop import (
+    IMAGENET_MEAN,
+    IMAGENET_STD,
+    crop_to_image_affine,
+)
 from shapy_tpu_torch.measure.measurements import (
     BodyMeasurements,
     MeasurementAnchors,
@@ -40,6 +45,23 @@ FLAGSHIP_BODY_CFG = {
         "body_pose": {"param_type": "cont_rot_repr"},
     }
 }
+# The loss terms of configs/train_shapy.yaml that need no files (the
+# gender-shape prior needs stats files, the attributes the B2A plugin; the
+# measurement weights are 0) and its optimizer.
+FLAGSHIP_TRAIN_LOSS_CFG = {"body": {
+    "stages_to_penalize": ["stage_02"],
+    "body_joints_2d": {"type": "keypoints", "norm_type": "l1",
+                       "weight": 1.0},
+    "body_joints_3d": {"norm_type": "l1", "weight": 1.0},
+    "shape": {"weight": 1e-3},
+    "global_rot": {"type": "rotation", "weight": 1.0},
+    "body_pose": {"type": "rotation", "weight": 1.0},
+    **{k: {"weight": 0.0} for k in ("height", "chest", "waist", "hips")},
+}}
+FLAGSHIP_OPTIM_CFG = {"type": "adam", "lr": 1e-4, "weight_decay": 1e-4,
+                      "scheduler": {"type": "multi-step-lr", "gamma": 0.1,
+                                    "milestones": [60000, 100000]},
+                      "adam": {"betas": [0.9, 0.999]}}
 # The reference config's metric sets (v2v over procrustes / scale /
 # translation, v2v_t over scale / translation, mpjpe root + procrustes;
 # mpjpe14 roots on the hips [2, 3]).
@@ -194,3 +216,61 @@ def synthetic_eval_data(regressor: SMPLXRegressor, num_batches: int,
             "genders": [names[g] for g in gender],
         })
     return {"batches": batches, "p2p": p2p, "j14": j14}
+
+
+def synthetic_train_batches(regressor: SMPLXRegressor, num_batches: int,
+                            batch: int, crop: int, seed: int) -> list:
+    """Supervised training batches on the regressor's device, drawn from
+    ``seed`` with numpy: ``images``, ImageNet-normalised f32 crops
+    (B, crop, crop, 3) of smooth random content; GT SMPL-X bodies with
+    ||beta|| <= 6, body poses of 0.2 rad per axis and global rotations
+    near the flipped mean, giving ``joints3d`` (B, 25, 4) (the body
+    joints, confidence 1), ``target_keypoints2d`` (B, N, 3) (every joint
+    through a weak-perspective camera of random scale and shift, about a
+    fifth of the confidences 0), ``gt_betas``, ``gt_betas_valid`` (one
+    row 0 per batch), ``gt_global_rot`` (B, 1, 3, 3) and
+    ``gt_body_pose`` (B, 21, 3, 3) rotation matrices, and ``gender``."""
+    rng = np.random.default_rng(seed)
+    model = regressor.model
+    dev = regressor.param_mean.device
+    flip = np.diag([1.0, -1.0, -1.0])  # 180 degrees about x
+    out = []
+    for i in range(num_batches):
+        images, _ = synthetic_requests(batch, crop, crop, crop, seed + 1 + i)
+        crops = ((images.astype(np.float32) / 255.0 - IMAGENET_MEAN)
+                 / IMAGENET_STD).astype(np.float32)
+        betas = rng.normal(size=(batch, model.num_betas)) * 1.5
+        betas *= np.minimum(1.0, 6.0 / np.linalg.norm(betas, axis=1,
+                                                      keepdims=True))
+        body_aa = rng.normal(size=(batch, model.NUM_BODY_JOINTS, 3)) * 0.2
+        glob_aa = rng.normal(size=(batch, 1, 3)) * 0.2
+        glob = np.einsum("ij,bnjk->bnik", flip, aa_to_rotmat(
+            torch.from_numpy(glob_aa)).numpy())
+        body = aa_to_rotmat(torch.from_numpy(body_aa)).numpy()
+        scale = rng.uniform(0.8, 1.2, size=(batch, 1))
+        shift = rng.uniform(-0.1, 0.1, size=(batch, 2))
+        t = {k: torch.tensor(v, dtype=torch.float32, device=dev) for k, v in
+             (("betas", betas), ("glob", glob), ("body", body),
+              ("scale", scale), ("shift", shift))}
+        with torch.no_grad():
+            gt = model(betas=t["betas"], global_rot=t["glob"],
+                       body_pose=t["body"])
+            kp = regressor.projection(gt["joints"], t["scale"], t["shift"])
+        conf = (rng.uniform(size=kp.shape[:2]) > 0.2).astype(np.float32)
+        joints = gt["joints"][:, :25]
+        valid = np.ones(batch, np.float32)
+        valid[i % batch] = 0.0
+        out.append({
+            "images": torch.from_numpy(crops).to(dev),
+            "target_keypoints2d": torch.cat(
+                [kp, torch.from_numpy(conf).to(dev)[..., None]], dim=-1),
+            "joints3d": torch.cat([joints, torch.ones_like(joints[..., :1])],
+                                  dim=-1),
+            "gt_betas": t["betas"],
+            "gt_betas_valid": torch.from_numpy(valid).to(dev),
+            "gt_global_rot": t["glob"],
+            "gt_body_pose": t["body"],
+            "gender": torch.from_numpy(
+                rng.integers(0, 3, size=batch)).to(dev),
+        })
+    return out

@@ -8,8 +8,13 @@ with ``.`` and transposing conv kernels HWIO -> OIHW; the MLP and
 ``shapedirs``, ``posedirs`` ...) load by name.
 
 Load before :meth:`SMPLXRegressor.prepare_for_eval_`, which folds BN and
-so changes the backbone's keys. Inputs are numpy arrays (or anything
-``np.asarray`` takes), never jax objects imported here.
+so changes the backbone's keys, or before
+:meth:`SMPLXRegressor.prepare_for_train_`, which keeps every BN unfolded
+with the running stats loaded here, so that a train step starts from the
+JAX package's state. The reverse direction, :func:`state_dict_from_jax`
+on a JAX gradient or updated-param pytree, names it as the port does.
+Inputs are numpy arrays (or anything ``np.asarray`` takes), never jax
+objects imported here.
 """
 
 from __future__ import annotations

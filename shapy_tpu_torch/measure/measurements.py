@@ -9,9 +9,9 @@
 
 ``BodyMeasurements.forward_from_vertices`` in the default "reference"
 slice mode goes through :func:`measure_reference`, whose CUDA path is
-kernel K1 (``csrc/measure.cu``); its plain version is the structure-of-
-arrays pipeline of the JAX package in PyTorch. The "exact" slice mode
-runs plain PyTorch on every device for now.
+kernel K1 (``csrc/measure.cu``, forward only); its plain version is the
+structure-of-arrays pipeline of the JAX package in PyTorch. The "exact"
+slice mode runs plain PyTorch on every device for now.
 
 ``Anchor``, ``MeasurementAnchors.synthetic`` and ``candidate_faces`` are
 numpy, copied from the JAX package (whose module imports jax and yaml).
@@ -203,8 +203,9 @@ def measure_reference(
     hull_sin: torch.Tensor,
     density: float = DENSITY,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Reference-mode measurements: :func:`measure_plain` for CPU tensors,
-    kernel K1 for CUDA tensors (forward only).
+    """Reference-mode measurements: :func:`measure_plain` for CPU tensors
+    (differentiable), kernel K1 for CUDA tensors (forward only: its
+    backward raises, see ``_MeasureReference``).
 
     ``anchor_face`` (5,) int32 and ``anchor_bary`` (5, 3) f32 carry
     ``anchors.ordered()`` for the kernel; ``hull_cos`` / ``hull_sin``
@@ -239,18 +240,36 @@ def measure_reference(
         offsets = [0, counts[0], counts[0] + counts[1]]
         flat = torch.cat(plane_faces)
     cap = 2 * max(max(counts), 1)
-    scratch = torch.empty((B, 3, cap, 2), dtype=torch.float32, device=dev)
-    out = torch.empty((B, 5), dtype=torch.float32, device=dev)
-    plane_h = torch.empty((B, 3), dtype=torch.float32, device=dev)
-    if B == 0:
-        return out, plane_h
-    angle_step = float(np.float32(2.0 * math.pi / num_hull_directions))
-    MEASURE_KERNEL.launches += 1
-    MEASURE_KERNEL.launch("measure_forward", [
+    return _MeasureReference.apply(
         vertices, faces, flat, anchor_face, anchor_bary, hull_cos, hull_sin,
-        scratch, out, plane_h, B, V, F, *offsets, *counts, cap, half_k,
-        angle_step, float(density)])
-    return out, plane_h
+        (B, V, F, *offsets, *counts, cap, half_k,
+         float(np.float32(2.0 * math.pi / num_hull_directions)),
+         float(density)))
+
+
+class _MeasureReference(torch.autograd.Function):
+    """Kernel K1, forward only: reached by autograd only when a loss
+    weighs a measurement, and then it raises."""
+
+    @staticmethod
+    def forward(ctx, vertices, faces, flat, anchor_face, anchor_bary,
+                hull_cos, hull_sin, scalars):
+        B, cap = scalars[0], scalars[9]
+        dev = vertices.device
+        scratch = torch.empty((B, 3, cap, 2), dtype=torch.float32, device=dev)
+        out = torch.empty((B, 5), dtype=torch.float32, device=dev)
+        plane_h = torch.empty((B, 3), dtype=torch.float32, device=dev)
+        if B > 0:
+            MEASURE_KERNEL.launch("measure_forward", [
+                vertices, faces, flat, anchor_face, anchor_bary, hull_cos,
+                hull_sin, scratch, out, plane_h, *scalars])
+        return out, plane_h
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "K1 (csrc/measure.cu) has no backward yet: a measurement loss "
+            "weight above 0 needs the K1-backward item of ROADMAP queue 2")
 
 
 class BodyMeasurements(nn.Module):

@@ -11,7 +11,10 @@
      conv downsample), global mean pool -> (B, 2048).
 
 ``state_dict`` keys equal the JAX param names. Takes NCHW input (the
-regressor passes a channels_last view of its NHWC crops). The
+regressor passes a channels_last view of its NHWC crops). The module's
+train / eval mode is the JAX ``train`` flag: every BN, the fuse and
+transition layers' included, normalises with batch moments and updates
+its running stats in training (kernel K4 on the card). The
 ``use_old_impl`` topology is not ported yet.
 """
 

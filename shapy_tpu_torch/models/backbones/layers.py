@@ -6,41 +6,225 @@ Modules are named so that ``state_dict`` keys equal the JAX param names
 names. Conv weights are OIHW here and HWIO in the JAX package
 (``io/from_jax.py`` transposes).
 
-BatchNorm is eval-only for now (the slice does not train), and
-:func:`fold_bn_` folds each BN into the conv before it at load time, as
-the JAX package's eval forward does (``bn_fold_params``).
+In training, :class:`BatchNorm2d` normalises with the batch's moments
+and updates its running stats through :func:`batch_norm_train`, whose CUDA
+path is kernel K4 (``csrc/batch_norm.cu``, forward and backward). For
+eval, :func:`fold_bn_` folds each BN into the conv before it at load time,
+as the JAX package's eval forward does (``bn_fold_params``).
+
+Weights stay f32 (the master copy) and each conv runs in its input's
+dtype, so a bf16 backbone trains as the JAX package's ``compute_dtype``
+bfloat16 does.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from shapy_tpu_torch.utils.cuda_kernels import CudaKernel, check_cuda_input
+
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
+
+BN_KERNEL = CudaKernel("batch_norm.cu", {
+    "bn_forward": "ppppp pppp iiii i fff p",
+    "bn_backward": "ppppp ppppp iiii i p",
+})
+_BN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_BN_MAX_TILES = 256
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """f32 for bf16 / f32 tensors (the JAX package's sums); f64 stays."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _moments_plain(x: torch.Tensor):
+    """Batch moments over (N, H, W) as ``E[x^2] - E[x]^2`` in f32
+    (``layers.py:142-159`` of the JAX package)."""
+    xf = _wide(x)
+    mean = xf.mean(dim=(0, 2, 3))
+    var = xf.square().mean(dim=(0, 2, 3)) - mean.square()
+    return mean, var
+
+
+def _xhat_plain(x, mean, inv):
+    """``(x - mean) * inv`` in x's dtype, mean and inv (C,) f32 rounded to
+    it first."""
+    dt = x.dtype
+    return (x - mean.to(dt)[:, None, None]) * inv.to(dt)[:, None, None]
+
+
+def batch_norm_train_plain(x, gamma, beta, eps: float = BN_EPS):
+    """Plain version of K4's forward: ``(y, mean, var)`` with the moments
+    in f32 and y in x's dtype, each operation rounded to it after mean and
+    ``inv = rsqrt(var + eps)`` are (``_bn_normalize``). x (N, C, H, W)."""
+    mean, var = _moments_plain(x)
+    inv = torch.rsqrt(var + eps)
+    dt = x.dtype
+    y = (_xhat_plain(x, mean, inv) * gamma.to(dt)[:, None, None]
+         + beta.to(dt)[:, None, None])
+    return y, mean, var
+
+
+def batch_norm_train_backward_plain(dy, x, gamma, mean, inv):
+    """Plain version of K4's backward, the JAX package's fused formula
+    (``_bn_train_bwd``): ``dx = gamma inv (dy - mean(dy) - x_hat
+    mean(dy x_hat))`` in the activation dtype with f32 sums; ``dgamma =
+    sum dy x_hat``, ``dbeta = sum dy``. Returns (dx, dgamma, dbeta)."""
+    dt = dy.dtype
+    n = float(dy.numel() // dy.shape[1])
+    xhat = _xhat_plain(x, mean, inv)
+    dyf = _wide(dy)
+    sdy = dyf.sum(dim=(0, 2, 3))
+    sdyx = (dyf * _wide(xhat)).sum(dim=(0, 2, 3))
+    scale = _wide(gamma) * _wide(inv.to(dt))
+    dx = scale.to(dt)[:, None, None] * (
+        dy - (sdy / n).to(dt)[:, None, None]
+        - xhat * (sdyx / n).to(dt)[:, None, None])
+    return dx, sdyx.to(gamma.dtype), sdy.to(gamma.dtype)
+
+
+def _bn_tiles(R: int):
+    """(tiles, rows per tile) of K4's per-channel partial sums."""
+    tiles = max(1, min(_BN_MAX_TILES, -(-R // 64)))
+    rows = -(-R // tiles)
+    return -(-R // rows), rows
+
+
+def _bn_rows(t: torch.Tensor) -> torch.Tensor:
+    """(N, C, H, W) channels-last -> its (N H W, C) row-major storage."""
+    return t.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """Train-mode BN: K4's kernels for CUDA tensors, the plain versions
+    for CPU tensors; the running stats are updated in place in the
+    forward."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, running_mean, running_var, eps,
+                momentum):
+        N, C, H, W = x.shape
+        R = N * H * W
+        unbias = R / max(R - 1, 1)
+        if x.device.type == "cpu":
+            y, mean, var = batch_norm_train_plain(x, gamma, beta, eps)
+            inv = torch.rsqrt(var + eps)
+            if running_mean is not None:
+                running_mean.copy_((1 - momentum) * running_mean
+                                   + momentum * mean)
+                running_var.copy_((1 - momentum) * running_var
+                                  + momentum * (var * unbias))
+        else:
+            rows = _bn_rows(x)
+            y = torch.empty_like(rows)
+            mean = torch.empty(C, dtype=torch.float32, device=x.device)
+            inv = torch.empty_like(mean)
+            tiles, per_tile = _bn_tiles(R)
+            partials = torch.empty((tiles, C, 2), dtype=torch.float32,
+                                   device=x.device)
+            BN_KERNEL.launch("bn_forward", [
+                rows, gamma, beta, running_mean, running_var, partials, mean,
+                inv, y, R, C, tiles, per_tile, _BN_DTYPES[x.dtype],
+                float(eps), float(momentum), float(np.float32(unbias))])
+            y = y.permute(0, 3, 1, 2)
+        ctx.save_for_backward(x, gamma, mean, inv)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, mean, inv = ctx.saved_tensors
+        if x.device.type == "cpu":
+            dx, dgamma, dbeta = batch_norm_train_backward_plain(
+                dy.to(x.dtype), x, gamma, mean, inv)
+            return dx, dgamma, dbeta, None, None, None, None
+        N, C, H, W = x.shape
+        R = N * H * W
+        rows, dy_rows = _bn_rows(x), _bn_rows(dy.to(x.dtype))
+        dx = torch.empty_like(rows)
+        dgamma = torch.empty_like(gamma)
+        dbeta = torch.empty_like(gamma)
+        tiles, per_tile = _bn_tiles(R)
+        partials = torch.empty((tiles, C, 2), dtype=torch.float32,
+                               device=x.device)
+        coef = torch.empty((3, C), dtype=torch.float32, device=x.device)
+        BN_KERNEL.launch("bn_backward", [
+            dy_rows, rows, gamma, mean, inv, partials, coef, dgamma, dbeta,
+            dx, R, C, tiles, per_tile, _BN_DTYPES[x.dtype]])
+        return dx.permute(0, 3, 1, 2), dgamma, dbeta, None, None, None, None
+
+
+def batch_norm_train(x: torch.Tensor, gamma: torch.Tensor,
+                     beta: torch.Tensor, running_mean=None, running_var=None,
+                     eps: float = BN_EPS, momentum: float = BN_MOMENTUM
+                     ) -> torch.Tensor:
+    """Train-mode BatchNorm of x (N, C, H, W), bf16 or f32, with f32
+    gamma / beta (C,): the plain versions for CPU tensors, kernel K4 for
+    CUDA tensors (a channels-last copy is made if x is not channels-last).
+    ``running_mean`` / ``running_var`` (f32, or both None) get the EMA in
+    place."""
+    if x.device.type == "cuda":
+        if x.dtype not in _BN_DTYPES:
+            raise TypeError(f"batch_norm_train: dtype {x.dtype}")
+        N, C, H, W = x.shape
+        if N * H * W * C >= 2 ** 32:
+            raise ValueError("batch_norm_train: 2^32 elements or more")
+        dev = x.device
+        for t, name in ((gamma, "gamma"), (beta, "beta"),
+                        (running_mean, "running_mean"),
+                        (running_var, "running_var")):
+            if t is not None:
+                check_cuda_input(t, name, torch.float32, (C,), dev)
+        if (running_mean is None) != (running_var is None):
+            raise ValueError("batch_norm_train: both running stats or none")
+    elif x.device.type != "cpu":
+        raise ValueError(f"batch_norm_train: unsupported device {x.device}")
+    return _BatchNormTrain.apply(x, gamma, beta, running_mean, running_var,
+                                 eps, momentum)
 
 
 class BatchNorm2d(nn.Module):
-    """Eval-mode BatchNorm with the torch param names and no
-    ``num_batches_tracked`` (the JAX params have none)."""
+    """BatchNorm with the torch param names and no ``num_batches_tracked``
+    (the JAX params have none): batch moments and running-stat EMA in
+    training (:func:`batch_norm_train`), running stats in eval."""
 
-    def __init__(self, c: int, eps: float = BN_EPS):
+    def __init__(self, c: int, eps: float = BN_EPS,
+                 momentum: float = BN_MOMENTUM):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return batch_norm_train(x, self.weight, self.bias,
+                                    self.running_mean, self.running_var,
+                                    self.eps, self.momentum)
         return F.batch_norm(x, self.running_mean, self.running_var,
                             self.weight, self.bias, False, 0.0, self.eps)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that runs in its input's dtype: f32 master weights
+    are cast to a bf16 input's dtype (a no-op once the module itself is
+    bf16, as for eval)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
 def conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1,
          bias: bool = False) -> nn.Conv2d:
     """Conv with torch-style symmetric padding ``kernel // 2``."""
-    return nn.Conv2d(in_ch, out_ch, kernel, stride, kernel // 2, bias=bias)
+    return Conv2d(in_ch, out_ch, kernel, stride, kernel // 2, bias=bias)
 
 
 def conv_bn(in_ch, out_ch, kernel, stride=1, relu=True, bias=False):

@@ -1,10 +1,10 @@
 """Linear blend skinning (port of ``shapy_tpu/models/body/lbs.py``).
 
 Blend shapes, joint regression and pose-corrective offsets are plain
-matmuls (the JAX package left them to XLA). The kinematic chain is the
-depth-scheduled composition of :mod:`shapy_tpu_torch.core.kinematics`.
-Skinning goes through :func:`skin`, whose CUDA path is kernel K3
-(``csrc/skinning.cu``).
+matmuls (the JAX package left them to XLA). The kinematic chain is
+:func:`shapy_tpu_torch.core.kinematics.batch_rigid_transform` (kernel
+K3-chain on the card). Skinning goes through :func:`skin`, whose CUDA path
+is kernel K3 (``csrc/skinning.cu``), forward and backward.
 """
 
 from __future__ import annotations
@@ -18,10 +18,15 @@ from shapy_tpu_torch.core.geometry import blend_shapes, vertices2joints
 from shapy_tpu_torch.core.kinematics import batch_rigid_transform
 from shapy_tpu_torch.utils.cuda_kernels import CudaKernel, check_cuda_input
 
-SKIN_KERNEL = CudaKernel("skinning.cu", {"skin_forward": "pppp iii p"})
-# The kernel keeps one (128 x J) weight tile plus J 3x4 transforms in
-# 48 KB of static-size shared memory: 4 * J * (128 + 12) bytes.
-_SKIN_MAX_JOINTS = 85
+SKIN_KERNEL = CudaKernel("skinning.cu", {
+    "skin_forward": "pppp iii p",
+    "skin_backward": "ppppppp iii p",
+})
+# The kernels keep one (128 x J) weight tile, J 3x4 transforms and (in the
+# backward) 128 x 12 outer products in the default 48 KB of shared memory:
+# 4 * (12 J + 128 (J + 12)) bytes.
+_SKIN_MAX_JOINTS = 76
+_SKIN_TILE = 128
 
 
 def skin_plain(lbs_weights: torch.Tensor, rel_transforms: torch.Tensor,
@@ -38,10 +43,45 @@ def skin_plain(lbs_weights: torch.Tensor, rel_transforms: torch.Tensor,
     return torch.matmul(T[..., :3, :], v_hom[..., None])[..., 0]
 
 
+class _Skin(torch.autograd.Function):
+    """K3 forward and backward kernels (no gradient for the weights)."""
+
+    @staticmethod
+    def forward(ctx, lbs_weights, rel_transforms, v_posed):
+        B, V, _ = v_posed.shape
+        J = lbs_weights.shape[1]
+        out = torch.empty_like(v_posed)
+        if B > 0 and V > 0:
+            SKIN_KERNEL.launch("skin_forward", [
+                lbs_weights, rel_transforms, v_posed, out, B, V, J])
+        ctx.save_for_backward(lbs_weights, rel_transforms, v_posed)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        lbs_weights, rel_transforms, v_posed = ctx.saved_tensors
+        B, V, _ = v_posed.shape
+        J = lbs_weights.shape[1]
+        grad_out = grad_out.contiguous()
+        d_v = torch.empty_like(v_posed)
+        d_rel = torch.empty_like(rel_transforms)
+        tiles = -(-V // _SKIN_TILE)
+        partials = torch.empty((B, tiles, J, 12), dtype=torch.float32,
+                               device=v_posed.device)
+        if B > 0 and V > 0:
+            SKIN_KERNEL.launch("skin_backward", [
+                lbs_weights, rel_transforms, v_posed, grad_out, d_v,
+                partials, d_rel, B, V, J])
+        else:
+            d_rel.zero_()
+        return None, d_rel, d_v
+
+
 def skin(lbs_weights: torch.Tensor, rel_transforms: torch.Tensor,
          v_posed: torch.Tensor) -> torch.Tensor:
     """Skinning: the plain version for CPU tensors, kernel K3 for CUDA
-    tensors (forward only)."""
+    tensors (forward, and backward to ``rel_transforms`` and
+    ``v_posed``)."""
     if v_posed.device.type == "cpu":
         return skin_plain(lbs_weights, rel_transforms, v_posed)
     if v_posed.device.type != "cuda":
@@ -51,18 +91,15 @@ def skin(lbs_weights: torch.Tensor, rel_transforms: torch.Tensor,
     if J > _SKIN_MAX_JOINTS:
         raise ValueError(f"skin: {J} joints exceed the kernel's "
                          f"{_SKIN_MAX_JOINTS}")
+    if lbs_weights.requires_grad:
+        raise ValueError("skin: the kernel gives no gradient for the "
+                         "skinning weights")
     dev = v_posed.device
     check_cuda_input(lbs_weights, "lbs_weights", torch.float32, (V, J), dev)
     check_cuda_input(rel_transforms, "rel_transforms", torch.float32,
                      (B, J, 4, 4), dev)
     check_cuda_input(v_posed, "v_posed", torch.float32, (B, V, 3), dev)
-    out = torch.empty_like(v_posed)
-    if B == 0 or V == 0:
-        return out
-    SKIN_KERNEL.launches += 1
-    SKIN_KERNEL.launch("skin_forward",
-                       [lbs_weights, rel_transforms, v_posed, out, B, V, J])
-    return out
+    return _Skin.apply(lbs_weights, rel_transforms, v_posed)
 
 
 def lbs(

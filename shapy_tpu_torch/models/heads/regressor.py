@@ -1,4 +1,4 @@
-"""The SHAPY body regressor, eval forward (port of
+"""The SHAPY body regressor, eval and train forward (port of
 ``shapy_tpu/models/heads/regressor.py``).
 
 HRNet-W48 features -> 3-stage iterative MLP head -> 6D pose decode ->
@@ -11,10 +11,14 @@ camera (global_rot 6 + body_pose 126 + betas 10 + camera 3 = 145).
 ``params['backbone']`` / ``params['head']`` names, ``param_mean`` its
 ``params['param_mean']``; ``model.*`` the body model's params.
 
+Modes: :meth:`SMPLXRegressor.prepare_for_eval_` folds BN and freezes;
+:meth:`SMPLXRegressor.prepare_for_train_` keeps BN unfolded (train-mode
+BN, kernel K4 on the card) with f32 master weights, and ``apply(...,
+train=True)`` adds the head's dropout and measures on all faces.
+
 Ported so far: the SMPL-X regressor with the iterative MLP head,
 ``predict_hands`` and ``predict_face`` off (the flagship config). Not
-yet: training and dropout, the RNN head, the ResNet backbone, the
-B2A/A2B attribute plugins.
+yet: the RNN head, the ResNet backbone, the B2A/A2B attribute plugins.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from torch import nn
 from shapy_tpu_torch.data.crop import crop_normalize
 from shapy_tpu_torch.measure.measurements import BodyMeasurements
 from shapy_tpu_torch.models.backbones.hrnet import HRNET_OUTPUT_DIM, HRNet
-from shapy_tpu_torch.models.backbones.layers import fold_bn_
+from shapy_tpu_torch.models.backbones.layers import BatchNorm2d, fold_bn_
 from shapy_tpu_torch.models.body.model import SMPLX
 from shapy_tpu_torch.models.cameras.projection import build_cam_proj
 from shapy_tpu_torch.models.heads.mlp import MLP
@@ -114,7 +118,8 @@ class SMPLXRegressor(nn.Module):
         self.head = MLP(
             self.feat_dim + self.param_dim, self.param_dim,
             tuple(mlp_cfg.get("layers", (1024, 1024))),
-            gain=float(mlp_cfg.get("gain", 0.01)), generator=gen)
+            gain=float(mlp_cfg.get("gain", 0.01)), generator=gen,
+            dropout=float(mlp_cfg.get("dropout", 0.0)))
         self.register_buffer("param_mean", torch.as_tensor(param_mean))
         self.backbone_dtype = torch.float32
 
@@ -128,6 +133,21 @@ class SMPLXRegressor(nn.Module):
         fold_bn_(self.backbone)
         self.backbone.to(dtype=backbone_dtype,
                          memory_format=torch.channels_last)
+        self.backbone_dtype = backbone_dtype
+        return self
+
+    def prepare_for_train_(self, backbone_dtype: torch.dtype = torch.float32
+                           ) -> "SMPLXRegressor":
+        """Train mode: BN unfolded (batch moments and running-stat EMA),
+        the head's dropout on, f32 master weights with the backbone's
+        convs and BN in ``backbone_dtype`` and channels_last; the head,
+        body model and measurements stay f32."""
+        if not any(isinstance(m, BatchNorm2d)
+                   for m in self.backbone.modules()):
+            raise ValueError("prepare_for_train_: the backbone's BN was "
+                             "folded for eval")
+        self.train()
+        self.backbone.to(memory_format=torch.channels_last)
         self.backbone_dtype = backbone_dtype
         return self
 
@@ -151,29 +171,45 @@ class SMPLXRegressor(nn.Module):
         x = x.contiguous(memory_format=torch.channels_last)
         return self.backbone(x).float()
 
-    def iterative_stages(self, features: torch.Tensor) -> List[torch.Tensor]:
+    def iterative_stages(self, features: torch.Tensor,
+                         generator: Optional[torch.Generator] = None
+                         ) -> List[torch.Tensor]:
         """Additive refinement from the mean parameters."""
         current = self.param_mean.expand(features.shape[0], -1)
         stages = []
         for _ in range(self.num_stages):
-            current = current + self.head(torch.cat([features, current], -1))
+            current = current + self.head(torch.cat([features, current], -1),
+                                          generator)
             stages.append(current)
         return stages
 
-    def apply(self, images: torch.Tensor) -> Dict[str, Any]:
+    def apply(self, images: torch.Tensor,
+              batch: Optional[Dict[str, torch.Tensor]] = None,
+              train: bool = False,
+              generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         """images (B, H, W, 3) normalised crops (NHWC) -> the JAX
         package's output dict: ``features``, ``stage_XX`` (the last stage
         with ``vertices``, ``joints``, ``v_shaped``, decoded params),
-        ``proj_joints``, ``camera_parameters``, ``measurements``."""
+        ``proj_joints``, ``camera_parameters``, ``measurements``.
+
+        ``train`` must match the module's mode (``prepare_for_train_`` /
+        ``prepare_for_eval_``); in training ``generator`` draws the head's
+        dropout masks and the measurements walk all faces. ``batch``
+        feeds the attribute plugins, which are not ported yet."""
+        if train != self.training:
+            raise ValueError(f"apply(train={train}) on a regressor in "
+                             f"{'train' if self.training else 'eval'} mode")
         features = self.compute_features(images)
         with full_f32_matmul():
-            return self._apply_head(features)
+            return self._apply_head(features, train, generator)
 
-    def _apply_head(self, features: torch.Tensor) -> Dict[str, Any]:
+    def _apply_head(self, features: torch.Tensor, train: bool = False,
+                    generator: Optional[torch.Generator] = None
+                    ) -> Dict[str, Any]:
         """Head, body model (last stage only), camera and measurements,
         all in f32."""
         param_dicts = [self.decode_params(p)
-                       for p in self.iterative_stages(features)]
+                       for p in self.iterative_stages(features, generator)]
         out: Dict[str, Any] = {"features": features}
         for i, decoded in enumerate(param_dicts):
             out[f"stage_{i:02d}"] = decoded
@@ -194,8 +230,10 @@ class SMPLXRegressor(nn.Module):
         last["proj_joints"] = proj_joints
 
         if self.body_measurements is not None:
+            # Candidate-face subsets only in eval: they are exact inside
+            # the beta bound they were built for, which training may leave.
             meas = self.body_measurements.forward_from_vertices(
-                last["v_shaped"])["measurements"]
+                last["v_shaped"], use_face_subsets=not train)["measurements"]
             meas_dict = {k: v["tensor"] for k, v in meas.items()}
             out["measurements"] = meas_dict
             last["measurements"] = meas_dict

@@ -9,6 +9,8 @@ and flags so that a stale build is never loaded, and bound with
 Every exported function returns ``cudaGetLastError()`` after its launch;
 :meth:`CudaKernel.launch` raises when that is not 0, because a refused
 launch never runs and ``torch.cuda.synchronize()`` would not report it.
+:meth:`CudaKernel.launch` also counts the launches of each exported
+function, so that a run can show that it went through the kernel.
 """
 
 from __future__ import annotations
@@ -46,20 +48,27 @@ def _nvcc() -> str:
 
 class CudaKernel:
     """One ``csrc/*.cu`` source, its exported C functions and a count of
-    launches.
+    launches per function.
 
     ``functions`` maps each exported name to its argument kinds, e.g.
     ``{"skin_forward": "pppp iii p"}`` (spaces are ignored).
-    ``launches`` is incremented by the wrapper where it launches the
-    kernel, and nowhere else.
+    ``counts[name]`` is incremented by :meth:`launch`, and nowhere else;
+    ``launches`` is their sum.
     """
 
     def __init__(self, source: str, functions: Dict[str, str]):
         self.source = source
         self.functions = {k: v.replace(" ", "") for k, v in functions.items()}
-        self.launches = 0
+        self.counts = dict.fromkeys(self.functions, 0)
         self.build_log = ""
         self._lib = None
+
+    @property
+    def launches(self) -> int:
+        return sum(self.counts.values())
+
+    def reset_counts(self) -> None:
+        self.counts = dict.fromkeys(self.functions, 0)
 
     def _library_path(self) -> Path:
         text = (CSRC_DIR / self.source).read_bytes()
@@ -99,6 +108,7 @@ class CudaKernel:
         asynchronous, but PyTorch's caching allocator does not reuse a
         block until the stream's later work is ordered after it)."""
         lib = self.build()
+        self.counts[name] += 1
         call = []
         for a in args:
             call.append(a.data_ptr() if isinstance(a, torch.Tensor) else a)
@@ -113,8 +123,7 @@ def check_cuda_input(t: torch.Tensor, name: str, dtype: torch.dtype,
                      shape: Sequence[int | None], device: torch.device
                      ) -> None:
     """Raise unless ``t`` is a contiguous tensor of ``dtype`` on
-    ``device`` whose shape matches ``shape`` (None = any size), and it
-    needs no gradient (the kernels are forward-only)."""
+    ``device`` whose shape matches ``shape`` (None = any size)."""
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -125,6 +134,12 @@ def check_cuda_input(t: torch.Tensor, name: str, dtype: torch.dtype,
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def check_no_grad(t: torch.Tensor, name: str) -> None:
+    """Raise if ``t`` needs a gradient: for the kernels that have no
+    backward (K2 ingest, K8 metrics), whose outputs would silently carry
+    none."""
     if t.requires_grad and torch.is_grad_enabled():
         raise RuntimeError(f"{name}: the CUDA kernel is forward-only; "
                            "call it under torch.no_grad()")

@@ -1,8 +1,9 @@
-"""Where the served flagship forward, and its evaluation step, spend
-their time on the card (the port's counterpart of
+"""Where the served flagship forward, its evaluation step and its train
+step spend their time on the card (the port's counterpart of
 ``shapy_tpu/utils/profiling.py``).
 
     python -m shapy_tpu_torch.utils.profiling [--batch 32] [--trace-dir D]
+    python -m shapy_tpu_torch.utils.profiling --train [--batch 48]
 
 Builds the flagship as ``chip_smoke.py`` does (HRNet-W48, SMPL-X at the
 real template's counts, bf16 backbone, random weights from a seed), then:
@@ -20,6 +21,15 @@ real template's counts, bf16 backbone, random weights from a seed), then:
   kernels that take the most device time. ``--trace-dir`` also writes
   the Chrome traces there.
 
+With ``--train``, :func:`profile_train_step` does the same for one train
+step of the flagship (bf16 backbone, dropout 0.5, the losses and the Adam
+optimizer of ``configs/train_shapy.yaml`` that need no files, on
+``flagship.synthetic_train_batches``): phase times of forward (train-mode
+``apply`` + losses), backward and optimizer, the host-clock step time,
+the traced device idle share (and, as an estimate, the untraced one:
+traced device-busy time over the untraced step time), launches and top
+kernels per step, and the peak device memory.
+
 Prints one JSON object. Needs a CUDA device.
 """
 
@@ -36,6 +46,8 @@ import torch
 from shapy_tpu_torch.data.crop import crop_normalize
 from shapy_tpu_torch.eval.evaluator import build_evaluator
 from shapy_tpu_torch.flagship import (
+    FLAGSHIP_OPTIM_CFG,
+    FLAGSHIP_TRAIN_LOSS_CFG,
     REFERENCE_EVAL_CFG,
     build_flagship,
     spread_init_,
@@ -43,6 +55,12 @@ from shapy_tpu_torch.flagship import (
     synthetic_requests,
 )
 from shapy_tpu_torch.utils.device import full_f32_matmul, get_device
+
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
 
 
 def _event_ms(fn, iters: int) -> float:
@@ -69,8 +87,14 @@ def _trace(fn, name: str, trace_dir: str | None, steps: int = 3) -> dict:
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    averages = prof.key_averages()
+    # a record_function range (the optimizer's step) also shows on the
+    # device, under its CPU event's name, spanning kernels counted anyway
+    ranges = {e.key for e in averages
+              if e.device_type == torch.autograd.DeviceType.CPU}
+    events = [e for e in averages
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.key not in ranges]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:15]
     if trace_dir:
@@ -150,12 +174,8 @@ def profile_flagship(batch: int = 32, iters: int = 10,
                   for name, fn in (("request", request),
                                    ("eval_step", eval_step))}
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
     return {
-        "card": card,
+        "card": _card(),
         "batch": batch,
         "phase_ms_cuda_events": phases,
         "request_wall_ms": walls["request"],
@@ -166,14 +186,84 @@ def profile_flagship(batch: int = 32, iters: int = 10,
     }
 
 
+def profile_train_step(batch: int = 48, iters: int = 5,
+                       trace_dir: str | None = None) -> dict:
+    """Phase times, idle share, launches, top kernels and peak memory of
+    one train step of the flagship at ``batch``."""
+    from shapy_tpu_torch.flagship import synthetic_train_batches
+    from shapy_tpu_torch.train.losses import RegressorLosses
+    from shapy_tpu_torch.train.step import init_train_state, make_train_step
+
+    dev = get_device("cuda")
+    reg = build_flagship(subdivisions=5, exact_counts=True, device="cpu")
+    spread_init_(reg, seed=0, beta_scale=0.25)
+    reg = reg.to(dev).prepare_for_train_(torch.bfloat16)
+    data = synthetic_train_batches(reg, 1, batch, 256, seed=9)[0]
+    images = data.pop("images")
+    step = make_train_step(reg, RegressorLosses(FLAGSHIP_TRAIN_LOSS_CFG),
+                           init_train_state(reg, FLAGSHIP_OPTIM_CFG))
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def full():
+        return step(images, data, gen)
+
+    for _ in range(2):
+        full()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    phases = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        events[0].record()
+        loss = step.forward(images, data, gen)
+        events[1].record()
+        step.backward(loss)
+        events[2].record()
+        step.update()
+        events[3].record()
+        events[3].synchronize()
+        for i, name in enumerate(phases):
+            phases[name] += events[i].elapsed_time(events[i + 1]) / iters
+    wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        full()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / iters
+    traced = _trace(full, "train_step", trace_dir)
+    return {
+        "card": _card(),
+        "batch": batch,
+        "phase_ms_cuda_events": phases,
+        "phased_step_wall_ms": wall_ms,
+        "step_wall_ms": step_ms,
+        "images_per_s": batch / step_ms * 1e3,
+        "peak_memory_gib": peak / 2 ** 30,
+        "traced_per_step": traced,
+        # an estimate, not a measurement: the traced device-busy time
+        # over the untraced step's host-clock time
+        "device_idle_share_untraced_estimate": max(
+            0.0, 1.0 - traced["device_busy_ms"] / step_ms),
+    }
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--batch", type=int, default=32)
+    parser.add_argument("--batch", type=int, default=None,
+                        help="32 for serving, 48 for --train")
     parser.add_argument("--iters", type=int, default=10)
+    parser.add_argument("--train", action="store_true",
+                        help="profile one train step instead")
     parser.add_argument("--trace-dir", default=None)
     args = parser.parse_args()
-    print(json.dumps(profile_flagship(args.batch, args.iters,
-                                      args.trace_dir), indent=1))
+    if args.train:
+        out = profile_train_step(args.batch or 48, args.iters, args.trace_dir)
+    else:
+        out = profile_flagship(args.batch or 32, args.iters, args.trace_dir)
+    print(json.dumps(out, indent=1))
 
 
 if __name__ == "__main__":

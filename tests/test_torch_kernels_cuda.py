@@ -15,7 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from shapy_tpu_torch.core.kinematics import batch_rigid_transform
+from shapy_tpu_torch.core.kinematics import (
+    CHAIN_KERNEL,
+    batch_rigid_transform,
+    batch_rigid_transform_plain,
+)
 from shapy_tpu_torch.core.rotations import aa_to_rotmat
 from shapy_tpu_torch.data.crop import (
     INGEST_KERNEL,
@@ -39,6 +43,12 @@ from shapy_tpu_torch.measure.measurements import (
     MeasurementAnchors,
     candidate_faces,
     measure_plain,
+)
+from shapy_tpu_torch.models.backbones.layers import (
+    BN_KERNEL,
+    batch_norm_train,
+    batch_norm_train_backward_plain,
+    batch_norm_train_plain,
 )
 from shapy_tpu_torch.models.body.assets import make_synthetic_model_data
 from shapy_tpu_torch.models.body.lbs import SKIN_KERNEL, skin, skin_plain
@@ -244,3 +254,166 @@ def test_k8_cuda_tensors_never_fall_back_to_plain(dev, monkeypatch):
     metrics.PointError("procrustes")(y, x)
     reg(y, x)
     assert (ALIGN_KERNEL.launches, REGRESS_KERNEL.launches) == (a + 1, r + 1)
+
+
+def _chain_inputs(dev, B, seed):
+    gen = torch.Generator().manual_seed(seed)
+    data = make_synthetic_model_data("smplx", subdivisions=1)
+    parents = data["kintree_table"][0].astype(np.int64)
+    parents[0] = -1
+    J = len(parents)
+    rot = aa_to_rotmat(torch.randn(B, J, 3, generator=gen) * 0.5)
+    joints = torch.randn(B, J, 3, generator=gen) * 0.3
+    cts = [torch.randn(s, generator=gen) for s in
+           ((B, J, 3), (B, J, 4, 4), (B, J, 4, 4))]
+    return parents, rot.to(dev), joints.to(dev), [c.to(dev) for c in cts]
+
+
+@pytest.mark.parametrize("with_world", [True, False],
+                         ids=["d_world", "no-d_world"])
+def test_chain_kernel_matches_plain(dev, with_world):
+    """K3-chain forward within 1e-5 of the plain version (f32 3x4
+    products in another order) and its backward within 1e-5 of autograd
+    through the plain version in f64 and in f32 (the SMPL-X tree, 48
+    bodies); two runs give the same bits."""
+    parents, rot, joints, cts = _chain_inputs(dev, 48, seed=3)
+    if not with_world:
+        cts[2] = torch.zeros_like(cts[2])
+    r, j = rot.clone().requires_grad_(), joints.clone().requires_grad_()
+    before = dict(CHAIN_KERNEL.counts)
+    got = batch_rigid_transform(r, j, parents)
+    n = 3 if with_world else 2  # without: autograd passes no d_world
+    torch.autograd.backward(got[:n], cts[:n])
+    assert CHAIN_KERNEL.counts["chain_forward"] == before["chain_forward"] + 1
+    assert CHAIN_KERNEL.counts["chain_backward"] == (
+        before["chain_backward"] + 1)
+    for dtype in (torch.float64, torch.float32):
+        r2 = rot.to(dtype, copy=True).requires_grad_()
+        j2 = joints.to(dtype, copy=True).requires_grad_()
+        want = batch_rigid_transform_plain(r2, j2, parents)
+        torch.autograd.backward(want, [c.to(dtype) for c in cts])
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w.float(), rtol=0, atol=1e-5)
+        torch.testing.assert_close(r.grad, r2.grad.float(), rtol=0,
+                                   atol=1e-5)
+        torch.testing.assert_close(j.grad, j2.grad.float(), rtol=0,
+                                   atol=1e-5)
+    r3, j3 = rot.clone().requires_grad_(), joints.clone().requires_grad_()
+    again = batch_rigid_transform(r3, j3, parents)
+    torch.autograd.backward(again, cts)
+    r4, j4 = rot.clone().requires_grad_(), joints.clone().requires_grad_()
+    torch.autograd.backward(batch_rigid_transform(r4, j4, parents), cts)
+    assert torch.equal(r3.grad, r4.grad) and torch.equal(j3.grad, j4.grad)
+
+
+def test_skin_backward_kernel_matches_plain(dev, body):
+    """K3 backward at SMPL-X-like shapes: d rel_transforms and d v_posed
+    against autograd through the plain version in f64 (atol 1e-5 of the
+    largest gradient: sums over the vertices in f32) and f32; two runs
+    give the same bits."""
+    model, _ = body
+    gen = torch.Generator().manual_seed(4)
+    B = 6
+    aa = (torch.randn(B, 55, 3, generator=gen) * 0.3).to(dev)
+    v = model.forward_shape(torch.zeros(B, 10, device=dev))["v_shaped"]
+    joints = torch.matmul(model.J_regressor, v)
+    _, rel, _ = batch_rigid_transform(aa_to_rotmat(aa), joints, model.parents)
+    rel, v = rel.contiguous(), v.contiguous()
+    dv = torch.randn(v.shape, generator=gen).to(dev)
+
+    def grads(fn, dtype):
+        a = rel.to(dtype, copy=True).requires_grad_()
+        b = v.to(dtype, copy=True).requires_grad_()
+        fn(model.lbs_weights.to(dtype), a, b).backward(dv.to(dtype))
+        return a.grad.float(), b.grad.float()
+
+    before = SKIN_KERNEL.counts["skin_backward"]
+    got = grads(skin, torch.float32)
+    assert SKIN_KERNEL.counts["skin_backward"] == before + 1
+    for dtype in (torch.float64, torch.float32):
+        for g, w in zip(got, grads(skin_plain, dtype)):
+            scale = max(1.0, float(w.abs().max()))
+            torch.testing.assert_close(g, w, rtol=0, atol=1e-5 * scale)
+    again = grads(skin, torch.float32)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(48, 64, 16, 16), (6, 2048, 8, 8),
+                                   (3, 48, 5, 7)],
+                         ids=["stem", "stage4-head", "ragged"])
+def test_batch_norm_kernel_matches_plain(dev, dtype, shape):
+    """K4 forward and backward against the plain versions on the card:
+    f32 rel 1e-4 (sums in another order), bf16 within one bf16 step of
+    the values (the same roundings, f32 sums in another order); the
+    running stats rel 1e-5; two runs give the same bits."""
+    gen = torch.Generator().manual_seed(5)
+    x = (torch.randn(shape, generator=gen) * 2 + 0.3).to(dev, dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    C = shape[1]
+    gamma = (torch.rand(C, generator=gen) + 0.5).to(dev)
+    beta = torch.randn(C, generator=gen).to(dev)
+    dy = torch.randn(shape, generator=gen).to(dev, dtype).contiguous(
+        memory_format=torch.channels_last)
+    rm, rv = torch.zeros(C, device=dev), torch.ones(C, device=dev)
+
+    def run():
+        xs = x.clone().requires_grad_()
+        g, b = gamma.clone().requires_grad_(), beta.clone().requires_grad_()
+        m, v = rm.clone(), rv.clone()
+        y = batch_norm_train(xs, g, b, m, v)
+        y.backward(dy)
+        return y, xs.grad, g.grad, b.grad, m, v
+
+    before = dict(BN_KERNEL.counts)
+    got = run()
+    assert BN_KERNEL.counts == {k: n + 1 for k, n in before.items()}
+    y_p, mean_p, var_p = batch_norm_train_plain(x, gamma, beta)
+    inv_p = torch.rsqrt(var_p + 1e-5)
+    dx_p, dg_p, db_p = batch_norm_train_backward_plain(dy, x, gamma, mean_p,
+                                                       inv_p)
+    n = x.numel() // C
+    m_p = 0.9 * rm + 0.1 * mean_p
+    v_p = 0.9 * rv + 0.1 * var_p * (n / (n - 1))
+    tol = (dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else
+           dict(rtol=2 ** -7, atol=2 ** -7))
+    for g, w in ((got[0], y_p), (got[1], dx_p)):
+        torch.testing.assert_close(g.float(), w.float(), **tol)
+    for g, w in ((got[2], dg_p), (got[3], db_p)):
+        scale = float(w.abs().max())
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * scale)
+    torch.testing.assert_close(got[4], m_p, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[5], v_p, rtol=1e-5, atol=1e-6)
+    again = run()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_batch_norm_kernel_is_the_gradient(dev):
+    """K4's backward (f32) against autograd through the plain forward in
+    f64: rel 1e-4 of the largest value."""
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn((8, 40, 6, 6), generator=gen).to(dev) * 3 + 1
+    gamma = (torch.rand(40, generator=gen) + 0.5).to(dev)
+    beta = torch.randn(40, generator=gen).to(dev)
+    dy = torch.randn(x.shape, generator=gen).to(dev)
+    xs = x.clone().requires_grad_()
+    g, b = gamma.clone().requires_grad_(), beta.clone().requires_grad_()
+    batch_norm_train(xs, g, b).backward(dy)
+    x64, g64, b64 = (t.to(torch.float64, copy=True).requires_grad_()
+                     for t in (x, gamma, beta))
+    batch_norm_train_plain(x64, g64, b64)[0].backward(dy.double())
+    for got, want in ((xs.grad, x64.grad), (g.grad, g64.grad),
+                      (b.grad, b64.grad)):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got.double(), want, rtol=0,
+                                   atol=1e-4 * scale)
+
+
+def test_measure_kernel_backward_raises(dev, body):
+    """A measurement loss on the card reaches K1's missing backward."""
+    model, meas = body
+    betas = torch.zeros(2, 10, device=dev, requires_grad=True)
+    v = model.forward_shape(betas)["v_shaped"]
+    out = meas.forward_from_vertices(v, use_face_subsets=False)
+    with pytest.raises(NotImplementedError, match="K1-backward"):
+        out["measurements"]["height"]["tensor"].sum().backward()
