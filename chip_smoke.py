@@ -7,21 +7,23 @@ GPU: the quickest proof that the port still starts on the card.
 Phases, each of which raises on failure (exit code 1):
 
 1. Prints the card's name and power limit, and builds the seven
-   hand-written CUDA sources (K1 measure, K2 ingest, K3 skinning forward
-   and backward, K3-chain forward and backward, K4 train-mode BatchNorm
-   forward and backward, K8a P2P point error, K8b aligned point error)
-   from ``shapy_tpu_torch/csrc/``, one nvcc process each, all started
-   together, and prints each kernel's registers and stack.
+   hand-written CUDA sources from ``shapy_tpu_torch/csrc/``, one nvcc
+   process each, all started together: K1 measure (reference and exact
+   slice modes, forward and backward), K2 ingest, K3 skinning forward and
+   backward, K3-chain forward and backward, K4 train-mode BatchNorm
+   forward and backward, K8a P2P point error, K8b aligned point error;
+   prints each kernel's registers and stack.
 2. Holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes (batch 32, SMPL-X 10475 vertices / 20908 faces,
    K=256 hull directions, 480x360 uint8 images -> 256x256 crops, a
    P2P regressor of 20000 points x 3 vertices, alignments over 10475
    vertices; for training batch 48: the chain of 55 joints, skinning's
    backward, and K4 on the stem's first BN and a stage-4 BN in bf16 and
-   f32, the backwards first against autograd through the plain versions
-   in f64) and times both with CUDA events, and K4 beside
-   ``F.batch_norm(training=True)``; computes each kernel's bound (bytes
-   or FLOPs of this run's inputs at 3.35 TB/s / 67 TFLOP/s).
+   f32; K1's backward and K1-exact forward and backward on all faces at
+   batch 48 and batch 1; the backwards first against autograd through
+   the plain versions in f64) and times both with CUDA events, and K4
+   beside ``F.batch_norm(training=True)``; computes each kernel's bound
+   (bytes or FLOPs of this run's inputs at 3.35 TB/s / 67 TFLOP/s).
 3. Serves the flagship (HRNet-W48 at full width, 3-stage head with MLP
    (1024, 1024), SMPL-X, measurements; bf16 backbone) through
    ``apply_from_full_images``: one warm-up, then 3 requests of batch 32.
@@ -31,8 +33,10 @@ Phases, each of which raises on failure (exit code 1):
 4. Cross-device parity: the same weights at batch 2 with an f32 backbone
    and TF32 off, the CPU port (plain versions) against the CUDA port
    (kernels): outputs, and the evaluator's metrics on them; then one train
-   step (dropout 0): losses, each module's gradient norm and cosine, the
-   head's gradients elementwise, and the updated parameters.
+   step (dropout 0) with the height, chest, waist and hips losses at
+   weight 1.0 (GT measurements from K1 on the GT bodies): losses, each
+   module's gradient norm and cosine, the head's gradients elementwise,
+   and the updated parameters.
 5. Evaluates the flagship of phase 3 at batch 32: 3 batches of synthetic
    ground truth (shaped and posed SMPL-X bodies from seeded betas and
    poses, GT measurements from K1 on all faces, genders and BMI buckets,
@@ -54,13 +58,24 @@ Phases, each of which raises on failure (exit code 1):
    did not, and that K1, K3 and K3-chain (forward and backward) and K4
    (forward and backward) were launched by these 10 steps; prints steps/s,
    images/s and the peak device memory beside the card.
+8. Fits shape to measurements with ``fit_betas_to_measurements`` on the
+   full-width SMPL-X, in both slice modes: batch 1 from zero betas and
+   batch 32 from seeded betas (0.5 sigma), 200 Adam steps at lr 0.05 (the
+   example's) and a shape prior of 1e-5
+   toward the height, chest, waist and hips of a seeded betas vector.
+   Checks every fit within 1 cm of its targets, that K1 (or K1-exact)
+   forward and backward launched once per step, and the first 20 steps
+   against the same fit through the plain versions on the card; prints
+   steps/s. Then runs ``cli.virtual_measurements.main(..., render=False)``
+   over 8 seeded betas files and checks its lines against the plain
+   version's measurements.
 
 The line before the last is a JSON object with one entry per kernel
 function (forward and backward separately); ``launches`` counts the
-training phase for the kernels it runs and the evaluation phase for the
-others. The last line is ``{"ok": true, "device": {...}}``. Without CUDA,
-or without the repository beside this file, it exits non-zero and prints
-no result.
+training phase for the kernels it runs, the batch-32 fit of phase 8 for
+K1's backward and K1-exact, and the evaluation phase for the others. The
+last line is ``{"ok": true, "device": {...}}``. Without CUDA, or without
+the repository beside this file, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -86,6 +101,15 @@ P2P_POINTS = 20000
 SUBMISSION = 64
 TRAIN_B = 48  # train_shapy.yaml's batch
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+MEASURED = ("height", "chest", "waist", "hips")
+# Phase 8: the example's steps and learning rate; the shape prior of the
+# JAX package's convergence check (the example's 1e-3 holds the fit ~1.3
+# cm off its targets).
+FIT_STEPS, FIT_LR, FIT_PRIOR = 200, 0.05, 1e-5
+FIT_B = 32
+FIT_TOL = 0.01  # m
+FIT_PARITY_STEPS = 20
+VM_FILES = 8
 # The H100 SXM's published peaks (at its 700 W limit): HBM bytes/s and
 # f32 FLOP/s outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
@@ -181,6 +205,12 @@ def kernels():
     return [
         ("K1_measure", MEASURE_KERNEL, "measure_forward", csrc + "measure.cu",
          "shapy_tpu/ops/plane_slice.py:74"),
+        ("K1_measure_backward", MEASURE_KERNEL, "measure_backward",
+         csrc + "measure.cu", "shapy_tpu/measure/measurements.py:313"),
+        ("K1exact_measure", MEASURE_KERNEL, "measure_exact_forward",
+         csrc + "measure.cu", "shapy_tpu/ops/plane_slice.py:242"),
+        ("K1exact_measure_backward", MEASURE_KERNEL, "measure_exact_backward",
+         csrc + "measure.cu", "shapy_tpu/ops/plane_slice.py:242"),
         ("K2_ingest", INGEST_KERNEL, "ingest_forward", csrc + "ingest.cu",
          "shapy_tpu/data/crop.py:96"),
         ("K3_skinning", SKIN_KERNEL, "skin_forward", csrc + "skinning.cu",
@@ -209,6 +239,8 @@ SCORE_KERNELS = ("K1_measure", "K8a_point_regress", "K8b_align_error")
 TRAIN_KERNELS = ("K1_measure", "K3_skinning", "K3_skinning_backward",
                  "K3chain_forward", "K3chain_backward", "K4_bn_forward",
                  "K4_bn_backward")
+FIT_KERNELS = {"reference": ("K1_measure", "K1_measure_backward"),
+               "exact": ("K1exact_measure", "K1exact_measure_backward")}
 
 
 def sources():
@@ -247,7 +279,6 @@ def check_kernels(regressor, requests, eval_data, dev):
         PLANES,
         _soa,
         measure_plain,
-        measure_reference,
     )
     from shapy_tpu_torch.models.body.lbs import skin, skin_plain
     from shapy_tpu_torch.ops.plane_slice import plane_slice_reference_soa
@@ -267,11 +298,9 @@ def check_kernels(regressor, requests, eval_data, dev):
     subsets = [getattr(meas, f"subset_{n}") for n in PLANES]
     k1_err = 0.0
     for plane_faces in (subsets, None):
-        args = (v_shaped, meas.faces, plane_faces, meas.anchors)
-        got, got_h = measure_reference(*args, meas.anchor_face,
-                                       meas.anchor_bary, meas.hull_cos,
-                                       meas.hull_sin, meas.density)
-        want, want_h = measure_plain(*args, meas.num_hull_directions,
+        got, got_h = meas.measure(v_shaped, plane_faces is not None)
+        want, want_h = measure_plain(v_shaped, meas.faces, plane_faces,
+                                     meas.anchors, meas.num_hull_directions,
                                      meas.density)
         torch.cuda.synchronize()
         rel = ((got[:, :2] - want[:, :2]).abs() / want[:, :2].abs()).max()
@@ -302,9 +331,7 @@ def check_kernels(regressor, requests, eval_data, dev):
     n_cand = sum(int(ids.shape[0]) for ids in subsets)
     k1 = (v_shaped, meas.faces, subsets, meas.anchors)
     record_kernel(results, "K1_measure", k1_err,
-           lambda: measure_reference(*k1, meas.anchor_face, meas.anchor_bary,
-                                     meas.hull_cos, meas.hull_sin,
-                                     meas.density),
+           lambda: meas.measure(v_shaped),
            lambda: measure_plain(*k1, meas.num_hull_directions, meas.density),
            v_shaped.numel() * 4 + F * 12 + n_cand * 4 + B * 8 * 4,
            B * F * 17 + B * n_cand * 150
@@ -842,17 +869,181 @@ def check_train_kernels(model, dev):
     return results
 
 
-def _train_step_once(reg, batch, device):
+def slice_points(meas, v, slice_mode) -> int:
+    """The hits of the three planes over all faces of bodies ``v``, from
+    the plain slice on the card (the data-dependent part of K1's work)."""
+    import torch
+
+    from shapy_tpu_torch.measure.measurements import PLANES, _soa
+    from shapy_tpu_torch.ops.plane_slice import (
+        plane_slice_reference_soa,
+        plane_slice_soa,
+    )
+
+    tx, ty, tz = _soa(v, meas.faces)
+    points = 0
+    with torch.no_grad():
+        for name in PLANES:
+            a = getattr(meas.anchors, name)
+            h = (ty[:, :, a.face_idx] * torch.tensor(
+                a.bary, device=v.device)).sum(-1)
+            if slice_mode == "reference":
+                _, _, m = plane_slice_reference_soa(ty, tx, tz, h)
+            else:
+                _, _, m = plane_slice_soa(ty, tx, tz, h)
+            points += int(m.sum())
+    return points
+
+
+def check_measure_kernels(model, anchors, dev):
+    """Phase 2, the fit's and the train step's measurement kernels on all
+    faces, at the train batch (48) and the fit's batch 1: K1-exact's
+    forward against its plain version (mass / height rel 1e-5,
+    circumferences 1e-5 m, as K1), and K1's and K1-exact's backwards, for
+    a seeded cotangent on all eight outputs and for one on the
+    circumferences alone (the mass gradient would otherwise set the
+    scale).
+
+    The hull's max and min are not differentiable where two hits' support
+    values tie, and at batch 48 some directions have two distinct hits
+    whose projections differ by less than the rounding of the centroid's
+    sum: a plain version that sums the centroid in another order sends
+    such a direction's gradient to the other hit. So the backward is held
+    (1) against autograd through the plain version in f32 given the
+    kernel's own centroids (``saved_centroids``), on every vertex, within
+    1e-4 of the largest gradient (in exact mode y - h cancels near the
+    plane and the two sides order that formula's terms differently:
+    3.2e-5 measured on the CPU), and (2) against autograd through the
+    plain version in f64 with its own centroids, on at least 99.8% of the
+    vertices within 1e-4 (the rest are vertices of hits at such ties, or
+    at hit tests that f64 decides the other way). Two calls give the same
+    bits. Times each beside the plain version (the backward's in f64)."""
+    import torch
+
+    from shapy_tpu_torch.measure.measurements import (
+        BodyMeasurements,
+        measure_plain,
+        saved_centroids,
+    )
+
+    gen = torch.Generator().manual_seed(SEED + 10)
+    K = 256
+    cases = {"K1_measure": [], "K1_measure_backward": [],
+             "K1exact_measure": [], "K1exact_measure_backward": []}
+    for batch in (TRAIN_B, 1):
+        betas = torch.randn((batch, model.num_betas), generator=gen) * 1.5
+        v = model.forward_shape(betas.to(dev))["v_shaped"].detach()
+        v = v.contiguous()
+        g_all = (torch.randn((batch, 5), generator=gen).to(dev),
+                 torch.randn((batch, 3), generator=gen).to(dev))
+        g_circ = (g_all[0] * torch.tensor([0.0, 0.0, 1.0, 1.0, 1.0],
+                                          device=dev),
+                  torch.zeros_like(g_all[1]))
+        for mode in ("reference", "exact"):
+            meas = BodyMeasurements(anchors, model.faces, K,
+                                    slice_mode=mode).to(dev)
+
+            def plain(t, centroids=None, meas=meas, mode=mode):
+                return measure_plain(t, meas.faces, None, meas.anchors, K,
+                                     meas.density, mode, centroids)
+
+            x = v.clone().requires_grad_()
+            outs = meas.measure(x, use_face_subsets=False)
+            cents = saved_centroids(outs[0]).detach()
+            want, _ = plain(v)
+            torch.cuda.synchronize()
+            fwd_rel = float(((outs[0][:, :2].detach() - want[:, :2]).abs()
+                             / want[:, :2].abs()).max())
+            fwd_circ = max_err(outs[0][:, 2:], want[:, 2:])
+            err32, err64, share = {}, {}, {}
+            grads = []
+            for which, (gv, gh) in (("all", g_all), ("circ", g_circ)):
+                got = torch.autograd.grad(outs, x, (gv, gh),
+                                          retain_graph=True)[0]
+                grads.append(got)
+                xp = v.clone().requires_grad_()
+                w32 = torch.autograd.grad(plain(xp, cents), xp, (gv, gh))[0]
+                err32[which] = max_err(got, w32) / float(w32.abs().max())
+                xp = v.double().requires_grad_()
+                w64 = torch.autograd.grad(plain(xp), xp,
+                                          (gv.double(), gh.double()))[0]
+                per_v = ((got.double() - w64).abs().amax(-1)
+                         / float(w64.abs().max()))
+                err64[which] = float(per_v.max())
+                share[which] = float((per_v <= 1e-4).double().mean())
+            x2 = v.clone().requires_grad_()
+            again = torch.autograd.grad(meas.measure(x2, False), x2, g_all)[0]
+            same = torch.equal(grads[0], again)
+            name = "K1" if mode == "reference" else "K1-exact"
+            print(f"{name} all faces, batch {batch}: forward mass/height rel "
+                  f"err {fwd_rel:.3e} (tol 1e-5), circumference err "
+                  f"{fwd_circ:.3e} m (tol 1e-5); backward (all outputs / "
+                  f"circumferences), of the largest gradient: vs plain f32 "
+                  f"with the kernel's centroids {err32['all']:.3e} / "
+                  f"{err32['circ']:.3e} (tol 1e-4); vs plain f64 max "
+                  f"{err64['all']:.3e} / {err64['circ']:.3e}, vertices "
+                  f"within 1e-4 {share['all']:.5f} / {share['circ']:.5f} "
+                  f"(tol 0.998); two runs bit-equal: {same}")
+            check(fwd_rel <= 1e-5 and fwd_circ <= 1e-5, f"{name} forward")
+            check(max(err32.values()) <= 1e-4,
+                  f"{name} backward vs plain f32: {err32}")
+            check(min(share.values()) >= 0.998,
+                  f"{name} backward vs plain f64: {share}")
+            check(same, f"{name} backward is not deterministic")
+            check(bool((want[:, 2:] > 0.5).all()), f"{name} empty slices")
+
+            points = slice_points(meas, v, mode)
+            F, n_v = meas.faces.shape[0], v.numel()
+            x64 = v.double().requires_grad_()
+            p64 = plain(x64)
+            g64 = tuple(g.double() for g in g_all)
+            bwd = record_kernel(
+                {}, f"{name} backward (batch {batch})", max(err32.values()),
+                lambda: torch.autograd.grad(outs, x, g_all,
+                                            retain_graph=True),
+                lambda: torch.autograd.grad(p64, x64, g64,
+                                            retain_graph=True),
+                # vertices in, gradient out, faces, the saved hits (point
+                # and code); the mass term's three cross products per
+                # face, the hull's share per (hit, direction pair) and
+                # each hit's chain
+                2 * n_v * 4 + F * 12 + points * 12 + batch * 8 * 4,
+                batch * F * 36 + points * ((K // 2) * 8 + 150))
+            row = {"batch": batch, **bwd, "rel_err_f32": err32,
+                   "rel_err_f64_max": err64, "share_within_1e-4_f64": share}
+            # the forward on all faces (the fit's and training's)
+            fwd = record_kernel(
+                {}, f"{name} forward (all faces, batch {batch})",
+                max_err(outs[0], want),
+                lambda: meas.measure(v, False), lambda: plain(v),
+                # the signed volume of every face (17 FLOP), the crossing
+                # tests per (face, plane) (reference: ~150 FLOP for the
+                # ordered hit tests; exact: ~12), 8 per slice point and 5
+                # per (point, direction pair) for the hull
+                n_v * 4 + F * 12 + batch * 8 * 4,
+                batch * F * (17 + 3 * (150 if mode == "reference" else 12))
+                + points * (8 + (K // 2) * 5))
+            key = "K1" if mode == "reference" else "K1exact"
+            cases[f"{key}_measure_backward"].append(row)
+            cases[f"{key}_measure"].append({"batch": batch, "faces": "all",
+                                            **fwd})
+            del p64, x64
+    # The kernels line's numbers: the train batch; batch 1 beside them.
+    # K1's forward keeps phase 2's subsets row; these are its cases.
+    k1_cases = cases.pop("K1_measure")
+    out = {name: dict(rows[0], cases=rows) for name, rows in cases.items()}
+    out["K1_measure_cases"] = k1_cases
+    return out
+
+
+def _train_step_once(reg, batch, device, loss_cfg):
     """One train step of ``reg`` on ``device``: (losses, gradients,
     parameters before and after), on the CPU."""
-    from shapy_tpu_torch.flagship import (
-        FLAGSHIP_OPTIM_CFG,
-        FLAGSHIP_TRAIN_LOSS_CFG,
-    )
+    from shapy_tpu_torch.flagship import FLAGSHIP_OPTIM_CFG
     from shapy_tpu_torch.train.losses import RegressorLosses
     from shapy_tpu_torch.train.step import init_train_state, make_train_step
 
-    step = make_train_step(reg, RegressorLosses(FLAGSHIP_TRAIN_LOSS_CFG),
+    step = make_train_step(reg, RegressorLosses(loss_cfg),
                            init_train_state(reg, FLAGSHIP_OPTIM_CFG))
     b = {k: v.to(device) for k, v in batch.items()}
     images = b.pop("images")
@@ -876,17 +1067,31 @@ def _module(name: str) -> str:
 
 def train_parity(base, dev):
     """Phase 4, training: one train step of the same weights at batch 2,
-    f32, TF32 off, dropout 0, on the CPU port (plain versions) and the
-    CUDA port (kernels): the losses, the gradient of each module (norm
-    and cosine), the head's gradients elementwise, and the updated
+    f32, TF32 off, dropout 0, with the height, chest, waist and hips losses
+    at weight 1.0 against GT measurements from K1 on the GT bodies, on the
+    CPU port (plain versions) and the CUDA port (kernels, K1's backward
+    among them): the losses, the gradient of each module (norm and
+    cosine), the head's gradients elementwise, and the updated
     parameters."""
     import torch
 
     from shapy_tpu_torch.flagship import (
         FLAGSHIP_OPTIM_CFG,
+        FLAGSHIP_TRAIN_LOSS_CFG,
         synthetic_train_batches,
     )
+    from shapy_tpu_torch.measure.measurements import MEASURE_KERNEL
 
+    loss_cfg = {"body": dict(FLAGSHIP_TRAIN_LOSS_CFG["body"],
+                             **{k: {"weight": 1.0} for k in MEASURED})}
+    reg = copy.deepcopy(base).to(dev)
+    gt_betas = synthetic_train_batches(reg, 1, 2, CROP, SEED + 8)[0][
+        "gt_betas"]
+    with torch.no_grad():
+        gt = reg.body_measurements.forward_from_vertices(
+            reg.model.forward_shape(gt_betas)["v_shaped"],
+            use_face_subsets=False)["measurements"]
+    gt = {k: gt[k]["tensor"].cpu() for k in MEASURED}
     saved = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
@@ -896,10 +1101,16 @@ def train_parity(base, dev):
             reg.head.dropout = 0.0
             reg.prepare_for_train_(torch.float32)
             batch = synthetic_train_batches(reg, 1, 2, CROP, SEED + 8)[0]
-            runs.append(_train_step_once(reg, batch, device))
+            batch.update({k: v.to(device) for k, v in gt.items()})
+            before = MEASURE_KERNEL.counts["measure_backward"]
+            runs.append(_train_step_once(reg, batch, device, loss_cfg))
+            bwd_launches = MEASURE_KERNEL.counts["measure_backward"] - before
     finally:
         torch.backends.cudnn.allow_tf32 = saved
     (loss_c, grad_c, old, new_c), (loss_g, grad_g, _, new_g) = runs
+    check(all(k in loss_g for k in MEASURED), "no measurement losses")
+    check(bwd_launches == 1, f"K1's backward launched {bwd_launches} times "
+          "by the CUDA train step")
     loss_rel = max(abs(loss_g[k] - v) / abs(v) for k, v in loss_c.items())
     sums = {}
     for k, gc in grad_c.items():
@@ -934,8 +1145,11 @@ def train_parity(base, dev):
         flipped += int(((torch.sign(tc) != torch.sign(tg)) & (
             tc.abs() > 1e-6) & (tg.abs() > 1e-6)).sum())
         total += d.numel()
-    print(f"cross-device train step (batch 2, f32, no TF32): loss "
-          f"{loss_c['total']:.6f} vs {loss_g['total']:.6f}, terms rel err "
+    print(f"cross-device train step (batch 2, f32, no TF32, measurement "
+          f"losses at 1.0): loss "
+          f"{loss_c['total']:.6f} vs {loss_g['total']:.6f} ("
+          + ", ".join(f"{k} {loss_g[k]:.5f}" for k in MEASURED)
+          + f"), terms rel err "
           f"{loss_rel:.3e} (tol 1e-4); gradients of {len(sums)} modules: "
           f"norm rel err <= {norm_rel:.3e} (tol 2e-2), cosine >= {cos:.6f} "
           f"(tol 0.998); head gradients err <= {head_err:.3e} of each "
@@ -1011,6 +1225,194 @@ def train(base, dev):
     return launches
 
 
+class PlainMeasurements:
+    """``forward_from_vertices`` through the plain version, given the
+    kernel's centroids of the same bodies (see ``check_measure_kernels``):
+    phase 8's reference fit."""
+
+    def __init__(self, meas):
+        self.meas = meas
+
+    def forward_from_vertices(self, vertices, use_face_subsets=True):
+        from shapy_tpu_torch.measure.measurements import (
+            PLANES,
+            measure_plain,
+            saved_centroids,
+        )
+
+        import torch
+
+        m = self.meas
+        with torch.enable_grad():  # the centroids are saved for a backward
+            probe = vertices.detach().clone().requires_grad_()
+            cents = saved_centroids(m.measure(probe, False)[0]).detach()
+        vals, heights = measure_plain(vertices, m.faces, None, m.anchors,
+                                      m.num_hull_directions, m.density,
+                                      m.slice_mode, cents)
+        out = {"mass": {"tensor": vals[:, 0]},
+               "height": {"tensor": vals[:, 1]}}
+        for p, name in enumerate(PLANES):
+            out[name] = {"tensor": vals[:, 2 + p],
+                         "plane_height": heights[:, p]}
+        return {"measurements": out}
+
+
+def fit(model, anchors, dev):
+    """Phase 8: ``fit_betas_to_measurements`` on the full-width SMPL-X in
+    both slice modes (batch 1 from zero betas, batch 32 from seeded betas
+    of 0.5 sigma), then the virtual-measurements CLI. Returns the launches
+    of each mode's batch-32 fit."""
+    import torch
+
+    from shapy_tpu_torch.measure.fit_measurements import (
+        fit_betas_to_measurements,
+    )
+    from shapy_tpu_torch.measure.measurements import BodyMeasurements
+
+    rng = np.random.default_rng(SEED + 11)
+    target_betas = torch.tensor(rng.normal(size=(1, model.num_betas)),
+                                dtype=torch.float32, device=dev)
+    init32 = torch.tensor(rng.normal(size=(FIT_B, model.num_betas)) * 0.5,
+                          dtype=torch.float32)
+    kwargs = dict(num_steps=FIT_STEPS, learning_rate=FIT_LR,
+                  shape_prior_weight=FIT_PRIOR)
+    launches = {}
+    for mode in ("reference", "exact"):
+        meas = BodyMeasurements(anchors, model.faces, 256,
+                                slice_mode=mode).to(dev)
+        with torch.no_grad():
+            m = meas.forward_from_vertices(
+                model.forward_shape(target_betas)["v_shaped"],
+                use_face_subsets=False)["measurements"]
+        targets = {k: float(m[k]["tensor"][0]) for k in MEASURED}
+        fwd, bwd = FIT_KERNELS[mode]
+        for batch, init in ((1, None), (FIT_B, init32)):
+            fit_fn = lambda: fit_betas_to_measurements(  # noqa: E731
+                model, meas, targets, init_betas=init, batch_size=batch,
+                **kwargs)
+            fit_fn()  # warm-up
+            torch.cuda.synchronize()
+            reset_launches()
+            start = time.perf_counter()
+            result = fit_fn()
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - start
+            counts = read_launches()
+            errs = {k: float((result["measurements"][k] - t).abs().max())
+                    for k, t in targets.items()}
+            losses = result["losses"]
+            check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+                  f"fit losses {losses[0]} -> {losses[-1]}")
+            check(max(errs.values()) <= FIT_TOL,
+                  f"{mode} fit of batch {batch} off its targets: {errs}")
+            check(counts[fwd] == FIT_STEPS + 1 and counts[bwd] == FIT_STEPS,
+                  f"{mode} fit launched {counts[fwd]} forwards and "
+                  f"{counts[bwd]} backwards in {FIT_STEPS} steps")
+            others = {k: n for k, n in counts.items()
+                      if n and k not in (fwd, bwd)}
+            if batch == FIT_B:
+                launches.update({fwd: counts[fwd], bwd: counts[bwd]})
+            # The first steps against the same fit through the plain
+            # versions on the card (given the kernel's centroids): losses
+            # rel 1e-4, betas 2e-4 (f32 gradients that agree to ~1e-5 of
+            # their largest, through 20 Adam steps of ~lr each, which
+            # magnify the difference where a component is near 0:
+            # 6.1e-5 measured at batch 32).
+            short = dict(kwargs, num_steps=FIT_PARITY_STEPS)
+            a = fit_betas_to_measurements(model, meas, targets,
+                                          init_betas=init,
+                                          batch_size=batch, **short)
+            b = fit_betas_to_measurements(model, PlainMeasurements(meas),
+                                          targets, init_betas=init,
+                                          batch_size=batch, **short)
+            loss_rel = float(np.max(np.abs(a["losses"] - b["losses"])
+                                    / np.abs(b["losses"])))
+            beta_err = max_err(a["betas"], b["betas"])
+            check(loss_rel <= 1e-4 and beta_err <= 2e-4,
+                  f"{mode} fit vs plain: losses {loss_rel}, betas "
+                  f"{beta_err}")
+            print(f"fit ({mode}, batch {batch}): {FIT_STEPS} steps in "
+                  f"{elapsed * 1e3:.1f} ms = {FIT_STEPS / elapsed:.1f} "
+                  f"steps/s; loss {losses[0]:.6f} -> {losses[-1]:.3e}; max "
+                  f"|fitted - target| " + ", ".join(
+                      f"{k} {e * 1e3:.3f} mm" for k, e in errs.items())
+                  + f" (tol {FIT_TOL * 1e3:.0f} mm); launches {fwd} "
+                  f"{counts[fwd]}, {bwd} {counts[bwd]}, others {others}; "
+                  f"first {FIT_PARITY_STEPS} steps vs plain: losses rel "
+                  f"{loss_rel:.2e} (tol 1e-4), betas {beta_err:.2e} (tol "
+                  "2e-4)")
+    virtual_measurements(dev)
+    return launches
+
+
+def virtual_measurements(dev):
+    """``cli.virtual_measurements.main(..., render=False)`` over seeded
+    betas files on the synthetic SMPL-X (subdivisions 5): its lines
+    against the plain version's measurements of the same bodies."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import torch
+
+    from shapy_tpu_torch.cli import virtual_measurements as vm_cli
+    from shapy_tpu_torch.measure.measurements import (
+        MeasurementAnchors,
+        measure_plain,
+    )
+    from shapy_tpu_torch.models.body.assets import make_synthetic_model_data
+    from shapy_tpu_torch.models.body.model import SMPLX
+
+    rng = np.random.default_rng(SEED + 12)
+    betas = rng.normal(size=(VM_FILES, 10)).astype(np.float32)
+    saved = {k: os.environ.get(k) for k in ("SHAPY_TPU_SYNTHETIC_BODY",
+                                             "SHAPY_TPU_TEST_SUBDIV")}
+    os.environ.update(SHAPY_TPU_SYNTHETIC_BODY="1", SHAPY_TPU_TEST_SUBDIV="5")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for i, b in enumerate(betas):
+                np.savez(os.path.join(tmp, f"body_{i:02d}.npz"), betas=b)
+            buf = io.StringIO()
+            reset_launches()
+            with contextlib.redirect_stdout(buf):
+                rc = vm_cli.main(tmp, os.path.join(tmp, "out"),
+                                 render=False, device=str(dev))
+            launches = read_launches()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    lines = [ln for ln in buf.getvalue().splitlines()
+             if "Virtual measurements" in ln]
+    check(rc == 0 and len(lines) == VM_FILES, f"virtual measurements: {rc}, "
+          f"{len(lines)} lines")
+    check(launches["K1_measure"] == VM_FILES, "the CLI's K1 launches")
+    model = SMPLX(make_synthetic_model_data("smplx", subdivisions=5)).to(dev)
+    anchors = MeasurementAnchors.synthetic(model.faces,
+                                           model.v_template.cpu().numpy())
+    with torch.no_grad():
+        v = model.forward_shape(torch.from_numpy(betas).to(dev))["v_shaped"]
+        vals, _ = measure_plain(v, model.faces_tensor, None, anchors)
+    # The same line, or (where a value sits on a rounding edge) numbers
+    # one printed unit apart.
+    for line, row in zip(lines, vals.cpu().numpy()):
+        want = "    Virtual measurements: " + "".join(
+            f"    {k}: {x:.2f} {'kg' if k == 'mass' else 'm'}"
+            for k, x in zip(("mass", "height", "chest", "waist", "hips"),
+                            row))
+        got_t, want_t = line.split(), want.split()
+        close = len(got_t) == len(want_t) and all(
+            a == b or (a.replace(".", "").isdigit()
+                       and abs(float(a) - float(b)) <= 0.0100001)
+            for a, b in zip(got_t, want_t))
+        check(close, f"CLI line {line!r} vs plain {want!r}")
+    print(f"virtual measurements CLI: {VM_FILES} files, lines equal to the "
+          f"plain version's; first: {lines[0].strip()}")
+
+
 def main() -> int:
     import torch
 
@@ -1055,12 +1457,16 @@ def main() -> int:
 
     checked = check_kernels(regressor, requests, eval_data, dev)
     checked.update(check_train_kernels(regressor.model, dev))
+    anchors = regressor.body_measurements.anchors
+    checked.update(check_measure_kernels(regressor.model, anchors, dev))
+    checked["K1_measure"]["cases"] = checked.pop("K1_measure_cases")
     serve_launches, serve_rate = serve(regressor, requests)
     parity(base, tuple(t.cpu() for t in requests), eval_data, dev)
     train_parity(base, dev)
     eval_launches, _ = evaluate(regressor, eval_data, serve_rate)
     score(regressor, eval_data, dev)
     train_launches = train(base, dev)
+    fit_launches = fit(regressor.model, anchors, dev)
 
     entries = []
     for name, _, _, source, replaces in kernels():
@@ -1068,11 +1474,13 @@ def main() -> int:
         entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            # this slice's main path is training (phase 7); kernels off
-            # it count their own path's run (phase 5, evaluation)
+            # training (phase 7) for its kernels, the batch-32 fit of
+            # phase 8 for K1's backward and K1-exact, evaluation (phase
+            # 5) for the others
             "launches": (train_launches[name] if name in TRAIN_KERNELS
-                         else eval_launches[name]),
+                         else fit_launches.get(name, eval_launches[name])),
             "launches_train": train_launches[name],
+            "launches_fit": fit_launches.get(name, 0),
             "launches_eval": eval_launches[name],
             "launches_serve": serve_launches[name],
             **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms",

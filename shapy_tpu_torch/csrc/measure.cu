@@ -1,13 +1,15 @@
-// K1 measure, reference slice mode, forward only.
+// K1 measure: reference and exact slice modes, forward and backward.
 //
 // Replaces: shapy_tpu/measure/measurements.py:BodyMeasurements
-// .forward_from_vertices (lines 313-390) in slice_mode="reference", i.e.
-// ops/plane_slice.py:plane_slice_reference_soa (line 74) +
-// ops/convex_hull.py:hull_perimeter_support_xz (line 53) for the chest,
-// waist and hips planes, plus the signed-volume mass and the anchor height.
-// The fused Pallas measurement kernel (ops/measure_pallas.py) that once did
-// this on the TPU was deleted; the JAX package runs it as dense XLA ops
-// over all 2F candidate points.
+// .forward_from_vertices (lines 313-390), i.e. the plane slice
+// (ops/plane_slice.py:plane_slice_reference_soa, line 74, in
+// slice_mode="reference"; plane_slice_soa, line 242, in slice_mode="exact")
+// + ops/convex_hull.py:hull_perimeter_support_xz (line 53) for the chest,
+// waist and hips planes, plus the signed-volume mass and the anchor height;
+// and the VJP of all of it, which the JAX package takes by autodiff. The
+// fused Pallas measurement kernel (ops/measure_pallas.py) that once did this
+// on the TPU was deleted; the JAX package runs it as dense XLA ops over all
+// 2F candidate points.
 //
 // What bounds it on the H100: latency and arithmetic per face, not memory.
 // The body's vertices (126 KB for SMPL-X) are gathered through L1/L2; a
@@ -17,28 +19,54 @@
 // hundreds of hits, against the 2F padded points the dense formulation
 // projects.
 //
-// Design: one block per (body, plane), plus one block per body for mass
+// Forward (measure_forward, measure_exact_forward; the slice is a template
+// parameter): one block per (body, plane), plus one block per body for mass
 // and height (grid = (4, B)).
-//   * Each thread walks faces with a stride and runs the first-hit
-//     emulation of plane_slice_reference_soa for both quad triangles: 3
-//     Moller casts of the quad edges (|det| >= 1e-4), then 3 body-edge
-//     crossings with half-plane tests; the first hit wins; face id 0
-//     (also the subset padding) is dropped.
-//   * Hits are compacted into a global scratch buffer the wrapper
-//     allocates (2 per walked face at most: 334 KB at full F would not fit
-//     the 227 KB of shared memory) through a shared atomic counter. Their
-//     order does not matter: the hull only takes a max and a min.
+//   * Threads walk the plane's faces in chunks of blockDim, one face each.
+//     Reference mode runs the first-hit emulation of
+//     plane_slice_reference_soa for both quad triangles: 3 Moller casts of
+//     the quad edges (|det| >= 1e-4), then 3 body-edge crossings with
+//     half-plane tests; the first hit wins; face id 0 (also the subset
+//     padding) is dropped. Exact mode keeps both crossings of a face cut on
+//     exactly two edges (strict sa * sb < 0, the 1e-20 guard, the first /
+//     second edge rule of plane_slice_soa); face 0 is kept.
+//   * Hits are compacted into a global buffer the wrapper allocates (2 per
+//     walked face at most: 334 KB at full F would not fit the 227 KB of
+//     shared memory) by a block-wide prefix sum per chunk, so they land in
+//     face order on every run. Beside each hit goes its code: walk position
+//     * 16 + which formula made it (reference: quad triangle * 8 + candidate
+//     0-5; exact: first / second * 4 + edge), which the backward needs.
 //   * The masked centroid comes from per-thread sums and a fixed-order
-//     block reduction, so it is deterministic.
-//   * Hits are then staged, centred, through shared memory in chunks;
-//     thread d owns the antipodal direction pair (theta_d, theta_d + pi):
-//     h = max(max proj, 0) + max(-min proj, 0). The block sums h over the
-//     pairs, times 2 pi / K; the result is 0 with fewer than 2 hits.
+//     block reduction. Hits are then staged, centred, through shared memory
+//     in chunks; thread d owns the antipodal direction pair (theta_d,
+//     theta_d + pi): h = max(max proj, 0) + max(-min proj, 0). The block
+//     sums h over the pairs, times 2 pi / K; the result is 0 with fewer than
+//     2 hits. The hit count and centroid are saved for the backward.
 //   * Mass: |sum of the 6-term determinants| / 6 * density, in the term
-//     order of measurements.py:354-358. Height: |y(head) - y(heel)| at the
-//     barycentric anchors.
-// Built with --fmad=false so the hit tests round exactly as the plain
-// PyTorch version: a contracted a*b+c could flip a boundary hit.
+//     order of measurements.py:354-358 (the signed sum is saved). Height:
+//     |y(head) - y(heel)| at the barycentric anchors.
+//
+// Backward (measure_backward, measure_exact_backward): two kernels, no
+// atomics, so two calls give the same bits.
+//   1. One block per (body, plane). Thread d recomputes the extremes of its
+//      direction pair from the saved hits and counts the hits that tie for
+//      each (the duplicates that shared body edges and the quad diagonal
+//      produce; the JAX and PyTorch max / min split the gradient evenly
+//      among ties, and so does this). Points hidden by the mask project to 0
+//      and tie with a 0 extreme as they do in the dense formulation. Then
+//      one thread per hit sums its directions' shares (2 pi / K, clamped,
+//      divided by the tie count), the block removes the centroid's share,
+//      and each hit's point cotangent is saved. The chain of each hit's
+//      winning formula gives the plane height's cotangent, summed in fixed
+//      order. A slot map marks the walk positions that have hits.
+//   2. One thread per (body, vertex) gathers in fixed order: the mass term
+//      of every face around the vertex (a vertex-to-(face, corner) list
+//      built once on the host), the chain of each plane's hits in those
+//      faces (recomputed with the same operations as the forward, so the
+//      same formula is differentiated), and the anchors' height terms.
+// Built with --fmad=false so the hit tests and projections round exactly as
+// the plain PyTorch version: a contracted a*b+c could flip a boundary hit or
+// a tie.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -46,7 +74,9 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kChunk = 2048;  // hull points staged per pass (16 KB)
+constexpr int kMaxHalfK = 2 * kThreads;  // two direction pairs per thread
 constexpr float kEps = 1e-4f;
+enum SliceMode { kReference = 0, kExact = 1 };
 
 struct Planes {
   int off[3];  // start of each plane's face list in plane_faces
@@ -71,23 +101,85 @@ __device__ float block_sum(float v, float* red) {
   return red[0];
 }
 
+// Exclusive prefix sum of v over the block in thread order; total gets the
+// block's sum. buf: 32 ints.
+__device__ int block_scan(int v, int* buf, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (int)(blockDim.x >> 5);
+  int x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  __syncthreads();  // buf is free from any earlier call
+  if (lane == 31) buf[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < nwarps ? buf[lane] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    buf[lane] = w;
+  }
+  __syncthreads();
+  total = buf[nwarps - 1];
+  return (warp ? buf[warp - 1] : 0) + x - v;
+}
+
 struct Tri {
-  float ax0, ay0, az0, ax1, ay1, az1, ax2, ay2, az2;
+  float x[3], y[3], z[3];
   float e1x, e1y, e1z, e2x, e2y, e2z;
 };
 
+__device__ __forceinline__ void load_tri(const float* vb, const int* f,
+                                         Tri& T) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float* v = vb + 3 * f[k];
+    T.x[k] = v[0];
+    T.y[k] = v[1];
+    T.z[k] = v[2];
+  }
+  T.e1x = T.x[1] - T.x[0]; T.e1y = T.y[1] - T.y[0]; T.e1z = T.z[1] - T.z[0];
+  T.e2x = T.x[2] - T.x[0]; T.e2y = T.y[2] - T.y[0]; T.e2z = T.z[2] - T.z[0];
+}
+
+// y at anchor a (head top, left heel, chest, waist, hips) of body vb.
+__device__ __forceinline__ float anchor_y(const float* vb, const int* faces,
+                                          const int* anchor_face,
+                                          const float* anchor_bary, int a) {
+  const int* f = faces + 3 * anchor_face[a];
+  const float* bc = anchor_bary + 3 * a;
+  return vb[3 * f[0] + 1] * bc[0] + vb[3 * f[1] + 1] * bc[1] +
+         vb[3 * f[2] + 1] * bc[2];
+}
+
+// Quad triangle q's edge c as (origin a, origin b, direction a, direction b)
+// in the plane; the plain version's _Q_EDGES.
+__device__ __forceinline__ float4 quad_edge(int q, int c) {
+  if (q == 0) {
+    if (c == 0) return make_float4(-1.f, -1.f, 2.f, 0.f);
+    if (c == 1) return make_float4(1.f, -1.f, 0.f, 2.f);
+    return make_float4(1.f, 1.f, -2.f, -2.f);
+  }
+  if (c == 0) return make_float4(-1.f, -1.f, 2.f, 2.f);
+  if (c == 1) return make_float4(1.f, 1.f, -2.f, 0.f);
+  return make_float4(-1.f, 1.f, 0.f, -2.f);
+}
+
 // A quad edge (origin (ox, h, oz), direction (dx, 0, dz)) against the body
 // triangle: Moller-Trumbore, in plane_slice.py's operation order.
-__device__ __forceinline__ bool quad_edge_hit(const Tri& T, float h, float ox,
-                                              float oz, float dx, float dz,
+__device__ __forceinline__ bool quad_edge_hit(const Tri& T, float h, float4 E,
                                               float& ha, float& hb) {
+  const float ox = E.x, oz = E.y, dx = E.z, dz = E.w;
   const float px = -dz * T.e2y;
   const float py = dz * T.e2x - dx * T.e2z;
   const float pz = dx * T.e2y;
   const float det = T.e1x * px + T.e1y * py + T.e1z * pz;
   if (!(fabsf(det) >= kEps)) return false;
   const float inv = 1.0f / det;
-  const float tx = ox - T.ax0, ty = h - T.ay0, tz = oz - T.az0;
+  const float tx = ox - T.x[0], ty = h - T.y[0], tz = oz - T.z[0];
   const float u = (tx * px + ty * py + tz * pz) * inv;
   if (!(u >= 0.f && u <= 1.f)) return false;
   const float qx = ty * T.e1z - tz * T.e1y;
@@ -102,17 +194,17 @@ __device__ __forceinline__ bool quad_edge_hit(const Tri& T, float h, float ox,
   return true;
 }
 
-// A body edge a->b crossing the plane y = h inside quad triangle q.
-__device__ __forceinline__ bool body_edge_hit(float vax, float vay, float vaz,
-                                              float vbx, float vby, float vbz,
-                                              float h, int q, float& ha,
-                                              float& hb) {
-  const float dy = vby - vay;
+// Body edge e (vertex e -> vertex e+1 mod 3) crossing the plane y = h inside
+// quad triangle q.
+__device__ __forceinline__ bool body_edge_hit(const Tri& T, int e, float h,
+                                              int q, float& ha, float& hb) {
+  const int a = e, b = e == 2 ? 0 : e + 1;
+  const float dy = T.y[b] - T.y[a];
   if (!(fabsf(4.0f * dy) >= kEps)) return false;
-  const float t = (h - vay) / dy;
+  const float t = (h - T.y[a]) / dy;
   if (!(t >= 0.f && t <= 1.f)) return false;
-  const float cx = vax + t * (vbx - vax);
-  const float cz = vaz + t * (vbz - vaz);
+  const float cx = T.x[a] + t * (T.x[b] - T.x[a]);
+  const float cz = T.z[a] + t * (T.z[b] - T.z[a]);
   const bool in = q == 0
       ? (cx >= cz && cx - cz <= 2.f && cz >= -1.f && cx <= 1.f)
       : (cx >= -1.f && cx <= 1.f && cz >= cx && cz <= 1.f);
@@ -122,45 +214,193 @@ __device__ __forceinline__ bool body_edge_hit(float vax, float vay, float vaz,
   return true;
 }
 
-__device__ __forceinline__ bool first_hit(const Tri& T, float h, int q,
-                                          float& ha, float& hb) {
-  if (q == 0) {
-    if (quad_edge_hit(T, h, -1.f, -1.f, 2.f, 0.f, ha, hb)) return true;
-    if (quad_edge_hit(T, h, 1.f, -1.f, 0.f, 2.f, ha, hb)) return true;
-    if (quad_edge_hit(T, h, 1.f, 1.f, -2.f, -2.f, ha, hb)) return true;
-  } else {
-    if (quad_edge_hit(T, h, -1.f, -1.f, 2.f, 2.f, ha, hb)) return true;
-    if (quad_edge_hit(T, h, 1.f, 1.f, -2.f, 0.f, ha, hb)) return true;
-    if (quad_edge_hit(T, h, -1.f, 1.f, 0.f, -2.f, ha, hb)) return true;
+// The winning candidate (0-2 quad edges, 3-5 body edges) for quad triangle
+// q, or -1.
+__device__ __forceinline__ int first_hit(const Tri& T, float h, int q,
+                                         float& ha, float& hb) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    if (quad_edge_hit(T, h, quad_edge(q, c), ha, hb)) return c;
   }
-  if (body_edge_hit(T.ax0, T.ay0, T.az0, T.ax1, T.ay1, T.az1, h, q, ha, hb))
-    return true;
-  if (body_edge_hit(T.ax1, T.ay1, T.az1, T.ax2, T.ay2, T.az2, h, q, ha, hb))
-    return true;
-  return body_edge_hit(T.ax2, T.ay2, T.az2, T.ax0, T.ay0, T.az0, h, q, ha,
-                       hb);
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    if (body_edge_hit(T, e, h, q, ha, hb)) return 3 + e;
+  }
+  return -1;
 }
 
+// Exact mode: the crossing parameter of edge (sa, sb), plane_slice_soa's
+// guarded division.
+__device__ __forceinline__ float exact_denom(float sa, float sb) {
+  const float denom = sa - sb;
+  return fabsf(denom) > 1e-20f ? denom : 1e-20f;
+}
+
+__device__ __forceinline__ float2 exact_point(const Tri& T, const float* s,
+                                              int e) {
+  const int a = e, b = e == 2 ? 0 : e + 1;
+  const float t = s[a] / exact_denom(s[a], s[b]);
+  return make_float2(T.x[a] + t * (T.x[b] - T.x[a]),
+                     T.z[a] + t * (T.z[b] - T.z[a]));
+}
+
+// The hits of the face at walk position pos (face id `id`): up to two
+// points (p0, then p1) and their codes. Returns their number.
+template <int kMode>
+__device__ __forceinline__ int slice_face(const float* vb, const int* faces,
+                                          int id, int pos, float h,
+                                          float2& p0, float2& p1, int& k0,
+                                          int& k1) {
+  if (kMode == kReference && id == 0) return 0;  // the reference drops it
+  Tri T;
+  load_tri(vb, faces + 3 * id, T);
+  if (kMode == kReference) {
+    int k = 0;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      float ha, hb;
+      const int c = first_hit(T, h, q, ha, hb);
+      if (c >= 0) {
+        if (k == 0) {
+          p0 = make_float2(ha, hb);
+          k0 = pos * 16 + q * 8 + c;
+        } else {
+          p1 = make_float2(ha, hb);
+          k1 = pos * 16 + q * 8 + c;
+        }
+        ++k;
+      }
+    }
+    return k;
+  }
+  float s[3];
+#pragma unroll
+  for (int v = 0; v < 3; ++v) s[v] = T.y[v] - h;
+  const bool c0 = s[0] * s[1] < 0.f, c1 = s[1] * s[2] < 0.f,
+             c2 = s[2] * s[0] < 0.f;
+  if ((int)c0 + (int)c1 + (int)c2 != 2) return 0;
+  const int first = c0 ? 0 : 1, second = c2 ? 2 : 1;
+  p0 = exact_point(T, s, first);
+  p1 = exact_point(T, s, second);
+  k0 = pos * 16 + first;
+  k1 = pos * 16 + 4 + second;
+  return 2;
+}
+
+// The VJP of one hit: point cotangent (ga, gb) -> the face's 9 coordinates
+// (g[3 k + c] for vertex k, coordinate c) and the plane height (gh), through
+// the formula named by `detail` (the low 4 bits of its code), recomputed
+// with the forward's operations.
+template <int kMode>
+__device__ void hit_vjp(const Tri& T, float h, int detail, float ga, float gb,
+                        float* g, float& gh) {
+#pragma unroll
+  for (int k = 0; k < 9; ++k) g[k] = 0.f;
+  gh = 0.f;
+  int a, b;  // an edge's vertices (reference body edge or exact crossing)
+  if (kMode == kReference) {
+    const int q = detail >> 3, c = detail & 7;
+    if (c < 3) {  // Moller cast of quad edge c
+      const float4 E = quad_edge(q, c);
+      const float ox = E.x, oz = E.y, dx = E.z, dz = E.w;
+      const float px = -dz * T.e2y;
+      const float py = dz * T.e2x - dx * T.e2z;
+      const float pz = dx * T.e2y;
+      const float det = T.e1x * px + T.e1y * py + T.e1z * pz;
+      const float inv = 1.0f / det;
+      const float tx = ox - T.x[0], ty = h - T.y[0], tz = oz - T.z[0];
+      const float qx = ty * T.e1z - tz * T.e1y;
+      const float qy = tz * T.e1x - tx * T.e1z;
+      const float qz = tx * T.e1y - ty * T.e1x;
+      const float num = T.e2x * qx + T.e2y * qy + T.e2z * qz;
+      // a = ox + t dx, b = oz + t dz with t = num * inv
+      const float gt = ga * dx + gb * dz;
+      const float gnum = gt * inv;
+      const float gdet = -(gt * num) * inv * inv;
+      // num = e2 . q
+      float ge2x = gnum * qx, ge2y = gnum * qy, ge2z = gnum * qz;
+      const float gqx = gnum * T.e2x, gqy = gnum * T.e2y, gqz = gnum * T.e2z;
+      // q = tvec x e1: d tvec = e1 x gq, d e1 = gq x tvec
+      const float gtx = T.e1y * gqz - T.e1z * gqy;
+      const float gty = T.e1z * gqx - T.e1x * gqz;
+      const float gtz = T.e1x * gqy - T.e1y * gqx;
+      float ge1x = gqy * tz - gqz * ty;
+      float ge1y = gqz * tx - gqx * tz;
+      float ge1z = gqx * ty - gqy * tx;
+      // det = e1 . pvec
+      ge1x += gdet * px;
+      ge1y += gdet * py;
+      ge1z += gdet * pz;
+      const float gpx = gdet * T.e1x, gpy = gdet * T.e1y, gpz = gdet * T.e1z;
+      // pvec = dir x e2 with dir = (dx, 0, dz): d e2 = gp x dir
+      ge2x += gpy * dz;
+      ge2y += gpz * dx - gpx * dz;
+      ge2z += -gpy * dx;
+      // tvec = (ox, h, oz) - v0; e1 = v1 - v0; e2 = v2 - v0
+      gh = gty;
+      g[0] = -gtx - ge1x - ge2x;
+      g[1] = -gty - ge1y - ge2y;
+      g[2] = -gtz - ge1z - ge2z;
+      g[3] = ge1x; g[4] = ge1y; g[5] = ge1z;
+      g[6] = ge2x; g[7] = ge2y; g[8] = ge2z;
+      return;
+    }
+    a = c - 3;
+    b = a == 2 ? 0 : a + 1;
+    // t = (h - y_a) / dy; point = v_a + t (v_b - v_a) in (x, z)
+    const float dy = T.y[b] - T.y[a];
+    const float t = (h - T.y[a]) / dy;
+    const float gt = ga * (T.x[b] - T.x[a]) + gb * (T.z[b] - T.z[a]);
+    const float gnum = gt / dy;
+    const float gdy = -gt * t / dy;
+    g[3 * a + 0] = ga - ga * t;
+    g[3 * b + 0] = ga * t;
+    g[3 * a + 2] = gb - gb * t;
+    g[3 * b + 2] = gb * t;
+    g[3 * a + 1] = -gnum - gdy;
+    g[3 * b + 1] = gdy;
+    gh = gnum;
+    return;
+  }
+  a = detail & 3;
+  b = a == 2 ? 0 : a + 1;
+  // s = y - h; t = s_a / denom(s_a - s_b); point = v_a + t (v_b - v_a)
+  const float sa = T.y[a] - h, sb = T.y[b] - h;
+  const float denom = sa - sb;
+  const float den = exact_denom(sa, sb);
+  const float t = sa / den;
+  const float gt = ga * (T.x[b] - T.x[a]) + gb * (T.z[b] - T.z[a]);
+  float gsa = gt / den, gsb = 0.f;
+  if (fabsf(denom) > 1e-20f) {
+    const float gden = -gt * t / den;
+    gsa += gden;
+    gsb -= gden;
+  }
+  g[3 * a + 0] = ga - ga * t;
+  g[3 * b + 0] = ga * t;
+  g[3 * a + 2] = gb - gb * t;
+  g[3 * b + 2] = gb * t;
+  g[3 * a + 1] = gsa;
+  g[3 * b + 1] = gsb;
+  gh = -(gsa + gsb);
+}
+
+template <int kMode>
 __global__ void __launch_bounds__(kThreads) measure_kernel(
     const float* __restrict__ verts, const int* __restrict__ faces,
     const int* __restrict__ plane_faces, const int* __restrict__ anchor_face,
     const float* __restrict__ anchor_bary, const float* __restrict__ hull_cos,
-    const float* __restrict__ hull_sin, float2* __restrict__ scratch,
+    const float* __restrict__ hull_sin, float2* __restrict__ hits,
+    int* __restrict__ codes, float* __restrict__ stats,
     float* __restrict__ out, float* __restrict__ plane_h, int V, int F,
     Planes planes, int cap, int half_k, float angle_step, float density) {
   __shared__ float red[32];
-  __shared__ int counter;
+  __shared__ int scan[32];
   __shared__ float2 pts[kChunk];
   const int p = blockIdx.x;  // 0..2: chest, waist, hips; 3: mass + height
   const int b = blockIdx.y;
   const float* vb = verts + (size_t)b * V * 3;
-
-  auto anchor_y = [&](int a) {
-    const int* f = faces + 3 * anchor_face[a];
-    const float* bc = anchor_bary + 3 * a;
-    return vb[3 * f[0] + 1] * bc[0] + vb[3 * f[1] + 1] * bc[1] +
-           vb[3 * f[2] + 1] * bc[2];
-  };
+  float* st = stats + ((size_t)b * 4 + p) * 4;
 
   if (p == 3) {
     float acc = 0.f;
@@ -178,49 +418,55 @@ __global__ void __launch_bounds__(kThreads) measure_kernel(
     const float total = block_sum(acc, red);
     if (threadIdx.x == 0) {
       out[b * 5 + 0] = fabsf(total) / 6.0f * density;
-      out[b * 5 + 1] = fabsf(anchor_y(0) - anchor_y(1));
+      out[b * 5 + 1] = fabsf(anchor_y(vb, faces, anchor_face, anchor_bary, 0) -
+                             anchor_y(vb, faces, anchor_face, anchor_bary, 1));
+      st[0] = total;
     }
     return;
   }
 
-  const float h = anchor_y(2 + p);
-  if (threadIdx.x == 0) {
-    plane_h[b * 3 + p] = h;
-    counter = 0;
-  }
-  __syncthreads();
+  const float h = anchor_y(vb, faces, anchor_face, anchor_bary, 2 + p);
+  if (threadIdx.x == 0) plane_h[b * 3 + p] = h;
 
   const int n = planes.n[p];
   const int* ids = plane_faces ? plane_faces + planes.off[p] : nullptr;
-  float2* sp = scratch + ((size_t)b * 3 + p) * cap;
+  float2* hp = hits + ((size_t)b * 3 + p) * cap;
+  int* cp = codes + ((size_t)b * 3 + p) * cap;
   float cnt = 0.f, sx = 0.f, sz = 0.f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int id = ids ? ids[i] : i;
-    if (id == 0) continue;  // the reference drops face id 0
-    const int* f = faces + 3 * id;
-    const float* v0 = vb + 3 * f[0];
-    const float* v1 = vb + 3 * f[1];
-    const float* v2 = vb + 3 * f[2];
-    Tri T;
-    T.ax0 = v0[0]; T.ay0 = v0[1]; T.az0 = v0[2];
-    T.ax1 = v1[0]; T.ay1 = v1[1]; T.az1 = v1[2];
-    T.ax2 = v2[0]; T.ay2 = v2[1]; T.az2 = v2[2];
-    T.e1x = T.ax1 - T.ax0; T.e1y = T.ay1 - T.ay0; T.e1z = T.az1 - T.az0;
-    T.e2x = T.ax2 - T.ax0; T.e2y = T.ay2 - T.ay0; T.e2z = T.az2 - T.az0;
-    for (int q = 0; q < 2; ++q) {
-      float ha, hb;
-      if (first_hit(T, h, q, ha, hb)) {
-        sp[atomicAdd(&counter, 1)] = make_float2(ha, hb);
-        cnt += 1.f;
-        sx += ha;
-        sz += hb;
-      }
+  int total = 0;  // hits written so far, the same in every thread
+  for (int start = 0; start < n; start += blockDim.x) {
+    const int i = start + threadIdx.x;
+    float2 p0, p1;
+    int k0, k1, k = 0;
+    if (i < n) {
+      k = slice_face<kMode>(vb, faces, ids ? ids[i] : i, i, h, p0, p1, k0,
+                            k1);
     }
+    if (k > 0) {
+      cnt += 1.f;
+      sx += p0.x;
+      sz += p0.y;
+    }
+    if (k > 1) {
+      cnt += 1.f;
+      sx += p1.x;
+      sz += p1.y;
+    }
+    int chunk_total;
+    const int at = total + block_scan(k, scan, chunk_total);
+    if (k > 0) {
+      hp[at] = p0;
+      cp[at] = k0;
+    }
+    if (k > 1) {
+      hp[at + 1] = p1;
+      cp[at + 1] = k1;
+    }
+    total += chunk_total;
   }
   const float total_n = block_sum(cnt, red);
   const float total_x = block_sum(sx, red);
   const float total_z = block_sum(sz, red);
-  const int total = counter;  // block_sum synchronised after the atomics
   const float cx = total_x / fmaxf(total_n, 1.f);
   const float cz = total_z / fmaxf(total_n, 1.f);
 
@@ -235,7 +481,7 @@ __global__ void __launch_bounds__(kThreads) measure_kernel(
     const int m = min(kChunk, total - start);
     __syncthreads();  // the previous chunk is consumed
     for (int i = threadIdx.x; i < m; i += blockDim.x) {
-      const float2 q = sp[start + i];
+      const float2 q = hp[start + i];
       pts[i] = make_float2(q.x - cx, q.y - cz);
     }
     __syncthreads();
@@ -255,32 +501,345 @@ __global__ void __launch_bounds__(kThreads) measure_kernel(
   const float perimeter = block_sum(hsum, red) * angle_step;
   if (threadIdx.x == 0) {
     out[b * 5 + 2 + p] = total_n >= 2.f ? perimeter : 0.f;
+    st[0] = total_n;
+    st[1] = cx;
+    st[2] = cz;
   }
+}
+
+// Backward, part 1: one block per (body, plane). See the header.
+template <int kMode>
+__global__ void __launch_bounds__(kThreads) measure_backward_planes(
+    const float* __restrict__ verts, const int* __restrict__ faces,
+    const int* __restrict__ plane_faces, const float* __restrict__ hull_cos,
+    const float* __restrict__ hull_sin, const float2* __restrict__ hits,
+    const int* __restrict__ codes, const float* __restrict__ stats,
+    const float* __restrict__ plane_h, const float* __restrict__ g_out,
+    const float* __restrict__ g_plane_h, float2* __restrict__ ghits,
+    int* __restrict__ slot_map, float* __restrict__ g_heights, int V,
+    Planes planes, int cap, int smax, int half_k, float angle_step) {
+  __shared__ float red[32];
+  __shared__ float2 pts[kChunk];
+  __shared__ float cs[kMaxHalfK], sn[kMaxHalfK];
+  __shared__ float vmx[kMaxHalfK], vmn[kMaxHalfK];
+  __shared__ float cfx[kMaxHalfK], cfn[kMaxHalfK];
+  const int p = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, bd = blockDim.x;
+  const size_t row = (size_t)b * 3 + p;
+  const float* st = stats + ((size_t)b * 4 + p) * 4;
+  const int n = (int)st[0];
+  const float cx = st[1], cz = st[2];
+  const int n_walk = planes.n[p];
+  const int n_points = 2 * n_walk;  // candidate points, masked ones included
+  const float2* hp = hits + row * cap;
+  const int* cp = codes + row * cap;
+  float2* gp = ghits + row * cap;
+  int* sm = slot_map + row * smax;
+  for (int i = tid; i < n_walk; i += bd) sm[i] = 0;
+  for (int d = tid; d < half_k; d += bd) {
+    cs[d] = hull_cos[d];
+    sn[d] = hull_sin[d];
+  }
+  // d perimeter / d h(theta) for every support value, before clamp and ties
+  const float g = n >= 2 ? g_out[b * 5 + 2 + p] * angle_step : 0.f;
+
+  // Each thread: the valid hits' max and min of its direction pairs, and how
+  // many hits reach them.
+  const int d0 = tid, d1 = tid + bd;
+  const float c0 = d0 < half_k ? hull_cos[d0] : 0.f;
+  const float s0 = d0 < half_k ? hull_sin[d0] : 0.f;
+  const float c1 = d1 < half_k ? hull_cos[d1] : 0.f;
+  const float s1 = d1 < half_k ? hull_sin[d1] : 0.f;
+  float mx0 = -INFINITY, mn0 = INFINITY, mx1 = -INFINITY, mn1 = INFINITY;
+  int kx0 = 0, kn0 = 0, kx1 = 0, kn1 = 0;
+  for (int start = 0; start < n; start += kChunk) {
+    const int m = min(kChunk, n - start);
+    __syncthreads();  // the previous chunk is consumed
+    for (int i = tid; i < m; i += bd) {
+      const float2 q = hp[start + i];
+      pts[i] = make_float2(q.x - cx, q.y - cz);
+    }
+    __syncthreads();
+    for (int i = 0; i < m; ++i) {
+      const float2 q = pts[i];
+      const float pr0 = q.x * c0 + q.y * s0;
+      const float pr1 = q.x * c1 + q.y * s1;
+      if (pr0 > mx0) { mx0 = pr0; kx0 = 1; } else if (pr0 == mx0) { ++kx0; }
+      if (pr0 < mn0) { mn0 = pr0; kn0 = 1; } else if (pr0 == mn0) { ++kn0; }
+      if (pr1 > mx1) { mx1 = pr1; kx1 = 1; } else if (pr1 == mx1) { ++kx1; }
+      if (pr1 < mn1) { mn1 = pr1; kn1 = 1; } else if (pr1 == mn1) { ++kn1; }
+    }
+  }
+  // Per direction: the share of each hit at the extreme. The dense
+  // formulation's masked points project to 0: with any of them the extreme is
+  // max(valid max, 0) (min(valid min, 0)), and at 0 they tie too. The clamp
+  // max(h, 0) passes the gradient where h >= 0.
+  const int masked = n_points - n;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int d = j ? d1 : d0;
+    if (d >= half_k) continue;
+    const float vx = j ? mx1 : mx0, vn = j ? mn1 : mn0;
+    const int kx = j ? kx1 : kx0, kn = j ? kn1 : kn0;
+    const float M = masked > 0 ? fmaxf(vx, 0.f) : vx;
+    const int tx = (vx == M ? kx : 0) + (masked > 0 && M == 0.f ? masked : 0);
+    cfx[d] = (vx == M && M >= 0.f && tx > 0) ? g / (float)tx : 0.f;
+    const float m = masked > 0 ? fminf(vn, 0.f) : vn;
+    const int tn = (vn == m ? kn : 0) + (masked > 0 && m == 0.f ? masked : 0);
+    cfn[d] = (vn == m && -m >= 0.f && tn > 0) ? g / (float)tn : 0.f;
+    vmx[d] = vx;
+    vmn[d] = vn;
+  }
+  __syncthreads();
+
+  // One thread per hit: d perimeter / d (centred point), then the centroid.
+  float sgx = 0.f, sgz = 0.f;
+  for (int j = tid; j < n; j += bd) {
+    const float2 q = hp[j];
+    const float xc = q.x - cx, zc = q.y - cz;
+    float gx = 0.f, gz = 0.f;
+    for (int d = 0; d < half_k; ++d) {
+      const float pr = xc * cs[d] + zc * sn[d];
+      if (pr == vmx[d]) {
+        gx += cfx[d] * cs[d];
+        gz += cfx[d] * sn[d];
+      }
+      if (pr == vmn[d]) {
+        gx -= cfn[d] * cs[d];
+        gz -= cfn[d] * sn[d];
+      }
+    }
+    gp[j] = make_float2(gx, gz);
+    sgx += gx;
+    sgz += gz;
+  }
+  const float cnt = fmaxf((float)n, 1.f);
+  const float cgx = -block_sum(sgx, red) / cnt;
+  const float cgz = -block_sum(sgz, red) / cnt;
+
+  // The point cotangents, the slot map, and the plane height's cotangent
+  // through each hit's formula.
+  const int* ids = plane_faces ? plane_faces + planes.off[p] : nullptr;
+  const float h = plane_h[row];
+  const float* vb = verts + (size_t)b * V * 3;
+  float sgh = 0.f;
+  for (int j = tid; j < n; j += bd) {
+    const float2 g2 = gp[j];
+    const float ga = g2.x + cgx, gb = g2.y + cgz;
+    gp[j] = make_float2(ga, gb);
+    const int code = cp[j], pos = code >> 4;
+    if (j == 0 || (cp[j - 1] >> 4) != pos) sm[pos] = j + 1;
+    Tri T;
+    load_tri(vb, faces + 3 * (ids ? ids[pos] : pos), T);
+    float gv[9], gh;
+    hit_vjp<kMode>(T, h, code & 15, ga, gb, gv, gh);
+    sgh += gh;
+  }
+  const float gh_total = block_sum(sgh, red);
+  if (tid == 0) g_heights[row] = gh_total + g_plane_h[row];
+}
+
+// Backward, part 2: one thread per (body, vertex). See the header.
+template <int kMode>
+__global__ void __launch_bounds__(kThreads) measure_backward_vertices(
+    const float* __restrict__ verts, const int* __restrict__ faces,
+    const int* __restrict__ plane_faces, const int* __restrict__ anchor_face,
+    const float* __restrict__ anchor_bary, const int* __restrict__ codes,
+    const float* __restrict__ stats, const float* __restrict__ plane_h,
+    const float* __restrict__ g_out, const float2* __restrict__ ghits,
+    const int* __restrict__ slot_map, const float* __restrict__ g_heights,
+    const int* __restrict__ face_ptr, const int* __restrict__ face_idx,
+    const int* __restrict__ plane_ptr, const int* __restrict__ plane_idx,
+    float* __restrict__ grad, int V, int Vm, Planes planes, int cap,
+    int smax, float density) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = blockIdx.y;
+  if (v >= V) return;
+  float* gv = grad + ((size_t)b * V + v) * 3;
+  if (v >= Vm) {  // not in any face
+    gv[0] = gv[1] = gv[2] = 0.f;
+    return;
+  }
+  const float* vb = verts + (size_t)b * V * 3;
+  float gx = 0.f, gy = 0.f, gz = 0.f;
+
+  // Mass: d|S| / d det = sign(S); d det / d v_c = v_{c+1} x v_{c+2}.
+  const float S = stats[((size_t)b * 4 + 3) * 4];
+  const float gm = g_out[b * 5] * density / 6.0f *
+                   (S > 0.f ? 1.f : (S < 0.f ? -1.f : 0.f));
+  for (int e = face_ptr[v]; e < face_ptr[v + 1]; ++e) {
+    const int ent = face_idx[e], c = ent & 3;
+    const int* f = faces + 3 * (ent >> 2);
+    const float* u = vb + 3 * f[c == 2 ? 0 : c + 1];
+    const float* w = vb + 3 * f[c == 0 ? 2 : c - 1];
+    gx += gm * (u[1] * w[2] - u[2] * w[1]);
+    gy += gm * (u[2] * w[0] - u[0] * w[2]);
+    gz += gm * (u[0] * w[1] - u[1] * w[0]);
+  }
+
+  // Circumferences: the hits of each plane in the faces around v.
+  for (int p = 0; p < 3; ++p) {
+    const size_t row = (size_t)b * 3 + p;
+    const int n = (int)stats[((size_t)b * 4 + p) * 4];
+    const int* sm = slot_map + row * smax;
+    const int* cp = codes + row * cap;
+    const float2* gp = ghits + row * cap;
+    const int* ids = plane_faces ? plane_faces + planes.off[p] : nullptr;
+    const int* ptr = plane_ptr ? plane_ptr + (size_t)p * (Vm + 1) : face_ptr;
+    const int* idx = plane_ptr ? plane_idx : face_idx;
+    const float h = plane_h[row];
+    for (int e = ptr[v]; e < ptr[v + 1]; ++e) {
+      const int ent = idx[e], pos = ent >> 2, c = ent & 3;
+      int j = sm[pos] - 1;
+      if (j < 0) continue;
+      Tri T;
+      load_tri(vb, faces + 3 * (ids ? ids[pos] : pos), T);
+      for (; j < n && (cp[j] >> 4) == pos; ++j) {
+        float g9[9], gh;
+        hit_vjp<kMode>(T, h, cp[j] & 15, gp[j].x, gp[j].y, g9, gh);
+        gx += g9[3 * c];
+        gy += g9[3 * c + 1];
+        gz += g9[3 * c + 2];
+      }
+    }
+  }
+
+  // Height (d|y_head - y_heel|) and the three plane heights, at the anchors.
+  const float dh = anchor_y(vb, faces, anchor_face, anchor_bary, 0) -
+                   anchor_y(vb, faces, anchor_face, anchor_bary, 1);
+  const float ght = g_out[b * 5 + 1] * (dh > 0.f ? 1.f : (dh < 0.f ? -1.f : 0.f));
+  for (int a = 0; a < 5; ++a) {
+    const float w = a == 0 ? ght : (a == 1 ? -ght : g_heights[b * 3 + a - 2]);
+    const int* f = faces + 3 * anchor_face[a];
+    for (int k = 0; k < 3; ++k) {
+      if (f[k] == v) gy += w * anchor_bary[3 * a + k];
+    }
+  }
+  gv[0] = gx;
+  gv[1] = gy;
+  gv[2] = gz;
+}
+
+template <int kMode>
+int launch_forward(const void* verts, const void* faces,
+                   const void* plane_faces, const void* anchor_face,
+                   const void* anchor_bary, const void* hull_cos,
+                   const void* hull_sin, void* hits, void* codes, void* stats,
+                   void* out, void* plane_h, int B, int V, int F,
+                   Planes planes, int cap, int half_k, float angle_step,
+                   float density, void* stream) {
+  if (half_k > kMaxHalfK) return (int)cudaErrorInvalidValue;
+  measure_kernel<kMode><<<dim3(4, B), kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)verts, (const int*)faces, (const int*)plane_faces,
+      (const int*)anchor_face, (const float*)anchor_bary,
+      (const float*)hull_cos, (const float*)hull_sin, (float2*)hits,
+      (int*)codes, (float*)stats, (float*)out, (float*)plane_h, V, F, planes,
+      cap, half_k, angle_step, density);
+  return (int)cudaGetLastError();
+}
+
+template <int kMode>
+int launch_backward(const void* verts, const void* faces,
+                    const void* plane_faces, const void* anchor_face,
+                    const void* anchor_bary, const void* hull_cos,
+                    const void* hull_sin, const void* hits, const void* codes,
+                    const void* stats, const void* plane_h, const void* g_out,
+                    const void* g_plane_h, void* ghits, void* slot_map,
+                    void* g_heights, const void* face_ptr,
+                    const void* face_idx, const void* plane_ptr,
+                    const void* plane_idx, void* grad, int B, int V, int Vm,
+                    Planes planes, int cap, int smax, int half_k,
+                    float angle_step, float density, void* stream) {
+  if (half_k > kMaxHalfK) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  measure_backward_planes<kMode><<<dim3(3, B), kThreads, 0, s>>>(
+      (const float*)verts, (const int*)faces, (const int*)plane_faces,
+      (const float*)hull_cos, (const float*)hull_sin, (const float2*)hits,
+      (const int*)codes, (const float*)stats, (const float*)plane_h,
+      (const float*)g_out, (const float*)g_plane_h, (float2*)ghits,
+      (int*)slot_map, (float*)g_heights, V, planes, cap, smax, half_k,
+      angle_step);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  measure_backward_vertices<kMode>
+      <<<dim3((V + kThreads - 1) / kThreads, B), kThreads, 0, s>>>(
+          (const float*)verts, (const int*)faces, (const int*)plane_faces,
+          (const int*)anchor_face, (const float*)anchor_bary,
+          (const int*)codes, (const float*)stats, (const float*)plane_h,
+          (const float*)g_out, (const float2*)ghits, (const int*)slot_map,
+          (const float*)g_heights, (const int*)face_ptr,
+          (const int*)face_idx, (const int*)plane_ptr, (const int*)plane_idx,
+          (float*)grad, V, Vm, planes, cap, smax, density);
+  return (int)cudaGetLastError();
+}
+
+Planes make_planes(int off0, int off1, int off2, int n0, int n1, int n2) {
+  Planes planes;
+  planes.off[0] = off0; planes.off[1] = off1; planes.off[2] = off2;
+  planes.n[0] = n0; planes.n[1] = n1; planes.n[2] = n2;
+  return planes;
 }
 
 }  // namespace
 
-// verts (B, V, 3) f32; faces (F, 3) i32; plane_faces the three planes'
-// face-id lists back to back (i32), or NULL to walk all F faces (ids =
-// positions); anchor_face (5,) i32 and anchor_bary (5, 3) f32 for head top,
-// left heel, chest, waist, hips; hull_cos / hull_sin (half_k,) f32; scratch
-// (B, 3, cap) float2 with cap >= 2 * max(n); out (B, 5) f32 = mass, height,
-// chest, waist, hips; plane_h (B, 3) f32. Returns cudaGetLastError().
-extern "C" int measure_forward(
-    const void* verts, const void* faces, const void* plane_faces,
-    const void* anchor_face, const void* anchor_bary, const void* hull_cos,
-    const void* hull_sin, void* scratch, void* out, void* plane_h, int B,
-    int V, int F, int off0, int off1, int off2, int n0, int n1, int n2,
-    int cap, int half_k, float angle_step, float density, void* stream) {
-  if (half_k > 2 * kThreads) return (int)cudaErrorInvalidValue;
-  Planes planes;
-  planes.off[0] = off0; planes.off[1] = off1; planes.off[2] = off2;
-  planes.n[0] = n0; planes.n[1] = n1; planes.n[2] = n2;
-  measure_kernel<<<dim3(4, B), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)verts, (const int*)faces, (const int*)plane_faces,
-      (const int*)anchor_face, (const float*)anchor_bary,
-      (const float*)hull_cos, (const float*)hull_sin, (float2*)scratch,
-      (float*)out, (float*)plane_h, V, F, planes, cap, half_k, angle_step,
-      density);
-  return (int)cudaGetLastError();
+// Forward. verts (B, V, 3) f32; faces (F, 3) i32; plane_faces the three
+// planes' face-id lists back to back (i32), or NULL to walk all F faces (ids
+// = positions); anchor_face (5,) i32 and anchor_bary (5, 3) f32 for head
+// top, left heel, chest, waist, hips; hull_cos / hull_sin (half_k,) f32;
+// hits (B, 3, cap) float2 and codes (B, 3, cap) i32 with cap >= 2 * max(n);
+// stats (B, 4, 4) f32 (per plane: hits, centroid x, z; row 3: the signed
+// volume sum); out (B, 5) f32 = mass, height, chest, waist, hips; plane_h
+// (B, 3) f32. Returns cudaGetLastError().
+#define MEASURE_FORWARD_ARGS                                                  \
+  const void *verts, const void *faces, const void *plane_faces,              \
+      const void *anchor_face, const void *anchor_bary, const void *hull_cos, \
+      const void *hull_sin, void *hits, void *codes, void *stats, void *out,  \
+      void *plane_h, int B, int V, int F, int off0, int off1, int off2,      \
+      int n0, int n1, int n2, int cap, int half_k, float angle_step,         \
+      float density, void *stream
+#define MEASURE_FORWARD_CALL                                                  \
+  verts, faces, plane_faces, anchor_face, anchor_bary, hull_cos, hull_sin,    \
+      hits, codes, stats, out, plane_h, B, V, F,                              \
+      make_planes(off0, off1, off2, n0, n1, n2), cap, half_k, angle_step,    \
+      density, stream
+
+extern "C" int measure_forward(MEASURE_FORWARD_ARGS) {
+  return launch_forward<kReference>(MEASURE_FORWARD_CALL);
+}
+
+extern "C" int measure_exact_forward(MEASURE_FORWARD_ARGS) {
+  return launch_forward<kExact>(MEASURE_FORWARD_CALL);
+}
+
+// Backward of the forward above, with its inputs and saved hits, codes,
+// stats and plane_h. g_out (B, 5) and g_plane_h (B, 3) f32 are the output
+// cotangents; ghits (B, 3, cap) float2, slot_map (B, 3, smax) i32 with smax
+// >= max(n) and g_heights (B, 3) f32 are scratch; face_ptr (Vm + 1,) and
+// face_idx (3F,) i32 list each vertex's (face * 4 + corner) in face order;
+// plane_ptr (3, Vm + 1) and plane_idx i32 list (walk position * 4 + corner)
+// for the planes' face lists, or NULL when the planes walk all faces; grad
+// (B, V, 3) f32, vertices >= Vm get 0. Returns cudaGetLastError().
+#define MEASURE_BACKWARD_ARGS                                                 \
+  const void *verts, const void *faces, const void *plane_faces,              \
+      const void *anchor_face, const void *anchor_bary, const void *hull_cos, \
+      const void *hull_sin, const void *hits, const void *codes,              \
+      const void *stats, const void *plane_h, const void *g_out,              \
+      const void *g_plane_h, void *ghits, void *slot_map, void *g_heights,    \
+      const void *face_ptr, const void *face_idx, const void *plane_ptr,      \
+      const void *plane_idx, void *grad, int B, int V, int Vm, int off0,      \
+      int off1, int off2, int n0, int n1, int n2, int cap, int smax,         \
+      int half_k, float angle_step, float density, void *stream
+#define MEASURE_BACKWARD_CALL                                                 \
+  verts, faces, plane_faces, anchor_face, anchor_bary, hull_cos, hull_sin,    \
+      hits, codes, stats, plane_h, g_out, g_plane_h, ghits, slot_map,         \
+      g_heights, face_ptr, face_idx, plane_ptr, plane_idx, grad, B, V, Vm,    \
+      make_planes(off0, off1, off2, n0, n1, n2), cap, smax, half_k,          \
+      angle_step, density, stream
+
+extern "C" int measure_backward(MEASURE_BACKWARD_ARGS) {
+  return launch_backward<kReference>(MEASURE_BACKWARD_CALL);
+}
+
+extern "C" int measure_exact_backward(MEASURE_BACKWARD_ARGS) {
+  return launch_backward<kExact>(MEASURE_BACKWARD_CALL);
 }

@@ -7,21 +7,24 @@
     anchor's height, then take the convex-hull perimeter of the (x, z)
     slice points.
 
-``BodyMeasurements.forward_from_vertices`` in the default "reference"
-slice mode goes through :func:`measure_reference`, whose CUDA path is
-kernel K1 (``csrc/measure.cu``, forward only); its plain version is the
-structure-of-arrays pipeline of the JAX package in PyTorch. The "exact"
-slice mode runs plain PyTorch on every device for now.
+``BodyMeasurements.forward_from_vertices`` goes through
+:meth:`BodyMeasurements.measure`: for CUDA tensors kernel K1
+(``csrc/measure.cu``; ``measure_forward`` in the default "reference"
+slice mode, ``measure_exact_forward`` in "exact" mode) with its backward
+kernels; for CPU tensors :func:`measure_plain`, the structure-of-arrays
+pipeline of the JAX package in PyTorch, differentiated by autograd.
 
-``Anchor``, ``MeasurementAnchors.synthetic`` and ``candidate_faces`` are
-numpy, copied from the JAX package (whose module imports jax and yaml).
-Loading the reference's anchor YAMLs is not ported yet.
+``Anchor``, ``MeasurementAnchors`` and ``candidate_faces`` are numpy,
+copied from the JAX package (whose module imports jax and yaml); the
+anchor YAMLs are read by :mod:`shapy_tpu_torch.utils.yaml_subset`.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -36,17 +39,29 @@ from shapy_tpu_torch.ops.plane_slice import (
     plane_slice_reference_soa,
     plane_slice_soa,
 )
+from shapy_tpu_torch.utils import yaml_subset
 from shapy_tpu_torch.utils.cuda_kernels import CudaKernel, check_cuda_input
 
 # Average human body density, kg/m^3.
 DENSITY = 985.0
 PLANES = ("chest", "waist", "hips")
 
-MEASURE_KERNEL = CudaKernel(
-    "measure.cu",
-    {"measure_forward": "pppp ppp ppp iii iii iii ii ff p"},
-)
-_MAX_HULL_DIRECTIONS = 1024  # the kernel gives each thread 2 pairs
+_ASSET_DIR = Path(__file__).resolve().parents[2] / "assets" / "measurements"
+DEFAULT_DEFINITIONS = str(_ASSET_DIR / "measurement_defitions.yaml")
+DEFAULT_VERTICES = {
+    "smplx": str(_ASSET_DIR / "smplx_measurements.yaml"),
+    "smpl": str(_ASSET_DIR / "smpl_measurement_vertices.yaml"),
+}
+
+_FORWARD_ARGS = "pppp ppp ppp pp iii iii iii ii ff p"
+_BACKWARD_ARGS = "pppp ppp pppp ppp pppp ppp iii iii iii iii ff p"
+MEASURE_KERNEL = CudaKernel("measure.cu", {
+    "measure_forward": _FORWARD_ARGS,
+    "measure_exact_forward": _FORWARD_ARGS,
+    "measure_backward": _BACKWARD_ARGS,
+    "measure_exact_backward": _BACKWARD_ARGS,
+})
+_MAX_HULL_DIRECTIONS = 1024  # the kernels give each thread 2 pairs
 
 
 @dataclass(frozen=True)
@@ -64,6 +79,35 @@ class MeasurementAnchors:
     chest: Anchor
     waist: Anchor
     hips: Anchor
+
+    @classmethod
+    def from_yaml(
+        cls,
+        meas_definition_path: str = DEFAULT_DEFINITIONS,
+        meas_vertices_path: Optional[str] = None,
+        model_type: str = "smplx",
+    ) -> "MeasurementAnchors":
+        """Load the reference's anchor YAMLs. The chest / waist / hips
+        planes anchor at the surface points named by the CW_p / BW_p /
+        IW_p actions (nipple / belly button / crotch)."""
+        if meas_vertices_path is None:
+            meas_vertices_path = DEFAULT_VERTICES[model_type]
+        defs = yaml_subset.load(os.path.expanduser(os.path.expandvars(
+            meas_definition_path)))
+        verts = yaml_subset.load(os.path.expanduser(os.path.expandvars(
+            meas_vertices_path)))
+
+        def anchor(name: str) -> Anchor:
+            d = verts[name]
+            return Anchor(int(d["face_idx"]), tuple(float(x) for x in d["bc"]))
+
+        return cls(
+            head_top=anchor("HeadTop"),
+            left_heel=anchor("HeelLeft"),
+            chest=anchor(defs["CW_p"][0]),
+            waist=anchor(defs["BW_p"][0]),
+            hips=anchor(defs["IW_p"][0]),
+        )
 
     @classmethod
     def synthetic(cls, faces: np.ndarray, vertices: np.ndarray
@@ -135,6 +179,20 @@ def candidate_faces(
     return out
 
 
+def vertex_corner_lists(faces: np.ndarray, num_vertices: int
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """For each vertex, its (position * 4 + corner) entries in ``faces``
+    (P, 3), in position order, as CSR: ptr (num_vertices + 1,) and idx
+    (3P,), int32. The backward kernel sums each vertex's gradient over
+    these in this fixed order."""
+    flat = np.asarray(faces, np.int64).reshape(-1)
+    order = np.argsort(flat, kind="stable")  # position * 3 + corner
+    ptr = np.zeros(num_vertices + 1, np.int64)
+    np.cumsum(np.bincount(flat, minlength=num_vertices), out=ptr[1:])
+    idx = (order // 3) * 4 + order % 3
+    return ptr.astype(np.int32), idx.astype(np.int32)
+
+
 def _soa(vertices: torch.Tensor, faces: torch.Tensor):
     """(B, V, 3) vertices -> per-coordinate (B, 3, F) triangle planes."""
     ft = faces.T.long()
@@ -150,11 +208,15 @@ def measure_plain(
     num_hull_directions: int = 256,
     density: float = DENSITY,
     slice_mode: str = "reference",
+    centroids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K1 (and the exact slice mode).
+    """Plain version of K1 and K1-exact, differentiable by autograd.
 
     vertices (B, V, 3) f32; faces (F, 3) int; plane_faces one (N_p,) face
-    id list per plane, or None for all F faces.
+    id list per plane, or None for all F faces; centroids (B, 3, 2), the
+    slice centroids' values to use (see
+    :func:`~shapy_tpu_torch.ops.convex_hull.hull_perimeter_support_xz`;
+    :func:`saved_centroids` gives the kernel's).
 
     Returns (B, 5) [mass, height, chest, waist, hips] and (B, 3) plane
     heights."""
@@ -186,112 +248,130 @@ def measure_plain(
                                                   face_ids=ids)
         else:
             xs, zs, m = plane_slice_soa(sy, sx, sz, plane_h)
-        cols.append(hull_perimeter_support_xz(xs, zs, m,
-                                              num_hull_directions))
+        cols.append(hull_perimeter_support_xz(
+            xs, zs, m, num_hull_directions,
+            None if centroids is None else centroids[:, p].unbind(-1)))
         heights.append(plane_h)
     return torch.stack(cols, dim=-1), torch.stack(heights, dim=-1)
 
 
-def measure_reference(
-    vertices: torch.Tensor,
-    faces: torch.Tensor,
-    plane_faces: Optional[List[torch.Tensor]],
-    anchors: MeasurementAnchors,
-    anchor_face: torch.Tensor,
-    anchor_bary: torch.Tensor,
-    hull_cos: torch.Tensor,
-    hull_sin: torch.Tensor,
-    density: float = DENSITY,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Reference-mode measurements: :func:`measure_plain` for CPU tensors
-    (differentiable), kernel K1 for CUDA tensors (forward only: its
-    backward raises, see ``_MeasureReference``).
-
-    ``anchor_face`` (5,) int32 and ``anchor_bary`` (5, 3) f32 carry
-    ``anchors.ordered()`` for the kernel; ``hull_cos`` / ``hull_sin``
-    (K/2,) are :func:`hull_directions`. On the card ``faces`` is (F, 3)
-    int32 and each ``plane_faces`` entry int32."""
-    num_hull_directions = 2 * hull_cos.shape[0]
-    if vertices.device.type == "cpu":
-        return measure_plain(vertices, faces, plane_faces, anchors,
-                             num_hull_directions, density)
-    if vertices.device.type != "cuda":
-        raise ValueError(f"measure: unsupported device {vertices.device}")
-    if num_hull_directions > _MAX_HULL_DIRECTIONS:
-        raise ValueError(f"measure: at most {_MAX_HULL_DIRECTIONS} hull "
-                         "directions")
-    B, V, _ = vertices.shape
-    F = faces.shape[0]
-    half_k = num_hull_directions // 2
-    dev = vertices.device
-    check_cuda_input(vertices, "vertices", torch.float32, (B, V, 3), dev)
-    check_cuda_input(faces, "faces", torch.int32, (F, 3), dev)
-    check_cuda_input(anchor_face, "anchor_face", torch.int32, (5,), dev)
-    check_cuda_input(anchor_bary, "anchor_bary", torch.float32, (5, 3), dev)
-    check_cuda_input(hull_cos, "hull_cos", torch.float32, (half_k,), dev)
-    check_cuda_input(hull_sin, "hull_sin", torch.float32, (half_k,), dev)
-    if plane_faces is None:
-        flat, counts, offsets = None, [F] * 3, [0] * 3
-    else:
-        for p, ids in enumerate(plane_faces):
-            check_cuda_input(ids, f"plane_faces[{p}]", torch.int32,
-                             (None,), dev)
-        counts = [int(ids.shape[0]) for ids in plane_faces]
-        offsets = [0, counts[0], counts[0] + counts[1]]
-        flat = torch.cat(plane_faces)
-    cap = 2 * max(max(counts), 1)
-    return _MeasureReference.apply(
-        vertices, faces, flat, anchor_face, anchor_bary, hull_cos, hull_sin,
-        (B, V, F, *offsets, *counts, cap, half_k,
-         float(np.float32(2.0 * math.pi / num_hull_directions)),
-         float(density)))
+def saved_centroids(vals: torch.Tensor) -> torch.Tensor:
+    """The (B, 3, 2) slice centroids that kernel K1 / K1-exact computed
+    for ``vals``, the first output of a :meth:`BodyMeasurements.measure`
+    call that records a graph, as saved for its backward."""
+    return vals.grad_fn.saved_tensors[3][:, :3, 1:3]
 
 
-class _MeasureReference(torch.autograd.Function):
-    """Kernel K1, forward only: reached by autograd only when a loss
-    weighs a measurement, and then it raises."""
+class _MeasureKernel(torch.autograd.Function):
+    """Kernel K1 (reference mode) or K1-exact, forward and backward.
+
+    The forward saves each plane's hits in face order with the formula
+    that made each, the hit counts, centroids and the signed volume; the
+    backward kernels differentiate those formulas (see ``measure.cu``)."""
 
     @staticmethod
-    def forward(ctx, vertices, faces, flat, anchor_face, anchor_bary,
-                hull_cos, hull_sin, scalars):
-        B, cap = scalars[0], scalars[9]
+    def forward(ctx, vertices, meas, use_face_subsets):
+        mode = "" if meas.slice_mode == "reference" else "exact_"
+        B, V, _ = vertices.shape
+        F = meas.faces.shape[0]
+        half_k = meas.hull_cos.shape[0]
         dev = vertices.device
-        scratch = torch.empty((B, 3, cap, 2), dtype=torch.float32, device=dev)
-        out = torch.empty((B, 5), dtype=torch.float32, device=dev)
-        plane_h = torch.empty((B, 3), dtype=torch.float32, device=dev)
+        check_cuda_input(vertices, "vertices", torch.float32, (B, V, 3), dev)
+        for name in ("faces", "anchor_face", "anchor_bary", "hull_cos",
+                     "hull_sin"):
+            t = getattr(meas, name)
+            check_cuda_input(t, name, t.dtype, tuple(t.shape), dev)
+        if use_face_subsets:
+            flat = meas.subset_faces
+            counts = [int(c) for c in meas.subset_counts]
+            offsets = [0, counts[0], counts[0] + counts[1]]
+            check_cuda_input(flat, "subset_faces", torch.int32, (None,), dev)
+        else:
+            flat, counts, offsets = None, [F] * 3, [0] * 3
+        smax = max(max(counts), 1)
+        cap = 2 * smax
+        angle_step = float(np.float32(2.0 * math.pi / (2 * half_k)))
+        planes = (*offsets, *counts)
+
+        def empty(*shape, dtype=torch.float32):
+            return torch.empty(shape, dtype=dtype, device=dev)
+
+        hits, codes = empty(B, 3, cap, 2), empty(B, 3, cap, dtype=torch.int32)
+        stats, out, plane_h = empty(B, 4, 4), empty(B, 5), empty(B, 3)
         if B > 0:
-            MEASURE_KERNEL.launch("measure_forward", [
-                vertices, faces, flat, anchor_face, anchor_bary, hull_cos,
-                hull_sin, scratch, out, plane_h, *scalars])
+            MEASURE_KERNEL.launch(f"measure_{mode}forward", [
+                vertices, meas.faces, flat, meas.anchor_face,
+                meas.anchor_bary, meas.hull_cos, meas.hull_sin, hits, codes,
+                stats, out, plane_h, B, V, F, *planes, cap, half_k,
+                angle_step, meas.density])
+        ctx.meas, ctx.mode, ctx.flat = meas, mode, flat
+        ctx.scalars = (B, V, planes, cap, smax, half_k, angle_step)
+        ctx.use_face_subsets = use_face_subsets
+        ctx.save_for_backward(vertices, hits, codes, stats, plane_h)
         return out, plane_h
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "K1 (csrc/measure.cu) has no backward yet: a measurement loss "
-            "weight above 0 needs the K1-backward item of ROADMAP queue 2")
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_out, g_plane_h):
+        vertices, hits, codes, stats, plane_h = ctx.saved_tensors
+        meas = ctx.meas
+        B, V, planes, cap, smax, half_k, angle_step = ctx.scalars
+        dev = vertices.device
+        g_out = g_out.float().contiguous()
+        g_plane_h = g_plane_h.float().contiguous()
+        grad = torch.empty((B, V, 3), dtype=torch.float32, device=dev)
+        if B == 0:
+            return grad, None, None
+        if ctx.use_face_subsets:
+            plane_ptr, plane_idx = meas.subset_csr_ptr, meas.subset_csr_idx
+        else:
+            plane_ptr = plane_idx = None
+        MEASURE_KERNEL.launch(f"measure_{ctx.mode}backward", [
+            vertices, meas.faces, ctx.flat, meas.anchor_face,
+            meas.anchor_bary, meas.hull_cos, meas.hull_sin, hits, codes,
+            stats, plane_h, g_out, g_plane_h,
+            torch.empty((B, 3, cap, 2), dtype=torch.float32, device=dev),
+            torch.empty((B, 3, smax), dtype=torch.int32, device=dev),
+            torch.empty((B, 3), dtype=torch.float32, device=dev),
+            meas.face_csr_ptr, meas.face_csr_idx, plane_ptr, plane_idx, grad,
+            B, V, meas.num_mesh_vertices, *planes, cap, smax, half_k,
+            angle_step, meas.density])
+        return grad, None, None
 
 
 class BodyMeasurements(nn.Module):
     """Batched virtual measurements on one mesh topology.
 
-    ``faces`` (F, 3) and the optional per-plane ``face_subsets`` (from
-    :func:`candidate_faces`) become non-persistent device buffers, so
-    ``.to(device)`` moves them with the regressor.
+    ``faces`` (F, 3), the optional per-plane ``face_subsets`` (from
+    :func:`candidate_faces`) and the vertex-to-face lists of the backward
+    kernel become non-persistent device buffers, so ``.to(device)`` moves
+    them with the regressor. Without ``anchors`` they are read from the
+    reference's YAMLs for ``model_type`` (:meth:`MeasurementAnchors
+    .from_yaml`).
     """
 
     def __init__(
         self,
-        anchors: MeasurementAnchors,
+        anchors: Optional[MeasurementAnchors],
         faces: np.ndarray,
         num_hull_directions: int = 256,
         density: float = DENSITY,
         slice_mode: str = "reference",
         face_subsets: Optional[Dict[str, np.ndarray]] = None,
+        model_type: str = "smplx",
+        meas_definition_path: Optional[str] = None,
+        meas_vertices_path: Optional[str] = None,
     ):
         super().__init__()
+        if anchors is None:
+            anchors = MeasurementAnchors.from_yaml(
+                meas_definition_path or DEFAULT_DEFINITIONS,
+                meas_vertices_path, model_type)
         if slice_mode not in ("reference", "exact"):
             raise ValueError(f"unknown slice_mode: {slice_mode!r}")
+        if num_hull_directions > _MAX_HULL_DIRECTIONS:
+            raise ValueError(f"at most {_MAX_HULL_DIRECTIONS} hull "
+                             "directions")
         self.anchors = anchors
         self.num_hull_directions = num_hull_directions
         self.density = density
@@ -301,7 +381,7 @@ class BodyMeasurements(nn.Module):
             self.register_buffer(name, torch.as_tensor(
                 np.ascontiguousarray(value), dtype=dtype), persistent=False)
 
-        # The kernel indexes with these ids unchecked: validate them once.
+        # The kernels index with these ids unchecked: validate them once.
         faces = np.asarray(faces)
         F = faces.shape[0]
         self.num_mesh_vertices = int(faces.max()) + 1
@@ -317,11 +397,43 @@ class BodyMeasurements(nn.Module):
         cos, sin = hull_directions(num_hull_directions)
         self.register_buffer("hull_cos", cos, persistent=False)
         self.register_buffer("hull_sin", sin, persistent=False)
+        ptr, idx = vertex_corner_lists(faces, self.num_mesh_vertices)
+        buf("face_csr_ptr", ptr, torch.int32)
+        buf("face_csr_idx", idx, torch.int32)
         self.has_subsets = face_subsets is not None
-        for name in PLANES:
-            sub = (face_subsets[name] if self.has_subsets
-                   else np.zeros(0, np.int32))
+        subs = [np.asarray(face_subsets[n] if self.has_subsets else
+                           np.zeros(0), np.int64) for n in PLANES]
+        for name, sub in zip(PLANES, subs):
             buf(f"subset_{name}", sub, torch.int32)
+        self.subset_counts = tuple(len(s) for s in subs)
+        buf("subset_faces", np.concatenate(subs), torch.int32)
+        lists = [vertex_corner_lists(faces[s], self.num_mesh_vertices)
+                 for s in subs]
+        starts = np.cumsum([0] + [len(i) for _, i in lists[:-1]])
+        buf("subset_csr_ptr", np.stack([p + s for (p, _), s in
+                                        zip(lists, starts)]), torch.int32)
+        buf("subset_csr_idx", np.concatenate([i for _, i in lists]),
+            torch.int32)
+
+    def measure(self, vertices: torch.Tensor, use_face_subsets: bool = True
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, V, 3) vertices -> (B, 5) [mass, height, chest, waist, hips]
+        and (B, 3) plane heights, differentiable in ``vertices``: kernel
+        K1 / K1-exact for CUDA tensors, :func:`measure_plain` for CPU
+        tensors."""
+        if vertices.shape[1] < self.num_mesh_vertices:
+            raise ValueError(f"{vertices.shape[1]} vertices for a mesh of "
+                             f"{self.num_mesh_vertices}")
+        use_subsets = use_face_subsets and self.has_subsets
+        if vertices.device.type == "cpu":
+            plane_faces = ([getattr(self, f"subset_{n}") for n in PLANES]
+                           if use_subsets else None)
+            return measure_plain(vertices, self.faces, plane_faces,
+                                 self.anchors, self.num_hull_directions,
+                                 self.density, self.slice_mode)
+        if vertices.device.type != "cuda":
+            raise ValueError(f"measure: unsupported device {vertices.device}")
+        return _MeasureKernel.apply(vertices.contiguous(), self, use_subsets)
 
     def forward_from_vertices(self, vertices: torch.Tensor,
                               use_face_subsets: bool = True
@@ -334,21 +446,7 @@ class BodyMeasurements(nn.Module):
         Returns {'measurements': {'mass': {'tensor'}, 'height':
         {'tensor'}, 'chest'|'waist'|'hips': {'tensor', 'plane_height'}}}.
         """
-        if vertices.shape[1] < self.num_mesh_vertices:
-            raise ValueError(f"{vertices.shape[1]} vertices for a mesh of "
-                             f"{self.num_mesh_vertices}")
-        plane_faces = None
-        if use_face_subsets and self.has_subsets:
-            plane_faces = [getattr(self, f"subset_{n}") for n in PLANES]
-        if self.slice_mode == "reference":
-            vals, heights = measure_reference(
-                vertices.contiguous(), self.faces, plane_faces, self.anchors,
-                self.anchor_face, self.anchor_bary, self.hull_cos,
-                self.hull_sin, self.density)
-        else:
-            vals, heights = measure_plain(
-                vertices, self.faces, plane_faces, self.anchors,
-                self.num_hull_directions, self.density, slice_mode="exact")
+        vals, heights = self.measure(vertices, use_face_subsets)
         out: Dict[str, Dict[str, torch.Tensor]] = {
             "mass": {"tensor": vals[:, 0]},
             "height": {"tensor": vals[:, 1]},

@@ -1,25 +1,65 @@
-"""Synthetic body-model assets (numpy; copy of the generator in
-``shapy_tpu/models/body/assets.py``).
+"""Body-model assets (numpy; copy of ``shapy_tpu/models/body/assets.py``):
+the release-file loader and the synthetic generator.
 
 Copied rather than imported: importing ``shapy_tpu.models.body`` pulls in
-jax, which the port never imports. ``tests/test_torch_core.py`` asserts
-that these functions give arrays identical to the JAX package's.
+jax, which the port never imports. ``tests/test_torch_core.py`` and
+``tests/test_torch_fit_measurements.py`` assert that these functions give
+arrays identical to the JAX package's.
 
-The template is a body-proportioned ellipsoid, the skeleton a binary
-tree of joints, and every basis a small smooth random field, all drawn
-from ``seed``. ``exact_counts=True`` refines the mesh to the real
-template's vertex and face counts (SMPL-X 10475 / 20908).
+:func:`load_model_data` reads the standard SMPL / SMPL-H / SMPL-X release
+files (``.npz``, or a latin1-pickled ``.pkl``). The synthetic template is
+a body-proportioned ellipsoid, the skeleton a binary tree of joints, and
+every basis a small smooth random field, all drawn from ``seed``.
+``exact_counts=True`` refines the mesh to the real template's vertex and
+face counts (SMPL-X 10475 / 20908).
 """
 
 from __future__ import annotations
 
+import os
+import pickle
 from typing import Any, Dict, Optional
 
 import numpy as np
 
+MODEL_FILE_TEMPLATES = {
+    "smpl": "SMPL_{gender}.{ext}",
+    "smplh": "SMPLH_{gender}.{ext}",
+    "smplx": "SMPLX_{gender}.{ext}",
+}
+
 NUM_JOINTS = {"smpl": 24, "smplh": 52, "smplx": 55}
 SHAPE_SPACE_DIM = 300
 EXPRESSION_SPACE_DIM = 100
+
+
+def _to_dense_f64(x) -> np.ndarray:
+    if hasattr(x, "todense"):
+        x = np.asarray(x.todense())
+    return np.asarray(x)
+
+
+def load_model_data(
+    model_folder: str,
+    model_type: str = "smplx",
+    gender: str = "neutral",
+    ext: str = "npz",
+    model_path: Optional[str] = None,
+) -> Dict[str, np.ndarray]:
+    """Load a body-model release file into a plain dict of numpy arrays."""
+    if model_path is None:
+        fname = MODEL_FILE_TEMPLATES[model_type].format(
+            gender=gender.upper(), ext=ext
+        )
+        model_path = os.path.join(os.path.expanduser(model_folder), fname)
+    if model_path.endswith(".npz"):
+        with np.load(model_path, allow_pickle=True) as data:
+            out = {k: data[k] for k in data.files}
+    else:
+        with open(model_path, "rb") as f:
+            out = pickle.load(f, encoding="latin1")
+    return {k: _to_dense_f64(v) if not isinstance(v, str) else v
+            for k, v in out.items()}
 
 
 def icosphere(subdivisions: int = 2) -> tuple[np.ndarray, np.ndarray]:

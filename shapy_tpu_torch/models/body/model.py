@@ -13,8 +13,9 @@ rotation matrices ``(B, n, 3, 3)`` or axis-angle ``(B, n, 3)`` / flat
 
 Ported so far: what the flagship regressor runs (pose assembly, the
 SMPL-X expression slice, static landmarks, ``v_shaped`` without
-expression). Not yet: the SMPL-X dynamic face contour, mesh-surface
-extra joints and the J14 regressor override.
+expression), loading the release files from ``model_folder`` and
+:func:`build_body_model`. Not yet: the SMPL-X dynamic face contour,
+mesh-surface extra joints and the J14 regressor override.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from torch import nn
 from shapy_tpu_torch.core.geometry import blend_shapes, vertices2landmarks
 from shapy_tpu_torch.core.kinematics import compute_level_schedule
 from shapy_tpu_torch.core.rotations import aa_to_rotmat
+from shapy_tpu_torch.models.body.assets import load_model_data
 from shapy_tpu_torch.models.body.lbs import lbs
 
 
@@ -50,9 +52,18 @@ class SMPL(nn.Module):
     NUM_BODY_JOINTS = 23
     SHAPE_SPACE_DIM = 300
 
-    def __init__(self, model_data: Dict[str, np.ndarray],
-                 num_betas: int = 10, dtype: torch.dtype = torch.float32):
+    def __init__(self, model_data: Optional[Dict[str, np.ndarray]] = None,
+                 num_betas: int = 10, dtype: torch.dtype = torch.float32,
+                 model_folder: str = "", gender: str = "neutral",
+                 ext: str = "npz"):
+        """``model_data`` as :func:`~shapy_tpu_torch.models.body.assets
+        .load_model_data` returns it, or None to load the release file
+        of this model, ``gender`` and ``ext`` from ``model_folder``."""
         super().__init__()
+        if model_data is None:
+            model_data = load_model_data(model_folder, self.NAME,
+                                         gender=gender, ext=ext)
+        self.gender = gender
         self.dtype = dtype
         self.faces = np.asarray(model_data["f"], dtype=np.int64)
         parents = np.asarray(model_data["kintree_table"][0], dtype=np.int64)
@@ -146,7 +157,7 @@ class SMPLH(SMPL):
     NUM_BODY_JOINTS = 21
     NUM_HAND_JOINTS = 15
 
-    def __init__(self, model_data: Dict[str, np.ndarray],
+    def __init__(self, model_data: Optional[Dict[str, np.ndarray]] = None,
                  num_hand_components: int = 45, **kwargs):
         self.num_hand_components = num_hand_components
         super().__init__(model_data, **kwargs)
@@ -181,7 +192,7 @@ class SMPLX(SMPLH):
     NAME = "smplx"
     EXPRESSION_SPACE_DIM = 100
 
-    def __init__(self, model_data: Dict[str, np.ndarray],
+    def __init__(self, model_data: Optional[Dict[str, np.ndarray]] = None,
                  num_expression_coeffs: int = 10, **kwargs):
         self.num_expression_coeffs = int(num_expression_coeffs)
         super().__init__(model_data, **kwargs)
@@ -231,3 +242,11 @@ class SMPLX(SMPLH):
         # SMPL-X reports v_shaped WITHOUT the expression dims.
         return self.v_template[None] + blend_shapes(betas.to(self.dtype),
                                                     self.shapedirs)
+
+
+MODEL_CLASSES = {"smpl": SMPL, "smplh": SMPLH, "smplx": SMPLX}
+
+
+def build_body_model(model_type: str = "smplx", **kwargs) -> SMPL:
+    """The body model of ``model_type`` ("smpl", "smplh", "smplx")."""
+    return MODEL_CLASSES[model_type](**kwargs)

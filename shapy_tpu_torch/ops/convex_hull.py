@@ -16,7 +16,7 @@ matmul: TF32 would cost about a millimetre on a circumference.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -38,14 +38,24 @@ def hull_perimeter_support_xz(
     z: torch.Tensor,
     mask: torch.Tensor,
     num_directions: int = 256,
+    centroid: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Perimeter of the convex hull of the masked points (x, z), each
-    (..., N). Zero when fewer than 2 points are valid."""
+    (..., N). Zero when fewer than 2 points are valid.
+
+    ``centroid`` (cx, cz), each (...,), replaces the value of the masked
+    centroid (its gradient still flows through the sums): with a
+    kernel's centroid the projections round as the kernel's do, so that
+    points whose projections tie within the sums' rounding split the
+    gradient the same way on both sides."""
     cos, sin = hull_directions(num_directions, x.device)
     count = torch.clamp(torch.sum(mask, dim=-1, keepdim=True), min=1)
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     cx = torch.sum(torch.where(mask, x, zero), dim=-1, keepdim=True) / count
     cz = torch.sum(torch.where(mask, z, zero), dim=-1, keepdim=True) / count
+    if centroid is not None:  # x - x is exactly 0: the value is replaced
+        cx = cx - cx.detach() + centroid[0][..., None].to(x.dtype)
+        cz = cz - cz.detach() + centroid[1][..., None].to(x.dtype)
     xc = torch.where(mask, x - cx, zero)
     zc = torch.where(mask, z - cz, zero)
 

@@ -3,9 +3,10 @@
 
 Layout as in the JAX package: each coordinate is a ``(..., 3, F)`` plane
 (vertex index, then face index). ``plane_slice_reference_soa`` is the
-plain version of kernel K1's slice (``csrc/measure.cu``): the same
-operations in the same order, so that the kernel, built without FMA
-contraction, makes the same hit decisions.
+plain version of kernel K1's slice (``csrc/measure.cu``) and
+``plane_slice_soa`` that of K1-exact: the same operations in the same
+order, so that the kernels, built without FMA contraction, make the same
+hit decisions.
 """
 
 from __future__ import annotations

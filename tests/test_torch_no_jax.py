@@ -46,7 +46,7 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 45  # every module was walked
+    assert int(proc.stdout.split()[-1]) >= 51  # every module was walked
 
 
 def test_build_flagship_asks_for_the_card(monkeypatch):
@@ -60,3 +60,21 @@ def test_build_flagship_asks_for_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_flagship(subdivisions=1)
+
+
+def test_measurement_entry_points_ask_for_the_card(monkeypatch, tmp_path):
+    """The fit and the virtual-measurements CLIs run on the card unless
+    the caller asks for the CPU: without CUDA their defaults raise."""
+    from shapy_tpu_torch.cli import fit_measurements, virtual_measurements
+
+    assert fit_measurements.build_parser().parse_args([]).device == "cuda"
+    default = inspect.signature(virtual_measurements.main).parameters[
+        "device"].default
+    assert default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("SHAPY_TPU_SYNTHETIC_BODY", "1")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fit_measurements.main(["--num-steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        virtual_measurements.main(str(tmp_path), str(tmp_path / "out"),
+                                  render=False)
