@@ -6,13 +6,14 @@ GPU: the quickest proof that the port still starts on the card.
 
 Phases, each of which raises on failure (exit code 1):
 
-1. Prints the card's name and power limit, and builds the seven
+1. Prints the card's name and power limit, and builds the ten
    hand-written CUDA sources from ``shapy_tpu_torch/csrc/``, one nvcc
    process each, all started together: K1 measure (reference and exact
    slice modes, forward and backward), K2 ingest, K3 skinning forward and
    backward, K3-chain forward and backward, K4 train-mode BatchNorm
-   forward and backward, K8a P2P point error, K8b aligned point error;
-   prints each kernel's registers and stack.
+   forward and backward, K6 mesh-mesh intersection, K7 repulsion forward
+   and backward, K8a P2P point error, K8b aligned point error, K9
+   nearest-neighbour distances; prints each kernel's registers and stack.
 2. Holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes (batch 32, SMPL-X 10475 vertices / 20908 faces,
    K=256 hull directions, 480x360 uint8 images -> 256x256 crops, a
@@ -21,9 +22,15 @@ Phases, each of which raises on failure (exit code 1):
    backward, and K4 on the stem's first BN and a stage-4 BN in bf16 and
    f32; K1's backward and K1-exact forward and backward on all faces at
    batch 48 and batch 1; the backwards first against autograd through
-   the plain versions in f64) and times both with CUDA events, and K4
-   beside ``F.batch_norm(training=True)``; computes each kernel's bound
-   (bytes or FLOPs of this run's inputs at 3.35 TB/s / 67 TFLOP/s).
+   the plain versions in f64; K6, K7 and K9 at phase 9's shapes: K6 on a
+   full-width body pair with 256 slots, faces exact and barycentrics
+   within 1e-5, K7 on the four pairs' contacts, value rel 1e-5 and
+   gradient within 1e-4 of the largest of autograd in f64, K9 both ways
+   between two bodies' vertices within 1e-5 m) and times both with CUDA
+   events (K6's plain version over 2 calls: it takes ~0.5 s), K4 beside
+   ``F.batch_norm(training=True)`` and K9 beside ``torch.cdist`` + ``min``
+   (two calls a direction); computes each kernel's bound (bytes or FLOPs
+   of this run's inputs at 3.35 TB/s / 67 TFLOP/s).
 3. Serves the flagship (HRNet-W48 at full width, 3-stage head with MLP
    (1024, 1024), SMPL-X, measurements; bf16 backbone) through
    ``apply_from_full_images``: one warm-up, then 3 requests of batch 32.
@@ -69,11 +76,28 @@ Phases, each of which raises on failure (exit code 1):
    steps/s. Then runs ``cli.virtual_measurements.main(..., render=False)``
    over 8 seeded betas files and checks its lines against the plain
    version's measurements.
+9. Contact and distance at full width on four body pairs (A: seeded
+   betas and pose; B: other betas, A's pose, shifted a few cm): K6 with
+   A's triangles as queries against B's (256 slots; at least 1000
+   collisions per pair; pair 0 equal to phase 2's plain run; each kept
+   endpoint, rebuilt from its barycentrics, on both triangles' planes
+   within 1e-5 m, except in target triangles under the JAX package's
+   barycentric clamp, which are held to the target's plane), K6 with
+   the chest, waist and hips quads at K1's plane heights as queries
+   (1024 slots; the faces found equal the exact slice's crossed faces),
+   K7 on the contacts as (receiver, intruder) pairs (positive, finite,
+   value and gradient against the plain versions), and ``point_fscore``
+   at 5, 10 and 20 mm between the bodies' vertices and between their
+   P2P-20k clouds (distances within 1e-5 m of the plain version's, and
+   scores equal wherever no point's two distances fall on either side of
+   the threshold). Checks that K6, K7 forward and
+   backward and K9 were launched by this phase, and prints their counts.
 
 The line before the last is a JSON object with one entry per kernel
 function (forward and backward separately); ``launches`` counts the
 training phase for the kernels it runs, the batch-32 fit of phase 8 for
-K1's backward and K1-exact, and the evaluation phase for the others. The
+K1's backward and K1-exact, phase 9 for K6, K7 and K9, and the
+evaluation phase for the others. The
 last line is ``{"ok": true, "device": {...}}``. Without CUDA, or without
 the repository beside this file, it exits non-zero and prints no result.
 """
@@ -110,6 +134,17 @@ FIT_B = 32
 FIT_TOL = 0.01  # m
 FIT_PARITY_STEPS = 20
 VM_FILES = 8
+# Phase 9: body pairs A (seeded betas of 2 sigma and a pose of 0.2 rad per
+# axis) and B (other betas, A's pose, shifted a few cm); these seeds give
+# ~1200-1300 crossing triangle pairs each at full width.
+CONTACT_SEEDS = (5, 6, 7, 8)
+CONTACT_BETAS, CONTACT_POSE = 2.0, 0.2
+CONTACT_SHIFT = (0.01, 0.005, 0.03)  # m
+CONTACT_M = 256  # the reference's max_collisions
+PLANE_M = 1024  # slots per plane triangle: no truncation
+MIN_COLLISIONS = 1000
+FSCORE_THRESH = (0.005, 0.01, 0.02)  # m
+NN_TOL = 1e-5  # m: K9 vs plain, neighbours that tie within f32 rounding
 # The H100 SXM's published peaks (at its 700 W limit): HBM bytes/s and
 # f32 FLOP/s outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
@@ -175,8 +210,12 @@ def rel_err(got, want) -> float:
 
 
 def record_kernel(results, name, err, fn, plain_fn, nbytes, flops,
-                  library_fn=None):
-    ms, plain_ms = time_ms(fn), time_ms(plain_fn)
+                  library_fn=None, plain_iters=20):
+    """Times the kernel, its plain version (``plain_iters`` calls: fewer
+    for plain versions that take seconds) and the library call, and
+    computes the bound."""
+    ms = time_ms(fn)
+    plain_ms = time_ms(plain_fn, plain_iters, min(3, plain_iters - 1))
     library_ms = None if library_fn is None else time_ms(library_fn)
     bound_ms, bound_by = bound(nbytes, flops)
     results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -196,10 +235,16 @@ def kernels():
     separate entries."""
     from shapy_tpu_torch.core.kinematics import CHAIN_KERNEL
     from shapy_tpu_torch.data.crop import INGEST_KERNEL
-    from shapy_tpu_torch.eval.metrics import ALIGN_KERNEL, REGRESS_KERNEL
+    from shapy_tpu_torch.eval.metrics import (
+        ALIGN_KERNEL,
+        NN_KERNEL,
+        REGRESS_KERNEL,
+    )
     from shapy_tpu_torch.measure.measurements import MEASURE_KERNEL
     from shapy_tpu_torch.models.backbones.layers import BN_KERNEL
     from shapy_tpu_torch.models.body.lbs import SKIN_KERNEL
+    from shapy_tpu_torch.ops.repulsion import REPULSION_KERNEL
+    from shapy_tpu_torch.ops.tri_tri import TRI_KERNEL
 
     csrc = "shapy_tpu_torch/csrc/"
     return [
@@ -229,6 +274,14 @@ def kernels():
          csrc + "point_regress.cu", "shapy_tpu/eval/metrics.py:228"),
         ("K8b_align_error", ALIGN_KERNEL, "align_error_forward",
          csrc + "align_error.cu", "shapy_tpu/eval/metrics.py:123"),
+        ("K6_tri_tri", TRI_KERNEL, "tri_tri_forward", csrc + "tri_tri.cu",
+         "shapy_tpu/ops/tri_tri.py:144"),
+        ("K7_repulsion", REPULSION_KERNEL, "repulsion_forward",
+         csrc + "repulsion.cu", "shapy_tpu/ops/repulsion.py:103"),
+        ("K7_repulsion_backward", REPULSION_KERNEL, "repulsion_backward",
+         csrc + "repulsion.cu", "shapy_tpu/ops/repulsion.py:103"),
+        ("K9_nn_dists", NN_KERNEL, "nn_dists_forward", csrc + "nn_dists.cu",
+         "shapy_tpu/eval/metrics.py:36"),
     ]
 
 
@@ -241,6 +294,8 @@ TRAIN_KERNELS = ("K1_measure", "K3_skinning", "K3_skinning_backward",
                  "K4_bn_backward")
 FIT_KERNELS = {"reference": ("K1_measure", "K1_measure_backward"),
                "exact": ("K1exact_measure", "K1exact_measure_backward")}
+CONTACT_KERNELS = ("K6_tri_tri", "K7_repulsion", "K7_repulsion_backward",
+                   "K9_nn_dists")
 
 
 def sources():
@@ -1412,6 +1467,347 @@ def virtual_measurements(dev):
     print(f"virtual measurements CLI: {VM_FILES} files, lines equal to the "
           f"plain version's; first: {lines[0].strip()}")
 
+def contact_bodies(model, dev) -> dict:
+    """Phase 9's body pairs at full width, one per seed of CONTACT_SEEDS:
+    vertices ``va``, ``vb`` (4, V, 3) and triangles ``a``, ``b`` (4, F, 3,
+    3); A has seeded betas and pose, B other betas, A's pose and a shift
+    of CONTACT_SHIFT, so that the surfaces cross (no vertex is shared)."""
+    import torch
+
+    va, vb = [], []
+    for seed in CONTACT_SEEDS:
+        rng = np.random.default_rng(seed)
+        pose = rng.normal(size=(1, model.NUM_BODY_JOINTS, 3)) * CONTACT_POSE
+        betas = [rng.normal(size=(1, model.num_betas)) * CONTACT_BETAS
+                 for _ in range(2)]
+        with torch.no_grad():
+            for out, b in zip((va, vb), betas):
+                out.append(model(
+                    betas=torch.tensor(b, dtype=torch.float32, device=dev),
+                    body_pose=torch.tensor(pose, dtype=torch.float32,
+                                           device=dev))["vertices"])
+    va = torch.cat(va)
+    vb = torch.cat(vb) + torch.tensor(CONTACT_SHIFT, device=dev)
+    faces = model.faces_tensor.long()
+    return {"va": va.contiguous(), "vb": vb.contiguous(),
+            "a": va[:, faces].contiguous(), "b": vb[:, faces].contiguous()}
+
+
+def contact_pairs(faces, M: int, F: int):
+    """K6's hits (B, Q * M) as repulsion pairs (B, C, 2) int32, -1-padded:
+    receiver = the target (B's) face + F, intruder = the query (A's) face,
+    in slot order; C is the largest count."""
+    import torch
+
+    rows = []
+    for row in faces:
+        slots = torch.nonzero(row >= 0)[:, 0]
+        rows.append(torch.stack([row[slots].long() + F, slots // M], dim=-1))
+    C = max(len(r) for r in rows)
+    pairs = torch.full((len(rows), C, 2), -1, dtype=torch.int32,
+                       device=faces.device)
+    for k, r in enumerate(rows):
+        pairs[k, :len(r)] = r.to(torch.int32)
+    return pairs
+
+
+def box_pairs(a, b, chunk: int = 1024) -> int:
+    """The (query, target) pairs of triangles a, b (F, 3, 3) whose boxes
+    overlap: the pairs K6 runs its full test on."""
+    qmin, qmax, tmin, tmax = a.amin(1), a.amax(1), b.amin(1), b.amax(1)
+    n = 0
+    for s in range(0, len(a), chunk):
+        n += int(((tmin[None] <= qmax[s:s + chunk, None])
+                  & (tmax[None] >= qmin[s:s + chunk, None])).all(-1).sum())
+    return n
+
+
+def check_contact_kernels(bodies, dev):
+    """Phase 2, the contact path's kernels at phase 9's shapes: K6 on a
+    full-width body pair (Q = F = 20908, 256 slots) against its plain
+    version on the card (faces exact, barycentrics within 1e-5: the same
+    decisions, no FMA on either side), K7's forward and backward on the
+    four pairs' contacts against the plain version (value rel 1e-5: pairs
+    summed in another order; gradient within 1e-4 of the largest of
+    autograd in f64), K9 both ways between two bodies' vertices (10475 x
+    10475) within NN_TOL of the plain version. Returns the entries and
+    the plain K6 output of pair 0, which phase 9 holds its run against."""
+    import torch
+
+    from shapy_tpu_torch.eval.metrics import _nn_dists, nn_dists_plain
+    from shapy_tpu_torch.ops.repulsion import (
+        repulsion_loss,
+        repulsion_loss_plain,
+    )
+    from shapy_tpu_torch.ops.tri_tri import (
+        mesh_mesh_intersection,
+        mesh_mesh_intersection_plain,
+    )
+
+    results = {}
+    a, b = bodies["a"], bodies["b"]
+    Bc, F = a.shape[:2]
+    M = CONTACT_M
+    a1, b1 = a[:1].contiguous(), b[:1].contiguous()
+
+    # K6 at batch 1 (the plain version goes through 82 query chunks in a
+    # Python loop, ~0.5 s: timed over 2 calls)
+    with torch.no_grad():
+        faces, bcs = mesh_mesh_intersection(a1, b1, M)
+        plain = mesh_mesh_intersection_plain(a1, b1, M, query_chunk=256)
+    same = torch.equal(faces, plain[0])
+    bcs_err = max_err(bcs, plain[1])
+    hits = int((faces >= 0).sum())
+    print(f"K6 tri-tri (pair 0, {F} x {F} faces, {M} slots): {hits} hits, "
+          f"faces equal to the plain version's: {same}, barycentrics err "
+          f"{bcs_err:.3e} (tol 1e-5)")
+    check(same and bcs_err <= 1e-5, "K6 vs plain")
+    n_box = box_pairs(a1[0], b1[0])
+    # bytes: queries and targets read once, ids and barycentrics written;
+    # operations: the box test (6) on all Q x F pairs, ~150 for the full
+    # interval test on the pairs whose boxes overlap, ~60 per kept hit
+    k6_bytes = 2 * F * 36 + F * M * (4 + 24)
+    k6_ops = 6 * F * F + 150 * n_box + 60 * hits
+    row = record_kernel(
+        results, "K6_tri_tri", bcs_err,
+        lambda: mesh_mesh_intersection(a1, b1, M),
+        lambda: mesh_mesh_intersection_plain(a1, b1, M, query_chunk=256),
+        k6_bytes, k6_ops, plain_iters=2)
+    row["box_pairs"] = n_box
+    row["hits"] = hits
+    # the main path's batch of 4 pairs, beside it
+    ms4 = time_ms(lambda: mesh_mesh_intersection(a, b, M))
+    with torch.no_grad():
+        faces4 = mesh_mesh_intersection(a, b, M)[0]
+        n_box4 = n_box + sum(box_pairs(a[k], b[k]) for k in range(1, Bc))
+    hits4 = int((faces4 >= 0).sum())
+    b4 = bound(Bc * k6_bytes, Bc * 6 * F * F + 150 * n_box4 + 60 * hits4)
+    row["cases"] = [{"batch": Bc, "ms": ms4, "bound_ms": b4[0],
+                     "bound_by": b4[1], "box_pairs": n_box4, "hits": hits4}]
+    print(f"K6 at batch {Bc}: kernel {ms4:.4f} ms, bound {b4[0]:.4f} ms "
+          f"({b4[1]})")
+
+    # K7 on the contacts of all four pairs, both directions of the pairs'
+    # cones, the reference's defaults
+    pairs = contact_pairs(faces4, M, F)
+    tris = torch.cat([a, b], dim=1).contiguous()
+    n_pairs = int((pairs[..., 0] >= 0).sum())
+    cot = torch.linspace(1.0, -0.5, Bc, device=dev)
+    x = tris.clone().requires_grad_()
+    loss = repulsion_loss(x, pairs)
+    got, = torch.autograd.grad(loss, x, cot, retain_graph=True)
+    want = repulsion_loss_plain(tris, pairs)
+    val_err = float(((loss.detach() - want).abs() / want.abs()).max())
+    x64 = tris.double().requires_grad_()
+    loss64 = repulsion_loss_plain(x64, pairs)
+    want64, = torch.autograd.grad(loss64, x64, cot.double(),
+                                  retain_graph=True)
+    grad_err = float((got.double() - want64).abs().max()
+                     / want64.abs().max())
+    x2 = tris.clone().requires_grad_()
+    again, = torch.autograd.grad(repulsion_loss(x2, pairs), x2, cot)
+    same = torch.equal(got, again)
+    print(f"K7 repulsion ({n_pairs} pairs over {Bc} bodies, C = "
+          f"{pairs.shape[1]}): loss "
+          f"{[round(float(v), 6) for v in loss.detach()]}, "
+          f"rel err {val_err:.3e} (tol 1e-5); gradient err vs plain "
+          f"autograd f64 {grad_err:.3e} of the largest (tol 1e-4); two runs "
+          f"bit-equal: {same}")
+    check(bool((loss > 0).all() and torch.isfinite(loss).all()), "K7 loss")
+    check(val_err <= 1e-5 and grad_err <= 1e-4 and same, "K7 vs plain")
+    # per pair ~400 FLOPs (two cones, six cone fields), the gradient ~3x;
+    # bytes: the pairs and their two gathered triangles, the losses, the
+    # gradient of all faces written once
+    record_kernel(results, "K7_repulsion", max_err(loss, want),
+                  lambda: repulsion_loss(tris, pairs),
+                  lambda: repulsion_loss_plain(tris, pairs),
+                  n_pairs * (8 + 72) + Bc * 4, n_pairs * 400)
+    record_kernel(results, "K7_repulsion_backward", grad_err,
+                  lambda: torch.autograd.grad(loss, x, cot,
+                                              retain_graph=True),
+                  lambda: torch.autograd.grad(loss64, x64, cot.double(),
+                                              retain_graph=True),
+                  n_pairs * (8 + 72) + Bc * 4 + tris.numel() * 4,
+                  n_pairs * 1200)
+
+    # K9 both ways between two bodies' vertices, as point_fscore runs it
+    pa, pb = bodies["va"][0].contiguous(), bodies["vb"][0].contiguous()
+    N, Mb = len(pa), len(pb)
+    with torch.no_grad():
+        err = max(max_err(_nn_dists(p, q), nn_dists_plain(p, q))
+                  for p, q in ((pa, pb), (pb, pa)))
+    print(f"K9 nn dists ({N} x {Mb}, both ways): err {err:.3e} m (tol "
+          f"{NN_TOL})")
+    check(err <= NN_TOL, "K9 vs plain")
+    row = record_kernel(
+        results, "K9_nn_dists", err,
+        lambda: (_nn_dists(pa, pb), _nn_dists(pb, pa)),
+        lambda: (nn_dists_plain(pa, pb), nn_dists_plain(pb, pa)),
+        (N + Mb) * (12 + 4), 2 * 8 * N * Mb,
+        lambda: (torch.cdist(pa, pb).min(dim=1),
+                 torch.cdist(pb, pa).min(dim=1)))
+    row["library_call"] = ("torch.cdist(a, b).min(dim=1), both ways: two "
+                           "calls a direction")
+    return results, plain
+
+
+def contact(bodies, eval_data, meas, k6_plain, dev):
+    """Phase 9: the contact and distance path at full width on the four
+    body pairs. K6 body against body (256 slots; pair 0 against the plain
+    version of phase 2, each kept endpoint on both triangles' planes), K6
+    plane against body (the chest, waist and hips quads at K1's plane
+    heights, 1024 slots, against the exact slice's crossed faces), K7 on
+    the contacts (value and gradient), and ``point_fscore`` at 5, 10 and
+    20 mm between the bodies' vertices and their P2P-20k clouds, against
+    the plain versions. Returns the launches of the phase's run."""
+    import torch
+
+    from shapy_tpu_torch.eval.metrics import (
+        _nn_dists,
+        fscore_from_dists,
+        nn_dists_plain,
+        point_fscore,
+    )
+    from shapy_tpu_torch.measure.measurements import PLANES, _soa
+    from shapy_tpu_torch.ops import MeshMeshIntersection, repulsion_loss
+    from shapy_tpu_torch.ops.plane_slice import plane_slice_soa
+    from shapy_tpu_torch.ops.repulsion import repulsion_loss_plain
+
+    a, b, va, vb = (bodies[k] for k in ("a", "b", "va", "vb"))
+    Bc, F = a.shape[:2]
+    with torch.no_grad():
+        _, heights = meas.measure(va, use_face_subsets=False)  # (4, 3)
+    quads = []
+    for h in heights.reshape(-1).tolist():
+        quads += [[[-1.0, h, -1.0], [1.0, h, -1.0], [1.0, h, 1.0]],
+                  [[-1.0, h, -1.0], [1.0, h, 1.0], [-1.0, h, 1.0]]]
+    quads = torch.tensor(quads, device=dev).reshape(Bc, 2 * len(PLANES), 3, 3)
+    p2p = eval_data["p2p"]
+    clouds = {"vertices": (va, vb), "p2p": (p2p.regress(va).contiguous(),
+                                            p2p.regress(vb).contiguous())}
+    torch.cuda.synchronize()
+
+    reset_launches()
+    start = time.perf_counter()
+    with torch.no_grad():
+        faces, bcs = MeshMeshIntersection(CONTACT_M)(a, b)
+        plane_faces, _ = MeshMeshIntersection(PLANE_M)(quads, a)
+    pairs = contact_pairs(faces, CONTACT_M, F)
+    tris = torch.cat([a, b], dim=1).contiguous().requires_grad_()
+    loss = repulsion_loss(tris, pairs)
+    grad, = torch.autograd.grad(loss.sum(), tris)
+    scores = {}
+    with torch.no_grad():
+        for name, (p, q) in clouds.items():
+            for k in range(Bc):
+                for thresh in FSCORE_THRESH:
+                    scores[name, k, thresh] = point_fscore(p[k], q[k],
+                                                           thresh)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    launches = read_launches()
+
+    for name in CONTACT_KERNELS:
+        check(launches[name] > 0, f"{name} was not launched by phase 9")
+    # K6 body against body
+    counts = (faces >= 0).sum(dim=1).tolist()
+    check(min(counts) >= MIN_COLLISIONS, f"collisions per pair {counts}")
+    check(torch.equal(faces[:1], k6_plain[0]), "K6 pair 0 vs plain faces")
+    bcs_err = max_err(bcs[:1], k6_plain[1])
+    check(bcs_err <= 1e-5, f"K6 pair 0 vs plain barycentrics {bcs_err}")
+    # Every kept endpoint, rebuilt from its barycentrics, lies on the
+    # target's plane. It lies on the query's plane too, except in target
+    # triangles under the JAX package's clamp of d00 d11 - d01^2 = (2
+    # area)^2 at 1e-9 m^4 (tri_tri.py:84, ROADMAP F6: areas below ~1.6e-5
+    # m^2), where the barycentrics follow that clamp as the plain
+    # version's do; those are counted and held to the target's plane only.
+    worst, clamped = 0.0, 0
+    for k in range(Bc):
+        slots = torch.nonzero(faces[k] >= 0)[:, 0]
+        tri_t = b[k, faces[k, slots].long()].double()
+        tri_q = a[k, slots // CONTACT_M].double()
+        pts = torch.einsum("sek,skd->sed", bcs[k, slots].double(), tri_t)
+        for tri in (tri_t, tri_q):
+            n = torch.linalg.cross(tri[:, 1] - tri[:, 0],
+                                   tri[:, 2] - tri[:, 0])
+            if tri is tri_t:
+                clear = (n * n).sum(-1) > 2e-9
+                clamped += int((~clear).sum())
+            n = n / n.norm(dim=-1, keepdim=True)
+            dist = torch.einsum("sed,sd->se", pts - tri[:, None, 0], n)
+            dist = dist if tri is tri_t else dist[clear]
+            worst = max(worst, float(dist.abs().max()))
+    check(worst <= 1e-5, f"K6 endpoints off the planes by {worst} m")
+    # K6 plane against body vs the exact slice
+    tx, ty, tz = _soa(va, meas.faces)
+    sizes = []
+    for p in range(len(PLANES)):
+        _, _, mask = plane_slice_soa(ty, tx, tz, heights[:, p])
+        slots = plane_faces[:, 2 * p * PLANE_M:(2 * p + 2) * PLANE_M]
+        for k in range(Bc):
+            found = set(slots[k][slots[k] >= 0].tolist())
+            want = set(torch.nonzero(mask[k, :F])[:, 0].tolist())
+            check(found == want, f"K6 plane {PLANES[p]} of body {k}: "
+                  f"{len(found ^ want)} faces differ from the exact slice")
+            sizes.append(len(found))
+    check(int((plane_faces >= 0).reshape(Bc, -1, PLANE_M).sum(-1).max())
+          < PLANE_M, "K6 plane query truncated")
+    # K7 value and gradient against the plain version
+    want = repulsion_loss_plain(tris.detach(), pairs)
+    val_err = float(((loss.detach() - want).abs() / want.abs()).max())
+    x64 = tris.detach().double().requires_grad_()
+    want64, = torch.autograd.grad(repulsion_loss_plain(x64, pairs).sum(),
+                                  x64)
+    grad_err = float((grad.double() - want64).abs().max()
+                     / want64.abs().max())
+    check(bool((loss > 0).all() and torch.isfinite(loss).all()),
+          f"K7 loss {loss}")
+    check(val_err <= 1e-5 and grad_err <= 1e-4,
+          f"K7 vs plain: value {val_err}, gradient {grad_err}")
+    # K9: distances and scores against the plain version. The scores must
+    # be equal unless a point's two distances (kernel, plain) fall on
+    # either side of the threshold, which they can only within NN_TOL.
+    nn_err, straddled, fs = 0.0, 0, {}
+    with torch.no_grad():
+        for name, (p, q) in clouds.items():
+            for k in range(Bc):
+                want_d = (nn_dists_plain(p[k], q[k]),
+                          nn_dists_plain(q[k], p[k]))
+                got_d = (_nn_dists(p[k], q[k]), _nn_dists(q[k], p[k]))
+                nn_err = max(nn_err, *(max_err(g, w) for g, w in
+                                       zip(got_d, want_d)))
+                for thresh in FSCORE_THRESH:
+                    if any(bool(((g < thresh) != (w < thresh)).any())
+                           for g, w in zip(got_d, want_d)):
+                        straddled += 1
+                        continue
+                    got = scores[name, k, thresh]
+                    want = fscore_from_dists(*want_d, thresh)
+                    for key in got:
+                        check(float(got[key]) == float(want[key]),
+                              f"F-score {name} {k} {thresh} {key}: "
+                              f"{float(got[key])} vs {float(want[key])}")
+                    fs.setdefault((name, thresh), []).append(
+                        round(float(got["fscore"]), 4))
+    check(nn_err <= NN_TOL, f"K9 distances vs plain {nn_err}")
+    fs_text = json.dumps({f"{n}@{t * 1e3:g}mm": v for (n, t), v in fs.items()})
+    print(f"contact: {Bc} body pairs in {elapsed * 1e3:.1f} ms; collisions "
+          f"per pair {counts} (>= {MIN_COLLISIONS}); pair 0 equal to the "
+          f"plain version (barycentrics {bcs_err:.2e}); endpoints within "
+          f"{worst:.2e} m of both planes ({clamped} hits in target "
+          f"triangles under the 1e-9 clamp: their target's plane only); "
+          f"plane quads cross {min(sizes)}-"
+          f"{max(sizes)} faces, the exact slice's; repulsion over "
+          f"{int((pairs[..., 0] >= 0).sum())} pairs: loss "
+          f"{[round(float(v), 5) for v in loss.detach()]}, rel err "
+          f"{val_err:.2e}, "
+          f"gradient {grad_err:.2e} of the largest; F-scores {fs_text}"
+          f" ({straddled} of {len(scores)} skipped: a point's distances on "
+          f"either side of the threshold), distances within {nn_err:.2e} "
+          f"m; launches "
+          f"{ {k: launches[k] for k in CONTACT_KERNELS} }")
+    return launches
+
 
 def main() -> int:
     import torch
@@ -1460,6 +1856,9 @@ def main() -> int:
     anchors = regressor.body_measurements.anchors
     checked.update(check_measure_kernels(regressor.model, anchors, dev))
     checked["K1_measure"]["cases"] = checked.pop("K1_measure_cases")
+    bodies = contact_bodies(regressor.model, dev)
+    contact_checked, k6_plain = check_contact_kernels(bodies, dev)
+    checked.update(contact_checked)
     serve_launches, serve_rate = serve(regressor, requests)
     parity(base, tuple(t.cpu() for t in requests), eval_data, dev)
     train_parity(base, dev)
@@ -1467,6 +1866,8 @@ def main() -> int:
     score(regressor, eval_data, dev)
     train_launches = train(base, dev)
     fit_launches = fit(regressor.model, anchors, dev)
+    contact_launches = contact(bodies, eval_data,
+                               regressor.body_measurements, k6_plain, dev)
 
     entries = []
     for name, _, _, source, replaces in kernels():
@@ -1475,21 +1876,25 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             # training (phase 7) for its kernels, the batch-32 fit of
-            # phase 8 for K1's backward and K1-exact, evaluation (phase
-            # 5) for the others
+            # phase 8 for K1's backward and K1-exact, the contact phase
+            # (9) for its kernels, evaluation (phase 5) for the others
             "launches": (train_launches[name] if name in TRAIN_KERNELS
+                         else contact_launches[name]
+                         if name in CONTACT_KERNELS
                          else fit_launches.get(name, eval_launches[name])),
+            "launches_contact": contact_launches[name],
             "launches_train": train_launches[name],
             "launches_fit": fit_launches.get(name, 0),
             "launches_eval": eval_launches[name],
             "launches_serve": serve_launches[name],
             **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by")},
-            # K4: F.batch_norm(training=True); no single PyTorch call
-            # computes any of the others
+            # K4: F.batch_norm(training=True); K9: torch.cdist + min;
+            # no single PyTorch call computes any of the others
             "library_ms": c.get("library_ms")}
-        if "cases" in c:
-            entry["cases"] = c["cases"]
+        for key in ("library_call", "box_pairs", "hits", "cases"):
+            if key in c:
+                entry[key] = c[key]
         entries.append(entry)
         check(all(math.isfinite(c[k]) for k in ("ms", "plain_ms",
                                                 "bound_ms")), "timing")

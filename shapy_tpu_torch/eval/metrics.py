@@ -1,26 +1,28 @@
 """Evaluation metrics and alignments (port of ``shapy_tpu/eval/metrics.py``).
 
 Plain functions on tensors with the JAX package's layouts: ``(B, P, 3)``
-point sets, ``(P, K)`` padded regressor rows. Two kernels carry the
-evaluator's per-point errors on the card:
+point sets, ``(P, K)`` padded regressor rows. Three kernels carry the
+metrics on the card:
 
   * K8b (``csrc/align_error.cu``) — :func:`aligned_point_error`, any of
     the alignments below followed by :func:`point_error`, behind
     :class:`PointError`;
   * K8a (``csrc/point_regress.cu``) — :func:`point_regress_error`, the
-    P2P-20k error of :class:`SparsePointRegressor`.
+    P2P-20k error of :class:`SparsePointRegressor`;
+  * K9 (``csrc/nn_dists.cu``) — :func:`_nn_dists`, each point's distance
+    to its nearest neighbour in the other cloud, twice per
+    :func:`point_fscore`.
 
 Each wrapper runs its plain version (``*_plain``) for CPU tensors and
 launches its kernel, or raises, for CUDA tensors. The alignment functions
 themselves are plain PyTorch on every device (``procrustes_align`` uses
 ``torch.linalg.svd`` like the JAX code).
-
-``point_fscore`` and its nearest-neighbour search (K9) are not ported yet.
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
@@ -32,12 +34,24 @@ from shapy_tpu_torch.utils.cuda_kernels import (
     check_no_grad,
 )
 from shapy_tpu_torch.utils.device import get_device
+from shapy_tpu_torch.utils.vec3 import dot3
 
 ALIGN_KERNEL = CudaKernel("align_error.cu",
                           {"align_error_forward": "pppp iiii p"})
 REGRESS_KERNEL = CudaKernel("point_regress.cu",
                             {"point_regress_forward": "pppppppp iiiiiii p"})
 _REGRESS_TILE = 256  # points per block of csrc/point_regress.cu
+NN_KERNEL = CudaKernel("nn_dists.cu", {"nn_dists_forward": "ppppp iii p"})
+_NN_THREADS = 256  # query points per block of csrc/nn_dists.cu
+_NN_BLOCKS_PER_SM = 8  # blocks to aim for, per SM of the card
+_NN_MIN_SPAN = 512  # fewest points of b per range
+
+
+@functools.lru_cache(maxsize=None)
+def _nn_target_blocks(index: int) -> int:
+    """K9's blocks to aim for on CUDA device ``index``."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return _NN_BLOCKS_PER_SM * sms
 
 
 # -- point errors -----------------------------------------------------------
@@ -46,6 +60,105 @@ _REGRESS_TILE = 256  # points per block of csrc/point_regress.cu
 def point_error(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     """Per-point Euclidean error, (..., P, 3) -> (..., P)."""
     return torch.sqrt(torch.sum((pred - gt) ** 2, dim=-1))
+
+
+def nn_dists_plain(a: torch.Tensor, b: torch.Tensor, chunk: int = 2048
+                   ) -> torch.Tensor:
+    """Plain version of K9: for each point of a (N, 3), the distance to its
+    nearest neighbour in b (M, 3). The neighbour is the argmin (first index
+    on ties) of the f32 expansion |a|^2 - 2 a.b + |b|^2 over (chunk, M)
+    tiles; the expansion cancels near zero, so the chosen neighbour's
+    distance is then recomputed from the coordinate difference. The JAX
+    package takes a.b as a matmul; here every dot is summed x, then y,
+    then z, the kernel's order, so that the two pick the same neighbour
+    where two candidates' expansions tie within f32 rounding (a
+    matmul's FMAs round those differently)."""
+    b_sq = dot3(b, b)
+    out = []
+    for s in range(0, a.shape[0], chunk):
+        ac = a[s:s + chunk]
+        ab = dot3(ac[:, None, :], b[None])
+        d2 = dot3(ac, ac)[:, None] - 2.0 * ab + b_sq[None]
+        diff = ac - b[torch.argmin(d2, dim=-1)]
+        out.append(dot3(diff, diff))
+    d2 = torch.cat(out) if out else a.new_zeros((0,))
+    return torch.sqrt(torch.clamp(d2, min=0.0))
+
+
+def _nn_dists(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour distances (N,) from a (N, 3) to b (M, 3): the
+    plain version for CPU tensors, kernel K9 for CUDA tensors (forward
+    only; contiguous f32)."""
+    if b.shape[0] == 0:
+        raise ValueError("nearest neighbours in an empty point cloud")
+    if a.device.type == "cpu":
+        return nn_dists_plain(a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"_nn_dists: unsupported device {a.device}")
+    N, M = a.shape[0], b.shape[0]
+    dev = a.device
+    check_cuda_input(a, "a", torch.float32, (N, 3), dev)
+    check_cuda_input(b, "b", torch.float32, (M, 3), dev)
+    check_no_grad(a, "a")
+    check_no_grad(b, "b")
+    out = torch.empty((N,), dtype=torch.float32, device=dev)
+    if N == 0:
+        return out
+    # Split b into S ranges so that the search fills the card.
+    blocks = -(-N // _NN_THREADS)
+    S = max(1, min(-(-M // _NN_MIN_SPAN),
+                   -(-_nn_target_blocks(dev.index) // blocks)))
+    span = -(-M // S)
+    S = -(-M // span)
+    best_d = torch.empty((S, N), dtype=torch.float32, device=dev)
+    best_i = torch.empty((S, N), dtype=torch.int32, device=dev)
+    NN_KERNEL.launch("nn_dists_forward", [a, b, best_d, best_i, out, N, M,
+                                          span])
+    return out
+
+
+def fscore_from_dists(pred_to_gt: torch.Tensor, gt_to_pred: torch.Tensor,
+                      thresh: float) -> Dict[str, torch.Tensor]:
+    """F-score, precision and recall from the two directions' distances,
+    with the reference's naming: 'recall' from pred -> gt, 'precision'
+    from gt -> pred (swapped against the textbook convention)."""
+    def mean(hits):  # the count times f32(1 / N), as jnp.mean rounds it
+        return torch.sum(hits.to(torch.float32)) * (1.0 / hits.shape[0])
+
+    recall = mean(pred_to_gt < thresh)
+    precision = mean(gt_to_pred < thresh)
+    denom = recall + precision
+    fscore = torch.where(denom > 0.0, 2 * recall * precision
+                         / torch.where(denom > 0.0, denom, 1.0), 0.0)
+    return {"fscore": fscore, "precision": precision, "recall": recall}
+
+
+def point_fscore(pred, gt, thresh: float,
+                 device: str | torch.device | None = None
+                 ) -> Dict[str, torch.Tensor]:
+    """F-score between two point clouds (N, 3) and (M, 3) at a distance
+    threshold (reference metrics.py:306-330): 0-dim f32 tensors
+    ``fscore``, ``precision``, ``recall``. Kernel K9 twice on the card.
+
+    Each cloud is a tensor or an array. Tensors must lie on one device,
+    ``device`` if it is given: nothing is moved off the card, or onto
+    it, behind the caller's back. Arrays go to that device, and to the
+    card when no tensor and no ``device`` name one."""
+    tensors = [t for t in (pred, gt) if isinstance(t, torch.Tensor)]
+    if device is None:
+        device = tensors[0].device if tensors else "cuda"
+    device = get_device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    for t in tensors:
+        if t.device != device:
+            raise ValueError(f"point_fscore: a cloud on {t.device}, "
+                             f"expected {device}")
+    pred, gt = (torch.as_tensor(x, dtype=torch.float32,
+                                device=device).contiguous()
+                for x in (pred, gt))
+    return fscore_from_dists(_nn_dists(pred, gt), _nn_dists(gt, pred),
+                             thresh)
 
 
 # -- alignments -------------------------------------------------------------

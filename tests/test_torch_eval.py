@@ -107,6 +107,80 @@ def test_procrustes_handles_reflection():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
+@pytest.mark.parametrize("case", ["500x700", "identical"])
+def test_point_fscore_matches_jax(case):
+    """F-score at 5, 10 and 20 mm (K9's plain version on the CPU). Each
+    nearest-neighbour distance within 1e-5 m of JAX's (both pick the
+    neighbour by the f32 expansion, whose near-ties may go either way, and
+    recompute the distance exactly); F-score, precision and recall equal
+    unless a point's two distances fall on either side of the threshold
+    (possible only within 1e-5 m of it)."""
+    rng = np.random.default_rng(20)
+    pred = (rng.normal(size=(500, 3)) * [0.3, 0.8, 0.2]).astype(np.float32)
+    if case == "identical":
+        gt = pred.copy()
+    else:
+        gt = (pred[rng.integers(0, 500, 700)]
+              + rng.normal(size=(700, 3)) * 0.01).astype(np.float32)
+    pairs = []
+    for a, b in ((pred, gt), (gt, pred)):
+        want = np.asarray(jm._nn_dists(jnp.asarray(a), jnp.asarray(b)))
+        got = tm._nn_dists(torch.from_numpy(a), torch.from_numpy(b))
+        assert got.shape == (len(a),) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+        pairs.append((got.numpy(), want))
+    if case == "identical":
+        assert all((g == 0).all() for g, _ in pairs)
+    compared = 0
+    for thresh in (0.005, 0.01, 0.02):
+        want = jm.point_fscore(pred, gt, thresh)
+        got = tm.point_fscore(torch.from_numpy(pred), torch.from_numpy(gt),
+                              thresh)
+        for k in ("fscore", "precision", "recall"):
+            assert got[k].shape == () and got[k].dtype == torch.float32
+        if any(((g < thresh) != (w < thresh)).any() for g, w in pairs):
+            continue
+        compared += 1
+        for k in ("fscore", "precision", "recall"):
+            assert float(got[k]) == float(want[k]), (thresh, k)
+        if case == "identical":
+            assert float(got["fscore"]) == 1.0
+    assert compared == 3
+    got = tm.point_fscore(pred, gt, 0.01, device="cpu")  # arrays
+    assert 0.0 < float(got["fscore"]) <= 1.0
+
+
+@pytest.mark.parametrize("case", ["mixed-devices", "device-differs",
+                                  "arrays-ask-for-the-card"])
+def test_point_fscore_moves_no_cloud(case, monkeypatch):
+    """point_fscore never moves a cloud between devices behind the
+    caller's back: tensors on two devices, or on another device than
+    ``device``, raise; arrays go to the card unless ``device`` says
+    otherwise, so without CUDA they raise instead of running on the
+    CPU."""
+    a = torch.zeros((4, 3))
+    if case == "mixed-devices":
+        with pytest.raises(ValueError, match="expected cpu"):
+            tm.point_fscore(a, a.to("meta"), 0.1)
+    elif case == "device-differs":
+        with pytest.raises(ValueError, match="expected meta"):
+            tm.point_fscore(a, a, 0.1, device="meta")
+    else:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tm.point_fscore(a.numpy(), a.numpy(), 0.1)
+
+
+def test_point_fscore_empty_overlap_is_zero():
+    """No point within the threshold: the denom > 0 guard gives 0."""
+    a = np.zeros((4, 3), np.float32)
+    b = np.ones((5, 3), np.float32)
+    got = tm.point_fscore(torch.from_numpy(a), torch.from_numpy(b), 0.1)
+    want = jm.point_fscore(a, b, 0.1)
+    for k in ("fscore", "precision", "recall"):
+        assert float(got[k]) == float(want[k]) == 0.0
+
+
 def _random_regressor(rng, P, V, K):
     dense = np.zeros((P, V))
     for i in range(P):

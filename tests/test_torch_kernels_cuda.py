@@ -11,6 +11,11 @@ GPU machine need not have.)
 Tolerances are stated beside each test, with their reason.
 """
 
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -29,6 +34,7 @@ from shapy_tpu_torch.data.crop import (
 from shapy_tpu_torch.eval import metrics
 from shapy_tpu_torch.eval.metrics import (
     ALIGN_KERNEL,
+    NN_KERNEL,
     REGRESS_KERNEL,
     SparsePointRegressor,
     aligned_point_error,
@@ -54,8 +60,19 @@ from shapy_tpu_torch.models.backbones.layers import (
 from shapy_tpu_torch.models.body.assets import make_synthetic_model_data
 from shapy_tpu_torch.models.body.lbs import SKIN_KERNEL, skin, skin_plain
 from shapy_tpu_torch.models.body.model import SMPLX
+from shapy_tpu_torch.ops import (
+    MeshMeshIntersection,
+    mesh_mesh_intersection,
+    repulsion_loss,
+)
+from shapy_tpu_torch.ops import repulsion, tri_tri
+from shapy_tpu_torch.ops.plane_slice import plane_slice_soa
+from shapy_tpu_torch.ops.repulsion import REPULSION_KERNEL
+from shapy_tpu_torch.ops.tri_tri import TRI_KERNEL
 
 pytestmark = pytest.mark.cuda
+
+REPO = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(scope="module")
@@ -531,3 +548,275 @@ def test_measure_cuda_tensors_never_fall_back_to_plain(dev, body,
         out["measurements"]["chest"]["tensor"].sum().backward()
         assert betas.grad is not None and bool(torch.isfinite(betas.grad)
                                                .all())
+
+
+# -- contact and distance kernels: K6, K7, K9 --------------------------------
+
+
+def _body_pair(model, dev, batch=2, seed=11, shift=(0.02, 0.01, 0.03)):
+    """Triangles (batch, F, 3, 3) of bodies A (seeded betas and pose) and
+    B (other betas, A's pose, shifted a few cm): the surfaces cross, and
+    no vertex is shared."""
+    gen = torch.Generator().manual_seed(seed)
+    pose = (torch.randn(batch, model.NUM_BODY_JOINTS, 3, generator=gen)
+            * 0.2).to(dev)
+    faces = model.faces_tensor.long()
+    tris = []
+    for k in range(2):
+        betas = (torch.randn(batch, 10, generator=gen) * 1.5).to(dev)
+        v = model(betas=betas, body_pose=pose)["vertices"]
+        if k:
+            v = v + torch.tensor(shift, device=dev)
+        tris.append(v[:, faces].contiguous())
+    return tris
+
+
+@pytest.mark.parametrize("max_collisions", [256, 3],
+                         ids=["all-hits", "truncated"])
+def test_tri_tri_kernel_matches_plain(dev, body, max_collisions):
+    """K6 against its plain version on the card: identical faces (the same
+    decisions: no FMA, x-y-z sums) and barycentrics within 1e-5; at 3
+    slots the kept ids are the first 3 of the all-hits run, in index
+    order; one launch per call."""
+    model, _ = body
+    a, b = _body_pair(model, dev)
+    before = TRI_KERNEL.launches
+    faces, bcs = mesh_mesh_intersection(a, b, max_collisions)
+    assert TRI_KERNEL.launches == before + 1
+    want_f, want_b = tri_tri.mesh_mesh_intersection_plain(
+        a, b, max_collisions, query_chunk=256)
+    assert torch.equal(faces, want_f)
+    torch.testing.assert_close(bcs, want_b, rtol=0, atol=1e-5)
+    assert int((faces >= 0).sum()) > 100
+    if max_collisions == 3:
+        full, _ = mesh_mesh_intersection(a, b, 256)
+        full = full.reshape(*full.shape[:1], -1, 256)
+        assert bool(((full >= 0).sum(-1) > 3).any())
+        assert torch.equal(faces.reshape(*full.shape[:2], 3), full[..., :3])
+
+
+def test_tri_tri_kernel_plane_query_matches_exact_slice(dev, body):
+    """The plane-against-body use: a +-1 m quad at a height crosses
+    exactly the faces that the exact slice marks."""
+    model, _ = body
+    a, _ = _body_pair(model, dev, batch=1)
+    F = a.shape[1]
+    for h in (-0.3, 0.05, 0.4):
+        quad = torch.tensor([[[-1.0, h, -1], [1, h, -1], [1, h, 1]],
+                             [[-1.0, h, -1], [1, h, 1], [-1, h, 1]]],
+                            device=dev)[None]
+        faces, bcs = MeshMeshIntersection(1024)(quad, a)
+        found = set(faces[faces >= 0].tolist())
+        t = a.permute(0, 3, 2, 1)
+        _, _, mask = plane_slice_soa(t[:, 1], t[:, 0], t[:, 2],
+                                     torch.tensor([h], device=dev))
+        assert found == set(torch.nonzero(mask[0, :F])[:, 0].tolist())
+        assert len(found) > 10
+
+
+def _pairs_from(faces, M, F, C=None):
+    """K6's hits as (receiver = target + F, intruder = query) pairs,
+    (B, C, 2) int32, -1-padded."""
+    out = []
+    for row in faces:
+        slots = torch.nonzero(row >= 0)[:, 0]
+        out.append(torch.stack([row[slots] + F, slots // M], dim=-1))
+    C = C or max(len(p) for p in out)
+    pairs = torch.full((len(out), C, 2), -1, dtype=torch.int32,
+                       device=faces.device)
+    for k, p in enumerate(out):
+        pairs[k, :len(p)] = p.to(torch.int32)
+    return pairs
+
+
+@pytest.mark.parametrize("penalize_outside", [True, False])
+def test_repulsion_kernel_matches_plain(dev, body, penalize_outside):
+    """K7 on two crossing bodies' contact pairs (from K6), sigma 0.5 and 2
+    cm: the value within rel 1e-5 of the plain version in f32 (the pairs
+    summed in another order), the gradient within 1e-4 of the largest of
+    autograd through the plain version in f64; two calls give the same
+    bits; one forward and one backward launch."""
+    model, _ = body
+    a, b = _body_pair(model, dev)
+    F = a.shape[1]
+    faces, _ = mesh_mesh_intersection(a, b, 64)
+    pairs = _pairs_from(faces, 64, F)
+    tris = torch.cat([a, b], dim=1).contiguous()
+    for sigma in (0.5, 0.02):
+        kw = dict(sigma=sigma, penalize_outside=penalize_outside)
+        cot = torch.tensor([1.0, -0.6], device=dev)
+        x = tris.clone().requires_grad_()
+        f0, b0 = (REPULSION_KERNEL.counts[k] for k in
+                  ("repulsion_forward", "repulsion_backward"))
+        loss = repulsion_loss(x, pairs, **kw)
+        got, = torch.autograd.grad((loss * cot).sum(), x)
+        assert REPULSION_KERNEL.counts["repulsion_forward"] == f0 + 1
+        assert REPULSION_KERNEL.counts["repulsion_backward"] == b0 + 1
+        want = repulsion.repulsion_loss_plain(tris, pairs, **kw)
+        assert bool((want > 0).all())
+        torch.testing.assert_close(loss, want, rtol=1e-5, atol=0)
+        x64 = tris.double().requires_grad_()
+        want64, = torch.autograd.grad(
+            (repulsion.repulsion_loss_plain(x64, pairs, **kw)
+             * cot.double()).sum(), x64)
+        scale = float(want64.abs().max())
+        assert float((got.double() - want64).abs().max()) <= 1e-4 * scale
+        x2 = tris.clone().requires_grad_()
+        again, = torch.autograd.grad(
+            (repulsion_loss(x2, pairs, **kw) * cot).sum(), x2)
+        assert torch.equal(got, again)
+
+
+def test_repulsion_kernel_padded_pairs_add_nothing(dev):
+    gen = torch.Generator().manual_seed(3)
+    tris = (torch.randn(2, 30, 3, 3, generator=gen) * 0.02).to(dev)
+    pairs = torch.randint(0, 30, (2, 12, 2), generator=gen,
+                          dtype=torch.int32).to(dev)
+    padded = torch.cat([pairs, torch.full_like(pairs[:, :5], -1)], dim=1)
+    padded[0, 3, 1] = -1
+    keep = pairs.clone()
+    keep[0, 3] = -1
+    x, y = tris.clone().requires_grad_(), tris.clone().requires_grad_()
+    l1, l2 = repulsion_loss(x, padded), repulsion_loss(y, keep)
+    g1, = torch.autograd.grad(l1.sum(), x)
+    g2, = torch.autograd.grad(l2.sum(), y)
+    torch.testing.assert_close(l1, l2, rtol=1e-6, atol=0)
+    torch.testing.assert_close(g1, g2, rtol=0, atol=0)
+    empty = torch.full_like(pairs, -1)
+    z = tris.clone().requires_grad_()
+    l3 = repulsion_loss(z, empty)
+    g3, = torch.autograd.grad(l3.sum(), z)
+    assert bool((l3 == 0).all()) and bool((g3 == 0).all())
+
+
+@pytest.mark.parametrize("case", ["bodies", "identical", "small-b"])
+def test_nn_dists_kernel_matches_plain(dev, body, case):
+    """K9 against its plain version: distances within 1e-5 m (the same
+    f32 expansion summed in the same order, so equal in practice);
+    F-score, precision and recall equal unless a point's two distances
+    fall on either side of the threshold; identical clouds give distance
+    0."""
+    model, _ = body
+    gen = torch.Generator().manual_seed(5)
+    if case == "bodies":
+        a, b = (t[0].reshape(-1, 3, 3).mean(1) for t in
+                _body_pair(model, dev, batch=1))
+    elif case == "identical":
+        a = (torch.randn(3000, 3, generator=gen) * 0.4).to(dev)
+        b = a.clone()
+    else:
+        a = (torch.randn(777, 3, generator=gen) * 0.4).to(dev)
+        b = (torch.randn(5, 3, generator=gen) * 0.4).to(dev)
+    a, b = a.contiguous(), b.contiguous()
+    d = []
+    for p, q in ((a, b), (b, a)):
+        got = metrics._nn_dists(p, q)
+        want = metrics.nn_dists_plain(p, q)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+        if case == "identical":
+            assert bool((got == 0).all())
+        d.append((got, want))
+    for thresh in (0.005, 0.01, 0.02):
+        got = metrics.point_fscore(a, b, thresh)
+        want = metrics.fscore_from_dists(d[0][1], d[1][1], thresh)
+        if not any(bool(((g < thresh) != (w < thresh)).any()) for g, w in d):
+            for k in got:
+                assert float(got[k]) == float(want[k]), (case, thresh, k)
+
+
+def test_contact_cuda_tensors_never_fall_back_to_plain(dev, monkeypatch):
+    """K6, K7 (value and gradient) and K9 launch their kernels on CUDA
+    tensors; their plain versions are never called."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    monkeypatch.setattr(tri_tri, "mesh_mesh_intersection_plain", refuse)
+    monkeypatch.setattr(repulsion, "repulsion_loss_plain", refuse)
+    monkeypatch.setattr(metrics, "nn_dists_plain", refuse)
+    gen = torch.Generator().manual_seed(9)
+    tris = (torch.randn(1, 40, 3, 3, generator=gen) * 0.1).to(dev)
+    counts = (TRI_KERNEL.launches, NN_KERNEL.launches,
+              dict(REPULSION_KERNEL.counts))
+    mesh_mesh_intersection(tris, tris + 0.01, 8)
+    x = tris.clone().requires_grad_()
+    pairs = torch.tensor([[[0, 1], [2, 3]]], dtype=torch.int32, device=dev)
+    repulsion_loss(x, pairs).sum().backward()
+    metrics.point_fscore(tris[0, :, 0].contiguous(),
+                         tris[0, :, 1].contiguous(), 0.05)
+    assert TRI_KERNEL.launches == counts[0] + 1
+    assert NN_KERNEL.launches == counts[1] + 2
+    for k in ("repulsion_forward", "repulsion_backward"):
+        assert REPULSION_KERNEL.counts[k] == counts[2][k] + 1
+
+
+def test_contact_wrappers_reject_what_the_kernels_do_not_take(dev):
+    tris = torch.zeros(1, 8, 3, 3, device=dev)
+    with pytest.raises(TypeError):
+        mesh_mesh_intersection(tris.double(), tris.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        mesh_mesh_intersection(tris.transpose(2, 3), tris)
+    with pytest.raises(ValueError):
+        mesh_mesh_intersection(tris, tris[0])
+    with pytest.raises(RuntimeError, match="forward-only"):
+        mesh_mesh_intersection(tris.clone().requires_grad_(), tris)
+    pairs = torch.zeros(1, 2, 2, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        repulsion_loss(tris, pairs.long())
+    with pytest.raises(TypeError):
+        repulsion_loss(tris.double(), pairs)
+    pts = torch.zeros(10, 3, device=dev)
+    with pytest.raises(ValueError):
+        metrics._nn_dists(pts[:, :2].contiguous(), pts)
+    with pytest.raises(ValueError, match="contiguous"):
+        metrics._nn_dists(pts.t().contiguous().t(), pts)
+    with pytest.raises(ValueError, match="empty"):
+        metrics._nn_dists(pts, pts[:0])
+    with pytest.raises(ValueError, match="on cpu"):
+        metrics._nn_dists(pts, pts.cpu())
+
+
+def test_repulsion_kernel_stops_on_an_id_out_of_range(dev):
+    """An id at or above F stops K7 with a device-side assert, as indexing
+    a CUDA tensor out of range does, and the next synchronisation raises;
+    the wrapper reads no id back to the host. Run in an interpreter of
+    its own, since the assert ends its CUDA context."""
+    script = (
+        "import torch\n"
+        "from shapy_tpu_torch.ops import repulsion_loss\n"
+        "tris = torch.zeros(1, 8, 3, 3, device='cuda')\n"
+        "pairs = torch.tensor([[[0, 1], [8, 2]]], dtype=torch.int32,\n"
+        "                     device='cuda')\n"
+        "loss = repulsion_loss(tris, pairs)\n"
+        "print('launched', flush=True)\n"
+        "torch.cuda.synchronize()\n"
+        "print('synchronised', flush=True)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert "launched" in proc.stdout, proc.stderr
+    assert "synchronised" not in proc.stdout
+    assert proc.returncode != 0
+    assert "device-side assert" in proc.stderr, proc.stderr
+
+
+def test_point_fscore_keeps_clouds_on_their_device(dev):
+    """point_fscore moves no cloud between devices: a CUDA cloud with a
+    CPU one, or with ``device="cpu"``, raises; arrays go to the card by
+    default (K9, twice) and give the F-score of the same clouds as
+    tensors there."""
+    gen = torch.Generator().manual_seed(4)
+    a = torch.randn(300, 3, generator=gen) * 0.1
+    b = torch.randn(200, 3, generator=gen) * 0.1
+    with pytest.raises(ValueError, match="expected"):
+        metrics.point_fscore(a.to(dev), b, 0.01)
+    with pytest.raises(ValueError, match="expected"):
+        metrics.point_fscore(a, b.to(dev), 0.01)
+    with pytest.raises(ValueError, match="expected"):
+        metrics.point_fscore(a.to(dev), b.to(dev), 0.01, device="cpu")
+    before = NN_KERNEL.launches
+    got = metrics.point_fscore(a.numpy(), b.numpy(), 0.01)
+    assert NN_KERNEL.launches == before + 2
+    want = metrics.point_fscore(a.to(dev), b.to(dev), 0.01, device="cuda")
+    for k in want:
+        assert got[k].device.type == "cuda"
+        assert float(got[k]) == float(want[k])
