@@ -9,7 +9,8 @@ Phases, each of which raises on failure (exit code 1):
 1. Prints the card's name and power limit, and builds the ten
    hand-written CUDA sources from ``shapy_tpu_torch/csrc/``, one nvcc
    process each, all started together: K1 measure (reference and exact
-   slice modes, forward and backward), K2 ingest, K3 skinning forward and
+   slice modes, forward and backward, and K1-AoS's ``measure_points``),
+   K2 ingest, K3 skinning forward and
    backward, K3-chain forward and backward, K4 train-mode BatchNorm
    forward and backward, K6 mesh-mesh intersection, K7 repulsion forward
    and backward, K8a P2P point error, K8b aligned point error, K9
@@ -30,7 +31,15 @@ Phases, each of which raises on failure (exit code 1):
    events (K6's plain version over 2 calls: it takes ~0.5 s), K4 beside
    ``F.batch_norm(training=True)`` and K9 beside ``torch.cdist`` + ``min``
    (two calls a direction); computes each kernel's bound (bytes or FLOPs
-   of this run's inputs at 3.35 TB/s / 67 TFLOP/s).
+   of this run's inputs at 3.35 TB/s / 67 TFLOP/s). K1-AoS at the
+   scorer's shapes (SMPL-X triangles of batch 32, all faces, both slice
+   modes) against the plain AoS version: circumferences 1e-5 m, mass and
+   height rel 1e-5, masks equal, points bit-equal (reference) or within
+   1e-6 m (exact), height points exact, values bit-equal to K1 from the
+   vertices, the backward as K1's; timed with K1 alone on the triangles.
+   K5 has no hand kernel yet: cuDNN (``F.conv2d``, bf16, channels_last,
+   batch 32) is timed on the stem conv and a stage-4 branch conv beside
+   each one's bound (FLOPs at 989 TFLOP/s bf16, bytes at 3.35 TB/s).
 3. Serves the flagship (HRNet-W48 at full width, 3-stage head with MLP
    (1024, 1024), SMPL-X, measurements; bf16 backbone) through
    ``apply_from_full_images``: one warm-up, then 3 requests of batch 32.
@@ -54,9 +63,15 @@ Phases, each of which raises on failure (exit code 1):
    each batch's metrics equal those of the kernels' plain versions on
    the card; prints images/s of forward + metrics.
 6. Scores a synthetic HBW submission of 64 fitted bodies against their GT
-   with ``cli.evaluate_hbw.evaluate_submission`` (K8b V2V, K8a P2P, K1 on
-   all faces); checks the launches, finite errors and the plain versions'
-   numbers.
+   with ``cli.evaluate_hbw.evaluate_submission`` (K8b V2V, K8a P2P,
+   K1-AoS on all faces of both meshes' triangles); checks the launches,
+   finite errors and the plain versions' numbers. Then runs the scorer's
+   ``main`` on a release tree written to a temporary directory (the GT as
+   HBW npy files, a faces npz, synthetic SMPL-X and SMPL release files at
+   the real counts): the ``--faces-path`` route (SMPL-X, anchors from the
+   repository's YAMLs) and the model-folder route (SMPL fits on the SMPL
+   model's faces); each run's printed lines must equal those formatted
+   from the plain versions' numbers on the card.
 7. Trains the flagship at full width (bf16 backbone, dropout 0.5, the
    losses and the Adam optimizer of ``configs/train_shapy.yaml`` that need
    no files) with ``Trainer.fit``: 2 warm-up steps, then 10 steps on one
@@ -96,8 +111,10 @@ Phases, each of which raises on failure (exit code 1):
 The line before the last is a JSON object with one entry per kernel
 function (forward and backward separately); ``launches`` counts the
 training phase for the kernels it runs, the batch-32 fit of phase 8 for
-K1's backward and K1-exact, phase 9 for K6, K7 and K9, and the
-evaluation phase for the others. The
+K1's backward and K1-exact, phase 9 for K6, K7 and K9, the scorer
+(phase 6) for K1-AoS's points, and the evaluation phase for the others;
+K5's cuDNN times are on a line of their own before it
+(``{"library_only": ...}``). The
 last line is ``{"ok": true, "device": {...}}``. Without CUDA, or without
 the repository beside this file, it exits non-zero and prints no result.
 """
@@ -126,6 +143,7 @@ SUBMISSION = 64
 TRAIN_B = 48  # train_shapy.yaml's batch
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
 MEASURED = ("height", "chest", "waist", "hips")
+PLANE_NAMES = ("chest", "waist", "hips")
 # Phase 8: the example's steps and learning rate; the shape prior of the
 # JAX package's convergence check (the example's 1e-3 holds the fit ~1.3
 # cm off its targets).
@@ -149,6 +167,7 @@ NN_TOL = 1e-5  # m: K9 vs plain, neighbours that tie within f32 rounding
 # f32 FLOP/s outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
+PEAK_BF16_FLOP_S = 989e12  # dense, tensor cores
 # Kernel vs plain version on the card: per-sample mean errors in m (sums
 # in another order), measurement errors exact (the same outputs).
 METRIC_TOL = 1e-5
@@ -256,6 +275,8 @@ def kernels():
          csrc + "measure.cu", "shapy_tpu/ops/plane_slice.py:242"),
         ("K1exact_measure_backward", MEASURE_KERNEL, "measure_exact_backward",
          csrc + "measure.cu", "shapy_tpu/ops/plane_slice.py:242"),
+        ("K1aos_points", MEASURE_KERNEL, "measure_points",
+         csrc + "measure.cu", "shapy_tpu/ops/plane_slice.py:28"),
         ("K2_ingest", INGEST_KERNEL, "ingest_forward", csrc + "ingest.cu",
          "shapy_tpu/data/crop.py:96"),
         ("K3_skinning", SKIN_KERNEL, "skin_forward", csrc + "skinning.cu",
@@ -288,7 +309,8 @@ def kernels():
 # The kernels each path runs.
 SERVE_KERNELS = ("K1_measure", "K2_ingest", "K3_skinning", "K3chain_forward")
 EVAL_KERNELS = SERVE_KERNELS + ("K8a_point_regress", "K8b_align_error")
-SCORE_KERNELS = ("K1_measure", "K8a_point_regress", "K8b_align_error")
+SCORE_KERNELS = ("K1_measure", "K1aos_points", "K8a_point_regress",
+                 "K8b_align_error")
 TRAIN_KERNELS = ("K1_measure", "K3_skinning", "K3_skinning_backward",
                  "K3chain_forward", "K3chain_backward", "K4_bn_forward",
                  "K4_bn_backward")
@@ -670,16 +692,65 @@ def evaluate(regressor, eval_data, serve_rate):
     return launches, rate
 
 
-def score(regressor, eval_data, dev):
-    """Phase 6: the offline HBW scorer on a synthetic submission."""
+def score_lines(results) -> str:
+    """The offline scorer's printed lines for ``results``, in its
+    format."""
+    lines = []
+    if "v2v_t" in results:
+        lines.append(f"V2V Error: {results['v2v_t'] * 1000:.0f} mm")
+    if "p2p_t" in results:
+        lines.append(f"P2P-20k Error: {results['p2p_t'] * 1000:.0f} mm")
+    for k in ("chest", "waist", "hips", "height"):
+        if f"{k}_error" in results:
+            lines.append(f"{k} Error: {results[f'{k}_error'] * 1000:.0f} mm")
+    if "mass_error" in results:
+        lines.append(f"mass Error: {results['mass_error']:.0f} kg")
+    return "".join(line + "\n" for line in lines)
+
+
+def plain_errors(fit_t, gt_t, meas_gt, meas_fit, gt_faces, fit_faces,
+                 smplx, reg=None) -> dict:
+    """The scorer's mean errors through the plain versions on the card,
+    all bodies at once."""
     import torch
 
-    from shapy_tpu_torch.cli.evaluate_hbw import evaluate_submission
     from shapy_tpu_torch.eval.metrics import (
         aligned_point_error_plain,
         point_regress_error_plain,
     )
-    from shapy_tpu_torch.measure.measurements import measure_plain
+
+    out = {}
+    with torch.inference_mode():
+        if smplx:
+            out["v2v_t"] = float(aligned_point_error_plain(
+                fit_t, gt_t, "translation").mean())
+        if reg is not None:
+            out["p2p_t"] = float(point_regress_error_plain(
+                fit_t, gt_t, reg.indices, reg.weights, reg.indices,
+                reg.weights).mean())
+        m_gt = meas_gt.forward_plain(gt_t[:, gt_faces])["measurements"]
+        m_fit = meas_fit.forward_plain(fit_t[:, fit_faces])["measurements"]
+        for k in ("mass",) + MEASURED:
+            out[f"{k}_error"] = float((m_gt[k]["tensor"]
+                                       - m_fit[k]["tensor"]).abs().mean())
+    return out
+
+
+def score(regressor, eval_data, dev):
+    """Phase 6: the offline HBW scorer on a synthetic submission, through
+    ``evaluate_submission``, then ``main`` on the faces-file route (SMPL-X)
+    and the model-folder route (SMPL fits) of a release tree written
+    here."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from shapy_tpu_torch.cli.evaluate_hbw import evaluate_submission
+    from shapy_tpu_torch.cli.evaluate_hbw import main as score_main
+    from shapy_tpu_torch.measure.measurements import BodyMeasurements
+    from shapy_tpu_torch.models.body.assets import make_synthetic_model_data
 
     rng = np.random.default_rng(SEED + 6)
     model, meas, reg = (regressor.model, regressor.body_measurements,
@@ -700,28 +771,15 @@ def score(regressor, eval_data, dev):
     results = evaluate_submission(labels, fits, lookup.__getitem__,
                                   "smplx", reg, reg, meas, meas,
                                   batch_size=B, device=dev)
-    launches = read_launches()
+    launches = score_launches = read_launches()
     for name in SCORE_KERNELS:
         check(launches[name] > 0, f"{name} was not launched by the scorer")
     check(all(math.isfinite(v) for v in results.values()) and
           len(results) == 7, f"scorer results {results}")
-    # The plain versions on the card, all 64 bodies at once.
     fit_t = torch.from_numpy(np.ascontiguousarray(fits, np.float32)).to(dev)
     gt_t = torch.from_numpy(gt).to(dev)
-    with torch.inference_mode():
-        m_fit, _ = measure_plain(fit_t, meas.faces, None, meas.anchors,
-                                 meas.num_hull_directions, meas.density)
-        m_gt, _ = measure_plain(gt_t, meas.faces, None, meas.anchors,
-                                meas.num_hull_directions, meas.density)
-        errs = (m_gt - m_fit).abs().mean(dim=0)
-        plain = {
-            "v2v_t": float(aligned_point_error_plain(
-                fit_t, gt_t, "translation").mean()),
-            "p2p_t": float(point_regress_error_plain(
-                fit_t, gt_t, reg.indices, reg.weights, reg.indices,
-                reg.weights).mean()),
-            **{f"{k}_error": float(errs[i]) for i, k in enumerate(
-                ("mass", "height", "chest", "waist", "hips"))}}
+    faces = meas.faces.long()
+    plain = plain_errors(fit_t, gt_t, meas, meas, faces, faces, True, reg)
     # Tolerances: means of per-body errors summed in another order;
     # lengths 1e-5 m, mass 1e-3 kg (rel 1e-5 of ~100 kg).
     for k, v in plain.items():
@@ -735,6 +793,70 @@ def score(regressor, eval_data, dev):
           + f", mass {results['mass_error']:.3f} kg; launches {launches}; "
           f"max |kernel - plain| "
           f"{max(abs(results[k] - v) for k, v in plain.items()):.2e}")
+
+    # The release routes: the GT as HBW npy files, a faces npz, and
+    # synthetic SMPL-X and SMPL release files at the real counts (f32).
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        for i, v in enumerate(gt):
+            path = root / "hbw" / "smplx" / "test" / f"{i:03d}.npy"
+            path.parent.mkdir(parents=True, exist_ok=True)
+            np.save(path, v)
+        folder = root / "hbw" / "body_models"
+        folder.mkdir()
+        smpl_faces = None
+        for model_type, subdiv, name in (("smplx", 5, "SMPLX"),
+                                         ("smpl", 4, "SMPL")):
+            data = make_synthetic_model_data(model_type, subdivisions=subdiv,
+                                             exact_counts=True, seed=SEED,
+                                             num_shape_dirs=20)
+            np.savez(folder / f"{name}_NEUTRAL.npz", **{
+                k: a.astype(np.float32) if a.dtype.kind == "f" else a
+                for k, a in data.items()})
+            if model_type == "smplx":
+                np.savez(root / "faces.npz", faces=data["f"])
+                xfaces = data["f"]
+            else:
+                smpl_faces = data["f"]
+                smpl_fits = (data["v_template"][None] + np.einsum(
+                    "bl,vkl->bvk", fit_betas[:, :10],
+                    data["shapedirs"][:, :, :10])).astype(np.float32)
+        routes = (
+            ("faces file, smplx", "smplx", fits,
+             {"faces_path": str(root / "faces.npz")}),
+            ("model folder, smpl", "smpl", smpl_fits, {}),
+        )
+        for what, model_type, sub_v, kw in routes:
+            sub = root / f"sub_{model_type}.npz"
+            np.savez(sub, image_name=np.asarray(labels), v_shaped=sub_v)
+            reset_launches()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = score_main(str(sub), str(root / "hbw"), model_type,
+                                device=str(dev), **kw)
+            launches = read_launches()
+            check(rc == 0, f"scorer main ({what}) returned {rc}")
+            for name in ("K1_measure", "K1aos_points") + (
+                    ("K8b_align_error",) if model_type == "smplx" else ()):
+                check(launches[name] > 0,
+                      f"{name} was not launched by main ({what})")
+            meas_gt = BodyMeasurements(None, xfaces).to(dev)
+            fit_faces = xfaces if model_type == "smplx" else smpl_faces
+            meas_fit = (meas_gt if model_type == "smplx" else
+                        BodyMeasurements(None, fit_faces,
+                                         model_type=model_type).to(dev))
+            plain = plain_errors(
+                torch.from_numpy(sub_v).to(dev), gt_t, meas_gt, meas_fit,
+                torch.from_numpy(xfaces).to(dev),
+                torch.from_numpy(fit_faces).to(dev), model_type == "smplx")
+            want = score_lines(plain)
+            got = buf.getvalue()
+            used = {n: launches[n] for n in SCORE_KERNELS}
+            print(f"score main ({what}): {got.strip().replace(chr(10), '; ')}"
+                  f"; launches {used}")
+            check(got == want, f"main ({what}) printed {got!r}, the plain "
+                  f"versions give {want!r}")
+    return score_launches
 
 
 def check_train_kernels(model, dev):
@@ -1088,6 +1210,176 @@ def check_measure_kernels(model, anchors, dev):
     k1_cases = cases.pop("K1_measure")
     out = {name: dict(rows[0], cases=rows) for name, rows in cases.items()}
     out["K1_measure_cases"] = k1_cases
+    return out
+
+
+def check_aos_kernel(model, anchors, dev):
+    """Phase 2, K1-AoS at the scorer's shapes: full-width SMPL-X
+    triangles ``v[:, faces]`` of batch 32, all faces, both slice modes,
+    against the plain AoS version (``forward_plain``) on the card:
+    circumferences within 1e-5 m, mass and height rel 1e-5, masks equal,
+    points bit-equal in reference mode and within 1e-6 m in exact mode
+    (y recomputed from the crossed edge), height points exact; the values
+    bit-equal to K1 from the vertices on all faces (the same faces in the
+    same order); the backward within 1e-4 of the largest gradient of
+    autograd through K1's plain version on the triangles in f32 given the
+    kernel's centroids, and in f64 per mesh vertex (the triangles'
+    gradients summed) on at least 99.8% of the vertices, as K1's check.
+    Times the forward (K1 and ``measure_points``), K1 alone on the
+    triangles, and the plain version."""
+    import torch
+
+    from shapy_tpu_torch.measure.measurements import (
+        BodyMeasurements,
+        _MeasureKernel,
+        measure_plain,
+        saved_centroids,
+    )
+
+    gen = torch.Generator().manual_seed(SEED + 12)
+    K = 256
+    betas = torch.randn((B, model.num_betas), generator=gen) * 1.5
+    v = model.forward_shape(betas.to(dev))["v_shaped"].detach().contiguous()
+    faces = model.faces_tensor.long()
+    tri = v[:, faces].contiguous()
+    F = faces.shape[0]
+    keys = ("mass", "height", "chest", "waist", "hips")
+    g_vals = torch.randn((B, 5), generator=gen).to(dev)
+    rows = []
+    for mode in ("reference", "exact"):
+        meas = BodyMeasurements(anchors, model.faces, K,
+                                slice_mode=mode).to(dev)
+        x = tri.clone().requires_grad_()
+        got = meas(x)["measurements"]
+        with torch.no_grad():
+            want = meas.forward_plain(tri)["measurements"]
+            soa = meas.forward_from_vertices(v, use_face_subsets=False)[
+                "measurements"]
+        torch.cuda.synchronize()
+        rel = max(rel_err(got[k]["tensor"], want[k]["tensor"])
+                  for k in ("mass", "height"))
+        circ = max(max_err(got[k]["tensor"], want[k]["tensor"])
+                   for k in PLANE_NAMES)
+        masks = all(torch.equal(got[k]["valid_points"],
+                                want[k]["valid_points"])
+                    for k in PLANE_NAMES)
+        pts = max(max_err(got[k]["points"], want[k]["points"])
+                  for k in PLANE_NAMES)
+        pts_equal = all(torch.equal(got[k]["points"], want[k]["points"])
+                        for k in PLANE_NAMES)
+        heads = torch.equal(got["height"]["points"], want["height"]["points"])
+        same_k1 = all(torch.equal(got[k]["tensor"], soa[k]["tensor"])
+                      for k in keys)
+        hits = sum(int(got[k]["valid_points"].sum()) for k in PLANE_NAMES)
+        cents = saved_centroids(got["mass"]["tensor"]._base).detach()
+        grad = torch.autograd.grad(sum(
+            (g_vals[:, i] * got[k]["tensor"]).sum()
+            for i, k in enumerate(keys)), x)[0]
+
+        def identity_plain(t, centroids=None):
+            return measure_plain(t.reshape(B, 3 * F, 3), torch.arange(
+                3 * F, device=dev).view(F, 3), None, meas.anchors, K,
+                meas.density, mode, centroids)[0]
+
+        xp = tri.clone().requires_grad_()
+        w32 = torch.autograd.grad((identity_plain(xp, cents)
+                                   * g_vals).sum(), xp)[0]
+        err32 = max_err(grad, w32) / float(w32.abs().max())
+        xp = tri.double().requires_grad_()
+        w64 = torch.autograd.grad((identity_plain(xp)
+                                   * g_vals.double()).sum(), xp)[0]
+
+        def per_vertex(g):
+            out = torch.zeros((B, v.shape[1], 3), dtype=torch.float64,
+                              device=dev)
+            return out.index_add_(1, faces.reshape(-1),
+                                  g.double().reshape(B, 3 * F, 3))
+
+        gv, wv = per_vertex(grad), per_vertex(w64)
+        share = float(((gv - wv).abs().amax(-1) / float(wv.abs().max())
+                       <= 1e-4).double().mean())
+        name = "K1-AoS" if mode == "reference" else "K1-AoS exact"
+        print(f"{name} batch {B}, all {F} faces: mass/height rel err "
+              f"{rel:.3e} (tol 1e-5), circumference err {circ:.3e} m "
+              f"(tol 1e-5), masks equal {masks}, points err {pts:.3e} m "
+              f"(bit-equal {pts_equal}; tol: reference bit-equal, exact "
+              f"1e-6), height points equal {heads}, {hits} slice points, "
+              f"values bit-equal to K1 from the vertices {same_k1}; "
+              f"backward of the largest gradient: vs plain f32 with the "
+              f"kernel's centroids {err32:.3e} (tol 1e-4), vs plain f64 "
+              f"vertices within 1e-4 {share:.5f} (tol 0.998)")
+        check(rel <= 1e-5 and circ <= 1e-5, f"{name} values")
+        check(masks and heads, f"{name} masks / height points")
+        check(pts_equal if mode == "reference" else pts <= 1e-6,
+              f"{name} points err {pts}")
+        check(same_k1, f"{name} values differ from K1 on the same faces")
+        check(err32 <= 1e-4, f"{name} backward vs plain f32: {err32}")
+        check(share >= 0.998, f"{name} backward vs plain f64: {share}")
+        check(all(float(got[k]["tensor"].detach().min()) > 0.5
+                  for k in PLANE_NAMES), f"{name} empty slices")
+
+        walk = meas._triangle_walk(F, tri.device,
+                                   tuple(meas.anchors.ordered()), (F,) * 3)
+        k1_ms = time_ms(lambda: _MeasureKernel.apply(
+            tri.view(B, 3 * F, 3), meas, walk, False))
+        # Bytes: the triangles read once, the points and masks written
+        # once; operations: K1's on all faces (the signed volume, the
+        # crossing tests per (face, plane), 8 per slice point and 5 per
+        # (point, direction pair) for the hull).
+        mask_bytes = B * 3 * (2 * F if mode == "reference" else F)
+        row = record_kernel(
+            {}, f"{name} forward (batch {B}, all faces)",
+            max(circ, pts), lambda: meas(tri), lambda: meas.forward_plain(tri),
+            tri.numel() * 4 + B * 3 * 6 * F * 4 + mask_bytes,
+            B * F * (17 + 3 * (150 if mode == "reference" else 12))
+            + hits * (8 + (K // 2) * 5), plain_iters=5)
+        row = dict(row, mode=mode, batch=B, k1_ms=k1_ms,
+                   points_ms=row["ms"] - k1_ms, slice_points=hits,
+                   rel_err_mass_height=rel, backward_rel_err_f32=err32,
+                   backward_share_f64=share)
+        print(f"{name}: K1 alone on the triangles {k1_ms:.4f} ms, so "
+              f"measure_points ~{row['points_ms']:.4f} ms")
+        rows.append(row)
+        del x, got, want, w64, xp
+    return {"K1aos_points": dict(rows[0], cases=rows)}
+
+
+def check_library_convs(dev):
+    """Phase 2, K5 (no hand kernel yet): cuDNN through ``F.conv2d`` in bf16,
+    channels_last, batch 32, on the backbone's stem conv (3 -> 64, 3x3,
+    stride 2, 256^2 -> 128^2) and a stage-4 3x3 branch conv of the first
+    branch (48 -> 48 at 64^2), each beside its bound from FLOPs at the
+    dense bf16 tensor-core peak and from bytes (input, weights and output
+    once) at 3.35 TB/s."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(SEED + 13)
+    out = {}
+    for name, cin, cout, size, stride in (("stem", 3, 64, CROP, 2),
+                                          ("stage4_branch0", 48, 48, 64, 1)):
+        x = torch.randn((B, cin, size, size), generator=gen).to(
+            dev, torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        w = (torch.randn((cout, cin, 3, 3), generator=gen) * 0.1).to(
+            dev, torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        y = F.conv2d(x, w, stride=stride, padding=1)
+        ms = time_ms(lambda: F.conv2d(x, w, stride=stride, padding=1))
+        flops = 2 * y.numel() * cin * 9
+        nbytes = (x.numel() + w.numel() + y.numel()) * 2
+        flops_ms = flops / PEAK_BF16_FLOP_S * 1e3
+        bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+        out[name] = {"shape": [B, cin, size, size], "cout": cout,
+                     "stride": stride, "library_ms": ms,
+                     "bound_ms": max(flops_ms, bytes_ms),
+                     "bound_by": "bytes" if bytes_ms >= flops_ms
+                     else "operations",
+                     "flops_bound_ms": flops_ms, "bytes_bound_ms": bytes_ms}
+        print(f"K5 cuDNN {name} conv ({cin}->{cout}, {size}^2, stride "
+              f"{stride}, bf16 channels_last, batch {B}): {ms:.4f} ms; "
+              f"bound {max(flops_ms, bytes_ms):.4f} ms (FLOPs "
+              f"{flops / 1e9:.2f} G -> {flops_ms:.4f} ms at 989 TFLOP/s; "
+              f"bytes {nbytes / 1e6:.2f} MB -> {bytes_ms:.4f} ms at 3.35 "
+              f"TB/s); at {max(flops_ms, bytes_ms) / ms:.1%} of its bound")
     return out
 
 
@@ -1856,6 +2148,8 @@ def main() -> int:
     anchors = regressor.body_measurements.anchors
     checked.update(check_measure_kernels(regressor.model, anchors, dev))
     checked["K1_measure"]["cases"] = checked.pop("K1_measure_cases")
+    checked.update(check_aos_kernel(regressor.model, anchors, dev))
+    library_convs = check_library_convs(dev)
     bodies = contact_bodies(regressor.model, dev)
     contact_checked, k6_plain = check_contact_kernels(bodies, dev)
     checked.update(contact_checked)
@@ -1863,7 +2157,7 @@ def main() -> int:
     parity(base, tuple(t.cpu() for t in requests), eval_data, dev)
     train_parity(base, dev)
     eval_launches, _ = evaluate(regressor, eval_data, serve_rate)
-    score(regressor, eval_data, dev)
+    score_launches = score(regressor, eval_data, dev)
     train_launches = train(base, dev)
     fit_launches = fit(regressor.model, anchors, dev)
     contact_launches = contact(bodies, eval_data,
@@ -1881,7 +2175,9 @@ def main() -> int:
             "launches": (train_launches[name] if name in TRAIN_KERNELS
                          else contact_launches[name]
                          if name in CONTACT_KERNELS
+                         else score_launches[name] if name == "K1aos_points"
                          else fit_launches.get(name, eval_launches[name])),
+            "launches_score": score_launches[name],
             "launches_contact": contact_launches[name],
             "launches_train": train_launches[name],
             "launches_fit": fit_launches.get(name, 0),
@@ -1898,6 +2194,7 @@ def main() -> int:
         entries.append(entry)
         check(all(math.isfinite(c[k]) for k in ("ms", "plain_ms",
                                                 "bound_ms")), "timing")
+    print(json.dumps({"library_only": {"K5_conv": library_convs}}))
     print(gpu_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,8 @@ for the TPU are CUDA kernels written for Hopper (``csrc/``), built with
 ``nvcc`` at first use and bound with ``ctypes``:
 
   * K1 measure  — ``measure/measurements.py`` (plane slice, hull, mass,
-    height in one launch),
+    height in one launch; K1-AoS runs it on (B, F, 3, 3) triangles and
+    writes their slice points),
   * K2 ingest   — ``data/crop.py`` (uint8 decode, bilinear crop,
     ImageNet normalisation, cast),
   * K3 skinning — ``models/body/lbs.py`` (forward and backward),

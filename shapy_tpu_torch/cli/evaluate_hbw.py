@@ -2,19 +2,21 @@
 ``shapy_tpu/cli/evaluate_hbw.py``).
 
     python -m shapy_tpu_torch.cli.evaluate_hbw --input-npz-file sub.npz \\
-        --hbw-folder HBW [--point-reg-gt P.pkl --point-reg-fit Q.pkl]
+        --hbw-folder HBW [--model-type smpl] [--point-reg-gt P.pkl \\
+        --point-reg-fit Q.pkl] [--body-model-folder M | --faces-path F.npz]
 
 Loads {image_name (N,), v_shaped (N, V, 3)}, compares it against the
 per-subject GT v_shaped npy files and prints V2V (SMPL-X only), P2P-20k
 and the height/chest/waist/hips (mm) and mass (kg) errors in the
 reference's format. On the card the errors run through kernels K8b
-(translation-aligned V2V), K8a (P2P-20k) and K1 on all faces (the
-measurements of both meshes).
+(translation-aligned V2V), K8a (P2P-20k) and K1-AoS (the measurements of
+both meshes' triangles, all faces).
 
-Body models: with ``SHAPY_TPU_SYNTHETIC_BODY=1``, synthetic SMPL-X (GT)
-and SMPL-X or SMPL (fits) assets; the licensed models and ``--faces-path``
-need the measurement anchors from the reference's YAML, which the port
-does not load yet.
+The meshes' faces and measurement anchors come from one of three routes:
+``--faces-path`` (an npz with ``faces``, anchors from the repository's
+YAMLs, ``--body-measurement-folder`` choosing the definitions), the
+synthetic SMPL-X / SMPL models (``SHAPY_TPU_SYNTHETIC_BODY=1``), or the
+release files in ``--body-model-folder`` (default ``HBW/body_models``).
 """
 
 from __future__ import annotations
@@ -27,16 +29,13 @@ from typing import Dict
 import numpy as np
 import torch
 
+from shapy_tpu_torch.core.geometry import gather_triangles
 from shapy_tpu_torch.eval.metrics import (
     SparsePointRegressor,
     aligned_point_error,
     point_regress_error,
 )
 from shapy_tpu_torch.utils.device import full_f32_matmul, get_device
-
-NOT_PORTED = ("loading measurement anchors from the reference's YAML is "
-              "not ported yet (ROADMAP, 'anchors from YAML'); set "
-              "SHAPY_TPU_SYNTHETIC_BODY=1 for the synthetic body models")
 
 
 def evaluate_submission(
@@ -48,21 +47,27 @@ def evaluate_submission(
     point_regressor_fit: SparsePointRegressor | None = None,
     measurements_gt=None,
     measurements_fit=None,
+    gt_faces: np.ndarray | None = None,
+    fit_faces: np.ndarray | None = None,
     batch_size: int = 16,
     device: str | torch.device = "cuda",
 ) -> Dict[str, float]:
     """Mean errors over the submission; ``gt_lookup`` maps a label to its
-    GT v_shaped (V, 3). The measurement modules carry their own faces
-    (the JAX function's ``gt_faces`` / ``fit_faces``) and measure all of
-    them (no candidate subsets: GT and fits may lie outside their
-    bound). The measurement modules are moved to ``device`` in place."""
+    GT v_shaped (V, 3). The measurements take the triangles
+    ``v[:, faces]`` of ``gt_faces`` / ``fit_faces`` (F, 3), by default
+    each measurement module's own faces, and measure all of them. The
+    measurement modules are moved to ``device`` in place."""
     device = get_device(device)
     if point_regressor_gt is not None:
         point_regressor_gt = point_regressor_gt.to(device)
         point_regressor_fit = point_regressor_fit.to(device)
-    for m in (measurements_gt, measurements_fit):
+    faces = {}
+    for key, m, f in (("gt", measurements_gt, gt_faces),
+                      ("fit", measurements_fit, fit_faces)):
         if m is not None:
             m.to(device)
+            f = np.asarray(m.faces.cpu() if f is None else f, np.int64)
+            faces[key] = (int(f.max()), torch.as_tensor(f, device=device))
 
     def batch_metrics(fit_v, gt_v):
         out = {}
@@ -77,10 +82,10 @@ def evaluate_submission(
                 point_regressor_fit.weights, point_regressor_gt.indices,
                 point_regressor_gt.weights, align=True).mean(dim=-1)
         if measurements_gt is not None:
-            m_gt = measurements_gt.forward_from_vertices(
-                gt_v, use_face_subsets=False)["measurements"]
-            m_fit = measurements_fit.forward_from_vertices(
-                fit_v, use_face_subsets=False)["measurements"]
+            m_gt = measurements_gt(
+                gather_triangles(gt_v, faces["gt"][1]))["measurements"]
+            m_fit = measurements_fit(
+                gather_triangles(fit_v, faces["fit"][1]))["measurements"]
             for k in ("height", "chest", "waist", "hips", "mass"):
                 out[f"{k}_error"] = torch.abs(m_gt[k]["tensor"]
                                               - m_fit[k]["tensor"])
@@ -90,6 +95,10 @@ def evaluate_submission(
     for start in range(0, len(fits), batch_size):
         sl = slice(start, min(start + batch_size, len(fits)))
         gt = np.stack([gt_lookup(label) for label in labels[sl]])
+        for key, v in (("gt", gt), ("fit", fits[sl])):
+            if key in faces and faces[key][0] >= v.shape[1]:
+                raise ValueError(f"{key} faces index beyond the "
+                                 f"{v.shape[1]} vertices of the meshes")
         fit_v = torch.as_tensor(np.asarray(fits[sl], np.float32)).to(device)
         gt_v = torch.as_tensor(np.asarray(gt, np.float32)).to(device)
         with torch.inference_mode(), full_f32_matmul():
@@ -129,10 +138,11 @@ def main(
     faces_path: str = "",
     device: str = "cuda",
 ) -> int:
-    """Score a submission and print the reference's lines. Only the
-    synthetic body route (``SHAPY_TPU_SYNTHETIC_BODY=1``) is ported."""
-    if faces_path or os.environ.get("SHAPY_TPU_SYNTHETIC_BODY", "0") != "1":
-        raise NotImplementedError(NOT_PORTED)
+    """Score a submission and print the reference's lines; see the module
+    docstring for the three routes to faces and anchors."""
+    from shapy_tpu_torch.measure.measurements import BodyMeasurements
+    from shapy_tpu_torch.models.body.model import SMPLX, build_body_model
+
     device = get_device(device)
     submission = np.load(input_npz_file)
     labels = [str(x) for x in submission["image_name"]]
@@ -147,9 +157,32 @@ def main(
                     if point_reg_fit and point_reg_fit != point_reg_gt
                     else preg_gt)
 
-    meas = _synthetic_measurements("smplx")
-    meas_fit = (meas if model_type == "smplx"
-                else _synthetic_measurements(model_type))
+    definitions = (os.path.join(body_measurement_folder,
+                                "measurement_defitions.yaml")
+                   if body_measurement_folder else None)
+    smplx = model_type == "smplx"
+    gt_faces = fit_faces = None
+    if faces_path:
+        gt_faces = fit_faces = np.asarray(np.load(
+            os.path.expandvars(faces_path), allow_pickle=True)["faces"],
+            np.int64)
+        meas = BodyMeasurements(None, gt_faces, model_type="smplx",
+                                meas_definition_path=definitions)
+        meas_fit = meas if smplx else BodyMeasurements(
+            None, gt_faces, model_type=model_type)
+    elif os.environ.get("SHAPY_TPU_SYNTHETIC_BODY", "0") == "1":
+        meas = _synthetic_measurements("smplx")
+        meas_fit = meas if smplx else _synthetic_measurements(model_type)
+    else:
+        folder = body_model_folder or os.path.join(hbw_folder, "body_models")
+        meas = BodyMeasurements(None, SMPLX(model_folder=folder).faces,
+                                model_type="smplx",
+                                meas_definition_path=definitions)
+        # SMPL submissions index an SMPL-topology mesh: gathering them
+        # with SMPL-X faces would read past their vertices.
+        meas_fit = meas if smplx else BodyMeasurements(
+            None, build_body_model(model_type, model_folder=folder).faces,
+            model_type=model_type)
 
     def gt_lookup(label: str) -> np.ndarray:
         split, subject = label.split("/")[:2]
@@ -159,7 +192,8 @@ def main(
     results = evaluate_submission(
         labels, fits, gt_lookup, model_type=model_type,
         point_regressor_gt=preg_gt, point_regressor_fit=preg_fit,
-        measurements_gt=meas, measurements_fit=meas_fit, device=device)
+        measurements_gt=meas, measurements_fit=meas_fit, gt_faces=gt_faces,
+        fit_faces=fit_faces, device=device)
 
     if "v2v_t" in results:
         print(f"V2V Error: {results['v2v_t'] * 1000:.0f} mm")

@@ -35,3 +35,31 @@ def vertices2landmarks(vertices: torch.Tensor, faces: torch.Tensor,
     batch = torch.arange(B, device=vertices.device)[:, None, None]
     lmk_vertices = vertices[batch, lmk_faces]  # (B, L, 3, 3)
     return torch.sum(lmk_vertices * lmk_bary_coords[..., None], dim=-2)
+
+
+def gather_triangles(vertices: torch.Tensor, faces: torch.Tensor
+                     ) -> torch.Tensor:
+    """vertices (B, V, 3), faces (F, 3) int -> triangles (B, F, 3, 3)."""
+    return vertices[:, faces.long()]
+
+
+def signed_volume(triangles: torch.Tensor) -> torch.Tensor:
+    """|volume| of a closed mesh, (B, F, 3, 3) -> (B,): the tetrahedra of
+    the divergence theorem, in the JAX package's term order."""
+    x, y, z = triangles[..., 0], triangles[..., 1], triangles[..., 2]
+    det = (-x[..., 2] * y[..., 1] * z[..., 0]
+           + x[..., 1] * y[..., 2] * z[..., 0]
+           + x[..., 2] * y[..., 0] * z[..., 1]
+           - x[..., 0] * y[..., 2] * z[..., 1]
+           - x[..., 1] * y[..., 0] * z[..., 2]
+           + x[..., 0] * y[..., 1] * z[..., 2])
+    return torch.abs(torch.sum(det, dim=-1)) / 6.0
+
+
+def face_barycentric_point(triangles: torch.Tensor, face_idx: int,
+                           bary) -> torch.Tensor:
+    """The point at barycentric ``bary`` (3,) of face ``face_idx`` of
+    (B, F, 3, 3) triangles -> (B, 3)."""
+    bc = torch.as_tensor(bary, dtype=triangles.dtype,
+                         device=triangles.device)
+    return torch.sum(triangles[:, face_idx] * bc.reshape(1, 3, 1), dim=1)

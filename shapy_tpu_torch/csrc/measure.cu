@@ -64,11 +64,29 @@
 //      built once on the host), the chain of each plane's hits in those
 //      faces (recomputed with the same operations as the forward, so the
 //      same formula is differentiated), and the anchors' height terms.
+//
+// K1-AoS (BodyMeasurements.forward on (B, F, 3, 3) triangles; replaces
+// ops/plane_slice.py:plane_slice_triangles, line 28, plane_slice_reference,
+// line 222, and ops/convex_hull.py:hull_perimeter_support, line 34, behind
+// measure/measurements.py:396): the wrapper views the triangles as (B, 3F, 3)
+// vertices with the faces (3f, 3f + 1, 3f + 2) and runs the forward and
+// backward above on all faces; the values are then K1's. measure_points
+// writes the slice points the JAX AoS surface returns from K1's saved hits:
+// a memset clears the masks and a grid-stride kernel fills every slot, then
+// one block per (body, plane) scatters its hits by their codes.
+// Reference mode: points (2F, 3), quad triangle q's
+// point of face f at q * F + f, y the plane height on every slot, and a
+// (2F,) mask. Exact mode: points (F, 2, 3), face f's first / second point at
+// (f, 0) / (f, 1), y recomputed from the crossed edge as plane_slice_triangles
+// does (the saved hits hold x and z only), and a (F,) mask; unhit slots are 0.
+//
 // Built with --fmad=false so the hit tests and projections round exactly as
 // the plain PyTorch version: a contracted a*b+c could flip a boundary hit or
 // a tie.
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -720,6 +738,63 @@ __global__ void __launch_bounds__(kThreads) measure_backward_vertices(
   gv[2] = gz;
 }
 
+// The slice points of K1-AoS, part 1: every slot of every (body, plane) row
+// of 2F points gets x = z = 0 and y = the plane height (reference mode) or 0
+// (exact mode), in a grid-stride loop over all rows at once.
+__global__ void __launch_bounds__(kThreads) measure_points_fill(
+    const float* __restrict__ plane_h, float* __restrict__ points,
+    long long n_points, int row_points, int fill_height) {
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n_points; i += step) {
+    float* pt = points + 3 * i;
+    pt[0] = 0.f;
+    pt[1] = fill_height ? plane_h[i / row_points] : 0.f;
+    pt[2] = 0.f;
+  }
+}
+
+// Part 2: one block per (body, plane) scatters the plane's saved hits into
+// their slots by their codes; see the header.
+template <int kMode>
+__global__ void __launch_bounds__(kThreads) measure_points_scatter(
+    const float* __restrict__ verts, const int* __restrict__ faces,
+    const float2* __restrict__ hits, const int* __restrict__ codes,
+    const float* __restrict__ stats, const float* __restrict__ plane_h,
+    float* __restrict__ points, unsigned char* __restrict__ valid, int V,
+    int F, int cap) {
+  const int p = blockIdx.x, b = blockIdx.y;
+  const size_t row = (size_t)b * 3 + p;
+  const int n = (int)stats[((size_t)b * 4 + p) * 4];
+  const float h = plane_h[row];
+  const float* vb = verts + (size_t)b * V * 3;
+  const float2* hp = hits + row * cap;
+  const int* cp = codes + row * cap;
+  float* pt = points + row * 6 * (size_t)F;
+  unsigned char* vd =
+      valid + row * (size_t)(kMode == kReference ? 2 * F : F);
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    const int code = cp[j], pos = code >> 4, detail = code & 15;
+    const float2 q = hp[j];
+    if (kMode == kReference) {
+      const int slot = (detail >> 3) * F + pos;
+      pt[3 * slot] = q.x;
+      pt[3 * slot + 2] = q.y;
+      vd[slot] = 1;
+    } else {
+      const int a = detail & 3, e = a == 2 ? 0 : a + 1;
+      const int* f = faces + 3 * pos;
+      const float ya = vb[3 * f[a] + 1], ye = vb[3 * f[e] + 1];
+      const float t = (ya - h) / exact_denom(ya - h, ye - h);
+      const int slot = 2 * pos + (detail >> 2);
+      pt[3 * slot] = q.x;
+      pt[3 * slot + 1] = ya + t * (ye - ya);
+      pt[3 * slot + 2] = q.y;
+      vd[pos] = 1;
+    }
+  }
+}
+
 template <int kMode>
 int launch_forward(const void* verts, const void* faces,
                    const void* plane_faces, const void* anchor_face,
@@ -842,4 +917,39 @@ extern "C" int measure_backward(MEASURE_BACKWARD_ARGS) {
 
 extern "C" int measure_exact_backward(MEASURE_BACKWARD_ARGS) {
   return launch_backward<kExact>(MEASURE_BACKWARD_CALL);
+}
+
+// K1-AoS slice points, after measure_forward (exact: measure_exact_forward)
+// walked all F faces of verts (B, V, 3) / faces (F, 3), with its hits, codes
+// (B, 3, cap), stats and plane_h. points (B, 3, 6F) f32 and valid (B, 3, 2F)
+// (exact: (B, 3, F)) bytes are written whole; see the header. Returns
+// cudaGetLastError().
+extern "C" int measure_points(const void* verts, const void* faces,
+                              const void* hits, const void* codes,
+                              const void* stats, const void* plane_h,
+                              void* points, void* valid, int B, int V, int F,
+                              int cap, int exact, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const long long rows = 3LL * B;
+  cudaError_t err = cudaMemsetAsync(valid, 0, rows * (exact ? F : 2 * F), s);
+  if (err != cudaSuccess) return (int)err;
+  const long long n_points = rows * 2 * F;
+  const int blocks = (int)std::min(n_points / kThreads + 1, 4096LL);
+  measure_points_fill<<<blocks, kThreads, 0, s>>>(
+      (const float*)plane_h, (float*)points, n_points, 2 * F, !exact);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(3, B);
+  if (exact) {
+    measure_points_scatter<kExact><<<grid, kThreads, 0, s>>>(
+        (const float*)verts, (const int*)faces, (const float2*)hits,
+        (const int*)codes, (const float*)stats, (const float*)plane_h,
+        (float*)points, (unsigned char*)valid, V, F, cap);
+  } else {
+    measure_points_scatter<kReference><<<grid, kThreads, 0, s>>>(
+        (const float*)verts, (const int*)faces, (const float2*)hits,
+        (const int*)codes, (const float*)stats, (const float*)plane_h,
+        (float*)points, (unsigned char*)valid, V, F, cap);
+  }
+  return (int)cudaGetLastError();
 }

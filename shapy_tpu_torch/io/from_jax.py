@@ -5,7 +5,7 @@ The JAX regressor's params are a pytree ``{'backbone': {name: array},
 already torch ``state_dict`` names. Converting is flattening the pytree
 with ``.`` and transposing conv kernels HWIO -> OIHW; the MLP and
 ``param_mean`` load as they are. The body model's params (``v_template``,
-``shapedirs``, ``posedirs`` ...) load by name.
+``shapedirs``, ``posedirs`` ... all of them) load by name.
 
 Load before :meth:`SMPLXRegressor.prepare_for_eval_`, which folds BN and
 so changes the backbone's keys, or before
@@ -70,7 +70,7 @@ def load_regressor_from_jax(regressor: nn.Module, params: Mapping
 
 
 def load_body_model_from_jax(model: nn.Module, params: Mapping) -> nn.Module:
-    """The JAX body model's ``params`` -> the port's body model. Params of
-    parts not ported yet (the SMPL-X dynamic contour) are skipped."""
-    own = set(model.state_dict())
-    return load_from_jax(model, {k: v for k, v in params.items() if k in own})
+    """The JAX body model's ``params`` -> the port's body model, built with
+    the same options. Every param loads; one the port lacks, or a port
+    buffer the params lack, raises ``KeyError``."""
+    return load_from_jax(model, params)

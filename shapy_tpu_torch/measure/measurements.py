@@ -14,6 +14,15 @@ slice mode, ``measure_exact_forward`` in "exact" mode) with its backward
 kernels; for CPU tensors :func:`measure_plain`, the structure-of-arrays
 pipeline of the JAX package in PyTorch, differentiated by autograd.
 
+``BodyMeasurements.forward`` (and ``__call__``, ``compute_mass``,
+``compute_height``, ``compute_periphery``, ``compute_peripheries``) take
+(B, F, 3, 3) triangles and return the JAX package's output schema, slice
+points included. For CUDA tensors this is kernel K1-AoS: K1 on all faces
+of the triangles viewed as (B, 3F, 3) vertices with the faces (3f, 3f + 1,
+3f + 2), then ``measure_points`` for the slice points; its backward is
+K1's. For CPU tensors it is :meth:`BodyMeasurements.forward_plain`, the
+JAX package's array-of-structures functions in PyTorch.
+
 ``Anchor``, ``MeasurementAnchors`` and ``candidate_faces`` are numpy,
 copied from the JAX package (whose module imports jax and yaml); the
 anchor YAMLs are read by :mod:`shapy_tpu_torch.utils.yaml_subset`.
@@ -31,13 +40,21 @@ import numpy as np
 import torch
 from torch import nn
 
+from shapy_tpu_torch.core.geometry import (
+    face_barycentric_point,
+    signed_volume,
+)
 from shapy_tpu_torch.ops.convex_hull import (
     hull_directions,
+    hull_perimeter_exact_np,
+    hull_perimeter_support,
     hull_perimeter_support_xz,
 )
 from shapy_tpu_torch.ops.plane_slice import (
+    plane_slice_reference,
     plane_slice_reference_soa,
     plane_slice_soa,
+    plane_slice_triangles,
 )
 from shapy_tpu_torch.utils import yaml_subset
 from shapy_tpu_torch.utils.cuda_kernels import CudaKernel, check_cuda_input
@@ -60,6 +77,7 @@ MEASURE_KERNEL = CudaKernel("measure.cu", {
     "measure_exact_forward": _FORWARD_ARGS,
     "measure_backward": _BACKWARD_ARGS,
     "measure_exact_backward": _BACKWARD_ARGS,
+    "measure_points": "pppp pppp iiiii p",
 })
 _MAX_HULL_DIRECTIONS = 1024  # the kernels give each thread 2 pairs
 
@@ -179,6 +197,11 @@ def candidate_faces(
     return out
 
 
+def _anchor_point(triangles: torch.Tensor, anchor: Anchor) -> torch.Tensor:
+    """(B, F, 3, 3) triangles -> (B, 3) point at the anchor."""
+    return face_barycentric_point(triangles, anchor.face_idx, anchor.bary)
+
+
 def vertex_corner_lists(faces: np.ndarray, num_vertices: int
                         ) -> Tuple[np.ndarray, np.ndarray]:
     """For each vertex, its (position * 4 + corner) entries in ``faces``
@@ -223,8 +246,11 @@ def measure_plain(
     tx, ty, tz = _soa(vertices, faces)
 
     def anchor_y(anchor: Anchor) -> torch.Tensor:
+        # Summed left to right, as the kernel does: a plane height one ulp
+        # off moves the hits and with them the hull's near-tie decisions.
         bc = torch.tensor(anchor.bary, dtype=ty.dtype, device=ty.device)
-        return torch.sum(ty[..., :, anchor.face_idx] * bc, dim=-1)
+        y = ty[..., :, anchor.face_idx]
+        return y[..., 0] * bc[0] + y[..., 1] * bc[1] + y[..., 2] * bc[2]
 
     x0, x1, x2 = tx[..., 0, :], tx[..., 1, :], tx[..., 2, :]
     y0, y1, y2 = ty[..., 0, :], ty[..., 1, :], ty[..., 2, :]
@@ -262,36 +288,61 @@ def saved_centroids(vals: torch.Tensor) -> torch.Tensor:
     return vals.grad_fn.saved_tensors[3][:, :3, 1:3]
 
 
+@dataclass
+class _Walk:
+    """What one K1 launch walks: the mesh's faces (F, 3) and its
+    vertex-to-(face, corner) lists, the five anchors (head top, left heel
+    and the three planes'), and per plane the number of faces walked
+    (``counts``; 0 skips a plane) from ``offsets`` in ``plane_faces``, the
+    planes' face-id lists back to back with their own vertex lists
+    ``plane_csr``, or all faces in order when ``plane_faces`` is None."""
+
+    faces: torch.Tensor
+    face_csr: Tuple[torch.Tensor, torch.Tensor]
+    num_mesh_vertices: int
+    anchor_face: torch.Tensor
+    anchor_bary: torch.Tensor
+    counts: Tuple[int, int, int]
+    offsets: Tuple[int, int, int] = (0, 0, 0)
+    plane_faces: Optional[torch.Tensor] = None
+    plane_csr: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+
 class _MeasureKernel(torch.autograd.Function):
-    """Kernel K1 (reference mode) or K1-exact, forward and backward.
+    """Kernel K1 (reference mode) or K1-exact, forward and backward, and
+    with ``with_points`` the slice points of K1-AoS (``measure_points``).
 
     The forward saves each plane's hits in face order with the formula
     that made each, the hit counts, centroids and the signed volume; the
-    backward kernels differentiate those formulas (see ``measure.cu``)."""
+    backward kernels differentiate those formulas (see ``measure.cu``).
+    Returns (B, 5) values and (B, 3) plane heights, then with
+    ``with_points`` the (B, 3, 6F) points and the (B, 3, 2F) (exact mode:
+    (B, 3, F)) masks, which carry no gradient."""
 
     @staticmethod
-    def forward(ctx, vertices, meas, use_face_subsets):
-        mode = "" if meas.slice_mode == "reference" else "exact_"
+    def forward(ctx, vertices, meas, walk, with_points):
+        exact = meas.slice_mode == "exact"
+        mode = "exact_" if exact else ""
         B, V, _ = vertices.shape
-        F = meas.faces.shape[0]
+        F = walk.faces.shape[0]
         half_k = meas.hull_cos.shape[0]
         dev = vertices.device
         check_cuda_input(vertices, "vertices", torch.float32, (B, V, 3), dev)
-        for name in ("faces", "anchor_face", "anchor_bary", "hull_cos",
-                     "hull_sin"):
-            t = getattr(meas, name)
+        for name, t in (("faces", walk.faces),
+                        ("anchor_face", walk.anchor_face),
+                        ("anchor_bary", walk.anchor_bary),
+                        ("hull_cos", meas.hull_cos),
+                        ("hull_sin", meas.hull_sin)):
             check_cuda_input(t, name, t.dtype, tuple(t.shape), dev)
-        if use_face_subsets:
-            flat = meas.subset_faces
-            counts = [int(c) for c in meas.subset_counts]
-            offsets = [0, counts[0], counts[0] + counts[1]]
-            check_cuda_input(flat, "subset_faces", torch.int32, (None,), dev)
-        else:
-            flat, counts, offsets = None, [F] * 3, [0] * 3
-        smax = max(max(counts), 1)
+        if walk.plane_faces is not None:
+            if with_points:
+                raise ValueError("slice points need the walk over all faces")
+            check_cuda_input(walk.plane_faces, "plane_faces", torch.int32,
+                             (None,), dev)
+        smax = max(max(walk.counts), 1)
         cap = 2 * smax
         angle_step = float(np.float32(2.0 * math.pi / (2 * half_k)))
-        planes = (*offsets, *counts)
+        planes = (*walk.offsets, *walk.counts)
 
         def empty(*shape, dtype=torch.float32):
             return torch.empty(shape, dtype=dtype, device=dev)
@@ -300,43 +351,49 @@ class _MeasureKernel(torch.autograd.Function):
         stats, out, plane_h = empty(B, 4, 4), empty(B, 5), empty(B, 3)
         if B > 0:
             MEASURE_KERNEL.launch(f"measure_{mode}forward", [
-                vertices, meas.faces, flat, meas.anchor_face,
-                meas.anchor_bary, meas.hull_cos, meas.hull_sin, hits, codes,
+                vertices, walk.faces, walk.plane_faces, walk.anchor_face,
+                walk.anchor_bary, meas.hull_cos, meas.hull_sin, hits, codes,
                 stats, out, plane_h, B, V, F, *planes, cap, half_k,
                 angle_step, meas.density])
-        ctx.meas, ctx.mode, ctx.flat = meas, mode, flat
+        outs = (out, plane_h)
+        if with_points:
+            points = empty(B, 3, 6 * F)
+            valid = empty(B, 3, F if exact else 2 * F, dtype=torch.bool)
+            if B > 0:
+                MEASURE_KERNEL.launch("measure_points", [
+                    vertices, walk.faces, hits, codes, stats, plane_h,
+                    points, valid, B, V, F, cap, int(exact)])
+            ctx.mark_non_differentiable(points, valid)
+            outs += (points, valid)
+        ctx.meas, ctx.walk, ctx.mode = meas, walk, mode
         ctx.scalars = (B, V, planes, cap, smax, half_k, angle_step)
-        ctx.use_face_subsets = use_face_subsets
         ctx.save_for_backward(vertices, hits, codes, stats, plane_h)
-        return out, plane_h
+        return outs
 
     @staticmethod
     @torch.autograd.function.once_differentiable
-    def backward(ctx, g_out, g_plane_h):
+    def backward(ctx, g_out, g_plane_h, *_):
         vertices, hits, codes, stats, plane_h = ctx.saved_tensors
-        meas = ctx.meas
+        meas, walk = ctx.meas, ctx.walk
         B, V, planes, cap, smax, half_k, angle_step = ctx.scalars
         dev = vertices.device
         g_out = g_out.float().contiguous()
         g_plane_h = g_plane_h.float().contiguous()
         grad = torch.empty((B, V, 3), dtype=torch.float32, device=dev)
         if B == 0:
-            return grad, None, None
-        if ctx.use_face_subsets:
-            plane_ptr, plane_idx = meas.subset_csr_ptr, meas.subset_csr_idx
-        else:
-            plane_ptr = plane_idx = None
+            return grad, None, None, None
+        plane_ptr, plane_idx = walk.plane_csr or (None, None)
         MEASURE_KERNEL.launch(f"measure_{ctx.mode}backward", [
-            vertices, meas.faces, ctx.flat, meas.anchor_face,
-            meas.anchor_bary, meas.hull_cos, meas.hull_sin, hits, codes,
+            vertices, walk.faces, walk.plane_faces, walk.anchor_face,
+            walk.anchor_bary, meas.hull_cos, meas.hull_sin, hits, codes,
             stats, plane_h, g_out, g_plane_h,
             torch.empty((B, 3, cap, 2), dtype=torch.float32, device=dev),
             torch.empty((B, 3, smax), dtype=torch.int32, device=dev),
             torch.empty((B, 3), dtype=torch.float32, device=dev),
-            meas.face_csr_ptr, meas.face_csr_idx, plane_ptr, plane_idx, grad,
-            B, V, meas.num_mesh_vertices, *planes, cap, smax, half_k,
-            angle_step, meas.density])
-        return grad, None, None
+            *walk.face_csr, plane_ptr, plane_idx, grad, B, V,
+            walk.num_mesh_vertices, *planes, cap, smax, half_k, angle_step,
+            meas.density])
+        return grad, None, None, None
 
 
 class BodyMeasurements(nn.Module):
@@ -348,6 +405,10 @@ class BodyMeasurements(nn.Module):
     them with the regressor. Without ``anchors`` they are read from the
     reference's YAMLs for ``model_type`` (:meth:`MeasurementAnchors
     .from_yaml`).
+
+    Two entries: :meth:`forward_from_vertices` on (B, V, 3) vertices of
+    this topology, and :meth:`forward` on (B, F', 3, 3) triangles of any
+    mesh whose F' faces hold the anchors' faces.
     """
 
     def __init__(
@@ -414,6 +475,10 @@ class BodyMeasurements(nn.Module):
                                         zip(lists, starts)]), torch.int32)
         buf("subset_csr_idx", np.concatenate([i for _, i in lists]),
             torch.int32)
+        # K1-AoS: the identity topology per (F, device) and the anchor
+        # buffers per (anchors, device), built at first use.
+        self._triangle_topology: Dict = {}
+        self._triangle_anchors: Dict = {}
 
     def measure(self, vertices: torch.Tensor, use_face_subsets: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -433,7 +498,16 @@ class BodyMeasurements(nn.Module):
                                  self.density, self.slice_mode)
         if vertices.device.type != "cuda":
             raise ValueError(f"measure: unsupported device {vertices.device}")
-        return _MeasureKernel.apply(vertices.contiguous(), self, use_subsets)
+        F = self.faces.shape[0]
+        walk = _Walk(self.faces, (self.face_csr_ptr, self.face_csr_idx),
+                     self.num_mesh_vertices, self.anchor_face,
+                     self.anchor_bary, (F, F, F))
+        if use_subsets:
+            c = self.subset_counts
+            walk.counts, walk.offsets = c, (0, c[0], c[0] + c[1])
+            walk.plane_faces = self.subset_faces
+            walk.plane_csr = (self.subset_csr_ptr, self.subset_csr_idx)
+        return _MeasureKernel.apply(vertices.contiguous(), self, walk, False)
 
     def forward_from_vertices(self, vertices: torch.Tensor,
                               use_face_subsets: bool = True
@@ -455,3 +529,174 @@ class BodyMeasurements(nn.Module):
             out[name] = {"tensor": vals[:, 2 + p],
                          "plane_height": heights[:, p]}
         return {"measurements": out}
+
+    # -- the triangle (array-of-structures) surface -------------------------
+    def forward(self, triangles: torch.Tensor, compute_mass: bool = True,
+                compute_height: bool = True, compute_chest: bool = True,
+                compute_waist: bool = True, compute_hips: bool = True
+                ) -> Dict[str, Dict[str, Dict[str, torch.Tensor]]]:
+        """The measurements of (B, F, 3, 3) triangles (e.g. ``v[:,
+        faces]``), those whose flag is set.
+
+        Returns {'measurements': {'mass': {'tensor'}, 'height': {'tensor',
+        'points' (2, B, 3): head top and left heel}, 'chest'|'waist'|'hips':
+        {'tensor', 'plane_height', 'points', 'valid_points'}}}: the slice
+        points are (B, 2F, 3) with a (B, 2F) mask in reference mode (y the
+        plane height on every entry) and (B, F, 2, 3) with a (B, F) mask in
+        exact mode (zero where invalid).
+
+        Differentiable in ``triangles`` through the values, plane heights
+        and height points; ``points`` and ``valid_points`` carry no
+        gradient (detached) on both routes. CUDA tensors run kernel
+        K1-AoS, CPU tensors :meth:`forward_plain`."""
+        return {"measurements": self._measure_triangles(
+            triangles, compute_mass, compute_height,
+            self._planes(compute_chest, compute_waist, compute_hips))}
+
+    def forward_plain(self, triangles: torch.Tensor,
+                      compute_mass: bool = True, compute_height: bool = True,
+                      compute_chest: bool = True, compute_waist: bool = True,
+                      compute_hips: bool = True
+                      ) -> Dict[str, Dict[str, Dict[str, torch.Tensor]]]:
+        """:meth:`forward` through the plain version on any device: the
+        JAX package's array-of-structures operations in PyTorch."""
+        return {"measurements": self._triangles_plain(
+            triangles, compute_mass, compute_height,
+            self._planes(compute_chest, compute_waist, compute_hips))}
+
+    def compute_mass(self, triangles: torch.Tensor) -> torch.Tensor:
+        """(B, F, 3, 3) -> (B,) mass in kg."""
+        return self._measure_triangles(triangles, True, False,
+                                       {})["mass"]["tensor"]
+
+    def compute_height(self, triangles: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, F, 3, 3) -> (B,) height in m and the (2, B, 3) head-top and
+        left-heel points."""
+        out = self._measure_triangles(triangles, False, True, {})["height"]
+        return out["tensor"], out["points"]
+
+    def compute_periphery(self, triangles: torch.Tensor, anchor: Anchor
+                          ) -> Dict[str, torch.Tensor]:
+        """The circumference of the horizontal slice at ``anchor``'s
+        height: {'tensor', 'plane_height', 'points', 'valid_points'}."""
+        return self._measure_triangles(triangles, False, False,
+                                       {"plane": anchor})["plane"]
+
+    def compute_peripheries(self, triangles: torch.Tensor,
+                            compute_chest: bool = True,
+                            compute_waist: bool = True,
+                            compute_hips: bool = True
+                            ) -> Dict[str, Dict[str, torch.Tensor]]:
+        return self._measure_triangles(
+            triangles, False, False,
+            self._planes(compute_chest, compute_waist, compute_hips))
+
+    def periphery_exact_np(self, triangles, anchor_name: str) -> np.ndarray:
+        """The exact (scipy hull, f64) circumference at anchor
+        ``anchor_name`` of each of the (B, F, 3, 3) triangles, on the host
+        from the plain slice in f32."""
+        anchor: Anchor = getattr(self.anchors, anchor_name)
+        tris = torch.as_tensor(triangles).detach().to("cpu", torch.float32)
+        plane_h = _anchor_point(tris, anchor)[..., 1]
+        if self.slice_mode == "reference":
+            pts, valid = plane_slice_reference(tris, plane_h)
+        else:
+            pts, valid = plane_slice_triangles(tris, plane_h)
+        pts, valid = pts.numpy(), valid.numpy()
+        return np.asarray([hull_perimeter_exact_np(
+            pts[b][valid[b]].reshape(-1, 3)[:, [0, 2]])
+            for b in range(pts.shape[0])])
+
+    def _planes(self, *on: bool) -> Dict[str, Anchor]:
+        """The chest, waist and hips anchors whose flag is set."""
+        return {name: getattr(self.anchors, name)
+                for name, o in zip(PLANES, on) if o}
+
+    def _measure_triangles(self, triangles: torch.Tensor, mass: bool,
+                           height: bool, planes: Dict[str, Anchor]) -> Dict:
+        if triangles.device.type == "cpu":
+            return self._triangles_plain(triangles, mass, height, planes)
+        if triangles.device.type != "cuda":
+            raise ValueError(f"forward: unsupported device {triangles.device}")
+        return self._triangles_kernel(triangles, mass, height, planes)
+
+    def _triangles_plain(self, triangles: torch.Tensor, mass: bool,
+                         height: bool, planes: Dict[str, Anchor]) -> Dict:
+        out: Dict[str, Dict[str, torch.Tensor]] = {}
+        if mass:
+            out["mass"] = {"tensor": signed_volume(triangles) * self.density}
+        if height:
+            head = _anchor_point(triangles, self.anchors.head_top)
+            heel = _anchor_point(triangles, self.anchors.left_heel)
+            out["height"] = {"tensor": torch.abs(head[..., 1] - heel[..., 1]),
+                             "points": torch.stack([head, heel])}
+        B = triangles.shape[0]
+        for name, anchor in planes.items():
+            plane_h = _anchor_point(triangles, anchor)[..., 1]
+            if self.slice_mode == "reference":
+                points, valid = plane_slice_reference(triangles, plane_h)
+                flat, flat_mask = points, valid
+            else:
+                points, valid = plane_slice_triangles(triangles, plane_h)
+                flat = points.reshape(B, -1, 3)
+                flat_mask = torch.repeat_interleave(valid, 2, dim=-1)
+            out[name] = {
+                "tensor": hull_perimeter_support(
+                    flat[..., [0, 2]], flat_mask, self.num_hull_directions),
+                "plane_height": plane_h, "points": points.detach(),
+                "valid_points": valid}
+        return out
+
+    def _triangle_walk(self, F: int, device: torch.device,
+                       anchors: Tuple[Anchor, ...],
+                       counts: Tuple[int, int, int]) -> _Walk:
+        """K1's walk over all faces of F triangles as (3F, 3) vertices with
+        the faces (3f, 3f + 1, 3f + 2)."""
+        if max(a.face_idx for a in anchors) >= F:
+            raise ValueError(f"anchor face beyond the {F} triangles")
+        topo = self._triangle_topology.get((F, device))
+        if topo is None:
+            faces = np.arange(3 * F, dtype=np.int64).reshape(F, 3)
+            topo = tuple(torch.as_tensor(a, dtype=torch.int32).to(device)
+                         for a in (faces, *vertex_corner_lists(faces, 3 * F)))
+            self._triangle_topology[(F, device)] = topo
+        anc = self._triangle_anchors.get((anchors, device))
+        if anc is None:
+            anc = (torch.tensor([a.face_idx for a in anchors],
+                                dtype=torch.int32, device=device),
+                   torch.tensor([a.bary for a in anchors],
+                                dtype=torch.float32, device=device))
+            self._triangle_anchors[(anchors, device)] = anc
+        return _Walk(topo[0], topo[1:], 3 * F, *anc, counts)
+
+    def _triangles_kernel(self, triangles: torch.Tensor, mass: bool,
+                          height: bool, planes: Dict[str, Anchor]) -> Dict:
+        """Kernel K1-AoS; the plane slots that ``planes`` leaves free walk
+        no faces."""
+        B, F = triangles.shape[:2]
+        named = list(planes.items())
+        anchors = (self.anchors.head_top, self.anchors.left_heel,
+                   *(a for _, a in named),
+                   *(getattr(self.anchors, n) for n in PLANES[len(named):]))
+        counts = tuple(F if p < len(named) else 0 for p in range(3))
+        walk = self._triangle_walk(F, triangles.device, anchors, counts)
+        tri = triangles.contiguous()
+        res = _MeasureKernel.apply(tri.view(B, 3 * F, 3), self, walk,
+                                   bool(named))
+        vals, plane_h = res[0], res[1]
+        out: Dict[str, Dict[str, torch.Tensor]] = {}
+        if mass:
+            out["mass"] = {"tensor": vals[:, 0]}
+        if height:  # barycentrics from the cached buffer: no host copy
+            out["height"] = {"tensor": vals[:, 1], "points": torch.stack(
+                [face_barycentric_point(tri, a.face_idx, walk.anchor_bary[i])
+                 for i, a in enumerate(anchors[:2])])}
+        shape = (B, 2 * F, 3) if self.slice_mode == "reference" else \
+            (B, F, 2, 3)
+        for p, (name, _) in enumerate(named):
+            out[name] = {"tensor": vals[:, 2 + p],
+                         "plane_height": plane_h[:, p],
+                         "points": res[2][:, p].view(shape),
+                         "valid_points": res[3][:, p]}
+        return out

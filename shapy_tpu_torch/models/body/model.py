@@ -11,16 +11,19 @@ body(21), jaw, leye, reye, lhand(15), rhand(15)). Pose inputs are
 rotation matrices ``(B, n, 3, 3)`` or axis-angle ``(B, n, 3)`` / flat
 ``(B, n*3)``.
 
-Ported so far: what the flagship regressor runs (pose assembly, the
-SMPL-X expression slice, static landmarks, ``v_shaped`` without
-expression), loading the release files from ``model_folder`` and
-:func:`build_body_model`. Not yet: the SMPL-X dynamic face contour,
-mesh-surface extra joints and the J14 regressor override.
+The JAX model's API: ``forward(betas, transl, get_skin,
+return_full_pose, return_shaped, **pose_groups)`` (SMPL-X also takes
+``expression``; any other keyword raises ``TypeError``), the ``v_template``
+override, mesh-surface extra joints, the J14 regressor override, PCA hands
+(:meth:`SMPLH.hand_pca_to_rotmats`), the SMPL-X dynamic face contour,
+``num_faces`` and ``keypoint_names``; loading the release files from
+``model_folder`` and :func:`build_body_model`.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import math
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -28,7 +31,8 @@ from torch import nn
 
 from shapy_tpu_torch.core.geometry import blend_shapes, vertices2landmarks
 from shapy_tpu_torch.core.kinematics import compute_level_schedule
-from shapy_tpu_torch.core.rotations import aa_to_rotmat
+from shapy_tpu_torch.core.rotations import aa_to_rotmat, rotmat_to_euler_y
+from shapy_tpu_torch.data.keypoints import model_keypoint_names
 from shapy_tpu_torch.models.body.assets import load_model_data
 from shapy_tpu_torch.models.body.lbs import lbs
 
@@ -55,10 +59,22 @@ class SMPL(nn.Module):
     def __init__(self, model_data: Optional[Dict[str, np.ndarray]] = None,
                  num_betas: int = 10, dtype: torch.dtype = torch.float32,
                  model_folder: str = "", gender: str = "neutral",
-                 ext: str = "npz"):
+                 ext: str = "npz", v_template: Optional[np.ndarray] = None,
+                 extra_joint_faces: Optional[np.ndarray] = None,
+                 extra_joint_bcs: Optional[np.ndarray] = None,
+                 extra_joint_names: Optional[Sequence[str]] = None,
+                 j14_regressor: Optional[np.ndarray] = None,
+                 j14_source_idxs: Optional[np.ndarray] = None,
+                 j14_target_idxs: Optional[np.ndarray] = None):
         """``model_data`` as :func:`~shapy_tpu_torch.models.body.assets
         .load_model_data` returns it, or None to load the release file
-        of this model, ``gender`` and ``ext`` from ``model_folder``."""
+        of this model, ``gender`` and ``ext`` from ``model_folder``.
+
+        ``v_template`` replaces the file's template. ``extra_joint_faces``
+        (E,) and ``extra_joint_bcs`` (E, 3) append E joints at barycentric
+        points of the mesh, named ``extra_joint_names``.
+        ``j14_regressor`` (R, V) regresses joints from the vertices whose
+        rows ``j14_target_idxs`` replace the joints ``j14_source_idxs``."""
         super().__init__()
         if model_data is None:
             model_data = load_model_data(model_folder, self.NAME,
@@ -83,13 +99,29 @@ class SMPL(nn.Module):
             self.register_buffer(name, torch.as_tensor(
                 np.ascontiguousarray(value), dtype=dtype))
 
-        buf("v_template", model_data["v_template"])
+        buf("v_template", model_data["v_template"] if v_template is None
+            else v_template)
         buf("shapedirs", shapedirs[:, :, :self.num_betas])
         buf("posedirs", posedirs)
         buf("J_regressor", model_data["J_regressor"])
         buf("lbs_weights", model_data["weights"])
         self.register_buffer("faces_tensor", torch.as_tensor(self.faces),
                              persistent=False)
+
+        self.extra_joint_names = list(extra_joint_names or [])
+        self.extra_joint_faces = None
+        if extra_joint_faces is not None:
+            self.extra_joint_faces = np.asarray(extra_joint_faces, np.int64)
+            buf("extra_joint_bcs", extra_joint_bcs)
+            self.register_buffer("extra_joint_vertices", torch.as_tensor(
+                self.faces[self.extra_joint_faces]), persistent=False)
+        self.use_joint_regressor = j14_regressor is not None
+        if self.use_joint_regressor:
+            buf("extra_joint_regressor", j14_regressor)
+            for name, idxs in (("j14_source_idxs", j14_source_idxs),
+                               ("j14_target_idxs", j14_target_idxs)):
+                self.register_buffer(name, torch.as_tensor(
+                    np.array(idxs, np.int64)), persistent=False)
         self._post_init(model_data)
 
     def _post_init(self, model_data: Dict[str, np.ndarray]) -> None:
@@ -100,8 +132,21 @@ class SMPL(nn.Module):
         return self.v_template.shape[0]
 
     @property
+    def num_faces(self) -> int:
+        return self.faces.shape[0]
+
+    @property
     def num_joints(self) -> int:
         return self.J_regressor.shape[0]
+
+    @property
+    def keypoint_names(self):
+        """The joints' names: this model's (SMPL-X: the contour's 17 only
+        with ``use_face_contour``), then the extra joints'."""
+        return model_keypoint_names(
+            self.NAME, use_face_contour=getattr(self, "use_face_contour",
+                                                True)) + \
+            self.extra_joint_names
 
     def forward_shape(self, betas: torch.Tensor) -> Dict[str, torch.Tensor]:
         """betas -> shaped (T-pose) vertices."""
@@ -112,22 +157,38 @@ class SMPL(nn.Module):
     def _pose_groups(self) -> Dict[str, int]:
         return {"global_rot": 1, "body_pose": self.NUM_BODY_JOINTS}
 
+    def _other_inputs(self) -> tuple:
+        """Keywords of :meth:`forward` besides the pose groups."""
+        return ()
+
     def _shape_components(self, betas: torch.Tensor,
                           kwargs: Dict[str, Any]):
         return betas.to(self.dtype), self.shapedirs
 
-    def _extra_landmarks(self, vertices: torch.Tensor
-                         ) -> Optional[torch.Tensor]:
+    def _extra_landmarks(self, vertices: torch.Tensor,
+                         full_pose: torch.Tensor) -> Optional[torch.Tensor]:
         return None
 
     def forward(self, betas: Optional[torch.Tensor] = None,
+                transl: Optional[torch.Tensor] = None, get_skin: bool = True,
+                return_full_pose: bool = False, return_shaped: bool = True,
                 **kwargs) -> Dict[str, Any]:
         """Pose groups by name (``global_rot``, ``body_pose`` ...) and, for
         SMPL-X, ``expression``; missing groups are identity, missing betas
-        and expression zero. Returns ``vertices``, ``joints`` (with the
-        landmarks appended), ``v_shaped`` and ``faces``."""
+        and expression zero; another keyword raises ``TypeError``.
+        ``transl`` (B, 3) moves the joints and vertices.
+
+        Returns ``joints`` (with the landmarks and extra joints appended,
+        the J14 override applied), ``faces``, and ``vertices`` if
+        ``get_skin``, ``full_pose`` (B, J, 3, 3) if ``return_full_pose``,
+        ``v_shaped`` if ``return_shaped``."""
+        unknown = set(kwargs) - set(self._pose_groups()) - set(
+            self._other_inputs())
+        if unknown:
+            raise TypeError(f"{type(self).__name__}.forward: unexpected "
+                            f"keyword(s) {sorted(unknown)}")
         pose_args = [kwargs.get(k) for k in self._pose_groups()]
-        batch = max([1] + [a.shape[0] for a in (betas, *pose_args)
+        batch = max([1] + [a.shape[0] for a in (betas, transl, *pose_args)
                            if a is not None])
         if betas is None:
             betas = self.v_template.new_zeros((batch, self.num_betas))
@@ -140,31 +201,54 @@ class SMPL(nn.Module):
                   self.posedirs, self.J_regressor, self.parents,
                   self.lbs_weights, levels=self.levels)
         vertices, joints = out["vertices"], out["joints"]
-        landmarks = self._extra_landmarks(vertices)
+        joint_set = [joints]
+        landmarks = self._extra_landmarks(vertices, full_pose)
         if landmarks is not None:
-            joints = torch.cat([joints, landmarks], dim=1)
-        return {"joints": joints, "vertices": vertices, "faces": self.faces,
-                "v_shaped": self._v_shaped_for_output(out, betas)}
+            joint_set.append(landmarks)
+        if self.extra_joint_faces is not None:
+            tri = vertices[:, self.extra_joint_vertices]  # (B, E, 3, 3)
+            joint_set.append(torch.sum(
+                tri * self.extra_joint_bcs[None, :, :, None], dim=-2))
+        joints = torch.cat(joint_set, dim=1)
+        if self.use_joint_regressor:
+            reg_joints = torch.matmul(self.extra_joint_regressor, vertices)
+            joints = joints.index_copy(1, self.j14_source_idxs,
+                                       reg_joints[:, self.j14_target_idxs])
+        if transl is not None:
+            transl = transl.to(self.dtype)[:, None]
+            joints = joints + transl
+            vertices = vertices + transl
+
+        output: Dict[str, Any] = {"joints": joints, "faces": self.faces}
+        if get_skin:
+            output["vertices"] = vertices
+        if return_full_pose:
+            output["full_pose"] = full_pose
+        if return_shaped:
+            output["v_shaped"] = self._v_shaped_for_output(out, betas)
+        return output
 
     def _v_shaped_for_output(self, lbs_out, betas) -> torch.Tensor:
         return lbs_out["v_shaped"]
 
 
 class SMPLH(SMPL):
-    """SMPL+H: SMPL body with 2 x 15 articulated hand joints."""
+    """SMPL+H: SMPL body with 2 x 15 articulated hand joints and PCA
+    hand-pose bases."""
 
     NAME = "smplh"
     NUM_BODY_JOINTS = 21
     NUM_HAND_JOINTS = 15
 
     def __init__(self, model_data: Optional[Dict[str, np.ndarray]] = None,
-                 num_hand_components: int = 45, **kwargs):
+                 num_hand_components: int = 45, flat_hand_mean: bool = True,
+                 **kwargs):
         self.num_hand_components = num_hand_components
+        self.flat_hand_mean = flat_hand_mean
         super().__init__(model_data, **kwargs)
 
     def _post_init(self, model_data: Dict[str, np.ndarray]) -> None:
         super()._post_init(model_data)
-        # Hand PCA bases (for PCA hand-pose spaces, not ported yet).
         n = self.num_hand_components
         for side in ("l", "r"):
             comps = model_data.get(f"hands_components{side}")
@@ -185,16 +269,40 @@ class SMPLH(SMPL):
             "right_hand_pose": self.NUM_HAND_JOINTS,
         }
 
+    def hand_pca_to_rotmats(self, coeffs: torch.Tensor, side: str
+                            ) -> torch.Tensor:
+        """PCA hand coefficients (B, n) of ``side`` ("l" or "r") -> (B, 15,
+        3, 3) rotations; the mean pose is added unless
+        ``flat_hand_mean``."""
+        aa = coeffs.to(self.dtype) @ getattr(self, f"hand_components_{side}")
+        if not self.flat_hand_mean:
+            aa = aa + getattr(self, f"hand_mean_{side}")[None]
+        return aa_to_rotmat(aa.reshape(coeffs.shape[0], 15, 3))
+
+
+def find_joint_kin_chain(joint_id: int, parents: np.ndarray) -> list:
+    """``joint_id`` and its ancestors up to the root."""
+    chain = []
+    while joint_id != -1:
+        chain.append(joint_id)
+        joint_id = int(parents[joint_id])
+    return chain
+
 
 class SMPLX(SMPLH):
-    """SMPL-X: SMPL-H + jaw/eyes, expression space, facial landmarks."""
+    """SMPL-X: SMPL-H + jaw/eyes, expression space, facial landmarks and,
+    with ``use_face_contour``, the 17 contour landmarks that follow the
+    neck's yaw."""
 
     NAME = "smplx"
     EXPRESSION_SPACE_DIM = 100
+    HEAD_IDX = 15
 
     def __init__(self, model_data: Optional[Dict[str, np.ndarray]] = None,
-                 num_expression_coeffs: int = 10, **kwargs):
+                 num_expression_coeffs: int = 10,
+                 use_face_contour: bool = False, **kwargs):
         self.num_expression_coeffs = int(num_expression_coeffs)
+        self.use_face_contour = use_face_contour
         super().__init__(model_data, **kwargs)
 
     def _post_init(self, model_data: Dict[str, np.ndarray]) -> None:
@@ -212,6 +320,14 @@ class SMPLX(SMPLH):
             np.asarray(model_data["lmk_faces_idx"]), dtype=torch.int32))
         self.register_buffer("lmk_bary_coords", torch.as_tensor(
             np.asarray(model_data["lmk_bary_coords"]), dtype=self.dtype))
+        self.register_buffer("dynamic_lmk_faces_idx", torch.as_tensor(
+            np.asarray(model_data["dynamic_lmk_faces_idx"]),
+            dtype=torch.int32))
+        self.register_buffer("dynamic_lmk_bary_coords", torch.as_tensor(
+            np.ascontiguousarray(model_data["dynamic_lmk_bary_coords"]),
+            dtype=self.dtype))
+        self.neck_kin_chain = find_joint_kin_chain(
+            min(self.HEAD_IDX, self.num_joints - 1), self.parents)
 
     def _pose_groups(self) -> Dict[str, int]:
         return {
@@ -224,6 +340,9 @@ class SMPLX(SMPLH):
             "right_hand_pose": self.NUM_HAND_JOINTS,
         }
 
+    def _other_inputs(self) -> tuple:
+        return ("expression",)
+
     def _shape_components(self, betas, kwargs):
         expression = kwargs.get("expression")
         if expression is None:
@@ -234,9 +353,30 @@ class SMPLX(SMPLH):
         shapedirs = torch.cat([self.shapedirs, self.expr_dirs], dim=-1)
         return shape_comps, shapedirs
 
-    def _extra_landmarks(self, vertices):
-        return vertices2landmarks(vertices, self.faces_tensor,
-                                  self.lmk_faces_idx, self.lmk_bary_coords)
+    def _dynamic_contour(self, full_pose: torch.Tensor):
+        """The contour landmarks' (B, 17) faces and (B, 17, 3) barycentrics:
+        the table row of the neck chain's yaw in whole degrees."""
+        rel = torch.eye(3, dtype=full_pose.dtype, device=full_pose.device)
+        for joint in self.neck_kin_chain:
+            rel = full_pose[:, joint] @ rel
+        y_deg = torch.clamp(torch.round(
+            -rotmat_to_euler_y(rel) * 180.0 / math.pi), max=39).to(
+                torch.int64)
+        row = torch.where(y_deg < 0,
+                          torch.where(y_deg < -39, 78, 39 - y_deg), y_deg)
+        return self.dynamic_lmk_faces_idx[row], \
+            self.dynamic_lmk_bary_coords[row]
+
+    def _extra_landmarks(self, vertices, full_pose):
+        B = vertices.shape[0]
+        faces_idx = self.lmk_faces_idx.expand(B, -1)
+        bary = self.lmk_bary_coords.expand(B, -1, -1)
+        if self.use_face_contour:
+            dyn_idx, dyn_bary = self._dynamic_contour(full_pose)
+            faces_idx = torch.cat([faces_idx, dyn_idx], dim=1)
+            bary = torch.cat([bary, dyn_bary], dim=1)
+        return vertices2landmarks(vertices, self.faces_tensor, faces_idx,
+                                  bary)
 
     def _v_shaped_for_output(self, lbs_out, betas):
         # SMPL-X reports v_shaped WITHOUT the expression dims.

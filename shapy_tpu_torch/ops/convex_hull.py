@@ -11,6 +11,8 @@ collapsed to the centroid, can never win.
 This is the plain version of kernel K1's hull (``csrc/measure.cu``).
 Projections are elementwise f32 products, never a reduced-precision
 matmul: TF32 would cost about a millimetre on a circumference.
+
+``hull_perimeter_exact_np`` is the exact host-side check (scipy).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -31,6 +34,13 @@ def hull_directions(num_directions: int, device=None
     theta = (torch.arange(half, dtype=torch.float32) + 0.5) * (
         2.0 * math.pi / num_directions)
     return torch.cos(theta).to(device), torch.sin(theta).to(device)
+
+
+def hull_perimeter_support(points: torch.Tensor, mask: torch.Tensor,
+                           num_directions: int = 256) -> torch.Tensor:
+    """:func:`hull_perimeter_support_xz` of (..., N, 2) points."""
+    return hull_perimeter_support_xz(points[..., 0], points[..., 1], mask,
+                                     num_directions)
 
 
 def hull_perimeter_support_xz(
@@ -66,3 +76,19 @@ def hull_perimeter_support_xz(
         2.0 * math.pi / num_directions)
     enough = torch.sum(mask, dim=-1) >= 2
     return torch.where(enough, perimeter, zero)
+
+
+def hull_perimeter_exact_np(points: np.ndarray,
+                            mask: Optional[np.ndarray] = None) -> float:
+    """Exact perimeter of the convex hull of (N, 2) points (the masked
+    ones), in f64 on the host with scipy: the sum of the hull's edge
+    lengths. 0 with fewer than 3 points."""
+    from scipy.spatial import ConvexHull
+
+    pts = np.asarray(points, dtype=np.float64)
+    if mask is not None:
+        pts = pts[np.asarray(mask, dtype=bool)]
+    if pts.shape[0] < 3:
+        return 0.0
+    seg = pts[ConvexHull(pts).simplices]  # (E, 2, 2)
+    return float(np.linalg.norm(seg[:, 1] - seg[:, 0], axis=-1).sum())

@@ -1,12 +1,17 @@
 """Plane-triangle slicing, plain PyTorch (port of
-``shapy_tpu/ops/plane_slice.py``, structure-of-arrays forms).
+``shapy_tpu/ops/plane_slice.py``).
 
-Layout as in the JAX package: each coordinate is a ``(..., 3, F)`` plane
-(vertex index, then face index). ``plane_slice_reference_soa`` is the
-plain version of kernel K1's slice (``csrc/measure.cu``) and
-``plane_slice_soa`` that of K1-exact: the same operations in the same
-order, so that the kernels, built without FMA contraction, make the same
-hit decisions.
+Structure-of-arrays forms, laid out as in the JAX package (each
+coordinate a ``(..., 3, F)`` plane: vertex index, then face index):
+``plane_slice_reference_soa`` is the plain version of kernel K1's slice
+(``csrc/measure.cu``) and ``plane_slice_soa`` that of K1-exact, the same
+operations in the same order, so that the kernels, built without FMA
+contraction, make the same hit decisions.
+
+Array-of-structures forms, on ``(..., F, 3, 3)`` triangles:
+``plane_slice_triangles`` (exact) and ``plane_slice_reference`` are the
+plain versions of K1-AoS (K1 on the triangles as their own vertices, then
+``measure_points`` writes the points in these layouts).
 """
 
 from __future__ import annotations
@@ -24,6 +29,42 @@ _Q_EDGES = (
      ((-1.0, 1.0), (0.0, -2.0))),
 )
 _EPS = 1e-4  # the reference kernel's parallel reject
+
+
+def plane_slice_triangles(triangles: torch.Tensor, height: torch.Tensor,
+                          axis: int = 1
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both crossing points of each triangle with the plane
+    ``coord[axis] == height``.
+
+    triangles (..., F, 3, 3); height (...,). Edges are (0-1, 1-2, 2-0);
+    an edge crosses where ``sa * sb < 0`` (a vertex on the plane is a
+    miss), at ``t = sa / (sa - sb)`` with the denominator guarded at
+    1e-20. A face is valid when exactly two edges cross: its first point
+    is on edge 0 if it crosses, else edge 1; its second on edge 2 if it
+    crosses, else edge 1.
+
+    Returns points (..., F, 2, 3), all zero where invalid, and valid
+    (..., F) bool.
+    """
+    h = height[..., None, None]
+    s = triangles[..., axis] - h  # (..., F, 3)
+    ia, ib = [0, 1, 2], [1, 2, 0]
+    sa, sb = s[..., ia], s[..., ib]
+    crossing = (sa * sb) < 0.0
+    denom = sa - sb
+    t = sa / torch.where(torch.abs(denom) > 1e-20, denom,
+                         torch.full_like(denom, 1e-20))
+    pa, pb = triangles[..., ia, :], triangles[..., ib, :]
+    q = pa + t[..., None] * (pb - pa)  # (..., F, 3 edges, 3)
+    valid = torch.sum(crossing, dim=-1) == 2
+    first = torch.where(crossing[..., 0, None], q[..., 0, :], q[..., 1, :])
+    second = torch.where(crossing[..., 2, None], q[..., 2, :], q[..., 1, :])
+    points = torch.stack([first, second], dim=-2)
+    points = torch.where(valid[..., None, None], points,
+                         torch.zeros((), dtype=points.dtype,
+                                     device=points.device))
+    return points, valid
 
 
 def plane_slice_reference_soa(
@@ -159,3 +200,22 @@ def plane_slice_soa(
     b_pts = torch.cat([first_b * vz, second_b * vz], dim=-1)
     mask = torch.cat([valid, valid], dim=-1)
     return a_pts, b_pts, mask
+
+
+def plane_slice_reference(triangles: torch.Tensor, height: torch.Tensor,
+                          axis: int = 1
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`plane_slice_reference_soa` on (..., F, 3, 3) triangles.
+
+    Returns points (..., 2F, 3), whose ``axis`` coordinate is the height
+    on every entry (masked ones too) and whose in-plane coordinates are 0
+    where masked, and the (..., 2F) mask."""
+    in_plane = [a for a in range(3) if a != axis]
+    s = torch.movedim(triangles[..., axis], -1, -2)  # (..., 3, F)
+    a = torch.movedim(triangles[..., in_plane[0]], -1, -2)
+    b = torch.movedim(triangles[..., in_plane[1]], -1, -2)
+    a_pts, b_pts, mask = plane_slice_reference_soa(s, a, b, height)
+    h = height[..., None] * torch.ones_like(a_pts)
+    coords = {axis: h, in_plane[0]: a_pts, in_plane[1]: b_pts}
+    points = torch.stack([coords[0], coords[1], coords[2]], dim=-1)
+    return points, mask

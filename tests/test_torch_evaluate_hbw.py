@@ -2,14 +2,17 @@
 (``shapy_tpu_torch/cli/evaluate_hbw.py``) with the JAX package's.
 
 On the CPU the scorer runs the plain versions of K8b (V2V), K8a (P2P) and
-K1 on all faces. Bodies are synthetic SMPL-X (``subdivisions=2`` for the
-function, the CLI's own ``subdivisions=5`` assets for ``main``) shaped by
-seeded betas; fits are the GT plus noise.
+K1-AoS (the triangle measurements, all faces). Bodies are synthetic SMPL-X
+(``subdivisions=2`` for the function, the CLI's own ``subdivisions=5``
+assets for its synthetic route, the real counts for its faces-file and
+model-folder routes) shaped by seeded betas; fits are the GT plus noise.
 
 Tolerances: atol 1e-5 m on V2V, P2P and the length errors (the same f32
 operations in another order); atol 1e-3 kg on the mass error (rel 1e-5 of
 a mass of ~100 kg: the signed-volume sum of ~1e3 faces in another order).
 """
+
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -99,11 +102,13 @@ def test_evaluate_submission_matches_jax(smplx, with_p2p):
         measurements_gt=jmeas, measurements_fit=jmeas, gt_faces=faces,
         fit_faces=faces, batch_size=2)
     meas = BodyMeasurements(anchors, faces)
+    # The faces given, or by default the measurement modules' own.
+    given = dict(gt_faces=faces, fit_faces=faces) if with_p2p else {}
     got = tcli.evaluate_submission(
         labels, fits, lookup.__getitem__, model_type="smplx",
         point_regressor_gt=treg, point_regressor_fit=treg,
         measurements_gt=meas, measurements_fit=meas, batch_size=2,
-        device="cpu")
+        device="cpu", **given)
     keys = set(KEYS) - (set() if with_p2p else {"p2p_t"})
     assert set(got) == set(want) == keys
     for k in keys:
@@ -163,14 +168,82 @@ def test_main_synthetic_route_prints_what_jax_prints(tmp_path, monkeypatch,
     assert ("V2V Error" in got) == (model_type == "smplx")
 
 
-def test_unported_routes_name_the_roadmap_item(tmp_path, monkeypatch):
+@pytest.fixture(scope="module")
+def release_tree(tmp_path_factory):
+    """An HBW tree at the real mesh counts (the YAML anchors index faces up
+    to ~20000): GT npy files of 2 shaped SMPL-X bodies, SMPL-X and SMPL
+    submissions, a faces npz, and SMPL-X and SMPL release files (f32) in
+    ``hbw/body_models``."""
+    root = tmp_path_factory.mktemp("release")
+    models = root / "hbw" / "body_models"
+    models.mkdir(parents=True)
+    rng = np.random.default_rng(4)
+    subs = {}
+    for model_type, subdiv, name in (("smplx", 5, "SMPLX"),
+                                     ("smpl", 4, "SMPL")):
+        data = make_synthetic_model_data(model_type, subdivisions=subdiv,
+                                         exact_counts=True,
+                                         num_shape_dirs=20)
+        np.savez(models / f"{name}_NEUTRAL.npz", **{
+            k: v.astype(np.float32) if v.dtype.kind == "f" else v
+            for k, v in data.items()})
+        gt, fits = _bodies(data, 2, rng)
+        if model_type == "smplx":
+            labels = _hbw_tree(root, gt)
+            np.savez(root / "faces.npz", faces=data["f"])
+        subs[model_type] = root / f"sub_{model_type}.npz"
+        np.savez(subs[model_type], image_name=np.asarray(labels),
+                 v_shaped=fits)
+    return root, subs
+
+
+@pytest.mark.parametrize("route,model_type", [
+    ("faces", "smplx"), ("faces", "smpl"), ("folder", "smplx"),
+    ("folder", "smpl")])
+def test_main_release_routes_print_what_jax_prints(release_tree, monkeypatch,
+                                                   capsys, route,
+                                                   model_type):
+    """``--faces-path`` (anchors from the repository's YAMLs, both meshes
+    on the npz's faces) and the model folder (SMPL fits on the SMPL
+    model's own faces)."""
     monkeypatch.delenv("SHAPY_TPU_SYNTHETIC_BODY", raising=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(str(tmp_path / "x.npz"), str(tmp_path), device="cpu")
-    monkeypatch.setenv("SHAPY_TPU_SYNTHETIC_BODY", "1")
-    with pytest.raises(NotImplementedError, match="anchors from YAML"):
-        tcli.main(str(tmp_path / "x.npz"), str(tmp_path),
-                  faces_path=str(tmp_path / "f.npz"), device="cpu")
+    root, subs = release_tree
+    if route == "faces" and model_type == "smpl":
+        # SMPL anchors on the npz's SMPL-X faces, as in the JAX CLI: the
+        # SMPL-X submission is read as SMPL.
+        sub = subs["smplx"]
+    else:
+        sub = subs[model_type]
+    kw = {}
+    if route == "faces":
+        kw = {"faces_path": str(root / "faces.npz"),
+              "body_measurement_folder": str(
+                  Path(tcli.__file__).resolve().parents[2] / "assets"
+                  / "measurements")}
+    assert jcli.main(str(sub), str(root / "hbw"), model_type, **kw) == 0
+    want = capsys.readouterr().out
+    args = ["--input-npz-file", str(sub), "--hbw-folder",
+            str(root / "hbw"), "--model-type", model_type, "--device", "cpu"]
+    for key, value in kw.items():
+        args += ["--" + key.replace("_", "-"), value]
+    assert tcli.cli(args) == 0
+    got = capsys.readouterr().out
+    assert got == want and "chest Error" in got
+    assert ("V2V Error" in got) == (model_type == "smplx")
+
+
+def test_smpl_fits_on_smplx_faces_are_refused(smplx):
+    """Faces that index past the fits' vertices raise before the gather
+    (on the card an out-of-range gather would end the CUDA context)."""
+    data, faces, anchors, _ = smplx
+    gt, fits = _bodies(data, 2, np.random.default_rng(5))
+    labels = ["val/a/img.jpg", "val/b/img.jpg"]
+    meas = BodyMeasurements(anchors, faces)
+    with pytest.raises(ValueError, match="faces index beyond"):
+        tcli.evaluate_submission(
+            labels, fits[:, :-10], dict(zip(labels, gt)).get,
+            model_type="smpl", measurements_gt=meas, measurements_fit=meas,
+            device="cpu")
 
 
 def test_check_submission_format_matches_jax(tmp_path, capsys):

@@ -550,6 +550,112 @@ def test_measure_cuda_tensors_never_fall_back_to_plain(dev, body,
                                                .all())
 
 
+# -- K1-AoS: the triangle measurement surface --------------------------------
+
+
+def _identity_plain(meas, tri, centroids=None, dtype=torch.float32):
+    """K1's plain version on the triangles as (B, 3F, 3) vertices with the
+    faces (3f, 3f + 1, 3f + 2): the values K1-AoS computes."""
+    B, F = tri.shape[:2]
+    faces = torch.arange(3 * F, device=tri.device).view(F, 3)
+    return measure_plain(tri.reshape(B, 3 * F, 3).to(dtype), faces, None,
+                         meas.anchors, meas.num_hull_directions, meas.density,
+                         meas.slice_mode, centroids)
+
+
+@pytest.mark.parametrize("slice_mode", ["reference", "exact"])
+def test_measure_aos_kernel_matches_plain(dev, body, slice_mode):
+    """K1-AoS (K1 on the triangles, then ``measure_points``) against the
+    plain AoS version on the card: mass and height rel 1e-5 (f32 sums in
+    another order), circumferences 1e-5 m, masks equal, points bit-equal
+    in reference mode and within 1e-6 m in exact mode (y recomputed with
+    the plain version's operations), height points exact; the values
+    bit-equal to K1 on the same faces from the vertices; one launch of
+    each kernel; the gradient within 1e-4 of the largest of autograd
+    through K1's plain version on the triangles given the kernel's
+    centroids."""
+    model, base = body
+    meas = BodyMeasurements(base.anchors, model.faces, 256,
+                            slice_mode=slice_mode).to(dev)
+    gen = torch.Generator().manual_seed(9)
+    betas = torch.randn(5, 10, generator=gen) * 1.5
+    v = model.forward_shape(betas.to(dev))["v_shaped"].detach().contiguous()
+    tri = v[:, model.faces_tensor.long()].contiguous().requires_grad_()
+    fwd = ("measure_forward" if slice_mode == "reference"
+           else "measure_exact_forward")
+    before = dict(MEASURE_KERNEL.counts)
+    got = meas(tri)["measurements"]
+    assert MEASURE_KERNEL.counts[fwd] == before[fwd] + 1
+    assert MEASURE_KERNEL.counts["measure_points"] == \
+        before["measure_points"] + 1
+    with torch.no_grad():
+        want = meas.forward_plain(tri)["measurements"]
+        soa = meas.forward_from_vertices(v, use_face_subsets=False)
+    for k in ("mass", "height"):
+        torch.testing.assert_close(got[k]["tensor"], want[k]["tensor"],
+                                   rtol=1e-5, atol=0)
+        assert torch.equal(got[k]["tensor"],
+                           soa["measurements"][k]["tensor"])
+    assert torch.equal(got["height"]["points"], want["height"]["points"])
+    for k in PLANES:
+        g, w = got[k], want[k]
+        torch.testing.assert_close(g["tensor"], w["tensor"], rtol=0,
+                                   atol=1e-5)
+        assert torch.equal(g["tensor"], soa["measurements"][k]["tensor"])
+        assert torch.equal(g["plane_height"], w["plane_height"])
+        assert torch.equal(g["valid_points"], w["valid_points"])
+        assert g["valid_points"].any(-1).all()
+        if slice_mode == "reference":
+            assert torch.equal(g["points"], w["points"])
+        else:
+            torch.testing.assert_close(g["points"], w["points"], rtol=0,
+                                       atol=1e-6)
+        assert not g["points"].requires_grad
+    g_vals = torch.randn(5, 5, generator=gen).to(dev)
+    loss = sum((g_vals[:, i] * got[k]["tensor"]).sum()
+               for i, k in enumerate(("mass", "height") + PLANES))
+    cents = saved_centroids(got["mass"]["tensor"]._base).detach()
+    grad = torch.autograd.grad(loss, tri)[0]
+    x = tri.detach().clone().requires_grad_()
+    vals, _ = _identity_plain(meas, x, cents)
+    want_g = torch.autograd.grad((vals * g_vals).sum(), x)[0]
+    scale = float(want_g.abs().max())
+    torch.testing.assert_close(grad, want_g, rtol=0, atol=1e-4 * scale)
+
+
+def test_measure_aos_cuda_tensors_never_fall_back_to_plain(dev, body,
+                                                           monkeypatch):
+    """The triangle surface launches K1-AoS on CUDA tensors in both modes,
+    forward and backward, for every ``compute_*`` entry; the plain slices
+    and hull are never called; an anchor beyond the triangles raises."""
+    from shapy_tpu_torch.measure import measurements
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    for name in ("plane_slice_reference", "plane_slice_triangles",
+                 "hull_perimeter_support", "signed_volume", "measure_plain"):
+        monkeypatch.setattr(measurements, name, refuse)
+    model, base = body
+    for mode in ("reference", "exact"):
+        meas = BodyMeasurements(base.anchors, model.faces, 256,
+                                slice_mode=mode).to(dev)
+        betas = torch.zeros(2, 10, device=dev, requires_grad=True)
+        tri = model.forward_shape(betas)["v_shaped"][
+            :, model.faces_tensor.long()]
+        out = meas(tri, compute_waist=False)["measurements"]
+        assert set(out) == {"mass", "height", "chest", "hips"}
+        (out["chest"]["tensor"].sum() + meas.compute_mass(tri).sum()
+         + meas.compute_height(tri)[0].sum()).backward()
+        assert betas.grad is not None and bool(torch.isfinite(betas.grad)
+                                               .all())
+        one = meas.compute_periphery(tri.detach(), meas.anchors.hips)
+        torch.testing.assert_close(one["tensor"], out["hips"]["tensor"],
+                                   rtol=0, atol=0)
+    with pytest.raises(ValueError, match="anchor face"):
+        meas(tri[:, :10].detach())
+
+
 # -- contact and distance kernels: K6, K7, K9 --------------------------------
 
 
