@@ -6,15 +6,17 @@ GPU: the quickest proof that the port still starts on the card.
 
 Phases, each of which raises on failure (exit code 1):
 
-1. Prints the card's name and power limit, and builds the ten
+1. Prints the card's name and power limit, and builds the twelve
    hand-written CUDA sources from ``shapy_tpu_torch/csrc/``, one nvcc
    process each, all started together: K1 measure (reference and exact
-   slice modes, forward and backward, and K1-AoS's ``measure_points``),
-   K2 ingest, K3 skinning forward and
+   slice modes, forward and backward, and K1-AoS's ``measure_points``
+   and ``measure_points_backward``), K2 ingest, K3 skinning forward and
    backward, K3-chain forward and backward, K4 train-mode BatchNorm
-   forward and backward, K6 mesh-mesh intersection, K7 repulsion forward
-   and backward, K8a P2P point error, K8b aligned point error, K9
-   nearest-neighbour distances; prints each kernel's registers and stack.
+   forward and backward, K5-conv (the backbone's convolutions with their
+   epilogue), K5-fuse (HRNet's multi-resolution fusion), K6 mesh-mesh
+   intersection, K7 repulsion forward and backward, K8a P2P point error,
+   K8b aligned point error, K9 nearest-neighbour distances; prints each
+   kernel's registers and stack.
 2. Holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes (batch 32, SMPL-X 10475 vertices / 20908 faces,
    K=256 hull directions, 480x360 uint8 images -> 256x256 crops, a
@@ -37,15 +39,28 @@ Phases, each of which raises on failure (exit code 1):
    height rel 1e-5, masks equal, points bit-equal (reference) or within
    1e-6 m (exact), height points exact, values bit-equal to K1 from the
    vertices, the backward as K1's; timed with K1 alone on the triangles.
-   K5 has no hand kernel yet: cuDNN (``F.conv2d``, bf16, channels_last,
-   batch 32) is timed on the stem conv and a stage-4 branch conv beside
-   each one's bound (FLOPs at 989 TFLOP/s bf16, bytes at 3.35 TB/s).
+   ``measure_points_backward`` in both modes against autograd through
+   the plain AoS slice in f64 at the forward's plane heights, within
+   1e-5 of the largest gradient.
+   K5-conv at all 33 conv shapes of the W48 forward, with the served
+   weights and each shape's epilogue: batch 32 in bf16 within one bf16
+   step of the plain value at each rounding of the epilogue plus the
+   worst-case gap of two f32 sums in other orders, against the plain
+   version and against the plain epilogue on the exact (f64) sum (the
+   differing elements counted), batch 2 in f32 within 1e-5 of the
+   largest |y|; each shape timed beside cuDNN's ``F.conv2d`` (its
+   library time) and its bound (FLOPs at 989 TFLOP/s bf16, bytes at
+   3.35 TB/s). K5-fuse bit-equal at every target of a stage-4 module
+   (bf16 batch 32, f32 batch 2), timed. The whole bf16 backbone at batch
+   32, the K5 route against the plain route (cuDNN + eager ops): both
+   times, the features' cosine (>= 0.999) and relative L2 (<= 0.05).
 3. Serves the flagship (HRNet-W48 at full width, 3-stage head with MLP
    (1024, 1024), SMPL-X, measurements; bf16 backbone) through
    ``apply_from_full_images``: one warm-up, then 3 requests of batch 32.
    Weights are random from a seed. Checks that every output is finite,
-   that betas vary per image inside the candidate-face bound, and that
-   K1, K2 and K3 were launched by this run.
+   that betas vary per image inside the candidate-face bound, that K1,
+   K2 and K3 were launched by this run, and that every backbone forward
+   made exactly 331 K5-conv and 26 K5-fuse launches.
 4. Cross-device parity: the same weights at batch 2 with an f32 backbone
    and TF32 off, the CPU port (plain versions) against the CUDA port
    (kernels): outputs, and the evaluator's metrics on them; then one train
@@ -61,11 +76,14 @@ Phases, each of which raises on failure (exit code 1):
    reference's alignment sets. Checks finite metrics and group means,
    that K1, K2, K3, K8a and K8b were each launched by this run, and that
    each batch's metrics equal those of the kernels' plain versions on
-   the card; prints images/s of forward + metrics.
+   the card, and 331 K5-conv and 26 K5-fuse launches per forward; prints
+   images/s of forward + metrics.
 6. Scores a synthetic HBW submission of 64 fitted bodies against their GT
    with ``cli.evaluate_hbw.evaluate_submission`` (K8b V2V, K8a P2P,
    K1-AoS on all faces of both meshes' triangles); checks the launches,
-   finite errors and the plain versions' numbers. Then runs the scorer's
+   finite errors and the plain versions' numbers; differentiates the
+   fitted bodies' circumferences and slice points in their vertices (one
+   ``measure_points_backward`` launch per batch). Then runs the scorer's
    ``main`` on a release tree written to a temporary directory (the GT as
    HBW npy files, a faces npz, synthetic SMPL-X and SMPL release files at
    the real counts): the ``--faces-path`` route (SMPL-X, anchors from the
@@ -78,7 +96,8 @@ Phases, each of which raises on failure (exit code 1):
    fixed synthetic batch of 48. Checks finite losses and a last total
    below the first, that every BN running stat moved and ``param_mean``
    did not, and that K1, K3 and K3-chain (forward and backward) and K4
-   (forward and backward) were launched by these 10 steps; prints steps/s,
+   (forward and backward) were launched by these 10 steps, and K5 not
+   (training keeps cuDNN's convs); prints steps/s,
    images/s and the peak device memory beside the card.
 8. Fits shape to measurements with ``fit_betas_to_measurements`` on the
    full-width SMPL-X, in both slice modes: batch 1 from zero betas and
@@ -112,10 +131,10 @@ The line before the last is a JSON object with one entry per kernel
 function (forward and backward separately); ``launches`` counts the
 training phase for the kernels it runs, the batch-32 fit of phase 8 for
 K1's backward and K1-exact, phase 9 for K6, K7 and K9, the scorer
-(phase 6) for K1-AoS's points, and the evaluation phase for the others;
-K5's cuDNN times are on a line of their own before it
-(``{"library_only": ...}``). The
-last line is ``{"ok": true, "device": {...}}``. Without CUDA, or without
+(phase 6) for K1-AoS's points and their backward, and the evaluation
+phase for the others (K5 among them; its times are one forward's convs,
+or a stage-4 module's fusion targets, at batch 32). The last line is
+``{"ok": true, "device": {...}}``. Without CUDA, or without
 the repository beside this file, it exits non-zero and prints no result.
 """
 
@@ -260,7 +279,8 @@ def kernels():
         REGRESS_KERNEL,
     )
     from shapy_tpu_torch.measure.measurements import MEASURE_KERNEL
-    from shapy_tpu_torch.models.backbones.layers import BN_KERNEL
+    from shapy_tpu_torch.models.backbones.hrnet import FUSE_KERNEL
+    from shapy_tpu_torch.models.backbones.layers import BN_KERNEL, CONV_KERNEL
     from shapy_tpu_torch.models.body.lbs import SKIN_KERNEL
     from shapy_tpu_torch.ops.repulsion import REPULSION_KERNEL
     from shapy_tpu_torch.ops.tri_tri import TRI_KERNEL
@@ -277,6 +297,8 @@ def kernels():
          csrc + "measure.cu", "shapy_tpu/ops/plane_slice.py:242"),
         ("K1aos_points", MEASURE_KERNEL, "measure_points",
          csrc + "measure.cu", "shapy_tpu/ops/plane_slice.py:28"),
+        ("K1aos_points_backward", MEASURE_KERNEL, "measure_points_backward",
+         csrc + "measure.cu", "shapy_tpu/ops/plane_slice.py:28"),
         ("K2_ingest", INGEST_KERNEL, "ingest_forward", csrc + "ingest.cu",
          "shapy_tpu/data/crop.py:96"),
         ("K3_skinning", SKIN_KERNEL, "skin_forward", csrc + "skinning.cu",
@@ -291,6 +313,10 @@ def kernels():
          "shapy_tpu/models/backbones/layers.py:174"),
         ("K4_bn_backward", BN_KERNEL, "bn_backward", csrc + "batch_norm.cu",
          "shapy_tpu/models/backbones/layers.py:198"),
+        ("K5_conv", CONV_KERNEL, "conv2d_act_forward", csrc + "conv.cu",
+         "shapy_tpu/models/backbones/layers.py:91"),
+        ("K5_fuse", FUSE_KERNEL, "hr_fuse_forward", csrc + "hr_fuse.cu",
+         "shapy_tpu/models/backbones/hrnet.py:141"),
         ("K8a_point_regress", REGRESS_KERNEL, "point_regress_forward",
          csrc + "point_regress.cu", "shapy_tpu/eval/metrics.py:228"),
         ("K8b_align_error", ALIGN_KERNEL, "align_error_forward",
@@ -307,7 +333,12 @@ def kernels():
 
 
 # The kernels each path runs.
-SERVE_KERNELS = ("K1_measure", "K2_ingest", "K3_skinning", "K3chain_forward")
+SERVE_KERNELS = ("K1_measure", "K2_ingest", "K3_skinning", "K3chain_forward",
+                 "K5_conv", "K5_fuse")
+# Launches per backbone forward: every conv of HRNet-W48 once, every
+# fusion target once.
+K5_PER_FORWARD = {"K5_conv": 331, "K5_fuse": 26}
+K5_SHAPES = 33
 EVAL_KERNELS = SERVE_KERNELS + ("K8a_point_regress", "K8b_align_error")
 SCORE_KERNELS = ("K1_measure", "K1aos_points", "K8a_point_regress",
                  "K8b_align_error")
@@ -519,6 +550,15 @@ def check_kernels(regressor, requests, eval_data, dev):
     return results
 
 
+def check_k5_launches(launches: dict, forwards: int, what: str) -> None:
+    """Exactly 331 K5-conv and 26 K5-fuse launches per backbone forward:
+    every conv and fusion target of the eval backbone ran its kernel."""
+    for name, per in K5_PER_FORWARD.items():
+        check(launches[name] == per * forwards,
+              f"{what}: {launches[name]} {name} launches for {forwards} "
+              f"forwards, expected {per} each")
+
+
 def serve(regressor, requests):
     """The main path: warm-up, then 3 requests of batch B. Returns the
     launch counts of this run and images/s."""
@@ -552,6 +592,7 @@ def serve(regressor, requests):
     check(spread > 1e-3, "betas do not vary per image")
     for name in SERVE_KERNELS:
         check(launches[name] > 0, f"{name} was not launched by serving")
+    check_k5_launches(launches, 3, "serving")
     rate = 3 * B / elapsed
     meas = {k: [round(float(v.min()), 4), round(float(v.max()), 4)]
             for k, v in outs[-1]["measurements"].items()}
@@ -660,6 +701,7 @@ def evaluate(regressor, eval_data, serve_rate):
 
     for name in EVAL_KERNELS:
         check(launches[name] > 0, f"{name} was not launched by the eval path")
+    check_k5_launches(launches, EVAL_BATCHES, "the eval path")
     metric_names = [k for k in results if "/" not in k]
     check(len(metric_names) == 15, f"metrics {sorted(metric_names)}")
     check(all(math.isfinite(v) for v in results.values()),
@@ -736,6 +778,39 @@ def plain_errors(fit_t, gt_t, meas_gt, meas_fit, gt_faces, fit_faces,
     return out
 
 
+def points_gradient(meas, fits, dev) -> dict:
+    """Phase 6, the slice points' gradient: the scorer's triangle surface
+    (``BodyMeasurements.forward`` on ``v[:, faces]`` of the fitted bodies,
+    batch 32) differentiated in the vertices through a loss on the
+    circumferences and on the chest, waist and hips slice points (the sum
+    of their squared coordinates, masked slots included). Checks one
+    ``measure_points_backward`` launch per batch and
+    a finite, non-zero gradient. Returns its launches."""
+    import torch
+
+    faces = meas.faces.long()
+    reset_launches()
+    batches = 0
+    for start in range(0, len(fits), B):
+        v = torch.from_numpy(np.ascontiguousarray(
+            fits[start:start + B], np.float32)).to(dev).requires_grad_()
+        m = meas(v[:, faces])["measurements"]
+        loss = sum(m[k]["tensor"].sum() + m[k]["points"].square().sum()
+                   for k in PLANE_NAMES)
+        grad = torch.autograd.grad(loss, v)[0]
+        check(bool(torch.isfinite(grad).all()) and float(grad.abs().max())
+              > 0, "slice points' gradient")
+        batches += 1
+    launches = read_launches()
+    check(launches["K1aos_points_backward"] == batches,
+          f"{launches['K1aos_points_backward']} points backward launches for "
+          f"{batches} batches")
+    print(f"score, the slice points' gradient: {batches} batches of {B}; "
+          f"launches {launches['K1aos_points_backward']} "
+          "measure_points_backward")
+    return {"K1aos_points_backward": launches["K1aos_points_backward"]}
+
+
 def score(regressor, eval_data, dev):
     """Phase 6: the offline HBW scorer on a synthetic submission, through
     ``evaluate_submission``, then ``main`` on the faces-file route (SMPL-X)
@@ -774,6 +849,7 @@ def score(regressor, eval_data, dev):
     launches = score_launches = read_launches()
     for name in SCORE_KERNELS:
         check(launches[name] > 0, f"{name} was not launched by the scorer")
+    score_launches.update(points_gradient(meas, fits, dev))
     check(all(math.isfinite(v) for v in results.values()) and
           len(results) == 7, f"scorer results {results}")
     fit_t = torch.from_numpy(np.ascontiguousarray(fits, np.float32)).to(dev)
@@ -1245,7 +1321,7 @@ def check_aos_kernel(model, anchors, dev):
     F = faces.shape[0]
     keys = ("mass", "height", "chest", "waist", "hips")
     g_vals = torch.randn((B, 5), generator=gen).to(dev)
-    rows = []
+    rows, back_rows = [], []
     for mode in ("reference", "exact"):
         meas = BodyMeasurements(anchors, model.faces, K,
                                 slice_mode=mode).to(dev)
@@ -1341,46 +1417,456 @@ def check_aos_kernel(model, anchors, dev):
               f"measure_points ~{row['points_ms']:.4f} ms")
         rows.append(row)
         del x, got, want, w64, xp
-    return {"K1aos_points": dict(rows[0], cases=rows)}
+        back_rows.append(check_points_backward(meas, tri, mode, gen))
+    return {"K1aos_points": dict(rows[0], cases=rows),
+            "K1aos_points_backward": dict(back_rows[0], cases=back_rows)}
 
 
-def check_library_convs(dev):
-    """Phase 2, K5 (no hand kernel yet): cuDNN through ``F.conv2d`` in bf16,
-    channels_last, batch 32, on the backbone's stem conv (3 -> 64, 3x3,
-    stride 2, 256^2 -> 128^2) and a stage-4 3x3 branch conv of the first
-    branch (48 -> 48 at 64^2), each beside its bound from FLOPs at the
-    dense bf16 tensor-core peak and from bytes (input, weights and output
-    once) at 3.35 TB/s."""
+def saved_measure_tensors(value):
+    """What K1-AoS's forward saved for its backward (vertices, hits,
+    codes, stats, plane heights), from one of its output values."""
+    return value._base.grad_fn.saved_tensors
+
+
+def points_plain_f64(meas, tri, plane_heights: dict) -> dict:
+    """The slice points of ``tri`` through the plain AoS slice in f64,
+    differentiable, at the given (f32) plane heights: each height's value
+    is pinned, its gradient flows to the anchor triangle in f64. The
+    points are a function of the plane height that the forward computed
+    once in f32; near-horizontal crossed edges make their gradient
+    ill-conditioned in it (a height one f32 rounding away can move the
+    gradient by more than the check's 1e-5), so the reference takes the
+    forward's heights, as K1's backward is held against the plain version
+    given the kernel's centroids. Returns {plane: (points,
+    mask)}."""
+    from shapy_tpu_torch.core.geometry import face_barycentric_point
+    from shapy_tpu_torch.ops.plane_slice import (
+        plane_slice_reference,
+        plane_slice_triangles,
+    )
+
+    out = {}
+    for k in PLANE_NAMES:
+        anchor = getattr(meas.anchors, k)
+        h = face_barycentric_point(tri, anchor.face_idx, anchor.bary)[..., 1]
+        h = h + (plane_heights[k].to(h.dtype) - h).detach()
+        fn = (plane_slice_reference if meas.slice_mode == "reference"
+              else plane_slice_triangles)
+        out[k] = fn(tri, h)
+    return out
+
+
+def check_points_backward(meas, tri, mode, gen):
+    """Phase 2, ``measure_points_backward`` at the scorer's shapes: the
+    gradient of a weighted sum of the slice points (masked slots
+    included) in the triangles, against autograd through the plain AoS
+    slice in f64 at the forward's plane heights (:func:`points_plain_f64`;
+    its masks must equal the kernel's: the same hits), within 1e-5 of the
+    largest gradient. Times the kernel alone, and the plain version's
+    backward in f32."""
+    import torch
+
+    from shapy_tpu_torch.measure.measurements import MEASURE_KERNEL
+
+    Bt, F = tri.shape[:2]
+    x = tri.clone().requires_grad_()
+    got = meas(x)["measurements"]
+    # the forward's saved (B, 3F, 3) vertices and plane heights, for the
+    # kernel's timing below
+    verts, _, _, _, plane_h = saved_measure_tensors(got["mass"]["tensor"])
+    w = {k: torch.randn(got[k]["points"].shape, generator=gen).to(tri.device)
+         for k in PLANE_NAMES}
+    grad = torch.autograd.grad(sum((w[k] * got[k]["points"]).sum()
+                                   for k in PLANE_NAMES), x)[0]
+    x64 = tri.double().requires_grad_()
+    want = points_plain_f64(meas, x64, {
+        k: got[k]["plane_height"].detach() for k in PLANE_NAMES})
+    masks = all(torch.equal(got[k]["valid_points"], want[k][1])
+                for k in PLANE_NAMES)
+    want_g = torch.autograd.grad(sum((w[k].double() * want[k][0]).sum()
+                                     for k in PLANE_NAMES), x64)[0]
+    err = max_err(grad, want_g) / float(want_g.abs().max())
+    name = "K1-AoS points backward" + (" exact" if mode == "exact" else "")
+    print(f"{name} batch {Bt}, all {F} faces: masks equal to plain f64 "
+          f"{masks}; of the largest gradient vs plain f64 {err:.3e} "
+          "(tol 1e-5)")
+    check(masks, f"{name}: the f64 plain version's hits differ")
+    check(err <= 1e-5, f"{name} vs plain f64: {err}")
+
+    walk = meas._triangle_walk(F, tri.device, tuple(meas.anchors.ordered()),
+                               (F,) * 3)
+    g_points = torch.randn((Bt, 3, 6 * F), generator=gen).to(tri.device)
+    outs = (torch.empty_like(verts),
+            torch.empty((Bt, 3, F), device=tri.device),
+            torch.empty((Bt, 3), device=tri.device))
+    xp = tri.clone().requires_grad_()
+    plain = meas.forward_plain(xp)["measurements"]
+    plain_loss = sum((w[k] * plain[k]["points"]).sum() for k in PLANE_NAMES)
+    # Bytes: the points' cotangent and the triangles read once, the
+    # gradient written once; operations: the slice tests of every (face,
+    # plane) again and ~100 per hit for its VJP.
+    hits = sum(int(got[k]["valid_points"].sum()) for k in PLANE_NAMES)
+    row = record_kernel(
+        {}, f"{name} (batch {Bt}, all faces)", err,
+        lambda: MEASURE_KERNEL.launch("measure_points_backward", [
+            verts, walk.faces, plane_h, g_points, *outs, Bt, 3 * F, F, F, F,
+            F, int(mode == "exact")]),
+        lambda: torch.autograd.grad(plain_loss, xp, retain_graph=True),
+        (g_points.numel() + 2 * verts.numel() + Bt * 3) * 4,
+        Bt * F * 3 * (150 if mode == "reference" else 12) + hits * 100,
+        plain_iters=5)
+    return dict(row, mode=mode, batch=Bt, masks_equal=masks)
+
+
+def served_input(requests):
+    """The backbone's input of the served request: the bf16 crops of
+    ``requests``, channels_last NCHW."""
+    import torch
+
+    from shapy_tpu_torch.data.crop import crop_normalize
+
+    images, affines = requests
+    crops = crop_normalize(images, affines, CROP, out_dtype=torch.bfloat16)
+    return crops.permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+
+
+def backbone_calls(backbone, requests):
+    """Every ``conv2d_act`` and every ``hr_fuse`` call of one eval forward
+    of ``backbone`` on the served crops at batch 32, in order, with its
+    arguments (kept alive, to replay them): (convs, fuses), each conv
+    ``(x, weight, bias, residual, relu, stride)``, each fuse ``(x,
+    terms)``."""
+    import torch
+
+    from shapy_tpu_torch.models.backbones import hrnet, layers
+
+    convs, fuses = [], []
+    conv_fn, fuse_fn = layers.conv2d_act, hrnet.hr_fuse
+
+    def conv(x, weight, bias=None, residual=None, relu=False, stride=1):
+        convs.append((x, weight, bias, residual, relu, stride))
+        return conv_fn(x, weight, bias, residual, relu, stride)
+
+    def fuse(x, terms):
+        fuses.append((x, list(terms)))
+        return fuse_fn(x, terms)
+
+    layers.conv2d_act, hrnet.hr_fuse = conv, fuse
+    try:
+        with torch.inference_mode():
+            backbone(served_input(requests))
+    finally:
+        layers.conv2d_act, hrnet.hr_fuse = conv_fn, fuse_fn
+    return convs, fuses
+
+
+def replay(fn, calls):
+    """A function that makes every call of ``calls`` through ``fn``, in
+    order (outputs dropped), for :func:`time_ms` to time as one window."""
+    def run():
+        for args in calls:
+            fn(*args)
+    return run
+
+
+def check_conv_kernels(convs):
+    """Phase 2, K5-conv at every one of the backbone's 33 conv shapes, with
+    the served weights (bf16, BN folded) and the epilogue the forward first
+    uses at that shape, at batch 32 in bf16. Against the plain version
+    (cuDNN without bias, then eager adds and ReLU) and against the plain
+    epilogue on the exact conv sum (f64, rounded once to bf16): within
+    ``conv2d_act_bf16_tolerance`` (one bf16 step of the plain value at each
+    rounding of the epilogue, plus the worst-case gap of two f32 sums of
+    the same products in other orders); the elements that differ from the
+    plain version, and the steps of each side from the exact sum, are
+    counted and printed. Then at batch 2 in f32 (TF32 off) within 1e-5 of
+    the largest |y|. Each shape's kernel, plain version and cuDNN's
+    ``F.conv2d`` with bias are timed under ``cases``, beside the shape's
+    bound (FLOPs at 989 TFLOP/s bf16, bytes of x, weight, bias, residual
+    and y at 3.35 TB/s).
+
+    The entry's times are one forward's: ``convs``, the 331 recorded calls
+    of a served forward at batch 32 (:func:`backbone_calls`), each with
+    its own input, weight and epilogue, replayed in one CUDA-event window
+    through the kernel, the plain version and ``F.conv2d(x, w, bias)``
+    (the library call: cuDNN, without the residual and ReLU); the bound is
+    the larger of those calls' summed bytes and summed FLOPs over the
+    peak rates."""
     import torch
     import torch.nn.functional as F
 
-    gen = torch.Generator().manual_seed(SEED + 13)
-    out = {}
-    for name, cin, cout, size, stride in (("stem", 3, 64, CROP, 2),
-                                          ("stage4_branch0", 48, 48, 64, 1)):
-        x = torch.randn((B, cin, size, size), generator=gen).to(
-            dev, torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        w = (torch.randn((cout, cin, 3, 3), generator=gen) * 0.1).to(
-            dev, torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        y = F.conv2d(x, w, stride=stride, padding=1)
-        ms = time_ms(lambda: F.conv2d(x, w, stride=stride, padding=1))
-        flops = 2 * y.numel() * cin * 9
-        nbytes = (x.numel() + w.numel() + y.numel()) * 2
-        flops_ms = flops / PEAK_BF16_FLOP_S * 1e3
+    from shapy_tpu_torch.models.backbones.layers import (
+        conv2d_act,
+        conv2d_act_bf16_tolerance,
+        conv2d_act_plain,
+    )
+
+    check(len(convs) == K5_PER_FORWARD["K5_conv"],
+          f"{len(convs)} convs per forward")
+    shapes = {}
+    for x, w, b, r, relu, stride in convs:
+        key = (x.shape[1], w.shape[0], w.shape[-1], stride, x.shape[2])
+        shapes.setdefault(key, {"weight": w, "bias": b, "relu": relu,
+                                "residual": r is not None, "count": 0})
+        shapes[key]["count"] += 1
+    check(len(shapes) == K5_SHAPES, f"{len(shapes)} conv shapes")
+    dev = convs[0][0].device
+    gen = torch.Generator().manual_seed(SEED + 14)
+    cl = torch.channels_last
+    cases, failed = [], []
+    worst, worst_f32, total_diff, total_elems = 0.0, 0.0, 0, 0
+    for (cin, cout, k, stride, size), c in shapes.items():
+        out = (size + 2 * (k // 2) - k) // stride + 1
+        x = torch.randn((B, cin, size, size), generator=gen)
+        x = (x if cin == 3 else x.abs()).to(dev, torch.bfloat16).contiguous(
+            memory_format=cl)
+        w, b, relu = c["weight"], c["bias"], c["relu"]
+        r = (torch.randn((B, cout, out, out), generator=gen).to(
+            dev, torch.bfloat16).contiguous(memory_format=cl)
+            if c["residual"] else None)
+        got = conv2d_act(x, w, b, r, relu, stride)
+        want = conv2d_act_plain(x, w, b, r, relu, stride)
+        saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            terms = F.conv2d(x.abs().float(), w.abs().float(), None, stride,
+                             k // 2)
+            exact_sum = F.conv2d(x.double(), w.double(), None, stride,
+                                 k // 2)
+            # f32 at batch 2: the f32 sums in another order
+            args32 = (x[:2].float(), w.float(),
+                      None if b is None else b.float(),
+                      None if r is None else r[:2].float(), relu, stride)
+            got32 = conv2d_act(*args32)
+            want32 = conv2d_act_plain(*args32)
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved
+        exact = exact_sum.to(torch.bfloat16)
+        if b is not None:
+            exact = exact + b[:, None, None]
+        if r is not None:
+            exact = exact + r
+        if relu:
+            exact = torch.relu(exact)
+        tol = conv2d_act_bf16_tolerance(exact_sum.float(), b, r, terms,
+                                        cin, k)
+        steps = float(((got.float() - want.float()).abs() / tol).max())
+        steps_exact = float(((got.float() - exact.float()).abs() / tol)
+                            .max())
+        plain_exact = float(((want.float() - exact.float()).abs() / tol)
+                            .max())
+        n_diff = int((got != want).sum())
+        n_diff_exact = int((got != exact).sum())
+        n_plain_exact = int((want != exact).sum())
+        rel32 = max_err(got32, want32) / max(
+            float(want32.abs().max()), 1e-30)
+        torch.cuda.synchronize()
+        check(got.is_contiguous(memory_format=cl), "K5-conv layout")
+        name = f"{cin}->{cout} k{k} s{stride} {size}^2"
+        if steps > 1.0 or steps_exact > 1.0 or rel32 > 1e-5:
+            failed.append(name)
+        worst, worst_f32 = max(worst, max_err(got, want)), max(worst_f32,
+                                                              rel32)
+        total_diff += n_diff
+        total_elems += got.numel()
+
+        ms = time_ms(lambda: conv2d_act(x, w, b, r, relu, stride))
+        plain_ms = time_ms(lambda: conv2d_act_plain(x, w, b, r, relu, stride))
+        library_ms = time_ms(lambda: F.conv2d(x, w, b, stride, k // 2))
+        flops = 2.0 * got.numel() * cin * k * k
+        nbytes = 2.0 * (x.numel() + w.numel() + got.numel() * (
+            2 if r is not None else 1) + (0 if b is None else b.numel()))
+        ops_ms = flops / PEAK_BF16_FLOP_S * 1e3
         bytes_ms = nbytes / PEAK_BYTES_S * 1e3
-        out[name] = {"shape": [B, cin, size, size], "cout": cout,
-                     "stride": stride, "library_ms": ms,
-                     "bound_ms": max(flops_ms, bytes_ms),
-                     "bound_by": "bytes" if bytes_ms >= flops_ms
-                     else "operations",
-                     "flops_bound_ms": flops_ms, "bytes_bound_ms": bytes_ms}
-        print(f"K5 cuDNN {name} conv ({cin}->{cout}, {size}^2, stride "
-              f"{stride}, bf16 channels_last, batch {B}): {ms:.4f} ms; "
-              f"bound {max(flops_ms, bytes_ms):.4f} ms (FLOPs "
-              f"{flops / 1e9:.2f} G -> {flops_ms:.4f} ms at 989 TFLOP/s; "
-              f"bytes {nbytes / 1e6:.2f} MB -> {bytes_ms:.4f} ms at 3.35 "
-              f"TB/s); at {max(flops_ms, bytes_ms) / ms:.1%} of its bound")
-    return out
+        case = {"cin": cin, "cout": cout, "k": k, "stride": stride,
+                "size": size, "convs_per_forward": c["count"],
+                "bias": b is not None, "residual": r is not None,
+                "relu": relu, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": library_ms,
+                "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+                "tol_vs_plain": steps, "tol_vs_exact": steps_exact,
+                "plain_tol_vs_exact": plain_exact, "differing": n_diff,
+                "differing_from_exact": n_diff_exact,
+                "plain_differing_from_exact": n_plain_exact,
+                "elements": got.numel(), "f32_rel_err": rel32}
+        cases.append(case)
+        print(f"K5-conv {name} (x{c['count']}; bias {b is not None}, "
+              f"residual {r is not None}, relu {relu}): bf16 differs from "
+              f"plain in {n_diff} of {got.numel()} elements, at most "
+              f"{steps:.3f} of the tolerance (limit 1); from the exact sum's "
+              f"epilogue kernel {n_diff_exact} at {steps_exact:.3f}, plain "
+              f"{n_plain_exact} at {plain_exact:.3f}; f32 rel {rel32:.2e} "
+              f"(tol 1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f}, cuDNN "
+              f"{library_ms:.4f}, bound {max(ops_ms, bytes_ms):.4f} "
+              f"({case['bound_by']}), kernel at "
+              f"{max(ops_ms, bytes_ms) / ms:.1%} of its bound")
+        del terms, exact_sum, exact
+    check(not failed, f"K5-conv outside its tolerance at {failed}")
+
+    def library(x, w, b, r, relu, stride):
+        return F.conv2d(x, w, b, stride, w.shape[-1] // 2)
+
+    with torch.inference_mode():
+        ms = time_ms(replay(conv2d_act, convs))
+        plain_ms = time_ms(replay(conv2d_act_plain, convs))
+        library_ms = time_ms(replay(library, convs))
+    flops = nbytes = 0.0
+    for x, w, b, r, relu, stride in convs:
+        k = w.shape[-1]
+        side = (x.shape[2] + 2 * (k // 2) - k) // stride + 1
+        y = x.shape[0] * w.shape[0] * side * side
+        flops += 2.0 * y * x.shape[1] * k * k
+        nbytes += x.element_size() * (x.numel() + w.numel() + y * (
+            2 if r is not None else 1) + (0 if b is None else b.numel()))
+    ops_ms = flops / PEAK_BF16_FLOP_S * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    print(f"K5-conv, one served forward's {len(convs)} convs at batch {B} "
+          f"replayed in one window: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f}, cuDNN (conv + bias) {library_ms:.3f}, bound "
+          f"{bound_ms:.3f} ms ({flops / 1e12:.3f} TFLOP, "
+          f"{nbytes / 1e9:.3f} GB; by "
+          f"{'operations' if ops_ms >= bytes_ms else 'bytes'}), kernel at "
+          f"{bound_ms / ms:.1%} of its bound; per-shape checks: "
+          f"{total_diff} of {total_elems} bf16 elements differ from plain")
+    return {"K5_conv": {
+        "max_abs_err": worst, "f32_max_rel_err": worst_f32,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_call": "F.conv2d(x, w, bias) (cuDNN), bf16 channels_last",
+        "timed_as": f"one served forward's {len(convs)} convs at batch {B}, "
+                    "each with its own input, weight and epilogue, replayed "
+                    "in one CUDA-event window",
+        "cases": cases}}
+
+
+def check_fuse_kernel(regressor, fuses):
+    """Phase 2, K5-fuse: bit-equal to ``hr_fuse_plain`` at each of
+    ``fuses``, the 26 recorded calls of a served forward at batch 32
+    (:func:`backbone_calls`), and at every target of the first stage-4
+    module (its real widths and resolutions: 48..384 channels, 64^2..8^2)
+    at batch 32 in bf16 and batch 2 in f32, the terms made by K5-conv from
+    random branch outputs; each stage-4 target timed under ``cases``. The
+    entry's times are the 26 calls replayed in one CUDA-event window
+    through the kernel and the plain version; the bound is their bytes
+    (x, the terms and y once each) at 3.35 TB/s."""
+    import torch
+
+    from shapy_tpu_torch.models.backbones.hrnet import (
+        _branch_channels,
+        hr_fuse,
+        hr_fuse_plain,
+    )
+    from shapy_tpu_torch.models.backbones.layers import conv_act
+
+    check(len(fuses) == K5_PER_FORWARD["K5_fuse"],
+          f"{len(fuses)} fusion targets per forward")
+    with torch.inference_mode():
+        for n, (x, terms) in enumerate(fuses):
+            check(torch.equal(hr_fuse(x, terms), hr_fuse_plain(x, terms)),
+                  f"K5-fuse: the forward's fusion {n} differs")
+        # the forward's times: the stage-4 loop below times its targets
+        fwd = {"ms": time_ms(replay(hr_fuse, fuses)),
+               "plain_ms": time_ms(replay(hr_fuse_plain, fuses))}
+    nbytes = sum(x.element_size() * (2 * x.numel() + sum(
+        t.numel() for t, _ in terms)) for x, terms in fuses)
+    fwd["bound_ms"] = nbytes / PEAK_BYTES_S * 1e3
+    print(f"K5-fuse, one served forward's {len(fuses)} fusion targets at "
+          f"batch {B}: bit-equal to plain at each; replayed in one window: "
+          f"kernel {fwd['ms']:.4f} ms, plain {fwd['plain_ms']:.4f}, bound "
+          f"{fwd['bound_ms']:.4f} (bytes {nbytes / 1e6:.2f} MB), kernel at "
+          f"{fwd['bound_ms'] / fwd['ms']:.1%} of its bound")
+
+    module = regressor.backbone.stage4[0]
+    dev = fuses[0][0].device
+    gen = torch.Generator().manual_seed(SEED + 15)
+    chans = _branch_channels("stage4")
+    n = len(chans)
+    cases = []
+    for dtype, batch in ((torch.bfloat16, B), (torch.float32, 2)):
+        mod = module if dtype == torch.bfloat16 else copy.deepcopy(
+            module).float()
+        xs = [torch.randn((batch, c, (CROP // 4) >> i, (CROP // 4) >> i),
+                          generator=gen).abs().to(dev, dtype).contiguous(
+            memory_format=torch.channels_last) for i, c in enumerate(chans)]
+        with torch.inference_mode():
+            for i in range(n):
+                row = mod.fuse_layers[i]
+                terms = [(conv_act(row[j][0], row[j][1], xs[j]), j - i)
+                         if j > i else (row[j](xs[j]), 0)
+                         for j in list(range(i + 1, n)) + list(range(i))]
+                got = hr_fuse(xs[i], terms)
+                want = hr_fuse_plain(xs[i], terms)
+                torch.cuda.synchronize()
+                equal = torch.equal(got, want)
+                check(equal, f"K5-fuse target {i} ({dtype}) differs")
+                if dtype != torch.bfloat16:
+                    continue
+                ms = time_ms(lambda: hr_fuse(xs[i], terms))
+                plain_ms = time_ms(lambda: hr_fuse_plain(xs[i], terms))
+                nbytes = 2.0 * (2 * xs[i].numel()
+                                + sum(t.numel() for t, _ in terms))
+                bound_ms = nbytes / PEAK_BYTES_S * 1e3
+                cases.append({"target": i, "shape": list(xs[i].shape),
+                              "terms": len(terms), "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": bound_ms,
+                              "bit_equal": equal})
+                print(f"K5-fuse stage-4 target {i} {list(xs[i].shape)}, "
+                      f"{len(terms)} terms: bit-equal {equal}; kernel "
+                      f"{ms:.4f} ms, plain {plain_ms:.4f}, bound "
+                      f"{bound_ms:.4f} (bytes {nbytes / 1e6:.2f} MB), kernel "
+                      f"at {bound_ms / ms:.1%} of its bound")
+    print("K5-fuse f32 (batch 2): bit-equal at every target")
+    return {"K5_fuse": {
+        "max_abs_err": 0.0, **fwd, "bound_by": "bytes", "library_ms": None,
+        "timed_as": f"one served forward's {len(fuses)} fusion targets at "
+                    f"batch {B}, replayed in one CUDA-event window",
+        "cases": cases}}
+
+
+def check_backbone_routes(regressor, requests):
+    """Phase 2, the whole bf16 backbone at batch 32 on the served crops:
+    the K5 route (331 K5-conv and 26 K5-fuse launches) against the plain
+    route (the plain versions on the card: cuDNN convs, eager adds,
+    nearest upsamples), both timed. Limits on the features: cosine >=
+    0.999 and relative L2 <= 0.05: each side rounds to bf16 after every
+    op, and 331 convs summed in another order flip single bits that
+    accumulate."""
+    import torch
+
+    from shapy_tpu_torch.models.backbones import hrnet, layers
+
+    x = served_input(requests)
+    backbone = regressor.backbone
+    saved = (layers._conv2d_act_cuda, hrnet._hr_fuse_cuda)
+
+    def run():
+        return backbone(x)
+
+    with torch.inference_mode():
+        k5 = run().float()
+        k5_ms = time_ms(run, iters=10)
+        layers._conv2d_act_cuda = layers.conv2d_act_plain
+        hrnet._hr_fuse_cuda = hrnet.hr_fuse_plain
+        try:
+            plain = run().float()
+            plain_ms = time_ms(run, iters=10)
+        finally:
+            layers._conv2d_act_cuda, hrnet._hr_fuse_cuda = saved
+    cos = float(torch.nn.functional.cosine_similarity(
+        k5.flatten(), plain.flatten(), dim=0))
+    rel = float((k5 - plain).norm() / plain.norm())
+    print(f"backbone bf16 batch {B}: K5 route {k5_ms:.3f} ms, plain route "
+          f"(cuDNN + eager) {plain_ms:.3f} ms; features cosine {cos:.6f} "
+          f"(tol >= 0.999), relative L2 {rel:.3e} (tol 0.05)")
+    check(bool(torch.isfinite(k5).all()), "non-finite K5 features")
+    check(cos >= 0.999 and rel <= 0.05, "K5 backbone vs plain route")
+    return {"k5_ms": k5_ms, "plain_ms": plain_ms, "cosine": cos,
+            "relative_l2": rel}
 
 
 def _train_step_once(reg, batch, device, loss_cfg):
@@ -1562,6 +2048,8 @@ def train(base, dev):
     check(torch.equal(reg.param_mean, mean0), "param_mean moved")
     for name in TRAIN_KERNELS:
         check(launches[name] > 0, f"{name} was not launched by training")
+    for name in K5_PER_FORWARD:  # K5 has no backward: training runs cuDNN
+        check(launches[name] == 0, f"{name} was launched by training")
     print(f"train: {TRAIN_STEPS} steps of batch {TRAIN_B} in "
           f"{elapsed * 1e3:.1f} ms = {TRAIN_STEPS / elapsed:.3f} steps/s = "
           f"{TRAIN_STEPS * TRAIN_B / elapsed:.1f} images/s; peak memory "
@@ -2149,7 +2637,12 @@ def main() -> int:
     checked.update(check_measure_kernels(regressor.model, anchors, dev))
     checked["K1_measure"]["cases"] = checked.pop("K1_measure_cases")
     checked.update(check_aos_kernel(regressor.model, anchors, dev))
-    library_convs = check_library_convs(dev)
+    convs, fuses = backbone_calls(regressor.backbone, requests)
+    checked.update(check_conv_kernels(convs))
+    checked.update(check_fuse_kernel(regressor, fuses))
+    del convs, fuses
+    checked["K5_conv"]["backbone"] = check_backbone_routes(regressor,
+                                                           requests)
     bodies = contact_bodies(regressor.model, dev)
     contact_checked, k6_plain = check_contact_kernels(bodies, dev)
     checked.update(contact_checked)
@@ -2171,11 +2664,14 @@ def main() -> int:
             "replaces": replaces,
             # training (phase 7) for its kernels, the batch-32 fit of
             # phase 8 for K1's backward and K1-exact, the contact phase
-            # (9) for its kernels, evaluation (phase 5) for the others
+            # (9) for its kernels, the scorer (phase 6) for K1-AoS's
+            # points and their backward, evaluation (phase 5) for the
+            # others (K5 among them)
             "launches": (train_launches[name] if name in TRAIN_KERNELS
                          else contact_launches[name]
                          if name in CONTACT_KERNELS
-                         else score_launches[name] if name == "K1aos_points"
+                         else score_launches[name] if name.startswith(
+                             "K1aos_points")
                          else fit_launches.get(name, eval_launches[name])),
             "launches_score": score_launches[name],
             "launches_contact": contact_launches[name],
@@ -2185,16 +2681,17 @@ def main() -> int:
             "launches_serve": serve_launches[name],
             **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by")},
-            # K4: F.batch_norm(training=True); K9: torch.cdist + min;
-            # no single PyTorch call computes any of the others
+            # K4: F.batch_norm(training=True); K5-conv: F.conv2d (cuDNN);
+            # K9: torch.cdist + min; no single PyTorch call computes any
+            # of the others
             "library_ms": c.get("library_ms")}
-        for key in ("library_call", "box_pairs", "hits", "cases"):
+        for key in ("library_call", "box_pairs", "hits", "timed_as",
+                    "f32_max_rel_err", "backbone", "cases"):
             if key in c:
                 entry[key] = c[key]
         entries.append(entry)
         check(all(math.isfinite(c[k]) for k in ("ms", "plain_ms",
                                                 "bound_ms")), "timing")
-    print(json.dumps({"library_only": {"K5_conv": library_convs}}))
     print(gpu_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

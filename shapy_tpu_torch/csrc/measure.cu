@@ -79,6 +79,13 @@
 // (2F,) mask. Exact mode: points (F, 2, 3), face f's first / second point at
 // (f, 0) / (f, 1), y recomputed from the crossed edge as plane_slice_triangles
 // does (the saved hits hold x and z only), and a (F,) mask; unhit slots are 0.
+// measure_points_backward is their VJP, as JAX autodiff gives it for the
+// plain slices: one thread per face recomputes its hits with the forward's
+// operations and takes each hit's VJP at its slot (the crossed edge's
+// endpoints, or the Moller cast's triangle, and the plane height; in exact
+// mode through the recomputed y too), then one block per (body, plane) sums
+// the plane height's cotangent in a fixed order, which K1's backward takes
+// to the anchor triangle. No atomics.
 //
 // Built with --fmad=false so the hit tests and projections round exactly as
 // the plain PyTorch version: a contracted a*b+c could flip a boundary hit or
@@ -308,10 +315,12 @@ __device__ __forceinline__ int slice_face(const float* vb, const int* faces,
 // The VJP of one hit: point cotangent (ga, gb) -> the face's 9 coordinates
 // (g[3 k + c] for vertex k, coordinate c) and the plane height (gh), through
 // the formula named by `detail` (the low 4 bits of its code), recomputed
-// with the forward's operations.
+// with the forward's operations. In exact mode, gy is the cotangent of the
+// point's y, which measure_points recomputes from the crossed edge (0 for
+// the hull's hits, whose y is not an output; then the result is unchanged).
 template <int kMode>
 __device__ void hit_vjp(const Tri& T, float h, int detail, float ga, float gb,
-                        float* g, float& gh) {
+                        float* g, float& gh, float gy = 0.f) {
 #pragma unroll
   for (int k = 0; k < 9; ++k) g[k] = 0.f;
   gh = 0.f;
@@ -387,7 +396,9 @@ __device__ void hit_vjp(const Tri& T, float h, int detail, float ga, float gb,
   const float denom = sa - sb;
   const float den = exact_denom(sa, sb);
   const float t = sa / den;
-  const float gt = ga * (T.x[b] - T.x[a]) + gb * (T.z[b] - T.z[a]);
+  const float gxz = ga * (T.x[b] - T.x[a]) + gb * (T.z[b] - T.z[a]);
+  // y = y_a + t (y_b - y_a), as plane_slice_triangles writes it
+  const float gt = gy != 0.f ? gxz + gy * (T.y[b] - T.y[a]) : gxz;
   float gsa = gt / den, gsb = 0.f;
   if (fabsf(denom) > 1e-20f) {
     const float gden = -gt * t / den;
@@ -398,8 +409,8 @@ __device__ void hit_vjp(const Tri& T, float h, int detail, float ga, float gb,
   g[3 * b + 0] = ga * t;
   g[3 * a + 2] = gb - gb * t;
   g[3 * b + 2] = gb * t;
-  g[3 * a + 1] = gsa;
-  g[3 * b + 1] = gsb;
+  g[3 * a + 1] = gy != 0.f ? gsa + (gy - gy * t) : gsa;
+  g[3 * b + 1] = gy != 0.f ? gsb + gy * t : gsb;
   gh = -(gsa + gsb);
 }
 
@@ -795,6 +806,84 @@ __global__ void __launch_bounds__(kThreads) measure_points_scatter(
   }
 }
 
+// The backward of the slice points, part 1: one thread per (body, face).
+// The face's hits in each walked plane are recomputed with slice_face (the
+// forward's operations, so the same hits with the same codes), the points'
+// cotangent is read at each hit's slot, and each hit's VJP is taken: the
+// face's 9 coordinates get their sum over the planes, in plane order, and
+// each (plane, face) its plane-height cotangent. Every vertex of the
+// K1-AoS walk belongs to one face, so no two threads write one gradient.
+template <int kMode>
+__global__ void __launch_bounds__(kThreads) measure_points_backward_faces(
+    const float* __restrict__ verts, const int* __restrict__ faces,
+    const float* __restrict__ plane_h, const float* __restrict__ g_points,
+    float* __restrict__ grad, float* __restrict__ g_face_h, int V, int F,
+    Planes planes) {
+  const int f = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = blockIdx.y;
+  if (f >= F) return;
+  const float* vb = verts + (size_t)b * V * 3;
+  Tri T;
+  load_tri(vb, faces + 3 * f, T);
+  float g9[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) g9[k] = 0.f;
+  for (int p = 0; p < 3; ++p) {
+    const size_t row = (size_t)b * 3 + p;
+    float gh = 0.f;
+    if (planes.n[p] > 0) {
+      const float h = plane_h[row];
+      float2 p0, p1;
+      int k0 = 0, k1 = 0;
+      const int k = slice_face<kMode>(vb, faces, f, f, h, p0, p1, k0, k1);
+      const float* gp = g_points + row * 6 * (size_t)F;
+      for (int j = 0; j < k; ++j) {
+        const int detail = (j ? k1 : k0) & 15;
+        const int slot = kMode == kReference ? (detail >> 3) * F + f
+                                             : 2 * f + (detail >> 2);
+        const float* gs = gp + 3 * (size_t)slot;
+        float gv[9], ghit;
+        hit_vjp<kMode>(T, h, detail, gs[0], gs[2], gv, ghit,
+                       kMode == kExact ? gs[1] : 0.f);
+#pragma unroll
+        for (int c = 0; c < 9; ++c) g9[c] += gv[c];
+        gh += ghit;
+      }
+    }
+    g_face_h[row * F + f] = gh;
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float* gv = grad + ((size_t)b * V + faces[3 * f + k]) * 3;
+    gv[0] = g9[3 * k];
+    gv[1] = g9[3 * k + 1];
+    gv[2] = g9[3 * k + 2];
+  }
+}
+
+// Part 2: one block per (body, plane) sums, in a fixed order, the faces'
+// plane-height cotangents and, in reference mode, the cotangents of every
+// slot's y (the plane height itself) into g_h (B, 3).
+template <int kMode>
+__global__ void __launch_bounds__(kThreads) measure_points_backward_heights(
+    const float* __restrict__ g_points, const float* __restrict__ g_face_h,
+    float* __restrict__ g_h, int F, Planes planes) {
+  __shared__ float red[32];
+  const int p = blockIdx.x, b = blockIdx.y;
+  const size_t row = (size_t)b * 3 + p;
+  float s = 0.f;
+  if (planes.n[p] > 0) {
+    const float* gf = g_face_h + row * F;
+    for (int f = threadIdx.x; f < F; f += blockDim.x) s += gf[f];
+    if (kMode == kReference) {
+      const float* gp = g_points + row * 6 * (size_t)F;
+      for (int i = threadIdx.x; i < 2 * F; i += blockDim.x) s += gp[3 * i + 1];
+    }
+  }
+  const float total = block_sum(s, red);
+  if (threadIdx.x == 0) g_h[row] = total;
+}
+
 template <int kMode>
 int launch_forward(const void* verts, const void* faces,
                    const void* plane_faces, const void* anchor_face,
@@ -950,6 +1039,46 @@ extern "C" int measure_points(const void* verts, const void* faces,
         (const float*)verts, (const int*)faces, (const float2*)hits,
         (const int*)codes, (const float*)stats, (const float*)plane_h,
         (float*)points, (unsigned char*)valid, V, F, cap);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The VJP of measure_points: g_points (B, 3, 6F) f32, the cotangent of its
+// points, after the forward of the same mode walked all F faces of verts
+// (B, V, 3) / faces (F, 3) (n0..n2: F for the planes whose points are
+// outputs, else 0) and wrote plane_h (B, 3). Writes grad (B, V, 3), the
+// gradient through the crossed edges' endpoints, and g_h (B, 3), the plane
+// heights' cotangent (the caller adds it to K1's backward, which takes it to
+// the anchor triangles); g_face_h (B, 3, F) f32 is scratch. Returns
+// cudaGetLastError().
+extern "C" int measure_points_backward(const void* verts, const void* faces,
+                                       const void* plane_h,
+                                       const void* g_points, void* grad,
+                                       void* g_face_h, void* g_h, int B,
+                                       int V, int F, int n0, int n1, int n2,
+                                       int exact, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const Planes planes = make_planes(0, 0, 0, n0, n1, n2);
+  const dim3 grid((F + kThreads - 1) / kThreads, B), rows(3, B);
+  if (exact) {
+    measure_points_backward_faces<kExact><<<grid, kThreads, 0, s>>>(
+        (const float*)verts, (const int*)faces, (const float*)plane_h,
+        (const float*)g_points, (float*)grad, (float*)g_face_h, V, F, planes);
+  } else {
+    measure_points_backward_faces<kReference><<<grid, kThreads, 0, s>>>(
+        (const float*)verts, (const int*)faces, (const float*)plane_h,
+        (const float*)g_points, (float*)grad, (float*)g_face_h, V, F, planes);
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (exact) {
+    measure_points_backward_heights<kExact><<<rows, kThreads, 0, s>>>(
+        (const float*)g_points, (const float*)g_face_h, (float*)g_h, F,
+        planes);
+  } else {
+    measure_points_backward_heights<kReference><<<rows, kThreads, 0, s>>>(
+        (const float*)g_points, (const float*)g_face_h, (float*)g_h, F,
+        planes);
   }
   return (int)cudaGetLastError();
 }

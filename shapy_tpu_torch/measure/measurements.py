@@ -20,8 +20,9 @@ pipeline of the JAX package in PyTorch, differentiated by autograd.
 points included. For CUDA tensors this is kernel K1-AoS: K1 on all faces
 of the triangles viewed as (B, 3F, 3) vertices with the faces (3f, 3f + 1,
 3f + 2), then ``measure_points`` for the slice points; its backward is
-K1's. For CPU tensors it is :meth:`BodyMeasurements.forward_plain`, the
-JAX package's array-of-structures functions in PyTorch.
+K1's, with ``measure_points_backward`` for the points. For CPU tensors it
+is :meth:`BodyMeasurements.forward_plain`, the JAX package's
+array-of-structures functions in PyTorch.
 
 ``Anchor``, ``MeasurementAnchors`` and ``candidate_faces`` are numpy,
 copied from the JAX package (whose module imports jax and yaml); the
@@ -78,6 +79,7 @@ MEASURE_KERNEL = CudaKernel("measure.cu", {
     "measure_backward": _BACKWARD_ARGS,
     "measure_exact_backward": _BACKWARD_ARGS,
     "measure_points": "pppp pppp iiiii p",
+    "measure_points_backward": "pppp ppp iii iii i p",
 })
 _MAX_HULL_DIRECTIONS = 1024  # the kernels give each thread 2 pairs
 
@@ -316,8 +318,9 @@ class _MeasureKernel(torch.autograd.Function):
     that made each, the hit counts, centroids and the signed volume; the
     backward kernels differentiate those formulas (see ``measure.cu``).
     Returns (B, 5) values and (B, 3) plane heights, then with
-    ``with_points`` the (B, 3, 6F) points and the (B, 3, 2F) (exact mode:
-    (B, 3, F)) masks, which carry no gradient."""
+    ``with_points`` the (B, 3, 6F) points, differentiable through
+    ``measure_points_backward``, and the (B, 3, 2F) (exact mode: (B, 3,
+    F)) masks."""
 
     @staticmethod
     def forward(ctx, vertices, meas, walk, with_points):
@@ -363,8 +366,9 @@ class _MeasureKernel(torch.autograd.Function):
                 MEASURE_KERNEL.launch("measure_points", [
                     vertices, walk.faces, hits, codes, stats, plane_h,
                     points, valid, B, V, F, cap, int(exact)])
-            ctx.mark_non_differentiable(points, valid)
+            ctx.mark_non_differentiable(valid)
             outs += (points, valid)
+        ctx.set_materialize_grads(False)
         ctx.meas, ctx.walk, ctx.mode = meas, walk, mode
         ctx.scalars = (B, V, planes, cap, smax, half_k, angle_step)
         ctx.save_for_backward(vertices, hits, codes, stats, plane_h)
@@ -372,16 +376,32 @@ class _MeasureKernel(torch.autograd.Function):
 
     @staticmethod
     @torch.autograd.function.once_differentiable
-    def backward(ctx, g_out, g_plane_h, *_):
+    def backward(ctx, g_out, g_plane_h, g_points=None, _=None):
         vertices, hits, codes, stats, plane_h = ctx.saved_tensors
         meas, walk = ctx.meas, ctx.walk
         B, V, planes, cap, smax, half_k, angle_step = ctx.scalars
         dev = vertices.device
-        g_out = g_out.float().contiguous()
-        g_plane_h = g_plane_h.float().contiguous()
+
+        def cotangent(g, shape):
+            return (torch.zeros(shape, dtype=torch.float32, device=dev)
+                    if g is None else g.float().contiguous())
+
+        g_out = cotangent(g_out, (B, 5))
+        g_plane_h = cotangent(g_plane_h, (B, 3))
         grad = torch.empty((B, V, 3), dtype=torch.float32, device=dev)
         if B == 0:
             return grad, None, None, None
+        grad_points = None
+        if g_points is not None:  # the K1-AoS walk: V = 3F, all faces
+            F = walk.faces.shape[0]
+            grad_points = torch.empty_like(grad)
+            g_h = torch.empty((B, 3), dtype=torch.float32, device=dev)
+            MEASURE_KERNEL.launch("measure_points_backward", [
+                vertices, walk.faces, plane_h, g_points.float().contiguous(),
+                grad_points, torch.empty((B, 3, F), dtype=torch.float32,
+                                         device=dev),
+                g_h, B, V, F, *walk.counts, int(ctx.mode == "exact_")])
+            g_plane_h = g_plane_h + g_h
         plane_ptr, plane_idx = walk.plane_csr or (None, None)
         MEASURE_KERNEL.launch(f"measure_{ctx.mode}backward", [
             vertices, walk.faces, walk.plane_faces, walk.anchor_face,
@@ -393,6 +413,8 @@ class _MeasureKernel(torch.autograd.Function):
             *walk.face_csr, plane_ptr, plane_idx, grad, B, V,
             walk.num_mesh_vertices, *planes, cap, smax, half_k, angle_step,
             meas.density])
+        if grad_points is not None:
+            grad = grad + grad_points
         return grad, None, None, None
 
 
@@ -545,10 +567,13 @@ class BodyMeasurements(nn.Module):
         plane height on every entry) and (B, F, 2, 3) with a (B, F) mask in
         exact mode (zero where invalid).
 
-        Differentiable in ``triangles`` through the values, plane heights
-        and height points; ``points`` and ``valid_points`` carry no
-        gradient (detached) on both routes. CUDA tensors run kernel
-        K1-AoS, CPU tensors :meth:`forward_plain`."""
+        Differentiable in ``triangles`` through the values, plane heights,
+        height points and slice points, as the JAX package's are (a
+        point's gradient goes to its crossed edge's endpoints, or the
+        triangle of its quad-edge cast, and through the plane height to
+        the anchor triangle); ``valid_points`` is a mask. CUDA tensors run
+        kernel K1-AoS (the points' gradient through
+        ``measure_points_backward``), CPU tensors :meth:`forward_plain`."""
         return {"measurements": self._measure_triangles(
             triangles, compute_mass, compute_height,
             self._planes(compute_chest, compute_waist, compute_hips))}
@@ -644,7 +669,7 @@ class BodyMeasurements(nn.Module):
             out[name] = {
                 "tensor": hull_perimeter_support(
                     flat[..., [0, 2]], flat_mask, self.num_hull_directions),
-                "plane_height": plane_h, "points": points.detach(),
+                "plane_height": plane_h, "points": points,
                 "valid_points": valid}
         return out
 
@@ -655,18 +680,24 @@ class BodyMeasurements(nn.Module):
         the faces (3f, 3f + 1, 3f + 2)."""
         if max(a.face_idx for a in anchors) >= F:
             raise ValueError(f"anchor face beyond the {F} triangles")
+        # Cached across calls, so made as normal tensors even under
+        # inference_mode: a later call that records a graph saves the
+        # barycentrics for the height points' backward.
         topo = self._triangle_topology.get((F, device))
         if topo is None:
             faces = np.arange(3 * F, dtype=np.int64).reshape(F, 3)
-            topo = tuple(torch.as_tensor(a, dtype=torch.int32).to(device)
-                         for a in (faces, *vertex_corner_lists(faces, 3 * F)))
+            with torch.inference_mode(False):
+                topo = tuple(
+                    torch.as_tensor(a, dtype=torch.int32).to(device)
+                    for a in (faces, *vertex_corner_lists(faces, 3 * F)))
             self._triangle_topology[(F, device)] = topo
         anc = self._triangle_anchors.get((anchors, device))
         if anc is None:
-            anc = (torch.tensor([a.face_idx for a in anchors],
-                                dtype=torch.int32, device=device),
-                   torch.tensor([a.bary for a in anchors],
-                                dtype=torch.float32, device=device))
+            with torch.inference_mode(False):
+                anc = (torch.tensor([a.face_idx for a in anchors],
+                                    dtype=torch.int32, device=device),
+                       torch.tensor([a.bary for a in anchors],
+                                    dtype=torch.float32, device=device))
             self._triangle_anchors[(anchors, device)] = anc
         return _Walk(topo[0], topo[1:], 3 * F, *anc, counts)
 

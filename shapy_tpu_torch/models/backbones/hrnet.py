@@ -14,24 +14,98 @@
 regressor passes a channels_last view of its NHWC crops). The module's
 train / eval mode is the JAX ``train`` flag: every BN, the fuse and
 transition layers' included, normalises with batch moments and updates
-its running stats in training (kernel K4 on the card). The
+its running stats in training (kernel K4 on the card). In eval every conv
+is one K5-conv launch on the card (``layers.conv2d_act``, with the folded
+BN's bias, the residual and the ReLU fused), and each fusion target one
+K5-fuse launch (:func:`hr_fuse`, ``csrc/hr_fuse.cu``): 331 and 26 per
+forward. Training keeps ``F.conv2d``, ``nn.Upsample`` and eager adds. The
 ``use_old_impl`` topology is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from shapy_tpu_torch.models.backbones.layers import (
+    KERNEL_DTYPES,
     BasicBlock,
     BatchNorm2d,
     Bottleneck,
+    ConvBNChain,
     conv,
+    conv_act,
     conv_bn,
+    forward_only,
 )
+from shapy_tpu_torch.utils.cuda_kernels import CudaKernel
+
+FUSE_KERNEL = CudaKernel("hr_fuse.cu", {
+    "hr_fuse_forward": "ppppp iiii iiii i p",
+})
+_MAX_FUSE_TERMS = 3
+
+
+def hr_fuse_plain(x: torch.Tensor,
+                  terms: Sequence[Tuple[torch.Tensor, int]]) -> torch.Tensor:
+    """Plain version of K5-fuse: ``relu(x + up(t_0) + up(t_1) + ...)``
+    with eager adds in the terms' order, each ``(t, s)`` upsampled by
+    ``2 ** s`` (nearest, as ``nn.Upsample``) when s > 0."""
+    y = x
+    for t, s in terms:
+        if s:
+            t = F.interpolate(t, scale_factor=2 ** s, mode="nearest")
+        y = y + t
+    return torch.relu(y)
+
+
+def _hr_fuse_cuda(x, terms):
+    """Kernel K5-fuse; raises on what it does not take."""
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"hr_fuse: dtype {x.dtype}")
+    N, C, H, W = x.shape
+    if len(terms) > _MAX_FUSE_TERMS or C % 8:
+        raise ValueError(f"hr_fuse: {len(terms)} terms, {C} channels")
+    cl = torch.channels_last
+    if not x.is_contiguous(memory_format=cl) or x.data_ptr() % 16:
+        raise ValueError("hr_fuse: x must be channels_last-contiguous")
+    ptrs, shifts = [None] * _MAX_FUSE_TERMS, [0] * _MAX_FUSE_TERMS
+    for j, (t, s) in enumerate(terms):
+        if (H >> s << s != H or W >> s << s != W
+                or t.shape != (N, C, H >> s, W >> s) or t.dtype != x.dtype
+                or t.device != x.device or t.data_ptr() % 16
+                or not t.is_contiguous(memory_format=cl)):
+            raise ValueError(f"hr_fuse: term {j} {tuple(t.shape)} (shift "
+                             f"{s}) for x {tuple(x.shape)}")
+        ptrs[j], shifts[j] = t, s
+    y = torch.empty_like(x, memory_format=cl)
+    FUSE_KERNEL.launch("hr_fuse_forward", [
+        x, *ptrs, y, *shifts, len(terms), N, H, W, C, KERNEL_DTYPES[x.dtype]])
+    return y
+
+
+def hr_fuse(x: torch.Tensor,
+            terms: Sequence[Tuple[torch.Tensor, int]]) -> torch.Tensor:
+    """One fusion target of HRNet: ``relu(x + sum of terms)`` where term
+    ``(t, s)`` is read at ``(h >> s, w >> s)``, i.e. upsampled by ``2 **
+    s`` (nearest). x (N, C, H, W) and the terms of one dtype, f32 or bf16:
+    kernel K5-fuse for CUDA tensors (channels_last, C % 8 == 0, at most 3
+    terms; forward only: a backward through it raises
+    ``NotImplementedError``), :func:`hr_fuse_plain` for CPU tensors."""
+    if x.device.type == "cpu":
+        return hr_fuse_plain(x, terms)
+    if x.device.type != "cuda":
+        raise ValueError(f"hr_fuse: unsupported device {x.device}")
+    terms = list(terms)
+    shifts = [s for _, s in terms]
+
+    def run(x, *ts):
+        return _hr_fuse_cuda(x, list(zip(ts, shifts)))
+
+    return forward_only("K5-fuse", run, x, *(t for t, _ in terms))
 
 # (num_modules, num_branches, num_blocks, num_channels, block)
 W48_STAGES = {
@@ -80,7 +154,9 @@ def _transition(pre_ch: List[int], cur_ch: List[int]) -> nn.ModuleList:
 class HighResolutionModule(nn.Module):
     """Parallel branches + multi-resolution fusion. Fusion for target i:
     ``relu(x_i + sum_{j>i} up(bn(conv1x1(x_j))) + sum_{j<i} down_j(x_j))``
-    in that order (as the JAX package sums)."""
+    in that order (as the JAX package sums); in eval one :func:`hr_fuse`
+    per target, which reads the 1x1 convs' outputs at their own
+    resolution."""
 
     def __init__(self, stage: str):
         super().__init__()
@@ -119,13 +195,26 @@ class HighResolutionModule(nn.Module):
         xs = [branch(x) for branch, x in zip(self.branches, xs)]
         if self.fuse_layers is None:
             return xs
+        return self.fuse(xs)
+
+    def fuse(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The multi-resolution fusion of the branches' outputs."""
         n = len(xs)
         out = []
         for i in range(n):
-            y = xs[i]
-            for j in list(range(i + 1, n)) + list(range(i)):
-                y = y + self.fuse_layers[i][j](xs[j])
-            out.append(torch.relu(y))
+            row = self.fuse_layers[i]
+            order = list(range(i + 1, n)) + list(range(i))
+            if self.training:
+                y = xs[i]
+                for j in order:
+                    y = y + row[j](xs[j])
+                out.append(torch.relu(y))
+                continue
+            # row[j] for j > i is (conv, BN, Upsample): the upsample is
+            # folded into hr_fuse's read.
+            terms = [(conv_act(row[j][0], row[j][1], xs[j]), j - i) if j > i
+                     else (row[j](xs[j]), 0) for j in order]
+            out.append(hr_fuse(xs[i], terms))
         return out
 
 
@@ -136,7 +225,7 @@ def _subsample(in_ch: int, num_layers: int) -> nn.Sequential:
     for _ in range(num_layers):
         layers += list(conv_bn(in_ch, 2 * in_ch, 3, 2, bias=True))
         in_ch *= 2
-    return nn.Sequential(*layers)
+    return ConvBNChain(*layers)
 
 
 class HRNet(nn.Module):
@@ -191,8 +280,8 @@ class HRNet(nn.Module):
         return out
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(self.bn1(self.conv1(x)))
-        x = torch.relu(self.bn2(self.conv2(x)))
+        x = conv_act(self.conv1, self.bn1, x, relu=True)
+        x = conv_act(self.conv2, self.bn2, x, relu=True)
         x = self.layer1(x)
         xs = self._transition_forward(self.transition1, [x])
         for m in self.stage2:

@@ -12,12 +12,21 @@ path is kernel K4 (``csrc/batch_norm.cu``, forward and backward). For
 eval, :func:`fold_bn_` folds each BN into the conv before it at load time,
 as the JAX package's eval forward does (``bn_fold_params``).
 
+In eval every conv runs :func:`conv2d_act`: kernel K5-conv
+(``csrc/conv.cu``) for CUDA tensors, its plain version for CPU tensors.
+With the BN folded, :func:`conv_act` fuses each conv's bias, the block's
+residual and the ReLU into that one call. K5-conv has no backward yet:
+training keeps ``F.conv2d`` (cuDNN on the card) beside K4, until the next
+training slice ports K5's backward and train-mode forward (ROADMAP).
+
 Weights stay f32 (the master copy) and each conv runs in its input's
 dtype, so a bf16 backbone trains as the JAX package's ``compute_dtype``
 bfloat16 does.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -33,8 +42,15 @@ BN_KERNEL = CudaKernel("batch_norm.cu", {
     "bn_forward": "ppppp pppp iiii i fff p",
     "bn_backward": "ppppp ppppp iiii i p",
 })
-_BN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The activation dtypes K4, K5-conv and K5-fuse take, by their C code.
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _BN_MAX_TILES = 256
+
+CONV_KERNEL = CudaKernel("conv.cu", {
+    "conv2d_act_forward": "ppppp iiiiiii iiii p",
+})
+_NO_BACKWARD = ("has no backward yet: ROADMAP queue 2 lists K5's backward "
+                "and train-mode forward (training runs F.conv2d)")
 
 
 def _wide(t: torch.Tensor) -> torch.Tensor:
@@ -129,7 +145,7 @@ class _BatchNormTrain(torch.autograd.Function):
                                    device=x.device)
             BN_KERNEL.launch("bn_forward", [
                 rows, gamma, beta, running_mean, running_var, partials, mean,
-                inv, y, R, C, tiles, per_tile, _BN_DTYPES[x.dtype],
+                inv, y, R, C, tiles, per_tile, KERNEL_DTYPES[x.dtype],
                 float(eps), float(momentum), float(np.float32(unbias))])
             y = y.permute(0, 3, 1, 2)
         ctx.save_for_backward(x, gamma, mean, inv)
@@ -154,7 +170,7 @@ class _BatchNormTrain(torch.autograd.Function):
         coef = torch.empty((3, C), dtype=torch.float32, device=x.device)
         BN_KERNEL.launch("bn_backward", [
             dy_rows, rows, gamma, mean, inv, partials, coef, dgamma, dbeta,
-            dx, R, C, tiles, per_tile, _BN_DTYPES[x.dtype]])
+            dx, R, C, tiles, per_tile, KERNEL_DTYPES[x.dtype]])
         return dx.permute(0, 3, 1, 2), dgamma, dbeta, None, None, None, None
 
 
@@ -168,7 +184,7 @@ def batch_norm_train(x: torch.Tensor, gamma: torch.Tensor,
     ``running_mean`` / ``running_var`` (f32, or both None) get the EMA in
     place."""
     if x.device.type == "cuda":
-        if x.dtype not in _BN_DTYPES:
+        if x.dtype not in KERNEL_DTYPES:
             raise TypeError(f"batch_norm_train: dtype {x.dtype}")
         N, C, H, W = x.shape
         if N * H * W * C >= 2 ** 32:
@@ -211,14 +227,151 @@ class BatchNorm2d(nn.Module):
                             self.weight, self.bias, False, 0.0, self.eps)
 
 
+class _ForwardOnly(torch.autograd.Function):
+    """Runs ``fn(*args)`` and refuses to differentiate it: the K5 kernels
+    have no backward yet (their plain versions, the CPU route, are
+    differentiable as eager ops)."""
+
+    @staticmethod
+    def forward(ctx, name, fn, *args):
+        ctx.name = name
+        return fn(*args)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(f"{ctx.name} {_NO_BACKWARD}")
+
+
+def forward_only(name: str, fn, *args):
+    """``fn(*args)``, through :class:`_ForwardOnly` when a tensor argument
+    needs a gradient (so that a backward raises), else called directly
+    (no autograd node: the served path pays no Function overhead)."""
+    if torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+        return _ForwardOnly.apply(name, fn, *args)
+    return fn(*args)
+
+
+def bf16_step(mag: torch.Tensor) -> torch.Tensor:
+    """The spacing of bfloat16 numbers at magnitude ``mag``."""
+    e = torch.floor(torch.log2(mag.float().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def conv2d_act_bf16_tolerance(s, bias, residual, terms, cin: int, k: int
+                              ) -> torch.Tensor:
+    """The per-element limit of bf16 K5-conv against its plain version (or
+    either against the plain epilogue on the exact sum): one bf16 step at
+    each rounding of the epilogue (the conv sum ``s`` in f32, + bias, +
+    residual, at their magnitudes) plus the worst-case gap of two f32 sums
+    of the same K = cin k^2 products in other orders, 2 K 2^-24 sum |x w|
+    (``terms``, the conv of |x| and |w|): under cancellation that gap
+    exceeds a step of the sum itself."""
+    tol = bf16_step(s.abs())
+    if bias is not None:
+        s = s + bias.float()[:, None, None]
+        tol = tol + bf16_step(s.abs())
+    if residual is not None:
+        tol = tol + bf16_step((s + residual.float()).abs())
+    return tol + 2.0 * cin * k * k * 2.0 ** -24 * terms
+
+
+def conv2d_act_plain(x, weight, bias=None, residual=None, relu=False,
+                     stride=1):
+    """Plain version of K5-conv: ``F.conv2d`` without bias (padding k //
+    2), then ``+ bias``, ``+ residual`` and the ReLU as separate eager
+    ops, each rounded to x's dtype."""
+    y = F.conv2d(x, weight, None, stride, weight.shape[-1] // 2)
+    if bias is not None:
+        y = y + bias[:, None, None]
+    if residual is not None:
+        y = y + residual
+    return torch.relu(y) if relu else y
+
+
+def _conv2d_act_cuda(x, weight, bias, residual, relu, stride):
+    """Kernel K5-conv; raises on what it does not take."""
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"conv2d_act: dtype {x.dtype}")
+    if x.dim() != 4 or weight.dim() != 4:
+        raise ValueError("conv2d_act: x and weight must be 4-D")
+    N, C, H, W = x.shape
+    O, I, kh, kw = weight.shape
+    if I != C or kh != kw or kh not in (1, 3) or stride not in (1, 2):
+        raise ValueError(f"conv2d_act: weight {tuple(weight.shape)}, stride "
+                         f"{stride} for input {tuple(x.shape)}")
+    if O % 8:
+        raise ValueError("conv2d_act: output channels not a multiple of 8")
+    cl = torch.channels_last
+    if not x.is_contiguous(memory_format=cl):
+        raise ValueError("conv2d_act: x must be channels_last-contiguous")
+    if not weight.is_contiguous(memory_format=cl):
+        raise ValueError("conv2d_act: weight must be OHWI (channels_last)")
+    dev = x.device
+    if weight.device != dev or weight.dtype != x.dtype:
+        raise ValueError("conv2d_act: weight on another device or dtype")
+    Ho = (H + 2 * (kh // 2) - kh) // stride + 1
+    Wo = (W + 2 * (kh // 2) - kh) // stride + 1
+    if bias is not None and (bias.shape != (O,) or bias.dtype != x.dtype
+                             or bias.device != dev
+                             or not bias.is_contiguous()):
+        raise ValueError(f"conv2d_act: bias must be contiguous ({O},) of "
+                         "x's dtype and device")
+    if residual is not None:
+        if (residual.shape != (N, O, Ho, Wo) or residual.dtype != x.dtype
+                or residual.device != dev or residual.data_ptr() % 16
+                or not residual.is_contiguous(memory_format=cl)):
+            raise ValueError("conv2d_act: residual must be channels_last "
+                             f"{(N, O, Ho, Wo)} of x's dtype and device")
+    if max(x.numel(), N * O * Ho * Wo, weight.numel()) >= 2 ** 31:
+        raise ValueError("conv2d_act: 2^31 elements or more")
+    y = torch.empty((N, O, Ho, Wo), dtype=x.dtype, device=dev,
+                    memory_format=cl)
+    vec = int(C % 8 == 0 and x.data_ptr() % 16 == 0
+              and weight.data_ptr() % 16 == 0)
+    CONV_KERNEL.launch("conv2d_act_forward", [
+        x, weight, bias, residual, y, N, H, W, C, O, kh, stride, int(relu),
+        KERNEL_DTYPES[x.dtype], vec, _sm_count(dev.index)])
+    return y
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """The multiprocessors of CUDA device ``index``, which K5-conv's tile
+    choice fills."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def conv2d_act(x: torch.Tensor, weight: torch.Tensor,
+               bias: torch.Tensor | None = None,
+               residual: torch.Tensor | None = None, relu: bool = False,
+               stride: int = 1) -> torch.Tensor:
+    """``relu?(conv(x, weight, stride, padding k // 2) + bias [+
+    residual])`` for x (N, C, H, W) and weight (O, C, k, k) of one dtype,
+    f32 or bf16: kernel K5-conv for CUDA tensors (x and residual
+    channels_last, the weight OHWI, i.e. channels_last; k 1 or 3, stride 1
+    or 2; forward only: a backward through it raises
+    ``NotImplementedError``), :func:`conv2d_act_plain` for CPU tensors."""
+    if x.device.type == "cpu":
+        return conv2d_act_plain(x, weight, bias, residual, relu, stride)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv2d_act: unsupported device {x.device}")
+    return forward_only("K5-conv", _conv2d_act_cuda, x, weight, bias,
+                        residual, relu, stride)
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` that runs in its input's dtype: f32 master weights
     are cast to a bf16 input's dtype (a no-op once the module itself is
-    bf16, as for eval)."""
+    bf16, as for eval). In training it is ``F.conv2d``; in eval
+    :func:`conv2d_act` (kernel K5-conv on the card)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+        if self.training:
+            return self._conv_forward(x, self.weight.to(x.dtype), bias)
+        return conv2d_act(x, self.weight.to(x.dtype), bias,
+                          stride=self.stride[0])
 
 
 def conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1,
@@ -227,12 +380,50 @@ def conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1,
     return Conv2d(in_ch, out_ch, kernel, stride, kernel // 2, bias=bias)
 
 
+def conv_act(conv_mod: nn.Conv2d, bn: nn.Module | None, x: torch.Tensor,
+             residual: torch.Tensor | None = None,
+             relu: bool = False) -> torch.Tensor:
+    """``relu?(bn(conv_mod(x)) [+ residual])``. In eval with the BN folded
+    into the conv (``bn`` None or Identity) it is one :func:`conv2d_act`
+    call, one K5-conv launch on the card; otherwise the separate ops."""
+    if not conv_mod.training and (bn is None or isinstance(bn, nn.Identity)):
+        w, bias = conv_mod.weight, conv_mod.bias
+        if w.dtype != x.dtype:  # f32 master weights, a bf16 input
+            w = w.to(x.dtype)
+            bias = None if bias is None else bias.to(x.dtype)
+        return conv2d_act(x, w, bias, residual, relu, conv_mod.stride[0])
+    y = conv_mod(x)
+    if bn is not None:
+        y = bn(y)
+    if residual is not None:
+        y = y + residual
+    return F.relu(y) if relu else y
+
+
+class ConvBN(nn.Sequential):
+    """Sequential(conv, BN[, ReLU]), keys ``.0.*``, ``.1.*``, run by
+    :func:`conv_act`."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_act(self[0], self[1], x, relu=len(self) > 2)
+
+
+class ConvBNChain(nn.Sequential):
+    """(conv, BN, ReLU) triples flattened into one Sequential, keys
+    ``{3i}`` conv, ``{3i+1}`` BN, each triple run by :func:`conv_act`."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(0, len(self), 3):
+            x = conv_act(self[i], self[i + 1], x, relu=True)
+        return x
+
+
 def conv_bn(in_ch, out_ch, kernel, stride=1, relu=True, bias=False):
-    """Sequential(conv, BN[, ReLU]): keys ``.0.*``, ``.1.*``."""
+    """ConvBN(conv, BN[, ReLU]): keys ``.0.*``, ``.1.*``."""
     layers = [conv(in_ch, out_ch, kernel, stride, bias), BatchNorm2d(out_ch)]
     if relu:
         layers.append(nn.ReLU())
-    return nn.Sequential(*layers)
+    return ConvBN(*layers)
 
 
 class BasicBlock(nn.Module):
@@ -251,10 +442,9 @@ class BasicBlock(nn.Module):
                            if downsample else None)
 
     def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
+        y = conv_act(self.conv1, self.bn1, x, relu=True)
         identity = x if self.downsample is None else self.downsample(x)
-        return F.relu(y + identity)
+        return conv_act(self.conv2, self.bn2, y, identity, relu=True)
 
 
 class Bottleneck(nn.Module):
@@ -282,11 +472,10 @@ class Bottleneck(nn.Module):
             self.downsample = conv(in_ch, out_ch, 1, stride)
 
     def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
         identity = x if self.downsample is None else self.downsample(x)
-        return F.relu(y + identity)
+        y = conv_act(self.conv1, self.bn1, x, relu=True)
+        y = conv_act(self.conv2, self.bn2, y, relu=True)
+        return conv_act(self.conv3, self.bn3, y, identity, relu=True)
 
 
 def _fold_pair(conv_mod: nn.Conv2d, bn: BatchNorm2d) -> None:

@@ -18,9 +18,10 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -53,8 +54,11 @@ class CudaKernel:
     ``functions`` maps each exported name to its argument kinds, e.g.
     ``{"skin_forward": "pppp iii p"}`` (spaces are ignored).
     ``counts[name]`` is incremented by :meth:`launch`, and nowhere else;
-    ``launches`` is their sum.
+    ``launches`` is their sum. ``CudaKernel.registry`` holds every
+    instance made so far, by source.
     """
+
+    registry: Dict[str, "CudaKernel"] = {}
 
     def __init__(self, source: str, functions: Dict[str, str]):
         self.source = source
@@ -62,6 +66,7 @@ class CudaKernel:
         self.counts = dict.fromkeys(self.functions, 0)
         self.build_log = ""
         self._lib = None
+        CudaKernel.registry[source] = self
 
     @property
     def launches(self) -> int:
@@ -69,6 +74,14 @@ class CudaKernel:
 
     def reset_counts(self) -> None:
         self.counts = dict.fromkeys(self.functions, 0)
+
+    def device_functions(self) -> Tuple[str, ...]:
+        """The names of the source's ``__global__`` functions: the names
+        under which a profiler's trace shows its kernels."""
+        text = (CSRC_DIR / self.source).read_text()
+        return tuple(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+            r"(\w+)\s*\(", text))
 
     def _library_path(self) -> Path:
         text = (CSRC_DIR / self.source).read_bytes()

@@ -17,9 +17,13 @@ real template's counts, bf16 backbone, random weights from a seed), then:
   one device-to-host copy ``Evaluator.run`` makes per batch), with
   ``torch.profiler`` (CPU + CUDA) and reports for each the device-busy
   time (sum of kernel times; one stream, so kernels do not overlap), the
-  device's idle share of the wall time, the kernels launched, and the
-  kernels that take the most device time. ``--trace-dir`` also writes
-  the Chrome traces there.
+  device's idle share of the wall time, the kernels launched, the
+  kernels that take the most device time, and the time and launches of
+  each of the port's hand-written kernel sources (``conv.cu`` for
+  K5-conv and ``hr_fuse.cu`` for K5-fuse, the backbone's, among them)
+  with their share of the busy time; a source whose kernels launched in
+  the traced steps but show in no trace event is an error.
+  ``--trace-dir`` also writes the Chrome traces there.
 
 With ``--train``, :func:`profile_train_step` does the same for one train
 step of the flagship (bf16 backbone, dropout 0.5, the losses and the Adam
@@ -37,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import time
 from pathlib import Path
@@ -54,7 +59,25 @@ from shapy_tpu_torch.flagship import (
     synthetic_eval_data,
     synthetic_requests,
 )
+from shapy_tpu_torch.utils.cuda_kernels import CudaKernel
 from shapy_tpu_torch.utils.device import full_f32_matmul, get_device
+
+def _hand_kernel_sources() -> dict:
+    """The source of each of the port's hand-written device functions, by
+    the function's name, from every kernel made so far
+    (:attr:`CudaKernel.registry`)."""
+    return {fn: source for source, kernel in CudaKernel.registry.items()
+            for fn in kernel.device_functions()}
+
+
+def _hand_kernel(name: str, sources: dict) -> str | None:
+    """The source of a trace's kernel ``name`` ("void (anonymous
+    namespace)::conv_bf16_kernel<128, 8, 2, true>(...)"), or None."""
+    for word in re.findall(r"\w+", name):
+        if word in sources:
+            return sources[word]
+    return None
+
 
 def _card() -> str:
     return subprocess.run(
@@ -81,6 +104,7 @@ def _trace(fn, name: str, trace_dir: str | None, steps: int = 3) -> dict:
     ``fn`` from a ``torch.profiler`` trace of ``steps`` steps."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    launched = {k: c.launches for k, c in CudaKernel.registry.items()}
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -97,6 +121,19 @@ def _trace(fn, name: str, trace_dir: str | None, steps: int = 3) -> dict:
               and e.key not in ranges]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:15]
+    sources, hand = _hand_kernel_sources(), {}
+    for e in events:
+        label = _hand_kernel(e.key, sources)
+        if label is not None:
+            ms, n = hand.get(label, (0.0, 0))
+            hand[label] = (ms + e.self_device_time_total / 1e3 / steps,
+                           n + e.count // steps)
+    # every source launched in the traced steps must show in the trace
+    missing = [k for k, c in CudaKernel.registry.items()
+               if c.launches > launched.get(k, 0) and k not in hand]
+    if missing:
+        raise RuntimeError(f"{name}: no traced kernel of {missing}, which "
+                           "launched")
     if trace_dir:
         Path(trace_dir).mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(Path(trace_dir) / f"{name}_trace.json"))
@@ -108,6 +145,10 @@ def _trace(fn, name: str, trace_dir: str | None, steps: int = 3) -> dict:
         "top_kernels_ms": [
             [e.key[:90], e.self_device_time_total / 1e3 / steps,
              e.count // steps] for e in top],
+        # per source of hand-written kernels (csrc/conv.cu is K5-conv,
+        # hr_fuse.cu K5-fuse, ...): [ms, launches, share of the busy time]
+        "hand_kernels": {k: [ms, n, ms / busy_ms if busy_ms else 0.0]
+                         for k, (ms, n) in sorted(hand.items())},
     }
 
 
@@ -178,6 +219,7 @@ def profile_flagship(batch: int = 32, iters: int = 10,
         "card": _card(),
         "batch": batch,
         "phase_ms_cuda_events": phases,
+        "backbone_share_of_request": phases["backbone"] / phases["request"],
         "request_wall_ms": walls["request"],
         "images_per_s": batch / walls["request"] * 1e3,
         "eval_step_wall_ms": walls["eval_step"],

@@ -51,11 +51,25 @@ from shapy_tpu_torch.measure.measurements import (
     measure_plain,
     saved_centroids,
 )
+from shapy_tpu_torch.models.backbones import hrnet, layers
+from shapy_tpu_torch.models.backbones.hrnet import (
+    FUSE_KERNEL,
+    HighResolutionModule,
+    HRNet,
+    hr_fuse,
+    hr_fuse_plain,
+)
 from shapy_tpu_torch.models.backbones.layers import (
     BN_KERNEL,
+    CONV_KERNEL,
     batch_norm_train,
     batch_norm_train_backward_plain,
     batch_norm_train_plain,
+    conv2d_act,
+    conv2d_act_bf16_tolerance,
+    conv2d_act_plain,
+    conv_act,
+    fold_bn_,
 )
 from shapy_tpu_torch.models.body.assets import make_synthetic_model_data
 from shapy_tpu_torch.models.body.lbs import SKIN_KERNEL, skin, skin_plain
@@ -66,7 +80,12 @@ from shapy_tpu_torch.ops import (
     repulsion_loss,
 )
 from shapy_tpu_torch.ops import repulsion, tri_tri
-from shapy_tpu_torch.ops.plane_slice import plane_slice_soa
+from shapy_tpu_torch.core import geometry
+from shapy_tpu_torch.ops.plane_slice import (
+    plane_slice_reference,
+    plane_slice_soa,
+    plane_slice_triangles,
+)
 from shapy_tpu_torch.ops.repulsion import REPULSION_KERNEL
 from shapy_tpu_torch.ops.tri_tri import TRI_KERNEL
 
@@ -610,7 +629,8 @@ def test_measure_aos_kernel_matches_plain(dev, body, slice_mode):
         else:
             torch.testing.assert_close(g["points"], w["points"], rtol=0,
                                        atol=1e-6)
-        assert not g["points"].requires_grad
+        assert g["points"].requires_grad
+        assert not g["valid_points"].requires_grad
     g_vals = torch.randn(5, 5, generator=gen).to(dev)
     loss = sum((g_vals[:, i] * got[k]["tensor"]).sum()
                for i, k in enumerate(("mass", "height") + PLANES))
@@ -621,6 +641,69 @@ def test_measure_aos_kernel_matches_plain(dev, body, slice_mode):
     want_g = torch.autograd.grad((vals * g_vals).sum(), x)[0]
     scale = float(want_g.abs().max())
     torch.testing.assert_close(grad, want_g, rtol=0, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("slice_mode", ["reference", "exact"])
+def test_measure_points_backward_matches_plain(dev, body, slice_mode):
+    """``measure_points_backward``: the gradient of a weighted sum of the
+    slice points (masked slots included), in the triangles, against
+    autograd through the plain AoS slice in f64 at the forward's plane
+    heights (pinned values, gradient to the anchor triangle: the points'
+    gradient is ill-conditioned in the height wherever a crossed edge is
+    nearly horizontal, so a height one f32 rounding away is another
+    reference), with the same hits (the masks are compared first),
+    within 1e-5 of the largest gradient; one launch per backward."""
+    model, base = body
+    meas = BodyMeasurements(base.anchors, model.faces, 256,
+                            slice_mode=slice_mode).to(dev)
+    gen = torch.Generator().manual_seed(10)
+    betas = torch.randn(4, 10, generator=gen) * 1.5
+    v = model.forward_shape(betas.to(dev))["v_shaped"].detach()
+    tri = v[:, model.faces_tensor.long()].contiguous()
+    x = tri.clone().requires_grad_()
+    got = meas(x)["measurements"]
+    x64 = tri.double().requires_grad_()
+    want = {}
+    for k in PLANES:
+        anchor = getattr(meas.anchors, k)
+        h = geometry.face_barycentric_point(x64, anchor.face_idx,
+                                            anchor.bary)[..., 1]
+        h = h + (got[k]["plane_height"].detach().double() - h).detach()
+        want[k] = (plane_slice_reference if slice_mode == "reference"
+                   else plane_slice_triangles)(x64, h)
+    w = {k: torch.randn(got[k]["points"].shape, generator=gen).to(dev)
+         for k in PLANES}
+    for k in PLANES:
+        assert torch.equal(got[k]["valid_points"], want[k][1])
+    before = MEASURE_KERNEL.counts["measure_points_backward"]
+    grad = torch.autograd.grad(sum((w[k] * got[k]["points"]).sum()
+                                   for k in PLANES), x)[0]
+    assert MEASURE_KERNEL.counts["measure_points_backward"] == before + 1
+    want_g = torch.autograd.grad(sum((w[k].double() * want[k][0]).sum()
+                                     for k in PLANES), x64)[0]
+    scale = float(want_g.abs().max())
+    assert scale > 0
+    torch.testing.assert_close(grad.double(), want_g, rtol=0,
+                               atol=1e-5 * scale)
+
+
+def test_measure_aos_gradient_after_an_inference_mode_call(dev, body):
+    """The triangle surface caches its topology and anchor buffers per
+    mesh size: a first call under ``inference_mode`` (the scorer's) must
+    not leave inference tensors there that a later differentiated call
+    saves for its backward."""
+    model, base = body
+    meas = BodyMeasurements(base.anchors, model.faces, 256).to(dev)
+    betas = torch.zeros(2, 10, device=dev)
+    faces = model.faces_tensor.long()
+    with torch.inference_mode():
+        meas(model.forward_shape(betas)["v_shaped"][:, faces])
+    v = model.forward_shape(betas)["v_shaped"].detach().requires_grad_()
+    m = meas(v[:, faces])["measurements"]
+    loss = (m["height"]["tensor"].sum() + m["height"]["points"].sum()
+            + m["chest"]["points"].square().sum())
+    loss.backward()
+    assert bool(torch.isfinite(v.grad).all()) and float(v.grad.abs().max()) > 0
 
 
 def test_measure_aos_cuda_tensors_never_fall_back_to_plain(dev, body,
@@ -926,3 +1009,155 @@ def test_point_fscore_keeps_clouds_on_their_device(dev):
     for k in want:
         assert got[k].device.type == "cuda"
         assert float(got[k]) == float(want[k])
+
+
+# -- backbone kernels: K5-conv, K5-fuse --------------------------------------
+
+
+# (Cin, Cout, k, stride, input side, bias, residual, relu): the stem, the
+# heaviest 3x3 shapes (Cout 48 and 96 tile badly), a stride-2 fuse hop, a
+# residual 1x1 and the head's 2048-channel 1x1, at small batch.
+CONV_CASES = [
+    (3, 64, 3, 2, 64, True, False, True),
+    (48, 48, 3, 1, 32, True, True, True),
+    (96, 96, 3, 1, 16, True, False, True),
+    (48, 96, 3, 2, 32, True, False, False),
+    (64, 256, 1, 1, 16, True, True, True),
+    (384, 48, 1, 1, 8, True, False, False),
+    (2048, 2048, 1, 1, 8, False, False, False),
+    (256, 48, 3, 1, 17, False, True, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", CONV_CASES, ids=lambda c: "-".join(
+    str(int(v)) for v in c))
+def test_conv_kernel_matches_plain(dev, dtype, case):
+    """K5-conv against ``conv2d_act_plain`` (cuDNN without TF32, then the
+    eager epilogue) on the card, batch 3: bf16 within
+    ``conv2d_act_bf16_tolerance`` (one bf16 step of the plain value at
+    each rounding of the epilogue plus the worst-case gap of two f32 sums
+    of the same K products in other orders; the sums differ in order
+    only); f32 within 1e-5 of the largest |y|; channels_last output, one
+    launch."""
+    cin, cout, k, stride, size, has_bias, has_res, relu = case
+    gen = torch.Generator().manual_seed(cin + cout + k)
+    cl = torch.channels_last
+    x = torch.randn((3, cin, size, size), generator=gen).abs()
+    w = torch.randn((cout, cin, k, k), generator=gen) / (cin * k * k) ** 0.5
+    b = torch.randn(cout, generator=gen) * 0.3 if has_bias else None
+    out = (size + 2 * (k // 2) - k) // stride + 1
+    r = torch.randn((3, cout, out, out), generator=gen) if has_res else None
+
+    def put(t):
+        return None if t is None else t.to(dev, dtype).contiguous(
+            memory_format=cl)
+
+    x, w, r = put(x), put(w), put(r)
+    b = None if b is None else b.to(dev, dtype)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        before = CONV_KERNEL.launches
+        got = conv2d_act(x, w, b, r, relu, stride)
+        assert CONV_KERNEL.launches == before + 1
+        want = conv2d_act_plain(x, w, b, r, relu, stride)
+        c = torch.nn.functional.conv2d(x, w, None, stride, k // 2).float()
+        terms = torch.nn.functional.conv2d(x.abs().float(), w.abs().float(),
+                                           None, stride, k // 2)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    assert got.shape == want.shape and got.dtype == dtype
+    assert got.is_contiguous(memory_format=cl)
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 1e-5 * float(want.abs().max())
+        return
+    tol = conv2d_act_bf16_tolerance(c, b, r, terms, cin, k)
+    assert bool((diff <= tol).all()), float((diff / tol).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_hr_fuse_kernel_matches_plain(dev, dtype):
+    """K5-fuse, bit-equal to ``hr_fuse_plain`` at every target of a
+    stage-4 module (W48 widths, 32^2 down to 4^2, batch 2), with the fuse
+    convs through K5-conv; one launch per target."""
+    module = HighResolutionModule("stage4")
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for p in module.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+    fold_bn_(module)
+    module = module.eval().to(dev, dtype, memory_format=torch.channels_last)
+    chans = hrnet._branch_channels("stage4")
+    xs = [torch.randn((2, c, 32 >> b, 32 >> b), generator=gen).to(
+        dev, dtype).contiguous(memory_format=torch.channels_last)
+        for b, c in enumerate(chans)]
+    n = len(xs)
+    with torch.no_grad():
+        for i in range(n):
+            row = module.fuse_layers[i]
+            terms = [(conv_act(row[j][0], row[j][1], xs[j]), j - i)
+                     if j > i else (row[j](xs[j]), 0)
+                     for j in list(range(i + 1, n)) + list(range(i))]
+            before = FUSE_KERNEL.launches
+            got = hr_fuse(xs[i], terms)
+            assert FUSE_KERNEL.launches == before + 1
+            assert torch.equal(got, hr_fuse_plain(xs[i], terms))
+            assert got.is_contiguous(memory_format=torch.channels_last)
+
+
+def test_k5_wrappers_reject_what_the_kernels_do_not_take(dev):
+    x = torch.randn(1, 16, 8, 8, device=dev)
+    w = torch.randn(16, 16, 3, 3, device=dev)
+    cl = torch.channels_last
+    with pytest.raises(ValueError, match="channels_last"):
+        conv2d_act(x, w.contiguous(memory_format=cl))  # x NCHW
+    with pytest.raises(ValueError, match="OHWI"):
+        conv2d_act(x.contiguous(memory_format=cl), w)
+    with pytest.raises(ValueError):
+        conv2d_act(x.contiguous(memory_format=cl),
+                   torch.randn(16, 16, 5, 5, device=dev).contiguous(
+                       memory_format=cl))
+    with pytest.raises(ValueError, match="term"):
+        hr_fuse(x.contiguous(memory_format=cl), [(x[:, :, :3], 1)])
+
+
+def test_k5_kernel_backward_raises(dev):
+    """On CUDA tensors K5-conv and K5-fuse refuse a backward (they have
+    none yet) instead of returning no gradient."""
+    cl = torch.channels_last
+    x = torch.randn(1, 16, 8, 8, device=dev).contiguous(
+        memory_format=cl).requires_grad_()
+    w = torch.randn(16, 16, 3, 3, device=dev).contiguous(memory_format=cl)
+    with pytest.raises(NotImplementedError, match="K5-conv"):
+        conv2d_act(x, w, relu=True).sum().backward()
+    u = torch.randn(1, 16, 4, 4, device=dev).contiguous(memory_format=cl)
+    with pytest.raises(NotImplementedError, match="K5-fuse"):
+        hr_fuse(x, [(u, 1)]).sum().backward()
+
+
+def test_backbone_cuda_eval_never_reaches_cudnn_or_plain(dev, monkeypatch):
+    """The eval backbone on CUDA tensors (BN folded, bf16) runs K5-conv
+    and K5-fuse only: ``F.conv2d``, ``nn.Upsample`` and the plain versions
+    are never called, and one forward makes 331 K5-conv and 26 K5-fuse
+    launches; its features are finite."""
+    net = HRNet()
+    fold_bn_(net)
+    net = net.eval().to(dev, torch.bfloat16, memory_format=torch.channels_last)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("cuDNN or a plain version reached")
+
+    monkeypatch.setattr(torch.nn.functional, "conv2d", refuse)
+    monkeypatch.setattr(torch.nn.Upsample, "forward", refuse)
+    monkeypatch.setattr(layers, "conv2d_act_plain", refuse)
+    monkeypatch.setattr(hrnet, "hr_fuse_plain", refuse)
+    x = torch.randn(2, 3, 64, 64, device=dev).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    conv0, fuse0 = CONV_KERNEL.launches, FUSE_KERNEL.launches
+    with torch.inference_mode():
+        feat = net(x)
+    assert CONV_KERNEL.launches - conv0 == 331
+    assert FUSE_KERNEL.launches - fuse0 == 26
+    assert feat.shape == (2, 2048) and bool(torch.isfinite(feat).all())

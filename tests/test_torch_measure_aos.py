@@ -218,10 +218,42 @@ def test_forward_gradient_matches_jax(bodies, mode):
      + w["height"] * tm.compute_height(t)[0].sum()).backward()
     for got, want in ((v.grad, want_v), (t.grad, want_t)):
         assert np.abs(got.numpy() - want).max() <= 1e-4 * np.abs(want).max()
-    for name in PLANES:  # the slice points carry no gradient
-        assert not m[name]["points"].requires_grad
+    for name in PLANES:  # the slice points carry a gradient, the masks not
+        assert m[name]["points"].requires_grad
         assert not m[name]["valid_points"].requires_grad
     assert m["height"]["points"].requires_grad
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_points_gradient_matches_jax(bodies, mode):
+    """The gradient of a weighted sum of the slice points (``points``, as
+    returned: masked slots included), in the vertices through ``v[:,
+    faces]``, against ``jax.grad`` of the same function of the JAX
+    ``BodyMeasurements.forward``: through each hit's crossed edge (or its
+    quad-edge cast) and through the plane height to the anchor triangle.
+    Held per mesh vertex, as the circumferences' gradients; tolerance 1e-5
+    of the largest (the same f32 operations, their cotangents summed in
+    another order)."""
+    tm, jm = _modules(bodies, mode)
+    faces, verts = bodies[0], bodies[1]
+    rng = np.random.default_rng(3)
+    out = tm(torch.from_numpy(bodies[2]))["measurements"]
+    w = {k: rng.normal(size=tuple(out[k]["points"].shape)).astype(np.float32)
+         for k in PLANES}
+
+    def jloss(v):
+        m = jm.forward(v[:, faces])["measurements"]
+        return sum(jnp.sum(jnp.asarray(w[k]) * m[k]["points"])
+                   for k in PLANES)
+
+    want = np.asarray(jax.grad(jloss)(jnp.asarray(verts)))
+    v = torch.from_numpy(verts).requires_grad_()
+    m = tm(v[:, torch.from_numpy(faces)])["measurements"]
+    sum((torch.from_numpy(w[k]) * m[k]["points"]).sum()
+        for k in PLANES).backward()
+    got = v.grad.numpy()
+    assert np.abs(want).max() > 0
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
 @pytest.mark.parametrize("mode", MODES)
