@@ -13,7 +13,9 @@ Phases, each of which raises on failure (exit code 1):
    and ``measure_points_backward``), K2 ingest, K3 skinning forward and
    backward, K3-chain forward and backward, K4 train-mode BatchNorm
    forward and backward, K5-conv (the backbone's convolutions with their
-   epilogue), K5-fuse (HRNet's multi-resolution fusion), K6 mesh-mesh
+   epilogue) with K5-dgrad and K5-wgrad (their data and weight
+   gradients), K5-fuse (HRNet's multi-resolution fusion) and its
+   backward, K6 mesh-mesh
    intersection, K7 repulsion forward and backward, K8a P2P point error,
    K8b aligned point error, K9 nearest-neighbour distances; prints each
    kernel's registers and stack.
@@ -54,6 +56,22 @@ Phases, each of which raises on failure (exit code 1):
    (bf16 batch 32, f32 batch 2), timed. The whole bf16 backbone at batch
    32, the K5 route against the plain route (cuDNN + eager ops): both
    times, the features' cosine (>= 0.999) and relative L2 (<= 0.05).
+   K5-dgrad and K5-wgrad at all 33 conv shapes with one train step's
+   recorded inputs, weights and cotangents (batch 48, bf16; dgrad at the
+   32 shapes whose input needs a gradient): within one bf16 step plus 2 K
+   2^-24 sum|terms| of the plain versions (cuDNN's gradients), two calls
+   bit-equal, and at batch 2 in f32 within 1e-5 of the largest |value|
+   (dbias 1e-5 sum|dy|); each shape timed beside cuDNN's
+   ``aten.convolution_backward`` and its bound; the step's 330 data and
+   331 weight gradients replayed in one window each through the kernel,
+   the plain version and cuDNN. K5-fuse's backward at the step's 26
+   targets: within one bf16 step (f32 bit-equal), replayed and timed. The
+   whole backbone's train-mode forward and backward at batch 48, the K5
+   route against the plain route: in f32 (TF32 off) per module group a
+   gradient cosine >= 0.999 and relative L2 <= 0.05; in bf16 both times,
+   and each route against the f32 one (K5's relative L2 within 1.05x the
+   plain route's: either bf16 gradient is mostly amplified rounding noise
+   with these random weights).
 3. Serves the flagship (HRNet-W48 at full width, 3-stage head with MLP
    (1024, 1024), SMPL-X, measurements; bf16 backbone) through
    ``apply_from_full_images``: one warm-up, then 3 requests of batch 32.
@@ -67,7 +85,8 @@ Phases, each of which raises on failure (exit code 1):
    step (dropout 0) with the height, chest, waist and hips losses at
    weight 1.0 (GT measurements from K1 on the GT bodies): losses, each
    module's gradient norm and cosine, the head's gradients elementwise,
-   and the updated parameters.
+   and the updated parameters; the CUDA step runs the f32 K5 kernels
+   (331 K5-conv, 330 K5-dgrad, 331 K5-wgrad, 26 + 26 K5-fuse launches).
 5. Evaluates the flagship of phase 3 at batch 32: 3 batches of synthetic
    ground truth (shaped and posed SMPL-X bodies from seeded betas and
    poses, GT measurements from K1 on all faces, genders and BMI buckets,
@@ -95,10 +114,13 @@ Phases, each of which raises on failure (exit code 1):
    no files) with ``Trainer.fit``: 2 warm-up steps, then 10 steps on one
    fixed synthetic batch of 48. Checks finite losses and a last total
    below the first, that every BN running stat moved and ``param_mean``
-   did not, and that K1, K3 and K3-chain (forward and backward) and K4
-   (forward and backward) were launched by these 10 steps, and K5 not
-   (training keeps cuDNN's convs); prints steps/s,
-   images/s and the peak device memory beside the card.
+   did not, that K1, K3 and K3-chain (forward and backward) and K4
+   (forward and backward) were launched by these 10 steps, and that each
+   step made exactly 331 K5-conv, 330 K5-dgrad, 331 K5-wgrad, 26 K5-fuse
+   and 26 K5-fuse backward launches; one more step with ``F.conv2d`` made
+   to raise, under ``torch.profiler``, shows no convolution operator
+   (forward or ``aten.convolution_backward``) in training; prints
+   steps/s, images/s and the peak device memory beside the card.
 8. Fits shape to measurements with ``fit_betas_to_measurements`` on the
    full-width SMPL-X, in both slice modes: batch 1 from zero betas and
    batch 32 from seeded betas (0.5 sigma), 200 Adam steps at lr 0.05 (the
@@ -126,14 +148,19 @@ Phases, each of which raises on failure (exit code 1):
    scores equal wherever no point's two distances fall on either side of
    the threshold). Checks that K6, K7 forward and
    backward and K9 were launched by this phase, and prints their counts.
+10. Kill and resume on the card: 4 ``Trainer.fit`` steps of batch 48
+   against 2 steps, a checkpoint in a temporary directory, a new
+   ``Trainer`` that resumes from it and 2 more steps: parameters, BN
+   running stats, ``param_mean``, Adam's moments and the step bit-equal.
 
 The line before the last is a JSON object with one entry per kernel
 function (forward and backward separately); ``launches`` counts the
-training phase for the kernels it runs, the batch-32 fit of phase 8 for
-K1's backward and K1-exact, phase 9 for K6, K7 and K9, the scorer
-(phase 6) for K1-AoS's points and their backward, and the evaluation
-phase for the others (K5 among them; its times are one forward's convs,
-or a stage-4 module's fusion targets, at batch 32). The last line is
+training phase for the kernels it runs (K5 among them), the batch-32 fit
+of phase 8 for K1's backward and K1-exact, phase 9 for K6, K7 and K9,
+the scorer (phase 6) for K1-AoS's points and their backward, and the
+evaluation phase for the others. K5-conv's and K5-fuse's times are a
+served forward's at batch 32, the backward kernels' a train step's at
+batch 48. The last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without
 the repository beside this file, it exits non-zero and prints no result.
 """
@@ -182,6 +209,17 @@ PLANE_M = 1024  # slots per plane triangle: no truncation
 MIN_COLLISIONS = 1000
 FSCORE_THRESH = (0.005, 0.01, 0.02)  # m
 NN_TOL = 1e-5  # m: K9 vs plain, neighbours that tie within f32 rounding
+# K5-wgrad in bf16 at batch 48: the share of dw's elements that may round
+# otherwise than the exact sum. f32 sums in another order move only the
+# sums near a rounding midpoint (at most 5.5% of a shape's elements on an
+# H100); a lost row partition moves 91-100% of them (PERF.md).
+WGRAD_MAX_DIFFERING = 0.25
+# The bf16 train-mode backbone: how far below the plain route's cosine with
+# the f32 gradient the K5 route's may fall in a module group. On an H100
+# the two, both with K4's BN, differ by at most 0.005 per group, routes
+# with cuDNN's BN by up to 0.034 (PERF.md); a noise gradient falls ~0.75
+# at the head convs.
+BF16_COSINE_MARGIN = 0.02
 # The H100 SXM's published peaks (at its 700 W limit): HBM bytes/s and
 # f32 FLOP/s outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
@@ -235,9 +273,12 @@ def max_err(a, b) -> float:
     return float((a.detach().float() - b.detach().float()).abs().max())
 
 
-def bound(nbytes: float, flops: float) -> tuple:
-    """(least ms, "bytes" or "operations") for the work on one H100."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S
+def bound(nbytes: float, flops: float,
+          peak_flop_s: float = PEAK_F32_FLOP_S) -> tuple:
+    """(least ms, "bytes" or "operations") for the work on one H100, its
+    operations at ``peak_flop_s`` (f32 outside the tensor cores unless
+    given)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak_flop_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -317,6 +358,12 @@ def kernels():
          "shapy_tpu/models/backbones/layers.py:91"),
         ("K5_fuse", FUSE_KERNEL, "hr_fuse_forward", csrc + "hr_fuse.cu",
          "shapy_tpu/models/backbones/hrnet.py:141"),
+        ("K5_dgrad", CONV_KERNEL, "conv2d_dgrad", csrc + "conv.cu",
+         "shapy_tpu/models/backbones/layers.py:91"),
+        ("K5_wgrad", CONV_KERNEL, "conv2d_wgrad", csrc + "conv.cu",
+         "shapy_tpu/models/backbones/layers.py:91"),
+        ("K5_fuse_backward", FUSE_KERNEL, "hr_fuse_backward",
+         csrc + "hr_fuse.cu", "shapy_tpu/models/backbones/hrnet.py:141"),
         ("K8a_point_regress", REGRESS_KERNEL, "point_regress_forward",
          csrc + "point_regress.cu", "shapy_tpu/eval/metrics.py:228"),
         ("K8b_align_error", ALIGN_KERNEL, "align_error_forward",
@@ -338,13 +385,18 @@ SERVE_KERNELS = ("K1_measure", "K2_ingest", "K3_skinning", "K3chain_forward",
 # Launches per backbone forward: every conv of HRNet-W48 once, every
 # fusion target once.
 K5_PER_FORWARD = {"K5_conv": 331, "K5_fuse": 26}
+# Launches per train step: the forward's, the data gradient of every conv
+# but the stem's first (the images take none), every conv's weight
+# gradient, every fusion target's backward.
+K5_PER_TRAIN_STEP = dict(K5_PER_FORWARD, K5_dgrad=330, K5_wgrad=331,
+                         K5_fuse_backward=26)
 K5_SHAPES = 33
 EVAL_KERNELS = SERVE_KERNELS + ("K8a_point_regress", "K8b_align_error")
 SCORE_KERNELS = ("K1_measure", "K1aos_points", "K8a_point_regress",
                  "K8b_align_error")
 TRAIN_KERNELS = ("K1_measure", "K3_skinning", "K3_skinning_backward",
                  "K3chain_forward", "K3chain_backward", "K4_bn_forward",
-                 "K4_bn_backward")
+                 "K4_bn_backward", *K5_PER_TRAIN_STEP)
 FIT_KERNELS = {"reference": ("K1_measure", "K1_measure_backward"),
                "exact": ("K1exact_measure", "K1exact_measure_backward")}
 CONTACT_KERNELS = ("K6_tri_tri", "K7_repulsion", "K7_repulsion_backward",
@@ -552,8 +604,10 @@ def check_kernels(regressor, requests, eval_data, dev):
 
 def check_k5_launches(launches: dict, forwards: int, what: str) -> None:
     """Exactly 331 K5-conv and 26 K5-fuse launches per backbone forward:
-    every conv and fusion target of the eval backbone ran its kernel."""
-    for name, per in K5_PER_FORWARD.items():
+    every conv and fusion target of the eval backbone ran its kernel; no
+    backward kernel ran."""
+    for name, per in K5_PER_TRAIN_STEP.items():
+        per = K5_PER_FORWARD.get(name, 0)
         check(launches[name] == per * forwards,
               f"{what}: {launches[name]} {name} launches for {forwards} "
               f"forwards, expected {per} each")
@@ -1869,6 +1923,522 @@ def check_backbone_routes(regressor, requests):
             "relative_l2": rel}
 
 
+def _train_regressor(base, dev):
+    """A copy of ``base`` on ``dev`` in train mode with a bf16 backbone,
+    as phase 7 trains it."""
+    import torch
+
+    return copy.deepcopy(base).to(dev).prepare_for_train_(torch.bfloat16)
+
+
+def train_step_calls(base, dev):
+    """Every conv and fusion target of one train step of the flagship at
+    batch 48 (bf16 backbone, dropout 0.5, the losses of phase 7), with
+    the cotangent its backward received (made channels_last, as the
+    wrappers make it): (convs, fuses), each conv ``(dy, x, weight, stride,
+    needs dx, has a bias)`` in backward order, each fuse ``(dy, y,
+    shifts)``. The step runs the kernels; the recorded tensors stay alive
+    for the replays."""
+    import torch
+
+    from shapy_tpu_torch.flagship import (
+        FLAGSHIP_OPTIM_CFG,
+        FLAGSHIP_TRAIN_LOSS_CFG,
+        synthetic_train_batches,
+    )
+    from shapy_tpu_torch.models.backbones import hrnet, layers
+    from shapy_tpu_torch.train.losses import RegressorLosses
+    from shapy_tpu_torch.train.step import init_train_state, make_train_step
+
+    reg = _train_regressor(base, dev)
+    batch = dict(synthetic_train_batches(reg, 1, TRAIN_B, CROP, SEED + 9)[0])
+    images = batch.pop("images")
+    step = make_train_step(reg, RegressorLosses(FLAGSHIP_TRAIN_LOSS_CFG),
+                           init_train_state(reg, FLAGSHIP_OPTIM_CFG))
+    convs, fuses = [], []
+    conv_bwd, fuse_bwd = (layers._conv2d_backward_cuda,
+                          hrnet._hr_fuse_backward_cuda)
+
+    def conv(dy, x, weight, y, stride, need_x, need_w, need_b, need_r):
+        dy = layers._aligned_cl(dy)
+        convs.append((dy, x.detach(), weight.detach(), stride, need_x,
+                      need_b))
+        return conv_bwd(dy, x, weight, y, stride, need_x, need_w, need_b,
+                        need_r)
+
+    def fuse(dy, y, shifts):
+        dy = dy.contiguous(memory_format=torch.channels_last)
+        fuses.append((dy, y.detach(), shifts))
+        return fuse_bwd(dy, y, shifts)
+
+    layers._conv2d_backward_cuda, hrnet._hr_fuse_backward_cuda = conv, fuse
+    try:
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        step.backward(step.forward(images, batch, gen))
+    finally:
+        layers._conv2d_backward_cuda, hrnet._hr_fuse_backward_cuda = (
+            conv_bwd, fuse_bwd)
+    torch.cuda.synchronize()
+    check(len(convs) == K5_PER_TRAIN_STEP["K5_wgrad"],
+          f"{len(convs)} conv backwards per train step")
+    check(sum(c[4] for c in convs) == K5_PER_TRAIN_STEP["K5_dgrad"],
+          "convs whose input needs a gradient")
+    check(len(fuses) == K5_PER_TRAIN_STEP["K5_fuse_backward"],
+          f"{len(fuses)} fusion backwards per train step")
+    return convs, fuses
+
+
+def _conv_library(dy, x, w, stride, mask):
+    """cuDNN's conv backward for the same output mask (dx, dw, dbias)."""
+    import torch
+
+    k = w.shape[-1]
+    return torch.ops.aten.convolution_backward(
+        dy, x, w, [w.shape[0]] if mask[2] else None, [stride] * 2,
+        [k // 2] * 2, [1, 1], False, [0, 0], 1, list(mask))
+
+
+def _bwd_steps(got, want, s, terms, k: int) -> float:
+    """The largest |got - want| of a bf16 backward kernel against its
+    plain version in units of its per-element limit: one bf16 step at the
+    larger magnitude of the f32 sum ``s`` and the two rounded values (two
+    roundings that straddle a power of two differ by up to a step of the
+    upper binade) plus 2 k 2^-24 sum|terms| (two f32 sums of the k same
+    products in other orders)."""
+    import torch
+
+    from shapy_tpu_torch.models.backbones.layers import (
+        conv2d_act_bf16_tolerance,
+    )
+
+    got, want = got.float(), want.float()
+    mag = torch.maximum(s.abs(), torch.maximum(got.abs(), want.abs()))
+    tol = conv2d_act_bf16_tolerance(mag, None, None, terms, k, 1)
+    return float(((got - want).abs() / tol).max())
+
+
+def _exact_steps(got, exact, terms, k: int) -> tuple:
+    """A bf16 K5-wgrad result against the exact (f64) sum: (the largest
+    |got - exact| in units of :func:`conv2d_wgrad_bf16_tolerance`, the
+    share of elements that round otherwise than the exact sum)."""
+    from shapy_tpu_torch.models.backbones.layers import (
+        conv2d_wgrad_bf16_tolerance,
+    )
+
+    tol = conv2d_wgrad_bf16_tolerance(got, terms, k).double()
+    steps = float(((got.double() - exact).abs() / tol).max())
+    return steps, float((got != exact.to(got.dtype)).double().mean())
+
+
+def check_conv_backward_kernels(convs):
+    """Phase 2, K5-dgrad and K5-wgrad at each of the backbone's 33 conv
+    shapes, with one train step's recorded inputs, weights and cotangents
+    at batch 48 in bf16 (``convs``, :func:`train_step_calls`; K5-dgrad at
+    the 32 shapes whose input needs a gradient): against the plain
+    versions (cuDNN's data and weight gradients, the bias's f32 sum),
+    within one bf16 step (at the larger of the f32 no-TF32 sum and the
+    two values: :func:`_bwd_steps`) plus 2 K 2^-24 sum|terms|
+    (K = k^2 Cout for dx, N Ho Wo for dw and dbias: two f32 sums of the
+    same products in other orders). That limit grows with K, and at the
+    weight gradients' K (12,288 to 786,432 rows) it would pass a zeroed
+    dw, so dw and dbias are also held against the exact (f64) sum: half a
+    bf16 step plus 2 sqrt(K) 2^-24 sum|terms| per element
+    (:func:`conv2d_wgrad_bf16_tolerance`), and at most
+    ``WGRAD_MAX_DIFFERING`` of the elements may round otherwise than the
+    exact sum (an error that moves every sum, such as a lost row
+    partition, changes the rounding of most of them). Two calls
+    bit-equal; then at batch 2
+    in f32 (phase 4's shapes, TF32 off): dx and dw within 1e-5 of the
+    largest |value|, dbias within 1e-5 sum|dy|. Each shape's kernel,
+    plain version and cuDNN (``aten.convolution_backward`` with the same
+    output mask) timed under ``cases`` beside its bound (FLOPs at 989
+    TFLOP/s, bytes of the inputs and outputs at 3.35 TB/s).
+
+    The entries' times are one train step's: the 330 data gradients, then
+    the 331 weight gradients, replayed in one CUDA-event window each
+    through the kernel, the plain version and cuDNN."""
+    import torch
+
+    from shapy_tpu_torch.models.backbones.layers import (
+        _conv2d_dgrad_cuda,
+        _conv2d_wgrad_cuda,
+        conv2d_input_plain,
+        conv2d_weight_plain,
+    )
+
+    shapes = {}
+    for args in convs:
+        dy, x, w, stride, need_x, bias = args
+        key = (x.shape[1], w.shape[0], w.shape[-1], stride, x.shape[2])
+        shapes.setdefault(key, {"args": args, "count": 0})["count"] += 1
+    check(len(shapes) == K5_SHAPES, f"{len(shapes)} conv shapes")
+    cases, failed = [], []
+    worst = {"K5_dgrad": 0.0, "K5_wgrad": 0.0}
+    worst32 = {"K5_dgrad": 0.0, "K5_wgrad": 0.0}
+    saved = torch.backends.cudnn.allow_tf32
+    for (cin, cout, k, stride, size), c in shapes.items():
+        dy, x, w, _, need_x, bias = c["args"]
+        rows = dy.shape[0] * dy.shape[2] * dy.shape[3]
+        name = f"{cin}->{cout} k{k} s{stride} {size}^2"
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            dw, db, _ = _conv2d_wgrad_cuda(x, dy, None, w.shape, stride, bias)
+            dw2, db2, _ = _conv2d_wgrad_cuda(x, dy, None, w.shape, stride,
+                                             bias)
+            pw, pb = conv2d_weight_plain(x, w.shape, dy, stride, bias)
+            sw, sb = conv2d_weight_plain(x.float(), w.shape, dy.float(),
+                                         stride, bias)
+            ew, eb = conv2d_weight_plain(x.double(), w.shape, dy.double(),
+                                         stride, bias)
+            tw, tb = conv2d_weight_plain(x.abs().float(), w.shape,
+                                         dy.abs().float(), stride, bias)
+            args32 = (x[:2].float(), dy[:2].float())
+            dw32, db32, _ = _conv2d_wgrad_cuda(*args32, None, w.shape, stride,
+                                               bias)
+            pw32, pb32 = conv2d_weight_plain(args32[0], w.shape, args32[1],
+                                             stride, bias)
+            sum_dy32 = args32[1].abs().sum(dim=(0, 2, 3))
+            if need_x:
+                dx = _conv2d_dgrad_cuda(dy, w, x.shape, stride)
+                dx2 = _conv2d_dgrad_cuda(dy, w, x.shape, stride)
+                px = conv2d_input_plain(x.shape, w, dy, stride)
+                sx = conv2d_input_plain(x.shape, w.float(), dy.float(),
+                                        stride)
+                tx = conv2d_input_plain(x.shape, w.abs().float(),
+                                        dy.abs().float(), stride)
+                dx32 = _conv2d_dgrad_cuda(args32[1], w.float(),
+                                          args32[0].shape, stride)
+                px32 = conv2d_input_plain(args32[0].shape, w.float(),
+                                          args32[1], stride)
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved
+        torch.cuda.synchronize()
+        equal = torch.equal(dw, dw2) and (db is None or torch.equal(db, db2))
+        steps_w = _bwd_steps(dw, pw, sw, tw, rows)
+        steps_b = 0.0 if db is None else _bwd_steps(db, pb, sb, tb, rows)
+        exact_w, share_w = _exact_steps(dw, ew, tw, rows)
+        exact_b, share_b = ((0.0, 0.0) if db is None
+                            else _exact_steps(db, eb, tb, rows))
+        rel_w32 = rel_err(dw32, pw32)
+        b32 = 0.0 if db32 is None else float(
+            ((db32 - pb32).abs() / sum_dy32).max())
+        worst["K5_wgrad"] = max(worst["K5_wgrad"], max_err(dw, pw))
+        worst32["K5_wgrad"] = max(worst32["K5_wgrad"], rel_w32)
+        case = {"cin": cin, "cout": cout, "k": k, "stride": stride,
+                "size": size, "convs_per_step": c["count"], "bias": bias,
+                "wgrad_tol_vs_plain": steps_w, "dbias_tol_vs_plain": steps_b,
+                "wgrad_tol_vs_exact": exact_w, "dbias_tol_vs_exact": exact_b,
+                "wgrad_share_rounded_otherwise": share_w,
+                "dbias_share_rounded_otherwise": share_b,
+                "wgrad_f32_rel_err": rel_w32, "dbias_f32_err_over_sum_dy": b32,
+                "wgrad_differing": int((dw != pw).sum()),
+                "wgrad_elements": dw.numel()}
+        bad = (max(steps_w, steps_b, exact_w, exact_b) > 1.0
+               or max(share_w, share_b) > WGRAD_MAX_DIFFERING
+               or rel_w32 > 1e-5 or b32 > 1e-5)
+        flops = 2.0 * rows * cout * cin * k * k
+        mask_w = (False, True, bool(bias))
+        case["wgrad_ms"] = time_ms(lambda: _conv2d_wgrad_cuda(
+            x, dy, None, w.shape, stride, bias))
+        case["wgrad_plain_ms"] = time_ms(lambda: conv2d_weight_plain(
+            x, w.shape, dy, stride, bias))
+        case["wgrad_library_ms"] = time_ms(lambda: _conv_library(
+            dy, x, w, stride, mask_w))
+        case["wgrad_bound_ms"], case["wgrad_bound_by"] = bound(
+            2.0 * (x.numel() + dy.numel() + w.numel()), flops,
+            PEAK_BF16_FLOP_S)
+        line = (f"K5-wgrad {name} (x{c['count']}, bias {bias}): bf16 at "
+                f"{steps_w:.3f} of the tolerance (dbias {steps_b:.3f}), "
+                f"{case['wgrad_differing']} of {dw.numel()} differ; against "
+                f"the exact sum at {exact_w:.3f} of its limit (dbias "
+                f"{exact_b:.3f}), {share_w:.2%} rounded otherwise (dbias "
+                f"{share_b:.2%}; limit {WGRAD_MAX_DIFFERING:.0%}); two "
+                f"calls equal {equal}; f32 rel {rel_w32:.2e}, dbias "
+                f"{b32:.2e} of sum|dy|; kernel {case['wgrad_ms']:.4f} ms, "
+                f"plain {case['wgrad_plain_ms']:.4f}, cuDNN "
+                f"{case['wgrad_library_ms']:.4f}, bound "
+                f"{case['wgrad_bound_ms']:.4f} ({case['wgrad_bound_by']})")
+        if need_x:
+            steps_x = _bwd_steps(dx, px, sx, tx, cout * k * k)
+            rel_x32 = rel_err(dx32, px32)
+            equal = equal and torch.equal(dx, dx2)
+            worst["K5_dgrad"] = max(worst["K5_dgrad"], max_err(dx, px))
+            worst32["K5_dgrad"] = max(worst32["K5_dgrad"], rel_x32)
+            bad = bad or steps_x > 1.0 or rel_x32 > 1e-5
+            case.update({"dgrad_tol_vs_plain": steps_x,
+                         "dgrad_f32_rel_err": rel_x32,
+                         "dgrad_differing": int((dx != px).sum()),
+                         "dgrad_elements": dx.numel()})
+            mask_x = (True, False, False)
+            case["dgrad_ms"] = time_ms(lambda: _conv2d_dgrad_cuda(
+                dy, w, x.shape, stride))
+            case["dgrad_plain_ms"] = time_ms(lambda: conv2d_input_plain(
+                x.shape, w, dy, stride))
+            case["dgrad_library_ms"] = time_ms(lambda: _conv_library(
+                dy, x, w, stride, mask_x))
+            case["dgrad_bound_ms"], case["dgrad_bound_by"] = bound(
+                2.0 * (x.numel() + dy.numel() + w.numel()), flops,
+                PEAK_BF16_FLOP_S)
+            line += (f"; K5-dgrad at {steps_x:.3f} of the tolerance, "
+                     f"{case['dgrad_differing']} of {dx.numel()} differ; f32 "
+                     f"rel {rel_x32:.2e}; kernel {case['dgrad_ms']:.4f} ms, "
+                     f"plain {case['dgrad_plain_ms']:.4f}, cuDNN "
+                     f"{case['dgrad_library_ms']:.4f}, bound "
+                     f"{case['dgrad_bound_ms']:.4f} ({case['dgrad_bound_by']})")
+        case["bit_equal_calls"] = equal
+        print(line)
+        if bad or not equal:
+            failed.append(name)
+        cases.append(case)
+    check(not failed, f"K5 conv backward outside its tolerance at {failed}")
+
+    dgrads = [(dy, x, w, stride) for dy, x, w, stride, need_x, _ in convs
+              if need_x]
+    wgrads = [(dy, x, w, stride, bias) for dy, x, w, stride, _, bias in convs]
+    out = {}
+    for name, calls, kernel, plain, library in (
+            ("K5_dgrad", dgrads,
+             lambda dy, x, w, s: _conv2d_dgrad_cuda(dy, w, x.shape, s),
+             lambda dy, x, w, s: conv2d_input_plain(x.shape, w, dy, s),
+             lambda dy, x, w, s: _conv_library(dy, x, w, s,
+                                               (True, False, False))),
+            ("K5_wgrad", wgrads,
+             lambda dy, x, w, s, b: _conv2d_wgrad_cuda(x, dy, None, w.shape,
+                                                       s, b),
+             lambda dy, x, w, s, b: conv2d_weight_plain(x, w.shape, dy, s, b),
+             lambda dy, x, w, s, b: _conv_library(dy, x, w, s,
+                                                  (False, True, b)))):
+        ms = time_ms(replay(kernel, calls), iters=5, warmup=1)
+        plain_ms = time_ms(replay(plain, calls), iters=5, warmup=1)
+        library_ms = time_ms(replay(library, calls), iters=5, warmup=1)
+        flops = nbytes = 0.0
+        for dy, x, w, *_ in calls:
+            k = w.shape[-1]
+            flops += 2.0 * dy.numel() * x.shape[1] * k * k
+            nbytes += 2.0 * (x.numel() + dy.numel() + w.numel())
+        bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16_FLOP_S)
+        print(f"{name}, one train step's {len(calls)} convs at batch "
+              f"{TRAIN_B} replayed in one window: kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f}, cuDNN {library_ms:.3f}, bound {bound_ms:.3f} "
+              f"ms ({flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB; by "
+              f"{bound_by}), kernel at {bound_ms / ms:.1%} of its bound; "
+              f"{gpu_line()}")
+        out[name] = {
+            "max_abs_err": worst[name], "f32_max_rel_err": worst32[name],
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_call": "torch.ops.aten.convolution_backward (cuDNN), "
+                            "bf16 channels_last, the same output mask",
+            "timed_as": f"one train step's {len(calls)} conv backwards at "
+                        f"batch {TRAIN_B}, each with its own input, weight "
+                        "and cotangent, replayed in one CUDA-event window",
+            "cases": cases}
+    return out
+
+
+def check_fuse_backward_kernel(fuses):
+    """Phase 2, K5-fuse's backward at one train step's 26 recorded
+    targets at batch 48 (``fuses``, :func:`train_step_calls`): dx and each
+    term's gradient within one bf16 step of ``hr_fuse_backward_plain``
+    (the differing elements counted), bit-equal in f32 (batch 2), and two
+    calls bit-equal; the 26 calls replayed in one CUDA-event window
+    through the kernel and the plain version; the bound is their bytes
+    (dy and y read, dx and the terms' gradients written once each) at
+    3.35 TB/s."""
+    import torch
+
+    from shapy_tpu_torch.models.backbones.hrnet import (
+        _hr_fuse_backward_cuda,
+        hr_fuse_backward_plain,
+    )
+    from shapy_tpu_torch.models.backbones.layers import bf16_step
+
+    worst, differing, elements = 0.0, 0, 0
+    for n, (dy, y, shifts) in enumerate(fuses):
+        got = _hr_fuse_backward_cuda(dy, y, shifts)
+        again = _hr_fuse_backward_cuda(dy, y, shifts)
+        want = hr_fuse_backward_plain(dy, y, shifts)
+        got32 = _hr_fuse_backward_cuda(dy[:2].float(), y[:2].float(), shifts)
+        want32 = hr_fuse_backward_plain(dy[:2].float(), y[:2].float(), shifts)
+        for a, b, w, a32, w32 in zip([got[0], *got[1]], [again[0], *again[1]],
+                                     [want[0], *want[1]],
+                                     [got32[0], *got32[1]],
+                                     [want32[0], *want32[1]]):
+            check(torch.equal(a, b), f"K5-fuse backward {n}: two calls differ")
+            check(torch.equal(a32, w32), f"K5-fuse backward {n}: f32 differs")
+            check(bool(((a.float() - w.float()).abs()
+                        <= bf16_step(w.float().abs())).all()),
+                  f"K5-fuse backward {n}: beyond one bf16 step")
+            worst = max(worst, max_err(a, w))
+            differing += int((a != w).sum())
+            elements += a.numel()
+    nbytes = sum(y.element_size() * (3 * y.numel() + sum(
+        y.numel() >> (2 * s) for s in shifts)) for _, y, shifts in fuses)
+    ms = time_ms(replay(_hr_fuse_backward_cuda, fuses))
+    plain_ms = time_ms(replay(hr_fuse_backward_plain, fuses), iters=5,
+                       warmup=1)
+    bound_ms = nbytes / PEAK_BYTES_S * 1e3
+    print(f"K5-fuse backward, one train step's {len(fuses)} targets at batch "
+          f"{TRAIN_B}: {differing} of {elements} bf16 elements differ from "
+          f"plain (max {worst:.3e}, within one bf16 step), f32 bit-equal, two "
+          f"calls bit-equal; replayed in one window: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f}, bound {bound_ms:.4f} (bytes "
+          f"{nbytes / 1e6:.2f} MB), kernel at {bound_ms / ms:.1%} of its "
+          "bound")
+    return {"K5_fuse_backward": {
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+        "differing": differing, "elements": elements,
+        "timed_as": f"one train step's {len(fuses)} fusion backwards at "
+                    f"batch {TRAIN_B}, replayed in one CUDA-event window"}}
+
+
+def _backbone_group(name: str) -> str:
+    head = name.split(".")[0]
+    return "stem" if head in ("conv1", "bn1", "conv2", "bn2") else head
+
+
+def _group_gradients(a: dict, b: dict) -> dict:
+    """Per module group (stem, layer1, transitions, stages, subsample
+    chains, head convs): the cosine of the gradients ``a`` and ``b`` and
+    their L2 distance relative to ``b``'s norm."""
+    sums = {}  # per group: |a|^2, |b|^2, |a - b|^2, a . b
+    for k, ga in a.items():
+        gb = b[k]
+        acc = sums.setdefault(_backbone_group(k), [0.0] * 4)
+        for i, v in enumerate((ga * ga, gb * gb, (ga - gb) ** 2, ga * gb)):
+            acc[i] += float(v.sum())
+    return {name: {"cosine": ab / (aa * bb) ** 0.5,
+                   "relative_l2": (dd / bb) ** 0.5}
+            for name, (aa, bb, dd, ab) in sums.items()}
+
+
+def check_backbone_train_routes(base, dev):
+    """Phase 2, the whole backbone in train mode at batch 48 (f32 master
+    weights, BN unfolded): a forward and backward of a fixed random
+    projection of its features through the K5 route (K5-conv, K5-dgrad,
+    K5-wgrad, K5-fuse and its backward) and through the plain route (the
+    plain versions on the card: cuDNN convs and their gradients, eager
+    adds, nearest upsamples and box sums).
+
+    In f32 (TF32 off) the two routes' gradients are held per module group
+    to a cosine >= 0.999 and a relative L2 <= 0.05. In bf16 both routes
+    are timed, and each is held against the f32 plain route: in each
+    group the K5 route's cosine with it may fall at most
+    ``BF16_COSINE_MARGIN`` below the plain route's, and its relative L2
+    distance may exceed the plain route's by at most 5%. A bf16 limit
+    between the two bf16 routes themselves cannot hold: with these random
+    weights the bf16 gradient of either route is mostly rounding noise
+    amplified through ~100 train-mode BN backwards, so two bf16 routes
+    that sum in other orders disagree as much as each does with f32. A
+    third bf16 route, the plain one with ``F.batch_norm`` (cuDNN) in
+    place of K4, is the witness that this is no fault of K4, which the
+    first two share: its cosines with f32 are as low (PERF.md). The
+    cosine floor fails a gradient that is noise: the head groups' cosine
+    with f32 is ~0.75 on every route, a random one's ~0."""
+    import torch
+    import torch.nn.functional as F
+
+    from shapy_tpu_torch.models.backbones import hrnet, layers
+
+    def cudnn_bn(x, gamma, beta, running_mean, running_var, eps, momentum):
+        return F.batch_norm(x, running_mean, running_var, gamma, beta, True,
+                            momentum, eps)
+
+    gen = torch.Generator().manual_seed(SEED + 16)
+    x32 = torch.randn((TRAIN_B, 3, CROP, CROP), generator=gen)
+    g = torch.randn((TRAIN_B, 2048), generator=gen).to(dev)
+    plain = {(layers, "_conv2d_act_cuda"): layers.conv2d_act_plain,
+             (layers, "_conv2d_backward_cuda"): layers.conv2d_backward_plain,
+             (hrnet, "_hr_fuse_cuda"): hrnet.hr_fuse_plain,
+             (hrnet, "_hr_fuse_backward_cuda"): hrnet.hr_fuse_backward_plain}
+    f32, bf16 = torch.float32, torch.bfloat16
+    routes = {"f32 K5": (f32, {}), "f32 plain": (f32, plain),
+              "bf16 K5": (bf16, {}), "bf16 plain": (bf16, plain),
+              "bf16 plain, F.batch_norm": (
+                  bf16, {**plain, (layers, "batch_norm_train"): cudnn_bn})}
+    tf32 = torch.backends.cudnn.allow_tf32
+    runs, times, peaks = {}, {}, {}
+    for name, (dtype, patch) in routes.items():
+        x = x32.to(dev, dtype).contiguous(memory_format=torch.channels_last)
+        net = copy.deepcopy(base.backbone).to(dev).train().to(
+            memory_format=torch.channels_last)
+
+        def run():
+            net.zero_grad(set_to_none=True)
+            feat = net(x)
+            (feat.float() * g).sum().backward()
+            return feat.detach()
+
+        saved = {key: getattr(*key) for key in patch}
+        for (mod, attr), fn in patch.items():
+            setattr(mod, attr, fn)
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            feat = run().double()
+            peaks[name] = (torch.cuda.max_memory_allocated()
+                           - resident) / 2 ** 30
+            grads = {k: p.grad.double() for k, p in net.named_parameters()}
+            if name in ("bf16 K5", "bf16 plain"):
+                times[name] = time_ms(run, iters=5, warmup=1)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+            for (mod, attr), fn in saved.items():
+                setattr(mod, attr, fn)
+        check(all(bool(torch.isfinite(t).all()) for t in grads.values()),
+              f"non-finite gradients ({name})")
+        runs[name] = (feat, grads)
+        del net
+    ref = runs["f32 plain"][1]
+    f32_groups = _group_gradients(runs["f32 K5"][1], ref)
+    to_f32 = {name: _group_gradients(runs[name][1], ref)
+              for name in ("bf16 K5", "bf16 plain",
+                           "bf16 plain, F.batch_norm")}
+    k5, pl = to_f32["bf16 K5"], to_f32["bf16 plain"]
+    bf16_groups = _group_gradients(runs["bf16 K5"][1],
+                                   runs["bf16 plain"][1])
+    cos = min(m["cosine"] for m in f32_groups.values())
+    rel = max(m["relative_l2"] for m in f32_groups.values())
+    ratio = max(k5[n]["relative_l2"] / pl[n]["relative_l2"] for n in k5)
+    drop = max(pl[n]["cosine"] - k5[n]["cosine"] for n in k5)
+
+    def fcos(a, b):
+        return float(torch.nn.functional.cosine_similarity(
+            runs[a][0].flatten(), runs[b][0].flatten(), dim=0))
+
+    def fmt(groups):
+        return ", ".join(f"{k} {v['cosine']:.5f}/{v['relative_l2']:.3e}"
+                         for k, v in groups.items())
+
+    against = "; ".join(
+        f"{name}: features cosine {fcos(name, 'f32 plain'):.6f}, "
+        f"{fmt(groups)}" for name, groups in to_f32.items())
+    print(f"backbone train step batch {TRAIN_B} (forward + backward), bf16: "
+          f"K5 route {times['bf16 K5']:.3f} ms, plain route (cuDNN + eager) "
+          f"{times['bf16 plain']:.3f} ms. f32 (no TF32), K5 against plain: "
+          f"features cosine {fcos('f32 K5', 'f32 plain'):.6f}, gradients of "
+          f"{len(f32_groups)} module groups cosine >= {cos:.6f} (tol "
+          f"0.999), relative L2 <= {rel:.3e} (tol 0.05): {fmt(f32_groups)}. "
+          f"Against the f32 plain route (cosine/relative L2), {against}. "
+          f"K5's cosine at most {drop:.5f} below the plain route's (tol "
+          f"{BF16_COSINE_MARGIN}), its relative L2 at most {ratio:.4f} of "
+          f"the plain route's (tol 1.05). bf16 K5 against bf16 plain: "
+          f"features cosine {fcos('bf16 K5', 'bf16 plain'):.6f}, "
+          f"{fmt(bf16_groups)}. Peak memory above the resident weights: "
+          + ", ".join(f"{k} {v:.3f} GiB" for k, v in peaks.items()))
+    check(cos >= 0.999 and rel <= 0.05, "K5 f32 train backbone vs plain")
+    check(drop <= BF16_COSINE_MARGIN and ratio <= 1.05,
+          "K5 bf16 train gradients farther from f32 than the plain route's")
+    return {"k5_ms": times["bf16 K5"], "plain_ms": times["bf16 plain"],
+            "peak_gib": peaks, "f32_min_cosine": cos,
+            "f32_max_relative_l2": rel, "bf16_cosine_drop": drop,
+            "bf16_relative_l2_to_f32_ratio": ratio, "f32": f32_groups,
+            "bf16_vs_f32": to_f32, "bf16_k5_vs_bf16_plain": bf16_groups}
+
+
 def _train_step_once(reg, batch, device, loss_cfg):
     """One train step of ``reg`` on ``device``: (losses, gradients,
     parameters before and after), on the CPU."""
@@ -1936,14 +2506,19 @@ def train_parity(base, dev):
             batch = synthetic_train_batches(reg, 1, 2, CROP, SEED + 8)[0]
             batch.update({k: v.to(device) for k, v in gt.items()})
             before = MEASURE_KERNEL.counts["measure_backward"]
+            k5_before = read_launches()
             runs.append(_train_step_once(reg, batch, device, loss_cfg))
             bwd_launches = MEASURE_KERNEL.counts["measure_backward"] - before
+            k5 = {n: read_launches()[n] - k5_before[n]
+                  for n in K5_PER_TRAIN_STEP}
     finally:
         torch.backends.cudnn.allow_tf32 = saved
     (loss_c, grad_c, old, new_c), (loss_g, grad_g, _, new_g) = runs
     check(all(k in loss_g for k in MEASURED), "no measurement losses")
     check(bwd_launches == 1, f"K1's backward launched {bwd_launches} times "
           "by the CUDA train step")
+    check(k5 == K5_PER_TRAIN_STEP, f"the f32 CUDA train step's K5 launches "
+          f"{k5}, expected {K5_PER_TRAIN_STEP}")
     loss_rel = max(abs(loss_g[k] - v) / abs(v) for k, v in loss_c.items())
     sums = {}
     for k, gc in grad_c.items():
@@ -2001,10 +2576,44 @@ def train_parity(base, dev):
           f"{flipped / total}")
 
 
+def _no_cudnn_step(trainer, batch) -> None:
+    """One more step of ``trainer`` with ``F.conv2d`` made to raise and
+    the host's operators recorded by ``torch.profiler`` (the autograd
+    engine's backward threads included): no convolution operator, forward
+    or backward, may appear; the K5 Functions' backwards must."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError("F.conv2d reached in training")
+
+    conv2d = torch.nn.functional.conv2d
+    torch.nn.functional.conv2d = refuse
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            trainer.fit({"train": batch}, 1, seed=SEED)
+            torch.cuda.synchronize()
+    finally:
+        torch.nn.functional.conv2d = conv2d
+    names = {e.name for e in prof.events()}
+    convs = sorted(n for n in names if "convolution" in n or "cudnn" in n
+                   or n == "aten::conv2d")
+    k5 = sorted(n for n in names if "_Conv2dActBackward" in n
+                or "_HrFuseBackward" in n)
+    print(f"train step under the profiler: {len(names)} operator names, "
+          f"convolution operators {convs}, K5 backward nodes {k5}")
+    check(not convs, f"training reached cuDNN's convolutions: {convs}")
+    check(all(any(f in n for n in k5) for f in ("_Conv2dActBackward",
+                                                  "_HrFuseBackward")),
+          "the profile holds no K5 backward: the guard would not see a "
+          "convolution backward either")
+
+
 def train(base, dev):
     """Phase 7: ``Trainer.fit`` on the flagship at full width, batch 48,
     bf16 backbone, dropout 0.5: 2 warm-up steps, then 10 steps on one
-    fixed synthetic batch. Returns the launches of the 10 steps."""
+    fixed synthetic batch, then one step under the cuDNN guard
+    (:func:`_no_cudnn_step`). Returns the launches of the 10 steps."""
     import torch
 
     from shapy_tpu_torch.flagship import (
@@ -2015,7 +2624,7 @@ def train(base, dev):
     from shapy_tpu_torch.train.losses import RegressorLosses
     from shapy_tpu_torch.train.trainer import Trainer
 
-    reg = copy.deepcopy(base).to(dev).prepare_for_train_(torch.bfloat16)
+    reg = _train_regressor(base, dev)
     batch = synthetic_train_batches(reg, 1, TRAIN_B, CROP, SEED + 9)
     trainer = Trainer(reg, RegressorLosses(FLAGSHIP_TRAIN_LOSS_CFG),
                       FLAGSHIP_OPTIM_CFG,
@@ -2048,16 +2657,79 @@ def train(base, dev):
     check(torch.equal(reg.param_mean, mean0), "param_mean moved")
     for name in TRAIN_KERNELS:
         check(launches[name] > 0, f"{name} was not launched by training")
-    for name in K5_PER_FORWARD:  # K5 has no backward: training runs cuDNN
-        check(launches[name] == 0, f"{name} was launched by training")
+    for name, per in K5_PER_TRAIN_STEP.items():
+        check(launches[name] == per * TRAIN_STEPS,
+              f"{name}: {launches[name]} launches in {TRAIN_STEPS} train "
+              f"steps, expected {per} a step")
+    _no_cudnn_step(trainer, batch)
     print(f"train: {TRAIN_STEPS} steps of batch {TRAIN_B} in "
           f"{elapsed * 1e3:.1f} ms = {TRAIN_STEPS / elapsed:.3f} steps/s = "
           f"{TRAIN_STEPS * TRAIN_B / elapsed:.1f} images/s; peak memory "
-          f"{peak / 2 ** 30:.2f} GiB; total loss {totals[0]:.4f} -> "
+          f"{peak / 2 ** 30:.2f} GiB (8.53 GiB on the cuDNN route, PERF.md "
+          f"section 5); total loss {totals[0]:.4f} -> "
           f"{totals[-1]:.4f}; last losses {json.dumps(last)}; {moved} BN "
           f"running stats moved, param_mean fixed; launches {launches}; "
           f"{gpu_line()}")
     return launches
+
+
+def train_resume(base, dev) -> None:
+    """Phase 10: kill and resume on the card. 4 steps of one Trainer
+    against 2 steps of another that checkpoints into a temporary
+    directory, then a third Trainer on a fresh copy of the weights that
+    resumes from it and takes 2 more steps, over two distinct batches of
+    48 (the resumed stream starts at the global step), dropout 0.5: every
+    parameter, BN running stat, ``param_mean``, Adam moment and the step
+    count bit-equal."""
+    import tempfile
+
+    import torch
+
+    from shapy_tpu_torch.flagship import (
+        FLAGSHIP_OPTIM_CFG,
+        FLAGSHIP_TRAIN_LOSS_CFG,
+        synthetic_train_batches,
+    )
+    from shapy_tpu_torch.io.checkpoint import Checkpointer
+    from shapy_tpu_torch.train.losses import RegressorLosses
+    from shapy_tpu_torch.train.trainer import Trainer
+
+    def trainer(folder=None):
+        return Trainer(_train_regressor(base, dev),
+                       RegressorLosses(FLAGSHIP_TRAIN_LOSS_CFG),
+                       FLAGSHIP_OPTIM_CFG, checkpoint_steps=2,
+                       checkpointer=None if folder is None else
+                       Checkpointer(folder), device=dev)
+
+    def state(t):
+        opt = t.state.optimizer.state_dict()["state"]
+        return ({k: v.clone() for k, v in t.regressor.state_dict().items()},
+                {(i, k): v.clone() for i, st in opt.items()
+                 for k, v in st.items()})
+
+    whole = trainer()
+    loaders = {"train": synthetic_train_batches(whole.regressor, 2, TRAIN_B,
+                                                CROP, SEED + 10)}
+    whole.fit(loaders, 4, seed=SEED)
+    want = state(whole)
+    del whole
+    with tempfile.TemporaryDirectory() as folder:
+        trainer(folder).fit(loaders, 2, seed=SEED)
+        t0 = time.perf_counter()
+        resumed = trainer(folder)
+        resumed.resume()
+        resume_s = time.perf_counter() - t0
+        check(resumed.state.step == 2, f"resumed at {resumed.state.step}")
+        resumed.fit(loaders, 2, seed=SEED)
+    got = state(resumed)
+    check(resumed.state.step == 4, "resumed run's step count")
+    differ = [k for part in (0, 1) for k in want[part]
+              if not torch.equal(want[part][k], got[part][k])]
+    print(f"resume: 4 steps of batch {TRAIN_B} against 2 + checkpoint + "
+          f"resume ({resume_s:.2f} s) + 2: {len(want[0])} module tensors and "
+          f"{len(want[1])} optimizer tensors compared, {len(differ)} differ "
+          f"{differ[:5]}")
+    check(not differ, f"kill and resume differs from 4 steps: {differ[:5]}")
 
 
 class PlainMeasurements:
@@ -2607,6 +3279,10 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}")
     dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+
+    def stamp(what: str) -> None:
+        print(f"[{time.perf_counter() - t0:.1f} s] {what}", flush=True)
 
     def build(kernel):
         t = time.perf_counter()
@@ -2631,6 +3307,7 @@ def main() -> int:
     eval_data = synthetic_eval_data(regressor, EVAL_BATCHES, B, IMAGE_H,
                                     IMAGE_W, CROP, SEED + 5, P2P_POINTS)
 
+    stamp("phase 2")
     checked = check_kernels(regressor, requests, eval_data, dev)
     checked.update(check_train_kernels(regressor.model, dev))
     anchors = regressor.body_measurements.anchors
@@ -2643,18 +3320,35 @@ def main() -> int:
     del convs, fuses
     checked["K5_conv"]["backbone"] = check_backbone_routes(regressor,
                                                            requests)
+    stamp("phase 2: K5 backward")
+    convs, fuses = train_step_calls(base, dev)
+    checked.update(check_conv_backward_kernels(convs))
+    checked.update(check_fuse_backward_kernel(fuses))
+    del convs, fuses
+    checked["K5_wgrad"]["backbone"] = check_backbone_train_routes(base, dev)
+    stamp("phase 2: contact")
     bodies = contact_bodies(regressor.model, dev)
     contact_checked, k6_plain = check_contact_kernels(bodies, dev)
     checked.update(contact_checked)
+    stamp("phase 3")
     serve_launches, serve_rate = serve(regressor, requests)
+    stamp("phase 4")
     parity(base, tuple(t.cpu() for t in requests), eval_data, dev)
     train_parity(base, dev)
+    stamp("phase 5")
     eval_launches, _ = evaluate(regressor, eval_data, serve_rate)
+    stamp("phase 6")
     score_launches = score(regressor, eval_data, dev)
+    stamp("phase 7")
     train_launches = train(base, dev)
+    stamp("phase 8")
     fit_launches = fit(regressor.model, anchors, dev)
+    stamp("phase 9")
     contact_launches = contact(bodies, eval_data,
                                regressor.body_measurements, k6_plain, dev)
+    stamp("phase 10")
+    train_resume(base, dev)
+    stamp("done")
 
     entries = []
     for name, _, _, source, replaces in kernels():
@@ -2662,11 +3356,11 @@ def main() -> int:
         entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            # training (phase 7) for its kernels, the batch-32 fit of
-            # phase 8 for K1's backward and K1-exact, the contact phase
-            # (9) for its kernels, the scorer (phase 6) for K1-AoS's
-            # points and their backward, evaluation (phase 5) for the
-            # others (K5 among them)
+            # training (phase 7) for its kernels (all five K5 among
+            # them), the batch-32 fit of phase 8 for K1's backward and
+            # K1-exact, the contact phase (9) for its kernels, the scorer
+            # (phase 6) for K1-AoS's points and their backward,
+            # evaluation (phase 5) for the others (K2, K8a, K8b)
             "launches": (train_launches[name] if name in TRAIN_KERNELS
                          else contact_launches[name]
                          if name in CONTACT_KERNELS

@@ -51,8 +51,13 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
+// The implicit GEMM of K5-conv and K5-dgrad: output row (n, ho, wo) at tap
+// (r, c) reads source pixel (t_h / istride, t_w / istride) with t_h = ho
+// stride - pad + r, or zero if t is negative, not a multiple of istride or
+// beyond (H, W). The forward has istride 1; the data gradient is the same
+// loop with stride 1 and istride the conv's stride (a gather per dx pixel).
 struct ConvShape {
-  int N, H, W, Cin, Ho, Wo, Cout, k, stride, pad, M, K;
+  int N, H, W, Cin, Ho, Wo, Cout, k, stride, pad, M, K, istride;
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -110,6 +115,18 @@ __device__ __forceinline__ void ldmatrix_x4(unsigned* r, const void* smem) {
       : "r"(s));
 }
 
+// Four 8x8 b16 matrices, each transposed: for fragments whose K index runs
+// along the shared-memory rows (K5-wgrad's A and B tiles).
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r,
+                                                  const void* smem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
 __device__ __forceinline__ void ldmatrix_x2(unsigned* r, const void* smem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
@@ -135,12 +152,14 @@ constexpr int smem_bytes() {
 // A block of 4 warps, (4 / WN) along M and WN along N, computes BM x BN
 // outputs, BN = 8 NT WN; each warp a (BM WN / 4) x (8 NT) part. kVec: Cin %
 // 8 == 0 and 16-byte aligned rows, so that every 8-element K group lies in
-// one (kh, kw) tap and is one 16-byte copy.
-template <int BM, int NT, int WN, bool kVec>
+// one (kh, kw) tap and is one 16-byte copy. kIS: s.istride (1, or 2 for
+// the data gradient of a stride-2 conv; kVec only).
+template <int BM, int NT, int WN, bool kVec, int kIS>
 __global__ void __launch_bounds__(kThreadsMma) conv_bf16_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ w,
     const bf16* __restrict__ bias, const bf16* __restrict__ res,
     bf16* __restrict__ y, ConvShape s, int relu) {
+  static_assert(kVec || kIS == 1, "istride 2 needs 16-byte copies");
   constexpr int BN = 8 * NT * WN;
   constexpr int WM = BM * WN / 4;   // rows of a warp's part
   constexpr int MT = WM / 16;       // its m16 tiles
@@ -224,8 +243,14 @@ __global__ void __launch_bounds__(kThreadsMma) conv_bf16_kernel(
       }
 #pragma unroll
       for (int i = 0; i < A_ROWS; ++i) {
-        const int hi = a_h[i] + r, wi = a_w[i] + c;
-        const bool ok = kin && hi >= 0 && hi < s.H && wi >= 0 && wi < s.W;
+        int hi = a_h[i] + r, wi = a_w[i] + c;
+        bool ok = kin && hi >= 0 && wi >= 0;
+        if (kIS == 2) {  // only even taps land on a dy pixel
+          ok = ok && ((hi | wi) & 1) == 0;
+          hi >>= 1;
+          wi >>= 1;
+        }
+        ok = ok && hi < s.H && wi < s.W;
         const bf16* src =
             ok ? x + ((size_t)(a_base[i] + hi) * s.W + wi) * s.Cin + ci : x;
         cp_async16(&A[(tid >> 2) + 32 * i][kk], src, ok);
@@ -422,10 +447,14 @@ __global__ void __launch_bounds__(kThreadsF32) conv_f32_kernel(
         const int ho = rem / s.Wo, wo = rem - ho * s.Wo;
         const int rc = kg / s.Cin, ci = kg - rc * s.Cin;
         const int r = rc / s.k, c = rc - r * s.k;
-        const int hi = ho * s.stride - s.pad + r;
-        const int wi = wo * s.stride - s.pad + c;
-        if (hi >= 0 && hi < s.H && wi >= 0 && wi < s.W) {
-          v = x[((size_t)(n * s.H + hi) * s.W + wi) * s.Cin + ci];
+        const int th = ho * s.stride - s.pad + r;
+        const int tw = wo * s.stride - s.pad + c;
+        if (th >= 0 && tw >= 0 && th % s.istride == 0 &&
+            tw % s.istride == 0) {
+          const int hi = th / s.istride, wi = tw / s.istride;
+          if (hi < s.H && wi < s.W) {
+            v = x[((size_t)(n * s.H + hi) * s.W + wi) * s.Cin + ci];
+          }
         }
       }
       As[kc][row] = v;
@@ -463,7 +492,7 @@ __global__ void __launch_bounds__(kThreadsF32) conv_f32_kernel(
 
 constexpr int kMaxDevices = 64;
 
-template <int BM, int NT, int WN, bool kVec>
+template <int BM, int NT, int WN, bool kVec, int kIS>
 cudaError_t launch_bf16(const ConvShape& s, const void* x, const void* w,
                         const void* bias, const void* res, void* y, int relu,
                         cudaStream_t stream) {
@@ -476,14 +505,15 @@ cudaError_t launch_bf16(const ConvShape& s, const void* x, const void* w,
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices || !configured[dev]) {
-    err = cudaFuncSetAttribute(conv_bf16_kernel<BM, NT, WN, kVec>,
+    err = cudaFuncSetAttribute(conv_bf16_kernel<BM, NT, WN, kVec, kIS>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                bytes);
     if (err != cudaSuccess) return err;
     if (dev < kMaxDevices) configured[dev] = true;
   }
   const dim3 grid((s.M + BM - 1) / BM, (s.Cout + BN - 1) / BN);
-  conv_bf16_kernel<BM, NT, WN, kVec><<<grid, kThreadsMma, bytes, stream>>>(
+  conv_bf16_kernel<BM, NT, WN, kVec, kIS>
+      <<<grid, kThreadsMma, bytes, stream>>>(
       (const bf16*)x, (const bf16*)w, (const bf16*)bias, (const bf16*)res,
       (bf16*)y, s, relu);
   return cudaGetLastError();
@@ -520,8 +550,11 @@ cudaError_t launch_bf16_any(const ConvShape& s, bool vec, const void* x,
     wn = 2;
     bm = blocks(128, 64) >= sms ? 128 : 64;
   }
-#define K5_LAUNCH(BM, NT, WN, VEC) \
-  return launch_bf16<BM, NT, WN, VEC>(s, x, w, bias, res, y, relu, st)
+#define K5_LAUNCH(BM, NT, WN, VEC)                                       \
+  return s.istride == 2                                                  \
+             ? launch_bf16<BM, NT, WN, VEC, VEC ? 2 : 1>(s, x, w, bias, \
+                                                         res, y, relu, st) \
+             : launch_bf16<BM, NT, WN, VEC, 1>(s, x, w, bias, res, y, relu, st)
   if (!vec) {
     if (bm == 128) K5_LAUNCH(128, 4, 2, false);
     K5_LAUNCH(64, 4, 2, false);
@@ -540,6 +573,354 @@ cudaError_t launch_bf16_any(const ConvShape& s, bool vec, const void* x,
 #undef K5_LAUNCH
 }
 
+
+// ---- K5-wgrad: dw = sum over rows (n, ho, wo) of dy (x) im2col(x) -------
+//
+// A GEMM of M = Cout, N = K (kh, kw, ci in the OHWI weight's order) over
+// R = N Ho Wo rows, which is long (196,608 rows for the 48-channel 3x3s at
+// 64^2 and batch 48) where M x N is small (48 x 432). The rows are cut into
+// `parts` fixed partitions of `rows_per_part` (a function of the shape
+// alone, chosen by the wrapper): block (co tile, K tile, partition) sums its
+// rows in row order into an f32 partial; the second pass adds the partials
+// in partition order and rounds once. No atomics: the same bits on any
+// card. Blocks of the first K tile also sum dy's columns (dbias) and, with a
+// ReLU mask (y > 0 on the saved output), write the masked dy once (dym),
+// which the data gradient and the residual's gradient then read.
+constexpr int kWT = 64;        // output channels and K columns per block
+constexpr int kWR = 32;        // rows per step (bf16)
+constexpr int kWLd = kWT + 8;  // halves per shared row: 144 bytes, no conflicts
+
+__device__ __forceinline__ uint4 relu_mask8(uint4 v, uint4 m) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&m);
+  unsigned* out = reinterpret_cast<unsigned*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    const unsigned keep = (f.x > 0.f ? 0x0000ffffu : 0u) |
+                          (f.y > 0.f ? 0xffff0000u : 0u);
+    out[i] &= keep;
+  }
+  return v;
+}
+
+// kVec: Cin % 8 == 0 and x 16-byte aligned (an 8-column K group is one tap).
+template <bool kVec>
+__global__ void __launch_bounds__(kThreadsMma) wgrad_bf16_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ dy,
+    const bf16* __restrict__ ymask, bf16* __restrict__ dym,
+    float* __restrict__ part, float* __restrict__ pbias, ConvShape s,
+    int rows_per_part) {
+  __shared__ __align__(16) bf16 As[2][kWR][kWLd];  // dy rows: [row][co]
+  __shared__ __align__(16) bf16 Bs[2][kWR][kWLd];  // im2col x: [row][kk]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp >> 1, wn = warp & 1;  // 2 x 2 warps of 32 x 32
+  const int co0 = blockIdx.x * kWT, kk0 = blockIdx.y * kWT;
+  const int p = blockIdx.z;
+  const bool first = blockIdx.y == 0;
+  const int r_begin = p * rows_per_part;
+  const int r_end = min(s.M, r_begin + rows_per_part);
+  const int steps = (r_end - r_begin + kWR - 1) / kWR;
+  const int HoWo = s.Ho * s.Wo;
+
+  // dy: 16-byte chunk (tid & 7) of rows (tid >> 3) and (tid >> 3) + 16.
+  const int dc = (tid & 7) * 8;
+  const bool co_in = co0 + dc < s.Cout;  // Cout % 8 == 0
+  // x (kVec): the same chunk layout over K; its tap, decoded once.
+  // x (scalar): column tid & 63 of rows (tid >> 6) + 2 j.
+  const int xc = kVec ? (tid & 7) * 8 : (tid & 63);
+  const int kk = kk0 + xc;
+  const bool k_in = kk < s.K;
+  int tap_r = 0, tap_c = 0, tap_ci = 0;
+  if (k_in) {
+    const int rc = kk / s.Cin;
+    tap_ci = kk - rc * s.Cin;
+    tap_r = rc / s.k;
+    tap_c = rc - tap_r * s.k;
+  }
+
+  uint4 ra[2], rb[2];
+  bf16 rs[16];
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  auto x_at = [&](int g, bool& ok) -> size_t {
+    const int n = g / HoWo, rem = g - n * HoWo;
+    const int ho = rem / s.Wo, wo = rem - ho * s.Wo;
+    const int hi = ho * s.stride - s.pad + tap_r;
+    const int wi = wo * s.stride - s.pad + tap_c;
+    ok = hi >= 0 && hi < s.H && wi >= 0 && wi < s.W;
+    return ((size_t)(n * s.H + hi) * s.W + wi) * s.Cin + tap_ci;
+  };
+  auto load = [&](int step) {
+    const int base = r_begin + step * kWR;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int g = base + (tid >> 3) + 16 * j;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (g < r_end && co_in) {
+        const size_t idx = (size_t)g * s.Cout + co0 + dc;
+        v = *reinterpret_cast<const uint4*>(dy + idx);
+        if (ymask) {
+          v = relu_mask8(v, *reinterpret_cast<const uint4*>(ymask + idx));
+          if (first && dym) *reinterpret_cast<uint4*>(dym + idx) = v;
+        }
+      }
+      ra[j] = v;
+    }
+    if (kVec) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int g = base + (tid >> 3) + 16 * j;
+        uint4 v = make_uint4(0, 0, 0, 0);
+        if (g < r_end && k_in) {
+          bool ok;
+          const size_t idx = x_at(g, ok);
+          if (ok) v = *reinterpret_cast<const uint4*>(x + idx);
+        }
+        rb[j] = v;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int g = base + (tid >> 6) + 2 * j;
+        bf16 v = zero;
+        if (g < r_end && k_in) {
+          bool ok;
+          const size_t idx = x_at(g, ok);
+          if (ok) v = x[idx];
+        }
+        rs[j] = v;
+      }
+    }
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      *reinterpret_cast<uint4*>(&As[buf][(tid >> 3) + 16 * j][dc]) = ra[j];
+    }
+    if (kVec) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        *reinterpret_cast<uint4*>(&Bs[buf][(tid >> 3) + 16 * j][xc]) = rb[j];
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) Bs[buf][(tid >> 6) + 2 * j][xc] = rs[j];
+    }
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+  float bacc = 0.f;  // dbias of channel co0 + tid (tid < 64, first K tile)
+
+  if (steps > 0) {
+    load(0);
+    store(0);
+  }
+  __syncthreads();
+  for (int st = 0; st < steps; ++st) {
+    const int buf = st & 1;
+    if (st + 1 < steps) load(st + 1);  // in flight while this step computes
+#pragma unroll
+    for (int ks = 0; ks < kWR; ks += 16) {
+      unsigned af[2][4], bfr[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        ldmatrix_x4_trans(af[mt],
+                          &As[buf][ks + (lane & 7) + ((lane >> 4) << 3)]
+                             [wm * 32 + mt * 16 + ((lane >> 3) & 1) * 8]);
+      }
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        unsigned q[4];
+        ldmatrix_x4_trans(q, &Bs[buf][ks + (lane & 7) + ((lane >> 3) & 1) * 8]
+                                [wn * 32 + np * 16 + (lane >> 4) * 8]);
+        bfr[2 * np][0] = q[0];
+        bfr[2 * np][1] = q[1];
+        bfr[2 * np + 1][0] = q[2];
+        bfr[2 * np + 1][1] = q[3];
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], af[mt], bfr[nt]);
+    }
+    if (pbias && first && tid < kWT) {
+      for (int r = 0; r < kWR; ++r) bacc += __bfloat162float(As[buf][r][tid]);
+    }
+    if (st + 1 < steps) store(buf ^ 1);
+    __syncthreads();
+  }
+
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int co = co0 + wm * 32 + mt * 16 + g + 8 * (q >> 1);
+        const int kc = kk0 + wn * 32 + nt * 8 + 2 * t4 + (q & 1);
+        if (co < s.Cout && kc < s.K) {
+          part[((size_t)p * s.Cout + co) * s.K + kc] = acc[mt][nt][q];
+        }
+      }
+  if (pbias && first && tid < kWT && co0 + tid < s.Cout) {
+    pbias[(size_t)p * s.Cout + co0 + tid] = bacc;
+  }
+}
+
+// f32: 256 threads, 4 x 4 outputs each, 16 rows per step, multiply-adds in
+// row order on the CUDA cores (no TF32).
+constexpr int kWRf = 16;
+
+__global__ void __launch_bounds__(kThreadsF32) wgrad_f32_kernel(
+    const float* __restrict__ x, const float* __restrict__ dy,
+    const float* __restrict__ ymask, float* __restrict__ dym,
+    float* __restrict__ part, float* __restrict__ pbias, ConvShape s,
+    int rows_per_part) {
+  __shared__ float As[kWRf][kWT + 4];
+  __shared__ float Bs[kWRf][kWT + 4];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int co0 = blockIdx.x * kWT, kk0 = blockIdx.y * kWT;
+  const int p = blockIdx.z;
+  const bool first = blockIdx.y == 0;
+  const int r_begin = p * rows_per_part;
+  const int r_end = min(s.M, r_begin + rows_per_part);
+  const int HoWo = s.Ho * s.Wo;
+  // Column tid & 63 of rows (tid >> 6) + 4 j, for dy and for x.
+  const int col = tid & 63;
+  const int co = co0 + col, kk = kk0 + col;
+  const bool co_in = co < s.Cout, k_in = kk < s.K;
+  int tap_r = 0, tap_c = 0, tap_ci = 0;
+  if (k_in) {
+    const int rc = kk / s.Cin;
+    tap_ci = kk - rc * s.Cin;
+    tap_r = rc / s.k;
+    tap_c = rc - tap_r * s.k;
+  }
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  float bacc = 0.f;
+
+  for (int r0 = r_begin; r0 < r_end; r0 += kWRf) {
+#pragma unroll
+    for (int j = 0; j < kWRf * kWT / kThreadsF32; ++j) {
+      const int row = (tid >> 6) + 4 * j, g = r0 + row;
+      float a = 0.f, b = 0.f;
+      if (g < r_end) {
+        if (co_in) {
+          const size_t idx = (size_t)g * s.Cout + co;
+          a = dy[idx];
+          if (ymask) {
+            a = ymask[idx] > 0.f ? a : 0.f;
+            if (first && dym) dym[idx] = a;
+          }
+        }
+        if (k_in) {
+          const int n = g / HoWo, rem = g - n * HoWo;
+          const int ho = rem / s.Wo, wo = rem - ho * s.Wo;
+          const int hi = ho * s.stride - s.pad + tap_r;
+          const int wi = wo * s.stride - s.pad + tap_c;
+          if (hi >= 0 && hi < s.H && wi >= 0 && wi < s.W) {
+            b = x[((size_t)(n * s.H + hi) * s.W + wi) * s.Cin + tap_ci];
+          }
+        }
+      }
+      As[row][col] = a;
+      Bs[row][col] = b;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < kWRf; ++r) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[r][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Bs[r][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
+    }
+    if (pbias && first && tid < kWT) {
+      for (int r = 0; r < kWRf; ++r) bacc += As[r][tid];
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = co0 + ty + 16 * i;
+    if (c >= s.Cout) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kc = kk0 + tx + 16 * j;
+      if (kc < s.K) part[((size_t)p * s.Cout + c) * s.K + kc] = acc[i][j];
+    }
+  }
+  if (pbias && first && tid < kWT && co0 + tid < s.Cout) {
+    pbias[(size_t)p * s.Cout + co0 + tid] = bacc;
+  }
+}
+
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// The second pass: dw (and dbias) = the partials summed in partition order,
+// rounded once to the output dtype.
+template <typename T>
+__global__ void wgrad_reduce_kernel(const float* __restrict__ part,
+                                    const float* __restrict__ pbias,
+                                    T* __restrict__ dw, T* __restrict__ db,
+                                    int parts, int CK, int Cout) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx < CK) {
+    float v = 0.f;
+    for (int p = 0; p < parts; ++p) v += part[(size_t)p * CK + idx];
+    store_as(dw + idx, v);
+  } else if (pbias && idx < CK + Cout) {
+    const int c = idx - CK;
+    float v = 0.f;
+    for (int p = 0; p < parts; ++p) v += pbias[(size_t)p * Cout + c];
+    store_as(db + c, v);
+  }
+}
+
+// The ReLU's VJP alone, for a conv whose weight and bias take no
+// gradient: dym = dy where y > 0, else 0 (the sign of dy kept).
+template <typename T>
+__global__ void relu_mask_kernel(const T* __restrict__ dy,
+                                 const T* __restrict__ y, T* __restrict__ dym,
+                                 long long n) {
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += step) {
+    dym[i] = to_f(y[i]) > 0.f ? dy[i] : T(0.f);
+  }
+}
+
+ConvShape conv_shape(int N, int H, int W, int Cin, int Cout, int k,
+                     int stride) {
+  ConvShape s;
+  s.N = N; s.H = H; s.W = W; s.Cin = Cin; s.Cout = Cout; s.k = k;
+  s.stride = stride;
+  s.pad = k / 2;
+  s.Ho = (H + 2 * s.pad - k) / stride + 1;
+  s.Wo = (W + 2 * s.pad - k) / stride + 1;
+  s.M = N * s.Ho * s.Wo;
+  s.K = k * k * Cin;
+  s.istride = 1;
+  return s;
+}
+
 }  // namespace
 
 // x (N, H, W, Cin) and y (N, Ho, Wo, Cout) NHWC, w (Cout, k, k, Cin) OHWI,
@@ -554,14 +935,7 @@ extern "C" int conv2d_act_forward(const void* x, const void* w,
                                   void* y, int N, int H, int W, int Cin,
                                   int Cout, int k, int stride, int relu,
                                   int dtype, int vec, int sms, void* stream) {
-  ConvShape s;
-  s.N = N; s.H = H; s.W = W; s.Cin = Cin; s.Cout = Cout; s.k = k;
-  s.stride = stride;
-  s.pad = k / 2;
-  s.Ho = (H + 2 * s.pad - k) / stride + 1;
-  s.Wo = (W + 2 * s.pad - k) / stride + 1;
-  s.M = N * s.Ho * s.Wo;
-  s.K = k * k * Cin;
+  const ConvShape s = conv_shape(N, H, W, Cin, Cout, k, stride);
   if (s.M == 0 || Cout == 0) return (int)cudaSuccess;
   if (Cout % 8 != 0 || (vec && Cin % 8 != 0)) {
     return (int)cudaErrorInvalidValue;
@@ -576,4 +950,114 @@ extern "C" int conv2d_act_forward(const void* x, const void* w,
   }
   return (int)launch_bf16_any(s, vec != 0, x, w, bias, residual, y, relu,
                               sms, st);
+}
+
+// K5-dgrad: dx (N, H, W, Cin) = the data gradient of the conv above from dy
+// (N, Ho, Wo, Cout), with wt (Cin, k, k, Cout) the weight flipped in (kh,
+// kw) and transposed (OHWI of the transposed conv). It is K5-conv's main
+// loop on dy: stride 1, padding k - 1 - k / 2, and input stride `stride`,
+// so that each dx pixel gathers the dy pixels it fed (a stride-2 3x3 conv:
+// 1, 2, 2 or 4 taps by the parity of (h, w); a stride-2 1x1: dy at even
+// pixels, zeros at odd ones). f32 sums in K order, rounded once; no
+// epilogue. Cin % 8 == 0 and Cout % 8 == 0; all 16-byte aligned. Returns
+// cudaGetLastError().
+extern "C" int conv2d_dgrad(const void* dy, const void* wt, void* dx, int N,
+                            int H, int W, int Cin, int Cout, int k,
+                            int stride, int dtype, int sms, void* stream) {
+  const ConvShape f = conv_shape(N, H, W, Cin, Cout, k, stride);
+  ConvShape s;
+  s.N = N; s.H = f.Ho; s.W = f.Wo; s.Cin = Cout;
+  s.Ho = H; s.Wo = W; s.Cout = Cin; s.k = k;
+  s.stride = 1;
+  s.pad = k - 1 - f.pad;
+  s.istride = stride;
+  s.M = N * H * W;
+  s.K = k * k * Cout;
+  if (s.M == 0 || Cin == 0) return (int)cudaSuccess;
+  if (Cin % 8 != 0 || Cout % 8 != 0 || (stride != 1 && stride != 2)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) {
+    const dim3 grid((s.M + kTile - 1) / kTile, (Cin + kTile - 1) / kTile);
+    conv_f32_kernel<<<grid, kThreadsF32, 0, st>>>(
+        (const float*)dy, (const float*)wt, nullptr, nullptr, (float*)dx, s,
+        0);
+    return (int)cudaGetLastError();
+  }
+  return (int)launch_bf16_any(s, true, dy, wt, nullptr, nullptr, dx, 0, sms,
+                              st);
+}
+
+// K5-wgrad: dw (Cout, k, k, Cin) OHWI = sum over (n, ho, wo) of dy (x)
+// im2col(x), and dbias (Cout,) = sum of dy when db is not NULL, both in
+// x's dtype, for x (N, H, W, Cin) and dy (N, Ho, Wo, Cout) NHWC. With y
+// (like dy, the conv's saved output) the ReLU mask y > 0 is applied as dy
+// is read and the masked dy is written to dym. part: parts x Cout x K f32
+// scratch, pbias parts x Cout (with db); rows_per_part a multiple of 32
+// with parts x rows_per_part >= N Ho Wo. vec (bf16): Cin % 8 == 0 and x
+// 16-byte aligned. Cout % 8 == 0, dy / y / dym 16-byte aligned. Returns
+// cudaGetLastError().
+extern "C" int conv2d_wgrad(const void* x, const void* dy, const void* y,
+                            void* dym, void* part, void* pbias, void* dw,
+                            void* db, int N, int H, int W, int Cin,
+                            int Cout, int k, int stride, int parts,
+                            int rows_per_part, int vec, int dtype,
+                            void* stream) {
+  const ConvShape s = conv_shape(N, H, W, Cin, Cout, k, stride);
+  if (Cout % 8 != 0 || (vec && Cin % 8 != 0) || rows_per_part % kWR != 0 ||
+      (long long)parts * rows_per_part < s.M || (db == nullptr) !=
+      (pbias == nullptr) || (y == nullptr) != (dym == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (Cout == 0 || s.K == 0) return (int)cudaSuccess;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid((Cout + kWT - 1) / kWT, (s.K + kWT - 1) / kWT, parts);
+  if (dtype == 0) {
+    wgrad_f32_kernel<<<grid, kThreadsF32, 0, st>>>(
+        (const float*)x, (const float*)dy, (const float*)y, (float*)dym,
+        (float*)part, (float*)pbias, s, rows_per_part);
+  } else if (vec) {
+    wgrad_bf16_kernel<true><<<grid, kThreadsMma, 0, st>>>(
+        (const bf16*)x, (const bf16*)dy, (const bf16*)y, (bf16*)dym,
+        (float*)part, (float*)pbias, s, rows_per_part);
+  } else {
+    wgrad_bf16_kernel<false><<<grid, kThreadsMma, 0, st>>>(
+        (const bf16*)x, (const bf16*)dy, (const bf16*)y, (bf16*)dym,
+        (float*)part, (float*)pbias, s, rows_per_part);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int CK = Cout * s.K;
+  const int n = CK + (db ? Cout : 0);
+  const int blocks = (n + 255) / 256;
+  if (dtype == 0) {
+    wgrad_reduce_kernel<float><<<blocks, 256, 0, st>>>(
+        (const float*)part, (const float*)pbias, (float*)dw, (float*)db,
+        parts, CK, Cout);
+  } else {
+    wgrad_reduce_kernel<bf16><<<blocks, 256, 0, st>>>(
+        (const float*)part, (const float*)pbias, (bf16*)dw, (bf16*)db,
+        parts, CK, Cout);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The ReLU mask of K5-conv's backward without K5-wgrad: dym = dy (y > 0)
+// for n elements of dy, y and dym, dtype 0 = float32 or 1 = bfloat16.
+// Returns cudaGetLastError().
+extern "C" int conv2d_relu_mask(const void* dy, const void* y, void* dym,
+                                int n, int dtype, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  const long long want = ((long long)n + 255) / 256;
+  const int blocks = (int)(want < 65535 * 8 ? want : 65535 * 8);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) {
+    relu_mask_kernel<float><<<blocks, 256, 0, st>>>(
+        (const float*)dy, (const float*)y, (float*)dym, n);
+  } else {
+    relu_mask_kernel<bf16><<<blocks, 256, 0, st>>>(
+        (const bf16*)dy, (const bf16*)y, (bf16*)dym, n);
+  }
+  return (int)cudaGetLastError();
 }

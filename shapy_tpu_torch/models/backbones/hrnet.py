@@ -14,12 +14,15 @@
 regressor passes a channels_last view of its NHWC crops). The module's
 train / eval mode is the JAX ``train`` flag: every BN, the fuse and
 transition layers' included, normalises with batch moments and updates
-its running stats in training (kernel K4 on the card). In eval every conv
-is one K5-conv launch on the card (``layers.conv2d_act``, with the folded
+its running stats in training (kernel K4 on the card). Every conv is one
+K5-conv launch on the card (``layers.conv2d_act``; in eval with the folded
 BN's bias, the residual and the ReLU fused), and each fusion target one
 K5-fuse launch (:func:`hr_fuse`, ``csrc/hr_fuse.cu``): 331 and 26 per
-forward. Training keeps ``F.conv2d``, ``nn.Upsample`` and eager adds. The
-``use_old_impl`` topology is not ported yet.
+forward, in training and in eval. A train step's backward adds 330
+K5-dgrad (every conv but the stem's first: the images take no gradient),
+331 K5-wgrad and 26 K5-fuse backward launches. ``nn.Upsample`` stays in
+``fuse_layers`` for the ``state_dict`` layout only. The ``use_old_impl``
+topology is not ported yet.
 """
 
 from __future__ import annotations
@@ -36,15 +39,18 @@ from shapy_tpu_torch.models.backbones.layers import (
     BatchNorm2d,
     Bottleneck,
     ConvBNChain,
+    _aligned_cl,
+    _wide,
     conv,
     conv_act,
     conv_bn,
-    forward_only,
+    relu_mask_plain,
 )
 from shapy_tpu_torch.utils.cuda_kernels import CudaKernel
 
 FUSE_KERNEL = CudaKernel("hr_fuse.cu", {
     "hr_fuse_forward": "ppppp iiii iiii i p",
+    "hr_fuse_backward": "pppppp iii i iiii i p",
 })
 _MAX_FUSE_TERMS = 3
 
@@ -60,6 +66,30 @@ def hr_fuse_plain(x: torch.Tensor,
             t = F.interpolate(t, scale_factor=2 ** s, mode="nearest")
         y = y + t
     return torch.relu(y)
+
+
+def hr_fuse_backward_plain(dy: torch.Tensor, y: torch.Tensor,
+                           shifts: Sequence[int]):
+    """Plain version of K5-fuse's backward: ``(dx, [dt_j])`` with ``dx =
+    dy (y > 0)`` and each term's gradient the ``2 ** s`` x ``2 ** s`` box
+    sum of dx (the adjoint of the nearest upsample; dx itself for s = 0),
+    summed in f32 (f64 stays) over the box's rows, then columns, in the
+    kernel's order, and rounded once."""
+    g = relu_mask_plain(dy, y)
+    grads = []
+    for s in shifts:
+        if s == 0:
+            grads.append(g.clone())
+            continue
+        f = 2 ** s
+        gf = _wide(g)
+        acc = None
+        for dh in range(f):
+            for dw in range(f):
+                t = gf[:, :, dh::f, dw::f]
+                acc = t.clone() if acc is None else acc + t
+        grads.append(acc.to(dy.dtype))
+    return g, grads
 
 
 def _hr_fuse_cuda(x, terms):
@@ -87,25 +117,70 @@ def _hr_fuse_cuda(x, terms):
     return y
 
 
+def _hr_fuse_backward_cuda(dy, y, shifts):
+    """K5-fuse's backward kernel: as :func:`hr_fuse_backward_plain`."""
+    cl = torch.channels_last
+    dy = _aligned_cl(dy)
+    N, C, H, W = y.shape
+    dx = torch.empty_like(y, memory_format=cl)
+    grads = [torch.empty((N, C, H >> s, W >> s), dtype=y.dtype,
+                         device=y.device, memory_format=cl) for s in shifts]
+    ptrs = (grads + [None] * _MAX_FUSE_TERMS)[:_MAX_FUSE_TERMS]
+    pad = (list(shifts) + [0] * _MAX_FUSE_TERMS)[:_MAX_FUSE_TERMS]
+    FUSE_KERNEL.launch("hr_fuse_backward", [
+        dy, y, dx, *ptrs, *pad, len(shifts), N, H, W, C,
+        KERNEL_DTYPES[y.dtype]])
+    return dx, grads
+
+
+def _hr_fuse_any(x, terms):
+    """The forward on x's device: the plain version for CPU tensors,
+    K5-fuse for CUDA tensors."""
+    if x.device.type == "cpu":
+        return hr_fuse_plain(x, terms)
+    return _hr_fuse_cuda(x, terms)
+
+
+class _HrFuse(torch.autograd.Function):
+    """K5-fuse with its VJP: the plain versions for CPU tensors, K5-fuse
+    and its backward kernel for CUDA tensors. Saves the output (its ReLU
+    mask), which the next layer saves anyway."""
+
+    @staticmethod
+    def forward(ctx, x, shifts, *ts):
+        y = _hr_fuse_any(x, list(zip(ts, shifts)))
+        ctx.shifts = shifts
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        (y,) = ctx.saved_tensors
+        backward = (hr_fuse_backward_plain if y.device.type == "cpu"
+                    else _hr_fuse_backward_cuda)
+        dx, grads = backward(dy.to(y.dtype), y, ctx.shifts)
+        return (dx, None, *grads)
+
+
 def hr_fuse(x: torch.Tensor,
             terms: Sequence[Tuple[torch.Tensor, int]]) -> torch.Tensor:
     """One fusion target of HRNet: ``relu(x + sum of terms)`` where term
     ``(t, s)`` is read at ``(h >> s, w >> s)``, i.e. upsampled by ``2 **
     s`` (nearest). x (N, C, H, W) and the terms of one dtype, f32 or bf16:
     kernel K5-fuse for CUDA tensors (channels_last, C % 8 == 0, at most 3
-    terms; forward only: a backward through it raises
-    ``NotImplementedError``), :func:`hr_fuse_plain` for CPU tensors."""
-    if x.device.type == "cpu":
-        return hr_fuse_plain(x, terms)
-    if x.device.type != "cuda":
+    terms, shifts up to 3), :func:`hr_fuse_plain` for CPU tensors. When a
+    tensor needs a gradient it runs through an autograd Function whose
+    backward is K5-fuse's backward kernel on the card and
+    :func:`hr_fuse_backward_plain` on the CPU; otherwise no autograd node
+    is made."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"hr_fuse: unsupported device {x.device}")
     terms = list(terms)
-    shifts = [s for _, s in terms]
-
-    def run(x, *ts):
-        return _hr_fuse_cuda(x, list(zip(ts, shifts)))
-
-    return forward_only("K5-fuse", run, x, *(t for t, _ in terms))
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            t.requires_grad for t, _ in terms)):
+        return _HrFuse.apply(x, tuple(s for _, s in terms),
+                             *(t for t, _ in terms))
+    return _hr_fuse_any(x, terms)
 
 # (num_modules, num_branches, num_blocks, num_channels, block)
 W48_STAGES = {
@@ -154,9 +229,9 @@ def _transition(pre_ch: List[int], cur_ch: List[int]) -> nn.ModuleList:
 class HighResolutionModule(nn.Module):
     """Parallel branches + multi-resolution fusion. Fusion for target i:
     ``relu(x_i + sum_{j>i} up(bn(conv1x1(x_j))) + sum_{j<i} down_j(x_j))``
-    in that order (as the JAX package sums); in eval one :func:`hr_fuse`
-    per target, which reads the 1x1 convs' outputs at their own
-    resolution."""
+    in that order (as the JAX package sums): one :func:`hr_fuse` per
+    target, which reads the 1x1 convs' outputs (BN folded in eval, K4's BN
+    after them in training) at their own resolution."""
 
     def __init__(self, stage: str):
         super().__init__()
@@ -204,12 +279,6 @@ class HighResolutionModule(nn.Module):
         for i in range(n):
             row = self.fuse_layers[i]
             order = list(range(i + 1, n)) + list(range(i))
-            if self.training:
-                y = xs[i]
-                for j in order:
-                    y = y + row[j](xs[j])
-                out.append(torch.relu(y))
-                continue
             # row[j] for j > i is (conv, BN, Upsample): the upsample is
             # folded into hr_fuse's read.
             terms = [(conv_act(row[j][0], row[j][1], xs[j]), j - i) if j > i

@@ -12,12 +12,13 @@ path is kernel K4 (``csrc/batch_norm.cu``, forward and backward). For
 eval, :func:`fold_bn_` folds each BN into the conv before it at load time,
 as the JAX package's eval forward does (``bn_fold_params``).
 
-In eval every conv runs :func:`conv2d_act`: kernel K5-conv
-(``csrc/conv.cu``) for CUDA tensors, its plain version for CPU tensors.
-With the BN folded, :func:`conv_act` fuses each conv's bias, the block's
-residual and the ReLU into that one call. K5-conv has no backward yet:
-training keeps ``F.conv2d`` (cuDNN on the card) beside K4, until the next
-training slice ports K5's backward and train-mode forward (ROADMAP).
+Every conv runs :func:`conv2d_act`, in training and in eval: kernel
+K5-conv (``csrc/conv.cu``) for CUDA tensors, its plain version for CPU
+tensors. With the BN folded (eval), :func:`conv_act` fuses each conv's
+bias, the block's residual and the ReLU into that one call; in training
+the conv is followed by K4's BN. Its backward is K5-dgrad (the data
+gradient) and K5-wgrad (the weight and bias gradients) on the card, and
+``torch.nn.grad.conv2d_input`` / ``conv2d_weight`` on the CPU.
 
 Weights stay f32 (the master copy) and each conv runs in its input's
 dtype, so a bf16 backbone trains as the JAX package's ``compute_dtype``
@@ -48,9 +49,17 @@ _BN_MAX_TILES = 256
 
 CONV_KERNEL = CudaKernel("conv.cu", {
     "conv2d_act_forward": "ppppp iiiiiii iiii p",
+    "conv2d_dgrad": "ppp iiiiiii ii p",
+    "conv2d_wgrad": "pppppppp iiiiiii ii ii p",
+    "conv2d_relu_mask": "ppp ii p",
 })
-_NO_BACKWARD = ("has no backward yet: ROADMAP queue 2 lists K5's backward "
-                "and train-mode forward (training runs F.conv2d)")
+# K5-wgrad's row partitions: 64 x 64 output tiles, and as many partitions
+# of the N Ho Wo rows (at least 256 rows each, a multiple of its 32-row
+# step) as bring a launch to about this many blocks. A constant, so that
+# the partition, and with it the gradient's bits, depends on the shape
+# alone and not on the card.
+_WGRAD_TILE, _WGRAD_STEP, _WGRAD_MIN_ROWS = 64, 32, 256
+_WGRAD_BLOCKS = 512
 
 
 def _wide(t: torch.Tensor) -> torch.Tensor:
@@ -227,31 +236,6 @@ class BatchNorm2d(nn.Module):
                             self.weight, self.bias, False, 0.0, self.eps)
 
 
-class _ForwardOnly(torch.autograd.Function):
-    """Runs ``fn(*args)`` and refuses to differentiate it: the K5 kernels
-    have no backward yet (their plain versions, the CPU route, are
-    differentiable as eager ops)."""
-
-    @staticmethod
-    def forward(ctx, name, fn, *args):
-        ctx.name = name
-        return fn(*args)
-
-    @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(f"{ctx.name} {_NO_BACKWARD}")
-
-
-def forward_only(name: str, fn, *args):
-    """``fn(*args)``, through :class:`_ForwardOnly` when a tensor argument
-    needs a gradient (so that a backward raises), else called directly
-    (no autograd node: the served path pays no Function overhead)."""
-    if torch.is_grad_enabled() and any(
-            isinstance(a, torch.Tensor) and a.requires_grad for a in args):
-        return _ForwardOnly.apply(name, fn, *args)
-    return fn(*args)
-
-
 def bf16_step(mag: torch.Tensor) -> torch.Tensor:
     """The spacing of bfloat16 numbers at magnitude ``mag``."""
     e = torch.floor(torch.log2(mag.float().clamp_min(2.0 ** -126)))
@@ -276,6 +260,18 @@ def conv2d_act_bf16_tolerance(s, bias, residual, terms, cin: int, k: int
     return tol + 2.0 * cin * k * k * 2.0 ** -24 * terms
 
 
+def conv2d_wgrad_bf16_tolerance(got, terms, k: int) -> torch.Tensor:
+    """The per-element limit of a bf16 K5-wgrad value ``got`` (dw or
+    dbias) against the exact sum of its k = N Ho Wo products: half a bf16
+    step at ``got`` (its one rounding to nearest) plus 2 sqrt(k) 2^-24
+    sum |terms| (``terms``: the sum of the products' magnitudes), twice
+    the statistical size of an f32 sum's rounding errors. The worst case
+    of :func:`conv2d_act_bf16_tolerance`, 2 k 2^-24 sum |terms|, would
+    pass a zeroed gradient at the backbone's k of up to 786,432."""
+    return (0.5 * bf16_step(got.float().abs())
+            + 2.0 * k ** 0.5 * 2.0 ** -24 * terms)
+
+
 def conv2d_act_plain(x, weight, bias=None, residual=None, relu=False,
                      stride=1):
     """Plain version of K5-conv: ``F.conv2d`` without bias (padding k //
@@ -287,6 +283,45 @@ def conv2d_act_plain(x, weight, bias=None, residual=None, relu=False,
     if residual is not None:
         y = y + residual
     return torch.relu(y) if relu else y
+
+
+def conv2d_input_plain(input_shape, weight: torch.Tensor,
+                       dy: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """Plain version of K5-dgrad: the data gradient of
+    ``conv2d_act_plain``'s conv (padding k // 2) for a cotangent ``dy``
+    already masked by the ReLU, in dy's dtype (f32 sums, one rounding)."""
+    return torch.nn.grad.conv2d_input(input_shape, weight, dy, stride,
+                                      weight.shape[-1] // 2)
+
+
+def conv2d_weight_plain(x: torch.Tensor, weight_shape, dy: torch.Tensor,
+                        stride: int = 1, bias: bool = False):
+    """Plain version of K5-wgrad: ``(dw, dbias)``, the weight gradient of
+    the conv in x's dtype and, with ``bias``, the sum of ``dy`` over (N,
+    H, W) in f32 rounded once (else None)."""
+    dw = torch.nn.grad.conv2d_weight(x, weight_shape, dy, stride,
+                                     weight_shape[-1] // 2)
+    db = _wide(dy).sum(dim=(0, 2, 3)).to(dy.dtype) if bias else None
+    return dw, db
+
+
+def relu_mask_plain(dy: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``dy`` where the ReLU's output ``y`` is > 0, else 0 (the VJP of
+    ``torch.relu`` and ``jax.nn.relu`` from the saved output)."""
+    return torch.where(y > 0, dy, torch.zeros((), dtype=dy.dtype))
+
+
+def conv2d_backward_plain(dy, x, weight, y, stride, need_x, need_w,
+                          need_bias, need_residual):
+    """The VJP of :func:`conv2d_act_plain` through the plain versions:
+    ``(dx, dw, dbias, dresidual)``, each None where not needed; ``y`` the
+    saved output of a ReLU epilogue, else None."""
+    g = dy if y is None else relu_mask_plain(dy, y)
+    dx = conv2d_input_plain(x.shape, weight, g, stride) if need_x else None
+    dw = db = None
+    if need_w or need_bias:
+        dw, db = conv2d_weight_plain(x, weight.shape, g, stride, need_bias)
+    return dx, dw, db, g if need_residual else None
 
 
 def _conv2d_act_cuda(x, weight, bias, residual, relu, stride):
@@ -335,6 +370,137 @@ def _conv2d_act_cuda(x, weight, bias, residual, relu, stride):
     return y
 
 
+def _wgrad_parts(rows: int, cout: int, kdim: int):
+    """(partitions, rows per partition) of K5-wgrad for a conv with
+    ``rows`` = N Ho Wo, ``cout`` output channels and ``kdim`` = k^2 Cin."""
+    tiles = -(-cout // _WGRAD_TILE) * -(-kdim // _WGRAD_TILE)
+    parts = max(1, min(-(-_WGRAD_BLOCKS // tiles),
+                       -(-rows // _WGRAD_MIN_ROWS)))
+    per = -(-rows // parts)
+    per = -(-per // _WGRAD_STEP) * _WGRAD_STEP
+    return -(-rows // per), per
+
+
+def _aligned_cl(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a channels_last-contiguous tensor on a 16-byte boundary:
+    a copy of an expanded cotangent (the mean pool's), of a slice (the
+    concat's) or of a view at an odd offset."""
+    t = t.contiguous(memory_format=torch.channels_last)
+    return t if t.data_ptr() % 16 == 0 else t.clone(
+        memory_format=torch.channels_last)
+
+
+def _conv2d_wgrad_cuda(x, dy, y, weight_shape, stride, bias):
+    """Kernel K5-wgrad: ``(dw, dbias or None, masked dy or None)``, dy
+    masked by ``y > 0`` as it is read when ``y`` (a ReLU epilogue's
+    output) is given."""
+    N, C, H, W = x.shape
+    O, _, k, _ = weight_shape
+    Ho, Wo = dy.shape[2:]
+    rows, kdim = N * Ho * Wo, k * k * C
+    if max(x.numel(), dy.numel(), O * kdim) >= 2 ** 31:
+        raise ValueError("conv2d_wgrad: 2^31 elements or more")
+    parts, per = _wgrad_parts(rows, O, kdim)
+    dev, dt = x.device, x.dtype
+    part = torch.empty((parts, O, kdim), dtype=torch.float32, device=dev)
+    pbias = (torch.empty((parts, O), dtype=torch.float32, device=dev)
+             if bias else None)
+    dw = torch.empty(tuple(weight_shape), dtype=dt, device=dev,
+                     memory_format=torch.channels_last)
+    db = torch.empty(O, dtype=dt, device=dev) if bias else None
+    dym = None if y is None else torch.empty_like(dy)
+    vec = int(C % 8 == 0 and x.data_ptr() % 16 == 0)
+    CONV_KERNEL.launch("conv2d_wgrad", [
+        x, dy, y, dym, part, pbias, dw, db, N, H, W, C, O, k, stride,
+        parts, per, vec, KERNEL_DTYPES[dt]])
+    return dw, db, dym
+
+
+def _conv2d_dgrad_cuda(dy, weight, input_shape, stride):
+    """Kernel K5-dgrad: the data gradient, from the weight flipped in (kh,
+    kw) and transposed (a small copy per call)."""
+    N, C, H, W = input_shape
+    O, _, k, _ = weight.shape
+    if C % 8:
+        raise ValueError(f"conv2d_dgrad: {C} input channels, not a multiple "
+                         "of 8 (the images take no gradient)")
+    if N * C * H * W >= 2 ** 31:
+        raise ValueError("conv2d_dgrad: 2^31 elements or more")
+    wt = weight.flip((2, 3)).transpose(0, 1).contiguous(
+        memory_format=torch.channels_last)
+    dx = torch.empty(tuple(input_shape), dtype=dy.dtype, device=dy.device,
+                     memory_format=torch.channels_last)
+    CONV_KERNEL.launch("conv2d_dgrad", [
+        dy, wt, dx, N, H, W, C, O, k, stride, KERNEL_DTYPES[dy.dtype],
+        _sm_count(dy.device.index)])
+    return dx
+
+
+def _relu_mask_cuda(dy, y):
+    """The ReLU's VJP from its saved output ``y`` on the card, for a conv
+    whose weight and bias take no gradient (K5-wgrad masks dy itself)."""
+    if (y.shape != dy.shape or y.dtype != dy.dtype
+            or not y.is_contiguous(memory_format=torch.channels_last)):
+        raise ValueError("conv2d_relu_mask: y must be channels_last like dy")
+    if dy.numel() >= 2 ** 31:
+        raise ValueError("conv2d_relu_mask: 2^31 elements or more")
+    dym = torch.empty_like(dy)
+    CONV_KERNEL.launch("conv2d_relu_mask", [dy, y, dym, dy.numel(),
+                                            KERNEL_DTYPES[dy.dtype]])
+    return dym
+
+
+def _conv2d_backward_cuda(dy, x, weight, y, stride, need_x, need_w,
+                          need_bias, need_residual):
+    """The VJP of K5-conv through K5-wgrad, then K5-dgrad (on the masked
+    dy that K5-wgrad wrote for a ReLU epilogue, or the mask kernel when
+    neither the weight nor the bias takes a gradient): as
+    :func:`conv2d_backward_plain`."""
+    dy = _aligned_cl(dy)
+    dw = db = None
+    g = dy
+    if need_w or need_bias:
+        dw, db, dym = _conv2d_wgrad_cuda(x, dy, y, weight.shape, stride,
+                                         need_bias)
+        g = dy if dym is None else dym
+    elif y is not None:
+        g = _relu_mask_cuda(dy, y)
+    dx = _conv2d_dgrad_cuda(g, weight, x.shape, stride) if need_x else None
+    return dx, dw, db, g if need_residual else None
+
+
+def _conv2d_act_any(x, weight, bias, residual, relu, stride):
+    """The forward on x's device: the plain version for CPU tensors,
+    K5-conv for CUDA tensors."""
+    if x.device.type == "cpu":
+        return conv2d_act_plain(x, weight, bias, residual, relu, stride)
+    return _conv2d_act_cuda(x, weight, bias, residual, relu, stride)
+
+
+class _Conv2dAct(torch.autograd.Function):
+    """K5-conv with its VJP: the plain versions for CPU tensors, K5-conv,
+    K5-wgrad and K5-dgrad for CUDA tensors. Saves x and the weight, and
+    the output only for a ReLU epilogue (its mask, y > 0)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, residual, relu, stride):
+        y = _conv2d_act_any(x, weight, bias, residual, relu, stride)
+        ctx.stride = stride
+        ctx.save_for_backward(x, weight, y if relu else None)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, y = ctx.saved_tensors
+        need_x, need_w, need_b, need_r = ctx.needs_input_grad[:4]
+        backward = (conv2d_backward_plain if x.device.type == "cpu"
+                    else _conv2d_backward_cuda)
+        dx, dw, db, dres = backward(dy.to(x.dtype), x, weight, y,
+                                    ctx.stride, need_x, need_w, need_b,
+                                    need_r)
+        return dx, dw, db, dres, None, None
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     """The multiprocessors of CUDA device ``index``, which K5-conv's tile
@@ -350,26 +516,30 @@ def conv2d_act(x: torch.Tensor, weight: torch.Tensor,
     residual])`` for x (N, C, H, W) and weight (O, C, k, k) of one dtype,
     f32 or bf16: kernel K5-conv for CUDA tensors (x and residual
     channels_last, the weight OHWI, i.e. channels_last; k 1 or 3, stride 1
-    or 2; forward only: a backward through it raises
-    ``NotImplementedError``), :func:`conv2d_act_plain` for CPU tensors."""
-    if x.device.type == "cpu":
-        return conv2d_act_plain(x, weight, bias, residual, relu, stride)
-    if x.device.type != "cuda":
+    or 2), :func:`conv2d_act_plain` for CPU tensors. When a tensor
+    argument needs a gradient it runs through an autograd Function whose
+    backward is K5-wgrad and K5-dgrad on the card (the data gradient needs
+    Cin % 8 == 0) and the plain versions on the CPU; otherwise no autograd
+    node is made."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"conv2d_act: unsupported device {x.device}")
-    return forward_only("K5-conv", _conv2d_act_cuda, x, weight, bias,
-                        residual, relu, stride)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, weight, bias, residual)):
+        return _Conv2dAct.apply(x, weight, bias, residual, relu, stride)
+    return _conv2d_act_any(x, weight, bias, residual, relu, stride)
 
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` that runs in its input's dtype: f32 master weights
     are cast to a bf16 input's dtype (a no-op once the module itself is
-    bf16, as for eval). In training it is ``F.conv2d``; in eval
-    :func:`conv2d_act` (kernel K5-conv on the card)."""
+    bf16, as for eval), so the weight's gradient is rounded to bf16 once
+    and widened, as JAX's ``w.astype(x.dtype)``. It is :func:`conv2d_act`
+    (kernels K5-conv, K5-dgrad and K5-wgrad on the card) in training and
+    in eval."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        if self.training:
-            return self._conv_forward(x, self.weight.to(x.dtype), bias)
         return conv2d_act(x, self.weight.to(x.dtype), bias,
                           stride=self.stride[0])
 

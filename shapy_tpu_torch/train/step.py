@@ -107,6 +107,19 @@ class TrainState:
     scheduler: torch.optim.lr_scheduler.LambdaLR
     step: int = 0
 
+    def state_dict(self) -> Dict:
+        """The optimizer's and the schedule's state and the step, for a
+        checkpoint (the parameters are the module's)."""
+        return {"optimizer": self.optimizer.state_dict(),
+                "scheduler": self.scheduler.state_dict(), "step": self.step}
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Restore what :meth:`state_dict` saved, in place (the optimizer
+        moves its moments to its parameters' device)."""
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.scheduler.load_state_dict(state["scheduler"])
+        self.step = int(state["step"])
+
 
 def init_train_state(regressor: nn.Module, optim_cfg: Optional[Dict] = None,
                      learn_mean: bool = False) -> TrainState:

@@ -1,6 +1,7 @@
-"""Parity of the port's eval backbone (K5's plain versions: ``conv2d_act``
-and ``hr_fuse`` on CPU tensors) with the JAX package's HRNet-W48 layers,
-BN folded.
+"""Parity of the port's backbone (K5's plain versions: ``conv2d_act`` and
+``hr_fuse`` on CPU tensors, through the same autograd Functions as on the
+card) with the JAX package's HRNet-W48 layers: the eval forward with BN
+folded, and the VJPs of the convs and of the train-mode fusion.
 
 Weights are made with a numpy seed on the port's modules and carried to
 the JAX functions with ``io/from_jax.py``'s layout (OIHW <-> HWIO);
@@ -9,8 +10,12 @@ The JAX functions run eagerly, on the CPU.
 
 Tolerances: single convs and the fusion 1e-5 absolute in f32 (the same
 conv, summed in another order, then the same eager adds); the whole
-backbone's features 1e-4 relative (~100 convs deep).
+backbone's features 1e-4 relative (~100 convs deep); VJPs rtol 1e-4, atol
+1e-5 (oneDNN's and XLA's sums in other orders).
 """
+
+import copy
+
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +38,7 @@ from shapy_tpu_torch.models.backbones.layers import (
     conv_bn,
     fold_bn_,
 )
+from shapy_tpu_torch.models.backbones.hrnet import hr_fuse_backward_plain
 
 torch.set_num_threads(2)
 CL = torch.channels_last
@@ -215,33 +221,6 @@ def test_eval_backbone_matches_jax():
     assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
 
 
-def test_k5_backward_raises():
-    """K5-conv and K5-fuse are forward only: the CUDA route runs each
-    kernel through ``forward_only``, whose backward raises instead of
-    returning a gradient (here around the plain versions, which that
-    route launches in their place on the card); without a gradient needed
-    no autograd node is made."""
-    x = torch.randn(1, 8, 4, 4, requires_grad=True)
-    w = torch.randn(8, 8, 3, 3)
-    y = layers.forward_only("K5-conv", conv2d_act_plain, x, w, None, None,
-                            True, 1)
-    assert y.requires_grad
-    with pytest.raises(NotImplementedError, match="K5-conv"):
-        y.sum().backward()
-    z = layers.forward_only("K5-fuse", lambda x, t: hr_fuse_plain(
-        x, [(t, 1)]), x, x[:, :, ::2, ::2].contiguous())
-    with pytest.raises(NotImplementedError, match="K5-fuse"):
-        z.sum().backward()
-    u = torch.randn(1, 8, 2, 2, requires_grad=True)  # a term needs it
-    z = layers.forward_only("K5-fuse", lambda x, t: hr_fuse_plain(
-        x, [(t, 1)]), x.detach(), u)
-    with pytest.raises(NotImplementedError, match="K5-fuse"):
-        z.sum().backward()
-    with torch.no_grad():
-        assert layers.forward_only("K5-conv", conv2d_act_plain, x, w, None,
-                                   None, False, 1).grad_fn is None
-
-
 def test_k5_cpu_route_is_differentiable():
     """On CPU tensors ``conv2d_act`` and ``hr_fuse`` are their plain
     versions, eager ops that autograd differentiates: the gradients equal
@@ -265,22 +244,39 @@ def test_k5_cpu_route_is_differentiable():
 
 
 def test_train_mode_keeps_the_unfused_path():
-    """In training the blocks run F.conv2d, train-mode BN and eager adds
-    (K5 has no backward yet): a train forward makes no ``conv2d_act``
-    call and its gradient reaches the first conv; an eval forward of the
-    unfolded backbone (BN in eval mode) equals the folded one."""
+    """In training the blocks run ``conv2d_act`` (K5-conv and its VJP on
+    the card) without an epilogue, then train-mode BN and eager adds, and
+    the fusion runs ``hr_fuse`` (K5-fuse and its VJP): a train forward
+    calls both, and its gradient reaches the first conv; an eval forward
+    of the unfolded backbone (BN in eval mode) equals the folded one."""
     block = conv_bn(8, 16, 3, 2)
     _randomize_(block, seed=2)
     block.train()
     x = torch.randn(2, 8, 6, 6)
+    calls = {"conv": 0, "fuse": 0}
+    conv_fn, fuse_fn = layers.conv2d_act, hrnet.hr_fuse
+
+    def conv(x, w, bias=None, residual=None, relu=False, stride=1):
+        assert residual is None and not relu  # BN follows in training
+        calls["conv"] += 1
+        return conv_fn(x, w, bias, residual, relu, stride)
+
+    def fuse(x, terms):
+        calls["fuse"] += 1
+        return fuse_fn(x, terms)
+
     mp = pytest.MonkeyPatch()
-
-    def refuse(*a):
-        raise AssertionError("conv2d_act in training")
-
-    mp.setattr(layers, "conv2d_act", refuse)
+    mp.setattr(layers, "conv2d_act", conv)
+    mp.setattr(hrnet, "hr_fuse", fuse)
     try:
         block(x).sum().backward()
+        assert calls == {"conv": 1, "fuse": 0}
+        module = HighResolutionModule("stage2").train()
+        xs = [torch.randn(2, c, 8 >> b, 8 >> b).contiguous(memory_format=CL)
+              for b, c in enumerate(hrnet._branch_channels("stage2"))]
+        module(xs)
+        # 2 branches x 4 blocks x 2 convs, 2 fuse convs; 2 targets
+        assert calls == {"conv": 1 + 18, "fuse": 2}
     finally:
         mp.undo()
     assert block[0].weight.grad is not None
@@ -291,3 +287,190 @@ def test_train_mode_keeps_the_unfused_path():
         folded = block(x)
     assert isinstance(block[1], torch.nn.Identity)
     torch.testing.assert_close(folded, unfolded, rtol=1e-5, atol=1e-5)
+
+
+VJP_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("epilogue", ["none", "bias-residual-relu"])
+@pytest.mark.parametrize("cin", [3, 48])
+@pytest.mark.parametrize("kernel,stride", [(1, 1), (1, 2), (3, 1), (3, 2)])
+def test_conv2d_act_vjp_matches_jax(kernel, stride, cin, epilogue):
+    """The VJP of ``conv2d_act`` (its autograd Function with the plain
+    versions, K5-dgrad's and K5-wgrad's oracles) against ``jax.vjp`` of
+    the JAX ``conv2d`` (with its own bias) + residual + ReLU, f32, batch
+    2 at 9^2: dx, dw, dresidual rtol 1e-4 / atol 1e-5; dbias, a sum over
+    (N, H, W) that may cancel, within 1e-5 of sum |dy (y > 0)|."""
+    full = epilogue != "none"
+    cout, size = 48, 9
+    rng = np.random.default_rng(kernel * 100 + stride * 10 + cin)
+    out = (size + 2 * (kernel // 2) - kernel) // stride + 1
+    x = rng.normal(size=(2, size, size, cin)).astype(np.float32)
+    w = (rng.normal(size=(kernel, kernel, cin, cout))
+         / np.sqrt(kernel * kernel * cin)).astype(np.float32)
+    b = rng.normal(size=cout).astype(np.float32) * 0.3
+    res = rng.normal(size=(2, out, out, cout)).astype(np.float32)
+    dy = rng.normal(size=(2, out, out, cout)).astype(np.float32)
+
+    def run(x, w, b, res):
+        store = jlayers.ParamStore({"c.weight": w, "c.bias": b})
+        y = jlayers.conv2d(store, "c", x, cout, kernel, stride, kernel // 2,
+                           bias=full)
+        return jax.nn.relu(y + res) if full else y
+
+    want, vjp = jax.vjp(run, *map(jnp.asarray, (x, w, b, res)))
+    want_grads = vjp(jnp.asarray(dy))
+
+    xt = _nchw(x).requires_grad_()
+    wt = torch.from_numpy(w.transpose(3, 2, 0, 1).copy()).contiguous(
+        memory_format=CL).requires_grad_()
+    bt = torch.from_numpy(b).requires_grad_()
+    rt = _nchw(res).requires_grad_()
+    y = conv2d_act(xt, wt, bt if full else None, rt if full else None, full,
+                   stride)
+    assert y.grad_fn is not None
+    np.testing.assert_allclose(_nhwc(y.detach()), np.asarray(want),
+                               **VJP_TOL)
+    y.backward(_nchw(dy))
+    np.testing.assert_allclose(_nhwc(xt.grad), np.asarray(want_grads[0]),
+                               **VJP_TOL)
+    np.testing.assert_allclose(wt.grad.numpy().transpose(2, 3, 1, 0),
+                               np.asarray(want_grads[1]), **VJP_TOL)
+    if not full:
+        assert bt.grad is None and rt.grad is None
+        return
+    masked = np.where(np.asarray(want) > 0, dy, 0.0)
+    np.testing.assert_allclose(_nhwc(rt.grad), masked, rtol=0, atol=0)
+    db_err = np.abs(bt.grad.numpy() - np.asarray(want_grads[2])).max()
+    assert db_err <= 1e-5 * np.abs(masked).sum()
+
+
+def test_fusion_train_vjp_matches_jax():
+    """Stage 3's train-mode fusion (the fuse convs through ``conv2d_act``,
+    K4's plain BN, ``hr_fuse``) against ``jax.vjp`` of the JAX
+    ``_fuse(train=True)`` at the W48 widths, 16^2 down to 4^2, batch 2:
+    outputs and running stats rtol 1e-4 / atol 1e-5; the gradients of the
+    inputs and of every fuse parameter rtol 1e-4 / atol 1e-5 of each
+    tensor's largest |value| (they pass through BN's backward, whose
+    mean-subtracted sums cancel to well below their terms)."""
+    module = HighResolutionModule("stage3")
+    _randomize_(module, seed=13)
+    jparams = _jax_params(module, "stage3.0.")
+    channels = hrnet._branch_channels("stage3")
+    rng = np.random.default_rng(14)
+    xs = [rng.normal(size=(2, 16 >> b, 16 >> b, c)).astype(np.float32)
+          for b, c in enumerate(channels)]
+    outs = [rng.normal(size=x.shape).astype(np.float32) for x in xs]
+    fuse_params = {k: v for k, v in jparams.items() if "fuse_layers" in k}
+    trainable = {k: v for k, v in fuse_params.items() if "running" not in k}
+
+    def run(xs, tp):
+        store = jlayers.ParamStore({**jparams, **tp})
+        ys = jhrnet._fuse(store, "stage3.0.fuse_layers", xs, channels, True,
+                          None)
+        return ys, store.stat_updates
+
+    (want, stats), vjp = jax.vjp(run, [jnp.asarray(x) for x in xs],
+                                 trainable)
+    want_dxs, want_dp = vjp(([jnp.asarray(o) for o in outs],
+                             jax.tree_util.tree_map(jnp.zeros_like, stats)))
+
+    module.train()
+    xt = [_nchw(x).requires_grad_() for x in xs]
+    got = module.fuse(xt)
+    torch.autograd.backward(got, [_nchw(o) for o in outs])
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_nhwc(g.detach()), np.asarray(w),
+                                   **VJP_TOL)
+    def close(got, want, name):
+        np.testing.assert_allclose(got, want, rtol=1e-4,
+                                   atol=1e-5 * np.abs(want).max(),
+                                   err_msg=name)
+
+    for i, (g, w) in enumerate(zip(xt, want_dxs)):
+        close(_nhwc(g.grad), np.asarray(w), f"x{i}")
+    params = dict(module.named_parameters())
+    assert len(want_dp) == sum("fuse_layers" in k for k in params)
+    for name, g in want_dp.items():
+        g = np.asarray(g)
+        if g.ndim == 4:
+            g = g.transpose(3, 2, 0, 1)
+        close(params[name[len("stage3.0."):]].grad.numpy(), g, name)
+    buffers = dict(module.named_buffers())
+    assert stats
+    for name, v in stats.items():
+        np.testing.assert_allclose(buffers[name[len("stage3.0."):]],
+                                   np.asarray(v), err_msg=name, **VJP_TOL)
+
+
+def test_hr_fuse_backward_plain_is_the_vjp():
+    """``hr_fuse_backward_plain`` (the box sums of the masked cotangent)
+    equals autograd through ``hr_fuse_plain`` (upsample, adds, ReLU) in
+    f64, for shifts 0-3."""
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn((2, 8, 16, 16), generator=gen, dtype=torch.float64)
+    ts = [torch.randn((2, 8, 16 >> s, 16 >> s), generator=gen,
+                      dtype=torch.float64, requires_grad=True)
+          for s in (1, 2, 3, 0)]
+    x.requires_grad_()
+    terms = list(zip(ts, (1, 2, 3, 0)))
+    y = hr_fuse_plain(x, terms)
+    dy = torch.randn(y.shape, generator=gen, dtype=torch.float64)
+    want = torch.autograd.grad(y, [x] + ts, dy)
+    dx, grads = hr_fuse_backward_plain(dy, y.detach(), (1, 2, 3, 0))
+    for got, ref in zip([dx] + grads, want):
+        torch.testing.assert_close(got, ref, rtol=1e-12, atol=1e-12)
+
+
+def test_train_backbone_gradient_matches_eager_autograd():
+    """The whole W48 backbone in train mode at 64^2, batch 2, through the
+    Function route (``conv2d_act`` / ``hr_fuse`` with their VJPs) against
+    autograd of ``F.conv2d`` + eager adds and ``F.interpolate`` written out
+    (the plain versions called directly): features, every parameter's
+    gradient within 1e-5 of its tensor's largest, and the running stats;
+    331 / 26 calls per forward."""
+    net = HRNet()
+    _randomize_(net, seed=17)
+    net.train().to(memory_format=CL)
+    ref = copy.deepcopy(net)
+    images = torch.from_numpy(np.random.default_rng(18).normal(
+        size=(2, 3, 64, 64)).astype(np.float32)).contiguous(memory_format=CL)
+    g = torch.from_numpy(np.random.default_rng(19).normal(
+        size=(2, 2048)).astype(np.float32))
+    calls = {"conv": 0, "fuse": 0}
+    conv_fn, fuse_fn = layers.conv2d_act, hrnet.hr_fuse
+
+    def counted_conv(*a, **k):
+        calls["conv"] += 1
+        return conv_fn(*a, **k)
+
+    def counted_fuse(*a):
+        calls["fuse"] += 1
+        return fuse_fn(*a)
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(layers, "conv2d_act", counted_conv)
+    mp.setattr(hrnet, "hr_fuse", counted_fuse)
+    try:
+        feat = net(images)
+        (feat * g).sum().backward()
+    finally:
+        mp.undo()
+    assert calls == {"conv": 331, "fuse": 26}
+    mp.setattr(layers, "conv2d_act", conv2d_act_plain)
+    mp.setattr(hrnet, "hr_fuse", hr_fuse_plain)
+    try:
+        want = ref(images)
+        (want * g).sum().backward()
+    finally:
+        mp.undo()
+    torch.testing.assert_close(feat, want, rtol=1e-5, atol=1e-6)
+    refs = dict(ref.named_parameters())
+    for name, p in net.named_parameters():
+        w = refs[name].grad
+        assert p.grad is not None, name
+        err = float((p.grad - w).abs().max())
+        assert err <= 1e-5 * float(w.abs().max()), (name, err)
+    refb = dict(ref.named_buffers())
+    for name, b in net.named_buffers():
+        torch.testing.assert_close(b, refb[name], rtol=1e-6, atol=1e-7)

@@ -57,6 +57,7 @@ from shapy_tpu_torch.models.backbones.hrnet import (
     HighResolutionModule,
     HRNet,
     hr_fuse,
+    hr_fuse_backward_plain,
     hr_fuse_plain,
 )
 from shapy_tpu_torch.models.backbones.layers import (
@@ -68,8 +69,12 @@ from shapy_tpu_torch.models.backbones.layers import (
     conv2d_act,
     conv2d_act_bf16_tolerance,
     conv2d_act_plain,
+    conv2d_backward_plain,
+    conv2d_input_plain,
+    conv2d_wgrad_bf16_tolerance,
     conv_act,
     fold_bn_,
+    relu_mask_plain,
 )
 from shapy_tpu_torch.models.body.assets import make_synthetic_model_data
 from shapy_tpu_torch.models.body.lbs import SKIN_KERNEL, skin, skin_plain
@@ -1124,17 +1129,286 @@ def test_k5_wrappers_reject_what_the_kernels_do_not_take(dev):
 
 
 def test_k5_kernel_backward_raises(dev):
-    """On CUDA tensors K5-conv and K5-fuse refuse a backward (they have
-    none yet) instead of returning no gradient."""
+    """On CUDA tensors a backward that K5-dgrad does not take (the data
+    gradient of a conv whose input channels are not a multiple of 8, as
+    the stem's images would need) raises instead of falling back to the
+    plain version."""
     cl = torch.channels_last
-    x = torch.randn(1, 16, 8, 8, device=dev).contiguous(
+    x = torch.randn(1, 3, 8, 8, device=dev).contiguous(
         memory_format=cl).requires_grad_()
-    w = torch.randn(16, 16, 3, 3, device=dev).contiguous(memory_format=cl)
-    with pytest.raises(NotImplementedError, match="K5-conv"):
-        conv2d_act(x, w, relu=True).sum().backward()
-    u = torch.randn(1, 16, 4, 4, device=dev).contiguous(memory_format=cl)
-    with pytest.raises(NotImplementedError, match="K5-fuse"):
-        hr_fuse(x, [(u, 1)]).sum().backward()
+    w = torch.randn(16, 3, 3, 3, device=dev).contiguous(memory_format=cl)
+    with pytest.raises(ValueError, match="conv2d_dgrad"):
+        conv2d_act(x, w, stride=2).sum().backward()
+
+
+# (Cin, Cout, k, stride, input side, bias, residual, relu, batch): stride
+# 1 and 2 for k 1 and 3, the stem's conv2 (64 -> 64, 3x3, stride 2), a
+# subsample conv with its bias, the 48-channel 3x3 (the longest K5-wgrad
+# row sums), a residual and ReLU epilogue (the mask, dresidual), and the
+# head's 2048-channel 1x1.
+CONV_BWD_CASES = [
+    (64, 64, 3, 2, 32, False, False, False, 4),
+    (48, 48, 3, 1, 32, False, False, False, 8),
+    (48, 96, 3, 2, 16, False, False, False, 4),
+    (96, 192, 3, 2, 8, True, False, False, 4),
+    (256, 48, 1, 1, 16, False, False, False, 4),
+    (48, 96, 1, 2, 16, False, False, False, 4),
+    (64, 256, 1, 1, 16, True, True, True, 3),
+    (2048, 2048, 1, 1, 8, False, False, False, 2),
+]
+
+
+def _conv_backward(x, w, b, r, relu, stride, dy):
+    """(y, (dx, dw, db, dr)) of conv2d_act; every leaf needs a gradient."""
+    leaves = [t for t in (x, w, b, r) if t is not None]
+    for t in leaves:
+        t.grad = None
+    y = conv2d_act(x, w, b, r, relu, stride)
+    y.backward(dy)
+    return y, tuple(None if t is None else t.grad for t in (x, w, b, r))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", CONV_BWD_CASES, ids=lambda c: "-".join(
+    str(int(v)) for v in c))
+def test_conv_backward_kernels_match_plain(dev, dtype, case):
+    """K5-wgrad and K5-dgrad (the VJP of ``conv2d_act`` on the card)
+    against ``conv2d_backward_plain`` (cuDNN's data and weight gradients
+    without TF32): f32 dx and dw within 1e-5 of the largest |value|, dbias
+    within 1e-5 sum|dy|; bf16 dx within one bf16 step (at the larger of
+    the exact sum and the two values: roundings that straddle a power of
+    two differ by a step of the upper binade) plus 2 K 2^-24 sum|terms|
+    (K = k^2 Cout: two f32 sums of the same products in other orders);
+    bf16 dw and dbias within half a bf16 step plus 2 sqrt(K) 2^-24
+    sum|terms| of the exact sum (K = N Ho Wo,
+    ``conv2d_wgrad_bf16_tolerance``); dresidual (the masked dy) equal. One
+    K5-wgrad and one K5-dgrad launch per backward, and a second backward
+    bit-equal to the first (no atomics)."""
+    cin, cout, k, stride, size, has_bias, has_res, relu, n = case
+    gen = torch.Generator().manual_seed(cin + 3 * cout + k + stride)
+    cl = torch.channels_last
+    out = (size + 2 * (k // 2) - k) // stride + 1
+
+    def put(t):
+        return None if t is None else t.to(dev, dtype).contiguous(
+            memory_format=cl if t.dim() == 4 else torch.contiguous_format
+        ).requires_grad_()
+
+    x = put(torch.randn((n, cin, size, size), generator=gen))
+    w = put(torch.randn((cout, cin, k, k), generator=gen)
+            / (cin * k * k) ** 0.5)
+    b = put(torch.randn(cout, generator=gen)) if has_bias else None
+    r = put(torch.randn((n, cout, out, out), generator=gen)) if has_res \
+        else None
+    dy = torch.randn((n, cout, out, out), generator=gen).to(
+        dev, dtype).contiguous(memory_format=cl)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        c0 = dict(CONV_KERNEL.counts)
+        y, got = _conv_backward(x, w, b, r, relu, stride, dy)
+        counts = {f: CONV_KERNEL.counts[f] - c0[f] for f in c0}
+        _, again = _conv_backward(x, w, b, r, relu, stride, dy)
+        want = conv2d_backward_plain(
+            dy, x.detach(), w.detach(), y.detach() if relu else None,
+            stride, True, True, has_bias, has_res)
+        g = (torch.where(y > 0, dy, 0) if relu else dy).float()
+        exact = conv2d_backward_plain(
+            g.double(), x.detach().double(), w.detach().double(), None,
+            stride, True, True, has_bias, False)
+        terms = conv2d_backward_plain(
+            g.abs(), x.detach().abs().float(), w.detach().abs().float(),
+            None, stride, True, True, has_bias, False)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    assert counts == {"conv2d_act_forward": 1, "conv2d_dgrad": 1,
+                      "conv2d_wgrad": 1, "conv2d_relu_mask": 0}
+    for a, b_ in zip(got, again):
+        assert a is None or torch.equal(a, b_)
+    assert got[0].is_contiguous(memory_format=cl)
+    if has_res:
+        assert torch.equal(got[3], want[3])
+    sum_dy = float(g.abs().sum())
+    if dtype == torch.float32:
+        for i in (0, 1):
+            err = float((got[i] - want[i]).abs().max())
+            assert err <= 1e-5 * float(want[i].abs().max()), (i, err)
+        if has_bias:
+            assert float((got[2] - want[2]).abs().max()) <= 1e-5 * sum_dy
+        return
+    a, b_ = got[0].float(), want[0].float()
+    mag = torch.maximum(exact[0].float().abs(),
+                        torch.maximum(a.abs(), b_.abs()))
+    tol = conv2d_act_bf16_tolerance(mag, None, None, terms[0], k * k * cout,
+                                    1)
+    diff = (a - b_).abs()
+    assert bool((diff <= tol).all()), float((diff / tol).max())
+    for i in (1, 2):
+        if got[i] is None:
+            continue
+        tol = conv2d_wgrad_bf16_tolerance(got[i], terms[i],
+                                          n * out * out).double()
+        diff = (got[i].double() - exact[i]).abs()
+        assert bool((diff <= tol).all()), (i, float((diff / tol).max()))
+
+
+def test_conv_backward_stem_and_expanded_cotangent(dev):
+    """The stem's first conv (Cin 3, stride 2; the images take no
+    gradient): no K5-dgrad launch, K5-wgrad on its scalar path; and a
+    head conv under the mean pool, whose cotangent is expanded (stride
+    0): made channels_last before the kernels read it. bf16: the stem's
+    dw within ``conv2d_wgrad_bf16_tolerance`` of the exact sum, the head
+    conv's gradients within 1e-2 relative L2 of the plain versions."""
+    cl = torch.channels_last
+    gen = torch.Generator().manual_seed(21)
+    x = torch.randn((4, 3, 64, 64), generator=gen).to(dev, torch.bfloat16
+                                                       ).contiguous(
+        memory_format=cl)
+    w = (torch.randn((64, 3, 3, 3), generator=gen) * 0.2).to(
+        dev, torch.bfloat16).contiguous(memory_format=cl).requires_grad_()
+    dy = torch.randn((4, 64, 32, 32), generator=gen).to(
+        dev, torch.bfloat16).contiguous(memory_format=cl)
+    c0 = dict(CONV_KERNEL.counts)
+    conv2d_act(x, w, stride=2).backward(dy)
+    assert CONV_KERNEL.counts["conv2d_dgrad"] == c0["conv2d_dgrad"]
+    assert CONV_KERNEL.counts["conv2d_wgrad"] == c0["conv2d_wgrad"] + 1
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        _, exact, _, _ = conv2d_backward_plain(
+            dy.double(), x.double(), w.detach().double(), None, 2, False,
+            True, False, False)
+        _, terms, _, _ = conv2d_backward_plain(
+            dy.abs().float(), x.abs().float(), w.detach().float(), None, 2,
+            False, True, False, False)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    tol = conv2d_wgrad_bf16_tolerance(w.grad, terms, 4 * 32 * 32).double()
+    assert bool(((w.grad.double() - exact).abs() <= tol).all())
+
+    xh = torch.randn((2, 512, 8, 8), generator=gen).to(
+        dev, torch.bfloat16).contiguous(memory_format=cl).requires_grad_()
+    wh = (torch.randn((2048, 512, 1, 1), generator=gen) * 0.05).to(
+        dev, torch.bfloat16).contiguous(memory_format=cl).requires_grad_()
+    gh = torch.randn((2, 2048), generator=gen).to(dev, torch.bfloat16)
+    (conv2d_act(xh, wh).mean(dim=(2, 3)) * gh).sum().backward()
+    dy = (gh[:, :, None, None] / 64).expand(2, 2048, 8, 8)
+    want = conv2d_backward_plain(dy.contiguous(), xh.detach(), wh.detach(),
+                                 None, 1, True, True, False, False)
+    for got, ref in ((xh.grad, want[0]), (wh.grad, want[1])):
+        assert bool(torch.isfinite(got).all())
+        rel = float((got.float() - ref.float()).norm() / ref.float().norm())
+        assert rel <= 1e-2, rel
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv_backward_frozen_weight_masks_without_wgrad(dev, dtype):
+    """A ReLU epilogue whose weight takes no gradient: the mask kernel
+    alone (no K5-wgrad launch) gives the masked dy, bit-equal to
+    ``relu_mask_plain`` as dresidual, and K5-dgrad reads it."""
+    cl = torch.channels_last
+    gen = torch.Generator().manual_seed(22)
+    x = torch.randn((2, 48, 16, 16), generator=gen).to(dev, dtype).contiguous(
+        memory_format=cl).requires_grad_()
+    w = (torch.randn((64, 48, 3, 3), generator=gen) * 0.1).to(
+        dev, dtype).contiguous(memory_format=cl)
+    r = torch.randn((2, 64, 16, 16), generator=gen).to(dev, dtype).contiguous(
+        memory_format=cl).requires_grad_()
+    dy = torch.randn((2, 64, 16, 16), generator=gen).to(dev, dtype)
+    c0 = dict(CONV_KERNEL.counts)
+    y = conv2d_act(x, w, None, r, True)
+    y.backward(dy)
+    counts = {f: CONV_KERNEL.counts[f] - c0[f] for f in c0}
+    assert counts == {"conv2d_act_forward": 1, "conv2d_dgrad": 1,
+                      "conv2d_wgrad": 0, "conv2d_relu_mask": 1}
+    g = relu_mask_plain(dy, y.detach())
+    assert torch.equal(r.grad, g)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = conv2d_input_plain(x.shape, w.float(), g.float(), 1)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert float((x.grad.float() - want).abs().max()) <= tol * float(
+        want.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_hr_fuse_backward_kernel_matches_plain(dev, dtype):
+    """K5-fuse's backward at every target of a stage-4 module (W48 widths,
+    32^2 down to 4^2, batch 2; shifts 1-3 and 0): dx and each term's
+    gradient bit-equal to ``hr_fuse_backward_plain`` in f32 and within one
+    bf16 step in bf16; one launch per target; two calls bit-equal."""
+    gen = torch.Generator().manual_seed(8)
+    cl = torch.channels_last
+    chans = hrnet._branch_channels("stage4")
+    n = len(chans)
+    xs = [torch.randn((2, c, 32 >> b, 32 >> b), generator=gen)
+          for b, c in enumerate(chans)]
+    for i in range(n):
+        order = list(range(i + 1, n)) + list(range(i))
+        x = xs[i].to(dev, dtype).contiguous(memory_format=cl)
+        terms = [(torch.randn((2, chans[i], (32 >> i) >> (j - i if j > i
+                                                           else 0),
+                               (32 >> i) >> (j - i if j > i else 0)),
+                              generator=gen).to(dev, dtype).contiguous(
+            memory_format=cl).requires_grad_(), j - i if j > i else 0)
+            for j in order]
+        x.requires_grad_()
+        dy = torch.randn(x.shape, generator=gen).to(dev, dtype).contiguous(
+            memory_format=cl)
+        before = FUSE_KERNEL.counts["hr_fuse_backward"]
+        y = hr_fuse(x, terms)
+        got = torch.autograd.grad(y, [x] + [t for t, _ in terms], dy)
+        assert FUSE_KERNEL.counts["hr_fuse_backward"] == before + 1
+        again = torch.autograd.grad(hr_fuse(x, terms),
+                                    [x] + [t for t, _ in terms], dy)
+        dx, grads = hr_fuse_backward_plain(dy, y.detach(),
+                                           [s for _, s in terms])
+        for a, b_, want in zip(got, again, [dx] + grads):
+            assert torch.equal(a, b_)
+            assert a.shape == want.shape
+            if dtype == torch.float32:
+                assert torch.equal(a, want)
+            else:
+                step = layers.bf16_step(want.float().abs())
+                assert bool(((a.float() - want.float()).abs() <= step).all())
+
+
+def test_backbone_cuda_train_never_reaches_cudnn_or_plain(dev, monkeypatch):
+    """A train step of the bf16 backbone on CUDA tensors (BN unfolded, f32
+    master weights) runs K5 only: ``F.conv2d``, ``nn.Upsample`` and the
+    plain versions, forward or backward, are never called; one forward
+    and backward make 331 K5-conv, 330 K5-dgrad (the stem's first conv
+    has none), 331 K5-wgrad, 26 K5-fuse and 26 K5-fuse backward launches;
+    every conv weight gets a finite gradient."""
+    net = HRNet().train().to(dev, memory_format=torch.channels_last)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("cuDNN or a plain version reached")
+
+    for mod, name in ((torch.nn.functional, "conv2d"),
+                      (torch.nn.Upsample, "forward"),
+                      (layers, "conv2d_act_plain"),
+                      (layers, "conv2d_backward_plain"),
+                      (hrnet, "hr_fuse_plain"),
+                      (hrnet, "hr_fuse_backward_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    x = torch.randn(2, 3, 64, 64, device=dev).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    c0, f0 = dict(CONV_KERNEL.counts), dict(FUSE_KERNEL.counts)
+    feat = net(x)
+    feat.float().square().sum().backward()
+    conv = {k: CONV_KERNEL.counts[k] - c0[k] for k in c0}
+    fuse = {k: FUSE_KERNEL.counts[k] - f0[k] for k in f0}
+    assert conv == {"conv2d_act_forward": 331, "conv2d_dgrad": 330,
+                    "conv2d_wgrad": 331, "conv2d_relu_mask": 0}
+    assert fuse == {"hr_fuse_forward": 26, "hr_fuse_backward": 26}
+    convs = [m for m in net.modules() if isinstance(m, torch.nn.Conv2d)]
+    assert len(convs) == 331
+    assert all(m.weight.grad is not None and bool(
+        torch.isfinite(m.weight.grad).all()) for m in convs)
 
 
 def test_backbone_cuda_eval_never_reaches_cudnn_or_plain(dev, monkeypatch):

@@ -644,8 +644,5 @@ def test_trainer_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError):
         Trainer(reg, RegressorLosses(LOSS_CFG), device="cpu",
                 use_adv_training=True)
-    with pytest.raises(NotImplementedError):
-        Trainer(reg, RegressorLosses(LOSS_CFG), device="cpu",
-                checkpointer=object())
     with pytest.raises(ValueError, match="train"):
         reg.train().apply(torch.zeros(1, 64, 64, 3))
