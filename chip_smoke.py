@@ -242,6 +242,70 @@ def gpu_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
+def ptxas_report(log: str, marker: str) -> list:
+    """``nvcc -Xptxas -v``'s registers, stack and spills of each entry
+    function whose name holds ``marker``, as "name: line | line"."""
+    entries, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif "Function properties for" in ln:
+            name = ln.split("for ")[-1].strip()
+        elif name and marker in name and (
+                "registers" in ln or "stack frame" in ln):
+            entries.setdefault(name, []).append(
+                ln.split("ptxas info    :")[-1].strip())
+    try:  # readable template arguments where binutils is installed
+        names = subprocess.run(["c++filt"], input="\n".join(entries),
+                               capture_output=True, text=True,
+                               check=True).stdout.split("\n")
+    except (OSError, subprocess.CalledProcessError):
+        names = list(entries)
+    return [f"{shown}: {' | '.join(lines)}"
+            for shown, lines in zip(names, entries.values())]
+
+
+def wgmma_smem() -> str:
+    """conv.cu's own account (``conv2d_wgmma_smem``) of the dynamic shared
+    memory of K5-dgrad's wgmma kernel by (N tile, K step) and K5-wgrad's
+    by N tile, with the blocks an SM holds, for the backbone's shapes.
+    Fails where K5-dgrad's plan (``_dgrad_pair``, which sizes its K
+    partitions by the blocks an SM holds) disagrees with the kernel."""
+    import ctypes
+
+    from shapy_tpu_torch.models.backbones.layers import (
+        CONV_KERNEL,
+        _dgrad_pair,
+        _dgrad_plan,
+        _wgmma_n,
+    )
+
+    smem = CONV_KERNEL.build().conv2d_wgmma_smem  # not a launch
+    smem.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    out = (ctypes.c_int * 2)()
+    dgrad, wgrad = set(), set()
+    for cin, cout, k, stride, side in BACKBONE_SHAPES:
+        if cin % 8 == 0:
+            plan = _dgrad_plan(TRAIN_B, side, side, cin, cout, k, stride)
+            dgrad.add((plan.bn, plan.bk))
+            wgrad.add(_wgmma_n(cout))
+    parts = []
+    for kind, keys in (("K5-dgrad (N, K step)", sorted(dgrad)),
+                       ("K5-wgrad N", sorted(wgrad))):
+        shown = []
+        for key in keys:
+            bn, bk = key if isinstance(key, tuple) else (key, 0)
+            smem(int(kind.startswith("K5-dgrad")), bn, bk,
+                 ctypes.addressof(out))
+            if bk:
+                check(out[1] == 1 + _dgrad_pair(bn, bk),
+                      f"K5-dgrad {key}: {out[1]} blocks an SM in conv.cu, "
+                      "not as the plan has it")
+            shown.append(f"{key}: {out[0]} B x{out[1]}")
+        parts.append(f"{kind}: " + ", ".join(shown))
+    return "; ".join(parts)
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time per call from CUDA events around ``iters`` calls.
 
@@ -267,6 +331,19 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_launches(fn) -> int:
+    """The device kernels that one call of ``fn`` runs, counted in a
+    ``torch.profiler`` trace."""
+    import torch
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
 def max_err(a, b) -> float:
@@ -391,6 +468,21 @@ K5_PER_FORWARD = {"K5_conv": 331, "K5_fuse": 26}
 K5_PER_TRAIN_STEP = dict(K5_PER_FORWARD, K5_dgrad=330, K5_wgrad=331,
                          K5_fuse_backward=26)
 K5_SHAPES = 33
+# The backbone's conv shapes (Cin, Cout, k, stride, input side) at a 256^2
+# crop: the 33 of a train step.
+BACKBONE_SHAPES = (
+    (3, 64, 3, 2, 256), (64, 64, 3, 2, 128), (64, 256, 1, 1, 64),
+    (64, 64, 1, 1, 64), (64, 64, 3, 1, 64), (256, 64, 1, 1, 64),
+    (256, 48, 3, 1, 64), (256, 96, 3, 2, 64), (48, 48, 3, 1, 64),
+    (96, 96, 3, 1, 32), (96, 48, 1, 1, 32), (48, 96, 3, 2, 64),
+    (96, 192, 3, 2, 32), (192, 192, 3, 1, 16), (192, 48, 1, 1, 16),
+    (192, 96, 1, 1, 16), (48, 48, 3, 2, 64), (48, 192, 3, 2, 32),
+    (192, 384, 3, 2, 16), (384, 384, 3, 1, 8), (384, 48, 1, 1, 8),
+    (384, 96, 1, 1, 8), (384, 192, 1, 1, 8), (48, 48, 3, 2, 32),
+    (48, 384, 3, 2, 16), (96, 96, 3, 2, 32), (96, 384, 3, 2, 16),
+    (1536, 2048, 1, 1, 8), (1536, 512, 1, 1, 8), (512, 512, 3, 1, 8),
+    (512, 2048, 1, 1, 8), (2048, 2048, 1, 1, 8), (2048, 512, 1, 1, 8),
+)
 EVAL_KERNELS = SERVE_KERNELS + ("K8a_point_regress", "K8b_align_error")
 SCORE_KERNELS = ("K1_measure", "K1aos_points", "K8a_point_regress",
                  "K8b_align_error")
@@ -2156,7 +2248,8 @@ def check_conv_backward_kernels(convs):
                 f"calls equal {equal}; f32 rel {rel_w32:.2e}, dbias "
                 f"{b32:.2e} of sum|dy|; kernel {case['wgrad_ms']:.4f} ms, "
                 f"plain {case['wgrad_plain_ms']:.4f}, cuDNN "
-                f"{case['wgrad_library_ms']:.4f}, bound "
+                f"{case['wgrad_library_ms']:.4f} (kernel / cuDNN "
+                f"{case['wgrad_ms'] / case['wgrad_library_ms']:.2f}), bound "
                 f"{case['wgrad_bound_ms']:.4f} ({case['wgrad_bound_by']})")
         if need_x:
             steps_x = _bwd_steps(dx, px, sx, tx, cout * k * k)
@@ -2183,7 +2276,9 @@ def check_conv_backward_kernels(convs):
                      f"{case['dgrad_differing']} of {dx.numel()} differ; f32 "
                      f"rel {rel_x32:.2e}; kernel {case['dgrad_ms']:.4f} ms, "
                      f"plain {case['dgrad_plain_ms']:.4f}, cuDNN "
-                     f"{case['dgrad_library_ms']:.4f}, bound "
+                     f"{case['dgrad_library_ms']:.4f} (kernel / cuDNN "
+                     f"{case['dgrad_ms'] / case['dgrad_library_ms']:.2f}), "
+                     "bound "
                      f"{case['dgrad_bound_ms']:.4f} ({case['dgrad_bound_by']})")
         case["bit_equal_calls"] = equal
         print(line)
@@ -2211,6 +2306,12 @@ def check_conv_backward_kernels(convs):
         ms = time_ms(replay(kernel, calls), iters=5, warmup=1)
         plain_ms = time_ms(replay(plain, calls), iters=5, warmup=1)
         library_ms = time_ms(replay(library, calls), iters=5, warmup=1)
+        # the device kernels of the step's calls: a main pass each, and
+        # K5-dgrad's K-partition reduces (no weight copy)
+        on_card = device_launches(replay(kernel, calls))
+        if name == "K5_dgrad":
+            check(on_card <= 2 * len(calls),
+                  f"K5-dgrad ran {on_card} device kernels a train step")
         flops = nbytes = 0.0
         for dy, x, w, *_ in calls:
             k = w.shape[-1]
@@ -2218,14 +2319,17 @@ def check_conv_backward_kernels(convs):
             nbytes += 2.0 * (x.numel() + dy.numel() + w.numel())
         bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16_FLOP_S)
         print(f"{name}, one train step's {len(calls)} convs at batch "
-              f"{TRAIN_B} replayed in one window: kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f}, cuDNN {library_ms:.3f}, bound {bound_ms:.3f} "
+              f"{TRAIN_B} ({on_card} device kernels) replayed in one "
+              f"window: kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f}, cuDNN {library_ms:.3f} (kernel / cuDNN "
+              f"{ms / library_ms:.3f}), bound {bound_ms:.3f} "
               f"ms ({flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB; by "
               f"{bound_by}), kernel at {bound_ms / ms:.1%} of its bound; "
               f"{gpu_line()}")
         out[name] = {
             "max_abs_err": worst[name], "f32_max_rel_err": worst32[name],
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "over_library": ms / library_ms, "device_kernels": on_card,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_call": "torch.ops.aten.convolution_backward (cuDNN), "
                             "bf16 channels_last, the same output mask",
@@ -3296,6 +3400,11 @@ def main() -> int:
                      if "registers" in ln or "stack frame" in ln]
             print(f"built {name} in {secs:.1f} s; "
                   f"{' | '.join(usage) or 'cached build'}")
+            if name == "conv.cu":  # K5-dgrad and K5-wgrad's wgmma kernels
+                for line in ptxas_report(log, "wgmma"):
+                    print(f"  {line}")
+                print(f"  dynamic shared memory a block, blocks an SM: "
+                      f"{wgmma_smem()}")
 
     base = build_flagship(subdivisions=5, exact_counts=True, device="cpu",
                           seed=SEED)

@@ -43,6 +43,8 @@
 // rounded), then the residual (rounded), then the ReLU. With equal sums the
 // kernel and the plain version agree to the bit. In bf16 the rounded sums
 // are staged in shared memory and the rest runs on 16-byte chunks.
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,11 +53,11 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-// The implicit GEMM of K5-conv and K5-dgrad: output row (n, ho, wo) at tap
-// (r, c) reads source pixel (t_h / istride, t_w / istride) with t_h = ho
-// stride - pad + r, or zero if t is negative, not a multiple of istride or
-// beyond (H, W). The forward has istride 1; the data gradient is the same
-// loop with stride 1 and istride the conv's stride (a gather per dx pixel).
+// The implicit GEMM of K5-conv: output row (n, ho, wo) at tap (r, c) reads
+// source pixel (t_h / istride, t_w / istride) with t_h = ho stride - pad +
+// r, or zero if t is negative, not a multiple of istride or beyond (H, W).
+// The forward has istride 1; the f32 data gradient runs the same loop with
+// stride 1 and istride the conv's stride (a gather per dx pixel).
 struct ConvShape {
   int N, H, W, Cin, Ho, Wo, Cout, k, stride, pad, M, K, istride;
 };
@@ -152,14 +154,12 @@ constexpr int smem_bytes() {
 // A block of 4 warps, (4 / WN) along M and WN along N, computes BM x BN
 // outputs, BN = 8 NT WN; each warp a (BM WN / 4) x (8 NT) part. kVec: Cin %
 // 8 == 0 and 16-byte aligned rows, so that every 8-element K group lies in
-// one (kh, kw) tap and is one 16-byte copy. kIS: s.istride (1, or 2 for
-// the data gradient of a stride-2 conv; kVec only).
-template <int BM, int NT, int WN, bool kVec, int kIS>
+// one (kh, kw) tap and is one 16-byte copy.
+template <int BM, int NT, int WN, bool kVec>
 __global__ void __launch_bounds__(kThreadsMma) conv_bf16_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ w,
     const bf16* __restrict__ bias, const bf16* __restrict__ res,
     bf16* __restrict__ y, ConvShape s, int relu) {
-  static_assert(kVec || kIS == 1, "istride 2 needs 16-byte copies");
   constexpr int BN = 8 * NT * WN;
   constexpr int WM = BM * WN / 4;   // rows of a warp's part
   constexpr int MT = WM / 16;       // its m16 tiles
@@ -243,14 +243,8 @@ __global__ void __launch_bounds__(kThreadsMma) conv_bf16_kernel(
       }
 #pragma unroll
       for (int i = 0; i < A_ROWS; ++i) {
-        int hi = a_h[i] + r, wi = a_w[i] + c;
-        bool ok = kin && hi >= 0 && wi >= 0;
-        if (kIS == 2) {  // only even taps land on a dy pixel
-          ok = ok && ((hi | wi) & 1) == 0;
-          hi >>= 1;
-          wi >>= 1;
-        }
-        ok = ok && hi < s.H && wi < s.W;
+        const int hi = a_h[i] + r, wi = a_w[i] + c;
+        const bool ok = kin && hi >= 0 && wi >= 0 && hi < s.H && wi < s.W;
         const bf16* src =
             ok ? x + ((size_t)(a_base[i] + hi) * s.W + wi) * s.Cin + ci : x;
         cp_async16(&A[(tid >> 2) + 32 * i][kk], src, ok);
@@ -492,7 +486,7 @@ __global__ void __launch_bounds__(kThreadsF32) conv_f32_kernel(
 
 constexpr int kMaxDevices = 64;
 
-template <int BM, int NT, int WN, bool kVec, int kIS>
+template <int BM, int NT, int WN, bool kVec>
 cudaError_t launch_bf16(const ConvShape& s, const void* x, const void* w,
                         const void* bias, const void* res, void* y, int relu,
                         cudaStream_t stream) {
@@ -505,14 +499,14 @@ cudaError_t launch_bf16(const ConvShape& s, const void* x, const void* w,
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices || !configured[dev]) {
-    err = cudaFuncSetAttribute(conv_bf16_kernel<BM, NT, WN, kVec, kIS>,
+    err = cudaFuncSetAttribute(conv_bf16_kernel<BM, NT, WN, kVec>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                bytes);
     if (err != cudaSuccess) return err;
     if (dev < kMaxDevices) configured[dev] = true;
   }
   const dim3 grid((s.M + BM - 1) / BM, (s.Cout + BN - 1) / BN);
-  conv_bf16_kernel<BM, NT, WN, kVec, kIS>
+  conv_bf16_kernel<BM, NT, WN, kVec>
       <<<grid, kThreadsMma, bytes, stream>>>(
       (const bf16*)x, (const bf16*)w, (const bf16*)bias, (const bf16*)res,
       (bf16*)y, s, relu);
@@ -550,11 +544,8 @@ cudaError_t launch_bf16_any(const ConvShape& s, bool vec, const void* x,
     wn = 2;
     bm = blocks(128, 64) >= sms ? 128 : 64;
   }
-#define K5_LAUNCH(BM, NT, WN, VEC)                                       \
-  return s.istride == 2                                                  \
-             ? launch_bf16<BM, NT, WN, VEC, VEC ? 2 : 1>(s, x, w, bias, \
-                                                         res, y, relu, st) \
-             : launch_bf16<BM, NT, WN, VEC, 1>(s, x, w, bias, res, y, relu, st)
+#define K5_LAUNCH(BM, NT, WN, VEC) \
+  return launch_bf16<BM, NT, WN, VEC>(s, x, w, bias, res, y, relu, st)
   if (!vec) {
     if (bm == 128) K5_LAUNCH(128, 4, 2, false);
     K5_LAUNCH(64, 4, 2, false);
@@ -576,16 +567,19 @@ cudaError_t launch_bf16_any(const ConvShape& s, bool vec, const void* x,
 
 // ---- K5-wgrad: dw = sum over rows (n, ho, wo) of dy (x) im2col(x) -------
 //
-// A GEMM of M = Cout, N = K (kh, kw, ci in the OHWI weight's order) over
-// R = N Ho Wo rows, which is long (196,608 rows for the 48-channel 3x3s at
-// 64^2 and batch 48) where M x N is small (48 x 432). The rows are cut into
+// A GEMM of Cout x K (kh, kw, ci in the OHWI weight's order) over R = N Ho
+// Wo rows, which is long (196,608 rows for the 48-channel 3x3s at 64^2 and
+// batch 48) where Cout x K is small (48 x 432). The rows are cut into
 // `parts` fixed partitions of `rows_per_part` (a function of the shape
-// alone, chosen by the wrapper): block (co tile, K tile, partition) sums its
-// rows in row order into an f32 partial; the second pass adds the partials
-// in partition order and rounds once. No atomics: the same bits on any
-// card. Blocks of the first K tile also sum dy's columns (dbias) and, with a
-// ReLU mask (y > 0 on the saved output), write the masked dy once (dym),
-// which the data gradient and the residual's gradient then read.
+// alone, chosen by the wrapper): block (tile, partition) sums its rows in
+// row order into an f32 partial; the second pass adds the partials in
+// partition order and rounds once. No atomics: the same bits on any card.
+// Blocks of the first K tile also sum dy's columns (dbias) and, with a ReLU
+// mask (y > 0 on the saved output), write the masked dy once (dym), which
+// the data gradient and the residual's gradient then read. The bf16
+// kernel for Cin % 8 == 0 is the wgmma kernel below (wgrad_wgmma_kernel);
+// this one is the stem's (Cin = 3: one conv a train step, at cuDNN's time),
+// 64 x 64 tiles of mma.sync on scalar loads.
 constexpr int kWT = 64;        // output channels and K columns per block
 constexpr int kWR = 32;        // rows per step (bf16)
 constexpr int kWLd = kWT + 8;  // halves per shared row: 144 bytes, no conflicts
@@ -603,9 +597,7 @@ __device__ __forceinline__ uint4 relu_mask8(uint4 v, uint4 m) {
   return v;
 }
 
-// kVec: Cin % 8 == 0 and x 16-byte aligned (an 8-column K group is one tap).
-template <bool kVec>
-__global__ void __launch_bounds__(kThreadsMma) wgrad_bf16_kernel(
+__global__ void __launch_bounds__(kThreadsMma) wgrad_bf16_scalar_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ dy,
     const bf16* __restrict__ ymask, bf16* __restrict__ dym,
     float* __restrict__ part, float* __restrict__ pbias, ConvShape s,
@@ -625,9 +617,8 @@ __global__ void __launch_bounds__(kThreadsMma) wgrad_bf16_kernel(
   // dy: 16-byte chunk (tid & 7) of rows (tid >> 3) and (tid >> 3) + 16.
   const int dc = (tid & 7) * 8;
   const bool co_in = co0 + dc < s.Cout;  // Cout % 8 == 0
-  // x (kVec): the same chunk layout over K; its tap, decoded once.
-  // x (scalar): column tid & 63 of rows (tid >> 6) + 2 j.
-  const int xc = kVec ? (tid & 7) * 8 : (tid & 63);
+  // x: column tid & 63 of rows (tid >> 6) + 2 j; its tap, decoded once.
+  const int xc = tid & 63;
   const int kk = kk0 + xc;
   const bool k_in = kk < s.K;
   int tap_r = 0, tap_c = 0, tap_ci = 0;
@@ -638,17 +629,9 @@ __global__ void __launch_bounds__(kThreadsMma) wgrad_bf16_kernel(
     tap_c = rc - tap_r * s.k;
   }
 
-  uint4 ra[2], rb[2];
+  uint4 ra[2];
   bf16 rs[16];
   const bf16 zero = __float2bfloat16_rn(0.f);
-  auto x_at = [&](int g, bool& ok) -> size_t {
-    const int n = g / HoWo, rem = g - n * HoWo;
-    const int ho = rem / s.Wo, wo = rem - ho * s.Wo;
-    const int hi = ho * s.stride - s.pad + tap_r;
-    const int wi = wo * s.stride - s.pad + tap_c;
-    ok = hi >= 0 && hi < s.H && wi >= 0 && wi < s.W;
-    return ((size_t)(n * s.H + hi) * s.W + wi) * s.Cin + tap_ci;
-  };
   auto load = [&](int step) {
     const int base = r_begin + step * kWR;
 #pragma unroll
@@ -665,30 +648,20 @@ __global__ void __launch_bounds__(kThreadsMma) wgrad_bf16_kernel(
       }
       ra[j] = v;
     }
-    if (kVec) {
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int g = base + (tid >> 3) + 16 * j;
-        uint4 v = make_uint4(0, 0, 0, 0);
-        if (g < r_end && k_in) {
-          bool ok;
-          const size_t idx = x_at(g, ok);
-          if (ok) v = *reinterpret_cast<const uint4*>(x + idx);
+    for (int j = 0; j < 16; ++j) {
+      const int g = base + (tid >> 6) + 2 * j;
+      bf16 v = zero;
+      if (g < r_end && k_in) {
+        const int n = g / HoWo, rem = g - n * HoWo;
+        const int ho = rem / s.Wo, wo = rem - ho * s.Wo;
+        const int hi = ho * s.stride - s.pad + tap_r;
+        const int wi = wo * s.stride - s.pad + tap_c;
+        if (hi >= 0 && hi < s.H && wi >= 0 && wi < s.W) {
+          v = x[((size_t)(n * s.H + hi) * s.W + wi) * s.Cin + tap_ci];
         }
-        rb[j] = v;
       }
-    } else {
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int g = base + (tid >> 6) + 2 * j;
-        bf16 v = zero;
-        if (g < r_end && k_in) {
-          bool ok;
-          const size_t idx = x_at(g, ok);
-          if (ok) v = x[idx];
-        }
-        rs[j] = v;
-      }
+      rs[j] = v;
     }
   };
   auto store = [&](int buf) {
@@ -696,15 +669,8 @@ __global__ void __launch_bounds__(kThreadsMma) wgrad_bf16_kernel(
     for (int j = 0; j < 2; ++j) {
       *reinterpret_cast<uint4*>(&As[buf][(tid >> 3) + 16 * j][dc]) = ra[j];
     }
-    if (kVec) {
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        *reinterpret_cast<uint4*>(&Bs[buf][(tid >> 3) + 16 * j][xc]) = rb[j];
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < 16; ++j) Bs[buf][(tid >> 6) + 2 * j][xc] = rs[j];
-    }
+    for (int j = 0; j < 16; ++j) Bs[buf][(tid >> 6) + 2 * j][xc] = rs[j];
   };
 
   float acc[2][4][4];
@@ -907,6 +873,840 @@ __global__ void relu_mask_kernel(const T* __restrict__ dy,
   }
 }
 
+// ---- Hopper: mbarrier ring, cp.async / TMA, wgmma --------------------------
+//
+// K5-dgrad and K5-wgrad in bf16 (Cin % 8 == 0). Both are implicit GEMMs
+// run by one block of three warpgroups: warpgroups 0 and 1 consume (each
+// a 64-row m64nNk16 wgmma strip of a 128-row tile, f32 sums in registers),
+// warpgroup 2 produces, filling a ring of 3 or 4 stages in dynamic shared memory
+// with 16-byte cp.async gathers (zero-fill) and TMA boxes, each stage
+// completed on its `full` mbarrier and handed back on its `empty` one.
+// Every operand tile is stored in the 128-byte swizzle that TMA writes and
+// the wgmma descriptor names: rows of 128 bytes, 8-row atoms of 1024 bytes
+// (1024-byte aligned), the 16-byte chunk c of row r at c ^ (r % 8).
+constexpr int kRing = 4;
+constexpr int kConsumers = 256;  // two consumer warpgroups
+constexpr int kHopperThreads = kConsumers + 128;
+constexpr int kTileRows = 128;  // the M side of a block: two m64 strips
+constexpr int kStageA = kTileRows * 128;  // bytes of the 128 x 64 A tile
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// Waits until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+// One arrival on `bar` once this thread's earlier cp.async copies land.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// Makes generic-proxy writes to shared memory (cp.async, st.shared)
+// visible to the async proxy that wgmma reads through.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// A wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1
+// (SWIZZLE_128B). K-major: SBO = 1024 (8-row atoms), LBO unused. MN-major:
+// LBO = the stride of 64-element MN blocks, SBO = 1024 (8-deep K groups).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accumulator accesses across the
+// asynchronous wgmma that writes them.
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// wgmma.mma_async m64nNk16, bf16 x bf16 -> f32, A and B from shared memory
+// through descriptors; TA / TB: 0 K-major, 1 MN-major. The accumulators
+// (N / 2 a thread) are added to (scale-d 1): callers zero them first.
+template <int N, int TA, int TB>
+struct Wgmma;
+
+template <int TA, int TB>
+struct Wgmma<48, TA, TB> {
+  static __device__ __forceinline__ void mma(float (&d)[24], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23"
+        "}, %24, %25, p, 1, 1, %27, %28;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct Wgmma<64, TA, TB> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct Wgmma<96, TA, TB> {
+  static __device__ __forceinline__ void mma(float (&d)[48], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+        "}, %48, %49, p, 1, 1, %51, %52;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct Wgmma<128, TA, TB> {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct Wgmma<192, TA, TB> {
+  static __device__ __forceinline__ void mma(float (&d)[96], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+        "}, %96, %97, p, 1, 1, %99, %100;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+          "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+          "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+        : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct Wgmma<256, TA, TB> {
+  static __device__ __forceinline__ void mma(float (&d)[128], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+          "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+          "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+          "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+          "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  }
+};
+
+// The byte offset of 16-byte chunk `chunk` of row `row` in a swizzled tile.
+__device__ __forceinline__ int sw128(int row, int chunk) {
+  return row * 128 + ((chunk ^ (row & 7)) << 4);
+}
+
+// x / d for 0 <= x < 2^31 by a multiply and a shift (d > 0; fast_div sets
+// the constants on the host).
+struct FastDiv {
+  uint32_t mul, shift;
+};
+__device__ __forceinline__ int fdiv(int x, const FastDiv& f) {
+  return (int)((__umulhi((uint32_t)x, f.mul) + (uint32_t)x) >> f.shift);
+}
+
+// ---- K5-dgrad (bf16): dx = the data gradient of the conv, on wgmma --------
+//
+// Replaces: the data gradient of shapy_tpu/models/backbones/layers.py:91
+// conv2d (JAX autodiff of lax.conv_general_dilated; XLA's conv on the
+// MXU). Bound on the H100: a train step's 330 calls at batch 48 do 2.313
+// TFLOP against 7.46 GB of inputs and outputs, 2.338 ms at 989 TFLOP/s
+// (2.23 ms at 3.35 TB/s): the tensor cores in sum, but each call's K walk
+// re-reads dy k^2 times and the weight once per M tile through L2, which
+// caps the small-channel convs below that. The design: wgmma at full
+// width from swizzled tiles, no MMA on the taps a stride skips, the
+// weight's boxes straight from where it lies, a ring that keeps 3-4
+// stages of loads in flight, and a persistent grid that fills all SMs.
+// dx(n, h, w, ci) = sum over taps (r, c) and co of dy(n, ho, wo, co) w(co,
+// r, c, ci), ho = (h + pad - r) / stride where that is a whole number in
+// [0, Ho) (wo alike). For stride 2 a dx pixel of parity (ph, pw) meets a dy
+// pixel only at the taps with r = ph + pad and c = pw + pad (mod 2): 1, 2,
+// 2 or 4 of a 3x3's 9, none at the odd pixels of a 1x1. So dx is cut into
+// its stride^2 parity classes, each a dense implicit GEMM over its own
+// taps: M = its pixels (i, j), dx pixel (ph + stride i, pw + stride j), N
+// = Cin, K = its taps x Cout; for stride 1 one class with all k^2 taps.
+// Tap (r, c) of a class reads dy at (i + dh, j + dw), dh = (ph + pad - r)
+// / stride: a stride-1 window of dy, zero outside it. One launch runs every
+// class, heaviest first (the tile index picks class, M tile, N tile and K
+// partition); a class with no tap writes zeros without an MMA.
+//   * A (an M tile of pixels x bk channels of one tap, K-major): a TMA box
+//     of dy viewed as (N, Ho, Wo, Cout), {64 channels, bw, bh, bn} pixels
+//     (bw bh bn <= 128: whole class rows of one or more images, or a run of
+//     columns of one row), at (co0, j0 + dw, i0 + dh, n0). The hardware
+//     fills what lies outside dy (the padding, the ragged edges) with
+//     zeros; rows of the tile beyond the class are computed and dropped.
+//   * B (bk x BN, MN-major): the weight where it lies. w(co, r, c, ci) viewed
+//     as (Cout, k^2, Cin) is a TMA box of bk rows (co) by 64 ci per 64-wide
+//     N block at (ci0, r k + c, co0): no flipped copy of the weight.
+//   * bk (64, 48, 32 or 16) divides Cout where it can, so a K step never
+//     straddles two taps and the 48-, 96- and 192-channel convs waste no
+//     column; BN divides Cin where it can.
+//   * K partitions: where the tiles are fewer than the SMs (the 8^2 and 16^2
+//     maps), partition p of P takes steps [p S / P, (p + 1) S / P) of the
+//     class's S K steps and writes f32 partials; wgrad_reduce_kernel adds
+//     them in partition order and rounds once. P comes from the shape alone
+//     (the wrapper's plan), so two calls give the same bits on any card.
+// One producer thread issues every load (an A box and BN / 64 B boxes a
+// step). Epilogue: the f32 sums rounded once to bf16 (P = 1), staged in
+// shared memory, then 16-byte chunks of channels_last dx rows.
+struct DgradClass {
+  int ph, pw, Hc, Wc, ntaps, begin, hblocks, wblocks;
+  int tap[9];  // r k + c | (dh + 1) << 8 | (dw + 1) << 12
+};
+struct DgradParams {
+  int N, H, W, Cin, Ho, Wo, Cout, k;
+  int stride, cchunks, ntiles, parts, nclass, tiles;
+  int box_n, box_h, box_w;  // the A box's images, rows and columns
+  DgradClass cls[4];
+};
+
+// Tile t of a launch: its class, first image, row and column, first
+// channel, K partition and K steps.
+struct DgradTile {
+  int c, n0, i0, j0, ci0, p, s0, s1;
+};
+__device__ __forceinline__ DgradTile dgrad_tile(const DgradParams& P,
+                                                int t, int bn) {
+  DgradTile d;
+  d.c = 0;
+  while (d.c + 1 < P.nclass && t >= P.cls[d.c + 1].begin) ++d.c;
+  const DgradClass& C = P.cls[d.c];
+  const int mtiles =
+      (P.N + P.box_n - 1) / P.box_n * C.hblocks * C.wblocks;
+  const int local = t - C.begin;
+  const int nt = local % P.ntiles, rest = local / P.ntiles;
+  const int mt = rest % mtiles;
+  d.j0 = mt % C.wblocks * P.box_w;
+  d.i0 = mt / C.wblocks % C.hblocks * P.box_h;
+  d.n0 = mt / (C.wblocks * C.hblocks) * P.box_n;
+  d.ci0 = nt * bn;
+  d.p = rest / mtiles;
+  const int steps = C.ntaps * P.cchunks;
+  d.s0 = (int)((long long)d.p * steps / P.parts);
+  d.s1 = (int)((long long)(d.p + 1) * steps / P.parts);
+  return d;
+}
+
+// The shared memory of dgrad_wgmma_kernel<BN, BK> with `stages` ring
+// stages: 1024 bytes of alignment, the stages (the 128 x 64 A tile + BN /
+// 64 B boxes of BK rows each), the epilogue's staged 128 x BN bf16 tile
+// and the mbarriers. Two blocks share an SM where three stages fit in half
+// of it (N tiles <= 64); the ring is four stages deep where they fit, else
+// three.
+__host__ __device__ constexpr int dgrad_bytes(int bn, int bk, int stages) {
+  return 1024 + stages * (kStageA + (bn + 63) / 64 * bk * 128) +
+         kTileRows * (bn + 8) * 2 + 2 * stages * 8;
+}
+constexpr int kHalfSm = 115712, kWholeBlock = 232448;
+__host__ __device__ constexpr bool dgrad_pair(int bn, int bk) {
+  return bn <= 64 && dgrad_bytes(bn, bk, 3) <= kHalfSm;
+}
+__host__ __device__ constexpr int dgrad_stages(int bn, int bk) {
+  return dgrad_bytes(bn, bk, 4) <=
+                 (dgrad_pair(bn, bk) ? kHalfSm : kWholeBlock)
+             ? 4
+             : 3;
+}
+
+// A persistent grid: block b takes tiles b, b + gridDim.x, ...; the ring's
+// stage and phase run on across tiles, so that the producer fills the next
+// tile's stages while the consumers write the last one's outputs. Which
+// block takes a tile changes nothing in its sums.
+template <int BN, int BK>
+__global__ void __launch_bounds__(kHopperThreads, dgrad_pair(BN, BK) ? 2 : 1)
+    dgrad_wgmma_kernel(const __grid_constant__ CUtensorMap dymap,
+                       const __grid_constant__ CUtensorMap wmap,
+                       bf16* __restrict__ dx, float* __restrict__ part,
+                       const DgradParams P) {
+  constexpr int kBoxes = (BN + 63) / 64;
+  constexpr int kStageB = kBoxes * BK * 128;
+  constexpr int kStages = dgrad_stages(BN, BK);
+  constexpr int kCs = BN + 8;  // halves per staged output row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* As = smem;
+  unsigned char* Bs = smem + kStages * kStageA;
+  bf16* Cs = reinterpret_cast<bf16*>(Bs + kStages * kStageB);
+  uint64_t* full = reinterpret_cast<uint64_t*>(Cs + kTileRows * kCs);
+  uint64_t* empty = full + kStages;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 1);  // the producer's expect_tx; then the bytes
+      mbar_init(&empty[i], kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    if (tid != kConsumers) return;  // one thread issues the loads
+    const uint32_t tx =
+        (uint32_t)(64 * P.box_w * P.box_h * P.box_n * 2 + kStageB);
+    int it = 0;  // steps produced by this block, over all its tiles
+    for (int t = blockIdx.x; t < P.tiles; t += gridDim.x) {
+      const DgradTile d = dgrad_tile(P, t, BN);
+      const DgradClass& C = P.cls[d.c];
+      for (int s = d.s0; s < d.s1; ++s, ++it) {
+        const int st = it % kStages;
+        mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
+        const int tp = s / P.cchunks, co0 = (s - tp * P.cchunks) * BK;
+        const int tap = C.tap[tp];
+        const int rc = tap & 255, dh = ((tap >> 8) & 15) - 1,
+                  dw = ((tap >> 12) & 15) - 1;
+        unsigned char* b = Bs + st * kStageB;
+        mbar_expect_tx(&full[st], tx);
+        tma_load_4d(As + st * kStageA, &dymap, &full[st], co0, d.j0 + dw,
+                    d.i0 + dh, d.n0);
+#pragma unroll
+        for (int j = 0; j < kBoxes; ++j) {
+          tma_load_3d(b + j * BK * 128, &wmap, &full[st], d.ci0 + 64 * j, rc,
+                      co0);
+        }
+      }
+    }
+  } else {
+    // Consumers: warpgroup wg multiplies rows 64 wg .. 64 wg + 63.
+    const int wg = tid >> 7, lane = tid & 31;
+    const int rbase = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+    const int cbase = 2 * (lane & 3);
+    const size_t plane = (size_t)P.N * P.H * P.W;
+    const int box_rows = P.box_w * P.box_h;
+    int it = 0;  // steps consumed by this block, over all its tiles
+    for (int t = blockIdx.x; t < P.tiles; t += gridDim.x) {
+      const DgradTile d = dgrad_tile(P, t, BN);
+      const DgradClass& C = P.cls[d.c];
+      float acc[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      for (int s = d.s0; s < d.s1; ++s, ++it) {
+        const int st = it % kStages;
+        mbar_wait(&full[st], (it / kStages) & 1);
+        const unsigned char* a = As + st * kStageA + wg * 64 * 128;
+        const unsigned char* b = Bs + st * kStageB;
+        fence_acc(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          Wgmma<BN, 0, 1>::mma(acc, sw128_desc(a + kk * 32, 16, 1024),
+                               sw128_desc(b + kk * 2048, BK * 128, 1024));
+        }
+        wgmma_commit();
+        fence_acc(acc);
+        wgmma_wait<1>();
+        fence_acc(acc);
+        if (s > d.s0) {  // the previous step's wgmma has read its stage
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[(it - 1) % kStages]);
+        }
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (d.s1 > d.s0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[(it - 1) % kStages]);
+      }
+
+      // Tile row r is box pixel (n0 + r / (box_w box_h), i0 + r / box_w %
+      // box_h, j0 + r % box_w) of the class: its dx pixel, or -1 where the
+      // row lies beyond the class or the box.
+      auto pixel = [&](int r) -> long long {
+        const int n = d.n0 + r / box_rows;
+        const int i = d.i0 + r / P.box_w % P.box_h, j = d.j0 + r % P.box_w;
+        if (r >= box_rows * P.box_n || n >= P.N || i >= C.Hc ||
+            j >= C.Wc) {
+          return -1;
+        }
+        return ((long long)n * P.H + i * P.stride + C.ph) * P.W +
+               j * P.stride + C.pw;
+      };
+      // Row of accumulator pair (acc[4 q + 2 h], acc[4 q + 2 h + 1]): 64
+      // wg + 16 (warp % 4) + lane / 4 + 8 h; its columns 8 q + 2 (lane %
+      // 4), + 1.
+      if (P.parts > 1) {  // f32 partials, 32 bytes of a row per 4 lanes
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const long long px = pixel(rbase + 8 * h);
+          if (px < 0) continue;
+          float* dst = part + ((size_t)d.p * plane + px) * P.Cin + d.ci0;
+#pragma unroll
+          for (int q = 0; q < BN / 8; ++q) {
+            const int col = 8 * q + cbase;
+            if (d.ci0 + col < P.Cin) {
+              *reinterpret_cast<float2*>(dst + col) =
+                  make_float2(acc[4 * q + 2 * h], acc[4 * q + 2 * h + 1]);
+            }
+          }
+        }
+        continue;
+      }
+      // Rounded once to bf16 and staged, then 16-byte chunks of dx rows;
+      // the first barrier waits for the last tile's chunks to be read.
+      named_sync(1, kConsumers);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int q = 0; q < BN / 8; ++q) {
+          *reinterpret_cast<__nv_bfloat162*>(
+              Cs + (rbase + 8 * h) * kCs + 8 * q + cbase) =
+              __floats2bfloat162_rn(acc[4 * q + 2 * h],
+                                    acc[4 * q + 2 * h + 1]);
+        }
+      }
+      named_sync(1, kConsumers);
+      constexpr int kChunks = BN / 8;
+      for (int e = tid; e < kTileRows * kChunks; e += kConsumers) {
+        const int r = e / kChunks, cc = (e - r * kChunks) * 8;
+        const long long px = pixel(r);
+        if (px < 0 || d.ci0 + cc >= P.Cin) continue;
+        *reinterpret_cast<uint4*>(dx + px * P.Cin + d.ci0 + cc) =
+            *reinterpret_cast<const uint4*>(Cs + r * kCs + cc);
+      }
+    }
+  }
+}
+
+// ---- K5-wgrad (bf16, Cin % 8 == 0): dw and dbias on wgmma ----------------
+//
+// Replaces: the weight and bias gradients of
+// shapy_tpu/models/backbones/layers.py:91 conv2d (JAX autodiff). Bound on
+// the H100: a train step's 331 calls at batch 48 do 2.315 TFLOP against
+// 7.58 GB, 2.341 ms at 989 TFLOP/s: the tensor cores in sum; a call's K
+// tiles each re-read its dy rows and its N tiles its im2col columns
+// through L2. The design: a block's N tile holds all of Cout up to 256, so
+// dy is read once per 128 K columns; 64-row stages on a 4-deep ring; row
+// partitions that keep a persistent grid's tiles near two per SM.
+// dw(co, kk) = sum over rows g of dy(g, co) x(g, kk), kk = (r, c, ci) the
+// im2col column. wgmma's M side is kk (two 64-wide strips: a 128-column K
+// tile), its N side BN output channels (all of Cout <= 256, else the
+// largest dividing part), its depth 64 rows a stage: so dy is read once per
+// K tile, and the 48-, 96- and 192-channel convs waste no column. Both
+// operands are MN-major (the rows are the reduction):
+//   * B, dy (64 rows x BN): TMA boxes of dy viewed as (N Ho Wo, Cout), 64
+//     channels wide; with a ReLU mask (kMask) the producers load dy and the
+//     saved output instead, zero dy where y <= 0, store it swizzled and, in
+//     the blocks of the first K tile, write the masked dy once (dym);
+//   * A, im2col(x) (64 rows x 128 kk): a cp.async gather (zero-fill), or
+//     for a 1x1 stride-1 conv (kXTma) TMA boxes of x viewed as (N H W, Cin).
+// Rows: the wrapper's fixed partitions (multiples of 64 rows); block (K
+// tile, N tile, partition) writes an f32 partial and wgrad_reduce_kernel
+// adds them in partition order, rounding once. dbias: with `pbias`, the
+// consumer threads of the first K tile sum one channel each over the
+// stage's dy rows, in row order within the partition.
+struct WgradParams {
+  int N, H, W, Cin, Ho, Wo, Cout, k, stride, pad, M, K;
+  int rows_per_part, ktiles, ntiles, tiles;
+  FastDiv howo, wo, cin;
+};
+constexpr int kWRows = 64;  // rows per stage: the wgmma depth of 4 k16 steps
+
+template <int BN>
+constexpr int wgrad_smem_bytes() {
+  return 1024 + kRing * (kStageA + ((BN + 63) / 64) * kWRows * 128) +
+         2 * kRing * 8;
+}
+
+template <int BN, bool kMask, bool kXTma>
+__global__ void __launch_bounds__(kHopperThreads, 1) wgrad_wgmma_kernel(
+    const __grid_constant__ CUtensorMap dymap,
+    const __grid_constant__ CUtensorMap xmap, const bf16* __restrict__ x,
+    const bf16* __restrict__ dy, const bf16* __restrict__ ymask,
+    bf16* __restrict__ dym, float* __restrict__ part,
+    float* __restrict__ pbias, const WgradParams P) {
+  static_assert(!(kMask && kXTma), "the masked route gathers x");
+  constexpr int kBoxes = (BN + 63) / 64;
+  constexpr int kBox = kWRows * 128;  // bytes of a 64 x 64 box
+  constexpr int kStageB = kBoxes * kBox;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* As = smem;
+  unsigned char* Bs = smem + kRing * kStageA;
+  uint64_t* full = reinterpret_cast<uint64_t*>(Bs + kRing * kStageB);
+  uint64_t* empty = full + kRing;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < kRing; ++i) {
+      mbar_init(&full[i], 128 + 1);
+      mbar_init(&empty[i], kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Tile t: K tile t % ktiles (fastest: the tiles that share dy rows run
+  // together), N tile (t / ktiles) % ntiles, row partition t / (ktiles
+  // ntiles). A persistent grid, as K5-dgrad's.
+  auto rows_of = [&](int t, int& r_begin, int& r_end) {
+    const int p = t / (P.ktiles * P.ntiles);
+    r_begin = p * P.rows_per_part;
+    r_end = min(P.M, r_begin + P.rows_per_part);
+    return p;
+  };
+
+  if (tid >= kConsumers) {
+    // Producer: thread pt gathers kk chunk pt % 16 (8 columns of one tap)
+    // of rows pt / 16 + 8 i.
+    const int pt = tid - kConsumers, chunk = pt & 15;
+    const int a_off = (chunk >> 3) * kBox;
+    const uint32_t tx =
+        (uint32_t)((kMask ? 0 : kStageB) + (kXTma ? kStageA : 0));
+    int it = 0;
+    for (int t = blockIdx.x; t < P.tiles; t += gridDim.x) {
+      const int kk0 = (t % P.ktiles) * kTileRows;
+      const int co0 = (t / P.ktiles % P.ntiles) * BN;
+      int r_begin, r_end;
+      rows_of(t, r_begin, r_end);
+      const bool first = kk0 == 0;
+      const int kk = kk0 + chunk * 8;
+      const bool k_in = kk < P.K;
+      int tap_r = 0, tap_c = 0, tap_ci = 0;
+      if (k_in) {
+        const int rc = fdiv(kk, P.cin);
+        tap_ci = kk - rc * P.Cin;
+        tap_r = rc / P.k;
+        tap_c = rc - tap_r * P.k;
+      }
+      for (int g0 = r_begin; g0 < r_end; g0 += kWRows, ++it) {
+        const int st = it % kRing;
+        mbar_wait(&empty[st], ((it / kRing) & 1) ^ 1);
+        unsigned char* a = As + st * kStageA;
+        unsigned char* b = Bs + st * kStageB;
+        if (pt == 0) {
+          mbar_expect_tx(&full[st], tx);
+          if (!kMask) {
+#pragma unroll
+            for (int j = 0; j < kBoxes; ++j) {
+              tma_load_2d(b + j * kBox, &dymap, &full[st], co0 + 64 * j, g0);
+            }
+          }
+          if (kXTma) {
+            tma_load_2d(a, &xmap, &full[st], kk0, g0);
+            tma_load_2d(a + kBox, &xmap, &full[st], kk0 + 64, g0);
+          }
+        }
+        if (!kXTma) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int row = (pt >> 4) + 8 * i, g = g0 + row;
+            bool ok = k_in && g < r_end;
+            size_t src = 0;
+            if (ok) {
+              const int n = fdiv(g, P.howo), rem = g - n * P.Ho * P.Wo;
+              const int ho = fdiv(rem, P.wo), wo = rem - ho * P.Wo;
+              const int hi = ho * P.stride - P.pad + tap_r;
+              const int wi = wo * P.stride - P.pad + tap_c;
+              ok = hi >= 0 && hi < P.H && wi >= 0 && wi < P.W;
+              src = ((size_t)(n * P.H + hi) * P.W + wi) * P.Cin + tap_ci;
+            }
+            cp_async16(a + a_off + sw128(row, chunk & 7), x + (ok ? src : 0),
+                       ok);
+          }
+        }
+        if (kMask) {
+          // dy masked by y > 0 through registers, stored swizzled; the
+          // copies above are waited for so that one plain arrival covers
+          // all.
+          constexpr int kChunks = BN / 8;
+          for (int e = pt; e < kWRows * kChunks; e += 128) {
+            const int row = e / kChunks, cc = e - row * kChunks;
+            const int g = g0 + row, co = co0 + cc * 8;
+            uint4 v = make_uint4(0, 0, 0, 0);
+            if (g < r_end && co < P.Cout) {
+              const size_t idx = (size_t)g * P.Cout + co;
+              v = relu_mask8(*reinterpret_cast<const uint4*>(dy + idx),
+                             *reinterpret_cast<const uint4*>(ymask + idx));
+              if (first && dym) *reinterpret_cast<uint4*>(dym + idx) = v;
+            }
+            *reinterpret_cast<uint4*>(b + (cc >> 3) * kBox +
+                                      sw128(row, cc & 7)) = v;
+          }
+          asm volatile("cp.async.wait_all;\n" ::: "memory");
+          fence_async_shared();
+          mbar_arrive(&full[st]);
+        } else {
+          cp_async_arrive(&full[st]);
+        }
+      }
+    }
+  } else {
+    // Consumers: warpgroup wg multiplies kk rows 64 wg .. 64 wg + 63.
+    const int wg = tid >> 7, lane = tid & 31;
+    const int bcol = tid & 63, bbox = (tid >> 6) * kBox;
+    int it = 0;
+    for (int t = blockIdx.x; t < P.tiles; t += gridDim.x) {
+      const int kk0 = (t % P.ktiles) * kTileRows;
+      const int co0 = (t / P.ktiles % P.ntiles) * BN;
+      int r_begin, r_end;
+      const int p = rows_of(t, r_begin, r_end);
+      const bool dbias = pbias && kk0 == 0 && tid < BN;
+      float bsum = 0.f;
+      float acc[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      for (int g0 = r_begin; g0 < r_end; g0 += kWRows, ++it) {
+        const int st = it % kRing;
+        mbar_wait(&full[st], (it / kRing) & 1);
+        fence_async_shared();
+        const unsigned char* a = As + st * kStageA + wg * kBox;
+        const unsigned char* b = Bs + st * kStageB;
+        if (dbias) {
+          for (int r = 0; r < kWRows; ++r) {
+            bsum += __bfloat162float(*reinterpret_cast<const bf16*>(
+                b + bbox + sw128(r, bcol >> 3) + (bcol & 7) * 2));
+          }
+        }
+        fence_acc(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kWRows / 16; ++kk) {
+          Wgmma<BN, 1, 1>::mma(acc, sw128_desc(a + kk * 2048, kBox, 1024),
+                               sw128_desc(b + kk * 2048, kBox, 1024));
+        }
+        wgmma_commit();
+        fence_acc(acc);
+        wgmma_wait<1>();
+        fence_acc(acc);
+        if (g0 > r_begin) {
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[(it - 1) % kRing]);
+        }
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (r_end > r_begin) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[(it - 1) % kRing]);
+      }
+
+      // acc[4 j + 2 h + e]: kk row 64 wg + 16 (warp % 4) + lane / 4 + 8 h,
+      // channel 8 j + 2 (lane % 4) + e; partials are (parts, Cout, K).
+      const int kr = kk0 + wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+      const int cbase = co0 + 2 * (lane & 3);
+      float* dst = part + (size_t)p * P.Cout * P.K;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int kr_h = kr + 8 * h;
+        if (kr_h >= P.K) continue;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int co = cbase + 8 * j;
+          if (co < P.Cout) {
+            dst[(size_t)co * P.K + kr_h] = acc[4 * j + 2 * h];
+            dst[(size_t)(co + 1) * P.K + kr_h] = acc[4 * j + 2 * h + 1];
+          }
+        }
+      }
+      if (dbias && co0 + tid < P.Cout) {
+        pbias[(size_t)p * P.Cout + co0 + tid] = bsum;
+      }
+    }
+  }
+}
+
 ConvShape conv_shape(int N, int H, int W, int Cin, int Cout, int k,
                      int stride) {
   ConvShape s;
@@ -919,6 +1719,152 @@ ConvShape conv_shape(int N, int H, int W, int Cin, int Cout, int k,
   s.K = k * k * Cin;
   s.istride = 1;
   return s;
+}
+
+// ---- Host side of the Hopper kernels ----------------------------------------
+
+FastDiv fast_div(uint32_t d) {
+  FastDiv f;
+  f.shift = 0;
+  while ((1ull << f.shift) < d) ++f.shift;
+  f.mul = (uint32_t)(((1ull << 32) * ((1ull << f.shift) - d)) / d + 1);
+  return f;
+}
+
+// cuTensorMapEncodeTiled, looked up at run time (no -lcuda).
+cudaError_t encode_map(CUtensorMap* map, int rank, const void* base,
+                       const cuuint64_t* dims, const cuuint64_t* strides,
+                       const cuuint32_t* box) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+    void* fn = nullptr;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) {
+      return cudaErrorNotSupported;
+    }
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+      const_cast<void*>(base), dims, strides, box, ones,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A 2-D bf16 map of a row-major (rows, cols) matrix, boxes of 64 columns x
+// `box_rows` rows.
+cudaError_t encode_rows(CUtensorMap* map, const void* base, int rows, int cols,
+                        int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  return encode_map(map, 2, base, dims, strides, box);
+}
+
+// Sets a kernel's dynamic shared memory above 48 KB and finds how many of
+// its blocks the device holds at once (SMs x blocks per SM), once per
+// device: the size of its persistent grid.
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, int bytes, int* slots) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (slots[dev] > 0) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  int sms = 0, per_sm = 0;
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, kHopperThreads, bytes);
+  }
+  if (err != cudaSuccess) return err;
+  slots[dev] = sms * (per_sm > 0 ? per_sm : 1);
+  return cudaSuccess;
+}
+
+int device_index() {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  return dev;
+}
+
+template <int BN, int BK>
+cudaError_t launch_dgrad(const CUtensorMap& dymap, const CUtensorMap& wmap,
+                         const DgradParams& P, void* dx, float* part,
+                         cudaStream_t st) {
+  static int slots[kMaxDevices] = {};
+  constexpr int bytes = dgrad_bytes(BN, BK, dgrad_stages(BN, BK));
+  const cudaError_t err = prepare(dgrad_wgmma_kernel<BN, BK>, bytes, slots);
+  if (err != cudaSuccess) return err;
+  const int grid = P.tiles < slots[device_index()] ? P.tiles
+                                                   : slots[device_index()];
+  dgrad_wgmma_kernel<BN, BK><<<grid, kHopperThreads, bytes, st>>>(
+      dymap, wmap, (bf16*)dx, part, P);
+  return cudaGetLastError();
+}
+
+template <int BN>
+cudaError_t launch_dgrad_bk(int bk, const CUtensorMap& dymap,
+                            const CUtensorMap& wmap, const DgradParams& P,
+                            void* dx, float* part, cudaStream_t st) {
+  switch (bk) {
+    case 64: return launch_dgrad<BN, 64>(dymap, wmap, P, dx, part, st);
+    case 48: return launch_dgrad<BN, 48>(dymap, wmap, P, dx, part, st);
+    case 32: return launch_dgrad<BN, 32>(dymap, wmap, P, dx, part, st);
+    default: return launch_dgrad<BN, 16>(dymap, wmap, P, dx, part, st);
+  }
+}
+
+template <int BN, bool kMask, bool kXTma>
+cudaError_t launch_wgrad(const CUtensorMap& dymap, const CUtensorMap& xmap,
+                         const WgradParams& P, const void* x, const void* dy,
+                         const void* y, void* dym, float* part, float* pbias,
+                         cudaStream_t st) {
+  static int slots[kMaxDevices] = {};
+  constexpr int bytes = wgrad_smem_bytes<BN>();
+  const cudaError_t err =
+      prepare(wgrad_wgmma_kernel<BN, kMask, kXTma>, bytes, slots);
+  if (err != cudaSuccess) return err;
+  const int grid = P.tiles < slots[device_index()] ? P.tiles
+                                                   : slots[device_index()];
+  wgrad_wgmma_kernel<BN, kMask, kXTma><<<grid, kHopperThreads, bytes, st>>>(
+      dymap, xmap, (const bf16*)x, (const bf16*)dy, (const bf16*)y,
+      (bf16*)dym, part, pbias, P);
+  return cudaGetLastError();
+}
+
+template <int BN>
+cudaError_t launch_wgrad_any(const CUtensorMap& dymap,
+                             const CUtensorMap& xmap, const WgradParams& P,
+                             bool xtma, const void* x, const void* dy,
+                             const void* y, void* dym, float* part,
+                             float* pbias, cudaStream_t st) {
+  if (y != nullptr) {
+    return launch_wgrad<BN, true, false>(dymap, xmap, P, x, dy, y, dym, part,
+                                         pbias, st);
+  }
+  if (xtma) {
+    return launch_wgrad<BN, false, true>(dymap, xmap, P, x, dy, y, dym, part,
+                                         pbias, st);
+  }
+  return launch_wgrad<BN, false, false>(dymap, xmap, P, x, dy, y, dym, part,
+                                        pbias, st);
+}
+
+// The wgmma widths the kernels are built for.
+bool wgmma_n(int bn) {
+  return bn == 48 || bn == 64 || bn == 96 || bn == 128 || bn == 192 ||
+         bn == 256;
 }
 
 }  // namespace
@@ -953,40 +1899,136 @@ extern "C" int conv2d_act_forward(const void* x, const void* w,
 }
 
 // K5-dgrad: dx (N, H, W, Cin) = the data gradient of the conv above from dy
-// (N, Ho, Wo, Cout), with wt (Cin, k, k, Cout) the weight flipped in (kh,
-// kw) and transposed (OHWI of the transposed conv). It is K5-conv's main
-// loop on dy: stride 1, padding k - 1 - k / 2, and input stride `stride`,
-// so that each dx pixel gathers the dy pixels it fed (a stride-2 3x3 conv:
-// 1, 2, 2 or 4 taps by the parity of (h, w); a stride-2 1x1: dy at even
-// pixels, zeros at odd ones). f32 sums in K order, rounded once; no
-// epilogue. Cin % 8 == 0 and Cout % 8 == 0; all 16-byte aligned. Returns
-// cudaGetLastError().
-extern "C" int conv2d_dgrad(const void* dy, const void* wt, void* dx, int N,
-                            int H, int W, int Cin, int Cout, int k,
-                            int stride, int dtype, int sms, void* stream) {
+// (N, Ho, Wo, Cout), NHWC, all 16-byte aligned, Cin % 8 == 0 and Cout % 8
+// == 0, stride 1 or 2.
+//   * bf16 (dtype 1): w is the conv's weight (Cout, k, k, Cin), read in
+//     place by the parity-class wgmma kernel above; bn its N tile (a wgmma
+//     width), (box_n, box_h, box_w) its M tile's box of a class's pixels
+//     (at most 128), parts its K partitions; with parts > 1, part is
+//     parts x N H W Cin f32 scratch and a second pass adds the partials in
+//     partition order.
+//   * f32 (dtype 0): w is the weight flipped in (kh, kw) and transposed,
+//     (Cin, k, k, Cout); the f32 forward kernel runs on dy with stride 1,
+//     padding k - 1 - k / 2 and input stride `stride` (a gather per dx
+//     pixel); bn and parts are not read.
+// f32 sums, rounded once; no epilogue. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for what it does not take or a tensor map that
+// cuTensorMapEncodeTiled refuses.
+extern "C" int conv2d_dgrad(const void* dy, const void* w, void* dx,
+                            void* part, int N, int H, int W, int Cin,
+                            int Cout, int k, int stride, int dtype, int bn,
+                            int box_n, int box_h, int box_w, int parts,
+                            void* stream) {
   const ConvShape f = conv_shape(N, H, W, Cin, Cout, k, stride);
-  ConvShape s;
-  s.N = N; s.H = f.Ho; s.W = f.Wo; s.Cin = Cout;
-  s.Ho = H; s.Wo = W; s.Cout = Cin; s.k = k;
-  s.stride = 1;
-  s.pad = k - 1 - f.pad;
-  s.istride = stride;
-  s.M = N * H * W;
-  s.K = k * k * Cout;
-  if (s.M == 0 || Cin == 0) return (int)cudaSuccess;
-  if (Cin % 8 != 0 || Cout % 8 != 0 || (stride != 1 && stride != 2)) {
+  if ((long long)N * H * W == 0 || Cin == 0) return (int)cudaSuccess;
+  if (Cin % 8 != 0 || Cout % 8 != 0 || (stride != 1 && stride != 2) ||
+      (k != 1 && k != 3)) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) {
+    ConvShape s;
+    s.N = N; s.H = f.Ho; s.W = f.Wo; s.Cin = Cout;
+    s.Ho = H; s.Wo = W; s.Cout = Cin; s.k = k;
+    s.stride = 1;
+    s.pad = k - 1 - f.pad;
+    s.istride = stride;
+    s.M = N * H * W;
+    s.K = k * k * Cout;
     const dim3 grid((s.M + kTile - 1) / kTile, (Cin + kTile - 1) / kTile);
     conv_f32_kernel<<<grid, kThreadsF32, 0, st>>>(
-        (const float*)dy, (const float*)wt, nullptr, nullptr, (float*)dx, s,
+        (const float*)dy, (const float*)w, nullptr, nullptr, (float*)dx, s,
         0);
     return (int)cudaGetLastError();
   }
-  return (int)launch_bf16_any(s, true, dy, wt, nullptr, nullptr, dx, 0, sms,
-                              st);
+  if (!wgmma_n(bn) || parts < 1 || (parts > 1 && part == nullptr) ||
+      box_n < 1 || box_h < 1 || box_w < 1 ||
+      box_n * box_h * box_w > kTileRows) {
+    return (int)cudaErrorInvalidValue;
+  }
+  DgradParams P;
+  P.N = N; P.H = H; P.W = W; P.Cin = Cin; P.Ho = f.Ho; P.Wo = f.Wo;
+  P.Cout = Cout; P.k = k; P.stride = stride;
+  const int bk =
+      Cout % 64 == 0 ? 64 : Cout % 48 == 0 ? 48 : Cout % 32 == 0 ? 32 : 16;
+  P.cchunks = (Cout + bk - 1) / bk;
+  P.ntiles = (Cin + bn - 1) / bn;
+  P.parts = parts;
+  P.box_n = box_n;
+  P.box_h = box_h;
+  P.box_w = box_w;
+  // The parity classes, most taps first (stable), empty ones dropped.
+  P.nclass = 0;
+  for (int want = k * k; want >= 0; --want) {
+    for (int ph = 0; ph < stride; ++ph) {
+      for (int pw = 0; pw < stride; ++pw) {
+        DgradClass c;
+        c.ph = ph; c.pw = pw;
+        c.Hc = (H - ph + stride - 1) / stride;
+        c.Wc = (W - pw + stride - 1) / stride;
+        c.hblocks = (c.Hc + box_h - 1) / box_h;
+        c.wblocks = (c.Wc + box_w - 1) / box_w;
+        c.ntaps = 0;
+        for (int r = 0; r < k; ++r) {
+          for (int cc = 0; cc < k; ++cc) {
+            const int th = ph + f.pad - r, tw = pw + f.pad - cc;
+            if (((th % stride) + stride) % stride != 0 ||
+                ((tw % stride) + stride) % stride != 0) {
+              continue;
+            }
+            c.tap[c.ntaps++] = (r * k + cc) | ((th / stride + 1) << 8) |
+                               ((tw / stride + 1) << 12);
+          }
+        }
+        if (c.ntaps != want || c.Hc <= 0 || c.Wc <= 0) continue;
+        P.cls[P.nclass++] = c;
+      }
+    }
+  }
+  long long tiles = 0;
+  for (int i = 0; i < P.nclass; ++i) {
+    P.cls[i].begin = (int)tiles;
+    tiles += (long long)((N + box_n - 1) / box_n) * P.cls[i].hblocks *
+             P.cls[i].wblocks * P.ntiles * parts;
+  }
+  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  P.tiles = (int)tiles;
+  // The weight as (Cout, k^2, Cin): boxes of 64 ci x 1 tap x bk co; dy as
+  // (N, Ho, Wo, Cout): boxes of 64 co x box_w x box_h x box_n pixels.
+  CUtensorMap wmap, dymap;
+  const cuuint64_t dims[3] = {(cuuint64_t)Cin, (cuuint64_t)(k * k),
+                              (cuuint64_t)Cout};
+  const cuuint64_t strides[2] = {(cuuint64_t)Cin * sizeof(bf16),
+                                 (cuuint64_t)k * k * Cin * sizeof(bf16)};
+  const cuuint32_t box[3] = {64, 1, (cuuint32_t)bk};
+  cudaError_t err = encode_map(&wmap, 3, w, dims, strides, box);
+  if (err != cudaSuccess) return (int)err;
+  const cuuint64_t ddims[4] = {(cuuint64_t)Cout, (cuuint64_t)f.Wo,
+                               (cuuint64_t)f.Ho, (cuuint64_t)N};
+  const cuuint64_t dstrides[3] = {
+      (cuuint64_t)Cout * sizeof(bf16),
+      (cuuint64_t)f.Wo * Cout * sizeof(bf16),
+      (cuuint64_t)f.Ho * f.Wo * Cout * sizeof(bf16)};
+  const cuuint32_t dbox[4] = {64, (cuuint32_t)box_w, (cuuint32_t)box_h,
+                              (cuuint32_t)box_n};
+  err = encode_map(&dymap, 4, dy, ddims, dstrides, dbox);
+  if (err != cudaSuccess) return (int)err;
+  float* out = parts > 1 ? (float*)part : nullptr;
+#define K5_DGRAD(BN) launch_dgrad_bk<BN>(bk, dymap, wmap, P, dx, out, st)
+  switch (bn) {
+    case 48: err = K5_DGRAD(48); break;
+    case 64: err = K5_DGRAD(64); break;
+    case 96: err = K5_DGRAD(96); break;
+    case 128: err = K5_DGRAD(128); break;
+    case 192: err = K5_DGRAD(192); break;
+    default: err = K5_DGRAD(256); break;
+  }
+#undef K5_DGRAD
+  if (err != cudaSuccess || parts == 1) return (int)err;
+  const long long n = (long long)N * H * W * Cin;
+  wgrad_reduce_kernel<bf16><<<(int)((n + 255) / 256), 256, 0, st>>>(
+      (const float*)part, nullptr, (bf16*)dx, nullptr, parts, (int)n, 0);
+  return (int)cudaGetLastError();
 }
 
 // K5-wgrad: dw (Cout, k, k, Cin) OHWI = sum over (n, ho, wo) of dy (x)
@@ -994,39 +2036,76 @@ extern "C" int conv2d_dgrad(const void* dy, const void* wt, void* dx, int N,
 // x's dtype, for x (N, H, W, Cin) and dy (N, Ho, Wo, Cout) NHWC. With y
 // (like dy, the conv's saved output) the ReLU mask y > 0 is applied as dy
 // is read and the masked dy is written to dym. part: parts x Cout x K f32
-// scratch, pbias parts x Cout (with db); rows_per_part a multiple of 32
-// with parts x rows_per_part >= N Ho Wo. vec (bf16): Cin % 8 == 0 and x
-// 16-byte aligned. Cout % 8 == 0, dy / y / dym 16-byte aligned. Returns
-// cudaGetLastError().
+// scratch, pbias parts x Cout (with db); parts x rows_per_part >= N Ho Wo.
+// vec (bf16): Cin % 8 == 0 and x 16-byte aligned: the wgmma kernel with
+// N tile bn (a wgmma width) and rows_per_part a multiple of 64; else
+// (the stem's Cin = 3, and f32) rows_per_part a multiple of 32. Cout % 8
+// == 0, dy / y / dym 16-byte aligned. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for what it does not take or a tensor map that
+// cuTensorMapEncodeTiled refuses.
 extern "C" int conv2d_wgrad(const void* x, const void* dy, const void* y,
                             void* dym, void* part, void* pbias, void* dw,
                             void* db, int N, int H, int W, int Cin,
                             int Cout, int k, int stride, int parts,
-                            int rows_per_part, int vec, int dtype,
+                            int rows_per_part, int vec, int dtype, int bn,
                             void* stream) {
   const ConvShape s = conv_shape(N, H, W, Cin, Cout, k, stride);
-  if (Cout % 8 != 0 || (vec && Cin % 8 != 0) || rows_per_part % kWR != 0 ||
+  const bool hopper = dtype == 1 && vec;
+  if (Cout % 8 != 0 || (vec && Cin % 8 != 0) ||
+      rows_per_part % (hopper ? kWRows : kWR) != 0 ||
       (long long)parts * rows_per_part < s.M || (db == nullptr) !=
-      (pbias == nullptr) || (y == nullptr) != (dym == nullptr)) {
+      (pbias == nullptr) || (y == nullptr) != (dym == nullptr) ||
+      (hopper && !wgmma_n(bn))) {
     return (int)cudaErrorInvalidValue;
   }
   if (Cout == 0 || s.K == 0) return (int)cudaSuccess;
   const cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((Cout + kWT - 1) / kWT, (s.K + kWT - 1) / kWT, parts);
-  if (dtype == 0) {
-    wgrad_f32_kernel<<<grid, kThreadsF32, 0, st>>>(
-        (const float*)x, (const float*)dy, (const float*)y, (float*)dym,
-        (float*)part, (float*)pbias, s, rows_per_part);
-  } else if (vec) {
-    wgrad_bf16_kernel<true><<<grid, kThreadsMma, 0, st>>>(
-        (const bf16*)x, (const bf16*)dy, (const bf16*)y, (bf16*)dym,
-        (float*)part, (float*)pbias, s, rows_per_part);
+  cudaError_t err = cudaSuccess;
+  if (hopper) {
+    WgradParams P;
+    P.N = N; P.H = H; P.W = W; P.Cin = Cin; P.Ho = s.Ho; P.Wo = s.Wo;
+    P.Cout = Cout; P.k = k; P.stride = stride; P.pad = s.pad; P.M = s.M;
+    P.K = s.K;
+    P.rows_per_part = rows_per_part;
+    P.howo = fast_div((uint32_t)(s.Ho * s.Wo));
+    P.wo = fast_div((uint32_t)s.Wo);
+    P.cin = fast_div((uint32_t)Cin);
+    const bool xtma = k == 1 && stride == 1 && y == nullptr;
+    CUtensorMap dymap, xmap;
+    err = encode_rows(&dymap, dy, s.M, Cout, kWRows);
+    if (err == cudaSuccess) {
+      err = xtma ? encode_rows(&xmap, x, s.M, Cin, kWRows) : cudaSuccess;
+      if (!xtma) xmap = dymap;  // not read
+    }
+    if (err != cudaSuccess) return (int)err;
+    P.ktiles = (s.K + kTileRows - 1) / kTileRows;
+    P.ntiles = (Cout + bn - 1) / bn;
+    P.tiles = P.ktiles * P.ntiles * parts;
+#define K5_WGRAD(BN)                                                  \
+  launch_wgrad_any<BN>(dymap, xmap, P, xtma, x, dy, y, dym, (float*)part, \
+                       (float*)pbias, st)
+    switch (bn) {
+      case 48: err = K5_WGRAD(48); break;
+      case 64: err = K5_WGRAD(64); break;
+      case 96: err = K5_WGRAD(96); break;
+      case 128: err = K5_WGRAD(128); break;
+      case 192: err = K5_WGRAD(192); break;
+      default: err = K5_WGRAD(256); break;
+    }
+#undef K5_WGRAD
   } else {
-    wgrad_bf16_kernel<false><<<grid, kThreadsMma, 0, st>>>(
-        (const bf16*)x, (const bf16*)dy, (const bf16*)y, (bf16*)dym,
-        (float*)part, (float*)pbias, s, rows_per_part);
+    const dim3 grid((Cout + kWT - 1) / kWT, (s.K + kWT - 1) / kWT, parts);
+    if (dtype == 0) {
+      wgrad_f32_kernel<<<grid, kThreadsF32, 0, st>>>(
+          (const float*)x, (const float*)dy, (const float*)y, (float*)dym,
+          (float*)part, (float*)pbias, s, rows_per_part);
+    } else {
+      wgrad_bf16_scalar_kernel<<<grid, kThreadsMma, 0, st>>>(
+          (const bf16*)x, (const bf16*)dy, (const bf16*)y, (bf16*)dym,
+          (float*)part, (float*)pbias, s, rows_per_part);
+    }
+    err = cudaGetLastError();
   }
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int CK = Cout * s.K;
   const int n = CK + (db ? Cout : 0);
@@ -1060,4 +2139,19 @@ extern "C" int conv2d_relu_mask(const void* dy, const void* y, void* dym,
         (const bf16*)dy, (const bf16*)y, (bf16*)dym, n);
   }
   return (int)cudaGetLastError();
+}
+
+// The dynamic shared memory (bytes) of K5-dgrad's wgmma kernel for N tile
+// bn and K step bk (dgrad 1), or of K5-wgrad's for N tile bn (dgrad 0),
+// and the blocks an SM holds by it (1 or 2), as out[0], out[1].
+extern "C" int conv2d_wgmma_smem(int dgrad, int bn, int bk, int* out) {
+  if (dgrad) {
+    out[0] = dgrad_bytes(bn, bk, dgrad_stages(bn, bk));
+    out[1] = dgrad_pair(bn, bk) ? 2 : 1;
+  } else {
+    out[0] = 1024 + kRing * (kStageA + (bn + 63) / 64 * kWRows * 128) +
+             2 * kRing * 8;
+    out[1] = 1;
+  }
+  return 0;
 }

@@ -28,6 +28,7 @@ bfloat16 does.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -49,17 +50,34 @@ _BN_MAX_TILES = 256
 
 CONV_KERNEL = CudaKernel("conv.cu", {
     "conv2d_act_forward": "ppppp iiiiiii iiii p",
-    "conv2d_dgrad": "ppp iiiiiii ii p",
-    "conv2d_wgrad": "pppppppp iiiiiii ii ii p",
+    "conv2d_dgrad": "pppp iiiiiii ii iii i p",
+    "conv2d_wgrad": "pppppppp iiiiiii ii iii p",
     "conv2d_relu_mask": "ppp ii p",
 })
-# K5-wgrad's row partitions: 64 x 64 output tiles, and as many partitions
-# of the N Ho Wo rows (at least 256 rows each, a multiple of its 32-row
-# step) as bring a launch to about this many blocks. A constant, so that
-# the partition, and with it the gradient's bits, depends on the shape
-# alone and not on the card.
-_WGRAD_TILE, _WGRAD_STEP, _WGRAD_MIN_ROWS = 64, 32, 256
-_WGRAD_BLOCKS = 512
+# The wgmma widths (N tiles) that K5-dgrad and K5-wgrad are built for.
+_WGMMA_N = (256, 192, 128, 96, 64, 48)
+# K5-dgrad and K5-wgrad's wgmma kernels: 128-row M tiles (two warpgroups
+# of 64); K5-dgrad's K steps and K5-wgrad's row steps are 64 deep.
+_TILE_ROWS = 128
+# K5-wgrad's row partitions: for the wgmma kernel (128 K columns x an N
+# tile of up to 256 channels, 64-row steps, a persistent grid), as many
+# partitions of the N Ho Wo rows as keep the tiles at most this many (two
+# per SM of an H100), at least 256 rows each; for the stem's mma.sync
+# kernel (64 x 64 tiles, 32-row steps, a block per tile) as many as bring
+# a launch to about this many blocks. Constants, so that the partition,
+# and with it the gradient's bits, depends on the shape alone and not on
+# the card.
+_WGRAD_MIN_ROWS = 256
+_WGRAD_HOPPER_STEP, _WGRAD_HOPPER_TILES = 64, 264
+_WGRAD_TILE, _WGRAD_STEP, _WGRAD_BLOCKS = 64, 32, 512
+# K5-dgrad's K partitions: its persistent grid holds _DGRAD_SMS blocks
+# (an H100's SMs; twice as many where two blocks share an SM,
+# :func:`_dgrad_pair`), and the K walk (taps x
+# Cout in bk-deep steps) is cut into the fewest partitions, each of at
+# least _DGRAD_MIN_STEPS steps, whose rounds of tiles x (steps per
+# partition + the f32 partial's write and read in steps' worth of bytes)
+# come within _DGRAD_SLACK of the least. Constants, for the same reason.
+_DGRAD_SMS, _DGRAD_MIN_STEPS, _DGRAD_SLACK = 132, 4, 1.05
 
 
 def _wide(t: torch.Tensor) -> torch.Tensor:
@@ -370,15 +388,113 @@ def _conv2d_act_cuda(x, weight, bias, residual, relu, stride):
     return y
 
 
-def _wgrad_parts(rows: int, cout: int, kdim: int):
+def _wgmma_n(c: int) -> int:
+    """The N tile of K5-dgrad and K5-wgrad's wgmma kernels for ``c``
+    output channels: all of them where a wgmma width is ``c``, else the
+    widest that divides ``c`` (384 -> 192, 512 and 2048 -> 256), else 64
+    with a ragged edge."""
+    if c in _WGMMA_N:
+        return c
+    return next((n for n in _WGMMA_N if c % n == 0), 64)
+
+
+def _wgrad_parts(rows: int, cout: int, kdim: int, wgmma: bool = True):
     """(partitions, rows per partition) of K5-wgrad for a conv with
-    ``rows`` = N Ho Wo, ``cout`` output channels and ``kdim`` = k^2 Cin."""
-    tiles = -(-cout // _WGRAD_TILE) * -(-kdim // _WGRAD_TILE)
-    parts = max(1, min(-(-_WGRAD_BLOCKS // tiles),
-                       -(-rows // _WGRAD_MIN_ROWS)))
+    ``rows`` = N Ho Wo, ``cout`` output channels and ``kdim`` = k^2 Cin,
+    for the wgmma kernel (bf16, Cin % 8 == 0) or the mma.sync / f32
+    kernels (``wgmma`` False)."""
+    if wgmma:
+        tiles = -(-kdim // _TILE_ROWS) * -(-cout // _wgmma_n(cout))
+        step, parts = _WGRAD_HOPPER_STEP, _WGRAD_HOPPER_TILES // tiles
+    else:
+        tiles = -(-cout // _WGRAD_TILE) * -(-kdim // _WGRAD_TILE)
+        step, parts = _WGRAD_STEP, -(-_WGRAD_BLOCKS // tiles)
+    parts = max(1, min(parts, -(-rows // _WGRAD_MIN_ROWS)))
     per = -(-rows // parts)
-    per = -(-per // _WGRAD_STEP) * _WGRAD_STEP
+    per = -(-per // step) * step
     return -(-rows // per), per
+
+
+class DgradClass(NamedTuple):
+    """A parity class of K5-dgrad: the dx pixels (ph + stride i, pw +
+    stride j), i < hc, j < wc, and its taps (r, c, dh, dw): tap (r, c)
+    of the weight meets dy at (i + dh, j + dw)."""
+    ph: int
+    pw: int
+    hc: int
+    wc: int
+    taps: tuple
+
+
+class DgradPlan(NamedTuple):
+    """K5-dgrad's plan for one conv shape: N tile ``bn`` (over Cin), K
+    step ``bk`` (channels of Cout within one tap), the M tile's box of dy
+    ``box`` = (images, rows, columns) of a class (at most 128 pixels), K
+    partitions ``parts`` and the parity classes, most taps first."""
+    bn: int
+    bk: int
+    box: tuple
+    parts: int
+    classes: tuple
+
+    def steps(self, cls: DgradClass, cout: int) -> int:
+        return len(cls.taps) * -(-cout // self.bk)
+
+    def partition(self, cls: DgradClass, cout: int, p: int) -> range:
+        """The K steps of ``cls`` in partition ``p``: step s is tap
+        ``s // ceil(cout / bk)`` at channels ``(s % ...) * bk`` on."""
+        n = self.steps(cls, cout)
+        return range(p * n // self.parts, (p + 1) * n // self.parts)
+
+
+def _dgrad_pair(bn: int, bk: int) -> bool:
+    """Whether two K5-dgrad blocks of 128 rows share an SM (``conv.cu``
+    dgrad_pair): N tile <= 64 and three ring stages, the staged output
+    tile and the alignment within half an SM's shared memory."""
+    nbytes = (1024 + 3 * (_TILE_ROWS * 128 + -(-bn // 64) * bk * 128)
+              + _TILE_ROWS * (bn + 8) * 2 + 48)
+    return bn <= 64 and nbytes <= 115712
+
+
+def _dgrad_plan(n: int, h: int, w: int, cin: int, cout: int, k: int,
+                stride: int) -> DgradPlan:
+    """K5-dgrad's plan, a function of the shape alone (as the C entry
+    point computes the same classes): for stride 2 the four parity
+    classes of dx (a class that no tap reaches, the odd pixels of a 1x1,
+    is written as zeros), for stride 1 one class with all k^2 taps."""
+    pad = k // 2
+    bk = next((b for b in (64, 48, 32) if cout % b == 0), 16)
+    bn = _wgmma_n(cin)
+    found = []
+    for ph in range(stride):
+        for pw in range(stride):
+            taps = tuple(
+                (r, c, (ph + pad - r) // stride, (pw + pad - c) // stride)
+                for r in range(k) for c in range(k)
+                if (ph + pad - r) % stride == 0
+                and (pw + pad - c) % stride == 0)
+            hc, wc = -(-(h - ph) // stride), -(-(w - pw) // stride)
+            if n * hc * wc > 0:
+                found.append(DgradClass(ph, pw, hc, wc, taps))
+    classes = tuple(sorted(found, key=lambda c: -len(c.taps)))
+    # The M tile: whole class rows (of several images where an image's
+    # class holds at most 64 pixels), or a run of 128 columns of one row.
+    hc, wc = -(-h // stride), -(-w // stride)
+    bw = min(wc, _TILE_ROWS)
+    bh = 1 if bw < wc else min(hc, _TILE_ROWS // bw)
+    bni = max(1, _TILE_ROWS // (hc * wc)) if bh == hc and bw == wc else 1
+    tiles = sum(-(-n // bni) * -(-c.hc // bh) * -(-c.wc // bw)
+                for c in classes) * -(-cin // bn)
+    steps = max(len(c.taps) for c in classes) * -(-cout // bk)
+    slots = _DGRAD_SMS * (2 if _dgrad_pair(bn, bk) else 1)
+    # A tile's f32 partial (written, then read by the reduce) in steps of
+    # its A and B tiles' bytes.
+    extra = _TILE_ROWS * bn * 8 / ((_TILE_ROWS + bn) * bk * 2)
+    cost = {p: -(-tiles * p // slots) * (-(-steps // p) + (p > 1) * extra)
+            for p in range(1, max(1, steps // _DGRAD_MIN_STEPS) + 1)}
+    least = min(cost.values())
+    parts = min(p for p, c in cost.items() if c <= _DGRAD_SLACK * least)
+    return DgradPlan(bn, bk, (bni, bh, bw), parts, classes)
 
 
 def _aligned_cl(t: torch.Tensor) -> torch.Tensor:
@@ -400,8 +516,15 @@ def _conv2d_wgrad_cuda(x, dy, y, weight_shape, stride, bias):
     rows, kdim = N * Ho * Wo, k * k * C
     if max(x.numel(), dy.numel(), O * kdim) >= 2 ** 31:
         raise ValueError("conv2d_wgrad: 2^31 elements or more")
-    parts, per = _wgrad_parts(rows, O, kdim)
     dev, dt = x.device, x.dtype
+    # Cin % 8 == 0: 16-byte rows of x (aligned here, a copy only for a view
+    # at an odd offset); bf16 then runs the wgmma kernel, the stem's Cin =
+    # 3 the scalar one.
+    vec = int(C % 8 == 0)
+    if vec:
+        x = _aligned_cl(x)
+    wgmma = bool(vec) and dt == torch.bfloat16
+    parts, per = _wgrad_parts(rows, O, kdim, wgmma)
     part = torch.empty((parts, O, kdim), dtype=torch.float32, device=dev)
     pbias = (torch.empty((parts, O), dtype=torch.float32, device=dev)
              if bias else None)
@@ -409,16 +532,16 @@ def _conv2d_wgrad_cuda(x, dy, y, weight_shape, stride, bias):
                      memory_format=torch.channels_last)
     db = torch.empty(O, dtype=dt, device=dev) if bias else None
     dym = None if y is None else torch.empty_like(dy)
-    vec = int(C % 8 == 0 and x.data_ptr() % 16 == 0)
     CONV_KERNEL.launch("conv2d_wgrad", [
         x, dy, y, dym, part, pbias, dw, db, N, H, W, C, O, k, stride,
-        parts, per, vec, KERNEL_DTYPES[dt]])
+        parts, per, vec, KERNEL_DTYPES[dt], _wgmma_n(O)])
     return dw, db, dym
 
 
 def _conv2d_dgrad_cuda(dy, weight, input_shape, stride):
-    """Kernel K5-dgrad: the data gradient, from the weight flipped in (kh,
-    kw) and transposed (a small copy per call)."""
+    """Kernel K5-dgrad: the data gradient. bf16 reads the weight in place
+    (:func:`_dgrad_plan`); f32 from the weight flipped in (kh, kw) and
+    transposed (a small copy per call)."""
     N, C, H, W = input_shape
     O, _, k, _ = weight.shape
     if C % 8:
@@ -426,13 +549,22 @@ def _conv2d_dgrad_cuda(dy, weight, input_shape, stride):
                          "of 8 (the images take no gradient)")
     if N * C * H * W >= 2 ** 31:
         raise ValueError("conv2d_dgrad: 2^31 elements or more")
-    wt = weight.flip((2, 3)).transpose(0, 1).contiguous(
-        memory_format=torch.channels_last)
     dx = torch.empty(tuple(input_shape), dtype=dy.dtype, device=dy.device,
                      memory_format=torch.channels_last)
+    part, bn, box, parts = None, 0, (0, 0, 0), 0
+    if dy.dtype == torch.float32:
+        w = weight.flip((2, 3)).transpose(0, 1).contiguous(
+            memory_format=torch.channels_last)
+    else:
+        w = _aligned_cl(weight)
+        plan = _dgrad_plan(N, H, W, C, O, k, stride)
+        bn, box, parts = plan.bn, plan.box, plan.parts
+        if parts > 1:
+            part = torch.empty((parts, N * H * W * C), dtype=torch.float32,
+                               device=dy.device)
     CONV_KERNEL.launch("conv2d_dgrad", [
-        dy, wt, dx, N, H, W, C, O, k, stride, KERNEL_DTYPES[dy.dtype],
-        _sm_count(dy.device.index)])
+        dy, w, dx, part, N, H, W, C, O, k, stride, KERNEL_DTYPES[dy.dtype],
+        bn, *box, parts])
     return dx
 
 

@@ -79,8 +79,11 @@ class CudaKernel:
         """The names of the source's ``__global__`` functions: the names
         under which a profiler's trace shows its kernels."""
         text = (CSRC_DIR / self.source).read_text()
+        # __launch_bounds__'s arguments may hold one level of parentheses
+        # (a constexpr call).
         return tuple(re.findall(
-            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+            r"__global__\s+void\s+"
+            r"(?:__launch_bounds__\((?:[^()]|\([^()]*\))*\)\s*)?"
             r"(\w+)\s*\(", text))
 
     def _library_path(self) -> Path:
