@@ -18,14 +18,17 @@ Phases, each of which raises on failure (exit code 1):
    backward, K6 mesh-mesh
    intersection, K7 repulsion forward and backward, K8a P2P point error,
    K8b aligned point error, K9 nearest-neighbour distances; prints each
-   kernel's registers and stack.
+   kernel's registers and stack (the wgmma kernels' and K4's backward
+   kernels' each, with the wgmma kernels' dynamic shared memory).
 2. Holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes (batch 32, SMPL-X 10475 vertices / 20908 faces,
    K=256 hull directions, 480x360 uint8 images -> 256x256 crops, a
    P2P regressor of 20000 points x 3 vertices, alignments over 10475
    vertices; for training batch 48: the chain of 55 joints, skinning's
    backward, and K4 on the stem's first BN and a stage-4 BN in bf16 and
-   f32; K1's backward and K1-exact forward and backward on all faces at
+   f32, its backward also forced into each of its two regimes (one
+   cluster launch; partials, finalize and dx); K1's backward and
+   K1-exact forward and backward on all faces at
    batch 48 and batch 1; the backwards first against autograd through
    the plain versions in f64; K6, K7 and K9 at phase 9's shapes: K6 on a
    full-width body pair with 256 slots, faces exact and barycentrics
@@ -52,7 +55,11 @@ Phases, each of which raises on failure (exit code 1):
    differing elements counted), batch 2 in f32 within 1e-5 of the
    largest |y|; each shape timed beside cuDNN's ``F.conv2d`` (its
    library time) and its bound (FLOPs at 989 TFLOP/s bf16, bytes at
-   3.35 TB/s). K5-fuse bit-equal at every target of a stage-4 module
+   3.35 TB/s), with its plan (the wgmma kernel's N tile, K step, box, K
+   partitions and tiles, or the stem's kernel); a profiled served
+   forward runs one ``conv_bf16_kernel`` (the stem's), 330
+   ``conv_wgmma_kernel`` and a reduce per K-partitioned conv, and no
+   cuDNN kernel. K5-fuse bit-equal at every target of a stage-4 module
    (bf16 batch 32, f32 batch 2), timed. The whole bf16 backbone at batch
    32, the K5 route against the plain route (cuDNN + eager ops): both
    times, the features' cosine (>= 0.999) and relative L2 (<= 0.05).
@@ -61,10 +68,20 @@ Phases, each of which raises on failure (exit code 1):
    32 shapes whose input needs a gradient): within one bf16 step plus 2 K
    2^-24 sum|terms| of the plain versions (cuDNN's gradients), two calls
    bit-equal, and at batch 2 in f32 within 1e-5 of the largest |value|
-   (dbias 1e-5 sum|dy|); each shape timed beside cuDNN's
+   (dbias 1e-5 sum|dy|), and K5-wgrad in f32 at batch 48 against the
+   exact sum (half an f32 step + 2 sqrt(K) 2^-24 sum|terms|; its order
+   gap to the plain f32 sum printed); each shape timed beside cuDNN's
    ``aten.convolution_backward`` and its bound; the step's 330 data and
-   331 weight gradients replayed in one window each through the kernel,
-   the plain version and cuDNN. K5-fuse's backward at the step's 26
+   331 weight gradients replayed each through the kernel, the plain
+   version and cuDNN, and its 331 forward convs through K5-conv and
+   cuDNN. K4's backward at the step's 326 recorded BNs: each within its
+   limits of the plain version and two calls bit-equal, replayed through
+   K4, the plain version and ``F.batch_norm``'s autograd backward (the
+   entry's times). Every replay is timed as device time (the durations
+   of its kernels in a ``torch.profiler`` trace), its CUDA-event window
+   printed beside: a replay of hundreds of calls outruns CUDA's launch
+   queue, and the window then times the host. K5-fuse's backward
+   at the step's 26
    targets: within one bf16 step (f32 bit-equal), replayed and timed. The
    whole backbone's train-mode forward and backward at batch 48, the K5
    route against the plain route: in f32 (TF32 off) per module group a
@@ -159,14 +176,15 @@ training phase for the kernels it runs (K5 among them), the batch-32 fit
 of phase 8 for K1's backward and K1-exact, phase 9 for K6, K7 and K9,
 the scorer (phase 6) for K1-AoS's points and their backward, and the
 evaluation phase for the others. K5-conv's and K5-fuse's times are a
-served forward's at batch 32, the backward kernels' a train step's at
-batch 48. The last line is
+served forward's at batch 32, the backward kernels' and K4's backward's a
+train step's at batch 48. The last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without
 the repository beside this file, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import collections
 import copy
 import json
 import math
@@ -267,43 +285,75 @@ def ptxas_report(log: str, marker: str) -> list:
 
 def wgmma_smem() -> str:
     """conv.cu's own account (``conv2d_wgmma_smem``) of the dynamic shared
-    memory of K5-dgrad's wgmma kernel by (N tile, K step) and K5-wgrad's
-    by N tile, with the blocks an SM holds, for the backbone's shapes.
-    Fails where K5-dgrad's plan (``_dgrad_pair``, which sizes its K
-    partitions by the blocks an SM holds) disagrees with the kernel."""
+    memory of K5-conv's and K5-dgrad's wgmma kernels by (N tile, K step)
+    and K5-wgrad's by N tile, with the blocks an SM holds, for the
+    backbone's shapes (K5-conv at batch 32 and 48). Fails where a plan
+    (``_wgmma_pair``, by which K5-conv and K5-dgrad size their K
+    partitions) disagrees with the kernel on the blocks an SM holds."""
     import ctypes
 
     from shapy_tpu_torch.models.backbones.layers import (
         CONV_KERNEL,
-        _dgrad_pair,
+        _conv_plan,
         _dgrad_plan,
         _wgmma_n,
+        _wgmma_pair,
     )
 
     smem = CONV_KERNEL.build().conv2d_wgmma_smem  # not a launch
     smem.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     out = (ctypes.c_int * 2)()
-    dgrad, wgrad = set(), set()
+    conv, dgrad, wgrad = set(), set(), set()
     for cin, cout, k, stride, side in BACKBONE_SHAPES:
         if cin % 8 == 0:
+            for n in (B, TRAIN_B):
+                plan = _conv_plan(n, side, side, cin, cout, k, stride)
+                conv.add((plan.bn, plan.bk))
             plan = _dgrad_plan(TRAIN_B, side, side, cin, cout, k, stride)
             dgrad.add((plan.bn, plan.bk))
             wgrad.add(_wgmma_n(cout))
     parts = []
-    for kind, keys in (("K5-dgrad (N, K step)", sorted(dgrad)),
-                       ("K5-wgrad N", sorted(wgrad))):
+    for kind, code, keys in (("K5-conv (N, K step)", 2, sorted(conv)),
+                             ("K5-dgrad (N, K step)", 1, sorted(dgrad)),
+                             ("K5-wgrad N", 0, sorted(wgrad))):
         shown = []
         for key in keys:
             bn, bk = key if isinstance(key, tuple) else (key, 0)
-            smem(int(kind.startswith("K5-dgrad")), bn, bk,
-                 ctypes.addressof(out))
+            smem(code, bn, bk, ctypes.addressof(out))
             if bk:
-                check(out[1] == 1 + _dgrad_pair(bn, bk),
-                      f"K5-dgrad {key}: {out[1]} blocks an SM in conv.cu, "
+                check(out[1] == 1 + _wgmma_pair(bn, bk, code == 2),
+                      f"{kind} {key}: {out[1]} blocks an SM in conv.cu, "
                       "not as the plan has it")
             shown.append(f"{key}: {out[0]} B x{out[1]}")
         parts.append(f"{kind}: " + ", ".join(shown))
     return "; ".join(parts)
+
+
+def conv_plan_text(n: int, cin: int, cout: int, k: int, stride: int,
+                   side: int) -> tuple:
+    """K5-conv's plan for one shape as (dict, text): the wgmma kernel's N
+    tile, K step, pixel box, K partitions and tiles (its grid is the
+    smaller of the tiles and the blocks the card holds), or the stem's
+    mma.sync kernel."""
+    from shapy_tpu_torch.models.backbones.layers import (
+        _conv_plan,
+        _wgmma_pair,
+    )
+
+    if cin % 8:
+        return {"kernel": "conv_bf16_kernel"}, "stem mma.sync kernel"
+    plan = _conv_plan(n, side, side, cin, cout, k, stride)
+    out = (side + 2 * (k // 2) - k) // stride + 1
+    bni, bh, bw = plan.box
+    tiles = (-(-n // bni) * -(-out // bh) * -(-out // bw)
+             * -(-cout // plan.bn) * plan.parts)
+    slots = 132 * (1 + _wgmma_pair(plan.bn, plan.bk, True))
+    row = {"kernel": "conv_wgmma_kernel", "bn": plan.bn, "bk": plan.bk,
+           "box": list(plan.box), "parts": plan.parts, "tiles": tiles,
+           "grid_on_132_sms": min(tiles, slots)}
+    return row, (f"wgmma N {plan.bn}, K step {plan.bk}, box {plan.box}, "
+                 f"{plan.parts} K partition(s), {tiles} tiles, grid "
+                 f"{min(tiles, slots)}")
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -333,17 +383,81 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_launches(fn) -> int:
-    """The device kernels that one call of ``fn`` runs, counted in a
-    ``torch.profiler`` trace."""
+_PAD_NAMES = set()
+
+
+def _device_trace(fn, passes: int):
+    """(ms, kernels by name) of the CUDA kernels and copies that
+    ``passes`` calls of ``fn`` run, from one ``torch.profiler`` trace. The
+    trace starts and ends with 8 short spin kernels, left out of both: a
+    trace can miss its first or last few events."""
     import torch
 
+    def pad():
+        for _ in range(8):
+            torch.cuda._sleep(1000)
+
+    if not _PAD_NAMES:  # the spin kernel's name, as the profiler gives it
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            pad()
+            pad()
+            torch.cuda.synchronize()
+        _PAD_NAMES.update(e.key for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA)
+        check(bool(_PAD_NAMES), "a trace of spin kernels held no kernel")
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
+        pad()
+        for _ in range(passes):
+            fn()
+        pad()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.key not in _PAD_NAMES]
+    return (sum(e.device_time_total for e in events) / 1e3,
+            collections.Counter({e.key: e.count for e in events}))
+
+
+def device_time(fn, passes: int = 3, tries: int = 3) -> tuple:
+    """(ms, kernels) of one call of ``fn`` on the device: the durations of
+    the CUDA kernels (and copies) it runs, summed from a ``torch.profiler``
+    trace of ``passes`` calls after a warm-up call, and how many it runs.
+    Unlike :func:`time_ms`'s window it leaves out the host: a replay of
+    hundreds of small calls queues more launches than CUDA's launch queue
+    holds, and the window times the Python wrappers.
+
+    A trace can drop events, so each is checked against a second trace of
+    one call: the ``passes`` calls must hold each kernel name ``passes``
+    times as often, and one call must run at least ``fn.calls`` kernels
+    (:func:`replay` sets it: each call launches one or more). A pair that
+    disagrees is printed and taken again, at most ``tries`` times; then
+    the check fails."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    least = getattr(fn, "calls", 1)
+    seen = []
+    for _ in range(tries):
+        _, one = _device_trace(fn, 1)
+        total, many = _device_trace(fn, passes)
+        n = sum(one.values())
+        want = collections.Counter({k: v * passes for k, v in one.items()})
+        if n >= least and many == want:
+            return total / passes, n
+        seen.append((n, sum(many.values())))
+        print(f"device trace pair disagrees (one call {n} kernels, at "
+              f"least {least}; {passes} calls {seen[-1][1]}): "
+              f"{dict((many - want) + (want - many))}", flush=True)
+    check(False, f"device traces dropped kernels {tries} times: (one call, "
+                 f"{passes} calls) held {seen}, at least {least} a call")
+
+
+def device_ms(fn, passes: int = 3) -> float:
+    """The device time of one call of ``fn`` (:func:`device_time`)."""
+    return device_time(fn, passes)[0]
 
 
 def max_err(a, b) -> float:
@@ -468,6 +582,8 @@ K5_PER_FORWARD = {"K5_conv": 331, "K5_fuse": 26}
 K5_PER_TRAIN_STEP = dict(K5_PER_FORWARD, K5_dgrad=330, K5_wgrad=331,
                          K5_fuse_backward=26)
 K5_SHAPES = 33
+# BN layers of the backbone: a train step's K4 forward and backward calls.
+K4_PER_TRAIN_STEP = 326
 # The backbone's conv shapes (Cin, Cout, k, stride, input side) at a 256^2
 # crop: the 33 of a train step.
 BACKBONE_SHAPES = (
@@ -1097,6 +1213,9 @@ def check_train_kernels(model, dev):
     )
     from shapy_tpu_torch.core.rotations import aa_to_rotmat
     from shapy_tpu_torch.models.backbones.layers import (
+        _bn_backward_cuda,
+        _bn_plan,
+        _bn_plan_regime,
         batch_norm_train,
         batch_norm_train_backward_plain,
         batch_norm_train_plain,
@@ -1255,12 +1374,38 @@ def check_train_kernels(model, dev):
                 3 * n * es + 6 * C * 4, 10 * n,
                 lambda: torch.autograd.grad(y_l, (xl, gl, bl), dy,
                                             retain_graph=True))
+            # The backward in each regime (the plan picks one by shape):
+            # one cluster launch, or partials + finalize + dx.
+            R = n // C
+            want = (dx_p, dg_p, db_p)
+            regimes = {}
+            for fused in (True, False):
+                plan = _bn_plan_regime(R, C, fused)
+                got = _bn_backward_cuda(dy, x, g, mean_p, inv_p, plan)
+                again = _bn_backward_cuda(dy, x, g, mean_p, inv_p, plan)
+                over = max(_k4_limits(got, want).values())
+                equal = all(torch.equal(u, w) for u, w in zip(got, again))
+                regime = "cluster" if fused else "split"
+                check(over <= 1.0 and equal,
+                      f"{name} {regime} backward at {over:.3f} of its "
+                      f"limit, two calls equal {equal}")
+                regimes[regime] = {
+                    "ms": time_ms(lambda: _bn_backward_cuda(
+                        dy, x, g, mean_p, inv_p, plan)),
+                    "over_limit": over, "tiles": plan.tiles,
+                    "planned": plan.fused == _bn_plan(R, C).fused}
+            print(f"{name} backward per regime (planned: "
+                  f"{'cluster' if _bn_plan(R, C).fused else 'split'}): "
+                  + ", ".join(f"{k} {v['ms']:.4f} ms ({v['tiles']} tiles, "
+                              f"{v['over_limit']:.3f} of the limit)"
+                              for k, v in regimes.items()))
             cases["K4_bn_forward"].append({**common, **fwd,
                                            "rel_err": errs["y"]})
             cases["K4_bn_backward"].append({**common, **bwd,
                                             "rel_err": max(errs["dx"],
                                                            errs["dgamma"],
-                                                           errs["dbeta"])})
+                                                           errs["dbeta"]),
+                                            "regimes": regimes})
     # The kernels line's numbers: the main path's dtype (bf16) on the
     # largest layer (the stem); every case beside them.
     for name, rows in cases.items():
@@ -1709,10 +1854,12 @@ def backbone_calls(backbone, requests):
 
 def replay(fn, calls):
     """A function that makes every call of ``calls`` through ``fn``, in
-    order (outputs dropped), for :func:`time_ms` to time as one window."""
+    order (outputs dropped), for :func:`time_ms` or :func:`device_time` to
+    time; its ``calls`` is their number."""
     def run():
         for args in calls:
             fn(*args)
+    run.calls = len(calls)
     return run
 
 
@@ -1734,15 +1881,17 @@ def check_conv_kernels(convs):
 
     The entry's times are one forward's: ``convs``, the 331 recorded calls
     of a served forward at batch 32 (:func:`backbone_calls`), each with
-    its own input, weight and epilogue, replayed in one CUDA-event window
-    through the kernel, the plain version and ``F.conv2d(x, w, bias)``
-    (the library call: cuDNN, without the residual and ReLU); the bound is
-    the larger of those calls' summed bytes and summed FLOPs over the
-    peak rates."""
+    its own input, weight and epilogue, replayed through the kernel, the
+    plain version and ``F.conv2d(x, w, bias)`` (the library call: cuDNN,
+    without the residual and ReLU), as device time (:func:`device_ms`;
+    the CUDA-event window, which also times the host's launches, is
+    printed beside); the bound is the larger of those calls' summed bytes
+    and summed FLOPs over the peak rates."""
     import torch
     import torch.nn.functional as F
 
     from shapy_tpu_torch.models.backbones.layers import (
+        _conv_plan,
         conv2d_act,
         conv2d_act_bf16_tolerance,
         conv2d_act_plain,
@@ -1825,8 +1974,9 @@ def check_conv_kernels(convs):
             2 if r is not None else 1) + (0 if b is None else b.numel()))
         ops_ms = flops / PEAK_BF16_FLOP_S * 1e3
         bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+        plan, plan_text = conv_plan_text(B, cin, cout, k, stride, size)
         case = {"cin": cin, "cout": cout, "k": k, "stride": stride,
-                "size": size, "convs_per_forward": c["count"],
+                "size": size, "convs_per_forward": c["count"], "plan": plan,
                 "bias": b is not None, "residual": r is not None,
                 "relu": relu, "ms": ms, "plain_ms": plain_ms,
                 "library_ms": library_ms,
@@ -1848,7 +1998,8 @@ def check_conv_kernels(convs):
               f"(tol 1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f}, cuDNN "
               f"{library_ms:.4f}, bound {max(ops_ms, bytes_ms):.4f} "
               f"({case['bound_by']}), kernel at "
-              f"{max(ops_ms, bytes_ms) / ms:.1%} of its bound")
+              f"{max(ops_ms, bytes_ms) / ms:.1%} of its bound; plan: "
+              f"{plan_text}")
         del terms, exact_sum, exact
     check(not failed, f"K5-conv outside its tolerance at {failed}")
 
@@ -1856,9 +2007,12 @@ def check_conv_kernels(convs):
         return F.conv2d(x, w, b, stride, w.shape[-1] // 2)
 
     with torch.inference_mode():
-        ms = time_ms(replay(conv2d_act, convs))
-        plain_ms = time_ms(replay(conv2d_act_plain, convs))
-        library_ms = time_ms(replay(library, convs))
+        window = {"kernel": time_ms(replay(conv2d_act, convs)),
+                  "plain": time_ms(replay(conv2d_act_plain, convs)),
+                  "library": time_ms(replay(library, convs))}
+        ms, on_card = device_time(replay(conv2d_act, convs))
+        plain_ms = device_ms(replay(conv2d_act_plain, convs))
+        library_ms = device_ms(replay(library, convs))
     flops = nbytes = 0.0
     for x, w, b, r, relu, stride in convs:
         k = w.shape[-1]
@@ -1870,24 +2024,131 @@ def check_conv_kernels(convs):
     ops_ms = flops / PEAK_BF16_FLOP_S * 1e3
     bytes_ms = nbytes / PEAK_BYTES_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
+    # a kernel a conv and a reduce for each conv with K partitions
+    want = len(convs) + sum(
+        _conv_plan(x.shape[0], x.shape[2], x.shape[3], x.shape[1],
+                   w.shape[0], w.shape[-1], stride).parts > 1
+        for x, w, *_, stride in convs if x.shape[1] % 8 == 0)
+    check(on_card == want, f"the K5-conv replay ran {on_card} device "
+                           f"kernels, its plans {want}")
     print(f"K5-conv, one served forward's {len(convs)} convs at batch {B} "
-          f"replayed in one window: kernel {ms:.3f} ms, plain "
+          f"replayed ({on_card} device kernels), device time: kernel "
+          f"{ms:.3f} ms, plain "
           f"{plain_ms:.3f}, cuDNN (conv + bias) {library_ms:.3f}, bound "
           f"{bound_ms:.3f} ms ({flops / 1e12:.3f} TFLOP, "
           f"{nbytes / 1e9:.3f} GB; by "
           f"{'operations' if ops_ms >= bytes_ms else 'bytes'}), kernel at "
-          f"{bound_ms / ms:.1%} of its bound; per-shape checks: "
-          f"{total_diff} of {total_elems} bf16 elements differ from plain")
+          f"{bound_ms / ms:.1%} of its bound; in one CUDA-event window, "
+          f"host launches included: kernel {window['kernel']:.3f}, plain "
+          f"{window['plain']:.3f}, cuDNN {window['library']:.3f}; per-shape "
+          f"checks: {total_diff} of {total_elems} bf16 elements differ "
+          "from plain")
     return {"K5_conv": {
         "max_abs_err": worst, "f32_max_rel_err": worst_f32,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": bound_ms,
+        "window_ms": window, "bound_ms": bound_ms, "device_kernels": on_card,
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_call": "F.conv2d(x, w, bias) (cuDNN), bf16 channels_last",
         "timed_as": f"one served forward's {len(convs)} convs at batch {B}, "
-                    "each with its own input, weight and epilogue, replayed "
-                    "in one CUDA-event window",
+                    "each with its own input, weight and epilogue, replayed; "
+                    "the device time of its kernels (torch.profiler)",
         "cases": cases}}
+
+
+def check_conv_routes(backbone, requests, convs):
+    """Phase 2, the served forward's device kernels (``torch.profiler``,
+    one bf16 backbone forward at batch 32): exactly one
+    ``conv_bf16_kernel`` (the stem's Cin = 3 conv), a ``conv_wgmma_kernel``
+    for each of the other 330 convs and a ``conv_reduce_kernel`` for each
+    conv whose plan has K partitions (from ``convs``, the recorded calls),
+    and no cuDNN convolution kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    x = served_input(requests)
+    with torch.inference_mode():
+        backbone(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            backbone(x)
+            torch.cuda.synchronize()
+    counts = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            counts[e.key] = counts.get(e.key, 0) + e.count
+
+    def named(part):
+        return sum(n for k, n in counts.items() if part in k)
+
+    parted = 0
+    for x_, w, *_rest in convs:
+        if x_.shape[1] % 8 == 0:
+            stride = _rest[-1]
+            plan, _ = conv_plan_text(x_.shape[0], x_.shape[1], w.shape[0],
+                                     w.shape[-1], stride, x_.shape[2])
+            parted += plan["parts"] > 1
+    library = sorted(k for k in counts if any(
+        s in k.lower() for s in ("cudnn", "xmma", "implicit", "convolve",
+                                 "fprop", "winograd")))
+    got = {"conv_bf16_kernel": named("conv_bf16_kernel"),
+           "conv_wgmma_kernel": named("conv_wgmma_kernel"),
+           "conv_reduce_kernel": named("conv_reduce_kernel")}
+    print(f"served forward's device kernels (profiled, batch {B}): {got}; "
+          f"expected 1 stem conv_bf16_kernel, "
+          f"{K5_PER_FORWARD['K5_conv'] - 1} conv_wgmma_kernel, {parted} "
+          f"conv_reduce_kernel (K-partitioned convs); cuDNN kernels "
+          f"{library}")
+    check(got == {"conv_bf16_kernel": 1,
+                  "conv_wgmma_kernel": K5_PER_FORWARD["K5_conv"] - 1,
+                  "conv_reduce_kernel": parted},
+          f"the served forward's conv kernels {got}")
+    check(not library, f"cuDNN convolution kernels ran: {library}")
+    return dict(got, library_kernels=library)
+
+
+def check_train_forward_replay(convs):
+    """Phase 2, a train step's 331 forward convs at batch 48 (the inputs,
+    weights and strides recorded by :func:`train_step_calls`; no
+    epilogue: in training the BN follows), replayed through K5-conv and
+    through ``F.conv2d`` (cuDNN), as device time (and in one CUDA-event
+    window), beside their summed bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from shapy_tpu_torch.models.backbones.layers import conv2d_act
+
+    calls = [(x, w, s) for _dy, x, w, s, _nx, _b in convs]
+    check(len(calls) == K5_PER_TRAIN_STEP["K5_conv"],
+          f"{len(calls)} train forward convs")
+    with torch.inference_mode():
+        for x, w, s in calls[:: max(1, len(calls) // 8)]:
+            got = conv2d_act(x, w, None, None, False, s)
+            check(bool(torch.isfinite(got).all()), "train forward finite")
+        kernel = replay(lambda x, w, s: conv2d_act(x, w, None, None, False,
+                                                   s), calls)
+        library = replay(lambda x, w, s: F.conv2d(x, w, None, s,
+                                                  w.shape[-1] // 2), calls)
+        ms, library_ms = device_ms(kernel), device_ms(library)
+        window = {"kernel": time_ms(kernel, iters=5, warmup=1),
+                  "library": time_ms(library, iters=5, warmup=1)}
+    flops = nbytes = 0.0
+    for x, w, s in calls:
+        k = w.shape[-1]
+        side = (x.shape[2] + 2 * (k // 2) - k) // s + 1
+        y = x.shape[0] * w.shape[0] * side * side
+        flops += 2.0 * y * x.shape[1] * k * k
+        nbytes += x.element_size() * (x.numel() + w.numel() + y)
+    bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16_FLOP_S)
+    print(f"K5-conv, a train step's {len(calls)} forward convs at batch "
+          f"{TRAIN_B} replayed, device time: kernel {ms:.3f} ms, cuDNN "
+          f"{library_ms:.3f} (kernel / cuDNN {ms / library_ms:.3f}), bound "
+          f"{bound_ms:.3f} ({bound_by}; {flops / 1e12:.3f} TFLOP, "
+          f"{nbytes / 1e9:.3f} GB); one CUDA-event window: kernel "
+          f"{window['kernel']:.3f}, cuDNN {window['library']:.3f}; "
+          f"{gpu_line()}")
+    return {"ms": ms, "library_ms": library_ms, "window_ms": window,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by, "convs": len(calls), "batch": TRAIN_B}
 
 
 def check_fuse_kernel(regressor, fuses):
@@ -1897,9 +2158,9 @@ def check_fuse_kernel(regressor, fuses):
     module (its real widths and resolutions: 48..384 channels, 64^2..8^2)
     at batch 32 in bf16 and batch 2 in f32, the terms made by K5-conv from
     random branch outputs; each stage-4 target timed under ``cases``. The
-    entry's times are the 26 calls replayed in one CUDA-event window
-    through the kernel and the plain version; the bound is their bytes
-    (x, the terms and y once each) at 3.35 TB/s."""
+    entry's times are the 26 calls replayed through the kernel and the
+    plain version, as device time; the bound is their bytes (x, the terms
+    and y once each) at 3.35 TB/s."""
     import torch
 
     from shapy_tpu_torch.models.backbones.hrnet import (
@@ -1916,13 +2177,14 @@ def check_fuse_kernel(regressor, fuses):
             check(torch.equal(hr_fuse(x, terms), hr_fuse_plain(x, terms)),
                   f"K5-fuse: the forward's fusion {n} differs")
         # the forward's times: the stage-4 loop below times its targets
-        fwd = {"ms": time_ms(replay(hr_fuse, fuses)),
-               "plain_ms": time_ms(replay(hr_fuse_plain, fuses))}
+        fwd = {"ms": device_ms(replay(hr_fuse, fuses)),
+               "plain_ms": device_ms(replay(hr_fuse_plain, fuses)),
+               "window_ms": time_ms(replay(hr_fuse, fuses))}
     nbytes = sum(x.element_size() * (2 * x.numel() + sum(
         t.numel() for t, _ in terms)) for x, terms in fuses)
     fwd["bound_ms"] = nbytes / PEAK_BYTES_S * 1e3
     print(f"K5-fuse, one served forward's {len(fuses)} fusion targets at "
-          f"batch {B}: bit-equal to plain at each; replayed in one window: "
+          f"batch {B}: bit-equal to plain at each; replayed, device time: "
           f"kernel {fwd['ms']:.4f} ms, plain {fwd['plain_ms']:.4f}, bound "
           f"{fwd['bound_ms']:.4f} (bytes {nbytes / 1e6:.2f} MB), kernel at "
           f"{fwd['bound_ms'] / fwd['ms']:.1%} of its bound")
@@ -1970,7 +2232,7 @@ def check_fuse_kernel(regressor, fuses):
     return {"K5_fuse": {
         "max_abs_err": 0.0, **fwd, "bound_by": "bytes", "library_ms": None,
         "timed_as": f"one served forward's {len(fuses)} fusion targets at "
-                    f"batch {B}, replayed in one CUDA-event window",
+                    f"batch {B}, replayed; the device time of its kernels",
         "cases": cases}}
 
 
@@ -2024,12 +2286,13 @@ def _train_regressor(base, dev):
 
 
 def train_step_calls(base, dev):
-    """Every conv and fusion target of one train step of the flagship at
-    batch 48 (bf16 backbone, dropout 0.5, the losses of phase 7), with
+    """Every conv, fusion target and BN of one train step of the flagship
+    at batch 48 (bf16 backbone, dropout 0.5, the losses of phase 7), with
     the cotangent its backward received (made channels_last, as the
-    wrappers make it): (convs, fuses), each conv ``(dy, x, weight, stride,
-    needs dx, has a bias)`` in backward order, each fuse ``(dy, y,
-    shifts)``. The step runs the kernels; the recorded tensors stay alive
+    wrappers make it): (convs, fuses, bns), each conv ``(dy, x, weight,
+    stride, needs dx, has a bias)`` in backward order, each fuse ``(dy, y,
+    shifts)``, each BN ``(dy, x, gamma, mean, inv)`` (K4's backward's
+    arguments). The step runs the kernels; the recorded tensors stay alive
     for the replays."""
     import torch
 
@@ -2047,9 +2310,10 @@ def train_step_calls(base, dev):
     images = batch.pop("images")
     step = make_train_step(reg, RegressorLosses(FLAGSHIP_TRAIN_LOSS_CFG),
                            init_train_state(reg, FLAGSHIP_OPTIM_CFG))
-    convs, fuses = [], []
+    convs, fuses, bns = [], [], []
     conv_bwd, fuse_bwd = (layers._conv2d_backward_cuda,
                           hrnet._hr_fuse_backward_cuda)
+    bn_bwd = layers._bn_backward_cuda
 
     def conv(dy, x, weight, y, stride, need_x, need_w, need_b, need_r):
         dy = layers._aligned_cl(dy)
@@ -2063,13 +2327,19 @@ def train_step_calls(base, dev):
         fuses.append((dy, y.detach(), shifts))
         return fuse_bwd(dy, y, shifts)
 
+    def bn(dy, x, gamma, mean, inv, plan):
+        bns.append((dy, x.detach(), gamma.detach(), mean, inv))
+        return bn_bwd(dy, x, gamma, mean, inv, plan)
+
     layers._conv2d_backward_cuda, hrnet._hr_fuse_backward_cuda = conv, fuse
+    layers._bn_backward_cuda = bn
     try:
         gen = torch.Generator(device=dev).manual_seed(SEED)
         step.backward(step.forward(images, batch, gen))
     finally:
         layers._conv2d_backward_cuda, hrnet._hr_fuse_backward_cuda = (
             conv_bwd, fuse_bwd)
+        layers._bn_backward_cuda = bn_bwd
     torch.cuda.synchronize()
     check(len(convs) == K5_PER_TRAIN_STEP["K5_wgrad"],
           f"{len(convs)} conv backwards per train step")
@@ -2077,7 +2347,9 @@ def train_step_calls(base, dev):
           "convs whose input needs a gradient")
     check(len(fuses) == K5_PER_TRAIN_STEP["K5_fuse_backward"],
           f"{len(fuses)} fusion backwards per train step")
-    return convs, fuses
+    check(len(bns) == K4_PER_TRAIN_STEP,
+          f"{len(bns)} BN backwards per train step")
+    return convs, fuses, bns
 
 
 def _conv_library(dy, x, w, stride, mask):
@@ -2147,8 +2419,9 @@ def check_conv_backward_kernels(convs):
     TFLOP/s, bytes of the inputs and outputs at 3.35 TB/s).
 
     The entries' times are one train step's: the 330 data gradients, then
-    the 331 weight gradients, replayed in one CUDA-event window each
-    through the kernel, the plain version and cuDNN."""
+    the 331 weight gradients, replayed through the kernel, the plain
+    version and cuDNN, as device time (the CUDA-event windows, host
+    launches included, printed beside)."""
     import torch
 
     from shapy_tpu_torch.models.backbones.layers import (
@@ -2156,6 +2429,7 @@ def check_conv_backward_kernels(convs):
         _conv2d_wgrad_cuda,
         conv2d_input_plain,
         conv2d_weight_plain,
+        conv2d_wgrad_f32_tolerance,
     )
 
     shapes = {}
@@ -2167,6 +2441,7 @@ def check_conv_backward_kernels(convs):
     cases, failed = [], []
     worst = {"K5_dgrad": 0.0, "K5_wgrad": 0.0}
     worst32 = {"K5_dgrad": 0.0, "K5_wgrad": 0.0}
+    worst48 = {"exact": 0.0, "gap": 0.0}
     saved = torch.backends.cudnn.allow_tf32
     for (cin, cout, k, stride, size), c in shapes.items():
         dy, x, w, _, need_x, bias = c["args"]
@@ -2184,6 +2459,10 @@ def check_conv_backward_kernels(convs):
                                          stride, bias)
             tw, tb = conv2d_weight_plain(x.abs().float(), w.shape,
                                          dy.abs().float(), stride, bias)
+            # f32 at batch 48, on the same (bf16-valued) inputs: ew and
+            # eb are its exact sums too.
+            dw48, db48, _ = _conv2d_wgrad_cuda(x.float(), dy.float(), None,
+                                               w.shape, stride, bias)
             args32 = (x[:2].float(), dy[:2].float())
             dw32, db32, _ = _conv2d_wgrad_cuda(*args32, None, w.shape, stride,
                                                bias)
@@ -2212,6 +2491,18 @@ def check_conv_backward_kernels(convs):
         exact_b, share_b = ((0.0, 0.0) if db is None
                             else _exact_steps(db, eb, tb, rows))
         rel_w32 = rel_err(dw32, pw32)
+        # The f32 K5-wgrad at batch 48 against the exact sum, per element
+        # (conv2d_wgrad_f32_tolerance), and its order gap to the plain f32
+        # sum (cuDNN without TF32).
+        tol48 = conv2d_wgrad_f32_tolerance(dw48, tw, rows)
+        exact48 = float(((dw48.double() - ew).abs() / tol48).max())
+        if db48 is not None:
+            tolb = conv2d_wgrad_f32_tolerance(db48, tb, rows)
+            exact48 = max(exact48, float(((db48.double() - eb).abs()
+                                          / tolb).max()))
+        gap48 = rel_err(dw48, sw)
+        worst48["exact"] = max(worst48["exact"], exact48)
+        worst48["gap"] = max(worst48["gap"], gap48)
         b32 = 0.0 if db32 is None else float(
             ((db32 - pb32).abs() / sum_dy32).max())
         worst["K5_wgrad"] = max(worst["K5_wgrad"], max_err(dw, pw))
@@ -2223,9 +2514,11 @@ def check_conv_backward_kernels(convs):
                 "wgrad_share_rounded_otherwise": share_w,
                 "dbias_share_rounded_otherwise": share_b,
                 "wgrad_f32_rel_err": rel_w32, "dbias_f32_err_over_sum_dy": b32,
+                "wgrad_f32_b48_tol_vs_exact": exact48,
+                "wgrad_f32_b48_rel_vs_plain": gap48,
                 "wgrad_differing": int((dw != pw).sum()),
                 "wgrad_elements": dw.numel()}
-        bad = (max(steps_w, steps_b, exact_w, exact_b) > 1.0
+        bad = (max(steps_w, steps_b, exact_w, exact_b, exact48) > 1.0
                or max(share_w, share_b) > WGRAD_MAX_DIFFERING
                or rel_w32 > 1e-5 or b32 > 1e-5)
         flops = 2.0 * rows * cout * cin * k * k
@@ -2246,7 +2539,10 @@ def check_conv_backward_kernels(convs):
                 f"{exact_b:.3f}), {share_w:.2%} rounded otherwise (dbias "
                 f"{share_b:.2%}; limit {WGRAD_MAX_DIFFERING:.0%}); two "
                 f"calls equal {equal}; f32 rel {rel_w32:.2e}, dbias "
-                f"{b32:.2e} of sum|dy|; kernel {case['wgrad_ms']:.4f} ms, "
+                f"{b32:.2e} of sum|dy|; f32 at batch {TRAIN_B} against "
+                f"the exact sum at {exact48:.3f} of its limit, "
+                f"{gap48:.2e} of the largest |dw| from the plain f32 sum; "
+                f"kernel {case['wgrad_ms']:.4f} ms, "
                 f"plain {case['wgrad_plain_ms']:.4f}, cuDNN "
                 f"{case['wgrad_library_ms']:.4f} (kernel / cuDNN "
                 f"{case['wgrad_ms'] / case['wgrad_library_ms']:.2f}), bound "
@@ -2286,6 +2582,11 @@ def check_conv_backward_kernels(convs):
             failed.append(name)
         cases.append(case)
     check(not failed, f"K5 conv backward outside its tolerance at {failed}")
+    print(f"K5-wgrad f32 at batch {TRAIN_B}: against the exact sum at most "
+          f"{worst48['exact']:.3f} of its limit (half an f32 step + 2 "
+          f"sqrt(K) 2^-24 sum|terms|); from the plain f32 sum at most "
+          f"{worst48['gap']:.2e} of the largest |dw| (the batch-2 check "
+          "holds 1e-5)")
 
     dgrads = [(dy, x, w, stride) for dy, x, w, stride, need_x, _ in convs
               if need_x]
@@ -2303,12 +2604,15 @@ def check_conv_backward_kernels(convs):
              lambda dy, x, w, s, b: conv2d_weight_plain(x, w.shape, dy, s, b),
              lambda dy, x, w, s, b: _conv_library(dy, x, w, s,
                                                   (False, True, b)))):
-        ms = time_ms(replay(kernel, calls), iters=5, warmup=1)
-        plain_ms = time_ms(replay(plain, calls), iters=5, warmup=1)
-        library_ms = time_ms(replay(library, calls), iters=5, warmup=1)
+        window = {"kernel": time_ms(replay(kernel, calls), iters=5,
+                                    warmup=1),
+                  "library": time_ms(replay(library, calls), iters=5,
+                                     warmup=1)}
         # the device kernels of the step's calls: a main pass each, and
         # K5-dgrad's K-partition reduces (no weight copy)
-        on_card = device_launches(replay(kernel, calls))
+        ms, on_card = device_time(replay(kernel, calls))
+        plain_ms = device_ms(replay(plain, calls), passes=1)
+        library_ms = device_ms(replay(library, calls))
         if name == "K5_dgrad":
             check(on_card <= 2 * len(calls),
                   f"K5-dgrad ran {on_card} device kernels a train step")
@@ -2319,8 +2623,9 @@ def check_conv_backward_kernels(convs):
             nbytes += 2.0 * (x.numel() + dy.numel() + w.numel())
         bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16_FLOP_S)
         print(f"{name}, one train step's {len(calls)} convs at batch "
-              f"{TRAIN_B} ({on_card} device kernels) replayed in one "
-              f"window: kernel {ms:.3f} ms, plain "
+              f"{TRAIN_B} ({on_card} device kernels) replayed, device time: "
+              f"kernel {ms:.3f} ms (one CUDA-event window: "
+              f"{window['kernel']:.3f}; cuDNN {window['library']:.3f}), plain "
               f"{plain_ms:.3f}, cuDNN {library_ms:.3f} (kernel / cuDNN "
               f"{ms / library_ms:.3f}), bound {bound_ms:.3f} "
               f"ms ({flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB; by "
@@ -2330,12 +2635,15 @@ def check_conv_backward_kernels(convs):
             "max_abs_err": worst[name], "f32_max_rel_err": worst32[name],
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "over_library": ms / library_ms, "device_kernels": on_card,
+            "window_ms": window,
             "bound_ms": bound_ms, "bound_by": bound_by,
+            **({"f32_batch48": worst48} if name == "K5_wgrad" else {}),
             "library_call": "torch.ops.aten.convolution_backward (cuDNN), "
                             "bf16 channels_last, the same output mask",
             "timed_as": f"one train step's {len(calls)} conv backwards at "
                         f"batch {TRAIN_B}, each with its own input, weight "
-                        "and cotangent, replayed in one CUDA-event window",
+                        "and cotangent, replayed; the device time of its "
+                        "kernels (torch.profiler)",
             "cases": cases}
     return out
 
@@ -2345,8 +2653,8 @@ def check_fuse_backward_kernel(fuses):
     targets at batch 48 (``fuses``, :func:`train_step_calls`): dx and each
     term's gradient within one bf16 step of ``hr_fuse_backward_plain``
     (the differing elements counted), bit-equal in f32 (batch 2), and two
-    calls bit-equal; the 26 calls replayed in one CUDA-event window
-    through the kernel and the plain version; the bound is their bytes
+    calls bit-equal; the 26 calls replayed through the kernel and the
+    plain version, as device time; the bound is their bytes
     (dy and y read, dx and the terms' gradients written once each) at
     3.35 TB/s."""
     import torch
@@ -2378,14 +2686,13 @@ def check_fuse_backward_kernel(fuses):
             elements += a.numel()
     nbytes = sum(y.element_size() * (3 * y.numel() + sum(
         y.numel() >> (2 * s) for s in shifts)) for _, y, shifts in fuses)
-    ms = time_ms(replay(_hr_fuse_backward_cuda, fuses))
-    plain_ms = time_ms(replay(hr_fuse_backward_plain, fuses), iters=5,
-                       warmup=1)
+    ms = device_ms(replay(_hr_fuse_backward_cuda, fuses))
+    plain_ms = device_ms(replay(hr_fuse_backward_plain, fuses), passes=1)
     bound_ms = nbytes / PEAK_BYTES_S * 1e3
     print(f"K5-fuse backward, one train step's {len(fuses)} targets at batch "
           f"{TRAIN_B}: {differing} of {elements} bf16 elements differ from "
           f"plain (max {worst:.3e}, within one bf16 step), f32 bit-equal, two "
-          f"calls bit-equal; replayed in one window: kernel {ms:.4f} ms, "
+          f"calls bit-equal; replayed, device time: kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f}, bound {bound_ms:.4f} (bytes "
           f"{nbytes / 1e6:.2f} MB), kernel at {bound_ms / ms:.1%} of its "
           "bound")
@@ -2394,7 +2701,105 @@ def check_fuse_backward_kernel(fuses):
         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
         "differing": differing, "elements": elements,
         "timed_as": f"one train step's {len(fuses)} fusion backwards at "
-                    f"batch {TRAIN_B}, replayed in one CUDA-event window"}}
+                    f"batch {TRAIN_B}, replayed; the device time of its "
+                    "kernels"}}
+
+
+def _k4_limits(got, want) -> dict:
+    """K4's backward ``(dx, dgamma, dbeta)`` against its plain version: dx
+    rel 1e-4 in f32 (sums in another order), one bf16 step (2^-7 of the
+    largest |dx|) in bf16; dgamma and dbeta rel 1e-4 (f32 sums). Returns
+    each error over its limit."""
+    import torch
+
+    tol = 1e-4 if want[0].dtype == torch.float32 else 2.0 ** -7
+    return {"dx": rel_err(got[0], want[0]) / tol,
+            "dgamma": rel_err(got[1], want[1]) / 1e-4,
+            "dbeta": rel_err(got[2], want[2]) / 1e-4}
+
+
+def check_bn_backward_replay(bns):
+    """Phase 2, K4's backward over one train step's 326 recorded calls at
+    batch 48 in bf16 (``bns``, :func:`train_step_calls`): each call
+    against ``batch_norm_train_backward_plain`` (dx within one bf16 step of
+    the largest |dx|, dgamma and dbeta rel 1e-4) and two calls bit-equal;
+    then the 326 calls replayed through K4, its plain version, and
+    ``F.batch_norm(training=True)``'s autograd backward (the library call,
+    on graphs built once from the same inputs). The
+    bound sums the calls' bytes (dy and x read, dx written, the per-channel
+    vectors) at 3.35 TB/s. The times are device time (:func:`device_ms`):
+    the replay's ~700 launches outrun CUDA's launch queue, and its window
+    (printed beside) times the host. Per regime: the calls and their
+    device time."""
+    import torch
+    import torch.nn.functional as F
+
+    from shapy_tpu_torch.models.backbones import layers
+
+    check(len(bns) == K4_PER_TRAIN_STEP, f"{len(bns)} BN backwards")
+    worst, err = 0.0, 0.0
+    calls, regimes = [], {}
+    for dy, x, g, mean, inv in bns:
+        plan = layers._bn_plan(x.shape[0] * x.shape[2] * x.shape[3],
+                               x.shape[1])
+        calls.append((dy, x, g, mean, inv, plan))
+        got = layers._bn_backward_cuda(*calls[-1])
+        again = layers._bn_backward_cuda(*calls[-1])
+        want = layers.batch_norm_train_backward_plain(dy.to(x.dtype), x, g,
+                                                      mean, inv)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K4 backward {tuple(x.shape)}: two calls differ")
+        limits = _k4_limits(got, want)
+        worst = max(worst, *limits.values())
+        err = max(err, *(max_err(a, b) for a, b in zip(got, want)))
+        regimes.setdefault("cluster" if plan.fused else "split",
+                           []).append(calls[-1])
+    check(worst <= 1.0, f"K4 backward replay at {worst:.3f} of its limit")
+    kernel = replay(layers._bn_backward_cuda, calls)
+    plain = replay(
+        lambda dy, x, g, m, i: layers.batch_norm_train_backward_plain(
+            dy.to(x.dtype), x, g, m, i), bns)
+    graphs = []
+    for dy, x, g, _m, _i in bns:
+        xl, gl = x.detach().requires_grad_(), g.detach().requires_grad_()
+        bl = torch.zeros_like(gl).requires_grad_()
+        yl = F.batch_norm(xl, None, None, gl, bl, True, 0.1, layers.BN_EPS)
+        graphs.append((yl, (xl, gl, bl), dy.to(x.dtype)))
+
+    library = replay(lambda yl, ins, dy: torch.autograd.grad(
+        yl, ins, dy, retain_graph=True), graphs)
+    ms, on_card = device_time(kernel)
+    plain_ms = device_ms(plain, passes=1)
+    library_ms = device_ms(library)
+    window_ms = {"kernel": time_ms(kernel, iters=5, warmup=1),
+                 "library": time_ms(library, iters=5, warmup=1)}
+    by_regime = {k: {"calls": len(v), "ms": device_ms(replay(
+        layers._bn_backward_cuda, v))} for k, v in regimes.items()}
+    nbytes = sum(3.0 * x.numel() * x.element_size() + 6.0 * x.shape[1] * 4
+                 for _dy, x, *_ in bns)
+    bound_ms = nbytes / PEAK_BYTES_S * 1e3
+    del graphs
+    print(f"K4 backward, one train step's {len(bns)} BN backwards at batch "
+          f"{TRAIN_B} (bf16; {on_card} device kernels), device time of a "
+          f"replay: kernel {ms:.3f} ms, plain {plain_ms:.3f}, "
+          f"F.batch_norm's backward {library_ms:.3f} (kernel / library "
+          f"{ms / library_ms:.3f}); one CUDA-event window, host launches "
+          f"included: kernel {window_ms['kernel']:.3f}, library "
+          f"{window_ms['library']:.3f}; bound {bound_ms:.3f} ms (bytes; "
+          f"{nbytes / 1e9:.3f} GB), kernel at {bound_ms / ms:.1%} of its "
+          f"bound; per regime {by_regime}; each call within {worst:.3f} of "
+          f"its limit, two calls bit-equal; {gpu_line()}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "device_kernels": on_card,
+            "window_ms": window_ms, "regimes": by_regime,
+            "worst_over_limit": worst,
+            "library_call": "torch.autograd.grad of F.batch_norm("
+                            "training=True), bf16 channels_last",
+            "timed_as": f"one train step's {len(bns)} BN backwards at batch "
+                        f"{TRAIN_B}, each with its own input and cotangent, "
+                        "replayed; the device time of its kernels "
+                        "(torch.profiler)"}
 
 
 def _backbone_group(name: str) -> str:
@@ -3400,11 +3805,16 @@ def main() -> int:
                      if "registers" in ln or "stack frame" in ln]
             print(f"built {name} in {secs:.1f} s; "
                   f"{' | '.join(usage) or 'cached build'}")
-            if name == "conv.cu":  # K5-dgrad and K5-wgrad's wgmma kernels
+            if name == "conv.cu":  # K5-conv's, K5-dgrad's, K5-wgrad's
                 for line in ptxas_report(log, "wgmma"):
+                    print(f"  {line}")
+                for line in ptxas_report(log, "conv_reduce"):
                     print(f"  {line}")
                 print(f"  dynamic shared memory a block, blocks an SM: "
                       f"{wgmma_smem()}")
+            if name == "batch_norm.cu":  # K4's backward kernels
+                for line in ptxas_report(log, "bwd_"):
+                    print(f"  {line}")
 
     base = build_flagship(subdivisions=5, exact_counts=True, device="cpu",
                           seed=SEED)
@@ -3425,15 +3835,23 @@ def main() -> int:
     checked.update(check_aos_kernel(regressor.model, anchors, dev))
     convs, fuses = backbone_calls(regressor.backbone, requests)
     checked.update(check_conv_kernels(convs))
+    checked["K5_conv"]["routes"] = check_conv_routes(regressor.backbone,
+                                                     requests, convs)
     checked.update(check_fuse_kernel(regressor, fuses))
     del convs, fuses
     checked["K5_conv"]["backbone"] = check_backbone_routes(regressor,
                                                            requests)
-    stamp("phase 2: K5 backward")
-    convs, fuses = train_step_calls(base, dev)
+    stamp("phase 2: K5 backward, K4 replay")
+    convs, fuses, bns = train_step_calls(base, dev)
+    checked["K5_conv"]["train_forward"] = check_train_forward_replay(convs)
     checked.update(check_conv_backward_kernels(convs))
     checked.update(check_fuse_backward_kernel(fuses))
-    del convs, fuses
+    # K4's backward: the step's replay is the entry's time, the stem and
+    # stage-4 cases beside it.
+    checked["K4_bn_backward"] = dict(
+        check_bn_backward_replay(bns),
+        cases=checked["K4_bn_backward"]["cases"])
+    del convs, fuses, bns
     checked["K5_wgrad"]["backbone"] = check_backbone_train_routes(base, dev)
     stamp("phase 2: contact")
     bodies = contact_bodies(regressor.model, dev)

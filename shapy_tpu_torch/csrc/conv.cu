@@ -21,20 +21,20 @@
 // Design: an implicit GEMM. Output pixels are the rows (M = N Ho Wo),
 // output channels the columns (Cout), and K = (kh, kw, Cin) in the OHWI
 // weight's order, so a weight row is a contiguous K-vector and an input
-// pixel's channels are contiguous. The A tile is gathered from x (the
-// im2col view) with zero-fill for the padding, the ragged M and K edges
-// and Cout beyond the tile.
-//   * bf16: a block of 4 warps computes BM x BN outputs (BM 256, 128 or
-//     64; BN 128, 96, 64 or 48): the largest tile whose BN divides Cout
-//     (the 48- and 96-channel branches waste no column) that still puts a
-//     block on every SM, else the smallest (the 16x16 and 8x8 maps). K is
-//     walked in steps of 32 through a four-stage cp.async ring in dynamic
-//     shared memory (16-byte copies when Cin % 8 == 0, each thread's tap
-//     and channel carried from step to step; scalar loads for the stem's
-//     Cin = 3); each warp runs mma.sync.m16n8k16 (bf16 x bf16 -> f32) on
-//     ldmatrix fragments over its part of the tile (64 x 48 for the
-//     48-channel convs, up to 64 x 64). The f32 sums are fixed per output:
-//     no split-K, no atomics.
+// pixel's channels are contiguous. The A tile is the im2col view of x, zero
+// for the padding, the ragged M and K edges and Cout beyond the tile.
+//   * bf16, Cin % 8 == 0 (every conv but the stem's first): conv_wgmma_kernel,
+//     the Hopper kernel that K5-dgrad also runs (implicit_gemm below): TMA
+//     boxes of x (a stride-1 window per tap, or every second pixel for
+//     stride 2) and of the weight where it lies, a 3-4 stage mbarrier ring,
+//     wgmma m64nNk16 from 128-byte-swizzled tiles, a persistent grid, and K
+//     partitions from the shape alone summed in order by conv_reduce_kernel
+//     (which then runs the epilogue). See "K5-conv (bf16)" below.
+//   * bf16, the stem (Cin = 3): a block of 4 warps computes BM x 64 outputs
+//     (BM 128, or 64 where 128-row tiles would leave SMs idle) with
+//     mma.sync.m16n8k16 (bf16 x bf16 -> f32) on ldmatrix fragments, K walked
+//     in steps of 32 through a four-stage cp.async ring filled by scalar
+//     loads. The f32 sums are fixed per output: no split-K, no atomics.
 //   * f32: a block of 256 threads computes 64 x 64 outputs, 4 x 4 each,
 //     with CUDA-core multiply-adds in K order (no TF32; --fmad=false keeps
 //     each product rounded).
@@ -42,7 +42,8 @@
 // sum is rounded to the output dtype, then the bias is added (in f32, then
 // rounded), then the residual (rounded), then the ReLU. With equal sums the
 // kernel and the plain version agree to the bit. In bf16 the rounded sums
-// are staged in shared memory and the rest runs on 16-byte chunks.
+// are staged in shared memory and the rest runs on 16-byte chunks
+// (epilogue8).
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
@@ -101,13 +102,6 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(gmem), "r"(n));
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __device__ __forceinline__ void ldmatrix_x4(unsigned* r, const void* smem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
@@ -129,13 +123,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r,
       : "r"(s));
 }
 
-__device__ __forceinline__ void ldmatrix_x2(unsigned* r, const void* smem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(s));
-}
-
 __device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
                                          const unsigned* b) {
   asm volatile(
@@ -146,25 +133,63 @@ __device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-template <int BM, int BN>
+template <int BM>
 constexpr int smem_bytes() {
-  return kStages * (BM + BN) * kLds * (int)sizeof(bf16);
+  return kStages * (BM + 64) * kLds * (int)sizeof(bf16);
 }
 
-// A block of 4 warps, (4 / WN) along M and WN along N, computes BM x BN
-// outputs, BN = 8 NT WN; each warp a (BM WN / 4) x (8 NT) part. kVec: Cin %
-// 8 == 0 and 16-byte aligned rows, so that every 8-element K group lies in
-// one (kh, kw) tap and is one 16-byte copy.
-template <int BM, int NT, int WN, bool kVec>
+// 8 bf16 of a 16-byte chunk as floats.
+__device__ __forceinline__ void unpack8(uint4 u, float (&v)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+// The bf16 epilogue of output channels co .. co + 7 of y element idx: v
+// holds the conv sums already rounded to bf16. Adds the bias (rounded),
+// the residual (rounded) and applies the ReLU; returns the 16-byte chunk.
+__device__ __forceinline__ uint4 epilogue8(float (&v)[8],
+                                           const bf16* __restrict__ bias,
+                                           const bf16* __restrict__ res,
+                                           size_t idx, int co, int relu) {
+  if (bias) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = rnd<bf16>(v[i] + to_f(bias[co + i]));
+  }
+  if (res) {
+    float r[8];
+    unpack8(*reinterpret_cast<const uint4*>(res + idx), r);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = rnd<bf16>(v[i] + r[i]);
+  }
+  uint4 out;
+  __nv_bfloat162* oh = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float a = relu && v[2 * i] < 0.f ? 0.f : v[2 * i];
+    const float b = relu && v[2 * i + 1] < 0.f ? 0.f : v[2 * i + 1];
+    oh[i] = __floats2bfloat162_rn(a, b);
+  }
+  return out;
+}
+
+// The stem's kernel (Cin = 3; any Cin): a block of 4 warps, 2 along M and
+// 2 along N, computes BM x 64 outputs, each warp a (BM / 2) x 32 part. A
+// thread fills one K column of the A tile per step from a per-block table
+// of its rows' pixels; the B tile is read element by element.
+template <int BM>
 __global__ void __launch_bounds__(kThreadsMma) conv_bf16_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ w,
     const bf16* __restrict__ bias, const bf16* __restrict__ res,
     bf16* __restrict__ y, ConvShape s, int relu) {
+  constexpr int NT = 4, WN = 2;
   constexpr int BN = 8 * NT * WN;
   constexpr int WM = BM * WN / 4;   // rows of a warp's part
   constexpr int MT = WM / 16;       // its m16 tiles
-  constexpr int A_ROWS = BM / 32;   // A rows each thread copies (kVec)
-  constexpr int B_ROWS = (BN + 31) / 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   typedef bf16 Row[kLds];
   Row* As = reinterpret_cast<Row*>(smem_raw);          // [kStages * BM]
@@ -175,116 +200,52 @@ __global__ void __launch_bounds__(kThreadsMma) conv_bf16_kernel(
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int HoWo = s.Ho * s.Wo;
 
-  // kVec copies: thread tid takes K offset (tid & 3) * 8 of rows
-  // (tid >> 2) + 32 i of the A tile and of the B tile.
-  const int kk = (tid & 3) * 8;
-  int a_base[A_ROWS], a_h[A_ROWS], a_w[A_ROWS];
-#pragma unroll
-  for (int i = 0; i < A_ROWS; ++i) {
-    const int m = m0 + (tid >> 2) + 32 * i;
-    a_base[i] = 0;
-    a_h[i] = -(1 << 20);  // never inside the image
-    a_w[i] = 0;
-    if (kVec && m < s.M) {
-      const int n = m / HoWo, r = m - n * HoWo;
-      const int ho = r / s.Wo, wo = r - ho * s.Wo;
-      a_base[i] = n * s.H;
-      a_h[i] = ho * s.stride - s.pad;
-      a_w[i] = wo * s.stride - s.pad;
+  // Each row's (n H, ho stride - pad, wo stride - pad), once per block.
+  __shared__ int row_pix[BM][3];
+  for (int i = tid; i < BM; i += kThreadsMma) {
+    const int m = m0 + i;
+    int n = 0, ho = -(1 << 20), wo = 0;  // -2^20: never inside the image
+    if (m < s.M) {
+      n = m / HoWo;
+      const int rem = m - n * HoWo;
+      ho = rem / s.Wo;
+      wo = rem - ho * s.Wo;
+      ho = ho * s.stride - s.pad;
+      wo = wo * s.stride - s.pad;
     }
+    row_pix[i][0] = n * s.H;
+    row_pix[i][1] = ho;
+    row_pix[i][2] = wo;
   }
+  __syncthreads();
 
-  // kVec: the tap (r, c) and channel ci of this thread's K offset, kept
-  // from one K step to the next (tiles load in order) instead of divided.
-  int tap_r = 0, tap_c = 0, tap_ci = 0;
-  if (kVec && kk < s.K) {
-    const int rc = kk / s.Cin;
-    tap_ci = kk - rc * s.Cin;
-    tap_r = rc / s.k;
-    tap_c = rc - tap_r * s.k;
-  }
-
-  // Without 16-byte copies: each row's (n H, ho stride - pad, wo stride -
-  // pad), computed once per block.
-  __shared__ int row_pix[kVec ? 1 : BM][3];
-  if (!kVec) {
-    for (int i = tid; i < BM; i += kThreadsMma) {
-      const int m = m0 + i;
-      int n = 0, ho = -(1 << 20), wo = 0;
-      if (m < s.M) {
-        n = m / HoWo;
-        const int rem = m - n * HoWo;
-        ho = rem / s.Wo;
-        wo = rem - ho * s.Wo;
-        ho = ho * s.stride - s.pad;
-        wo = wo * s.stride - s.pad;
-      }
-      row_pix[i][0] = n * s.H;
-      row_pix[i][1] = ho;
-      row_pix[i][2] = wo;
-    }
-    __syncthreads();
-  }
-
+  // Thread tid fills column tid % 32 of the tile: one tap and channel per
+  // K step, the rows' pixels from the block's table.
   auto load_tile = [&](int st, int k0) {
     Row* A = As + st * BM;
     Row* Bt = Bs + st * BN;
-    if (kVec) {
-      const int kg = k0 + kk;
-      const bool kin = kg < s.K;
-      const int r = tap_r, c = tap_c, ci = tap_ci;
-      tap_ci += kBK;  // the next tile's position
-      while (tap_ci >= s.Cin) {
-        tap_ci -= s.Cin;
-        if (++tap_c == s.k) {
-          tap_c = 0;
-          ++tap_r;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < A_ROWS; ++i) {
-        const int hi = a_h[i] + r, wi = a_w[i] + c;
-        const bool ok = kin && hi >= 0 && wi >= 0 && hi < s.H && wi < s.W;
-        const bf16* src =
-            ok ? x + ((size_t)(a_base[i] + hi) * s.W + wi) * s.Cin + ci : x;
-        cp_async16(&A[(tid >> 2) + 32 * i][kk], src, ok);
-      }
-#pragma unroll
-      for (int i = 0; i < B_ROWS; ++i) {
-        const int row = (tid >> 2) + 32 * i;
-        if (row < BN) {
-          const int co = n0 + row;
-          const bool ok = kin && co < s.Cout;
-          const bf16* src = ok ? w + (size_t)co * s.K + kg : w;
-          cp_async16(&Bt[row][kk], src, ok);
-        }
-      }
-    } else {
-      // Thread tid fills column tid % 32 of the tile: one tap and channel
-      // per K step, the rows' pixels from the block's table.
-      const bf16 zero = __float2bfloat16_rn(0.f);
-      const int kc = tid % kBK, kg = k0 + kc;
-      const bool kin = kg < s.K;
-      int r = 0, c = 0, ci = 0;
-      if (kin) {
-        const int rc = kg / s.Cin;
-        ci = kg - rc * s.Cin;
-        r = rc / s.k;
-        c = rc - r * s.k;
-      }
-      for (int row = tid / kBK; row < BM; row += kThreadsMma / kBK) {
-        const int hi = row_pix[row][1] + r, wi = row_pix[row][2] + c;
-        A[row][kc] = kin && hi >= 0 && hi < s.H && wi >= 0 && wi < s.W
-                         ? x[((size_t)(row_pix[row][0] + hi) * s.W + wi) *
-                                 s.Cin + ci]
-                         : zero;
-      }
-      for (int e = tid; e < BN * kBK; e += kThreadsMma) {
-        const int row = e / kBK, kc = e - row * kBK;
-        const int co = n0 + row, kg = k0 + kc;
-        Bt[row][kc] =
-            co < s.Cout && kg < s.K ? w[(size_t)co * s.K + kg] : zero;
-      }
+    const bf16 zero = __float2bfloat16_rn(0.f);
+    const int kc = tid % kBK, kg = k0 + kc;
+    const bool kin = kg < s.K;
+    int r = 0, c = 0, ci = 0;
+    if (kin) {
+      const int rc = kg / s.Cin;
+      ci = kg - rc * s.Cin;
+      r = rc / s.k;
+      c = rc - r * s.k;
+    }
+    for (int row = tid / kBK; row < BM; row += kThreadsMma / kBK) {
+      const int hi = row_pix[row][1] + r, wi = row_pix[row][2] + c;
+      A[row][kc] = kin && hi >= 0 && hi < s.H && wi >= 0 && wi < s.W
+                       ? x[((size_t)(row_pix[row][0] + hi) * s.W + wi) *
+                               s.Cin + ci]
+                       : zero;
+    }
+    for (int e = tid; e < BN * kBK; e += kThreadsMma) {
+      const int row = e / kBK, kc = e - row * kBK;
+      const int co = n0 + row, kg = k0 + kc;
+      Bt[row][kc] =
+          co < s.Cout && kg < s.K ? w[(size_t)co * s.K + kg] : zero;
     }
   };
 
@@ -296,17 +257,15 @@ __global__ void __launch_bounds__(kThreadsMma) conv_bf16_kernel(
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
 
-  // A kStages-deep cp.async ring: tile kt + kStages - 1 is in flight while
-  // tile kt is multiplied. One barrier per K step: it also frees the stage
-  // that the step's prefetch refills (the one consumed a step before).
+  // A kStages-deep ring: tile kt + kStages - 1 is loaded while tile kt is
+  // multiplied. One barrier per K step: it also frees the stage that the
+  // step's prefetch refills (the one consumed a step before).
   const int KT = (s.K + kBK - 1) / kBK;
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
     if (st < KT) load_tile(st, st * kBK);
-    cp_async_commit();
   }
   for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<kStages - 2>();
     __syncthreads();
     const Row* A = As + (kt % kStages) * BM;
     const Row* Bt = Bs + (kt % kStages) * BN;
@@ -329,10 +288,6 @@ __global__ void __launch_bounds__(kThreadsMma) conv_bf16_kernel(
         bfr[2 * np + 1][0] = r[2];
         bfr[2 * np + 1][1] = r[3];
       }
-      if (NT & 1) {
-        const int col = wn * (8 * NT) + (NT - 1) * 8 + (lane & 7);
-        ldmatrix_x2(bfr[NT - 1], &Bt[col][ks + ((lane >> 3) & 1) * 8]);
-      }
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -340,13 +295,11 @@ __global__ void __launch_bounds__(kThreadsMma) conv_bf16_kernel(
     }
     const int nk = kt + kStages - 1;
     if (nk < KT) load_tile(nk % kStages, nk * kBK);
-    cp_async_commit();
   }
 
   // Epilogue: the sums, rounded to bf16 (its first step), go through the
   // freed ring so that the bias, residual and ReLU pass reads and writes
   // 16 bytes a thread, neighbouring threads on neighbouring addresses.
-  cp_async_wait<0>();
   __syncthreads();
   constexpr int kCs = BN + 8;  // halves per staged row (16-byte multiple)
   bf16* Cs = reinterpret_cast<bf16*>(smem_raw);
@@ -372,38 +325,10 @@ __global__ void __launch_bounds__(kThreadsMma) conv_bf16_kernel(
     const int row = m0 + r, co = n0 + cc;
     if (row >= s.M || co >= s.Cout) continue;
     const size_t idx = (size_t)row * s.Cout + co;
-    const uint4 u = *reinterpret_cast<const uint4*>(Cs + r * kCs + cc);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
     float v[8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
-    }
-    if (bias) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = rnd<bf16>(v[i] + to_f(bias[co + i]));
-    }
-    if (res) {
-      const uint4 ru = *reinterpret_cast<const uint4*>(res + idx);
-      const __nv_bfloat162* rh = reinterpret_cast<const __nv_bfloat162*>(&ru);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(rh[i]);
-        v[2 * i] = rnd<bf16>(v[2 * i] + f.x);
-        v[2 * i + 1] = rnd<bf16>(v[2 * i + 1] + f.y);
-      }
-    }
-    uint4 out;
-    __nv_bfloat162* oh = reinterpret_cast<__nv_bfloat162*>(&out);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a = relu && v[2 * i] < 0.f ? 0.f : v[2 * i];
-      const float b = relu && v[2 * i + 1] < 0.f ? 0.f : v[2 * i + 1];
-      oh[i] = __floats2bfloat162_rn(a, b);
-    }
-    *reinterpret_cast<uint4*>(y + idx) = out;
+    unpack8(*reinterpret_cast<const uint4*>(Cs + r * kCs + cc), v);
+    *reinterpret_cast<uint4*>(y + idx) = epilogue8(v, bias, res, idx, co,
+                                                   relu);
   }
 }
 
@@ -486,12 +411,11 @@ __global__ void __launch_bounds__(kThreadsF32) conv_f32_kernel(
 
 constexpr int kMaxDevices = 64;
 
-template <int BM, int NT, int WN, bool kVec>
-cudaError_t launch_bf16(const ConvShape& s, const void* x, const void* w,
+template <int BM>
+cudaError_t launch_stem(const ConvShape& s, const void* x, const void* w,
                         const void* bias, const void* res, void* y, int relu,
                         cudaStream_t stream) {
-  constexpr int BN = 8 * NT * WN;
-  constexpr int bytes = smem_bytes<BM, BN>();
+  constexpr int bytes = smem_bytes<BM>();
   // The shared-memory attribute belongs to a device: it is set at each
   // kernel's first launch on each device (on every launch past the 64th).
   static bool configured[kMaxDevices] = {};
@@ -499,71 +423,31 @@ cudaError_t launch_bf16(const ConvShape& s, const void* x, const void* w,
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices || !configured[dev]) {
-    err = cudaFuncSetAttribute(conv_bf16_kernel<BM, NT, WN, kVec>,
+    err = cudaFuncSetAttribute(conv_bf16_kernel<BM>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                bytes);
     if (err != cudaSuccess) return err;
     if (dev < kMaxDevices) configured[dev] = true;
   }
-  const dim3 grid((s.M + BM - 1) / BM, (s.Cout + BN - 1) / BN);
-  conv_bf16_kernel<BM, NT, WN, kVec>
-      <<<grid, kThreadsMma, bytes, stream>>>(
+  const dim3 grid((s.M + BM - 1) / BM, (s.Cout + 63) / 64);
+  conv_bf16_kernel<BM><<<grid, kThreadsMma, bytes, stream>>>(
       (const bf16*)x, (const bf16*)w, (const bf16*)bias, (const bf16*)res,
       (bf16*)y, s, relu);
   return cudaGetLastError();
 }
 
-// The tile for a conv, (BM, NT, WN): of the tiles whose BN divides Cout,
-// by area, the first whose grid puts a block on every one of the device's
-// `sms` SMs; else the smallest, to spread a small conv (the 16x16 and 8x8
-// maps) over as many SMs as it can fill. Without 16-byte copies (the
-// stem's Cin = 3) the 64-column tiles; where no tile divides Cout, those
-// with a ragged edge.
-cudaError_t launch_bf16_any(const ConvShape& s, bool vec, const void* x,
-                            const void* w, const void* bias, const void* res,
-                            void* y, int relu, int sms, cudaStream_t st) {
-  // Of two tiles of one area the wider first: it reads the A tiles fewer
-  // times (128 x 96 before 256 x 48 for the 96-channel convs).
-  static const int kTiles[][3] = {
-      {128, 8, 2}, {128, 6, 2}, {256, 6, 1}, {128, 4, 2}, {64, 8, 2},
-      {128, 3, 2}, {64, 6, 2},  {64, 4, 2},  {64, 3, 2}};
-  auto blocks = [&](int bm, int bn) {
-    return (long long)((s.M + bm - 1) / bm) * ((s.Cout + bn - 1) / bn);
-  };
-  int bm = 0, nt = 0, wn = 2;
-  for (const auto& t : kTiles) {
-    const int bn = 8 * t[1] * t[2];
-    if (vec ? s.Cout % bn != 0 : bn != 64) continue;
-    bm = t[0];
-    nt = t[1];
-    wn = t[2];
-    if (blocks(bm, bn) >= sms) break;
-  }
-  if (bm == 0) {  // no tile divides Cout: 64 columns with a ragged edge
-    nt = 4;
-    wn = 2;
-    bm = blocks(128, 64) >= sms ? 128 : 64;
-  }
-#define K5_LAUNCH(BM, NT, WN, VEC) \
-  return launch_bf16<BM, NT, WN, VEC>(s, x, w, bias, res, y, relu, st)
-  if (!vec) {
-    if (bm == 128) K5_LAUNCH(128, 4, 2, false);
-    K5_LAUNCH(64, 4, 2, false);
-  }
-  if (bm == 256) K5_LAUNCH(256, 6, 1, true);
-  if (bm == 128) {
-    if (nt == 8) K5_LAUNCH(128, 8, 2, true);
-    if (nt == 6) K5_LAUNCH(128, 6, 2, true);
-    if (nt == 3) K5_LAUNCH(128, 3, 2, true);
-    K5_LAUNCH(128, 4, 2, true);
-  }
-  if (nt == 8) K5_LAUNCH(64, 8, 2, true);
-  if (nt == 6) K5_LAUNCH(64, 6, 2, true);
-  if (nt == 3) K5_LAUNCH(64, 3, 2, true);
-  K5_LAUNCH(64, 4, 2, true);
-#undef K5_LAUNCH
-}
+// An H100's SMs: the stem's tile is 128 rows where that still gives every
+// SM a block, else 64 (a constant; the tile changes no sum).
+constexpr int kSms = 132;
 
+cudaError_t launch_stem_any(const ConvShape& s, const void* x, const void* w,
+                            const void* bias, const void* res, void* y,
+                            int relu, cudaStream_t st) {
+  const long long blocks =
+      (long long)((s.M + 127) / 128) * ((s.Cout + 63) / 64);
+  if (blocks >= kSms) return launch_stem<128>(s, x, w, bias, res, y, relu, st);
+  return launch_stem<64>(s, x, w, bias, res, y, relu, st);
+}
 
 // ---- K5-wgrad: dw = sum over rows (n, ho, wo) of dy (x) im2col(x) -------
 //
@@ -909,14 +793,26 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                    smem_u32(bar))
                : "memory");
 }
-// Waits until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+__device__ __forceinline__ bool mbar_try(uint64_t* bar, int parity) {
+  uint32_t done;
   asm volatile(
-      "{\n.reg .pred P1;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
+      "{\n.reg .pred P1;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, P1;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
       : "memory");
+  return done != 0;
+}
+// Waits until the phase of parity `parity` has completed. A wait of more
+// than 2^34 clocks (~9 s) is a lost arrival, a fault of the kernel: it
+// traps, so that the launch fails instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  if (mbar_try(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try(bar, parity)) {
+    if (clock64() - t0 > (1ll << 34)) __trap();
+  }
 }
 // One arrival on `bar` once this thread's earlier cp.async copies land.
 __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
@@ -1249,28 +1145,59 @@ __device__ __forceinline__ int fdiv(int x, const FastDiv& f) {
 // One producer thread issues every load (an A box and BN / 64 B boxes a
 // step). Epilogue: the f32 sums rounded once to bf16 (P = 1), staged in
 // shared memory, then 16-byte chunks of channels_last dx rows.
-struct DgradClass {
+//
+// ---- K5-conv (bf16, Cin % 8 == 0): the forward on the same core ----------
+//
+// Replaces: shapy_tpu/models/backbones/layers.py:91 conv2d and
+// hrnet.py:101 _merged_conv, as K5-conv's stem kernel above (the epilogue
+// and its rounding are the same). Bound on the H100: a served forward's
+// 331 convs at batch 32 do 1.544 TFLOP against 6.15 GB, 1.84 ms at 989
+// TFLOP/s: the tensor cores, but at the 8^2 and 16^2 maps a call has fewer
+// 128-row tiles than SMs. The stride-1 forward is K5-dgrad's stride-1 class
+// with the taps unflipped, so it runs the same kernel body (implicit_gemm,
+// kFwd): M = the N Ho Wo output pixels, N = Cout, K = (tap, Cin) in steps of
+// bk channels of one tap.
+//   * A: a TMA box of x viewed as (N, H, W, Cin), {64 channels, bw, bh, bn}
+//     output pixels at (ci0, stride j0 + c - pad, stride i0 + r - pad, n0);
+//     for stride 2 the box map steps 2 pixels in H and W (TMA's element
+//     strides), so a tap reads every second pixel of a 2bw x 2bh window
+//     and no gather runs on the SM. The hardware zero-fills the padding
+//     and the ragged edges.
+//   * B (BN x bk, K-major): the OHWI weight where it lies, viewed as (Cout,
+//     k^2, Cin): one box of 64 ci x 1 tap x BN co at (ci0, r k + c, co0).
+//   * bk (64, 48 or 16) divides Cin where it can; a 64-wide box whose
+//     channels run past Cin is zero-filled, and only bk of them are
+//     multiplied.
+//   * K partitions from the shape alone (the wrapper's plan): P > 1 writes
+//     f32 partials, and conv_reduce_kernel adds them in partition order,
+//     rounds once and runs the epilogue; P = 1 runs it in the kernel.
+// Epilogue: epilogue8 on the sums rounded to bf16 and staged in shared
+// memory, 16-byte chunks of y and of the residual.
+struct GemmClass {
   int ph, pw, Hc, Wc, ntaps, begin, hblocks, wblocks;
   int tap[9];  // r k + c | (dh + 1) << 8 | (dw + 1) << 12
 };
-struct DgradParams {
-  int N, H, W, Cin, Ho, Wo, Cout, k;
-  int stride, cchunks, ntiles, parts, nclass, tiles;
+// H, W and nch are the output's (dx for K5-dgrad, y for K5-conv): class
+// pixel (i, j) is output pixel (ph + stride i, pw + stride j), and its tap
+// reads A at (astride i + dh, astride j + dw).
+struct GemmParams {
+  int N, H, W, nch, stride, astride;
+  int cchunks, ntiles, parts, nclass, tiles;
   int box_n, box_h, box_w;  // the A box's images, rows and columns
-  DgradClass cls[4];
+  GemmClass cls[4];
 };
 
 // Tile t of a launch: its class, first image, row and column, first
-// channel, K partition and K steps.
-struct DgradTile {
+// output channel, K partition and K steps.
+struct GemmTile {
   int c, n0, i0, j0, ci0, p, s0, s1;
 };
-__device__ __forceinline__ DgradTile dgrad_tile(const DgradParams& P,
-                                                int t, int bn) {
-  DgradTile d;
+__device__ __forceinline__ GemmTile gemm_tile(const GemmParams& P, int t,
+                                              int bn) {
+  GemmTile d;
   d.c = 0;
   while (d.c + 1 < P.nclass && t >= P.cls[d.c + 1].begin) ++d.c;
-  const DgradClass& C = P.cls[d.c];
+  const GemmClass& C = P.cls[d.c];
   const int mtiles =
       (P.N + P.box_n - 1) / P.box_n * C.hblocks * C.wblocks;
   const int local = t - C.begin;
@@ -1287,40 +1214,45 @@ __device__ __forceinline__ DgradTile dgrad_tile(const DgradParams& P,
   return d;
 }
 
-// The shared memory of dgrad_wgmma_kernel<BN, BK> with `stages` ring
-// stages: 1024 bytes of alignment, the stages (the 128 x 64 A tile + BN /
-// 64 B boxes of BK rows each), the epilogue's staged 128 x BN bf16 tile
-// and the mbarriers. Two blocks share an SM where three stages fit in half
-// of it (N tiles <= 64); the ring is four stages deep where they fit, else
-// three.
-__host__ __device__ constexpr int dgrad_bytes(int bn, int bk, int stages) {
-  return 1024 + stages * (kStageA + (bn + 63) / 64 * bk * 128) +
+// The shared memory of an implicit_gemm<BN, BK, fwd> block with `stages`
+// ring stages: 1024 bytes of alignment, the stages (the 128 x 64 A tile +
+// the B tile: BN / 64 boxes of BK rows for K5-dgrad, BN rows of 64 for
+// K5-conv), the epilogue's staged 128 x BN bf16 tile and the mbarriers.
+// Two blocks share an SM where three stages fit in half of it (N tiles <=
+// 64); the ring is four stages deep where they fit, else three.
+__host__ __device__ constexpr int gemm_stage_b(int bn, int bk, bool fwd) {
+  return fwd ? bn * 128 : (bn + 63) / 64 * bk * 128;
+}
+__host__ __device__ constexpr int gemm_bytes(int bn, int bk, bool fwd,
+                                             int stages) {
+  return 1024 + stages * (kStageA + gemm_stage_b(bn, bk, fwd)) +
          kTileRows * (bn + 8) * 2 + 2 * stages * 8;
 }
 constexpr int kHalfSm = 115712, kWholeBlock = 232448;
-__host__ __device__ constexpr bool dgrad_pair(int bn, int bk) {
-  return bn <= 64 && dgrad_bytes(bn, bk, 3) <= kHalfSm;
+__host__ __device__ constexpr bool gemm_pair(int bn, int bk, bool fwd) {
+  return bn <= 64 && gemm_bytes(bn, bk, fwd, 3) <= kHalfSm;
 }
-__host__ __device__ constexpr int dgrad_stages(int bn, int bk) {
-  return dgrad_bytes(bn, bk, 4) <=
-                 (dgrad_pair(bn, bk) ? kHalfSm : kWholeBlock)
+__host__ __device__ constexpr int gemm_stages(int bn, int bk, bool fwd) {
+  return gemm_bytes(bn, bk, fwd, 4) <=
+                 (gemm_pair(bn, bk, fwd) ? kHalfSm : kWholeBlock)
              ? 4
              : 3;
 }
 
-// A persistent grid: block b takes tiles b, b + gridDim.x, ...; the ring's
-// stage and phase run on across tiles, so that the producer fills the next
-// tile's stages while the consumers write the last one's outputs. Which
-// block takes a tile changes nothing in its sums.
-template <int BN, int BK>
-__global__ void __launch_bounds__(kHopperThreads, dgrad_pair(BN, BK) ? 2 : 1)
-    dgrad_wgmma_kernel(const __grid_constant__ CUtensorMap dymap,
-                       const __grid_constant__ CUtensorMap wmap,
-                       bf16* __restrict__ dx, float* __restrict__ part,
-                       const DgradParams P) {
+// The body of both kernels. A persistent grid: block b takes tiles b, b +
+// gridDim.x, ...; the ring's stage and phase run on across tiles, so that
+// the producer fills the next tile's stages while the consumers write the
+// last one's outputs. Which block takes a tile changes nothing in its sums.
+// kFwd (K5-conv): B is K-major, and the epilogue adds bias and residual and
+// applies the ReLU; else (K5-dgrad) B is MN-major and there is no epilogue.
+template <int BN, int BK, bool kFwd>
+__device__ __forceinline__ void implicit_gemm(
+    const CUtensorMap& amap, const CUtensorMap& wmap, bf16* __restrict__ out,
+    float* __restrict__ part, const bf16* __restrict__ bias,
+    const bf16* __restrict__ res, int relu, const GemmParams& P) {
   constexpr int kBoxes = (BN + 63) / 64;
-  constexpr int kStageB = kBoxes * BK * 128;
-  constexpr int kStages = dgrad_stages(BN, BK);
+  constexpr int kStageB = gemm_stage_b(BN, BK, kFwd);
+  constexpr int kStages = gemm_stages(BN, BK, kFwd);
   constexpr int kCs = BN + 8;  // halves per staged output row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem =
@@ -1347,23 +1279,27 @@ __global__ void __launch_bounds__(kHopperThreads, dgrad_pair(BN, BK) ? 2 : 1)
         (uint32_t)(64 * P.box_w * P.box_h * P.box_n * 2 + kStageB);
     int it = 0;  // steps produced by this block, over all its tiles
     for (int t = blockIdx.x; t < P.tiles; t += gridDim.x) {
-      const DgradTile d = dgrad_tile(P, t, BN);
-      const DgradClass& C = P.cls[d.c];
+      const GemmTile d = gemm_tile(P, t, BN);
+      const GemmClass& C = P.cls[d.c];
       for (int s = d.s0; s < d.s1; ++s, ++it) {
         const int st = it % kStages;
         mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
-        const int tp = s / P.cchunks, co0 = (s - tp * P.cchunks) * BK;
+        const int tp = s / P.cchunks, k0 = (s - tp * P.cchunks) * BK;
         const int tap = C.tap[tp];
         const int rc = tap & 255, dh = ((tap >> 8) & 15) - 1,
                   dw = ((tap >> 12) & 15) - 1;
         unsigned char* b = Bs + st * kStageB;
         mbar_expect_tx(&full[st], tx);
-        tma_load_4d(As + st * kStageA, &dymap, &full[st], co0, d.j0 + dw,
-                    d.i0 + dh, d.n0);
+        tma_load_4d(As + st * kStageA, &amap, &full[st], k0,
+                    P.astride * d.j0 + dw, P.astride * d.i0 + dh, d.n0);
+        if (kFwd) {
+          tma_load_3d(b, &wmap, &full[st], k0, rc, d.ci0);
+        } else {
 #pragma unroll
-        for (int j = 0; j < kBoxes; ++j) {
-          tma_load_3d(b + j * BK * 128, &wmap, &full[st], d.ci0 + 64 * j, rc,
-                      co0);
+          for (int j = 0; j < kBoxes; ++j) {
+            tma_load_3d(b + j * BK * 128, &wmap, &full[st], d.ci0 + 64 * j,
+                        rc, k0);
+          }
         }
       }
     }
@@ -1376,8 +1312,8 @@ __global__ void __launch_bounds__(kHopperThreads, dgrad_pair(BN, BK) ? 2 : 1)
     const int box_rows = P.box_w * P.box_h;
     int it = 0;  // steps consumed by this block, over all its tiles
     for (int t = blockIdx.x; t < P.tiles; t += gridDim.x) {
-      const DgradTile d = dgrad_tile(P, t, BN);
-      const DgradClass& C = P.cls[d.c];
+      const GemmTile d = gemm_tile(P, t, BN);
+      const GemmClass& C = P.cls[d.c];
       float acc[BN / 2];
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
@@ -1390,8 +1326,13 @@ __global__ void __launch_bounds__(kHopperThreads, dgrad_pair(BN, BK) ? 2 : 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk) {
-          Wgmma<BN, 0, 1>::mma(acc, sw128_desc(a + kk * 32, 16, 1024),
-                               sw128_desc(b + kk * 2048, BK * 128, 1024));
+          if (kFwd) {
+            Wgmma<BN, 0, 0>::mma(acc, sw128_desc(a + kk * 32, 16, 1024),
+                                 sw128_desc(b + kk * 32, 16, 1024));
+          } else {
+            Wgmma<BN, 0, 1>::mma(acc, sw128_desc(a + kk * 32, 16, 1024),
+                                 sw128_desc(b + kk * 2048, BK * 128, 1024));
+          }
         }
         wgmma_commit();
         fence_acc(acc);
@@ -1410,8 +1351,8 @@ __global__ void __launch_bounds__(kHopperThreads, dgrad_pair(BN, BK) ? 2 : 1)
       }
 
       // Tile row r is box pixel (n0 + r / (box_w box_h), i0 + r / box_w %
-      // box_h, j0 + r % box_w) of the class: its dx pixel, or -1 where the
-      // row lies beyond the class or the box.
+      // box_h, j0 + r % box_w) of the class: its output pixel, or -1 where
+      // the row lies beyond the class or the box.
       auto pixel = [&](int r) -> long long {
         const int n = d.n0 + r / box_rows;
         const int i = d.i0 + r / P.box_w % P.box_h, j = d.j0 + r % P.box_w;
@@ -1430,11 +1371,11 @@ __global__ void __launch_bounds__(kHopperThreads, dgrad_pair(BN, BK) ? 2 : 1)
         for (int h = 0; h < 2; ++h) {
           const long long px = pixel(rbase + 8 * h);
           if (px < 0) continue;
-          float* dst = part + ((size_t)d.p * plane + px) * P.Cin + d.ci0;
+          float* dst = part + ((size_t)d.p * plane + px) * P.nch + d.ci0;
 #pragma unroll
           for (int q = 0; q < BN / 8; ++q) {
             const int col = 8 * q + cbase;
-            if (d.ci0 + col < P.Cin) {
+            if (d.ci0 + col < P.nch) {
               *reinterpret_cast<float2*>(dst + col) =
                   make_float2(acc[4 * q + 2 * h], acc[4 * q + 2 * h + 1]);
             }
@@ -1442,8 +1383,9 @@ __global__ void __launch_bounds__(kHopperThreads, dgrad_pair(BN, BK) ? 2 : 1)
         }
         continue;
       }
-      // Rounded once to bf16 and staged, then 16-byte chunks of dx rows;
-      // the first barrier waits for the last tile's chunks to be read.
+      // Rounded once to bf16 and staged, then 16-byte chunks of output
+      // rows (through the epilogue for K5-conv); the first barrier waits
+      // for the last tile's chunks to be read.
       named_sync(1, kConsumers);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -1460,12 +1402,70 @@ __global__ void __launch_bounds__(kHopperThreads, dgrad_pair(BN, BK) ? 2 : 1)
       for (int e = tid; e < kTileRows * kChunks; e += kConsumers) {
         const int r = e / kChunks, cc = (e - r * kChunks) * 8;
         const long long px = pixel(r);
-        if (px < 0 || d.ci0 + cc >= P.Cin) continue;
-        *reinterpret_cast<uint4*>(dx + px * P.Cin + d.ci0 + cc) =
-            *reinterpret_cast<const uint4*>(Cs + r * kCs + cc);
+        if (px < 0 || d.ci0 + cc >= P.nch) continue;
+        const size_t idx = (size_t)px * P.nch + d.ci0 + cc;
+        const uint4 u = *reinterpret_cast<const uint4*>(Cs + r * kCs + cc);
+        if (kFwd) {
+          float v[8];
+          unpack8(u, v);
+          *reinterpret_cast<uint4*>(out + idx) =
+              epilogue8(v, bias, res, idx, d.ci0 + cc, relu);
+        } else {
+          *reinterpret_cast<uint4*>(out + idx) = u;
+        }
       }
     }
   }
+}
+
+template <int BN, int BK>
+__global__ void __launch_bounds__(kHopperThreads,
+                                  gemm_pair(BN, BK, false) ? 2 : 1)
+    dgrad_wgmma_kernel(const __grid_constant__ CUtensorMap dymap,
+                       const __grid_constant__ CUtensorMap wmap,
+                       bf16* __restrict__ dx, float* __restrict__ part,
+                       const GemmParams P) {
+  implicit_gemm<BN, BK, false>(dymap, wmap, dx, part, nullptr, nullptr, 0,
+                               P);
+}
+
+template <int BN, int BK>
+__global__ void __launch_bounds__(kHopperThreads,
+                                  gemm_pair(BN, BK, true) ? 2 : 1)
+    conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap wmap,
+                      bf16* __restrict__ y, float* __restrict__ part,
+                      const bf16* __restrict__ bias,
+                      const bf16* __restrict__ res, int relu,
+                      const GemmParams P) {
+  implicit_gemm<BN, BK, true>(xmap, wmap, y, part, bias, res, relu, P);
+}
+
+// K5-conv's second pass where P > 1: y = the epilogue of the f32 partials
+// (parts, M, Cout) summed in partition order and rounded once to bf16; a
+// thread per 16-byte chunk of y.
+__global__ void conv_reduce_kernel(const float* __restrict__ part,
+                                   const bf16* __restrict__ bias,
+                                   const bf16* __restrict__ res,
+                                   bf16* __restrict__ y, int parts,
+                                   long long n, int Cout, int relu) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t idx = (size_t)e * 8;
+  if (e >= n / 8) return;
+  float v[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = 0.f;
+  for (int p = 0; p < parts; ++p) {
+    const float4* src =
+        reinterpret_cast<const float4*>(part + (size_t)p * n + idx);
+    const float4 a = src[0], b = src[1];
+    v[0] += a.x; v[1] += a.y; v[2] += a.z; v[3] += a.w;
+    v[4] += b.x; v[5] += b.y; v[6] += b.z; v[7] += b.w;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = rnd<bf16>(v[i]);
+  *reinterpret_cast<uint4*>(y + idx) =
+      epilogue8(v, bias, res, idx, (int)(idx % (size_t)Cout), relu);
 }
 
 // ---- K5-wgrad (bf16, Cin % 8 == 0): dw and dbias on wgmma ----------------
@@ -1502,9 +1502,8 @@ struct WgradParams {
 };
 constexpr int kWRows = 64;  // rows per stage: the wgmma depth of 4 k16 steps
 
-template <int BN>
-constexpr int wgrad_smem_bytes() {
-  return 1024 + kRing * (kStageA + ((BN + 63) / 64) * kWRows * 128) +
+constexpr int wgrad_smem_bytes(int bn) {
+  return 1024 + kRing * (kStageA + ((bn + 63) / 64) * kWRows * 128) +
          2 * kRing * 8;
 }
 
@@ -1731,10 +1730,13 @@ FastDiv fast_div(uint32_t d) {
   return f;
 }
 
-// cuTensorMapEncodeTiled, looked up at run time (no -lcuda).
+// cuTensorMapEncodeTiled, looked up at run time (no -lcuda). `steps`: the
+// box's element strides (every steps[i]-th element along dimension i; the
+// box then spans box[i] elements and loads box[i] / steps[i]), or NULL.
 cudaError_t encode_map(CUtensorMap* map, int rank, const void* base,
                        const cuuint64_t* dims, const cuuint64_t* strides,
-                       const cuuint32_t* box) {
+                       const cuuint32_t* box,
+                       const cuuint32_t* steps = nullptr) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     cudaDriverEntryPointQueryResult found;
@@ -1750,7 +1752,7 @@ cudaError_t encode_map(CUtensorMap* map, int rank, const void* base,
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   const CUresult res = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-      const_cast<void*>(base), dims, strides, box, ones,
+      const_cast<void*>(base), dims, strides, box, steps ? steps : ones,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
@@ -1800,10 +1802,10 @@ int device_index() {
 
 template <int BN, int BK>
 cudaError_t launch_dgrad(const CUtensorMap& dymap, const CUtensorMap& wmap,
-                         const DgradParams& P, void* dx, float* part,
+                         const GemmParams& P, void* dx, float* part,
                          cudaStream_t st) {
   static int slots[kMaxDevices] = {};
-  constexpr int bytes = dgrad_bytes(BN, BK, dgrad_stages(BN, BK));
+  constexpr int bytes = gemm_bytes(BN, BK, false, gemm_stages(BN, BK, false));
   const cudaError_t err = prepare(dgrad_wgmma_kernel<BN, BK>, bytes, slots);
   if (err != cudaSuccess) return err;
   const int grid = P.tiles < slots[device_index()] ? P.tiles
@@ -1815,7 +1817,7 @@ cudaError_t launch_dgrad(const CUtensorMap& dymap, const CUtensorMap& wmap,
 
 template <int BN>
 cudaError_t launch_dgrad_bk(int bk, const CUtensorMap& dymap,
-                            const CUtensorMap& wmap, const DgradParams& P,
+                            const CUtensorMap& wmap, const GemmParams& P,
                             void* dx, float* part, cudaStream_t st) {
   switch (bk) {
     case 64: return launch_dgrad<BN, 64>(dymap, wmap, P, dx, part, st);
@@ -1825,13 +1827,123 @@ cudaError_t launch_dgrad_bk(int bk, const CUtensorMap& dymap,
   }
 }
 
+// The arguments of a K5-conv launch besides its maps and plan.
+struct ConvArgs {
+  const void *bias, *res;
+  void *y;
+  float* part;
+  int relu;
+};
+
+template <int BN, int BK>
+cudaError_t launch_conv(const CUtensorMap& xmap, const CUtensorMap& wmap,
+                        const GemmParams& P, const ConvArgs& a,
+                        cudaStream_t st) {
+  static int slots[kMaxDevices] = {};
+  constexpr int bytes = gemm_bytes(BN, BK, true, gemm_stages(BN, BK, true));
+  const cudaError_t err = prepare(conv_wgmma_kernel<BN, BK>, bytes, slots);
+  if (err != cudaSuccess) return err;
+  const int grid = P.tiles < slots[device_index()] ? P.tiles
+                                                   : slots[device_index()];
+  conv_wgmma_kernel<BN, BK><<<grid, kHopperThreads, bytes, st>>>(
+      xmap, wmap, (bf16*)a.y, a.part, (const bf16*)a.bias,
+      (const bf16*)a.res, a.relu, P);
+  return cudaGetLastError();
+}
+
+template <int BN>
+cudaError_t launch_conv_bk(int bk, const CUtensorMap& xmap,
+                           const CUtensorMap& wmap, const GemmParams& P,
+                           const ConvArgs& a, cudaStream_t st) {
+  switch (bk) {
+    case 64: return launch_conv<BN, 64>(xmap, wmap, P, a, st);
+    case 48: return launch_conv<BN, 48>(xmap, wmap, P, a, st);
+    default: return launch_conv<BN, 16>(xmap, wmap, P, a, st);
+  }
+}
+
+// K5-conv on the wgmma core (bf16, Cin % 8 == 0): the maps, the plan's
+// one class of k^2 unflipped taps, the launch and, for parts > 1, the
+// reduce with the epilogue.
+cudaError_t conv_wgmma(const ConvShape& s, const void* x, const void* w,
+                       const ConvArgs& a, int bn, int bk, int box_n,
+                       int box_h, int box_w, int parts, cudaStream_t st) {
+  GemmParams P;
+  P.N = s.N; P.H = s.Ho; P.W = s.Wo; P.nch = s.Cout;
+  P.stride = 1;
+  P.astride = s.stride;
+  P.cchunks = (s.Cin + bk - 1) / bk;
+  P.ntiles = (s.Cout + bn - 1) / bn;
+  P.parts = parts;
+  P.box_n = box_n; P.box_h = box_h; P.box_w = box_w;
+  P.nclass = 1;
+  GemmClass& c = P.cls[0];
+  c.ph = 0; c.pw = 0; c.Hc = s.Ho; c.Wc = s.Wo; c.begin = 0;
+  c.hblocks = (s.Ho + box_h - 1) / box_h;
+  c.wblocks = (s.Wo + box_w - 1) / box_w;
+  c.ntaps = s.k * s.k;
+  for (int r = 0; r < s.k; ++r) {
+    for (int cc = 0; cc < s.k; ++cc) {
+      c.tap[r * s.k + cc] = (r * s.k + cc) | ((r - s.pad + 1) << 8) |
+                            ((cc - s.pad + 1) << 12);
+    }
+  }
+  const long long tiles = (long long)((s.N + box_n - 1) / box_n) *
+                          c.hblocks * c.wblocks * P.ntiles * parts;
+  if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
+  P.tiles = (int)tiles;
+  // x as (N, H, W, Cin): boxes of 64 ci x box_w x box_h x box_n output
+  // pixels, every stride-th input pixel; the weight as (Cout, k^2, Cin):
+  // boxes of 64 ci x 1 tap x bn co.
+  CUtensorMap xmap, wmap;
+  const cuuint64_t xdims[4] = {(cuuint64_t)s.Cin, (cuuint64_t)s.W,
+                               (cuuint64_t)s.H, (cuuint64_t)s.N};
+  const cuuint64_t xstrides[3] = {
+      (cuuint64_t)s.Cin * sizeof(bf16),
+      (cuuint64_t)s.W * s.Cin * sizeof(bf16),
+      (cuuint64_t)s.H * s.W * s.Cin * sizeof(bf16)};
+  const cuuint32_t xbox[4] = {64, (cuuint32_t)(box_w * s.stride),
+                              (cuuint32_t)(box_h * s.stride),
+                              (cuuint32_t)box_n};
+  const cuuint32_t xsteps[4] = {1, (cuuint32_t)s.stride,
+                                (cuuint32_t)s.stride, 1};
+  cudaError_t err = encode_map(&xmap, 4, x, xdims, xstrides, xbox, xsteps);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t wdims[3] = {(cuuint64_t)s.Cin, (cuuint64_t)(s.k * s.k),
+                               (cuuint64_t)s.Cout};
+  const cuuint64_t wstrides[2] = {(cuuint64_t)s.Cin * sizeof(bf16),
+                                  (cuuint64_t)s.K * sizeof(bf16)};
+  const cuuint32_t wbox[3] = {64, 1, (cuuint32_t)bn};
+  err = encode_map(&wmap, 3, w, wdims, wstrides, wbox);
+  if (err != cudaSuccess) return err;
+  ConvArgs b = a;
+  if (parts == 1) b.part = nullptr;
+#define K5_CONV(BN) launch_conv_bk<BN>(bk, xmap, wmap, P, b, st)
+  switch (bn) {
+    case 48: err = K5_CONV(48); break;
+    case 64: err = K5_CONV(64); break;
+    case 96: err = K5_CONV(96); break;
+    case 128: err = K5_CONV(128); break;
+    case 192: err = K5_CONV(192); break;
+    default: err = K5_CONV(256); break;
+  }
+#undef K5_CONV
+  if (err != cudaSuccess || parts == 1) return err;
+  const long long n = (long long)s.M * s.Cout;
+  const long long chunks = n / 8;
+  conv_reduce_kernel<<<(int)((chunks + 255) / 256), 256, 0, st>>>(
+      a.part, (const bf16*)a.bias, (const bf16*)a.res, (bf16*)a.y, parts, n,
+      s.Cout, a.relu);
+  return cudaGetLastError();
+}
+
 template <int BN, bool kMask, bool kXTma>
 cudaError_t launch_wgrad(const CUtensorMap& dymap, const CUtensorMap& xmap,
                          const WgradParams& P, const void* x, const void* dy,
                          const void* y, void* dym, float* part, float* pbias,
                          cudaStream_t st) {
   static int slots[kMaxDevices] = {};
-  constexpr int bytes = wgrad_smem_bytes<BN>();
+  constexpr int bytes = wgrad_smem_bytes(BN);
   const cudaError_t err =
       prepare(wgrad_wgmma_kernel<BN, kMask, kXTma>, bytes, slots);
   if (err != cudaSuccess) return err;
@@ -1872,20 +1984,27 @@ bool wgmma_n(int bn) {
 // x (N, H, W, Cin) and y (N, Ho, Wo, Cout) NHWC, w (Cout, k, k, Cin) OHWI,
 // bias (Cout,) or NULL, residual like y or NULL; dtype 0 = float32, 1 =
 // bfloat16 for all of them. k in {1, 3} with padding k / 2, stride >= 1;
-// Cout % 8 == 0; y and residual 16-byte aligned. vec (bf16 only): Cin % 8
-// == 0 and x, w 16-byte aligned. sms: the device's multiprocessor count,
-// which the bf16 tile choice fills.
-// Returns cudaGetLastError().
+// Cout % 8 == 0; y and residual 16-byte aligned.
+//   * bf16 with bn > 0: the wgmma kernel (Cin % 8 == 0, stride 1 or 2, x
+//     and w 16-byte aligned) with N tile bn (a wgmma width), K step bk
+//     (64, 48 or 16 channels of Cin; the boxes zero-fill past Cin), the M
+//     tile's box of output pixels (box_n, box_h, box_w; at most 128) and
+//     parts K partitions, all from the caller's plan; with parts > 1, part is parts x N Ho Wo Cout f32 scratch
+//     and a second pass sums it in partition order and runs the epilogue.
+//   * bf16 with bn == 0: the stem's mma.sync kernel (any Cin).
+//   * f32: the CUDA-core kernel; bn, bk, the box and parts are not read.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for what it does
+// not take or a tensor map that cuTensorMapEncodeTiled refuses.
 extern "C" int conv2d_act_forward(const void* x, const void* w,
                                   const void* bias, const void* residual,
-                                  void* y, int N, int H, int W, int Cin,
-                                  int Cout, int k, int stride, int relu,
-                                  int dtype, int vec, int sms, void* stream) {
+                                  void* y, void* part, int N, int H, int W,
+                                  int Cin, int Cout, int k, int stride,
+                                  int relu, int dtype, int bn, int bk,
+                                  int box_n, int box_h, int box_w, int parts,
+                                  void* stream) {
   const ConvShape s = conv_shape(N, H, W, Cin, Cout, k, stride);
   if (s.M == 0 || Cout == 0) return (int)cudaSuccess;
-  if (Cout % 8 != 0 || (vec && Cin % 8 != 0)) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (Cout % 8 != 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) {
     const dim3 grid((s.M + kTile - 1) / kTile, (Cout + kTile - 1) / kTile);
@@ -1894,8 +2013,24 @@ extern "C" int conv2d_act_forward(const void* x, const void* w,
         (const float*)residual, (float*)y, s, relu);
     return (int)cudaGetLastError();
   }
-  return (int)launch_bf16_any(s, vec != 0, x, w, bias, residual, y, relu,
-                              sms, st);
+  if (bn == 0) {
+    return (int)launch_stem_any(s, x, w, bias, residual, y, relu, st);
+  }
+  if (Cin % 8 != 0 || (stride != 1 && stride != 2) || (k != 1 && k != 3) ||
+      !wgmma_n(bn) || (bk != 64 && bk != 48 && bk != 16) || parts < 1 ||
+      (parts > 1 && part == nullptr) ||
+      box_n < 1 || box_h < 1 || box_w < 1 ||
+      box_n * box_h * box_w > kTileRows) {
+    return (int)cudaErrorInvalidValue;
+  }
+  ConvArgs a;
+  a.bias = bias;
+  a.res = residual;
+  a.y = y;
+  a.part = (float*)part;
+  a.relu = relu;
+  return (int)conv_wgmma(s, x, w, a, bn, bk, box_n, box_h, box_w, parts,
+                         st);
 }
 
 // K5-dgrad: dx (N, H, W, Cin) = the data gradient of the conv above from dy
@@ -1903,22 +2038,23 @@ extern "C" int conv2d_act_forward(const void* x, const void* w,
 // == 0, stride 1 or 2.
 //   * bf16 (dtype 1): w is the conv's weight (Cout, k, k, Cin), read in
 //     place by the parity-class wgmma kernel above; bn its N tile (a wgmma
-//     width), (box_n, box_h, box_w) its M tile's box of a class's pixels
-//     (at most 128), parts its K partitions; with parts > 1, part is
-//     parts x N H W Cin f32 scratch and a second pass adds the partials in
-//     partition order.
+//     width), bk its K step (64, 48, 32 or 16 channels of Cout), (box_n,
+//     box_h, box_w) its M tile's box of a class's pixels (at most 128),
+//     parts its K partitions, all from the caller's plan; with parts > 1,
+//     part is parts x N H W Cin f32 scratch and a second pass adds the
+//     partials in partition order.
 //   * f32 (dtype 0): w is the weight flipped in (kh, kw) and transposed,
 //     (Cin, k, k, Cout); the f32 forward kernel runs on dy with stride 1,
 //     padding k - 1 - k / 2 and input stride `stride` (a gather per dx
-//     pixel); bn and parts are not read.
+//     pixel); bn, bk and parts are not read.
 // f32 sums, rounded once; no epilogue. Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for what it does not take or a tensor map that
 // cuTensorMapEncodeTiled refuses.
 extern "C" int conv2d_dgrad(const void* dy, const void* w, void* dx,
                             void* part, int N, int H, int W, int Cin,
                             int Cout, int k, int stride, int dtype, int bn,
-                            int box_n, int box_h, int box_w, int parts,
-                            void* stream) {
+                            int bk, int box_n, int box_h, int box_w,
+                            int parts, void* stream) {
   const ConvShape f = conv_shape(N, H, W, Cin, Cout, k, stride);
   if ((long long)N * H * W == 0 || Cin == 0) return (int)cudaSuccess;
   if (Cin % 8 != 0 || Cout % 8 != 0 || (stride != 1 && stride != 2) ||
@@ -1941,16 +2077,15 @@ extern "C" int conv2d_dgrad(const void* dy, const void* w, void* dx,
         0);
     return (int)cudaGetLastError();
   }
-  if (!wgmma_n(bn) || parts < 1 || (parts > 1 && part == nullptr) ||
-      box_n < 1 || box_h < 1 || box_w < 1 ||
-      box_n * box_h * box_w > kTileRows) {
+  if (!wgmma_n(bn) || (bk != 64 && bk != 48 && bk != 32 && bk != 16) ||
+      parts < 1 || (parts > 1 && part == nullptr) || box_n < 1 ||
+      box_h < 1 || box_w < 1 || box_n * box_h * box_w > kTileRows) {
     return (int)cudaErrorInvalidValue;
   }
-  DgradParams P;
-  P.N = N; P.H = H; P.W = W; P.Cin = Cin; P.Ho = f.Ho; P.Wo = f.Wo;
-  P.Cout = Cout; P.k = k; P.stride = stride;
-  const int bk =
-      Cout % 64 == 0 ? 64 : Cout % 48 == 0 ? 48 : Cout % 32 == 0 ? 32 : 16;
+  GemmParams P;
+  P.N = N; P.H = H; P.W = W; P.nch = Cin;
+  P.stride = stride;
+  P.astride = 1;
   P.cchunks = (Cout + bk - 1) / bk;
   P.ntiles = (Cin + bn - 1) / bn;
   P.parts = parts;
@@ -1962,7 +2097,7 @@ extern "C" int conv2d_dgrad(const void* dy, const void* w, void* dx,
   for (int want = k * k; want >= 0; --want) {
     for (int ph = 0; ph < stride; ++ph) {
       for (int pw = 0; pw < stride; ++pw) {
-        DgradClass c;
+        GemmClass c;
         c.ph = ph; c.pw = pw;
         c.Hc = (H - ph + stride - 1) / stride;
         c.Wc = (W - pw + stride - 1) / stride;
@@ -2141,16 +2276,16 @@ extern "C" int conv2d_relu_mask(const void* dy, const void* y, void* dym,
   return (int)cudaGetLastError();
 }
 
-// The dynamic shared memory (bytes) of K5-dgrad's wgmma kernel for N tile
-// bn and K step bk (dgrad 1), or of K5-wgrad's for N tile bn (dgrad 0),
-// and the blocks an SM holds by it (1 or 2), as out[0], out[1].
-extern "C" int conv2d_wgmma_smem(int dgrad, int bn, int bk, int* out) {
-  if (dgrad) {
-    out[0] = dgrad_bytes(bn, bk, dgrad_stages(bn, bk));
-    out[1] = dgrad_pair(bn, bk) ? 2 : 1;
+// The dynamic shared memory (bytes) of a wgmma kernel, and the blocks an
+// SM holds by it (1 or 2), as out[0], out[1]: kind 1 K5-dgrad's for N tile
+// bn and K step bk, kind 2 K5-conv's, kind 0 K5-wgrad's for N tile bn.
+extern "C" int conv2d_wgmma_smem(int kind, int bn, int bk, int* out) {
+  if (kind != 0) {
+    const bool fwd = kind == 2;
+    out[0] = gemm_bytes(bn, bk, fwd, gemm_stages(bn, bk, fwd));
+    out[1] = gemm_pair(bn, bk, fwd) ? 2 : 1;
   } else {
-    out[0] = 1024 + kRing * (kStageA + (bn + 63) / 64 * kWRows * 128) +
-             2 * kRing * 8;
+    out[0] = wgrad_smem_bytes(bn);
     out[1] = 1;
   }
   return 0;

@@ -42,22 +42,37 @@ BN_MOMENTUM = 0.1
 
 BN_KERNEL = CudaKernel("batch_norm.cu", {
     "bn_forward": "ppppp pppp iiii i fff p",
-    "bn_backward": "ppppp ppppp iiii i p",
+    "bn_backward": "ppppp ppppp iiii iii p",
 })
 # The activation dtypes K4, K5-conv and K5-fuse take, by their C code.
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# K4's row tiles (:func:`_bn_plan`). The forward: up to _BN_MAX_TILES of
+# at least 64 rows. The backward: a thread takes 8 channels of a row (1
+# where C % 8 != 0). One launch, a thread-block cluster per 8 channels
+# (16 blocks where C / 8 such clusters fit one block to each of an H100's
+# _BN_SMS SMs, else 8), where a thread then sums at most _BN_CLUSTER_ROWS
+# rows and the launch holds at most _BN_CLUSTER_BLOCKS blocks (3 an SM):
+# the 8^2 and 16^2 layers up to 384 channels (measured, PERF.md). Else
+# three launches over row tiles of about _BN_TILE_ELEMS elements, at most
+# _BN_SPLIT_TILES. Constants: the tiles, and with them the sums' bits,
+# depend on the shape alone.
 _BN_MAX_TILES = 256
+_BN_THREADS = 256
+_BN_SMS = 132
+_BN_CLUSTER_ROWS, _BN_CLUSTER_BLOCKS = 6, 396
+_BN_TILE_ELEMS, _BN_SPLIT_TILES = 1 << 14, 1024
 
 CONV_KERNEL = CudaKernel("conv.cu", {
-    "conv2d_act_forward": "ppppp iiiiiii iiii p",
-    "conv2d_dgrad": "pppp iiiiiii ii iii i p",
+    "conv2d_act_forward": "pppppp iiiiiii ii iiiii i p",
+    "conv2d_dgrad": "pppp iiiiiii iii iii i p",
     "conv2d_wgrad": "pppppppp iiiiiii ii iii p",
     "conv2d_relu_mask": "ppp ii p",
 })
-# The wgmma widths (N tiles) that K5-dgrad and K5-wgrad are built for.
+# The wgmma widths (N tiles) that K5-conv, K5-dgrad and K5-wgrad are built
+# for.
 _WGMMA_N = (256, 192, 128, 96, 64, 48)
-# K5-dgrad and K5-wgrad's wgmma kernels: 128-row M tiles (two warpgroups
-# of 64); K5-dgrad's K steps and K5-wgrad's row steps are 64 deep.
+# The wgmma kernels: 128-row M tiles (two warpgroups of 64); K5-conv's and
+# K5-dgrad's K steps and K5-wgrad's row steps are at most 64 deep.
 _TILE_ROWS = 128
 # K5-wgrad's row partitions: for the wgmma kernel (128 K columns x an N
 # tile of up to 256 channels, 64-row steps, a persistent grid), as many
@@ -70,14 +85,15 @@ _TILE_ROWS = 128
 _WGRAD_MIN_ROWS = 256
 _WGRAD_HOPPER_STEP, _WGRAD_HOPPER_TILES = 64, 264
 _WGRAD_TILE, _WGRAD_STEP, _WGRAD_BLOCKS = 64, 32, 512
-# K5-dgrad's K partitions: its persistent grid holds _DGRAD_SMS blocks
-# (an H100's SMs; twice as many where two blocks share an SM,
-# :func:`_dgrad_pair`), and the K walk (taps x
-# Cout in bk-deep steps) is cut into the fewest partitions, each of at
-# least _DGRAD_MIN_STEPS steps, whose rounds of tiles x (steps per
-# partition + the f32 partial's write and read in steps' worth of bytes)
-# come within _DGRAD_SLACK of the least. Constants, for the same reason.
-_DGRAD_SMS, _DGRAD_MIN_STEPS, _DGRAD_SLACK = 132, 4, 1.05
+# K5-conv's and K5-dgrad's K partitions (:func:`_k_parts`): a persistent
+# grid holds _PLAN_SMS blocks (an H100's SMs; twice as many where two
+# blocks share an SM, :func:`_wgmma_pair`), and the K walk (taps x channels
+# in bk-deep steps) is cut into the fewest partitions, each of at least
+# _PLAN_MIN_STEPS steps, whose rounds of tiles x (steps per partition + the
+# f32 partial's write and read in steps' worth of bytes) come within
+# _PLAN_SLACK of the least. Constants, for the same reason: the partition,
+# and with it the bits, never depends on the card.
+_PLAN_SMS, _PLAN_MIN_STEPS, _PLAN_SLACK = 132, 4, 1.05
 
 
 def _wide(t: torch.Tensor) -> torch.Tensor:
@@ -131,11 +147,90 @@ def batch_norm_train_backward_plain(dy, x, gamma, mean, inv):
     return dx, sdyx.to(gamma.dtype), sdy.to(gamma.dtype)
 
 
-def _bn_tiles(R: int):
-    """(tiles, rows per tile) of K4's per-channel partial sums."""
-    tiles = max(1, min(_BN_MAX_TILES, -(-R // 64)))
-    rows = -(-R // tiles)
+class BnPlan(NamedTuple):
+    """K4's plan for R rows of C channels: the forward's row tiles
+    (``fwd_tiles`` of ``fwd_rows``) and the backward's. A backward thread
+    takes ``vec`` channels (8, or 1 where C % 8 != 0) of every ``lanes``-th
+    row of its tile (``tiles`` of ``rows`` rows).
+      * ``fused`` (one launch): tile t is block t of a cluster of
+        ``tiles`` (8 or 16) per ``vec`` channels, 256 lanes. Sum order:
+        lane l sums its rows in order; lanes 32 g .. 32 g + 31 in order
+        for g = 0 .. 7, those 8 in order; then the cluster's blocks in
+        order.
+      * else (three launches): a block is ``lanes`` row lanes x ``group``
+        channel chunks (group = min(C / vec, 256), lanes = 256 / group).
+        Sum order: lane l of tile t sums its rows in order; then the lanes
+        in order; then the tiles: 32 finalize lanes, lane f over tiles f,
+        f + 32, ... in order, then those lanes in order."""
+    fwd_tiles: int
+    fwd_rows: int
+    fused: bool
+    tiles: int
+    rows: int
+    vec: int
+    group: int
+    lanes: int
+
+
+def _tiles_of(R: int, tiles: int):
+    """(tiles, rows per tile) covering R rows with at most ``tiles``."""
+    rows = -(-R // max(1, tiles))
     return -(-R // rows), rows
+
+
+@functools.lru_cache(maxsize=None)
+def _bn_plan(R: int, C: int) -> BnPlan:
+    """K4's plan from the shape alone (never the card): the backward's
+    cluster regime where it fits (see ``_BN_*``), else the three launches.
+    Cached, like the conv plans: a wrapper call then costs no planning."""
+    cluster = _bn_plan_regime(R, C, True)
+    if (R <= cluster.tiles * _BN_THREADS * _BN_CLUSTER_ROWS
+            and C // cluster.vec * cluster.tiles <= _BN_CLUSTER_BLOCKS):
+        return cluster
+    return _bn_plan_regime(R, C, False)
+
+
+def _bn_plan_regime(R: int, C: int, fused: bool) -> BnPlan:
+    """K4's plan for R rows of C channels with the backward's regime
+    given: ``fused`` one cluster launch, else three. :func:`_bn_plan`
+    picks the regime; this forces one, to time or test each."""
+    fwd_tiles, fwd_rows = _tiles_of(R, min(_BN_MAX_TILES, -(-R // 64)))
+    vec = 8 if C % 8 == 0 else 1
+    if fused:
+        cluster = 16 if C // vec * 16 <= _BN_SMS else 8
+        return BnPlan(fwd_tiles, fwd_rows, True, cluster, -(-R // cluster),
+                      vec, 1, _BN_THREADS)
+    group = min(C // vec, _BN_THREADS)
+    lanes = _BN_THREADS // group
+    want = min(_BN_SPLIT_TILES, -(-R * C // _BN_TILE_ELEMS))
+    tiles, rows = _tiles_of(R, want)
+    return BnPlan(fwd_tiles, fwd_rows, False, tiles, rows, vec, group, lanes)
+
+
+def _bn_backward_cuda(dy, x, gamma, mean, inv, plan: BnPlan):
+    """Kernel K4's backward on CUDA tensors: ``(dx, dgamma, dbeta)`` for
+    dy and x (N, C, H, W) of one dtype, by ``plan`` (:func:`_bn_plan` of
+    the shape)."""
+    N, C, H, W = x.shape
+    R = N * H * W
+    rows, dy_rows = _bn_rows(x), _bn_rows(dy.to(x.dtype))
+    if plan.vec == 8:  # 16-byte rows: a copy only of a view at an odd offset
+        rows, dy_rows, mean, inv = (
+            t.clone() if t.data_ptr() % 16 else t
+            for t in (rows, dy_rows, mean, inv))
+    dx = torch.empty_like(rows)
+    dgamma = torch.empty_like(gamma)
+    dbeta = torch.empty_like(gamma)
+    partials = coef = None
+    if not plan.fused:
+        partials = torch.empty((plan.tiles, C, 2), dtype=torch.float32,
+                               device=x.device)
+        coef = torch.empty((3, C), dtype=torch.float32, device=x.device)
+    BN_KERNEL.launch("bn_backward", [
+        dy_rows, rows, gamma, mean, inv, partials, coef, dgamma, dbeta, dx,
+        R, C, plan.tiles, plan.rows, plan.vec, int(plan.fused),
+        KERNEL_DTYPES[x.dtype]])
+    return dx.permute(0, 3, 1, 2), dgamma, dbeta
 
 
 def _bn_rows(t: torch.Tensor) -> torch.Tensor:
@@ -167,7 +262,8 @@ class _BatchNormTrain(torch.autograd.Function):
             y = torch.empty_like(rows)
             mean = torch.empty(C, dtype=torch.float32, device=x.device)
             inv = torch.empty_like(mean)
-            tiles, per_tile = _bn_tiles(R)
+            plan = _bn_plan(R, C)
+            tiles, per_tile = plan.fwd_tiles, plan.fwd_rows
             partials = torch.empty((tiles, C, 2), dtype=torch.float32,
                                    device=x.device)
             BN_KERNEL.launch("bn_forward", [
@@ -186,19 +282,9 @@ class _BatchNormTrain(torch.autograd.Function):
                 dy.to(x.dtype), x, gamma, mean, inv)
             return dx, dgamma, dbeta, None, None, None, None
         N, C, H, W = x.shape
-        R = N * H * W
-        rows, dy_rows = _bn_rows(x), _bn_rows(dy.to(x.dtype))
-        dx = torch.empty_like(rows)
-        dgamma = torch.empty_like(gamma)
-        dbeta = torch.empty_like(gamma)
-        tiles, per_tile = _bn_tiles(R)
-        partials = torch.empty((tiles, C, 2), dtype=torch.float32,
-                               device=x.device)
-        coef = torch.empty((3, C), dtype=torch.float32, device=x.device)
-        BN_KERNEL.launch("bn_backward", [
-            dy_rows, rows, gamma, mean, inv, partials, coef, dgamma, dbeta,
-            dx, R, C, tiles, per_tile, KERNEL_DTYPES[x.dtype]])
-        return dx.permute(0, 3, 1, 2), dgamma, dbeta, None, None, None, None
+        dx, dgamma, dbeta = _bn_backward_cuda(dy, x, gamma, mean, inv,
+                                              _bn_plan(N * H * W, C))
+        return dx, dgamma, dbeta, None, None, None, None
 
 
 def batch_norm_train(x: torch.Tensor, gamma: torch.Tensor,
@@ -288,6 +374,15 @@ def conv2d_wgrad_bf16_tolerance(got, terms, k: int) -> torch.Tensor:
     pass a zeroed gradient at the backbone's k of up to 786,432."""
     return (0.5 * bf16_step(got.float().abs())
             + 2.0 * k ** 0.5 * 2.0 ** -24 * terms)
+
+
+def conv2d_wgrad_f32_tolerance(got, terms, k: int) -> torch.Tensor:
+    """As :func:`conv2d_wgrad_bf16_tolerance`, for an f32 K5-wgrad value
+    ``got``: half an f32 step at ``got`` (its one rounding) plus 2
+    sqrt(k) 2^-24 sum |terms|, the f32 sum's statistical rounding."""
+    mag = got.double().abs().clamp_min(2.0 ** -126)
+    half_step = torch.exp2(torch.floor(torch.log2(mag)) - 24)
+    return half_step + 2.0 * k ** 0.5 * 2.0 ** -24 * terms.double()
 
 
 def conv2d_act_plain(x, weight, bias=None, residual=None, relu=False,
@@ -380,11 +475,20 @@ def _conv2d_act_cuda(x, weight, bias, residual, relu, stride):
         raise ValueError("conv2d_act: 2^31 elements or more")
     y = torch.empty((N, O, Ho, Wo), dtype=x.dtype, device=dev,
                     memory_format=cl)
-    vec = int(C % 8 == 0 and x.data_ptr() % 16 == 0
-              and weight.data_ptr() % 16 == 0)
+    # bf16 with Cin % 8 == 0: the wgmma kernel on its plan (16-byte rows of
+    # x and the weight, a copy only for a view at an odd offset); the stem
+    # (Cin = 3) and f32: bn 0, no plan.
+    part, bn, bk, box, parts = None, 0, 0, (0, 0, 0), 0
+    if x.dtype == torch.bfloat16 and C % 8 == 0:
+        x, weight = _aligned_cl(x), _aligned_cl(weight)
+        plan = _conv_plan(N, H, W, C, O, kh, stride)
+        bn, bk, box, parts = plan.bn, plan.bk, plan.box, plan.parts
+        if parts > 1:
+            part = torch.empty((parts, N * O * Ho * Wo), dtype=torch.float32,
+                               device=dev)
     CONV_KERNEL.launch("conv2d_act_forward", [
-        x, weight, bias, residual, y, N, H, W, C, O, kh, stride, int(relu),
-        KERNEL_DTYPES[x.dtype], vec, _sm_count(dev.index)])
+        x, weight, bias, residual, y, part, N, H, W, C, O, kh, stride,
+        int(relu), KERNEL_DTYPES[x.dtype], bn, bk, *box, parts])
     return y
 
 
@@ -398,6 +502,7 @@ def _wgmma_n(c: int) -> int:
     return next((n for n in _WGMMA_N if c % n == 0), 64)
 
 
+@functools.lru_cache(maxsize=None)
 def _wgrad_parts(rows: int, cout: int, kdim: int, wgmma: bool = True):
     """(partitions, rows per partition) of K5-wgrad for a conv with
     ``rows`` = N Ho Wo, ``cout`` output channels and ``kdim`` = k^2 Cin,
@@ -447,15 +552,44 @@ class DgradPlan(NamedTuple):
         return range(p * n // self.parts, (p + 1) * n // self.parts)
 
 
-def _dgrad_pair(bn: int, bk: int) -> bool:
-    """Whether two K5-dgrad blocks of 128 rows share an SM (``conv.cu``
-    dgrad_pair): N tile <= 64 and three ring stages, the staged output
-    tile and the alignment within half an SM's shared memory."""
-    nbytes = (1024 + 3 * (_TILE_ROWS * 128 + -(-bn // 64) * bk * 128)
+def _wgmma_pair(bn: int, bk: int, forward: bool) -> bool:
+    """Whether two blocks of 128 rows of K5-conv's (``forward``) or
+    K5-dgrad's wgmma kernel share an SM (``conv.cu`` gemm_pair): N tile
+    <= 64 and three ring stages (the A tile and the B tile: ``bn`` rows of
+    64 channels for K5-conv, ``bn / 64`` boxes of ``bk`` rows for
+    K5-dgrad), the staged output tile and the alignment within half an
+    SM's shared memory."""
+    b_tile = bn * 128 if forward else -(-bn // 64) * bk * 128
+    nbytes = (1024 + 3 * (_TILE_ROWS * 128 + b_tile)
               + _TILE_ROWS * (bn + 8) * 2 + 48)
     return bn <= 64 and nbytes <= 115712
 
 
+def _pixel_box(hc: int, wc: int) -> tuple:
+    """The M tile of K5-conv and K5-dgrad over an (images, hc, wc) grid of
+    pixels: (images, rows, columns) of at most 128 pixels, whole rows (of
+    several images where an image holds at most 64 pixels), or a run of
+    128 columns of one row."""
+    bw = min(wc, _TILE_ROWS)
+    bh = 1 if bw < wc else min(hc, _TILE_ROWS // bw)
+    bni = max(1, _TILE_ROWS // (hc * wc)) if bh == hc and bw == wc else 1
+    return bni, bh, bw
+
+
+def _k_parts(tiles: int, steps: int, bn: int, bk: int, pair: bool) -> int:
+    """The K partitions of a launch of ``tiles`` tiles of ``steps`` K steps
+    each (``_PLAN_*`` above)."""
+    slots = _PLAN_SMS * (2 if pair else 1)
+    # A tile's f32 partial (written, then read by the reduce) in steps of
+    # its A and B tiles' bytes.
+    extra = _TILE_ROWS * bn * 8 / ((_TILE_ROWS + bn) * bk * 2)
+    cost = {p: -(-tiles * p // slots) * (-(-steps // p) + (p > 1) * extra)
+            for p in range(1, max(1, steps // _PLAN_MIN_STEPS) + 1)}
+    least = min(cost.values())
+    return min(p for p, c in cost.items() if c <= _PLAN_SLACK * least)
+
+
+@functools.lru_cache(maxsize=None)
 def _dgrad_plan(n: int, h: int, w: int, cin: int, cout: int, k: int,
                 stride: int) -> DgradPlan:
     """K5-dgrad's plan, a function of the shape alone (as the C entry
@@ -477,24 +611,52 @@ def _dgrad_plan(n: int, h: int, w: int, cin: int, cout: int, k: int,
             if n * hc * wc > 0:
                 found.append(DgradClass(ph, pw, hc, wc, taps))
     classes = tuple(sorted(found, key=lambda c: -len(c.taps)))
-    # The M tile: whole class rows (of several images where an image's
-    # class holds at most 64 pixels), or a run of 128 columns of one row.
-    hc, wc = -(-h // stride), -(-w // stride)
-    bw = min(wc, _TILE_ROWS)
-    bh = 1 if bw < wc else min(hc, _TILE_ROWS // bw)
-    bni = max(1, _TILE_ROWS // (hc * wc)) if bh == hc and bw == wc else 1
+    bni, bh, bw = _pixel_box(-(-h // stride), -(-w // stride))
     tiles = sum(-(-n // bni) * -(-c.hc // bh) * -(-c.wc // bw)
                 for c in classes) * -(-cin // bn)
     steps = max(len(c.taps) for c in classes) * -(-cout // bk)
-    slots = _DGRAD_SMS * (2 if _dgrad_pair(bn, bk) else 1)
-    # A tile's f32 partial (written, then read by the reduce) in steps of
-    # its A and B tiles' bytes.
-    extra = _TILE_ROWS * bn * 8 / ((_TILE_ROWS + bn) * bk * 2)
-    cost = {p: -(-tiles * p // slots) * (-(-steps // p) + (p > 1) * extra)
-            for p in range(1, max(1, steps // _DGRAD_MIN_STEPS) + 1)}
-    least = min(cost.values())
-    parts = min(p for p, c in cost.items() if c <= _DGRAD_SLACK * least)
+    parts = _k_parts(tiles, steps, bn, bk, _wgmma_pair(bn, bk, False))
     return DgradPlan(bn, bk, (bni, bh, bw), parts, classes)
+
+
+class ConvPlan(NamedTuple):
+    """K5-conv's plan for one bf16 conv shape with Cin % 8 == 0: N tile
+    ``bn`` (over Cout), K step ``bk`` (channels of Cin within one tap), the
+    M tile's box of output pixels ``box`` = (images, rows, columns; at
+    most 128) and K partitions ``parts``. K step s is tap ``s // ceil(cin
+    / bk)`` (r k + c, unflipped) at channels ``(s % ceil(cin / bk)) * bk``
+    on; tap (r, c) of output pixel (i, j) reads x at (stride i + r - k //
+    2, stride j + c - k // 2), zero outside x."""
+    bn: int
+    bk: int
+    box: tuple
+    parts: int
+
+    def steps(self, cin: int, k: int) -> int:
+        return k * k * -(-cin // self.bk)
+
+    def partition(self, cin: int, k: int, p: int) -> range:
+        """The K steps of partition ``p``."""
+        n = self.steps(cin, k)
+        return range(p * n // self.parts, (p + 1) * n // self.parts)
+
+
+@functools.lru_cache(maxsize=None)
+def _conv_plan(n: int, h: int, w: int, cin: int, cout: int, k: int,
+               stride: int) -> ConvPlan:
+    """K5-conv's plan (bf16, Cin % 8 == 0), a function of the shape alone
+    and the constants above, never of the card: its K partitions, and so
+    the output's bits, are the same on any device."""
+    ho = (h + 2 * (k // 2) - k) // stride + 1
+    wo = (w + 2 * (k // 2) - k) // stride + 1
+    bk = next((b for b in (64, 48) if cin % b == 0), 16)
+    bn = _wgmma_n(cout)
+    bni, bh, bw = _pixel_box(ho, wo)
+    tiles = (-(-n // bni) * -(-ho // bh) * -(-wo // bw)
+             * -(-cout // bn))
+    steps = k * k * -(-cin // bk)
+    parts = _k_parts(tiles, steps, bn, bk, _wgmma_pair(bn, bk, True))
+    return ConvPlan(bn, bk, (bni, bh, bw), parts)
 
 
 def _aligned_cl(t: torch.Tensor) -> torch.Tensor:
@@ -551,20 +713,20 @@ def _conv2d_dgrad_cuda(dy, weight, input_shape, stride):
         raise ValueError("conv2d_dgrad: 2^31 elements or more")
     dx = torch.empty(tuple(input_shape), dtype=dy.dtype, device=dy.device,
                      memory_format=torch.channels_last)
-    part, bn, box, parts = None, 0, (0, 0, 0), 0
+    part, bn, bk, box, parts = None, 0, 0, (0, 0, 0), 0
     if dy.dtype == torch.float32:
         w = weight.flip((2, 3)).transpose(0, 1).contiguous(
             memory_format=torch.channels_last)
     else:
         w = _aligned_cl(weight)
         plan = _dgrad_plan(N, H, W, C, O, k, stride)
-        bn, box, parts = plan.bn, plan.box, plan.parts
+        bn, bk, box, parts = plan.bn, plan.bk, plan.box, plan.parts
         if parts > 1:
             part = torch.empty((parts, N * H * W * C), dtype=torch.float32,
                                device=dy.device)
     CONV_KERNEL.launch("conv2d_dgrad", [
         dy, w, dx, part, N, H, W, C, O, k, stride, KERNEL_DTYPES[dy.dtype],
-        bn, *box, parts])
+        bn, bk, *box, parts])
     return dx
 
 
@@ -631,13 +793,6 @@ class _Conv2dAct(torch.autograd.Function):
                                     ctx.stride, need_x, need_w, need_b,
                                     need_r)
         return dx, dw, db, dres, None, None
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    """The multiprocessors of CUDA device ``index``, which K5-conv's tile
-    choice fills."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def conv2d_act(x: torch.Tensor, weight: torch.Tensor,

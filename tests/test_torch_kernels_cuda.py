@@ -380,15 +380,24 @@ def test_skin_backward_kernel_matches_plain(dev, body):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+@pytest.mark.parametrize("regime", [None, True, False],
+                         ids=["planned", "fused", "split"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(48, 64, 16, 16), (6, 2048, 8, 8),
-                                   (3, 48, 5, 7)],
-                         ids=["stem", "stage4-head", "ragged"])
-def test_batch_norm_kernel_matches_plain(dev, dtype, shape):
+                                   (3, 48, 5, 7), (2, 36, 5, 5)],
+                         ids=["stem", "stage4-head", "ragged", "c36"])
+def test_batch_norm_kernel_matches_plain(dev, dtype, shape, regime,
+                                         monkeypatch):
     """K4 forward and backward against the plain versions on the card:
     f32 rel 1e-4 (sums in another order), bf16 within one bf16 step of
     the values (the same roundings, f32 sums in another order); the
-    running stats rel 1e-5; two runs give the same bits."""
+    running stats rel 1e-5; two runs give the same bits. The backward in
+    the regime ``_bn_plan`` picks, and forced into each of its two (one
+    cluster launch; partials, finalize and dx); 36 channels take one
+    channel a thread."""
+    if regime is not None:
+        monkeypatch.setattr(layers, "_bn_plan", lambda R, C:
+                            layers._bn_plan_regime(R, C, regime))
     gen = torch.Generator().manual_seed(5)
     x = (torch.randn(shape, generator=gen) * 2 + 0.3).to(dev, dtype)
     x = x.contiguous(memory_format=torch.channels_last)
@@ -1021,7 +1030,11 @@ def test_point_fscore_keeps_clouds_on_their_device(dev):
 
 # (Cin, Cout, k, stride, input side, bias, residual, relu): the stem, the
 # heaviest 3x3 shapes (Cout 48 and 96 tile badly), a stride-2 fuse hop, a
-# residual 1x1 and the head's 2048-channel 1x1, at small batch.
+# residual 1x1 and the head's 2048-channel 1x1, at small batch; then the
+# wgmma kernel's K partitions with the residual epilogue (8^2, 11
+# partitions at batch 3), a stride-2 3x3 at an odd side with the residual
+# (2 partitions), a stride-2 1x1, and 40 channels (K steps of 16 past Cin,
+# a ragged N tile).
 CONV_CASES = [
     (3, 64, 3, 2, 64, True, False, True),
     (48, 48, 3, 1, 32, True, True, True),
@@ -1031,6 +1044,10 @@ CONV_CASES = [
     (384, 48, 1, 1, 8, True, False, False),
     (2048, 2048, 1, 1, 8, False, False, False),
     (256, 48, 3, 1, 17, False, True, True),
+    (384, 384, 3, 1, 8, True, True, True),
+    (64, 64, 3, 2, 15, True, True, True),
+    (48, 96, 1, 2, 9, False, False, True),
+    (40, 40, 3, 1, 8, True, True, False),
 ]
 
 
@@ -1074,6 +1091,7 @@ def test_conv_kernel_matches_plain(dev, dtype, case):
         torch.backends.cudnn.allow_tf32 = saved
     assert got.shape == want.shape and got.dtype == dtype
     assert got.is_contiguous(memory_format=cl)
+    assert torch.equal(got, conv2d_act(x, w, b, r, relu, stride))
     diff = (got.float() - want.float()).abs()
     if dtype == torch.float32:
         assert float(diff.max()) <= 1e-5 * float(want.abs().max())

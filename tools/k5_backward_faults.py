@@ -74,7 +74,7 @@ cs.time_ms = lambda fn, iters=20, warmup=3: (fn(), 1.0)[1]
 base = build_flagship(subdivisions=5, exact_counts=True, device="cpu",
                       seed=cs.SEED)
 spread_init_(base, seed=cs.SEED, beta_scale=0.25)
-convs, _ = cs.train_step_calls(base, torch.device("cuda", 0))
+convs = cs.train_step_calls(base, torch.device("cuda", 0))[0]
 cs.check_conv_backward_kernels(convs)
 print("K5 backward check passed")
 """

@@ -33,18 +33,18 @@ SHAPES = [(48, 48, 3, 1, 64), (96, 96, 3, 1, 32), (192, 192, 3, 1, 16),
           (256, 48, 3, 1, 64)]
 BATCH = 48
 
-# K5-dgrad's parts.
-D_MMA = ("          Wgmma<BN, 0, 1>::mma(acc, sw128_desc(a + kk * 32, 16, "
-         "1024),\n                               sw128_desc(b + kk * 2048, "
+# K5-dgrad's parts (in implicit_gemm, which K5-conv shares: the A loads
+# and the byte count are switched off for both, only K5-dgrad is timed).
+D_MMA = ("            Wgmma<BN, 0, 1>::mma(acc, sw128_desc(a + kk * 32, 16, "
+         "1024),\n                                 sw128_desc(b + kk * 2048, "
          "BK * 128, 1024));\n")
 D_TX = "(uint32_t)(64 * P.box_w * P.box_h * P.box_n * 2 + kStageB);"
-D_A = ("        tma_load_4d(As + st * kStageA, &dymap, &full[st], co0, d.j0 "
-       "+ dw,\n                    d.i0 + dh, d.n0);\n")
-D_B = ("          tma_load_3d(b + j * BK * 128, &wmap, &full[st], d.ci0 + 64 "
-       "* j, rc,\n                      co0);\n")
-D_STORE = ("        *reinterpret_cast<uint4*>(dx + px * P.Cin + d.ci0 + cc) "
-           "=\n            *reinterpret_cast<const uint4*>(Cs + r * kCs + "
-           "cc);\n")
+D_A = ("        tma_load_4d(As + st * kStageA, &amap, &full[st], k0,\n"
+       "                    P.astride * d.j0 + dw, P.astride * d.i0 + dh, "
+       "d.n0);\n")
+D_B = ("            tma_load_3d(b + j * BK * 128, &wmap, &full[st], d.ci0 + "
+       "64 * j,\n                        rc, k0);\n")
+D_STORE = "          *reinterpret_cast<uint4*>(out + idx) = u;\n"
 # K5-wgrad's parts.
 W_MMA = ("          Wgmma<BN, 1, 1>::mma(acc, sw128_desc(a + kk * 2048, kBox, "
          "1024),\n                               sw128_desc(b + kk * 2048, "
