@@ -6,7 +6,7 @@ GPU: the quickest proof that the port still starts on the card.
 
 Phases, each of which raises on failure (exit code 1):
 
-1. Prints the card's name and power limit, and builds the twelve
+1. Prints the card's name and power limit, and builds the thirteen
    hand-written CUDA sources from ``shapy_tpu_torch/csrc/``, one nvcc
    process each, all started together: K1 measure (reference and exact
    slice modes, forward and backward, and K1-AoS's ``measure_points``
@@ -15,7 +15,8 @@ Phases, each of which raises on failure (exit code 1):
    forward and backward, K5-conv (the backbone's convolutions with their
    epilogue) with K5-dgrad and K5-wgrad (their data and weight
    gradients), K5-fuse (HRNet's multi-resolution fusion) and its
-   backward, K6 mesh-mesh
+   backward, K10 (the ResNet's 7x7 stem, in ``conv.cu``) and K11 (its
+   max pool, forward and backward), K6 mesh-mesh
    intersection, K7 repulsion forward and backward, K8a P2P point error,
    K8b aligned point error, K9 nearest-neighbour distances; prints each
    kernel's registers and stack (the wgmma kernels' and K4's backward
@@ -169,15 +170,41 @@ Phases, each of which raises on failure (exit code 1):
    against 2 steps, a checkpoint in a temporary directory, a new
    ``Trainer`` that resumes from it and 2 more steps: parameters, BN
    running stats, ``param_mean``, Adam's moments and the step bit-equal.
+11. The ResNet family (``build_flagship(backbone="resnet50")``, then
+   ``"resnet18"``; every BN folded in eval): K5-conv at each conv shape
+   of ResNet-50 and ResNet-18 that HRNet-W48 lacks (15 and 6, the 1x1
+   stride-2 downsamples among them) and K10 (the 7x7 stem, through the
+   same per-shape check: bf16 within K5's limit, f32 1e-5, timed beside
+   cuDNN with bias) on a served forward's weights at batch 32; the served
+   forward profiled (one ``conv_bf16_kernel`` for K10, 52
+   ``conv_wgmma_kernel`` + reduces, one K11 ``max_pool_forward_kernel``,
+   no cuDNN convolution or ATen pooling kernel) and against the plain
+   route (cosine >= 0.999, relative L2 <= 0.05); ResNet-50 served at
+   batch 32 and 128 (exactly 52 K5-conv, 1 K10, 1 K11 launch a forward;
+   images/s, and a request's device busy time and idle share from
+   ``device_time``) and evaluated at batch 32 (metrics equal to the
+   plain versions'); K11 against its plain versions (forward bit-equal in
+   bf16 and f32 on the served stem output; backward on a train step's
+   recorded cotangent at batch 48, f32 bit-equal, bf16 within one bf16
+   step; windows planted all-zero and tied); a train step's K5-dgrad,
+   K5-wgrad and K10 weight gradient at each new shape, as phase 2's
+   (K10's against the exact sum, K5-wgrad's limit); then ``Trainer.fit``
+   at batch 48, 1 warm-up and 4 timed steps, for ResNet-50 and ResNet-18:
+   52 / 19 K5-conv, K5-dgrad and K5-wgrad launches a step, one K10
+   forward and weight gradient, one K11 forward and backward, 53 / 20
+   K4 forwards and backwards, a falling loss, no library convolution or
+   pooling operator, steps/s and peak memory.
 
 The line before the last is a JSON object with one entry per kernel
 function (forward and backward separately); ``launches`` counts the
 training phase for the kernels it runs (K5 among them), the batch-32 fit
 of phase 8 for K1's backward and K1-exact, phase 9 for K6, K7 and K9,
-the scorer (phase 6) for K1-AoS's points and their backward, and the
-evaluation phase for the others. K5-conv's and K5-fuse's times are a
-served forward's at batch 32, the backward kernels' and K4's backward's a
-train step's at batch 48. The last line is
+the scorer (phase 6) for K1-AoS's points and their backward, ResNet-50's
+training (phase 11) for K10 and K11, and the evaluation phase for the
+others. K5-conv's and K5-fuse's times are a served forward's at batch 32,
+the backward kernels' and K4's backward's a train step's at batch 48;
+K10's and K11's forwards at the served batch 32, their backwards at 48.
+The last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without
 the repository beside this file, it exits non-zero and prints no result.
 """
@@ -341,6 +368,8 @@ def conv_plan_text(n: int, cin: int, cout: int, k: int, stride: int,
     )
 
     if cin % 8:
+        if k == 7:
+            return {"kernel": "stem7_kernel"}, "K10's stem7_kernel"
         return {"kernel": "conv_bf16_kernel"}, "stem mma.sync kernel"
     plan = _conv_plan(n, side, side, cin, cout, k, stride)
     out = (side + 2 * (k // 2) - k) // stride + 1
@@ -512,7 +541,11 @@ def kernels():
     )
     from shapy_tpu_torch.measure.measurements import MEASURE_KERNEL
     from shapy_tpu_torch.models.backbones.hrnet import FUSE_KERNEL
-    from shapy_tpu_torch.models.backbones.layers import BN_KERNEL, CONV_KERNEL
+    from shapy_tpu_torch.models.backbones.layers import (
+        BN_KERNEL,
+        CONV_KERNEL,
+        POOL_KERNEL,
+    )
     from shapy_tpu_torch.models.body.lbs import SKIN_KERNEL
     from shapy_tpu_torch.ops.repulsion import REPULSION_KERNEL
     from shapy_tpu_torch.ops.tri_tri import TRI_KERNEL
@@ -555,6 +588,14 @@ def kernels():
          "shapy_tpu/models/backbones/layers.py:91"),
         ("K5_fuse_backward", FUSE_KERNEL, "hr_fuse_backward",
          csrc + "hr_fuse.cu", "shapy_tpu/models/backbones/hrnet.py:141"),
+        ("K10_stem", CONV_KERNEL, "conv2d_stem_forward", csrc + "conv.cu",
+         "shapy_tpu/models/backbones/resnet.py:54"),
+        ("K10_stem_wgrad", CONV_KERNEL, "conv2d_stem_wgrad",
+         csrc + "conv.cu", "shapy_tpu/models/backbones/resnet.py:54"),
+        ("K11_max_pool", POOL_KERNEL, "max_pool_forward",
+         csrc + "max_pool.cu", "shapy_tpu/models/backbones/resnet.py:57"),
+        ("K11_max_pool_backward", POOL_KERNEL, "max_pool_backward",
+         csrc + "max_pool.cu", "shapy_tpu/models/backbones/resnet.py:57"),
         ("K8a_point_regress", REGRESS_KERNEL, "point_regress_forward",
          csrc + "point_regress.cu", "shapy_tpu/eval/metrics.py:228"),
         ("K8b_align_error", ALIGN_KERNEL, "align_error_forward",
@@ -600,6 +641,25 @@ BACKBONE_SHAPES = (
     (512, 2048, 1, 1, 8), (2048, 2048, 1, 1, 8), (2048, 512, 1, 1, 8),
 )
 EVAL_KERNELS = SERVE_KERNELS + ("K8a_point_regress", "K8b_align_error")
+# The backbones' kernels, whose launches a forward or a train step fixes.
+BACKBONE_KERNELS = (*K5_PER_TRAIN_STEP, "K10_stem", "K10_stem_wgrad",
+                    "K11_max_pool", "K11_max_pool_backward")
+# Phase 11, the ResNet family: ResNet-50 served at batch 32 and 128 and
+# evaluated at 32, ResNet-50 and ResNet-18 trained at batch 48. Per
+# forward: a K5-conv launch per conv but the 7x7 stem (52 / 19), K10 for
+# the stem, K11 for the max pool; a train step adds K5-dgrad and K5-wgrad
+# at those convs, K10's weight gradient and K11's backward once, and K4
+# at every BN (53 / 20).
+RESNET_CONVS = {50: 52, 18: 19}
+RESNET_SERVE_B = (32, 128)
+RESNET_TRAIN_WARMUP, RESNET_TRAIN_STEPS = 1, 4
+RESNET_KERNELS = ("K10_stem", "K10_stem_wgrad", "K11_max_pool",
+                  "K11_max_pool_backward")
+RESNET_SERVE_KERNELS = tuple(k for k in SERVE_KERNELS if k != "K5_fuse") + (
+    "K10_stem", "K11_max_pool")
+RESNET_EVAL_KERNELS = RESNET_SERVE_KERNELS + ("K8a_point_regress",
+                                              "K8b_align_error")
+
 SCORE_KERNELS = ("K1_measure", "K1aos_points", "K8a_point_regress",
                  "K8b_align_error")
 TRAIN_KERNELS = ("K1_measure", "K3_skinning", "K3_skinning_backward",
@@ -609,6 +669,8 @@ FIT_KERNELS = {"reference": ("K1_measure", "K1_measure_backward"),
                "exact": ("K1exact_measure", "K1exact_measure_backward")}
 CONTACT_KERNELS = ("K6_tri_tri", "K7_repulsion", "K7_repulsion_backward",
                    "K9_nn_dists")
+RESNET_TRAIN_KERNELS = tuple(k for k in TRAIN_KERNELS
+                             if "fuse" not in k) + RESNET_KERNELS
 
 
 def sources():
@@ -810,23 +872,28 @@ def check_kernels(regressor, requests, eval_data, dev):
     return results
 
 
-def check_k5_launches(launches: dict, forwards: int, what: str) -> None:
-    """Exactly 331 K5-conv and 26 K5-fuse launches per backbone forward:
-    every conv and fusion target of the eval backbone ran its kernel; no
-    backward kernel ran."""
-    for name, per in K5_PER_TRAIN_STEP.items():
-        per = K5_PER_FORWARD.get(name, 0)
+def check_k5_launches(launches: dict, forwards: int, what: str,
+                      per_forward: dict = K5_PER_FORWARD) -> None:
+    """Exactly ``per_forward`` backbone launches per forward (HRNet-W48:
+    331 K5-conv and 26 K5-fuse): every conv, fusion target and pool of the
+    eval backbone ran its kernel; no backward kernel ran, and no kernel of
+    another backbone."""
+    for name in BACKBONE_KERNELS:
+        per = per_forward.get(name, 0)
         check(launches[name] == per * forwards,
               f"{what}: {launches[name]} {name} launches for {forwards} "
               f"forwards, expected {per} each")
 
 
-def serve(regressor, requests):
-    """The main path: warm-up, then 3 requests of batch B. Returns the
-    launch counts of this run and images/s."""
+def serve(regressor, requests, per_forward: dict = K5_PER_FORWARD,
+          path_kernels=SERVE_KERNELS, what: str = "serve"):
+    """The main path: warm-up, then 3 requests of the requests' batch,
+    ``per_forward`` backbone launches a request. Returns the launch counts
+    of this run and images/s."""
     import torch
 
     images, affines = requests
+    n = images.shape[0]
     with torch.inference_mode():
         regressor.apply_from_full_images(images, affines, CROP)
         torch.cuda.synchronize()
@@ -845,20 +912,20 @@ def serve(regressor, requests):
                    *out["measurements"].values()]
         check(all(bool(torch.isfinite(t).all()) for t in tensors),
               "non-finite output")
-        check(last["vertices"].shape == (B, regressor.model.num_verts, 3),
+        check(last["vertices"].shape == (n, regressor.model.num_verts, 3),
               "vertices shape")
     betas = outs[-1]["stage_02"]["betas"]
     beta_norm = float(betas.norm(dim=1).max())
     spread = float(betas.std(dim=0).max())
     check(beta_norm < BETA_BOUND, f"||beta|| {beta_norm} outside the bound")
     check(spread > 1e-3, "betas do not vary per image")
-    for name in SERVE_KERNELS:
-        check(launches[name] > 0, f"{name} was not launched by serving")
-    check_k5_launches(launches, 3, "serving")
-    rate = 3 * B / elapsed
+    for name in path_kernels:
+        check(launches[name] > 0, f"{name} was not launched by {what}")
+    check_k5_launches(launches, 3, what, per_forward)
+    rate = 3 * n / elapsed
     meas = {k: [round(float(v.min()), 4), round(float(v.max()), 4)]
             for k, v in outs[-1]["measurements"].items()}
-    print(f"serve: 3 requests of {B} in {elapsed * 1e3:.1f} ms = "
+    print(f"{what}: 3 requests of {n} in {elapsed * 1e3:.1f} ms = "
           f"{rate:.1f} images/s; max ||beta|| {beta_norm:.3f}, "
           f"betas std over batch up to {spread:.4f}; launches {launches}")
     print(f"measurements (min, max): {json.dumps(meas)}")
@@ -940,8 +1007,11 @@ def parity(base, requests, eval_data, dev):
           + ", ".join(f"{k} {e:.2e}" for k, e in sorted(worst.items())))
 
 
-def evaluate(regressor, eval_data, serve_rate):
-    """Phase 5: the flagship through make_eval_fn -> Evaluator.run."""
+def evaluate(regressor, eval_data, serve_rate,
+             per_forward: dict = K5_PER_FORWARD,
+             path_kernels=EVAL_KERNELS, what: str = "evaluate"):
+    """Phase 5: the flagship through make_eval_fn -> Evaluator.run, with
+    ``per_forward`` backbone launches a batch."""
     import torch
 
     from shapy_tpu_torch.eval.loop import make_eval_fn
@@ -961,9 +1031,9 @@ def evaluate(regressor, eval_data, serve_rate):
     elapsed = time.perf_counter() - start
     launches = read_launches()
 
-    for name in EVAL_KERNELS:
-        check(launches[name] > 0, f"{name} was not launched by the eval path")
-    check_k5_launches(launches, EVAL_BATCHES, "the eval path")
+    for name in path_kernels:
+        check(launches[name] > 0, f"{name} was not launched by {what}")
+    check_k5_launches(launches, EVAL_BATCHES, what, per_forward)
     metric_names = [k for k in results if "/" not in k]
     check(len(metric_names) == 15, f"metrics {sorted(metric_names)}")
     check(all(math.isfinite(v) for v in results.values()),
@@ -987,7 +1057,7 @@ def evaluate(regressor, eval_data, serve_rate):
             worst = max(worst, e)
     rate = EVAL_BATCHES * B / elapsed
     show = {k: round(v, 5) for k, v in results.items() if "/" not in k}
-    print(f"evaluate: {EVAL_BATCHES} batches of {B} in "
+    print(f"{what}: {EVAL_BATCHES} batches of {B} in "
           f"{elapsed * 1e3:.1f} ms = {rate:.1f} images/s forward + metrics "
           f"(serve only: {serve_rate:.1f} images/s); launches {launches}; "
           f"kernel vs plain metrics max err {worst:.2e} (tol {METRIC_TOL})")
@@ -1863,7 +1933,8 @@ def replay(fn, calls):
     return run
 
 
-def check_conv_kernels(convs):
+def check_conv_kernels(convs, expect=(K5_PER_FORWARD["K5_conv"], K5_SHAPES),
+                       skip=(), replays: bool = True):
     """Phase 2, K5-conv at every one of the backbone's 33 conv shapes, with
     the served weights (bf16, BN folded) and the epilogue the forward first
     uses at that shape, at batch 32 in bf16. Against the plain version
@@ -1886,7 +1957,12 @@ def check_conv_kernels(convs):
     without the residual and ReLU), as device time (:func:`device_ms`;
     the CUDA-event window, which also times the host's launches, is
     printed beside); the bound is the larger of those calls' summed bytes
-    and summed FLOPs over the peak rates."""
+    and summed FLOPs over the peak rates.
+
+    Phase 11 runs the same per-shape checks on a ResNet's forward
+    (``expect``: its convs and shapes), at the shapes not in ``skip``,
+    the 7x7 stem's through K10, without the replays, and returns the
+    cases by shape."""
     import torch
     import torch.nn.functional as F
 
@@ -1897,15 +1973,15 @@ def check_conv_kernels(convs):
         conv2d_act_plain,
     )
 
-    check(len(convs) == K5_PER_FORWARD["K5_conv"],
-          f"{len(convs)} convs per forward")
+    check(len(convs) == expect[0], f"{len(convs)} convs per forward")
     shapes = {}
     for x, w, b, r, relu, stride in convs:
         key = (x.shape[1], w.shape[0], w.shape[-1], stride, x.shape[2])
         shapes.setdefault(key, {"weight": w, "bias": b, "relu": relu,
                                 "residual": r is not None, "count": 0})
         shapes[key]["count"] += 1
-    check(len(shapes) == K5_SHAPES, f"{len(shapes)} conv shapes")
+    check(len(shapes) == expect[1], f"{len(shapes)} conv shapes")
+    shapes = {k: v for k, v in shapes.items() if k not in skip}
     dev = convs[0][0].device
     gen = torch.Generator().manual_seed(SEED + 14)
     cl = torch.channels_last
@@ -1977,6 +2053,7 @@ def check_conv_kernels(convs):
         plan, plan_text = conv_plan_text(B, cin, cout, k, stride, size)
         case = {"cin": cin, "cout": cout, "k": k, "stride": stride,
                 "size": size, "convs_per_forward": c["count"], "plan": plan,
+                "max_abs_err": max_err(got, want),
                 "bias": b is not None, "residual": r is not None,
                 "relu": relu, "ms": ms, "plain_ms": plain_ms,
                 "library_ms": library_ms,
@@ -2002,6 +2079,9 @@ def check_conv_kernels(convs):
               f"{plan_text}")
         del terms, exact_sum, exact
     check(not failed, f"K5-conv outside its tolerance at {failed}")
+    if not replays:
+        return {"max_abs_err": worst, "f32_max_rel_err": worst_f32,
+                "cases": cases}
 
     def library(x, w, b, r, relu, stride):
         return F.conv2d(x, w, b, stride, w.shape[-1] // 2)
@@ -2055,31 +2135,19 @@ def check_conv_kernels(convs):
         "cases": cases}}
 
 
-def check_conv_routes(backbone, requests, convs):
+def check_conv_routes(backbone, requests, convs, pools: int = 0):
     """Phase 2, the served forward's device kernels (``torch.profiler``,
     one bf16 backbone forward at batch 32): exactly one
-    ``conv_bf16_kernel`` (the stem's Cin = 3 conv), a ``conv_wgmma_kernel``
-    for each of the other 330 convs and a ``conv_reduce_kernel`` for each
-    conv whose plan has K partitions (from ``convs``, the recorded calls),
-    and no cuDNN convolution kernel."""
+    stem kernel (the Cin = 3 conv: HRNet's 3x3 K5-conv's
+    ``conv_bf16_kernel``, a ResNet's 7x7 K10's ``stem7_kernel``), a
+    ``conv_wgmma_kernel`` for each
+    of the other convs (330 for HRNet-W48) and a ``conv_reduce_kernel``
+    for each conv whose plan has K partitions (from ``convs``, the
+    recorded calls), ``pools`` K11 ``max_pool_forward_kernel`` (a ResNet's
+    one), and no cuDNN convolution or ATen pooling kernel."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     x = served_input(requests)
-    with torch.inference_mode():
-        backbone(x)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            backbone(x)
-            torch.cuda.synchronize()
-    counts = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            counts[e.key] = counts.get(e.key, 0) + e.count
-
-    def named(part):
-        return sum(n for k, n in counts.items() if part in k)
-
     parted = 0
     for x_, w, *_rest in convs:
         if x_.shape[1] % 8 == 0:
@@ -2087,22 +2155,37 @@ def check_conv_routes(backbone, requests, convs):
             plan, _ = conv_plan_text(x_.shape[0], x_.shape[1], w.shape[0],
                                      w.shape[-1], stride, x_.shape[2])
             parted += plan["parts"] > 1
+    stem7 = int(convs[0][1].shape[-1] == 7)  # K10's kernel, else K5's
+    want = {"conv_bf16_kernel": 1 - stem7, "stem7_kernel": stem7,
+            "conv_wgmma_kernel": len(convs) - 1,
+            "conv_reduce_kernel": parted, "max_pool_forward_kernel": pools}
+    # A trace can miss its first few events: :func:`_device_trace` pads it
+    # with spin kernels, and a trace that still misses some is taken again
+    # (at most three times).
+    with torch.inference_mode():
+        backbone(x)
+        torch.cuda.synchronize()
+        for _ in range(3):
+            counts = _device_trace(lambda: backbone(x), 1)[1]
+
+            def named(part):
+                return sum(n for k, n in counts.items() if part in k)
+
+            got = {k: named(k) for k in want}
+            if got == want:
+                break
+            print(f"served forward's trace held {got}, expected {want}: "
+                  "taken again", flush=True)
     library = sorted(k for k in counts if any(
         s in k.lower() for s in ("cudnn", "xmma", "implicit", "convolve",
-                                 "fprop", "winograd")))
-    got = {"conv_bf16_kernel": named("conv_bf16_kernel"),
-           "conv_wgmma_kernel": named("conv_wgmma_kernel"),
-           "conv_reduce_kernel": named("conv_reduce_kernel")}
+                                 "fprop", "winograd")) or (
+        "pool" in k.lower() and "max_pool_forward_kernel" not in k))
     print(f"served forward's device kernels (profiled, batch {B}): {got}; "
-          f"expected 1 stem conv_bf16_kernel, "
-          f"{K5_PER_FORWARD['K5_conv'] - 1} conv_wgmma_kernel, {parted} "
-          f"conv_reduce_kernel (K-partitioned convs); cuDNN kernels "
+          f"expected {want}; cuDNN convolution or ATen pooling kernels "
           f"{library}")
-    check(got == {"conv_bf16_kernel": 1,
-                  "conv_wgmma_kernel": K5_PER_FORWARD["K5_conv"] - 1,
-                  "conv_reduce_kernel": parted},
-          f"the served forward's conv kernels {got}")
-    check(not library, f"cuDNN convolution kernels ran: {library}")
+    check(got == want, f"the served forward's conv kernels {got}")
+    check(not library, f"library convolution or pooling kernels ran: "
+                       f"{library}")
     return dict(got, library_kernels=library)
 
 
@@ -2250,21 +2333,25 @@ def check_backbone_routes(regressor, requests):
 
     x = served_input(requests)
     backbone = regressor.backbone
-    saved = (layers._conv2d_act_cuda, hrnet._hr_fuse_cuda)
+    saved = (layers._conv2d_act_cuda, hrnet._hr_fuse_cuda,
+             layers._max_pool2d_cuda)
 
     def run():
-        return backbone(x)
+        feats = backbone(x)
+        return feats["avg_pooling"] if isinstance(feats, dict) else feats
 
     with torch.inference_mode():
         k5 = run().float()
         k5_ms = time_ms(run, iters=10)
         layers._conv2d_act_cuda = layers.conv2d_act_plain
         hrnet._hr_fuse_cuda = hrnet.hr_fuse_plain
+        layers._max_pool2d_cuda = layers.max_pool2d_plain
         try:
             plain = run().float()
             plain_ms = time_ms(run, iters=10)
         finally:
-            layers._conv2d_act_cuda, hrnet._hr_fuse_cuda = saved
+            (layers._conv2d_act_cuda, hrnet._hr_fuse_cuda,
+             layers._max_pool2d_cuda) = saved
     cos = float(torch.nn.functional.cosine_similarity(
         k5.flatten(), plain.flatten(), dim=0))
     rel = float((k5 - plain).norm() / plain.norm())
@@ -2285,15 +2372,20 @@ def _train_regressor(base, dev):
     return copy.deepcopy(base).to(dev).prepare_for_train_(torch.bfloat16)
 
 
-def train_step_calls(base, dev):
-    """Every conv, fusion target and BN of one train step of the flagship
-    at batch 48 (bf16 backbone, dropout 0.5, the losses of phase 7), with
-    the cotangent its backward received (made channels_last, as the
-    wrappers make it): (convs, fuses, bns), each conv ``(dy, x, weight,
-    stride, needs dx, has a bias)`` in backward order, each fuse ``(dy, y,
-    shifts)``, each BN ``(dy, x, gamma, mean, inv)`` (K4's backward's
-    arguments). The step runs the kernels; the recorded tensors stay alive
-    for the replays."""
+def train_step_calls(base, dev, expect=(K5_PER_TRAIN_STEP["K5_wgrad"],
+                                         K5_PER_TRAIN_STEP["K5_dgrad"],
+                                         K5_PER_TRAIN_STEP["K5_fuse_backward"],
+                                         K4_PER_TRAIN_STEP, 0)):
+    """Every conv, fusion target, BN and max pool of one train step of the
+    flagship (or of ``base``, a ResNet regressor) at batch 48 (bf16
+    backbone, dropout 0.5, the losses of phase 7), with the cotangent its
+    backward received (made channels_last, as the wrappers make it):
+    (convs, fuses, bns, pools), each conv ``(dy, x, weight, stride, needs
+    dx, has a bias)`` in backward order, each fuse ``(dy, y, shifts)``,
+    each BN ``(dy, x, gamma, mean, inv)`` (K4's backward's arguments),
+    each pool ``(dy, x)``; ``expect`` their counts (conv backwards, those
+    that need dx, fuses, BNs, pools). The step runs the kernels; the
+    recorded tensors stay alive for the replays."""
     import torch
 
     from shapy_tpu_torch.flagship import (
@@ -2310,10 +2402,11 @@ def train_step_calls(base, dev):
     images = batch.pop("images")
     step = make_train_step(reg, RegressorLosses(FLAGSHIP_TRAIN_LOSS_CFG),
                            init_train_state(reg, FLAGSHIP_OPTIM_CFG))
-    convs, fuses, bns = [], [], []
+    convs, fuses, bns, pools = [], [], [], []
     conv_bwd, fuse_bwd = (layers._conv2d_backward_cuda,
                           hrnet._hr_fuse_backward_cuda)
     bn_bwd = layers._bn_backward_cuda
+    pool_bwd = layers._max_pool2d_backward_cuda
 
     def conv(dy, x, weight, y, stride, need_x, need_w, need_b, need_r):
         dy = layers._aligned_cl(dy)
@@ -2331,8 +2424,12 @@ def train_step_calls(base, dev):
         bns.append((dy, x.detach(), gamma.detach(), mean, inv))
         return bn_bwd(dy, x, gamma, mean, inv, plan)
 
+    def pool(dy, x):
+        pools.append((layers._aligned_cl(dy.to(x.dtype)), x.detach()))
+        return pool_bwd(dy, x)
+
     layers._conv2d_backward_cuda, hrnet._hr_fuse_backward_cuda = conv, fuse
-    layers._bn_backward_cuda = bn
+    layers._bn_backward_cuda, layers._max_pool2d_backward_cuda = bn, pool
     try:
         gen = torch.Generator(device=dev).manual_seed(SEED)
         step.backward(step.forward(images, batch, gen))
@@ -2340,16 +2437,14 @@ def train_step_calls(base, dev):
         layers._conv2d_backward_cuda, hrnet._hr_fuse_backward_cuda = (
             conv_bwd, fuse_bwd)
         layers._bn_backward_cuda = bn_bwd
+        layers._max_pool2d_backward_cuda = pool_bwd
     torch.cuda.synchronize()
-    check(len(convs) == K5_PER_TRAIN_STEP["K5_wgrad"],
-          f"{len(convs)} conv backwards per train step")
-    check(sum(c[4] for c in convs) == K5_PER_TRAIN_STEP["K5_dgrad"],
-          "convs whose input needs a gradient")
-    check(len(fuses) == K5_PER_TRAIN_STEP["K5_fuse_backward"],
-          f"{len(fuses)} fusion backwards per train step")
-    check(len(bns) == K4_PER_TRAIN_STEP,
-          f"{len(bns)} BN backwards per train step")
-    return convs, fuses, bns
+    got = (len(convs), sum(c[4] for c in convs), len(fuses), len(bns),
+           len(pools))
+    check(got == tuple(expect), f"a train step's (conv backwards, of them "
+          f"with dx, fusion backwards, BN backwards, pool backwards) {got}, "
+          f"expected {tuple(expect)}")
+    return convs, fuses, bns, pools
 
 
 def _conv_library(dy, x, w, stride, mask):
@@ -2394,7 +2489,8 @@ def _exact_steps(got, exact, terms, k: int) -> tuple:
     return steps, float((got != exact.to(got.dtype)).double().mean())
 
 
-def check_conv_backward_kernels(convs):
+def check_conv_backward_kernels(convs, expect_shapes: int = K5_SHAPES,
+                                skip=(), replays: bool = True):
     """Phase 2, K5-dgrad and K5-wgrad at each of the backbone's 33 conv
     shapes, with one train step's recorded inputs, weights and cotangents
     at batch 48 in bf16 (``convs``, :func:`train_step_calls`; K5-dgrad at
@@ -2421,7 +2517,12 @@ def check_conv_backward_kernels(convs):
     The entries' times are one train step's: the 330 data gradients, then
     the 331 weight gradients, replayed through the kernel, the plain
     version and cuDNN, as device time (the CUDA-event windows, host
-    launches included, printed beside)."""
+    launches included, printed beside).
+
+    Phase 11 runs the same per-shape checks on a ResNet's train step
+    (``expect_shapes`` its shapes), at the shapes not in ``skip``, the 7x7
+    stem's weight gradient through K10, without the replays, and returns
+    the cases."""
     import torch
 
     from shapy_tpu_torch.models.backbones.layers import (
@@ -2437,7 +2538,8 @@ def check_conv_backward_kernels(convs):
         dy, x, w, stride, need_x, bias = args
         key = (x.shape[1], w.shape[0], w.shape[-1], stride, x.shape[2])
         shapes.setdefault(key, {"args": args, "count": 0})["count"] += 1
-    check(len(shapes) == K5_SHAPES, f"{len(shapes)} conv shapes")
+    check(len(shapes) == expect_shapes, f"{len(shapes)} conv shapes")
+    shapes = {k: v for k, v in shapes.items() if k not in skip}
     cases, failed = [], []
     worst = {"K5_dgrad": 0.0, "K5_wgrad": 0.0}
     worst32 = {"K5_dgrad": 0.0, "K5_wgrad": 0.0}
@@ -2517,7 +2619,8 @@ def check_conv_backward_kernels(convs):
                 "wgrad_f32_b48_tol_vs_exact": exact48,
                 "wgrad_f32_b48_rel_vs_plain": gap48,
                 "wgrad_differing": int((dw != pw).sum()),
-                "wgrad_elements": dw.numel()}
+                "wgrad_elements": dw.numel(),
+                "wgrad_max_abs_err": max_err(dw, pw)}
         bad = (max(steps_w, steps_b, exact_w, exact_b, exact48) > 1.0
                or max(share_w, share_b) > WGRAD_MAX_DIFFERING
                or rel_w32 > 1e-5 or b32 > 1e-5)
@@ -2587,6 +2690,9 @@ def check_conv_backward_kernels(convs):
           f"sqrt(K) 2^-24 sum|terms|); from the plain f32 sum at most "
           f"{worst48['gap']:.2e} of the largest |dw| (the batch-2 check "
           "holds 1e-5)")
+    if not replays:
+        return {"max_abs_err": worst, "f32_max_rel_err": worst32,
+                "f32_batch48": worst48, "cases": cases}
 
     dgrads = [(dy, x, w, stride) for dy, x, w, stride, need_x, _ in convs
               if need_x]
@@ -3085,44 +3191,54 @@ def train_parity(base, dev):
           f"{flipped / total}")
 
 
-def _no_cudnn_step(trainer, batch) -> None:
-    """One more step of ``trainer`` with ``F.conv2d`` made to raise and
-    the host's operators recorded by ``torch.profiler`` (the autograd
-    engine's backward threads included): no convolution operator, forward
-    or backward, may appear; the K5 Functions' backwards must."""
+def _no_cudnn_step(trainer, batch,
+                   nodes=("_Conv2dActBackward", "_HrFuseBackward")) -> None:
+    """One more step of ``trainer`` with ``F.conv2d`` and ``F.max_pool2d``
+    made to raise and the host's operators recorded by ``torch.profiler``
+    (the autograd engine's backward threads included): no convolution or
+    pooling operator, forward or backward, may appear; the hand-written
+    kernels' autograd Functions' backwards (``nodes``) must."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     def refuse(*args, **kwargs):
         raise RuntimeError("F.conv2d reached in training")
 
-    conv2d = torch.nn.functional.conv2d
-    torch.nn.functional.conv2d = refuse
+    F = torch.nn.functional
+    conv2d, max_pool2d = F.conv2d, F.max_pool2d
+    F.conv2d = F.max_pool2d = refuse
     try:
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             trainer.fit({"train": batch}, 1, seed=SEED)
             torch.cuda.synchronize()
     finally:
-        torch.nn.functional.conv2d = conv2d
+        F.conv2d, F.max_pool2d = conv2d, max_pool2d
     names = {e.name for e in prof.events()}
     convs = sorted(n for n in names if "convolution" in n or "cudnn" in n
-                   or n == "aten::conv2d")
-    k5 = sorted(n for n in names if "_Conv2dActBackward" in n
-                or "_HrFuseBackward" in n)
+                   or n == "aten::conv2d" or "pool" in n)
+    k5 = sorted(n for n in names if any(f in n for f in nodes))
     print(f"train step under the profiler: {len(names)} operator names, "
-          f"convolution operators {convs}, K5 backward nodes {k5}")
-    check(not convs, f"training reached cuDNN's convolutions: {convs}")
-    check(all(any(f in n for n in k5) for f in ("_Conv2dActBackward",
-                                                  "_HrFuseBackward")),
-          "the profile holds no K5 backward: the guard would not see a "
-          "convolution backward either")
+          f"convolution and pooling operators {convs}, backward nodes of "
+          f"the hand-written kernels {k5}")
+    check(not convs, f"training reached library convolutions or pooling: "
+                     f"{convs}")
+    check(all(any(f in n for n in k5) for f in nodes),
+          "the profile holds no backward of the hand-written kernels: the "
+          "guard would not see a convolution backward either")
 
 
-def train(base, dev):
+def train(base, dev, per_step: dict = K5_PER_TRAIN_STEP,
+          steps: tuple = (TRAIN_WARMUP, TRAIN_STEPS),
+          path_kernels=TRAIN_KERNELS,
+          nodes=("_Conv2dActBackward", "_HrFuseBackward"),
+          what: str = "train"):
     """Phase 7: ``Trainer.fit`` on the flagship at full width, batch 48,
     bf16 backbone, dropout 0.5: 2 warm-up steps, then 10 steps on one
     fixed synthetic batch, then one step under the cuDNN guard
-    (:func:`_no_cudnn_step`). Returns the launches of the 10 steps."""
+    (:func:`_no_cudnn_step`). Returns the launches of the 10 steps and
+    {steps/s, images/s, peak memory}. Phase 11 trains the ResNets the same
+    way (``steps``: warm-up and timed steps; ``per_step`` the backbone's
+    launches a step)."""
     import torch
 
     from shapy_tpu_torch.flagship import (
@@ -3135,19 +3251,23 @@ def train(base, dev):
 
     reg = _train_regressor(base, dev)
     batch = synthetic_train_batches(reg, 1, TRAIN_B, CROP, SEED + 9)
+    warmup, timed = steps
     trainer = Trainer(reg, RegressorLosses(FLAGSHIP_TRAIN_LOSS_CFG),
-                      FLAGSHIP_OPTIM_CFG,
-                      summary_steps=TRAIN_WARMUP + TRAIN_STEPS, device=dev)
-    trainer.fit({"train": batch}, TRAIN_WARMUP, seed=SEED)
+                      FLAGSHIP_OPTIM_CFG, summary_steps=warmup + timed,
+                      device=dev)
+    trainer.fit({"train": batch}, warmup, seed=SEED)
     mean0 = reg.param_mean.clone()
     stats0 = {k: v.clone() for k, v in reg.named_buffers()
               if "running_" in k}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # What is allocated before the timed steps, by this phase and by the
+    # script's earlier phases: the peak less this is the steps' own.
+    held = torch.cuda.memory_allocated()
     totals = []
     reset_launches()
     start = time.perf_counter()
-    last = trainer.fit({"train": batch}, TRAIN_STEPS, seed=SEED,
+    last = trainer.fit({"train": batch}, timed, seed=SEED,
                        on_step=lambda s, m: totals.append(m["total"]))
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - start
@@ -3155,8 +3275,8 @@ def train(base, dev):
     peak = torch.cuda.max_memory_allocated()
 
     totals = [float(t) for t in totals]
-    check(len(totals) == TRAIN_STEPS and all(map(math.isfinite, totals)),
-          f"train losses {totals}")
+    check(len(totals) == timed and all(map(math.isfinite, totals)),
+          f"{what} losses {totals}")
     check(all(math.isfinite(v) for v in last.values()), f"losses {last}")
     check(totals[-1] < totals[0], f"the loss did not fall: {totals}")
     moved = sum(not torch.equal(v, stats0[k]) for k, v in
@@ -3164,22 +3284,27 @@ def train(base, dev):
     check(moved == len(stats0), f"{len(stats0) - moved} BN running stats "
           "did not move")
     check(torch.equal(reg.param_mean, mean0), "param_mean moved")
-    for name in TRAIN_KERNELS:
-        check(launches[name] > 0, f"{name} was not launched by training")
-    for name, per in K5_PER_TRAIN_STEP.items():
-        check(launches[name] == per * TRAIN_STEPS,
-              f"{name}: {launches[name]} launches in {TRAIN_STEPS} train "
+    for name in path_kernels:
+        check(launches[name] > 0, f"{name} was not launched by {what}")
+    for name in BACKBONE_KERNELS:
+        per = per_step.get(name, 0)
+        check(launches[name] == per * timed,
+              f"{name}: {launches[name]} launches in {timed} {what} "
               f"steps, expected {per} a step")
-    _no_cudnn_step(trainer, batch)
-    print(f"train: {TRAIN_STEPS} steps of batch {TRAIN_B} in "
-          f"{elapsed * 1e3:.1f} ms = {TRAIN_STEPS / elapsed:.3f} steps/s = "
-          f"{TRAIN_STEPS * TRAIN_B / elapsed:.1f} images/s; peak memory "
-          f"{peak / 2 ** 30:.2f} GiB (8.53 GiB on the cuDNN route, PERF.md "
-          f"section 5); total loss {totals[0]:.4f} -> "
+    _no_cudnn_step(trainer, batch, nodes)
+    rates = {"steps_per_s": timed / elapsed,
+             "images_per_s": timed * TRAIN_B / elapsed,
+             "peak_memory_gib": peak / 2 ** 30,
+             "held_before_gib": held / 2 ** 30}
+    print(f"{what}: {timed} steps of batch {TRAIN_B} in "
+          f"{elapsed * 1e3:.1f} ms = {rates['steps_per_s']:.3f} steps/s = "
+          f"{rates['images_per_s']:.1f} images/s; peak memory "
+          f"{peak / 2 ** 30:.3f} GiB, of which {held / 2 ** 30:.3f} GiB "
+          f"held before the steps; total loss {totals[0]:.4f} -> "
           f"{totals[-1]:.4f}; last losses {json.dumps(last)}; {moved} BN "
           f"running stats moved, param_mean fixed; launches {launches}; "
           f"{gpu_line()}")
-    return launches
+    return launches, rates
 
 
 def train_resume(base, dev) -> None:
@@ -3239,6 +3364,247 @@ def train_resume(base, dev) -> None:
           f"{len(want[1])} optimizer tensors compared, {len(differ)} differ "
           f"{differ[:5]}")
     check(not differ, f"kill and resume differs from 4 steps: {differ[:5]}")
+
+
+def resnet_base(depth: int):
+    """The flagship on ResNet-``depth`` (``build_flagship(backbone=
+    "resnet<depth>")``) on the CPU, its weights spread from the seed as
+    phase 3's HRNet-W48's."""
+    from shapy_tpu_torch.flagship import build_flagship, spread_init_
+
+    base = build_flagship(subdivisions=5, exact_counts=True, device="cpu",
+                          seed=SEED, backbone=f"resnet{depth}")
+    return spread_init_(base, seed=SEED, beta_scale=0.25)
+
+
+def request_device(regressor, requests, rate: float) -> dict:
+    """One served request's host-clock ms (from ``rate``, images/s), its
+    device busy ms (:func:`device_time`), kernels and the idle share 1 -
+    busy / wall."""
+    import torch
+
+    images, affines = requests
+    wall_ms = images.shape[0] / rate * 1e3
+    with torch.inference_mode():
+        busy, kernels = device_time(
+            lambda: regressor.apply_from_full_images(images, affines, CROP))
+    return {"batch": images.shape[0], "images_per_s": rate,
+            "request_ms": wall_ms, "device_busy_ms": busy,
+            "device_kernels": kernels,
+            "idle_share": max(0.0, 1.0 - busy / wall_ms)}
+
+
+def _pool_planted(x):
+    """x with planted windows: an all-zero block (whole windows of zeros)
+    and a tie across the overlap of two windows, in every channel."""
+    x = x.clone()
+    x[0, :, :8, :8] = 0
+    x[1, :, 4, 3:8] = 1.5
+    x[1, :, 3:6, 5] = 1.5
+    return x
+
+
+def check_pool_kernels(x_served, pools):
+    """Phase 11, K11 against its plain versions on the card. The forward
+    at the served ResNet-50's stem output (batch 32, bf16, 64 x 128^2,
+    windows planted by :func:`_pool_planted`): bit-equal in bf16 and in
+    f32 (the same maxima); timed beside ``F.max_pool2d``. The backward at
+    a train step's recorded ``(dy, x)`` at batch 48 (``pools``), planted
+    the same way: bit-equal in f32 (the same first maxima, the same sums
+    in the same order), within one bf16 step in bf16 (one rounding of
+    those sums; the differing elements counted), two calls bit-equal;
+    timed beside ATen's ``max_pool2d_with_indices_backward`` (the library
+    backward, given the forward's indices). Bounds: the bytes read and
+    written once at 3.35 TB/s."""
+    import torch
+    import torch.nn.functional as F
+
+    from shapy_tpu_torch.models.backbones.layers import (
+        _max_pool2d_backward_cuda,
+        _max_pool2d_cuda,
+        bf16_step,
+        max_pool2d_backward_plain,
+        max_pool2d_plain,
+    )
+
+    out = {}
+    x = _pool_planted(x_served)
+    y = _max_pool2d_cuda(x)
+    y32 = _max_pool2d_cuda(x.float())
+    want = max_pool2d_plain(x)
+    torch.cuda.synchronize()
+    equal = torch.equal(y, want) and torch.equal(y32, want.float())
+    print(f"K11 forward at {tuple(x.shape)} bf16: bit-equal to the plain "
+          f"version {torch.equal(y, want)}, f32 {torch.equal(y32, y.float())}")
+    check(equal, "K11 forward differs from its plain version")
+    out["K11_max_pool"] = record_kernel(
+        out, "K11_max_pool", max_err(y, want), lambda: _max_pool2d_cuda(x),
+        lambda: max_pool2d_plain(x), 2.0 * (x.numel() + y.numel()), 0.0,
+        lambda: F.max_pool2d(x, 3, 2, 1))
+    out["K11_max_pool"].update(
+        library_call="F.max_pool2d(x, 3, 2, 1), bf16 channels_last",
+        timed_as=f"the served ResNet-50's stem output, batch {B}",
+        f32_bit_equal=equal)
+
+    dy, xb = pools[0]
+    xb = _pool_planted(xb)
+    dx = _max_pool2d_backward_cuda(dy, xb)
+    dx2 = _max_pool2d_backward_cuda(dy, xb)
+    pdx = max_pool2d_backward_plain(dy, xb)
+    dx32 = _max_pool2d_backward_cuda(dy.float(), xb.float())
+    pdx32 = max_pool2d_backward_plain(dy.float(), xb.float())
+    torch.cuda.synchronize()
+    steps = float(((dx.float() - pdx.float()).abs()
+                   / bf16_step(pdx.float().abs())).max())
+    differ = int((dx != pdx).sum())
+    ok32 = torch.equal(dx32, pdx32)
+    print(f"K11 backward at {tuple(xb.shape)}: bf16 at {steps:.3f} of one "
+          f"bf16 step from the plain version ({differ} of {dx.numel()} "
+          f"differ), two calls equal {torch.equal(dx, dx2)}; f32 bit-equal "
+          f"{ok32}")
+    check(steps <= 1.0 and ok32 and torch.equal(dx, dx2),
+          "K11 backward outside its limits")
+    _, idx = F.max_pool2d(xb, 3, 2, 1, return_indices=True)
+    out["K11_max_pool_backward"] = record_kernel(
+        out, "K11_max_pool_backward", max_err(dx, pdx),
+        lambda: _max_pool2d_backward_cuda(dy, xb),
+        lambda: max_pool2d_backward_plain(dy, xb),
+        2.0 * (dy.numel() + 2 * xb.numel()), 0.0,
+        lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+            dy, xb, [3, 3], [2, 2], [1, 1], [1, 1], False, idx))
+    out["K11_max_pool_backward"].update(
+        library_call="aten.max_pool2d_with_indices_backward (F.max_pool2d's "
+                     "backward, given the forward's indices), bf16",
+        timed_as=f"a ResNet-50 train step's pool cotangent, batch {TRAIN_B}",
+        bf16_steps_vs_plain=steps, bf16_differing=differ,
+        f32_bit_equal=ok32)
+    return out
+
+
+def _stem_entries(fwd_cases, bwd_cases) -> dict:
+    """K10's entries from the per-shape cases of its 7x7 shape: the
+    forward's at the served batch (:func:`check_conv_kernels`), the weight
+    gradient's at a train step's (:func:`check_conv_backward_kernels`)."""
+    f = next(c for c in fwd_cases if c["k"] == 7)
+    w = next(c for c in bwd_cases if c["k"] == 7)
+    return {
+        "K10_stem": {
+            "max_abs_err": f["max_abs_err"], "ms": f["ms"],
+            "plain_ms": f["plain_ms"], "library_ms": f["library_ms"],
+            "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
+            "f32_max_rel_err": f["f32_rel_err"],
+            "library_call": "F.conv2d(x, w, bias, 2, 3) (cuDNN), bf16 "
+                            "channels_last",
+            "timed_as": f"the served ResNet-50's stem at batch {B}, bias "
+                        "and ReLU of the folded BN",
+            "cases": [f]},
+        "K10_stem_wgrad": {
+            "max_abs_err": w["wgrad_max_abs_err"], "ms": w["wgrad_ms"],
+            "plain_ms": w["wgrad_plain_ms"],
+            "library_ms": w["wgrad_library_ms"],
+            "bound_ms": w["wgrad_bound_ms"], "bound_by": w["wgrad_bound_by"],
+            "f32_max_rel_err": w["wgrad_f32_rel_err"],
+            "library_call": "torch.ops.aten.convolution_backward (cuDNN), "
+                            "the weight gradient alone, bf16",
+            "timed_as": f"a ResNet-50 train step's stem at batch {TRAIN_B}",
+            "cases": [w]},
+    }
+
+
+def resnet(dev, eval_data):
+    """Phase 11, the ResNet family on the card: ResNet-50 served at batch
+    32 and 128 (exactly 52 K5-conv, one K10 and one K11 launch a forward;
+    request time, device busy time and idle share), its served forward
+    profiled (no cuDNN convolution or ATen pooling kernel), its bf16
+    backbone against the plain route, evaluated at batch 32; K5-conv at
+    every conv shape of ResNet-50 and ResNet-18 that HRNet-W48 lacks, K10
+    and K11 against their plain versions; then ResNet-50 and ResNet-18
+    trained at batch 48 (1 warm-up and 4 timed steps on one batch: the
+    launches of every backbone kernel a step, K4 at every BN, no library
+    convolution or pooling operator, steps/s and peak memory), with
+    K5-dgrad, K5-wgrad and K10's weight gradient at each new shape of a
+    recorded train step. Returns (K10 and K11 entries, ResNet-50's
+    training launches, serving and evaluation launches, a summary)."""
+    import torch
+
+    from shapy_tpu_torch.flagship import synthetic_requests
+    from shapy_tpu_torch.models.backbones import layers
+
+    summary, checked = {}, {}
+    seen_fwd = {s for s in BACKBONE_SHAPES}
+    seen_bwd = set(seen_fwd)
+    serve_launches = eval_launches = train_launches = None
+    for depth in (50, 18):
+        n = RESNET_CONVS[depth]
+        base = resnet_base(depth)
+        reg = copy.deepcopy(base).to(dev).prepare_for_eval_(torch.bfloat16)
+        check(not any(isinstance(m, layers.BatchNorm2d)
+                      for m in reg.modules()), "a BN left unfolded")
+        what = f"ResNet-{depth}"
+        per_forward = {"K5_conv": n, "K10_stem": 1, "K11_max_pool": 1}
+        requests = {}
+        for b in RESNET_SERVE_B if depth == 50 else (B,):
+            images, affines = synthetic_requests(b, IMAGE_H, IMAGE_W, CROP,
+                                                 SEED)
+            requests[b] = (torch.from_numpy(images).to(dev),
+                           torch.from_numpy(affines).to(dev))
+        convs, _ = backbone_calls(reg.backbone, requests[B])
+        shapes = {(x.shape[1], w.shape[0], w.shape[-1], s, x.shape[2])
+                  for x, w, _b, _r, _relu, s in convs}
+        fwd = check_conv_kernels(convs, (n + 1, len(shapes)), seen_fwd,
+                                 replays=False)
+        seen_fwd |= shapes
+        if depth == 50:
+            with torch.inference_mode():  # the stem's output, K11's input
+                x_pool = layers.conv2d_act(*convs[0])
+            summary["resnet50_routes"] = check_conv_routes(
+                reg.backbone, requests[B], convs, pools=1)
+            summary["resnet50_backbone"] = check_backbone_routes(
+                reg, requests[B])
+            for b, req in requests.items():
+                launches, rate = serve(reg, req, per_forward,
+                                       RESNET_SERVE_KERNELS, f"{what} serve")
+                summary[f"resnet50_serve_b{b}"] = request_device(reg, req,
+                                                                 rate)
+                print(f"{what} request at batch {b}: "
+                      f"{json.dumps(summary[f'resnet50_serve_b{b}'])}; "
+                      f"{gpu_line()}")
+                if b == B:
+                    serve_launches = launches
+            served = summary[f"resnet50_serve_b{B}"]["images_per_s"]
+            eval_launches, rate = evaluate(
+                reg, eval_data, served, per_forward, RESNET_EVAL_KERNELS,
+                f"{what} evaluate")
+            summary["resnet50_eval_b32_images_per_s"] = rate
+        del convs, reg
+        per_step = dict(per_forward, K5_dgrad=n, K5_wgrad=n,
+                        K10_stem_wgrad=1, K11_max_pool_backward=1)
+        bconvs, _, bns, pools = train_step_calls(
+            base, dev, (n + 1, n, 0, n + 1, 1))
+        bwd = check_conv_backward_kernels(bconvs, len(shapes), seen_bwd,
+                                          replays=False)
+        seen_bwd |= shapes
+        if depth == 50:
+            checked.update(_stem_entries(fwd["cases"], bwd["cases"]))
+            checked.update(check_pool_kernels(x_pool, pools))
+            del x_pool
+        summary[f"resnet{depth}_new_shapes"] = {
+            "forward": len(fwd["cases"]), "backward": len(bwd["cases"])}
+        del bconvs, bns, pools
+        launches, rates = train(
+            base, dev, per_step, (RESNET_TRAIN_WARMUP, RESNET_TRAIN_STEPS),
+            RESNET_TRAIN_KERNELS, ("_Conv2dActBackward", "_MaxPool2d"),
+            f"{what} train")
+        for name in ("K4_bn_forward", "K4_bn_backward"):
+            check(launches[name] == (n + 1) * RESNET_TRAIN_STEPS,
+                  f"{what}: {launches[name]} {name} launches, expected "
+                  f"{n + 1} a step")
+        summary[f"resnet{depth}_train"] = rates
+        if depth == 50:
+            train_launches = launches
+        del base
+        torch.cuda.empty_cache()
+    return checked, train_launches, serve_launches, eval_launches, summary
 
 
 class PlainMeasurements:
@@ -3842,7 +4208,7 @@ def main() -> int:
     checked["K5_conv"]["backbone"] = check_backbone_routes(regressor,
                                                            requests)
     stamp("phase 2: K5 backward, K4 replay")
-    convs, fuses, bns = train_step_calls(base, dev)
+    convs, fuses, bns, _ = train_step_calls(base, dev)
     checked["K5_conv"]["train_forward"] = check_train_forward_replay(convs)
     checked.update(check_conv_backward_kernels(convs))
     checked.update(check_fuse_backward_kernel(fuses))
@@ -3867,7 +4233,7 @@ def main() -> int:
     stamp("phase 6")
     score_launches = score(regressor, eval_data, dev)
     stamp("phase 7")
-    train_launches = train(base, dev)
+    train_launches, _ = train(base, dev)
     stamp("phase 8")
     fit_launches = fit(regressor.model, anchors, dev)
     stamp("phase 9")
@@ -3875,6 +4241,10 @@ def main() -> int:
                                regressor.body_measurements, k6_plain, dev)
     stamp("phase 10")
     train_resume(base, dev)
+    stamp("phase 11")
+    (resnet_checked, resnet_train, resnet_serve, resnet_eval,
+     resnet_summary) = resnet(dev, eval_data)
+    checked.update(resnet_checked)
     stamp("done")
 
     entries = []
@@ -3888,7 +4258,8 @@ def main() -> int:
             # K1-exact, the contact phase (9) for its kernels, the scorer
             # (phase 6) for K1-AoS's points and their backward,
             # evaluation (phase 5) for the others (K2, K8a, K8b)
-            "launches": (train_launches[name] if name in TRAIN_KERNELS
+            "launches": (resnet_train[name] if name in RESNET_KERNELS
+                         else train_launches[name] if name in TRAIN_KERNELS
                          else contact_launches[name]
                          if name in CONTACT_KERNELS
                          else score_launches[name] if name.startswith(
@@ -3900,6 +4271,9 @@ def main() -> int:
             "launches_fit": fit_launches.get(name, 0),
             "launches_eval": eval_launches[name],
             "launches_serve": serve_launches[name],
+            "launches_resnet50_train": resnet_train[name],
+            "launches_resnet50_serve": resnet_serve[name],
+            "launches_resnet50_eval": resnet_eval[name],
             **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by")},
             # K4: F.batch_norm(training=True); K5-conv: F.conv2d (cuDNN);
@@ -3913,6 +4287,7 @@ def main() -> int:
         entries.append(entry)
         check(all(math.isfinite(c[k]) for k in ("ms", "plain_ms",
                                                 "bound_ms")), "timing")
+    print(f"ResNet: {json.dumps(resnet_summary)}")
     print(gpu_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

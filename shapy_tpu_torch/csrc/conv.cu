@@ -440,6 +440,113 @@ cudaError_t launch_stem(const ConvShape& s, const void* x, const void* w,
 // SM a block, else 64 (a constant; the tile changes no sum).
 constexpr int kSms = 132;
 
+// ---- K10's forward: the ResNet's 7x7 / stride-2 stem, bf16, 64 channels --
+//
+// The general stem kernel above fills its A tile a 2-byte global load per
+// element (147 of them a pixel, bounds checked one by one). Here a block
+// takes runs of 128 output pixels of one output row: it copies the 7 input
+// rows they read (pad 3 as zeros) into shared memory once, and the
+// im2col view is read from that patch as it stands. With K ordered (tap
+// row r, then the 21 (column, channel) pairs of that row, padded to 24
+// with zero weights), pixel m's K slice of row r is the patch's elements
+// 6m .. 6m + 23 of row r: every mma.sync A pair is one aligned 32-bit
+// shared load. The weight, 64 x 168 in that order (zero past each row's
+// 21 and past K), stays in shared memory for all of a block's runs. The
+// f32 sums in K order, then the same epilogue as the kernel above.
+constexpr int kStemRows = 7, kStemJ = 24;        // taps a row, padded
+constexpr int kStemSteps = (kStemRows * kStemJ + 15) / 16;  // 11 k16 steps
+constexpr int kStemWLd = kStemSteps * 16 + 8;    // halves a weight row
+constexpr int kStemRun = 128;                    // output pixels a run
+constexpr int kStemPatch = 6 * kStemRun + 24;    // halves a patch row
+
+__global__ void __launch_bounds__(kThreadsMma) stem7_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ w,
+    const bf16* __restrict__ bias, bf16* __restrict__ y, ConvShape s,
+    int relu, int runs) {
+  __shared__ __align__(16) bf16 Ws[64][kStemWLd];
+  __shared__ __align__(16) bf16 P[kStemRows * kStemPatch];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  for (int e = tid; e < 64 * kStemWLd; e += kThreadsMma) {
+    const int n = e / kStemWLd, k = e - n * kStemWLd;
+    const int r = k / kStemJ, j = k - r * kStemJ;
+    Ws[n][k] = r < kStemRows && j < 21 ? w[n * 147 + r * 21 + j] : zero;
+  }
+  const int wruns = (s.Wo + kStemRun - 1) / kStemRun;
+  for (int run = blockIdx.x; run < runs; run += gridDim.x) {
+    const int wo0 = run % wruns * kStemRun;
+    const int ho = run / wruns % s.Ho, n = run / wruns / s.Ho;
+    const int wi0 = 2 * wo0 - 3;
+    __syncthreads();  // the last run's reads of the patch are done
+    for (int e = tid; e < kStemRows * kStemPatch; e += kThreadsMma) {
+      const int r = e / kStemPatch, q = e - r * kStemPatch;
+      const int hi = 2 * ho - 3 + r, wi = wi0 + q / 3;
+      P[e] = hi >= 0 && hi < s.H && wi >= 0 && wi < s.W
+                 ? x[((size_t)(n * s.H + hi) * s.W + wi) * 3 + q % 3]
+                 : zero;
+    }
+    __syncthreads();
+    float acc[2][8][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+#pragma unroll
+    for (int step = 0; step < kStemSteps; ++step) {
+      // This lane's K pairs k and k + 8; past K (row 7) the weight is
+      // zero, so the patch is read at row 6 instead of past its end.
+      const int k0 = 16 * step + 2 * t, k1 = k0 + 8;
+      const int r0 = min(k0 / kStemJ, kStemRows - 1);
+      const int r1 = min(k1 / kStemJ, kStemRows - 1);
+      const int o0 = r0 * kStemPatch + k0 % kStemJ;
+      const int o1 = r1 * kStemPatch + k1 % kStemJ;
+      unsigned a[2][4], b[8][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int m = warp * 32 + mt * 16 + g;
+        a[mt][0] = *reinterpret_cast<const unsigned*>(&P[o0 + 6 * m]);
+        a[mt][1] = *reinterpret_cast<const unsigned*>(&P[o0 + 6 * m + 48]);
+        a[mt][2] = *reinterpret_cast<const unsigned*>(&P[o1 + 6 * m]);
+        a[mt][3] = *reinterpret_cast<const unsigned*>(&P[o1 + 6 * m + 48]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        b[nt][0] = *reinterpret_cast<const unsigned*>(&Ws[nt * 8 + g][k0]);
+        b[nt][1] = *reinterpret_cast<const unsigned*>(&Ws[nt * 8 + g][k1]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) mma_bf16(acc[mt][nt], a[mt], b[nt]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int wo = wo0 + warp * 32 + mt * 16 + g + 8 * half;
+        if (wo >= s.Wo) continue;
+        const size_t row = ((size_t)n * s.Ho + ho) * s.Wo + wo;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const int co = nt * 8 + 2 * t;
+          const size_t idx = row * 64 + co;
+          const float v0 = epilogue<bf16>(acc[mt][nt][2 * half], bias,
+                                          (const bf16*)nullptr, idx, co,
+                                          relu);
+          const float v1 = epilogue<bf16>(acc[mt][nt][2 * half + 1], bias,
+                                          (const bf16*)nullptr, idx + 1,
+                                          co + 1, relu);
+          *reinterpret_cast<__nv_bfloat162*>(y + idx) =
+              __floats2bfloat162_rn(v0, v1);
+        }
+      }
+    }
+  }
+}
+
 cudaError_t launch_stem_any(const ConvShape& s, const void* x, const void* w,
                             const void* bias, const void* res, void* y,
                             int relu, cudaStream_t st) {
@@ -1749,6 +1856,19 @@ cudaError_t encode_map(CUtensorMap* map, int rank, const void* base,
     }
     encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
   }
+  // The encoding needs the device's context current on this host thread,
+  // which the runtime binds only at its first call that needs one: an
+  // autograd worker thread whose first call into CUDA is a backward's map
+  // found none, and the map was refused. Bound once per thread
+  // (cudaSetDevice makes the primary context current).
+  thread_local bool bound = false;
+  if (!bound) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaSetDevice(dev);
+    if (err != cudaSuccess) return err;
+    bound = true;
+  }
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   const CUresult res = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
@@ -2289,4 +2409,71 @@ extern "C" int conv2d_wgmma_smem(int kind, int bn, int bk, int* out) {
     out[1] = 1;
   }
   return 0;
+}
+
+// ---- K10: the ResNet's 7x7 stem --------------------------------------------
+//
+// Replaces: shapy_tpu/models/backbones/resnet.py:54, conv_bn_relu(...,
+// "conv1", "bn1", images, 64, 7, 2, 3): layers.py:91 conv2d with k = 7,
+// stride 2, pad 3 on the 3 image channels (with fold_bn in eval), its ReLU,
+// and its weight gradient in training (the images take no data gradient).
+// What bounds it on the H100: bytes at batch 32 (x 12.6 MB + y 67.1 MB
+// against 9.87 GFLOP: 0.024 ms at 3.35 TB/s, 0.010 ms at 989 TFLOP/s).
+// Design: the forward in bf16 at stride 2 and 64 output channels (the
+// ResNet's) is stem7_kernel above: the input rows a run of output pixels
+// reads, copied once into shared memory with pad 3 as zeros, K = 7 x 7 x 3
+// = 147 laid out as 7 rows of 24 (zero weights past each row's 21 and past
+// K, so no tap is read out of bounds) in eleven 16-deep mma.sync steps;
+// the epilogue is the 3x3 stem's (bias of the folded BN, ReLU) or none
+// (training). Other shapes and f32 take the general stem kernels with k =
+// 7 read from the shape. The weight gradient is the scalar mma.sync
+// kernel over fixed row partitions from the shape alone, then the
+// fixed-order reduce with dbias in the same pass. Two entry points of
+// their own, so that a run counts K10's launches apart from K5's.
+
+// y (N, Ho, Wo, Cout) = relu?(conv(x, w, stride, pad 3) + bias) for x (N, H,
+// W, 3) NHWC, w (Cout, 7, 7, 3) OHWI, bias (Cout,) or NULL; dtype 0 =
+// float32 (the CUDA-core kernel), 1 = bfloat16 (mma.sync); Cout % 8 == 0,
+// y 16-byte aligned. Returns cudaGetLastError(), or cudaErrorInvalidValue.
+extern "C" int conv2d_stem_forward(const void* x, const void* w,
+                                   const void* bias, void* y, int N, int H,
+                                   int W, int Cin, int Cout, int k,
+                                   int stride, int relu, int dtype,
+                                   void* stream) {
+  if (k != 7 || Cin != 3 || (stride != 1 && stride != 2)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (dtype == 1 && stride == 2 && Cout == 64) {
+    const ConvShape s = conv_shape(N, H, W, Cin, Cout, k, stride);
+    const long long runs =
+        (long long)N * s.Ho * ((s.Wo + kStemRun - 1) / kStemRun);
+    if (runs == 0) return (int)cudaSuccess;
+    if (runs > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    // A persistent grid: blocks of 34.5 KB of shared memory, six an SM.
+    const int grid = runs < 6 * kSms ? (int)runs : 6 * kSms;
+    stem7_kernel<<<grid, kThreadsMma, 0, (cudaStream_t)stream>>>(
+        (const bf16*)x, (const bf16*)w, (const bf16*)bias, (bf16*)y, s,
+        relu, (int)runs);
+    return (int)cudaGetLastError();
+  }
+  return conv2d_act_forward(x, w, bias, nullptr, y, nullptr, N, H, W, Cin,
+                            Cout, k, stride, relu, dtype, 0, 0, 0, 0, 0, 0,
+                            stream);
+}
+
+// K10's weight gradient: dw (Cout, 7, 7, 3) and dbias as conv2d_wgrad
+// computes them for Cin = 3 (vec 0: the scalar kernel in bf16, the
+// CUDA-core one in f32), over `parts` row partitions of rows_per_part (a
+// multiple of 32). Returns cudaGetLastError(), or cudaErrorInvalidValue.
+extern "C" int conv2d_stem_wgrad(const void* x, const void* dy,
+                                 const void* y, void* dym, void* part,
+                                 void* pbias, void* dw, void* db, int N,
+                                 int H, int W, int Cin, int Cout, int k,
+                                 int stride, int parts, int rows_per_part,
+                                 int dtype, void* stream) {
+  if (k != 7 || Cin != 3 || (stride != 1 && stride != 2)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return conv2d_wgrad(x, dy, y, dym, part, pbias, dw, db, N, H, W, Cin, Cout,
+                      k, stride, parts, rows_per_part, 0, dtype, 0, stream);
 }

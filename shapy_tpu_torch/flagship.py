@@ -4,7 +4,9 @@
 SHAPY regressor = HRNet-W48 + 3-stage iterative MLP head (6D pose) +
 SMPL-X (synthetic assets from a seed) + measurements with K=256 hull
 directions on candidate-face subsets, weak-perspective camera with
-softplus scale.
+softplus scale. ``build_flagship(backbone="resnet50")`` (or any depth of
+``RESNET_LAYERS``) puts a ResNet in HRNet's place, as the JAX regressor's
+``backbone: {type: resnet, depth: d}`` does.
 """
 
 from __future__ import annotations
@@ -72,13 +74,27 @@ REFERENCE_EVAL_CFG = {"evaluation": {"body": {
 }}}
 
 
+def backbone_cfg(backbone: str) -> dict:
+    """The network config's ``backbone`` entry for ``"hrnet"`` (HRNet-W48)
+    or ``"resnet<depth>"`` (``"resnet18"``, ``"resnet50"`` ...)."""
+    if backbone == "hrnet":
+        return {"type": "hrnet"}
+    depth = backbone[len("resnet"):]
+    if not backbone.startswith("resnet") or not depth.isdigit():
+        raise ValueError(f"unknown backbone {backbone!r}: 'hrnet' or "
+                         "'resnet<depth>'")
+    return {"type": "resnet", "depth": int(depth)}
+
+
 def build_flagship(subdivisions: int = 2, exact_counts: bool = False,
                    mlp_layers: Sequence[int] = (1024, 1024),
                    device: str | torch.device = "cuda", seed: int = 0,
-                   num_hull_directions: int = 256) -> SMPLXRegressor:
+                   num_hull_directions: int = 256,
+                   backbone: str = "hrnet") -> SMPLXRegressor:
     """The flagship regressor on ``device``, weights initialised as the
-    JAX package initialises them, drawn from ``seed``. Call
-    ``prepare_for_eval_`` on it before serving."""
+    JAX package initialises them, drawn from ``seed``, on ``backbone``
+    (:func:`backbone_cfg`). Call ``prepare_for_eval_`` on it before
+    serving."""
     device = get_device(device)
     model = SMPLX(make_synthetic_model_data(
         "smplx", subdivisions=subdivisions, exact_counts=exact_counts))
@@ -89,7 +105,8 @@ def build_flagship(subdivisions: int = 2, exact_counts: bool = False,
         face_subsets=candidate_faces(
             v_template, model.shapedirs.numpy(), model.faces, anchors))
     network_cfg = dict(FLAGSHIP_NETWORK_CFG,
-                       mlp={"layers": list(mlp_layers), "dropout": 0.5})
+                       mlp={"layers": list(mlp_layers), "dropout": 0.5},
+                       backbone=backbone_cfg(backbone))
     return SMPLXRegressor(model, meas, FLAGSHIP_BODY_CFG, network_cfg,
                           seed=seed).to(device)
 

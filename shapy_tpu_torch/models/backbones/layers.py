@@ -20,6 +20,11 @@ the conv is followed by K4's BN. Its backward is K5-dgrad (the data
 gradient) and K5-wgrad (the weight and bias gradients) on the card, and
 ``torch.nn.grad.conv2d_input`` / ``conv2d_weight`` on the CPU.
 
+The ResNet's 7x7 stem (3 input channels) is kernel K10 (``csrc/conv.cu``
+``conv2d_stem_forward`` / ``conv2d_stem_wgrad``; the images take no data
+gradient), and its 3x3 / stride-2 max pool, :func:`max_pool2d`, kernel
+K11 (``csrc/max_pool.cu``, forward and backward).
+
 Weights stay f32 (the master copy) and each conv runs in its input's
 dtype, so a bf16 backbone trains as the JAX package's ``compute_dtype``
 bfloat16 does.
@@ -67,7 +72,16 @@ CONV_KERNEL = CudaKernel("conv.cu", {
     "conv2d_dgrad": "pppp iiiiiii iii iii i p",
     "conv2d_wgrad": "pppppppp iiiiiii ii iii p",
     "conv2d_relu_mask": "ppp ii p",
+    # K10, the ResNet's 7x7 stem on the images: forward and weight gradient
+    "conv2d_stem_forward": "pppp iiiiiii ii p",
+    "conv2d_stem_wgrad": "pppppppp iiiiiii ii i p",
 })
+POOL_KERNEL = CudaKernel("max_pool.cu", {
+    "max_pool_forward": "pp iiii i p",
+    "max_pool_backward": "pppp iiii i p",
+})
+# K10's kernel size: a 7x7 conv runs only on the 3 image channels.
+STEM_K = 7
 # The wgmma widths (N tiles) that K5-conv, K5-dgrad and K5-wgrad are built
 # for.
 _WGMMA_N = (256, 192, 128, 96, 64, 48)
@@ -445,7 +459,9 @@ def _conv2d_act_cuda(x, weight, bias, residual, relu, stride):
         raise ValueError("conv2d_act: x and weight must be 4-D")
     N, C, H, W = x.shape
     O, I, kh, kw = weight.shape
-    if I != C or kh != kw or kh not in (1, 3) or stride not in (1, 2):
+    stem = kh == STEM_K and C == 3 and residual is None
+    if (I != C or kh != kw or not (kh in (1, 3) or stem)
+            or stride not in (1, 2)):
         raise ValueError(f"conv2d_act: weight {tuple(weight.shape)}, stride "
                          f"{stride} for input {tuple(x.shape)}")
     if O % 8:
@@ -475,6 +491,11 @@ def _conv2d_act_cuda(x, weight, bias, residual, relu, stride):
         raise ValueError("conv2d_act: 2^31 elements or more")
     y = torch.empty((N, O, Ho, Wo), dtype=x.dtype, device=dev,
                     memory_format=cl)
+    if stem:  # K10: the bias and ReLU of the folded BN, or the bare conv
+        CONV_KERNEL.launch("conv2d_stem_forward", [
+            x, weight, bias, y, N, H, W, C, O, kh, stride, int(relu),
+            KERNEL_DTYPES[x.dtype]])
+        return y
     # bf16 with Cin % 8 == 0: the wgmma kernel on its plan (16-byte rows of
     # x and the weight, a copy only for a view at an odd offset); the stem
     # (Cin = 3) and f32: bn 0, no plan.
@@ -694,6 +715,11 @@ def _conv2d_wgrad_cuda(x, dy, y, weight_shape, stride, bias):
                      memory_format=torch.channels_last)
     db = torch.empty(O, dtype=dt, device=dev) if bias else None
     dym = None if y is None else torch.empty_like(dy)
+    if k == STEM_K:  # K10's weight gradient (the scalar mma.sync kernel)
+        CONV_KERNEL.launch("conv2d_stem_wgrad", [
+            x, dy, y, dym, part, pbias, dw, db, N, H, W, C, O, k, stride,
+            parts, per, KERNEL_DTYPES[dt]])
+        return dw, db, dym
     CONV_KERNEL.launch("conv2d_wgrad", [
         x, dy, y, dym, part, pbias, dw, db, N, H, W, C, O, k, stride,
         parts, per, vec, KERNEL_DTYPES[dt], _wgmma_n(O)])
@@ -803,18 +829,144 @@ def conv2d_act(x: torch.Tensor, weight: torch.Tensor,
     residual])`` for x (N, C, H, W) and weight (O, C, k, k) of one dtype,
     f32 or bf16: kernel K5-conv for CUDA tensors (x and residual
     channels_last, the weight OHWI, i.e. channels_last; k 1 or 3, stride 1
-    or 2), :func:`conv2d_act_plain` for CPU tensors. When a tensor
-    argument needs a gradient it runs through an autograd Function whose
-    backward is K5-wgrad and K5-dgrad on the card (the data gradient needs
-    Cin % 8 == 0) and the plain versions on the CPU; otherwise no autograd
-    node is made."""
+    or 2), :func:`conv2d_act_plain` for CPU tensors. A 7x7 kernel is taken
+    only on 3 input channels and without a residual (the ResNet's stem:
+    kernel K10 on the card). When a tensor argument needs a gradient it
+    runs through an autograd Function whose backward is K5-wgrad (K10's
+    for the stem) and K5-dgrad on the card (the data gradient needs Cin %
+    8 == 0) and the plain versions on the CPU; otherwise no autograd node
+    is made."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"conv2d_act: unsupported device {x.device}")
+    if weight.shape[-1] == STEM_K and (x.shape[1] != 3
+                                       or residual is not None):
+        raise ValueError("conv2d_act: a 7x7 kernel only on 3 input channels "
+                         "and without a residual (the ResNet stem, K10)")
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, weight, bias, residual)):
         return _Conv2dAct.apply(x, weight, bias, residual, relu, stride)
     return _conv2d_act_any(x, weight, bias, residual, relu, stride)
+
+
+def _pool_windows(x: torch.Tensor) -> torch.Tensor:
+    """The 3x3 / stride-2 / pad-1 windows of x (N, C, H, W) as (N, C, Ho,
+    Wo, 9), taps in row-major order, the padding -inf (never a maximum)."""
+    xp = F.pad(x, (1, 1, 1, 1), value=float("-inf"))
+    return xp.unfold(2, 3, 2).unfold(3, 3, 2).flatten(-2)
+
+
+def max_pool2d_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K11's forward: the 3x3 / stride-2 / pad-1 max of x
+    (N, C, H, W), as ``jax.lax.reduce_window(max, -inf)``; Ho = (H - 1) //
+    2 + 1."""
+    return _pool_windows(x).amax(dim=-1).contiguous(
+        memory_format=torch.channels_last)
+
+
+def max_pool2d_backward_plain(dy: torch.Tensor, x: torch.Tensor
+                              ) -> torch.Tensor:
+    """Plain version of K11's backward, the VJP of ``reduce_window`` max:
+    each window's dy goes to the first maximum of the window in row-major
+    order (``torch.max``'s index), never to the padding; a pixel's
+    contributions are summed in f32 in the windows' row-major order and
+    rounded once to dy's dtype. A pixel lies at tap row 1 of one window,
+    or at tap row 2 of one window and tap row 0 of the next: adding the
+    taps of rows (1, 2) before row 0, and of columns likewise, is that
+    order."""
+    N, C, H, W = x.shape
+    Ho, Wo = dy.shape[2:]
+    arg = _pool_windows(x).max(dim=-1).indices
+    g = _wide(dy)
+    acc = torch.zeros((N, C, 2 * Ho + 1, 2 * Wo + 1), dtype=g.dtype,
+                      device=dy.device)
+    first, second = (1, 2), (0,)
+    for rows in (first, second):
+        for cols in (first, second):
+            for r in rows:
+                for c in cols:
+                    acc[:, :, r:r + 2 * Ho:2, c:c + 2 * Wo:2] += torch.where(
+                        arg == 3 * r + c, g, torch.zeros((), dtype=g.dtype))
+    return acc[:, :, 1:H + 1, 1:W + 1].to(dy.dtype).contiguous(
+        memory_format=torch.channels_last)
+
+
+def _pool_check(x: torch.Tensor, what: str) -> None:
+    """Raise on what K11 does not take: NHWC rows of 16 bytes (C % 8 == 0
+    in bf16, % 4 in f32), channels_last-contiguous, 16-byte aligned."""
+    if x.dtype not in KERNEL_DTYPES or x.dim() != 4:
+        raise ValueError(f"{what}: a 4-D bf16 or f32 tensor, not "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if x.shape[1] % (16 // x.element_size()):
+        raise ValueError(f"{what}: {x.shape[1]} channels are not 16-byte "
+                         "rows")
+    if (not x.is_contiguous(memory_format=torch.channels_last)
+            or x.data_ptr() % 16):
+        raise ValueError(f"{what}: must be channels_last-contiguous and "
+                         "16-byte aligned")
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"{what}: 2^31 elements or more")
+
+
+def _max_pool2d_cuda(x: torch.Tensor) -> torch.Tensor:
+    """Kernel K11's forward."""
+    _pool_check(x, "max_pool2d")
+    N, C, H, W = x.shape
+    y = torch.empty((N, C, (H - 1) // 2 + 1, (W - 1) // 2 + 1),
+                    dtype=x.dtype, device=x.device,
+                    memory_format=torch.channels_last)
+    POOL_KERNEL.launch("max_pool_forward", [x, y, N, H, W, C,
+                                            KERNEL_DTYPES[x.dtype]])
+    return y
+
+
+def _max_pool2d_backward_cuda(dy: torch.Tensor, x: torch.Tensor
+                              ) -> torch.Tensor:
+    """Kernel K11's backward: dx from dy and x (each window's maximum found
+    again from x, a byte a channel in scratch, then gathered)."""
+    dy = _aligned_cl(dy.to(x.dtype))
+    _pool_check(dy, "max_pool2d backward")
+    N, C, H, W = x.shape
+    arg = torch.empty((N, *dy.shape[2:], C), dtype=torch.uint8,
+                      device=x.device)
+    dx = torch.empty_like(x, memory_format=torch.channels_last)
+    POOL_KERNEL.launch("max_pool_backward", [dy, x, arg, dx, N, H, W, C,
+                                             KERNEL_DTYPES[x.dtype]])
+    return dx
+
+
+class _MaxPool2d(torch.autograd.Function):
+    """K11 with its VJP: the plain versions for CPU tensors, the kernels
+    for CUDA tensors. Saves x (the backward finds each window's maximum
+    again)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        if x.device.type == "cpu":
+            return max_pool2d_plain(x)
+        return _max_pool2d_cuda(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (x,) = ctx.saved_tensors
+        if x.device.type == "cpu":
+            return max_pool2d_backward_plain(dy, x)
+        return _max_pool2d_backward_cuda(dy, x)
+
+
+def max_pool2d(x: torch.Tensor) -> torch.Tensor:
+    """The ResNet's 3x3 / stride-2 / pad-1 max pool of x (N, C, H, W), f32
+    or bf16: kernel K11 for CUDA tensors (channels_last, 16-byte rows),
+    :func:`max_pool2d_plain` for CPU tensors; differentiable through K11's
+    backward (:func:`max_pool2d_backward_plain` on the CPU)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"max_pool2d: unsupported device {x.device}")
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _MaxPool2d.apply(x)
+    if x.device.type == "cpu":
+        return max_pool2d_plain(x)
+    return _max_pool2d_cuda(x)
 
 
 class Conv2d(nn.Conv2d):

@@ -1,7 +1,8 @@
 """The SHAPY body regressor, eval and train forward (port of
 ``shapy_tpu/models/heads/regressor.py``).
 
-HRNet-W48 features -> 3-stage iterative MLP head -> 6D pose decode ->
+HRNet-W48 (or ResNet-18/34/50/101/152, ``backbone: {type: resnet,
+depth: d}``) features -> 3-stage iterative MLP head -> 6D pose decode ->
 SMPL-X LBS on the last stage -> weak-perspective projection ->
 measurements on ``v_shaped``. The flat parameter layout matches the JAX
 package and the reference: pose spaces in order, then betas, then the
@@ -17,12 +18,19 @@ BN, kernel K4 on the card) with f32 master weights, and ``apply(...,
 train=True)`` adds the head's dropout and measures on all faces.
 
 Ported so far: the SMPL-X regressor with the iterative MLP head,
-``predict_hands`` and ``predict_face`` off (the flagship config). Not
-yet: the RNN head, the ResNet backbone, the B2A/A2B attribute plugins.
+``predict_hands`` and ``predict_face`` off (the flagship config), on
+HRNet-W48 or a ResNet. Not yet, and refused with ``ValueError`` where a
+config asks for them: the RNN head, HRNet's ``use_old_impl`` topology,
+a mean pose or shape mean read from a file (``mean_pose_path``,
+``shape_mean_path`` naming an existing file; a path to no file is
+ignored, as the JAX package ignores it), the B2A/A2B attribute plugins.
+``compute_measurements`` builds the measurements from the reference's
+YAMLs when none are given, as the JAX package does.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -33,6 +41,7 @@ from shapy_tpu_torch.data.crop import crop_normalize
 from shapy_tpu_torch.measure.measurements import BodyMeasurements
 from shapy_tpu_torch.models.backbones.hrnet import HRNET_OUTPUT_DIM, HRNet
 from shapy_tpu_torch.models.backbones.layers import BatchNorm2d, fold_bn_
+from shapy_tpu_torch.models.backbones.resnet import RESNET_FEAT_DIM, ResNet
 from shapy_tpu_torch.models.body.model import SMPLX
 from shapy_tpu_torch.models.cameras.projection import build_cam_proj
 from shapy_tpu_torch.models.heads.mlp import MLP
@@ -69,15 +78,29 @@ class SMPLXRegressor(nn.Module):
         if (mlp_cfg.get("activation") or {}).get("type", "none") not in (
                 "none", "None"):
             raise ValueError("MLP activations are not ported yet")
-        backbone_type = dict(network_cfg.get("backbone") or {}).get(
-            "type", "hrnet")
-        if backbone_type != "hrnet":
-            raise ValueError(f"backbone not ported yet: {backbone_type}")
+        backbone_cfg = dict(network_cfg.get("backbone") or {})
+        self.backbone_type = backbone_cfg.get("type", "hrnet")
+        if self.backbone_type not in ("hrnet", "resnet"):
+            raise ValueError(f"backbone not ported yet: {self.backbone_type}")
+        if self.backbone_type == "hrnet" and bool(
+                dict(backbone_cfg.get("hrnet") or {}).get(
+                    "use_old_impl", backbone_cfg.get("use_old_impl", False))):
+            raise ValueError("HRNet's use_old_impl topology is not ported yet")
         if network_cfg.get("type", "iterative-mlp") not in (
                 "iterative-mlp", "SMPLXRegressor"):
             raise ValueError("only the iterative-mlp head is ported")
+        for key in ("mean_pose_path", "shape_mean_path"):
+            path = os.path.expandvars(str(model_cfg.get(key, "")))
+            if path and os.path.exists(path):
+                raise ValueError(f"{key}: reading {path!r} is not ported yet")
 
         self.model = body_model
+        if measurements is None and network_cfg.get("compute_measurements",
+                                                    False):
+            measurements = BodyMeasurements(
+                None, body_model.faces, model_type=body_model.NAME,
+                meas_definition_path=network_cfg.get("meas_definition_path"),
+                meas_vertices_path=network_cfg.get("meas_vertices_path"))
         self.body_measurements = measurements
 
         cam = build_cam_proj(network_cfg.get("camera"))
@@ -112,9 +135,14 @@ class SMPLXRegressor(nn.Module):
              for d in self.spaces.values()])[None]
 
         gen = torch.Generator().manual_seed(seed)
-        self.backbone = HRNet()
+        if self.backbone_type == "hrnet":
+            self.backbone = HRNet()
+            self.feat_dim = HRNET_OUTPUT_DIM
+        else:
+            depth = int(backbone_cfg.get("depth", 50))
+            self.backbone = ResNet(depth)
+            self.feat_dim = RESNET_FEAT_DIM[depth]
         self.backbone.init_weights_(gen)
-        self.feat_dim = HRNET_OUTPUT_DIM
         self.head = MLP(
             self.feat_dim + self.param_dim, self.param_dim,
             tuple(mlp_cfg.get("layers", (1024, 1024))),
@@ -166,10 +194,14 @@ class SMPLXRegressor(nn.Module):
 
     # -- forward -----------------------------------------------------------
     def compute_features(self, images: torch.Tensor) -> torch.Tensor:
-        """images (B, H, W, 3) NHWC -> features (B, 2048) f32."""
+        """images (B, H, W, 3) NHWC -> features (B, feat_dim) f32: HRNet's,
+        or a ResNet's ``avg_pooling``."""
         x = images.permute(0, 3, 1, 2).to(self.backbone_dtype)
         x = x.contiguous(memory_format=torch.channels_last)
-        return self.backbone(x).float()
+        feats = self.backbone(x)
+        if self.backbone_type == "resnet":
+            feats = feats["avg_pooling"]
+        return feats.float()
 
     def iterative_stages(self, features: torch.Tensor,
                          generator: Optional[torch.Generator] = None

@@ -4,9 +4,11 @@ step spend their time on the card (the port's counterpart of
 
     python -m shapy_tpu_torch.utils.profiling [--batch 32] [--trace-dir D]
     python -m shapy_tpu_torch.utils.profiling --train [--batch 48]
+    python -m shapy_tpu_torch.utils.profiling --backbone resnet50 [--train]
 
-Builds the flagship as ``chip_smoke.py`` does (HRNet-W48, SMPL-X at the
-real template's counts, bf16 backbone, random weights from a seed), then:
+Builds the flagship as ``chip_smoke.py`` does (HRNet-W48, or the ResNet
+that ``--backbone`` names, SMPL-X at the real template's counts, bf16
+backbone, random weights from a seed), then:
 
 * times each phase of ``apply_from_full_images`` with CUDA events, idle
   gaps included (ingest K2, backbone, head + body model + camera +
@@ -153,9 +155,11 @@ def _trace(fn, name: str, trace_dir: str | None, steps: int = 3) -> dict:
 
 
 def profile_flagship(batch: int = 32, iters: int = 10,
-                     trace_dir: str | None = None) -> dict:
+                     trace_dir: str | None = None,
+                     backbone: str = "hrnet") -> dict:
     dev = get_device("cuda")
-    reg = build_flagship(subdivisions=5, exact_counts=True, device="cpu")
+    reg = build_flagship(subdivisions=5, exact_counts=True, device="cpu",
+                         backbone=backbone)
     spread_init_(reg, seed=0, beta_scale=0.25)
     reg = reg.to(dev).prepare_for_eval_(torch.bfloat16)
     images, affines = synthetic_requests(batch, 360, 480, 256, seed=0)
@@ -217,6 +221,7 @@ def profile_flagship(batch: int = 32, iters: int = 10,
 
     return {
         "card": _card(),
+        "backbone": backbone,
         "batch": batch,
         "phase_ms_cuda_events": phases,
         "backbone_share_of_request": phases["backbone"] / phases["request"],
@@ -229,7 +234,8 @@ def profile_flagship(batch: int = 32, iters: int = 10,
 
 
 def profile_train_step(batch: int = 48, iters: int = 5,
-                       trace_dir: str | None = None) -> dict:
+                       trace_dir: str | None = None,
+                       backbone: str = "hrnet") -> dict:
     """Phase times, idle share, launches, top kernels and peak memory of
     one train step of the flagship at ``batch``."""
     from shapy_tpu_torch.flagship import synthetic_train_batches
@@ -237,7 +243,8 @@ def profile_train_step(batch: int = 48, iters: int = 5,
     from shapy_tpu_torch.train.step import init_train_state, make_train_step
 
     dev = get_device("cuda")
-    reg = build_flagship(subdivisions=5, exact_counts=True, device="cpu")
+    reg = build_flagship(subdivisions=5, exact_counts=True, device="cpu",
+                         backbone=backbone)
     spread_init_(reg, seed=0, beta_scale=0.25)
     reg = reg.to(dev).prepare_for_train_(torch.bfloat16)
     data = synthetic_train_batches(reg, 1, batch, 256, seed=9)[0]
@@ -278,6 +285,7 @@ def profile_train_step(batch: int = 48, iters: int = 5,
     traced = _trace(full, "train_step", trace_dir)
     return {
         "card": _card(),
+        "backbone": backbone,
         "batch": batch,
         "phase_ms_cuda_events": phases,
         "phased_step_wall_ms": wall_ms,
@@ -300,11 +308,16 @@ def main() -> None:
     parser.add_argument("--train", action="store_true",
                         help="profile one train step instead")
     parser.add_argument("--trace-dir", default=None)
+    parser.add_argument("--backbone", default="hrnet",
+                        choices=("hrnet", "resnet18", "resnet50"),
+                        help="HRNet-W48 (the flagship's) or a ResNet")
     args = parser.parse_args()
     if args.train:
-        out = profile_train_step(args.batch or 48, args.iters, args.trace_dir)
+        out = profile_train_step(args.batch or 48, args.iters, args.trace_dir,
+                                 args.backbone)
     else:
-        out = profile_flagship(args.batch or 32, args.iters, args.trace_dir)
+        out = profile_flagship(args.batch or 32, args.iters, args.trace_dir,
+                               args.backbone)
     print(json.dumps(out, indent=1))
 
 

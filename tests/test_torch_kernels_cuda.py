@@ -63,6 +63,7 @@ from shapy_tpu_torch.models.backbones.hrnet import (
 from shapy_tpu_torch.models.backbones.layers import (
     BN_KERNEL,
     CONV_KERNEL,
+    POOL_KERNEL,
     batch_norm_train,
     batch_norm_train_backward_plain,
     batch_norm_train_plain,
@@ -74,8 +75,12 @@ from shapy_tpu_torch.models.backbones.layers import (
     conv2d_wgrad_bf16_tolerance,
     conv_act,
     fold_bn_,
+    max_pool2d,
+    max_pool2d_backward_plain,
+    max_pool2d_plain,
     relu_mask_plain,
 )
+from shapy_tpu_torch.models.backbones.resnet import ResNet
 from shapy_tpu_torch.models.body.assets import make_synthetic_model_data
 from shapy_tpu_torch.models.body.lbs import SKIN_KERNEL, skin, skin_plain
 from shapy_tpu_torch.models.body.model import SMPLX
@@ -1254,7 +1259,8 @@ def test_conv_backward_kernels_match_plain(dev, dtype, case):
     finally:
         torch.backends.cudnn.allow_tf32 = saved
     assert counts == {"conv2d_act_forward": 1, "conv2d_dgrad": 1,
-                      "conv2d_wgrad": 1, "conv2d_relu_mask": 0}
+                      "conv2d_wgrad": 1, "conv2d_relu_mask": 0,
+                      "conv2d_stem_forward": 0, "conv2d_stem_wgrad": 0}
     for a, b_ in zip(got, again):
         assert a is None or torch.equal(a, b_)
     assert got[0].is_contiguous(memory_format=cl)
@@ -1352,7 +1358,8 @@ def test_conv_backward_frozen_weight_masks_without_wgrad(dev, dtype):
     y.backward(dy)
     counts = {f: CONV_KERNEL.counts[f] - c0[f] for f in c0}
     assert counts == {"conv2d_act_forward": 1, "conv2d_dgrad": 1,
-                      "conv2d_wgrad": 0, "conv2d_relu_mask": 1}
+                      "conv2d_wgrad": 0, "conv2d_relu_mask": 1,
+                      "conv2d_stem_forward": 0, "conv2d_stem_wgrad": 0}
     g = relu_mask_plain(dy, y.detach())
     assert torch.equal(r.grad, g)
     saved = torch.backends.cudnn.allow_tf32
@@ -1435,7 +1442,8 @@ def test_backbone_cuda_train_never_reaches_cudnn_or_plain(dev, monkeypatch):
     conv = {k: CONV_KERNEL.counts[k] - c0[k] for k in c0}
     fuse = {k: FUSE_KERNEL.counts[k] - f0[k] for k in f0}
     assert conv == {"conv2d_act_forward": 331, "conv2d_dgrad": 330,
-                    "conv2d_wgrad": 331, "conv2d_relu_mask": 0}
+                    "conv2d_wgrad": 331, "conv2d_relu_mask": 0,
+                    "conv2d_stem_forward": 0, "conv2d_stem_wgrad": 0}
     assert fuse == {"hr_fuse_forward": 26, "hr_fuse_backward": 26}
     convs = [m for m in net.modules() if isinstance(m, torch.nn.Conv2d)]
     assert len(convs) == 331
@@ -1466,4 +1474,225 @@ def test_backbone_cuda_eval_never_reaches_cudnn_or_plain(dev, monkeypatch):
         feat = net(x)
     assert CONV_KERNEL.launches - conv0 == 331
     assert FUSE_KERNEL.launches - fuse0 == 26
+    assert feat.shape == (2, 2048) and bool(torch.isfinite(feat).all())
+
+
+# -- K10 and K11: the ResNet's stem and max pool ------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("epilogue", ["bias-relu", "bare"])
+@pytest.mark.parametrize("side", [61, 301])
+def test_stem7_kernel_matches_plain(dev, dtype, epilogue, side):
+    """K10's forward (the 7x7 / stride-2 / pad-3 conv on 3 channels; eval:
+    the folded BN's bias and the ReLU, training: the bare conv) against
+    ``conv2d_act_plain`` at odd sides (151 output columns: bf16's
+    ``stem7_kernel`` takes a row in two runs, the second ragged), batch 3:
+    bf16 within ``conv2d_act_bf16_tolerance`` (K5's limit), f32 within
+    1e-5 of the largest |y|; one ``conv2d_stem_forward`` launch, no
+    K5-conv."""
+    full = epilogue == "bias-relu"
+    gen = torch.Generator().manual_seed(31)
+    cl = torch.channels_last
+    x = torch.randn((3, 3, side, side), generator=gen).to(dev, dtype
+                                                          ).contiguous(
+        memory_format=cl)
+    w = (torch.randn((64, 3, 7, 7), generator=gen) / 147 ** 0.5).to(
+        dev, dtype).contiguous(memory_format=cl)
+    b = (torch.randn(64, generator=gen) * 0.3).to(dev, dtype) if full else None
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        c0 = dict(CONV_KERNEL.counts)
+        got = conv2d_act(x, w, b, None, full, 2)
+        assert CONV_KERNEL.counts["conv2d_stem_forward"] == (
+            c0["conv2d_stem_forward"] + 1)
+        assert CONV_KERNEL.counts["conv2d_act_forward"] == (
+            c0["conv2d_act_forward"])
+        want = conv2d_act_plain(x, w, b, None, full, 2)
+        c = torch.nn.functional.conv2d(x, w, None, 2, 3).float()
+        terms = torch.nn.functional.conv2d(x.abs().float(), w.abs().float(),
+                                           None, 2, 3)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    out = (side - 1) // 2 + 1
+    assert got.shape == (3, 64, out, out)
+    assert got.is_contiguous(memory_format=cl)
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 1e-5 * float(want.abs().max())
+        return
+    tol = conv2d_act_bf16_tolerance(c, b, None, terms, 3, 7)
+    assert bool((diff <= tol).all()), float((diff / tol).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_stem7_wgrad_kernel_matches_exact_sum(dev, dtype):
+    """K10's weight gradient (with dbias and the ReLU mask, as a train
+    step with the BN folded would take it; training's bare conv too):
+    bf16 within ``conv2d_wgrad_bf16_tolerance`` of the exact (f64) sum,
+    f32 within 1e-5 of the largest |dw| (dbias 1e-5 of sum |dy|); two
+    calls bit-equal; one ``conv2d_stem_wgrad`` launch and no data
+    gradient (the images take none)."""
+    gen = torch.Generator().manual_seed(32)
+    cl = torch.channels_last
+    x = torch.randn((4, 3, 64, 64), generator=gen).to(dev, dtype).contiguous(
+        memory_format=cl)
+    w0 = (torch.randn((64, 3, 7, 7), generator=gen) / 147 ** 0.5).to(
+        dev, dtype).contiguous(memory_format=cl)
+    b0 = (torch.randn(64, generator=gen) * 0.3).to(dev, dtype)
+    dy = torch.randn((4, 64, 32, 32), generator=gen).to(dev, dtype).contiguous(
+        memory_format=cl)
+
+    def run():
+        w, b = w0.clone().requires_grad_(), b0.clone().requires_grad_()
+        c0 = dict(CONV_KERNEL.counts)
+        y = conv2d_act(x, w, b, None, True, 2)
+        y.backward(dy)
+        counts = {k: CONV_KERNEL.counts[k] - c0[k] for k in c0}
+        return y.detach(), w.grad, b.grad, counts
+
+    y, dw, db, counts = run()
+    _, dw2, db2, _ = run()
+    assert counts == {"conv2d_act_forward": 0, "conv2d_dgrad": 0,
+                      "conv2d_wgrad": 0, "conv2d_relu_mask": 0,
+                      "conv2d_stem_forward": 1, "conv2d_stem_wgrad": 1}
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    g = torch.where(y > 0, dy, 0)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        _, exact, exact_b, _ = conv2d_backward_plain(
+            g.double(), x.double(), w0.double(), None, 2, False, True, True,
+            False)
+        _, terms, terms_b, _ = conv2d_backward_plain(
+            g.abs().float(), x.abs().float(), w0.float(), None, 2, False,
+            True, True, False)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    if dtype == torch.float32:
+        assert float((dw.double() - exact).abs().max()) <= 1e-5 * float(
+            exact.abs().max())
+        assert float((db.double() - exact_b).abs().max()) <= 1e-5 * float(
+            g.abs().sum())
+        return
+    rows = 4 * 32 * 32
+    for got, want, t in ((dw, exact, terms), (db, exact_b, terms_b)):
+        tol = conv2d_wgrad_bf16_tolerance(got, t, rows).double()
+        assert bool(((got.double() - want).abs() <= tol).all())
+
+
+def _pool_input(shape, dtype, dev, gen):
+    """Small integers after a ReLU: most windows tie, a corner all zero."""
+    x = torch.randint(-2, 3, shape, generator=gen).float().clamp_min(0)
+    x[0, :, :6, :6] = 0.0
+    return x.to(dev, dtype).contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("side", [(32, 32), (33, 17)])
+def test_max_pool_kernel_matches_plain(dev, dtype, side):
+    """K11 forward and backward against ``max_pool2d_plain`` /
+    ``max_pool2d_backward_plain`` on tied and all-zero windows, even and
+    odd sides: the forward bit-equal; the backward bit-equal in f32 (the
+    same first maxima, the same sums in the same order) and within one
+    bf16 step in bf16 (one rounding of the same f32 sum); one launch each;
+    and the gradient equals ``F.max_pool2d``'s autograd on the card."""
+    gen = torch.Generator().manual_seed(33)
+    x = _pool_input((2, 64, *side), dtype, dev, gen)
+    Ho, Wo = (side[0] - 1) // 2 + 1, (side[1] - 1) // 2 + 1
+    dy = torch.randn((2, 64, Ho, Wo), generator=gen).to(dev, dtype).contiguous(
+        memory_format=torch.channels_last)
+    c0 = dict(POOL_KERNEL.counts)
+    xr = x.clone().requires_grad_()
+    y = max_pool2d(xr)
+    y.backward(dy)
+    assert {k: POOL_KERNEL.counts[k] - c0[k] for k in c0} == {
+        "max_pool_forward": 1, "max_pool_backward": 1}
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(y, max_pool2d_plain(x))
+    want = max_pool2d_backward_plain(dy, x)
+    if dtype == torch.float32:
+        assert torch.equal(xr.grad, want)
+        xf = x.clone().requires_grad_()
+        torch.nn.functional.max_pool2d(xf, 3, 2, 1).backward(dy)
+        assert torch.equal(xr.grad, xf.grad)
+    else:
+        step = layers.bf16_step(want.float().abs())
+        assert bool(((xr.grad.float() - want.float()).abs() <= step).all())
+
+
+def test_max_pool_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    x = torch.zeros((1, 12, 8, 8), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        max_pool2d(x.contiguous(memory_format=torch.channels_last))
+    with pytest.raises(ValueError, match="channels_last"):
+        max_pool2d(torch.zeros((1, 16, 8, 8), device=dev))
+
+
+@pytest.mark.parametrize("depth", [18, 50])
+def test_resnet_cuda_train_never_reaches_cudnn_or_plain(dev, monkeypatch,
+                                                        depth):
+    """A train step of the bf16 ResNet on CUDA tensors (BN unfolded, f32
+    master weights) runs the hand-written kernels only: ``F.conv2d``,
+    ``F.max_pool2d`` and the plain versions are never called; one forward
+    and backward make (ResNet-50 / ResNet-18) 52 / 19 K5-conv, K5-dgrad
+    and K5-wgrad launches, one K10 forward and weight gradient, one K11
+    forward and backward, and 53 / 20 K4 forwards and backwards."""
+    net = ResNet(depth).train().to(dev, memory_format=torch.channels_last)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a library kernel or a plain version reached")
+
+    for mod, name in ((torch.nn.functional, "conv2d"),
+                      (torch.nn.functional, "max_pool2d"),
+                      (layers, "conv2d_act_plain"),
+                      (layers, "conv2d_backward_plain"),
+                      (layers, "max_pool2d_plain"),
+                      (layers, "max_pool2d_backward_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    x = torch.randn(2, 3, 64, 64, device=dev).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    kernels = (CONV_KERNEL, POOL_KERNEL, BN_KERNEL)
+    c0 = [dict(k.counts) for k in kernels]
+    net(x)["avg_pooling"].float().square().sum().backward()
+    conv, pool, bn = ({k: kern.counts[k] - c[k] for k in c}
+                      for kern, c in zip(kernels, c0))
+    n = {50: 52, 18: 19}[depth]
+    assert conv == {"conv2d_act_forward": n, "conv2d_dgrad": n,
+                    "conv2d_wgrad": n, "conv2d_relu_mask": 0,
+                    "conv2d_stem_forward": 1, "conv2d_stem_wgrad": 1}
+    assert pool == {"max_pool_forward": 1, "max_pool_backward": 1}
+    assert bn == {"bn_forward": n + 1, "bn_backward": n + 1}
+    convs = [m for m in net.modules() if isinstance(m, torch.nn.Conv2d)]
+    assert len(convs) == n + 1
+    assert all(m.weight.grad is not None and bool(
+        torch.isfinite(m.weight.grad).all()) for m in convs)
+
+
+def test_resnet_cuda_eval_never_reaches_cudnn_or_plain(dev, monkeypatch):
+    """The eval ResNet-50 on CUDA tensors (BN folded, bf16): 52 K5-conv,
+    one K10 and one K11 launch a forward, no ``F.conv2d``,
+    ``F.max_pool2d`` or plain version; finite features."""
+    net = ResNet(50)
+    fold_bn_(net)
+    net = net.eval().to(dev, torch.bfloat16, memory_format=torch.channels_last)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a library kernel or a plain version reached")
+
+    for mod, name in ((torch.nn.functional, "conv2d"),
+                      (torch.nn.functional, "max_pool2d"),
+                      (layers, "conv2d_act_plain"),
+                      (layers, "max_pool2d_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    x = torch.randn(2, 3, 64, 64, device=dev).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    c0, p0 = dict(CONV_KERNEL.counts), dict(POOL_KERNEL.counts)
+    with torch.inference_mode():
+        feat = net(x)["avg_pooling"]
+    assert {k: CONV_KERNEL.counts[k] - c0[k] for k in c0} == {
+        "conv2d_act_forward": 52, "conv2d_dgrad": 0, "conv2d_wgrad": 0,
+        "conv2d_relu_mask": 0, "conv2d_stem_forward": 1,
+        "conv2d_stem_wgrad": 0}
+    assert POOL_KERNEL.counts["max_pool_forward"] - p0["max_pool_forward"] == 1
     assert feat.shape == (2, 2048) and bool(torch.isfinite(feat).all())

@@ -2,12 +2,13 @@
 kernels' plain versions): train-mode BatchNorm (K4's oracle), one
 Bottleneck and one BasicBlock in train mode, ``RegressorLosses``,
 ``build_optimizer`` and its schedules, the flagship's train step from
-the features onward, and ``Trainer.fit``.
+the features onward, one ResNet-18 train step from the images, and
+``Trainer.fit``.
 
-The train step is compared from the features onward, not from the
-images: an eager JAX train step through HRNet-W48 takes minutes on a CPU
-(and a jitted one as long to compile), more than this file's share of
-the test run. The backbone's train mode is held instead by the BN test
+The flagship's train step is compared from the features onward, not from
+the images: an eager JAX train step through HRNet-W48 takes minutes on a
+CPU (and a jitted one as long to compile), more than this file's share
+of the test run. ResNet-18's step is small enough to compare whole. The backbone's train mode is held instead by the BN test
 and by one Bottleneck and one BasicBlock against the JAX
 ``bottleneck_block`` / ``basic_block``. The step runs the W48 flagship's
 head (MLP (64, 64), dropout 0) on seeded features, batch 2, synthetic
@@ -579,6 +580,91 @@ def test_train_step_updates_match_jax(train_step_pair):
     assert torch.equal(reg.param_mean, p["mean_before"])
     assert not np.array_equal(np.asarray(p["jstate"].params["param_mean"]),
                               p["jparams"]["param_mean"])  # F4
+
+
+# -- one ResNet-18 train step from the images --------------------------------
+
+@pytest.fixture(scope="module")
+def resnet_step_pair():
+    """One train step of the flagship on ResNet-18 from the images (64^2,
+    batch 2) on both sides, from the same perturbed weights
+    (``io.from_jax``) and batch: the whole network, backbone included, in
+    train mode (batch-moment BN, the 7x7 stem, the max pool). At this size
+    the eager JAX step takes seconds, unlike W48's."""
+    cfg = dict(NETWORK_CFG, backbone={"type": "resnet", "depth": 18})
+    data = make_synthetic_model_data("smplx", subdivisions=1, seed=0)
+    jmodel = JSMPLX(model_data=data)
+    v_t = np.asarray(jmodel.params["v_template"])
+    anchors = MeasurementAnchors.synthetic(jmodel.faces, v_t)
+    subsets = candidate_faces(v_t, np.asarray(jmodel.params["shapedirs"]),
+                              jmodel.faces, anchors)
+    jreg = JRegressor(
+        body_model_cfg=FLAGSHIP_BODY_CFG, network_cfg=cfg, body_model=jmodel,
+        measurements=JBodyMeasurements(
+            anchors=JAnchors.synthetic(jmodel.faces, v_t),
+            num_hull_directions=256, face_subsets=subsets))
+    params = _perturbed_params(jreg.params, jreg.param_slices, seed=6)
+    model = SMPLX(data)
+    reg = SMPLXRegressor(model, BodyMeasurements(anchors, model.faces, 256,
+                                                 face_subsets=subsets),
+                         FLAGSHIP_BODY_CFG, cfg)
+    load_regressor_from_jax(reg, params)
+    reg.prepare_for_train_()
+    batch = synthetic_train_batches(reg, 1, 2, 64, seed=11)[0]
+    images = batch.pop("images")
+
+    jparams = jax.tree_util.tree_map(jnp.asarray, params)
+    jbatch = {k: jnp.asarray(v.numpy()) for k, v in batch.items()}
+    jlosses = JRegressorLosses(LOSS_CFG)
+
+    def compute(p):
+        out, _ = forward_with_stats(jreg, p, jnp.asarray(images.numpy()),
+                                    jbatch, jax.random.PRNGKey(0),
+                                    model_params=jmodel.params)
+        loss = jlosses(out, jbatch)
+        return loss["total"], loss
+
+    jgrads, jloss = jax.jit(jax.grad(compute, has_aux=True))(jparams)
+    step = make_train_step(reg, RegressorLosses(LOSS_CFG),
+                           init_train_state(reg, OPTIM_CFG))
+    loss = step.forward(images, batch)
+    step.backward(loss)
+    grads = {k: p.grad.clone() for k, p in reg.named_parameters()
+             if p.grad is not None}
+    return {"loss": loss, "jloss": jloss, "grads": grads, "jgrads": jgrads}
+
+
+def test_resnet18_train_step_losses_match_jax(resnet_step_pair):
+    """Every loss term of the step, f32 on both sides: rel 1e-5."""
+    p = resnet_step_pair
+    assert set(p["loss"]) == set(p["jloss"])
+    for k, v in p["jloss"].items():
+        np.testing.assert_allclose(float(p["loss"][k].detach()), float(v),
+                                   rtol=1e-5, err_msg=k)
+
+
+def test_resnet18_train_step_gradients_match_jax(resnet_step_pair):
+    """The gradient of every parameter of the network, the backbone's
+    convs (the 7x7 stem among them) and BNs and the head's: rtol 1e-4,
+    atol 1e-4 of each tensor's largest. f32 on both sides, summed in other
+    orders (oneDNN, XLA) through ~20 train-mode BNs at batch 2, whose
+    backward amplifies rounding: a one-ulp change of the images alone
+    moves the port's gradients by up to 2.8e-5 of a tensor's largest; the
+    two sides differ by at most ~6e-5."""
+    p = resnet_step_pair
+    want = state_dict_from_jax({k: p["jgrads"][k]
+                                for k in ("backbone", "head")})
+    stats = [k for k in want if k.endswith(("running_mean", "running_var"))]
+    assert len(stats) == 2 * 20  # the BN buffers take no gradient
+    for k in stats:
+        assert not want.pop(k).any(), k
+    assert set(p["grads"]) == set(want)
+    assert "backbone.conv1.weight" in want and "backbone.bn1.weight" in want
+    for name, w in want.items():
+        scale = float(w.abs().max())
+        assert scale > 0, name
+        torch.testing.assert_close(p["grads"][name], w, rtol=1e-4,
+                                   atol=1e-4 * scale, msg=name)
 
 
 # -- the trainer -------------------------------------------------------------
