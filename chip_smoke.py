@@ -188,7 +188,9 @@ Phases, each of which raises on failure (exit code 1):
    recorded cotangent at batch 48, f32 bit-equal, bf16 within one bf16
    step; windows planted all-zero and tied); a train step's K5-dgrad,
    K5-wgrad and K10 weight gradient at each new shape, as phase 2's
-   (K10's against the exact sum, K5-wgrad's limit); then ``Trainer.fit``
+   (K10's against the exact sum, K5-wgrad's limit), and K4's forward and
+   backward at each of its 53 / 20 BNs in the regime its plan picks, with
+   phase 2's limits; then ``Trainer.fit``
    at batch 48, 1 warm-up and 4 timed steps, for ResNet-50 and ResNet-18:
    52 / 19 K5-conv, K5-dgrad and K5-wgrad launches a step, one K10
    forward and weight gradient, one K11 forward and backward, 53 / 20
@@ -417,9 +419,13 @@ _PAD_NAMES = set()
 
 def _device_trace(fn, passes: int):
     """(ms, kernels by name) of the CUDA kernels and copies that
-    ``passes`` calls of ``fn`` run, from one ``torch.profiler`` trace. The
-    trace starts and ends with 8 short spin kernels, left out of both: a
-    trace can miss its first or last few events."""
+    ``passes`` calls of ``fn`` run, from one ``torch.profiler`` trace: the
+    time at least one of them runs (the union of their spans: a kernel
+    launched as a programmatic dependent, as K4's split forward launches
+    its second and third passes, starts before the one it waits for
+    ends), and their count by name. The trace starts and ends with 8
+    short spin kernels, left out of both: a trace can miss its first or
+    last few events."""
     import torch
 
     def pad():
@@ -442,17 +448,22 @@ def _device_trace(fn, passes: int):
             fn()
         pad()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
+    events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.key not in _PAD_NAMES]
-    return (sum(e.device_time_total for e in events) / 1e3,
-            collections.Counter({e.key: e.count for e in events}))
+              and e.name not in _PAD_NAMES]
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end)
+                              for e in events):
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    return busy / 1e3, collections.Counter(e.name for e in events)
 
 
-def device_time(fn, passes: int = 3, tries: int = 3) -> tuple:
-    """(ms, kernels) of one call of ``fn`` on the device: the durations of
-    the CUDA kernels (and copies) it runs, summed from a ``torch.profiler``
-    trace of ``passes`` calls after a warm-up call, and how many it runs.
+def device_time(fn, passes: int = 3, tries: int = 5) -> tuple:
+    """(ms, kernels) of one call of ``fn`` on the device: the time the
+    CUDA kernels (and copies) it runs take on the device
+    (:func:`_device_trace`), from a ``torch.profiler`` trace of ``passes``
+    calls after a warm-up call, and how many it runs.
     Unlike :func:`time_ms`'s window it leaves out the host: a replay of
     hundreds of small calls queues more launches than CUDA's launch queue
     holds, and the window times the Python wrappers.
@@ -461,8 +472,9 @@ def device_time(fn, passes: int = 3, tries: int = 3) -> tuple:
     one call: the ``passes`` calls must hold each kernel name ``passes``
     times as often, and one call must run at least ``fn.calls`` kernels
     (:func:`replay` sets it: each call launches one or more). A pair that
-    disagrees is printed and taken again, at most ``tries`` times; then
-    the check fails."""
+    disagrees is printed and taken again after a second's pause (the
+    tracer's lapses come in bursts: a run once lost every event of two
+    pairs in a row), at most ``tries`` times; then the check fails."""
     import torch
 
     fn()
@@ -480,6 +492,7 @@ def device_time(fn, passes: int = 3, tries: int = 3) -> tuple:
         print(f"device trace pair disagrees (one call {n} kernels, at "
               f"least {least}; {passes} calls {seen[-1][1]}): "
               f"{dict((many - want) + (want - many))}", flush=True)
+        time.sleep(1.0)
     check(False, f"device traces dropped kernels {tries} times: (one call, "
                  f"{passes} calls) held {seen}, at least {least} a call")
 
@@ -671,6 +684,13 @@ CONTACT_KERNELS = ("K6_tri_tri", "K7_repulsion", "K7_repulsion_backward",
                    "K9_nn_dists")
 RESNET_TRAIN_KERNELS = tuple(k for k in TRAIN_KERNELS
                              if "fuse" not in k) + RESNET_KERNELS
+# Device functions a train step must run: K4's forward in both regimes;
+# a ResNet's also K10's weight gradient on its own kernel, and not on the
+# scalar stem kernel it replaced.
+TRAIN_DEVICE_KERNELS = ("fwd_cluster_kernel", "fwd_partial_kernel",
+                        "fwd_normalize_kernel")
+RESNET_DEVICE_KERNELS = (TRAIN_DEVICE_KERNELS + ("stem7_wgrad_kernel",),
+                         ("wgrad_bf16_scalar_kernel",))
 
 
 def sources():
@@ -1271,9 +1291,10 @@ def check_train_kernels(model, dev):
     """Phase 2, the training path's kernels at its shapes (batch 48):
     K3-chain forward and backward, K3's backward, and K4 forward and
     backward on the stem's first BN (64 x 128 x 128) and on a stage-4
-    branch-3 BN (384 x 8 x 8), in bf16 and f32. The backwards are first
-    held against autograd through the plain versions in f64, then timed
-    against the plain versions' backwards."""
+    branch-3 BN (384 x 8 x 8), in bf16 and f32, K4 also in each of its
+    two regimes. The backwards are first held against autograd through
+    the plain versions in f64, then timed against the plain versions'
+    backwards."""
     import torch
     import torch.nn.functional as F
 
@@ -1284,6 +1305,7 @@ def check_train_kernels(model, dev):
     from shapy_tpu_torch.core.rotations import aa_to_rotmat
     from shapy_tpu_torch.models.backbones.layers import (
         _bn_backward_cuda,
+        _bn_forward_cuda,
         _bn_plan,
         _bn_plan_regime,
         batch_norm_train,
@@ -1400,19 +1422,50 @@ def check_train_kernels(model, dev):
             g = (torch.rand(C, generator=gen) + 0.5).to(dev)
             b = torch.randn(C, generator=gen).to(dev)
             rm, rv = torch.zeros(C, device=dev), torch.ones(C, device=dev)
+            y_p, mean_p, var_p = batch_norm_train_plain(x, g, b)
+            inv_p = torch.rsqrt(var_p + 1e-5)
+            name = f"K4 {layer} {str(dtype)[6:]} {tuple(shape)}"
+            n, es, R = x.numel(), x.element_size(), x.numel() // C
+            # The forward in each regime (the plan picks one by shape: one
+            # cluster launch, or partials + finalize + y), first: y, mean
+            # and inv each against its limit, before the backward uses them.
+            fwd_regimes = {}
+            want_f = (y_p, mean_p, inv_p)
+            for fused in (True, False):
+                plan = _bn_plan_regime(R, C, fused)
+                args = (x, g, b, rm.clone(), rv.clone(), 1e-5, 0.1, plan)
+                got = _bn_forward_cuda(*args)
+                again = _bn_forward_cuda(x, g, b, rm.clone(), rv.clone(),
+                                         1e-5, 0.1, plan)
+                limits = _k4_forward_limits(got, want_f)
+                over = max(limits.values())
+                equal = all(torch.equal(u, w) for u, w in zip(got, again))
+                regime = "cluster" if fused else "split"
+                check(over <= 1.0 and equal,
+                      f"{name} {regime} forward at {over:.3f} of its "
+                      f"limit (" + ", ".join(
+                          f"{k} {v:.3f}" for k, v in limits.items())
+                      + f"), two calls equal {equal}")
+                fwd_regimes[regime] = {
+                    "ms": time_ms(lambda: _bn_forward_cuda(*args)),
+                    "over_limit": over, "tiles": plan.tiles,
+                    "planned": plan.fused == _bn_plan(R, C, True).fused}
+            print(f"{name} forward per regime (planned: "
+                  f"{'cluster' if _bn_plan(R, C, True).fused else 'split'}"
+                  "): " + ", ".join(
+                f"{k} {v['ms']:.4f} ms ({v['tiles']} tiles, "
+                f"{v['over_limit']:.3f} of the limit)"
+                for k, v in fwd_regimes.items()))
             xs, gs, bs = (t.clone().requires_grad_() for t in (x, g, b))
             y = batch_norm_train(xs, gs, bs, rm, rv)
             dx, dg, db = torch.autograd.grad(y, (xs, gs, bs), dy,
                                              retain_graph=True)
-            y_p, mean_p, var_p = batch_norm_train_plain(x, g, b)
-            inv_p = torch.rsqrt(var_p + 1e-5)
             dx_p, dg_p, db_p = batch_norm_train_backward_plain(
                 dy, x, g, mean_p, inv_p)
             tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
             errs = {"y": rel_err(y, y_p), "dx": rel_err(dx, dx_p),
                     "dgamma": rel_err(dg, dg_p), "dbeta": rel_err(db, db_p)}
             tols = {"y": tol, "dx": tol, "dgamma": 1e-4, "dbeta": 1e-4}
-            name = f"K4 {layer} {str(dtype)[6:]} {tuple(shape)}"
             print(f"{name}: rel err " + ", ".join(
                 f"{k} {v:.3e} (tol {tols[k]:.1e})" for k, v in errs.items()))
             for k, v in errs.items():
@@ -1421,7 +1474,6 @@ def check_train_kernels(model, dev):
                 batch_norm_train(xs, gs, bs), (xs, gs, bs), dy)
             check(all(torch.equal(u, w) for u, w in
                       zip((dx, dg, db), again)), f"{name} not deterministic")
-            n, es = x.numel(), x.element_size()
             xl, gl, bl = (t.clone().requires_grad_() for t in (x, g, b))
             y_l = F.batch_norm(xl, rm.clone(), rv.clone(), gl, bl, True,
                                0.1, 1e-5)
@@ -1444,9 +1496,8 @@ def check_train_kernels(model, dev):
                 3 * n * es + 6 * C * 4, 10 * n,
                 lambda: torch.autograd.grad(y_l, (xl, gl, bl), dy,
                                             retain_graph=True))
-            # The backward in each regime (the plan picks one by shape):
-            # one cluster launch, or partials + finalize + dx.
-            R = n // C
+            # The backward in each regime, as the forward: one cluster
+            # launch, or partials + finalize + dx.
             want = (dx_p, dg_p, db_p)
             regimes = {}
             for fused in (True, False):
@@ -1470,7 +1521,8 @@ def check_train_kernels(model, dev):
                               f"{v['over_limit']:.3f} of the limit)"
                               for k, v in regimes.items()))
             cases["K4_bn_forward"].append({**common, **fwd,
-                                           "rel_err": errs["y"]})
+                                           "rel_err": errs["y"],
+                                           "regimes": fwd_regimes})
             cases["K4_bn_backward"].append({**common, **bwd,
                                             "rel_err": max(errs["dx"],
                                                            errs["dgamma"],
@@ -2824,12 +2876,33 @@ def _k4_limits(got, want) -> dict:
             "dbeta": rel_err(got[2], want[2]) / 1e-4}
 
 
-def check_bn_backward_replay(bns):
+def _bn_calls_checked(what: str, bns, regimes: dict, worst: float,
+                      err: float) -> dict:
+    """The summary of K4's ``what`` (forward or backward) checked call by
+    call at a train step's recorded BNs, without the replays' timings:
+    the calls and distinct shapes of each regime, the worst error over its
+    limit."""
+    by_regime = {k: {"calls": len(v), "shapes": len({tuple(c[0].shape)
+                                                      for c in v})}
+                 for k, v in regimes.items()}
+    shapes = len({tuple(b[1].shape) for b in bns})
+    print(f"K4 {what}, a train step's {len(bns)} BNs ({shapes} shapes) at "
+          f"batch {TRAIN_B} in bf16, each in its planned regime against the "
+          f"plain version: within {worst:.3f} of its limit, two calls "
+          f"bit-equal; per regime {by_regime}")
+    return {"calls": len(bns), "shapes": shapes, "regimes": by_regime,
+            "worst_over_limit": worst, "max_abs_err": err}
+
+
+def check_bn_backward_replay(bns, expect: int = K4_PER_TRAIN_STEP,
+                             replays: bool = True):
     """Phase 2, K4's backward over one train step's 326 recorded calls at
-    batch 48 in bf16 (``bns``, :func:`train_step_calls`): each call
-    against ``batch_norm_train_backward_plain`` (dx within one bf16 step of
-    the largest |dx|, dgamma and dbeta rel 1e-4) and two calls bit-equal;
-    then the 326 calls replayed through K4, its plain version, and
+    batch 48 in bf16 (``bns``, :func:`train_step_calls`; ``expect`` their
+    number): each call in the regime its plan picks against
+    ``batch_norm_train_backward_plain`` (dx within one bf16 step of the
+    largest |dx|, dgamma and dbeta rel 1e-4) and two calls bit-equal;
+    with ``replays`` (phase 11 checks a ResNet step's calls without them)
+    the 326 calls replayed through K4, its plain version, and
     ``F.batch_norm(training=True)``'s autograd backward (the library call,
     on graphs built once from the same inputs). The
     bound sums the calls' bytes (dy and x read, dx written, the per-channel
@@ -2842,7 +2915,7 @@ def check_bn_backward_replay(bns):
 
     from shapy_tpu_torch.models.backbones import layers
 
-    check(len(bns) == K4_PER_TRAIN_STEP, f"{len(bns)} BN backwards")
+    check(len(bns) == expect, f"{len(bns)} BN backwards, expected {expect}")
     worst, err = 0.0, 0.0
     calls, regimes = [], {}
     for dy, x, g, mean, inv in bns:
@@ -2861,6 +2934,8 @@ def check_bn_backward_replay(bns):
         regimes.setdefault("cluster" if plan.fused else "split",
                            []).append(calls[-1])
     check(worst <= 1.0, f"K4 backward replay at {worst:.3f} of its limit")
+    if not replays:
+        return _bn_calls_checked("backward", bns, regimes, worst, err)
     kernel = replay(layers._bn_backward_cuda, calls)
     plain = replay(
         lambda dy, x, g, m, i: layers.batch_norm_train_backward_plain(
@@ -2906,6 +2981,119 @@ def check_bn_backward_replay(bns):
                         f"{TRAIN_B}, each with its own input and cotangent, "
                         "replayed; the device time of its kernels "
                         "(torch.profiler)"}
+
+
+def _k4_forward_limits(got, want) -> dict:
+    """K4's forward ``(y, mean, inv)`` against its plain version: y rel
+    1e-4 in f32 (sums in another order), one bf16 step (2^-7 of the
+    largest |y|) in bf16; mean and inv rel 1e-4 (f32 sums). Returns each
+    error over its limit."""
+    import torch
+
+    tol = 1e-4 if want[0].dtype == torch.float32 else 2.0 ** -7
+    return {"y": rel_err(got[0], want[0]) / tol,
+            "mean": rel_err(got[1], want[1]) / 1e-4,
+            "inv": rel_err(got[2], want[2]) / 1e-4}
+
+
+def check_bn_forward_replay(bns, expect: int = K4_PER_TRAIN_STEP,
+                            replays: bool = True):
+    """Phase 2, K4's forward over one train step's 326 recorded BNs at
+    batch 48 in bf16 (the inputs x and gamma of ``bns``,
+    :func:`train_step_calls`, ``expect`` their number; beta and the
+    running stats from the seed): each call in the regime its plan picks
+    against ``batch_norm_train_plain`` (y within one bf16 step of the
+    largest |y|; mean, inv and the running stats' EMA rel 1e-4) and two
+    calls bit-equal; with ``replays`` (phase 11 checks a ResNet step's BNs
+    without them) the 326 calls replayed through K4, its plain version
+    and ``F.batch_norm(training=True)`` (the library call, with the same
+    running stats). The bound sums the calls' bytes (x read once, y
+    written once, the per-channel vectors) at 3.35 TB/s. The times are
+    device time (:func:`device_ms`), as the backward's replay; per
+    regime, the calls and their device time."""
+    import torch
+    import torch.nn.functional as F
+
+    from shapy_tpu_torch.models.backbones import layers
+
+    check(len(bns) == expect, f"{len(bns)} BN forwards, expected {expect}")
+    gen = torch.Generator().manual_seed(SEED + 12)
+    worst, err = 0.0, 0.0
+    calls, plain_calls, library_calls, regimes = [], [], [], {}
+    for _dy, x, g, _m, _i in bns:
+        C = x.shape[1]
+        R = x.numel() // C
+        beta = (torch.randn(C, generator=gen) * 0.1).to(x.device)
+        rm = torch.randn(C, generator=gen).to(x.device)
+        rv = (torch.rand(C, generator=gen) + 0.5).to(x.device)
+        plan = layers._bn_plan(R, C, True)
+        args = (x, g, beta, rm.clone(), rv.clone(), layers.BN_EPS,
+                layers.BN_MOMENTUM, plan)
+        calls.append(args)
+        got = layers._bn_forward_cuda(*args)
+        stats = (args[3].clone(), args[4].clone())
+        again = layers._bn_forward_cuda(x, g, beta, rm.clone(), rv.clone(),
+                                        layers.BN_EPS, layers.BN_MOMENTUM,
+                                        plan)
+        y_p, mean_p, var_p = layers.batch_norm_train_plain(x, g, beta)
+        want = (y_p, mean_p, torch.rsqrt(var_p + layers.BN_EPS))
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K4 forward {tuple(x.shape)}: two calls differ")
+        limits = _k4_forward_limits(got, want)
+        m = layers.BN_MOMENTUM
+        ema = ((1 - m) * rm + m * mean_p,
+               (1 - m) * rv + m * var_p * (R / (R - 1)))
+        limits.update({"running_mean": rel_err(stats[0], ema[0]) / 1e-4,
+                       "running_var": rel_err(stats[1], ema[1]) / 1e-4})
+        worst = max(worst, *limits.values())
+        err = max(err, *(max_err(a, b) for a, b in zip(got, want)))
+        regimes.setdefault("cluster" if plan.fused else "split",
+                           []).append(args)
+        plain_calls.append((x, g, beta))
+        library_calls.append((x, rm.clone(), rv.clone(), g, beta))
+    check(worst <= 1.0, f"K4 forward replay at {worst:.3f} of its limit")
+    if not replays:
+        return _bn_calls_checked("forward", bns, regimes, worst, err)
+    kernel = replay(layers._bn_forward_cuda, calls)
+    plain = replay(layers.batch_norm_train_plain, plain_calls)
+    library = replay(lambda x, rm, rv, g, b: F.batch_norm(
+        x, rm, rv, g, b, True, layers.BN_MOMENTUM, layers.BN_EPS),
+        library_calls)
+    ms, on_card = device_time(kernel)
+    plain_ms = device_ms(plain, passes=1)
+    library_ms = device_ms(library)
+    window_ms = {"kernel": time_ms(kernel, iters=5, warmup=1),
+                 "library": time_ms(library, iters=5, warmup=1)}
+    by_regime = {}
+    for k, v in regimes.items():
+        r_ms, r_kernels = device_time(replay(layers._bn_forward_cuda, v))
+        by_regime[k] = {"calls": len(v), "ms": r_ms,
+                        "device_kernels": r_kernels}
+    nbytes = sum(2.0 * x.numel() * x.element_size() + 8.0 * x.shape[1] * 4
+                 for x, *_ in plain_calls)
+    bound_ms = nbytes / PEAK_BYTES_S * 1e3
+    check(on_card < 3 * len(bns), f"K4's forward ran {on_card} device "
+          f"kernels for {len(bns)} BNs")
+    print(f"K4 forward, one train step's {len(bns)} BNs at batch {TRAIN_B} "
+          f"(bf16; {on_card} device kernels), device time of a replay: "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f}, F.batch_norm "
+          f"{library_ms:.3f} (kernel / library {ms / library_ms:.3f}); one "
+          f"CUDA-event window, host launches included: kernel "
+          f"{window_ms['kernel']:.3f}, library {window_ms['library']:.3f}; "
+          f"bound {bound_ms:.3f} ms (bytes; {nbytes / 1e9:.3f} GB), kernel "
+          f"at {bound_ms / ms:.1%} of its bound; per regime {by_regime}; "
+          f"each call within {worst:.3f} of its limit, two calls "
+          f"bit-equal; {gpu_line()}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "device_kernels": on_card,
+            "window_ms": window_ms, "regimes": by_regime,
+            "worst_over_limit": worst,
+            "library_call": "F.batch_norm(training=True) with running "
+                            "stats, bf16 channels_last",
+            "timed_as": f"one train step's {len(bns)} BN forwards at batch "
+                        f"{TRAIN_B}, each with its own input, replayed; the "
+                        "device time of its kernels (torch.profiler)"}
 
 
 def _backbone_group(name: str) -> str:
@@ -3227,18 +3415,40 @@ def _no_cudnn_step(trainer, batch,
           "guard would not see a convolution backward either")
 
 
+def _step_device_kernels(trainer, batch, present, absent,
+                         tries: int = 3) -> None:
+    """One more step of ``trainer`` under a CUDA trace: each name in
+    ``present`` must be part of a kernel's name, none in ``absent`` (a
+    trace can drop events: taken again, at most ``tries`` times, until
+    every ``present`` name shows)."""
+    for _ in range(tries):
+        _, names = _device_trace(
+            lambda: trainer.fit({"train": batch}, 1, seed=SEED), 1)
+        missing = [p for p in present if not any(p in k for k in names)]
+        if not missing:
+            break
+    found = sorted(k for k in names if any(a in k for a in absent))
+    print(f"a train step's device kernels: {sum(names.values())} launches "
+          f"of {len(names)} kernels; {list(present)} among them, missing "
+          f"{missing}; of {list(absent)}: {found}")
+    check(not missing and not found,
+          f"a train step's kernels: missing {missing}, found {found}")
+
+
 def train(base, dev, per_step: dict = K5_PER_TRAIN_STEP,
           steps: tuple = (TRAIN_WARMUP, TRAIN_STEPS),
           path_kernels=TRAIN_KERNELS,
           nodes=("_Conv2dActBackward", "_HrFuseBackward"),
-          what: str = "train"):
+          what: str = "train", device_kernels=(TRAIN_DEVICE_KERNELS, ())):
     """Phase 7: ``Trainer.fit`` on the flagship at full width, batch 48,
     bf16 backbone, dropout 0.5: 2 warm-up steps, then 10 steps on one
     fixed synthetic batch, then one step under the cuDNN guard
-    (:func:`_no_cudnn_step`). Returns the launches of the 10 steps and
-    {steps/s, images/s, peak memory}. Phase 11 trains the ResNets the same
-    way (``steps``: warm-up and timed steps; ``per_step`` the backbone's
-    launches a step)."""
+    (:func:`_no_cudnn_step`) and one under a CUDA trace, which must run
+    the device functions named in ``device_kernels[0]`` and none of
+    ``device_kernels[1]`` (:func:`_step_device_kernels`). Returns the
+    launches of the 10 steps and {steps/s, images/s, peak memory}. Phase
+    11 trains the ResNets the same way (``steps``: warm-up and timed
+    steps; ``per_step`` the backbone's launches a step)."""
     import torch
 
     from shapy_tpu_torch.flagship import (
@@ -3292,6 +3502,7 @@ def train(base, dev, per_step: dict = K5_PER_TRAIN_STEP,
               f"{name}: {launches[name]} launches in {timed} {what} "
               f"steps, expected {per} a step")
     _no_cudnn_step(trainer, batch, nodes)
+    _step_device_kernels(trainer, batch, *device_kernels)
     rates = {"steps_per_s": timed / elapsed,
              "images_per_s": timed * TRAIN_B / elapsed,
              "peak_memory_gib": peak / 2 ** 30,
@@ -3507,6 +3718,8 @@ def _stem_entries(fwd_cases, bwd_cases) -> dict:
             "library_call": "torch.ops.aten.convolution_backward (cuDNN), "
                             "the weight gradient alone, bf16",
             "timed_as": f"a ResNet-50 train step's stem at batch {TRAIN_B}",
+            "kernel": "stem7_wgrad_kernel (runs of 128 output pixels), "
+                      "then wgrad_reduce_kernel",
             "cases": [w]},
     }
 
@@ -3523,7 +3736,8 @@ def resnet(dev, eval_data):
     launches of every backbone kernel a step, K4 at every BN, no library
     convolution or pooling operator, steps/s and peak memory), with
     K5-dgrad, K5-wgrad and K10's weight gradient at each new shape of a
-    recorded train step. Returns (K10 and K11 entries, ResNet-50's
+    recorded train step, and K4's forward and backward at each of its BNs
+    against their plain versions. Returns (K10 and K11 entries, ResNet-50's
     training launches, serving and evaluation launches, a summary)."""
     import torch
 
@@ -3590,11 +3804,16 @@ def resnet(dev, eval_data):
             del x_pool
         summary[f"resnet{depth}_new_shapes"] = {
             "forward": len(fwd["cases"]), "backward": len(bwd["cases"])}
+        # K4 at each of the step's BNs, in the regime its plan picks (the
+        # forward's cluster takes the 16^2 and 8^2 layers at any width).
+        summary[f"resnet{depth}_bn"] = {
+            "forward": check_bn_forward_replay(bns, n + 1, replays=False),
+            "backward": check_bn_backward_replay(bns, n + 1, replays=False)}
         del bconvs, bns, pools
         launches, rates = train(
             base, dev, per_step, (RESNET_TRAIN_WARMUP, RESNET_TRAIN_STEPS),
             RESNET_TRAIN_KERNELS, ("_Conv2dActBackward", "_MaxPool2d"),
-            f"{what} train")
+            f"{what} train", RESNET_DEVICE_KERNELS)
         for name in ("K4_bn_forward", "K4_bn_backward"):
             check(launches[name] == (n + 1) * RESNET_TRAIN_STEPS,
                   f"{what}: {launches[name]} {name} launches, expected "
@@ -4176,11 +4395,14 @@ def main() -> int:
                     print(f"  {line}")
                 for line in ptxas_report(log, "conv_reduce"):
                     print(f"  {line}")
+                for line in ptxas_report(log, "stem7"):  # K10's
+                    print(f"  {line}")
                 print(f"  dynamic shared memory a block, blocks an SM: "
                       f"{wgmma_smem()}")
-            if name == "batch_norm.cu":  # K4's backward kernels
-                for line in ptxas_report(log, "bwd_"):
-                    print(f"  {line}")
+            if name == "batch_norm.cu":  # K4's kernels
+                for marker in ("fwd_", "bwd_"):
+                    for line in ptxas_report(log, marker):
+                        print(f"  {line}")
 
     base = build_flagship(subdivisions=5, exact_counts=True, device="cpu",
                           seed=SEED)
@@ -4212,8 +4434,11 @@ def main() -> int:
     checked["K5_conv"]["train_forward"] = check_train_forward_replay(convs)
     checked.update(check_conv_backward_kernels(convs))
     checked.update(check_fuse_backward_kernel(fuses))
-    # K4's backward: the step's replay is the entry's time, the stem and
-    # stage-4 cases beside it.
+    # K4: the step's replays are the entries' times, the stem and stage-4
+    # cases beside them.
+    checked["K4_bn_forward"] = dict(
+        check_bn_forward_replay(bns),
+        cases=checked["K4_bn_forward"]["cases"])
     checked["K4_bn_backward"] = dict(
         check_bn_backward_replay(bns),
         cases=checked["K4_bn_backward"]["cases"])

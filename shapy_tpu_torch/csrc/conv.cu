@@ -568,9 +568,10 @@ cudaError_t launch_stem_any(const ConvShape& s, const void* x, const void* w,
 // Blocks of the first K tile also sum dy's columns (dbias) and, with a ReLU
 // mask (y > 0 on the saved output), write the masked dy once (dym), which
 // the data gradient and the residual's gradient then read. The bf16
-// kernel for Cin % 8 == 0 is the wgmma kernel below (wgrad_wgmma_kernel);
-// this one is the stem's (Cin = 3: one conv a train step, at cuDNN's time),
-// 64 x 64 tiles of mma.sync on scalar loads.
+// kernel for Cin % 8 == 0 is the wgmma kernel below (wgrad_wgmma_kernel),
+// the ResNet's 7x7 stem's is stem7_wgrad_kernel (K10, below); this one
+// takes the other stems (Cin = 3: HRNet's 3x3, one conv a train step, at
+// cuDNN's time), 64 x 64 tiles of mma.sync on scalar loads.
 constexpr int kWT = 64;        // output channels and K columns per block
 constexpr int kWR = 32;        // rows per step (bf16)
 constexpr int kWLd = kWT + 8;  // halves per shared row: 144 bytes, no conflicts
@@ -862,6 +863,211 @@ __global__ void relu_mask_kernel(const T* __restrict__ dy,
        i += step) {
     dym[i] = to_f(y[i]) > 0.f ? dy[i] : T(0.f);
   }
+}
+
+// ---- K10's weight gradient: the 7x7 / stride-2 stem, bf16, 64 channels ---
+//
+// dw[co][k] = sum over output pixels of dy[pixel][co] im2col[pixel][k], K =
+// 147 (7 tap rows x 21 (column, channel) pairs, the OHWI weight's order).
+// The scalar kernel above gathers its im2col columns with a 2-byte load
+// and its own index divisions per element and reads dy once per 64-wide K
+// tile. Here, as in stem7_kernel, a block takes runs of up to 128 output
+// pixels of one output row: for each run it copies the 7 input rows the
+// run reads (pad 3 as zeros) and the run's dy tile (128 x 64) into shared
+// memory once, with 16-byte cp.async, the next run's copies in flight while
+// this run's products run. The products are mma.sync m16n8k16 with the
+// pixels as the reduction: A = dy^T by ldmatrix.trans from the staged tile
+// (all 64 channels in each warp), B = im2col, each warp 40 K columns (5 n8
+// tiles; 4 warps cover 160 = K + 13). Pixel m's element of column (r, j)
+// is the patch's element 6m + j of row r, so a B register (two neighbouring
+// pixels of one column) is two 2-byte shared loads. Column 147 reads a
+// constant 1: its sums are dbias. Fixed partitions of runs (the caller's,
+// from the shape alone) sum their runs in order, each run's eight 16-pixel
+// steps in order, into f32 partials that wgrad_reduce_kernel adds in
+// partition order. Input rows start on a 16-byte boundary when W % 8 == 0
+// (the ResNet's 256); else a row's copy starts at the boundary below it
+// (its shift, 0-7 elements, is added to every read) and the chunks that
+// straddle the row's ends are copied element by element. It runs at about
+// a third of its byte bound: a run costs ~1370 shared-memory wavefronts,
+// 640 of them the 2-byte gathers (the stride-2, 3-channel patch has no
+// 16-byte view that is contiguous in pixels), beside 640 mma.sync.
+constexpr int kSwRow = 800;                       // halves a patch row
+constexpr int kSwChunks = kSwRow / 8;             // 16-byte chunks a row
+constexpr int kSwDyLd = 72;                       // halves a staged dy row
+constexpr int kSwWarps = 4;                       // warps a block
+constexpr int kSwThreads = 32 * kSwWarps;
+constexpr int kSwNt = 160 / (8 * kSwWarps);       // n8 tiles a warp
+constexpr int kSwPatch = kStemRows * kSwRow + 8;  // + the constants 1, 0
+constexpr int kSwStage = kSwPatch + kStemRun * kSwDyLd;  // halves a stage
+constexpr int kSwBytes = 2 * kSwStage * (int)sizeof(bf16);
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ unsigned pack2(bf16 lo, bf16 hi) {
+  return (unsigned)__bfloat16_as_ushort(lo) |
+         ((unsigned)__bfloat16_as_ushort(hi) << 16);
+}
+
+__global__ void __launch_bounds__(kSwThreads, 3) stem7_wgrad_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ dy,
+    const bf16* __restrict__ ymask, bf16* __restrict__ dym,
+    float* __restrict__ part, float* __restrict__ pbias, ConvShape s,
+    int runs, int runs_per_part) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* const stages = reinterpret_cast<bf16*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int p = blockIdx.x;
+  const int r_begin = p * runs_per_part;
+  const int count = max(0, min(runs, r_begin + runs_per_part) - r_begin);
+  const int wruns = (s.Wo + kStemRun - 1) / kStemRun;
+  const long long row_len = 3LL * s.W;  // halves of an input row
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  if (tid < 4) {  // the constant columns' values, in both stages
+    stages[(tid >> 1) * kSwStage + kStemRows * kSwRow + (tid & 1)] =
+        __float2bfloat16_rn(tid & 1 ? 0.f : 1.f);
+  }
+  // This thread's K columns n = 8 (kSwNt warp + nt) + g: tap row r, element
+  // 7 + j of the shifted patch row, 6 elements a pixel; column 147 the
+  // constant 1, past it 0 (no step).
+  int col_row[kSwNt], col_off[kSwNt], col_step[kSwNt];
+#pragma unroll
+  for (int nt = 0; nt < kSwNt; ++nt) {
+    const int n = (warp * kSwNt + nt) * 8 + g;
+    const int r = n / 21;
+    col_row[nt] = n < 147 ? r : -1;
+    col_off[nt] = n < 147 ? r * kSwRow + 7 + (n - 21 * r)
+                          : kStemRows * kSwRow + (n == 147 ? 0 : 1);
+    col_step[nt] = n < 147 ? 6 : 0;
+  }
+  // Where run `run` lies, and input row hi's offset in x (halves).
+  auto locate = [&](int run, int* n, int* ho, int* wo0) {
+    *wo0 = run % wruns * kStemRun;
+    *ho = run / wruns % s.Ho;
+    *n = run / wruns / s.Ho;
+  };
+  auto row_base = [&](int n, int hi) { return (n * s.H + hi) * row_len; };
+
+  // Copies of run `run` into stage st: patch row r holds x's halves from
+  // the 16-byte boundary at or below the run's first (pad included).
+  auto copy_run = [&](int run, int st) {
+    bf16* P = stages + st * kSwStage;
+    bf16* D = P + kSwPatch;
+    int n, ho, wo0;
+    locate(run, &n, &ho, &wo0);
+    for (int e = tid; e < kStemRows * kSwChunks; e += kSwThreads) {
+      const int r = e / kSwChunks, q = e - r * kSwChunks;
+      bf16* dst = P + r * kSwRow + 8 * q;
+      const int hi = 2 * ho - 3 + r;
+      const long long lo = hi >= 0 && hi < s.H ? row_base(n, hi) : 0;
+      const long long end = hi >= 0 && hi < s.H ? lo + row_len : 0;
+      const long long g0 = lo - (lo & 7) + 6LL * wo0 - 16 + 8 * q;
+      if (g0 >= lo && g0 + 8 <= end) {
+        cp_async16(dst, x + g0, true);
+      } else if (g0 + 8 <= lo || g0 >= end) {
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          dst[i] = g0 + i >= lo && g0 + i < end ? x[g0 + i] : zero;
+        }
+      }
+    }
+    const size_t row0 = ((size_t)n * s.Ho + ho) * s.Wo + wo0;
+    for (int e = tid; e < kStemRun * 8; e += kSwThreads) {
+      const int m = e >> 3, c = (e & 7) * 8;
+      bf16* dst = D + m * kSwDyLd + c;
+      const bool in = wo0 + m < s.Wo;
+      const size_t idx = (row0 + m) * 64 + c;
+      if (ymask == nullptr) {
+        cp_async16(dst, in ? dy + idx : dy, in);
+      } else {  // the ReLU mask, and the masked dy written once
+        uint4 v = make_uint4(0, 0, 0, 0);
+        if (in) {
+          v = relu_mask8(*reinterpret_cast<const uint4*>(dy + idx),
+                         *reinterpret_cast<const uint4*>(ymask + idx));
+          *reinterpret_cast<uint4*>(dym + idx) = v;
+        }
+        *reinterpret_cast<uint4*>(dst) = v;
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[4][kSwNt][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kSwNt; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+
+  if (count > 0) copy_run(r_begin, 0);
+  for (int i = 0; i < count; ++i) {
+    const int st = i & 1;
+    if (i + 1 < count) {
+      copy_run(r_begin + i + 1, st ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* P = stages + st * kSwStage;
+    const bf16* D = P + kSwPatch;
+    int n, ho, wo0;
+    locate(r_begin + i, &n, &ho, &wo0);
+    int off[kSwNt];
+#pragma unroll
+    for (int nt = 0; nt < kSwNt; ++nt) {
+      const int hi = 2 * ho - 3 + col_row[nt];
+      off[nt] = col_off[nt] + (col_row[nt] >= 0 && hi >= 0 && hi < s.H
+                                   ? (int)(row_base(n, hi) & 7)
+                                   : 0);
+    }
+#pragma unroll
+    for (int ks = 0; ks < kStemRun; ks += 16) {
+      unsigned a[4][4], b[kSwNt][2];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        ldmatrix_x4_trans(a[mt], D + (ks + (lane & 7) + ((lane >> 4) << 3)) *
+                                         kSwDyLd +
+                                     mt * 16 + ((lane >> 3) & 1) * 8);
+      }
+#pragma unroll
+      for (int nt = 0; nt < kSwNt; ++nt) {
+        const int d = col_step[nt];
+        const bf16* q = P + off[nt] + d * (ks + 2 * t);
+        b[nt][0] = pack2(q[0], q[d]);
+        b[nt][1] = pack2(q[8 * d], q[9 * d]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kSwNt; ++nt) mma_bf16(acc[mt][nt], a[mt], b[nt]);
+    }
+    __syncthreads();  // this stage is refilled by the next iteration's copy
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kSwNt; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int co = mt * 16 + g + 8 * (q >> 1);
+        const int kc = (warp * kSwNt + nt) * 8 + 2 * t + (q & 1);
+        if (kc < 147) {
+          part[((size_t)p * 64 + co) * 147 + kc] = acc[mt][nt][q];
+        } else if (kc == 147 && pbias) {
+          pbias[(size_t)p * 64 + co] = acc[mt][nt][q];
+        }
+      }
 }
 
 // ---- Hopper: mbarrier ring, cp.async / TMA, wgmma --------------------------
@@ -1827,6 +2033,25 @@ ConvShape conv_shape(int N, int H, int W, int Cin, int Cout, int k,
   return s;
 }
 
+// The second pass of K5-wgrad and K10's weight gradient: dw (Cout x CK /
+// Cout) and dbias (with db) from the partials in partition order.
+cudaError_t wgrad_reduce(const void* part, const void* pbias, void* dw,
+                         void* db, int parts, int CK, int Cout, int dtype,
+                         cudaStream_t st) {
+  const int n = CK + (db ? Cout : 0);
+  const int blocks = (n + 255) / 256;
+  if (dtype == 0) {
+    wgrad_reduce_kernel<float><<<blocks, 256, 0, st>>>(
+        (const float*)part, (const float*)pbias, (float*)dw, (float*)db,
+        parts, CK, Cout);
+  } else {
+    wgrad_reduce_kernel<bf16><<<blocks, 256, 0, st>>>(
+        (const float*)part, (const float*)pbias, (bf16*)dw, (bf16*)db,
+        parts, CK, Cout);
+  }
+  return cudaGetLastError();
+}
+
 // ---- Host side of the Hopper kernels ----------------------------------------
 
 FastDiv fast_div(uint32_t d) {
@@ -2362,19 +2587,8 @@ extern "C" int conv2d_wgrad(const void* x, const void* dy, const void* y,
     err = cudaGetLastError();
   }
   if (err != cudaSuccess) return (int)err;
-  const int CK = Cout * s.K;
-  const int n = CK + (db ? Cout : 0);
-  const int blocks = (n + 255) / 256;
-  if (dtype == 0) {
-    wgrad_reduce_kernel<float><<<blocks, 256, 0, st>>>(
-        (const float*)part, (const float*)pbias, (float*)dw, (float*)db,
-        parts, CK, Cout);
-  } else {
-    wgrad_reduce_kernel<bf16><<<blocks, 256, 0, st>>>(
-        (const float*)part, (const float*)pbias, (bf16*)dw, (bf16*)db,
-        parts, CK, Cout);
-  }
-  return (int)cudaGetLastError();
+  return (int)wgrad_reduce(part, pbias, dw, db, parts, Cout * s.K, Cout,
+                           dtype, st);
 }
 
 // The ReLU mask of K5-conv's backward without K5-wgrad: dym = dy (y > 0)
@@ -2426,10 +2640,16 @@ extern "C" int conv2d_wgmma_smem(int kind, int bn, int bk, int* out) {
 // K, so no tap is read out of bounds) in eleven 16-deep mma.sync steps;
 // the epilogue is the 3x3 stem's (bias of the folded BN, ReLU) or none
 // (training). Other shapes and f32 take the general stem kernels with k =
-// 7 read from the shape. The weight gradient is the scalar mma.sync
-// kernel over fixed row partitions from the shape alone, then the
-// fixed-order reduce with dbias in the same pass. Two entry points of
-// their own, so that a run counts K10's launches apart from K5's.
+// 7 read from the shape. The weight gradient in bf16 at that shape is
+// stem7_wgrad_kernel above: the same runs and patch, the run's dy tile
+// staged beside it, a two-stage cp.async ring, mma.sync with the pixels as
+// the reduction, dbias as a column of ones, over fixed partitions of runs
+// from the shape alone; f32 and other shapes keep the scalar mma.sync /
+// CUDA-core kernels over fixed row partitions. Either way the fixed-order
+// reduce follows, dbias in the same pass. What bounds the weight gradient
+// at batch 48: bytes (dy 100.7 MB + x 18.9 MB: 0.036 ms at 3.35 TB/s,
+// against 14.8 GFLOP: 0.015 ms at 989 TFLOP/s). Two entry points of their
+// own, so that a run counts K10's launches apart from K5's.
 
 // y (N, Ho, Wo, Cout) = relu?(conv(x, w, stride, pad 3) + bias) for x (N, H,
 // W, 3) NHWC, w (Cout, 7, 7, 3) OHWI, bias (Cout,) or NULL; dtype 0 =
@@ -2461,19 +2681,64 @@ extern "C" int conv2d_stem_forward(const void* x, const void* w,
                             stream);
 }
 
-// K10's weight gradient: dw (Cout, 7, 7, 3) and dbias as conv2d_wgrad
-// computes them for Cin = 3 (vec 0: the scalar kernel in bf16, the
-// CUDA-core one in f32), over `parts` row partitions of rows_per_part (a
-// multiple of 32). Returns cudaGetLastError(), or cudaErrorInvalidValue.
+// K10's weight gradient: dw (Cout, 7, 7, 3) and dbias (with db) for x (N,
+// H, W, 3) and dy (N, Ho, Wo, Cout) NHWC, the ReLU mask y and the masked
+// dy dym as conv2d_wgrad takes them; part parts x Cout x 147 f32 scratch,
+// pbias parts x Cout (with db). The caller picks the route:
+//   * by_runs 1 (bf16, stride 2, Cout 64 only): stem7_wgrad_kernel;
+//     partition p takes the runs [p per_part, (p + 1) per_part) of the N
+//     Ho ceil(Wo / 128) runs of up to 128 output pixels of a row (run =
+//     (n Ho + ho) ceil(Wo / 128) + wo / 128); x, dy, y and dym 16-byte
+//     aligned.
+//   * by_runs 0: conv2d_wgrad's kernels (vec 0: the scalar kernel in bf16,
+//     the CUDA-core one in f32) over parts row partitions of per_part rows
+//     (a multiple of 32).
+// Returns cudaGetLastError(), or cudaErrorInvalidValue.
 extern "C" int conv2d_stem_wgrad(const void* x, const void* dy,
                                  const void* y, void* dym, void* part,
                                  void* pbias, void* dw, void* db, int N,
                                  int H, int W, int Cin, int Cout, int k,
-                                 int stride, int parts, int rows_per_part,
-                                 int dtype, void* stream) {
-  if (k != 7 || Cin != 3 || (stride != 1 && stride != 2)) {
+                                 int stride, int parts, int per_part,
+                                 int by_runs, int dtype, void* stream) {
+  if (k != 7 || Cin != 3 || (stride != 1 && stride != 2) ||
+      (by_runs != 0 && by_runs != 1) ||
+      (by_runs && !(dtype == 1 && stride == 2 && Cout == 64))) {
     return (int)cudaErrorInvalidValue;
   }
-  return conv2d_wgrad(x, dy, y, dym, part, pbias, dw, db, N, H, W, Cin, Cout,
-                      k, stride, parts, rows_per_part, 0, dtype, 0, stream);
+  if (!by_runs) {
+    return conv2d_wgrad(x, dy, y, dym, part, pbias, dw, db, N, H, W, Cin,
+                        Cout, k, stride, parts, per_part, 0, dtype, 0,
+                        stream);
+  }
+  const ConvShape s = conv_shape(N, H, W, Cin, Cout, k, stride);
+  const long long runs =
+      (long long)N * s.Ho * ((s.Wo + kStemRun - 1) / kStemRun);
+  auto misaligned = [](const void* p) { return (uintptr_t)p % 16 != 0; };
+  if (runs > 0x7fffffff || parts < 1 || per_part < 1 ||
+      (long long)parts * per_part < runs || (db == nullptr) !=
+      (pbias == nullptr) || (y == nullptr) != (dym == nullptr) ||
+      misaligned(x) || misaligned(dy) || misaligned(y) ||
+      misaligned(dym) || 3LL * W * H * N >= (1LL << 31)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t st = (cudaStream_t)stream;
+  // The shared-memory attribute, set once a device (as launch_stem does).
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices || !configured[dev]) {
+    err = cudaFuncSetAttribute(stem7_wgrad_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSwBytes);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < kMaxDevices) configured[dev] = true;
+  }
+  stem7_wgrad_kernel<<<parts, kSwThreads, kSwBytes, st>>>(
+      (const bf16*)x, (const bf16*)dy, (const bf16*)y, (bf16*)dym,
+      (float*)part, (float*)pbias, s, (int)runs, per_part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)wgrad_reduce(part, pbias, dw, db, parts, Cout * s.K, Cout,
+                           dtype, st);
 }

@@ -46,25 +46,30 @@ BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
 
 BN_KERNEL = CudaKernel("batch_norm.cu", {
-    "bn_forward": "ppppp pppp iiii i fff p",
+    "bn_forward": "ppppp pppp iiiii iii fff p",
     "bn_backward": "ppppp ppppp iiii iii p",
 })
 # The activation dtypes K4, K5-conv and K5-fuse take, by their C code.
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# K4's row tiles (:func:`_bn_plan`). The forward: up to _BN_MAX_TILES of
-# at least 64 rows. The backward: a thread takes 8 channels of a row (1
-# where C % 8 != 0). One launch, a thread-block cluster per 8 channels
-# (16 blocks where C / 8 such clusters fit one block to each of an H100's
+# K4's plans (:func:`_bn_plan`): a thread takes 8 channels of a row (1
+# where C % 8 != 0). One launch, a thread-block cluster per 8 channels (16
+# blocks where C / 8 such clusters fit one block to each of an H100's
 # _BN_SMS SMs, else 8), where a thread then sums at most _BN_CLUSTER_ROWS
 # rows and the launch holds at most _BN_CLUSTER_BLOCKS blocks (3 an SM):
-# the 8^2 and 16^2 layers up to 384 channels (measured, PERF.md). Else
-# three launches over row tiles of about _BN_TILE_ELEMS elements, at most
-# _BN_SPLIT_TILES. Constants: the tiles, and with them the sums' bits,
-# depend on the shape alone.
-_BN_MAX_TILES = 256
+# for the backward, the 8^2 and 16^2 layers up to 384 channels; the
+# forward (x alone, fewer registers) where a thread sums at most
+# _BN_FWD_CLUSTER_ROWS rows, at any width: the 8^2 and 16^2 layers and
+# the 48-channel 32^2 ones (both measured, PERF.md). Else three launches
+# over row tiles of about _BN_TILE_ELEMS elements, at most
+# _BN_SPLIT_TILES, the forward's elementwise pass on at most
+# _BN_NORM_BLOCKS blocks (4 an SM, as its launch bounds hold it).
+# Constants: the tiles, and with them the sums' bits, depend on the shape
+# alone.
 _BN_THREADS = 256
 _BN_SMS = 132
 _BN_CLUSTER_ROWS, _BN_CLUSTER_BLOCKS = 6, 396
+_BN_NORM_BLOCKS = 4 * _BN_SMS
+_BN_FWD_CLUSTER_ROWS = 12
 _BN_TILE_ELEMS, _BN_SPLIT_TILES = 1 << 14, 1024
 
 CONV_KERNEL = CudaKernel("conv.cu", {
@@ -74,7 +79,7 @@ CONV_KERNEL = CudaKernel("conv.cu", {
     "conv2d_relu_mask": "ppp ii p",
     # K10, the ResNet's 7x7 stem on the images: forward and weight gradient
     "conv2d_stem_forward": "pppp iiiiiii ii p",
-    "conv2d_stem_wgrad": "pppppppp iiiiiii ii i p",
+    "conv2d_stem_wgrad": "pppppppp iiiiiii iii i p",
 })
 POOL_KERNEL = CudaKernel("max_pool.cu", {
     "max_pool_forward": "pp iiii i p",
@@ -99,6 +104,11 @@ _TILE_ROWS = 128
 _WGRAD_MIN_ROWS = 256
 _WGRAD_HOPPER_STEP, _WGRAD_HOPPER_TILES = 64, 264
 _WGRAD_TILE, _WGRAD_STEP, _WGRAD_BLOCKS = 64, 32, 512
+# K10's weight gradient in bf16 (7x7, stride 2, 64 channels): runs of up
+# to _STEM_RUN output pixels of a row, in at most _STEM_WGRAD_PARTS
+# partitions of consecutive runs (about two blocks an SM of an H100; a
+# constant, for the same reason).
+_STEM_RUN, _STEM_WGRAD_PARTS = 128, 264
 # K5-conv's and K5-dgrad's K partitions (:func:`_k_parts`): a persistent
 # grid holds _PLAN_SMS blocks (an H100's SMs; twice as many where two
 # blocks share an SM, :func:`_wgmma_pair`), and the K walk (taps x channels
@@ -162,10 +172,10 @@ def batch_norm_train_backward_plain(dy, x, gamma, mean, inv):
 
 
 class BnPlan(NamedTuple):
-    """K4's plan for R rows of C channels: the forward's row tiles
-    (``fwd_tiles`` of ``fwd_rows``) and the backward's. A backward thread
-    takes ``vec`` channels (8, or 1 where C % 8 != 0) of every ``lanes``-th
-    row of its tile (``tiles`` of ``rows`` rows).
+    """K4's plan for R rows of C channels, its forward's or its
+    backward's (:func:`_bn_plan`). A thread takes ``vec`` channels (8, or
+    1 where C % 8 != 0) of every ``lanes``-th row of its tile (``tiles``
+    of ``rows`` rows).
       * ``fused`` (one launch): tile t is block t of a cluster of
         ``tiles`` (8 or 16) per ``vec`` channels, 256 lanes. Sum order:
         lane l sums its rows in order; lanes 32 g .. 32 g + 31 in order
@@ -175,15 +185,18 @@ class BnPlan(NamedTuple):
         channel chunks (group = min(C / vec, 256), lanes = 256 / group).
         Sum order: lane l of tile t sums its rows in order; then the lanes
         in order; then the tiles: 32 finalize lanes, lane f over tiles f,
-        f + 32, ... in order, then those lanes in order."""
-    fwd_tiles: int
-    fwd_rows: int
+        f + 32, ... in order, then those lanes in order. The forward's
+        elementwise pass runs ``bands`` blocks along the rows (0 when
+        ``fused``): block b's lane l writes rows ``b lanes + l`` and
+        every ``bands lanes``-th row after it.
+    The forward sums x and x^2, the backward dy and dy x_hat."""
     fused: bool
     tiles: int
     rows: int
     vec: int
     group: int
     lanes: int
+    bands: int
 
 
 def _tiles_of(R: int, tiles: int):
@@ -193,32 +206,37 @@ def _tiles_of(R: int, tiles: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _bn_plan(R: int, C: int) -> BnPlan:
-    """K4's plan from the shape alone (never the card): the backward's
-    cluster regime where it fits (see ``_BN_*``), else the three launches.
-    Cached, like the conv plans: a wrapper call then costs no planning."""
+def _bn_plan(R: int, C: int, forward: bool = False) -> BnPlan:
+    """K4's plan for its backward, or with ``forward`` its forward, from
+    the shape alone (never the card): the cluster regime where it fits
+    (see ``_BN_*``), else the three launches; the two passes' tiles in a
+    regime are the same. Cached, like the conv plans: a wrapper call then
+    costs no planning."""
     cluster = _bn_plan_regime(R, C, True)
-    if (R <= cluster.tiles * _BN_THREADS * _BN_CLUSTER_ROWS
-            and C // cluster.vec * cluster.tiles <= _BN_CLUSTER_BLOCKS):
-        return cluster
-    return _bn_plan_regime(R, C, False)
+    if forward:
+        fits = R <= cluster.tiles * _BN_THREADS * _BN_FWD_CLUSTER_ROWS
+    else:
+        fits = (R <= cluster.tiles * _BN_THREADS * _BN_CLUSTER_ROWS
+                and C // cluster.vec * cluster.tiles <= _BN_CLUSTER_BLOCKS)
+    return cluster if fits else _bn_plan_regime(R, C, False)
 
 
 def _bn_plan_regime(R: int, C: int, fused: bool) -> BnPlan:
-    """K4's plan for R rows of C channels with the backward's regime
-    given: ``fused`` one cluster launch, else three. :func:`_bn_plan`
-    picks the regime; this forces one, to time or test each."""
-    fwd_tiles, fwd_rows = _tiles_of(R, min(_BN_MAX_TILES, -(-R // 64)))
+    """K4's plan for R rows of C channels with the regime given:
+    ``fused`` one cluster launch, else three. :func:`_bn_plan` picks the
+    regime; this forces one, to time or test each."""
     vec = 8 if C % 8 == 0 else 1
     if fused:
         cluster = 16 if C // vec * 16 <= _BN_SMS else 8
-        return BnPlan(fwd_tiles, fwd_rows, True, cluster, -(-R // cluster),
-                      vec, 1, _BN_THREADS)
+        return BnPlan(True, cluster, -(-R // cluster), vec, 1, _BN_THREADS,
+                      0)
     group = min(C // vec, _BN_THREADS)
     lanes = _BN_THREADS // group
     want = min(_BN_SPLIT_TILES, -(-R * C // _BN_TILE_ELEMS))
     tiles, rows = _tiles_of(R, want)
-    return BnPlan(fwd_tiles, fwd_rows, False, tiles, rows, vec, group, lanes)
+    cgroups = -(-(C // vec) // group)
+    bands = max(1, min(-(-R // lanes), _BN_NORM_BLOCKS // cgroups))
+    return BnPlan(False, tiles, rows, vec, group, lanes, bands)
 
 
 def _bn_backward_cuda(dy, x, gamma, mean, inv, plan: BnPlan):
@@ -228,10 +246,8 @@ def _bn_backward_cuda(dy, x, gamma, mean, inv, plan: BnPlan):
     N, C, H, W = x.shape
     R = N * H * W
     rows, dy_rows = _bn_rows(x), _bn_rows(dy.to(x.dtype))
-    if plan.vec == 8:  # 16-byte rows: a copy only of a view at an odd offset
-        rows, dy_rows, mean, inv = (
-            t.clone() if t.data_ptr() % 16 else t
-            for t in (rows, dy_rows, mean, inv))
+    if plan.vec == 8:
+        rows, dy_rows, mean, inv = _aligned16(rows, dy_rows, mean, inv)
     dx = torch.empty_like(rows)
     dgamma = torch.empty_like(gamma)
     dbeta = torch.empty_like(gamma)
@@ -247,9 +263,38 @@ def _bn_backward_cuda(dy, x, gamma, mean, inv, plan: BnPlan):
     return dx.permute(0, 3, 1, 2), dgamma, dbeta
 
 
+def _bn_forward_cuda(x, gamma, beta, running_mean, running_var, eps,
+                     momentum, plan: BnPlan):
+    """Kernel K4's forward on CUDA tensors: ``(y, mean, inv)`` for x (N,
+    C, H, W) by ``plan`` (:func:`_bn_plan` of the shape, ``forward``),
+    the running stats (or None) updated in place."""
+    N, C, H, W = x.shape
+    R = N * H * W
+    rows = _bn_rows(x)
+    if plan.vec == 8:
+        rows, gamma, beta = _aligned16(rows, gamma, beta)
+    y = torch.empty_like(rows)
+    mean = torch.empty(C, dtype=torch.float32, device=x.device)
+    inv = torch.empty_like(mean)
+    partials = None if plan.fused else torch.empty(
+        (plan.tiles, C, 2), dtype=torch.float32, device=x.device)
+    BN_KERNEL.launch("bn_forward", [
+        rows, gamma, beta, running_mean, running_var, partials, mean, inv,
+        y, R, C, plan.tiles, plan.rows, plan.bands, plan.vec,
+        int(plan.fused), KERNEL_DTYPES[x.dtype], float(eps), float(momentum),
+        float(np.float32(R / max(R - 1, 1)))])
+    return y.permute(0, 3, 1, 2), mean, inv
+
+
 def _bn_rows(t: torch.Tensor) -> torch.Tensor:
     """(N, C, H, W) channels-last -> its (N H W, C) row-major storage."""
     return t.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+
+
+def _aligned16(*ts):
+    """The tensors for K4's 16-byte rows and vectors: a copy only of a
+    view at an odd offset."""
+    return tuple(t.clone() if t.data_ptr() % 16 else t for t in ts)
 
 
 class _BatchNormTrain(torch.autograd.Function):
@@ -262,29 +307,19 @@ class _BatchNormTrain(torch.autograd.Function):
                 momentum):
         N, C, H, W = x.shape
         R = N * H * W
-        unbias = R / max(R - 1, 1)
         if x.device.type == "cpu":
             y, mean, var = batch_norm_train_plain(x, gamma, beta, eps)
             inv = torch.rsqrt(var + eps)
+            unbias = R / max(R - 1, 1)
             if running_mean is not None:
                 running_mean.copy_((1 - momentum) * running_mean
                                    + momentum * mean)
                 running_var.copy_((1 - momentum) * running_var
                                   + momentum * (var * unbias))
         else:
-            rows = _bn_rows(x)
-            y = torch.empty_like(rows)
-            mean = torch.empty(C, dtype=torch.float32, device=x.device)
-            inv = torch.empty_like(mean)
-            plan = _bn_plan(R, C)
-            tiles, per_tile = plan.fwd_tiles, plan.fwd_rows
-            partials = torch.empty((tiles, C, 2), dtype=torch.float32,
-                                   device=x.device)
-            BN_KERNEL.launch("bn_forward", [
-                rows, gamma, beta, running_mean, running_var, partials, mean,
-                inv, y, R, C, tiles, per_tile, KERNEL_DTYPES[x.dtype],
-                float(eps), float(momentum), float(np.float32(unbias))])
-            y = y.permute(0, 3, 1, 2)
+            y, mean, inv = _bn_forward_cuda(x, gamma, beta, running_mean,
+                                            running_var, eps, momentum,
+                                            _bn_plan(R, C, True))
         ctx.save_for_backward(x, gamma, mean, inv)
         return y
 
@@ -541,6 +576,17 @@ def _wgrad_parts(rows: int, cout: int, kdim: int, wgmma: bool = True):
     return -(-rows // per), per
 
 
+@functools.lru_cache(maxsize=None)
+def _stem_wgrad_parts(n: int, ho: int, wo: int):
+    """(partitions, runs per partition) of ``stem7_wgrad_kernel`` for dy
+    (n, ho, wo, 64): run ``(i ho + h) ceil(wo / 128) + w`` holds output
+    pixels ``w 128 .. min(wo, w 128 + 128) - 1`` of row h of image i;
+    partition p sums runs ``[p per, (p + 1) per)`` in order."""
+    runs = n * ho * -(-wo // _STEM_RUN)
+    per = -(-runs // max(1, min(_STEM_WGRAD_PARTS, runs)))
+    return -(-runs // per), per
+
+
 class DgradClass(NamedTuple):
     """A parity class of K5-dgrad: the dx pixels (ph + stride i, pw +
     stride j), i < hc, j < wc, and its taps (r, c, dh, dw): tap (r, c)
@@ -707,7 +753,16 @@ def _conv2d_wgrad_cuda(x, dy, y, weight_shape, stride, bias):
     if vec:
         x = _aligned_cl(x)
     wgmma = bool(vec) and dt == torch.bfloat16
-    parts, per = _wgrad_parts(rows, O, kdim, wgmma)
+    # The ResNet's stem in bf16 runs stem7_wgrad_kernel over runs of
+    # output pixels, with 16-byte copies of x's rows: decided here alone,
+    # and passed to conv2d_stem_wgrad, which takes ``per`` as runs (else
+    # as rows).
+    runs = k == STEM_K and dt == torch.bfloat16 and stride == 2 and O == 64
+    if runs:
+        x = _aligned_cl(x)
+        parts, per = _stem_wgrad_parts(N, Ho, Wo)
+    else:
+        parts, per = _wgrad_parts(rows, O, kdim, wgmma)
     part = torch.empty((parts, O, kdim), dtype=torch.float32, device=dev)
     pbias = (torch.empty((parts, O), dtype=torch.float32, device=dev)
              if bias else None)
@@ -715,10 +770,11 @@ def _conv2d_wgrad_cuda(x, dy, y, weight_shape, stride, bias):
                      memory_format=torch.channels_last)
     db = torch.empty(O, dtype=dt, device=dev) if bias else None
     dym = None if y is None else torch.empty_like(dy)
-    if k == STEM_K:  # K10's weight gradient (the scalar mma.sync kernel)
+    if k == STEM_K:  # K10's weight gradient (runs of stem7_wgrad_kernel,
+        # or rows of the scalar mma.sync / f32 kernels)
         CONV_KERNEL.launch("conv2d_stem_wgrad", [
             x, dy, y, dym, part, pbias, dw, db, N, H, W, C, O, k, stride,
-            parts, per, KERNEL_DTYPES[dt]])
+            parts, per, int(runs), KERNEL_DTYPES[dt]])
         return dw, db, dym
     CONV_KERNEL.launch("conv2d_wgrad", [
         x, dy, y, dym, part, pbias, dw, db, N, H, W, C, O, k, stride,

@@ -101,6 +101,21 @@ def _event_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _busy_ms(prof, ranges) -> float:
+    """The time at least one CUDA kernel or copy of the trace runs (the
+    union of their spans: K4's split forward launches its second and
+    third passes as programmatic dependents, which start before the pass
+    they wait for ends)."""
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted(
+            (e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.name not in ranges):
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    return busy / 1e3
+
+
 def _trace(fn, name: str, trace_dir: str | None, steps: int = 3) -> dict:
     """Device busy / idle share, launches and top kernels per step of
     ``fn`` from a ``torch.profiler`` trace of ``steps`` steps."""
@@ -121,7 +136,7 @@ def _trace(fn, name: str, trace_dir: str | None, steps: int = 3) -> dict:
     events = [e for e in averages
               if e.device_type == torch.autograd.DeviceType.CUDA
               and e.key not in ranges]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
+    busy_ms = _busy_ms(prof, ranges) / steps
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:15]
     sources, hand = _hand_kernel_sources(), {}
     for e in events:

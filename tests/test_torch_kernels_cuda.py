@@ -389,19 +389,21 @@ def test_skin_backward_kernel_matches_plain(dev, body):
                          ids=["planned", "fused", "split"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(48, 64, 16, 16), (6, 2048, 8, 8),
-                                   (3, 48, 5, 7), (2, 36, 5, 5)],
-                         ids=["stem", "stage4-head", "ragged", "c36"])
+                                   (48, 384, 8, 8), (3, 48, 5, 7),
+                                   (2, 36, 5, 5)],
+                         ids=["stem", "stage4-head", "stage4-branch3",
+                              "ragged", "c36"])
 def test_batch_norm_kernel_matches_plain(dev, dtype, shape, regime,
                                          monkeypatch):
     """K4 forward and backward against the plain versions on the card:
     f32 rel 1e-4 (sums in another order), bf16 within one bf16 step of
     the values (the same roundings, f32 sums in another order); the
-    running stats rel 1e-5; two runs give the same bits. The backward in
-    the regime ``_bn_plan`` picks, and forced into each of its two (one
-    cluster launch; partials, finalize and dx); 36 channels take one
-    channel a thread."""
+    running stats rel 1e-5; two runs give the same bits. Both passes in
+    the regimes ``_bn_plan`` picks, and forced into each of its two (one
+    cluster launch; partials, finalize and the elementwise pass); 36
+    channels take one channel a thread."""
     if regime is not None:
-        monkeypatch.setattr(layers, "_bn_plan", lambda R, C:
+        monkeypatch.setattr(layers, "_bn_plan", lambda R, C, forward=False:
                             layers._bn_plan_regime(R, C, regime))
     gen = torch.Generator().manual_seed(5)
     x = (torch.randn(shape, generator=gen) * 2 + 0.3).to(dev, dtype)
@@ -440,6 +442,55 @@ def test_batch_norm_kernel_matches_plain(dev, dtype, shape, regime,
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * scale)
     torch.testing.assert_close(got[4], m_p, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(got[5], v_p, rtol=1e-5, atol=1e-6)
+    again = run()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["cluster", "split"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(48, 64, 32, 32), (48, 384, 8, 8),
+                                   (3, 36, 5, 7)],
+                         ids=["stem-like", "stage4", "ragged-c36"])
+def test_batch_norm_forward_kernel_matches_plain(dev, dtype, shape, fused):
+    """K4's forward (``_bn_forward_cuda``) forced into each regime (one
+    cluster launch; partials, finalize and the elementwise pass) against
+    ``batch_norm_train_plain``: y rel 1e-4 in f32, within one bf16 step
+    of the values in bf16 (the same roundings; f32 sums in another order);
+    the saved mean and inv and the running stats rel 1e-4 (f32 sums in
+    another order); one ``bn_forward`` launch; two calls bit-equal. 36
+    channels take one channel a thread."""
+    gen = torch.Generator().manual_seed(15)
+    x = (torch.randn(shape, generator=gen) * 2 + 0.3).to(dev, dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    C = shape[1]
+    R = x.numel() // C
+    gamma = (torch.rand(C, generator=gen) + 0.5).to(dev)
+    beta = torch.randn(C, generator=gen).to(dev)
+    rm0 = torch.randn(C, generator=gen).to(dev)
+    rv0 = (torch.rand(C, generator=gen) + 0.5).to(dev)
+    plan = layers._bn_plan_regime(R, C, fused)
+
+    def run():
+        rm, rv = rm0.clone(), rv0.clone()
+        before = BN_KERNEL.counts["bn_forward"]
+        y, mean, inv = layers._bn_forward_cuda(x, gamma, beta, rm, rv,
+                                               1e-5, 0.1, plan)
+        assert BN_KERNEL.counts["bn_forward"] == before + 1
+        return y, mean, inv, rm, rv
+
+    got = run()
+    y_p, mean_p, var_p = batch_norm_train_plain(x, gamma, beta)
+    inv_p = torch.rsqrt(var_p + 1e-5)
+    m_p = 0.9 * rm0 + 0.1 * mean_p
+    v_p = 0.9 * rv0 + 0.1 * var_p * (R / (R - 1))
+    assert got[0].shape == x.shape
+    assert got[0].is_contiguous(memory_format=torch.channels_last)
+    tol = (dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else
+           dict(rtol=2 ** -7, atol=2 ** -7))
+    torch.testing.assert_close(got[0].float(), y_p.float(), **tol)
+    for g, w in zip(got[1:], (mean_p, inv_p, m_p, v_p)):
+        torch.testing.assert_close(g, w, rtol=1e-4,
+                                   atol=1e-4 * float(w.abs().max()))
     again = run()
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
@@ -1526,27 +1577,35 @@ def test_stem7_kernel_matches_plain(dev, dtype, epilogue, side):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_stem7_wgrad_kernel_matches_exact_sum(dev, dtype):
+@pytest.mark.parametrize("epilogue", ["bias-relu", "bare"])
+@pytest.mark.parametrize("n,side", [(4, 64), (3, 300)],
+                         ids=["wo32", "wo150"])
+def test_stem7_wgrad_kernel_matches_exact_sum(dev, dtype, epilogue, n, side):
     """K10's weight gradient (with dbias and the ReLU mask, as a train
-    step with the BN folded would take it; training's bare conv too):
-    bf16 within ``conv2d_wgrad_bf16_tolerance`` of the exact (f64) sum,
-    f32 within 1e-5 of the largest |dw| (dbias 1e-5 of sum |dy|); two
-    calls bit-equal; one ``conv2d_stem_wgrad`` launch and no data
-    gradient (the images take none)."""
+    step with the BN folded would take it; training's bare conv, no bias
+    and no mask, too), at 32 output columns (a run shorter than 128) and
+    at 150 (a row in two runs, the second ragged; an input row of 900
+    elements, not on a 16-byte boundary), batch 4 and 3: bf16
+    (``stem7_wgrad_kernel``) within ``conv2d_wgrad_bf16_tolerance`` of the
+    exact (f64) sum, f32 within 1e-5 of the largest |dw| (dbias 1e-5 of
+    sum |dy|); two calls bit-equal; one ``conv2d_stem_wgrad`` launch and
+    no data gradient (the images take none)."""
+    full = epilogue == "bias-relu"
     gen = torch.Generator().manual_seed(32)
     cl = torch.channels_last
-    x = torch.randn((4, 3, 64, 64), generator=gen).to(dev, dtype).contiguous(
-        memory_format=cl)
+    out = (side - 1) // 2 + 1
+    x = torch.randn((n, 3, side, side), generator=gen).to(
+        dev, dtype).contiguous(memory_format=cl)
     w0 = (torch.randn((64, 3, 7, 7), generator=gen) / 147 ** 0.5).to(
         dev, dtype).contiguous(memory_format=cl)
     b0 = (torch.randn(64, generator=gen) * 0.3).to(dev, dtype)
-    dy = torch.randn((4, 64, 32, 32), generator=gen).to(dev, dtype).contiguous(
-        memory_format=cl)
+    dy = torch.randn((n, 64, out, out), generator=gen).to(
+        dev, dtype).contiguous(memory_format=cl)
 
     def run():
         w, b = w0.clone().requires_grad_(), b0.clone().requires_grad_()
         c0 = dict(CONV_KERNEL.counts)
-        y = conv2d_act(x, w, b, None, True, 2)
+        y = conv2d_act(x, w, b if full else None, None, full, 2)
         y.backward(dy)
         counts = {k: CONV_KERNEL.counts[k] - c0[k] for k in c0}
         return y.detach(), w.grad, b.grad, counts
@@ -1556,8 +1615,9 @@ def test_stem7_wgrad_kernel_matches_exact_sum(dev, dtype):
     assert counts == {"conv2d_act_forward": 0, "conv2d_dgrad": 0,
                       "conv2d_wgrad": 0, "conv2d_relu_mask": 0,
                       "conv2d_stem_forward": 1, "conv2d_stem_wgrad": 1}
-    assert torch.equal(dw, dw2) and torch.equal(db, db2)
-    g = torch.where(y > 0, dy, 0)
+    assert torch.equal(dw, dw2)
+    assert (db is None) == (not full)
+    g = torch.where(y > 0, dy, 0) if full else dy
     saved = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
@@ -1569,14 +1629,19 @@ def test_stem7_wgrad_kernel_matches_exact_sum(dev, dtype):
             True, True, False)
     finally:
         torch.backends.cudnn.allow_tf32 = saved
+    pairs = [(dw, exact, terms)]
+    if full:
+        assert torch.equal(db, db2)
+        pairs.append((db, exact_b, terms_b))
     if dtype == torch.float32:
         assert float((dw.double() - exact).abs().max()) <= 1e-5 * float(
             exact.abs().max())
-        assert float((db.double() - exact_b).abs().max()) <= 1e-5 * float(
-            g.abs().sum())
+        if full:
+            assert float((db.double() - exact_b).abs().max()) <= 1e-5 * (
+                float(g.abs().sum()))
         return
-    rows = 4 * 32 * 32
-    for got, want, t in ((dw, exact, terms), (db, exact_b, terms_b)):
+    rows = n * out * out
+    for got, want, t in pairs:
         tol = conv2d_wgrad_bf16_tolerance(got, t, rows).double()
         assert bool(((got.double() - want).abs() <= tol).all())
 

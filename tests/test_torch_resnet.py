@@ -168,6 +168,101 @@ def test_stem_conv_matches_jax(epilogue):
             1e-5 * np.abs(masked).sum())
 
 
+def _stem_runs(n: int, ho: int, wo: int, p: int, per: int):
+    """The (image, output row, first pixel, last pixel + 1) of the runs
+    partition p of ``stem7_wgrad_kernel`` sums, in its order."""
+    wruns = -(-wo // layers._STEM_RUN)
+    for run in range(p * per, min(n * ho * wruns, (p + 1) * per)):
+        w0 = run % wruns * layers._STEM_RUN
+        yield (run // wruns // ho, run // wruns % ho, w0,
+               min(wo, w0 + layers._STEM_RUN))
+
+
+@pytest.mark.parametrize("n,side", [(48, 256), (3, 300), (4, 64), (1, 7),
+                                    (2, 255)],
+                         ids=["resnet-b48", "wo150", "wo32", "wo4", "wo128"])
+def test_stem_wgrad_parts_cover_every_pixel_once(n, side):
+    """K10's weight-gradient partitions (``_stem_wgrad_parts``): runs of
+    at most 128 output pixels of one row, consecutive runs a partition,
+    every output pixel in one run of one partition, at most
+    ``_STEM_WGRAD_PARTS`` partitions and none empty; from the shape alone
+    (the cache holds what the function gives)."""
+    ho = wo = (side - 1) // 2 + 1
+    parts, per = layers._stem_wgrad_parts(n, ho, wo)
+    assert (parts, per) == layers._stem_wgrad_parts.__wrapped__(n, ho, wo)
+    assert 1 <= parts <= layers._STEM_WGRAD_PARTS
+    seen = np.zeros((n, ho, wo), dtype=int)
+    for p in range(parts):
+        runs = list(_stem_runs(n, ho, wo, p, per))
+        assert runs
+        for i, h, w0, w1 in runs:
+            assert 0 < w1 - w0 <= layers._STEM_RUN
+            seen[i, h, w0:w1] += 1
+    assert (seen == 1).all()
+
+
+def stem_wgrad_replay(x, dy, parts, per, bias: bool):
+    """``stem7_wgrad_kernel``'s sums, f32 NCHW x (N, 3, H, W) and dy (N,
+    64, Ho, Wo): per partition in order its runs in order, each run's
+    16-pixel steps in order (one product of dy^T and the steps' im2col
+    columns, K in the OHWI weight's order, a column of ones for dbias);
+    then the partitions in order. Returns (dw (Cout, 7, 7, 3), dbias)."""
+    N, _, Ho, Wo = dy.shape
+    xp = torch.nn.functional.pad(x, (3, 3, 3, 3))
+    cols = xp.unfold(2, 7, 2).unfold(3, 7, 2)[:, :, :Ho, :Wo]
+    cols = cols.permute(0, 2, 3, 4, 5, 1).reshape(N, Ho, Wo, 147)
+    cols = torch.cat([cols, torch.ones(N, Ho, Wo, 1)], dim=-1)
+    d = dy.permute(0, 2, 3, 1)
+    total = torch.zeros(dy.shape[1], 148)
+    for p in range(parts):
+        acc = torch.zeros_like(total)
+        for i, h, w0, w1 in _stem_runs(N, Ho, Wo, p, per):
+            for k in range(w0, w1, 16):
+                k1 = min(w1, k + 16)
+                acc = acc + d[i, h, k:k1].T @ cols[i, h, k:k1]
+        total = total + acc
+    dw = total[:, :147].reshape(-1, 7, 7, 3)
+    return dw, (total[:, 147] if bias else None)
+
+
+@pytest.mark.parametrize("epilogue", ["none", "bias-relu"])
+def test_stem_wgrad_replay_matches_jax(epilogue, monkeypatch):
+    """The replay of K10's weight-gradient sum order at a ragged width
+    (Wo 150: a row in two runs, the second of 22 pixels) and 5 partitions
+    of consecutive runs, against ``jax.vjp`` of JAX ``layers.conv2d`` (7x7
+    / stride 2 / pad 3, with a bias and the ReLU, or bare): dw within 1e-5
+    absolute (O(1), as ``test_stem_conv_matches_jax`` holds it), dbias
+    within 1e-5 of sum |dy (y > 0)|."""
+    full = epilogue != "none"
+    monkeypatch.setattr(layers, "_STEM_WGRAD_PARTS", 5)
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(2, 11, 300, 3)).astype(np.float32)
+    w = (rng.normal(size=(7, 7, 3, 64)) / np.sqrt(147)).astype(np.float32)
+    b = (rng.normal(size=64) * 0.3).astype(np.float32)
+    N, Ho, Wo = 2, 6, 150
+    dy = (rng.normal(size=(N, Ho, Wo, 64)) / np.sqrt(N * Ho * Wo)).astype(
+        np.float32)
+
+    def run(w, b):
+        store = jlayers.ParamStore({"c.weight": w, "c.bias": b})
+        y = jlayers.conv2d(store, "c", jnp.asarray(x), 64, 7, 2, 3,
+                           bias=full)
+        return jax.nn.relu(y) if full else y
+
+    want, vjp = jax.vjp(run, jnp.asarray(w), jnp.asarray(b))
+    want_dw, want_db = vjp(jnp.asarray(dy))
+    g = np.where(np.asarray(want) > 0, dy, 0.0) if full else dy
+    parts, per = layers._stem_wgrad_parts.__wrapped__(N, Ho, Wo)
+    assert (parts, per) == (5, 5)
+    dw, db = stem_wgrad_replay(_nchw(x), _nchw(g.astype(np.float32)), parts,
+                               per, full)
+    np.testing.assert_allclose(dw.numpy().transpose(1, 2, 3, 0),
+                               np.asarray(want_dw), atol=1e-5, rtol=0)
+    if full:
+        assert np.abs(db.numpy() - np.asarray(want_db)).max() <= (
+            1e-5 * np.abs(g).sum())
+
+
 def test_conv2d_act_takes_7x7_only_on_the_images():
     x = torch.zeros((1, 8, 16, 16))
     with pytest.raises(ValueError, match="7x7"):

@@ -1,5 +1,5 @@
-"""Show that ``chip_smoke.py``'s K5-conv and K4 backward checks catch
-planted faults.
+"""Show that ``chip_smoke.py``'s K5-conv and K4 checks catch planted
+faults.
 
 Needs one CUDA card. For each fault, the port and ``chip_smoke.py`` are
 copied into ``shapy_tpu_torch/_build/k5_conv_k4_faults/<fault>/`` (a
@@ -7,9 +7,11 @@ directory that git ignores; the tree itself is never edited), one part of
 the copy is changed, and the copy runs phase 2's K5-conv check (the 33
 shapes of a served forward at batch 32 in bf16, each with its epilogue,
 and in f32: ``backbone_calls`` + ``check_conv_kernels``) and its K4 check
-(the stem's and a stage-4 BN at batch 48, bf16 and f32, the backward in
-both regimes: ``check_train_kernels``), with the kernels' timings
-skipped. The unplanted copy must pass, every planted one fail.
+(the stem's and a stage-4 BN at batch 48, bf16 and f32, the forward and
+the backward in both regimes: ``check_train_kernels``), with the kernels' timings
+skipped. The unplanted copy must pass, every planted one fail; a fault of
+K4's forward alone must fail the forward's own check (its y, mean and inv
+limits in one regime) before anything else.
 
     python tools/k5_conv_k4_faults.py [fault ...]
 
@@ -62,19 +64,39 @@ FAULTS = {
         "                      P.astride * d.j0 + dw, P.astride * d.i0 + "
         "dh, d.n0);\n"
         "        }\n")],
-    # K4's three-launch regime: the finalize leaves out the last row tile.
+    # K4's three-launch regime: the finalize (the forward's and the
+    # backward's) leaves out the last row tile.
     "bn_split_last_tile": [(
         BN,
-        "(const float*)partials, S.tiles, S.C, (float)S.R, (const "
-        "float*)gamma,",
-        "(const float*)partials, S.tiles - 1, S.C, (float)S.R, (const "
-        "float*)gamma,")],
+        "    for (int k = l; k < tiles; k += kTileLanes) {",
+        "    for (int k = l; k < tiles - 1; k += kTileLanes) {")],
     # K4's cluster regime: the blocks' sums leave out the last block.
     "bn_cluster_last_tile": [(
         BN,
-        "    for (int b = 0; b < kCl; ++b) {",
-        "    for (int b = 0; b < kCl - 1; ++b) {")],
+        "    for (int r = 0; r < kCl; ++r) {",
+        "    for (int r = 0; r < kCl - 1; ++r) {")],
+    # The forward alone. Its finalize leaves out the last row tile (1 of
+    # the stem's 1024): y moves by less than a bf16 step, mean and inv do
+    # not.
+    "bn_fwd_split_last_tile": [(
+        BN,
+        "  if (sum_tiles(partials, tiles, C, &s, &q)) {",
+        "  if (sum_tiles(partials, tiles - 1, C, &s, &q)) {")],
+    # Its cluster kernel leaves out the last thread of the last block: a
+    # thread's rows (192 of the stem's 786432 rows, 1 of stage 4's 3072).
+    "bn_fwd_cluster_last_lane": [(
+        BN,
+        "  float sum, sum2;\n  cluster_sums<V, kCl>(s, sq, &sum, &sum2);",
+        "  float sum, sum2;\n"
+        "  if (rank == kCl - 1 && l == kThreads - 1) {\n"
+        "    for (int i = 0; i < V; ++i) s[i] = sq[i] = 0.f;\n"
+        "  }\n"
+        "  cluster_sums<V, kCl>(s, sq, &sum, &sum2);")],
 }
+# What a planted fault's failure must name: a fault of the forward alone
+# must be caught by the forward's own limits.
+CAUGHT_BY = {"bn_fwd_split_last_tile": "split forward at",
+             "bn_fwd_cluster_last_lane": "cluster forward at"}
 
 RUN = """
 import copy, sys, torch
@@ -139,8 +161,10 @@ def run(fault: str) -> dict:
     print(f"{fault}: rc {proc.returncode}; "
           f"{' | '.join(c[:300] for c in caught) if caught else log[-600:]}",
           flush=True)
+    named = all(CAUGHT_BY.get(fault, "") in c for c in caught)
     return {"rc": proc.returncode, "passed": passed, "caught": len(caught),
-            "as_expected": passed if fault == "none" else bool(caught)}
+            "as_expected": passed if fault == "none"
+            else bool(caught) and named}
 
 
 def main(names) -> int:

@@ -1,14 +1,16 @@
-"""K4's backward in each of its regimes at every BN shape of a train step.
+"""K4's forward and backward in each regime at every BN shape of a step.
 
 Needs one CUDA card. For each BN shape of HRNet-W48's train step at batch
 48 (shapes and counts recorded from one forward of the model at batch 1,
-on the CPU), in bf16 and f32, times K4's backward (``_bn_backward_cuda``)
-forced into the three-launch regime and into the one-launch cluster regime
-with clusters of 8 and of 16 blocks, beside ``F.batch_norm(training=True)``'s
-autograd backward, each call alone in a CUDA-event window; checks that the
-regimes agree within K4's limits; and prints which regime ``_bn_plan``
-picks and which was fastest. The regime threshold in ``layers.py``
-(``_BN_CLUSTER_ROWS``, ``_BN_CLUSTER_BLOCKS``) is read off this table.
+on the CPU), in bf16 and f32, times K4's forward (``_bn_forward_cuda``) and
+backward (``_bn_backward_cuda``) forced into the three-launch regime and
+into the one-launch cluster regime with clusters of 8 and of 16 blocks,
+beside ``F.batch_norm(training=True)`` and its autograd backward, each
+call alone in a CUDA-event window; checks that the regimes agree within
+K4's limits; and prints which regime ``_bn_plan`` picks and which was
+fastest, for each pass. The regime threshold in ``layers.py``
+(``_BN_CLUSTER_ROWS``, ``_BN_CLUSTER_BLOCKS``), which both passes share,
+is read off this table.
 
     python tools/perf_k4_regimes.py
 
@@ -62,7 +64,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     cl = torch.channels_last
     gen = torch.Generator().manual_seed(0)
-    rows, picked_best = [], 0
+    rows, picked_best, fwd_picked_best = [], 0, 0
     for (c, h, w), count in sorted(step_shapes().items(),
                                    key=lambda kv: -kv[0][1]):
         for dtype in (torch.bfloat16, torch.float32):
@@ -82,37 +84,56 @@ def main() -> int:
                 plans[f"cluster{blocks}"] = cluster._replace(
                     tiles=blocks, rows=-(-R // blocks))
             want = layers.batch_norm_train_backward_plain(dy, x, g, mean, inv)
-            times = {}
+            b = torch.zeros_like(g)
+            y_p, mean_p, var_p = layers.batch_norm_train_plain(x, g, b)
+            want_f = (y_p, mean_p, torch.rsqrt(var_p + layers.BN_EPS))
+            times, fwd_times = {}, {}
             for name, plan in plans.items():
                 got = layers._bn_backward_cuda(dy, x, g, mean, inv, plan)
                 over = max(cs._k4_limits(got, want).values())
+                got = layers._bn_forward_cuda(x, g, b, None, None,
+                                              layers.BN_EPS, 0.1, plan)
+                over = max(over, *cs._k4_forward_limits(got,
+                                                        want_f).values())
                 cs.check(over <= 1.0, f"{shape} {dtype} {name}: {over:.3f} "
                                       "of K4's limit")
                 times[name] = cs.time_ms(lambda: layers._bn_backward_cuda(
                     dy, x, g, mean, inv, plan))
+                fwd_times[name] = cs.time_ms(lambda: layers._bn_forward_cuda(
+                    x, g, b, None, None, layers.BN_EPS, 0.1, plan))
             xl, gl = x.clone().requires_grad_(), g.clone().requires_grad_()
             bl = torch.zeros_like(gl).requires_grad_()
             yl = F.batch_norm(xl, None, None, gl, bl, True, 0.1,
                               layers.BN_EPS)
             times["F.batch_norm"] = cs.time_ms(lambda: torch.autograd.grad(
                 yl, (xl, gl, bl), dy, retain_graph=True))
-            planned = layers._bn_plan(R, c)
-            pick = ("split" if not planned.fused
-                    else f"cluster{planned.tiles}")
+            fwd_times["F.batch_norm"] = cs.time_ms(lambda: F.batch_norm(
+                x, None, None, g, b, True, 0.1, layers.BN_EPS))
+            pick, fwd_pick = (
+                "split" if not p.fused else f"cluster{p.tiles}"
+                for p in (layers._bn_plan(R, c), layers._bn_plan(R, c, True)))
             best = min((k for k in plans), key=times.get)
+            fwd_best = min((k for k in plans), key=fwd_times.get)
             picked_best += pick == best
+            fwd_picked_best += fwd_pick == fwd_best
             row = {"shape": list(shape), "dtype": str(dtype)[6:],
-                   "count": count, "ms": times, "planned": pick,
-                   "fastest": best}
+                   "count": count, "ms": times, "fwd_ms": fwd_times,
+                   "planned": pick, "fastest": best,
+                   "fwd_planned": fwd_pick, "fwd_fastest": fwd_best}
             rows.append(row)
             print(json.dumps(row), flush=True)
-    total = {k: sum(r["ms"][k if k != "planned" else r["planned"]]
-                    * r["count"] for r in rows if r["dtype"] == "bfloat16")
-             for k in ("split", "cluster8", "cluster16", "planned",
-                       "F.batch_norm")}
+    total = {key: {k: sum(r[key][r[planned] if k == "planned" else k]
+                          * r["count"] for r in rows
+                          if r["dtype"] == "bfloat16")
+                   for k in ("split", "cluster8", "cluster16", "planned",
+                             "F.batch_norm")}
+             for key, planned in (("ms", "planned"),
+                                  ("fwd_ms", "fwd_planned"))}
     print(json.dumps({"gpu": cs.gpu_line(), "planned_is_fastest": picked_best,
+                      "fwd_planned_is_fastest": fwd_picked_best,
                       "cases": len(rows),
-                      "bf16_step_sum_ms": total}))
+                      "bf16_step_sum_ms": total["ms"],
+                      "fwd_bf16_step_sum_ms": total["fwd_ms"]}))
     return 0
 
 
