@@ -28,7 +28,12 @@ Phases, each of which raises on failure (exit code 1):
    vertices; for training batch 48: the chain of 55 joints, skinning's
    backward, and K4 on the stem's first BN and a stage-4 BN in bf16 and
    f32, its backward also forced into each of its two regimes (one
-   cluster launch; partials, finalize and dx); K1's backward and
+   cluster launch; partials, finalize and dx); K1's forward (a
+   thread-block cluster per body and plane, sized by ``measure_plan``)
+   on the subsets and all faces at batch 32 and K1's and K1-exact's on
+   all faces at batch 48 and 1, the hits and codes it saves equal to the
+   plain slice's in face order and two calls bit-equal
+   (``check_saved_hits``); K1's backward and
    K1-exact forward and backward on all faces at
    batch 48 and batch 1; the backwards first against autograd through
    the plain versions in f64; K6, K7 and K9 at phase 9's shapes: K6 on a
@@ -83,7 +88,8 @@ Phases, each of which raises on failure (exit code 1):
    printed beside: a replay of hundreds of calls outruns CUDA's launch
    queue, and the window then times the host. K5-fuse's backward
    at the step's 26
-   targets: within one bf16 step (f32 bit-equal), replayed and timed. The
+   targets: within one bf16 step (f32 bit-equal), each shift-0 gradient
+   equal to dx, replayed and timed beside its bound's bytes. The
    whole backbone's train-mode forward and backward at batch 48, the K5
    route against the plain route: in f32 (TF32 off) per module group a
    gradient cosine >= 0.999 and relative L2 <= 0.05; in bf16 both times,
@@ -739,32 +745,12 @@ def check_kernels(regressor, requests, eval_data, dev):
     meas = regressor.body_measurements
 
     # K1: bodies with ||beta|| <= 6, on the candidate subsets (the main
-    # path) and on all faces. Tolerances: mass / height rel 1e-5 (f32 sums
-    # in another order), circumferences atol 1e-5 m (identical hit tests
-    # without FMA; centroid and hull sums in another order).
+    # path) and on all faces.
     betas = torch.randn((B, model.num_betas), generator=gen) * 1.5
     betas = betas * torch.clamp(6.0 / betas.norm(dim=1, keepdim=True), max=1)
     v_shaped = model.forward_shape(betas.to(dev))["v_shaped"].contiguous()
     subsets = [getattr(meas, f"subset_{n}") for n in PLANES]
-    k1_err = 0.0
-    for plane_faces in (subsets, None):
-        got, got_h = meas.measure(v_shaped, plane_faces is not None)
-        want, want_h = measure_plain(v_shaped, meas.faces, plane_faces,
-                                     meas.anchors, meas.num_hull_directions,
-                                     meas.density)
-        torch.cuda.synchronize()
-        rel = ((got[:, :2] - want[:, :2]).abs() / want[:, :2].abs()).max()
-        circ = max_err(got[:, 2:], want[:, 2:])
-        print(f"K1 measure ({'subsets' if plane_faces else 'all faces'}): "
-              f"mass/height rel err {float(rel):.3e} (tol 1e-5), "
-              f"circumference err {circ:.3e} m (tol 1e-5)")
-        check(float(rel) <= 1e-5, f"K1 mass/height rel err {float(rel)}")
-        check(circ <= 1e-5, f"K1 circumference err {circ} m")
-        check(max_err(got_h, want_h) <= 1e-6, "K1 plane heights")
-        check(bool((got[:, 2:] > 0.5).all()), "K1 empty slices")
-        k1_err = max(k1_err, max_err(got, want))
-        if plane_faces is subsets:
-            heights = want_h
+    k1_err, heights = check_k1_forward(meas, v_shaped)
     # The work these bodies need on the subsets: the signed volume of all
     # F faces (17 FLOP each), ~150 FLOP of ray and edge tests per candidate
     # face, and 5 FLOP per (slice point, antipodal direction pair) for the
@@ -890,6 +876,45 @@ def check_kernels(regressor, requests, eval_data, dev):
            (est.numel() + gt_p.numel()) * 4 + B * Pv * 4,
            B * Pv * 70)
     return results
+
+
+def check_k1_forward(meas, v_shaped) -> tuple:
+    """Phase 2, K1's forward (``meas``, reference mode) on the bodies
+    ``v_shaped`` on the candidate subsets (the served path) and on all
+    faces, against its plain version: mass / height rel 1e-5 (f32 sums in
+    another order), circumferences atol 1e-5 m (identical hit tests
+    without FMA; centroid and hull sums in another order), plane heights
+    1e-6; the saved hits as the plain slice's (:func:`check_saved_hits`).
+    Returns (the largest error, the plain plane heights on the
+    subsets)."""
+    import torch
+
+    from shapy_tpu_torch.measure.measurements import PLANES, measure_plain
+
+    subsets = [getattr(meas, f"subset_{n}") for n in PLANES]
+    k1_err = 0.0
+    for plane_faces in (subsets, None):
+        got, got_h = meas.measure(v_shaped, plane_faces is not None)
+        want, want_h = measure_plain(v_shaped, meas.faces, plane_faces,
+                                     meas.anchors, meas.num_hull_directions,
+                                     meas.density)
+        torch.cuda.synchronize()
+        rel = ((got[:, :2] - want[:, :2]).abs() / want[:, :2].abs()).max()
+        circ = max_err(got[:, 2:], want[:, 2:])
+        walk = "subsets" if plane_faces else "all faces"
+        print(f"K1 measure ({walk}, batch {v_shaped.shape[0]}): mass/height "
+              f"rel err {float(rel):.3e} (tol 1e-5), circumference err "
+              f"{circ:.3e} m (tol 1e-5); " + check_saved_hits(
+                  meas, v_shaped, plane_faces, plane_faces is not None,
+                  f"K1 measure ({walk})"))
+        check(float(rel) <= 1e-5, f"K1 mass/height rel err {float(rel)}")
+        check(circ <= 1e-5, f"K1 circumference err {circ} m")
+        check(max_err(got_h, want_h) <= 1e-6, "K1 plane heights")
+        check(bool((got[:, 2:] > 0.5).all()), "K1 empty slices")
+        k1_err = max(k1_err, max_err(got, want))
+        if plane_faces is subsets:
+            heights = want_h
+    return k1_err, heights
 
 
 def check_k5_launches(launches: dict, forwards: int, what: str,
@@ -1535,6 +1560,55 @@ def check_train_kernels(model, dev):
     return results
 
 
+def check_saved_hits(meas, v, plane_faces, use_subsets: bool,
+                     what: str) -> str:
+    """K1's forward (``meas.measure``) on bodies ``v``: the hits and codes
+    it saves for the backward, against those the plain slice's masks give
+    at the kernel's plane heights (``saved_hits_plain``: points bit-equal,
+    in face order; in reference mode the codes' candidate bits are the
+    kernel's alone), and a second call's bit-equal. Returns the cluster
+    plan and the hits checked, as text."""
+    import torch
+
+    from shapy_tpu_torch.measure.measurements import (
+        measure_plan,
+        saved_hits_plain,
+    )
+
+    x = v.clone().requires_grad_()
+    vals, heights = meas.measure(x, use_subsets)
+    _, hits, codes, stats, _ = vals.grad_fn.saved_tensors
+    again = meas.measure(v.clone().requires_grad_(), use_subsets)[0]
+    _, hits2, codes2, stats2, _ = again.grad_fn.saved_tensors
+    ref = saved_hits_plain(v, meas.faces, plane_faces, heights.detach(),
+                           meas.slice_mode)
+    keep = ~7 if meas.slice_mode == "reference" else -1
+    total = 0
+    for b in range(v.shape[0]):
+        for p in range(3):
+            pts, cds = ref[b][p]
+            n = int(stats[b, p, 0])
+            check(n == cds.shape[0] and torch.equal(hits[b, p, :n], pts)
+                  and torch.equal(codes[b, p, :n] & keep, cds),
+                  f"{what}: body {b} plane {p}: the saved hits are not the "
+                  "plain slice's in face order")
+            check(torch.equal(hits[b, p, :n], hits2[b, p, :n])
+                  and torch.equal(codes[b, p, :n], codes2[b, p, :n]),
+                  f"{what}: two calls saved other hits")
+            total += n
+    # stats: per plane the hit count and centroid, the volume sum
+    check(torch.equal(vals, again)
+          and torch.equal(stats[:, :3, :3], stats2[:, :3, :3])
+          and torch.equal(stats[:, 3, 0], stats2[:, 3, 0]),
+          f"{what}: two calls differ")
+    F = meas.faces.shape[0]
+    counts = meas.subset_counts if use_subsets else (F, F, F)
+    plan = measure_plan(counts, F, v.shape[0])
+    return (f"cluster of {plan.cluster} CTAs, spans {plan.spans} / mass "
+            f"{plan.mass_span}; {total} saved hits equal the plain slice's "
+            "in face order, two calls bit-equal")
+
+
 def slice_points(meas, v, slice_mode) -> int:
     """The hits of the three planes over all faces of bodies ``v``, from
     the plain slice on the card (the data-dependent part of K1's work)."""
@@ -1657,6 +1731,8 @@ def check_measure_kernels(model, anchors, dev):
                   f"{name} backward vs plain f64: {share}")
             check(same, f"{name} backward is not deterministic")
             check(bool((want[:, 2:] > 0.5).all()), f"{name} empty slices")
+            print(f"{name} all faces, batch {batch}: " + check_saved_hits(
+                meas, v, None, False, f"{name} forward"))
 
             points = slice_points(meas, v, mode)
             F, n_v = meas.faces.shape[0], v.numel()
@@ -2810,10 +2886,11 @@ def check_fuse_backward_kernel(fuses):
     """Phase 2, K5-fuse's backward at one train step's 26 recorded
     targets at batch 48 (``fuses``, :func:`train_step_calls`): dx and each
     term's gradient within one bf16 step of ``hr_fuse_backward_plain``
-    (the differing elements counted), bit-equal in f32 (batch 2), and two
-    calls bit-equal; the 26 calls replayed through the kernel and the
-    plain version, as device time; the bound is their bytes
-    (dy and y read, dx and the terms' gradients written once each) at
+    (the differing elements counted), bit-equal in f32 (batch 2), each
+    shift-0 gradient equal to dx, and two calls bit-equal; the 26 calls
+    replayed through the kernel and the plain version, as device time;
+    the bound is their bytes (dy and y read, dx and every term's
+    gradient, the shift-0 copies of dx included, written once each) at
     3.35 TB/s."""
     import torch
 
@@ -2830,6 +2907,9 @@ def check_fuse_backward_kernel(fuses):
         want = hr_fuse_backward_plain(dy, y, shifts)
         got32 = _hr_fuse_backward_cuda(dy[:2].float(), y[:2].float(), shifts)
         want32 = hr_fuse_backward_plain(dy[:2].float(), y[:2].float(), shifts)
+        for g, s in zip(got[1], shifts):
+            check(s != 0 or torch.equal(g, got[0]),
+                  f"K5-fuse backward {n}: a shift-0 gradient is not dx")
         for a, b, w, a32, w32 in zip([got[0], *got[1]], [again[0], *again[1]],
                                      [want[0], *want[1]],
                                      [got32[0], *got32[1]],

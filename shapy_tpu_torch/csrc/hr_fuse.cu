@@ -23,12 +23,21 @@
 // The backward (hr_fuse_backward), the VJP that JAX autodiff takes of _fuse
 // and nearest_upsample: g = dy (y > 0) is x's gradient and that of every
 // term read at its own resolution (shift 0); a term read with shift s > 0
-// gets the 2^s x 2^s box sum of g, the adjoint of the nearest upsample. One
-// thread per 16 bytes of a fine pixel writes g (to dx and the shift-0
-// terms), and one thread per 16 bytes of a coarse pixel gathers its box,
-// rows then columns, in f32, and rounds once: no scatter, no atomics. Bound
-// by bytes: dy and y are read once by the fine threads and once more by the
-// coarse ones (through L2).
+// gets the 2^s x 2^s box sum of g, the adjoint of the nearest upsample.
+// Bound by bytes: dy and y read once, dx and every term's gradient
+// written once (the shift-0 ones are copies of dx).
+//
+// Design: the work is split in tiles of the target aligned to the box of
+// its largest shift S (hr_fuse_backward_plan in models/backbones/hrnet.py,
+// from the shape alone). A block owns 2^S rows x a run of columns x a
+// slice of channel vectors; a thread owns a 2 x 2 micro box (1 x 1 for S =
+// 0) of one 16-byte channel vector. It reads each vector of dy and y once,
+// forms g, writes it to dx and the shift-0 terms from the same registers,
+// and sums its micro box in f32. The boxes are summed in a fixed tree:
+// 2x2 = (g00 + g01) + (g10 + g11), then 4x4 from four 2x2 sums and 8x8
+// from four 4x4 sums in the same order, through shared memory; each
+// term's gradient is rounded to the dtype once, when it is stored. No
+// atomics, no second read, and the indices come from the tile.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,12 +53,10 @@ struct Terms {
   int n;
 };
 
-// The backward's outputs: each term's gradient and, for the terms with a
-// shift, the first work item of its coarse threads.
+// The backward's outputs: each term's gradient and its shift.
 struct TermGrads {
   void* ptr[kMaxTerms];
   int shift[kMaxTerms];
-  long long start[kMaxTerms];
   int n;
 };
 
@@ -134,19 +141,59 @@ __device__ __forceinline__ void masked(const T* dy, const T* y, long long off,
   for (int i = 0; i < kV; ++i) g[i] = m[i] > 0.f ? g[i] : 0.f;
 }
 
+// Stores v, rounded to T, to every term of shift `level` at element offset
+// `off` of its tensor.
 template <typename T>
+__device__ __forceinline__ void store_level(const TermGrads& grads, int level,
+                                            long long off, const float* v) {
+  const uint4 u = pack(v, T());
+#pragma unroll
+  for (int j = 0; j < kMaxTerms; ++j) {
+    if (j < grads.n && grads.shift[j] == level) {
+      *reinterpret_cast<uint4*>(reinterpret_cast<T*>(grads.ptr[j]) + off) = u;
+    }
+  }
+}
+
+// The tile of a block (hr_fuse_backward_plan): `cs` channel vectors of
+// 16 bytes, `tw` micro-box columns, 2^S / m micro-box rows; thread t takes
+// channel vector t % cs of micro box (t / cs / tw, t / cs % tw).
+// blockIdx.x = (image, row of tiles) * col_tiles + column of tiles,
+// blockIdx.y = the channel slice.
+struct Tile {
+  int cs, tw, col_tiles;
+};
+
+template <typename T, int kS>
 __global__ void __launch_bounds__(kThreads) hr_fuse_backward_kernel(
     const T* __restrict__ dy, const T* __restrict__ y, T* __restrict__ dx,
-    TermGrads grads, long long nfine, long long total, int H, int W, int C) {
-  constexpr int kV = 16 / sizeof(T);
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       e < total; e += step) {
-    float v[kV];
-    if (e < nfine) {  // g at a fine pixel: dx and the shift-0 terms
-      const long long off = e * kV;
-      masked(dy, y, off, v);
-      const uint4 u = pack(v, T());
+    TermGrads grads, Tile tile, int H, int W, int C) {
+  constexpr int kV = 16 / sizeof(T);  // elements per 16-byte vector
+  constexpr int kM = kS > 0 ? 2 : 1;  // a micro box's side in pixels
+  // the micro boxes' sums (2x2, then 4x4 in place), one row a thread
+  __shared__ float4 box[kS >= 2 ? kThreads * kV / 4 : 1];
+  const int t = threadIdx.x;
+  const int cv = t % tile.cs;
+  const int col = t / tile.cs % tile.tw;
+  const int row = t / tile.cs / tile.tw;
+  const int rt = blockIdx.x / tile.col_tiles;  // image * (H >> kS) + tile row
+  const int ct = blockIdx.x - rt * tile.col_tiles;
+  const int Hs = H >> kS;
+  const int n = rt / Hs;
+  const int h0 = ((rt - n * Hs) << kS) + row * kM;
+  const int w0 = (ct * tile.tw + col) * kM;
+  const int c = (blockIdx.y * tile.cs + cv) * kV;
+
+  // g at the micro box's pixels: dx and the shift-0 terms.
+  float g[kM][kM][kV];
+#pragma unroll
+  for (int dh = 0; dh < kM; ++dh) {
+#pragma unroll
+    for (int dw = 0; dw < kM; ++dw) {
+      const long long off =
+          (((long long)n * H + h0 + dh) * W + w0 + dw) * C + c;
+      masked(dy, y, off, g[dh][dw]);
+      const uint4 u = pack(g[dh][dw], T());
       *reinterpret_cast<uint4*>(dx + off) = u;
 #pragma unroll
       for (int j = 0; j < kMaxTerms; ++j) {
@@ -155,37 +202,58 @@ __global__ void __launch_bounds__(kThreads) hr_fuse_backward_kernel(
                                     off) = u;
         }
       }
-      continue;
     }
-    int j = 0;  // the last shifted term whose coarse items start at <= e
+  }
+  if (kS == 0) return;
+  // 2x2: (g00 + g01) + (g10 + g11).
+  constexpr int kL = kM - 1;  // 1 here
+  float s[kV];
 #pragma unroll
-    for (int t = 0; t < kMaxTerms; ++t) {
-      if (t < grads.n && grads.shift[t] > 0 && e >= grads.start[t]) j = t;
-    }
-    const int sh = grads.shift[j], f = 1 << sh;
-    const int Hs = H >> sh, Ws = W >> sh;
-    const long long off = (e - grads.start[j]) * kV;
-    const long long pc = off / C;  // coarse pixel (n, hc, wc)
-    const int c = (int)(off - pc * C);
-    const int wc = (int)(pc % Ws);
-    const long long q = pc / Ws;
-    const int hc = (int)(q % Hs);
-    const long long n = q / Hs;
+  for (int i = 0; i < kV; ++i) {
+    s[i] = (g[0][0][i] + g[0][kL][i]) + (g[kL][0][i] + g[kL][kL][i]);
+  }
+  const int H1 = H >> 1, W1 = W >> 1;
+  store_level<T>(grads, 1, (((long long)n * H1 + (h0 >> 1)) * W1 + (w0 >> 1)) *
+                               C + c, s);
+  if (kS == 1) return;
+  // 4x4 from the four 2x2 sums of micro boxes (row, col) .. (row + 1, col
+  // + 1), in the same order; 8x8 from four 4x4 sums two micro boxes apart.
+  float4* mine = box + t * (kV / 4);
 #pragma unroll
-    for (int i = 0; i < kV; ++i) v[i] = 0.f;
-    for (int dh = 0; dh < f; ++dh) {
-      for (int dw = 0; dw < f; ++dw) {
-        const long long fo =
-            ((n * H + ((long long)hc << sh) + dh) * W + ((wc << sh) + dw)) *
-                C + c;
-        float g[kV];
-        masked(dy, y, fo, g);
+  for (int i = 0; i < kV / 4; ++i) {
+    mine[i] = make_float4(s[4 * i], s[4 * i + 1], s[4 * i + 2], s[4 * i + 3]);
+  }
+  __syncthreads();
 #pragma unroll
-        for (int i = 0; i < kV; ++i) v[i] += g[i];
+  for (int level = 2; level <= kS; ++level) {
+    const int step = 1 << (level - 2);  // micro boxes between the quarters
+    if (level > 2) __syncthreads();  // the 4x4 sums are in place
+    if ((row & (2 * step - 1)) == 0 && (col & (2 * step - 1)) == 0) {
+      const float4* q00 = mine;
+      const float4* q01 = mine + step * tile.cs * (kV / 4);
+      const float4* q10 = mine + step * tile.tw * tile.cs * (kV / 4);
+      const float4* q11 = q10 + step * tile.cs * (kV / 4);
+      float v[kV];
+#pragma unroll
+      for (int i = 0; i < kV / 4; ++i) {
+        const float4 a = q00[i], b = q01[i], d = q10[i], e = q11[i];
+        v[4 * i] = (a.x + b.x) + (d.x + e.x);
+        v[4 * i + 1] = (a.y + b.y) + (d.y + e.y);
+        v[4 * i + 2] = (a.z + b.z) + (d.z + e.z);
+        v[4 * i + 3] = (a.w + b.w) + (d.w + e.w);
+      }
+      const int Hl = H >> level, Wl = W >> level;
+      store_level<T>(grads, level,
+                     (((long long)n * Hl + (h0 >> level)) * Wl +
+                      (w0 >> level)) * C + c, v);
+      // Only this thread reads its own slot at this level: the sum goes
+      // in place for the next.
+#pragma unroll
+      for (int i = 0; i < kV / 4; ++i) {
+        mine[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2],
+                              v[4 * i + 3]);
       }
     }
-    *reinterpret_cast<uint4*>(reinterpret_cast<T*>(grads.ptr[j]) + off) =
-        pack(v, T());
   }
 }
 
@@ -223,13 +291,17 @@ extern "C" int hr_fuse_forward(const void* x, const void* t0, const void* t1,
 
 // The VJP of hr_fuse_forward: dy and y (the forward's output) (N, H, W, C),
 // dx like them, dt_j (N, H >> s_j, W >> s_j, C): dx = dy (y > 0), dt_j the
-// 2^s_j box sums of dx (dx itself for s_j = 0), summed in f32 and rounded
-// once. Same dtypes, alignment and limits as the forward. Returns
+// 2^s_j box sums of dx (dx itself for s_j = 0), summed in f32 in the fixed
+// tree above and rounded once. Same dtypes, alignment and limits as the
+// forward. The tile is hr_fuse_backward_plan's: cs channel vectors (a
+// divisor of C / (16 / element size)), tw micro-box columns (a multiple of
+// 2^S / m whose m tw pixels divide W), at most 256 threads. Returns
 // cudaGetLastError().
 extern "C" int hr_fuse_backward(const void* dy, const void* y, void* dx,
                                 void* dt0, void* dt1, void* dt2, int s0,
                                 int s1, int s2, int n_terms, int N, int H,
-                                int W, int C, int dtype, void* stream) {
+                                int W, int C, int dtype, int cs, int tw,
+                                void* stream) {
   if (n_terms < 0 || n_terms > kMaxTerms || C % 8 != 0) {
     return (int)cudaErrorInvalidValue;
   }
@@ -237,31 +309,44 @@ extern "C" int hr_fuse_backward(const void* dy, const void* y, void* dx,
   g.ptr[0] = dt0; g.ptr[1] = dt1; g.ptr[2] = dt2;
   g.shift[0] = s0; g.shift[1] = s1; g.shift[2] = s2;
   g.n = n_terms;
-  const int kv = dtype == 0 ? 4 : 8;
-  const long long nfine = (long long)N * H * W * C / kv;
-  long long total = nfine;
-  for (int j = 0; j < kMaxTerms; ++j) {
-    g.start[j] = total;
-    if (j < n_terms && g.shift[j] > 0) {
-      if (g.shift[j] > 3 || (H >> g.shift[j] << g.shift[j]) != H ||
-          (W >> g.shift[j] << g.shift[j]) != W) {
-        return (int)cudaErrorInvalidValue;
-      }
-      total += (long long)N * (H >> g.shift[j]) * (W >> g.shift[j]) * C / kv;
-    }
+  int S = 0;
+  for (int j = 0; j < n_terms; ++j) {
+    if (g.shift[j] < 0 || g.shift[j] > 3) return (int)cudaErrorInvalidValue;
+    S = g.shift[j] > S ? g.shift[j] : S;
   }
-  if (total == 0) return (int)cudaSuccess;
-  const long long want = (total + kThreads - 1) / kThreads;
-  const int blocks = (int)(want < 65535 * 8 ? want : 65535 * 8);
-  const cudaStream_t s = (cudaStream_t)stream;
+  const int m = S > 0 ? 2 : 1, rows = (1 << S) / m;
+  const int cv = C / (dtype == 0 ? 4 : 8);
+  if ((H >> S << S) != H || (W >> S << S) != W || cs <= 0 || cv % cs != 0 ||
+      tw <= 0 || tw % rows != 0 || (W / m) % tw != 0 ||
+      rows * tw * cs > kThreads) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if ((long long)N * H * W == 0) return (int)cudaSuccess;
+  Tile tile;
+  tile.cs = cs;
+  tile.tw = tw;
+  tile.col_tiles = W / m / tw;
+  const long long blocks = (long long)N * (H >> S) * tile.col_tiles;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, cv / cs);
+  const int threads = rows * tw * cs;
+  const cudaStream_t st = (cudaStream_t)stream;
+#define HR_FUSE_BWD(T, kS)                                                  \
+  hr_fuse_backward_kernel<T, kS><<<grid, threads, 0, st>>>(                 \
+      (const T*)dy, (const T*)y, (T*)dx, g, tile, H, W, C)
+#define HR_FUSE_BWD_S(T)    \
+  switch (S) {              \
+    case 0: HR_FUSE_BWD(T, 0); break; \
+    case 1: HR_FUSE_BWD(T, 1); break; \
+    case 2: HR_FUSE_BWD(T, 2); break; \
+    default: HR_FUSE_BWD(T, 3); break; \
+  }
   if (dtype == 0) {
-    hr_fuse_backward_kernel<float><<<blocks, kThreads, 0, s>>>(
-        (const float*)dy, (const float*)y, (float*)dx, g, nfine, total, H, W,
-        C);
+    HR_FUSE_BWD_S(float)
   } else {
-    hr_fuse_backward_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
-        (const __nv_bfloat16*)dy, (const __nv_bfloat16*)y,
-        (__nv_bfloat16*)dx, g, nfine, total, H, W, C);
+    HR_FUSE_BWD_S(__nv_bfloat16)
   }
+#undef HR_FUSE_BWD_S
+#undef HR_FUSE_BWD
   return (int)cudaGetLastError();
 }

@@ -20,9 +20,14 @@
 // projects.
 //
 // Forward (measure_forward, measure_exact_forward; the slice is a template
-// parameter): one block per (body, plane), plus one block per body for mass
-// and height (grid = (4, B)).
-//   * Threads walk the plane's faces in chunks of blockDim, one face each.
+// parameter): a thread-block cluster of CTAs per (body, plane), plus one
+// per body for mass and height (grid = (cluster, 4, B), the cluster along
+// x). Its size comes from the faces walked and the batch (measure_plan in
+// measure/measurements.py, from the shape alone: 16, non-portable, for
+// one body on all F = 20908 faces, fewer as the batch fills the card or
+// the walk shortens), and CTA r walks the contiguous walk positions
+// [r span, (r + 1) span).
+//   * Threads walk the CTA's faces in chunks of blockDim, one face each.
 //     Reference mode runs the first-hit emulation of
 //     plane_slice_reference_soa for both quad triangles: 3 Moller casts of
 //     the quad edges (|det| >= 1e-4), then 3 body-edge crossings with
@@ -30,21 +35,33 @@
 //     padding) is dropped. Exact mode keeps both crossings of a face cut on
 //     exactly two edges (strict sa * sb < 0, the 1e-20 guard, the first /
 //     second edge rule of plane_slice_soa); face 0 is kept.
-//   * Hits are compacted into a global buffer the wrapper allocates (2 per
-//     walked face at most: 334 KB at full F would not fit the 227 KB of
-//     shared memory) by a block-wide prefix sum per chunk, so they land in
-//     face order on every run. Beside each hit goes its code: walk position
-//     * 16 + which formula made it (reference: quad triangle * 8 + candidate
-//     0-5; exact: first / second * 4 + edge), which the backward needs.
-//   * The masked centroid comes from per-thread sums and a fixed-order
-//     block reduction. Hits are then staged, centred, through shared memory
-//     in chunks; thread d owns the antipodal direction pair (theta_d,
-//     theta_d + pi): h = max(max proj, 0) + max(-min proj, 0). The block
-//     sums h over the pairs, times 2 pi / K; the result is 0 with fewer than
-//     2 hits. The hit count and centroid are saved for the backward.
+//   * Each CTA compacts its hits by a block-wide prefix sum per chunk into
+//     its own run of a scratch row (2 slots per walked face, so any walk
+//     fits), with each hit's code: walk position * 16 + which formula made
+//     it (reference: quad triangle * 8 + candidate 0-5; exact: first /
+//     second * 4 + edge), which the backward needs. Every CTA then stores
+//     its hit count and sums into every other CTA's shared memory
+//     (distributed shared memory; stores, so no thread waits on a remote
+//     load) and, after the cluster's barrier, the counts of the ranks
+//     before it give its offset: its hits are copied to the wrapper's
+//     buffer in face order, as one block's walk would leave them. The
+//     sums over the ranks in rank order give the centroid, the same bits
+//     in every CTA.
+//   * Hull: each CTA projects its staged hits, centred, on all K/2
+//     antipodal direction pairs (theta_d, theta_d + pi) with all its
+//     threads (256 / (K/2) threads a pair, each taking every so-many-th
+//     hit), h = max(max proj, 0) + max(-min proj, 0), and stores its
+//     extremes in rank 0's shared memory; rank 0 takes the max and min
+//     over the ranks (exact in any order) and sums h over the pairs in a
+//     fixed order, times 2 pi / K; the result is 0 with fewer than 2 hits.
+//     The hit count and centroid are saved for the backward.
 //   * Mass: |sum of the 6-term determinants| / 6 * density, in the term
-//     order of measurements.py:354-358 (the signed sum is saved). Height:
+//     order of measurements.py:354-358, each CTA over its range of faces,
+//     rank 0 over the ranks in order (the signed sum is saved). Height:
 //     |y(head) - y(heel)| at the barycentric anchors.
+//   All sums run in an order fixed by the shape, so two calls give the
+//   same bits. At a large batch the walk is bound by the gathers of each
+//   face's three vertices, once per plane, from L2 (PERF.md).
 //
 // Backward (measure_backward, measure_exact_backward): two kernels, no
 // atomics, so two calls give the same bits.
@@ -92,6 +109,7 @@
 // a tie.
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include <algorithm>
 
@@ -107,6 +125,30 @@ struct Planes {
   int off[3];  // start of each plane's face list in plane_faces
   int n[3];    // faces each plane walks
 };
+
+// The forward's cluster plan (measure_plan): CTA r of a plane's cluster
+// walks positions [r plane[p], min(n_p, (r + 1) plane[p])), of the mass
+// cluster faces [r mass, min(F, (r + 1) mass)).
+struct Spans {
+  int plane[3];
+  int mass;
+};
+
+constexpr int kMaxCluster = 16;
+
+// A forward CTA's shared memory, then rank 0's gather of the cluster's
+// extremes (ranks x half_k x 2 floats; the same size in every CTA).
+struct FwdShared {
+  float red[32];
+  int scan[32];
+  // from each rank r: its hit count and its hits' count, x and z sums (the
+  // mass cluster: its volume sum), stored here by rank r
+  float peer[kMaxCluster][4];
+  int offset;           // where this CTA's hits start in the plane's row
+  float count, cx, cz;  // the plane's hit count and centroid
+  float part_mx[kMaxHalfK], part_mn[kMaxHalfK];  // per (pair, share)
+};
+static_assert(sizeof(FwdShared) % 16 == 0, "the gather follows FwdShared");
 
 // Sum over the block; every thread gets the result. red: 32 floats.
 __device__ float block_sum(float v, float* red) {
@@ -150,6 +192,39 @@ __device__ int block_scan(int v, int* buf, int& total) {
   __syncthreads();
   total = buf[nwarps - 1];
   return (warp ? buf[warp - 1] : 0) + x - v;
+}
+
+// Thread-block cluster instructions. The cluster's barrier: arrive
+// (relaxed, at the start: every CTA has started once the wait returns,
+// before any CTA writes another's shared memory) and wait, or both with
+// release / acquire; and a store of v to CTA `rank`'s shared memory at
+// this CTA's address `local`. Values move by stores to the CTA that reads
+// them, so no thread waits on a remote load.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t cluster_addr(const void* local,
+                                                 unsigned rank) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(local);
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  return remote;
+}
+__device__ __forceinline__ void st_cluster(float* local, unsigned rank,
+                                           float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n"
+               :
+               : "r"(cluster_addr(local, rank)), "f"(v)
+               : "memory");
 }
 
 struct Tri {
@@ -415,25 +490,32 @@ __device__ void hit_vjp(const Tri& T, float h, int detail, float ga, float gb,
 }
 
 template <int kMode>
-__global__ void __launch_bounds__(kThreads) measure_kernel(
+__global__ void __launch_bounds__(kThreads) measure_cluster_kernel(
     const float* __restrict__ verts, const int* __restrict__ faces,
     const int* __restrict__ plane_faces, const int* __restrict__ anchor_face,
     const float* __restrict__ anchor_bary, const float* __restrict__ hull_cos,
     const float* __restrict__ hull_sin, float2* __restrict__ hits,
-    int* __restrict__ codes, float* __restrict__ stats,
+    int* __restrict__ codes, float2* __restrict__ staged,
+    int* __restrict__ staged_codes, float* __restrict__ stats,
     float* __restrict__ out, float* __restrict__ plane_h, int V, int F,
-    Planes planes, int cap, int half_k, float angle_step, float density) {
-  __shared__ float red[32];
-  __shared__ int scan[32];
-  __shared__ float2 pts[kChunk];
-  const int p = blockIdx.x;  // 0..2: chest, waist, hips; 3: mass + height
-  const int b = blockIdx.y;
+    Planes planes, Spans spans, int cap, int half_k, float angle_step,
+    float density) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  FwdShared& sh = *reinterpret_cast<FwdShared*>(smem);
+  float* gather = reinterpret_cast<float*>(smem + sizeof(FwdShared));
+  const unsigned rank = blockIdx.x, ranks = gridDim.x;  // the cluster
+  const int p = blockIdx.y;  // 0..2: chest, waist, hips; 3: mass + height
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
   const float* vb = verts + (size_t)b * V * 3;
   float* st = stats + ((size_t)b * 4 + p) * 4;
+  cluster_arrive_relaxed();  // waited for before the first remote store
 
   if (p == 3) {
+    const int lo = min(F, (int)rank * spans.mass);
+    const int hi = min(F, lo + spans.mass);
     float acc = 0.f;
-    for (int i = threadIdx.x; i < F; i += blockDim.x) {
+    for (int i = lo + tid; i < hi; i += kThreads) {
       const int* f = faces + 3 * i;
       const float* v0 = vb + 3 * f[0];
       const float* v1 = vb + 3 * f[1];
@@ -444,8 +526,13 @@ __global__ void __launch_bounds__(kThreads) measure_kernel(
       acc += -x2 * y1 * z0 + x1 * y2 * z0 + x2 * y0 * z1 - x0 * y2 * z1 -
              x1 * y0 * z2 + x0 * y1 * z2;
     }
-    const float total = block_sum(acc, red);
-    if (threadIdx.x == 0) {
+    const float part = block_sum(acc, sh.red);
+    cluster_wait();
+    if (tid == 0) st_cluster(&sh.peer[rank][0], 0, part);
+    cluster_sync();  // every CTA's sum is in rank 0's shared memory
+    if (rank == 0 && tid == 0) {
+      float total = 0.f;
+      for (unsigned r = 0; r < ranks; ++r) total += sh.peer[r][0];
       out[b * 5 + 0] = fabsf(total) / 6.0f * density;
       out[b * 5 + 1] = fabsf(anchor_y(vb, faces, anchor_face, anchor_bary, 0) -
                              anchor_y(vb, faces, anchor_face, anchor_bary, 1));
@@ -455,19 +542,23 @@ __global__ void __launch_bounds__(kThreads) measure_kernel(
   }
 
   const float h = anchor_y(vb, faces, anchor_face, anchor_bary, 2 + p);
-  if (threadIdx.x == 0) plane_h[b * 3 + p] = h;
-
+  if (rank == 0 && tid == 0) plane_h[b * 3 + p] = h;
   const int n = planes.n[p];
+  const int lo = min(n, (int)rank * spans.plane[p]);
+  const int hi = min(n, lo + spans.plane[p]);
   const int* ids = plane_faces ? plane_faces + planes.off[p] : nullptr;
-  float2* hp = hits + ((size_t)b * 3 + p) * cap;
-  int* cp = codes + ((size_t)b * 3 + p) * cap;
+  // This CTA's hits go first to its own run of the row's scratch, 2 slots
+  // a walked face.
+  const size_t row = ((size_t)b * 3 + p) * cap;
+  float2* sp = staged + row + 2 * lo;
+  int* sc = staged_codes + row + 2 * lo;
   float cnt = 0.f, sx = 0.f, sz = 0.f;
-  int total = 0;  // hits written so far, the same in every thread
-  for (int start = 0; start < n; start += blockDim.x) {
-    const int i = start + threadIdx.x;
+  int total = 0;  // hits staged so far, the same in every thread
+  for (int start = lo; start < hi; start += kThreads) {
+    const int i = start + tid;
     float2 p0, p1;
     int k0, k1, k = 0;
-    if (i < n) {
+    if (i < hi) {
       k = slice_face<kMode>(vb, faces, ids ? ids[i] : i, i, h, p0, p1, k0,
                             k1);
     }
@@ -482,55 +573,97 @@ __global__ void __launch_bounds__(kThreads) measure_kernel(
       sz += p1.y;
     }
     int chunk_total;
-    const int at = total + block_scan(k, scan, chunk_total);
+    const int at = total + block_scan(k, sh.scan, chunk_total);
     if (k > 0) {
-      hp[at] = p0;
-      cp[at] = k0;
+      sp[at] = p0;
+      sc[at] = k0;
     }
     if (k > 1) {
-      hp[at + 1] = p1;
-      cp[at + 1] = k1;
+      sp[at + 1] = p1;
+      sc[at + 1] = k1;
     }
     total += chunk_total;
   }
-  const float total_n = block_sum(cnt, red);
-  const float total_x = block_sum(sx, red);
-  const float total_z = block_sum(sz, red);
-  const float cx = total_x / fmaxf(total_n, 1.f);
-  const float cz = total_z / fmaxf(total_n, 1.f);
-
-  const int d0 = threadIdx.x, d1 = threadIdx.x + blockDim.x;
-  const float c0 = d0 < half_k ? hull_cos[d0] : 0.f;
-  const float s0 = d0 < half_k ? hull_sin[d0] : 0.f;
-  const float c1 = d1 < half_k ? hull_cos[d1] : 0.f;
-  const float s1 = d1 < half_k ? hull_sin[d1] : 0.f;
-  // Starting at 0 clamps: h = max(max proj, 0), h(theta+pi) = max(-min, 0).
-  float mx0 = 0.f, mn0 = 0.f, mx1 = 0.f, mn1 = 0.f;
-  for (int start = 0; start < total; start += kChunk) {
-    const int m = min(kChunk, total - start);
-    __syncthreads();  // the previous chunk is consumed
-    for (int i = threadIdx.x; i < m; i += blockDim.x) {
-      const float2 q = hp[start + i];
-      pts[i] = make_float2(q.x - cx, q.y - cz);
-    }
-    __syncthreads();
-    for (int i = 0; i < m; ++i) {
-      const float2 q = pts[i];
-      const float pr0 = q.x * c0 + q.y * s0;
-      const float pr1 = q.x * c1 + q.y * s1;
-      mx0 = fmaxf(mx0, pr0);
-      mn0 = fminf(mn0, pr0);
-      mx1 = fmaxf(mx1, pr1);
-      mn1 = fminf(mn1, pr1);
-    }
+  const float own_n = block_sum(cnt, sh.red);
+  const float own_x = block_sum(sx, sh.red);
+  const float own_z = block_sum(sz, sh.red);
+  cluster_wait();
+  if (tid < (int)ranks) {  // this CTA's count and sums, to every rank
+    float* to = sh.peer[rank];
+    st_cluster(&to[0], tid, __int_as_float(total));
+    st_cluster(&to[1], tid, own_n);
+    st_cluster(&to[2], tid, own_x);
+    st_cluster(&to[3], tid, own_z);
   }
+  cluster_sync();  // every rank's count and sums are here
+  if (tid == 0) {  // the ranks in order: the same bits in every CTA
+    int offset = 0;
+    float tn = 0.f, tx = 0.f, tz = 0.f;
+    for (unsigned r = 0; r < ranks; ++r) {
+      if (r < rank) offset += __float_as_int(sh.peer[r][0]);
+      tn += sh.peer[r][1];
+      tx += sh.peer[r][2];
+      tz += sh.peer[r][3];
+    }
+    sh.offset = offset;
+    sh.count = tn;
+    sh.cx = tx / fmaxf(tn, 1.f);
+    sh.cz = tz / fmaxf(tn, 1.f);
+  }
+  __syncthreads();  // also: the staged hits are visible to the block
+  const float cx = sh.cx, cz = sh.cz;
+  float2* hp = hits + row + sh.offset;
+  int* cp = codes + row + sh.offset;
+  for (int i = tid; i < total; i += kThreads) {
+    hp[i] = sp[i];
+    cp[i] = sc[i];
+  }
+
+  // This CTA's extremes per direction pair: item w = share * half_k + d
+  // takes pair d over the hits share, share + shares, ...; starting at 0
+  // clamps, h = max(max proj, 0), h(theta + pi) = max(-min proj, 0).
+  const int shares = half_k >= kThreads ? 1 : kThreads / half_k;
+  for (int w = tid; w < shares * half_k; w += kThreads) {
+    const int share = w / half_k, d = w - share * half_k;
+    const float c = hull_cos[d], s = hull_sin[d];
+    float mx = 0.f, mn = 0.f;
+    for (int i = share; i < total; i += shares) {
+      const float2 q = sp[i];
+      const float x = q.x - cx, z = q.y - cz;
+      const float pr = x * c + z * s;
+      mx = fmaxf(mx, pr);
+      mn = fminf(mn, pr);
+    }
+    sh.part_mx[w] = mx;
+    sh.part_mn[w] = mn;
+  }
+  __syncthreads();
+  for (int d = tid; d < half_k; d += kThreads) {  // to rank 0's gather
+    float mx = sh.part_mx[d], mn = sh.part_mn[d];
+    for (int share = 1; share < shares; ++share) {
+      mx = fmaxf(mx, sh.part_mx[share * half_k + d]);
+      mn = fminf(mn, sh.part_mn[share * half_k + d]);
+    }
+    st_cluster(&gather[(rank * half_k + d) * 2], 0, mx);
+    st_cluster(&gather[(rank * half_k + d) * 2 + 1], 0, mn);
+  }
+  cluster_sync();  // every rank's extremes are in rank 0's gather
+  if (rank != 0) return;
+  // Thread t sums pairs t, t + blockDim (then the block, in a fixed tree):
+  // max and min over the ranks are exact in any order.
   float hsum = 0.f;
-  if (d0 < half_k) hsum += mx0 - mn0;
-  if (d1 < half_k) hsum += mx1 - mn1;
-  const float perimeter = block_sum(hsum, red) * angle_step;
-  if (threadIdx.x == 0) {
-    out[b * 5 + 2 + p] = total_n >= 2.f ? perimeter : 0.f;
-    st[0] = total_n;
+  for (int d = tid; d < half_k; d += kThreads) {
+    float mx = 0.f, mn = 0.f;
+    for (unsigned r = 0; r < ranks; ++r) {
+      mx = fmaxf(mx, gather[(r * half_k + d) * 2]);
+      mn = fminf(mn, gather[(r * half_k + d) * 2 + 1]);
+    }
+    hsum += mx - mn;
+  }
+  const float perimeter = block_sum(hsum, sh.red) * angle_step;
+  if (tid == 0) {
+    out[b * 5 + 2 + p] = sh.count >= 2.f ? perimeter : 0.f;
+    st[0] = sh.count;
     st[1] = cx;
     st[2] = cz;
   }
@@ -884,21 +1017,72 @@ __global__ void __launch_bounds__(kThreads) measure_points_backward_heights(
   if (threadIdx.x == 0) g_h[row] = total;
 }
 
+// The forward's dynamic shared memory: FwdShared and rank 0's gather.
+size_t forward_smem(int cluster, int half_k) {
+  return sizeof(FwdShared) + (size_t)cluster * half_k * 2 * sizeof(float);
+}
+
 template <int kMode>
 int launch_forward(const void* verts, const void* faces,
                    const void* plane_faces, const void* anchor_face,
                    const void* anchor_bary, const void* hull_cos,
-                   const void* hull_sin, void* hits, void* codes, void* stats,
-                   void* out, void* plane_h, int B, int V, int F,
-                   Planes planes, int cap, int half_k, float angle_step,
-                   float density, void* stream) {
-  if (half_k > kMaxHalfK) return (int)cudaErrorInvalidValue;
-  measure_kernel<kMode><<<dim3(4, B), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)verts, (const int*)faces, (const int*)plane_faces,
-      (const int*)anchor_face, (const float*)anchor_bary,
-      (const float*)hull_cos, (const float*)hull_sin, (float2*)hits,
-      (int*)codes, (float*)stats, (float*)out, (float*)plane_h, V, F, planes,
-      cap, half_k, angle_step, density);
+                   const void* hull_sin, void* hits, void* codes,
+                   void* staged, void* staged_codes, void* stats, void* out,
+                   void* plane_h, int B, int V, int F, Planes planes, int cap,
+                   int half_k, float angle_step, float density, int cluster,
+                   Spans spans, void* stream) {
+  if (half_k < 1 || half_k > kMaxHalfK || cluster < 1 ||
+      cluster > kMaxCluster || B > 65535 ||
+      (long long)spans.mass * cluster < F) {
+    return (int)cudaErrorInvalidValue;
+  }
+  for (int p = 0; p < 3; ++p) {  // the plan covers every walk position
+    if ((long long)spans.plane[p] * cluster < planes.n[p] ||
+        2 * planes.n[p] > cap) {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  const size_t smem = forward_smem(cluster, half_k);
+  auto kernel = measure_cluster_kernel<kMode>;
+  // Per device: the shared memory raised as far as a launch needed, and
+  // clusters above the portable 8 allowed.
+  static size_t smem_set[64] = {};
+  static bool wide[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64 || smem > smem_set[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) smem_set[dev] = smem;
+  }
+  if (cluster > 8 && (dev >= 64 || !wide[dev])) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) wide[dev] = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, 4, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, (const float*)verts, (const int*)faces,
+      (const int*)plane_faces, (const int*)anchor_face,
+      (const float*)anchor_bary, (const float*)hull_cos,
+      (const float*)hull_sin, (float2*)hits, (int*)codes, (float2*)staged,
+      (int*)staged_codes, (float*)stats, (float*)out, (float*)plane_h, V, F,
+      planes, spans, cap, half_k, angle_step, density);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -944,28 +1128,39 @@ Planes make_planes(int off0, int off1, int off2, int n0, int n1, int n2) {
   return planes;
 }
 
+Spans make_spans(int span0, int span1, int span2, int mass) {
+  Spans spans;
+  spans.plane[0] = span0; spans.plane[1] = span1; spans.plane[2] = span2;
+  spans.mass = mass;
+  return spans;
+}
+
 }  // namespace
 
 // Forward. verts (B, V, 3) f32; faces (F, 3) i32; plane_faces the three
 // planes' face-id lists back to back (i32), or NULL to walk all F faces (ids
 // = positions); anchor_face (5,) i32 and anchor_bary (5, 3) f32 for head
 // top, left heel, chest, waist, hips; hull_cos / hull_sin (half_k,) f32;
-// hits (B, 3, cap) float2 and codes (B, 3, cap) i32 with cap >= 2 * max(n);
-// stats (B, 4, 4) f32 (per plane: hits, centroid x, z; row 3: the signed
-// volume sum); out (B, 5) f32 = mass, height, chest, waist, hips; plane_h
-// (B, 3) f32. Returns cudaGetLastError().
+// hits (B, 3, cap) float2 and codes (B, 3, cap) i32 with cap >= 2 * max(n),
+// staged / staged_codes scratch of their shapes; stats (B, 4, 4) f32 (per
+// plane: hits, centroid x, z; row 3: the signed volume sum); out (B, 5) f32
+// = mass, height, chest, waist, hips; plane_h (B, 3) f32. The plan
+// (measure_plan): a cluster of `cluster` CTAs, each walking span0 / span1
+// / span2 positions of a plane or span_mass faces. Returns the launch's
+// error, else cudaGetLastError().
 #define MEASURE_FORWARD_ARGS                                                  \
   const void *verts, const void *faces, const void *plane_faces,              \
       const void *anchor_face, const void *anchor_bary, const void *hull_cos, \
-      const void *hull_sin, void *hits, void *codes, void *stats, void *out,  \
-      void *plane_h, int B, int V, int F, int off0, int off1, int off2,      \
-      int n0, int n1, int n2, int cap, int half_k, float angle_step,         \
-      float density, void *stream
+      const void *hull_sin, void *hits, void *codes, void *staged,            \
+      void *staged_codes, void *stats, void *out, void *plane_h, int B,       \
+      int V, int F, int off0, int off1, int off2, int n0, int n1, int n2,    \
+      int cap, int half_k, float angle_step, float density, int cluster,     \
+      int span0, int span1, int span2, int span_mass, void *stream
 #define MEASURE_FORWARD_CALL                                                  \
   verts, faces, plane_faces, anchor_face, anchor_bary, hull_cos, hull_sin,    \
-      hits, codes, stats, out, plane_h, B, V, F,                              \
+      hits, codes, staged, staged_codes, stats, out, plane_h, B, V, F,        \
       make_planes(off0, off1, off2, n0, n1, n2), cap, half_k, angle_step,    \
-      density, stream
+      density, cluster, make_spans(span0, span1, span2, span_mass), stream
 
 extern "C" int measure_forward(MEASURE_FORWARD_ARGS) {
   return launch_forward<kReference>(MEASURE_FORWARD_CALL);

@@ -35,7 +35,7 @@ import math
 import os
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -71,7 +71,7 @@ DEFAULT_VERTICES = {
     "smpl": str(_ASSET_DIR / "smpl_measurement_vertices.yaml"),
 }
 
-_FORWARD_ARGS = "pppp ppp ppp pp iii iii iii ii ff p"
+_FORWARD_ARGS = "pppp ppp pppp ppp iii iii iii ii ff iiiii p"
 _BACKWARD_ARGS = "pppp ppp pppp ppp pppp ppp iii iii iii iii ff p"
 MEASURE_KERNEL = CudaKernel("measure.cu", {
     "measure_forward": _FORWARD_ARGS,
@@ -82,6 +82,42 @@ MEASURE_KERNEL = CudaKernel("measure.cu", {
     "measure_points_backward": "pppp ppp iii iii i p",
 })
 _MAX_HULL_DIRECTIONS = 1024  # the kernels give each thread 2 pairs
+# K1's forward plan (measure_plan): about this many walk positions a CTA,
+# a face's signed volume counted as a quarter of its slice tests, at most
+# 16 CTAs a cluster (the non-portable size), and at most ~128 CTAs a plane
+# over the batch (B x cluster): ~3 CTAs an SM over the three planes on
+# the H100's 132 SMs, where the walk's throughput levels off (PERF.md).
+_K1_CTA_FACES = 1024
+_K1_MASS_SHARE = 4
+_K1_MAX_CLUSTER = 16
+_K1_PLANE_CTAS = 128
+
+
+class MeasurePlan(NamedTuple):
+    """K1's forward work split (from the shape alone): a cluster of
+    ``cluster`` CTAs per (body, plane) and one per body for mass and
+    height; CTA r of plane p's cluster walks positions ``[r spans[p], (r +
+    1) spans[p])`` (clipped to the plane's count), of the mass cluster
+    faces ``[r mass_span, (r + 1) mass_span)``."""
+
+    cluster: int
+    spans: Tuple[int, int, int]
+    mass_span: int
+
+
+def measure_plan(counts: Tuple[int, int, int], F: int,
+                 B: int) -> MeasurePlan:
+    """The cluster of K1's forward (``csrc/measure.cu``) for B bodies,
+    sized from the faces walked: its longest walk (a plane's count, or a
+    quarter of the F faces the mass sums) over ~1024 positions a CTA, at
+    most ~128 CTAs a plane over the batch, 1 to 16 CTAs; each CTA takes a
+    contiguous run of positions."""
+    work = max(max(counts), -(-F // _K1_MASS_SHARE))
+    cluster = min(_K1_MAX_CLUSTER, -(-work // _K1_CTA_FACES),
+                  _K1_PLANE_CTAS // max(B, 1))
+    cluster = max(1, cluster)
+    return MeasurePlan(cluster, tuple(-(-n // cluster) for n in counts),
+                       -(-F // cluster))
 
 
 @dataclass(frozen=True)
@@ -283,6 +319,45 @@ def measure_plain(
     return torch.stack(cols, dim=-1), torch.stack(heights, dim=-1)
 
 
+def saved_hits_plain(vertices: torch.Tensor, faces: torch.Tensor,
+                     plane_faces: Optional[List[torch.Tensor]],
+                     plane_heights: torch.Tensor, slice_mode: str
+                     ) -> List[List[Tuple[torch.Tensor, torch.Tensor]]]:
+    """The hits K1 / K1-exact's forward saves, from the plain slice's
+    masks at the given (B, 3) plane heights: per body, per plane, the (n,
+    2) points in face order (by walk position, then quad triangle /
+    first-second) and their (n,) codes. A reference code holds walk
+    position * 16 + quad triangle * 8 (the plain slice does not say which
+    of the six candidates won: compare ``code & ~7``); an exact code also
+    the crossed edge, as the kernel writes it."""
+    tx, ty, tz = _soa(vertices, faces)
+    per_plane = []
+    for p in range(3):
+        ids = None if plane_faces is None else plane_faces[p].long()
+        sx, sy, sz = (tx, ty, tz) if ids is None else (
+            tx[..., ids], ty[..., ids], tz[..., ids])
+        n = sy.shape[-1]
+        pos = torch.arange(n, device=vertices.device)
+        if slice_mode == "reference":
+            xs, zs, m = plane_slice_reference_soa(sy, sx, sz,
+                                                  plane_heights[:, p],
+                                                  face_ids=ids)
+            codes = torch.cat([pos * 16, pos * 16 + 8])[None].expand_as(m)
+        else:
+            xs, zs, m = plane_slice_soa(sy, sx, sz, plane_heights[:, p])
+            d = sy - plane_heights[:, p, None, None]
+            first = torch.where(d[:, 0] * d[:, 1] < 0, 0, 1)
+            second = torch.where(d[:, 2] * d[:, 0] < 0, 2, 1)
+            codes = torch.cat([pos * 16 + first, pos * 16 + 4 + second],
+                              dim=-1)
+        order = torch.stack([pos, pos + n], dim=-1).reshape(-1)
+        xs, zs, m, codes = (t[:, order] for t in (xs, zs, m, codes))
+        per_plane.append([(torch.stack([xs[b][m[b]], zs[b][m[b]]], -1),
+                           codes[b][m[b]].int())
+                          for b in range(vertices.shape[0])])
+    return [list(rows) for rows in zip(*per_plane)]
+
+
 def saved_centroids(vals: torch.Tensor) -> torch.Tensor:
     """The (B, 3, 2) slice centroids that kernel K1 / K1-exact computed
     for ``vals``, the first output of a :meth:`BodyMeasurements.measure`
@@ -350,14 +425,16 @@ class _MeasureKernel(torch.autograd.Function):
         def empty(*shape, dtype=torch.float32):
             return torch.empty(shape, dtype=dtype, device=dev)
 
+        plan = measure_plan(walk.counts, F, B)
         hits, codes = empty(B, 3, cap, 2), empty(B, 3, cap, dtype=torch.int32)
         stats, out, plane_h = empty(B, 4, 4), empty(B, 5), empty(B, 3)
         if B > 0:
             MEASURE_KERNEL.launch(f"measure_{mode}forward", [
                 vertices, walk.faces, walk.plane_faces, walk.anchor_face,
                 walk.anchor_bary, meas.hull_cos, meas.hull_sin, hits, codes,
-                stats, out, plane_h, B, V, F, *planes, cap, half_k,
-                angle_step, meas.density])
+                torch.empty_like(hits), torch.empty_like(codes), stats, out,
+                plane_h, B, V, F, *planes, cap, half_k, angle_step,
+                meas.density, plan.cluster, *plan.spans, plan.mass_span])
         outs = (out, plane_h)
         if with_points:
             points = empty(B, 3, 6 * F)

@@ -27,7 +27,7 @@ topology is not ported yet.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,9 +50,54 @@ from shapy_tpu_torch.utils.cuda_kernels import CudaKernel
 
 FUSE_KERNEL = CudaKernel("hr_fuse.cu", {
     "hr_fuse_forward": "ppppp iiii iiii i p",
-    "hr_fuse_backward": "pppppp iii i iiii i p",
+    "hr_fuse_backward": "pppppp iii i iiii i ii p",
 })
 _MAX_FUSE_TERMS = 3
+_FUSE_BWD_THREADS = 256  # hr_fuse.cu's kThreads
+
+
+class FuseBackwardPlan(NamedTuple):
+    """The tiles of K5-fuse's backward for one target (from the shape
+    alone): a block owns ``2 ** shift`` rows (``shift`` the largest of the
+    terms') x ``tw`` micro boxes of ``side`` x ``side`` pixels x ``cs``
+    channel vectors of 16 bytes; ``grid`` = (images x row tiles x
+    ``col_tiles``, channel slices), ``threads`` a block."""
+
+    shift: int
+    side: int
+    cs: int
+    tw: int
+    col_tiles: int
+    grid: Tuple[int, int]
+    threads: int
+
+
+def hr_fuse_backward_plan(N: int, C: int, H: int, W: int,
+                          shifts: Sequence[int],
+                          element_size: int) -> FuseBackwardPlan:
+    """K5-fuse's backward tiles (``csrc/hr_fuse.cu``): aligned to the box
+    of the largest shift S, whose 2^S rows a block holds (2^S / side rows
+    of micro boxes, side 2 for S > 0, else 1). The channel slice is the
+    largest divisor of the channel vectors that lets a block hold one box
+    column; then as many box columns as divide the row and fit 256
+    threads."""
+    S = max(shifts, default=0)
+    if (C * element_size % 16 or H % (1 << S) or W % (1 << S)
+            or min(shifts, default=0) < 0 or S > 3):
+        raise ValueError(f"hr_fuse backward: {C} channels at {H}x{W} with "
+                         f"shifts {tuple(shifts)}")
+    side = 2 if S > 0 else 1
+    rows = (1 << S) // side
+    cv = C * element_size // 16
+    cs = max(d for d in range(1, cv + 1)
+             if cv % d == 0 and rows * rows * d <= _FUSE_BWD_THREADS)
+    wm = W // side
+    tw = max(k for k in range(rows, wm + 1, rows)
+             if wm % k == 0 and rows * k * cs <= _FUSE_BWD_THREADS)
+    col_tiles = wm // tw
+    return FuseBackwardPlan(S, side, cs, tw, col_tiles,
+                            (N * (H >> S) * col_tiles, cv // cs),
+                            rows * tw * cs)
 
 
 def hr_fuse_plain(x: torch.Tensor,
@@ -73,23 +118,17 @@ def hr_fuse_backward_plain(dy: torch.Tensor, y: torch.Tensor,
     """Plain version of K5-fuse's backward: ``(dx, [dt_j])`` with ``dx =
     dy (y > 0)`` and each term's gradient the ``2 ** s`` x ``2 ** s`` box
     sum of dx (the adjoint of the nearest upsample; dx itself for s = 0),
-    summed in f32 (f64 stays) over the box's rows, then columns, in the
-    kernel's order, and rounded once."""
+    summed in f32 (f64 stays) in the kernel's tree, 2x2 = (g00 + g01) +
+    (g10 + g11), then each coarser box from four of the last in the same
+    order, and rounded once."""
     g = relu_mask_plain(dy, y)
-    grads = []
-    for s in shifts:
-        if s == 0:
-            grads.append(g.clone())
-            continue
-        f = 2 ** s
-        gf = _wide(g)
-        acc = None
-        for dh in range(f):
-            for dw in range(f):
-                t = gf[:, :, dh::f, dw::f]
-                acc = t.clone() if acc is None else acc + t
-        grads.append(acc.to(dy.dtype))
-    return g, grads
+    sums = [g]
+    acc = _wide(g)
+    for _ in range(max(shifts, default=0)):
+        acc = ((acc[:, :, 0::2, 0::2] + acc[:, :, 0::2, 1::2])
+               + (acc[:, :, 1::2, 0::2] + acc[:, :, 1::2, 1::2]))
+        sums.append(acc)
+    return g, [g.clone() if s == 0 else sums[s].to(dy.dtype) for s in shifts]
 
 
 def _hr_fuse_cuda(x, terms):
@@ -118,10 +157,12 @@ def _hr_fuse_cuda(x, terms):
 
 
 def _hr_fuse_backward_cuda(dy, y, shifts):
-    """K5-fuse's backward kernel: as :func:`hr_fuse_backward_plain`."""
+    """K5-fuse's backward kernel: as :func:`hr_fuse_backward_plain`, in
+    :func:`hr_fuse_backward_plan`'s tiles."""
     cl = torch.channels_last
     dy = _aligned_cl(dy)
     N, C, H, W = y.shape
+    plan = hr_fuse_backward_plan(N, C, H, W, shifts, y.element_size())
     dx = torch.empty_like(y, memory_format=cl)
     grads = [torch.empty((N, C, H >> s, W >> s), dtype=y.dtype,
                          device=y.device, memory_format=cl) for s in shifts]
@@ -129,7 +170,7 @@ def _hr_fuse_backward_cuda(dy, y, shifts):
     pad = (list(shifts) + [0] * _MAX_FUSE_TERMS)[:_MAX_FUSE_TERMS]
     FUSE_KERNEL.launch("hr_fuse_backward", [
         dy, y, dx, *ptrs, *pad, len(shifts), N, H, W, C,
-        KERNEL_DTYPES[y.dtype]])
+        KERNEL_DTYPES[y.dtype], plan.cs, plan.tw])
     return dx, grads
 
 

@@ -47,15 +47,20 @@ from shapy_tpu_torch.measure.measurements import (
     PLANES,
     BodyMeasurements,
     MeasurementAnchors,
+    _MeasureKernel,
+    _Walk,
     candidate_faces,
     measure_plain,
+    measure_plan,
     saved_centroids,
+    saved_hits_plain,
 )
 from shapy_tpu_torch.models.backbones import hrnet, layers
 from shapy_tpu_torch.models.backbones.hrnet import (
     FUSE_KERNEL,
     HighResolutionModule,
     HRNet,
+    _hr_fuse_backward_cuda,
     hr_fuse,
     hr_fuse_backward_plain,
     hr_fuse_plain,
@@ -615,6 +620,83 @@ def test_measure_backward_kernel_matches_plain(dev, body, slice_mode, case):
     assert float((per_vertex <= 1e-4).double().mean()) >= 0.995
     _, again = _measure_grads(meas, v, g_vals, g_heights, use_subsets)
     assert torch.equal(got, again)
+
+
+@pytest.fixture(scope="module")
+def full_body(dev):
+    """The flagship's synthetic SMPL-X at the real counts (10475 vertices,
+    20908 faces) with its candidate subsets: K1's cluster at its widest
+    (16 CTAs on all faces)."""
+    data = make_synthetic_model_data("smplx", subdivisions=5, seed=0,
+                                     exact_counts=True)
+    model = SMPLX(data).to(dev)
+    anchors = MeasurementAnchors.synthetic(model.faces, data["v_template"])
+    subsets = candidate_faces(data["v_template"], data["shapedirs"],
+                              model.faces, anchors)
+    return model, anchors, subsets
+
+
+@pytest.mark.parametrize("batch", [1, 48])
+@pytest.mark.parametrize("walk", ["all-faces", "subsets"])
+@pytest.mark.parametrize("slice_mode", ["reference", "exact"])
+def test_measure_forward_cluster_matches_plain(dev, full_body, slice_mode,
+                                               walk, batch):
+    """K1's forward (a thread-block cluster per (body, plane), sized by
+    ``measure_plan``) at the real counts: mass and height rel 1e-5 (f32
+    sums in another order), circumferences 1e-5 m (the same hit tests
+    without FMA; centroid sums in another order), plane heights 1e-6;
+    the saved hits and codes equal, in face order, those the plain slice's
+    masks give at the kernel's plane heights (``saved_hits_plain``; in
+    reference mode the code's candidate bits are the kernel's alone); two
+    calls bit-equal; one launch."""
+    model, anchors, subsets = full_body
+    meas = BodyMeasurements(anchors, model.faces, 256, slice_mode=slice_mode,
+                            face_subsets=subsets).to(dev)
+    use_subsets = walk == "subsets"
+    gen = torch.Generator().manual_seed(batch)
+    betas = torch.randn(batch, 10, generator=gen) * 1.5
+    v = model.forward_shape(betas.to(dev))["v_shaped"].detach().contiguous()
+    plane_faces = ([getattr(meas, f"subset_{n}") for n in PLANES]
+                   if use_subsets else None)
+    F = meas.faces.shape[0]
+    counts = meas.subset_counts if use_subsets else (F, F, F)
+    if not use_subsets and batch == 1:
+        assert measure_plan(counts, F, batch).cluster == 16
+    fwd = ("measure_forward" if slice_mode == "reference"
+           else "measure_exact_forward")
+    before = MEASURE_KERNEL.counts[fwd]
+    x = v.clone().requires_grad_()
+    vals, heights = meas.measure(x, use_subsets)
+    assert MEASURE_KERNEL.counts[fwd] == before + 1
+    want, want_h = measure_plain(v, meas.faces, plane_faces, meas.anchors,
+                                 256, meas.density, slice_mode)
+    torch.testing.assert_close(vals[:, :2], want[:, :2], rtol=1e-5, atol=0)
+    torch.testing.assert_close(vals[:, 2:], want[:, 2:], rtol=0, atol=1e-5)
+    torch.testing.assert_close(heights, want_h, rtol=0, atol=1e-6)
+    assert bool((vals[:, 2:] > 0.5).all())
+    _, hits, codes, stats, _ = vals.grad_fn.saved_tensors
+    ref = saved_hits_plain(v, meas.faces, plane_faces, heights.detach(),
+                           slice_mode)
+    keep = ~7 if slice_mode == "reference" else -1
+    for b in range(batch):
+        for p in range(3):
+            pts, cds = ref[b][p]
+            n = int(stats[b, p, 0])
+            assert n == cds.shape[0]
+            assert torch.equal(hits[b, p, :n], pts)
+            assert torch.equal(codes[b, p, :n] & keep, cds)
+    again, again_h = meas.measure(v, use_subsets)
+    assert torch.equal(vals, again) and torch.equal(heights, again_h)
+    vals2, _ = meas.measure(v.clone().requires_grad_(), use_subsets)
+    _, hits2, codes2, stats2, _ = vals2.grad_fn.saved_tensors
+    # stats: per plane the hit count and centroid, the volume sum
+    assert torch.equal(stats[:, :3, :3], stats2[:, :3, :3])
+    assert torch.equal(stats[:, 3, 0], stats2[:, 3, 0])
+    for b in range(batch):
+        for p in range(3):
+            n = int(stats[b, p, 0])
+            assert torch.equal(hits[b, p, :n], hits2[b, p, :n])
+            assert torch.equal(codes[b, p, :n], codes2[b, p, :n])
 
 
 def test_measure_cuda_tensors_never_fall_back_to_plain(dev, body,
@@ -1464,6 +1546,52 @@ def test_hr_fuse_backward_kernel_matches_plain(dev, dtype):
             else:
                 step = layers.bf16_step(want.float().abs())
                 assert bool(((a.float() - want.float()).abs() <= step).all())
+
+
+def _w48_fuse_targets(crop: int):
+    """(channels, side, shifts) of the 26 fusion targets of a W48 forward
+    (stage 2's module, stage 3's four, stage 4's three)."""
+    out = []
+    for stage in ("stage2", "stage3", "stage4"):
+        modules, n = hrnet.W48_STAGES[stage][:2]
+        chans = hrnet._branch_channels(stage)
+        for _ in range(modules):
+            for i in range(n):
+                shifts = [j - i for j in range(i + 1, n)] + [0] * i
+                out.append((chans[i], (crop // 4) >> i, shifts))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_hr_fuse_backward_kernel_at_every_w48_target(dev, dtype):
+    """K5-fuse's backward at each of a W48 train step's 26 (shape, shifts)
+    at 256^2 crops, batch 2: f32 bit-equal to ``hr_fuse_backward_plain``
+    (the same tree of f32 adds), bf16 within one bf16 step (the same sums,
+    rounded once); two calls bit-equal; each shift-0 gradient equal to
+    dx."""
+    gen = torch.Generator().manual_seed(9)
+    cl = torch.channels_last
+    targets = _w48_fuse_targets(256)
+    assert len(targets) == 26
+    for C, side, shifts in targets:
+        dy, y = (torch.randn((2, C, side, side), generator=gen).to(dev, dtype)
+                 .contiguous(memory_format=cl) for _ in range(2))
+        before = FUSE_KERNEL.counts["hr_fuse_backward"]
+        dx, grads = _hr_fuse_backward_cuda(dy, y, shifts)
+        assert FUSE_KERNEL.counts["hr_fuse_backward"] == before + 1
+        dx2, grads2 = _hr_fuse_backward_cuda(dy, y, shifts)
+        want_dx, want = hr_fuse_backward_plain(dy, y, shifts)
+        for a, b_, w in zip([dx] + grads, [dx2] + grads2, [want_dx] + want):
+            assert torch.equal(a, b_)
+            assert a.shape == w.shape
+            if dtype == torch.float32:
+                assert torch.equal(a, w), (C, side, shifts)
+            else:
+                step = layers.bf16_step(w.float().abs())
+                assert bool(((a.float() - w.float()).abs() <= step).all())
+        for g, s in zip(grads, shifts):
+            if s == 0:
+                assert torch.equal(g, dx)
 
 
 def test_backbone_cuda_train_never_reaches_cudnn_or_plain(dev, monkeypatch):
