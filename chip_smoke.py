@@ -681,6 +681,9 @@ RESNET_EVAL_KERNELS = RESNET_SERVE_KERNELS + ("K8a_point_regress",
 
 SCORE_KERNELS = ("K1_measure", "K1aos_points", "K8a_point_regress",
                  "K8b_align_error")
+# The metrics' launches a batch, evaluated or scored: K8a once, K8b once
+# (an eval batch's nine point errors in one group).
+K8_PER_BATCH = {"K8a_point_regress": 1, "K8b_align_error": 1}
 TRAIN_KERNELS = ("K1_measure", "K3_skinning", "K3_skinning_backward",
                  "K3chain_forward", "K3chain_backward", "K4_bn_forward",
                  "K4_bn_backward", *K5_PER_TRAIN_STEP)
@@ -725,12 +728,6 @@ def check_kernels(regressor, requests, eval_data, dev):
     from shapy_tpu_torch.core.kinematics import batch_rigid_transform
     from shapy_tpu_torch.core.rotations import aa_to_rotmat
     from shapy_tpu_torch.data.crop import crop_normalize, crop_normalize_plain
-    from shapy_tpu_torch.eval.metrics import (
-        aligned_point_error,
-        aligned_point_error_plain,
-        point_regress_error,
-        point_regress_error_plain,
-    )
     from shapy_tpu_torch.measure.measurements import (
         PLANES,
         _soa,
@@ -820,62 +817,173 @@ def check_kernels(regressor, requests, eval_data, dev):
            (V * J + rel.numel() + 2 * v_posed.numel()) * 4,
            B * V * (24 * J + 18))
 
-    # K8a: the P2P-20k error of predicted-like against GT v_shaped.
-    # Tolerance atol 1e-5 m: the translation's means summed in another
-    # order (f64 in the kernel).
+    results.update(check_k8a(eval_data, gen, dev))
+    results.update(check_k8b(model, eval_data, gen, dev))
+    return results
+
+
+def check_k8a(eval_data, gen, dev) -> dict:
+    """K8a, the P2P-20k error of predicted-like against GT v_shaped, in its
+    three cases: the evaluator's (one regressor for both meshes), a
+    separate target regressor, no alignment; each through the regressor's
+    call (its sorted rows, the main path). Tolerance atol 1e-5 m: the
+    translation's means summed in another order (f64 in the kernel). One
+    launch a call, the same bits twice, the totals bit-equal to their
+    replay in the kernel's order."""
+    import torch
+
+    from shapy_tpu_torch.eval import metrics
+
     reg = eval_data["p2p"]
     gt_v = eval_data["batches"][0]["gt_v_shaped"]
     pred_v = (gt_v + 0.01 * torch.randn(gt_v.shape, generator=gen).to(dev)
               + 0.02).contiguous()
-    k8a = (pred_v, gt_v, reg.indices, reg.weights, reg.indices, reg.weights)
-    err = 0.0
-    for align in (True, False):
-        e = max_err(point_regress_error(*k8a, align),
-                    point_regress_error_plain(*k8a, align))
-        print(f"K8a point regress (align={align}): err {e:.3e} m (tol 1e-5)")
-        check(e <= 1e-5, f"K8a err {e}")
-        err = max(err, e)
     P, K = reg.indices.shape
+    rng = np.random.default_rng(SEED + 7)
+    faces = np.asarray(reg.indices.cpu())  # rows of three vertices
+    target = metrics.SparsePointRegressor(
+        faces[rng.permutation(P)], rng.dirichlet(np.ones(K), size=P),
+        device=dev)
+    no_align = copy.copy(reg)
+    no_align.align = False
+    kernel = metrics.REGRESS_KERNEL
+    err = 0.0
+    for case, r, tr in (("same", reg, None), ("target", reg, target),
+                        ("no-align", no_align, None)):
+        before = kernel.counts["point_regress_forward"]
+        got = r(pred_v, gt_v, tr)
+        check(kernel.counts["point_regress_forward"] == before + 1,
+              f"K8a ({case}) took more than one launch")
+        e = max_err(got, r.plain(pred_v, gt_v, tr))
+        check(e <= 1e-5, f"K8a ({case}) err {e}")
+        check(torch.equal(got, r(pred_v, gt_v, tr)),
+              f"K8a ({case}): two calls differ")
+        rows = r.kernel_rows(tr)
+        _, sums = metrics._point_regress_cuda(pred_v, gt_v, *rows[:4],
+                                              r.align, rows[4])
+        want = (metrics.regress_sums_replay(pred_v, gt_v, *rows[:4])
+                if r.align else torch.zeros_like(sums))
+        check(torch.equal(sums, want),
+              f"K8a ({case}): the translation's sums are not the kernel "
+              f"order's (max diff {float((sums - want).abs().max()):.3e})")
+        print(f"K8a point regress ({case}): err {e:.3e} m (tol 1e-5), one "
+              "launch, bit-equal twice, sums as their replay")
+        err = max(err, e)
+    plan = metrics.regress_plan(P, B)
+    print(f"K8a plan: {plan.cluster} CTAs a body of {plan.span} points")
     # Per (body, point): two K-term regressions (6K FLOP each), the
-    # translation and the distance (~15 FLOP).
-    record_kernel(results, "K8a_point_regress", err,
-           lambda: point_regress_error(*k8a, True),
-           lambda: point_regress_error_plain(*k8a, True),
-           (pred_v.numel() + gt_v.numel()) * 4 + P * K * 8 + B * P * 4,
-           B * P * (12 * K + 15))
+    # translation and the distance (~15 FLOP); bytes: both meshes, the
+    # rows and their order read once, the errors written once.
+    return {"K8a_point_regress": record_kernel(
+        {}, "K8a_point_regress", err, lambda: reg(pred_v, gt_v),
+        lambda: reg.plain(pred_v, gt_v),
+        (pred_v.numel() + gt_v.numel()) * 4 + P * K * 8 + P * 4 + B * P * 4,
+        B * P * (12 * K + 15))}
 
-    # K8b: every alignment over the posed GT vertices against a rotated,
-    # scaled, shifted and perturbed copy (the v2v shapes), and procrustes
-    # over an exact similarity (error ~0). Tolerance atol 1e-5 m: sums in
-    # another order (f64 in the kernel).
-    gt_p = eval_data["batches"][0]["gt_vertices"]
+
+# Per-point FLOP of K8b: the means (6) if any alignment needs them, the
+# moments (var1 6, var2 6, K 18), and each alignment's error.
+K8B_FLOP = {"none": 8, "root": 11, "translation": 11, "scale": 17,
+            "procrustes": 32}
+
+
+def k8b_group(model, eval_data, gen, dev) -> list:
+    """The evaluator's K8b group of one batch (B = 32), GT from the first
+    eval batch: v2v_t (v_shaped: scale, translation), v2v (posed:
+    procrustes, scale, translation), mpjpe (the 55 joints: root,
+    procrustes), mpjpe14 (root on the hips, procrustes); each estimate a
+    rotated, scaled, shifted and perturbed copy of its GT."""
+    import torch
+
+    batch = eval_data["batches"][0]
+    gt_p, gt_s = batch["gt_vertices"], batch["gt_v_shaped"]
+    j14 = torch.as_tensor(np.asarray(eval_data["j14"]), device=dev)
+    R = torch.linalg.qr(torch.randn((B, 3, 3), generator=gen))[0]
+    R = (R * torch.linalg.det(R).sign()[:, None, None]).to(dev)
+
+    def similar(x):
+        noise = 0.005 * torch.randn(x.shape, generator=gen).to(dev)
+        return (1.1 * torch.einsum("bij,bpj->bpi", R, x) + noise
+                + torch.tensor([0.1, -0.3, 2.0], device=dev)).contiguous()
+
+    joints = torch.matmul(model.J_regressor, gt_p).contiguous()
+    joints14 = torch.einsum("jv,bvn->bjn", j14, gt_p).contiguous()
+    return [(similar(gt_s), gt_s, ("scale", "translation"), None),
+            (similar(gt_p), gt_p, ("procrustes", "scale", "translation"),
+             None),
+            (similar(joints), joints, ("root", "procrustes"), (0,)),
+            (similar(joints14), joints14, ("root", "procrustes"), (2, 3))]
+
+
+def check_k8b(model, eval_data, gen, dev) -> dict:
+    """K8b at the eval batch's nine calls in one launch, against the plain
+    version in f64 (atol 1e-5 m: the kernel forms the aligned points in
+    f32) and in f32 (atol 1e-5 m; 3e-5 m for procrustes, whose f32 SVD
+    gives a rotation good to ~3e-6 at points ~4 m from the centroid);
+    bit-equal run to run and to each pair as a group of one, the totals
+    bit-equal to their replay in the kernel's order; and procrustes over
+    an exact similarity (error ~0)."""
+    import torch
+
+    from shapy_tpu_torch.eval import metrics
+
+    group = k8b_group(model, eval_data, gen, dev)
+    kernel = metrics.ALIGN_KERNEL
+    before = kernel.counts["align_error_forward"]
+    got = metrics.aligned_point_errors(group)
+    check(kernel.counts["align_error_forward"] == before + 1,
+          "K8b: the group took more than one launch")
+    again = metrics.aligned_point_errors(group)
+    err = 0.0
+    for (est, gt, names, root), out, out2 in zip(group, got, again):
+        root = tuple(root or (0,))
+        alone, sums = metrics._aligned_point_errors_cuda(
+            [(est, gt, names, root)])
+        want = metrics.aligned_sums_replay(est, gt, names, root)
+        check(torch.equal(sums[0], want),
+              f"K8b (P {est.shape[1]}): the sums are not the kernel "
+              f"order's (max diff {float((sums[0] - want).abs().max()):.3e})")
+        for name in names:
+            e64 = max_err(out[name], metrics.aligned_point_error_plain(
+                est.double(), gt.double(), name, root))
+            e32 = max_err(out[name], metrics.aligned_point_error_plain(
+                est, gt, name, root))
+            tol = 3e-5 if name == "procrustes" else 1e-5
+            print(f"K8b {name} (P {est.shape[1]}): err {e64:.3e} m vs f64 "
+                  f"(tol 1e-5), {e32:.3e} vs f32 (tol {tol:g})")
+            check(e64 <= 1e-5 and e32 <= tol,
+                  f"K8b {name} (P {est.shape[1]}) err {e64} / {e32}")
+            check(torch.equal(out[name], out2[name])
+                  and torch.equal(out[name], alone[0][name]),
+                  f"K8b {name} (P {est.shape[1]}): bits differ between "
+                  "two calls or from a group of one")
+            err = max(err, e64)
+    gt_p = group[1][1]
     R = torch.linalg.qr(torch.randn((B, 3, 3), generator=gen))[0]
     R = (R * torch.linalg.det(R).sign()[:, None, None]).to(dev)
     moved = (1.1 * torch.einsum("bij,bpj->bpi", R, gt_p)
-             + torch.tensor([0.1, -0.3, 2.0], device=dev))
-    est = (moved + 0.005 * torch.randn(gt_p.shape, generator=gen).to(dev)
-           ).contiguous()
-    err = 0.0
-    for alignment in ("none", "root", "translation", "scale", "procrustes"):
-        e = max_err(aligned_point_error(est, gt_p, alignment, (2, 3)),
-                    aligned_point_error_plain(est, gt_p, alignment, (2, 3)))
-        print(f"K8b align error ({alignment}): err {e:.3e} m (tol 1e-5)")
-        check(e <= 1e-5, f"K8b {alignment} err {e}")
-        err = max(err, e)
-    exact = float(aligned_point_error(moved.contiguous(), gt_p,
-                                      "procrustes").max())
+             + torch.tensor([0.1, -0.3, 2.0], device=dev)).contiguous()
+    exact = float(metrics.aligned_point_error(moved, gt_p,
+                                              "procrustes").max())
     print(f"K8b procrustes of an exact similarity: max err {exact:.3e} m "
           "(tol 1e-5)")
     check(exact <= 1e-5, f"K8b similarity not recovered: {exact}")
-    Pv = gt_p.shape[1]
-    # Per (body, point), procrustes: means (6), centred moments (~24) and
-    # the rotated, scaled point and its error (~40).
-    record_kernel(results, "K8b_align_error", err,
-           lambda: aligned_point_error(est, gt_p, "procrustes"),
-           lambda: aligned_point_error_plain(est, gt_p, "procrustes"),
-           (est.numel() + gt_p.numel()) * 4 + B * Pv * 4,
-           B * Pv * 70)
-    return results
+    plans = sorted({(est.shape[1], metrics.align_plan(est.shape[1], B))
+                    for est, *_ in group})
+    print(f"K8b plans (P, CTAs a body, points a CTA): {plans}")
+    nbytes = sum((est.numel() + gt.numel()) * 4
+                 + est.shape[0] * est.shape[1] * 4 * len(names)
+                 for est, gt, names, _ in group)
+    flops = sum(est.shape[0] * est.shape[1] * (
+        6 * bool(set(names) & {"translation", "scale", "procrustes"})
+        + 6 * bool(set(names) & {"scale", "procrustes"})
+        + 6 * ("scale" in names) + 18 * ("procrustes" in names)
+        + sum(K8B_FLOP[n] for n in names)) for est, gt, names, _ in group)
+    return {"K8b_align_error": record_kernel(
+        {}, "K8b_align_error", err,
+        lambda: metrics.aligned_point_errors(group),
+        lambda: metrics.aligned_point_errors(group, plain=True),
+        nbytes, flops)}
 
 
 def check_k1_forward(meas, v_shaped) -> tuple:
@@ -1078,6 +1186,10 @@ def evaluate(regressor, eval_data, serve_rate,
 
     for name in path_kernels:
         check(launches[name] > 0, f"{name} was not launched by {what}")
+    for name, per in K8_PER_BATCH.items():
+        check(launches[name] == per * EVAL_BATCHES,
+              f"{what}: {launches[name]} {name} launches for "
+              f"{EVAL_BATCHES} batches, expected {per} each")
     check_k5_launches(launches, EVAL_BATCHES, what, per_forward)
     metric_names = [k for k in results if "/" not in k]
     check(len(metric_names) == 15, f"metrics {sorted(metric_names)}")
@@ -1226,6 +1338,11 @@ def score(regressor, eval_data, dev):
     launches = score_launches = read_launches()
     for name in SCORE_KERNELS:
         check(launches[name] > 0, f"{name} was not launched by the scorer")
+    batches = -(-SUBMISSION // B)
+    for name, per in K8_PER_BATCH.items():
+        check(launches[name] == per * batches,
+              f"the scorer: {launches[name]} {name} launches for {batches} "
+              f"batches, expected {per} each")
     score_launches.update(points_gradient(meas, fits, dev))
     check(all(math.isfinite(v) for v in results.values()) and
           len(results) == 7, f"scorer results {results}")

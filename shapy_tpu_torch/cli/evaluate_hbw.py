@@ -77,10 +77,11 @@ def evaluate_submission(
         if point_regressor_gt is not None:
             point_regressor_fit.check_mesh(fit_v)
             point_regressor_gt.check_mesh(gt_v)
+            idx1, w1, idx2, w2, order = point_regressor_fit.kernel_rows(
+                point_regressor_gt)
             out["p2p_t"] = point_regress_error(
-                fit_v, gt_v, point_regressor_fit.indices,
-                point_regressor_fit.weights, point_regressor_gt.indices,
-                point_regressor_gt.weights, align=True).mean(dim=-1)
+                fit_v, gt_v, idx1, w1, idx2, w2, align=True,
+                order=order).mean(dim=-1)
         if measurements_gt is not None:
             m_gt = measurements_gt(
                 gather_triangles(gt_v, faces["gt"][1]))["measurements"]

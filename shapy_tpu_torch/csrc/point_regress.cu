@@ -11,142 +11,235 @@
 // What bounds it on the H100: memory. At the evaluator's shapes (B = 32,
 // V = 10475, P = 20000, K = 3) it must read the two vertex sets (8.0 MB)
 // and the indices and weights (0.48 MB), and write (B, P) f32 errors
-// (2.56 MB): 11.1 MB, ~3.3 us at 3.35 TB/s; ~1.2 MFLOP per body.
+// (2.56 MB): 11.1 MB, ~3.3 us at 3.35 TB/s; ~1.2 MFLOP per body. What
+// stands between it and that: each point gathers K random 12-byte
+// vertices of each mesh.
 //
-// Design: two launches over tiles of 256 points of one body. A body's
-// regressed points (2 x 240 KB) do not fit in shared memory, and across
-// blocks nothing is ordered, so the translation (the difference of the
-// two sets' means) needs a pass of its own. Pass 1: each block regresses
-// its tile for both meshes and writes the tile's six coordinate sums, in
-// double and in a fixed reduction order, to a (B, tiles, 6) buffer. Pass 2:
-// each block sums its body's tile partials in tile order (the same order
-// in every block, so all blocks agree to the bit, and so do runs: no
-// float atomics), regresses its tile again from the vertices, which stay
-// in the 50 MB L2, rather than spilling 15 MB of points to memory and
-// back, and writes |p1 + t - p2|. With align = 0 pass 1 is skipped.
+// Design: one launch, a thread-block cluster per body (grid (cluster, B)),
+// its size from regress_plan in eval/metrics.py (the shape alone: at most
+// the portable 8 CTAs); CTA r takes the contiguous run of row slots
+// [r span, (r + 1) span).
+//   * Each point is regressed once, for both meshes, into shared memory
+//     (24 B a point, ~60 KB at the evaluator's shapes), in the plain
+//     version's order (x = 0; x += w_k v_k, built with --fmad=false).
+//   * The translation's six coordinate sums are taken in double: per
+//     thread in slot order, a fixed warp-shuffle tree, the warps in order,
+//     then every CTA stores its partials into every rank's shared memory
+//     (distributed shared memory) and, after the cluster's barrier, each
+//     sums the ranks in rank order: the same bits in every rank and every
+//     run (no atomics). align = 0 skips them.
+//   * The distances |p1 + t - p2| are written from shared memory: nothing
+//     is regressed twice, no partials go through device memory, one
+//     launch.
+//   * The gathers: SparsePointRegressor sorts its rows once, by their
+//     first vertex, so that a warp's neighbouring slots gather neighbouring
+//     vertices (the L1 serves most of them); `order` maps slot j to its
+//     row, where its error is written (null: the identity).
+// Rank 0 also writes each body's six totals (B, 6) so that a caller can
+// hold the reduction order against a replay of it
+// (metrics.regress_sums_replay).
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kTile = 256;
-constexpr int kWarps = kTile / 32;
+// 512 threads: the gathers are bound by latency, so each thread takes
+// fewer points (~5 at the evaluator's shapes) and more are in flight.
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxCluster = 8;
+
+struct Shared {
+  double red[6 * kWarps];
+  double peer[kMaxCluster][6];  // from each rank r, stored by rank r
+  double mine[6];
+  double tot[6];
+  float shift[4];
+};
+static_assert(sizeof(Shared) % 16 == 0, "the regressed points follow");
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void st_cluster(double* local, unsigned rank,
+                                           double v) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(local);
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  asm volatile("st.shared::cluster.f64 [%0], %1;\n" ::"r"(remote), "d"(v)
+               : "memory");
+}
+
+// The vertex v of a mesh, coordinate c.
+__device__ __forceinline__ float vertex(const float* __restrict__ verts,
+                                        int v, int c) {
+  return __ldg(verts + v * 3 + c);
+}
 
 __device__ __forceinline__ void regress_point(
     const float* __restrict__ verts, const int* __restrict__ idx,
-    const float* __restrict__ w, int K, int p, float* out) {
+    const float* __restrict__ w, int K, int j, float* out) {
   float x = 0.f, y = 0.f, z = 0.f;
   for (int k = 0; k < K; ++k) {
-    const int v = idx[p * K + k];
-    const float wk = w[p * K + k];
-    x += wk * verts[v * 3];
-    y += wk * verts[v * 3 + 1];
-    z += wk * verts[v * 3 + 2];
+    const int v = __ldg(idx + j * K + k);
+    const float wk = __ldg(w + j * K + k);
+    x += wk * vertex(verts, v, 0);
+    y += wk * vertex(verts, v, 1);
+    z += wk * vertex(verts, v, 2);
   }
   out[0] = x;
   out[1] = y;
   out[2] = z;
 }
 
-__global__ void regress_sums_kernel(const float* __restrict__ v_in,
-                                    const float* __restrict__ v_tgt,
-                                    const int* __restrict__ idx1,
-                                    const float* __restrict__ w1, int K1,
-                                    const int* __restrict__ idx2,
-                                    const float* __restrict__ w2, int K2,
-                                    int V1, int V2, int P,
-                                    double* __restrict__ partials) {
-  __shared__ double red[6 * kWarps];
+__global__ void __launch_bounds__(kThreads) regress_cluster_kernel(
+    const float* __restrict__ v_in, const float* __restrict__ v_tgt,
+    const int* __restrict__ idx1, const float* __restrict__ w1, int K1,
+    const int* __restrict__ idx2, const float* __restrict__ w2, int K2,
+    int V1, int V2, int P, int span, const int* __restrict__ order,
+    int align, double* __restrict__ sums, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Shared& sh = *reinterpret_cast<Shared*>(smem);
+  float* p1 = reinterpret_cast<float*>(smem + sizeof(Shared));
+  float* p2 = p1 + 3 * span;
+  const unsigned rank = blockIdx.x, ranks = gridDim.x;  // the cluster
   const int b = blockIdx.y;
-  const int p = blockIdx.x * kTile + threadIdx.x;
+  const int tid = threadIdx.x;
+  const bool clustered = ranks > 1;
+  if (clustered) cluster_arrive_relaxed();
+  const int lo = min(P, (int)rank * span);
+  const int n = min(P, lo + span) - lo;
+  const float* vi = v_in + (size_t)b * V1 * 3;
+  const float* vt = v_tgt + (size_t)b * V2 * 3;
   double s[6] = {0, 0, 0, 0, 0, 0};
-  if (p < P) {
-    float p1[3], p2[3];
-    regress_point(v_in + (size_t)b * V1 * 3, idx1, w1, K1, p, p1);
-    regress_point(v_tgt + (size_t)b * V2 * 3, idx2, w2, K2, p, p2);
-    for (int k = 0; k < 3; ++k) {
-      s[k] = p1[k];
-      s[3 + k] = p2[k];
-    }
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    double x = s[i];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
-    if (lane == 0) red[i * kWarps + warp] = x;
-  }
-  __syncthreads();
-  if (threadIdx.x < 6) {
-    double t = 0.0;
-    for (int w = 0; w < kWarps; ++w) t += red[threadIdx.x * kWarps + w];
-    partials[((size_t)b * gridDim.x + blockIdx.x) * 6 + threadIdx.x] = t;
-  }
-}
-
-__global__ void regress_error_kernel(const float* __restrict__ v_in,
-                                     const float* __restrict__ v_tgt,
-                                     const int* __restrict__ idx1,
-                                     const float* __restrict__ w1, int K1,
-                                     const int* __restrict__ idx2,
-                                     const float* __restrict__ w2, int K2,
-                                     int V1, int V2, int P,
-                                     const double* __restrict__ partials,
-                                     int align, float* __restrict__ out) {
-  __shared__ float shift[3];
-  const int b = blockIdx.y;
-  if (threadIdx.x < 3) {
-    float t = 0.f;
+  for (int j = tid; j < n; j += kThreads) {
+    float* a = p1 + 3 * j;
+    float* c = p2 + 3 * j;
+    regress_point(vi, idx1, w1, K1, lo + j, a);
+    regress_point(vt, idx2, w2, K2, lo + j, c);
     if (align) {
-      const int k = threadIdx.x;
-      const double* pb = partials + (size_t)b * gridDim.x * 6;
-      double s1 = 0.0, s2 = 0.0;
-      for (int i = 0; i < (int)gridDim.x; ++i) {
-        s1 += pb[i * 6 + k];
-        s2 += pb[i * 6 + 3 + k];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        s[k] += a[k];
+        s[3 + k] += c[k];
       }
-      // The plain version's order: mean(p2) - mean(p1), each in float.
-      t = (float)(s2 / P) - (float)(s1 / P);
     }
-    shift[threadIdx.x] = t;
   }
+  if (tid < 6) sh.tot[tid] = 0.0;
+  if (tid < 4) sh.shift[tid] = 0.f;
+  if (clustered) cluster_wait();  // every rank has started
   __syncthreads();
-  const int p = blockIdx.x * kTile + threadIdx.x;
-  if (p >= P) return;
-  float p1[3], p2[3];
-  regress_point(v_in + (size_t)b * V1 * 3, idx1, w1, K1, p, p1);
-  regress_point(v_tgt + (size_t)b * V2 * 3, idx2, w2, K2, p, p2);
-  const float dx = (p1[0] + shift[0]) - p2[0];
-  const float dy = (p1[1] + shift[1]) - p2[1];
-  const float dz = (p1[2] + shift[2]) - p2[2];
-  out[(size_t)b * P + p] = sqrtf(dx * dx + dy * dy + dz * dz);
+  if (align) {
+    // The block's sums in a fixed order (shuffle tree, warps in order).
+    const int lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        s[i] += __shfl_down_sync(0xffffffffu, s[i], o);
+      }
+      if (lane == 0) sh.red[i * kWarps + warp] = s[i];
+    }
+    __syncthreads();
+    if (tid < 6) {
+      double t = 0.0;
+      for (int w = 0; w < kWarps; ++w) t += sh.red[tid * kWarps + w];
+      sh.mine[tid] = t;
+    }
+    __syncthreads();
+    if (clustered) {
+      if (tid < 6 * (int)ranks) {
+        st_cluster(&sh.peer[rank][tid % 6], tid / 6, sh.mine[tid % 6]);
+      }
+      cluster_sync();  // every rank's partials are here
+    }
+    if (tid < 6) {
+      double t = 0.0;
+      for (unsigned r = 0; r < ranks; ++r) {
+        t += clustered ? sh.peer[r][tid] : sh.mine[tid];
+      }
+      sh.tot[tid] = t;
+    }
+    __syncthreads();
+    if (tid < 3) {
+      // The plain version's order: mean(p2) - mean(p1), each in float.
+      sh.shift[tid] = (float)(sh.tot[3 + tid] / P) -
+                      (float)(sh.tot[tid] / P);
+    }
+    __syncthreads();
+  }
+  if (rank == 0 && tid < 6) sums[(size_t)b * 6 + tid] = sh.tot[tid];
+  const float tx = sh.shift[0], ty = sh.shift[1], tz = sh.shift[2];
+  float* ob = out + (size_t)b * P;
+  for (int j = tid; j < n; j += kThreads) {
+    const float* a = p1 + 3 * j;
+    const float* c = p2 + 3 * j;
+    const float dx = (a[0] + tx) - c[0];
+    const float dy = (a[1] + ty) - c[1];
+    const float dz = (a[2] + tz) - c[2];
+    ob[order ? __ldg(order + lo + j) : lo + j] =
+        sqrtf(dx * dx + dy * dy + dz * dz);
+  }
 }
 
 }  // namespace
 
 // v_in (B, V1, 3), v_tgt (B, V2, 3) f32; idx1 (P, K1) int32 and w1 (P, K1)
-// f32 regress v_in, idx2 (P, K2) and w2 (P, K2) regress v_tgt; partials
-// (B, ceil(P / 256), 6) f64 scratch; out (B, P) f32. All contiguous on the
-// device, indices inside [0, V). Returns cudaGetLastError().
+// f32 regress v_in, idx2 (P, K2) and w2 (P, K2) regress v_tgt, rows in slot
+// order; order (P,) int32, slot j's row (null: the identity); sums (B, 6)
+// f64; out (B, P) f32. A cluster of `cluster` (1 to 8) CTAs a body, each
+// `span` slots (span * cluster >= P). All contiguous on the device,
+// indices inside [0, V). Returns cudaGetLastError().
 extern "C" int point_regress_forward(const void* v_in, const void* v_tgt,
                                      const void* idx1, const void* w1,
                                      const void* idx2, const void* w2,
-                                     void* partials, void* out, int B, int V1,
-                                     int V2, int P, int K1, int K2, int align,
+                                     const void* order, void* sums, void* out,
+                                     int B, int V1, int V2, int P, int K1,
+                                     int K2, int cluster, int span, int align,
                                      void* stream) {
-  const dim3 grid((P + kTile - 1) / kTile, B);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (align) {
-    regress_sums_kernel<<<grid, kTile, 0, s>>>(
-        (const float*)v_in, (const float*)v_tgt, (const int*)idx1,
-        (const float*)w1, K1, (const int*)idx2, (const float*)w2, K2, V1, V2,
-        P, (double*)partials);
-    const int err = (int)cudaGetLastError();
-    if (err != 0) return err;
+  if (B < 1 || B > 65535 || P < 1 || cluster < 1 || cluster > kMaxCluster ||
+      span < 1 || (long long)span * cluster < P) {
+    return (int)cudaErrorInvalidValue;
   }
-  regress_error_kernel<<<grid, kTile, 0, s>>>(
-      (const float*)v_in, (const float*)v_tgt, (const int*)idx1,
-      (const float*)w1, K1, (const int*)idx2, (const float*)w2, K2, V1, V2, P,
-      (const double*)partials, align, (float*)out);
+  const size_t smem = sizeof(Shared) + (size_t)6 * span * sizeof(float);
+  // Per device: the shared memory raised as far as a launch needed.
+  static size_t smem_set[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (smem > 48 * 1024 && (dev >= 64 || smem > smem_set[dev])) {
+    err = cudaFuncSetAttribute(regress_cluster_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) smem_set[dev] = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(
+      &cfg, regress_cluster_kernel, (const float*)v_in, (const float*)v_tgt,
+      (const int*)idx1, (const float*)w1, K1, (const int*)idx2,
+      (const float*)w2, K2, V1, V2, P, span, (const int*)order, align,
+      (double*)sums, (float*)out);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -22,7 +22,12 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from shapy_tpu_torch.eval.metrics import PointError, SparsePointRegressor
+from shapy_tpu_torch.eval.metrics import (
+    _ALIGN_MODES,
+    PointError,
+    SparsePointRegressor,
+    aligned_point_errors,
+)
 from shapy_tpu_torch.utils.device import full_f32_matmul, get_device
 
 logger = logging.getLogger(__name__)
@@ -100,6 +105,33 @@ def _default(alignments, *names_roots):
     return alignments or {n: PointError(n, root=r) for n, r in names_roots}
 
 
+def _point_error_means(jobs, plain: bool) -> Dict[str, torch.Tensor]:
+    """{key: (B,) mean point error} of ``jobs`` [(key, PointError, est,
+    gt)], all in one :func:`aligned_point_errors` call: the jobs on one
+    (est, gt) share a pair unless they ask the same mode twice or two
+    root sets."""
+    entries, where = [], []
+    for key, pe, est, gt in jobs:
+        mode = _ALIGN_MODES[pe.alignment_name]
+        root = pe.root if pe.alignment_name == "root" else None
+        for i, (e, g, names, r) in enumerate(entries):
+            modes = {_ALIGN_MODES[n] for n in names}
+            if (e is est and g is gt and mode not in modes
+                    and (root is None or r is None)):
+                break
+        else:
+            i = len(entries)
+            entries.append((est, gt, [], None))
+        e, g, names, r = entries[i]
+        names.append(pe.alignment_name)
+        entries[i] = (e, g, names, root if root is not None else r)
+        where.append((key, i, pe.alignment_name))
+    errors = aligned_point_errors(
+        [(e.contiguous(), g.contiguous(), n, r) for e, g, n, r in entries],
+        plain)
+    return {key: errors[i][name].mean(dim=-1) for key, i, name in where}
+
+
 class Evaluator:
     """Runs a model over eval loaders and aggregates metrics on ``device``.
 
@@ -160,49 +192,56 @@ class Evaluator:
 
     def _batch_metrics(self, outputs, targets, last_stage, plain):
         stage = outputs[last_stage]
-        metrics: Dict[str, torch.Tensor] = {}
-
-        def err(pe: PointError, est, gt):
-            return (pe.plain if plain else pe)(est, gt).mean(dim=-1)
-
+        # The point errors, in the order of the metrics: (key, PointError,
+        # est, gt), all computed by one grouped call (K8b, one launch).
+        jobs = []
+        p2p = (self.point_regressor is not None and "gt_v_shaped" in targets
+               and "v_shaped" in stage)
         if "gt_v_shaped" in targets and "v_shaped" in stage:
             for name, pe in self.v2v_t_alignments.items():
                 key = "v2v_t" if name == "translation" else f"v2v_t_{name}"
-                metrics[key] = err(pe, stage["v_shaped"],
-                                   targets["gt_v_shaped"])
-            if self.point_regressor is not None:
-                reg = self.point_regressor
-                metrics["p2p_t"] = (reg.plain if plain else reg)(
-                    stage["v_shaped"], targets["gt_v_shaped"],
-                    self.target_point_regressor).mean(dim=-1)
-
+                jobs.append((key, pe, stage["v_shaped"],
+                             targets["gt_v_shaped"]))
+            if p2p:
+                jobs.append(("p2p_t", None, None, None))
         if "gt_vertices" in targets and "vertices" in stage:
             for name, pe in self.v2v_alignments.items():
                 key = "v2v" if name == "translation" else f"v2v_{name}"
-                metrics[key] = err(pe, stage["vertices"],
-                                   targets["gt_vertices"])
-
+                jobs.append((key, pe, stage["vertices"],
+                             targets["gt_vertices"]))
         if "gt_joints3d" in targets and "joints" in stage:
             gt = targets["gt_joints3d"]
             est = stage["joints"][:, : gt.shape[1]]
             # The reference protocol drops the confidence channel and
             # takes a plain mean over all mapped joints.
+            gt = gt[..., :3]
             for name, pe in self.alignments.items():
-                metrics[f"mpjpe_{name}"] = err(pe, est, gt[..., :3])
-
+                jobs.append((f"mpjpe_{name}", pe, est, gt))
+        mpjpe14 = set()
         if (self.j14_regressor is not None and "gt_joints14" in targets
                 and "vertices" in stage):
             est14 = torch.einsum("jv,bvn->bjn", self.j14_regressor,
                                  stage["vertices"])
             gt14 = targets["gt_joints14"][..., :3]
-            valid = targets.get("joints14_valid")
             for name, pe in self.mpjpe14_alignments.items():
-                e = err(pe, est14, gt14)
-                if valid is not None:
-                    # invalid samples -> NaN, skipped by the accumulator
-                    e = torch.where(valid.reshape(e.shape) > 0, e,
-                                    torch.full_like(e, float("nan")))
-                metrics[f"mpjpe14_{name}"] = e
+                mpjpe14.add(f"mpjpe14_{name}")
+                jobs.append((f"mpjpe14_{name}", pe, est14, gt14))
+        means = _point_error_means([j for j in jobs if j[1] is not None],
+                                   plain)
+        if p2p:
+            reg = self.point_regressor
+            means["p2p_t"] = (reg.plain if plain else reg)(
+                stage["v_shaped"], targets["gt_v_shaped"],
+                self.target_point_regressor).mean(dim=-1)
+        valid = targets.get("joints14_valid")
+        metrics: Dict[str, torch.Tensor] = {}
+        for key, *_ in jobs:
+            e = means[key]
+            if key in mpjpe14 and valid is not None:
+                # invalid samples -> NaN, skipped by the accumulator
+                e = torch.where(valid.reshape(e.shape) > 0, e,
+                                torch.full_like(e, float("nan")))
+            metrics[key] = e
 
         meas = stage.get("measurements") or outputs.get("measurements")
         if meas is not None:

@@ -4,9 +4,10 @@ Plain functions on tensors with the JAX package's layouts: ``(B, P, 3)``
 point sets, ``(P, K)`` padded regressor rows. Three kernels carry the
 metrics on the card:
 
-  * K8b (``csrc/align_error.cu``) — :func:`aligned_point_error`, any of
-    the alignments below followed by :func:`point_error`, behind
-    :class:`PointError`;
+  * K8b (``csrc/align_error.cu``) — :func:`aligned_point_errors`, any of
+    the alignments below followed by :func:`point_error`, for a group of
+    point-set pairs in one launch (the evaluator's nine metrics a batch);
+    :func:`aligned_point_error` and :class:`PointError` are a group of one;
   * K8a (``csrc/point_regress.cu``) — :func:`point_regress_error`, the
     P2P-20k error of :class:`SparsePointRegressor`;
   * K9 (``csrc/nn_dists.cu``) — :func:`_nn_dists`, each point's distance
@@ -23,7 +24,7 @@ from __future__ import annotations
 
 import copy
 import functools
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,10 +38,27 @@ from shapy_tpu_torch.utils.device import get_device
 from shapy_tpu_torch.utils.vec3 import dot3
 
 ALIGN_KERNEL = CudaKernel("align_error.cu",
-                          {"align_error_forward": "pppp iiii p"})
+                          {"align_error_forward": "p iiiii p"})
 REGRESS_KERNEL = CudaKernel("point_regress.cu",
-                            {"point_regress_forward": "pppppppp iiiiiii p"})
-_REGRESS_TILE = 256  # points per block of csrc/point_regress.cu
+                            {"point_regress_forward": "ppppppppp iiiiiiiii p"})
+# The K8 kernels' split of a body's points (align_plan, regress_plan): CTAs
+# of ~this many points, at most the portable cluster of 8 a body and ~512
+# CTAs a pair over the batch, and never more points a CTA than its shared
+# memory holds (24 bytes a point).
+_ALIGN_CTA_POINTS = 2620
+_REGRESS_CTA_POINTS = 2048
+_K8_MAX_CLUSTER = 8
+_K8_PAIR_CTAS = 512
+_K8_MAX_SPAN = 9000
+_ALIGN_THREADS, _REGRESS_THREADS = 256, 512  # threads a CTA
+# K8b's table: pairs a launch, root ids a pair, int64 fields a pair
+# (csrc/align_error.cu).
+_ALIGN_MAX_PAIRS = 8
+_ALIGN_MAX_ROOT = 16
+_ALIGN_FIELDS = 14 + _ALIGN_MAX_ROOT
+# A (body, pair)'s double totals in K8b: est and gt coordinate sums, var1,
+# var2, K row-major, the root ids' coordinate sums.
+_ALIGN_SUMS = 23
 NN_KERNEL = CudaKernel("nn_dists.cu", {"nn_dists_forward": "ppppp iii p"})
 _NN_THREADS = 256  # query points per block of csrc/nn_dists.cu
 _NN_BLOCKS_PER_SM = 8  # blocks to aim for, per SM of the card
@@ -52,6 +70,70 @@ def _nn_target_blocks(index: int) -> int:
     """K9's blocks to aim for on CUDA device ``index``."""
     sms = torch.cuda.get_device_properties(index).multi_processor_count
     return _NN_BLOCKS_PER_SM * sms
+
+
+class ClusterPlan(NamedTuple):
+    """A K8 kernel's split of one body's P points (from the shape alone):
+    ``cluster`` CTAs a body (1: one CTA), CTA r the contiguous run
+    ``[r span, min(P, (r + 1) span))``."""
+
+    cluster: int
+    span: int
+
+
+def _cluster_plan(P: int, B: int, cta_points: int) -> ClusterPlan:
+    want = min(-(-P // cta_points), max(1, _K8_PAIR_CTAS // max(B, 1)))
+    cluster = min(_K8_MAX_CLUSTER, max(1, want, -(-P // _K8_MAX_SPAN)))
+    return ClusterPlan(cluster, -(-P // cluster))
+
+
+def align_plan(P: int, B: int) -> ClusterPlan:
+    """K8b's split of a point-set pair of B bodies of P points: ~2620
+    points a CTA (63 KB of staged points; three CTAs an SM), at most 8
+    CTAs a body and ~512 a pair over the batch (at the evaluator's P =
+    10475, B = 32: 4 CTAs of 2619 points, and the group's 320 CTAs in one
+    wave; ``tools/perf_k8_sweep.py``)."""
+    return _cluster_plan(P, B, _ALIGN_CTA_POINTS)
+
+
+def regress_plan(P: int, B: int) -> ClusterPlan:
+    """K8a's split of B bodies' P regressed points: ~2048 points a CTA, at
+    most 8 CTAs a body and ~512 over the batch (P2P-20k at B = 32: 8 CTAs
+    of 2500 points, 60 KB of regressed points each: all 256 CTAs in one
+    wave, ``tools/perf_k8_sweep.py``)."""
+    return _cluster_plan(P, B, _REGRESS_CTA_POINTS)
+
+
+def kernel_order_sum(terms: torch.Tensor, plan: ClusterPlan,
+                     threads: int) -> torch.Tensor:
+    """(B, P, N) per-point terms -> (B, N), summed in the order of the K8
+    kernels' reductions under ``plan`` with ``threads`` a CTA: CTA r takes
+    points [r span, (r + 1) span); its thread t adds its points t, t +
+    threads, ... in order, from 0; a warp's 32 threads by a shuffle-down
+    tree (lane l adds lane l + o for o = 16, 8, 4, 2, 1); the warps in
+    order, from 0; then the ranks in order, from 0. In the terms' dtype
+    (the kernels: double)."""
+    B, P, N = terms.shape
+    C, span = plan
+    iters = max(1, -(-span // threads))
+    x = terms.new_zeros((B, C, iters * threads, N))
+    for r in range(C):
+        lo, hi = min(P, r * span), min(P, (r + 1) * span)
+        x[:, r, : hi - lo] = terms[:, lo:hi]
+    x = x.view(B, C, iters, threads, N)
+    s = terms.new_zeros((B, C, threads, N))
+    for k in range(iters):
+        s = s + x[:, :, k]
+    s = s.view(B, C, threads // 32, 32, N)
+    for o in (16, 8, 4, 2, 1):
+        s = s[..., :o, :] + s[..., o:2 * o, :]
+    acc = terms.new_zeros((B, C, N))
+    for w in range(threads // 32):
+        acc = acc + s[:, :, w, 0]
+    total = terms.new_zeros((B, N))
+    for r in range(C):
+        total = total + acc[:, r]
+    return total
 
 
 # -- point errors -----------------------------------------------------------
@@ -246,39 +328,159 @@ def aligned_point_error_plain(est: torch.Tensor, gt: torch.Tensor,
     return point_error(*build_alignment(alignment, root)(est, gt))
 
 
+PairSpec = Tuple[torch.Tensor, torch.Tensor, Sequence[str],
+                 Optional[Sequence[int]]]
+
+
+def _pair(spec: PairSpec):
+    est, gt, names, root = spec
+    names = tuple(names)
+    for name in names:
+        if name not in _ALIGN_MODES:
+            raise ValueError(f"Unknown alignment type: {name}")
+    return est, gt, names, tuple(int(r) for r in (root or (0,)))
+
+
+def aligned_point_errors(pairs: Sequence[PairSpec], plain: bool = False
+                         ) -> List[Dict[str, torch.Tensor]]:
+    """Per-point errors of a group of point-set pairs of one batch of B
+    bodies, in one launch of kernel K8b on the card.
+
+    ``pairs``: ``(est, gt, alignments, root)``, est and gt (B, P, 3) (P
+    may differ between pairs), the alignment names asked of the pair and
+    the root joint ids of its "root" alignment (None: joint 0); on the
+    card est and gt contiguous f32. Returns,
+    for each pair, ``{alignment: (B, P) errors}``, what
+    :class:`PointError` returns. CPU tensors and ``plain=True`` go through
+    the plain version (:func:`aligned_point_error_plain` per alignment),
+    CUDA tensors through the kernel (forward only; f32; at most 8 pairs
+    and 16 root ids a pair)."""
+    pairs = [_pair(p) for p in pairs]
+    if not pairs:
+        return []
+    device = pairs[0][0].device
+    if plain or device.type == "cpu":
+        return [{name: aligned_point_error_plain(est, gt, name, root)
+                 for name in names} for est, gt, names, root in pairs]
+    if device.type != "cuda":
+        raise ValueError(f"aligned_point_errors: unsupported device "
+                         f"{device}")
+    return _aligned_point_errors_cuda(pairs)[0]
+
+
+def _aligned_point_errors_cuda(pairs):
+    """Kernel K8b on checked pairs (``_pair``): the errors and, for each
+    launched pair, its (B, 23) double totals (``aligned_sums_replay``'s
+    layout; None for a pair of no point)."""
+    dev = pairs[0][0].device
+    B = pairs[0][0].shape[0]
+    if len(pairs) > _ALIGN_MAX_PAIRS:
+        raise ValueError(f"{len(pairs)} point-set pairs in one K8b launch, "
+                         f"at most {_ALIGN_MAX_PAIRS}")
+    outs, rows = [], []
+    for i, (est, gt, names, root) in enumerate(pairs):
+        P = est.shape[1]
+        check_cuda_input(est, f"est[{i}]", torch.float32, (B, P, 3), dev)
+        check_cuda_input(gt, f"gt[{i}]", torch.float32, (B, P, 3), dev)
+        check_no_grad(est, f"est[{i}]")
+        check_no_grad(gt, f"gt[{i}]")
+        modes = sorted({_ALIGN_MODES[name] for name in names})
+        buf = torch.empty((len(modes), B, P), dtype=torch.float32,
+                          device=dev)
+        by_mode = dict(zip(modes, buf))
+        outs.append({name: by_mode[_ALIGN_MODES[name]] for name in names})
+        if B == 0 or P == 0:
+            continue
+        if _ALIGN_MODES["root"] in by_mode:
+            # The kernel reads these ids unchecked.
+            if min(root) < 0 or max(root) >= P:
+                raise ValueError(f"root joints {root} outside [0, {P})")
+            if len(root) > _ALIGN_MAX_ROOT:
+                raise ValueError(f"{len(root)} root joints, at most "
+                                 f"{_ALIGN_MAX_ROOT}")
+        rows.append((i, est, gt, by_mode, root, align_plan(P, B)))
+    sums = [None] * len(pairs)
+    if not rows:
+        return outs, sums
+    for _, _, _, _, _, plan in rows:
+        if plan.span > _K8_MAX_SPAN:
+            raise ValueError(f"{plan.span} points a CTA: a pair of more "
+                             f"than {_K8_MAX_CLUSTER * _K8_MAX_SPAN} points")
+    cluster = max(plan.cluster for *_, plan in rows)
+    totals = torch.empty((len(rows), B, _ALIGN_SUMS), dtype=torch.float64,
+                         device=dev)
+    table, cta0, span_max = [], 0, 1
+    for r, (i, est, gt, by_mode, root, plan) in enumerate(rows):
+        P = est.shape[1]
+        clustered = plan.cluster > 1
+        span = plan.span if clustered else P
+        root_ids = root if _ALIGN_MODES["root"] in by_mode else ()
+        table += [est.data_ptr(), gt.data_ptr(),
+                  *(by_mode[m].data_ptr() if m in by_mode else 0
+                    for m in range(5)),
+                  totals[r].data_ptr(), P, span, plan.cluster, cta0,
+                  sum(1 << m for m in by_mode), len(root_ids), *root_ids,
+                  *(0,) * (_ALIGN_MAX_ROOT - len(root_ids))]
+        sums[i] = totals[r]
+        span_max = max(span_max, span)
+        # A cluster a body, or one CTA a body packed by clusters.
+        cta0 += B * cluster if clustered else -(-B // cluster) * cluster
+    ALIGN_KERNEL.launch("align_error_forward", [
+        torch.tensor(table, dtype=torch.int64), len(rows), B, cluster, cta0,
+        span_max])
+    return outs, sums
+
+
+def aligned_sums_replay(est: torch.Tensor, gt: torch.Tensor,
+                        names: Sequence[str], root: Sequence[int] = (0,)
+                        ) -> torch.Tensor:
+    """The (B, 23) double totals K8b keeps for a pair (B, P, 3) asked
+    ``names``, replayed in the kernel's order (:func:`kernel_order_sum`
+    under :func:`align_plan`, the f32-centred points, the root ids by one
+    warp's shuffle tree), on any device: est and gt coordinate sums, var1,
+    var2, K row-major, root coordinate sums; 0 where not computed."""
+    B, P, _ = est.shape
+    modes = {_ALIGN_MODES[n] for n in names}
+    plan = align_plan(P, B)
+    out = est.new_zeros((B, _ALIGN_SUMS), dtype=torch.float64)
+    scale, procrustes = 3 in modes, 4 in modes
+    if modes & {2, 3, 4}:
+        out[:, :6] = kernel_order_sum(
+            torch.cat([est, gt], dim=-1).double(), plan, _ALIGN_THREADS)
+    if scale or procrustes:
+        m = (out[:, :6] / P).float()
+        x1 = (est - m[:, None, :3]).double()
+        x2 = (gt - m[:, None, 3:]).double()
+        terms = est.new_zeros((B, P, 11), dtype=torch.float64)
+        terms[..., 0] = (x1[..., 0] * x1[..., 0] + x1[..., 1] * x1[..., 1]
+                         + x1[..., 2] * x1[..., 2])
+        if scale:
+            terms[..., 1] = (x2[..., 0] * x2[..., 0] + x2[..., 1] * x2[..., 1]
+                             + x2[..., 2] * x2[..., 2])
+        if procrustes:
+            terms[..., 2:] = (x1[..., :, None] * x2[..., None, :]).reshape(
+                B, P, 9)
+        out[:, 6:17] = kernel_order_sum(terms, plan, _ALIGN_THREADS)
+    if 1 in modes:
+        root = tuple(int(r) for r in root)
+        lanes = est.new_zeros((B, 32, 6), dtype=torch.float64)
+        for r, p in enumerate(root):
+            lanes[:, r % 32] = lanes[:, r % 32] + torch.cat(
+                [est[:, p], gt[:, p]], dim=-1).double()
+        for o in (16, 8, 4, 2, 1):
+            lanes = lanes[:, :o] + lanes[:, o:2 * o]
+        out[:, 17:] = lanes[:, 0]
+    return out
+
+
 def aligned_point_error(est: torch.Tensor, gt: torch.Tensor,
                         alignment: str = "none",
                         root: Sequence[int] = (0,)) -> torch.Tensor:
     """Per-point error (B, P) of est (B, P, 3) aligned onto gt (B, P, 3):
-    the plain version for CPU tensors, kernel K8b for CUDA tensors
-    (forward only; contiguous f32)."""
-    if est.device.type == "cpu":
-        return aligned_point_error_plain(est, gt, alignment, root)
-    if est.device.type != "cuda":
-        raise ValueError(f"aligned_point_error: unsupported device "
-                         f"{est.device}")
-    if alignment not in _ALIGN_MODES:
-        raise ValueError(f"Unknown alignment type: {alignment}")
-    B, P = est.shape[:2]
-    dev = est.device
-    check_cuda_input(est, "est", torch.float32, (B, P, 3), dev)
-    check_cuda_input(gt, "gt", torch.float32, (B, P, 3), dev)
-    check_no_grad(est, "est")
-    check_no_grad(gt, "gt")
-    out = torch.empty((B, P), dtype=torch.float32, device=dev)
-    if B == 0 or P == 0:
-        return out
-    root = tuple(int(r) for r in (root or (0,)))
-    if alignment == "root":
-        # The kernel reads these ids unchecked.
-        if min(root) < 0 or max(root) >= P:
-            raise ValueError(f"root joints {root} outside [0, {P})")
-        root_ids = torch.tensor(root, dtype=torch.int32, device=dev)
-    else:
-        root_ids = out  # not read
-    ALIGN_KERNEL.launch("align_error_forward", [
-        est, gt, root_ids, out, B, P, len(root), _ALIGN_MODES[alignment]])
-    return out
+    :func:`aligned_point_errors` for a group of one (the plain version for
+    CPU tensors, kernel K8b for CUDA tensors)."""
+    return aligned_point_errors([(est, gt, (alignment,), root)])[0][
+        alignment]
 
 
 class PointError:
@@ -318,9 +520,19 @@ def regress_points(vertices: torch.Tensor, indices: torch.Tensor,
 
 def point_regress_error_plain(input_vertices, target_vertices, indices,
                               weights, target_indices, target_weights,
-                              align: bool = True) -> torch.Tensor:
+                              align: bool = True,
+                              order: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
     """Plain version of K8a: regress both meshes, translate the first set
-    onto the second's mean (``align``), per-point distance (B, P)."""
+    onto the second's mean (``align``), per-point distance (B, P). With
+    ``order``, the rows are given in slot order (row ``order[j]`` at slot
+    j, as :func:`point_regress_error` takes them) and are put back in row
+    order first."""
+    if order is not None:
+        order = order.long()
+        indices, weights, target_indices, target_weights = (
+            torch.empty_like(t).index_copy_(0, order, t)
+            for t in (indices, weights, target_indices, target_weights))
     p1 = regress_points(input_vertices, indices, weights)
     p2 = regress_points(target_vertices, target_indices, target_weights)
     if align:
@@ -333,21 +545,34 @@ def point_regress_error(input_vertices: torch.Tensor,
                         target_vertices: torch.Tensor,
                         indices: torch.Tensor, weights: torch.Tensor,
                         target_indices: torch.Tensor,
-                        target_weights: torch.Tensor, align: bool = True
+                        target_weights: torch.Tensor, align: bool = True,
+                        order: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
     """P2P error (B, P) between input_vertices (B, V1, 3) regressed with
     (indices, weights) (P, K1) and target_vertices (B, V2, 3) regressed
     with (target_indices, target_weights) (P, K2): the plain version for
     CPU tensors, kernel K8a for CUDA tensors (forward only; contiguous
     f32 vertices and weights, int32 indices, which the caller keeps
-    inside [0, V))."""
+    inside [0, V); at most 72000 points). ``order`` (P,) int32, if given:
+    the rows are in slot order, slot j holding row ``order[j]``, whose
+    error it writes (:class:`SparsePointRegressor` sorts its rows so that
+    neighbouring slots gather neighbouring vertices)."""
     if input_vertices.device.type == "cpu":
         return point_regress_error_plain(input_vertices, target_vertices,
                                          indices, weights, target_indices,
-                                         target_weights, align)
+                                         target_weights, align, order)
     if input_vertices.device.type != "cuda":
         raise ValueError(f"point_regress_error: unsupported device "
                          f"{input_vertices.device}")
+    return _point_regress_cuda(input_vertices, target_vertices, indices,
+                               weights, target_indices, target_weights,
+                               align, order)[0]
+
+
+def _point_regress_cuda(input_vertices, target_vertices, indices, weights,
+                        target_indices, target_weights, align, order):
+    """Kernel K8a: the errors (B, P) and each body's six double totals of
+    the translation (B, 6) (0 without ``align``)."""
     B, V1 = input_vertices.shape[:2]
     V2 = target_vertices.shape[1]
     P, K1 = indices.shape
@@ -363,18 +588,44 @@ def point_regress_error(input_vertices: torch.Tensor,
                      dev)
     check_cuda_input(target_weights, "target_weights", torch.float32,
                      (P, K2), dev)
+    if order is not None:
+        check_cuda_input(order, "order", torch.int32, (P,), dev)
     for t, name in ((input_vertices, "input_vertices"),
                     (target_vertices, "target_vertices")):
         check_no_grad(t, name)
     out = torch.empty((B, P), dtype=torch.float32, device=dev)
+    sums = torch.empty((B, 6), dtype=torch.float64, device=dev)
     if B == 0 or P == 0:
-        return out
-    tiles = -(-P // _REGRESS_TILE)
-    partials = torch.empty((B, tiles, 6), dtype=torch.float64, device=dev)
+        return out, sums.zero_()
+    plan = regress_plan(P, B)
+    if plan.span > _K8_MAX_SPAN:
+        raise ValueError(f"{P} regressed points: at most "
+                         f"{_K8_MAX_CLUSTER * _K8_MAX_SPAN}")
     REGRESS_KERNEL.launch("point_regress_forward", [
         input_vertices, target_vertices, indices, weights, target_indices,
-        target_weights, partials, out, B, V1, V2, P, K1, K2, int(align)])
-    return out
+        target_weights, order, sums, out, B, V1, V2, P, K1, K2,
+        plan.cluster, plan.span, int(align)])
+    return out, sums
+
+
+def regress_sums_replay(input_vertices, target_vertices, indices, weights,
+                        target_indices, target_weights) -> torch.Tensor:
+    """The (B, 6) double totals K8a keeps for the translation (the
+    coordinate sums of both regressed sets), replayed in the kernel's
+    order on any device: each point regressed in f32 as ``x = 0; x += w_k
+    v_k`` over the rows as given (slot order), then
+    :func:`kernel_order_sum` under :func:`regress_plan`."""
+    def regress(v, idx, w):
+        x = v.new_zeros((v.shape[0], idx.shape[0], 3))
+        for k in range(idx.shape[1]):
+            x = x + w[None, :, k, None] * v[:, idx[:, k].long()]
+        return x
+
+    p1 = regress(input_vertices, indices, weights)
+    p2 = regress(target_vertices, target_indices, target_weights)
+    B, P = p1.shape[:2]
+    return kernel_order_sum(torch.cat([p1, p2], dim=-1).double(),
+                            regress_plan(P, B), _REGRESS_THREADS)
 
 
 class SparsePointRegressor:
@@ -396,6 +647,13 @@ class SparsePointRegressor:
         self.weights = torch.as_tensor(
             np.ascontiguousarray(weights, np.float32), device=device)
         self.align = align
+        # K8a's rows: sorted once by their first vertex, so that the
+        # kernel's neighbouring slots gather neighbouring vertices; slot j
+        # holds row order[j].
+        order = (np.argsort(indices[:, 0], kind="stable") if indices.size
+                 else np.arange(indices.shape[0]))
+        self.order = torch.as_tensor(order.astype(np.int32), device=device)
+        self._slots = {}  # regressor -> its rows in this one's slot order
 
     @classmethod
     def from_scipy(cls, matrix, align: bool = True,
@@ -436,6 +694,8 @@ class SparsePointRegressor:
         out = copy.copy(self)
         out.indices = self.indices.to(device)
         out.weights = self.weights.to(device)
+        out.order = self.order.to(device)
+        out._slots = {}
         return out
 
     def regress(self, vertices: torch.Tensor) -> torch.Tensor:
@@ -457,14 +717,32 @@ class SparsePointRegressor:
                 self.indices, self.weights, tr.indices, tr.weights,
                 self.align)
 
+    def _slot_rows(self, reg: "SparsePointRegressor") -> tuple:
+        if reg not in self._slots:
+            idx = self.order.long()
+            self._slots[reg] = (reg.indices[idx].contiguous(),
+                                reg.weights[idx].contiguous())
+        return self._slots[reg]
+
+    def kernel_rows(self, target_regressor=None) -> tuple:
+        """(indices, weights, target indices, target weights, order): the
+        rows of this regressor and of the target regressor (default this
+        one) in this one's slot order, as :func:`point_regress_error`
+        takes them; gathered once and kept."""
+        return (*self._slot_rows(self),
+                *self._slot_rows(target_regressor or self), self.order)
+
     def __call__(self, input_vertices: torch.Tensor,
                  target_vertices: torch.Tensor,
                  target_regressor: Optional["SparsePointRegressor"] = None
                  ) -> torch.Tensor:
         """Per-point distances (B, P) between the regressed point sets;
-        K8a on the card."""
-        return point_regress_error(*self._args(
-            input_vertices, target_vertices, target_regressor))
+        K8a on the card, on the sorted rows (:meth:`kernel_rows`)."""
+        v_in, v_tgt = self._args(input_vertices, target_vertices,
+                                 target_regressor)[:2]
+        idx1, w1, idx2, w2, order = self.kernel_rows(target_regressor)
+        return point_regress_error(v_in, v_tgt, idx1, w1, idx2, w2,
+                                   self.align, order)
 
     def plain(self, input_vertices, target_vertices, target_regressor=None
               ) -> torch.Tensor:

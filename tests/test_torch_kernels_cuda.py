@@ -37,10 +37,17 @@ from shapy_tpu_torch.eval.metrics import (
     NN_KERNEL,
     REGRESS_KERNEL,
     SparsePointRegressor,
+    _aligned_point_errors_cuda,
+    _point_regress_cuda,
+    align_plan,
     aligned_point_error,
     aligned_point_error_plain,
+    aligned_point_errors,
+    aligned_sums_replay,
     point_regress_error,
     point_regress_error_plain,
+    regress_plan,
+    regress_sums_replay,
 )
 from shapy_tpu_torch.measure.measurements import (
     MEASURE_KERNEL,
@@ -224,6 +231,70 @@ def test_align_error_kernel_matches_plain(dev, alignment, P):
     assert torch.equal(got, aligned_point_error(y, x, alignment, root))
 
 
+# The evaluator's group a batch: v2v_t (v_shaped: scale, translation), v2v
+# (posed: procrustes, scale, translation), mpjpe (55 joints: root,
+# procrustes), mpjpe14 (root on the hips, procrustes).
+EVAL_GROUP = ((10475, ("scale", "translation"), None),
+              (10475, ("procrustes", "scale", "translation"), None),
+              (55, ("root", "procrustes"), (0,)),
+              (14, ("root", "procrustes"), (2, 3)))
+# Boundary shapes: one point, fewer points than a cluster's CTAs, a split
+# that is not a multiple of the cluster, clusters of two sizes in one
+# launch, every mode on one pair.
+EDGE_GROUP = ((1, ("none", "translation", "scale"), None),
+              (3, ("root", "procrustes"), (2, 0, 1)),
+              (1537, ("none", "root", "translation", "scale",
+                      "procrustes"), (5, 1536)),
+              (10001, ("procrustes", "translation"), None))
+
+
+def _group(dev, B, spec, seed):
+    pairs = []
+    for i, (P, names, root) in enumerate(spec):
+        x, _, y = _clouds(dev, B, P, seed=seed + i)
+        pairs.append((y, x, names, root))
+    return pairs
+
+
+def _check_group(pairs):
+    """The grouped kernel: one launch; each alignment within atol 1e-5 m
+    of the f64 plain version and of the f32 one (3e-5 m for procrustes, as
+    test_align_error_kernel_matches_plain); bit-equal run to run and to
+    each pair as a group of one; the totals bit-equal to their replay."""
+    before = ALIGN_KERNEL.launches
+    got, sums = _aligned_point_errors_cuda(
+        [(y, x, tuple(n), tuple(r or (0,))) for y, x, n, r in pairs])
+    assert ALIGN_KERNEL.launches == before + 1
+    again = aligned_point_errors(pairs)
+    for (y, x, names, root), out, out2, tot in zip(pairs, got, again, sums):
+        root = root or (0,)
+        alone = aligned_point_errors([(y, x, names, root)])[0]
+        for name in names:
+            exact = aligned_point_error_plain(y.double(), x.double(), name,
+                                              root)
+            torch.testing.assert_close(out[name], exact.float(), rtol=0,
+                                       atol=1e-5)
+            tol = 3e-5 if name == "procrustes" else 1e-5
+            torch.testing.assert_close(
+                out[name], aligned_point_error_plain(y, x, name, root),
+                rtol=0, atol=tol)
+            assert torch.equal(out[name], out2[name])
+            assert torch.equal(out[name], alone[name])
+        assert torch.equal(tot, aligned_sums_replay(y, x, names, root))
+
+
+@pytest.mark.parametrize("B", [32, 1])
+def test_align_error_group_matches_plain(dev, B):
+    """K8b's group at the evaluator's shapes (B = 32) and for one body."""
+    _check_group(_group(dev, B, EVAL_GROUP, seed=20))
+    assert align_plan(10475, B).cluster > 1  # the cluster path runs
+
+
+@pytest.mark.parametrize("B", [5, 1])
+def test_align_error_group_edge_shapes(dev, B):
+    _check_group(_group(dev, B, EDGE_GROUP, seed=30))
+
+
 def test_procrustes_kernel_recovers_a_similarity_and_keeps_mirrors(dev):
     x, y, _ = _clouds(dev, 32, 10475, seed=1)
     err = aligned_point_error(y, x, "procrustes")
@@ -264,12 +335,50 @@ def test_point_regress_kernel_matches_plain(dev, case):
     before = REGRESS_KERNEL.launches
     got = point_regress_error(*args)
     assert REGRESS_KERNEL.launches == before + 1
-    torch.testing.assert_close(got, point_regress_error_plain(*args),
-                               rtol=0, atol=1e-5)
+    want = point_regress_error_plain(*args)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     assert torch.equal(got, point_regress_error(*args))
+    # The regressor's sorted rows (the evaluator's route): one launch, the
+    # same tolerance, the same bits twice, the totals as their replay.
+    reg.align = tr.align = case != "no-align"
+    before = REGRESS_KERNEL.launches
+    sorted_rows = reg(v_in, v_tgt, tr)
+    assert REGRESS_KERNEL.launches == before + 1
+    torch.testing.assert_close(sorted_rows, want, rtol=0, atol=1e-5)
+    assert torch.equal(sorted_rows, reg(v_in, v_tgt, tr))
+    rows = reg.kernel_rows(tr)
+    _, sums = _point_regress_cuda(v_in, v_tgt, *rows[:4], args[-1], rows[4])
+    if case == "no-align":
+        assert not bool(sums.any())
+    else:
+        assert torch.equal(sums, regress_sums_replay(v_in, v_tgt,
+                                                     *rows[:4]))
     if case == "same":  # a constant offset is removed by the alignment
         shifted = (v_in + torch.tensor([1.0, -2.0, 0.5], device=dev))
         assert float(reg(shifted.contiguous(), v_in).max()) < 1e-5
+
+
+@pytest.mark.parametrize("B,P", [(3, 5), (2, 2049), (1, 20000)],
+                         ids=["fewer-than-a-cluster", "not-a-multiple",
+                              "one-body"])
+def test_point_regress_kernel_edge_shapes(dev, B, P):
+    """K8a at the plan's edges (atol 1e-5 m, as above; one launch; the
+    same bits twice; the totals as their replay)."""
+    gen = torch.Generator().manual_seed(P)
+    v_in = torch.randn((B, 300, 3), generator=gen).to(dev)
+    v_tgt = (v_in + 0.01 * torch.randn((B, 300, 3), generator=gen).to(dev)
+             + 0.5)
+    reg = _regressor(dev, 300, P, 3, seed=P)
+    before = REGRESS_KERNEL.launches
+    got = reg(v_in, v_tgt)
+    assert REGRESS_KERNEL.launches == before + 1
+    torch.testing.assert_close(got, reg.plain(v_in, v_tgt), rtol=0,
+                               atol=1e-5)
+    assert torch.equal(got, reg(v_in, v_tgt))
+    rows = reg.kernel_rows()
+    _, sums = _point_regress_cuda(v_in, v_tgt, *rows[:4], True, rows[4])
+    assert torch.equal(sums, regress_sums_replay(v_in, v_tgt, *rows[:4]))
+    assert regress_plan(P, B).cluster * regress_plan(P, B).span >= P
 
 
 def test_k8_wrappers_reject_what_the_kernels_do_not_take(dev):
