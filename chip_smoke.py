@@ -25,8 +25,10 @@ Phases, each of which raises on failure (exit code 1):
    main paths' shapes (batch 32, SMPL-X 10475 vertices / 20908 faces,
    K=256 hull directions, 480x360 uint8 images -> 256x256 crops, a
    P2P regressor of 20000 points x 3 vertices, alignments over 10475
-   vertices; for training batch 48: the chain of 55 joints, skinning's
-   backward, and K4 on the stem's first BN and a stage-4 BN in bf16 and
+   vertices; K3 skinning's forward at batch 32 and 48 and its backward
+   at 48, each also bit-equal across two calls, for a body alone and to
+   its order replay; for training batch 48: the chain of 55 joints, and
+   K4 on the stem's first BN and a stage-4 BN in bf16 and
    f32, its backward also forced into each of its two regimes (one
    cluster launch; partials, finalize and dx); K1's forward (a
    thread-block cluster per body and plane, sized by ``measure_plan``)
@@ -725,15 +727,12 @@ def check_kernels(regressor, requests, eval_data, dev):
     library_ms)}."""
     import torch
 
-    from shapy_tpu_torch.core.kinematics import batch_rigid_transform
-    from shapy_tpu_torch.core.rotations import aa_to_rotmat
     from shapy_tpu_torch.data.crop import crop_normalize, crop_normalize_plain
     from shapy_tpu_torch.measure.measurements import (
         PLANES,
         _soa,
         measure_plain,
     )
-    from shapy_tpu_torch.models.body.lbs import skin, skin_plain
     from shapy_tpu_torch.ops.plane_slice import plane_slice_reference_soa
 
     results = {}
@@ -795,30 +794,121 @@ def check_kernels(regressor, requests, eval_data, dev):
            images.numel() + affines.numel() * 4 + bf.numel() * 2,
            B * CROP * CROP * (8 + 3 * 13))
 
-    # K3: posed bodies at SMPL-X size. Tolerance atol 1e-5 m: sums of 55
-    # weighted transforms in another order.
-    aa = (torch.randn((B, model.num_joints, 3), generator=gen) * 0.3).to(dev)
-    joints = torch.matmul(model.J_regressor, v_shaped)
-    _, rel, _ = batch_rigid_transform(aa_to_rotmat(aa), joints,
-                                      model.parents, model.levels)
-    rel = rel.contiguous()
-    v_posed = (v_shaped + 0.01 * torch.randn(v_shaped.shape, generator=gen)
-               .to(dev)).contiguous()
-    err = max_err(skin(model.lbs_weights, rel, v_posed),
-                  skin_plain(model.lbs_weights, rel, v_posed))
-    torch.cuda.synchronize()
-    print(f"K3 skinning: err {err:.3e} m (tol 1e-5)")
-    check(err <= 1e-5, f"K3 err {err}")
-    V, J = model.lbs_weights.shape
-    # Per vertex: 12 multiply-adds per joint, then the 3x4 transform.
-    record_kernel(results, "K3_skinning", err,
-           lambda: skin(model.lbs_weights, rel, v_posed),
-           lambda: skin_plain(model.lbs_weights, rel, v_posed),
-           (V * J + rel.numel() + 2 * v_posed.numel()) * 4,
-           B * V * (24 * J + 18))
-
     results.update(check_k8a(eval_data, gen, dev))
     results.update(check_k8b(model, eval_data, gen, dev))
+    return results
+
+
+def check_k3(model, dev) -> dict:
+    """Phase 2, K3 at the main paths' shapes: the forward at batch 32 (a
+    served or evaluated batch) and 48 (a train step's), the backward at
+    48, on bodies of the flagship's SMPL-X posed by 0.3 rad a joint.
+    Tolerances: the forward atol 1e-5 m (sums of 55 weighted transforms in
+    another order than the plain version's matmul); the gradients 1e-5 of
+    the largest against autograd through the plain version in f64 and f32
+    (sums over 10475 vertices in f32). Each also bit-equal across two
+    calls, for a body alone (the first, middle and last) as in its row of
+    the batch, and to its order replay (``skin_forward_replay``,
+    ``skin_backward_replay``). Returns the forward's entry (batch 48 under
+    ``cases``) and the backward's."""
+    import torch
+
+    from shapy_tpu_torch.core.kinematics import batch_rigid_transform
+    from shapy_tpu_torch.core.rotations import aa_to_rotmat
+    from shapy_tpu_torch.models.body.lbs import (
+        skin,
+        skin_backward_replay,
+        skin_forward_replay,
+        skin_plain,
+    )
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    W = model.lbs_weights
+    V, J = W.shape
+
+    def posed(Bk):
+        betas = (torch.randn((Bk, model.num_betas), generator=gen) * 1.5)
+        v_shaped = model.forward_shape(betas.to(dev))["v_shaped"]
+        joints = torch.matmul(model.J_regressor, v_shaped)
+        aa = torch.randn((Bk, J, 3), generator=gen) * 0.3
+        _, rel, _ = batch_rigid_transform(aa_to_rotmat(aa.to(dev)), joints,
+                                          model.parents, model.levels)
+        v_posed = v_shaped + 0.01 * torch.randn(v_shaped.shape,
+                                                generator=gen).to(dev)
+        return rel.contiguous(), v_posed.contiguous()
+
+    def alone(Bk):
+        return sorted({0, Bk // 2, Bk - 1})
+
+    forward = {}
+    for Bk in (B, TRAIN_B):
+        rel, vp = posed(Bk)
+        got = skin(W, rel, vp)
+        err = max_err(got, skin_plain(W, rel, vp))
+        same = torch.equal(got, skin(W, rel, vp))
+        single = all(torch.equal(skin(W, rel[i:i + 1], vp[i:i + 1])[0],
+                                 got[i]) for i in alone(Bk))
+        replayed = torch.equal(got, skin_forward_replay(W, rel, vp))
+        torch.cuda.synchronize()
+        print(f"K3 skinning (batch {Bk}): err {err:.3e} m (tol 1e-5); two "
+              f"calls bit-equal: {same}; bodies {alone(Bk)} alone bit-equal: "
+              f"{single}; bit-equal to its replay: {replayed}")
+        check(err <= 1e-5, f"K3 err {err} at batch {Bk}")
+        check(same and single and replayed,
+              f"K3 forward at batch {Bk}: two calls, a body alone and the "
+              f"replay bit-equal: {same}, {single}, {replayed}")
+        # Per vertex: 12 multiply-adds per joint, then the 3x4 transform.
+        forward[Bk] = record_kernel(
+            {}, "K3_skinning", err, lambda: skin(W, rel, vp),
+            lambda: skin_plain(W, rel, vp),
+            (V * J + rel.numel() + 2 * vp.numel()) * 4,
+            Bk * V * (24 * J + 18))
+
+    rel, v_posed = posed(TRAIN_B)
+    dv = torch.randn(v_posed.shape, generator=gen).to(dev)
+
+    def skin_graph(fn, dtype, sl=slice(None)):
+        a = rel[sl].to(dtype, copy=True).requires_grad_()
+        b = v_posed[sl].to(dtype, copy=True).requires_grad_()
+        return fn(W.to(dtype), a, b), (a, b)
+
+    out, s_ins = skin_graph(skin, torch.float32)
+    got = torch.autograd.grad(out, s_ins, dv, retain_graph=True)
+    err = 0.0
+    for dtype in (torch.float64, torch.float32):
+        want = torch.autograd.grad(*skin_graph(skin_plain, dtype),
+                                   dv.to(dtype))
+        err = max(err, *(max_err(a, b) / max(1.0, float(b.abs().max()))
+                         for a, b in zip(got, want)))
+    again = torch.autograd.grad(*skin_graph(skin, torch.float32), dv)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    single = True
+    for i in alone(TRAIN_B):
+        one = torch.autograd.grad(
+            *skin_graph(skin, torch.float32, slice(i, i + 1)), dv[i:i + 1])
+        single &= all(torch.equal(a[0], b[i]) for a, b in zip(one, got))
+    replay = skin_backward_replay(W, rel, v_posed, dv)
+    replayed = all(torch.equal(a, b) for a, b in zip(got, replay))
+    print(f"K3 skinning backward (batch {TRAIN_B}): err vs plain autograd "
+          f"f64/f32 {err:.3e} of the largest gradient (tol 1e-5); two calls "
+          f"bit-equal: {same}; bodies {alone(TRAIN_B)} alone bit-equal: "
+          f"{single}; bit-equal to its replay: {replayed}")
+    check(err <= 1e-5, f"K3 backward vs plain: {err}")
+    check(same and single and replayed,
+          f"K3 backward: two calls, a body alone and the replay bit-equal: "
+          f"{same}, {single}, {replayed}")
+    p_out, p_ins = skin_graph(skin_plain, torch.float32)
+    results = {"K3_skinning": dict(forward[B],
+                                   cases={f"batch{TRAIN_B}": forward[TRAIN_B]})}
+    # Per vertex: the transform again (24 J), d v_posed (15), the outer
+    # product (12) and 24 FLOP per joint into d A.
+    record_kernel(results, "K3_skinning_backward", err,
+                  lambda: torch.autograd.grad(out, s_ins, dv,
+                                              retain_graph=True),
+                  lambda: torch.autograd.grad(p_out, p_ins, dv,
+                                              retain_graph=True),
+                  (V * J + 2 * rel.numel() + 3 * v_posed.numel()) * 4,
+                  TRAIN_B * V * (48 * J + 27))
     return results
 
 
@@ -1431,7 +1521,7 @@ def score(regressor, eval_data, dev):
 
 def check_train_kernels(model, dev):
     """Phase 2, the training path's kernels at its shapes (batch 48):
-    K3-chain forward and backward, K3's backward, and K4 forward and
+    K3-chain forward and backward, and K4 forward and
     backward on the stem's first BN (64 x 128 x 128) and on a stage-4
     branch-3 BN (384 x 8 x 8), in bf16 and f32, K4 also in each of its
     two regimes. The backwards are first held against autograd through
@@ -1454,7 +1544,6 @@ def check_train_kernels(model, dev):
         batch_norm_train_backward_plain,
         batch_norm_train_plain,
     )
-    from shapy_tpu_torch.models.body.lbs import skin, skin_plain
 
     results = {}
     gen = torch.Generator().manual_seed(SEED + 7)
@@ -1508,46 +1597,6 @@ def check_train_kernels(model, dev):
                   lambda: torch.autograd.grad(p_outs, p_ins, cts,
                                               retain_graph=True),
                   (n_in + Bt * J * 16 + n_out + n_in) * 4, Bt * J * 160)
-
-    # K3 backward at the train path's shapes: tolerance 1e-5 of the
-    # largest gradient (sums over 10475 vertices in f32).
-    _, rel, _ = batch_rigid_transform(rot, joints, parents)
-    rel = rel.contiguous()
-    v_posed = (v_shaped + 0.01 * torch.randn(v_shaped.shape, generator=gen)
-               .to(dev)).contiguous()
-    dv = torch.randn(v_posed.shape, generator=gen).to(dev)
-    W = model.lbs_weights
-    V = W.shape[0]
-
-    def skin_graph(fn, dtype):
-        a = rel.to(dtype, copy=True).requires_grad_()
-        b = v_posed.to(dtype, copy=True).requires_grad_()
-        return fn(W.to(dtype), a, b), (a, b)
-
-    out, s_ins = skin_graph(skin, torch.float32)
-    got = torch.autograd.grad(out, s_ins, dv, retain_graph=True)
-    err = 0.0
-    for dtype in (torch.float64, torch.float32):
-        want = torch.autograd.grad(*skin_graph(skin_plain, dtype),
-                                   dv.to(dtype))
-        err = max(err, *(max_err(a, b) / max(1.0, float(b.abs().max()))
-                         for a, b in zip(got, want)))
-    again = torch.autograd.grad(*skin_graph(skin, torch.float32), dv)
-    same = all(torch.equal(a, b) for a, b in zip(got, again))
-    print(f"K3 skinning backward (batch {Bt}): err vs plain autograd "
-          f"f64/f32 {err:.3e} of the largest gradient (tol 1e-5); two runs "
-          f"bit-equal: {same}")
-    check(err <= 1e-5 and same, "K3 backward vs plain")
-    p_out, p_ins = skin_graph(skin_plain, torch.float32)
-    # Per vertex: the transform again (24 J), d v_posed (15), the outer
-    # product (12) and 24 FLOP per joint into d A.
-    record_kernel(results, "K3_skinning_backward", err,
-                  lambda: torch.autograd.grad(out, s_ins, dv,
-                                              retain_graph=True),
-                  lambda: torch.autograd.grad(p_out, p_ins, dv,
-                                              retain_graph=True),
-                  (V * J + 2 * rel.numel() + 3 * v_posed.numel()) * 4,
-                  Bt * V * (48 * J + 27))
 
     # K4: tolerances rel 1e-4 in f32 (sums in another order), one bf16
     # step (2^-7 of the largest value) in bf16; parameter gradients rel
@@ -4613,6 +4662,7 @@ def main() -> int:
 
     stamp("phase 2")
     checked = check_kernels(regressor, requests, eval_data, dev)
+    checked.update(check_k3(regressor.model, dev))
     checked.update(check_train_kernels(regressor.model, dev))
     anchors = regressor.body_measurements.anchors
     checked.update(check_measure_kernels(regressor.model, anchors, dev))

@@ -94,7 +94,13 @@ from shapy_tpu_torch.models.backbones.layers import (
 )
 from shapy_tpu_torch.models.backbones.resnet import ResNet
 from shapy_tpu_torch.models.body.assets import make_synthetic_model_data
-from shapy_tpu_torch.models.body.lbs import SKIN_KERNEL, skin, skin_plain
+from shapy_tpu_torch.models.body.lbs import (
+    SKIN_KERNEL,
+    skin,
+    skin_backward_replay,
+    skin_forward_replay,
+    skin_plain,
+)
 from shapy_tpu_torch.models.body.model import SMPLX
 from shapy_tpu_torch.ops import (
     MeshMeshIntersection,
@@ -179,7 +185,47 @@ def test_ingest_kernel_matches_plain(dev, out_dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
 
 
-def test_skin_kernel_matches_plain(dev, body):
+# K3's shapes: SMPL-X at the real template's counts (served at 32, trained
+# at 48, one body), SMPL and SMPL-H, the kernel's 76 joints (the most shared
+# memory either kernel asks for: a launch refused it raises), ragged tiles.
+SKIN_SHAPES = [(1, 10475, 55), (32, 10475, 55), (48, 10475, 55),
+               (5, 6890, 24), (5, 300, 52), (128, 300, 76), (3, 1, 55),
+               (9, 127, 55)]
+
+
+def _skin_inputs(dev, B, V, J, seed):
+    """Dense skinning weights (rows summing to 1), rigid transforms with
+    rotations of ~0.3 rad and translations of ~0.2 m, and bodies of ~1 m,
+    as contiguous f32 tensors on ``dev``."""
+    gen = torch.Generator().manual_seed(seed)
+    w = torch.rand(V, J, generator=gen)
+    w = w / w.sum(1, keepdim=True)
+    rel = torch.zeros(B, J, 4, 4)
+    rel[:, :, :3, :3] = aa_to_rotmat(torch.randn(B, J, 3, generator=gen)
+                                     * 0.3)
+    rel[:, :, :3, 3] = torch.randn(B, J, 3, generator=gen) * 0.2
+    rel[:, :, 3, 3] = 1.0
+    v = torch.randn(B, V, 3, generator=gen) * 0.5
+    dv = torch.randn(B, V, 3, generator=gen)
+    return tuple(t.contiguous().to(dev) for t in (w, rel, v, dv))
+
+
+@pytest.mark.parametrize("shape", SKIN_SHAPES, ids=str)
+def test_skin_kernel_matches_plain(dev, shape):
+    """K3 forward against the plain version (atol 1e-5 m: sums of J
+    weighted transforms in another order) and bit-equal to its replay,
+    ``skin_forward_replay`` (the same fma chains in the same order)."""
+    w, rel, v, _ = _skin_inputs(dev, *shape, seed=1)
+    before = SKIN_KERNEL.launches
+    got = skin(w, rel, v)
+    assert SKIN_KERNEL.launches == before + 1
+    torch.testing.assert_close(got, skin_plain(w, rel, v), rtol=0,
+                               atol=1e-5)
+    assert torch.equal(got, skin_forward_replay(w, rel, v))
+
+
+def test_skin_kernel_on_a_body(dev, body):
+    """K3 forward on posed bodies of the synthetic SMPL-X."""
     model, _ = body
     gen = torch.Generator().manual_seed(1)
     aa = (torch.randn(4, 55, 3, generator=gen) * 0.3).to(dev)
@@ -187,11 +233,45 @@ def test_skin_kernel_matches_plain(dev, body):
     joints = torch.matmul(model.J_regressor, v)
     _, rel, _ = batch_rigid_transform(aa_to_rotmat(aa), joints,
                                       model.parents)
-    before = SKIN_KERNEL.launches
     got = skin(model.lbs_weights, rel.contiguous(), v.contiguous())
-    assert SKIN_KERNEL.launches == before + 1
     torch.testing.assert_close(
         got, skin_plain(model.lbs_weights, rel, v), rtol=0, atol=1e-5)
+
+
+def _skin_grads(fn, w, rel, v, dv, dtype=torch.float32):
+    a = rel.to(dtype, copy=True).requires_grad_()
+    b = v.to(dtype, copy=True).requires_grad_()
+    fn(w.to(dtype), a, b).backward(dv.to(dtype))
+    return a.grad.float(), b.grad.float()
+
+
+@pytest.mark.parametrize("shape", [(1, 10475, 55), (32, 10475, 55),
+                                   (48, 10475, 55), (128, 300, 76)],
+                         ids=str)
+def test_skin_kernel_stable_and_batch_invariant(dev, shape):
+    """Two calls give the same bits, and a body alone the same bits as
+    its row of the batch, forward and backward: every sum's order is
+    fixed by V and J alone (``skin_plan``)."""
+    w, rel, v, dv = _skin_inputs(dev, *shape, seed=2)
+    B = shape[0]
+    out = skin(w, rel, v)
+    grads = _skin_grads(skin, w, rel, v, dv)
+    assert torch.equal(out, skin(w, rel, v))
+    assert all(torch.equal(a, b) for a, b in
+               zip(grads, _skin_grads(skin, w, rel, v, dv)))
+    for i in sorted({0, B // 2, B - 1}):
+        s = slice(i, i + 1)
+        assert torch.equal(skin(w, rel[s], v[s])[0], out[i])
+        alone = _skin_grads(skin, w, rel[s], v[s], dv[s])
+        assert torch.equal(alone[0][0], grads[0][i])
+        assert torch.equal(alone[1][0], grads[1][i])
+
+
+def test_skin_rejects_too_many_joints(dev):
+    """The kernels take at most 76 joints (``_SKIN_MAX_JOINTS``)."""
+    w, rel, v, _ = _skin_inputs(dev, 2, 10, 77, seed=3)
+    with pytest.raises(ValueError):
+        skin(w, rel, v)
 
 
 def _clouds(dev, B, P, seed):
@@ -467,36 +547,23 @@ def test_chain_kernel_matches_plain(dev, with_world):
     assert torch.equal(r3.grad, r4.grad) and torch.equal(j3.grad, j4.grad)
 
 
-def test_skin_backward_kernel_matches_plain(dev, body):
-    """K3 backward at SMPL-X-like shapes: d rel_transforms and d v_posed
-    against autograd through the plain version in f64 (atol 1e-5 of the
-    largest gradient: sums over the vertices in f32) and f32; two runs
-    give the same bits."""
-    model, _ = body
-    gen = torch.Generator().manual_seed(4)
-    B = 6
-    aa = (torch.randn(B, 55, 3, generator=gen) * 0.3).to(dev)
-    v = model.forward_shape(torch.zeros(B, 10, device=dev))["v_shaped"]
-    joints = torch.matmul(model.J_regressor, v)
-    _, rel, _ = batch_rigid_transform(aa_to_rotmat(aa), joints, model.parents)
-    rel, v = rel.contiguous(), v.contiguous()
-    dv = torch.randn(v.shape, generator=gen).to(dev)
-
-    def grads(fn, dtype):
-        a = rel.to(dtype, copy=True).requires_grad_()
-        b = v.to(dtype, copy=True).requires_grad_()
-        fn(model.lbs_weights.to(dtype), a, b).backward(dv.to(dtype))
-        return a.grad.float(), b.grad.float()
-
+@pytest.mark.parametrize("shape", SKIN_SHAPES, ids=str)
+def test_skin_backward_kernel_matches_plain(dev, shape):
+    """K3 backward: d rel_transforms and d v_posed against autograd
+    through the plain version in f64 and f32 (atol 1e-5 of the largest
+    gradient: sums over the vertices in f32), bit-equal to its order
+    replay (``skin_backward_replay``), one launch a call."""
+    w, rel, v, dv = _skin_inputs(dev, *shape, seed=4)
     before = SKIN_KERNEL.counts["skin_backward"]
-    got = grads(skin, torch.float32)
+    got = _skin_grads(skin, w, rel, v, dv)
     assert SKIN_KERNEL.counts["skin_backward"] == before + 1
     for dtype in (torch.float64, torch.float32):
-        for g, w in zip(got, grads(skin_plain, dtype)):
-            scale = max(1.0, float(w.abs().max()))
-            torch.testing.assert_close(g, w, rtol=0, atol=1e-5 * scale)
-    again = grads(skin, torch.float32)
-    assert all(torch.equal(a, b) for a, b in zip(got, again))
+        for g, want in zip(got, _skin_grads(skin_plain, w, rel, v, dv,
+                                            dtype)):
+            scale = max(1.0, float(want.abs().max()))
+            torch.testing.assert_close(g, want, rtol=0, atol=1e-5 * scale)
+    replay = skin_backward_replay(w, rel, v, dv)
+    assert torch.equal(got[0], replay[0]) and torch.equal(got[1], replay[1])
 
 
 @pytest.mark.parametrize("regime", [None, True, False],

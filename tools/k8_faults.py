@@ -1,13 +1,12 @@
 """Show that ``chip_smoke.py``'s K8 checks catch planted faults.
 
 Needs one CUDA card. For each fault, the port and ``chip_smoke.py`` are
-copied into ``shapy_tpu_torch/_build/k8_faults/<fault>/`` (a directory
-that git ignores; the tree itself is never edited), one part of the copy
-is changed, and the copy builds the flagship's eval data as
-``chip_smoke.py`` does and runs phase 2's K8 checks: ``check_k8a`` (the
-P2P-20k error in its three cases) and ``check_k8b`` (the eval batch's
-group of nine point errors at B = 32), with the timings reduced to one
-call. The unplanted copy must pass, every planted one fail, and a fault
+copied into ``shapy_tpu_torch/_build/k8_faults/<fault>/`` with one part of
+the copy changed (``chip_harness.run_faults``), and the copy builds the
+flagship's eval data as ``chip_smoke.py`` does and runs phase 2's K8
+checks: ``check_k8a`` (the P2P-20k error in its three cases) and
+``check_k8b`` (the eval batch's group of nine point errors at B = 32),
+with the timings reduced to one call. The unplanted copy must pass, every planted one fail, and a fault
 must be caught by the check of its own kernel.
 
     python tools/k8_faults.py [fault ...]
@@ -19,15 +18,10 @@ run four at a time.
 
 from __future__ import annotations
 
-import json
-import shutil
-import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
 
-REPO = Path(__file__).resolve().parents[1]
-OUT = REPO / "shapy_tpu_torch" / "_build" / "k8_faults"
+from chip_harness import BUILD, run_faults
+
 ALIGN = "shapy_tpu_torch/csrc/align_error.cu"
 REGRESS = "shapy_tpu_torch/csrc/point_regress.cu"
 
@@ -93,49 +87,6 @@ sys.exit(1 if failed else 0)
 """
 
 
-def copy_with(fault: str) -> Path:
-    dst = OUT / fault
-    if dst.exists():
-        shutil.rmtree(dst)
-    shutil.copytree(REPO / "shapy_tpu_torch", dst / "shapy_tpu_torch",
-                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    shutil.copy(REPO / "chip_smoke.py", dst / "chip_smoke.py")
-    for path, old, new in FAULTS[fault]:
-        text = (dst / path).read_text()
-        if text.count(old) != 1:
-            raise RuntimeError(f"{fault}: the planted text is not in {path}")
-        (dst / path).write_text(text.replace(old, new))
-    return dst
-
-
-def run(fault: str) -> dict:
-    dst = copy_with(fault)
-    proc = subprocess.run(
-        ["timeout", "900", sys.executable, "-c", RUN], cwd=dst,
-        capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    (OUT / f"{fault}.log").write_text(log)
-    shutil.rmtree(dst)
-    passed = proc.returncode == 0
-    caught = [ln for ln in log.splitlines() if ln.startswith("caught:")]
-    print(f"{fault}: rc {proc.returncode}; "
-          f"{' | '.join(c[:300] for c in caught) if caught else log[-600:]}",
-          flush=True)
-    named = all(c.startswith("caught: " + CAUGHT_BY.get(fault, ""))
-                for c in caught)
-    return {"rc": proc.returncode, "passed": passed, "caught": len(caught),
-            "as_expected": passed if fault == "none"
-            else bool(caught) and named}
-
-
-def main(names) -> int:
-    OUT.mkdir(parents=True, exist_ok=True)
-    names = names or list(FAULTS)
-    with ThreadPoolExecutor(4) as pool:
-        summary = dict(zip(names, pool.map(run, names)))
-    print(json.dumps(summary))
-    return 0 if all(v["as_expected"] for v in summary.values()) else 1
-
-
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(run_faults(BUILD / "k8_faults", FAULTS, RUN, sys.argv[1:],
+                        CAUGHT_BY))

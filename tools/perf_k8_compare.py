@@ -25,17 +25,18 @@ and times, on that batch's outputs against its synthetic GT
   (``utils/profiling._trace``), device busy time, idle share and kernels a
   step.
 
-Device times come from ``torch.profiler`` traces of 5 calls between spin
-kernels, each trace taken again (at most 3 times) unless every source's
-kernels number a multiple of the calls. The trees run in turns (``--rounds
-3``: a b b a a b), each run printing one JSON line; the last line gives
-each tree's median of each number.
+Device times come from ``chip_harness.trace`` (``torch.profiler`` traces
+of 5 calls between spin kernels, checked). The trees run in turns
+(``chip_harness.in_turns``, ``--rounds 3``: a b b a a b), each run
+printing one JSON line; the last line gives each tree's median of each
+number.
 
-With ``--staged``, a copy of the last tree whose K8a stages each body's
-meshes in its cluster's shared memory (rank r holding vertices [r vs, (r +
-1) vs), every gather a distributed-shared-memory load; ``STAGED`` below)
-runs as one more tree, under ``shapy_tpu_torch/_build/k8_staged/``: the
-other way to serve K8a's gathers.
+With ``--staged``, a copy of this repository's port whose K8a stages
+each body's meshes in its cluster's shared memory (rank r holding
+vertices [r vs, (r + 1) vs), every gather a distributed-shared-memory
+load; ``STAGED`` below) runs as one more tree, under
+``shapy_tpu_torch/_build/k8_staged/``: the other way to serve K8a's
+gathers.
 
     python tools/perf_k8_compare.py [--rounds N] [--staged] TREE [TREE ...]
 """
@@ -43,15 +44,12 @@ other way to serve K8a's gathers.
 from __future__ import annotations
 
 import argparse
-import json
-import shutil
-import statistics
-import subprocess
 import sys
 from pathlib import Path
 
-STAGED_DIR = (Path(__file__).resolve().parents[1] / "shapy_tpu_torch"
-              / "_build" / "k8_staged")
+from chip_harness import BUILD, in_turns, planted_copy
+
+STAGED_DIR = BUILD / "k8_staged"
 REGRESS = "shapy_tpu_torch/csrc/point_regress.cu"
 # K8a with each body's two meshes staged across its cluster's shared
 # memory: (text, replacement) in point_regress.cu.
@@ -126,8 +124,9 @@ __global__ void __launch_bounds__(kThreads) regress_cluster_kernel("""),
 ]
 
 RUN = r"""
-import collections, json, statistics, subprocess, sys, time, torch
+import json, statistics, sys, time, torch
 sys.path.insert(0, ".")
+from chip_harness import PASSES, by_source, card, trace
 from shapy_tpu_torch.eval.evaluator import build_evaluator
 from shapy_tpu_torch.eval.metrics import point_regress_error
 from shapy_tpu_torch.flagship import (REFERENCE_EVAL_CFG, build_flagship,
@@ -135,12 +134,9 @@ from shapy_tpu_torch.flagship import (REFERENCE_EVAL_CFG, build_flagship,
 from shapy_tpu_torch.utils import profiling
 from shapy_tpu_torch.utils.cuda_kernels import CudaKernel
 
-B, PASSES = 32, 5
+B = 32
 SOURCES = {"k8b": "align_error.cu", "k8a": "point_regress.cu"}
 dev = torch.device("cuda", 0)
-card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                       "--format=csv,noheader"], capture_output=True,
-                      text=True).stdout.strip()
 reg = build_flagship(subdivisions=5, exact_counts=True, device="cpu")
 spread_init_(reg, seed=0, beta_scale=0.25)
 reg = reg.to(dev).prepare_for_eval_(torch.bfloat16)
@@ -170,46 +166,11 @@ def eval_step():
     return torch.stack(list(m.values())).cpu()
 
 
-def pad():
-    for _ in range(8):
-        torch.cuda._sleep(1000)
-
-
-with torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-    pad()
-    torch.cuda.synchronize()
-PAD = {e.name for e in prof.events()
-       if e.device_type == torch.autograd.DeviceType.CUDA}
-
-
-def trace(fn):
+def k8_trace(fn):
     # (launches of each source in order with their ms, busy ms, kernels),
     # per call of fn
-    sources = profiling._hand_kernel_sources()
-    for _ in range(3):
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            pad()
-            for _ in range(PASSES):
-                fn()
-            pad()
-            torch.cuda.synchronize()
-        events = sorted(
-            (e.time_range.start, e.time_range.end, e.name)
-            for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.name not in PAD)
-        by = collections.defaultdict(list)
-        for start, stop, name in events:
-            by[profiling._hand_kernel(name, sources)].append(
-                (stop - start) / 1e3)
-        if (len(events) % PASSES == 0
-                and all(len(v) % PASSES == 0 for v in by.values())):
-            break
-        print(f"trace dropped kernels: {len(events)} events", flush=True)
-    else:
-        raise RuntimeError("traces dropped kernels 3 times")
+    events = trace(fn)
+    by = by_source(events)
     busy, end = 0.0, float("-inf")
     for start, stop, _ in events:
         busy += max(0.0, stop - max(start, end))
@@ -224,7 +185,7 @@ def trace(fn):
     return per, busy / 1e3 / PASSES, len(events) // PASSES
 
 
-out = {"card": card, "batch": B}
+out = {"card": card(), "batch": B}
 with torch.inference_mode():
     for _ in range(3):
         eval_step()
@@ -236,11 +197,11 @@ with torch.inference_mode():
         metrics()
         out.setdefault("launches_a_batch", {})[key] = (kernel.launches
                                                        - before)
-    per, busy, kernels = trace(metrics)
+    per, busy, kernels = k8_trace(metrics)
     out.update(per)
     p2p = data["p2p"]
     v_s, gt_s = outputs["stage_02"]["v_shaped"], targets["gt_v_shaped"]
-    out["k8a_unsorted_ms"] = trace(lambda: point_regress_error(
+    out["k8a_unsorted_ms"] = k8_trace(lambda: point_regress_error(
         v_s.contiguous(), gt_s, p2p.indices, p2p.weights, p2p.indices,
         p2p.weights, True))[0]["k8a"]["ms"]
     out["metrics"] = {"busy_ms": busy, "kernels": kernels}
@@ -261,30 +222,10 @@ print(json.dumps(out))
 """
 
 
-def _flat(row: dict, prefix: str = "") -> dict:
-    flat = {}
-    for k, v in row.items():
-        if isinstance(v, dict):
-            flat.update(_flat(v, f"{prefix}{k}."))
-        elif isinstance(v, (int, float)):
-            flat[f"{prefix}{k}"] = v
-    return flat
-
-
-def staged_copy(tree: Path) -> Path:
-    """A copy of ``tree``'s port whose K8a gathers from staged meshes."""
-    if STAGED_DIR.exists():
-        shutil.rmtree(STAGED_DIR)
-    shutil.copytree(tree / "shapy_tpu_torch", STAGED_DIR / "shapy_tpu_torch",
-                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    path = STAGED_DIR / REGRESS
-    text = path.read_text()
-    for old, new in STAGED:
-        if text.count(old) != 1:
-            raise RuntimeError(f"--staged: {old[:60]!r} is not in {path}")
-        text = text.replace(old, new)
-    path.write_text(text)
-    return STAGED_DIR
+def staged_copy() -> Path:
+    """A copy of the port whose K8a gathers from staged meshes."""
+    return planted_copy(STAGED_DIR, [(REGRESS, old, new)
+                                     for old, new in STAGED])
 
 
 def main(argv) -> int:
@@ -294,30 +235,8 @@ def main(argv) -> int:
     parser.add_argument("trees", nargs="+")
     args = parser.parse_args(argv)
     if args.staged:
-        args.trees.append(str(staged_copy(Path(args.trees[-1]))))
-    runs = {tree: [] for tree in args.trees}
-    order = []
-    for i in range(args.rounds):
-        order += args.trees if i % 2 == 0 else args.trees[::-1]
-    for tree in order:
-        proc = subprocess.run(
-            [sys.executable, "-c", RUN], cwd=Path(tree).resolve(),
-            capture_output=True, text=True, timeout=900)
-        lines = proc.stdout.strip().splitlines()
-        if proc.returncode != 0 or not lines:
-            print(f"{tree}: rc {proc.returncode}\n{proc.stderr[-3000:]}")
-            return 1
-        row = json.loads(lines[-1])
-        row["tree"] = tree
-        runs[tree].append(row)
-        print(json.dumps(row), flush=True)
-    medians = {}
-    for tree, rows in runs.items():
-        flats = [_flat(r) for r in rows]
-        medians[tree] = {k: statistics.median(f[k] for f in flats)
-                         for k in flats[0]}
-    print(json.dumps({"median": medians}))
-    return 0
+        args.trees.append(str(staged_copy()))
+    return in_turns(RUN, args.trees, args.rounds)
 
 
 if __name__ == "__main__":
