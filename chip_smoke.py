@@ -25,9 +25,17 @@ Phases, each of which raises on failure (exit code 1):
    main paths' shapes (batch 32, SMPL-X 10475 vertices / 20908 faces,
    K=256 hull directions, 480x360 uint8 images -> 256x256 crops, a
    P2P regressor of 20000 points x 3 vertices, alignments over 10475
-   vertices; K3 skinning's forward at batch 32 and 48 and its backward
-   at 48, each also bit-equal across two calls, for a body alone and to
-   its order replay; for training batch 48: the chain of 55 joints, and
+   vertices; K2 bit-equal for uint8 and f32 images and f32 and bf16
+   crops on the served requests at batch 32 and 128 and on extreme
+   affines (magnification 4, a 90 degree rotation, a crop wholly outside:
+   tiles in both regimes of ``ingest_plan``), its bound from the source
+   pixels that the corners read; K3 skinning's forward at batch 32 and 48
+   and its backward at 48, each also bit-equal across two calls, for a
+   body alone and to its order replay; K3-chain forward and backward at
+   batch 32 and 48 on the flagship's tree (55 joints in 6 levels), the
+   published SMPL-X tree (11 levels) and a 64-joint path, against the
+   plain version in f64 and f32 and bit-equal to its replays, across two
+   calls and for a body alone; for training batch 48:
    K4 on the stem's first BN and a stage-4 BN in bf16 and
    f32, its backward also forced into each of its two regimes (one
    cluster launch; partials, finalize and dx); K1's forward (a
@@ -395,13 +403,16 @@ def conv_plan_text(n: int, cin: int, cout: int, k: int, stride: int,
                  f"{min(tiles, slots)}")
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time per call from CUDA events around ``iters`` calls.
+def time_ms(fn, iters: int = 20, warmup: int = 3, windows: int = 3
+            ) -> float:
+    """Mean device time per call from CUDA events around ``iters`` calls,
+    the least of ``windows`` such windows.
 
     The calls are queued behind a spin kernel that outlasts their host-side
     launching, so the events time the device work back to back and not the
     host's launch rate (a kernel of tens of microseconds launches slower
-    than it runs)."""
+    than it runs). A host pause longer than the spin's margin leaves a gap
+    in a window; the least window is the one without."""
     import torch
 
     for _ in range(warmup):
@@ -413,27 +424,35 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     host_s = time.perf_counter() - t0  # bounds one call's launch time
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(2e9 * 1.5 * iters * host_s))  # cycles at <= 2 GHz
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    best = float("inf")
+    for _ in range(windows):
+        torch.cuda._sleep(int(2e9 * 1.5 * iters * host_s))  # <= 2 GHz
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
+    return best
 
 
 _PAD_NAMES = set()
 
 
-def _device_trace(fn, passes: int):
+def _device_trace(fn, passes: int, first: bool = True):
     """(ms, kernels by name) of the CUDA kernels and copies that
     ``passes`` calls of ``fn`` run, from one ``torch.profiler`` trace: the
     time at least one of them runs (the union of their spans: a kernel
     launched as a programmatic dependent, as K4's split forward launches
     its second and third passes, starts before the one it waits for
-    ends), and their count by name. The trace starts and ends with 8
-    short spin kernels, left out of both: a trace can miss its first or
-    last few events."""
+    ends), and their count by name; None where the trace lost its marker.
+    The trace starts and ends with 8 short spin kernels, left out of both:
+    a trace can miss its first or last few events. A trace has also been
+    seen to miss the first kernels of the first call in it, every time in
+    one process, so (with ``first``, for an ``fn`` that may run once more)
+    one call runs first and is left out too: the counted calls are those
+    after a long spin kernel, the marker, launched once that call has
+    finished."""
     import torch
 
     def pad():
@@ -452,13 +471,25 @@ def _device_trace(fn, passes: int):
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         pad()
+        if first:
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(100_000)  # the marker: ~50 us, a pad ~0.5 us
         for _ in range(passes):
             fn()
         pad()
         torch.cuda.synchronize()
     events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.name not in _PAD_NAMES]
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    after = float("-inf")
+    if first:
+        marks = [e for e in events if e.name in _PAD_NAMES
+                 and e.time_range.end - e.time_range.start > 10.0]  # us
+        if len(marks) != 1:
+            return None
+        after = marks[0].time_range.end
+    events = [e for e in events if e.name not in _PAD_NAMES
+              and e.time_range.start >= after]
     busy, end = 0.0, float("-inf")
     for start, stop in sorted((e.time_range.start, e.time_range.end)
                               for e in events):
@@ -490,8 +521,13 @@ def device_time(fn, passes: int = 3, tries: int = 5) -> tuple:
     least = getattr(fn, "calls", 1)
     seen = []
     for _ in range(tries):
-        _, one = _device_trace(fn, 1)
-        total, many = _device_trace(fn, passes)
+        traces = _device_trace(fn, 1), _device_trace(fn, passes)
+        if None in traces:
+            seen.append((None, None))
+            print("device trace lost its marker: taken again", flush=True)
+            time.sleep(1.0)
+            continue
+        (_, one), (total, many) = traces
         n = sum(one.values())
         want = collections.Counter({k: v * passes for k, v in one.items()})
         if n >= least and many == want:
@@ -727,7 +763,6 @@ def check_kernels(regressor, requests, eval_data, dev):
     library_ms)}."""
     import torch
 
-    from shapy_tpu_torch.data.crop import crop_normalize, crop_normalize_plain
     from shapy_tpu_torch.measure.measurements import (
         PLANES,
         _soa,
@@ -769,34 +804,251 @@ def check_kernels(regressor, requests, eval_data, dev):
            B * F * 17 + B * n_cand * 150
            + points * (meas.num_hull_directions // 2) * 5)
 
-    # K2: uint8 images -> f32 (tolerance 1e-5: the same operations in the
-    # same order, the kernel without FMA) and bf16 (the backbone's input;
-    # tolerance one bf16 rounding step of values up to |2.7|).
-    images, affines = requests
-    err32 = max_err(crop_normalize(images, affines, CROP),
-                    crop_normalize_plain(images, affines, CROP))
-    bf = crop_normalize(images, affines, CROP, out_dtype=torch.bfloat16)
-    bf_plain = crop_normalize_plain(images, affines, CROP,
-                                    out_dtype=torch.bfloat16)
-    err16 = max_err(bf, bf_plain)
-    torch.cuda.synchronize()
-    print(f"K2 ingest: f32 err {err32:.3e} (tol 1e-5), bf16 err "
-          f"{err16:.3e} (tol {2.0 ** -6:.3e})")
-    check(err32 <= 1e-5, f"K2 f32 err {err32}")
-    check(err16 <= 2.0 ** -6, f"K2 bf16 err {err16}")
-    # Per output pixel: the affine map (8 FLOP) and, per channel, the
-    # bilinear blend (11) and the normalisation (2).
-    record_kernel(results, "K2_ingest", err16,
-           lambda: crop_normalize(images, affines, CROP,
-                                  out_dtype=torch.bfloat16),
-           lambda: crop_normalize_plain(images, affines, CROP,
-                                        out_dtype=torch.bfloat16),
-           images.numel() + affines.numel() * 4 + bf.numel() * 2,
-           B * CROP * CROP * (8 + 3 * 13))
-
     results.update(check_k8a(eval_data, gen, dev))
     results.update(check_k8b(model, eval_data, gen, dev))
     return results
+
+
+def k2_extreme_affines(H: int, W: int, S: int) -> np.ndarray:
+    """Crop->image affines (f32) at K2's extremes: a magnification of 4
+    (a 1024-pixel box onto S; its tiles inside the image overflow the
+    staging budget and read their corners from the image), a 90 degree
+    rotation, and a crop wholly outside the image (every corner reads 0)."""
+    from shapy_tpu_torch.data.crop import crop_to_image_affine
+
+    return np.stack([
+        crop_to_image_affine((W / 2, H / 2), 4 * S / 200, (S, S)),
+        crop_to_image_affine((W / 2, H / 2), min(H, W) / 200, (S, S),
+                             rot_deg=90.0),
+        crop_to_image_affine((-3 * W, 2 * H), 1.0, (S, S), rot_deg=10.0),
+    ]).astype(np.float32)
+
+
+def k2_read_pixels(images, affines) -> int:
+    """The source pixels that K2's bilinear corners read inside the images
+    for these affines, each counted once: what the kernel must load."""
+    import torch
+
+    B, H, W, _ = images.shape
+    g = torch.arange(CROP, dtype=torch.float32, device=images.device)
+    gy, gx = torch.meshgrid(g, g, indexing="ij")
+    A = affines[:, :, :, None, None]
+    x0 = torch.floor(A[:, 0, 0] * gx + A[:, 0, 1] * gy + A[:, 0, 2])
+    y0 = torch.floor(A[:, 1, 0] * gx + A[:, 1, 1] * gy + A[:, 1, 2])
+    read = torch.zeros(B * H * W, dtype=torch.bool, device=images.device)
+    base = torch.arange(B, device=images.device)[:, None, None] * (H * W)
+    for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        cx, cy = x0 + dx, y0 + dy
+        inside = (cx >= 0) & (cx <= W - 1) & (cy >= 0) & (cy <= H - 1)
+        read[(base + cy.clamp(0, H - 1).long() * W
+              + cx.clamp(0, W - 1).long())[inside]] = True
+    return int(read.sum())
+
+
+def check_k2(requests, dev) -> dict:
+    """Phase 2, K2 bit-equal to ``crop_normalize_plain`` (max error 0:
+    the same f32 operations in the same order, no FMA contraction) for
+    uint8 and f32 images and f32 and bf16 crops, on the served requests at
+    batch 32 and 128 (every uint8 tile staged, ``ingest_plan``) and on
+    ``k2_extreme_affines`` (tiles in both regimes). Times the served call
+    (uint8 -> bf16) at 32, the entry, and 128 (``cases``); the bound
+    counts the source pixels that the run's corners read inside the
+    images (``k2_read_pixels``, 3 bytes each), the affines and the bf16
+    output, and the whole images' bytes are printed beside it."""
+    import torch
+
+    from shapy_tpu_torch.data.crop import (
+        INGEST_KERNEL,
+        crop_normalize,
+        crop_normalize_plain,
+        ingest_plan,
+    )
+    from shapy_tpu_torch.flagship import synthetic_requests
+
+    big = tuple(torch.from_numpy(a).to(dev) for a in synthetic_requests(
+        4 * B, IMAGE_H, IMAGE_W, CROP, SEED + 9))
+    extreme = torch.from_numpy(k2_extreme_affines(IMAGE_H, IMAGE_W,
+                                                  CROP)).to(dev)
+    cases = {f"batch{B}": requests, f"batch{4 * B}": big,
+             "extreme": (big[0][:extreme.shape[0]], extreme)}
+    for name, (images, affines) in cases.items():
+        for x in (images, images.to(torch.float32) * (1.0 / 255.0)):
+            staged = ingest_plan(affines, IMAGE_H, IMAGE_W, CROP, x.dtype,
+                                 x.data_ptr())["staged"]
+            n_staged, tiles = int(staged.sum()), staged.numel()
+            for out_dtype in (torch.float32, torch.bfloat16):
+                before = INGEST_KERNEL.launches
+                got = crop_normalize(x, affines, CROP, out_dtype=out_dtype)
+                want = crop_normalize_plain(x, affines, CROP,
+                                            out_dtype=out_dtype)
+                torch.cuda.synchronize()
+                check(INGEST_KERNEL.launches == before + 1,
+                      f"K2 {name}: not one launch")
+                check(torch.equal(got, want), f"K2 {name} {x.dtype} -> "
+                      f"{out_dtype}: max error {max_err(got, want)}")
+            print(f"K2 ingest {name} ({x.dtype} in): f32 and bf16 out "
+                  f"bit-equal to the plain version; {n_staged} of {tiles} "
+                  f"tiles staged, {tiles - n_staged} read the image")
+            if name == "extreme":
+                check(0 < n_staged < tiles, f"K2 extremes: {n_staged} of "
+                      f"{tiles} tiles staged, not both regimes")
+            elif x.dtype == torch.uint8:
+                check(n_staged == tiles, f"K2 {name}: {n_staged} of "
+                      f"{tiles} served tiles staged")
+
+    entries = {}
+    for name in (f"batch{B}", f"batch{4 * B}"):
+        images, affines = cases[name]
+        Bk = images.shape[0]
+        pixels = k2_read_pixels(images, affines)
+        out_bytes = Bk * CROP * CROP * 3 * 2
+        print(f"K2 {name}: the corners read {pixels} source pixels "
+              f"({pixels * 3 / 1e6:.2f} MB) of {images.numel() / 1e6:.2f} "
+              f"MB of images; whole-image bound "
+              f"{(images.numel() + out_bytes) / PEAK_BYTES_S * 1e3:.4f} ms")
+        # Per output pixel: the affine map (8 FLOP) and, per channel, the
+        # bilinear blend (11) and the normalisation (2).
+        entries[name] = record_kernel(
+            {}, "K2_ingest", 0.0,
+            lambda: crop_normalize(images, affines, CROP,
+                                   out_dtype=torch.bfloat16),
+            lambda: crop_normalize_plain(images, affines, CROP,
+                                         out_dtype=torch.bfloat16),
+            pixels * 3 + affines.numel() * 4 + out_bytes,
+            Bk * CROP * CROP * (8 + 3 * 13))
+        entries[name]["source_pixels_read"] = pixels
+    return {"K2_ingest": dict(entries[f"batch{B}"], cases={
+        f"batch{4 * B}": entries[f"batch{4 * B}"]})}
+
+
+# The published SMPL-X tree (kintree order: pelvis; hips, spine1; knees,
+# spine2; ankles, spine3; feet, neck, collars; head, shoulders; elbows;
+# wrists; jaw and eyes; five fingers of three joints under each wrist):
+# 55 joints in 11 levels, where the synthetic tree has 6.
+SMPLX_PARENTS = (
+    -1, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14, 16, 17, 18, 19,
+    15, 15, 15, 20, 25, 26, 20, 28, 29, 20, 31, 32, 20, 34, 35, 20, 37, 38,
+    21, 40, 41, 21, 43, 44, 21, 46, 47, 21, 49, 50, 21, 52, 53)
+PATH64_PARENTS = (-1,) + tuple(range(63))
+
+
+def check_k3chain(model, dev) -> dict:
+    """Phase 2, K3-chain at the served batch (32) and a train step's (48)
+    on three trees: the flagship's (synthetic SMPL-X, 55 joints in 6
+    levels), the published SMPL-X tree (``SMPLX_PARENTS``, 55 in 11) and
+    a 64-joint path (64 levels); rest joints from the flagship's seeded
+    bodies (the path: 64 seeded points of ~0.3 m), rotations of 0.3 rad a
+    joint, cotangents N(0, 1). The forward and the backward within 1e-5 of
+    autograd through the plain version in f64 and in f32 (3x4 products over
+    up to 11 levels in f32; on the path 1e-5 of the largest value: its
+    gradients reach ~75, and the plain version in f32 is itself 2.3e-5
+    from f64 there), each bit-equal to its replay
+    (``chain_forward_replay``, ``chain_backward_replay``), across two calls
+    and for a body alone (the first, middle and last) as in its batch; one
+    launch each. Returns the forward's entry (the flagship's tree at 48;
+    at 32 and on the SMPL-X tree under ``cases``) and the backward's."""
+    import torch
+
+    from shapy_tpu_torch.core.kinematics import (
+        CHAIN_KERNEL,
+        batch_rigid_transform,
+        batch_rigid_transform_plain,
+        chain_backward_replay,
+        chain_forward_replay,
+    )
+    from shapy_tpu_torch.core.rotations import aa_to_rotmat
+
+    gen = torch.Generator().manual_seed(SEED + 11)
+    trees = {"flagship": tuple(int(p) for p in model.parents),
+             "smplx": SMPLX_PARENTS, "path64": PATH64_PARENTS}
+    fwd, bwd = {}, {}
+    for tree, parents in trees.items():
+        J = len(parents)
+        for Bk in (B, TRAIN_B):
+            if J == model.num_joints:
+                betas = torch.randn((Bk, model.num_betas), generator=gen) * 1.5
+                joints = torch.matmul(model.J_regressor, model.forward_shape(
+                    betas.to(dev))["v_shaped"]).contiguous()
+            else:
+                joints = (torch.randn((Bk, J, 3), generator=gen) * 0.3).to(dev)
+            rot = aa_to_rotmat((torch.randn((Bk, J, 3), generator=gen) * 0.3)
+                               .to(dev)).contiguous()
+            cts = [torch.randn(s, generator=gen).to(dev) for s in
+                   ((Bk, J, 3), (Bk, J, 4, 4), (Bk, J, 4, 4))]
+
+            def graph(fn, dtype, sl=slice(None)):
+                r = rot[sl].to(dtype, copy=True).requires_grad_()
+                j = joints[sl].to(dtype, copy=True).requires_grad_()
+                return fn(r, j), (r, j)
+
+            kern = lambda r, j: batch_rigid_transform(  # noqa: E731
+                r, j, parents)
+            plain = lambda r, j: batch_rigid_transform_plain(  # noqa: E731
+                r, j, parents)
+            before = dict(CHAIN_KERNEL.counts)
+            outs, ins = graph(kern, torch.float32)
+            got = torch.autograd.grad(outs, ins, cts, retain_graph=True)
+            check(CHAIN_KERNEL.counts == {k: v + 1 for k, v in
+                                          before.items()},
+                  f"K3-chain {tree} {Bk}: not one launch each")
+            fwd_err = bwd_err = 0.0
+            for dtype in (torch.float64, torch.float32):
+                p_outs, p_ins = graph(plain, dtype)
+                want = torch.autograd.grad(p_outs, p_ins,
+                                           [c.to(dtype) for c in cts])
+                scale = [max(1.0, float(w.abs().max()))
+                         if tree == "path64" else 1.0 for w in want]
+                fwd_err = max(fwd_err, *(max_err(a, b) for a, b in
+                                         zip(outs, p_outs)))
+                bwd_err = max(bwd_err, *(max_err(a, b) / k for a, b, k in
+                                         zip(got, want, scale)))
+            replayed = (all(torch.equal(a, b) for a, b in zip(
+                outs, chain_forward_replay(rot, joints, parents)))
+                and all(torch.equal(a, b) for a, b in zip(
+                    got, chain_backward_replay(rot, joints, parents, *cts))))
+            o2, i2 = graph(kern, torch.float32)
+            again = torch.autograd.grad(o2, i2, cts)
+            same = all(torch.equal(a, b) for a, b in
+                       zip(outs + got, o2 + again))
+            single = True
+            for i in sorted({0, Bk // 2, Bk - 1}):
+                sl = slice(i, i + 1)
+                o1, i1 = graph(kern, torch.float32, sl)
+                g1 = torch.autograd.grad(o1, i1, [c[sl] for c in cts])
+                single &= all(torch.equal(a[0], b[i]) for a, b in
+                              zip(o1 + g1, outs + got))
+            torch.cuda.synchronize()
+            print(f"K3-chain ({tree}, {J} joints, batch {Bk}): forward err "
+                  f"{fwd_err:.3e}, backward err vs plain autograd f64/f32 "
+                  f"{bwd_err:.3e}{' of the largest' if tree == 'path64' else ''}"
+                  f" (tol 1e-5); bit-equal to the replays: {replayed}, "
+                  f"across two calls: {same}, for a body alone: {single}")
+            check(fwd_err <= 1e-5 and bwd_err <= 1e-5,
+                  f"K3-chain {tree} {Bk} vs plain: {fwd_err}, {bwd_err}")
+            check(replayed and same and single,
+                  f"K3-chain {tree} {Bk}: replays, two calls, a body alone "
+                  f"bit-equal: {replayed}, {same}, {single}")
+            if tree == "path64" or (tree == "smplx" and Bk == B):
+                continue
+            n_in, n_out = Bk * J * 12, Bk * J * 35
+            key = f"{tree}_batch{Bk}"
+            fwd[key] = record_kernel(
+                {}, "K3chain_forward", fwd_err,
+                lambda: batch_rigid_transform(rot, joints, parents),
+                lambda: batch_rigid_transform_plain(rot, joints, parents),
+                (n_in + n_out) * 4, Bk * J * (60 + 15))
+            if Bk == TRAIN_B:
+                p_outs, p_ins = graph(plain, torch.float32)
+                bwd[key] = record_kernel(
+                    {}, "K3chain_backward", bwd_err,
+                    lambda: torch.autograd.grad(outs, ins, cts,
+                                                retain_graph=True),
+                    lambda: torch.autograd.grad(p_outs, p_ins, cts,
+                                                retain_graph=True),
+                    (n_in + Bk * J * 16 + n_out + n_in) * 4, Bk * J * 160)
+    main_key = f"flagship_batch{TRAIN_B}"
+    return {"K3chain_forward": dict(fwd.pop(main_key), cases=fwd),
+            "K3chain_backward": dict(bwd.pop(main_key), cases=bwd)}
 
 
 def check_k3(model, dev) -> dict:
@@ -1520,21 +1772,15 @@ def score(regressor, eval_data, dev):
 
 
 def check_train_kernels(model, dev):
-    """Phase 2, the training path's kernels at its shapes (batch 48):
-    K3-chain forward and backward, and K4 forward and
-    backward on the stem's first BN (64 x 128 x 128) and on a stage-4
-    branch-3 BN (384 x 8 x 8), in bf16 and f32, K4 also in each of its
-    two regimes. The backwards are first held against autograd through
-    the plain versions in f64, then timed against the plain versions'
-    backwards."""
+    """Phase 2, the training path's K4 at its shapes (batch 48): forward
+    and backward on the stem's first BN (64 x 128 x 128) and on a stage-4
+    branch-3 BN (384 x 8 x 8), in bf16 and f32, also in each of its two
+    regimes. The backward is first held against autograd through the
+    plain version in f64, then timed against the plain version's
+    backward."""
     import torch
     import torch.nn.functional as F
 
-    from shapy_tpu_torch.core.kinematics import (
-        batch_rigid_transform,
-        batch_rigid_transform_plain,
-    )
-    from shapy_tpu_torch.core.rotations import aa_to_rotmat
     from shapy_tpu_torch.models.backbones.layers import (
         _bn_backward_cuda,
         _bn_forward_cuda,
@@ -1547,56 +1793,7 @@ def check_train_kernels(model, dev):
 
     results = {}
     gen = torch.Generator().manual_seed(SEED + 7)
-    Bt, J = TRAIN_B, model.num_joints
-    parents, levels = model.parents, model.levels
-    betas = (torch.randn((Bt, model.num_betas), generator=gen) * 1.5).to(dev)
-    v_shaped = model.forward_shape(betas)["v_shaped"].contiguous()
-    joints = torch.matmul(model.J_regressor, v_shaped).contiguous()
-    rot = aa_to_rotmat((torch.randn((Bt, J, 3), generator=gen) * 0.3)
-                       .to(dev)).contiguous()
-    cts = [torch.randn(s, generator=gen).to(dev) for s in
-           ((Bt, J, 3), (Bt, J, 4, 4), (Bt, J, 4, 4))]
-
-    # K3-chain. Tolerances atol 1e-5: 3x4 products over 8 levels in f32.
-    def chain_graph(fn, dtype):
-        r = rot.to(dtype, copy=True).requires_grad_()
-        j = joints.to(dtype, copy=True).requires_grad_()
-        return fn(r, j), (r, j)
-
-    kern = lambda r, j: batch_rigid_transform(r, j, parents)  # noqa: E731
-    plain = lambda r, j: batch_rigid_transform_plain(  # noqa: E731
-        r, j, parents, levels)
-    outs, ins = chain_graph(kern, torch.float32)
-    got = torch.autograd.grad(outs, ins, cts, retain_graph=True)
-    fwd_err = max(max_err(a, b) for a, b in
-                  zip(outs, plain(rot, joints)))
-    bwd_err = 0.0
-    for dtype in (torch.float64, torch.float32):
-        p_outs, p_ins = chain_graph(plain, dtype)
-        want = torch.autograd.grad(p_outs, p_ins,
-                                   [c.to(dtype) for c in cts])
-        bwd_err = max(bwd_err, *(max_err(a, b) for a, b in zip(got, want)))
-    again = torch.autograd.grad(*chain_graph(kern, torch.float32), cts)
-    print(f"K3-chain (batch {Bt}, {J} joints): forward err {fwd_err:.3e}, "
-          f"backward err vs plain autograd f64/f32 {bwd_err:.3e} (tol 1e-5); "
-          f"two runs bit-equal: "
-          f"{all(torch.equal(a, b) for a, b in zip(got, again))}")
-    check(fwd_err <= 1e-5 and bwd_err <= 1e-5, "K3-chain vs plain")
-    check(all(torch.equal(a, b) for a, b in zip(got, again)),
-          "K3-chain backward is not deterministic")
-    p_outs, p_ins = chain_graph(plain, torch.float32)
-    n_in, n_out = Bt * J * 12, Bt * J * 35
-    record_kernel(results, "K3chain_forward", fwd_err,
-                  lambda: batch_rigid_transform(rot, joints, parents),
-                  lambda: batch_rigid_transform_plain(rot, joints, parents,
-                                                      levels),
-                  (n_in + n_out) * 4, Bt * J * (60 + 15))
-    record_kernel(results, "K3chain_backward", bwd_err,
-                  lambda: torch.autograd.grad(outs, ins, cts,
-                                              retain_graph=True),
-                  lambda: torch.autograd.grad(p_outs, p_ins, cts,
-                                              retain_graph=True),
-                  (n_in + Bt * J * 16 + n_out + n_in) * 4, Bt * J * 160)
+    Bt = TRAIN_B
 
     # K4: tolerances rel 1e-4 in f32 (sums in another order), one bf16
     # step (2^-7 of the largest value) in bf16; parameter gradients rel
@@ -2460,7 +2657,8 @@ def check_conv_routes(backbone, requests, convs, pools: int = 0):
         backbone(x)
         torch.cuda.synchronize()
         for _ in range(3):
-            counts = _device_trace(lambda: backbone(x), 1)[1]
+            counts = (_device_trace(lambda: backbone(x), 1)
+                      or (0.0, collections.Counter()))[1]
 
             def named(part):
                 return sum(n for k, n in counts.items() if part in k)
@@ -3669,7 +3867,8 @@ def _step_device_kernels(trainer, batch, present, absent,
     every ``present`` name shows)."""
     for _ in range(tries):
         _, names = _device_trace(
-            lambda: trainer.fit({"train": batch}, 1, seed=SEED), 1)
+            lambda: trainer.fit({"train": batch}, 1, seed=SEED), 1,
+            first=False)
         missing = [p for p in present if not any(p in k for k in names)]
         if not missing:
             break
@@ -4662,7 +4861,9 @@ def main() -> int:
 
     stamp("phase 2")
     checked = check_kernels(regressor, requests, eval_data, dev)
+    checked.update(check_k2(requests, dev))
     checked.update(check_k3(regressor.model, dev))
+    checked.update(check_k3chain(regressor.model, dev))
     checked.update(check_train_kernels(regressor.model, dev))
     anchors = regressor.body_measurements.anchors
     checked.update(check_measure_kernels(regressor.model, anchors, dev))

@@ -13,6 +13,7 @@ K3-chain (``csrc/kinematic_chain.cu``, forward and backward, through a
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import List, Sequence, Tuple
 
@@ -22,10 +23,11 @@ import torch
 from shapy_tpu_torch.utils.cuda_kernels import CudaKernel, check_cuda_input
 
 CHAIN_KERNEL = CudaKernel("kinematic_chain.cu", {
-    "chain_forward": "ppppp ppp iii p",
-    "chain_backward": "pppppp ppp pp iii p",
+    "chain_forward": "ppppp i pp",
+    "chain_backward": "pppppppp i pp",
 })
-_CHAIN_MAX_JOINTS = 64  # one thread per joint in a block of 64
+_CHAIN_MAX_JOINTS = 64  # the kernels' kMaxJoints
+_SCHEDULE_BYTES = 328  # sizeof(Schedule) in csrc/kinematic_chain.cu
 
 
 def compute_level_schedule(parents: Sequence[int]) -> List[np.ndarray]:
@@ -86,20 +88,43 @@ def batch_rigid_transform_plain(
     return posed_joints, rel_transforms, world
 
 
+def _children(parents: Sequence[int]) -> List[List[int]]:
+    """Each joint's children, in index order (joint 0 is the root)."""
+    kids: List[List[int]] = [[] for _ in parents]
+    for j in range(1, len(parents)):
+        kids[int(parents[j])].append(j)
+    return kids
+
+
 @functools.lru_cache(maxsize=16)
-def _schedule(parents: Tuple[int, ...], device: torch.device):
-    """(parents, joints level by level, level offsets) as int32 tensors
-    on ``device``, and the number of levels; cached per tree. The kernel
-    indexes with the parents unchecked: each must precede its child."""
+def _schedule(parents: Tuple[int, ...]):
+    """The tree packed as K3-chain's ``Schedule`` (cached per tree): J and
+    the number of levels (int32 each), then a word per joint (the parent
+    + 1, 0 for the root; the depth; the first child's slot in the
+    children list; the number of children; a byte each from the lowest)
+    and the children list, each joint's children in index order (CSR).
+    Returns the ctypes buffer, whose address the kernels take. Every
+    parent must precede its joint."""
+    J = len(parents)
     if any(not 0 <= p < j for j, p in enumerate(parents) if j > 0):
         raise ValueError("batch_rigid_transform: every parent must precede "
                          "its joint")
-    levels = compute_level_schedule(parents)
-    order = np.concatenate(levels).astype(np.int32)
-    offsets = np.cumsum([0] + [len(lv) for lv in levels]).astype(np.int32)
-    par = np.asarray(parents, np.int32)
-    return ([torch.as_tensor(a, device=device) for a in (par, order, offsets)],
-            len(levels))
+    depth = np.zeros(J, np.int64)
+    for j in range(1, J):
+        depth[j] = depth[parents[j]] + 1
+    kids = _children(parents)
+    first = np.cumsum([0] + [len(k) for k in kids])[:-1]
+    node = np.zeros(_CHAIN_MAX_JOINTS, np.uint32)
+    for j in range(J):
+        par = 0 if j == 0 else parents[j] + 1
+        node[j] = par | depth[j] << 8 | first[j] << 16 | len(kids[j]) << 24
+    children = np.zeros(_CHAIN_MAX_JOINTS, np.uint8)
+    flat = [c for k in kids for c in k]
+    children[:len(flat)] = flat
+    raw = (np.asarray([J, depth.max() + 1], np.int32).tobytes()
+           + node.tobytes() + children.tobytes())
+    assert len(raw) == _SCHEDULE_BYTES
+    return ctypes.create_string_buffer(raw, len(raw))
 
 
 class _RigidTransform(torch.autograd.Function):
@@ -109,14 +134,13 @@ class _RigidTransform(torch.autograd.Function):
     def forward(ctx, rot_mats, joints, parents):
         B, J = joints.shape[:2]
         dev = joints.device
-        (par, order, offsets), L = _schedule(parents, dev)
+        schedule = ctypes.addressof(_schedule(parents))
         posed = torch.empty((B, J, 3), dtype=torch.float32, device=dev)
         rel = torch.empty((B, J, 4, 4), dtype=torch.float32, device=dev)
         world = torch.empty_like(rel)
         if B > 0:
             CHAIN_KERNEL.launch("chain_forward", [
-                rot_mats, joints, par, order, offsets, posed, rel, world,
-                B, J, L])
+                rot_mats, joints, posed, rel, world, B, schedule])
         ctx.parents = parents
         ctx.save_for_backward(rot_mats, joints, world)
         return posed, rel, world
@@ -124,9 +148,8 @@ class _RigidTransform(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_posed, d_rel, d_world):
         rot_mats, joints, world = ctx.saved_tensors
-        B, J = joints.shape[:2]
-        dev = joints.device
-        (par, order, offsets), L = _schedule(ctx.parents, dev)
+        B = joints.shape[0]
+        schedule = ctypes.addressof(_schedule(ctx.parents))
         d_posed = (torch.zeros_like(joints) if d_posed is None
                    else d_posed.contiguous())
         d_rel = (torch.zeros_like(world) if d_rel is None
@@ -137,9 +160,100 @@ class _RigidTransform(torch.autograd.Function):
         d_joints = torch.empty_like(joints)
         if B > 0:
             CHAIN_KERNEL.launch("chain_backward", [
-                rot_mats, joints, world, par, order, offsets, d_posed, d_rel,
-                d_world, d_rot, d_joints, B, J, L])
+                rot_mats, joints, world, d_posed, d_rel, d_world, d_rot,
+                d_joints, B, schedule])
         return d_rot, d_joints, None
+
+
+def _compose_rows(P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
+    """(..., 3, k) rows of P (3 x 3 at least) times Q (3, k) as K3-chain
+    sums them: ``(P[r, 0] Q[0, c] + P[r, 1] Q[1, c]) + P[r, 2] Q[2, c]``,
+    each product and sum rounded on its own."""
+    s = P[..., :, 0:1] * Q[..., 0:1, :] + P[..., :, 1:2] * Q[..., 1:2, :]
+    return s + P[..., :, 2:3] * Q[..., 2:3, :]
+
+
+def chain_forward_replay(rot_mats: torch.Tensor, joints: torch.Tensor,
+                         parents: Sequence[int]
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3-chain's forward in plain PyTorch with the kernel's roundings
+    (every product and sum rounded as written, in its order): the
+    kernel's bits, on any device. Takes and returns what
+    :func:`batch_rigid_transform` does; f32."""
+    par = np.asarray(parents, np.int64)
+    levels = compute_level_schedule(par)
+    a = joints.clone()
+    a[:, 1:] = joints[:, 1:] - joints[:, par[1:]]
+    local = torch.cat([rot_mats, a[..., None]], -1)  # (B, J, 3, 4)
+    W = local.clone()
+    for level in levels[1:]:
+        lvl = torch.as_tensor(level, dtype=torch.int64, device=joints.device)
+        P = W[:, torch.as_tensor(par[level], device=joints.device)]
+        Wl = _compose_rows(P, local[:, lvl])
+        Wl[..., 3] = Wl[..., 3] + P[..., 3]
+        W[:, lvl] = Wl
+    M, t = W[..., :3], W[..., 3]
+    rotated = _compose_rows(M, joints[..., None])[..., 0]
+    bottom = torch.zeros_like(W[..., :1, :])
+    bottom[..., 3] = 1.0
+    world = torch.cat([W, bottom], -2)
+    rel = torch.cat([torch.cat([M, (t - rotated)[..., None]], -1), bottom],
+                    -2)
+    return t.clone(), rel, world
+
+
+def chain_backward_replay(rot_mats: torch.Tensor, joints: torch.Tensor,
+                          parents: Sequence[int], d_posed: torch.Tensor,
+                          d_rel: torch.Tensor,
+                          d_world: torch.Tensor | None = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3-chain's backward in plain PyTorch with the kernel's roundings
+    and order (each parent adds its children in index order): (d_rot,
+    d_joints), the kernel's bits, on any device. ``d_world`` None is
+    zero, as the kernel takes it."""
+    par = np.asarray(parents, np.int64)
+    levels = compute_level_schedule(par)
+    kids = _children(par)
+    dev = joints.device
+    _, _, world = chain_forward_replay(rot_mats, joints, parents)
+    M = world[..., :3, :3]
+    dr = d_rel[..., :3, :]
+    drt = dr[..., 3]  # (B, J, 3)
+    G = torch.cat([dr[..., :3] - drt[..., None] * joints[..., None, :],
+                   (d_posed + drt)[..., None]], -1)  # (B, J, 3, 4)
+    if d_world is not None:
+        G = G + d_world[..., :3, :]
+    # -(M^T d(rel translation)), each entry summed over the rows in order
+    Dd = -_compose_rows(M.transpose(-1, -2), drt[..., None])[..., 0]
+
+    def rank(lv, k):  # the joints of lv with a k-th child, and that child
+        js = [j for j in lv if len(kids[j]) > k]
+        return (torch.as_tensor(js, dtype=torch.int64, device=dev),
+                torch.as_tensor([kids[j][k] for j in js], dtype=torch.int64,
+                                device=dev))
+
+    for level in reversed(levels[:-1]):
+        for k in range(max(len(kids[j]) for j in level)):
+            js, cs = rank(level, k)
+            Gc, R = G[:, cs], rot_mats[:, cs]
+            a = joints[:, cs] - joints[:, js]
+            # (dM_c R_c^T)[r][i] + dt_c[r] a_c[i], summed as the kernel
+            upd = (_compose_rows(Gc, R.transpose(-1, -2))
+                   + Gc[..., 3:4] * a[..., None, :])
+            g = G[:, js]
+            G[:, js] = torch.cat([g[..., :3] + upd,
+                                  (g[..., 3] + Gc[..., 3])[..., None]], -1)
+    Mp = torch.cat([torch.eye(3, dtype=M.dtype, device=dev).expand(
+        M.shape[0], 1, 3, 3), M[:, par[1:]]], 1)
+    # M_p^T [dM | dt]: entry (i, c) summed over the rows in order
+    MG = _compose_rows(Mp.transpose(-1, -2), G)
+    d_rot = torch.cat([G[:, :1, :, :3], MG[:, 1:, :, :3]], 1)
+    Da = torch.cat([G[:, :1, :, 3], MG[:, 1:, :, 3]], 1)
+    d_joints = Dd + Da
+    for k in range(max(len(c) for c in kids)):
+        js, cs = rank(range(len(par)), k)
+        d_joints[:, js] = d_joints[:, js] - Da[:, cs]
+    return d_rot, d_joints
 
 
 def batch_rigid_transform(

@@ -32,6 +32,11 @@ INGEST_KERNEL = CudaKernel("ingest.cu",
                            {"ingest_forward": "ppp iiiiiii ffffff p"})
 _IN_KINDS = {torch.uint8: 0, torch.float32: 1}
 _OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1}
+# K2's tiles (csrc/ingest.cu): a block a tile of INGEST_TILE^2 output
+# pixels; a tile's footprint is staged in shared memory where it fits
+# INGEST_BOX_BYTES.
+INGEST_TILE = 32
+INGEST_BOX_BYTES = 24 * 1024
 
 
 def crop_to_image_affine(center: Sequence[float], scale: float,
@@ -113,6 +118,56 @@ def crop_normalize_plain(images, affines, crop_size=256, mean=IMAGENET_MEAN,
     return ((crops - mean_t) / std_t).to(out_dtype)
 
 
+def ingest_plan(affines: torch.Tensor, H: int, W: int, crop_size: int,
+                in_dtype: torch.dtype = torch.uint8, data_ptr: int = 0
+                ) -> dict:
+    """K2's tiles as the kernel finds them, in its f32 arithmetic, on any
+    device: for each crop and tile (B, tiles, tiles; rows of tiles first)
+    ``box``, the footprint's source pixels (x0, y0, x1, y1), inclusive,
+    ``pitch``, the bytes of shared memory a row of it takes, and
+    ``staged``, whether the tile stages it (else it reads its corners
+    from the image). ``data_ptr`` is the images' address.
+
+    The box is where the tile's four corner pixels map, (a0 x + a1 y) +
+    a2 rounded in f32, from floor(min) to floor(max) + 1 (the +1 corner),
+    clipped to the image: each of those roundings is monotone, so no
+    pixel of the tile maps outside its corners' range. A box of no pixel
+    has x1 < x0 or y1 < y0 and stages nothing. A row of it is staged as
+    whole 16-byte chunks of the image's row, from the chunk that holds
+    its first byte. A tile is staged where the images and their rows
+    start 16-byte aligned, its rows take at most ``INGEST_BOX_BYTES`` and
+    its corners map to finite points."""
+    px = 3 * torch.empty((), dtype=in_dtype).element_size()
+    aligned = data_ptr % 16 == 0 and W * px % 16 == 0
+    S = crop_size
+    A = affines.to(torch.float32)
+    starts = torch.arange(0, S, INGEST_TILE, device=A.device)
+    ends = torch.clamp(starts + INGEST_TILE, max=S) - 1
+    g = torch.stack([starts, ends], -1).to(torch.float32)  # (tiles, 2)
+    gx = g[None, None, :, None, :]  # (1, 1, tx, 1, corner x)
+    gy = g[None, :, None, :, None]  # (1, ty, 1, corner y, 1)
+
+    def coord(r):
+        a = [A[:, r, k, None, None, None, None] for k in range(3)]
+        return (a[0] * gx + a[1] * gy + a[2]).flatten(-2)
+
+    sx, sy = coord(0), coord(1)  # (B, ty, tx, 4)
+    finite = (torch.isfinite(sx) & torch.isfinite(sy)).all(-1)
+    box = torch.stack([
+        torch.clamp(torch.floor(sx.amin(-1)), min=0),
+        torch.clamp(torch.floor(sy.amin(-1)), min=0),
+        torch.clamp(torch.floor(sx.amax(-1)) + 1, max=W - 1),
+        torch.clamp(torch.floor(sy.amax(-1)) + 1, max=H - 1)], -1)
+    box = torch.where(finite[..., None], box, torch.zeros_like(box))
+    box = box.to(torch.int64)
+    bw = torch.clamp(box[..., 2] - box[..., 0] + 1, min=0)
+    bh = torch.clamp(box[..., 3] - box[..., 1] + 1, min=0)
+    lead = box[..., 0] * px % 16
+    pitch = torch.where(bw > 0, (lead + bw * px + 15) // 16 * 16, 0)
+    staged = finite & (pitch * bh <= INGEST_BOX_BYTES) & aligned
+    return {"box": box, "pitch": pitch, "staged": staged}
+
+
 def crop_normalize(images: torch.Tensor, affines: torch.Tensor,
                    crop_size: int = 256, mean=IMAGENET_MEAN,
                    std=IMAGENET_STD, out_dtype: torch.dtype = torch.float32
@@ -122,8 +177,9 @@ def crop_normalize(images: torch.Tensor, affines: torch.Tensor,
     images (B, H, W, 3) uint8 (or f32 in [0, 1]); affines (B, 3, 3) f32
     crop->image -> (B, crop_size, crop_size, 3) NHWC in ``out_dtype``.
     The plain version for CPU tensors, kernel K2 for CUDA tensors
-    (forward only). ``out.permute(0, 3, 1, 2)`` is a channels_last NCHW
-    view, no copy."""
+    (forward only; bit-equal to the plain version, its tiles as
+    :func:`ingest_plan` has them). ``out.permute(0, 3, 1, 2)`` is a
+    channels_last NCHW view, no copy."""
     if images.device.type == "cpu":
         return crop_normalize_plain(images, affines, crop_size, mean, std,
                                     out_dtype)

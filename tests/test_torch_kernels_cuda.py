@@ -24,12 +24,15 @@ from shapy_tpu_torch.core.kinematics import (
     CHAIN_KERNEL,
     batch_rigid_transform,
     batch_rigid_transform_plain,
+    chain_backward_replay,
+    chain_forward_replay,
 )
 from shapy_tpu_torch.core.rotations import aa_to_rotmat
 from shapy_tpu_torch.data.crop import (
     INGEST_KERNEL,
     crop_normalize,
     crop_normalize_plain,
+    ingest_plan,
 )
 from shapy_tpu_torch.eval import metrics
 from shapy_tpu_torch.eval.metrics import (
@@ -169,6 +172,8 @@ def test_measure_kernel_matches_plain(dev, body, use_subsets, shift):
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_ingest_kernel_matches_plain(dev, out_dtype):
+    """K2 bit-equal to its plain version: the same f32 operations in the
+    same order, built without FMA contraction."""
     rng = np.random.default_rng(0)
     images = torch.from_numpy(rng.integers(0, 256, (3, 50, 70, 3),
                                            dtype=np.uint8)).to(dev)
@@ -181,8 +186,57 @@ def test_ingest_kernel_matches_plain(dev, out_dtype):
     got = crop_normalize(images, affines, 64, out_dtype=out_dtype)
     assert INGEST_KERNEL.launches == before + 1
     want = crop_normalize_plain(images, affines, 64, out_dtype=out_dtype)
-    tol = 1e-5 if out_dtype == torch.float32 else 2.0 ** -6
-    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    assert torch.equal(got, want)
+
+
+def _ingest_case(case, dev):
+    """(images, affines) of one K2 case: the served requests at batch 32
+    and 128, the extremes of ``tests/test_torch_ingest_plan.py``
+    (magnification 4, a 90 degree rotation, a crop wholly outside) and
+    odd shapes (rows of 213 and 132 bytes, not 16-byte aligned, which
+    stage no tile; crops of 100 and 37 pixels)."""
+    from shapy_tpu_torch.flagship import synthetic_requests
+    from tests.test_torch_ingest_plan import extreme_affines
+
+    if case.startswith("served"):
+        images, affines = synthetic_requests(int(case[6:]), 360, 480, 256, 0)
+        return torch.from_numpy(images).to(dev), torch.from_numpy(
+            affines).to(dev), 256
+    H, W, S = {"extreme": (360, 480, 256), "odd100": (50, 71, 100),
+               "odd37": (33, 44, 37)}[case]
+    rng = np.random.default_rng(S)
+    images = torch.from_numpy(rng.integers(0, 256, (3, H, W, 3),
+                                           dtype=np.uint8)).to(dev)
+    return images, torch.from_numpy(extreme_affines(H, W, S)).to(dev), S
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("in_dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("case", ["served32", "served128", "extreme",
+                                  "odd100", "odd37"])
+def test_ingest_kernel_bit_equal_in_both_regimes(dev, case, in_dtype,
+                                                 out_dtype):
+    """K2 bit-equal to ``crop_normalize_plain`` for every input and output
+    kind, on the served requests (every tile staged for uint8) and on
+    tiles that take the direct regime (``ingest_plan``), one launch."""
+    images, affines, S = _ingest_case(case, dev)
+    if in_dtype == torch.float32:
+        images = images.to(torch.float32) * (1.0 / 255.0)
+    H, W = images.shape[1:3]
+    plan = ingest_plan(affines, H, W, S, in_dtype, images.data_ptr())
+    if case == "extreme":
+        assert bool(plan["staged"].any()) and not bool(plan["staged"].all())
+    before = INGEST_KERNEL.launches
+    got = crop_normalize(images, affines, S, out_dtype=out_dtype)
+    assert INGEST_KERNEL.launches == before + 1
+    assert torch.equal(got, crop_normalize_plain(images, affines, S,
+                                                 out_dtype=out_dtype))
+    assert torch.equal(got, crop_normalize(images, affines, S,
+                                           out_dtype=out_dtype))
+    # a view that starts inside its allocation, with other alignment
+    view = images[1:]
+    assert torch.equal(crop_normalize(view, affines[1:], S,
+                                      out_dtype=out_dtype), got[1:])
 
 
 # K3's shapes: SMPL-X at the real template's counts (served at 32, trained
@@ -545,6 +599,45 @@ def test_chain_kernel_matches_plain(dev, with_world):
     r4, j4 = rot.clone().requires_grad_(), joints.clone().requires_grad_()
     torch.autograd.backward(batch_rigid_transform(r4, j4, parents), cts)
     assert torch.equal(r3.grad, r4.grad) and torch.equal(j3.grad, j4.grad)
+
+
+@pytest.mark.parametrize("B", [1, 32, 48])
+@pytest.mark.parametrize("tree", ["synthetic_smplx", "smplx", "path64",
+                                  "star64", "smpl"])
+def test_chain_kernel_bit_equal_to_its_replays(dev, tree, B):
+    """K3-chain's forward and backward bit-equal to
+    ``chain_forward_replay`` / ``chain_backward_replay`` (the kernels'
+    operations in their order), across two calls, and for a body alone
+    as in its batch; one launch each."""
+    from tests.chain_trees import TREES
+
+    parents = TREES[tree]
+    gen = torch.Generator().manual_seed(B)
+    J = len(parents)
+    rot = aa_to_rotmat(torch.randn(B, J, 3, generator=gen) * 0.3).to(dev)
+    joints = (torch.randn(B, J, 3, generator=gen) * 0.3).to(dev)
+    cts = [torch.randn(s, generator=gen).to(dev) for s in
+           ((B, J, 3), (B, J, 4, 4), (B, J, 4, 4))]
+
+    def run(sl=slice(None)):
+        r = rot[sl].clone().requires_grad_()
+        j = joints[sl].clone().requires_grad_()
+        out = batch_rigid_transform(r, j, parents)
+        return out, torch.autograd.grad(out, (r, j), [c[sl] for c in cts])
+
+    before = dict(CHAIN_KERNEL.counts)
+    out, grads = run()
+    assert CHAIN_KERNEL.counts == {k: v + 1 for k, v in before.items()}
+    want = chain_forward_replay(rot, joints, parents)
+    assert all(torch.equal(a, b) for a, b in zip(out, want))
+    want = chain_backward_replay(rot, joints, parents, *cts)
+    assert all(torch.equal(a, b) for a, b in zip(grads, want))
+    out2, grads2 = run()
+    assert all(torch.equal(a, b) for a, b in zip(out + grads, out2 + grads2))
+    for i in sorted({0, B // 2, B - 1}):
+        one, g1 = run(slice(i, i + 1))
+        assert all(torch.equal(a[0], b[i]) for a, b in zip(one + g1,
+                                                           out + grads))
 
 
 @pytest.mark.parametrize("shape", SKIN_SHAPES, ids=str)

@@ -11,7 +11,12 @@ In such a subprocess (this directory is on its ``PYTHONPATH``):
 ``trace(fn)`` takes the device kernels of ``PASSES`` calls of ``fn``
 from a ``torch.profiler`` trace between spin kernels, taken again (at most
 3 times) unless every source's kernels number a multiple of the calls;
-``by_source`` groups them by the ``csrc`` file whose kernel each is.
+``by_source`` groups them by the ``csrc`` file whose kernel each is;
+``grids(fn)`` gives each kernel's grid and block, and ``empty_ms`` the
+device time of an empty kernel on such a grid (a launch's floor);
+``flagship``, ``eval_step`` and ``train_step`` build the flagship and its
+eval step at batch 32 and HRNet train step at 48, and ``step_numbers``
+times a step (wall, busy, idle, kernels).
 
 Planted copies (``planted_copy``, ``run_faults``): the port (and
 ``chip_smoke.py``) copied under ``shapy_tpu_torch/_build/`` (a directory
@@ -101,6 +106,174 @@ def trace(fn, passes: int = PASSES) -> list:
     raise RuntimeError("traces dropped kernels 3 times")
 
 
+def grids(fn) -> list:
+    """(name, grid, block) of each device kernel of one call of ``fn``, in
+    launch order, from a ``torch.profiler`` trace's chrome export (between
+    spin kernels, as ``trace``)."""
+    import tempfile
+
+    import torch
+
+    skip = _pad_names()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        pad()
+        fn()
+        pad()
+        torch.cuda.synchronize()
+    BUILD.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    return [(e["name"], tuple(e["args"]["grid"]), tuple(e["args"]["block"]))
+            for e in sorted(events, key=lambda e: e.get("ts", 0))
+            if e.get("cat") == "kernel" and "grid" in e.get("args", {})
+            and e["name"] not in skip]
+
+
+_EMPTY = """extern "C" __global__ void empty_kernel() {}
+extern "C" int empty_launch(int gx, int gy, int gz, int bx, int by, int bz,
+                            void* stream) {
+  empty_kernel<<<dim3(gx, gy, gz), dim3(bx, by, bz), 0,
+                 (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def empty_ms(grid, block) -> float:
+    """The device time of an empty kernel launched on ``grid`` x ``block``
+    (a launch's floor), traced as ``trace`` traces: the mean of
+    ``PASSES`` launches."""
+    import ctypes
+
+    import torch
+
+    from shapy_tpu_torch.utils.cuda_kernels import NVCC_FLAGS, _nvcc
+
+    lib_path = BUILD / "libempty_launch.so"
+    if not lib_path.exists():
+        BUILD.mkdir(parents=True, exist_ok=True)
+        src = BUILD / "empty_launch.cu"
+        src.write_text(_EMPTY)
+        subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(lib_path), str(src)],
+                       check=True, capture_output=True)
+    launch = ctypes.CDLL(str(lib_path)).empty_launch
+    launch.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+    def fn():
+        stream = torch.cuda.current_stream().cuda_stream
+        if launch(*grid, *block, stream):
+            raise RuntimeError(f"empty kernel on {grid} x {block} refused")
+
+    return sum(stop - start for start, stop, _ in trace(fn)) / 1e3 / PASSES
+
+
+def step_numbers(fn, iters: int, *sources: str) -> dict:
+    """A step's host-clock wall over ``iters`` calls after a synchronise
+    and, from a ``torch.profiler`` trace of 3 (``utils/profiling._trace``),
+    its device busy time, idle share, kernels and each of ``sources``'
+    time (``<stem>_ms``: ``skinning_ms`` for ``skinning.cu``)."""
+    import time
+
+    import torch
+
+    from shapy_tpu_torch.utils import profiling
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / iters
+    traced = profiling._trace(fn, "step", None)
+    return {"wall_ms": wall, "busy_ms": traced["device_busy_ms"],
+            "idle_share_traced": traced["device_idle_share"],
+            "kernels": traced["cuda_kernel_launches"],
+            **{f"{Path(src).stem}_ms": traced["hand_kernels"].get(
+                src, [0.0])[0] for src in sources}}
+
+
+def flagship():
+    """The flagship on the CPU as ``utils/profiling.py`` builds it
+    (HRNet-W48, synthetic SMPL-X at the real counts, random weights from
+    seed 0)."""
+    from shapy_tpu_torch.flagship import build_flagship, spread_init_
+
+    reg = build_flagship(subdivisions=5, exact_counts=True, device="cpu")
+    return spread_init_(reg, seed=0, beta_scale=0.25)
+
+
+def eval_step(reg, dev):
+    """The flagship's eval step at batch 32, ``reg`` moved to ``dev`` with
+    a bf16 backbone: the served request, the metrics against synthetic GT
+    and the one device-to-host copy."""
+    import torch
+
+    from shapy_tpu_torch.eval.evaluator import build_evaluator
+    from shapy_tpu_torch.flagship import (REFERENCE_EVAL_CFG,
+                                          synthetic_eval_data,
+                                          synthetic_requests)
+
+    ev = reg.to(dev).prepare_for_eval_(torch.bfloat16)
+    images, affines = synthetic_requests(32, 360, 480, 256, seed=0)
+    images = torch.from_numpy(images).to(dev)
+    affines = torch.from_numpy(affines).to(dev)
+    data = synthetic_eval_data(ev, 1, 32, 360, 480, 256, seed=5)
+    gt = data["batches"][0]
+    targets = {"gt_v_shaped": gt["gt_v_shaped"],
+               "gt_vertices": gt["gt_vertices"],
+               "gt_joints3d": gt["joints3d"], "gt_joints14": gt["joints14"],
+               "joints14_valid": gt["joints14_valid"],
+               **{k: gt[f"{k}_gt"] for k in
+                  ("height", "chest", "waist", "hips", "mass")}}
+    evaluator = build_evaluator(REFERENCE_EVAL_CFG, device=dev,
+                                point_regressor=data["p2p"],
+                                j14_regressor=data["j14"])
+
+    def step():
+        m = evaluator.compute_batch_metrics(
+            ev.apply_from_full_images(images, affines, 256), targets)
+        return torch.stack(list(m.values())).cpu()
+
+    return step
+
+
+def train_step(dev):
+    """One HRNet train step at batch 48 as ``utils/profiling.py --train``
+    builds it (bf16 backbone, the flagship's losses and optimizer)."""
+    import torch
+
+    from shapy_tpu_torch.flagship import (FLAGSHIP_OPTIM_CFG,
+                                          FLAGSHIP_TRAIN_LOSS_CFG,
+                                          synthetic_train_batches)
+    from shapy_tpu_torch.train.losses import RegressorLosses
+    from shapy_tpu_torch.train.step import init_train_state, make_train_step
+
+    tr = flagship().to(dev).prepare_for_train_(torch.bfloat16)
+    batch = synthetic_train_batches(tr, 1, 48, 256, seed=9)[0]
+    images = batch.pop("images")
+    step = make_train_step(tr, RegressorLosses(FLAGSHIP_TRAIN_LOSS_CFG),
+                           init_train_state(tr, FLAGSHIP_OPTIM_CFG))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return lambda: step(images, batch, gen)
+
+
+def smoke():
+    """This repository's ``chip_smoke.py`` as a module (its constants and
+    checks; a subprocess's own tree may be another's)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("harness_chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def card() -> str:
     """The card's name and power limit, as ``nvidia-smi`` gives them."""
     return subprocess.run(
@@ -160,15 +333,17 @@ def in_turns(script: str, trees, rounds: int) -> int:
 
 # --- planted copies ----------------------------------------------------
 
-def planted_copy(dst: Path, changes, smoke: bool = False) -> Path:
-    """The port (and with ``smoke`` ``chip_smoke.py``) copied to ``dst``,
-    each (path, text, replacement) of ``changes`` made in the copy."""
+def planted_copy(dst: Path, changes, smoke: bool = False,
+                 root: Path = REPO) -> Path:
+    """The port of ``root`` (and with ``smoke`` its ``chip_smoke.py``)
+    copied to ``dst``, each (path, text, replacement) of ``changes`` made
+    in the copy."""
     if dst.exists():
         shutil.rmtree(dst)
-    shutil.copytree(REPO / "shapy_tpu_torch", dst / "shapy_tpu_torch",
+    shutil.copytree(root / "shapy_tpu_torch", dst / "shapy_tpu_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     if smoke:
-        shutil.copy(REPO / "chip_smoke.py", dst / "chip_smoke.py")
+        shutil.copy(root / "chip_smoke.py", dst / "chip_smoke.py")
     for path, old, new in changes:
         text = (dst / path).read_text()
         if text.count(old) != 1:

@@ -40,22 +40,13 @@ import sys
 from chip_harness import in_turns
 
 RUN = r"""
-import json, sys, time, torch
+import json, sys, torch
 sys.path.insert(0, ".")
-from chip_harness import PASSES, by_source, card, trace
+from chip_harness import (PASSES, by_source, card, eval_step, flagship,
+                          step_numbers, trace, train_step)
 from shapy_tpu_torch.core.kinematics import batch_rigid_transform
 from shapy_tpu_torch.core.rotations import aa_to_rotmat
-from shapy_tpu_torch.eval.evaluator import build_evaluator
-from shapy_tpu_torch.flagship import (FLAGSHIP_OPTIM_CFG,
-                                      FLAGSHIP_TRAIN_LOSS_CFG,
-                                      REFERENCE_EVAL_CFG, build_flagship,
-                                      spread_init_, synthetic_eval_data,
-                                      synthetic_requests,
-                                      synthetic_train_batches)
 from shapy_tpu_torch.models.body.lbs import skin
-from shapy_tpu_torch.train.losses import RegressorLosses
-from shapy_tpu_torch.train.step import init_train_state, make_train_step
-from shapy_tpu_torch.utils import profiling
 
 SRC = "skinning.cu"
 dev = torch.device("cuda", 0)
@@ -67,25 +58,8 @@ def skin_ms(fn):
     return {"ms": sum(ms) / PASSES, "kernels": len(ms) // PASSES}
 
 
-def step_numbers(fn, iters):
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / iters
-    traced = profiling._trace(fn, "step", None)
-    return {"wall_ms": wall, "busy_ms": traced["device_busy_ms"],
-            "idle_share_traced": traced["device_idle_share"],
-            "kernels": traced["cuda_kernel_launches"],
-            "skinning_ms": traced["hand_kernels"].get(SRC, [0.0])[0]}
-
-
 out = {"card": card()}
-reg = build_flagship(subdivisions=5, exact_counts=True, device="cpu")
-spread_init_(reg, seed=0, beta_scale=0.25)
+reg = flagship()
 model = reg.model.to(dev)
 W = model.lbs_weights
 gen = torch.Generator().manual_seed(1)
@@ -115,42 +89,12 @@ out["bwd_b48"] = skin_ms(lambda: torch.autograd.grad(y, (a, b), dv,
                                                      retain_graph=True))
 del a, b, y
 
-ev = reg.to(dev).prepare_for_eval_(torch.bfloat16)
-images, affines = synthetic_requests(32, 360, 480, 256, seed=0)
-images = torch.from_numpy(images).to(dev)
-affines = torch.from_numpy(affines).to(dev)
-data = synthetic_eval_data(ev, 1, 32, 360, 480, 256, seed=5)
-gt = data["batches"][0]
-targets = {"gt_v_shaped": gt["gt_v_shaped"], "gt_vertices": gt["gt_vertices"],
-           "gt_joints3d": gt["joints3d"], "gt_joints14": gt["joints14"],
-           "joints14_valid": gt["joints14_valid"],
-           **{k: gt[f"{k}_gt"] for k in
-              ("height", "chest", "waist", "hips", "mass")}}
-evaluator = build_evaluator(REFERENCE_EVAL_CFG, device=dev,
-                            point_regressor=data["p2p"],
-                            j14_regressor=data["j14"])
-
-
-def eval_step():
-    m = evaluator.compute_batch_metrics(
-        ev.apply_from_full_images(images, affines, 256), targets)
-    return torch.stack(list(m.values())).cpu()
-
-
+step = eval_step(reg, dev)
 with torch.inference_mode():
-    out["eval_step"] = step_numbers(eval_step, 10)
-del ev, evaluator, data, gt, targets
+    out["eval_step"] = step_numbers(step, 10, SRC)
+del step, reg, model
 torch.cuda.empty_cache()
-
-tr = build_flagship(subdivisions=5, exact_counts=True, device="cpu")
-spread_init_(tr, seed=0, beta_scale=0.25)
-tr = tr.to(dev).prepare_for_train_(torch.bfloat16)
-batch = synthetic_train_batches(tr, 1, 48, 256, seed=9)[0]
-timages = batch.pop("images")
-step = make_train_step(tr, RegressorLosses(FLAGSHIP_TRAIN_LOSS_CFG),
-                       init_train_state(tr, FLAGSHIP_OPTIM_CFG))
-tgen = torch.Generator(device=dev).manual_seed(0)
-out["train_step"] = step_numbers(lambda: step(timages, batch, tgen), 5)
+out["train_step"] = step_numbers(train_step(dev), 5, SRC)
 print(json.dumps(out))
 """
 
