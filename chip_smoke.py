@@ -192,7 +192,7 @@ Phases, each of which raises on failure (exit code 1):
    stride-2 downsamples among them) and K10 (the 7x7 stem, through the
    same per-shape check: bf16 within K5's limit, f32 1e-5, timed beside
    cuDNN with bias) on a served forward's weights at batch 32; the served
-   forward profiled (one ``conv_bf16_kernel`` for K10, 52
+   forward profiled (one ``stem7_kernel`` for K10, 52
    ``conv_wgmma_kernel`` + reduces, one K11 ``max_pool_forward_kernel``,
    no cuDNN convolution or ATen pooling kernel) and against the plain
    route (cosine >= 0.999, relative L2 <= 0.05); ResNet-50 served at
@@ -449,10 +449,11 @@ def _device_trace(fn, passes: int, first: bool = True):
     The trace starts and ends with 8 short spin kernels, left out of both:
     a trace can miss its first or last few events. A trace has also been
     seen to miss the first kernels of the first call in it, every time in
-    one process, so (with ``first``, for an ``fn`` that may run once more)
-    one call runs first and is left out too: the counted calls are those
-    after a long spin kernel, the marker, launched once that call has
-    finished."""
+    one process, so something runs first and is left out too: one call
+    of ``fn`` (with ``first``, for an ``fn`` that may run once more), else
+    (for a train step, which must not step twice) 64 short spin kernels
+    and a 50 ms pause of the host. The counted calls are those after a
+    long spin kernel, the marker, launched once that lead has finished."""
     import torch
 
     def pad():
@@ -473,21 +474,24 @@ def _device_trace(fn, passes: int, first: bool = True):
         pad()
         if first:
             fn()
-            torch.cuda.synchronize()
-            torch.cuda._sleep(100_000)  # the marker: ~50 us, a pad ~0.5 us
+        else:
+            for _ in range(8):
+                pad()
+        torch.cuda.synchronize()
+        if not first:
+            time.sleep(0.05)
+        torch.cuda._sleep(100_000)  # the marker: ~50 us, a pad ~0.5 us
         for _ in range(passes):
             fn()
         pad()
         torch.cuda.synchronize()
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
-    after = float("-inf")
-    if first:
-        marks = [e for e in events if e.name in _PAD_NAMES
-                 and e.time_range.end - e.time_range.start > 10.0]  # us
-        if len(marks) != 1:
-            return None
-        after = marks[0].time_range.end
+    marks = [e for e in events if e.name in _PAD_NAMES
+             and e.time_range.end - e.time_range.start > 10.0]  # us
+    if len(marks) != 1:
+        return None
+    after = marks[0].time_range.end
     events = [e for e in events if e.name not in _PAD_NAMES
               and e.time_range.start >= after]
     busy, end = 0.0, float("-inf")
@@ -732,12 +736,14 @@ CONTACT_KERNELS = ("K6_tri_tri", "K7_repulsion", "K7_repulsion_backward",
 RESNET_TRAIN_KERNELS = tuple(k for k in TRAIN_KERNELS
                              if "fuse" not in k) + RESNET_KERNELS
 # Device functions a train step must run: K4's forward in both regimes;
-# a ResNet's also K10's weight gradient on its own kernel, and not on the
-# scalar stem kernel it replaced.
+# a ResNet's also K10's forward and weight gradient and K11's backward,
+# each on its own kernel, and not on the general stem kernels (forward,
+# scalar weight gradient) that K10's replaced.
 TRAIN_DEVICE_KERNELS = ("fwd_cluster_kernel", "fwd_partial_kernel",
                         "fwd_normalize_kernel")
-RESNET_DEVICE_KERNELS = (TRAIN_DEVICE_KERNELS + ("stem7_wgrad_kernel",),
-                         ("wgrad_bf16_scalar_kernel",))
+RESNET_DEVICE_KERNELS = (TRAIN_DEVICE_KERNELS + (
+    "stem7_kernel", "stem7_wgrad_kernel", "max_pool_backward_kernel"),
+    ("wgrad_bf16_scalar_kernel", "conv_bf16_kernel"))
 
 
 def sources():
@@ -3861,14 +3867,20 @@ def _no_cudnn_step(trainer, batch,
 
 def _step_device_kernels(trainer, batch, present, absent,
                          tries: int = 3) -> None:
-    """One more step of ``trainer`` under a CUDA trace: each name in
-    ``present`` must be part of a kernel's name, none in ``absent`` (a
-    trace can drop events: taken again, at most ``tries`` times, until
-    every ``present`` name shows)."""
+    """One more step of ``trainer`` under a CUDA trace (no call run first:
+    :func:`_device_trace`'s lead and marker): each name in ``present``
+    must be part of a kernel's name, none in ``absent`` (a trace can drop
+    events: taken again, a step each, at most ``tries`` times, until every
+    ``present`` name shows)."""
+    names, missing = collections.Counter(), list(present)
     for _ in range(tries):
-        _, names = _device_trace(
+        traced = _device_trace(
             lambda: trainer.fit({"train": batch}, 1, seed=SEED), 1,
             first=False)
+        if traced is None:
+            print("device trace lost its marker: taken again", flush=True)
+            continue
+        names = traced[1]
         missing = [p for p in present if not any(p in k for k in names)]
         if not missing:
             break
@@ -4060,27 +4072,54 @@ def _pool_planted(x):
     return x
 
 
+def _pool_small_cases(dev):
+    """(dy, x) of K11's backward at odd and tiny sides and narrow rows:
+    small integers after a ReLU (most windows tie), a corner all zero;
+    8-channel bf16 and 4-channel f32 rows among them."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 33)
+    cases = []
+    for n, c, h, w, dt in ((2, 64, 33, 17, torch.bfloat16),
+                           (2, 64, 33, 17, torch.float32),
+                           (3, 8, 21, 19, torch.bfloat16),
+                           (3, 4, 19, 21, torch.float32),
+                           (1, 8, 1, 1, torch.bfloat16),
+                           (2, 8, 2, 3, torch.bfloat16)):
+        x = torch.randint(-2, 3, (n, c, h, w), generator=gen).float()
+        x = x.clamp_min(0)
+        x[0, :, :6, :6] = 0.0
+        dy = torch.randn((n, c, (h - 1) // 2 + 1, (w - 1) // 2 + 1),
+                         generator=gen)
+        cl = torch.channels_last
+        cases.append((dy.to(dev, dt).contiguous(memory_format=cl),
+                      x.to(dev, dt).contiguous(memory_format=cl)))
+    return cases
+
+
 def check_pool_kernels(x_served, pools):
     """Phase 11, K11 against its plain versions on the card. The forward
     at the served ResNet-50's stem output (batch 32, bf16, 64 x 128^2,
     windows planted by :func:`_pool_planted`): bit-equal in bf16 and in
     f32 (the same maxima); timed beside ``F.max_pool2d``. The backward at
     a train step's recorded ``(dy, x)`` at batch 48 (``pools``), planted
-    the same way: bit-equal in f32 (the same first maxima, the same sums
-    in the same order), within one bf16 step in bf16 (one rounding of
-    those sums; the differing elements counted), two calls bit-equal;
-    timed beside ATen's ``max_pool2d_with_indices_backward`` (the library
-    backward, given the forward's indices). Bounds: the bytes read and
-    written once at 3.35 TB/s."""
+    the same way, and at odd and tiny sides with 8- and 4-channel rows
+    (:func:`_pool_small_cases`): bit-equal in bf16 and in f32 (the same
+    first maxima, the same f32 sums in the same order, rounded once), two
+    calls bit-equal, one launch a call; timed beside ATen's
+    ``max_pool2d_with_indices_backward`` (the library backward, given the
+    forward's indices). Bounds: the bytes read and written once at 3.35
+    TB/s."""
     import torch
     import torch.nn.functional as F
 
     from shapy_tpu_torch.models.backbones.layers import (
+        POOL_KERNEL,
         _max_pool2d_backward_cuda,
         _max_pool2d_cuda,
-        bf16_step,
         max_pool2d_backward_plain,
         max_pool2d_plain,
+        max_pool_backward_plan,
     )
 
     out = {}
@@ -4104,22 +4143,33 @@ def check_pool_kernels(x_served, pools):
 
     dy, xb = pools[0]
     xb = _pool_planted(xb)
+    failed = []
+    cases = [(dy, xb), (dy.float(), xb.float())] + _pool_small_cases(
+        dy.device)
+    for g, xc in cases:
+        n0 = POOL_KERNEL.counts["max_pool_backward"]
+        dx = _max_pool2d_backward_cuda(g, xc)
+        dx2 = _max_pool2d_backward_cuda(g, xc)
+        launches = POOL_KERNEL.counts["max_pool_backward"] - n0
+        pdx = max_pool2d_backward_plain(g, xc)
+        torch.cuda.synchronize()
+        differ = int((dx != pdx).sum())
+        n, c, h, w = xc.shape
+        plan = max_pool_backward_plan(n, h, w, c, xc.element_size())
+        tiles = (-(-((h - 1) // 2 + 1) // plan.th)
+                 * -(-((w - 1) // 2 + 1) // plan.tw) * (c // plan.cs))
+        name = f"{tuple(xc.shape)} {str(xc.dtype)[6:]}"
+        print(f"K11 backward at {name}: {differ} of {dx.numel()} elements "
+              f"differ from the plain version, two calls equal "
+              f"{torch.equal(dx, dx2)}, {launches} launches for 2 calls; "
+              f"tiles {plan.th} x {plan.tw} windows x {plan.cs} channels, "
+              f"{tiles} an image")
+        if differ or not torch.equal(dx, dx2) or launches != 2:
+            failed.append(name)
+    check(not failed, f"K11 backward differs from its plain version at "
+                      f"{failed}")
     dx = _max_pool2d_backward_cuda(dy, xb)
-    dx2 = _max_pool2d_backward_cuda(dy, xb)
     pdx = max_pool2d_backward_plain(dy, xb)
-    dx32 = _max_pool2d_backward_cuda(dy.float(), xb.float())
-    pdx32 = max_pool2d_backward_plain(dy.float(), xb.float())
-    torch.cuda.synchronize()
-    steps = float(((dx.float() - pdx.float()).abs()
-                   / bf16_step(pdx.float().abs())).max())
-    differ = int((dx != pdx).sum())
-    ok32 = torch.equal(dx32, pdx32)
-    print(f"K11 backward at {tuple(xb.shape)}: bf16 at {steps:.3f} of one "
-          f"bf16 step from the plain version ({differ} of {dx.numel()} "
-          f"differ), two calls equal {torch.equal(dx, dx2)}; f32 bit-equal "
-          f"{ok32}")
-    check(steps <= 1.0 and ok32 and torch.equal(dx, dx2),
-          "K11 backward outside its limits")
     _, idx = F.max_pool2d(xb, 3, 2, 1, return_indices=True)
     out["K11_max_pool_backward"] = record_kernel(
         out, "K11_max_pool_backward", max_err(dx, pdx),
@@ -4132,9 +4182,93 @@ def check_pool_kernels(x_served, pools):
         library_call="aten.max_pool2d_with_indices_backward (F.max_pool2d's "
                      "backward, given the forward's indices), bf16",
         timed_as=f"a ResNet-50 train step's pool cotangent, batch {TRAIN_B}",
-        bf16_steps_vs_plain=steps, bf16_differing=differ,
-        f32_bit_equal=ok32)
+        kernel="max_pool_backward_kernel (one launch, no scratch)",
+        bit_equal_cases=len(cases))
     return out
+
+
+def check_stem_kernel(stem, stem_train):
+    """Phase 11, K10's forward (``stem7_kernel``) beyond the per-shape
+    check: the served ResNet-50's stem (``stem``: its recorded call at
+    batch 32, the folded BN's bias and the ReLU), the same weights on
+    random crops at batch 128, and a train step's bare stem at batch 48
+    (``stem_train``: its recorded input and weight), each within K5's bf16
+    limit of the plain version (``conv2d_act_bf16_tolerance``, TF32 off
+    for the f32 sums), two calls bit-equal and the first and the last
+    image alone bit-equal to themselves in the batch; at the odd sides 61
+    and 301 (rows of 6 W bytes not a multiple of 16: the direct regime)
+    within the same limit. Each is timed beside ``F.conv2d`` with bias
+    (cuDNN) and its bound (x read and y written once at 3.35 TB/s; 2 x 147
+    FLOP an output at 989 TFLOP/s). Returns the cases."""
+    import torch
+    import torch.nn.functional as F
+
+    from shapy_tpu_torch.models.backbones.layers import (
+        conv2d_act,
+        conv2d_act_bf16_tolerance,
+        conv2d_act_plain,
+        stem_plan,
+    )
+
+    gen = torch.Generator().manual_seed(SEED + 17)
+    cl = torch.channels_last
+    x32, w, b = stem[0], stem[1], stem[2]
+    dev = x32.device
+    x128 = torch.randn((128, *x32.shape[1:]), generator=gen).to(
+        dev, torch.bfloat16).contiguous(memory_format=cl)
+    xt, wt = stem_train
+    odd = [torch.randn((3, 3, side, side), generator=gen).to(
+        dev, torch.bfloat16).contiguous(memory_format=cl)
+        for side in (61, 301)]
+    runs = [("served b32", x32, w, b, True), ("served b128", x128, w, b, True),
+            (f"train b{xt.shape[0]} bare", xt, wt, None, False),
+            ("odd 61 bare", odd[0], w, None, False),
+            ("odd 301 bias-relu", odd[1], w, b, True)]
+    cases, failed = [], []
+    for name, x, wc, bc, relu in runs:
+        got = conv2d_act(x, wc, bc, None, relu, 2)
+        again = conv2d_act(x, wc, bc, None, relu, 2)
+        alone = [conv2d_act(x[i:i + 1].contiguous(memory_format=cl), wc, bc,
+                            None, relu, 2) for i in (0, x.shape[0] - 1)]
+        want = conv2d_act_plain(x, wc, bc, None, relu, 2)
+        saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            c = F.conv2d(x.float(), wc.float(), None, 2, 3)
+            terms = F.conv2d(x.abs().float(), wc.abs().float(), None, 2, 3)
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved
+        tol = conv2d_act_bf16_tolerance(c, bc, None, terms, 3, 7)
+        steps = float(((got.float() - want.float()).abs() / tol).max())
+        twice = torch.equal(got, again)
+        single = (torch.equal(alone[0], got[:1])
+                  and torch.equal(alone[1], got[-1:]))
+        torch.cuda.synchronize()
+        plan = stem_plan(x.shape[0], *x.shape[2:], wc.shape[0], 2, x.dtype)
+        bytes_ms = 2.0 * (x.numel() + got.numel()) / PEAK_BYTES_S * 1e3
+        ops_ms = 2.0 * got.numel() * 147 / PEAK_BF16_FLOP_S * 1e3
+        case = {"name": name, "shape": list(x.shape), "relu": relu,
+                "bias": bc is not None, "staged": plan.staged,
+                "max_abs_err": max_err(got, want), "tol_vs_plain": steps,
+                "bit_equal_twice": twice, "image_alone_bit_equal": single,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        if not name.startswith("odd"):
+            case["ms"] = time_ms(lambda: conv2d_act(x, wc, bc, None, relu, 2))
+            case["library_ms"] = time_ms(lambda: F.conv2d(
+                x, wc, b, 2, 3))
+        print(f"K10 forward {name} {tuple(x.shape)}: {case['max_abs_err']} "
+              f"from the plain version, {steps:.3f} of the limit; twice "
+              f"bit-equal {twice}, an image alone {single}; "
+              f"{'staged (TMA)' if plan.staged else 'direct'}, at most "
+              f"{plan.grid} blocks; "
+              + (f"kernel {case['ms']:.4f} ms, cuDNN {case['library_ms']:.4f}"
+                 f", bound {case['bound_ms']:.4f}" if "ms" in case else ""))
+        if not steps <= 1.0 or not twice or not single:  # NaN fails too
+            failed.append(name)
+        cases.append(case)
+    check(not failed, f"K10 forward outside its limits at {failed}")
+    return cases
 
 
 def _stem_entries(fwd_cases, bwd_cases) -> dict:
@@ -4216,6 +4350,7 @@ def resnet(dev, eval_data):
         if depth == 50:
             with torch.inference_mode():  # the stem's output, K11's input
                 x_pool = layers.conv2d_act(*convs[0])
+            stem = convs[0]
             summary["resnet50_routes"] = check_conv_routes(
                 reg.backbone, requests[B], convs, pools=1)
             summary["resnet50_backbone"] = check_backbone_routes(
@@ -4245,8 +4380,12 @@ def resnet(dev, eval_data):
         seen_bwd |= shapes
         if depth == 50:
             checked.update(_stem_entries(fwd["cases"], bwd["cases"]))
+            with torch.inference_mode():
+                checked["K10_stem"]["stem_cases"] = check_stem_kernel(
+                    stem, next((c[1], c[2]) for c in bconvs
+                               if c[2].shape[-1] == 7))
             checked.update(check_pool_kernels(x_pool, pools))
-            del x_pool
+            del x_pool, stem
         summary[f"resnet{depth}_new_shapes"] = {
             "forward": len(fwd["cases"]), "backward": len(bwd["cases"])}
         # K4 at each of the step's BNs, in the regime its plan picks (the

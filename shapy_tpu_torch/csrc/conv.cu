@@ -49,6 +49,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -440,112 +441,15 @@ cudaError_t launch_stem(const ConvShape& s, const void* x, const void* w,
 // SM a block, else 64 (a constant; the tile changes no sum).
 constexpr int kSms = 132;
 
-// ---- K10's forward: the ResNet's 7x7 / stride-2 stem, bf16, 64 channels --
-//
-// The general stem kernel above fills its A tile a 2-byte global load per
-// element (147 of them a pixel, bounds checked one by one). Here a block
-// takes runs of 128 output pixels of one output row: it copies the 7 input
-// rows they read (pad 3 as zeros) into shared memory once, and the
-// im2col view is read from that patch as it stands. With K ordered (tap
-// row r, then the 21 (column, channel) pairs of that row, padded to 24
-// with zero weights), pixel m's K slice of row r is the patch's elements
-// 6m .. 6m + 23 of row r: every mma.sync A pair is one aligned 32-bit
-// shared load. The weight, 64 x 168 in that order (zero past each row's
-// 21 and past K), stays in shared memory for all of a block's runs. The
-// f32 sums in K order, then the same epilogue as the kernel above.
-constexpr int kStemRows = 7, kStemJ = 24;        // taps a row, padded
-constexpr int kStemSteps = (kStemRows * kStemJ + 15) / 16;  // 11 k16 steps
-constexpr int kStemWLd = kStemSteps * 16 + 8;    // halves a weight row
-constexpr int kStemRun = 128;                    // output pixels a run
-constexpr int kStemPatch = 6 * kStemRun + 24;    // halves a patch row
-
-__global__ void __launch_bounds__(kThreadsMma) stem7_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ w,
-    const bf16* __restrict__ bias, bf16* __restrict__ y, ConvShape s,
-    int relu, int runs) {
-  __shared__ __align__(16) bf16 Ws[64][kStemWLd];
-  __shared__ __align__(16) bf16 P[kStemRows * kStemPatch];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const bf16 zero = __float2bfloat16_rn(0.f);
-  for (int e = tid; e < 64 * kStemWLd; e += kThreadsMma) {
-    const int n = e / kStemWLd, k = e - n * kStemWLd;
-    const int r = k / kStemJ, j = k - r * kStemJ;
-    Ws[n][k] = r < kStemRows && j < 21 ? w[n * 147 + r * 21 + j] : zero;
-  }
-  const int wruns = (s.Wo + kStemRun - 1) / kStemRun;
-  for (int run = blockIdx.x; run < runs; run += gridDim.x) {
-    const int wo0 = run % wruns * kStemRun;
-    const int ho = run / wruns % s.Ho, n = run / wruns / s.Ho;
-    const int wi0 = 2 * wo0 - 3;
-    __syncthreads();  // the last run's reads of the patch are done
-    for (int e = tid; e < kStemRows * kStemPatch; e += kThreadsMma) {
-      const int r = e / kStemPatch, q = e - r * kStemPatch;
-      const int hi = 2 * ho - 3 + r, wi = wi0 + q / 3;
-      P[e] = hi >= 0 && hi < s.H && wi >= 0 && wi < s.W
-                 ? x[((size_t)(n * s.H + hi) * s.W + wi) * 3 + q % 3]
-                 : zero;
-    }
-    __syncthreads();
-    float acc[2][8][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
-#pragma unroll
-    for (int step = 0; step < kStemSteps; ++step) {
-      // This lane's K pairs k and k + 8; past K (row 7) the weight is
-      // zero, so the patch is read at row 6 instead of past its end.
-      const int k0 = 16 * step + 2 * t, k1 = k0 + 8;
-      const int r0 = min(k0 / kStemJ, kStemRows - 1);
-      const int r1 = min(k1 / kStemJ, kStemRows - 1);
-      const int o0 = r0 * kStemPatch + k0 % kStemJ;
-      const int o1 = r1 * kStemPatch + k1 % kStemJ;
-      unsigned a[2][4], b[8][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int m = warp * 32 + mt * 16 + g;
-        a[mt][0] = *reinterpret_cast<const unsigned*>(&P[o0 + 6 * m]);
-        a[mt][1] = *reinterpret_cast<const unsigned*>(&P[o0 + 6 * m + 48]);
-        a[mt][2] = *reinterpret_cast<const unsigned*>(&P[o1 + 6 * m]);
-        a[mt][3] = *reinterpret_cast<const unsigned*>(&P[o1 + 6 * m + 48]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        b[nt][0] = *reinterpret_cast<const unsigned*>(&Ws[nt * 8 + g][k0]);
-        b[nt][1] = *reinterpret_cast<const unsigned*>(&Ws[nt * 8 + g][k1]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) mma_bf16(acc[mt][nt], a[mt], b[nt]);
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int wo = wo0 + warp * 32 + mt * 16 + g + 8 * half;
-        if (wo >= s.Wo) continue;
-        const size_t row = ((size_t)n * s.Ho + ho) * s.Wo + wo;
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const int co = nt * 8 + 2 * t;
-          const size_t idx = row * 64 + co;
-          const float v0 = epilogue<bf16>(acc[mt][nt][2 * half], bias,
-                                          (const bf16*)nullptr, idx, co,
-                                          relu);
-          const float v1 = epilogue<bf16>(acc[mt][nt][2 * half + 1], bias,
-                                          (const bf16*)nullptr, idx + 1,
-                                          co + 1, relu);
-          *reinterpret_cast<__nv_bfloat162*>(y + idx) =
-              __floats2bfloat162_rn(v0, v1);
-        }
-      }
-    }
-  }
-}
+// K10's 7x7 / stride-2 stem in bf16 at 64 output channels (the ResNet's):
+// its K = 7 x 7 x 3 = 147 laid out as 7 tap rows of 24 (21 (column,
+// channel) pairs, padded with zero weights), so that output pixel m's K
+// slice of tap row r is the input patch's elements 6m .. 6m + 23 of that
+// row; runs of up to 128 output pixels of one row for the weight
+// gradient (stem7_wgrad_kernel below), of 32 for the forward (stem7_kernel,
+// with the Hopper helpers further down).
+constexpr int kStemRows = 7, kStemJ = 24;  // tap rows, taps a row padded
+constexpr int kStemRun = 128;              // output pixels a wgrad run
 
 cudaError_t launch_stem_any(const ConvShape& s, const void* x, const void* w,
                             const void* bias, const void* res, void* y,
@@ -871,7 +775,7 @@ __global__ void relu_mask_kernel(const T* __restrict__ dy,
 // 147 (7 tap rows x 21 (column, channel) pairs, the OHWI weight's order).
 // The scalar kernel above gathers its im2col columns with a 2-byte load
 // and its own index divisions per element and reads dy once per 64-wide K
-// tile. Here, as in stem7_kernel, a block takes runs of up to 128 output
+// tile. Here a block takes runs of up to 128 output
 // pixels of one output row: for each run it copies the 7 input rows the
 // run reads (pad 3 as zeros) and the run's dy tile (128 x 64) into shared
 // memory once, with 16-byte cp.async, the next run's copies in flight while
@@ -2064,11 +1968,15 @@ FastDiv fast_div(uint32_t d) {
 
 // cuTensorMapEncodeTiled, looked up at run time (no -lcuda). `steps`: the
 // box's element strides (every steps[i]-th element along dimension i; the
-// box then spans box[i] elements and loads box[i] / steps[i]), or NULL.
+// box then spans box[i] elements and loads box[i] / steps[i]), or NULL;
+// `swizzle`: the 128-byte swizzle that wgmma's tiles take (a box row at
+// most 128 bytes), or none (K10's patch rows).
 cudaError_t encode_map(CUtensorMap* map, int rank, const void* base,
                        const cuuint64_t* dims, const cuuint64_t* strides,
                        const cuuint32_t* box,
-                       const cuuint32_t* steps = nullptr) {
+                       const cuuint32_t* steps = nullptr,
+                       CUtensorMapSwizzle swizzle =
+                           CU_TENSOR_MAP_SWIZZLE_128B) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     cudaDriverEntryPointQueryResult found;
@@ -2098,7 +2006,7 @@ cudaError_t encode_map(CUtensorMap* map, int rank, const void* base,
   const CUresult res = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
       const_cast<void*>(base), dims, strides, box, steps ? steps : ones,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -2316,6 +2224,327 @@ cudaError_t launch_wgrad_any(const CUtensorMap& dymap,
   }
   return launch_wgrad<BN, false, false>(dymap, xmap, P, x, dy, y, dym, part,
                                         pbias, st);
+}
+
+// ---- K10's forward: the ResNet's 7x7 / stride-2 stem, bf16, 64 channels --
+//
+// A warp takes a group of 32 output pixels of one output row at a time,
+// from a persistent grid (the plan's; a group (n, ho, wo0) is number (n Ho
+// + ho) ceil(Wo / 32) + wo0 / 32). The group's patch is the 7 input rows
+// 2 ho - 3 .. 2 ho + 3 at the halves 6 wo0 - 9 .. 6 wo0 + 206 of a row (3 W
+// halves, NHWC with 3 channels), which pixel m reads at 6m + j of row r
+// for K element (r, j). Staged regime (rows of 6 W bytes, a multiple of
+// 16): the group's 7 x 224 box comes by one TMA copy of a 3-D map over (3
+// W halves, H, N) whose zero fill out of bounds is the pad-3 zeros, per
+// image, into a ring of kStemStages boxes a warp, each completed on its
+// own mbarrier, so that the next group's rows land while this group's
+// products run. A TMA box starts on a 16-byte boundary (an odd start
+// traps), so it starts at 6 wo0 - 16, 7 halves before the patch; the warp
+// moves the landed box 7 halves down in place (two 16-byte loads, four
+// byte permutes and a store a chunk), so that every K pair (j, j + 1) of
+// the mma's A fragment is one aligned 32-bit load. Direct regime (other
+// rows, which TMA cannot map): the warp copies its patch a 2-byte load an
+// element. The weight, 64 x 168 in that K order (zero past each row's
+// 21), is staged once a block from 16-byte loads and read by ldmatrix.
+// The products are mma.sync m16n8k16 in eleven K steps in order, f32
+// sums, then the epilogue (the folded BN's bias and the ReLU, or none) in
+// bf16 pairs into a 32-pixel x 128-byte tile in the 128-byte swizzle
+// (chunk c of pixel m at c ^ (m % 8): no bank conflicts), which one TMA
+// store writes out (the pixels past Wo clipped).
+constexpr int kStemSteps = (kStemRows * kStemJ + 15) / 16;  // 11 k16 steps
+constexpr int kStemWLd = kStemSteps * 16 + 8;   // halves a weight row
+constexpr int kStemGroup = 32;                  // output pixels a warp's group
+constexpr int kStemShift = 7;                   // the patch's first half
+constexpr int kStemBox = 6 * kStemGroup + 32;   // halves a box row (224)
+constexpr int kStemBoxBytes = 3200;             // 7 x 224 halves, to 128 B
+constexpr int kStemStages = 2;                  // boxes a warp's ring
+constexpr int kStemWarps = 4;                   // warps a block
+constexpr int kStemOutBytes = kStemGroup * 128;  // the swizzled output tile
+constexpr int kStemWBytes = 24 * 1024;          // 64 x 184 halves, to 1 KB
+// A warp's part: its output tile (1024-byte aligned, as the swizzle
+// wants), its boxes, its mbarriers.
+constexpr int kStemWarpBytes = 11 * 1024;
+constexpr int kStemBytes = 1024 + kStemWBytes + kStemWarps * kStemWarpBytes;
+static_assert(kStemRows * kStemBox * 2 <= kStemBoxBytes, "box");
+static_assert(kStemShift == 7 && kStemBox % 8 == 0,
+              "the move takes a chunk's last half and the next one's first 7");
+static_assert(64 * kStemWLd * 2 <= kStemWBytes, "weight");
+static_assert(kStemOutBytes + kStemStages * kStemBoxBytes + 8 * kStemStages <=
+                  kStemWarpBytes,
+              "warp");
+
+// max(v, 0) of two bf16 values as v < 0 ? 0 : v: -0 and NaN kept.
+__device__ __forceinline__ __nv_bfloat162 relu2(__nv_bfloat162 v) {
+  const unsigned m = __hlt2_mask(v, __float2bfloat162_rn(0.f));
+  unsigned u = *reinterpret_cast<const unsigned*>(&v) & ~m;
+  return *reinterpret_cast<const __nv_bfloat162*>(&u);
+}
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until this thread's bulk stores have read their shared memory.
+__device__ __forceinline__ void bulk_read_wait() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+template <bool kTma>
+__global__ void __launch_bounds__(32 * kStemWarps) stem7_kernel(
+    const __grid_constant__ CUtensorMap xmap,
+    const __grid_constant__ CUtensorMap ymap, const bf16* __restrict__ x,
+    const bf16* __restrict__ w, const bf16* __restrict__ bias, ConvShape s,
+    int relu, int groups) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* const smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* const Ws = reinterpret_cast<bf16*>(smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  unsigned char* const out = smem + kStemWBytes + warp * kStemWarpBytes;
+  unsigned char* const boxes = out + kStemOutBytes;
+  uint64_t* const full =
+      reinterpret_cast<uint64_t*>(boxes + kStemStages * kStemBoxBytes);
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  const int gw = blockIdx.x * kStemWarps + warp;
+  const int nw = gridDim.x * kStemWarps;
+  const int count = gw < groups ? (groups - gw + nw - 1) / nw : 0;
+  const int wgroups = (s.Wo + kStemGroup - 1) / kStemGroup;
+  auto locate = [&](int k, int* n, int* ho, int* wo0) {
+    const int grp = gw + k * nw;
+    *wo0 = grp % wgroups * kStemGroup;
+    *ho = grp / wgroups % s.Ho;
+    *n = grp / wgroups / s.Ho;
+  };
+  // Lane 0: the box of this warp's k-th group into its stage.
+  auto issue = [&](int k) {
+    int n, ho, wo0;
+    locate(k, &n, &ho, &wo0);
+    uint64_t* const bar = &full[k % kStemStages];
+    mbar_expect_tx(bar, kStemRows * kStemBox * 2);
+    tma_load_3d(boxes + (k % kStemStages) * kStemBoxBytes, &xmap, bar,
+                6 * wo0 - 9 - kStemShift, 2 * ho - 3, n);
+  };
+  if constexpr (kTma) {
+    if (lane == 0) {
+      for (int i = 0; i < kStemStages; ++i) mbar_init(&full[i], 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      for (int k = 0; k < kStemStages - 1 && k < count; ++k) issue(k);
+    }
+  }
+  // The weight (OHWI: 64 rows of 147) as Ws[n][24 r + j]: the pads zeroed,
+  // then 16-byte loads, all in flight at once, scattered.
+  for (int e = tid; e < 64 * kStemWLd; e += 32 * kStemWarps) {
+    const int k = e % kStemWLd;
+    if (k >= kStemRows * kStemJ || k % kStemJ >= 21) Ws[e] = zero;
+  }
+  {
+    constexpr int kChunks = 64 * 147 / 8;
+    constexpr int kPer = (kChunks + 32 * kStemWarps - 1) / (32 * kStemWarps);
+    uint4 v[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int c = tid + i * 32 * kStemWarps;
+      if (c < kChunks) v[i] = reinterpret_cast<const uint4*>(w)[c];
+    }
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int c = tid + i * 32 * kStemWarps;
+      if (c >= kChunks) continue;
+      const bf16* h = reinterpret_cast<const bf16*>(&v[i]);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int e = 8 * c + u, n = e / 147, q = e - 147 * n;
+        const int r = q / 21;
+        Ws[n * kStemWLd + r * kStemJ + q - 21 * r] = h[u];
+      }
+    }
+  }
+  __nv_bfloat162 bb[8];  // this lane's channels' bias, in pairs
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    bb[nt] = bias ? *reinterpret_cast<const __nv_bfloat162*>(
+                        bias + nt * 8 + 2 * t)
+                  : __float2bfloat162_rn(0.f);
+  }
+  __syncthreads();
+
+  for (int k = 0; k < count; ++k) {
+    int n, ho, wo0;
+    locate(k, &n, &ho, &wo0);
+    bf16* const P =
+        reinterpret_cast<bf16*>(boxes + (k % kStemStages) * kStemBoxBytes);
+    if constexpr (kTma) {
+      // The stage of group k - 1, whose reads ended at its last
+      // __syncwarp, takes group k + kStemStages - 1.
+      if (lane == 0 && k + kStemStages - 1 < count) {
+        issue(k + kStemStages - 1);
+      }
+      mbar_wait(&full[k % kStemStages], (k / kStemStages) & 1);
+      // The box moved kStemShift halves down, in place: chunk c of each
+      // row from halves 8c + 7 .. 8c + 14 (all loads before any store).
+      constexpr int kRowChunks = kStemBox / 8, kOut = kRowChunks - 1;
+      constexpr int kPer = (kStemRows * kOut + 31) / 32;
+      uint4 moved[kPer];
+      uint4* const P4 = reinterpret_cast<uint4*>(P);
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int e = lane + 32 * i;
+        if (e >= kStemRows * kOut) continue;
+        const int r = e / kOut, c = e - r * kOut;
+        const uint4 lo = P4[r * kRowChunks + c];
+        const uint4 hi = P4[r * kRowChunks + c + 1];
+        moved[i] = make_uint4(__byte_perm(lo.w, hi.x, 0x5432),
+                              __byte_perm(hi.x, hi.y, 0x5432),
+                              __byte_perm(hi.y, hi.z, 0x5432),
+                              __byte_perm(hi.z, hi.w, 0x5432));
+      }
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int e = lane + 32 * i;
+        if (e >= kStemRows * kOut) continue;
+        const int r = e / kOut;
+        P4[r * kRowChunks + e - r * kOut] = moved[i];
+      }
+      __syncwarp();
+    } else {
+      const long long row = 3LL * s.W;
+      for (int e = lane; e < kStemRows * kStemBox; e += 32) {
+        const int r = e / kStemBox, q = e - r * kStemBox;
+        const int hi = 2 * ho - 3 + r;
+        const long long c = 6LL * wo0 - 9 + q;
+        P[e] = hi >= 0 && hi < s.H && c >= 0 && c < row
+                   ? x[((long long)n * s.H + hi) * row + c]
+                   : zero;
+      }
+      __syncwarp();
+    }
+    float acc[2][8][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+#pragma unroll
+    for (int step = 0; step < kStemSteps; ++step) {
+      // This lane's K pairs k and k + 8; past K (row 7) the weight is
+      // zero, so the box is read at row 6 instead of past its end.
+      const int k0 = 16 * step + 2 * t, k1 = k0 + 8;
+      const int o0 = min(k0 / kStemJ, kStemRows - 1) * kStemBox + k0 % kStemJ;
+      const int o1 = min(k1 / kStemJ, kStemRows - 1) * kStemBox + k1 % kStemJ;
+      unsigned a[2][4], b[8][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int m = mt * 16 + g;
+        a[mt][0] = *reinterpret_cast<const unsigned*>(&P[o0 + 6 * m]);
+        a[mt][1] = *reinterpret_cast<const unsigned*>(&P[o0 + 6 * m + 48]);
+        a[mt][2] = *reinterpret_cast<const unsigned*>(&P[o1 + 6 * m]);
+        a[mt][3] = *reinterpret_cast<const unsigned*>(&P[o1 + 6 * m + 48]);
+      }
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        unsigned r[4];
+        ldmatrix_x4(r, &Ws[((2 * np + (lane >> 4)) * 8 + (lane & 7)) *
+                               kStemWLd +
+                           16 * step + ((lane >> 3) & 1) * 8]);
+        b[2 * np][0] = r[0];
+        b[2 * np][1] = r[1];
+        b[2 * np + 1][0] = r[2];
+        b[2 * np + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) mma_bf16(acc[mt][nt], a[mt], b[nt]);
+    }
+    // The last group's store has read the tile (long since: a group's
+    // products ran in between).
+    if (lane == 0) bulk_read_wait();
+    __syncwarp();
+    // The epilogue into the tile, two channels at once in bf16: the sums
+    // rounded, the bias added and rounded once (as epilogue<bf16>'s f32
+    // add and rounding: the f32 sum of two bf16 values rounds to the same
+    // bf16), the ReLU (-0 kept, as v < 0 ? 0 : v keeps it).
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int m = mt * 16 + g + 8 * half;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          __nv_bfloat162 v = __floats2bfloat162_rn(
+              acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
+          if (bias) v = __hadd2(v, bb[nt]);
+          if (relu) v = relu2(v);
+          *reinterpret_cast<__nv_bfloat162*>(
+              out + m * 128 + ((nt ^ (m & 7)) << 4) + 4 * t) = v;
+        }
+      }
+    }
+    fence_async_shared();  // the tile's writes, seen by the bulk store
+    __syncwarp();          // the box's reads done too: it may be refilled
+    if (lane == 0) tma_store_3d(&ymap, out, 0, wo0, n * s.Ho + ho);
+  }
+  if (lane == 0) bulk_read_wait();
+}
+
+// K10's forward on the plan's regime and persistent grid.
+cudaError_t launch_stem7(const ConvShape& s, const void* x, const void* w,
+                         const void* bias, void* y, int relu, bool staged,
+                         int grid, cudaStream_t st) {
+  static bool configured[2][kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices || !configured[staged][dev]) {
+    err = cudaFuncSetAttribute(
+        staged ? stem7_kernel<true> : stem7_kernel<false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kStemBytes);
+    if (err != cudaSuccess) return err;
+    if (dev < kMaxDevices) configured[staged][dev] = true;
+  }
+  CUtensorMap xmap, ymap;
+  memset(&xmap, 0, sizeof(xmap));
+  if (staged) {
+    // (3 W halves, H rows, N images); one box: 224 halves x 7 rows.
+    const cuuint64_t dims[3] = {(cuuint64_t)3 * s.W, (cuuint64_t)s.H,
+                                (cuuint64_t)s.N};
+    const cuuint64_t strides[2] = {(cuuint64_t)6 * s.W,
+                                   (cuuint64_t)6 * s.W * s.H};
+    const cuuint32_t box[3] = {kStemBox, kStemRows, 1};
+    err = encode_map(&xmap, 3, x, dims, strides, box, nullptr,
+                     CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (err != cudaSuccess) return err;
+  }
+  {
+    // y as (64 channels, Wo pixels, Ho N rows); one box: a group's 32
+    // pixels of a row, in the 128-byte swizzle.
+    const cuuint64_t dims[3] = {64, (cuuint64_t)s.Wo,
+                                (cuuint64_t)s.Ho * s.N};
+    const cuuint64_t strides[2] = {128, (cuuint64_t)128 * s.Wo};
+    const cuuint32_t box[3] = {64, kStemGroup, 1};
+    err = encode_map(&ymap, 3, y, dims, strides, box);
+    if (err != cudaSuccess) return err;
+  }
+  const int groups = s.N * s.Ho * ((s.Wo + kStemGroup - 1) / kStemGroup);
+  if (staged) {
+    stem7_kernel<true><<<grid, 32 * kStemWarps, kStemBytes, st>>>(
+        xmap, ymap, (const bf16*)x, (const bf16*)w, (const bf16*)bias, s,
+        relu, groups);
+  } else {
+    stem7_kernel<false><<<grid, 32 * kStemWarps, kStemBytes, st>>>(
+        xmap, ymap, (const bf16*)x, (const bf16*)w, (const bf16*)bias, s,
+        relu, groups);
+  }
+  return cudaGetLastError();
 }
 
 // The wgmma widths the kernels are built for.
@@ -2631,16 +2860,23 @@ extern "C" int conv2d_wgmma_smem(int kind, int bn, int bk, int* out) {
 // "conv1", "bn1", images, 64, 7, 2, 3): layers.py:91 conv2d with k = 7,
 // stride 2, pad 3 on the 3 image channels (with fold_bn in eval), its ReLU,
 // and its weight gradient in training (the images take no data gradient).
-// What bounds it on the H100: bytes at batch 32 (x 12.6 MB + y 67.1 MB
-// against 9.87 GFLOP: 0.024 ms at 3.35 TB/s, 0.010 ms at 989 TFLOP/s).
+// What bounds it on the H100: bytes at batch 32 (x 12.6 MB + y 67.1 MB:
+// 0.024 ms at 3.35 TB/s), with the tensor work close behind (11.8 GFLOP
+// over the 176 K slots, 147 of them taps: 0.012 ms at 989 TFLOP/s, but
+// mma.sync runs well below that rate), so the two must overlap.
 // Design: the forward in bf16 at stride 2 and 64 output channels (the
-// ResNet's) is stem7_kernel above: the input rows a run of output pixels
-// reads, copied once into shared memory with pad 3 as zeros, K = 7 x 7 x 3
-// = 147 laid out as 7 rows of 24 (zero weights past each row's 21 and past
-// K, so no tap is read out of bounds) in eleven 16-deep mma.sync steps;
-// the epilogue is the 3x3 stem's (bias of the folded BN, ReLU) or none
-// (training). Other shapes and f32 take the general stem kernels with k =
-// 7 read from the shape. The weight gradient in bf16 at that shape is
+// ResNet's) is stem7_kernel above: a warp a group of 32 output pixels, its
+// input box landing by TMA (pad 3 as the map's zero fill) in a 2-deep
+// mbarrier ring while the warp's products of the group before run, K = 7
+// x 7 x 3 = 147 laid out as 7 rows of 24 (zero weights past each row's 21
+// and past K, so no tap is read out of bounds) in eleven 16-deep mma.sync
+// steps, the sums and their order those of the kernel it replaced; the
+// epilogue is the 3x3 stem's (bias of the folded BN, ReLU) or none
+// (training), in bf16 pairs into a swizzled shared tile that a TMA store
+// writes out. Rows that TMA cannot map (3 W % 8 != 0) take the direct
+// regime, the warp copying its box; 396 blocks of 4 warps, three an SM
+// (70.7 KB of shared memory and 168 registers a thread each). Other shapes and f32 take the general stem kernels with k = 7 read
+// from the shape. The weight gradient in bf16 at that shape is
 // stem7_wgrad_kernel above: the same runs and patch, the run's dy tile
 // staged beside it, a two-stage cp.async ring, mma.sync with the pixels as
 // the reduction, dbias as a column of ones, over fixed partitions of runs
@@ -2653,32 +2889,48 @@ extern "C" int conv2d_wgmma_smem(int kind, int bn, int bk, int* out) {
 
 // y (N, Ho, Wo, Cout) = relu?(conv(x, w, stride, pad 3) + bias) for x (N, H,
 // W, 3) NHWC, w (Cout, 7, 7, 3) OHWI, bias (Cout,) or NULL; dtype 0 =
-// float32 (the CUDA-core kernel), 1 = bfloat16 (mma.sync); Cout % 8 == 0,
-// y 16-byte aligned. Returns cudaGetLastError(), or cudaErrorInvalidValue.
+// float32 (the CUDA-core kernel), 1 = bfloat16; Cout % 8 == 0, y 16-byte
+// aligned. The caller's plan (layers.stem_plan, from the shape alone):
+//   * grid > 0 (bf16, stride 2, Cout 64 only): stem7_kernel on at most
+//     `grid` blocks (no more than its groups fill), each warp a group of
+//     32 output pixels of a row at a time and its 7 x 224 box of x;
+//     staged 1 (3 W % 8 == 0, x 16-byte aligned): the boxes by TMA, else
+//     copied by the warp; w 16-byte aligned, the bias 4-byte aligned
+//     (read in bf16 pairs);
+//   * grid 0: the general stem kernels (mma.sync in bf16, CUDA cores in
+//     f32) with k = 7.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue.
 extern "C" int conv2d_stem_forward(const void* x, const void* w,
                                    const void* bias, void* y, int N, int H,
                                    int W, int Cin, int Cout, int k,
                                    int stride, int relu, int dtype,
-                                   void* stream) {
+                                   int staged, int grid, void* stream) {
   if (k != 7 || Cin != 3 || (stride != 1 && stride != 2)) {
     return (int)cudaErrorInvalidValue;
   }
-  if (dtype == 1 && stride == 2 && Cout == 64) {
-    const ConvShape s = conv_shape(N, H, W, Cin, Cout, k, stride);
-    const long long runs =
-        (long long)N * s.Ho * ((s.Wo + kStemRun - 1) / kStemRun);
-    if (runs == 0) return (int)cudaSuccess;
-    if (runs > 0x7fffffff) return (int)cudaErrorInvalidValue;
-    // A persistent grid: blocks of 34.5 KB of shared memory, six an SM.
-    const int grid = runs < 6 * kSms ? (int)runs : 6 * kSms;
-    stem7_kernel<<<grid, kThreadsMma, 0, (cudaStream_t)stream>>>(
-        (const bf16*)x, (const bf16*)w, (const bf16*)bias, (bf16*)y, s,
-        relu, (int)runs);
-    return (int)cudaGetLastError();
+  const bool runs = dtype == 1 && stride == 2 && Cout == 64;
+  if (grid == 0 && !runs) {
+    return conv2d_act_forward(x, w, bias, nullptr, y, nullptr, N, H, W, Cin,
+                              Cout, k, stride, relu, dtype, 0, 0, 0, 0, 0, 0,
+                              stream);
   }
-  return conv2d_act_forward(x, w, bias, nullptr, y, nullptr, N, H, W, Cin,
-                            Cout, k, stride, relu, dtype, 0, 0, 0, 0, 0, 0,
-                            stream);
+  auto misaligned = [](const void* p) { return (uintptr_t)p % 16 != 0; };
+  if (!runs || grid < 1 || (staged != 0 && staged != 1) || misaligned(w) ||
+      misaligned(y) || (uintptr_t)bias % 4 != 0 ||
+      (staged && (W % 8 != 0 || misaligned(x)))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const ConvShape s = conv_shape(N, H, W, Cin, Cout, k, stride);
+  const long long groups =
+      (long long)N * s.Ho * ((s.Wo + kStemGroup - 1) / kStemGroup);
+  if (groups == 0) return (int)cudaSuccess;
+  if (groups > 0x7fffffff || 3LL * W * H * N >= (1LL << 31)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long fill = (groups + kStemWarps - 1) / kStemWarps;
+  return (int)launch_stem7(s, x, w, bias, y, relu, staged == 1,
+                           (int)(grid < fill ? grid : fill),
+                           (cudaStream_t)stream);
 }
 
 // K10's weight gradient: dw (Cout, 7, 7, 3) and dbias (with db) for x (N,

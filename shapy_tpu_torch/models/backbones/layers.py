@@ -78,15 +78,20 @@ CONV_KERNEL = CudaKernel("conv.cu", {
     "conv2d_wgrad": "pppppppp iiiiiii ii iii p",
     "conv2d_relu_mask": "ppp ii p",
     # K10, the ResNet's 7x7 stem on the images: forward and weight gradient
-    "conv2d_stem_forward": "pppp iiiiiii ii p",
+    "conv2d_stem_forward": "pppp iiiiiii ii ii p",
     "conv2d_stem_wgrad": "pppppppp iiiiiii iii i p",
 })
 POOL_KERNEL = CudaKernel("max_pool.cu", {
     "max_pool_forward": "pp iiii i p",
-    "max_pool_backward": "pppp iiii i p",
+    "max_pool_backward": "ppp iiii i iii p",
 })
 # K10's kernel size: a 7x7 conv runs only on the 3 image channels.
 STEM_K = 7
+# K11's backward (:func:`max_pool_backward_plan`): a block takes at most
+# _POOL_TILE x _POOL_TILE output windows and a channel slice of at most
+# _POOL_SLICE_BYTES a pixel (67 KB of shared memory at most: three blocks
+# an SM of an H100).
+_POOL_TILE, _POOL_SLICE_BYTES = 8, 128
 # The wgmma widths (N tiles) that K5-conv, K5-dgrad and K5-wgrad are built
 # for.
 _WGMMA_N = (256, 192, 128, 96, 64, 48)
@@ -109,6 +114,11 @@ _WGRAD_TILE, _WGRAD_STEP, _WGRAD_BLOCKS = 64, 32, 512
 # partitions of consecutive runs (about two blocks an SM of an H100; a
 # constant, for the same reason).
 _STEM_RUN, _STEM_WGRAD_PARTS = 128, 264
+# K10's forward in bf16 (7x7, stride 2, 64 channels; :func:`stem_plan`): a
+# persistent grid of at most _STEM_BLOCKS blocks (three an SM of an H100
+# by their shared memory and registers; the kernel takes no more than its
+# groups of output pixels fill).
+_STEM_BLOCKS = 396
 # K5-conv's and K5-dgrad's K partitions (:func:`_k_parts`): a persistent
 # grid holds _PLAN_SMS blocks (an H100's SMs; twice as many where two
 # blocks share an SM, :func:`_wgmma_pair`), and the K walk (taps x channels
@@ -527,9 +537,14 @@ def _conv2d_act_cuda(x, weight, bias, residual, relu, stride):
     y = torch.empty((N, O, Ho, Wo), dtype=x.dtype, device=dev,
                     memory_format=cl)
     if stem:  # K10: the bias and ReLU of the folded BN, or the bare conv
+        plan = stem_plan(N, H, W, O, stride, x.dtype)
+        if plan.grid:  # 16-byte aligned x (the boxes) and weight, the bias
+            x, weight = _aligned_cl(x), _aligned_cl(weight)  # read in pairs
+            if bias is not None and bias.data_ptr() % 4:
+                bias = bias.clone()
         CONV_KERNEL.launch("conv2d_stem_forward", [
             x, weight, bias, y, N, H, W, C, O, kh, stride, int(relu),
-            KERNEL_DTYPES[x.dtype]])
+            KERNEL_DTYPES[x.dtype], int(plan.staged), plan.grid])
         return y
     # bf16 with Cin % 8 == 0: the wgmma kernel on its plan (16-byte rows of
     # x and the weight, a copy only for a view at an odd offset); the stem
@@ -585,6 +600,26 @@ def _stem_wgrad_parts(n: int, ho: int, wo: int):
     runs = n * ho * -(-wo // _STEM_RUN)
     per = -(-runs // max(1, min(_STEM_WGRAD_PARTS, runs)))
     return -(-runs // per), per
+
+
+class StemPlan(NamedTuple):
+    """K10's forward plan for one shape: ``staged`` (each warp's input
+    boxes come by TMA, which maps rows of 6 W bytes only where that is a
+    multiple of 16; else the warp copies its box) on a persistent grid of
+    at most ``grid`` blocks (0: the general stem kernels, which take f32
+    and the other stem shapes)."""
+    staged: bool
+    grid: int
+
+
+def stem_plan(N: int, H: int, W: int, cout: int, stride: int,
+              dtype: torch.dtype) -> StemPlan:
+    """K10's forward plan for x (N, 3, H, W): ``stem7_kernel`` in bf16 at
+    stride 2 and 64 output channels (the ResNet's stem), staged by TMA
+    where 6 W % 16 == 0; else the general stem kernels."""
+    if not (dtype == torch.bfloat16 and stride == 2 and cout == 64):
+        return StemPlan(False, 0)
+    return StemPlan(6 * W % 16 == 0, _STEM_BLOCKS)
 
 
 class DgradClass(NamedTuple):
@@ -976,25 +1011,55 @@ def _max_pool2d_cuda(x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def _max_pool2d_backward_cuda(dy: torch.Tensor, x: torch.Tensor
-                              ) -> torch.Tensor:
-    """Kernel K11's backward: dx from dy and x (each window's maximum found
-    again from x, a byte a channel in scratch, then gathered)."""
+class PoolPlan(NamedTuple):
+    """K11's backward tiles for one shape: ``th`` x ``tw`` output windows
+    and a slice of ``cs`` channels a block. The kernel launches N x
+    ceil(Ho / th) x ceil(Wo / tw) x C / cs blocks, the slices fastest;
+    the block of windows (i0, j0) writes dx's rows 2 i0 .. 2 i0 + 2 th - 1
+    and columns 2 j0 .. 2 j0 + 2 tw - 1, from windows i0 .. i0 + th and j0
+    .. j0 + tw, whose taps are x's rows 2 i0 - 1 .. 2 i0 + 2 th + 1 and
+    likewise in columns (its staged box)."""
+    th: int
+    tw: int
+    cs: int
+
+
+@functools.lru_cache(maxsize=None)
+def max_pool_backward_plan(N: int, H: int, W: int, C: int,
+                           esize: int) -> PoolPlan:
+    """K11's backward tiles for x (N, C, H, W) of ``esize``-byte elements,
+    from the shape alone: ``_POOL_TILE`` x ``_POOL_TILE`` windows (fewer
+    where the image has fewer) and the widest channel slice of a power of
+    two of 16-byte chunks that divides C within ``_POOL_SLICE_BYTES`` a
+    pixel."""
+    v = 16 // esize
+    chunks = 1
+    while C // v % (2 * chunks) == 0 and 2 * chunks * 16 <= _POOL_SLICE_BYTES:
+        chunks *= 2
+    ho, wo = (H - 1) // 2 + 1, (W - 1) // 2 + 1
+    return PoolPlan(min(_POOL_TILE, ho), min(_POOL_TILE, wo), chunks * v)
+
+
+def _max_pool2d_backward_cuda(dy: torch.Tensor,
+                              x: torch.Tensor) -> torch.Tensor:
+    """Kernel K11's backward: dx from dy and x in one launch on the tiles
+    of :func:`max_pool_backward_plan`."""
     dy = _aligned_cl(dy.to(x.dtype))
     _pool_check(dy, "max_pool2d backward")
+    _pool_check(x, "max_pool2d backward")
     N, C, H, W = x.shape
-    arg = torch.empty((N, *dy.shape[2:], C), dtype=torch.uint8,
-                      device=x.device)
+    plan = max_pool_backward_plan(N, H, W, C, x.element_size())
     dx = torch.empty_like(x, memory_format=torch.channels_last)
-    POOL_KERNEL.launch("max_pool_backward", [dy, x, arg, dx, N, H, W, C,
-                                             KERNEL_DTYPES[x.dtype]])
+    POOL_KERNEL.launch("max_pool_backward", [
+        dy, x, dx, N, H, W, C, KERNEL_DTYPES[x.dtype], plan.th, plan.tw,
+        plan.cs])
     return dx
 
 
 class _MaxPool2d(torch.autograd.Function):
     """K11 with its VJP: the plain versions for CPU tensors, the kernels
     for CUDA tensors. Saves x (the backward finds each window's maximum
-    again)."""
+    again, in one launch)."""
 
     @staticmethod
     def forward(ctx, x):

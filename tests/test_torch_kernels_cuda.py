@@ -94,6 +94,7 @@ from shapy_tpu_torch.models.backbones.layers import (
     max_pool2d_backward_plain,
     max_pool2d_plain,
     relu_mask_plain,
+    stem_plan,
 )
 from shapy_tpu_torch.models.backbones.resnet import ResNet
 from shapy_tpu_torch.models.body.assets import make_synthetic_model_data
@@ -2089,6 +2090,105 @@ def test_max_pool_wrapper_rejects_what_the_kernel_does_not_take(dev):
         max_pool2d(x.contiguous(memory_format=torch.channels_last))
     with pytest.raises(ValueError, match="channels_last"):
         max_pool2d(torch.zeros((1, 16, 8, 8), device=dev))
+
+
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.bfloat16, (48, 64, 128, 128)),  # the train shape
+    (torch.float32, (4, 64, 128, 128)),    # two 32-channel slices
+    (torch.bfloat16, (2, 64, 33, 17)),     # odd sides
+    (torch.bfloat16, (2, 64, 35, 35)),     # Ho 18: ragged, halo at the edge
+    (torch.bfloat16, (2, 128, 37, 21)),    # Ho 19, two 64-channel slices
+    (torch.bfloat16, (3, 8, 21, 19)),      # 8-channel rows
+    (torch.float32, (3, 4, 19, 21)),       # 4-channel rows
+    (torch.bfloat16, (1, 8, 1, 1)),
+    (torch.bfloat16, (2, 8, 2, 3)),
+    (torch.float32, (2, 16, 17, 33))])
+def test_max_pool_backward_one_launch_bit_equal(dev, dtype, shape):
+    """K11's backward, one launch on the tiles of
+    ``max_pool_backward_plan`` (8 x 8 windows; at Ho 18 and 19 the last
+    tile row is ragged and its halo windows fall on the image's last
+    rows and columns; several channel slices): bit-equal to
+    ``max_pool2d_backward_plain`` in bf16 and f32 on tied and all-zero
+    windows (small integers after a ReLU, planted zero blocks and a tie
+    across two windows' overlap), two calls bit-equal."""
+    gen = torch.Generator().manual_seed(34)
+    n, c, h, w = shape
+    x = torch.randint(-2, 3, shape, generator=gen).float().clamp_min(0)
+    x[0, :, :8, :8] = 0.0
+    if h > 5 and w > 7:
+        x[-1, :, 4, 3:8] = 1.5
+        x[-1, :, 3:6, 5] = 1.5
+    x = x.to(dev, dtype).contiguous(memory_format=torch.channels_last)
+    dy = torch.randn((n, c, (h - 1) // 2 + 1, (w - 1) // 2 + 1),
+                     generator=gen).to(dev, dtype).contiguous(
+        memory_format=torch.channels_last)
+    n0 = POOL_KERNEL.counts["max_pool_backward"]
+    got = layers._max_pool2d_backward_cuda(dy, x)
+    again = layers._max_pool2d_backward_cuda(dy, x)
+    assert POOL_KERNEL.counts["max_pool_backward"] - n0 == 2
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, max_pool2d_backward_plain(dy, x))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("epilogue", ["bias-relu", "bare"])
+@pytest.mark.parametrize("n,side", [(2, 256), (3, 200), (2, 224), (1, 64),
+                                    (3, 61), (2, 301)])
+def test_stem7_kernel_bit_stable(dev, epilogue, n, side):
+    """K10's forward in bf16 at the staged sides (6 W % 16 == 0; 200 and
+    224: 100 and 112 output columns, the row's last group of 32 ragged) and
+    the direct ones (61, 301): within K5's bf16 limit of
+    ``conv2d_act_plain``, two calls bit-equal, each image alone bit-equal
+    to itself in the batch; the regime as ``stem_plan`` has it."""
+    full = epilogue == "bias-relu"
+    gen = torch.Generator().manual_seed(35)
+    cl = torch.channels_last
+    x = torch.randn((n, 3, side, side), generator=gen).to(
+        dev, torch.bfloat16).contiguous(memory_format=cl)
+    w = (torch.randn((64, 3, 7, 7), generator=gen) / 147 ** 0.5).to(
+        dev, torch.bfloat16).contiguous(memory_format=cl)
+    b = ((torch.randn(64, generator=gen) * 0.3).to(dev, torch.bfloat16)
+         if full else None)
+    plan = stem_plan(n, side, side, 64, 2, torch.bfloat16)
+    assert plan.grid and plan.staged == (6 * side % 16 == 0)
+    got = conv2d_act(x, w, b, None, full, 2)
+    assert torch.equal(got, conv2d_act(x, w, b, None, full, 2))
+    for i in range(n):
+        alone = conv2d_act(x[i:i + 1].contiguous(memory_format=cl), w, b,
+                           None, full, 2)
+        assert torch.equal(alone, got[i:i + 1])
+    want = conv2d_act_plain(x, w, b, None, full, 2)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        c = torch.nn.functional.conv2d(x.float(), w.float(), None, 2, 3)
+        terms = torch.nn.functional.conv2d(x.abs().float(), w.abs().float(),
+                                           None, 2, 3)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    tol = conv2d_act_bf16_tolerance(c, b, None, terms, 3, 7)
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+
+
+def test_stem7_kernel_bias_at_an_odd_offset(dev):
+    """K10's forward reads the bias in bf16 pairs: a contiguous bias view
+    at an odd element offset gives the same bits as an aligned copy of it
+    (the wrapper copies it), in both regimes, and the CUDA context stays
+    usable."""
+    gen = torch.Generator().manual_seed(36)
+    cl = torch.channels_last
+    w = (torch.randn((64, 3, 7, 7), generator=gen) / 147 ** 0.5).to(
+        dev, torch.bfloat16).contiguous(memory_format=cl)
+    buf = (torch.randn(66, generator=gen) * 0.3).to(dev, torch.bfloat16)
+    bias = buf[1:65]
+    assert bias.is_contiguous() and bias.data_ptr() % 4
+    for side in (64, 61):
+        x = torch.randn((2, 3, side, side), generator=gen).to(
+            dev, torch.bfloat16).contiguous(memory_format=cl)
+        got = conv2d_act(x, w, bias, None, True, 2)
+        want = conv2d_act(x, w, bias.clone(), None, True, 2)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("depth", [18, 50])

@@ -15,7 +15,9 @@ from a ``torch.profiler`` trace between spin kernels, taken again (at most
 ``grids(fn)`` gives each kernel's grid and block, and ``empty_ms`` the
 device time of an empty kernel on such a grid (a launch's floor);
 ``flagship``, ``eval_step`` and ``train_step`` build the flagship and its
-eval step at batch 32 and HRNet train step at 48, and ``step_numbers``
+eval step at batch 32 and HRNet train step at 48, ``resnet_request`` and
+``resnet_train_step`` the ResNet flagship's served request and train
+step as phase 11 of ``chip_smoke.py`` builds them, and ``step_numbers``
 times a step (wall, busy, idle, kernels).
 
 Planted copies (``planted_copy``, ``run_faults``): the port (and
@@ -255,6 +257,52 @@ def train_step(dev):
 
     tr = flagship().to(dev).prepare_for_train_(torch.bfloat16)
     batch = synthetic_train_batches(tr, 1, 48, 256, seed=9)[0]
+    images = batch.pop("images")
+    step = make_train_step(tr, RegressorLosses(FLAGSHIP_TRAIN_LOSS_CFG),
+                           init_train_state(tr, FLAGSHIP_OPTIM_CFG))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return lambda: step(images, batch, gen)
+
+
+def resnet_request(depth: int, batch: int, dev):
+    """A served request of the flagship on ResNet-``depth`` at ``batch``,
+    as ``chip_smoke.py``'s phase 11 builds it (``resnet_base``: seeded
+    random weights, BN folded, bf16 backbone; uint8 480x360 images and
+    their crop affines in, measurements out)."""
+    import torch
+
+    from shapy_tpu_torch.flagship import synthetic_requests
+
+    cs = smoke()
+    reg = cs.resnet_base(depth).to(dev).prepare_for_eval_(torch.bfloat16)
+    images, affines = synthetic_requests(batch, cs.IMAGE_H, cs.IMAGE_W,
+                                         cs.CROP, cs.SEED)
+    images = torch.from_numpy(images).to(dev)
+    affines = torch.from_numpy(affines).to(dev)
+
+    def request():
+        with torch.inference_mode():
+            return reg.apply_from_full_images(images, affines, cs.CROP)
+
+    return request
+
+
+def resnet_train_step(depth: int, dev):
+    """One train step of the flagship on ResNet-``depth`` at batch 48, as
+    phase 11 trains it (bf16 backbone, the flagship's losses and
+    optimizer)."""
+    import torch
+
+    from shapy_tpu_torch.flagship import (FLAGSHIP_OPTIM_CFG,
+                                          FLAGSHIP_TRAIN_LOSS_CFG,
+                                          synthetic_train_batches)
+    from shapy_tpu_torch.train.losses import RegressorLosses
+    from shapy_tpu_torch.train.step import init_train_state, make_train_step
+
+    cs = smoke()
+    tr = cs.resnet_base(depth).to(dev).prepare_for_train_(torch.bfloat16)
+    batch = synthetic_train_batches(tr, 1, cs.TRAIN_B, cs.CROP,
+                                    seed=cs.SEED + 9)[0]
     images = batch.pop("images")
     step = make_train_step(tr, RegressorLosses(FLAGSHIP_TRAIN_LOSS_CFG),
                            init_train_state(tr, FLAGSHIP_OPTIM_CFG))
