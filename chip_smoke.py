@@ -2006,12 +2006,14 @@ def slice_points(meas, v, slice_mode) -> int:
 
 def check_measure_kernels(model, anchors, dev):
     """Phase 2, the fit's and the train step's measurement kernels on all
-    faces, at the train batch (48) and the fit's batch 1: K1-exact's
-    forward against its plain version (mass / height rel 1e-5,
+    faces, at the train batch (48) and the fit's batches 32 and 1:
+    K1-exact's forward against its plain version (mass / height rel 1e-5,
     circumferences 1e-5 m, as K1), and K1's and K1-exact's backwards, for
     a seeded cotangent on all eight outputs and for one on the
     circumferences alone (the mass gradient would otherwise set the
-    scale).
+    scale). Then (``check_measure_backward_routes``) two bodies of which
+    one has no hit on any plane, the hits past the backward's records, and
+    the kernel's bits against its replay.
 
     The hull's max and min are not differentiable where two hits' support
     values tie, and at batch 48 some directions have two distinct hits
@@ -2039,7 +2041,7 @@ def check_measure_kernels(model, anchors, dev):
     K = 256
     cases = {"K1_measure": [], "K1_measure_backward": [],
              "K1exact_measure": [], "K1exact_measure_backward": []}
-    for batch in (TRAIN_B, 1):
+    for batch in (TRAIN_B, FIT_B, 1):
         betas = torch.randn((batch, model.num_betas), generator=gen) * 1.5
         v = model.forward_shape(betas.to(dev))["v_shaped"].detach()
         v = v.contiguous()
@@ -2139,13 +2141,131 @@ def check_measure_kernels(model, anchors, dev):
             cases[f"{key}_measure"].append({"batch": batch, "faces": "all",
                                             **fwd})
             del p64, x64
-    # The kernels line's numbers: the train batch; batch 1 beside them.
-    # K1's forward keeps phase 2's subsets row; these are its cases.
+    check_measure_backward_routes(model, anchors, dev)
+    # The kernels line's numbers: the train batch; batches 32 and 1 beside
+    # them. K1's forward keeps phase 2's subsets row; these are its cases.
     k1_cases = cases.pop("K1_measure")
     out = {name: dict(rows[0], cases=rows) for name, rows in cases.items()}
     out["K1_measure_cases"] = k1_cases
     return out
 
+
+def check_measure_backward_routes(model, anchors, dev) -> None:
+    """K1's and K1-exact's backward on all faces where a plain comparison
+    is blind:
+
+    * two bodies, the second flattened to the height of its first vertex,
+      so that none of its planes has a hit in either slice mode (no face
+      crosses a plane, no quad edge meets a face): its circumferences are
+      0 and, for a cotangent on the circumferences alone, its gradient is
+      0; the first's within 1e-4 of the largest gradient of the plain
+      version in f32 given the kernel's centroids;
+    * the hits past the records (``measure_backward_plan``'s ``records``
+      cut to 16 a row, so that the vertices pass takes nearly every hit
+      again from the saved hits): the same bits as the records' route, at
+      batch 1 and 48;
+    * ``measure_backward_replay``: the kernel's operations in its order, in
+      PyTorch on the card, bit-equal to the kernel at batch 1, 32 and 48
+      for the seeded cotangent on all eight outputs;
+    * the backward of saves whose chest centroid is moved 1 m along x, off
+      the hits, so that the clamp max(h, 0) holds on about half the
+      direction pairs and the centroid's share of the point cotangents is
+      large (for the hits' own centroid it is 0 but for rounding: the
+      perimeter does not move when every point does): bit-equal to the
+      replay and within 1e-4 of the largest gradient of the plain version
+      in f32 given the same centroids, at batch 1 and 32."""
+    import torch
+
+    from shapy_tpu_torch.measure import measurements as mm
+
+    gen = torch.Generator().manual_seed(SEED + 12)
+    K = 256
+    for mode in ("reference", "exact"):
+        meas = mm.BodyMeasurements(anchors, model.faces, K,
+                                   slice_mode=mode).to(dev)
+        name = "K1" if mode == "reference" else "K1-exact"
+        betas = torch.randn((2, model.num_betas), generator=gen) * 1.5
+        v = model.forward_shape(betas.to(dev))["v_shaped"].detach().clone()
+        v[1, :, 1] = v[1, 0, 1]
+        g = (torch.randn((2, 5), generator=gen).to(dev)
+             * torch.tensor([0.0, 0.0, 1.0, 1.0, 1.0], device=dev),
+             torch.zeros((2, 3), device=dev))
+        x = v.clone().requires_grad_()
+        outs = meas.measure(x, use_face_subsets=False)
+        cents = mm.saved_centroids(outs[0]).detach()
+        got = torch.autograd.grad(outs, x, g)[0]
+        xp = v.clone().requires_grad_()
+        want = torch.autograd.grad(mm.measure_plain(
+            xp, meas.faces, None, meas.anchors, K, meas.density, mode,
+            cents), xp, g)[0]
+        err = max_err(got, want) / float(want.abs().max())
+        empty = float(outs[0][1, 2:].abs().max())
+        stray = float(got[1].abs().max())
+        print(f"{name} backward, a body with no hit on any plane: its "
+              f"circumferences {empty}, its gradient's largest {stray} (both "
+              f"0); the other body vs plain f32 {err:.3e} (tol 1e-4)")
+        check(empty == 0.0 and stray == 0.0 and err <= 1e-4,
+              f"{name} backward with a plane of fewer than 2 hits: "
+              f"circumferences {empty}, gradient {stray}, err {err}")
+
+        for batch in (1, FIT_B, TRAIN_B):
+            betas = torch.randn((batch, model.num_betas), generator=gen) * 1.5
+            v = model.forward_shape(betas.to(dev))["v_shaped"].detach()
+            v = v.contiguous()
+            g = (torch.randn((batch, 5), generator=gen).to(dev),
+                 torch.randn((batch, 3), generator=gen).to(dev))
+            x = v.clone().requires_grad_()
+            outs = meas.measure(x, use_face_subsets=False)
+            got = torch.autograd.grad(outs, x, g, retain_graph=True)[0]
+            replay = mm.measure_backward_replay(
+                meas, x, outs[0].grad_fn.saved_tensors[1:], g, False)
+            same = torch.equal(got, replay)
+            differ = int((got != replay).any(-1).sum())
+            line = (f"{name} backward, batch {batch}: bit-equal to its "
+                    f"replay: {same} ({differ} vertices differ)")
+            check(same, f"{name} backward at batch {batch} is not its "
+                        f"replay's bits: {differ} vertices differ")
+            if batch != FIT_B:
+                records = mm._K1B_RECORDS
+                mm._K1B_RECORDS = 16
+                try:
+                    past = torch.autograd.grad(outs, x, g)[0]
+                finally:
+                    mm._K1B_RECORDS = records
+                check(torch.equal(got, past),
+                      f"{name} backward at batch {batch}: the hits past "
+                      "the records give other bits")
+                line += "; hits past 16 records a row: the same bits"
+            print(line)
+
+        for batch in (1, FIT_B):  # the chest centroid off the hits
+            betas = torch.randn((batch, model.num_betas), generator=gen) * 1.5
+            v = model.forward_shape(betas.to(dev))["v_shaped"].detach()
+            v = v.contiguous()
+            g = (torch.randn((batch, 5), generator=gen).to(dev),
+                 torch.randn((batch, 3), generator=gen).to(dev))
+            x = v.clone().requires_grad_()
+            outs = meas.measure(x, use_face_subsets=False)
+            hits, codes, stats, plane_h = outs[0].grad_fn.saved_tensors[1:]
+            moved = stats.clone()
+            moved[:, 0, 1] += 1.0
+            saved = (hits, codes, moved, plane_h)
+            got = mm.measure_backward(meas, meas._vertex_walk(False), v,
+                                      saved, *g)
+            replay = mm.measure_backward_replay(meas, v, saved, g, False)
+            differ = int((got != replay).any(-1).sum())
+            xp = v.clone().requires_grad_()
+            want = torch.autograd.grad(mm.measure_plain(
+                xp, meas.faces, None, meas.anchors, K, meas.density, mode,
+                moved[:, :3, 1:3]), xp, g)[0]
+            err = max_err(got, want) / float(want.abs().max())
+            print(f"{name} backward, batch {batch}, the chest centroid 1 m "
+                  f"off the hits: bit-equal to its replay: {differ == 0} "
+                  f"({differ} vertices differ); vs plain f32 {err:.3e} (tol "
+                  "1e-4)")
+            check(differ == 0 and err <= 1e-4,
+                  f"{name} backward with a centroid off the hits: {differ} "
+                  f"vertices differ from the replay, err {err}")
 
 def check_aos_kernel(model, anchors, dev):
     """Phase 2, K1-AoS at the scorer's shapes: full-width SMPL-X

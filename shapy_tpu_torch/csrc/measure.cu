@@ -63,24 +63,57 @@
 //   same bits. At a large batch the walk is bound by the gathers of each
 //   face's three vertices, once per plane, from L2 (PERF.md).
 //
-// Backward (measure_backward, measure_exact_backward): two kernels, no
-// atomics, so two calls give the same bits.
-//   1. One block per (body, plane). Thread d recomputes the extremes of its
-//      direction pair from the saved hits and counts the hits that tie for
-//      each (the duplicates that shared body edges and the quad diagonal
-//      produce; the JAX and PyTorch max / min split the gradient evenly
-//      among ties, and so does this). Points hidden by the mask project to 0
-//      and tie with a 0 extreme as they do in the dense formulation. Then
-//      one thread per hit sums its directions' shares (2 pi / K, clamped,
-//      divided by the tie count), the block removes the centroid's share,
-//      and each hit's point cotangent is saved. The chain of each hit's
-//      winning formula gives the plane height's cotangent, summed in fixed
-//      order. A slot map marks the walk positions that have hits.
-//   2. One thread per (body, vertex) gathers in fixed order: the mass term
-//      of every face around the vertex (a vertex-to-(face, corner) list
-//      built once on the host), the chain of each plane's hits in those
-//      faces (recomputed with the same operations as the forward, so the
-//      same formula is differentiated), and the anchors' height terms.
+// Backward (measure_backward, measure_exact_backward): a memset and two
+// kernels, no floating-point atomics, every sum in an order fixed by the
+// shape and the hit counts, so two calls give the same bits. A slice has a
+// few hundred hits (~365 a plane in reference mode, ~730 in exact mode for
+// SMPL-X) against K/2 = 128 direction pairs and V = 10475 vertices: the
+// time is latency, not bytes or operations.
+//   1. measure_backward_planes, one launch of two kinds of CTA (grid (B,
+//      3 blocks + mass CTAs), every body's planes first):
+//      * a cluster of `blocks` CTAs of 512 threads per (body, plane), from
+//        the shape (measure_backward_plan in measure/measurements.py: up to
+//        4 for a small batch, 1 from batch 45 on). CTA r sweeps its run of
+//        the row's hits, [r span, (r + 1) span), staged in shared memory,
+//        with every thread on (direction pair, share of the hits),
+//        branch-free, for each pair's valid max and min and how many hits
+//        reach each (the duplicates of shared body edges and the quad
+//        diagonal; JAX and PyTorch split a tied extreme's gradient evenly,
+//        and so does this), and stores them in every rank's shared memory
+//        (distributed shared memory); max, min and integer counts are exact
+//        in any order, so every CTA of the row then holds the same bits.
+//        The dense formulation's masked points project to 0 and tie with a
+//        0 extreme; the clamp max(h, 0) passes where h >= 0; a plane with
+//        fewer than 2 hits has no gradient. The hits' point cotangents sum
+//        to sum_d (share at the max x its hits - share at the min x its
+//        hits) (cos, sin)_d, so every CTA has the centroid's
+//        share from the pairs alone. Then a warp takes each group of 32
+//        hits (groups dealt round-robin to the row's warps), a lane a hit:
+//        its point cotangent (the pairs in order), the chain of its winning
+//        formula (hit_vjp, once) to its face's 9 coordinates, stored beside
+//        the hit as a record for the first `records` hits of a row, and to
+//        the plane height, summed over the group in a fixed tree (the
+//        vertices pass sums the groups in order); the face's three vertices
+//        are marked for the plane. Each CTA also writes its share of the
+//        row's hit map: per 16 walk positions a mask, 2 bits a position
+//        (01: one hit there, 11: two), and the index of the word's first
+//        hit.
+//      * mass CTAs, a thread per (body, vertex): the mass term over the
+//        vertex's (face, corner) list, whose entries carry the face's other
+//        two vertex ids (a list built once on the host), then the height's
+//        terms at the head-top and heel anchors; the result is the
+//        gradient of every vertex but the marked ones'. A vertex of a
+//        plane's anchor face is marked too.
+//      Marks are integer atomics (an OR of plane bits a vertex; the first
+//      mark appends the vertex to its body's list), so the marked set is
+//      fixed, and each marked vertex is finished by one thread below.
+//   2. measure_backward_vertices, after 1: the marked vertices, a thread
+//      each (8 CTAs a body). Each marked plane's hits in
+//      the faces around the vertex, in the list's order, found through the
+//      hit map and read from their records (a hit past the records is
+//      taken again from the saved hit, with the same operations, so the
+//      same bits), summed and added to the vertex's gradient; then the
+//      plane heights' terms at their anchors.
 //
 // K1-AoS (BodyMeasurements.forward on (B, F, 3, 3) triangles; replaces
 // ops/plane_slice.py:plane_slice_triangles, line 28, plane_slice_reference,
@@ -116,7 +149,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kChunk = 2048;  // hull points staged per pass (16 KB)
+constexpr int kChunk = 1024;  // hull points staged per pass (8 KB)
 constexpr int kMaxHalfK = 2 * kThreads;  // two direction pairs per thread
 constexpr float kEps = 1e-4f;
 enum SliceMode { kReference = 0, kExact = 1 };
@@ -669,217 +702,552 @@ __global__ void __launch_bounds__(kThreads) measure_cluster_kernel(
   }
 }
 
-// Backward, part 1: one block per (body, plane). See the header.
-template <int kMode>
-__global__ void __launch_bounds__(kThreads) measure_backward_planes(
-    const float* __restrict__ verts, const int* __restrict__ faces,
-    const int* __restrict__ plane_faces, const float* __restrict__ hull_cos,
-    const float* __restrict__ hull_sin, const float2* __restrict__ hits,
-    const int* __restrict__ codes, const float* __restrict__ stats,
-    const float* __restrict__ plane_h, const float* __restrict__ g_out,
-    const float* __restrict__ g_plane_h, float2* __restrict__ ghits,
-    int* __restrict__ slot_map, float* __restrict__ g_heights, int V,
-    Planes planes, int cap, int smax, int half_k, float angle_step) {
-  __shared__ float red[32];
-  __shared__ float2 pts[kChunk];
-  __shared__ float cs[kMaxHalfK], sn[kMaxHalfK];
-  __shared__ float vmx[kMaxHalfK], vmn[kMaxHalfK];
-  __shared__ float cfx[kMaxHalfK], cfn[kMaxHalfK];
-  const int p = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, bd = blockDim.x;
-  const size_t row = (size_t)b * 3 + p;
-  const float* st = stats + ((size_t)b * 4 + p) * 4;
-  const int n = (int)st[0];
-  const float cx = st[1], cz = st[2];
-  const int n_walk = planes.n[p];
-  const int n_points = 2 * n_walk;  // candidate points, masked ones included
-  const float2* hp = hits + row * cap;
-  const int* cp = codes + row * cap;
-  float2* gp = ghits + row * cap;
-  int* sm = slot_map + row * smax;
-  for (int i = tid; i < n_walk; i += bd) sm[i] = 0;
-  for (int d = tid; d < half_k; d += bd) {
-    cs[d] = hull_cos[d];
-    sn[d] = hull_sin[d];
-  }
-  // d perimeter / d h(theta) for every support value, before clamp and ties
-  const float g = n >= 2 ? g_out[b * 5 + 2 + p] * angle_step : 0.f;
+constexpr int kPlaneThreads = 512;  // the planes pass's CTA
+constexpr int kWarps = kPlaneThreads / 32;
+constexpr int kGroup = 32;      // hits a warp takes at once, a lane each
+constexpr int kRecord = 9;      // floats of a hit's record: its face's VJP
+constexpr int kWordSpan = 16;   // walk positions a word of the hit map
+constexpr int kUnroll = 3;      // (face, corner) entries loaded at once
+constexpr int kMarkedCtas = 8;  // the vertices pass's CTAs a body
+constexpr int kProbe = 6;       // entries the vertices pass probes at once
 
-  // Each thread: the valid hits' max and min of its direction pairs, and how
-  // many hits reach them.
-  const int d0 = tid, d1 = tid + bd;
-  const float c0 = d0 < half_k ? hull_cos[d0] : 0.f;
-  const float s0 = d0 < half_k ? hull_sin[d0] : 0.f;
-  const float c1 = d1 < half_k ? hull_cos[d1] : 0.f;
-  const float s1 = d1 < half_k ? hull_sin[d1] : 0.f;
-  float mx0 = -INFINITY, mn0 = INFINITY, mx1 = -INFINITY, mn1 = INFINITY;
-  int kx0 = 0, kn0 = 0, kx1 = 0, kn1 = 0;
-  for (int start = 0; start < n; start += kChunk) {
-    const int m = min(kChunk, n - start);
-    __syncthreads();  // the previous chunk is consumed
-    for (int i = tid; i < m; i += bd) {
-      const float2 q = hp[start + i];
-      pts[i] = make_float2(q.x - cx, q.y - cz);
-    }
-    __syncthreads();
-    for (int i = 0; i < m; ++i) {
-      const float2 q = pts[i];
-      const float pr0 = q.x * c0 + q.y * s0;
-      const float pr1 = q.x * c1 + q.y * s1;
-      if (pr0 > mx0) { mx0 = pr0; kx0 = 1; } else if (pr0 == mx0) { ++kx0; }
-      if (pr0 < mn0) { mn0 = pr0; kn0 = 1; } else if (pr0 == mn0) { ++kn0; }
-      if (pr1 > mx1) { mx1 = pr1; kx1 = 1; } else if (pr1 == mx1) { ++kx1; }
-      if (pr1 < mn1) { mn1 = pr1; kn1 = 1; } else if (pr1 == mn1) { ++kn1; }
-    }
-  }
-  // Per direction: the share of each hit at the extreme. The dense
-  // formulation's masked points project to 0: with any of them the extreme is
-  // max(valid max, 0) (min(valid min, 0)), and at 0 they tie too. The clamp
-  // max(h, 0) passes the gradient where h >= 0.
-  const int masked = n_points - n;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int d = j ? d1 : d0;
-    if (d >= half_k) continue;
-    const float vx = j ? mx1 : mx0, vn = j ? mn1 : mn0;
-    const int kx = j ? kx1 : kx0, kn = j ? kn1 : kn0;
-    const float M = masked > 0 ? fmaxf(vx, 0.f) : vx;
-    const int tx = (vx == M ? kx : 0) + (masked > 0 && M == 0.f ? masked : 0);
-    cfx[d] = (vx == M && M >= 0.f && tx > 0) ? g / (float)tx : 0.f;
-    const float m = masked > 0 ? fminf(vn, 0.f) : vn;
-    const int tn = (vn == m ? kn : 0) + (masked > 0 && m == 0.f ? masked : 0);
-    cfn[d] = (vn == m && -m >= 0.f && tn > 0) ? g / (float)tn : 0.f;
-    vmx[d] = vx;
-    vmn[d] = vn;
-  }
-  __syncthreads();
+// The planes pass's shared memory: per direction pair (cos, sin, the
+// valid max, the valid min) and the share of a hit at the max (x cos, x
+// sin) and at the min; the valid hits' extremes per (pair, share of the
+// hits); a chunk of staged hits; then (dynamic) the gather of the
+// cluster's extremes and this CTA's words of the hit map, a mask and a
+// first-hit index each.
+struct BwdShared {
+  float red[32];
+  float4 dir[kMaxHalfK], coef[kMaxHalfK];
+  float part_mx[kMaxHalfK], part_mn[kMaxHalfK];
+  int part_kx[kMaxHalfK], part_kn[kMaxHalfK];
+  float2 pts[kChunk];
+};
+static_assert(sizeof(BwdShared) % 16 == 0, "the hit map follows BwdShared");
 
-  // One thread per hit: d perimeter / d (centred point), then the centroid.
-  float sgx = 0.f, sgz = 0.f;
-  for (int j = tid; j < n; j += bd) {
-    const float2 q = hp[j];
-    const float xc = q.x - cx, zc = q.y - cz;
-    float gx = 0.f, gz = 0.f;
-    for (int d = 0; d < half_k; ++d) {
-      const float pr = xc * cs[d] + zc * sn[d];
-      if (pr == vmx[d]) {
-        gx += cfx[d] * cs[d];
-        gz += cfx[d] * sn[d];
-      }
-      if (pr == vmn[d]) {
-        gx -= cfn[d] * cs[d];
-        gz -= cfn[d] * sn[d];
-      }
-    }
-    gp[j] = make_float2(gx, gz);
-    sgx += gx;
-    sgz += gz;
+// d perimeter / d (centred point) of one hit: over the direction pairs in
+// order, the share of each extreme the hit reaches (adding 0 where it
+// reaches none leaves the sum's bits: it is never -0).
+__device__ __forceinline__ float2 hull_point_grad(const float4* dir,
+                                                  const float4* coef,
+                                                  int half_k, float xc,
+                                                  float zc) {
+  float gx = 0.f, gz = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < half_k; ++d) {
+    const float4 a = dir[d], f = coef[d];
+    const float pr = xc * a.x + zc * a.y;
+    const bool up = pr == a.z, down = pr == a.w;
+    gx += up ? f.x : 0.f;
+    gz += up ? f.y : 0.f;
+    gx -= down ? f.z : 0.f;
+    gz -= down ? f.w : 0.f;
   }
-  const float cnt = fmaxf((float)n, 1.f);
-  const float cgx = -block_sum(sgx, red) / cnt;
-  const float cgz = -block_sum(sgz, red) / cnt;
-
-  // The point cotangents, the slot map, and the plane height's cotangent
-  // through each hit's formula.
-  const int* ids = plane_faces ? plane_faces + planes.off[p] : nullptr;
-  const float h = plane_h[row];
-  const float* vb = verts + (size_t)b * V * 3;
-  float sgh = 0.f;
-  for (int j = tid; j < n; j += bd) {
-    const float2 g2 = gp[j];
-    const float ga = g2.x + cgx, gb = g2.y + cgz;
-    gp[j] = make_float2(ga, gb);
-    const int code = cp[j], pos = code >> 4;
-    if (j == 0 || (cp[j - 1] >> 4) != pos) sm[pos] = j + 1;
-    Tri T;
-    load_tri(vb, faces + 3 * (ids ? ids[pos] : pos), T);
-    float gv[9], gh;
-    hit_vjp<kMode>(T, h, code & 15, ga, gb, gv, gh);
-    sgh += gh;
-  }
-  const float gh_total = block_sum(sgh, red);
-  if (tid == 0) g_heights[row] = gh_total + g_plane_h[row];
+  return make_float2(gx, gz);
 }
 
-// Backward, part 2: one thread per (body, vertex). See the header.
-template <int kMode>
-__global__ void __launch_bounds__(kThreads) measure_backward_vertices(
-    const float* __restrict__ verts, const int* __restrict__ faces,
-    const int* __restrict__ plane_faces, const int* __restrict__ anchor_face,
-    const float* __restrict__ anchor_bary, const int* __restrict__ codes,
-    const float* __restrict__ stats, const float* __restrict__ plane_h,
-    const float* __restrict__ g_out, const float2* __restrict__ ghits,
-    const int* __restrict__ slot_map, const float* __restrict__ g_heights,
-    const int* __restrict__ face_ptr, const int* __restrict__ face_idx,
-    const int* __restrict__ plane_ptr, const int* __restrict__ plane_idx,
-    float* __restrict__ grad, int V, int Vm, Planes planes, int cap,
-    int smax, float density) {
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  const int b = blockIdx.y;
-  if (v >= V) return;
+// A hit as step 3 of the planes pass takes it: the point, its code and
+// its face's vertex ids.
+struct HitInput {
+  float2 q;
+  int code;
+  int face[3];
+};
+
+__device__ __forceinline__ void load_hit(HitInput& in, const int* faces,
+                                         const int* ids, const float2* hp,
+                                         const int* cp, int j) {
+  in.q = hp[j];
+  in.code = cp[j];
+  const int pos = in.code >> 4;
+  const int* f = faces + 3 * (ids ? ids[pos] : pos);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) in.face[c] = f[c];
+}
+
+// Marks vertex u of body b for the vertices pass: sets `bits` in its flags
+// (mark_vertex, or mark_set then mark_listed once its old flags are back)
+// and, the first time any bit is set, appends u to the body's list (the
+// list's order varies, what each listed vertex computes does not).
+__device__ __forceinline__ unsigned mark_set(unsigned* flags, int V, int b,
+                                             int u, unsigned bits) {
+  return atomicOr(&flags[(size_t)b * V + u], bits);
+}
+__device__ __forceinline__ void mark_listed(unsigned* flags, int* listed,
+                                            int V, int b, int u,
+                                            unsigned old) {
+  if (old == 0u) {
+    unsigned* count = flags + (size_t)gridDim.x * V + b;  // after the flags
+    listed[(size_t)b * V + atomicAdd(count, 1u)] = u;
+  }
+}
+__device__ __forceinline__ void mark_vertex(unsigned* flags, int* listed,
+                                            int V, int b, int u,
+                                            unsigned bits) {
+  mark_listed(flags, listed, V, b, u, mark_set(flags, V, b, u, bits));
+}
+
+// The mass CTAs of the planes launch: a thread per (body, vertex). Mass:
+// d|S| / d det = sign(S); d det / d v_c = v_{c+1} x v_{c+2}, the entry's
+// other two vertices, kUnroll entries at a time, in the list's order; then
+// the height's (d|y_head - y_heel|) at the head-top and heel anchors. A
+// vertex of a plane's anchor face is marked (bit 3) for the vertices pass,
+// which adds the plane height's term.
+__device__ void mass_vertex(
+    const float* vb, const int* faces, const int* anchor_face,
+    const float* anchor_bary, const float* stats, const float* g_out,
+    const int* corner_ptr, const int4* corners, float* grad,
+    unsigned* flags, int* listed, int V, int Vm, int b, int v,
+    float density) {
   float* gv = grad + ((size_t)b * V + v) * 3;
   if (v >= Vm) {  // not in any face
     gv[0] = gv[1] = gv[2] = 0.f;
     return;
   }
-  const float* vb = verts + (size_t)b * V * 3;
-  float gx = 0.f, gy = 0.f, gz = 0.f;
-
-  // Mass: d|S| / d det = sign(S); d det / d v_c = v_{c+1} x v_{c+2}.
   const float S = stats[((size_t)b * 4 + 3) * 4];
   const float gm = g_out[b * 5] * density / 6.0f *
                    (S > 0.f ? 1.f : (S < 0.f ? -1.f : 0.f));
-  for (int e = face_ptr[v]; e < face_ptr[v + 1]; ++e) {
-    const int ent = face_idx[e], c = ent & 3;
-    const int* f = faces + 3 * (ent >> 2);
-    const float* u = vb + 3 * f[c == 2 ? 0 : c + 1];
-    const float* w = vb + 3 * f[c == 0 ? 2 : c - 1];
-    gx += gm * (u[1] * w[2] - u[2] * w[1]);
-    gy += gm * (u[2] * w[0] - u[0] * w[2]);
-    gz += gm * (u[0] * w[1] - u[1] * w[0]);
-  }
-
-  // Circumferences: the hits of each plane in the faces around v.
-  for (int p = 0; p < 3; ++p) {
-    const size_t row = (size_t)b * 3 + p;
-    const int n = (int)stats[((size_t)b * 4 + p) * 4];
-    const int* sm = slot_map + row * smax;
-    const int* cp = codes + row * cap;
-    const float2* gp = ghits + row * cap;
-    const int* ids = plane_faces ? plane_faces + planes.off[p] : nullptr;
-    const int* ptr = plane_ptr ? plane_ptr + (size_t)p * (Vm + 1) : face_ptr;
-    const int* idx = plane_ptr ? plane_idx : face_idx;
-    const float h = plane_h[row];
-    for (int e = ptr[v]; e < ptr[v + 1]; ++e) {
-      const int ent = idx[e], pos = ent >> 2, c = ent & 3;
-      int j = sm[pos] - 1;
-      if (j < 0) continue;
-      Tri T;
-      load_tri(vb, faces + 3 * (ids ? ids[pos] : pos), T);
-      for (; j < n && (cp[j] >> 4) == pos; ++j) {
-        float g9[9], gh;
-        hit_vjp<kMode>(T, h, cp[j] & 15, gp[j].x, gp[j].y, g9, gh);
-        gx += g9[3 * c];
-        gy += g9[3 * c + 1];
-        gz += g9[3 * c + 2];
+  float gx = 0.f, gy = 0.f, gz = 0.f;
+  const int e1 = corner_ptr[v + 1];
+  for (int at = corner_ptr[v]; at < e1; at += kUnroll) {
+    float u[kUnroll][3], w[kUnroll][3];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      if (at + k < e1) {
+        const int4 c4 = corners[at + k];
+        const float* pu = vb + 3 * c4.y;
+        const float* pw = vb + 3 * c4.z;
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          u[k][i] = pu[i];
+          w[k][i] = pw[i];
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      if (at + k < e1) {
+        gx += gm * (u[k][1] * w[k][2] - u[k][2] * w[k][1]);
+        gy += gm * (u[k][2] * w[k][0] - u[k][0] * w[k][2]);
+        gz += gm * (u[k][0] * w[k][1] - u[k][1] * w[k][0]);
       }
     }
   }
-
-  // Height (d|y_head - y_heel|) and the three plane heights, at the anchors.
-  const float dh = anchor_y(vb, faces, anchor_face, anchor_bary, 0) -
-                   anchor_y(vb, faces, anchor_face, anchor_bary, 1);
-  const float ght = g_out[b * 5 + 1] * (dh > 0.f ? 1.f : (dh < 0.f ? -1.f : 0.f));
+  bool plane_anchor = false;
   for (int a = 0; a < 5; ++a) {
-    const float w = a == 0 ? ght : (a == 1 ? -ght : g_heights[b * 3 + a - 2]);
     const int* f = faces + 3 * anchor_face[a];
     for (int k = 0; k < 3; ++k) {
-      if (f[k] == v) gy += w * anchor_bary[3 * a + k];
+      if (f[k] != v) continue;
+      if (a >= 2) {
+        plane_anchor = true;
+        continue;
+      }
+      const float dh = anchor_y(vb, faces, anchor_face, anchor_bary, 0) -
+                       anchor_y(vb, faces, anchor_face, anchor_bary, 1);
+      const float ght =
+          g_out[b * 5 + 1] * (dh > 0.f ? 1.f : (dh < 0.f ? -1.f : 0.f));
+      gy += (a == 0 ? ght : -ght) * anchor_bary[3 * a + k];
     }
   }
+  if (plane_anchor) mark_vertex(flags, listed, V, b, v, 8u);
   gv[0] = gx;
   gv[1] = gy;
   gv[2] = gz;
+}
+
+// Backward, part 1: one launch, a cluster of `blocks` CTAs per (body,
+// plane) and the mass CTAs (grid (B, 3 blocks + mass CTAs): every body's
+// planes first). Two CTAs an SM (at most 64 registers): the mass CTAs
+// share the launch and are latency-bound. See the header.
+template <int kMode>
+__global__ void __launch_bounds__(kPlaneThreads, 2) measure_backward_planes(
+    const float* __restrict__ verts, const int* __restrict__ faces,
+    const int* __restrict__ plane_faces, const int* __restrict__ anchor_face,
+    const float* __restrict__ anchor_bary, const float* __restrict__ hull_cos,
+    const float* __restrict__ hull_sin, const float2* __restrict__ hits,
+    const int* __restrict__ codes, const float* __restrict__ stats,
+    const float* __restrict__ plane_h, const float* __restrict__ g_out,
+    const int* __restrict__ corner_ptr, const int4* __restrict__ corners,
+    float* __restrict__ grad, float* __restrict__ records,
+    int2* __restrict__ words, float* __restrict__ gh_part,
+    float* __restrict__ dirs, unsigned* __restrict__ flags,
+    int* __restrict__ listed, int V, int Vm, Planes planes, int blocks,
+    int cap, int n_records, int n_words, int n_groups, int half_k,
+    float angle_step, float density) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const float* vb = verts + (size_t)b * V * 3;
+  if ((int)blockIdx.y >= 3 * blocks) {
+    const int v = ((int)blockIdx.y - 3 * blocks) * kPlaneThreads + tid;
+    if (v < V) {
+      mass_vertex(vb, faces, anchor_face, anchor_bary, stats, g_out,
+                  corner_ptr, corners, grad, flags, listed, V, Vm, b, v,
+                  density);
+    }
+    return;
+  }
+  cluster_arrive_relaxed();  // waited for before the first remote store
+  BwdShared& sh = *reinterpret_cast<BwdShared*>(smem);
+  // the row's cluster: `blocks` CTAs along y, rank g
+  const int p = blockIdx.y / blocks, g = blockIdx.y % blocks;
+  const int wpb = (n_words + blocks - 1) / blocks;  // words a CTA
+  float* gather = reinterpret_cast<float*>(smem + sizeof(BwdShared));
+  unsigned* msk = reinterpret_cast<unsigned*>(gather + blocks * half_k * 4);
+  int* first = reinterpret_cast<int*>(msk + wpb);
+  const int lane = tid & 31, warp = tid >> 5;
+  const size_t row = (size_t)b * 3 + p;
+  const float* st = stats + ((size_t)b * 4 + p) * 4;
+  const int n = (int)st[0];
+  const float cx = st[1], cz = st[2];
+  const int n_walk = planes.n[p];
+  const float2* hp = hits + row * cap;
+  const int* cp = codes + row * cap;
+  // This CTA's words of the hit map: [w0, w1) of the row's.
+  const int w_row = (n_walk + kWordSpan - 1) / kWordSpan;
+  const int w0 = min(w_row, g * wpb), w1 = min(w_row, w0 + wpb);
+  for (int i = tid; i < w1 - w0; i += kPlaneThreads) {
+    msk[i] = 0u;
+    first[i] = 0x7fffffff;
+  }
+  // Item w = share * half_k + d takes pair d over the hits share, share +
+  // shares, ... of each chunk.
+  const int shares = half_k >= kPlaneThreads ? 1 : kPlaneThreads / half_k;
+  const int items = shares * half_k;
+  for (int w = tid; w < items; w += kPlaneThreads) {
+    sh.part_mx[w] = -INFINITY;
+    sh.part_mn[w] = INFINITY;
+    sh.part_kx[w] = 0;
+    sh.part_kn[w] = 0;
+  }
+  for (int d = tid; d < half_k; d += kPlaneThreads) {  // the pairs, early
+    sh.dir[d] = make_float4(hull_cos[d], hull_sin[d], 0.f, 0.f);
+  }
+
+  // A lane's hit of its warp's first group of 32 (step 3) and its face,
+  // loaded now so that the loads overlap the sweep; the face's vertices
+  // marked now.
+  const int* ids = plane_faces ? plane_faces + planes.off[p] : nullptr;
+  const int groups = (n + kGroup - 1) / kGroup;
+  const int k0 = g * kWarps + warp;
+  HitInput in;
+  unsigned old[3] = {1u, 1u, 1u};  // the face's flags before this mark
+  if (k0 < groups && k0 * kGroup + lane < n) {
+    load_hit(in, faces, ids, hp, cp, k0 * kGroup + lane);
+    for (int c = 0; c < 3; ++c) {
+      old[c] = mark_set(flags, V, b, in.face[c], 1u << p);
+    }
+  }
+
+  // 1. This CTA's words of the hit map, from all the row's codes (2 bits a
+  // position: 01 one hit, 11 two; bit operations and a min, exact in any
+  // order).
+  __syncthreads();  // the words are cleared
+  for (int j = tid; j < n; j += kPlaneThreads) {
+    const int pos = cp[j] >> 4, w = pos / kWordSpan - w0;
+    if (w >= 0 && w < w1 - w0) {
+      const bool second = j > 0 && (cp[j - 1] >> 4) == pos;
+      atomicOr(&msk[w], 1u << (2 * (pos % kWordSpan) + (second ? 1 : 0)));
+      atomicMin(&first[w], j);
+    }
+  }
+  // The valid max and min on every pair of this CTA's run of the hits (CTA
+  // r of the row's cluster: [r span, (r + 1) span)) and how many hits
+  // reach each.
+  const int span = (n + blocks - 1) / blocks;
+  const int lo = min(n, g * span), hi = min(n, lo + span);
+  for (int start = lo; start < hi; start += kChunk) {
+    const int m = min(kChunk, hi - start);
+    __syncthreads();  // the previous chunk is consumed
+    for (int i = tid; i < m; i += kPlaneThreads) {
+      const float2 q = hp[start + i];
+      sh.pts[i] = make_float2(q.x - cx, q.y - cz);
+    }
+    __syncthreads();
+    for (int w = tid; w < items; w += kPlaneThreads) {
+      const int share = w / half_k, d = w - share * half_k;
+      const float c = sh.dir[d].x, s = sh.dir[d].y;
+      float mx = sh.part_mx[w], mn = sh.part_mn[w];
+      int kx = sh.part_kx[w], kn = sh.part_kn[w];
+      int i = share;
+      for (; i + (kUnroll - 1) * shares < m; i += kUnroll * shares) {
+        float pr[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const float2 q = sh.pts[i + u * shares];
+          pr[u] = q.x * c + q.y * s;
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          kx = pr[u] > mx ? 1 : kx + (pr[u] == mx);
+          mx = fmaxf(mx, pr[u]);
+          kn = pr[u] < mn ? 1 : kn + (pr[u] == mn);
+          mn = fminf(mn, pr[u]);
+        }
+      }
+      for (; i < m; i += shares) {
+        const float2 q = sh.pts[i];
+        const float pr = q.x * c + q.y * s;
+        kx = pr > mx ? 1 : kx + (pr == mx);
+        mx = fmaxf(mx, pr);
+        kn = pr < mn ? 1 : kn + (pr == mn);
+        mn = fminf(mn, pr);
+      }
+      sh.part_mx[w] = mx;
+      sh.part_mn[w] = mn;
+      sh.part_kx[w] = kx;
+      sh.part_kn[w] = kn;
+    }
+  }
+  __syncthreads();
+  int2* wd = words + row * n_words;
+  for (int i = tid; i < w1 - w0; i += kPlaneThreads) {
+    wd[w0 + i] = make_int2((int)msk[i], first[i]);
+  }
+  // This CTA's extremes and counts per pair (over its shares) to every
+  // rank's gather (stores, so no thread waits on a remote load); after the
+  // cluster's barrier every CTA has the row's, exact in any order.
+  cluster_wait();  // every CTA of the cluster has started
+  for (int d = tid; d < half_k; d += kPlaneThreads) {
+    float vx = -INFINITY, vn = INFINITY;
+    for (int s = 0; s < shares; ++s) {
+      vx = fmaxf(vx, sh.part_mx[s * half_k + d]);
+      vn = fminf(vn, sh.part_mn[s * half_k + d]);
+    }
+    int kx = 0, kn = 0;
+    for (int s = 0; s < shares; ++s) {
+      if (sh.part_mx[s * half_k + d] == vx) kx += sh.part_kx[s * half_k + d];
+      if (sh.part_mn[s * half_k + d] == vn) kn += sh.part_kn[s * half_k + d];
+    }
+    float* to = gather + (g * half_k + d) * 4;
+    for (int r = 0; r < blocks; ++r) {
+      st_cluster(to, r, vx);
+      st_cluster(to + 1, r, __int_as_float(kx));
+      st_cluster(to + 2, r, vn);
+      st_cluster(to + 3, r, __int_as_float(kn));
+    }
+  }
+  cluster_sync();  // every rank's extremes are here
+
+  // 2. Per pair: its extremes, the share of each hit that reaches one (the
+  // dense formulation's masked points project to 0: with any of them the
+  // extreme is max(valid max, 0) (min(valid min, 0)), and at 0 they tie
+  // too; the clamp passes where h >= 0), and the sum of the hits' shares.
+  const float gp = n >= 2 ? g_out[b * 5 + 2 + p] * angle_step : 0.f;
+  const int masked = 2 * n_walk - n;
+  float tx = 0.f, tz = 0.f;
+  for (int d = tid; d < half_k; d += kPlaneThreads) {
+    float vx = -INFINITY, vn = INFINITY;
+    for (int r = 0; r < blocks; ++r) {
+      vx = fmaxf(vx, gather[(r * half_k + d) * 4]);
+      vn = fminf(vn, gather[(r * half_k + d) * 4 + 2]);
+    }
+    int kx = 0, kn = 0;
+    for (int r = 0; r < blocks; ++r) {
+      const float* at = gather + (r * half_k + d) * 4;
+      if (at[0] == vx) kx += __float_as_int(at[1]);
+      if (at[2] == vn) kn += __float_as_int(at[3]);
+    }
+      const float M = masked > 0 ? fmaxf(vx, 0.f) : vx;
+    const int nx = (vx == M ? kx : 0) + (masked > 0 && M == 0.f ? masked : 0);
+    const float fx = (vx == M && M >= 0.f && nx > 0) ? gp / (float)nx : 0.f;
+    const float mm = masked > 0 ? fminf(vn, 0.f) : vn;
+    const int nn = (vn == mm ? kn : 0) + (masked > 0 && mm == 0.f ? masked : 0);
+    const float fn = (vn == mm && -mm >= 0.f && nn > 0) ? gp / (float)nn : 0.f;
+    const float c = sh.dir[d].x, s = sh.dir[d].y;
+    sh.dir[d] = make_float4(c, s, vx, vn);
+    sh.coef[d] = make_float4(fx * c, fx * s, fn * c, fn * s);
+    const float t = fx * (float)kx - fn * (float)kn;
+    tx += t * c;
+    tz += t * s;
+  }
+  // The centroid's share (block_sum's barriers publish the pairs' arrays).
+  const float cnt = fmaxf((float)n, 1.f);
+  const float cgx = -block_sum(tx, sh.red) / cnt;
+  const float cgz = -block_sum(tz, sh.red) / cnt;
+  if (g == 0 && n > n_records) {  // for the hits past the records
+    float4* dr = reinterpret_cast<float4*>(dirs + row * (8 * half_k + 4));
+    for (int d = tid; d < half_k; d += kPlaneThreads) {
+      dr[d] = sh.dir[d];
+      dr[half_k + d] = sh.coef[d];
+    }
+    if (tid == 0) dr[2 * half_k] = make_float4(cgx, cgz, 0.f, 0.f);
+  }
+
+  // (the first group's marks, issued before the sweep, are back)
+  for (int c = 0; c < 3; ++c) {
+    mark_listed(flags, listed, V, b, in.face[c], old[c]);
+  }
+
+  // 3. A warp a group of 32 hits, a lane a hit: its point cotangent, its
+  // chain, its record, its face's vertices marked for plane p, and the
+  // group's plane-height cotangent.
+  const float h = plane_h[row];
+  for (int k = k0; k < groups; k += blocks * kWarps) {
+    const int j = k * kGroup + lane;
+    float gh = 0.f;
+    if (j < n) {
+      if (k != k0) {
+        load_hit(in, faces, ids, hp, cp, j);
+        for (int c = 0; c < 3; ++c) {
+          mark_vertex(flags, listed, V, b, in.face[c], 1u << p);
+        }
+      }
+      Tri T;
+      load_tri(vb, in.face, T);
+      const float2 pg = hull_point_grad(sh.dir, sh.coef, half_k,
+                                        in.q.x - cx, in.q.y - cz);
+      float g9[kRecord];
+      hit_vjp<kMode>(T, h, in.code & 15, pg.x + cgx, pg.y + cgz, g9, gh);
+      if (j < n_records) {
+        float* r = records + (row * n_records + j) * kRecord;
+#pragma unroll
+        for (int i = 0; i < kRecord; ++i) r[i] = g9[i];
+      }
+    }
+    for (int o = 16; o > 0; o >>= 1) gh += __shfl_down_sync(0xffffffffu, gh, o);
+    if (lane == 0) gh_part[row * n_groups + k] = gh;
+  }
+}
+
+// The plane height's cotangent of row `row` (B x 3): its hits' groups in
+// order, then the output's own.
+__device__ float plane_height_grad(const float* gh_part, const float* stats,
+                                   const float* g_plane_h, size_t row,
+                                   int n_groups) {
+  const int n = (int)stats[((row / 3) * 4 + row % 3) * 4];
+  const int groups = (n + kGroup - 1) / kGroup;
+  const float* gp = gh_part + row * n_groups;
+  float s = 0.f;
+  for (int k = 0; k < groups; k += 8) {  // 8 loads in flight, added in order
+    float v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = k + i < groups ? gp[k + i] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (k + i < groups) s += v[i];
+    }
+  }
+  return s + g_plane_h[row];
+}
+
+// A hit past the records, in the vertices pass: its point cotangent and
+// chain again with the planes pass's operations (the same bits), its
+// vertex-`c` part. Out of line: rare, and it keeps the pass's registers.
+template <int kMode>
+__device__ __noinline__ float3 hit_again(
+    const float* vb, const int* faces, const int* ids, const float2* hits,
+    const int* codes, const float* st, const float4* dr, float h, int half_k,
+    int j, int c) {
+  const float2 q = hits[j];
+  const float2 pg = hull_point_grad(dr, dr + half_k, half_k, q.x - st[1],
+                                    q.y - st[2]);
+  const int code = codes[j], pos = code >> 4;
+  const float4 cg = dr[2 * half_k];
+  Tri T;
+  load_tri(vb, faces + 3 * (ids ? ids[pos] : pos), T);
+  float g9[kRecord], gh;
+  hit_vjp<kMode>(T, h, code & 15, pg.x + cg.x, pg.y + cg.y, g9, gh);
+  return make_float3(g9[3 * c], g9[3 * c + 1], g9[3 * c + 2]);
+}
+
+// Backward, part 2: the marked vertices of each body, a thread each. See
+// the header.
+template <int kMode>
+__global__ void __launch_bounds__(kThreads) measure_backward_vertices(
+    const float* __restrict__ verts, const int* __restrict__ faces,
+    const int* __restrict__ plane_faces, const int* __restrict__ anchor_face,
+    const float* __restrict__ anchor_bary, const float2* __restrict__ hits,
+    const int* __restrict__ codes, const float* __restrict__ stats,
+    const float* __restrict__ plane_h, const float* __restrict__ g_plane_h,
+    const float* __restrict__ records, const int2* __restrict__ words,
+    const float* __restrict__ gh_part, const float* __restrict__ dirs,
+    const int* __restrict__ corner_ptr, const int4* __restrict__ corners,
+    const int* __restrict__ plane_ptr, const int* __restrict__ plane_idx,
+    const unsigned* __restrict__ flags, const int* __restrict__ listed,
+    float* __restrict__ grad, int B, int V, int Vm, Planes planes, int cap,
+    int n_records, int n_words, int n_groups, int half_k) {
+  const int b = blockIdx.y;
+  const float* vb = verts + (size_t)b * V * 3;
+  const unsigned* count = flags + (size_t)B * V + b;
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < V;
+       i += gridDim.x * kThreads) {
+    const int v = listed[(size_t)b * V + i];  // loaded beside the count
+    if (i >= (int)*count) break;
+    const unsigned marks = flags[(size_t)b * V + v];
+    // Circumferences: each marked plane's hits in the faces around v, in
+    // the entries' order, found through the hit map.
+    float hx = 0.f, hy = 0.f, hz = 0.f;
+    for (int p = 0; p < 3; ++p) {
+      if (!(marks >> p & 1u)) continue;
+      const size_t row = (size_t)b * 3 + p;
+      const int2* wd = words + row * n_words;
+      const float* rec = records + row * n_records * kRecord;
+      const int* ptr = plane_ptr ? plane_ptr + (size_t)p * (Vm + 1)
+                                 : corner_ptr;
+      const int e1 = ptr[v + 1];
+      for (int e = ptr[v]; e < e1; e += kProbe) {  // kProbe at once
+        int ent[kProbe];
+        int2 w[kProbe];
+#pragma unroll
+        for (int u = 0; u < kProbe; ++u) {
+          if (e + u < e1) {
+            ent[u] = plane_ptr ? plane_idx[e + u] : corners[e + u].x;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kProbe; ++u) {
+          if (e + u < e1) w[u] = wd[(ent[u] >> 2) / kWordSpan];
+        }
+#pragma unroll
+        for (int u = 0; u < kProbe; ++u) {
+          if (e + u >= e1) break;
+          const int pos = ent[u] >> 2, c = ent[u] & 3;
+          const int shift = 2 * (pos % kWordSpan);
+          const unsigned m = (unsigned)w[u].x;
+          const int there = __popc((m >> shift) & 3u);
+          int j = w[u].y + __popc(m & ((1u << shift) - 1u));
+          for (int t = 0; t < there; ++t, ++j) {
+            float3 r;
+            if (j < n_records) {
+              const float* q = rec + (size_t)j * kRecord + 3 * c;
+              r = make_float3(q[0], q[1], q[2]);
+            } else {
+              r = hit_again<kMode>(
+                  vb, faces,
+                  plane_faces ? plane_faces + planes.off[p] : nullptr,
+                  hits + row * cap, codes + row * cap,
+                  stats + ((size_t)b * 4 + p) * 4,
+                  reinterpret_cast<const float4*>(dirs +
+                                                  row * (8 * half_k + 4)),
+                  plane_h[row], half_k, j, c);
+            }
+            hx += r.x;
+            hy += r.y;
+            hz += r.z;
+          }
+        }
+      }
+    }
+    float* gv = grad + ((size_t)b * V + v) * 3;
+    const float gx = gv[0] + hx, gz = gv[2] + hz;
+    float gy = gv[1] + hy;
+    // The three plane heights, at their anchors.
+    if (marks & 8u) {
+      for (int a = 2; a < 5; ++a) {
+        const int* f = faces + 3 * anchor_face[a];
+        for (int k = 0; k < 3; ++k) {
+          if (f[k] != v) continue;
+          gy += plane_height_grad(gh_part, stats, g_plane_h,
+                                  (size_t)b * 3 + a - 2, n_groups) *
+                anchor_bary[3 * a + k];
+        }
+      }
+    }
+    gv[0] = gx;
+    gv[1] = gy;
+    gv[2] = gz;
+  }
 }
 
 // The slice points of K1-AoS, part 1: every slot of every (body, plane) row
@@ -1086,38 +1454,93 @@ int launch_forward(const void* verts, const void* faces,
   return (int)cudaGetLastError();
 }
 
+// The planes pass's dynamic shared memory: BwdShared, the gather of the
+// cluster's extremes (4 words a (rank, pair)) and a CTA's words of the hit
+// map (a mask and an int each).
+size_t backward_smem(int n_words, int blocks, int half_k) {
+  const int wpb = (n_words + blocks - 1) / blocks;
+  return sizeof(BwdShared) + (size_t)blocks * half_k * 4 * sizeof(float) +
+         (size_t)wpb * (sizeof(unsigned) + sizeof(int));
+}
+
 template <int kMode>
 int launch_backward(const void* verts, const void* faces,
                     const void* plane_faces, const void* anchor_face,
                     const void* anchor_bary, const void* hull_cos,
                     const void* hull_sin, const void* hits, const void* codes,
                     const void* stats, const void* plane_h, const void* g_out,
-                    const void* g_plane_h, void* ghits, void* slot_map,
-                    void* g_heights, const void* face_ptr,
-                    const void* face_idx, const void* plane_ptr,
-                    const void* plane_idx, void* grad, int B, int V, int Vm,
-                    Planes planes, int cap, int smax, int half_k,
+                    const void* g_plane_h, void* records, void* words,
+                    void* gh_part, void* dirs, void* flags, void* listed,
+                    const void* corner_ptr, const void* corners,
+                    const void* plane_ptr, const void* plane_idx, void* grad,
+                    int B, int V, int Vm, Planes planes, int cap, int blocks,
+                    int n_records, int n_words, int n_groups, int half_k,
                     float angle_step, float density, void* stream) {
-  if (half_k > kMaxHalfK) return (int)cudaErrorInvalidValue;
+  int most = 1;
+  for (int p = 0; p < 3; ++p) most = std::max(most, planes.n[p]);
+  // the mass CTAs, a whole number of clusters
+  const int mass_ctas = ((V + kPlaneThreads - 1) / kPlaneThreads + blocks -
+                         1) / blocks * blocks;
+  if (half_k < 1 || half_k > kMaxHalfK || blocks < 1 || blocks > 8 ||
+      3 * blocks + mass_ctas > 65535 ||
+      n_words < (most + kWordSpan - 1) / kWordSpan ||
+      n_groups < (2 * most + kGroup - 1) / kGroup || 2 * most > cap ||
+      n_records < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   const cudaStream_t s = (cudaStream_t)stream;
-  measure_backward_planes<kMode><<<dim3(3, B), kThreads, 0, s>>>(
+  // The marks: B x V flags, then B counts, all 0.
+  cudaError_t err =
+      cudaMemsetAsync(flags, 0, sizeof(unsigned) * (size_t)B * (V + 1), s);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = backward_smem(n_words, blocks, half_k);
+  auto planes_kernel = measure_backward_planes<kMode>;
+  static size_t smem_set[64] = {};  // per device, as launch_forward
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (smem > 48 * 1024 && (dev >= 64 || smem > smem_set[dev])) {
+    err = cudaFuncSetAttribute(
+        planes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) smem_set[dev] = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B, 3 * blocks + mass_ctas);
+  cfg.blockDim = dim3(kPlaneThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = blocks;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, planes_kernel,
       (const float*)verts, (const int*)faces, (const int*)plane_faces,
+      (const int*)anchor_face, (const float*)anchor_bary,
       (const float*)hull_cos, (const float*)hull_sin, (const float2*)hits,
       (const int*)codes, (const float*)stats, (const float*)plane_h,
-      (const float*)g_out, (const float*)g_plane_h, (float2*)ghits,
-      (int*)slot_map, (float*)g_heights, V, planes, cap, smax, half_k,
-      angle_step);
-  const cudaError_t err = cudaGetLastError();
+      (const float*)g_out, (const int*)corner_ptr, (const int4*)corners,
+      (float*)grad, (float*)records, (int2*)words, (float*)gh_part,
+      (float*)dirs, (unsigned*)flags, (int*)listed, V, Vm, planes, blocks,
+      cap, n_records, n_words, n_groups, half_k, angle_step, density);
   if (err != cudaSuccess) return (int)err;
-  measure_backward_vertices<kMode>
-      <<<dim3((V + kThreads - 1) / kThreads, B), kThreads, 0, s>>>(
-          (const float*)verts, (const int*)faces, (const int*)plane_faces,
-          (const int*)anchor_face, (const float*)anchor_bary,
-          (const int*)codes, (const float*)stats, (const float*)plane_h,
-          (const float*)g_out, (const float2*)ghits, (const int*)slot_map,
-          (const float*)g_heights, (const int*)face_ptr,
-          (const int*)face_idx, (const int*)plane_ptr, (const int*)plane_idx,
-          (float*)grad, V, Vm, planes, cap, smax, density);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  measure_backward_vertices<kMode><<<dim3(kMarkedCtas, B), kThreads, 0, s>>>(
+      (const float*)verts,
+      (const int*)faces, (const int*)plane_faces, (const int*)anchor_face,
+      (const float*)anchor_bary, (const float2*)hits, (const int*)codes,
+      (const float*)stats, (const float*)plane_h, (const float*)g_plane_h,
+      (const float*)records, (const int2*)words, (const float*)gh_part,
+      (const float*)dirs, (const int*)corner_ptr, (const int4*)corners,
+      (const int*)plane_ptr, (const int*)plane_idx, (const unsigned*)flags,
+      (const int*)listed, (float*)grad, B, V, Vm, planes, cap, n_records,
+      n_words, n_groups, half_k);
   return (int)cudaGetLastError();
 }
 
@@ -1172,28 +1595,35 @@ extern "C" int measure_exact_forward(MEASURE_FORWARD_ARGS) {
 
 // Backward of the forward above, with its inputs and saved hits, codes,
 // stats and plane_h. g_out (B, 5) and g_plane_h (B, 3) f32 are the output
-// cotangents; ghits (B, 3, cap) float2, slot_map (B, 3, smax) i32 with smax
-// >= max(n) and g_heights (B, 3) f32 are scratch; face_ptr (Vm + 1,) and
-// face_idx (3F,) i32 list each vertex's (face * 4 + corner) in face order;
-// plane_ptr (3, Vm + 1) and plane_idx i32 list (walk position * 4 + corner)
-// for the planes' face lists, or NULL when the planes walk all faces; grad
-// (B, V, 3) f32, vertices >= Vm get 0. Returns cudaGetLastError().
+// cotangents. The plan (measure_backward_plan): `blocks` CTAs a (body,
+// plane), records of the first n_records hits a row, n_words >= (max(n) +
+// 15) / 16 words of the hit map and n_groups >= (2 max(n) + 31) / 32
+// groups a row; their scratch: records (B, 3, n_records, 9) f32, words
+// (B, 3, n_words, 2) i32, gh_part (B, 3, n_groups) f32, dirs (B, 3,
+// 8 half_k + 4) f32, flags (B (V + 1),) i32 (cleared here) and listed
+// (B, V) i32. corner_ptr (Vm + 1,) and corners (3F, 4) i32 list each
+// vertex's (face * 4 + corner, the face's next vertex, its previous
+// vertex, 0) in face order; plane_ptr (3, Vm + 1) and plane_idx i32 list
+// (walk position * 4 + corner) for the planes' face lists, or NULL when the
+// planes walk all faces; grad (B, V, 3) f32, vertices >= Vm get 0. Returns
+// the launches' error, else cudaGetLastError().
 #define MEASURE_BACKWARD_ARGS                                                 \
   const void *verts, const void *faces, const void *plane_faces,              \
       const void *anchor_face, const void *anchor_bary, const void *hull_cos, \
       const void *hull_sin, const void *hits, const void *codes,              \
       const void *stats, const void *plane_h, const void *g_out,              \
-      const void *g_plane_h, void *ghits, void *slot_map, void *g_heights,    \
-      const void *face_ptr, const void *face_idx, const void *plane_ptr,      \
-      const void *plane_idx, void *grad, int B, int V, int Vm, int off0,      \
-      int off1, int off2, int n0, int n1, int n2, int cap, int smax,         \
-      int half_k, float angle_step, float density, void *stream
+      const void *g_plane_h, void *records, void *words, void *gh_part,       \
+      void *dirs, void *flags, void *listed, const void *corner_ptr,          \
+      const void *corners, const void *plane_ptr, const void *plane_idx,      \
+      void *grad, int B, int V, int Vm, int off0, int off1, int off2, int n0, \
+      int n1, int n2, int cap, int blocks, int n_records, int n_words,        \
+      int n_groups, int half_k, float angle_step, float density, void *stream
 #define MEASURE_BACKWARD_CALL                                                 \
   verts, faces, plane_faces, anchor_face, anchor_bary, hull_cos, hull_sin,    \
-      hits, codes, stats, plane_h, g_out, g_plane_h, ghits, slot_map,         \
-      g_heights, face_ptr, face_idx, plane_ptr, plane_idx, grad, B, V, Vm,    \
-      make_planes(off0, off1, off2, n0, n1, n2), cap, smax, half_k,          \
-      angle_step, density, stream
+      hits, codes, stats, plane_h, g_out, g_plane_h, records, words, gh_part, \
+      dirs, flags, listed, corner_ptr, corners, plane_ptr, plane_idx, grad,   \
+      B, V, Vm, make_planes(off0, off1, off2, n0, n1, n2), cap, blocks,       \
+      n_records, n_words, n_groups, half_k, angle_step, density, stream
 
 extern "C" int measure_backward(MEASURE_BACKWARD_ARGS) {
   return launch_backward<kReference>(MEASURE_BACKWARD_CALL);

@@ -72,7 +72,7 @@ DEFAULT_VERTICES = {
 }
 
 _FORWARD_ARGS = "pppp ppp pppp ppp iii iii iii ii ff iiiii p"
-_BACKWARD_ARGS = "pppp ppp pppp ppp pppp ppp iii iii iii iii ff p"
+_BACKWARD_ARGS = "pppp ppp pppp pp pppp pp ppppp iii iii iii i iiiii ff p"
 MEASURE_KERNEL = CudaKernel("measure.cu", {
     "measure_forward": _FORWARD_ARGS,
     "measure_exact_forward": _FORWARD_ARGS,
@@ -91,6 +91,16 @@ _K1_CTA_FACES = 1024
 _K1_MASS_SHARE = 4
 _K1_MAX_CLUSTER = 16
 _K1_PLANE_CTAS = 128
+# K1's backward plan (measure_backward_plan): a cluster of up to 4 CTAs a
+# (body, plane) while the batch's rows leave the H100's 132 SMs idle (each
+# sweeps its run of the row's hits), and records of each row's first 4096
+# hits (a slice has a few hundred; 147 KB a row).
+_K1B_MAX_BLOCKS = 4
+_K1B_SMS = 132
+_K1B_RECORDS = 4096
+_K1B_GROUP = 32  # hits a warp takes at once (kGroup in measure.cu)
+_K1B_THREADS = 512  # the planes pass's CTA (kPlaneThreads)
+_K1B_WORD_SPAN = 16  # walk positions a word of the hit map (kWordSpan)
 
 
 class MeasurePlan(NamedTuple):
@@ -118,6 +128,34 @@ def measure_plan(counts: Tuple[int, int, int], F: int,
     cluster = max(1, cluster)
     return MeasurePlan(cluster, tuple(-(-n // cluster) for n in counts),
                        -(-F // cluster))
+
+
+class MeasureBackwardPlan(NamedTuple):
+    """K1's backward work split and scratch (from the shape alone): a
+    cluster of ``blocks`` CTAs per (body, plane)
+    (``measure_backward_planes``), the ``records`` of each row's first
+    hits (9 floats each: the hit's VJP to its face), and per row
+    ``words`` words of the hit map (a word per 16 walk positions) and
+    ``groups`` sums of the plane height's cotangent (a group per 32
+    hits)."""
+
+    blocks: int
+    records: int
+    words: int
+    groups: int
+
+
+def measure_backward_plan(counts: Tuple[int, int, int],
+                          B: int) -> MeasureBackwardPlan:
+    """The plan of K1's backward (``csrc/measure.cu``) for B bodies whose
+    planes walk ``counts`` faces: up to 4 CTAs a row while 3 B rows leave
+    SMs of the H100's 132 idle, records of at most 4096 hits a row, and
+    the words and groups that the rows' most hits need (2 a face)."""
+    most = max(max(counts), 1)
+    blocks = max(1, min(_K1B_MAX_BLOCKS, _K1B_SMS // max(3 * B, 1)))
+    return MeasureBackwardPlan(blocks, min(2 * most, _K1B_RECORDS),
+                               -(-most // _K1B_WORD_SPAN),
+                               -(-2 * most // _K1B_GROUP))
 
 
 @dataclass(frozen=True)
@@ -240,17 +278,25 @@ def _anchor_point(triangles: torch.Tensor, anchor: Anchor) -> torch.Tensor:
     return face_barycentric_point(triangles, anchor.face_idx, anchor.bary)
 
 
-def vertex_corner_lists(faces: np.ndarray, num_vertices: int
+def vertex_corner_lists(faces: np.ndarray, num_vertices: int,
+                        others: bool = False
                         ) -> Tuple[np.ndarray, np.ndarray]:
     """For each vertex, its (position * 4 + corner) entries in ``faces``
     (P, 3), in position order, as CSR: ptr (num_vertices + 1,) and idx
-    (3P,), int32. The backward kernel sums each vertex's gradient over
-    these in this fixed order."""
-    flat = np.asarray(faces, np.int64).reshape(-1)
+    (3P,), int32. With ``others`` each entry is a row (position * 4 +
+    corner, the face's next vertex, its previous vertex, 0) of idx (3P,
+    4), so that the mass term's cross product reads no face. The backward
+    kernel sums each vertex's gradient over these in this fixed order."""
+    faces = np.asarray(faces, np.int64)
+    flat = faces.reshape(-1)
     order = np.argsort(flat, kind="stable")  # position * 3 + corner
     ptr = np.zeros(num_vertices + 1, np.int64)
     np.cumsum(np.bincount(flat, minlength=num_vertices), out=ptr[1:])
-    idx = (order // 3) * 4 + order % 3
+    pos, corner = order // 3, order % 3
+    idx = pos * 4 + corner
+    if others:
+        idx = np.stack([idx, faces[pos, (corner + 1) % 3],
+                        faces[pos, (corner + 2) % 3], np.zeros_like(idx)], -1)
     return ptr.astype(np.int32), idx.astype(np.int32)
 
 
@@ -319,6 +365,54 @@ def measure_plain(
     return torch.stack(cols, dim=-1), torch.stack(heights, dim=-1)
 
 
+def _saved_rows_plain(vertices: torch.Tensor, faces: torch.Tensor,
+                      plane_faces: Optional[List[torch.Tensor]],
+                      plane_heights: torch.Tensor, slice_mode: str):
+    """The plain slice of each plane at the given (B, 3) plane heights, as
+    K1's forward saves it: hits (B, 3, cap, 2) in face order (by walk
+    position, then quad triangle / first-second; 0 past a row's hits),
+    codes (B, 3, cap) (walk position * 16 + the formula that made the hit,
+    as the kernel writes it) and (B, 3, 3) the hit count and the centroid
+    as :func:`~shapy_tpu_torch.ops.convex_hull.hull_perimeter_support_xz`
+    takes it, per plane."""
+    B, dev = vertices.shape[0], vertices.device
+    tx, ty, tz = _soa(vertices, faces)
+    walks = [tx.shape[-1] if plane_faces is None else plane_faces[p].shape[0]
+             for p in range(3)]
+    cap = 2 * max(max(walks), 1)
+    hits = torch.zeros((B, 3, cap, 2), dtype=torch.float32, device=dev)
+    codes = torch.zeros((B, 3, cap), dtype=torch.int32, device=dev)
+    rows = torch.zeros((B, 3, 3), dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    for p, n_walk in enumerate(walks):
+        ids = None if plane_faces is None else plane_faces[p].long()
+        sx, sy, sz = (tx, ty, tz) if ids is None else (
+            tx[..., ids], ty[..., ids], tz[..., ids])
+        pos = torch.arange(n_walk, device=dev)
+        if slice_mode == "reference":
+            xs, zs, m, won = plane_slice_reference_soa(
+                sy, sx, sz, plane_heights[:, p], face_ids=ids, winners=True)
+            code = torch.cat([pos, pos]) * 16 + won
+        else:
+            xs, zs, m = plane_slice_soa(sy, sx, sz, plane_heights[:, p])
+            d = sy - plane_heights[:, p, None, None]
+            first = torch.where(d[:, 0] * d[:, 1] < 0, 0, 1)
+            second = torch.where(d[:, 2] * d[:, 0] < 0, 2, 1)
+            code = torch.cat([pos * 16 + first, pos * 16 + 4 + second], -1)
+        count = torch.clamp(m.sum(-1), min=1)
+        rows[:, p, 0] = m.sum(-1).float()
+        rows[:, p, 1] = torch.where(m, xs, zero).sum(-1) / count
+        rows[:, p, 2] = torch.where(m, zs, zero).sum(-1) / count
+        order = torch.stack([pos, pos + n_walk], -1).reshape(-1)
+        xs, zs, m, code = (t.expand(B, -1)[:, order]
+                           for t in (xs, zs, m, code))
+        for b in range(B):
+            k = int(m[b].sum())
+            hits[b, p, :k, 0], hits[b, p, :k, 1] = xs[b][m[b]], zs[b][m[b]]
+            codes[b, p, :k] = code[b][m[b]].int()
+    return hits, codes, rows
+
+
 def saved_hits_plain(vertices: torch.Tensor, faces: torch.Tensor,
                      plane_faces: Optional[List[torch.Tensor]],
                      plane_heights: torch.Tensor, slice_mode: str
@@ -327,35 +421,16 @@ def saved_hits_plain(vertices: torch.Tensor, faces: torch.Tensor,
     masks at the given (B, 3) plane heights: per body, per plane, the (n,
     2) points in face order (by walk position, then quad triangle /
     first-second) and their (n,) codes. A reference code holds walk
-    position * 16 + quad triangle * 8 (the plain slice does not say which
-    of the six candidates won: compare ``code & ~7``); an exact code also
-    the crossed edge, as the kernel writes it."""
-    tx, ty, tz = _soa(vertices, faces)
-    per_plane = []
-    for p in range(3):
-        ids = None if plane_faces is None else plane_faces[p].long()
-        sx, sy, sz = (tx, ty, tz) if ids is None else (
-            tx[..., ids], ty[..., ids], tz[..., ids])
-        n = sy.shape[-1]
-        pos = torch.arange(n, device=vertices.device)
-        if slice_mode == "reference":
-            xs, zs, m = plane_slice_reference_soa(sy, sx, sz,
-                                                  plane_heights[:, p],
-                                                  face_ids=ids)
-            codes = torch.cat([pos * 16, pos * 16 + 8])[None].expand_as(m)
-        else:
-            xs, zs, m = plane_slice_soa(sy, sx, sz, plane_heights[:, p])
-            d = sy - plane_heights[:, p, None, None]
-            first = torch.where(d[:, 0] * d[:, 1] < 0, 0, 1)
-            second = torch.where(d[:, 2] * d[:, 0] < 0, 2, 1)
-            codes = torch.cat([pos * 16 + first, pos * 16 + 4 + second],
-                              dim=-1)
-        order = torch.stack([pos, pos + n], dim=-1).reshape(-1)
-        xs, zs, m, codes = (t[:, order] for t in (xs, zs, m, codes))
-        per_plane.append([(torch.stack([xs[b][m[b]], zs[b][m[b]]], -1),
-                           codes[b][m[b]].int())
-                          for b in range(vertices.shape[0])])
-    return [list(rows) for rows in zip(*per_plane)]
+    position * 16 + quad triangle * 8 (compare ``code & ~7``: which of the
+    six candidates won is the kernel's to say); an exact code also the
+    crossed edge, as the kernel writes it."""
+    hits, codes, rows = _saved_rows_plain(vertices, faces, plane_faces,
+                                          plane_heights, slice_mode)
+    if slice_mode == "reference":
+        codes = codes & ~7
+    n = rows[..., 0].long().tolist()
+    return [[(hits[b, p, :n[b][p]], codes[b, p, :n[b][p]])
+             for p in range(3)] for b in range(vertices.shape[0])]
 
 
 def saved_centroids(vals: torch.Tensor) -> torch.Tensor:
@@ -363,6 +438,320 @@ def saved_centroids(vals: torch.Tensor) -> torch.Tensor:
     for ``vals``, the first output of a :meth:`BodyMeasurements.measure`
     call that records a graph, as saved for its backward."""
     return vals.grad_fn.saved_tensors[3][:, :3, 1:3]
+
+
+def saved_forward_plain(meas: "BodyMeasurements", vertices: torch.Tensor,
+                        use_face_subsets: bool = True
+                        ) -> Tuple[torch.Tensor, ...]:
+    """What K1's / K1-exact's forward saves for its backward, from the
+    plain version on any device: hits and codes (``_saved_rows_plain``),
+    stats (B, 4, 4) (per plane: hit count and centroid; row 3: the signed
+    volume sum) and plane_h (B, 3). For :func:`measure_backward_replay`
+    off the card."""
+    v = vertices.detach().float()
+    _, plane_h = measure_plain(v, meas.faces, None, meas.anchors,
+                               meas.num_hull_directions, meas.density,
+                               meas.slice_mode)
+    plane_faces = ([getattr(meas, f"subset_{n}") for n in PLANES]
+                   if use_face_subsets and meas.has_subsets else None)
+    hits, codes, rows = _saved_rows_plain(v, meas.faces, plane_faces,
+                                          plane_h, meas.slice_mode)
+    stats = torch.zeros((v.shape[0], 4, 4), dtype=torch.float32,
+                        device=v.device)
+    stats[:, :3, :3] = rows
+    (x0, x1, x2), (y0, y1, y2), (z0, z1, z2) = (
+        c.unbind(1) for c in _soa(v, meas.faces))
+    stats[:, 3, 0] = (-x2 * y1 * z0 + x1 * y2 * z0 + x2 * y0 * z1
+                      - x0 * y2 * z1 - x1 * y0 * z2 + x0 * y1 * z2).sum(-1)
+    return hits, codes, stats, plane_h
+
+
+def _block_sum_replay(vals: torch.Tensor) -> torch.Tensor:
+    """``block_sum`` of ``measure.cu`` over (..., threads) thread values:
+    each warp's shuffle tree, then warp 0's over the warps' sums."""
+    warps = vals.shape[-1] // 32
+    w = vals.reshape(*vals.shape[:-1], warps, 32)
+    for o in (16, 8, 4, 2, 1):
+        w = w[..., :o] + w[..., o:2 * o]
+    z = torch.zeros((*vals.shape[:-1], 32), dtype=vals.dtype,
+                    device=vals.device)
+    z[..., :warps] = w[..., 0]
+    for o in (16, 8, 4, 2, 1):
+        z = z[..., :o] + z[..., o:2 * o]
+    return z[..., 0]
+
+
+# Quad triangle q's edge c as (origin a, origin b, direction a, direction
+# b): measure.cu's quad_edge, row q * 3 + c.
+_QUAD_EDGES = ((-1.0, -1.0, 2.0, 0.0), (1.0, -1.0, 0.0, 2.0),
+               (1.0, 1.0, -2.0, -2.0), (-1.0, -1.0, 2.0, 2.0),
+               (1.0, 1.0, -2.0, 0.0), (-1.0, 1.0, 0.0, -2.0))
+
+
+def _hit_vjp_replay(xyz, h, detail, ga, gb, exact: bool):
+    """``hit_vjp`` of ``measure.cu`` (gy = 0) for (..., ) hits: xyz (3, 3,
+    ...) the triangles' coordinates [coordinate][vertex]; returns (..., 9)
+    and the plane height's (...)."""
+    (x, y, z) = xyz
+    zero = torch.zeros_like(ga)
+
+    def pick(c, k):  # c[k] with k a (...) index into the three vertices
+        return torch.where(k == 0, c[0], torch.where(k == 1, c[1], c[2]))
+
+    if exact:
+        a = detail & 3
+    else:
+        q, c = detail >> 3, detail & 7
+        a = (c - 3).clamp(0, 2)
+    b = torch.where(a == 2, 0, a + 1)
+    xa, xb, ya, yb, za, zb = (pick(x, a), pick(x, b), pick(y, a),
+                              pick(y, b), pick(z, a), pick(z, b))
+    if exact:
+        sa, sb = ya - h, yb - h
+        denom = sa - sb
+        big = torch.abs(denom) > 1e-20
+        den = torch.where(big, denom, torch.full_like(denom, 1e-20))
+        t = sa / den
+        gt = ga * (xb - xa) + gb * (zb - za)
+        gsa = gt / den
+        gden = -gt * t / den
+        gsa = torch.where(big, gsa + gden, gsa)
+        gsb = torch.where(big, zero - gden, zero)
+        ya_g, yb_g, gh = gsa, gsb, -(gsa + gsb)
+    else:
+        dy = yb - ya
+        t = (h - ya) / dy
+        gt = ga * (xb - xa) + gb * (zb - za)
+        gnum = gt / dy
+        gdy = -gt * t / dy
+        ya_g, yb_g, gh = -gnum - gdy, gdy, gnum
+    rows = []
+    for k in range(3):
+        at_a, at_b = a == k, b == k
+        rows += [torch.where(at_a, ga - ga * t, torch.where(at_b, ga * t,
+                                                            zero)),
+                 torch.where(at_a, ya_g, torch.where(at_b, yb_g, zero)),
+                 torch.where(at_a, gb - gb * t, torch.where(at_b, gb * t,
+                                                            zero))]
+    g9 = torch.stack(rows, -1)
+    if exact:
+        return g9, gh
+    # Moller casts of the quad edges (c < 3)
+    table = torch.tensor(_QUAD_EDGES, dtype=ga.dtype, device=ga.device)
+    E = table[(q * 3 + c.clamp(max=2)).long()]
+    ox, oz, dx, dz = E.unbind(-1)
+    e1x, e1y, e1z = x[1] - x[0], y[1] - y[0], z[1] - z[0]
+    e2x, e2y, e2z = x[2] - x[0], y[2] - y[0], z[2] - z[0]
+    px = -dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y
+    det = e1x * px + e1y * py + e1z * pz
+    inv = 1.0 / det
+    tx, ty, tz = ox - x[0], h - y[0], oz - z[0]
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    num = e2x * qx + e2y * qy + e2z * qz
+    gt = ga * dx + gb * dz
+    gnum = gt * inv
+    gdet = -(gt * num) * inv * inv
+    ge2x, ge2y, ge2z = gnum * qx, gnum * qy, gnum * qz
+    gqx, gqy, gqz = gnum * e2x, gnum * e2y, gnum * e2z
+    gtx = e1y * gqz - e1z * gqy
+    gty = e1z * gqx - e1x * gqz
+    gtz = e1x * gqy - e1y * gqx
+    ge1x = gqy * tz - gqz * ty + gdet * px
+    ge1y = gqz * tx - gqx * tz + gdet * py
+    ge1z = gqx * ty - gqy * tx + gdet * pz
+    gpx, gpy, gpz = gdet * e1x, gdet * e1y, gdet * e1z
+    ge2x = ge2x + gpy * dz
+    ge2y = ge2y + (gpz * dx - gpx * dz)
+    ge2z = ge2z + -gpy * dx
+    cast = torch.stack([-gtx - ge1x - ge2x, -gty - ge1y - ge2y,
+                        -gtz - ge1z - ge2z, ge1x, ge1y, ge1z, ge2x, ge2y,
+                        ge2z], -1)
+    moller = (c < 3)[..., None]
+    return torch.where(moller, cast, g9), torch.where(c < 3, gty, gh)
+
+
+def measure_backward_replay(meas: "BodyMeasurements",
+                            vertices: torch.Tensor, saved, cotangents,
+                            use_face_subsets: bool = True) -> torch.Tensor:
+    """The gradient of K1's / K1-exact's backward kernels
+    (``measure_backward_planes`` then ``measure_backward_vertices``), in
+    their operations and order, in PyTorch on ``vertices``' device: each
+    pair's extremes and ties, the centroid's share from the pairs
+    (``block_sum``'s tree), each hit's point cotangent over the pairs in
+    order and its chain, the plane height's cotangent over groups of 32
+    hits (a warp's tree, then the groups in order), and per vertex the mass
+    term, each plane's hits and the anchors in the kernel's order. The
+    kernel's bits on the card; on any device the gradient of
+    :func:`measure_plain` given the same centroids, to rounding.
+
+    ``saved`` is (hits, codes, stats, plane_h) as the forward saves them
+    (``vals.grad_fn.saved_tensors[1:]`` of a kernel call, or
+    :func:`saved_forward_plain`); ``cotangents`` (g_out (B, 5), g_plane_h
+    (B, 3))."""
+    hits, codes, stats, plane_h = saved
+    g_out, g_plane_h = (g.detach().float() for g in cotangents)
+    walk = meas._vertex_walk(use_face_subsets)
+    v = vertices.detach().float()
+    B, V, _ = v.shape
+    dev, f32 = v.device, torch.float32
+    R = 3 * B
+    cs, sn = meas.hull_cos.to(dev), meas.hull_sin.to(dev)
+    half_k = cs.shape[0]
+    angle_step = torch.tensor(np.float32(2.0 * math.pi / (2 * half_k)),
+                              device=dev)
+    zero = torch.zeros((), dtype=f32, device=dev)
+
+    # The planes pass, all rows at once, hits padded to the most.
+    n = stats[:, :3, 0].reshape(R).long()
+    N = max(int(n.max()), 1)
+    cap = hits.shape[2]
+    pts = hits.reshape(R, cap, 2)[:, :N].float()
+    code = codes.reshape(R, cap)[:, :N].long()
+    valid = torch.arange(N, device=dev) < n[:, None]
+    xc = pts[..., 0] - stats[:, :3, 1].reshape(R, 1)
+    zc = pts[..., 1] - stats[:, :3, 2].reshape(R, 1)
+    pr = xc[..., None] * cs + zc[..., None] * sn  # (R, N, K/2)
+    inf = torch.tensor(float("inf"), device=dev)
+    vx = torch.where(valid[..., None], pr, -inf).amax(1)
+    vn = torch.where(valid[..., None], pr, inf).amin(1)
+    kx = ((pr == vx[:, None]) & valid[..., None]).sum(1)
+    kn = ((pr == vn[:, None]) & valid[..., None]).sum(1)
+    n_walk = torch.tensor(walk.counts, device=dev).repeat(B)
+    masked = (2 * n_walk - n)[:, None]
+    gp = torch.where(n >= 2, g_out[:, 2:5].reshape(R) * angle_step,
+                     zero)[:, None]
+    M = torch.where(masked > 0, torch.clamp(vx, min=0.0), vx)
+    nx = torch.where(vx == M, kx, 0) + torch.where(
+        (masked > 0) & (M == 0.0), masked, 0)
+    fx = torch.where((vx == M) & (M >= 0.0) & (nx > 0),
+                     gp / nx.clamp(min=1).float(), zero)
+    mm = torch.where(masked > 0, torch.clamp(vn, max=0.0), vn)
+    nn = torch.where(vn == mm, kn, 0) + torch.where(
+        (masked > 0) & (mm == 0.0), masked, 0)
+    fn = torch.where((vn == mm) & (-mm >= 0.0) & (nn > 0),
+                     gp / nn.clamp(min=1).float(), zero)
+    t = fx * kx.float() - fn * kn.float()
+    threads = torch.zeros((R, _K1B_THREADS), dtype=f32, device=dev)
+    threads[:, :half_k] = t * cs
+    tx = _block_sum_replay(zero + threads)  # a pair a thread
+    threads[:, :half_k] = t * sn
+    tz = _block_sum_replay(zero + threads)
+    cnt = torch.clamp(n, min=1).float()
+    cgx, cgz = (-tx / cnt)[:, None], (-tz / cnt)[:, None]
+    gx = torch.zeros_like(xc)
+    gz = torch.zeros_like(xc)
+    for d in range(half_k):
+        at_max, at_min = pr[..., d] == vx[:, d:d + 1], pr[..., d] == vn[
+            :, d:d + 1]
+        gx = torch.where(at_max, gx + fx[:, d:d + 1] * cs[d], gx)
+        gz = torch.where(at_max, gz + fx[:, d:d + 1] * sn[d], gz)
+        gx = torch.where(at_min, gx - fn[:, d:d + 1] * cs[d], gx)
+        gz = torch.where(at_min, gz - fn[:, d:d + 1] * sn[d], gz)
+    pos = torch.where(valid, code >> 4, 0)
+    row_p = torch.arange(R, device=dev) % 3
+    face = pos
+    if walk.plane_faces is not None:
+        off = torch.tensor(walk.offsets, device=dev)[row_p][:, None]
+        face = walk.plane_faces.long()[off + pos]
+    corner_ids = walk.faces.long()[face]  # (R, N, 3)
+    body = torch.arange(R, device=dev) // 3
+    xyz = v[body[:, None, None], corner_ids].permute(3, 2, 0, 1)
+    h = plane_h.reshape(R, 1).float()
+    g9, gh = _hit_vjp_replay(xyz, h, code & 15, gx + cgx, gz + cgz,
+                             meas.slice_mode == "exact")
+    g9 = torch.where(valid[..., None], g9, zero)
+    gh = torch.where(valid, gh, zero)
+    groups = -(-N // 32)
+    lanes = torch.zeros((R, groups * 32), dtype=f32, device=dev)
+    lanes[:, :N] = gh
+    lanes = lanes.view(R, groups, 32)
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes[..., :o] + lanes[..., o:2 * o]
+    part = lanes[..., 0]
+    g_h = torch.zeros(R, dtype=f32, device=dev)
+    for k in range(groups):
+        g_h = torch.where(k < (n + 31) // 32, g_h + part[:, k], g_h)
+    g_h = (g_h + g_plane_h.reshape(R)).view(B, 3)
+
+    # The vertices pass.
+    Vm = walk.num_mesh_vertices
+    ptr, ent = (t.long() for t in walk.face_csr)
+    grad = torch.zeros((B, V, 3), dtype=f32, device=dev)
+    gv = [torch.zeros((B, Vm), dtype=f32, device=dev) for _ in range(3)]
+    S = stats[:, 3, 0]
+    density = torch.tensor(np.float32(meas.density), device=dev)
+    six = torch.tensor(6.0, device=dev)  # a tensor: a CUDA division by a
+    # host scalar multiplies by its reciprocal
+    gm = (g_out[:, 0] * density / six * torch.sign(S))[:, None]
+
+    def entries(p_ptr, p_idx):  # per vertex its k-th entry, k < valence
+        count = p_ptr[1:] - p_ptr[:-1]
+        for k in range(int(count.max()) if count.numel() else 0):
+            yield k < count, p_idx[(p_ptr[:-1] + k).clamp(
+                max=p_idx.shape[0] - 1)]
+
+    for ok, e in entries(ptr, ent):
+        u, w = v[:, e[:, 1]], v[:, e[:, 2]]
+        terms = (u[..., 1] * w[..., 2] - u[..., 2] * w[..., 1],
+                 u[..., 2] * w[..., 0] - u[..., 0] * w[..., 2],
+                 u[..., 0] * w[..., 1] - u[..., 1] * w[..., 0])
+        for i in range(3):
+            gv[i] = torch.where(ok, gv[i] + gm * terms[i], gv[i])
+    y = v[..., 1]
+    anchors = walk.anchor_face.long().tolist()
+    bary = walk.anchor_bary.to(dev)
+
+    def anchor_y(a):
+        f = walk.faces.long()[anchors[a]]
+        return y[:, f[0]] * bary[a, 0] + y[:, f[1]] * bary[a, 1] + y[
+            :, f[2]] * bary[a, 2]
+
+    ght = g_out[:, 1] * torch.sign(anchor_y(0) - anchor_y(1))
+    for a in range(2):  # the height, with the mass
+        wgt = ght if a == 0 else -ght
+        for k, f in enumerate(walk.faces.long()[anchors[a]].tolist()):
+            gv[1][:, f] = gv[1][:, f] + wgt * bary[a, k]
+    # the marked vertices: each plane's hits, summed apart, then added
+    hv = [torch.zeros_like(gv[0]) for _ in range(3)]
+    rows = torch.arange(B, device=dev)[:, None] * 3
+    for p in range(3):
+        if walk.counts[p] == 0:
+            continue
+        first = torch.full((B, walk.counts[p]), -1, dtype=torch.long,
+                           device=dev)
+        there = torch.zeros((B, walk.counts[p]), dtype=torch.long,
+                            device=dev)
+        for b in range(B):
+            k = int(n[3 * b + p])
+            at = pos[3 * b + p, :k]
+            there[b].index_add_(0, at, torch.ones_like(at))
+            first[b].scatter_reduce_(0, at, torch.arange(k, device=dev),
+                                     "amin", include_self=False)
+        if walk.plane_csr is None:
+            lists = ((ok, e[:, 0]) for ok, e in entries(ptr, ent))
+        else:
+            p_ptr, p_idx = (t.long() for t in walk.plane_csr)
+            lists = entries(p_ptr[p], p_idx)
+        for ok, e in lists:
+            at, c = e >> 2, e & 3
+            for s in range(2):
+                use = ok & (s < there[:, at])
+                j = (first[:, at] + s).clamp(0, N - 1)
+                rec = g9[rows + p, j]  # (B, Vm, 9)
+                for i in range(3):
+                    val = rec.gather(-1, (3 * c + i).expand(B, -1)[..., None]
+                                     )[..., 0]
+                    hv[i] = torch.where(use, hv[i] + val, hv[i])
+    gv = [g + h for g, h in zip(gv, hv)]
+    for a in range(2, 5):  # the plane heights
+        for k, f in enumerate(walk.faces.long()[anchors[a]].tolist()):
+            gv[1][:, f] = gv[1][:, f] + g_h[:, a - 2] * bary[a, k]
+    grad[:, :Vm] = torch.stack(gv, -1)
+    return grad
 
 
 @dataclass
@@ -383,6 +772,40 @@ class _Walk:
     offsets: Tuple[int, int, int] = (0, 0, 0)
     plane_faces: Optional[torch.Tensor] = None
     plane_csr: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+
+def measure_backward(meas: "BodyMeasurements", walk: _Walk,
+                     vertices: torch.Tensor, saved, g_out: torch.Tensor,
+                     g_plane_h: torch.Tensor) -> torch.Tensor:
+    """K1's / K1-exact's backward kernels (``measure_backward``, in
+    ``meas``' slice mode) on CUDA tensors: the (B, V, 3) gradient of the
+    (B, 5) values and (B, 3) plane heights (their cotangents ``g_out``,
+    ``g_plane_h``, f32 and contiguous) for a forward over ``walk`` whose
+    saves are ``saved`` = (hits, codes, stats, plane_h)."""
+    hits, codes, stats, plane_h = saved
+    B, V = vertices.shape[:2]
+    dev = vertices.device
+    half_k = meas.hull_cos.shape[0]
+    plane_ptr, plane_idx = walk.plane_csr or (None, None)
+    plan = measure_backward_plan(walk.counts, B)
+
+    def scratch(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    grad = scratch(B, V, 3)
+    mode = "exact_" if meas.slice_mode == "exact" else ""
+    MEASURE_KERNEL.launch(f"measure_{mode}backward", [
+        vertices, walk.faces, walk.plane_faces, walk.anchor_face,
+        walk.anchor_bary, meas.hull_cos, meas.hull_sin, hits, codes,
+        stats, plane_h, g_out, g_plane_h, scratch(B, 3, plan.records, 9),
+        scratch(B, 3, plan.words, 2, dtype=torch.int32),
+        scratch(B, 3, plan.groups), scratch(B, 3, 8 * half_k + 4),
+        scratch(B * (V + 1), dtype=torch.int32),
+        scratch(B, V, dtype=torch.int32), *walk.face_csr, plane_ptr,
+        plane_idx, grad, B, V, walk.num_mesh_vertices, *walk.offsets,
+        *walk.counts, hits.shape[2], *plan, half_k,
+        float(np.float32(2.0 * math.pi / (2 * half_k))), meas.density])
+    return grad
 
 
 class _MeasureKernel(torch.autograd.Function):
@@ -447,7 +870,6 @@ class _MeasureKernel(torch.autograd.Function):
             outs += (points, valid)
         ctx.set_materialize_grads(False)
         ctx.meas, ctx.walk, ctx.mode = meas, walk, mode
-        ctx.scalars = (B, V, planes, cap, smax, half_k, angle_step)
         ctx.save_for_backward(vertices, hits, codes, stats, plane_h)
         return outs
 
@@ -456,7 +878,7 @@ class _MeasureKernel(torch.autograd.Function):
     def backward(ctx, g_out, g_plane_h, g_points=None, _=None):
         vertices, hits, codes, stats, plane_h = ctx.saved_tensors
         meas, walk = ctx.meas, ctx.walk
-        B, V, planes, cap, smax, half_k, angle_step = ctx.scalars
+        B, V = vertices.shape[:2]
         dev = vertices.device
 
         def cotangent(g, shape):
@@ -465,13 +887,13 @@ class _MeasureKernel(torch.autograd.Function):
 
         g_out = cotangent(g_out, (B, 5))
         g_plane_h = cotangent(g_plane_h, (B, 3))
-        grad = torch.empty((B, V, 3), dtype=torch.float32, device=dev)
         if B == 0:
-            return grad, None, None, None
+            return vertices.new_empty((B, V, 3)), None, None, None
         grad_points = None
         if g_points is not None:  # the K1-AoS walk: V = 3F, all faces
             F = walk.faces.shape[0]
-            grad_points = torch.empty_like(grad)
+            grad_points = torch.empty((B, V, 3), dtype=torch.float32,
+                                      device=dev)
             g_h = torch.empty((B, 3), dtype=torch.float32, device=dev)
             MEASURE_KERNEL.launch("measure_points_backward", [
                 vertices, walk.faces, plane_h, g_points.float().contiguous(),
@@ -479,17 +901,9 @@ class _MeasureKernel(torch.autograd.Function):
                                          device=dev),
                 g_h, B, V, F, *walk.counts, int(ctx.mode == "exact_")])
             g_plane_h = g_plane_h + g_h
-        plane_ptr, plane_idx = walk.plane_csr or (None, None)
-        MEASURE_KERNEL.launch(f"measure_{ctx.mode}backward", [
-            vertices, walk.faces, walk.plane_faces, walk.anchor_face,
-            walk.anchor_bary, meas.hull_cos, meas.hull_sin, hits, codes,
-            stats, plane_h, g_out, g_plane_h,
-            torch.empty((B, 3, cap, 2), dtype=torch.float32, device=dev),
-            torch.empty((B, 3, smax), dtype=torch.int32, device=dev),
-            torch.empty((B, 3), dtype=torch.float32, device=dev),
-            *walk.face_csr, plane_ptr, plane_idx, grad, B, V,
-            walk.num_mesh_vertices, *planes, cap, smax, half_k, angle_step,
-            meas.density])
+        grad = measure_backward(meas, walk, vertices,
+                                (hits, codes, stats, plane_h), g_out,
+                                g_plane_h)
         if grad_points is not None:
             grad = grad + grad_points
         return grad, None, None, None
@@ -557,7 +971,7 @@ class BodyMeasurements(nn.Module):
         cos, sin = hull_directions(num_hull_directions)
         self.register_buffer("hull_cos", cos, persistent=False)
         self.register_buffer("hull_sin", sin, persistent=False)
-        ptr, idx = vertex_corner_lists(faces, self.num_mesh_vertices)
+        ptr, idx = vertex_corner_lists(faces, self.num_mesh_vertices, True)
         buf("face_csr_ptr", ptr, torch.int32)
         buf("face_csr_idx", idx, torch.int32)
         self.has_subsets = face_subsets is not None
@@ -597,16 +1011,22 @@ class BodyMeasurements(nn.Module):
                                  self.density, self.slice_mode)
         if vertices.device.type != "cuda":
             raise ValueError(f"measure: unsupported device {vertices.device}")
+        return _MeasureKernel.apply(vertices.contiguous(), self,
+                                    self._vertex_walk(use_subsets), False)
+
+    def _vertex_walk(self, use_subsets: bool) -> _Walk:
+        """K1's walk over this topology: all faces, or the planes' face
+        subsets where asked for and built."""
         F = self.faces.shape[0]
         walk = _Walk(self.faces, (self.face_csr_ptr, self.face_csr_idx),
                      self.num_mesh_vertices, self.anchor_face,
                      self.anchor_bary, (F, F, F))
-        if use_subsets:
+        if use_subsets and self.has_subsets:
             c = self.subset_counts
             walk.counts, walk.offsets = c, (0, c[0], c[0] + c[1])
             walk.plane_faces = self.subset_faces
             walk.plane_csr = (self.subset_csr_ptr, self.subset_csr_idx)
-        return _MeasureKernel.apply(vertices.contiguous(), self, walk, False)
+        return walk
 
     def forward_from_vertices(self, vertices: torch.Tensor,
                               use_face_subsets: bool = True
@@ -766,7 +1186,8 @@ class BodyMeasurements(nn.Module):
             with torch.inference_mode(False):
                 topo = tuple(
                     torch.as_tensor(a, dtype=torch.int32).to(device)
-                    for a in (faces, *vertex_corner_lists(faces, 3 * F)))
+                    for a in (faces,
+                              *vertex_corner_lists(faces, 3 * F, True)))
             self._triangle_topology[(F, device)] = topo
         anc = self._triangle_anchors.get((anchors, device))
         if anc is None:

@@ -73,7 +73,8 @@ def plane_slice_reference_soa(
     b_coord: torch.Tensor,
     height: torch.Tensor,
     face_ids: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    winners: bool = False,
+):
     """Reference-semantics plane slice: one first-hit point per
     (quad triangle, body face) pair, face id 0 dropped.
 
@@ -87,7 +88,10 @@ def plane_slice_reference_soa(
     faces are a subset.
 
     Returns a_pts, b_pts, mask, each (..., 2F): quad triangle 0's points
-    at [0, F), triangle 1's at [F, 2F); invalid points are 0.
+    at [0, F), triangle 1's at [F, 2F); invalid points are 0. With
+    ``winners`` also each point's quad triangle * 8 + winning candidate
+    (0-2 the quad edges' casts, 3-5 the body edges; what kernel K1 saves in
+    a hit's code), int64 (..., 2F).
     """
     h = height[..., None]
     ax0, ax1, ax2 = a_coord[..., 0, :], a_coord[..., 1, :], a_coord[..., 2, :]
@@ -137,21 +141,24 @@ def plane_slice_reference_soa(
             hits.append((ok, cx, cz))
         return hits
 
-    out_a, out_b, out_m = [], [], []
+    out_a, out_b, out_m, out_w = [], [], [], []
     for q_index, edges in enumerate(_Q_EDGES):
         cands = [quad_edge_hit(o[0], o[1], d[0], d[1]) for (o, d) in edges]
         cands += body_edge_hits(q_index)
         pa = torch.zeros_like(ax0)
         pb = torch.zeros_like(ax0)
         found = torch.zeros(ax0.shape, dtype=torch.bool, device=ax0.device)
-        for ok, ca, cb in cands:
+        won = torch.zeros(ax0.shape, dtype=torch.int64, device=ax0.device)
+        for c, (ok, ca, cb) in enumerate(cands):
             upd = ok & ~found
             pa = torch.where(upd, ca, pa)
             pb = torch.where(upd, cb, pb)
+            won = torch.where(upd, q_index * 8 + c, won)
             found = found | upd
         out_a.append(pa)
         out_b.append(pb)
         out_m.append(found)
+        out_w.append(won)
 
     F = ax0.shape[-1]
     ids = (torch.arange(F, device=ax0.device) if face_ids is None
@@ -160,6 +167,8 @@ def plane_slice_reference_soa(
     mz = mask.to(ax0.dtype)
     a_pts = torch.cat(out_a, dim=-1) * mz
     b_pts = torch.cat(out_b, dim=-1) * mz
+    if winners:
+        return a_pts, b_pts, mask, torch.cat(out_w, dim=-1)
     return a_pts, b_pts, mask
 
 

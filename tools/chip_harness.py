@@ -11,10 +11,12 @@ In such a subprocess (this directory is on its ``PYTHONPATH``):
 ``trace(fn)`` takes the device kernels of ``PASSES`` calls of ``fn``
 from a ``torch.profiler`` trace between spin kernels, taken again (at most
 3 times) unless every source's kernels number a multiple of the calls;
-``by_source`` groups them by the ``csrc`` file whose kernel each is;
+``by_source`` groups them by the ``csrc`` file whose kernel each is,
+``busy_ms`` gives the time at least one of them runs;
 ``grids(fn)`` gives each kernel's grid and block, and ``empty_ms`` the
 device time of an empty kernel on such a grid (a launch's floor);
-``flagship``, ``eval_step`` and ``train_step`` build the flagship and its
+``body_model`` builds the flagship's SMPL-X body model and anchors alone,
+``flagship``, ``eval_step`` and ``train_step`` the flagship and its
 eval step at batch 32 and HRNet train step at 48, ``resnet_request`` and
 ``resnet_train_step`` the ResNet flagship's served request and train
 step as phase 11 of ``chip_smoke.py`` builds them, and ``step_numbers``
@@ -80,6 +82,17 @@ def by_source(events) -> dict:
     for start, stop, name in events:
         by[profiling._hand_kernel(name, sources)].append((stop - start) / 1e3)
     return by
+
+
+def busy_ms(events, passes: int = PASSES) -> float:
+    """The time at least one of ``trace``'s events runs (the union of
+    their spans: a programmatic dependent starts before the kernel it
+    waits for ends), per call, in ms."""
+    busy, end = 0.0, float("-inf")
+    for start, stop, _ in events:
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    return busy / 1e3 / passes
 
 
 def trace(fn, passes: int = PASSES) -> list:
@@ -197,6 +210,21 @@ def step_numbers(fn, iters: int, *sources: str) -> dict:
             "kernels": traced["cuda_kernel_launches"],
             **{f"{Path(src).stem}_ms": traced["hand_kernels"].get(
                 src, [0.0])[0] for src in sources}}
+
+
+def body_model(dev):
+    """The flagship's body model (synthetic SMPL-X at the real counts, 10475
+    vertices and 20908 faces) on ``dev`` and its measurement anchors, as
+    ``build_flagship`` makes them."""
+    from shapy_tpu_torch.measure.measurements import MeasurementAnchors
+    from shapy_tpu_torch.models.body.assets import make_synthetic_model_data
+    from shapy_tpu_torch.models.body.model import SMPLX
+
+    model = SMPLX(make_synthetic_model_data("smplx", subdivisions=5,
+                                            exact_counts=True))
+    anchors = MeasurementAnchors.synthetic(model.faces,
+                                           model.v_template.numpy())
+    return model.to(dev), anchors
 
 
 def flagship():
