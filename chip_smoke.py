@@ -212,6 +212,30 @@ Phases, each of which raises on failure (exit code 1):
    forward and weight gradient, one K11 forward and backward, 53 / 20
    K4 forwards and backwards, a falling loss, no library convolution or
    pooling operator, steps/s and peak memory.
+12. The evaluation CLI end to end: ``cli.evaluate.main`` with
+   ``configs/shapy_eval_shape.yaml`` (read by the port's config loader;
+   the data folder, batch 32, the reference's v2v_t alignments and a P2P
+   regressor pickle of 20000 points given as dot-list overrides) on a
+   synthetic HBW tree written to a temporary directory (8 subjects x 8
+   480x360 PPM images, OpenPose JSONs, ``genders.yaml``, GT OBJ meshes of
+   seeded betas at 10475 vertices). The regressor is the flagship's
+   (``build_body_head`` on ``flagship.build_flagship_body``'s body in
+   place of the demo builder's, then phase 3's ``spread_init_``; bf16
+   backbone, BN folded), the registry's HBW dataset gets its measurement
+   module, so the GT measurements run K1-AoS once. The CLI runs twice,
+   cold (GT measurements computed and cached) and warm (a copy of the
+   same regressor, GT from the cache). Checks rc 0, finite printed
+   metrics, the same lines from both runs, the launches of each run (per
+   batch 331 K5-conv, 26 K5-fuse and one K1, K2, K3, K3-chain, K8a and
+   K8b; in the cold run K1 and K1-AoS's points once more for the GT;
+   nothing else), and both runs' predictions bit-equal to the same padded
+   batches through ``apply_from_full_images``; K2 on a padded batch of
+   four sizes (odd widths among them) bit-equal to each image alone;
+   prints the metrics, the images/s of the warm run's batches after the
+   first on the host clock beside phase 5's, the host's share of their
+   wall (1 - the device busy time of a batch's forward and metrics, from
+   ``device_time``, times the batches, over their wall), and each run's
+   batches one by one (the first waits for its whole decode).
 
 The line before the last is a JSON object with one entry per kernel
 function (forward and backward separately); ``launches`` counts the
@@ -219,7 +243,7 @@ training phase for the kernels it runs (K5 among them), the batch-32 fit
 of phase 8 for K1's backward and K1-exact, phase 9 for K6, K7 and K9,
 the scorer (phase 6) for K1-AoS's points and their backward, ResNet-50's
 training (phase 11) for K10 and K11, and the evaluation phase for the
-others. K5-conv's and K5-fuse's times are a served forward's at batch 32,
+others; ``launches_cli`` counts phase 12's cold run. K5-conv's and K5-fuse's times are a served forward's at batch 32,
 the backward kernels' and K4's backward's a train step's at batch 48;
 K10's and K11's forwards at the served batch 32, their backwards at 48.
 The last line is
@@ -233,6 +257,7 @@ import collections
 import copy
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -291,6 +316,9 @@ PEAK_BF16_FLOP_S = 989e12  # dense, tensor cores
 # Kernel vs plain version on the card: per-sample mean errors in m (sums
 # in another order), measurement errors exact (the same outputs).
 METRIC_TOL = 1e-5
+# Phase 12, the evaluation CLI: a synthetic HBW tree of 8 subjects x 8
+# images (480x360 PPM), evaluated at batch 32 (two batches).
+CLI_SUBJECTS, CLI_IMAGES, CLI_B = 8, 8, 32
 
 
 def check(ok: bool, what: str) -> None:
@@ -721,6 +749,13 @@ RESNET_SERVE_KERNELS = tuple(k for k in SERVE_KERNELS if k != "K5_fuse") + (
 RESNET_EVAL_KERNELS = RESNET_SERVE_KERNELS + ("K8a_point_regress",
                                               "K8b_align_error")
 
+# Phase 12's launches: per eval batch the served forward's and the
+# metrics' (K8a for p2p_t, K8b for the v2v_t group), and once for the
+# dataset K1 and K1-AoS's points on the GT triangles.
+CLI_PER_BATCH = dict(K5_PER_FORWARD, K1_measure=1, K2_ingest=1,
+                     K3_skinning=1, K3chain_forward=1, K8a_point_regress=1,
+                     K8b_align_error=1)
+CLI_PER_DATASET = {"K1_measure": 1, "K1aos_points": 1}
 SCORE_KERNELS = ("K1_measure", "K1aos_points", "K8a_point_regress",
                  "K8b_align_error")
 # The metrics' launches a batch, evaluated or scored: K8a once, K8b once
@@ -5059,6 +5094,315 @@ def contact(bodies, eval_data, meas, k6_plain, dev):
     return launches
 
 
+def write_ppm(path: Path, image: np.ndarray) -> None:
+    """(H, W, 3) uint8 RGB as a binary PPM (P6, maxval 255)."""
+    H, W = image.shape[:2]
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(b"P6\n%d %d\n255\n" % (W, H) + image.tobytes())
+
+
+def write_hbw_tree(root: Path, model, p2p_path: Path) -> None:
+    """A synthetic HBW-val tree in ``configs/shapy_eval_shape.yaml``'s
+    layout: ``CLI_SUBJECTS`` subjects of ``CLI_IMAGES`` 480x360 PPM images
+    each (smooth random content) with OpenPose JSONs (one person inside
+    the image), ``genders.yaml`` and GT meshes of ``model`` (OBJ) from
+    seeded betas; and a P2P regressor pickle of ``P2P_POINTS`` barycentric
+    points."""
+    import pickle
+
+    import scipy.sparse
+    import torch
+
+    from shapy_tpu_torch.flagship import synthetic_requests
+
+    rng = np.random.default_rng(SEED + 12)
+    images, _ = synthetic_requests(CLI_SUBJECTS * CLI_IMAGES, IMAGE_H,
+                                   IMAGE_W, CROP, SEED + 12)
+    betas = rng.normal(size=(CLI_SUBJECTS, model.num_betas)) * 1.5
+    betas *= np.minimum(1.0, 6.0 / np.linalg.norm(betas, axis=1,
+                                                  keepdims=True))
+    with torch.no_grad():
+        gt = model.forward_shape(torch.tensor(
+            betas, dtype=torch.float32))["v_shaped"].numpy()
+    faces = "".join(f"f {a} {b} {c}\n" for a, b, c in model.faces + 1)
+    genders = []
+    for si in range(CLI_SUBJECTS):
+        sid = f"s{si:03d}"
+        genders.append(f"{sid}: {('female', 'male')[si % 2]}\n")
+        mesh = root / "smplx" / "val" / f"{sid}.obj"
+        mesh.parent.mkdir(parents=True, exist_ok=True)
+        mesh.write_text("".join(f"v {x:.9g} {y:.9g} {z:.9g}\n"
+                                for x, y, z in gt[si]) + faces)
+        for ii in range(CLI_IMAGES):
+            rel = Path("val") / f"{sid}_synthetic" / "studio"
+            write_ppm(root / "images" / rel / f"img{ii}.ppm",
+                      images[si * CLI_IMAGES + ii])
+            body = np.stack([rng.uniform(0.3, 0.7, 25) * IMAGE_W,
+                             rng.uniform(0.15, 0.85, 25) * IMAGE_H,
+                             np.full(25, 0.9)], -1)
+            kp = root / "keypoints" / rel / f"img{ii}.json"
+            kp.parent.mkdir(parents=True, exist_ok=True)
+            kp.write_text(json.dumps({"people": [
+                {"pose_keypoints_2d": body.reshape(-1).tolist()}]}))
+    (root / "genders.yaml").write_text("".join(genders))
+    V = model.num_verts
+    tri = model.faces[rng.integers(0, len(model.faces), size=P2P_POINTS)]
+    w = rng.dirichlet(np.ones(3), size=P2P_POINTS)
+    matrix = scipy.sparse.csr_matrix(
+        (w.reshape(-1), (np.repeat(np.arange(P2P_POINTS), 3),
+                         tri.reshape(-1))), shape=(P2P_POINTS, V))
+    with open(p2p_path, "wb") as f:
+        pickle.dump(matrix, f, protocol=2)
+
+
+def check_padding(dev) -> None:
+    """K2 on a padded batch of mixed sizes (the CLI's collate,
+    ``data.build.pad_images``) bit-equal to K2 on each image alone and to
+    the plain version: the zero fill of a smaller image's padding is the
+    zero K2 reads outside an image. Odd widths put the lone images in
+    K2's direct regime, the padded batch in its staged one."""
+    import torch
+
+    from shapy_tpu_torch.data.build import pad_images
+    from shapy_tpu_torch.data.crop import crop_normalize, crop_normalize_plain
+    from shapy_tpu_torch.flagship import synthetic_requests
+
+    sizes = ((IMAGE_H, IMAGE_W), (300, 401), (IMAGE_H - 1, IMAGE_W - 1),
+             (201, 333))
+    images, affines = [], []
+    for i, (H, W) in enumerate(sizes):
+        img, aff = synthetic_requests(1, H, W, CROP, SEED + 120 + i)
+        images.append(img[0])
+        affines.append(aff[0])
+    full = torch.from_numpy(pad_images(images)).to(dev)
+    aff = torch.from_numpy(np.stack(affines)).to(dev)
+    with torch.inference_mode():
+        batch = crop_normalize(full, aff, CROP)
+        check(torch.equal(batch, crop_normalize_plain(full, aff, CROP)),
+              "padding: K2 on the padded batch differs from plain")
+        for i, img in enumerate(images):
+            alone = crop_normalize(torch.from_numpy(img[None]).to(dev),
+                                   aff[i:i + 1], CROP)
+            check(torch.equal(batch[i:i + 1], alone),
+                  f"padding: image {i} ({sizes[i]}) crops otherwise alone")
+    print(f"cli: K2 on a padded batch of sizes {sizes} bit-equal to each "
+          "image alone and to the plain version")
+
+
+def evaluate_cli(dev, eval_rate: float):
+    """Phase 12: ``cli.evaluate.main`` on a synthetic HBW tree, its config
+    ``configs/shapy_eval_shape.yaml`` read by the port's loader, the
+    flagship's regressor (``build_body_head`` on the flagship's body,
+    ``flagship.build_flagship_body``, in place of the demo builder's
+    synthetic body; its weights as phase 3's base: seeded, then
+    ``spread_init_``) and the registry's HBW dataset given the regressor's
+    measurement module. The CLI runs twice: a cold run, which computes and
+    caches the GT measurements, and a warm one on a copy of the same
+    regressor, which reads them from the cache. Checks rc 0, finite
+    printed metrics, the launches (``CLI_PER_BATCH`` a batch,
+    ``CLI_PER_DATASET`` once in the cold run, nothing else), the same
+    printed lines from both runs and each run's per-image predictions
+    bit-equal to the same padded batches through
+    ``apply_from_full_images``; prints the images/s of the warm run's
+    batches after the first (the first waits for its whole decode) and
+    the host's share of their wall beside phase 5's evaluated images/s,
+    and each run's batches one by one."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from shapy_tpu_torch.cli import demo as demo_mod
+    from shapy_tpu_torch.cli import evaluate as cli
+    from shapy_tpu_torch.data import build as build_mod
+    from shapy_tpu_torch.data.datasets.hbw import HBWDataset
+    from shapy_tpu_torch.eval import evaluator as evaluator_mod
+    from shapy_tpu_torch.flagship import build_flagship_body, spread_init_
+    from shapy_tpu_torch.models.body.assets import make_synthetic_model_data
+    from shapy_tpu_torch.models.body.model import SMPLX
+    from shapy_tpu_torch.models.heads.regressor import build_body_head
+    from shapy_tpu_torch.utils.config import load_config
+
+    repo = Path(__file__).resolve().parent
+    base, built, evaluators, seen, spans = [], [], [], [], []
+    real_evaluator = evaluator_mod.build_evaluator
+
+    def builder(exp_cfg, checkpoint_path="", device="cuda"):
+        if not base:
+            body, meas = build_flagship_body(subdivisions=5,
+                                             exact_counts=True)
+            base.append(spread_init_(
+                build_body_head(exp_cfg, body_model=body, measurements=meas),
+                seed=SEED, beta_scale=0.25))
+        built.append(copy.deepcopy(base[0]).to(device))
+        return built[-1]
+
+    def evaluator(*args, **kwargs):
+        ev = real_evaluator(*args, **kwargs)
+        run = ev.run
+
+        def timed_run(*a, **k):
+            t = time.perf_counter()
+            out = run(*a, on_batch=lambda *b: seen[-1].append(
+                (*b, time.perf_counter())), **k)
+            torch.cuda.synchronize()
+            spans.append((t, time.perf_counter()))
+            return out
+        ev.run = timed_run
+        evaluators.append(ev)
+        return ev
+
+    class HBWWithMeasurements(HBWDataset):
+        def __init__(self, **kwargs):
+            reg = built[-1]
+            super().__init__(measurements_module=reg.body_measurements,
+                             body_model_faces=reg.model.faces, **kwargs)
+
+    def run_cli(cfg, out_dir):
+        """One ``cli.evaluate.main``: rc, printed lines, wall, launches."""
+        seen.append([])
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        reset_launches()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(cfg, output_folder=out_dir, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        return rc, out.getvalue().splitlines(), wall, read_launches()
+
+    images = CLI_SUBJECTS * CLI_IMAGES
+    batches = -(-images // CLI_B)
+    with tempfile.TemporaryDirectory() as tmp:
+        root, p2p = Path(tmp) / "HBW", Path(tmp) / "p2p.pkl"
+        t = time.perf_counter()
+        write_hbw_tree(root, SMPLX(make_synthetic_model_data(
+            "smplx", subdivisions=5, exact_counts=True)), p2p)
+        print(f"cli: wrote {images} images in "
+              f"{time.perf_counter() - t:.1f} s")
+        cfg = load_config({}, [str(repo / "configs" /
+                                   "shapy_eval_shape.yaml")], [
+            f"datasets.shape.hbw.data_folder={root}",
+            f"datasets.batch_size={CLI_B}", "datasets.pose_shape_ratio=0.0",
+            f"datasets.shape.transforms.crop_size={CROP}",
+            "evaluation.body.v2v_t=['scale','translation']",
+            f"evaluation.body.p2p_t.input_point_regressor_path={p2p}"])
+        build_mod._populate_registry()
+        saved = (demo_mod.build_demo_regressor,
+                 evaluator_mod.build_evaluator,
+                 build_mod.DATASET_REGISTRY["hbw"])
+        demo_mod.build_demo_regressor = builder
+        evaluator_mod.build_evaluator = evaluator
+        build_mod.DATASET_REGISTRY["hbw"] = HBWWithMeasurements
+        try:
+            runs = [run_cli(cfg, str(Path(tmp) / f"out{i}"))
+                    for i in range(2)]
+        finally:
+            (demo_mod.build_demo_regressor, evaluator_mod.build_evaluator,
+             build_mod.DATASET_REGISTRY["hbw"]) = saved
+        (rc, lines, wall, launches), (rc_w, lines_w, wall_w, launches_w) = runs
+        print("\n".join(f"cli | {line}" for line in lines))
+        check(rc == 0 and rc_w == 0, f"cli: rc {rc}, warm rc {rc_w}")
+        check(lines_w == lines, "cli: the warm run printed other lines")
+        check(lines[:1] == ["=== shape ==="], f"cli: printed {lines[:2]}")
+        values = {line.split(": ")[0]: float(line.split(": ")[1].split()[0])
+                  for line in lines[1:]}
+        check(all(math.isfinite(v) for v in values.values()),
+              "cli: a printed metric is not finite")
+        for name in ("v2v_t", "v2v_t_scale", "p2p_t", "height_error",
+                     "chest_error", "waist_error", "hips_error",
+                     "mass_error"):
+            check(name in values, f"cli: no {name} printed")
+        for i, run_seen in enumerate(seen):
+            check(len(run_seen) == batches,
+                  f"cli run {i}: {len(run_seen)} batches")
+        for name, *_ in kernels():
+            want = CLI_PER_BATCH.get(name, 0) * batches
+            check(launches[name] == want + CLI_PER_DATASET.get(name, 0),
+                  f"cli: {launches[name]} {name} launches, expected "
+                  f"{want + CLI_PER_DATASET.get(name, 0)}")
+            check(launches_w[name] == want,
+                  f"cli warm run (GT measurements from the cache): "
+                  f"{launches_w[name]} {name} launches, expected {want}")
+
+        # The same padded batches through apply_from_full_images directly.
+        reg = built[0]
+        loaders = build_mod.build_all_data_loaders(
+            cfg, "val", target_keypoint_names=reg.model.keypoint_names,
+            return_full_imgs=True, enable_augment=False)
+        t = time.perf_counter()
+        host_batches = list(loaders["shape"])  # decode, transforms, collate
+        load_s = time.perf_counter() - t
+        direct = []
+        with torch.inference_mode():
+            for batch in host_batches:
+                full = torch.from_numpy(batch["full_images"]).to(dev)
+                aff = torch.from_numpy(batch["crop_to_image_affines"]).to(dev)
+                direct.append((full, aff, reg.apply_from_full_images(
+                    full, aff, CROP)))
+        check(len(direct) == batches, "cli: direct batches")
+        for run_seen in seen:
+            for (outputs, *_), (_, _, want) in zip(run_seen, direct):
+                got, exp = outputs["stage_02"], want["stage_02"]
+                for key in ("betas", "vertices", "joints", "v_shaped"):
+                    check(torch.equal(got[key], exp[key]),
+                          f"cli: {key} differs from the direct route")
+                check(torch.equal(outputs["proj_joints"],
+                                  want["proj_joints"]),
+                      "cli: proj_joints differ from the direct route")
+                for k, v in want["measurements"].items():
+                    check(torch.equal(outputs["measurements"][k], v),
+                          f"cli: {k} differs from the direct route")
+
+        check_padding(dev)
+
+        # Device busy time of one batch's forward + metrics.
+        full, aff, _ = direct[0]
+        targets = seen[0][0][1]
+
+        def step():
+            evaluators[-1].compute_batch_metrics(
+                reg.apply_from_full_images(full, aff, CROP), targets)
+        with torch.inference_mode():
+            busy, kernels_a_batch = device_time(step)
+
+    def batch_ms(i):
+        """Run ``i``'s host time of each batch, the first from the start
+        of ``Evaluator.run``."""
+        stamps = [spans[i][0]] + [a[-1] for a in seen[i]]
+        return [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+
+    # The loader decodes a batch's images on its threads while the main
+    # thread runs the batch before; nothing overlaps the first batch's
+    # decode, so the batches after it give the loop's steady rate.
+    loop_s = [end - start for start, end in spans]
+    later_ms = sum(batch_ms(1)[1:])
+    rate = CLI_B * (batches - 1) / (later_ms / 1e3)
+    host_share = 1.0 - busy * (batches - 1) / later_ms
+    print(f"cli: cold run rc 0 in {wall:.1f} s (model build, dataset and "
+          f"GT measurements included), its evaluation loop {images} images "
+          f"in {loop_s[0] * 1e3:.1f} ms = {images / loop_s[0]:.1f} "
+          f"images/s, host time a batch {batch_ms(0)} ms; warm run (a copy "
+          f"of the same regressor, GT measurements from the cache) rc 0 in "
+          f"{wall_w:.1f} s, its loop {loop_s[1] * 1e3:.1f} ms = "
+          f"{images / loop_s[1]:.1f} images/s, host time a batch "
+          f"{batch_ms(1)} ms (the first waits for its whole decode); the "
+          f"warm run's batches after the first {rate:.1f} images/s, the "
+          f"host {host_share:.3f} of their wall (phase 5, the same forward "
+          f"+ metrics on batches already on the card: {eval_rate:.1f} "
+          f"images/s); the loader alone (decode, transforms, padding "
+          f"collate) {load_s * 1e3:.1f} ms for {batches} batches; device "
+          f"busy {busy:.3f} ms a batch ({kernels_a_batch} kernels); "
+          f"launches {launches}")
+    return launches, {"images_s": rate, "host_share": host_share,
+                      "batch_ms": batch_ms(1), "loop_ms": loop_s[1] * 1e3,
+                      "wall_s": wall_w, "cold_batch_ms": batch_ms(0),
+                      "cold_loop_ms": loop_s[0] * 1e3, "cold_wall_s": wall,
+                      "busy_ms_a_batch": busy, "loader_ms": load_s * 1e3,
+                      "eval_images_s": eval_rate}
+
+
 def main() -> int:
     import torch
 
@@ -5161,7 +5505,7 @@ def main() -> int:
     parity(base, tuple(t.cpu() for t in requests), eval_data, dev)
     train_parity(base, dev)
     stamp("phase 5")
-    eval_launches, _ = evaluate(regressor, eval_data, serve_rate)
+    eval_launches, eval_rate = evaluate(regressor, eval_data, serve_rate)
     stamp("phase 6")
     score_launches = score(regressor, eval_data, dev)
     stamp("phase 7")
@@ -5177,6 +5521,8 @@ def main() -> int:
     (resnet_checked, resnet_train, resnet_serve, resnet_eval,
      resnet_summary) = resnet(dev, eval_data)
     checked.update(resnet_checked)
+    stamp("phase 12")
+    cli_launches, cli_summary = evaluate_cli(dev, eval_rate)
     stamp("done")
 
     entries = []
@@ -5206,6 +5552,7 @@ def main() -> int:
             "launches_resnet50_train": resnet_train[name],
             "launches_resnet50_serve": resnet_serve[name],
             "launches_resnet50_eval": resnet_eval[name],
+            "launches_cli": cli_launches[name],
             **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by")},
             # K4: F.batch_norm(training=True); K5-conv: F.conv2d (cuDNN);
@@ -5220,6 +5567,7 @@ def main() -> int:
         check(all(math.isfinite(c[k]) for k in ("ms", "plain_ms",
                                                 "bound_ms")), "timing")
     print(f"ResNet: {json.dumps(resnet_summary)}")
+    print(f"evaluate CLI: {json.dumps(cli_summary)}")
     print(gpu_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -63,3 +64,18 @@ def face_barycentric_point(triangles: torch.Tensor, face_idx: int,
     bc = torch.as_tensor(bary, dtype=triangles.dtype,
                          device=triangles.device)
     return torch.sum(triangles[:, face_idx] * bc.reshape(1, 3, 1), dim=1)
+
+
+def edge_vectors(vertices: torch.Tensor, edges: torch.Tensor
+                 ) -> torch.Tensor:
+    """vertices (B, V, 3), edges (E, 2) int -> (B, E, 3) edge vectors."""
+    edges = torch.as_tensor(edges, device=vertices.device).long()
+    return vertices[:, edges[:, 1]] - vertices[:, edges[:, 0]]
+
+
+def faces_to_edges(faces) -> np.ndarray:
+    """Unique undirected edges (E, 2), each sorted, in lexicographic order,
+    from faces (F, 3); host-side numpy."""
+    f = np.asarray(faces)
+    e = np.concatenate([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]], axis=0)
+    return np.unique(np.sort(e, axis=1), axis=0)

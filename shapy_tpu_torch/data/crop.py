@@ -6,9 +6,13 @@
 (``csrc/ingest.cu``), which decodes uint8, samples bilinearly through the
 crop->image affine, normalises and casts in one pass.
 
-``IMAGENET_MEAN`` / ``IMAGENET_STD`` and :func:`crop_to_image_affine` are
-numpy copies of the JAX package's (``data/transforms.py``,
-``data/crop.py``): the port imports nothing of ``shapy_tpu``.
+``IMAGENET_MEAN`` / ``IMAGENET_STD``, :func:`crop_to_image_affine`,
+:func:`image_to_crop_affine`, :func:`crop_image` and
+:func:`transform_points` are numpy copies of the JAX package's
+(``data/transforms.py``, ``data/crop.py``): the port imports nothing of
+``shapy_tpu``. :func:`crop_image` is the host-side ``cv2.warpAffine`` crop
+of the data loader; it imports ``cv2`` when called, and the evaluation
+path, which crops on the device, never calls it.
 """
 
 from __future__ import annotations
@@ -60,6 +64,30 @@ def crop_to_image_affine(center: Sequence[float], scale: float,
                       [0.0, 0.0, 1.0]])
         A = A @ R
     return A
+
+
+def image_to_crop_affine(center, scale, res, rot_deg: float = 0.0
+                         ) -> np.ndarray:
+    """The inverse of :func:`crop_to_image_affine`."""
+    return np.linalg.inv(crop_to_image_affine(center, scale, res, rot_deg))
+
+
+def crop_image(img: np.ndarray, center, scale: float,
+               res: Tuple[int, int] = (256, 256), rot_deg: float = 0.0
+               ) -> np.ndarray:
+    """The (res x res) crop by one host-side affine warp (``cv2``, bilinear,
+    its fixed-point 1/32-pixel coordinates)."""
+    import cv2
+
+    M = image_to_crop_affine(center, scale, res, rot_deg)[:2]
+    return cv2.warpAffine(img, M.astype(np.float32), (res[1], res[0]),
+                          flags=cv2.INTER_LINEAR).astype(np.float32)
+
+
+def transform_points(points: np.ndarray, affine: np.ndarray) -> np.ndarray:
+    """Apply a 3x3 affine to (..., 2) points."""
+    ph = np.concatenate([points, np.ones_like(points[..., :1])], axis=-1)
+    return (ph @ affine.T)[..., :2]
 
 
 def bilinear_crop(images: torch.Tensor, affines: torch.Tensor,

@@ -43,9 +43,11 @@ def adapt_eval_batches(loader, device: str | torch.device = "cuda"):
     """Collate output -> the batch dicts ``Evaluator.run`` consumes, with
     every tensor on ``device``.
 
-    Besides the JAX package's fields, a batch may carry full uint8 images
-    with ``crop_to_image_affines`` (B, 3, 3): they go to the model batch,
-    and the model then crops on the device (kernel K2)."""
+    Besides the JAX package's fields, a batch may carry full images
+    (uint8, or f32 in [0, 1]) with ``crop_to_image_affines`` (B, 3, 3):
+    the images (the collate's padded ``full_images`` where the batch has
+    no ``images``) become the batch's ``images``, the affines go to the
+    model batch, and the model then crops on the device (kernel K2)."""
     device = torch.device(device)
     for batch in loader:
         targets = {dst: _to(batch[src], device)
@@ -60,7 +62,8 @@ def adapt_eval_batches(loader, device: str | torch.device = "cuda"):
             model_batch["crop_to_image_affines"] = _to(
                 batch["crop_to_image_affines"], device)
         out = {
-            "images": _to(batch["images"], device),
+            "images": _to(batch["images"] if "images" in batch
+                          else batch["full_images"], device),
             "targets": targets,
             "model_batch": model_batch,
             "genders": batch.get("genders"),

@@ -86,6 +86,24 @@ def backbone_cfg(backbone: str) -> dict:
     return {"type": "resnet", "depth": int(depth)}
 
 
+def build_flagship_body(subdivisions: int = 2, exact_counts: bool = False,
+                        num_hull_directions: int = 256
+                        ) -> tuple[SMPLX, BodyMeasurements]:
+    """The flagship's body on the CPU: the synthetic SMPL-X
+    (``exact_counts``: the release's 10475 vertices / 20908 faces) and its
+    measurement module, synthetic anchors with ``num_hull_directions``
+    hull directions on the candidate-face subsets."""
+    model = SMPLX(make_synthetic_model_data(
+        "smplx", subdivisions=subdivisions, exact_counts=exact_counts))
+    v_template = model.v_template.numpy()
+    anchors = MeasurementAnchors.synthetic(model.faces, v_template)
+    meas = BodyMeasurements(
+        anchors, model.faces, num_hull_directions=num_hull_directions,
+        face_subsets=candidate_faces(
+            v_template, model.shapedirs.numpy(), model.faces, anchors))
+    return model, meas
+
+
 def build_flagship(subdivisions: int = 2, exact_counts: bool = False,
                    mlp_layers: Sequence[int] = (1024, 1024),
                    device: str | torch.device = "cuda", seed: int = 0,
@@ -96,14 +114,8 @@ def build_flagship(subdivisions: int = 2, exact_counts: bool = False,
     (:func:`backbone_cfg`). Call ``prepare_for_eval_`` on it before
     serving."""
     device = get_device(device)
-    model = SMPLX(make_synthetic_model_data(
-        "smplx", subdivisions=subdivisions, exact_counts=exact_counts))
-    v_template = model.v_template.numpy()
-    anchors = MeasurementAnchors.synthetic(model.faces, v_template)
-    meas = BodyMeasurements(
-        anchors, model.faces, num_hull_directions=num_hull_directions,
-        face_subsets=candidate_faces(
-            v_template, model.shapedirs.numpy(), model.faces, anchors))
+    model, meas = build_flagship_body(subdivisions, exact_counts,
+                                      num_hull_directions)
     network_cfg = dict(FLAGSHIP_NETWORK_CFG,
                        mlp={"layers": list(mlp_layers), "dropout": 0.5},
                        backbone=backbone_cfg(backbone))

@@ -7,9 +7,9 @@ with ``.`` and transposing conv kernels HWIO -> OIHW; the MLP and
 ``param_mean`` load as they are. The body model's params (``v_template``,
 ``shapedirs``, ``posedirs`` ... all of them) load by name.
 
-Load before :meth:`SMPLXRegressor.prepare_for_eval_`, which folds BN and
+Load before :meth:`BodyRegressor.prepare_for_eval_`, which folds BN and
 so changes the backbone's keys, or before
-:meth:`SMPLXRegressor.prepare_for_train_`, which keeps every BN unfolded
+:meth:`BodyRegressor.prepare_for_train_`, which keeps every BN unfolded
 with the running stats loaded here, so that a train step starts from the
 JAX package's state. The reverse direction, :func:`state_dict_from_jax`
 on a JAX gradient or updated-param pytree, names it as the port does.
@@ -61,8 +61,10 @@ def load_from_jax(module: nn.Module, params: Mapping,
 
 def load_regressor_from_jax(regressor: nn.Module, params: Mapping
                             ) -> nn.Module:
-    """The JAX regressor's ``params`` -> ``SMPLXRegressor`` (its body
-    model keeps its own params)."""
+    """The JAX regressor's ``params`` -> the port's regressor of the same
+    family (``SMPLRegressor``, ``SMPLHRegressor`` or ``SMPLXRegressor``,
+    built from the same config and mean files; its body model keeps its
+    own params)."""
     return load_from_jax(
         regressor,
         {k: params[k] for k in ("backbone", "head", "param_mean")},

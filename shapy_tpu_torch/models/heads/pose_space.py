@@ -45,7 +45,13 @@ def _tile_mean(mean, num_angles: int, per_joint: int,
 
 def build_pose_parameterization(num_angles: int,
                                 param_type: str = "cont_rot_repr",
-                                mean=None) -> PoseSpace:
+                                mean=None, **kwargs) -> PoseSpace:
+    """``mean``: an array, or a dict keyed by the parameterisation (a mean
+    pose file's entry; its ``cont_rot_repr`` array where ``param_type``
+    has none). Other keywords of a config section (``type`` ...) are
+    ignored, as the JAX package ignores them."""
+    if isinstance(mean, dict):
+        mean = mean.get(param_type, mean.get("cont_rot_repr"))
     if param_type == "cont_rot_repr":
         def decoder(x: torch.Tensor) -> torch.Tensor:
             return rot6d_to_rotmat(x.reshape(x.shape[0], num_angles, 6))

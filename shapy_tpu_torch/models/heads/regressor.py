@@ -1,36 +1,49 @@
-"""The SHAPY body regressor, eval and train forward (port of
+"""The SHAPY body regressor family, eval and train forward (port of
 ``shapy_tpu/models/heads/regressor.py``).
 
 HRNet-W48 (or ResNet-18/34/50/101/152, ``backbone: {type: resnet,
 depth: d}``) features -> 3-stage iterative MLP head -> 6D pose decode ->
-SMPL-X LBS on the last stage -> weak-perspective projection ->
-measurements on ``v_shaped``. The flat parameter layout matches the JAX
-package and the reference: pose spaces in order, then betas, then the
-camera (global_rot 6 + body_pose 126 + betas 10 + camera 3 = 145).
+body model LBS on the last stage -> weak-perspective projection ->
+measurements on ``v_shaped``. :class:`BodyRegressor` is the family's
+base; :class:`SMPLRegressor`, :class:`SMPLHRegressor` and
+:class:`SMPLXRegressor` put SMPL (23 body joints), SMPL+H or SMPL-X (21)
+under it, and :func:`build_body_head` builds one from a config's
+``network.type`` through :data:`BODY_HEAD_REGISTRY`. The flat parameter
+layout matches the JAX package and the reference: pose spaces in order,
+then betas, then the camera (SMPL-X: global_rot 6 + body_pose 126 +
+betas 10 + camera 3 = 145).
+
+The body config's ``mean_pose_path`` (a latin1 pickle whose
+``body_pose`` entry, an array or a dict keyed by the parameterisation,
+seeds the body-pose mean) and ``shape_mean_path`` (an ``.npy`` of the
+betas' mean) are read as the JAX package reads them; a path to no file
+is ignored.
 
 ``state_dict`` keys: ``backbone.*`` and ``head.*`` are the JAX package's
 ``params['backbone']`` / ``params['head']`` names, ``param_mean`` its
 ``params['param_mean']``; ``model.*`` the body model's params.
 
-Modes: :meth:`SMPLXRegressor.prepare_for_eval_` folds BN and freezes;
-:meth:`SMPLXRegressor.prepare_for_train_` keeps BN unfolded (train-mode
+Modes: :meth:`BodyRegressor.prepare_for_eval_` folds BN and freezes;
+:meth:`BodyRegressor.prepare_for_train_` keeps BN unfolded (train-mode
 BN, kernel K4 on the card) with f32 master weights, and ``apply(...,
 train=True)`` adds the head's dropout and measures on all faces.
 
-Ported so far: the SMPL-X regressor with the iterative MLP head,
-``predict_hands`` and ``predict_face`` off (the flagship config), on
-HRNet-W48 or a ResNet. Not yet, and refused with ``ValueError`` where a
-config asks for them: the RNN head, HRNet's ``use_old_impl`` topology,
-a mean pose or shape mean read from a file (``mean_pose_path``,
-``shape_mean_path`` naming an existing file; a path to no file is
-ignored, as the JAX package ignores it), the B2A/A2B attribute plugins.
+Not yet ported, and refused with ``ValueError`` where a config asks for
+them: hand and face prediction (``predict_hands`` on SMPL+H / SMPL-X,
+``predict_face`` on SMPL-X), MLP activations, the RNN head, HRNet's
+``use_old_impl`` topology, ``pose_last_stage`` off, pose spaces other
+than ``cont_rot_repr``. The B2A/A2B attribute plugins are not ported:
+the regressor takes none (``cli.demo.build_demo_regressor`` refuses
+their checkpoints).
 ``compute_measurements`` builds the measurements from the reference's
 YAMLs when none are given, as the JAX package does.
 """
 
 from __future__ import annotations
 
+import inspect
 import os
+import pickle
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -42,7 +55,7 @@ from shapy_tpu_torch.measure.measurements import BodyMeasurements
 from shapy_tpu_torch.models.backbones.hrnet import HRNET_OUTPUT_DIM, HRNet
 from shapy_tpu_torch.models.backbones.layers import BatchNorm2d, fold_bn_
 from shapy_tpu_torch.models.backbones.resnet import RESNET_FEAT_DIM, ResNet
-from shapy_tpu_torch.models.body.model import SMPLX
+from shapy_tpu_torch.models.body.model import SMPL, MODEL_CLASSES
 from shapy_tpu_torch.models.cameras.projection import build_cam_proj
 from shapy_tpu_torch.models.heads.mlp import MLP
 from shapy_tpu_torch.models.heads.pose_space import (
@@ -54,12 +67,33 @@ from shapy_tpu_torch.models.heads.pose_space import (
 from shapy_tpu_torch.utils.device import full_f32_matmul
 
 
-class SMPLXRegressor(nn.Module):
-    """HMR-style iterative regressor over SMPL-X."""
+def _build_body_model(model_type: str, model_cfg: Dict, model_folder: str
+                      ) -> SMPL:
+    """The body model of ``model_type`` from its config section; keys its
+    class does not take (``betas``, ``global_rot`` ...) are ignored, as
+    the JAX package's models ignore them."""
+    cls = MODEL_CLASSES[model_type]
+    accepted = set()
+    for klass in cls.__mro__:
+        if klass is nn.Module:
+            break
+        accepted |= set(inspect.signature(klass.__init__).parameters)
+    kwargs = {k: v for k, v in model_cfg.items() if k in accepted}
+    return cls(model_folder=os.path.expandvars(model_folder), **kwargs)
+
+
+class BodyRegressor(nn.Module):
+    """HMR-style iterative regressor over the body model of
+    ``MODEL_TYPE``; ``body_model`` None builds it from ``body_model_cfg``
+    (its ``MODEL_TYPE`` section and ``model_folder``)."""
+
+    MODEL_TYPE = "smpl"
+    # (config key, default, the value the port supports)
+    PORTED_OPTIONS = (("pose_last_stage", True, True),)
 
     def __init__(
         self,
-        body_model: SMPLX,
+        body_model: Optional[SMPL] = None,
         measurements: Optional[BodyMeasurements] = None,
         body_model_cfg: Optional[Dict] = None,
         network_cfg: Optional[Dict] = None,
@@ -67,12 +101,12 @@ class SMPLXRegressor(nn.Module):
     ):
         super().__init__()
         network_cfg = dict(network_cfg or {})
-        model_cfg = dict((body_model_cfg or {}).get("smplx") or {})
+        body_model_cfg = dict(body_model_cfg or {})
+        model_cfg = dict(body_model_cfg.get(self.MODEL_TYPE) or {})
+        self.curr_model_cfg = model_cfg
         self.num_stages = int(network_cfg.get("num_stages", 3))
         mlp_cfg = dict(network_cfg.get("mlp") or {})
-        for key, default, ported in (
-                ("predict_hands", True, False), ("predict_face", True, False),
-                ("pose_last_stage", True, True)):
+        for key, default, ported in self.PORTED_OPTIONS:
             if bool(network_cfg.get(key, default)) != ported:
                 raise ValueError(f"{key}={not ported} is not ported yet")
         if (mlp_cfg.get("activation") or {}).get("type", "none") not in (
@@ -87,14 +121,15 @@ class SMPLXRegressor(nn.Module):
                     "use_old_impl", backbone_cfg.get("use_old_impl", False))):
             raise ValueError("HRNet's use_old_impl topology is not ported yet")
         if network_cfg.get("type", "iterative-mlp") not in (
-                "iterative-mlp", "SMPLXRegressor"):
+                "iterative-mlp", *BODY_HEAD_REGISTRY):
             raise ValueError("only the iterative-mlp head is ported")
-        for key in ("mean_pose_path", "shape_mean_path"):
-            path = os.path.expandvars(str(model_cfg.get(key, "")))
-            if path and os.path.exists(path):
-                raise ValueError(f"{key}: reading {path!r} is not ported yet")
 
+        if body_model is None:
+            body_model = _build_body_model(
+                self.MODEL_TYPE, model_cfg,
+                str(body_model_cfg.get("model_folder", "")))
         self.model = body_model
+        self.mean_poses_dict = self._load_mean_poses()
         if measurements is None and network_cfg.get("compute_measurements",
                                                     False):
             measurements = BodyMeasurements(
@@ -107,21 +142,9 @@ class SMPLXRegressor(nn.Module):
         self.projection = cam["camera"]
         self.camera_scale_func = cam["scale_func"]
 
-        global_desc = build_pose_parameterization(
-            1, **dict(model_cfg.get("global_rot") or {}))
-        global_desc = PoseSpace(global_desc.num_angles, global_desc.param_type,
-                                global_desc.dim,
-                                global_rot_mean_flipped(global_desc),
-                                global_desc.decoder)
-        body_desc = build_pose_parameterization(
-            body_model.NUM_BODY_JOINTS,
-            **dict(model_cfg.get("body_pose") or {}))
         self.spaces: Dict[str, Any] = {
-            "global_rot": global_desc,
-            "body_pose": body_desc,
-            "betas": BlendShapeSpace(
-                body_model.num_betas,
-                np.zeros(body_model.num_betas, np.float32)),
+            **self._build_pose_space(),
+            **self._build_blendshape_space(),
             "camera": BlendShapeSpace(cam["dim"], cam["mean"]),
         }
         self.param_slices: Dict[str, slice] = {}
@@ -151,8 +174,40 @@ class SMPLXRegressor(nn.Module):
         self.register_buffer("param_mean", torch.as_tensor(param_mean))
         self.backbone_dtype = torch.float32
 
+    # -- space builders (extended per model family) ------------------------
+    def _load_mean_poses(self) -> Dict[str, Any]:
+        path = os.path.expandvars(
+            str(self.curr_model_cfg.get("mean_pose_path", "")))
+        if path and os.path.exists(path):
+            with open(path, "rb") as f:
+                return pickle.load(f, encoding="latin1")
+        return {}
+
+    def _build_pose_space(self) -> Dict[str, PoseSpace]:
+        global_desc = build_pose_parameterization(
+            1, **dict(self.curr_model_cfg.get("global_rot") or {}))
+        global_desc = PoseSpace(global_desc.num_angles, global_desc.param_type,
+                                global_desc.dim,
+                                global_rot_mean_flipped(global_desc),
+                                global_desc.decoder)
+        body_desc = build_pose_parameterization(
+            self.model.NUM_BODY_JOINTS,
+            mean=self.mean_poses_dict.get("body_pose"),
+            **dict(self.curr_model_cfg.get("body_pose") or {}))
+        return {"global_rot": global_desc, "body_pose": body_desc}
+
+    def _build_blendshape_space(self) -> Dict[str, BlendShapeSpace]:
+        num_betas = self.model.num_betas
+        mean = np.zeros(num_betas, np.float32)
+        path = os.path.expandvars(
+            str(self.curr_model_cfg.get("shape_mean_path", "")))
+        if path and os.path.exists(path):
+            mean = np.load(path, allow_pickle=True).reshape(-1)[
+                :num_betas].astype(np.float32)
+        return {"betas": BlendShapeSpace(num_betas, mean)}
+
     def prepare_for_eval_(self, backbone_dtype: torch.dtype = torch.float32
-                          ) -> "SMPLXRegressor":
+                          ) -> "BodyRegressor":
         """Freeze for inference: eval mode, no gradients, BN folded into
         the convs, backbone in ``backbone_dtype`` and channels_last (its
         features are cast back to f32 for the head)."""
@@ -165,7 +220,7 @@ class SMPLXRegressor(nn.Module):
         return self
 
     def prepare_for_train_(self, backbone_dtype: torch.dtype = torch.float32
-                           ) -> "SMPLXRegressor":
+                           ) -> "BodyRegressor":
         """Train mode: BN unfolded (batch moments and running-stat EMA),
         the head's dropout on, f32 master weights with the backbone's
         convs and BN in ``backbone_dtype`` and channels_last; the head,
@@ -285,3 +340,48 @@ class SMPLXRegressor(nn.Module):
 
     def forward(self, images: torch.Tensor) -> Dict[str, Any]:
         return self.apply(images)
+
+
+class SMPLRegressor(BodyRegressor):
+    MODEL_TYPE = "smpl"
+
+
+class SMPLHRegressor(BodyRegressor):
+    """SMPL+H; its hand spaces (``predict_hands``) are not ported yet."""
+
+    MODEL_TYPE = "smplh"
+    PORTED_OPTIONS = BodyRegressor.PORTED_OPTIONS + (
+        ("predict_hands", True, False),)
+
+
+class SMPLXRegressor(SMPLHRegressor):
+    """SMPL-X; its jaw and expression spaces (``predict_face``) are not
+    ported yet."""
+
+    MODEL_TYPE = "smplx"
+    PORTED_OPTIONS = SMPLHRegressor.PORTED_OPTIONS + (
+        ("predict_face", True, False),)
+
+
+BODY_HEAD_REGISTRY = {
+    "SMPLRegressor": SMPLRegressor,
+    "SMPLHRegressor": SMPLHRegressor,
+    "SMPLXRegressor": SMPLXRegressor,
+}
+
+
+def build_body_head(cfg: Dict, **kwargs) -> BodyRegressor:
+    """The regressor of ``cfg['network']['type']`` (default
+    ``SMPLXRegressor``), its network config from the section of its model
+    type (``network.smplx`` ...), its body config ``cfg['body_model']``;
+    ``kwargs`` (``body_model``, ``measurements``, ``seed``) go to the
+    class."""
+    network_cfg = dict(cfg.get("network") or {})
+    head_type = network_cfg.get("type", "SMPLXRegressor")
+    if head_type not in BODY_HEAD_REGISTRY:
+        raise ValueError(f"Unknown body head: {head_type}")
+    head = BODY_HEAD_REGISTRY[head_type]
+    return head(
+        body_model_cfg=dict(cfg.get("body_model") or {}),
+        network_cfg=dict(network_cfg.get(head.MODEL_TYPE) or {}),
+        **kwargs)

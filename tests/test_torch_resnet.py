@@ -520,15 +520,31 @@ def test_regressor_compute_measurements_builds_them(tmp_path):
 
 @pytest.mark.parametrize("key", ["mean_pose_path", "shape_mean_path"])
 def test_regressor_refuses_mean_files(key, tmp_path):
-    """A ``mean_pose_path`` / ``shape_mean_path`` that names an existing
-    file raises (reading it is not ported); a path to no file is ignored,
-    as the JAX regressor ignores it."""
+    """A ``mean_pose_path`` / ``shape_mean_path`` that names no file is
+    ignored, as the JAX regressor ignores it; one that names a file is
+    read into ``param_mean`` (the body pose's or the betas' slice). The
+    name dates from when a present file was refused; it is kept so that
+    the test's record carries on across the change."""
+    import pickle
+
     model = SMPLX(make_synthetic_model_data("smplx", subdivisions=1, seed=0))
     body = {"smplx": dict(FLAGSHIP_BODY_CFG["smplx"],
                           **{key: str(tmp_path / "missing.pkl")})}
-    SMPLXRegressor(model, None, body, NET_CFG)
-    present = tmp_path / "mean.npy"
-    np.save(present, np.zeros(10, np.float32))
+    default = SMPLXRegressor(model, None, body, NET_CFG).param_mean
+    rng = np.random.default_rng(3)
+    if key == "shape_mean_path":
+        mean = rng.normal(size=10).astype(np.float32)
+        present, space = tmp_path / "mean.npy", "betas"
+        np.save(present, mean)
+    else:
+        mean = rng.normal(size=21 * 6).astype(np.float32)
+        present, space = tmp_path / "mean.pkl", "body_pose"
+        with open(present, "wb") as f:
+            pickle.dump({"body_pose": {"cont_rot_repr": mean}}, f)
     body["smplx"][key] = str(present)
-    with pytest.raises(ValueError, match=key):
-        SMPLXRegressor(model, None, body, NET_CFG)
+    reg = SMPLXRegressor(model, None, body, NET_CFG)
+    sl = reg.param_slices[space]
+    np.testing.assert_array_equal(reg.param_mean[0, sl].numpy(), mean)
+    rest = torch.ones(reg.param_dim, dtype=torch.bool)
+    rest[sl] = False
+    assert torch.equal(reg.param_mean[0, rest], default[0, rest])
