@@ -47,10 +47,21 @@ Phases, each of which raises on failure (exit code 1):
    K1-exact forward and backward on all faces at
    batch 48 and batch 1; the backwards first against autograd through
    the plain versions in f64; K6, K7 and K9 at phase 9's shapes: K6 on a
-   full-width body pair with 256 slots, faces exact and barycentrics
-   within 1e-5, K7 on the four pairs' contacts, value rel 1e-5 and
-   gradient within 1e-4 of the largest of autograd in f64, K9 both ways
-   between two bodies' vertices within 1e-5 m) and times both with CUDA
+   full-width body pair and the four pairs with 256 slots and on the
+   plane route (phase 9's quads, 1024 slots), and on planted cases (more
+   hits than slots, hit lists forced to overflow into the index-order
+   sweep, a target repeated, degenerate triangles), ids equal and
+   barycentrics bit-equal to the plain version and to its replay
+   (``mesh_mesh_intersection_replay``), two calls bit-equal, its Morton
+   order and overflow count the replay's, the culled tests a query as
+   the kernel's counting build counts them (equal to the replay's) and
+   the prologue's share of the time; K7 on the four pairs' contacts, value
+   rel 1e-5 and gradient within 1e-4 of the largest of autograd in f64;
+   K9 both ways between two bodies' vertices and between clouds with
+   duplicate and equidistant points planted, through ``nn_dists_both``
+   and ``_nn_dists``, bit-equal to the plain version, its neighbours the
+   replay's, and its floor in issue slots computed and printed beside
+   its bound) and times both with CUDA
    events (K6's plain version over 2 calls: it takes ~0.5 s), K4 beside
    ``F.batch_norm(training=True)`` and K9 beside ``torch.cdist`` + ``min``
    (two calls a direction); computes each kernel's bound (bytes or FLOPs
@@ -180,8 +191,9 @@ Phases, each of which raises on failure (exit code 1):
    at 5, 10 and 20 mm between the bodies' vertices and between their
    P2P-20k clouds (distances within 1e-5 m of the plain version's, and
    scores equal wherever no point's two distances fall on either side of
-   the threshold). Checks that K6, K7 forward and
-   backward and K9 were launched by this phase, and prints their counts.
+   the threshold). Checks that K6, K7 forward and backward and K9 were
+   launched by this phase, K9 once an F-score (both directions), and
+   prints their counts and K6's overflowed queries.
 10. Kill and resume on the card: 4 ``Trainer.fit`` steps of batch 48
    against 2 steps, a checkpoint in a temporary directory, a new
    ``Trainer`` that resumes from it and 2 more steps: parameters, BN
@@ -468,12 +480,13 @@ _PAD_NAMES = set()
 
 
 def _device_trace(fn, passes: int, first: bool = True):
-    """(ms, kernels by name) of the CUDA kernels and copies that
-    ``passes`` calls of ``fn`` run, from one ``torch.profiler`` trace: the
-    time at least one of them runs (the union of their spans: a kernel
-    launched as a programmatic dependent, as K4's split forward launches
-    its second and third passes, starts before the one it waits for
-    ends), and their count by name; None where the trace lost its marker.
+    """(ms, kernels by name, ms by name) of the CUDA kernels and copies
+    that ``passes`` calls of ``fn`` run, from one ``torch.profiler``
+    trace: the time at least one of them runs (the union of their spans: a
+    kernel launched as a programmatic dependent, as K4's split forward
+    launches its second and third passes, starts before the one it waits
+    for ends), their count by name and their summed spans by name; None
+    where the trace lost its marker.
     The trace starts and ends with 8 short spin kernels, left out of both:
     a trace can miss its first or last few events. A trace has also been
     seen to miss the first kernels of the first call in it, every time in
@@ -527,14 +540,19 @@ def _device_trace(fn, passes: int, first: bool = True):
                               for e in events):
         busy += max(0.0, stop - max(start, end))
         end = max(end, stop)
-    return busy / 1e3, collections.Counter(e.name for e in events)
+    spans = collections.Counter()
+    for e in events:
+        spans[e.name] += (e.time_range.end - e.time_range.start) / 1e3
+    return busy / 1e3, collections.Counter(e.name for e in events), spans
 
 
-def device_time(fn, passes: int = 3, tries: int = 5) -> tuple:
+def device_time(fn, passes: int = 3, tries: int = 5,
+                split: bool = False) -> tuple:
     """(ms, kernels) of one call of ``fn`` on the device: the time the
     CUDA kernels (and copies) it runs take on the device
     (:func:`_device_trace`), from a ``torch.profiler`` trace of ``passes``
-    calls after a warm-up call, and how many it runs.
+    calls after a warm-up call, and how many it runs; with ``split`` also
+    each kernel name's ms a call.
     Unlike :func:`time_ms`'s window it leaves out the host: a replay of
     hundreds of small calls queues more launches than CUDA's launch queue
     holds, and the window times the Python wrappers.
@@ -559,10 +577,13 @@ def device_time(fn, passes: int = 3, tries: int = 5) -> tuple:
             print("device trace lost its marker: taken again", flush=True)
             time.sleep(1.0)
             continue
-        (_, one), (total, many) = traces
+        (_, one, _), (total, many, spans) = traces
         n = sum(one.values())
         want = collections.Counter({k: v * passes for k, v in one.items()})
         if n >= least and many == want:
+            if split:
+                return total / passes, n, {k: v / passes
+                                           for k, v in spans.items()}
             return total / passes, n
         seen.append((n, sum(many.values())))
         print(f"device trace pair disagrees (one call {n} kernels, at "
@@ -4807,19 +4828,100 @@ def box_pairs(a, b, chunk: int = 1024) -> int:
     return n
 
 
-def check_contact_kernels(bodies, dev):
-    """Phase 2, the contact path's kernels at phase 9's shapes: K6 on a
-    full-width body pair (Q = F = 20908, 256 slots) against its plain
-    version on the card (faces exact, barycentrics within 1e-5: the same
-    decisions, no FMA on either side), K7's forward and backward on the
-    four pairs' contacts against the plain version (value rel 1e-5: pairs
-    summed in another order; gradient within 1e-4 of the largest of
-    autograd in f64), K9 both ways between two bodies' vertices (10475 x
-    10475) within NN_TOL of the plain version. Returns the entries and
-    the plain K6 output of pair 0, which phase 9 holds its run against."""
+def plane_quads(meas, va):
+    """Phase 9's plane route: the chest, waist and hips quads (+-1 m, two
+    triangles each) at K1's plane heights of the bodies va (B, V, 3), as
+    queries (B, 6, 3, 3), and the heights (B, 3)."""
     import torch
 
-    from shapy_tpu_torch.eval.metrics import _nn_dists, nn_dists_plain
+    from shapy_tpu_torch.measure.measurements import PLANES
+
+    with torch.no_grad():
+        _, heights = meas.measure(va, use_face_subsets=False)  # (B, 3)
+    quads = []
+    for h in heights.reshape(-1).tolist():
+        quads += [[[-1.0, h, -1.0], [1.0, h, -1.0], [1.0, h, 1.0]],
+                  [[-1.0, h, -1.0], [1.0, h, 1.0], [-1.0, h, 1.0]]]
+    quads = torch.tensor(quads, device=va.device)
+    return quads.reshape(len(va), 2 * len(PLANES), 3, 3), heights
+
+
+def k6_case(name, q, t, M, plan=None, check_order=False):
+    """K6 on (q, t, M) under ``plan`` against its plain version and its
+    replay: ids equal, barycentrics bit-equal, two calls bit-equal, the
+    overflow counter the replay's count, a third call through the
+    kernel's counting build (the same outputs) whose counts of the tests
+    its walk made equal the replay's totals (and with ``check_order`` the
+    kernel's Morton order the replay's). Returns the replay's info, with
+    ``tested`` and ``overflowed_count``: the kernel's counts of that
+    call."""
+    import torch
+
+    from shapy_tpu_torch.ops import tri_tri
+
+    tested = torch.zeros(4, dtype=torch.int64, device=q.device)
+    with torch.no_grad():
+        tri_tri.reset_overflowed()
+        faces, bcs, order = tri_tri._mesh_mesh_intersection_cuda(q, t, M,
+                                                                 plan)
+        again = tri_tri._mesh_mesh_intersection_cuda(q, t, M, plan)
+        over = tri_tri.overflowed_queries()
+        counted = tri_tri._mesh_mesh_intersection_cuda(q, t, M, plan, tested)
+        want_f, want_b = tri_tri.mesh_mesh_intersection_plain(
+            q, t, M, query_chunk=256)
+        rep_f, rep_b, info = tri_tri.mesh_mesh_intersection_replay(
+            q, t, M, plan, query_chunk=256)
+    same = (torch.equal(faces, want_f) and torch.equal(bcs, want_b)
+            and torch.equal(rep_f, want_f) and torch.equal(rep_b, want_b))
+    twice = all(torch.equal(x, y[0]) and torch.equal(bcs, y[1])
+                for x, y in ((faces, again), (faces, counted)))
+    ordered = not check_order or torch.equal(order.long(), info["order"])
+    n_over = int(info["overflowed"].sum())
+    want_tests = [q.shape[0] * q.shape[1] * info["superclusters_tested"],
+                  *(int(info[k].sum()) for k in (
+                      "clusters_tested", "faces_tested", "box_passed"))]
+    info["tested"] = tested.tolist()
+    info["overflowed_count"] = over // 2
+    print(f"K6 {name}: {int((faces >= 0).sum())} hits, ids equal to the "
+          f"plain version's and barycentrics bit-equal: {same}, three calls "
+          f"(the third counting) bit-equal: {twice}, order equal to the "
+          f"replay's: {ordered}, overflowed queries {over // 2} a call "
+          f"(replay {n_over}), most hits a query {int(info['hits'].max())}; "
+          f"tests counted by the kernel (superclusters, clusters, faces, "
+          f"Moller) {info['tested']}, the replay's {want_tests}")
+    check(same and twice and ordered and over == 2 * n_over
+          and info["tested"] == want_tests, f"K6 {name} vs plain and replay")
+    return info
+
+
+def check_contact_kernels(bodies, meas, dev):
+    """Phase 2, the contact path's kernels at phase 9's shapes: K6 (a body
+    pair and the four pairs, 20908 x 20908 faces, 256 slots; the plane
+    route, phase 9's chest / waist / hips quads as queries, 1024 slots;
+    and planted cases: more hits than slots, lists forced to overflow,
+    coincident boxes and degenerate triangles) against its plain version
+    on the card and its replay (ids equal, barycentrics bit-equal: the
+    same decisions, no FMA on either side; the kernel's Morton order the
+    replay's), with the culling counts and the prologue's share of the
+    time; K7's forward and backward on the four pairs' contacts against
+    the plain version (value rel 1e-5: pairs summed in another order;
+    gradient within 1e-4 of the largest of autograd in f64); K9 both ways
+    between two bodies' vertices (10475 x 10475) through ``_nn_dists``
+    and ``nn_dists_both``, bit-equal to the plain version, its neighbours
+    the replay's, also with duplicate and equidistant points planted in
+    b. Returns the entries and the plain K6 output of pair 0, which phase
+    9 holds its run against."""
+    import torch
+
+    from shapy_tpu_torch.eval.metrics import (
+        _nn_dists,
+        _nn_search_cuda,
+        nn_dists_both,
+        nn_dists_plain,
+        nn_plan,
+        nn_search_replay,
+    )
+    from shapy_tpu_torch.ops import tri_tri
     from shapy_tpu_torch.ops.repulsion import (
         repulsion_loss,
         repulsion_loss_plain,
@@ -4834,25 +4936,53 @@ def check_contact_kernels(bodies, dev):
     Bc, F = a.shape[:2]
     M = CONTACT_M
     a1, b1 = a[:1].contiguous(), b[:1].contiguous()
+    quads, _ = plane_quads(meas, bodies["va"])
 
     # K6 at batch 1 (the plain version goes through 82 query chunks in a
-    # Python loop, ~0.5 s: timed over 2 calls)
+    # Python loop, ~0.5 s: timed over 2 calls), at the main path's batch
+    # of 4 pairs and on the plane route
+    info = k6_case("pair 0", a1, b1, M, check_order=True)
     with torch.no_grad():
-        faces, bcs = mesh_mesh_intersection(a1, b1, M)
         plain = mesh_mesh_intersection_plain(a1, b1, M, query_chunk=256)
-    same = torch.equal(faces, plain[0])
-    bcs_err = max_err(bcs, plain[1])
-    hits = int((faces >= 0).sum())
-    print(f"K6 tri-tri (pair 0, {F} x {F} faces, {M} slots): {hits} hits, "
-          f"faces equal to the plain version's: {same}, barycentrics err "
-          f"{bcs_err:.3e} (tol 1e-5)")
-    check(same and bcs_err <= 1e-5, "K6 vs plain")
+    hits = int((plain[0] >= 0).sum())
+    info4 = k6_case(f"{Bc} pairs", a, b, M, check_order=True)
+    info_p = k6_case("plane route", quads, a, PLANE_M, check_order=True)
+    # planted: more hits than slots; lists too short for the hits (a block
+    # a query on the plane route, a warp a query on pair 0); a target
+    # repeated (coincident boxes); degenerate triangles (a vertex
+    # repeated, in a query and in a target)
+    nc = -(-F // 32)
+    over = k6_case("plane route, 8 slots", quads, a, 8)
+    check(int(over["hits"].max()) > 8, "K6 planted: no query has more "
+          "hits than 8 slots")
+    for name, q, t, m, plan in (
+            ("plane route, lists of 32", quads, a, PLANE_M,
+             tri_tri.TriTriPlan(nc, 32, 8)),
+            ("pair 0, lists of 1", a1, b1, 4, tri_tri.TriTriPlan(nc, 1, 1))):
+        got = k6_case(name, q, t, m, plan)
+        check(bool(got["overflowed"].any()), f"K6 {name}: no overflow")
+    planted_t, planted_q = b1.clone(), a1.clone()
+    planted_t[:, 5] = planted_t[:, 100]
+    planted_t[:, 7, 2] = planted_t[:, 7, 0]
+    planted_q[:, 9, 1] = planted_q[:, 9, 0]
+    k6_case("coincident boxes and degenerate triangles", planted_q,
+            planted_t, M)
+
     n_box = box_pairs(a1[0], b1[0])
     # bytes: queries and targets read once, ids and barycentrics written;
-    # operations: the box test (6) on all Q x F pairs, ~150 for the full
-    # interval test on the pairs whose boxes overlap, ~60 per kept hit
-    k6_bytes = 2 * F * 36 + F * M * (4 + 24)
-    k6_ops = 6 * F * F + 150 * n_box + 60 * hits
+    # operations: this data's culled tests as the kernel counted them (6 a
+    # box test: every supercluster box, the cluster boxes of those that
+    # overlap, the face boxes of the clusters that overlap), ~150 for the
+    # full test on the faces whose boxes overlap, ~60 per kept hit
+    def k6_work(inf, B, Q, m):
+        n_s, n_c, n_f, n_b = inf["tested"]
+        return (B * (Q + F) * 36 + B * Q * m * (4 + 24),
+                6 * (n_s + n_c + n_f) + 150 * n_b
+                + 60 * int(inf["hits"].sum()))
+
+    k6_bytes, k6_ops = k6_work(info, 1, F, M)
+    with torch.no_grad():
+        bcs_err = max_err(mesh_mesh_intersection(a1, b1, M)[1], plain[1])
     row = record_kernel(
         results, "K6_tri_tri", bcs_err,
         lambda: mesh_mesh_intersection(a1, b1, M),
@@ -4860,17 +4990,46 @@ def check_contact_kernels(bodies, dev):
         k6_bytes, k6_ops, plain_iters=2)
     row["box_pairs"] = n_box
     row["hits"] = hits
-    # the main path's batch of 4 pairs, beside it
-    ms4 = time_ms(lambda: mesh_mesh_intersection(a, b, M))
+
+    # the tests a query, from the kernel's counting build (k6_case holds
+    # them to the replay's), and the queries the kernel counted overflowed
+    def culling(inf):
+        n = inf["hits"].numel()
+        return {**{k: round(v / n, 2) for k, v in zip(
+                    ("superclusters_tested", "clusters_tested",
+                     "faces_tested", "box_passed"), inf["tested"])},
+                "overflowed": inf["overflowed_count"]}
+
+    def prologue_share(fn):
+        ms, _, spans = device_time(fn, split=True)
+        query = sum(v for k, v in spans.items() if "tri_tri_kernel" in k)
+        return ms, round(1.0 - query / sum(spans.values()), 4)
+
+    row["culling"] = culling(info)
+    row["device_ms"], row["prologue_share"] = prologue_share(
+        lambda: mesh_mesh_intersection(a1, b1, M))
     with torch.no_grad():
         faces4 = mesh_mesh_intersection(a, b, M)[0]
         n_box4 = n_box + sum(box_pairs(a[k], b[k]) for k in range(1, Bc))
-    hits4 = int((faces4 >= 0).sum())
-    b4 = bound(Bc * k6_bytes, Bc * 6 * F * F + 150 * n_box4 + 60 * hits4)
-    row["cases"] = [{"batch": Bc, "ms": ms4, "bound_ms": b4[0],
-                     "bound_by": b4[1], "box_pairs": n_box4, "hits": hits4}]
-    print(f"K6 at batch {Bc}: kernel {ms4:.4f} ms, bound {b4[0]:.4f} ms "
-          f"({b4[1]})")
+    row["cases"] = []
+    for name, (q, t, m, inf) in {
+            f"batch {Bc}": (a, b, M, info4),
+            "plane route": (quads, a, PLANE_M, info_p)}.items():
+        nbytes, ops = k6_work(inf, len(q), q.shape[1], m)
+        ms = time_ms(lambda: mesh_mesh_intersection(q, t, m))
+        lim = bound(nbytes, ops)
+        dev_ms, share = prologue_share(
+            lambda: mesh_mesh_intersection(q, t, m))
+        row["cases"].append({
+            "case": name, "ms": ms, "device_ms": dev_ms,
+            "prologue_share": share, "bound_ms": lim[0], "bound_by": lim[1],
+            "hits": int(inf["hits"].sum()), "culling": culling(inf)})
+        print(f"K6 {name}: kernel {ms:.4f} ms (device {dev_ms:.4f}, the "
+              f"prologue {share:.1%}), bound {lim[0]:.4f} ms ({lim[1]}); "
+              f"culling a query {row['cases'][-1]['culling']}")
+    row["cases"][0]["box_pairs"] = n_box4
+    print(f"K6 pair 0: device {row['device_ms']:.4f} ms, the prologue "
+          f"{row['prologue_share']:.1%}; culling a query {row['culling']}")
 
     # K7 on the contacts of all four pairs, both directions of the pairs'
     # cones, the reference's defaults
@@ -4916,23 +5075,62 @@ def check_contact_kernels(bodies, dev):
                   n_pairs * 1200)
 
     # K9 both ways between two bodies' vertices, as point_fscore runs it
+    # (nn_dists_both), and each way alone (_nn_dists); then clouds with
+    # duplicates and points equidistant from a query planted in b
     pa, pb = bodies["va"][0].contiguous(), bodies["vb"][0].contiguous()
+    gen = torch.Generator().manual_seed(SEED + 3)
+    x = (torch.randn(3000, 3, generator=gen) * 0.3).to(dev)
+    y = (torch.randn(5000, 3, generator=gen) * 0.3).to(dev)
+    y[100:200] = y[0:100]
+    y[4999] = y[5]
+    x[:50] = 0.0
+    y[300], y[301] = (torch.tensor([1e-3, 0, 0]),
+                      torch.tensor([-1e-3, 0, 0]))
     N, Mb = len(pa), len(pb)
+    err, same = 0.0, True
     with torch.no_grad():
-        err = max(max_err(_nn_dists(p, q), nn_dists_plain(p, q))
-                  for p, q in ((pa, pb), (pb, pa)))
-    print(f"K9 nn dists ({N} x {Mb}, both ways): err {err:.3e} m (tol "
-          f"{NN_TOL})")
-    check(err <= NN_TOL, "K9 vs plain")
+        for p, q in ((pa, pb), (x, y)):
+            want = nn_dists_plain(p, q), nn_dists_plain(q, p)
+            got = nn_dists_both(p, q)
+            single = _nn_dists(p, q), _nn_dists(q, p)
+            out, idx = _nn_search_cuda(p, q, True)
+            plans = nn_plan(len(p), len(q), True)
+            replay = [nn_search_replay(u, v, plan)[1] for (u, v), plan in
+                      zip(((p, q), (q, p)), plans)]
+            err = max(err, *(max_err(g, w) for g, w in
+                             zip(got + single, want + want)))
+            same &= all(torch.equal(i.long(), r) for i, r in
+                        zip(idx.split([len(p), len(q)]), replay))
+    first = int(idx[0])
+    print(f"K9 nn dists ({N} x {Mb} and 3000 x 5000 with planted ties, "
+          f"both ways, through nn_dists_both and _nn_dists): err "
+          f"{err:.3e} m (exact), neighbours the replay's: {same}, a "
+          f"planted tie's neighbour {first} (the first, 300)")
+    check(err == 0.0 and same and first == 300, "K9 vs plain and replay")
     row = record_kernel(
         results, "K9_nn_dists", err,
-        lambda: (_nn_dists(pa, pb), _nn_dists(pb, pa)),
+        lambda: nn_dists_both(pa, pb),
         lambda: (nn_dists_plain(pa, pb), nn_dists_plain(pb, pa)),
         (N + Mb) * (12 + 4), 2 * 8 * N * Mb,
         lambda: (torch.cdist(pa, pb).min(dim=1),
                  torch.cdist(pb, pa).min(dim=1)))
     row["library_call"] = ("torch.cdist(a, b).min(dim=1), both ways: two "
                            "calls a direction")
+    row["timed_as"] = "nn_dists_both(a, b): one launch, both ways"
+    row["device_ms"] = device_ms(lambda: nn_dists_both(pa, pb))
+    # A second bound beside bound_ms, computed, not measured (so kept out
+    # of the kernels line): K9's floor in issue slots. --fmad=false leaves
+    # 8 instructions a pair (3 multiplies, 4 adds, a minimum), at one a
+    # cycle on each of the card's schedulers (4 an SM) at its top SM clock.
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True,
+        text=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    floor = 2 * N * Mb * 8 / (sms * 4 * 32 * clock * 1e6) * 1e3
+    print(f"K9: device {row['device_ms']:.4f} ms; issue floor under "
+          f"--fmad=false (computed from the shapes and the top SM clock, "
+          f"not measured) {floor:.4f} ms ({sms} SMs at {clock:.0f} MHz)")
     return results, plain
 
 
@@ -4955,24 +5153,20 @@ def contact(bodies, eval_data, meas, k6_plain, dev):
     )
     from shapy_tpu_torch.measure.measurements import PLANES, _soa
     from shapy_tpu_torch.ops import MeshMeshIntersection, repulsion_loss
+    from shapy_tpu_torch.ops import tri_tri
     from shapy_tpu_torch.ops.plane_slice import plane_slice_soa
     from shapy_tpu_torch.ops.repulsion import repulsion_loss_plain
 
     a, b, va, vb = (bodies[k] for k in ("a", "b", "va", "vb"))
     Bc, F = a.shape[:2]
-    with torch.no_grad():
-        _, heights = meas.measure(va, use_face_subsets=False)  # (4, 3)
-    quads = []
-    for h in heights.reshape(-1).tolist():
-        quads += [[[-1.0, h, -1.0], [1.0, h, -1.0], [1.0, h, 1.0]],
-                  [[-1.0, h, -1.0], [1.0, h, 1.0], [-1.0, h, 1.0]]]
-    quads = torch.tensor(quads, device=dev).reshape(Bc, 2 * len(PLANES), 3, 3)
+    quads, heights = plane_quads(meas, va)
     p2p = eval_data["p2p"]
     clouds = {"vertices": (va, vb), "p2p": (p2p.regress(va).contiguous(),
                                             p2p.regress(vb).contiguous())}
     torch.cuda.synchronize()
 
     reset_launches()
+    tri_tri.reset_overflowed()
     start = time.perf_counter()
     with torch.no_grad():
         faces, bcs = MeshMeshIntersection(CONTACT_M)(a, b)
@@ -4994,6 +5188,10 @@ def contact(bodies, eval_data, meas, k6_plain, dev):
 
     for name in CONTACT_KERNELS:
         check(launches[name] > 0, f"{name} was not launched by phase 9")
+    # one K9 launch an F-score (both directions), none other
+    check(launches["K9_nn_dists"] == len(scores),
+          f"K9 launches {launches['K9_nn_dists']} for {len(scores)} F-scores")
+    overflowed = tri_tri.overflowed_queries()
     # K6 body against body
     counts = (faces >= 0).sum(dim=1).tolist()
     check(min(counts) >= MIN_COLLISIONS, f"collisions per pair {counts}")
@@ -5089,8 +5287,8 @@ def contact(bodies, eval_data, meas, k6_plain, dev):
           f"gradient {grad_err:.2e} of the largest; F-scores {fs_text}"
           f" ({straddled} of {len(scores)} skipped: a point's distances on "
           f"either side of the threshold), distances within {nn_err:.2e} "
-          f"m; launches "
-          f"{ {k: launches[k] for k in CONTACT_KERNELS} }")
+          f"m; K6 queries that overflowed their lists: {overflowed}; "
+          f"launches { {k: launches[k] for k in CONTACT_KERNELS} }")
     return launches
 
 
@@ -5497,7 +5695,8 @@ def main() -> int:
     checked["K5_wgrad"]["backbone"] = check_backbone_train_routes(base, dev)
     stamp("phase 2: contact")
     bodies = contact_bodies(regressor.model, dev)
-    contact_checked, k6_plain = check_contact_kernels(bodies, dev)
+    contact_checked, k6_plain = check_contact_kernels(
+        bodies, regressor.body_measurements, dev)
     checked.update(contact_checked)
     stamp("phase 3")
     serve_launches, serve_rate = serve(regressor, requests)
@@ -5560,7 +5759,8 @@ def main() -> int:
             # of the others
             "library_ms": c.get("library_ms")}
         for key in ("library_call", "box_pairs", "hits", "timed_as",
-                    "f32_max_rel_err", "backbone", "cases"):
+                    "f32_max_rel_err", "backbone", "cases", "culling",
+                    "device_ms", "prologue_share"):
             if key in c:
                 entry[key] = c[key]
         entries.append(entry)

@@ -10,9 +10,9 @@ metrics on the card:
     :func:`aligned_point_error` and :class:`PointError` are a group of one;
   * K8a (``csrc/point_regress.cu``) — :func:`point_regress_error`, the
     P2P-20k error of :class:`SparsePointRegressor`;
-  * K9 (``csrc/nn_dists.cu``) — :func:`_nn_dists`, each point's distance
-    to its nearest neighbour in the other cloud, twice per
-    :func:`point_fscore`.
+  * K9 (``csrc/nn_dists.cu``) — :func:`nn_dists_both` and :func:`_nn_dists`,
+    each point's distance to its nearest neighbour in the other cloud,
+    both directions of :func:`point_fscore` in one launch.
 
 Each wrapper runs its plain version (``*_plain``) for CPU tensors and
 launches its kernel, or raises, for CUDA tensors. The alignment functions
@@ -23,13 +23,13 @@ themselves are plain PyTorch on every device (``procrustes_align`` uses
 from __future__ import annotations
 
 import copy
-import functools
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from shapy_tpu_torch.utils.cuda_kernels import (
+    CARD_SMS,
     CudaKernel,
     check_cuda_input,
     check_no_grad,
@@ -59,17 +59,15 @@ _ALIGN_FIELDS = 14 + _ALIGN_MAX_ROOT
 # A (body, pair)'s double totals in K8b: est and gt coordinate sums, var1,
 # var2, K row-major, the root ids' coordinate sums.
 _ALIGN_SUMS = 23
-NN_KERNEL = CudaKernel("nn_dists.cu", {"nn_dists_forward": "ppppp iii p"})
-_NN_THREADS = 256  # query points per block of csrc/nn_dists.cu
-_NN_BLOCKS_PER_SM = 8  # blocks to aim for, per SM of the card
-_NN_MIN_SPAN = 512  # fewest points of b per range
-
-
-@functools.lru_cache(maxsize=None)
-def _nn_target_blocks(index: int) -> int:
-    """K9's blocks to aim for on CUDA device ``index``."""
-    sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return _NN_BLOCKS_PER_SM * sms
+NN_KERNEL = CudaKernel("nn_dists.cu",
+                       {"nn_dists_forward": "pppppp iiiiiiii p"})
+# csrc/nn_dists.cu: threads a search block, query points a thread, points
+# of b a run and a staged tile.
+_NN_THREADS, _NN_R, _NN_RUN, _NN_TILE = 256, 4, 16, 2048
+# Search blocks to aim for: one an SM. The search takes the same time at 1-4
+# an SM; more ranges only lengthen the merge.
+_NN_TARGET_CTAS = CARD_SMS
+_NN_MIN_SPAN = 64  # fewest points of b a range
 
 
 class ClusterPlan(NamedTuple):
@@ -167,36 +165,140 @@ def nn_dists_plain(a: torch.Tensor, b: torch.Tensor, chunk: int = 2048
     return torch.sqrt(torch.clamp(d2, min=0.0))
 
 
-def _nn_dists(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Nearest-neighbour distances (N,) from a (N, 3) to b (M, 3): the
-    plain version for CPU tensors, kernel K9 for CUDA tensors (forward
-    only; contiguous f32)."""
-    if b.shape[0] == 0:
+class NNPlan(NamedTuple):
+    """K9's split of one direction (N query points in M points of b), from
+    the shapes alone: ``blocks`` query blocks of 1024 points (256 threads
+    of 4), b cut into ``ranges`` contiguous ranges of ``span`` points."""
+
+    blocks: int
+    ranges: int
+    span: int
+
+
+def nn_plan(N: int, M: int, both: bool = False) -> Tuple[NNPlan, ...]:
+    """K9's plan for a (N, 3) in b (M, 3), and with ``both`` also b in a:
+    a pure function of the shapes. Both directions share one launch, so
+    each cuts b into as many ranges as give ~132 search blocks in all (one
+    an SM of an H100), each range of at least 64 points. At N = M = 10475
+    both ways: 11 query blocks a direction, 6 ranges of 1746 points."""
+    per = _NN_THREADS * _NN_R
+    dirs = ((N, M), (M, N)) if both else ((N, M),)
+    blocks = [-(-n // per) for n, _ in dirs]
+    plans = []
+    for (_, m), nb in zip(dirs, blocks):
+        ranges = max(1, min(-(-m // _NN_MIN_SPAN),
+                            -(-_NN_TARGET_CTAS // sum(blocks))))
+        span = -(-m // ranges)
+        plans.append(NNPlan(nb, -(-m // span), span))
+    return tuple(plans)
+
+
+def nn_search_replay(a: torch.Tensor, b: torch.Tensor, plan: NNPlan
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K9's search for a (N, 3) in b (M, 3) under ``plan``, replayed in
+    plain PyTorch on any device: (distances (N,), neighbour indices (N,)).
+
+    Each range of b is cut into tiles of 2048 points and each tile into
+    runs of 16 (the last one padded with points that are never a
+    minimum); the expansion is taken with -2 folded into a, as the kernel
+    takes it; a range's minimum is the least run minimum, its neighbour
+    the first point of the first run that reaches it (the kernel's last
+    run that lowered the minimum strictly); the ranges are merged in
+    order, strictly smaller only. Bit-equal to :func:`nn_dists_plain`
+    (for finite clouds whose coordinate products stay above 2^-126)."""
+    q = -2.0 * a  # exact
+    aa, bb = dot3(a, a), dot3(b, b)
+    N, M = a.shape[0], b.shape[0]
+    best = a.new_full((N,), float("inf"))
+    idx = torch.zeros((N,), dtype=torch.long, device=a.device)
+    for r in range(plan.ranges):
+        lo, hi = r * plan.span, min(M, (r + 1) * plan.span)
+        d = (q[:, None, 0] * b[None, lo:hi, 0]
+             + q[:, None, 1] * b[None, lo:hi, 1]
+             + q[:, None, 2] * b[None, lo:hi, 2])
+        d = (aa[:, None] + d) + bb[None, lo:hi]
+        runs, starts = [], []
+        for t in range(0, hi - lo, _NN_TILE):
+            tile = d[:, t:t + _NN_TILE]
+            pad = -tile.shape[1] % _NN_RUN
+            tile = torch.nn.functional.pad(tile, (0, pad),
+                                           value=float("inf"))
+            runs.append(tile.reshape(N, -1, _NN_RUN).amin(dim=-1))
+            starts += range(t, t + tile.shape[1], _NN_RUN)
+        runs = torch.cat(runs, dim=1)
+        least = runs.amin(dim=1)
+        first_run = torch.argmax((runs == least[:, None]).to(torch.uint8),
+                                 dim=1)
+        j0 = torch.as_tensor(starts, device=a.device)[first_run]
+        cols = (j0[:, None] + torch.arange(_NN_RUN, device=a.device)
+                ).clamp(max=hi - lo - 1)
+        in_run = torch.gather(d, 1, cols) == least[:, None]
+        j = lo + j0 + torch.argmax(in_run.to(torch.uint8), dim=1)
+        j = torch.where(least < float("inf"), j, lo)
+        better = least < best
+        best = torch.where(better, least, best)
+        idx = torch.where(better, j, idx)
+    diff = a - b[idx]
+    return torch.sqrt(torch.clamp(dot3(diff, diff), min=0.0)), idx
+
+
+def _nn_search_cuda(a: torch.Tensor, b: torch.Tensor, both: bool,
+                    plans: Optional[Tuple[NNPlan, ...]] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel K9, one launch of the search and one of the merge: a in b
+    (and with ``both`` b in a), under ``plans`` (default :func:`nn_plan`).
+    Returns the distances (N (+ M),) and the neighbours' indices, int32,
+    direction a -> b first."""
+    if b.shape[0] == 0 or (both and a.shape[0] == 0):
         raise ValueError("nearest neighbours in an empty point cloud")
-    if a.device.type == "cpu":
-        return nn_dists_plain(a, b)
     if a.device.type != "cuda":
-        raise ValueError(f"_nn_dists: unsupported device {a.device}")
+        raise ValueError(f"K9: unsupported device {a.device}")
     N, M = a.shape[0], b.shape[0]
     dev = a.device
     check_cuda_input(a, "a", torch.float32, (N, 3), dev)
     check_cuda_input(b, "b", torch.float32, (M, 3), dev)
     check_no_grad(a, "a")
     check_no_grad(b, "b")
-    out = torch.empty((N,), dtype=torch.float32, device=dev)
+    n_out = N + M if both else N
+    out = torch.empty((n_out,), dtype=torch.float32, device=dev)
+    idx = torch.empty((n_out,), dtype=torch.int32, device=dev)
     if N == 0:
-        return out
-    # Split b into S ranges so that the search fills the card.
-    blocks = -(-N // _NN_THREADS)
-    S = max(1, min(-(-M // _NN_MIN_SPAN),
-                   -(-_nn_target_blocks(dev.index) // blocks)))
-    span = -(-M // S)
-    S = -(-M // span)
-    best_d = torch.empty((S, N), dtype=torch.float32, device=dev)
-    best_i = torch.empty((S, N), dtype=torch.int32, device=dev)
-    NN_KERNEL.launch("nn_dists_forward", [a, b, best_d, best_i, out, N, M,
-                                          span])
-    return out
+        return out, idx
+    plans = plans or nn_plan(N, M, both)
+    p0 = plans[0]
+    p1 = plans[1] if both else NNPlan(0, 0, 0)
+    scratch = p0.ranges * N + p1.ranges * M
+    best_d = torch.empty((scratch,), dtype=torch.float32, device=dev)
+    best_i = torch.empty((scratch,), dtype=torch.int32, device=dev)
+    NN_KERNEL.launch("nn_dists_forward", [
+        a, b, best_d, best_i, out, idx, N, M, *p0, *p1])
+    return out, idx
+
+
+def _nn_dists(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour distances (N,) from a (N, 3) to b (M, 3): the
+    plain version for CPU tensors, kernel K9 for CUDA tensors (forward
+    only; contiguous f32). :func:`point_fscore` takes both directions in
+    one launch (:func:`nn_dists_both`); this one-direction entry, and its
+    branch of the kernel, serve the tests and ``chip_smoke.py``."""
+    if b.shape[0] == 0:
+        raise ValueError("nearest neighbours in an empty point cloud")
+    if a.device.type == "cpu":
+        return nn_dists_plain(a, b)
+    return _nn_search_cuda(a, b, both=False)[0]
+
+
+def nn_dists_both(a: torch.Tensor, b: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both directions of :func:`point_fscore`: (a -> b (N,), b -> a
+    (M,)), each as :func:`_nn_dists` gives it. The plain version twice for
+    CPU tensors; one K9 launch for CUDA tensors."""
+    if a.shape[0] == 0 or b.shape[0] == 0:
+        raise ValueError("nearest neighbours in an empty point cloud")
+    if a.device.type == "cpu":
+        return nn_dists_plain(a, b), nn_dists_plain(b, a)
+    out = _nn_search_cuda(a, b, both=True)[0]
+    return out[:a.shape[0]], out[a.shape[0]:]
 
 
 def fscore_from_dists(pred_to_gt: torch.Tensor, gt_to_pred: torch.Tensor,
@@ -220,7 +322,8 @@ def point_fscore(pred, gt, thresh: float,
                  ) -> Dict[str, torch.Tensor]:
     """F-score between two point clouds (N, 3) and (M, 3) at a distance
     threshold (reference metrics.py:306-330): 0-dim f32 tensors
-    ``fscore``, ``precision``, ``recall``. Kernel K9 twice on the card.
+    ``fscore``, ``precision``, ``recall``. One K9 launch on the card, both
+    directions (:func:`nn_dists_both`).
 
     Each cloud is a tensor or an array. Tensors must lie on one device,
     ``device`` if it is given: nothing is moved off the card, or onto
@@ -239,8 +342,7 @@ def point_fscore(pred, gt, thresh: float,
     pred, gt = (torch.as_tensor(x, dtype=torch.float32,
                                 device=device).contiguous()
                 for x in (pred, gt))
-    return fscore_from_dists(_nn_dists(pred, gt), _nn_dists(gt, pred),
-                             thresh)
+    return fscore_from_dists(*nn_dists_both(pred, gt), thresh)
 
 
 # -- alignments -------------------------------------------------------------

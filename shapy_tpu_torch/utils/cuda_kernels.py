@@ -35,6 +35,10 @@ NVCC_FLAGS = (
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
 
+# The H100's streaming multiprocessors: the plans that size a grid from the
+# shapes alone (K6's `tri_tri_plan`, K9's `nn_plan`) fill this many.
+CARD_SMS = 132
+
 # ctypes argument kinds: "p" pointer or stream, "i" int, "f" float.
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

@@ -1335,6 +1335,118 @@ def test_nn_dists_kernel_matches_plain(dev, body, case):
                 assert float(got[k]) == float(want[k]), (case, thresh, k)
 
 
+def _k6_cases(model, dev):
+    """(name, query, target, M, plan) of K6's regimes: a body pair (warp a
+    query), the pair's first 300 queries (a block a query), plane quads at
+    three heights (more hits than 8 slots), lists forced to overflow, and
+    planted coincident boxes (a target repeated) and degenerate triangles
+    (a vertex repeated, in a query and in a target)."""
+    a, b = _body_pair(model, dev, batch=2)
+    F = a.shape[1]
+    quads = []
+    for h in (-0.3, 0.05, 0.4):
+        quads += [[[-1.0, h, -1], [1, h, -1], [1, h, 1]],
+                  [[-1.0, h, -1], [1, h, 1], [-1, h, 1]]]
+    quads = torch.tensor(quads, device=dev)[None].expand(2, 6, 3, 3)
+    quads = quads.contiguous()
+    planted = b.clone()
+    planted[:, 5] = planted[:, 100]
+    planted[:, 7, 2] = planted[:, 7, 0]
+    q2 = a.clone()
+    q2[:, 9, 1] = q2[:, 9, 0]
+    nc = -(-F // 32)
+    return [("pair", a, b, 256, None),
+            ("team", a[:, :300].contiguous(), b, 256,
+             tri_tri.TriTriPlan(nc, 256, 8)),
+            ("planes", quads, a, 1024, None),
+            ("planes, 8 slots", quads, a, 8, None),
+            ("planes, list of 32", quads, a, 1024,
+             tri_tri.TriTriPlan(nc, 32, 8)),
+            ("pair, list of 1", a, b, 3, tri_tri.TriTriPlan(nc, 1, 1)),
+            ("planted", q2, planted, 16, None)]
+
+
+def test_tri_tri_kernel_matches_its_replay(dev, body):
+    """K6 in each regime: ids equal to the plain version's and to the
+    replay's, barycentrics bit-equal; its Morton order the replay's; the
+    overflow counter the replay's count of queries whose hits overflow
+    their list; two calls bit-equal."""
+    model, _ = body
+    for name, q, t, M, plan in _k6_cases(model, dev):
+        tri_tri.reset_overflowed()
+        faces, bcs, order = tri_tri._mesh_mesh_intersection_cuda(q, t, M,
+                                                                 plan)
+        again = tri_tri._mesh_mesh_intersection_cuda(q, t, M, plan)
+        over = tri_tri.overflowed_queries()
+        want_f, want_b, info = tri_tri.mesh_mesh_intersection_replay(
+            q, t, M, plan, query_chunk=256)
+        plain_f, plain_b = tri_tri.mesh_mesh_intersection_plain(
+            q, t, M, query_chunk=256)
+        assert torch.equal(faces, plain_f) and torch.equal(bcs, plain_b), name
+        assert torch.equal(want_f, plain_f) and torch.equal(want_b, plain_b)
+        assert torch.equal(order.long(), info["order"]), name
+        assert torch.equal(faces, again[0]) and torch.equal(bcs, again[1])
+        assert over == 2 * int(info["overflowed"].sum()), name
+        if "list" in name:
+            assert over > 0, name
+
+
+def test_tri_tri_kernel_counts_the_replays_tests(dev, body):
+    """K6's counting build: the same ids and barycentrics as the plain
+    build, and the tests its walk made (supercluster boxes, cluster
+    boxes, face boxes, Möller tests) the replay's totals, in each
+    regime."""
+    model, _ = body
+    for name, q, t, M, plan in _k6_cases(model, dev):
+        tested = torch.zeros(4, dtype=torch.int64, device=dev)
+        faces, bcs, _ = tri_tri._mesh_mesh_intersection_cuda(q, t, M, plan)
+        got_f, got_b, _ = tri_tri._mesh_mesh_intersection_cuda(q, t, M, plan,
+                                                                tested)
+        _, _, info = tri_tri.mesh_mesh_intersection_replay(
+            q, t, M, plan, query_chunk=256)
+        assert torch.equal(faces, got_f) and torch.equal(bcs, got_b), name
+        want = [q.shape[0] * q.shape[1] * info["superclusters_tested"],
+                *(int(info[k].sum()) for k in (
+                    "clusters_tested", "faces_tested", "box_passed"))]
+        assert tested.tolist() == want, name
+
+
+def test_nn_dists_kernel_matches_its_replay(dev, body):
+    """K9: distances bit-equal to the plain version both ways and through
+    ``nn_dists_both`` (one launch), neighbour indices equal to the
+    replay's (the first index on ties: duplicates and equidistant points
+    planted in b), also under a plan whose ranges span several staged
+    tiles."""
+    model, _ = body
+    a, b = (t[0].reshape(-1, 3, 3).mean(1) for t in
+            _body_pair(model, dev, batch=1))
+    gen = torch.Generator().manual_seed(8)
+    x = (torch.randn(3000, 3, generator=gen) * 0.3).to(dev)
+    y = (torch.randn(5000, 3, generator=gen) * 0.3).to(dev)
+    y[100:200] = y[0:100]
+    y[4999] = y[5]
+    x[:50] = 0.0
+    y[300], y[301] = torch.tensor([1e-3, 0, 0]), torch.tensor([-1e-3, 0, 0])
+    per = metrics._NN_THREADS * metrics._NN_R
+    for p, q, plans in ((a.contiguous(), b.contiguous(), None),
+                        (x, y, None),
+                        (x, y, (metrics.NNPlan(-(-3000 // per), 1, 5000),
+                                metrics.NNPlan(-(-5000 // per), 2, 1500)))):
+        before = NN_KERNEL.launches
+        d_pq, d_qp = metrics.nn_dists_both(p, q)
+        assert NN_KERNEL.launches == before + 1
+        assert torch.equal(d_pq, metrics.nn_dists_plain(p, q))
+        assert torch.equal(d_qp, metrics.nn_dists_plain(q, p))
+        out, idx = metrics._nn_search_cuda(p, q, True, plans)
+        plans = plans or metrics.nn_plan(len(p), len(q), True)
+        for (u, v), plan, d, i in zip(((p, q), (q, p)), plans,
+                                      out.split([len(p), len(q)]),
+                                      idx.split([len(p), len(q)])):
+            want_d, want_i = metrics.nn_search_replay(u, v, plan)
+            assert torch.equal(d, want_d) and torch.equal(i.long(), want_i)
+    assert int(idx[0]) == 300
+
+
 def test_contact_cuda_tensors_never_fall_back_to_plain(dev, monkeypatch):
     """K6, K7 (value and gradient) and K9 launch their kernels on CUDA
     tensors; their plain versions are never called."""
@@ -1355,7 +1467,7 @@ def test_contact_cuda_tensors_never_fall_back_to_plain(dev, monkeypatch):
     metrics.point_fscore(tris[0, :, 0].contiguous(),
                          tris[0, :, 1].contiguous(), 0.05)
     assert TRI_KERNEL.launches == counts[0] + 1
-    assert NN_KERNEL.launches == counts[1] + 2
+    assert NN_KERNEL.launches == counts[1] + 1  # both directions at once
     for k in ("repulsion_forward", "repulsion_backward"):
         assert REPULSION_KERNEL.counts[k] == counts[2][k] + 1
 
@@ -1426,7 +1538,7 @@ def test_point_fscore_keeps_clouds_on_their_device(dev):
         metrics.point_fscore(a.to(dev), b.to(dev), 0.01, device="cpu")
     before = NN_KERNEL.launches
     got = metrics.point_fscore(a.numpy(), b.numpy(), 0.01)
-    assert NN_KERNEL.launches == before + 2
+    assert NN_KERNEL.launches == before + 1
     want = metrics.point_fscore(a.to(dev), b.to(dev), 0.01, device="cuda")
     for k in want:
         assert got[k].device.type == "cuda"
