@@ -70,10 +70,19 @@ Phases, each of which raises on failure (exit code 1):
    modes) against the plain AoS version: circumferences 1e-5 m, mass and
    height rel 1e-5, masks equal, points bit-equal (reference) or within
    1e-6 m (exact), height points exact, values bit-equal to K1 from the
-   vertices, the backward as K1's; timed with K1 alone on the triangles.
+   vertices, the backward as K1's; ``measure_points`` on the forward's
+   saves bit-equal to ``measure_points_replay``, to the parent kernel's
+   fill-and-scatter layout and to a second call, one device kernel a
+   call, timed alone (its own bound: the points and masks written once)
+   beside the walk (K1 alone on the triangles).
    ``measure_points_backward`` in both modes against autograd through
    the plain AoS slice in f64 at the forward's plane heights, within
-   1e-5 of the largest gradient.
+   1e-5 of the largest gradient; on the saves, the gradient and the plane
+   heights' cotangent bit-equal to ``measure_points_backward_replay`` and
+   to a second call, at most two device kernels a call (its exact-mode
+   bound counts only the cotangent's sectors under the hits). Both again
+   at an odd F, at F % 8 = 6, at batch 1, with a body that no plane cuts
+   and with the waist left out (a plane that walks no faces).
    K5-conv at all 33 conv shapes of the W48 forward, with the served
    weights and each shape's epilogue: batch 32 in bf16 within one bf16
    step of the plain value at each rounding of the epilogue plus the
@@ -145,7 +154,8 @@ Phases, each of which raises on failure (exit code 1):
 6. Scores a synthetic HBW submission of 64 fitted bodies against their GT
    with ``cli.evaluate_hbw.evaluate_submission`` (K8b V2V, K8a P2P,
    K1-AoS on all faces of both meshes' triangles); checks the launches,
-   finite errors and the plain versions' numbers; differentiates the
+   finite errors and the plain versions' numbers (``measure_points`` once
+   a batch for the fits and once for the GT: 4); differentiates the
    fitted bodies' circumferences and slice points in their vertices (one
    ``measure_points_backward`` launch per batch). Then runs the scorer's
    ``main`` on a release tree written to a temporary directory (the GT as
@@ -1743,6 +1753,10 @@ def score(regressor, eval_data, dev):
     for name in SCORE_KERNELS:
         check(launches[name] > 0, f"{name} was not launched by the scorer")
     batches = -(-SUBMISSION // B)
+    # K1-AoS's points: a batch's fits and its GT, each once
+    check(launches["K1aos_points"] == 2 * batches,
+          f"the scorer: {launches['K1aos_points']} measure_points launches "
+          f"for {batches} batches of fits and GT, expected {2 * batches}")
     for name, per in K8_PER_BATCH.items():
         check(launches[name] == per * batches,
               f"the scorer: {launches[name]} {name} launches for {batches} "
@@ -2335,15 +2349,25 @@ def check_aos_kernel(model, anchors, dev):
     autograd through K1's plain version on the triangles in f32 given the
     kernel's centroids, and in f64 per mesh vertex (the triangles'
     gradients summed) on at least 99.8% of the vertices, as K1's check.
-    Times the forward (K1 and ``measure_points``), K1 alone on the
-    triangles, and the plain version."""
+    ``measure_points`` on the forward's saves as
+    :func:`check_points_kernel`, then timed alone beside the plain AoS
+    slices (its bound: the points and masks written once, the hits read
+    once); the walk (K1 alone on the triangles) and the whole forward
+    timed too. Then ``measure_points_backward``
+    (:func:`check_points_backward`) and the small cases
+    (:func:`check_points_cases`)."""
     import torch
 
     from shapy_tpu_torch.measure.measurements import (
         BodyMeasurements,
         _MeasureKernel,
         measure_plain,
+        measure_points,
         saved_centroids,
+    )
+    from shapy_tpu_torch.ops.plane_slice import (
+        plane_slice_reference,
+        plane_slice_triangles,
     )
 
     gen = torch.Generator().manual_seed(SEED + 12)
@@ -2361,6 +2385,7 @@ def check_aos_kernel(model, anchors, dev):
                                 slice_mode=mode).to(dev)
         x = tri.clone().requires_grad_()
         got = meas(x)["measurements"]
+        saved = saved_measure_tensors(got["mass"]["tensor"])
         with torch.no_grad():
             want = meas.forward_plain(tri)["measurements"]
             soa = meas.forward_from_vertices(v, use_face_subsets=False)[
@@ -2432,26 +2457,50 @@ def check_aos_kernel(model, anchors, dev):
                                    tuple(meas.anchors.ordered()), (F,) * 3)
         k1_ms = time_ms(lambda: _MeasureKernel.apply(
             tri.view(B, 3 * F, 3), meas, walk, False))
-        # Bytes: the triangles read once, the points and masks written
-        # once; operations: K1's on all faces (the signed volume, the
-        # crossing tests per (face, plane), 8 per slice point and 5 per
-        # (point, direction pair) for the hull).
-        mask_bytes = B * 3 * (2 * F if mode == "reference" else F)
+        forward_ms = time_ms(lambda: meas(tri))
+        # The walk's bound: the triangles read once; K1's operations on all
+        # faces (the signed volume, the crossing tests per (face, plane),
+        # 8 per slice point and 5 per (point, direction pair) for the hull).
+        walk_bound, walk_by = bound(
+            tri.numel() * 4, B * F * (17 + 3 * (150 if mode == "reference"
+                                                else 12))
+            + hits * (8 + (K // 2) * 5))
+        check_points_kernel(saved, mode, got, PLANE_NAMES,
+                            f"{name} points (batch {B})")
+        # Bytes: the points and masks written once, each hit's point and
+        # code read once and, in exact mode, its crossed edge's two y;
+        # operations: ~8 per exact-mode hit for its y.
+        exact = mode == "exact"
+        mask_bytes = B * 3 * (F if exact else 2 * F)
+        plane_h = saved[4]
+        fn = plane_slice_triangles if exact else plane_slice_reference
         row = record_kernel(
-            {}, f"{name} forward (batch {B}, all faces)",
-            max(circ, pts), lambda: meas(tri), lambda: meas.forward_plain(tri),
-            tri.numel() * 4 + B * 3 * 6 * F * 4 + mask_bytes,
-            B * F * (17 + 3 * (150 if mode == "reference" else 12))
-            + hits * (8 + (K // 2) * 5), plain_iters=5)
-        row = dict(row, mode=mode, batch=B, k1_ms=k1_ms,
-                   points_ms=row["ms"] - k1_ms, slice_points=hits,
+            {}, f"{name} points (batch {B}, all faces)", pts,
+            lambda: measure_points(saved, mode),
+            lambda: [fn(tri, plane_h[:, p]) for p in range(3)],
+            B * 3 * 6 * F * 4 + mask_bytes + hits * (12 + (8 if exact
+                                                         else 0)),
+            hits * 8 if exact else 0, plain_iters=5)
+        device_ms, kernels_a_call = device_time(
+            lambda: measure_points(saved, mode))
+        check(kernels_a_call == 1,
+              f"{name} points: {kernels_a_call} device kernels a call")
+        row = dict(row, mode=mode, batch=B, device_ms=device_ms,
+                   device_kernels=kernels_a_call, walk_ms=k1_ms,
+                   walk_bound_ms=walk_bound, walk_bound_by=walk_by,
+                   forward_ms=forward_ms, slice_points=hits,
                    rel_err_mass_height=rel, backward_rel_err_f32=err32,
                    backward_share_f64=share)
-        print(f"{name}: K1 alone on the triangles {k1_ms:.4f} ms, so "
-              f"measure_points ~{row['points_ms']:.4f} ms")
+        print(f"{name}: the walk (K1 alone on the triangles) {k1_ms:.4f} ms "
+              f"(bound {walk_bound:.4f}, {walk_by}), the whole forward "
+              f"{forward_ms:.4f} ms; measure_points {row['ms']:.4f} ms in a "
+              f"window, {device_ms:.4f} ms of device time, "
+              f"{kernels_a_call} device kernel a call")
         rows.append(row)
         del x, got, want, w64, xp
         back_rows.append(check_points_backward(meas, tri, mode, gen))
+    for mode in ("reference", "exact"):
+        check_points_cases(model, anchors, mode, gen, dev)
     return {"K1aos_points": dict(rows[0], cases=rows),
             "K1aos_points_backward": dict(back_rows[0], cases=back_rows)}
 
@@ -2460,6 +2509,119 @@ def saved_measure_tensors(value):
     """What K1-AoS's forward saved for its backward (vertices, hits,
     codes, stats, plane heights), from one of its output values."""
     return value._base.grad_fn.saved_tensors
+
+
+def points_fill_scatter(saved, slice_mode: str):
+    """The slice points as the parent's ``measure_points`` laid them out,
+    whole rows at once and independent of any tile: every slot filled
+    ((0, h, 0) in reference mode, 0 in exact mode), then each saved hit
+    scattered to its slot by its code (exact mode: y recomputed from its
+    crossed edge, ``measurements._crossed_y``). Returns (points (B, 3,
+    6F), masks)."""
+    import torch
+
+    from shapy_tpu_torch.measure.measurements import _crossed_y
+
+    verts, hits, codes, stats, plane_h = saved[:5]
+    B, F = verts.shape[0], verts.shape[1] // 3
+    exact = slice_mode == "exact"
+    pts = torch.zeros((B, 3, 2 * F, 3), device=verts.device)
+    if not exact:
+        pts[..., 1] = plane_h[..., None]
+    valid = torch.zeros((B, 3, F if exact else 2 * F), dtype=torch.bool,
+                        device=verts.device)
+    counts = stats[:, :3, 0].long().tolist()
+    for b in range(B):
+        for p in range(3):
+            k = counts[b][p]
+            code, hit = codes[b, p, :k].long(), hits[b, p, :k]
+            pos, detail = code >> 4, code & 15
+            if exact:
+                y = _crossed_y(verts[b].expand(k, -1, -1), pos, detail,
+                               plane_h[b, p].expand(k))
+                pts[b, p, 2 * pos + (detail >> 2)] = torch.stack(
+                    [hit[:, 0], y, hit[:, 1]], -1)
+                valid[b, p, pos] = True
+            else:
+                slot = (detail >> 3) * F + pos
+                pts[b, p, slot, 0] = hit[:, 0]
+                pts[b, p, slot, 2] = hit[:, 1]
+                valid[b, p, slot] = True
+    return pts.reshape(B, 3, 6 * F), valid
+
+
+def check_points_kernel(saved, mode, got, planes, what: str) -> None:
+    """``measure_points`` on a K1-AoS forward's saves: bit-equal, in every
+    row (unwalked ones too), to ``measure_points_replay`` (tile by tile),
+    to :func:`points_fill_scatter` (the parent kernel's layout, whole
+    rows) and to a second call; the forward's outputs its rows for
+    ``planes``; one device kernel a call."""
+    import torch
+
+    from shapy_tpu_torch.measure.measurements import (
+        measure_points,
+        measure_points_replay,
+    )
+
+    points, valid = measure_points(saved, mode)
+    again = measure_points(saved, mode)
+    replay = measure_points_replay(saved, mode)
+    scatter = points_fill_scatter(saved, mode)
+    same = {"replay": replay, "fill and scatter": scatter, "again": again}
+    for k, (p2, v2) in same.items():
+        check(torch.equal(points, p2) and torch.equal(valid, v2),
+              f"{what}: measure_points differs from {k}")
+    for p, k in enumerate(planes):
+        check(torch.equal(points[:, p].reshape(got[k]["points"].shape),
+                          got[k]["points"]) and torch.equal(
+                              valid[:, p], got[k]["valid_points"]),
+              f"{what}: the forward's {k} points")
+    _, kernels_a_call = device_time(lambda: measure_points(saved, mode), 1)
+    check(kernels_a_call == 1,
+          f"{what}: measure_points ran {kernels_a_call} device kernels")
+    print(f"{what}: measure_points bit-equal to its replay, to the fill and "
+          f"scatter and to a second call; {kernels_a_call} device kernel")
+
+
+def check_points_backward_kernel(saved, mode, counts, gen, what: str):
+    """``measure_points_backward`` on a K1-AoS forward's saves with a
+    seeded cotangent: the triangles' gradient and the plane heights'
+    cotangent bit-equal to ``measure_points_backward_replay`` (the
+    gradient's per-face arithmetic is the parent kernel's, ``g_h`` in the
+    new fixed order) and to a second call's; nothing through a plane
+    that walks no faces; at most two device kernels a call. Returns the
+    cotangent, the gradient and ``g_h``."""
+    import torch
+
+    from shapy_tpu_torch.measure.measurements import (
+        measure_points_backward,
+        measure_points_backward_replay,
+    )
+
+    verts = saved[0]
+    B, F = verts.shape[0], verts.shape[1] // 3
+    g_points = torch.randn((B, 3, 6 * F), generator=gen).to(verts.device)
+    grad, g_h = measure_points_backward(saved, g_points, counts, mode)
+    r_grad, r_h = measure_points_backward_replay(saved, g_points, counts,
+                                                 mode)
+    a_grad, a_h = measure_points_backward(saved, g_points, counts, mode)
+    check(torch.equal(grad, r_grad), f"{what}: the gradient differs from "
+          "measure_points_backward_replay")
+    check(torch.equal(g_h, r_h), f"{what}: g_h differs from "
+          "measure_points_backward_replay")
+    check(torch.equal(grad, a_grad) and torch.equal(g_h, a_h),
+          f"{what}: two calls differ")
+    for p, n in enumerate(counts):
+        check(n or not bool(g_h[:, p].any()),
+              f"{what}: g_h through unwalked plane {p}")
+    _, kernels_a_call = device_time(
+        lambda: measure_points_backward(saved, g_points, counts, mode), 1)
+    check(kernels_a_call <= 2, f"{what}: measure_points_backward ran "
+          f"{kernels_a_call} device kernels")
+    print(f"{what}: measure_points_backward bit-equal to its replay (the "
+          f"gradient and g_h) and to a second call; {kernels_a_call} device "
+          "kernels")
+    return g_points, grad, g_h
 
 
 def points_plain_f64(meas, tri, plane_heights: dict) -> dict:
@@ -2471,8 +2633,8 @@ def points_plain_f64(meas, tri, plane_heights: dict) -> dict:
     ill-conditioned in it (a height one f32 rounding away can move the
     gradient by more than the check's 1e-5), so the reference takes the
     forward's heights, as K1's backward is held against the plain version
-    given the kernel's centroids. Returns {plane: (points,
-    mask)}."""
+    given the kernel's centroids. Returns {plane: (points, mask)} for the
+    planes of ``plane_heights``."""
     from shapy_tpu_torch.core.geometry import face_barycentric_point
     from shapy_tpu_torch.ops.plane_slice import (
         plane_slice_reference,
@@ -2480,76 +2642,158 @@ def points_plain_f64(meas, tri, plane_heights: dict) -> dict:
     )
 
     out = {}
-    for k in PLANE_NAMES:
+    for k, height in plane_heights.items():
         anchor = getattr(meas.anchors, k)
         h = face_barycentric_point(tri, anchor.face_idx, anchor.bary)[..., 1]
-        h = h + (plane_heights[k].to(h.dtype) - h).detach()
+        h = h + (height.to(h.dtype) - h).detach()
         fn = (plane_slice_reference if meas.slice_mode == "reference"
               else plane_slice_triangles)
         out[k] = fn(tri, h)
     return out
 
 
+def points_grad_vs_f64(meas, tri, got, planes, gen) -> tuple:
+    """The gradient in ``tri`` of a seeded weighted sum of the slice
+    points of ``planes`` (masked slots included) through the forward
+    ``got`` (K1-AoS, its backward ``measure_points_backward``) against
+    autograd through the plain AoS slice in f64 at the forward's plane
+    heights (:func:`points_plain_f64`): (masks equal to the f64 plain
+    version's, error over the largest gradient, the weights)."""
+    import torch
+
+    x = got[planes[0]]["points"]
+    w = {k: torch.randn(got[k]["points"].shape, generator=gen).to(x.device)
+         for k in planes}
+    grad = torch.autograd.grad(sum((w[k] * got[k]["points"]).sum()
+                                   for k in planes), tri)[0]
+    x64 = tri.detach().double().requires_grad_()
+    want = points_plain_f64(meas, x64, {
+        k: got[k]["plane_height"].detach() for k in planes})
+    masks = all(torch.equal(got[k]["valid_points"], want[k][1])
+                for k in planes)
+    want_g = torch.autograd.grad(sum((w[k].double() * want[k][0]).sum()
+                                     for k in planes), x64)[0]
+    return masks, max_err(grad, want_g) / float(want_g.abs().max()), w
+
+
 def check_points_backward(meas, tri, mode, gen):
     """Phase 2, ``measure_points_backward`` at the scorer's shapes: the
     gradient of a weighted sum of the slice points (masked slots
     included) in the triangles, against autograd through the plain AoS
-    slice in f64 at the forward's plane heights (:func:`points_plain_f64`;
-    its masks must equal the kernel's: the same hits), within 1e-5 of the
-    largest gradient. Times the kernel alone, and the plain version's
-    backward in f32."""
+    slice in f64 at the forward's plane heights (its masks must equal the
+    kernel's: the same hits), within 1e-5 of the largest gradient; on the
+    forward's saves :func:`check_points_backward_kernel`. Times the kernel
+    alone, and the plain version's backward in f32. The bound: in
+    reference mode the triangles and the whole points' cotangent read
+    (every slot's y is the plane height), the gradient written; in exact
+    mode only the cotangent's 32-byte sectors that the hit slots touch
+    (an unhit slot is the constant 0)."""
     import torch
 
-    from shapy_tpu_torch.measure.measurements import MEASURE_KERNEL
+    from shapy_tpu_torch.measure.measurements import measure_points_backward
 
     Bt, F = tri.shape[:2]
     x = tri.clone().requires_grad_()
     got = meas(x)["measurements"]
-    # the forward's saved (B, 3F, 3) vertices and plane heights, for the
-    # kernel's timing below
-    verts, _, _, _, plane_h = saved_measure_tensors(got["mass"]["tensor"])
-    w = {k: torch.randn(got[k]["points"].shape, generator=gen).to(tri.device)
-         for k in PLANE_NAMES}
-    grad = torch.autograd.grad(sum((w[k] * got[k]["points"]).sum()
-                                   for k in PLANE_NAMES), x)[0]
-    x64 = tri.double().requires_grad_()
-    want = points_plain_f64(meas, x64, {
-        k: got[k]["plane_height"].detach() for k in PLANE_NAMES})
-    masks = all(torch.equal(got[k]["valid_points"], want[k][1])
-                for k in PLANE_NAMES)
-    want_g = torch.autograd.grad(sum((w[k].double() * want[k][0]).sum()
-                                     for k in PLANE_NAMES), x64)[0]
-    err = max_err(grad, want_g) / float(want_g.abs().max())
+    saved = saved_measure_tensors(got["mass"]["tensor"])
+    masks, err, w = points_grad_vs_f64(meas, x, got, PLANE_NAMES, gen)
     name = "K1-AoS points backward" + (" exact" if mode == "exact" else "")
     print(f"{name} batch {Bt}, all {F} faces: masks equal to plain f64 "
           f"{masks}; of the largest gradient vs plain f64 {err:.3e} "
           "(tol 1e-5)")
     check(masks, f"{name}: the f64 plain version's hits differ")
     check(err <= 1e-5, f"{name} vs plain f64: {err}")
+    g_points, _, _ = check_points_backward_kernel(
+        saved, mode, (F,) * 3, gen, f"{name} (batch {Bt})")
 
-    walk = meas._triangle_walk(F, tri.device, tuple(meas.anchors.ordered()),
-                               (F,) * 3)
-    g_points = torch.randn((Bt, 3, 6 * F), generator=gen).to(tri.device)
-    outs = (torch.empty_like(verts),
-            torch.empty((Bt, 3, F), device=tri.device),
-            torch.empty((Bt, 3), device=tri.device))
     xp = tri.clone().requires_grad_()
     plain = meas.forward_plain(xp)["measurements"]
     plain_loss = sum((w[k] * plain[k]["points"]).sum() for k in PLANE_NAMES)
-    # Bytes: the points' cotangent and the triangles read once, the
-    # gradient written once; operations: the slice tests of every (face,
-    # plane) again and ~100 per hit for its VJP.
     hits = sum(int(got[k]["valid_points"].sum()) for k in PLANE_NAMES)
+    if mode == "exact":
+        valid = torch.stack([got[k]["valid_points"] for k in PLANE_NAMES], 1)
+        b, p, f = valid.nonzero(as_tuple=True)
+        start = ((b * 3 + p) * 6 * F + 6 * f) * 4  # slots 2f, 2f + 1
+        g_bytes = 32 * torch.cat([start // 32, (start + 23) // 32]
+                                 ).unique().numel()
+    else:
+        g_bytes = g_points.numel() * 4
+    # Bytes: the triangles read once, the gradient written once, g_h, and
+    # the cotangent's bytes above; operations: ~100 per hit for its VJP.
     row = record_kernel(
         {}, f"{name} (batch {Bt}, all faces)", err,
-        lambda: MEASURE_KERNEL.launch("measure_points_backward", [
-            verts, walk.faces, plane_h, g_points, *outs, Bt, 3 * F, F, F, F,
-            F, int(mode == "exact")]),
+        lambda: measure_points_backward(saved, g_points, (F,) * 3, mode),
         lambda: torch.autograd.grad(plain_loss, xp, retain_graph=True),
-        (g_points.numel() + 2 * verts.numel() + Bt * 3) * 4,
-        Bt * F * 3 * (150 if mode == "reference" else 12) + hits * 100,
+        g_bytes + 2 * tri.numel() * 4 + Bt * 3 * 4, hits * 100,
         plain_iters=5)
-    return dict(row, mode=mode, batch=Bt, masks_equal=masks)
+    device_ms, kernels_a_call = device_time(
+        lambda: measure_points_backward(saved, g_points, (F,) * 3, mode))
+    print(f"{name}: {device_ms:.4f} ms of device time, {kernels_a_call} "
+          f"device kernels a call, cotangent bytes read {g_bytes / 1e6:.2f} "
+          "MB")
+    return dict(row, mode=mode, batch=Bt, masks_equal=masks,
+                device_ms=device_ms, device_kernels=kernels_a_call,
+                cotangent_bytes=g_bytes)
+
+
+# K1-AoS's points at the shapes where a row does not start on 16 bytes,
+# at batch 1, with a row of no hit and with a plane that walks no faces:
+# (name, batch, faces kept, forward keywords). 20907 faces: odd (points
+# rows of odd index start 8 bytes off); 20906: F % 8 = 6 (the reference
+# masks' rows start off 16 bytes); "no hit": the second body flattened
+# onto one height, so that no plane cuts it.
+POINTS_CASES = (("odd F", 3, 20907, {}), ("F % 8 = 6", 2, 20906, {}),
+                ("batch 1", 1, None, {}), ("no hit", 3, None, {}),
+                ("unwalked waist", 2, None, {"compute_waist": False}))
+
+
+def check_points_cases(model, anchors, mode, gen, dev) -> None:
+    """Phase 2, K1-AoS's points and their backward in ``POINTS_CASES`` on
+    the flagship's SMPL-X: masks equal to the plain AoS version's, points
+    bit-equal to it (reference mode) or within 1e-6 m (exact mode); the
+    kernels on the saves as :func:`check_points_kernel` and
+    :func:`check_points_backward_kernel`; the gradient through the
+    forward within 1e-5 of the largest of the f64 plain version's."""
+    import torch
+
+    from shapy_tpu_torch.measure.measurements import BodyMeasurements
+
+    meas = BodyMeasurements(anchors, model.faces, 256,
+                            slice_mode=mode).to(dev)
+    faces = model.faces_tensor.long()
+    for what, batch, keep, kwargs in POINTS_CASES:
+        betas = torch.randn((batch, model.num_betas), generator=gen) * 1.5
+        v = model.forward_shape(betas.to(dev))["v_shaped"].detach().clone()
+        if what == "no hit":
+            v[1, :, 1] = v[1, 0, 1]
+        tri = v[:, faces][:, :keep].contiguous()
+        F = tri.shape[1]
+        x = tri.clone().requires_grad_()
+        got = meas(x, **kwargs)["measurements"]
+        with torch.no_grad():
+            want = meas.forward_plain(tri, **kwargs)["measurements"]
+        planes = [k for k in PLANE_NAMES if k in got]
+        name = f"K1-AoS points {mode}, {what} (batch {batch}, {F} faces)"
+        masks = all(torch.equal(got[k]["valid_points"],
+                                want[k]["valid_points"]) for k in planes)
+        err = max(max_err(got[k]["points"], want[k]["points"])
+                  for k in planes)
+        empty = [bool(got[k]["valid_points"][b].any())
+                 for k in planes for b in range(batch)].count(False)
+        check(masks and (err == 0 if mode == "reference" else err <= 1e-6),
+              f"{name}: masks equal {masks}, points err {err}")
+        check(empty == (3 if what == "no hit" else 0),
+              f"{name}: {empty} rows without a hit")
+        saved = saved_measure_tensors(got["mass"]["tensor"])
+        check_points_kernel(saved, mode, got, planes, name)
+        counts = tuple(F if p < len(planes) else 0 for p in range(3))
+        check_points_backward_kernel(saved, mode, counts, gen, name)
+        f64_masks, f64_err, _ = points_grad_vs_f64(meas, x, got, planes, gen)
+        check(f64_masks and f64_err <= 1e-5,
+              f"{name}: backward vs plain f64 {f64_err}")
+        print(f"{name}: masks equal, points err {err:.3e}, {empty} rows "
+              f"without a hit; backward vs plain f64 {f64_err:.3e} of the "
+              "largest (tol 1e-5)")
 
 
 def served_input(requests):

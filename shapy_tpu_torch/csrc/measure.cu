@@ -121,21 +121,35 @@
 // measure/measurements.py:396): the wrapper views the triangles as (B, 3F, 3)
 // vertices with the faces (3f, 3f + 1, 3f + 2) and runs the forward and
 // backward above on all faces; the values are then K1's. measure_points
-// writes the slice points the JAX AoS surface returns from K1's saved hits:
-// a memset clears the masks and a grid-stride kernel fills every slot, then
-// one block per (body, plane) scatters its hits by their codes.
-// Reference mode: points (2F, 3), quad triangle q's
-// point of face f at q * F + f, y the plane height on every slot, and a
-// (2F,) mask. Exact mode: points (F, 2, 3), face f's first / second point at
-// (f, 0) / (f, 1), y recomputed from the crossed edge as plane_slice_triangles
-// does (the saved hits hold x and z only), and a (F,) mask; unhit slots are 0.
+// writes the slice points the JAX AoS surface returns from K1's saved hits.
+// Reference mode: points (2F, 3), quad triangle q's point of face f at q * F
+// + f, y the plane height on every slot, and a (2F,) mask. Exact mode:
+// points (F, 2, 3), face f's first / second point at (f, 0) / (f, 1), y
+// recomputed from the crossed edge as plane_slice_triangles does (the saved
+// hits hold x and z only), and a (F,) mask; unhit slots are 0.
+//   What bounds it: bytes. The 48.2 MB of points and 4 / 2 MB of masks at
+//   batch 32 are nearly all the fill (35k hits of 4 M slots). One launch, a
+//   block a tile of 2048 slots of a row: the fill staged in shared memory
+//   as float4s, the tile's hits found by two binary searches of the row's
+//   codes (one warp, 32 probes a step) and placed there, then the tile
+//   stored once as 16-byte vectors (scalar heads and tails where a row does
+//   not start on 16 bytes), so every byte is written once and nothing is
+//   divided per element.
 // measure_points_backward is their VJP, as JAX autodiff gives it for the
-// plain slices: one thread per face recomputes its hits with the forward's
-// operations and takes each hit's VJP at its slot (the crossed edge's
-// endpoints, or the Moller cast's triangle, and the plane height; in exact
-// mode through the recomputed y too), then one block per (body, plane) sums
-// the plane height's cotangent in a fixed order, which K1's backward takes
-// to the anchor triangle. No atomics.
+// plain slices: a block a tile of 256 faces of a body stages their
+// triangles by 16-byte cp.async, and each thread recomputes its face's hits
+// with slice_tri (the forward's operations, so the same hits and formulas)
+// only in the planes where the forward's masks hold one of them (1.7% of
+// the (face, plane) pairs at batch 32), then takes each hit's VJP at its
+// slot (the crossed edge's endpoints, or the Moller cast's triangle, and
+// the plane height; in exact mode through the recomputed y too); the
+// gradient goes out through shared memory as 16-byte stores, and each
+// block's plane-height cotangent per plane (in reference mode with every
+// slot's y cotangent: the y is the plane height) is a partial that a
+// second small launch sums in tile order. K1's backward takes it to the
+// anchor triangle. What bounds it: bytes (the triangles read and their
+// gradient written; in reference mode also every sector of the points'
+// cotangent, for the y's). No atomics.
 //
 // Built with --fmad=false so the hit tests and projections round exactly as
 // the plain PyTorch version: a contracted a*b+c could flip a boundary hit or
@@ -377,16 +391,13 @@ __device__ __forceinline__ float2 exact_point(const Tri& T, const float* s,
                      T.z[a] + t * (T.z[b] - T.z[a]));
 }
 
-// The hits of the face at walk position pos (face id `id`): up to two
-// points (p0, then p1) and their codes. Returns their number.
+// The hits of triangle T, the face at walk position pos (face id `id`): up
+// to two points (p0, then p1) and their codes. Returns their number.
 template <int kMode>
-__device__ __forceinline__ int slice_face(const float* vb, const int* faces,
-                                          int id, int pos, float h,
-                                          float2& p0, float2& p1, int& k0,
-                                          int& k1) {
+__device__ __forceinline__ int slice_tri(const Tri& T, int id, int pos,
+                                         float h, float2& p0, float2& p1,
+                                         int& k0, int& k1) {
   if (kMode == kReference && id == 0) return 0;  // the reference drops it
-  Tri T;
-  load_tri(vb, faces + 3 * id, T);
   if (kMode == kReference) {
     int k = 0;
 #pragma unroll
@@ -418,6 +429,18 @@ __device__ __forceinline__ int slice_face(const float* vb, const int* faces,
   k0 = pos * 16 + first;
   k1 = pos * 16 + 4 + second;
   return 2;
+}
+
+// slice_tri of the face at walk position pos (face id `id`) of body vb.
+template <int kMode>
+__device__ __forceinline__ int slice_face(const float* vb, const int* faces,
+                                          int id, int pos, float h,
+                                          float2& p0, float2& p1, int& k0,
+                                          int& k1) {
+  if (kMode == kReference && id == 0) return 0;
+  Tri T;
+  load_tri(vb, faces + 3 * id, T);
+  return slice_tri<kMode>(T, id, pos, h, p0, p1, k0, k1);
 }
 
 // The VJP of one hit: point cotangent (ga, gb) -> the face's 9 coordinates
@@ -1250,139 +1273,338 @@ __global__ void __launch_bounds__(kThreads) measure_backward_vertices(
   }
 }
 
-// The slice points of K1-AoS, part 1: every slot of every (body, plane) row
-// of 2F points gets x = z = 0 and y = the plane height (reference mode) or 0
-// (exact mode), in a grid-stride loop over all rows at once.
-__global__ void __launch_bounds__(kThreads) measure_points_fill(
-    const float* __restrict__ plane_h, float* __restrict__ points,
-    long long n_points, int row_points, int fill_height) {
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n_points; i += step) {
-    float* pt = points + 3 * i;
-    pt[0] = 0.f;
-    pt[1] = fill_height ? plane_h[i / row_points] : 0.f;
-    pt[2] = 0.f;
+// K1-AoS's slice points (measure_points, measure_points_backward); see the
+// header. measure_points is one launch: a block a tile of kPointsTile slots
+// of a (body, plane) row (grid (tiles, 3 B): points_plan in
+// measure/measurements.py). The backward is a block a tile of kFaceTile
+// faces of a body (grid (face tiles, B)), then measure_points_heights.
+constexpr int kPointsTile = 2048;  // 24 KB of points staged a block
+constexpr int kFaceTile = kThreads;
+constexpr int kHeightRows = 4;  // rows of g_h a block of 4 warps sums
+
+// The first index in [lo, hi) whose key is >= key, hi if none, in keys
+// sorted ascending; one warp, 32 probes a step (a row of a few hundred
+// hits takes two steps). Every lane gets it.
+__device__ int warp_lower_bound(const int* __restrict__ keys, int lo, int hi,
+                                int key) {
+  const int lane = threadIdx.x & 31;
+  while (lo < hi) {
+    const int stride = (hi - lo + 31) >> 5;
+    const int i = lo + lane * stride;
+    const int c = __popc(__ballot_sync(0xffffffffu, i < hi && keys[i] < key));
+    if (c == 0) break;
+    const int top = lo + c * stride;
+    lo += (c - 1) * stride + 1;
+    hi = min(hi, top);
+  }
+  return lo;
+}
+
+// Elements [lo, hi) of src to dst, both aligned to a V at element 0, by the
+// whole block: the head and tail one element at a time, the rest as V
+// vectors (16 bytes).
+template <typename T, typename V>
+__device__ __forceinline__ void copy_span(T* __restrict__ dst,
+                                          const T* __restrict__ src, int lo,
+                                          int hi) {
+  constexpr int kVec = sizeof(V) / sizeof(T);
+  const int A = min(hi, (lo + kVec - 1) / kVec * kVec);
+  const int E = max(A, hi / kVec * kVec);
+  for (int k = lo + threadIdx.x; k < A; k += blockDim.x) dst[k] = src[k];
+  for (int k = E + threadIdx.x; k < hi; k += blockDim.x) dst[k] = src[k];
+  V* dv = reinterpret_cast<V*>(dst);
+  const V* sv = reinterpret_cast<const V*>(src);
+  for (int j = A / kVec + threadIdx.x; j < E / kVec; j += blockDim.x) {
+    dv[j] = sv[j];
   }
 }
 
-// Part 2: one block per (body, plane) scatters the plane's saved hits into
-// their slots by their codes; see the header.
+// The slice points of K1-AoS: block (t, row) writes slots [t kPointsTile,
+// ...) of row (body, plane), each slot's 3 floats and its mask byte once.
+// The tile is staged in shared memory at the shift its global start has
+// from 16 bytes: the fill ((0, h, 0) or 0, repeating every 3 float4s) as
+// float4s, then the hits of the tile's faces, found by binary searches of
+// the row's codes (face order, strictly increasing: position * 16 +
+// detail), overwrite x and z (exact mode: also y, recomputed from the
+// crossed edge with the parent scatter's operations); then the tile and
+// its mask bytes go out as 16-byte vectors with scalar heads and tails.
 template <int kMode>
-__global__ void __launch_bounds__(kThreads) measure_points_scatter(
-    const float* __restrict__ verts, const int* __restrict__ faces,
-    const float2* __restrict__ hits, const int* __restrict__ codes,
-    const float* __restrict__ stats, const float* __restrict__ plane_h,
-    float* __restrict__ points, unsigned char* __restrict__ valid, int V,
-    int F, int cap) {
-  const int p = blockIdx.x, b = blockIdx.y;
-  const size_t row = (size_t)b * 3 + p;
+__global__ void __launch_bounds__(kThreads) measure_points_kernel(
+    const float* __restrict__ verts, const float2* __restrict__ hits,
+    const int* __restrict__ codes, const float* __restrict__ stats,
+    const float* __restrict__ plane_h, float* __restrict__ points,
+    unsigned char* __restrict__ valid, int F, int cap) {
+  __shared__ __align__(16) float pts[3 * kPointsTile + 4];
+  __shared__ __align__(16) unsigned char msk[kPointsTile + 16];
+  __shared__ int bounds[4];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int row = blockIdx.y, b = row / 3, p = row - 3 * b;
+  const int s0 = blockIdx.x * kPointsTile, s1 = min(2 * F, s0 + kPointsTile);
+  // The tile's floats [pa, pa + pn) and mask bytes [ma, ma + mn).
+  const long long pa = (long long)row * 6 * F + 3LL * s0;
+  const long long ma = kMode == kReference ? (long long)row * 2 * F + s0
+                                           : (long long)row * F + s0 / 2;
+  const int pn = 3 * (s1 - s0), ps = (int)(pa & 3);
+  const int mn = kMode == kReference ? s1 - s0 : (s1 - s0) / 2;
+  const int ms = (int)(ma & 15);
   const int n = (int)stats[((size_t)b * 4 + p) * 4];
-  const float h = plane_h[row];
-  const float* vb = verts + (size_t)b * V * 3;
-  const float2* hp = hits + row * cap;
-  const int* cp = codes + row * cap;
-  float* pt = points + row * 6 * (size_t)F;
-  unsigned char* vd =
-      valid + row * (size_t)(kMode == kReference ? 2 * F : F);
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    const int code = cp[j], pos = code >> 4, detail = code & 15;
-    const float2 q = hp[j];
+  const int* cr = codes + (size_t)row * cap;
+  // Reference: quad triangle q's hit of face pos sits at slot q F + pos
+  // (warps 0-1 search q = 0's positions, 2-3 q = 1's); exact: face pos's
+  // first / second point at 2 pos / 2 pos + 1 (warps 0-1).
+  if (warp < (kMode == kReference ? 4 : 2)) {
+    int lo, hi;
     if (kMode == kReference) {
-      const int slot = (detail >> 3) * F + pos;
-      pt[3 * slot] = q.x;
-      pt[3 * slot + 2] = q.y;
-      vd[slot] = 1;
+      const int q = warp >> 1;
+      lo = max(s0 - q * F, 0);
+      hi = max(lo, min(s1 - q * F, F));
     } else {
+      lo = s0 / 2;
+      hi = s1 / 2;
+    }
+    const int j = warp_lower_bound(cr, 0, n, 16 * (warp & 1 ? hi : lo));
+    if ((tid & 31) == 0) bounds[warp] = j;
+  }
+  const float fy = kMode == kReference ? plane_h[row] : 0.f;
+  for (int j = tid; j < (ps + pn + 3) / 4; j += kThreads) {
+    const int r = (4 * j - ps + 3) % 3;  // the coordinate of its first float
+    reinterpret_cast<float4*>(pts)[j] =
+        make_float4(r == 1 ? fy : 0.f, r == 0 ? fy : 0.f, r == 2 ? fy : 0.f,
+                    r == 1 ? fy : 0.f);
+  }
+  for (int j = tid; j < (ms + mn + 15) / 16; j += kThreads) {
+    reinterpret_cast<uint4*>(msk)[j] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();
+  if (kMode == kReference) {
+    const int j0 = bounds[0], c0 = bounds[1] - j0;
+    const int j1 = bounds[2], c1 = bounds[3] - j1;
+    for (int t = tid; t < c0 + c1; t += kThreads) {
+      const int q = t >= c0 ? 1 : 0;
+      const int j = q ? j1 + t - c0 : j0 + t;
+      const int code = cr[j];
+      if (((code >> 3) & 1) != q) continue;  // the other quad triangle's
+      const int ls = q * F + (code >> 4) - s0;
+      const float2 hit = hits[(size_t)row * cap + j];
+      pts[ps + 3 * ls] = hit.x;
+      pts[ps + 3 * ls + 2] = hit.y;
+      msk[ms + ls] = 1;
+    }
+  } else {
+    const int j0 = bounds[0], c = bounds[1] - j0;
+    const float h = plane_h[row];
+    const float* vb = verts + (size_t)b * 9 * F;
+    for (int t = tid; t < c; t += kThreads) {
+      const int j = j0 + t, code = cr[j], pos = code >> 4, detail = code & 15;
       const int a = detail & 3, e = a == 2 ? 0 : a + 1;
-      const int* f = faces + 3 * pos;
-      const float ya = vb[3 * f[a] + 1], ye = vb[3 * f[e] + 1];
-      const float t = (ya - h) / exact_denom(ya - h, ye - h);
-      const int slot = 2 * pos + (detail >> 2);
-      pt[3 * slot] = q.x;
-      pt[3 * slot + 1] = ya + t * (ye - ya);
-      pt[3 * slot + 2] = q.y;
-      vd[pos] = 1;
+      const float ya = vb[9 * pos + 3 * a + 1], ye = vb[9 * pos + 3 * e + 1];
+      const float tt = (ya - h) / exact_denom(ya - h, ye - h);
+      const int ls = 2 * pos + (detail >> 2) - s0;
+      const float2 hit = hits[(size_t)row * cap + j];
+      pts[ps + 3 * ls] = hit.x;
+      pts[ps + 3 * ls + 1] = ya + tt * (ye - ya);
+      pts[ps + 3 * ls + 2] = hit.y;
+      msk[ms + pos - s0 / 2] = 1;
     }
   }
+  __syncthreads();
+  copy_span<float, float4>(points + (pa - ps), pts, ps, ps + pn);
+  copy_span<unsigned char, uint4>(valid + (ma - ms), msk, ms, ms + mn);
 }
 
-// The backward of the slice points, part 1: one thread per (body, face).
-// The face's hits in each walked plane are recomputed with slice_face (the
-// forward's operations, so the same hits with the same codes), the points'
-// cotangent is read at each hit's slot, and each hit's VJP is taken: the
-// face's 9 coordinates get their sum over the planes, in plane order, and
-// each (plane, face) its plane-height cotangent. Every vertex of the
-// K1-AoS walk belongs to one face, so no two threads write one gradient.
+// A 16-byte copy from global to shared memory that the thread does not
+// wait for (cp.async), and the wait for all of this thread's.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// The backward of the slice points: block (t, b) takes faces [t kFaceTile,
+// ...) of body b, a thread a face. First, all at once: the faces'
+// triangles (36 contiguous bytes each: the walk's faces are (3f, 3f + 1,
+// 3f + 2)) are copied into shared memory by 16-byte cp.async; each thread
+// loads its face's mask bytes of the walked planes (the forward's
+// measure_points wrote them from its hits) and, in reference mode, the
+// y-cotangents of its slots f and F + f (every slot's y is the plane
+// height). Then each thread recomputes its face's hits (the forward's
+// operations on the staged triangle, so the same hits with the same
+// formulas) only where the masks hold one: in reference mode first_hit of
+// each quad triangle whose slot is set, in exact mode slice_tri; it loads
+// their slots' cotangents at once and takes each hit's VJP with hit_vjp:
+// the face's 9 coordinates get their sum over the planes, in plane order,
+// written back through shared memory as 16-byte stores. Per plane, each
+// thread's plane-height cotangent (its hits' terms, then in reference mode
+// its two y-cotangents) is summed over the block (block_sum's tree) into
+// partial (B, 3, tiles); measure_points_heights then sums each row's
+// partials in tile order. No atomics.
 template <int kMode>
-__global__ void __launch_bounds__(kThreads) measure_points_backward_faces(
-    const float* __restrict__ verts, const int* __restrict__ faces,
+__global__ void __launch_bounds__(kThreads) measure_points_backward_kernel(
+    const float* __restrict__ verts, const unsigned char* __restrict__ valid,
     const float* __restrict__ plane_h, const float* __restrict__ g_points,
-    float* __restrict__ grad, float* __restrict__ g_face_h, int V, int F,
+    float* __restrict__ grad, float* __restrict__ partial, int F,
     Planes planes) {
-  const int f = blockIdx.x * blockDim.x + threadIdx.x;
-  const int b = blockIdx.y;
-  if (f >= F) return;
-  const float* vb = verts + (size_t)b * V * 3;
-  Tri T;
-  load_tri(vb, faces + 3 * f, T);
-  float g9[9];
+  __shared__ __align__(16) float tri[9 * kFaceTile + 4];
+  __shared__ float red[3][32];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.y, f0 = blockIdx.x * kFaceTile;
+  const int f1 = min(F, f0 + kFaceTile);
+  const int f = f0 + tid;
+  const long long fa = ((long long)b * F + f0) * 9;  // the tile's floats
+  const int fs = (int)(fa & 3), fn = 9 * (f1 - f0);
+  {  // the triangles, as copy_span splits them
+    const float* src = verts + (fa - fs);
+    const int A = min(fs + fn, (fs + 3) & ~3);
+    const int E = max(A, (fs + fn) & ~3);
+    for (int k = fs + tid; k < A; k += kThreads) tri[k] = src[k];
+    for (int k = E + tid; k < fs + fn; k += kThreads) tri[k] = src[k];
+    for (int j = A / 4 + tid; j < E / 4; j += kThreads) {
+      cp_async16(tri + 4 * j, src + 4 * j);
+    }
+  }
+  // Reference mode: the masks of quad triangle q's slot, bit q; exact
+  // mode: the face's mask.
+  unsigned hit_here[3] = {0u, 0u, 0u};
+  float gy[3][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
+  if (f < F) {
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      if (planes.n[p] == 0) continue;
+      const size_t row = (size_t)b * 3 + p;
+      if (kMode == kReference) {
+        const unsigned char* vr = valid + row * 2 * (size_t)F;
+        hit_here[p] = (vr[f] != 0) | (vr[F + f] != 0) << 1;
+        const float* gp = g_points + row * 6 * (size_t)F;
+        gy[p][0] = gp[3 * (size_t)f + 1];
+        gy[p][1] = gp[3 * ((size_t)F + f) + 1];
+      } else {
+        hit_here[p] = valid[row * F + f] != 0;
+      }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  float g9[9], s[3] = {0.f, 0.f, 0.f};
 #pragma unroll
   for (int k = 0; k < 9; ++k) g9[k] = 0.f;
-  for (int p = 0; p < 3; ++p) {
-    const size_t row = (size_t)b * 3 + p;
-    float gh = 0.f;
-    if (planes.n[p] > 0) {
-      const float h = plane_h[row];
-      float2 p0, p1;
-      int k0 = 0, k1 = 0;
-      const int k = slice_face<kMode>(vb, faces, f, f, h, p0, p1, k0, k1);
+  float* own = tri + fs + 9 * tid;
+  if (f < F) {
+    Tri T;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      T.x[k] = own[3 * k];
+      T.y[k] = own[3 * k + 1];
+      T.z[k] = own[3 * k + 2];
+    }
+    T.e1x = T.x[1] - T.x[0]; T.e1y = T.y[1] - T.y[0]; T.e1z = T.z[1] - T.z[0];
+    T.e2x = T.x[2] - T.x[0]; T.e2y = T.y[2] - T.y[0]; T.e2z = T.z[2] - T.z[0];
+    // This face's hits a plane (code order) and their slots' cotangents,
+    // loaded at once.
+    int nh[3], detail[3][2];
+    float h[3], gs[3][2][3];
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      nh[p] = 0;
+      if (!hit_here[p]) continue;
+      const size_t row = (size_t)b * 3 + p;
+      h[p] = plane_h[row];
+      if (kMode == kReference) {  // only the quad triangles that hit
+        float ha, hb;
+        if (hit_here[p] & 1u) {
+          detail[p][0] = first_hit(T, h[p], 0, ha, hb);
+          nh[p] = 1;
+        }
+        if (hit_here[p] & 2u) {
+          const int d = 8 + first_hit(T, h[p], 1, ha, hb);
+          if (nh[p]) detail[p][1] = d; else detail[p][0] = d;
+          nh[p] += 1;
+        }
+      } else {
+        float2 p0, p1;
+        int k0 = 0, k1 = 0;
+        nh[p] = slice_tri<kMode>(T, f, f, h[p], p0, p1, k0, k1);
+        detail[p][0] = k0 & 15;
+        detail[p][1] = k1 & 15;
+      }
       const float* gp = g_points + row * 6 * (size_t)F;
-      for (int j = 0; j < k; ++j) {
-        const int detail = (j ? k1 : k0) & 15;
-        const int slot = kMode == kReference ? (detail >> 3) * F + f
-                                             : 2 * f + (detail >> 2);
-        const float* gs = gp + 3 * (size_t)slot;
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        if (k >= nh[p]) break;
+        const int slot = kMode == kReference ? (detail[p][k] >> 3) * F + f
+                                             : 2 * f + (detail[p][k] >> 2);
+        const float* g3 = gp + 3 * (size_t)slot;
+        gs[p][k][0] = g3[0];
+        gs[p][k][1] = kMode == kExact ? g3[1] : 0.f;
+        gs[p][k][2] = g3[2];
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      if (planes.n[p] == 0) continue;
+      float gh = 0.f;
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        if (k >= nh[p]) break;
         float gv[9], ghit;
-        hit_vjp<kMode>(T, h, detail, gs[0], gs[2], gv, ghit,
-                       kMode == kExact ? gs[1] : 0.f);
+        hit_vjp<kMode>(T, h[p], detail[p][k], gs[p][k][0], gs[p][k][2], gv,
+                       ghit, gs[p][k][1]);
 #pragma unroll
         for (int c = 0; c < 9; ++c) g9[c] += gv[c];
         gh += ghit;
       }
+      s[p] = gh;
+      if (kMode == kReference) {
+        s[p] += gy[p][0];
+        s[p] += gy[p][1];
+      }
     }
-    g_face_h[row * F + f] = gh;
-  }
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    float* gv = grad + ((size_t)b * V + faces[3 * f + k]) * 3;
-    gv[0] = g9[3 * k];
-    gv[1] = g9[3 * k + 1];
-    gv[2] = g9[3 * k + 2];
+    for (int k = 0; k < 9; ++k) own[k] = g9[k];  // its own staged floats
+  }
+  __syncthreads();
+  copy_span<float, float4>(grad + (fa - fs), tri, fs, fs + fn);
+  // block_sum's tree for the three planes at once: each warp's shuffles,
+  // then warp 0's over the warps' sums.
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int p = 0; p < 3; ++p) s[p] += __shfl_down_sync(0xffffffffu, s[p], o);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int p = 0; p < 3; ++p) red[p][warp] = s[p];
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      float v = lane < kThreads / 32 ? red[p][lane] : 0.f;
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+      if (lane == 0) {
+        partial[((size_t)b * 3 + p) * gridDim.x + blockIdx.x] = v;
+      }
+    }
   }
 }
 
-// Part 2: one block per (body, plane) sums, in a fixed order, the faces'
-// plane-height cotangents and, in reference mode, the cotangents of every
-// slot's y (the plane height itself) into g_h (B, 3).
-template <int kMode>
-__global__ void __launch_bounds__(kThreads) measure_points_backward_heights(
-    const float* __restrict__ g_points, const float* __restrict__ g_face_h,
-    float* __restrict__ g_h, int F, Planes planes) {
-  __shared__ float red[32];
-  const int p = blockIdx.x, b = blockIdx.y;
-  const size_t row = (size_t)b * 3 + p;
+// g_h (rows,) = each row's `tiles` partials summed in tile order: a warp a
+// row, lane l over partials l, l + 32, ..., then a shuffle tree.
+__global__ void __launch_bounds__(32 * kHeightRows) measure_points_heights(
+    const float* __restrict__ partial, float* __restrict__ g_h, int rows,
+    int tiles) {
+  const int row = blockIdx.x * kHeightRows + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;  // the whole warp
+  const float* pr = partial + (size_t)row * tiles;
   float s = 0.f;
-  if (planes.n[p] > 0) {
-    const float* gf = g_face_h + row * F;
-    for (int f = threadIdx.x; f < F; f += blockDim.x) s += gf[f];
-    if (kMode == kReference) {
-      const float* gp = g_points + row * 6 * (size_t)F;
-      for (int i = threadIdx.x; i < 2 * F; i += blockDim.x) s += gp[3 * i + 1];
-    }
-  }
-  const float total = block_sum(s, red);
-  if (threadIdx.x == 0) g_h[row] = total;
+  for (int i = lane; i < tiles; i += 32) s += pr[i];
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
+  if (lane == 0) g_h[row] = s;
 }
 
 // The forward's dynamic shared memory: FwdShared and rank 0's gather.
@@ -1634,76 +1856,83 @@ extern "C" int measure_exact_backward(MEASURE_BACKWARD_ARGS) {
 }
 
 // K1-AoS slice points, after measure_forward (exact: measure_exact_forward)
-// walked all F faces of verts (B, V, 3) / faces (F, 3), with its hits, codes
-// (B, 3, cap), stats and plane_h. points (B, 3, 6F) f32 and valid (B, 3, 2F)
-// (exact: (B, 3, F)) bytes are written whole; see the header. Returns
-// cudaGetLastError().
-extern "C" int measure_points(const void* verts, const void* faces,
-                              const void* hits, const void* codes,
-                              const void* stats, const void* plane_h,
-                              void* points, void* valid, int B, int V, int F,
-                              int cap, int exact, void* stream) {
+// walked all F faces of verts (B, 3F, 3), the triangles with the faces (3f,
+// 3f + 1, 3f + 2), with its hits, codes (B, 3, cap), stats and plane_h.
+// points (B, 3, 6F) f32 and valid (B, 3, 2F) (exact: (B, 3, F)) bytes,
+// both 16-byte aligned, are written whole, each byte once, by one launch of
+// `tiles` = ceil(2F / tile) tiles a row (tile = kPointsTile; points_plan).
+// Returns cudaErrorInvalidValue for another plan or a misaligned output,
+// else cudaGetLastError().
+extern "C" int measure_points(const void* verts, const void* hits,
+                              const void* codes, const void* stats,
+                              const void* plane_h, void* points, void* valid,
+                              int B, int F, int cap, int tile, int tiles,
+                              int exact, void* stream) {
+  if (B < 1 || F < 1 || 3LL * B > 65535 || cap < 2 * F ||
+      tile != kPointsTile || tiles != (2 * F + kPointsTile - 1) / kPointsTile ||
+      ((uintptr_t)points & 15) || ((uintptr_t)valid & 15)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid(tiles, 3 * B);
   const cudaStream_t s = (cudaStream_t)stream;
-  const long long rows = 3LL * B;
-  cudaError_t err = cudaMemsetAsync(valid, 0, rows * (exact ? F : 2 * F), s);
-  if (err != cudaSuccess) return (int)err;
-  const long long n_points = rows * 2 * F;
-  const int blocks = (int)std::min(n_points / kThreads + 1, 4096LL);
-  measure_points_fill<<<blocks, kThreads, 0, s>>>(
-      (const float*)plane_h, (float*)points, n_points, 2 * F, !exact);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(3, B);
   if (exact) {
-    measure_points_scatter<kExact><<<grid, kThreads, 0, s>>>(
-        (const float*)verts, (const int*)faces, (const float2*)hits,
-        (const int*)codes, (const float*)stats, (const float*)plane_h,
-        (float*)points, (unsigned char*)valid, V, F, cap);
+    measure_points_kernel<kExact><<<grid, kThreads, 0, s>>>(
+        (const float*)verts, (const float2*)hits, (const int*)codes,
+        (const float*)stats, (const float*)plane_h, (float*)points,
+        (unsigned char*)valid, F, cap);
   } else {
-    measure_points_scatter<kReference><<<grid, kThreads, 0, s>>>(
-        (const float*)verts, (const int*)faces, (const float2*)hits,
-        (const int*)codes, (const float*)stats, (const float*)plane_h,
-        (float*)points, (unsigned char*)valid, V, F, cap);
+    measure_points_kernel<kReference><<<grid, kThreads, 0, s>>>(
+        (const float*)verts, (const float2*)hits, (const int*)codes,
+        (const float*)stats, (const float*)plane_h, (float*)points,
+        (unsigned char*)valid, F, cap);
   }
   return (int)cudaGetLastError();
 }
 
 // The VJP of measure_points: g_points (B, 3, 6F) f32, the cotangent of its
 // points, after the forward of the same mode walked all F faces of verts
-// (B, V, 3) / faces (F, 3) (n0..n2: F for the planes whose points are
-// outputs, else 0) and wrote plane_h (B, 3). Writes grad (B, V, 3), the
-// gradient through the crossed edges' endpoints, and g_h (B, 3), the plane
-// heights' cotangent (the caller adds it to K1's backward, which takes it to
-// the anchor triangles); g_face_h (B, 3, F) f32 is scratch. Returns
-// cudaGetLastError().
-extern "C" int measure_points_backward(const void* verts, const void* faces,
-                                       const void* plane_h,
-                                       const void* g_points, void* grad,
-                                       void* g_face_h, void* g_h, int B,
-                                       int V, int F, int n0, int n1, int n2,
-                                       int exact, void* stream) {
+// (B, 3F, 3) (16-byte aligned) and measure_points wrote plane_h's points
+// and their masks valid (B, 3, 2F) (exact: (B, 3, F)) (n0..n2: F for the
+// planes whose points are outputs, else 0). Writes grad (B, 3F, 3)
+// (16-byte aligned), the gradient through the crossed edges' endpoints,
+// and g_h (B, 3), the plane heights' cotangent (the caller adds it to K1's
+// backward, which takes it to the anchor triangles); partial (B, 3, tiles)
+// f32 is scratch, tiles = ceil(F / face_tile), face_tile = kFaceTile
+// (points_plan). Two launches. Returns cudaErrorInvalidValue for another
+// plan or a misaligned array, else the launches' error.
+extern "C" int measure_points_backward(
+    const void* verts, const void* valid, const void* plane_h,
+    const void* g_points, void* grad, void* partial, void* g_h, int B, int F,
+    int face_tile, int tiles, int n0, int n1, int n2, int exact,
+    void* stream) {
+  const int n[3] = {n0, n1, n2};
+  for (int p = 0; p < 3; ++p) {
+    if (n[p] != 0 && n[p] != F) return (int)cudaErrorInvalidValue;
+  }
+  if (B < 1 || F < 1 || B > 65535 || face_tile != kFaceTile ||
+      tiles != (F + kFaceTile - 1) / kFaceTile ||
+      ((uintptr_t)verts & 15) || ((uintptr_t)grad & 15)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const cudaStream_t s = (cudaStream_t)stream;
   const Planes planes = make_planes(0, 0, 0, n0, n1, n2);
-  const dim3 grid((F + kThreads - 1) / kThreads, B), rows(3, B);
+  const dim3 grid(tiles, B);
   if (exact) {
-    measure_points_backward_faces<kExact><<<grid, kThreads, 0, s>>>(
-        (const float*)verts, (const int*)faces, (const float*)plane_h,
-        (const float*)g_points, (float*)grad, (float*)g_face_h, V, F, planes);
+    measure_points_backward_kernel<kExact><<<grid, kThreads, 0, s>>>(
+        (const float*)verts, (const unsigned char*)valid,
+        (const float*)plane_h, (const float*)g_points, (float*)grad,
+        (float*)partial, F, planes);
   } else {
-    measure_points_backward_faces<kReference><<<grid, kThreads, 0, s>>>(
-        (const float*)verts, (const int*)faces, (const float*)plane_h,
-        (const float*)g_points, (float*)grad, (float*)g_face_h, V, F, planes);
+    measure_points_backward_kernel<kReference><<<grid, kThreads, 0, s>>>(
+        (const float*)verts, (const unsigned char*)valid,
+        (const float*)plane_h, (const float*)g_points, (float*)grad,
+        (float*)partial, F, planes);
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if (exact) {
-    measure_points_backward_heights<kExact><<<rows, kThreads, 0, s>>>(
-        (const float*)g_points, (const float*)g_face_h, (float*)g_h, F,
-        planes);
-  } else {
-    measure_points_backward_heights<kReference><<<rows, kThreads, 0, s>>>(
-        (const float*)g_points, (const float*)g_face_h, (float*)g_h, F,
-        planes);
-  }
+  const int rows = 3 * B;
+  measure_points_heights<<<(rows + kHeightRows - 1) / kHeightRows,
+                           32 * kHeightRows, 0, s>>>(
+      (const float*)partial, (float*)g_h, rows, tiles);
   return (int)cudaGetLastError();
 }

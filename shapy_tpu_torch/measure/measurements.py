@@ -78,8 +78,8 @@ MEASURE_KERNEL = CudaKernel("measure.cu", {
     "measure_exact_forward": _FORWARD_ARGS,
     "measure_backward": _BACKWARD_ARGS,
     "measure_exact_backward": _BACKWARD_ARGS,
-    "measure_points": "pppp pppp iiiii p",
-    "measure_points_backward": "pppp ppp iii iii i p",
+    "measure_points": "ppppppp iiiiii p",
+    "measure_points_backward": "ppppppp iiii iii i p",
 })
 _MAX_HULL_DIRECTIONS = 1024  # the kernels give each thread 2 pairs
 # K1's forward plan (measure_plan): about this many walk positions a CTA,
@@ -101,6 +101,11 @@ _K1B_RECORDS = 4096
 _K1B_GROUP = 32  # hits a warp takes at once (kGroup in measure.cu)
 _K1B_THREADS = 512  # the planes pass's CTA (kPlaneThreads)
 _K1B_WORD_SPAN = 16  # walk positions a word of the hit map (kWordSpan)
+# K1-AoS's slice points (points_plan): slots a block of measure_points
+# stages and stores (kPointsTile, 24 KB of points), faces a block of
+# measure_points_backward takes (kFaceTile).
+_POINTS_TILE = 2048
+_FACE_TILE = 256
 
 
 class MeasurePlan(NamedTuple):
@@ -488,10 +493,11 @@ _QUAD_EDGES = ((-1.0, -1.0, 2.0, 0.0), (1.0, -1.0, 0.0, 2.0),
                (1.0, 1.0, -2.0, 0.0), (-1.0, 1.0, 0.0, -2.0))
 
 
-def _hit_vjp_replay(xyz, h, detail, ga, gb, exact: bool):
-    """``hit_vjp`` of ``measure.cu`` (gy = 0) for (..., ) hits: xyz (3, 3,
-    ...) the triangles' coordinates [coordinate][vertex]; returns (..., 9)
-    and the plane height's (...)."""
+def _hit_vjp_replay(xyz, h, detail, ga, gb, exact: bool, gy=None):
+    """``hit_vjp`` of ``measure.cu`` for (..., ) hits: xyz (3, 3, ...) the
+    triangles' coordinates [coordinate][vertex]; ``gy`` the exact-mode
+    cotangent of the recomputed y (None: 0); returns (..., 9) and the
+    plane height's (...)."""
     (x, y, z) = xyz
     zero = torch.zeros_like(ga)
 
@@ -513,11 +519,17 @@ def _hit_vjp_replay(xyz, h, detail, ga, gb, exact: bool):
         den = torch.where(big, denom, torch.full_like(denom, 1e-20))
         t = sa / den
         gt = ga * (xb - xa) + gb * (zb - za)
+        with_y = None if gy is None else gy != 0
+        if with_y is not None:
+            gt = torch.where(with_y, gt + gy * (yb - ya), gt)
         gsa = gt / den
         gden = -gt * t / den
         gsa = torch.where(big, gsa + gden, gsa)
         gsb = torch.where(big, zero - gden, zero)
         ya_g, yb_g, gh = gsa, gsb, -(gsa + gsb)
+        if with_y is not None:
+            ya_g = torch.where(with_y, gsa + (gy - gy * t), gsa)
+            yb_g = torch.where(with_y, gsb + gy * t, gsb)
     else:
         dy = yb - ya
         t = (h - ya) / dy
@@ -808,6 +820,288 @@ def measure_backward(meas: "BodyMeasurements", walk: _Walk,
     return grad
 
 
+class PointsPlan(NamedTuple):
+    """The work split of K1-AoS's slice-points kernels (from the shape
+    alone): ``measure_points`` a block per ``tile`` slots of a (body,
+    plane) row, ``tiles`` a row, on grid ``grid`` = (tiles, 3 B);
+    ``measure_points_backward`` a block per ``face_tile`` faces of a body
+    on ``face_grid`` = (face tiles, B), then a warp a row for the plane
+    heights. A row holds ``6 F`` floats of points and ``mask_row`` mask
+    bytes (2F in reference mode, F in exact mode)."""
+
+    tile: int
+    tiles: int
+    grid: Tuple[int, int]
+    face_tile: int
+    face_grid: Tuple[int, int]
+    mask_row: int
+
+
+def points_plan(B: int, F: int, slice_mode: str,
+                tile: int = _POINTS_TILE) -> PointsPlan:
+    """The plan of ``measure_points`` and ``measure_points_backward``
+    (``csrc/measure.cu``, whose ``kPointsTile`` and ``kFaceTile`` are the
+    tile sizes) for B bodies of F triangles; another ``tile`` only for the
+    replays."""
+    tiles = -(-2 * F // tile)
+    return PointsPlan(tile, tiles, (tiles, 3 * B), _FACE_TILE,
+                      (-(-F // _FACE_TILE), B),
+                      2 * F if slice_mode == "reference" else F)
+
+
+def _vector_span(lo: int, hi: int, vec: int) -> Tuple[int, int, int, int]:
+    """Elements [lo, hi) of an array aligned to ``vec`` elements at 0, as
+    ``copy_span`` stores them: (lo, A, E, hi), scalars in [lo, A) and
+    [E, hi), vectors of ``vec`` in [A, E)."""
+    A = min(hi, -(-lo // vec) * vec)
+    return lo, A, max(A, hi // vec * vec), hi
+
+
+def points_spans(plan: PointsPlan, F: int, row: int, t: int) -> Dict:
+    """What block (t, row) of ``measure_points`` stores, in elements of
+    the flat points (floats) and masks (bytes): {"points": (lo, A, E,
+    hi), "masks": (...)} as :func:`_vector_span` (16-byte vectors)."""
+    s0 = t * plan.tile
+    s1 = min(2 * F, s0 + plan.tile)
+    m0, m1 = (s0, s1) if plan.mask_row == 2 * F else (s0 // 2, s1 // 2)
+    return {"points": _vector_span(row * 6 * F + 3 * s0,
+                                   row * 6 * F + 3 * s1, 4),
+            "masks": _vector_span(row * plan.mask_row + m0,
+                                  row * plan.mask_row + m1, 16)}
+
+
+def face_spans(plan: PointsPlan, F: int, b: int, t: int
+               ) -> Tuple[int, int, int, int]:
+    """The floats of the flat (B, 3F, 3) triangles that block (t, b) of
+    ``measure_points_backward`` loads and whose gradient it stores, as
+    :func:`_vector_span` (float4s)."""
+    f0 = t * plan.face_tile
+    f1 = min(F, f0 + plan.face_tile)
+    return _vector_span((b * F + f0) * 9, (b * F + f1) * 9, 4)
+
+
+def saved_points_plain(triangles: torch.Tensor, plane_h: torch.Tensor,
+                       counts: Tuple[int, int, int], slice_mode: str
+                       ) -> Tuple[torch.Tensor, ...]:
+    """What K1-AoS's forward saves for its slice points, from the plain
+    slice of (B, F, 3, 3) ``triangles`` at the (B, 3) plane heights, on
+    any device: (vertices (B, 3F, 3), hits, codes (B, 3, 2F), stats (B, 4,
+    4), plane_h), the planes whose ``counts`` is 0 with no hit (row 3 of
+    stats, the volume, is left 0: the points do not read it)."""
+    B, F = triangles.shape[:2]
+    verts = triangles.detach().float().reshape(B, 3 * F, 3)
+    faces = torch.arange(3 * F, device=verts.device).view(F, 3)
+    plane_h = plane_h.detach().float().contiguous()
+    hits, codes, rows = _saved_rows_plain(verts, faces, None, plane_h,
+                                          slice_mode)
+    stats = torch.zeros((B, 4, 4), dtype=torch.float32, device=verts.device)
+    stats[:, :3, :3] = rows
+    for p, n in enumerate(counts):
+        if n == 0:
+            hits[:, p], codes[:, p], stats[:, p] = 0, 0, 0
+    return verts.contiguous(), hits, codes, stats, plane_h
+
+
+def _row_hits(saved):
+    """The saved hits as (3B, cap) rows: codes with every slot past a
+    row's count set above any code (so that a search stops there), hits,
+    and the counts."""
+    hits, codes, stats = saved[1:4]
+    B, _, cap = codes.shape
+    n = stats[:, :3, 0].long().reshape(-1)
+    j = torch.arange(cap, device=codes.device)
+    keys = torch.where(j < n[:, None], codes.reshape(3 * B, cap).long(),
+                       torch.iinfo(torch.int64).max)
+    return keys, hits.reshape(3 * B, cap, 2), n
+
+
+def _crossed_y(verts, pos, detail, h):
+    """An exact-mode hit's y, recomputed from its crossed edge as
+    ``measure_points`` does: verts (N, 3F, 3) of each hit's body, its face
+    ``pos``, formula ``detail`` and plane height ``h``."""
+    a = detail & 3
+    e = torch.where(a == 2, 0, a + 1)
+    n = torch.arange(verts.shape[0], device=verts.device)
+    ya, ye = verts[n, 3 * pos + a, 1], verts[n, 3 * pos + e, 1]
+    sa, se = ya - h, ye - h
+    denom = sa - se
+    den = torch.where(torch.abs(denom) > 1e-20, denom,
+                      torch.full_like(denom, 1e-20))
+    return ya + (sa / den) * (ye - ya)
+
+
+def measure_points_replay(saved, slice_mode: str,
+                          plan: Optional[PointsPlan] = None):
+    """``measure_points`` tile by tile, as the kernel builds each tile, in
+    PyTorch on the saves' device: the fill, then each quad triangle's (or
+    the faces') code range from two binary searches (``searchsorted``) of
+    the row's codes, the hits placed, the tile stored. ``saved`` starts
+    with (vertices, hits, codes, stats, plane_h) of the triangle walk (the
+    forward's, or :func:`saved_points_plain`). Returns points (B, 3, 6F)
+    and masks (B, 3, 2F) / (B, 3, F)."""
+    verts, plane_h = saved[0], saved[4]
+    B, F = verts.shape[0], verts.shape[1] // 3
+    plan = plan or points_plan(B, F, slice_mode)
+    exact = slice_mode == "exact"
+    dev = verts.device
+    keys, hit_rows, _ = _row_hits(saved)
+    h = plane_h.reshape(-1)
+    points = torch.empty((3 * B, 2 * F, 3), dtype=torch.float32, device=dev)
+    valid = torch.empty((3 * B, plan.mask_row), dtype=torch.bool, device=dev)
+    j = torch.arange(keys.shape[1], device=dev)
+    for t in range(plan.tiles):
+        s0 = t * plan.tile
+        s1 = min(2 * F, s0 + plan.tile)
+        tile = torch.zeros((3 * B, s1 - s0, 3), dtype=torch.float32,
+                           device=dev)
+        if not exact:
+            tile[..., 1] = h[:, None]
+        m0 = s0 if not exact else s0 // 2
+        mask = torch.zeros((3 * B, (s1 - s0) // (2 if exact else 1)),
+                           dtype=torch.bool, device=dev)
+        spans = (((0, max(s0, 0), max(s0, min(s1, F))),
+                  (1, max(s0 - F, 0), max(s0 - F, 0, min(s1 - F, F))))
+                 if not exact else ((None, s0 // 2, s1 // 2),))
+        for q, lo, hi in spans:
+            bounds = torch.searchsorted(keys, torch.tensor(
+                [[16 * lo, 16 * hi]], device=dev).expand(3 * B, 2)
+                .contiguous())
+            take = (j >= bounds[:, :1]) & (j < bounds[:, 1:])
+            if q is not None:
+                take &= ((keys >> 3) & 1) == q
+            r, k = take.nonzero(as_tuple=True)
+            code = keys[r, k]
+            pos, detail = code >> 4, code & 15
+            hit = hit_rows[r, k]
+            if exact:
+                ls = 2 * pos + (detail >> 2) - s0
+                y = _crossed_y(verts[r // 3], pos, detail, h[r])
+                tile[r, ls] = torch.stack([hit[:, 0], y, hit[:, 1]], -1)
+                mask[r, pos - m0] = True
+            else:
+                ls = q * F + pos - s0
+                tile[r, ls, 0], tile[r, ls, 2] = hit[:, 0], hit[:, 1]
+                mask[r, ls] = True
+        points[:, s0:s1] = tile
+        valid[:, m0:m0 + mask.shape[1]] = mask
+    return (points.reshape(B, 3, 6 * F),
+            valid.reshape(B, 3, plan.mask_row))
+
+
+def measure_points_backward_replay(saved, g_points: torch.Tensor,
+                                   counts: Tuple[int, int, int],
+                                   slice_mode: str,
+                                   plan: Optional[PointsPlan] = None):
+    """``measure_points_backward`` in its operations and order, in PyTorch
+    on the saves' device: each hit's VJP (``hit_vjp``, through its
+    recomputed y in exact mode) summed per face over the planes in plane
+    order and each face's hits in code order; per (face, plane) the
+    plane-height cotangent of its hits, then in reference mode the
+    y-cotangents of slots f and F + f; ``block_sum``'s tree over each
+    block of ``face_tile`` faces, then each row's blocks in a warp's
+    order (lane l over blocks l, l + 32, ..., then the shuffle tree).
+    Returns the (B, 3F, 3) gradient and the (B, 3) plane heights'
+    cotangent: the kernel's bits on the card (it recomputes the same hits
+    from the triangles where the masks hold one)."""
+    verts, plane_h = saved[0], saved[4]
+    B, F = verts.shape[0], verts.shape[1] // 3
+    plan = plan or points_plan(B, F, slice_mode)
+    exact = slice_mode == "exact"
+    dev = verts.device
+    g_points = g_points.detach().float().reshape(B, 3, 2 * F, 3)
+    keys, _, n = _row_hits(saved)
+    j = torch.arange(keys.shape[1], device=dev)
+    g9 = torch.zeros((B, F, 9), dtype=torch.float32, device=dev)
+    s = torch.zeros((B, 3, F), dtype=torch.float32, device=dev)
+    for p in range(3):
+        if counts[p] == 0:
+            continue
+        gh = torch.zeros((B, F), dtype=torch.float32, device=dev)
+        rows = torch.arange(B, device=dev) * 3 + p
+        k_rows = keys[rows]
+        live = j < n[rows, None]
+        # a face's second hit follows its first at the same position
+        second = torch.zeros_like(live)
+        second[:, 1:] = live[:, 1:] & ((k_rows[:, 1:] >> 4)
+                                       == (k_rows[:, :-1] >> 4))
+        for k in (0, 1):
+            b, jj = (live & (second == bool(k))).nonzero(as_tuple=True)
+            code = k_rows[b, jj]
+            pos, detail = code >> 4, code & 15
+            slot = (2 * pos + (detail >> 2) if exact
+                    else (detail >> 3) * F + pos)
+            gs = g_points[b, p, slot]
+            xyz = verts[b[:, None], 3 * pos[:, None] + torch.arange(
+                3, device=dev)].permute(2, 1, 0)
+            gv, ghit = _hit_vjp_replay(xyz, plane_h[b, p], detail,
+                                       gs[:, 0], gs[:, 2], exact,
+                                       gs[:, 1] if exact else None)
+            g9[b, pos] = g9[b, pos] + gv
+            gh[b, pos] = gh[b, pos] + ghit
+        s[:, p] = gh
+        if not exact:
+            s[:, p] = s[:, p] + g_points[:, p, :F, 1]
+            s[:, p] = s[:, p] + g_points[:, p, F:, 1]
+    tiles = plan.face_grid[0]
+    padded = torch.zeros((B, 3, tiles * plan.face_tile),
+                         dtype=torch.float32, device=dev)
+    padded[..., :F] = s
+    partial = _block_sum_replay(padded.reshape(B, 3, tiles, plan.face_tile))
+    lanes = torch.zeros((B, 3, 32), dtype=torch.float32, device=dev)
+    for i in range(0, tiles, 32):
+        m = min(32, tiles - i)
+        lanes[..., :m] = lanes[..., :m] + partial[..., i:i + m]
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes[..., :o] + lanes[..., o:2 * o]
+    return g9.reshape(B, 3 * F, 3), lanes[..., 0]
+
+
+def measure_points(saved, slice_mode: str):
+    """K1-AoS's ``measure_points`` (one launch) on CUDA tensors: the (B, 3,
+    6F) slice points and (B, 3, 2F) / (B, 3, F) masks from the triangle
+    walk's saves (vertices (B, 3F, 3), hits, codes, stats, plane_h), as
+    :class:`_MeasureKernel`'s forward launches it."""
+    verts, hits, codes, stats, plane_h = saved[:5]
+    B, F = verts.shape[0], verts.shape[1] // 3
+    plan = points_plan(B, F, slice_mode)
+    points = torch.empty((B, 3, 6 * F), dtype=torch.float32,
+                         device=verts.device)
+    valid = torch.empty((B, 3, plan.mask_row), dtype=torch.bool,
+                        device=verts.device)
+    if B > 0:
+        MEASURE_KERNEL.launch("measure_points", [
+            verts, hits, codes, stats, plane_h, points, valid, B, F,
+            codes.shape[2], plan.tile, plan.tiles,
+            int(slice_mode == "exact")])
+    return points, valid
+
+
+def measure_points_backward(saved, g_points: torch.Tensor,
+                            counts: Tuple[int, int, int], slice_mode: str):
+    """K1-AoS's ``measure_points_backward`` (two launches) on CUDA
+    tensors: the (B, 3F, 3) gradient of the slice points, whose cotangent
+    is ``g_points`` (B, 3, 6F), through their crossed edges, and the (B,
+    3) plane heights' cotangent, for a forward over the planes whose
+    ``counts`` is F whose saves are ``saved`` (vertices, hits, codes,
+    stats, plane_h, and the masks ``measure_points`` wrote)."""
+    verts, plane_h, valid = saved[0], saved[4], saved[5]
+    if verts.data_ptr() % 16:  # the kernel stages 16-byte vectors
+        verts = verts.clone()
+    B, F = verts.shape[0], verts.shape[1] // 3
+    plan = points_plan(B, F, slice_mode)
+    check_cuda_input(valid, "valid", torch.bool, (B, 3, plan.mask_row),
+                     verts.device)
+    dev = verts.device
+    grad = torch.empty((B, 3 * F, 3), dtype=torch.float32, device=dev)
+    g_h = torch.empty((B, 3), dtype=torch.float32, device=dev)
+    MEASURE_KERNEL.launch("measure_points_backward", [
+        verts, valid, plane_h, g_points.float().contiguous(), grad,
+        torch.empty((B, 3, plan.face_grid[0]), dtype=torch.float32,
+                    device=dev), g_h, B, F, plan.face_tile,
+        plan.face_grid[0], *counts, int(slice_mode == "exact")])
+    return grad, g_h
+
+
 class _MeasureKernel(torch.autograd.Function):
     """Kernel K1 (reference mode) or K1-exact, forward and backward, and
     with ``with_points`` the slice points of K1-AoS (``measure_points``).
@@ -835,9 +1129,10 @@ class _MeasureKernel(torch.autograd.Function):
                         ("hull_cos", meas.hull_cos),
                         ("hull_sin", meas.hull_sin)):
             check_cuda_input(t, name, t.dtype, tuple(t.shape), dev)
+        if with_points and (walk.plane_faces is not None or V != 3 * F):
+            raise ValueError("slice points need the triangle walk over all "
+                             "faces")
         if walk.plane_faces is not None:
-            if with_points:
-                raise ValueError("slice points need the walk over all faces")
             check_cuda_input(walk.plane_faces, "plane_faces", torch.int32,
                              (None,), dev)
         smax = max(max(walk.counts), 1)
@@ -858,25 +1153,22 @@ class _MeasureKernel(torch.autograd.Function):
                 torch.empty_like(hits), torch.empty_like(codes), stats, out,
                 plane_h, B, V, F, *planes, cap, half_k, angle_step,
                 meas.density, plan.cluster, *plan.spans, plan.mass_span])
-        outs = (out, plane_h)
-        if with_points:
-            points = empty(B, 3, 6 * F)
-            valid = empty(B, 3, F if exact else 2 * F, dtype=torch.bool)
-            if B > 0:
-                MEASURE_KERNEL.launch("measure_points", [
-                    vertices, walk.faces, hits, codes, stats, plane_h,
-                    points, valid, B, V, F, cap, int(exact)])
+        outs, saved = (out, plane_h), (vertices, hits, codes, stats, plane_h)
+        if with_points:  # the triangle walk: V = 3F, all faces
+            points, valid = measure_points(saved, meas.slice_mode)
             ctx.mark_non_differentiable(valid)
             outs += (points, valid)
+            saved += (valid,)  # where the points' backward finds hits
         ctx.set_materialize_grads(False)
         ctx.meas, ctx.walk, ctx.mode = meas, walk, mode
-        ctx.save_for_backward(vertices, hits, codes, stats, plane_h)
+        ctx.save_for_backward(*saved)
         return outs
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g_out, g_plane_h, g_points=None, _=None):
-        vertices, hits, codes, stats, plane_h = ctx.saved_tensors
+        saved = ctx.saved_tensors
+        vertices, hits, codes, stats, plane_h = saved[:5]
         meas, walk = ctx.meas, ctx.walk
         B, V = vertices.shape[:2]
         dev = vertices.device
@@ -890,16 +1182,9 @@ class _MeasureKernel(torch.autograd.Function):
         if B == 0:
             return vertices.new_empty((B, V, 3)), None, None, None
         grad_points = None
-        if g_points is not None:  # the K1-AoS walk: V = 3F, all faces
-            F = walk.faces.shape[0]
-            grad_points = torch.empty((B, V, 3), dtype=torch.float32,
-                                      device=dev)
-            g_h = torch.empty((B, 3), dtype=torch.float32, device=dev)
-            MEASURE_KERNEL.launch("measure_points_backward", [
-                vertices, walk.faces, plane_h, g_points.float().contiguous(),
-                grad_points, torch.empty((B, 3, F), dtype=torch.float32,
-                                         device=dev),
-                g_h, B, V, F, *walk.counts, int(ctx.mode == "exact_")])
+        if g_points is not None:  # the triangle walk: V = 3F, all faces
+            grad_points, g_h = measure_points_backward(
+                saved, g_points, walk.counts, meas.slice_mode)
             g_plane_h = g_plane_h + g_h
         grad = measure_backward(meas, walk, vertices,
                                 (hits, codes, stats, plane_h), g_out,

@@ -1004,48 +1004,90 @@ def _identity_plain(meas, tri, centroids=None, dtype=torch.float32):
                          meas.slice_mode, centroids)
 
 
+def _aos_case(model, dev, case, gen):
+    """Mesh vertices (B, V, 3), their triangles (B, F', 3, 3) and
+    ``forward`` keywords of a K1-AoS case:
+    "body" 5 shaped bodies; "odd-F" 3 bodies cut to their first 1279 faces
+    (F' odd, F' % 8 = 7: rows that start off 16 bytes); "even-F" cut to 1278
+    (F' % 8 = 6: the reference masks' rows start off 16 bytes); "batch-1";
+    "no-hit" 3 bodies, the second flattened onto one height (no plane cuts
+    it: every row of its is empty); "unwalked" 2 bodies without the waist
+    (the third plane walks no faces)."""
+    batch = {"body": 5, "batch-1": 1, "unwalked": 2}.get(case, 3)
+    betas = torch.randn(batch, 10, generator=gen) * 1.5
+    v = model.forward_shape(betas.to(dev))["v_shaped"].detach().contiguous()
+    if case == "no-hit":
+        v[1, :, 1] = v[1, 0, 1]
+    tri = v[:, model.faces_tensor.long()]
+    F = {"odd-F": 1279, "even-F": 1278}.get(case, tri.shape[1])
+    kwargs = {"compute_waist": False} if case == "unwalked" else {}
+    return v, tri[:, :F].contiguous(), kwargs
+
+
+AOS_CASES = ["body", "odd-F", "even-F", "batch-1", "no-hit", "unwalked"]
+
+
+def _aos_saved(got):
+    """The K1-AoS forward's saves (vertices, hits, codes, stats, plane_h),
+    from its outputs."""
+    return got["mass"]["tensor"]._base.grad_fn.saved_tensors
+
+
+@pytest.mark.parametrize("case", AOS_CASES)
 @pytest.mark.parametrize("slice_mode", ["reference", "exact"])
-def test_measure_aos_kernel_matches_plain(dev, body, slice_mode):
+def test_measure_aos_kernel_matches_plain(dev, body, slice_mode, case):
     """K1-AoS (K1 on the triangles, then ``measure_points``) against the
     plain AoS version on the card: mass and height rel 1e-5 (f32 sums in
     another order), circumferences 1e-5 m, masks equal, points bit-equal
     in reference mode and within 1e-6 m in exact mode (y recomputed with
     the plain version's operations), height points exact; the values
     bit-equal to K1 on the same faces from the vertices; one launch of
-    each kernel; the gradient within 1e-4 of the largest of autograd
-    through K1's plain version on the triangles given the kernel's
-    centroids."""
+    each kernel; the points and masks of every row (unwalked ones too)
+    bit-equal to ``measure_points_replay`` on the forward's saves and on
+    the plain saves, and a second call's; the gradient within 1e-4 of the
+    largest of autograd through K1's plain version on the triangles given
+    the kernel's centroids."""
+    from shapy_tpu_torch.measure.measurements import (
+        measure_points,
+        measure_points_replay,
+        saved_points_plain,
+    )
+
     model, base = body
     meas = BodyMeasurements(base.anchors, model.faces, 256,
                             slice_mode=slice_mode).to(dev)
     gen = torch.Generator().manual_seed(9)
-    betas = torch.randn(5, 10, generator=gen) * 1.5
-    v = model.forward_shape(betas.to(dev))["v_shaped"].detach().contiguous()
-    tri = v[:, model.faces_tensor.long()].contiguous().requires_grad_()
+    v, tri, kwargs = _aos_case(model, dev, case, gen)
+    B, F = tri.shape[:2]
+    tri = tri.requires_grad_()
     fwd = ("measure_forward" if slice_mode == "reference"
            else "measure_exact_forward")
     before = dict(MEASURE_KERNEL.counts)
-    got = meas(tri)["measurements"]
+    got = meas(tri, **kwargs)["measurements"]
     assert MEASURE_KERNEL.counts[fwd] == before[fwd] + 1
     assert MEASURE_KERNEL.counts["measure_points"] == \
         before["measure_points"] + 1
+    planes = [k for k in PLANES if k in got]
+    assert len(planes) == (2 if case == "unwalked" else 3)
     with torch.no_grad():
-        want = meas.forward_plain(tri)["measurements"]
-        soa = meas.forward_from_vertices(v, use_face_subsets=False)
+        want = meas.forward_plain(tri, **kwargs)["measurements"]
+    flat = torch.zeros(B, dtype=torch.bool, device=dev)
+    if case == "no-hit":
+        flat[1] = True
     for k in ("mass", "height"):
-        torch.testing.assert_close(got[k]["tensor"], want[k]["tensor"],
-                                   rtol=1e-5, atol=0)
-        assert torch.equal(got[k]["tensor"],
-                           soa["measurements"][k]["tensor"])
+        g, w = got[k]["tensor"], want[k]["tensor"]
+        torch.testing.assert_close(g[~flat], w[~flat], rtol=1e-5, atol=0)
+        # the flat body's mass and height are 0 up to rounding: within
+        # 1e-5 of the batch's largest
+        torch.testing.assert_close(g[flat], w[flat], rtol=0,
+                                   atol=1e-5 * float(w.abs().max()))
     assert torch.equal(got["height"]["points"], want["height"]["points"])
-    for k in PLANES:
+    for k in planes:
         g, w = got[k], want[k]
         torch.testing.assert_close(g["tensor"], w["tensor"], rtol=0,
                                    atol=1e-5)
-        assert torch.equal(g["tensor"], soa["measurements"][k]["tensor"])
         assert torch.equal(g["plane_height"], w["plane_height"])
         assert torch.equal(g["valid_points"], w["valid_points"])
-        assert g["valid_points"].any(-1).all()
         if slice_mode == "reference":
             assert torch.equal(g["points"], w["points"])
         else:
@@ -1053,20 +1095,48 @@ def test_measure_aos_kernel_matches_plain(dev, body, slice_mode):
                                        atol=1e-6)
         assert g["points"].requires_grad
         assert not g["valid_points"].requires_grad
-    g_vals = torch.randn(5, 5, generator=gen).to(dev)
+    hit_rows = torch.stack([got[k]["valid_points"].reshape(B, -1).any(-1)
+                            for k in planes], -1)
+    assert bool(hit_rows.all()) == (case != "no-hit")
+    saved = _aos_saved(got)
+    points, valid = measure_points(saved, slice_mode)
+    counts = (F, F, 0) if case == "unwalked" else (F, F, F)
+    plain_saved = saved_points_plain(tri, saved[4], counts, slice_mode)
+    for s in (saved, plain_saved):
+        r_points, r_valid = measure_points_replay(s, slice_mode)
+        assert torch.equal(points, r_points)
+        assert torch.equal(valid, r_valid)
+    again = measure_points(saved, slice_mode)
+    assert torch.equal(again[0], points) and torch.equal(again[1], valid)
+    for p, k in enumerate(planes):
+        assert torch.equal(points[:, p].reshape(got[k]["points"].shape),
+                           got[k]["points"])
+    if case in ("body", "batch-1"):
+        soa = meas.forward_from_vertices(v, use_face_subsets=False)
+        for k in ("mass", "height") + PLANES:
+            assert torch.equal(got[k]["tensor"],
+                               soa["measurements"][k]["tensor"])
+    if case == "no-hit":
+        return  # the flattened body's planes have no gradient to compare
+    keys = ("mass", "height", *planes)
+    g_vals = torch.randn(B, len(keys), generator=gen).to(dev)
     loss = sum((g_vals[:, i] * got[k]["tensor"]).sum()
-               for i, k in enumerate(("mass", "height") + PLANES))
+               for i, k in enumerate(keys))
     cents = saved_centroids(got["mass"]["tensor"]._base).detach()
+    if case == "unwalked":  # the walk's planes: chest, hips, none
+        cents = cents[:, [0, 0, 1]]
     grad = torch.autograd.grad(loss, tri)[0]
     x = tri.detach().clone().requires_grad_()
     vals, _ = _identity_plain(meas, x, cents)
-    want_g = torch.autograd.grad((vals * g_vals).sum(), x)[0]
+    cols = [("mass", "height", *PLANES).index(k) for k in keys]
+    want_g = torch.autograd.grad((vals[:, cols] * g_vals).sum(), x)[0]
     scale = float(want_g.abs().max())
     torch.testing.assert_close(grad, want_g, rtol=0, atol=1e-4 * scale)
 
 
+@pytest.mark.parametrize("case", AOS_CASES)
 @pytest.mark.parametrize("slice_mode", ["reference", "exact"])
-def test_measure_points_backward_matches_plain(dev, body, slice_mode):
+def test_measure_points_backward_matches_plain(dev, body, slice_mode, case):
     """``measure_points_backward``: the gradient of a weighted sum of the
     slice points (masked slots included), in the triangles, against
     autograd through the plain AoS slice in f64 at the forward's plane
@@ -1074,19 +1144,28 @@ def test_measure_points_backward_matches_plain(dev, body, slice_mode):
     gradient is ill-conditioned in the height wherever a crossed edge is
     nearly horizontal, so a height one f32 rounding away is another
     reference), with the same hits (the masks are compared first),
-    within 1e-5 of the largest gradient; one launch per backward."""
+    within 1e-5 of the largest gradient; one launch per backward; on the
+    forward's saves, the gradient and the plane heights' cotangent
+    bit-equal to ``measure_points_backward_replay`` and to a second
+    call's, and nothing through a plane that walks no faces."""
+    from shapy_tpu_torch.measure.measurements import (
+        measure_points_backward,
+        measure_points_backward_replay,
+    )
+
     model, base = body
     meas = BodyMeasurements(base.anchors, model.faces, 256,
                             slice_mode=slice_mode).to(dev)
     gen = torch.Generator().manual_seed(10)
-    betas = torch.randn(4, 10, generator=gen) * 1.5
-    v = model.forward_shape(betas.to(dev))["v_shaped"].detach()
-    tri = v[:, model.faces_tensor.long()].contiguous()
+    _, tri, kwargs = _aos_case(model, dev, case, gen)
+    B, F = tri.shape[:2]
     x = tri.clone().requires_grad_()
-    got = meas(x)["measurements"]
+    got = meas(x, **kwargs)["measurements"]
+    saved = _aos_saved(got)  # before the backward frees them
+    planes = [k for k in PLANES if k in got]
     x64 = tri.double().requires_grad_()
     want = {}
-    for k in PLANES:
+    for k in planes:
         anchor = getattr(meas.anchors, k)
         h = geometry.face_barycentric_point(x64, anchor.face_idx,
                                             anchor.bary)[..., 1]
@@ -1094,19 +1173,32 @@ def test_measure_points_backward_matches_plain(dev, body, slice_mode):
         want[k] = (plane_slice_reference if slice_mode == "reference"
                    else plane_slice_triangles)(x64, h)
     w = {k: torch.randn(got[k]["points"].shape, generator=gen).to(dev)
-         for k in PLANES}
-    for k in PLANES:
+         for k in planes}
+    for k in planes:
         assert torch.equal(got[k]["valid_points"], want[k][1])
     before = MEASURE_KERNEL.counts["measure_points_backward"]
     grad = torch.autograd.grad(sum((w[k] * got[k]["points"]).sum()
-                                   for k in PLANES), x)[0]
+                                   for k in planes), x)[0]
     assert MEASURE_KERNEL.counts["measure_points_backward"] == before + 1
     want_g = torch.autograd.grad(sum((w[k].double() * want[k][0]).sum()
-                                     for k in PLANES), x64)[0]
+                                     for k in planes), x64)[0]
     scale = float(want_g.abs().max())
     assert scale > 0
     torch.testing.assert_close(grad.double(), want_g, rtol=0,
                                atol=1e-5 * scale)
+    counts = (F, F, 0) if case == "unwalked" else (F, F, F)
+    g_points = torch.randn((B, 3, 6 * F), generator=gen).to(dev)
+    g_tri, g_h = measure_points_backward(saved, g_points, counts, slice_mode)
+    r_tri, r_h = measure_points_backward_replay(saved, g_points, counts,
+                                                slice_mode)
+    assert torch.equal(g_tri, r_tri) and torch.equal(g_h, r_h)
+    again = measure_points_backward(saved, g_points, counts, slice_mode)
+    assert torch.equal(again[0], g_tri) and torch.equal(again[1], g_h)
+    if case == "unwalked":
+        assert not bool(g_h[:, 2].any())
+        g_points[:, 2] = 0
+        assert torch.equal(measure_points_backward(
+            saved, g_points, counts, slice_mode)[0], g_tri)
 
 
 def test_measure_aos_gradient_after_an_inference_mode_call(dev, body):
