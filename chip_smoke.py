@@ -56,7 +56,14 @@ Phases, each of which raises on failure (exit code 1):
    order and overflow count the replay's, the culled tests a query as
    the kernel's counting build counts them (equal to the replay's) and
    the prologue's share of the time; K7 on the four pairs' contacts, value
-   rel 1e-5 and gradient within 1e-4 of the largest of autograd in f64;
+   rel 1e-5 and gradient within 1e-4 of the largest of autograd in f64,
+   two calls bit-equal, one device kernel a forward and two a backward,
+   all ``repulsion.cu``'s (checked trace), the loss bit-equal to
+   ``repulsion_forward_replay`` and the gradient to
+   ``repulsion_backward_replay``, the per-pair penalties and live bytes
+   the plain version's, on those inputs and planted cases (a face in 48
+   entries, batch 1, C = 300, padded rows, C = 0, a pair on a cone's
+   axis whose plain gradient is NaN, ``penalize_outside=False``);
    K9 both ways between two bodies' vertices and between clouds with
    duplicate and equidistant points planted, through ``nn_dists_both``
    and ``_nn_dists``, bit-equal to the plain version, its neighbours the
@@ -197,7 +204,8 @@ Phases, each of which raises on failure (exit code 1):
    the chest, waist and hips quads at K1's plane heights as queries
    (1024 slots; the faces found equal the exact slice's crossed faces),
    K7 on the contacts as (receiver, intruder) pairs (positive, finite,
-   value and gradient against the plain versions), and ``point_fscore``
+   value and gradient against the plain versions; prints the pairs that
+   are not live, which the backward skipped), and ``point_fscore``
    at 5, 10 and 20 mm between the bodies' vertices and between their
    P2P-20k clouds (distances within 1e-5 m of the plain version's, and
    scores equal wherever no point's two distances fall on either side of
@@ -280,6 +288,7 @@ import copy
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -5138,6 +5147,268 @@ def k6_case(name, q, t, M, plan=None, check_order=False):
     return info
 
 
+def k7_nan_equal(a, b) -> bool:
+    """a and b equal, NaN where the other holds NaN."""
+    import torch
+
+    return a.shape == b.shape and bool(
+        ((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def k7_fan(dev, receivers: int = 48):
+    """K7's planted long list: one intruder triangle (1 cm, in the xy
+    plane) and ``receivers`` triangles 1-10 cm below it facing it (2-3 cm
+    circumradius, seeded turns, tilts and offsets of a few mm), paired
+    (receiver k, intruder 0): the intruder's face holds ``receivers``
+    entries of different values, past any register list."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 22)
+    ang = np.asarray([0.0, 2.0944, 4.1888])
+    tris = [0.0058 * np.stack([np.cos(ang), np.sin(ang), 0 * ang], -1)]
+    for _ in range(receivers):
+        t = rng.uniform(0, 2 * np.pi)
+        r = rng.uniform(0.02, 0.03)
+        v = r * np.stack([np.cos(ang + t), np.sin(ang + t), 0 * ang], -1)
+        tilt = rng.normal(size=3) * 0.05
+        v[:, 2] += v[:, :2] @ tilt[:2]
+        tris.append(v + [*rng.normal(size=2) * 0.003,
+                         -rng.uniform(0.01, 0.1)])
+    tris = torch.tensor(np.stack(tris)[None], dtype=torch.float32,
+                        device=dev)
+    pairs = torch.tensor([[[k, 0] for k in range(1, receivers + 1)]],
+                         dtype=torch.int32, device=dev)
+    return tris, pairs
+
+
+def k7_on_axis(dev):
+    """K7's planted on-axis pair (``tests/test_torch_repulsion_plan.py``'s
+    ``on_axis_pair``): its value is exactly 0, an intruder vertex lies
+    exactly on the receiver's cone axis 1 m in front (intensity 0), and the
+    plain version's gradient is NaN there."""
+    import torch
+
+    a = 2.0 ** -6
+    tris = torch.zeros(1, 4, 3, 3)
+    tris[0, 0] = torch.tensor([[0, 0, 0], [a, 0, 0], [0, a, 0]])
+    tris[0, 1] = torch.tensor([[a / 2, a / 2, 1.0], [a / 2, a / 2 + 0.01, 1.0],
+                               [a / 2, a / 2, 1.01]])
+    tris[0, 2:] = tris[0, :2] + 0.3
+    return (tris.to(dev),
+            torch.tensor([[[0, 1], [2, 3]]], dtype=torch.int32, device=dev))
+
+
+def k7_case(name, tris, pairs, cot, **kw) -> dict:
+    """K7 on (tris, pairs) with cotangent cot through its entry points on
+    the card (``_repulsion_forward_cuda``, ``_repulsion_backward_cuda``),
+    each called twice: the loss and its f64 total bit-equal to
+    ``repulsion_forward_replay`` of the kernel's per-pair penalties, those
+    bit-equal to the plain version's on the card and the live bytes equal
+    to its live mask; the gradient bit-equal (NaN where NaN) to
+    ``repulsion_backward_replay`` of the kernel's entries; two calls
+    bit-equal; against autograd through the plain version in f64 the
+    loss within rel 1e-5 and the gradient within 1e-4 of its largest
+    finite entry, NaN wherever f64 gives NaN (the kernel's dual sqrt at 0
+    makes every tangent of that pair NaN, so it may give NaN at more
+    entries of such a pair's faces)."""
+    import torch
+
+    from shapy_tpu_torch.ops import repulsion as rep
+
+    sigma = kw.get("sigma", 0.5)
+    po = kw.get("penalize_outside", True)
+    lmax = kw.get("linear_max", 1000.0)
+    consts = rep._constants(sigma, po, lmax)
+    F = tris.shape[1]
+    loss, live, total, pen = rep._repulsion_forward_cuda(tris, pairs, consts,
+                                                         per_pair=True)
+    again = rep._repulsion_forward_cuda(tris, pairs, consts)
+    grad, entries = rep._repulsion_backward_cuda(tris, pairs, cot, live,
+                                                 consts)
+    grad2, _ = rep._repulsion_backward_cuda(tris, pairs, cot, live, consts)
+    with torch.no_grad():
+        pen_plain, live_plain = rep.repulsion_pairs_plain(tris, pairs, sigma,
+                                                          po, lmax)
+        rep_loss, rep_total = rep.repulsion_forward_replay(pen)
+        rep_grad = rep.repulsion_backward_replay(entries, pairs, F, live, cot)
+    x64 = tris.double().requires_grad_()
+    loss64 = rep.repulsion_loss_plain(x64, pairs, sigma, po, lmax)
+    want64, = torch.autograd.grad((loss64 * cot.double()).sum(), x64,
+                                  allow_unused=True)
+    want64 = torch.zeros_like(x64) if want64 is None else want64
+    loss64 = loss64.detach()
+    finite = torch.isfinite(want64) & torch.isfinite(grad)
+    scale = float(want64[finite].abs().max()) if bool(finite.any()) else 0.0
+    diff = (grad.double() - want64)[finite].abs()
+    grad_err = (float(diff.max()) if diff.numel() else 0.0) / max(scale,
+                                                                   1e-300)
+    val_err = float(((loss.double() - loss64).abs()
+                     / loss64.abs().clamp(min=1e-300)).max()
+                    ) if loss.numel() else 0.0
+    nan_kept = bool((torch.isnan(grad) | ~torch.isnan(want64)).all())
+    valid = int(torch.all(pairs >= 0, dim=-1).sum())
+    row = {
+        "case": name, "bodies": tris.shape[0], "C": pairs.shape[1], "F": F,
+        "pairs": valid, "live": int(live.sum()),
+        "skipped": valid - int(live.sum()),
+        "loss_rel_err": val_err, "grad_err": grad_err,
+        "grad_nan": int(torch.isnan(grad).sum()),
+        "plain_nan": int(torch.isnan(want64).sum()),
+        "replays": bool(torch.equal(loss, rep_loss)
+                        and torch.equal(total, rep_total)
+                        and k7_nan_equal(grad, rep_grad)),
+        "per_pair_plain": bool(torch.equal(pen, pen_plain)
+                               and torch.equal(live.bool(), live_plain)),
+        "twice": bool(torch.equal(loss, again[0])
+                      and torch.equal(live, again[1])
+                      and torch.equal(total, again[2])
+                      and k7_nan_equal(grad, grad2))}
+    print(f"K7 {name}: {row}")
+    check(row["replays"], f"K7 {name}: loss, total or gradient vs replays")
+    check(row["per_pair_plain"],
+          f"K7 {name}: per-pair penalties or live bytes vs plain")
+    check(row["twice"], f"K7 {name}: two calls differ")
+    check(val_err <= 1e-5 and grad_err <= 1e-4 and nan_kept,
+          f"K7 {name} vs plain f64: loss {val_err}, gradient {grad_err}, "
+          f"NaN kept {nan_kept}")
+    row["loss"], row["grad"], row["live_mask"] = loss, grad, live
+    return row
+
+
+def check_k7(tris, pairs, dev) -> dict:
+    """Phase 2's K7 on phase 9's contacts (the four pairs' triangles side
+    by side, the reference's defaults) and its planted cases. Through
+    ``repulsion_loss`` and autograd, as phase 9 calls it: the value
+    within rel 1e-5 of the plain version (the pairs summed in another
+    order), the gradient within 1e-4 of the largest of autograd in f64,
+    two runs bit-equal, one device kernel a forward and at most four a
+    backward, all of them ``repulsion.cu``'s (no library sort, no
+    memset), from a checked trace; then ``k7_case`` on the same inputs
+    and on planted ones: a face in 48 entries, batch 1 (bit-equal to body
+    0 of the batch), C = 300 (not a multiple of the 256-pair tile), a row
+    of only padded pairs beside half-padded ones (face 0 made a copy of a
+    live pair's intruder, so that a padded id read as 0 would add), C =
+    0, the on-axis pair, and ``penalize_outside=False``."""
+    import torch
+
+    from shapy_tpu_torch.ops.repulsion import (
+        REPULSION_KERNEL,
+        repulsion_loss,
+        repulsion_loss_plain,
+    )
+
+    results = {}
+    Bc = tris.shape[0]
+    n_pairs = int((pairs[..., 0] >= 0).sum())
+    cot = torch.linspace(1.0, -0.5, Bc, device=dev)
+    x = tris.clone().requires_grad_()
+    loss = repulsion_loss(x, pairs)
+    got, = torch.autograd.grad(loss, x, cot, retain_graph=True)
+    want = repulsion_loss_plain(tris, pairs)
+    val_err = float(((loss.detach() - want).abs() / want.abs()).max())
+    x64 = tris.double().requires_grad_()
+    loss64 = repulsion_loss_plain(x64, pairs)
+    want64, = torch.autograd.grad(loss64, x64, cot.double(),
+                                  retain_graph=True)
+    grad_err = float((got.double() - want64).abs().max()
+                     / want64.abs().max())
+    x2 = tris.clone().requires_grad_()
+    again, = torch.autograd.grad(repulsion_loss(x2, pairs), x2, cot)
+    same = torch.equal(got, again)
+    print(f"K7 repulsion ({n_pairs} pairs over {Bc} bodies, C = "
+          f"{pairs.shape[1]}): loss "
+          f"{[round(float(v), 6) for v in loss.detach()]}, "
+          f"rel err {val_err:.3e} (tol 1e-5); gradient err vs plain "
+          f"autograd f64 {grad_err:.3e} of the largest (tol 1e-4); two runs "
+          f"bit-equal: {same}")
+    check(bool((loss > 0).all() and torch.isfinite(loss).all()), "K7 loss")
+    check(val_err <= 1e-5 and grad_err <= 1e-4 and same, "K7 vs plain")
+
+    # the device kernels of a call, from a checked trace: all of them
+    # repulsion.cu's
+    own = REPULSION_KERNEL.device_functions()
+    calls = {"forward": lambda: repulsion_loss(tris, pairs),
+             "backward": lambda: torch.autograd.grad(loss, x, cot,
+                                                     retain_graph=True)}
+    device = {}
+    for what, fn in calls.items():
+        ms, n, spans = device_time(fn, split=True)
+        foreign = [k for k in spans if not any(f"::{f}(" in k or
+                                               k.startswith(f"{f}(")
+                                               for f in own)]
+        device[what] = (ms, n)
+        names = {(re.search(r"(\w+)\(", k) or [k[:40]])[0].rstrip("("):
+                 round(v, 5) for k, v in spans.items()}
+        print(f"K7 {what}: {n} device kernel(s) a call, {ms:.4f} ms of "
+              f"device time: {names}")
+        check(not foreign, f"K7 {what} runs kernels not its own: {foreign}")
+        check(n <= (1 if what == "forward" else 4),
+              f"K7 {what}: {n} device kernels a call")
+
+    # the kernels' own entry points against the replays, on these inputs
+    # and planted ones
+    main = k7_case("phase 9's contacts", tris, pairs, cot)
+    check(torch.equal(main["loss"], loss.detach())
+          and torch.equal(main["grad"], got),
+          "K7 entry points vs repulsion_loss")
+    cases = [main]
+    one = k7_case("batch 1", tris[:1], pairs[:1], cot[:1])
+    check(torch.equal(one["loss"], main["loss"][:1])
+          and torch.equal(one["grad"], main["grad"][:1]),
+          "K7 batch 1 vs body 0 of the batch")
+    cases.append(one)
+    cases.append(k7_case("C = 300", tris, pairs[:, :300].contiguous(), cot))
+    fan_t, fan_p = k7_fan(dev)
+    fan = k7_case("a face in 48 entries", fan_t, fan_p, cot[:1])
+    check(fan["live"] >= 40, f"K7 planted face: {fan['live']} live entries")
+    cases.append(fan)
+    # a row of only padded pairs; beside it half-padded pairs, and face 0
+    # made a copy of a live pair's intruder (a padded id read as 0 would
+    # add that pair again)
+    r0, i0 = (int(v) for v in pairs[0, main["live_mask"][0].argmax()])
+    padded_t = tris[:2].clone()
+    padded_t[0, 0] = padded_t[0, i0]
+    padded_p = torch.full((2, 54, 2), -1, dtype=torch.int32, device=dev)
+    padded_p[0, :50] = pairs[0, :50]
+    padded_p[0, 50:54] = torch.tensor([[r0, -1], [-1, i0], [-1, -1],
+                                       [r0, i0]], device=dev)
+    cases.append(k7_case("padded rows", padded_t, padded_p, cot[:2]))
+    empty = k7_case("C = 0", tris, pairs[:, :0].contiguous(), cot)
+    check(bool((empty["loss"] == 0).all() and (empty["grad"] == 0).all()),
+          "K7 C = 0: nonzero loss or gradient")
+    cases.append(empty)
+    axis_t, axis_p = k7_on_axis(dev)
+    on_axis = k7_case("on-axis pair", axis_t, axis_p, cot[:1])
+    check(on_axis["live"] == 2 and on_axis["plain_nan"] > 0
+          and float(on_axis["loss"][0]) == 0.0,
+          "K7 on-axis pair: not live, or no NaN in the plain gradient")
+    cases.append(on_axis)
+    cases.append(k7_case("penalize_outside=False", tris, pairs, cot,
+                         penalize_outside=False))
+    for c in cases:
+        del c["loss"], c["grad"], c["live_mask"]
+
+    # per pair ~400 FLOPs (two cones, six cone fields), the gradient ~3x
+    # for each live pair; bytes: the pairs and their two gathered
+    # triangles, the losses, the gradient of all faces written once
+    row = record_kernel(results, "K7_repulsion", max_err(loss, want),
+                        lambda: repulsion_loss(tris, pairs),
+                        lambda: repulsion_loss_plain(tris, pairs),
+                        n_pairs * (8 + 72) + Bc * 4, n_pairs * 400)
+    row["device_ms"], row["device_kernels"] = device["forward"]
+    row = record_kernel(results, "K7_repulsion_backward", grad_err,
+                        lambda: torch.autograd.grad(loss, x, cot,
+                                                    retain_graph=True),
+                        lambda: torch.autograd.grad(loss64, x64, cot.double(),
+                                                    retain_graph=True),
+                        n_pairs * (8 + 72) + Bc * 4 + tris.numel() * 4,
+                        main["live"] * 1200)
+    row["device_ms"], row["device_kernels"] = device["backward"]
+    row["live_pairs"], row["skipped_pairs"] = main["live"], main["skipped"]
+    row["cases"] = cases
+    return results
+
+
 def check_contact_kernels(bodies, meas, dev):
     """Phase 2, the contact path's kernels at phase 9's shapes: K6 (a body
     pair and the four pairs, 20908 x 20908 faces, 256 slots; the plane
@@ -5276,47 +5547,9 @@ def check_contact_kernels(bodies, meas, dev):
           f"{row['prologue_share']:.1%}; culling a query {row['culling']}")
 
     # K7 on the contacts of all four pairs, both directions of the pairs'
-    # cones, the reference's defaults
-    pairs = contact_pairs(faces4, M, F)
-    tris = torch.cat([a, b], dim=1).contiguous()
-    n_pairs = int((pairs[..., 0] >= 0).sum())
-    cot = torch.linspace(1.0, -0.5, Bc, device=dev)
-    x = tris.clone().requires_grad_()
-    loss = repulsion_loss(x, pairs)
-    got, = torch.autograd.grad(loss, x, cot, retain_graph=True)
-    want = repulsion_loss_plain(tris, pairs)
-    val_err = float(((loss.detach() - want).abs() / want.abs()).max())
-    x64 = tris.double().requires_grad_()
-    loss64 = repulsion_loss_plain(x64, pairs)
-    want64, = torch.autograd.grad(loss64, x64, cot.double(),
-                                  retain_graph=True)
-    grad_err = float((got.double() - want64).abs().max()
-                     / want64.abs().max())
-    x2 = tris.clone().requires_grad_()
-    again, = torch.autograd.grad(repulsion_loss(x2, pairs), x2, cot)
-    same = torch.equal(got, again)
-    print(f"K7 repulsion ({n_pairs} pairs over {Bc} bodies, C = "
-          f"{pairs.shape[1]}): loss "
-          f"{[round(float(v), 6) for v in loss.detach()]}, "
-          f"rel err {val_err:.3e} (tol 1e-5); gradient err vs plain "
-          f"autograd f64 {grad_err:.3e} of the largest (tol 1e-4); two runs "
-          f"bit-equal: {same}")
-    check(bool((loss > 0).all() and torch.isfinite(loss).all()), "K7 loss")
-    check(val_err <= 1e-5 and grad_err <= 1e-4 and same, "K7 vs plain")
-    # per pair ~400 FLOPs (two cones, six cone fields), the gradient ~3x;
-    # bytes: the pairs and their two gathered triangles, the losses, the
-    # gradient of all faces written once
-    record_kernel(results, "K7_repulsion", max_err(loss, want),
-                  lambda: repulsion_loss(tris, pairs),
-                  lambda: repulsion_loss_plain(tris, pairs),
-                  n_pairs * (8 + 72) + Bc * 4, n_pairs * 400)
-    record_kernel(results, "K7_repulsion_backward", grad_err,
-                  lambda: torch.autograd.grad(loss, x, cot,
-                                              retain_graph=True),
-                  lambda: torch.autograd.grad(loss64, x64, cot.double(),
-                                              retain_graph=True),
-                  n_pairs * (8 + 72) + Bc * 4 + tris.numel() * 4,
-                  n_pairs * 1200)
+    # cones, the reference's defaults, and its planted cases
+    results.update(check_k7(torch.cat([a, b], dim=1).contiguous(),
+                            contact_pairs(faces4, M, F), dev))
 
     # K9 both ways between two bodies' vertices, as point_fscore runs it
     # (nn_dists_both), and each way alone (_nn_dists); then clouds with
@@ -5418,6 +5651,7 @@ def contact(bodies, eval_data, meas, k6_plain, dev):
     pairs = contact_pairs(faces, CONTACT_M, F)
     tris = torch.cat([a, b], dim=1).contiguous().requires_grad_()
     loss = repulsion_loss(tris, pairs)
+    live = loss.grad_fn.saved_tensors[2]  # K7's live bytes, for the count
     grad, = torch.autograd.grad(loss.sum(), tris)
     scores = {}
     with torch.no_grad():
@@ -5491,6 +5725,8 @@ def contact(bodies, eval_data, meas, k6_plain, dev):
           f"K7 loss {loss}")
     check(val_err <= 1e-5 and grad_err <= 1e-4,
           f"K7 vs plain: value {val_err}, gradient {grad_err}")
+    n_pairs = int((pairs[..., 0] >= 0).sum())
+    skipped = n_pairs - int(live.sum())
     # K9: distances and scores against the plain version. The scores must
     # be equal unless a point's two distances (kernel, plain) fall on
     # either side of the threshold, which they can only within NN_TOL.
@@ -5525,7 +5761,8 @@ def contact(bodies, eval_data, meas, k6_plain, dev):
           f"triangles under the 1e-9 clamp: their target's plane only); "
           f"plane quads cross {min(sizes)}-"
           f"{max(sizes)} faces, the exact slice's; repulsion over "
-          f"{int((pairs[..., 0] >= 0).sum())} pairs: loss "
+          f"{n_pairs} pairs ({skipped} not live: the backward skipped "
+          f"them): loss "
           f"{[round(float(v), 5) for v in loss.detach()]}, rel err "
           f"{val_err:.2e}, "
           f"gradient {grad_err:.2e} of the largest; F-scores {fs_text}"
@@ -6004,7 +6241,8 @@ def main() -> int:
             "library_ms": c.get("library_ms")}
         for key in ("library_call", "box_pairs", "hits", "timed_as",
                     "f32_max_rel_err", "backbone", "cases", "culling",
-                    "device_ms", "prologue_share"):
+                    "device_ms", "prologue_share", "device_kernels",
+                    "live_pairs", "skipped_pairs"):
             if key in c:
                 entry[key] = c[key]
         entries.append(entry)

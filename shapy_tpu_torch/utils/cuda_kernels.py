@@ -140,10 +140,11 @@ class CudaKernel:
 
 
 def check_cuda_input(t: torch.Tensor, name: str, dtype: torch.dtype,
-                     shape: Sequence[int | None], device: torch.device
-                     ) -> None:
-    """Raise unless ``t`` is a contiguous tensor of ``dtype`` on
-    ``device`` whose shape matches ``shape`` (None = any size)."""
+                     shape: Sequence[int | None], device: torch.device,
+                     strided: bool = False) -> None:
+    """Raise unless ``t`` is a contiguous tensor (with ``strided``, any
+    strides: the kernel takes them) of ``dtype`` on ``device`` whose shape
+    matches ``shape`` (None = any size)."""
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -152,7 +153,7 @@ def check_cuda_input(t: torch.Tensor, name: str, dtype: torch.dtype,
             s is not None and s != d for s, d in zip(shape, t.shape)):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
-    if not t.is_contiguous():
+    if not strided and not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
 
 

@@ -1392,6 +1392,143 @@ def test_repulsion_kernel_padded_pairs_add_nothing(dev):
     assert bool((l3 == 0).all()) and bool((g3 == 0).all())
 
 
+def _nan_equal(a, b):
+    return a.shape == b.shape and bool(
+        ((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _on_axis_pair(dev):
+    """An intruder vertex exactly on the receiver's cone axis, 1 m in
+    front (intensity 0): the pair adds 0, and its gradient is NaN in the
+    plain version (``tests/test_torch_repulsion_plan.py``)."""
+    a = 2.0 ** -6
+    tris = torch.zeros(1, 4, 3, 3)
+    tris[0, 0] = torch.tensor([[0, 0, 0], [a, 0, 0], [0, a, 0]])
+    tris[0, 1] = torch.tensor([[a / 2, a / 2, 1.0],
+                               [a / 2, a / 2 + 0.01, 1.0],
+                               [a / 2, a / 2, 1.01]])
+    tris[0, 2:] = tris[0, :2] + 0.3
+    return (tris.to(dev),
+            torch.tensor([[[0, 1], [2, 3]]], dtype=torch.int32, device=dev))
+
+
+def _k7_inputs(case, dev, model):
+    if case == "on-axis":
+        return _on_axis_pair(dev)
+    if case == "face-in-45":
+        gen = torch.Generator().manual_seed(7)
+        tris = (torch.randn(1, 48, 3, 3, generator=gen) * 0.02).to(dev)
+        pairs = torch.randint(0, 48, (1, 90, 2), generator=gen,
+                              dtype=torch.int32)
+        pairs[0, ::2, 1] = 7
+        return tris, pairs.to(dev)
+    a, b = _body_pair(model, dev)
+    F = a.shape[1]
+    faces, _ = mesh_mesh_intersection(a, b, 64)
+    pairs = _pairs_from(faces, 64, F)
+    tris = torch.cat([a, b], dim=1).contiguous()
+    if case == "bodies":
+        return tris, pairs
+    if case == "padded-row":
+        pairs[1] = -1
+        pairs[0, 3, 1] = -1
+        return tris, pairs
+    return tris, pairs[:, :0].contiguous()  # no pairs
+
+
+@pytest.mark.parametrize("case", ["bodies", "face-in-45", "padded-row",
+                                  "no-pairs", "on-axis"])
+def test_repulsion_kernel_matches_its_replays(dev, body, case):
+    """K7's entry points against the replays, bit for bit: the loss and its
+    f64 total against ``repulsion_forward_replay`` of the kernel's
+    per-pair penalties (those equal to the plain version's on the card,
+    the live bytes to its live mask), the gradient against
+    ``repulsion_backward_replay`` of the kernel's entries (NaN where NaN:
+    the on-axis pair keeps the plain version's NaN); two calls bit-equal,
+    and the state kept between calls (tickets 0, face heads -1) left as
+    found."""
+    model, _ = body
+    tris, pairs = _k7_inputs(case, dev, model)
+    B, F = tris.shape[:2]
+    consts = repulsion._constants(0.5, True, 1000.0)
+    cot = torch.linspace(1.0, -0.5, B, device=dev)
+    loss, live, total, pen = repulsion._repulsion_forward_cuda(
+        tris, pairs, consts, per_pair=True)
+    grad, entries = repulsion._repulsion_backward_cuda(tris, pairs, cot,
+                                                       live, consts)
+    again = repulsion._repulsion_forward_cuda(tris, pairs, consts)
+    grad2, _ = repulsion._repulsion_backward_cuda(tris, pairs, cot, live,
+                                                  consts)
+    pen_plain, live_plain = repulsion.repulsion_pairs_plain(tris, pairs)
+    assert torch.equal(pen, pen_plain)
+    assert torch.equal(live.bool(), live_plain)
+    rep_loss, rep_total = repulsion.repulsion_forward_replay(pen)
+    assert torch.equal(loss, rep_loss) and torch.equal(total, rep_total)
+    assert _nan_equal(grad, repulsion.repulsion_backward_replay(
+        entries, pairs, F, live, cot))
+    assert torch.equal(loss, again[0]) and torch.equal(total, again[2])
+    assert _nan_equal(grad, grad2)
+    x64 = tris.double().requires_grad_()
+    want, = torch.autograd.grad(
+        (repulsion.repulsion_loss_plain(x64, pairs) * cot.double()).sum(),
+        x64, allow_unused=True)
+    if want is None:
+        want = torch.zeros_like(x64)
+    assert bool((torch.isnan(grad) | ~torch.isnan(want)).all())
+    assert bool(torch.isnan(want).any()) == (case == "on-axis")
+    for key, t in repulsion._STATE.items():
+        assert bool((t == (-1 if key[0] == "heads" else 0)).all())
+
+
+def test_repulsion_kernel_runs_its_own_device_kernels(dev, body):
+    """One device kernel a forward, two a backward (the pair pass, the face
+    pass), all of them ``repulsion.cu``'s: no library sort, no
+    searchsorted, no memset, from a ``torch.profiler`` trace; a gradient
+    of ``loss.sum()`` (a stride-0 cotangent) is taken as it is."""
+    model, _ = body
+    tris, pairs = _k7_inputs("bodies", dev, model)
+    x = tris.clone().requires_grad_()
+    own = REPULSION_KERNEL.device_functions()
+    total = repulsion_loss(x, pairs).sum()
+    torch.autograd.grad(total, x, retain_graph=True)
+    torch.cuda.synchronize()
+    for fn, n in ((lambda: repulsion_loss(x, pairs), 1),
+                  (lambda: torch.autograd.grad(total, x,
+                                               retain_graph=True), 2)):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        k7 = [m for m in names if any(f"{f}(" in m for f in own)]
+        assert len(k7) == n, names
+        # the backward's one other kernel: autograd's fill of the sum's
+        # cotangent (1.0), the caller's
+        assert len(names) - len(k7) <= n - 1, names
+
+
+def test_repulsion_kernel_keeps_its_state_per_stream(dev, body):
+    """A call on a side stream makes its own tickets and heads and gives
+    the same bits as one on the default stream."""
+    model, _ = body
+    tris, pairs = _k7_inputs("bodies", dev, model)
+    cot = torch.tensor([1.0, -0.6], device=dev)
+    x = tris.clone().requires_grad_()
+    got, = torch.autograd.grad((repulsion_loss(x, pairs) * cot).sum(), x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        y = tris.clone().requires_grad_()
+        loss = repulsion_loss(y, pairs)
+        again, = torch.autograd.grad((loss * cot).sum(), y)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    streams = {key[2] for key in repulsion._STATE}
+    assert side.cuda_stream in streams and len(streams) >= 2
+
+
 @pytest.mark.parametrize("case", ["bodies", "identical", "small-b"])
 def test_nn_dists_kernel_matches_plain(dev, body, case):
     """K9 against its plain version: distances within 1e-5 m (the same

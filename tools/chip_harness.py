@@ -10,7 +10,8 @@ last line gives each tree's median of every number.
 In such a subprocess (this directory is on its ``PYTHONPATH``):
 ``trace(fn)`` takes the device kernels of ``PASSES`` calls of ``fn``
 from a ``torch.profiler`` trace between spin kernels, taken again (at most
-3 times) unless every source's kernels number a multiple of the calls;
+3 times) unless it holds kernels and every source's kernels number a
+multiple of the calls;
 ``by_source`` groups them by the ``csrc`` file whose kernel each is,
 ``busy_ms`` gives the time at least one of them runs;
 ``grids(fn)`` gives each kernel's grid and block, and ``empty_ms`` the
@@ -114,7 +115,7 @@ def trace(fn, passes: int = PASSES) -> list:
             for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.name not in skip)
-        if (len(events) % passes == 0 and all(
+        if (events and len(events) % passes == 0 and all(
                 len(v) % passes == 0 for v in by_source(events).values())):
             return events
         print(f"trace dropped kernels: {len(events)} events", flush=True)
@@ -383,7 +384,8 @@ def run_script(script: str, cwd: Path, args=(), timeout: int = 900):
 
 def in_turns(script: str, trees, rounds: int) -> int:
     """Runs ``script`` in each tree, ``rounds`` times, in turns; 1 if a
-    run fails (its errors printed), else 0."""
+    run fails (its errors printed), else 0. A median is over the runs that
+    have the number."""
     runs = {tree: [] for tree in trees}
     order = []
     for i in range(rounds):
@@ -401,8 +403,9 @@ def in_turns(script: str, trees, rounds: int) -> int:
     medians = {}
     for tree, rows in runs.items():
         flats = [_flat(r) for r in rows]
-        medians[tree] = {k: statistics.median(f[k] for f in flats)
-                         for k in flats[0]}
+        keys = dict.fromkeys(k for f in flats for k in f)
+        medians[tree] = {k: statistics.median(f[k] for f in flats if k in f)
+                         for k in keys}
     print(json.dumps({"median": medians}))
     return 0
 

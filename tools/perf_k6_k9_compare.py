@@ -1,6 +1,6 @@
-"""K6 (mesh-mesh intersection) and K9 (nearest-neighbour distances) at
-phase 9's shapes, and phase 9's contact sequence, on two trees, in turns
-on one card.
+"""K6 (mesh-mesh intersection), K7 (the repulsion loss, forward and
+backward) and K9 (nearest-neighbour distances) at phase 9's shapes, and
+phase 9's contact sequence, on two trees, in turns on one card.
 
 Needs one CUDA card. Each tree given is a checkout of the repository (this
 one, and for instance ``git archive`` of its parent unpacked under
@@ -25,7 +25,15 @@ pairs (20908 faces, 10475 vertices; the flagship's synthetic body model):
   gradient, 24 F-scores between the bodies' vertices and between their
   20000-point regressed clouds), the median of 5 after 2 warm-ups;
 * ``hashes``: of K6's ids and barycentrics (both routes) and of the 24
-  F-scores, so that the trees' outputs compare bit for bit.
+  F-scores, so that the trees' outputs compare bit for bit;
+* ``k7_fwd``, ``k7_bwd``: K7 on phase 9's contact pairs of the four
+  pairs (the two bodies' triangles side by side, 41816 faces a row), the
+  forward ``repulsion_loss`` and the backward ``torch.autograd.grad`` of
+  its loss with a (4,) cotangent, as phase 2 times them: ``ms``, the
+  device time of a call (the union of its kernels' spans, library
+  kernels and memsets included), ``kernels``, the device kernels a call,
+  and ``by_name``, each kernel's ms and count a call; ``k7_loss_hash``
+  and ``k7_grad_hash``, the loss's and the gradient's bytes.
 
 The trees run in turns (``chip_harness.in_turns``, ``--rounds 2``: a b b
 a), each run printing one JSON line; the last line gives each tree's
@@ -45,7 +53,8 @@ RUN = r"""
 import hashlib, json, statistics, sys, time
 import numpy as np, torch
 sys.path.insert(0, ".")
-from chip_harness import PASSES, body_model, by_source, card, smoke, trace
+from chip_harness import (PASSES, body_model, busy_ms, by_source, card,
+                          smoke, trace)
 from shapy_tpu_torch.eval import metrics
 from shapy_tpu_torch.measure.measurements import BodyMeasurements
 from shapy_tpu_torch.ops.repulsion import repulsion_loss
@@ -96,7 +105,32 @@ def contact():
     torch.cuda.synchronize()
 
 
+def call(fn):
+    events = trace(fn)
+    names = {}
+    for start, stop, name in events:
+        ms, n = names.get(name, (0.0, 0))
+        names[name] = (ms + (stop - start) / 1e3 / PASSES, n + 1)
+    return {"ms": busy_ms(events), "kernels": len(events) // PASSES,
+            "by_name": {k: {"ms": v[0], "count": v[1] // PASSES}
+                        for k, v in names.items()}}
+
+
 out = {"card": card()}
+with torch.no_grad():
+    pairs = cs.contact_pairs(mesh_mesh_intersection(a, b, 256)[0], 256, F)
+tris = torch.cat([a, b], dim=1).contiguous()
+x = tris.clone().requires_grad_()
+cot = torch.linspace(1.0, -0.5, B, device=dev)
+loss = repulsion_loss(x, pairs)
+out["k7_fwd"] = call(lambda: repulsion_loss(x, pairs))
+out["k7_bwd"] = call(lambda: torch.autograd.grad(loss, x, cot,
+                                                 retain_graph=True))
+grad, = torch.autograd.grad(loss, x, cot, retain_graph=True)
+out["k7_loss_hash"] = hashlib.sha256(
+    loss.detach().cpu().numpy().tobytes()).hexdigest()[:16]
+out["k7_grad_hash"] = hashlib.sha256(
+    grad.cpu().numpy().tobytes()).hexdigest()[:16]
 with torch.no_grad():
     out["k6_pair"] = timed(lambda: mesh_mesh_intersection(a1, b1, 256),
                            "tri_tri.cu")
