@@ -267,13 +267,47 @@ Phases, each of which raises on failure (exit code 1):
    ``device_time``, times the batches, over their wall), and each run's
    batches one by one (the first waits for its whole decode).
 
+13. Training through the CLI: ``cli.train.main`` with
+   ``configs/train_shapy.yaml`` (read by the port's config loader; the
+   synthetic archives' folders and names given as dot-list overrides) at
+   its full width: HRNet-W48 in bf16, batch 48 (24 pose + 24 shape),
+   256^2 crops, dropout 0.5, its augmentations (flip, scale, rotation
+   and channel noise) on uint8 full images that K2 crops on the card with
+   the drawn noise factors. The data: synthetic archives written to a
+   temporary directory by the port's generator (``data/synthetic.py``, the
+   rasterizer's native route) on phase 7's body at 320x320: two pose
+   archives, one shape archive and a val archive with vertices; the
+   regressor is ``build_body_head`` on that body, weights from its seed.
+   Three runs: (1) 8 steps with ``use_adv_training`` (LSGAN) and
+   ``eval_steps`` 4; (2) 4 steps, then a fresh ``main`` that resumes from
+   the checkpoint and takes 4 more, whose checkpoint must equal run 1's
+   bit for bit (every parameter, BN stat, Adam moment, schedule and the
+   discriminator's weights, ``u`` buffers and moments), its resumed leg
+   under a ``torch.profiler`` trace of the host's operators; (3) 8 steps
+   with ``losses.discriminator.type: wgan-gp`` and no checkpoint, under a
+   trace of the device's kernels. ``F.conv2d`` and ``F.max_pool2d`` raise
+   throughout, and the resumed leg's trace may show no convolution
+   operator. Checks rc 0, finite losses and eval rows, and a
+   train step's launches (the eval hook's counted apart): one K2 with the
+   noise factor and none without, and phase 7's K5, K4, K3 and K3-chain
+   counts; K2 with the factor bit-equal to its plain version on a recorded
+   train batch and on phase 2's extreme affines, and without it on the
+   same batch (the plain version without factors is the parent's, so the
+   kernel's served path did not move). Prints steps/s on the host clock
+   (the median span from one step's start to the next, the spans with an
+   eval call or a checkpoint write left out), the device's busy share of
+   run 3's traced fit and the peak memory, and times K2's noise variant at
+   batch 48.
+
 The line before the last is a JSON object with one entry per kernel
 function (forward and backward separately); ``launches`` counts the
 training phase for the kernels it runs (K5 among them), the batch-32 fit
 of phase 8 for K1's backward and K1-exact, phase 9 for K6, K7 and K9,
 the scorer (phase 6) for K1-AoS's points and their backward, ResNet-50's
 training (phase 11) for K10 and K11, and the evaluation phase for the
-others; ``launches_cli`` counts phase 12's cold run. K5-conv's and K5-fuse's times are a served forward's at batch 32,
+others, and phase 13's run 1 for K2's noise variant; ``launches_cli``
+counts phase 12's cold run, ``launches_train_cli`` phase 13's run 1 (its
+train steps, the eval hook's launches left out). K5-conv's and K5-fuse's times are a served forward's at batch 32,
 the backward kernels' and K4's backward's a train step's at batch 48;
 K10's and K11's forwards at the served batch 32, their backwards at 48.
 The last line is
@@ -695,6 +729,8 @@ def kernels():
          csrc + "measure.cu", "shapy_tpu/ops/plane_slice.py:28"),
         ("K2_ingest", INGEST_KERNEL, "ingest_forward", csrc + "ingest.cu",
          "shapy_tpu/data/crop.py:96"),
+        ("K2_noise", INGEST_KERNEL, "ingest_noise_forward",
+         csrc + "ingest.cu", "shapy_tpu/data/crop.py:96"),
         ("K3_skinning", SKIN_KERNEL, "skin_forward", csrc + "skinning.cu",
          "shapy_tpu/models/body/lbs.py:97"),
         ("K3_skinning_backward", SKIN_KERNEL, "skin_backward",
@@ -5774,10 +5810,12 @@ def contact(bodies, eval_data, meas, k6_plain, dev):
 
 
 def write_ppm(path: Path, image: np.ndarray) -> None:
-    """(H, W, 3) uint8 RGB as a binary PPM (P6, maxval 255)."""
-    H, W = image.shape[:2]
+    """(H, W, 3) uint8 RGB as a binary PPM (P6, maxval 255), its folder
+    made."""
+    from shapy_tpu_torch.data.synthetic import write_ppm as write
+
     path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_bytes(b"P6\n%d %d\n255\n" % (W, H) + image.tobytes())
+    write(str(path), image)
 
 
 def write_hbw_tree(root: Path, model, p2p_path: Path) -> None:
@@ -6082,6 +6120,384 @@ def evaluate_cli(dev, eval_rate: float):
                       "eval_images_s": eval_rate}
 
 
+# Phase 13: training through the CLI on synthetic archives.
+TRAIN_CLI_IMAGE = 320
+# (name, samples, seed): two pose archives (the equal sampler), a shape
+# archive and a val archive with GT vertices.
+TRAIN_CLI_ARCHIVES = (("pose_a", 48, 1), ("pose_b", 48, 2),
+                      ("shape_a", 48, 3), ("val", 24, 9))
+TRAIN_CLI_STEPS, TRAIN_CLI_EVAL_STEPS = 8, 4
+# A train step's kernels whose launches phase 7 fixes.
+TRAIN_CLI_KERNELS = ("K3_skinning", "K3_skinning_backward",
+                     "K3chain_forward", "K3chain_backward", "K4_bn_forward",
+                     "K4_bn_backward", *K5_PER_TRAIN_STEP)
+
+
+def train_cli_config(root: Path, steps_eval: int, extra=()) -> dict:
+    """``configs/train_shapy.yaml`` with dot-list overrides: the synthetic
+    archives under ``root`` as its pose, shape and val datasets (SMPL-X
+    keypoints, the val archive's vertices), no shape val, the adversarial
+    step, a checkpoint every 4 steps and the eval hook every
+    ``steps_eval``."""
+    from shapy_tpu_torch.utils.config import load_config
+
+    repo = Path(__file__).resolve().parent
+    opts = ["datasets.pose.splits.train=['pose_a','pose_b']",
+            "datasets.pose.splits.val=['val']",
+            "datasets.shape.splits.train=['shape_a']",
+            "datasets.shape.splits.val=[]",
+            "use_adv_training=True", "checkpoint_steps=4",
+            "summary_steps=4", f"eval_steps={steps_eval}"]
+    for name, _, _ in TRAIN_CLI_ARCHIVES:
+        part = "shape" if name.startswith("shape") else "pose"
+        key = f"datasets.{part}.{name}"
+        opts += [f"{key}.data_folder={root / name}",
+                 f"{key}.npz_files=['fits.npz']",
+                 f"{key}.keypoint_format=smplx",
+                 f"{key}.body_dset_factor=1.0",
+                 f"{key}.return_vertices={name == 'val'}"]
+    return load_config({}, [str(repo / "configs" / "train_shapy.yaml")],
+                       opts + list(extra))
+
+
+def _equal_trees(a, b, path: str = "") -> list:
+    """The paths at which two checkpoint trees differ (tensors bit for
+    bit)."""
+    import torch
+
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or set(a) != set(b):
+            return [path]
+        return [d for k in a for d in _equal_trees(a[k], b[k],
+                                                   f"{path}.{k}")]
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return [path]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in _equal_trees(x, y, f"{path}[{i}]")]
+    if isinstance(a, torch.Tensor):
+        return [] if isinstance(b, torch.Tensor) and torch.equal(a, b) \
+            else [path]
+    return [] if a == b else [path]
+
+
+def train_cli(dev, train_launches: dict):
+    """Phase 13: ``cli.train.main`` on ``configs/train_shapy.yaml`` at
+    full width over synthetic archives (see the module docstring). Returns
+    the launches of run 1's train steps, a summary, and K2's noise
+    variant's entry for the kernels line."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from shapy_tpu_torch.cli import demo as demo_mod
+    from shapy_tpu_torch.cli import train as cli
+    from shapy_tpu_torch.data.crop import crop_normalize, crop_normalize_plain
+    from shapy_tpu_torch.data.synthetic import (
+        generate_parametric_fits,
+        register_synthetic_datasets,
+    )
+    from shapy_tpu_torch.eval import loop as loop_mod
+    from shapy_tpu_torch.flagship import (
+        build_flagship_body,
+        synthetic_requests,
+    )
+    from shapy_tpu_torch.io.checkpoint import Checkpointer
+    from shapy_tpu_torch.models.heads.regressor import build_body_head
+    from shapy_tpu_torch.train.trainer import Trainer
+
+    model, meas = build_flagship_body(subdivisions=5, exact_counts=True)
+
+    def builder(exp_cfg, checkpoint_path="", device="cuda"):
+        return build_body_head(exp_cfg, body_model=copy.deepcopy(model),
+                               measurements=copy.deepcopy(meas)).to(device)
+
+    # The eval hook's launches are counted apart: each call's are taken
+    # back out of the counters.
+    eval_launches = collections.Counter()
+    make_eval_fn = loop_mod.make_eval_fn
+
+    def counted_make_eval_fn(*args, **kwargs):
+        fn = make_eval_fn(*args, **kwargs)
+
+        def eval_fn(step=0, **kw):
+            before = {k.source: dict(k.counts) for k in sources()}
+            out = fn(step, **kw)
+            torch.cuda.synchronize()
+            for k in sources():
+                for f, n in k.counts.items():
+                    eval_launches[f] += n - before[k.source][f]
+                k.counts = dict(before[k.source])
+            return out
+
+        return eval_fn
+
+    # The first step's crop inputs, for the K2 checks; the host clock at
+    # each step's start (its batch on the card); the spans of the eval
+    # hook's calls and of the checkpoints' writes, which the rates leave
+    # out; a trace of the fit where ``traced`` names the profiler's
+    # activities.
+    recorded, stamps, pauses, traced, traces = [], [], [], [], []
+    images_fn, fit_fn, save_fn = Trainer._images, Trainer.fit, \
+        Checkpointer.save
+
+    def recording_images(self, merged):
+        stamps.append(time.perf_counter())
+        if not recorded and "full_images" in merged:
+            recorded.append(tuple(merged[k].clone() for k in (
+                "full_images", "crop_to_image_affines", "channel_noise")))
+        return images_fn(self, merged)
+
+    def paused(fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            pauses.append((t, time.perf_counter()))
+            return out
+
+        return call
+
+    def traced_fit(self, *args, **kwargs):
+        from torch.profiler import profile
+
+        torch.cuda.synchronize()
+        with (profile(activities=traced.pop()) if traced
+              else contextlib.nullcontext()) as prof:
+            t = time.perf_counter()
+            out = fit_fn(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        if prof is not None:
+            traces.append((prof, wall))
+        return out
+
+    def counted_paused_make_eval_fn(*args, **kwargs):
+        return paused(counted_make_eval_fn(*args, **kwargs))
+
+    def step_rate(first: int) -> tuple:
+        """Steps/s from the median span between consecutive steps' starts
+        since stamp ``first``, the spans that hold an eval or a
+        checkpoint left out; and those spans in ms."""
+        spans = [(a, b) for a, b in zip(stamps[first:], stamps[first + 1:])
+                 if not any(a < p0 < b for p0, _ in pauses)]
+        ms = [round((b - a) * 1e3, 1) for a, b in spans]
+        return 1e3 / sorted(ms)[len(ms) // 2], ms
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError("a library convolution or pool was reached")
+
+    def run(cfg, out_dir, steps):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(cfg, output_folder=str(out_dir), num_steps=steps,
+                          device=dev)
+        lines = out.getvalue().splitlines()
+        check(rc == 0, f"train cli: rc {rc}")
+        return lines
+
+    def rows(lines):
+        import ast
+
+        losses = ast.literal_eval(lines[0])
+        evals = [ast.literal_eval(x) for x in lines[1:]
+                 if x.startswith("{'eval'")]
+        check(all(math.isfinite(v) for v in losses.values()),
+              f"train cli: losses {losses}")
+        check(all(math.isfinite(v) for r in evals for k, v in r.items()
+                  if k not in ("eval", "step")), f"train cli: evals {evals}")
+        return losses, evals
+
+    F = torch.nn.functional
+    saved = (demo_mod.build_demo_regressor, loop_mod.make_eval_fn,
+             Trainer._images, Trainer.fit, Checkpointer.save, F.conv2d,
+             F.max_pool2d)
+    summary = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "synth"
+        t = time.perf_counter()
+        body = copy.deepcopy(model).to(dev)
+        for name, n, seed in TRAIN_CLI_ARCHIVES:
+            generate_parametric_fits(
+                str(root / name), n, model=body, seed=seed, device=dev,
+                image_size=TRAIN_CLI_IMAGE, betas_std=1.0, pose_std=0.25)
+        register_synthetic_datasets([a[0] for a in TRAIN_CLI_ARCHIVES])
+        del body
+        summary["archives_s"] = time.perf_counter() - t
+        print(f"train cli: wrote {sum(a[1] for a in TRAIN_CLI_ARCHIVES)} "
+              f"samples at {TRAIN_CLI_IMAGE}^2 in "
+              f"{summary['archives_s']:.1f} s")
+        demo_mod.build_demo_regressor = builder
+        loop_mod.make_eval_fn = counted_paused_make_eval_fn
+        Trainer._images, Trainer.fit = recording_images, traced_fit
+        Checkpointer.save = paused(save_fn)
+        F.conv2d = F.max_pool2d = refuse
+        try:
+            # Run 1: 8 steps, LSGAN, the eval hook every 4.
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            lines = run(train_cli_config(root, TRAIN_CLI_EVAL_STEPS),
+                        Path(tmp) / "run1", TRAIN_CLI_STEPS)
+            launches = read_launches()
+            peak = torch.cuda.max_memory_allocated()
+            losses, evals = rows(lines)
+            print("\n".join(f"train cli | {x}" for x in lines))
+            check({r["step"] for r in evals} == {0, 4, 8},
+                  f"train cli: eval rows at {[r['step'] for r in evals]}")
+            check({"adv_gen", "adv_disc"} <= set(losses),
+                  f"train cli: losses {sorted(losses)}")
+            rate1, spans1 = step_rate(0)
+            # Run 2: 4 steps, then a fresh main that resumes and takes 4,
+            # its steps under a trace of the host's operators.
+            from torch.profiler import ProfilerActivity
+
+            cfg = train_cli_config(root, 0)
+            run(cfg, Path(tmp) / "run2", 4)
+            traced.append([ProfilerActivity.CPU])
+            run(cfg, Path(tmp) / "run2", 4)
+            ckpt = "checkpoints/ckpt_00000008"
+            a = torch.load(Path(tmp) / "run1" / ckpt, map_location="cpu",
+                           weights_only=False)
+            b = torch.load(Path(tmp) / "run2" / ckpt, map_location="cpu",
+                           weights_only=False)
+            differ = _equal_trees(a, b)
+            n_model = len(a["model"]) + len(a["disc"]["model"])
+            print(f"train cli: 8 steps against 4 + kill + resume + 4: "
+                  f"{n_model} module tensors, the optimizers' moments and "
+                  f"the schedules compared; {len(differ)} differ "
+                  f"{differ[:5]}")
+            check(not differ and a["step"] == 8 and a["disc"]["step"] == 8,
+                  f"train cli: the resumed run differs: {differ[:5]}")
+            # Run 3: 8 WGAN-GP steps, no checkpoint, under a trace of the
+            # device's kernels.
+            traced.append([ProfilerActivity.CUDA])
+            first3 = len(stamps)
+            lines3 = run(train_cli_config(root, 0, [
+                "losses.discriminator.type=wgan-gp",
+                "checkpoint_steps=100"]), Path(tmp) / "run3",
+                TRAIN_CLI_STEPS)
+            rate3, spans3 = step_rate(first3)
+            losses3, _ = rows(lines3)
+            print(f"train cli | wgan-gp | {lines3[0]}")
+            check("adv_gp" in losses3, f"train cli: wgan-gp losses "
+                                       f"{sorted(losses3)}")
+        finally:
+            (demo_mod.build_demo_regressor, loop_mod.make_eval_fn,
+             Trainer._images, Trainer.fit, Checkpointer.save, F.conv2d,
+             F.max_pool2d) = saved
+
+    # The resumed leg's operators: no convolution or pooling; run 3's
+    # device busy share of its fit (its first step's warm-up included).
+    (leg, _), (wgan, wgan_wall) = traces
+    names = {e.name for e in leg.events()}
+    convs = sorted(n for n in names if "convolution" in n or "cudnn" in n
+                   or n == "aten::conv2d" or "pool" in n)
+    check(not convs, f"train cli: library convolutions {convs}")
+    check(any("_Conv2dActBackward" in n for n in names),
+          "train cli: the trace holds no K5 backward node")
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in wgan.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(len(spans) > TRAIN_CLI_STEPS * 1000, f"train cli: the trace of "
+          f"{TRAIN_CLI_STEPS} steps holds {len(spans)} device events")
+    busy, end = 0.0, float("-inf")
+    for start, stop in spans:
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    busy_ms = busy / 1e3
+
+    # A train step's launches (run 1, the eval hook's taken out).
+    per_step = {k: v / TRAIN_CLI_STEPS for k, v in launches.items()}
+    check(launches["K2_noise"] == TRAIN_CLI_STEPS
+          and launches["K2_ingest"] == 0,
+          f"train cli: K2 {launches['K2_noise']} with noise, "
+          f"{launches['K2_ingest']} without, in {TRAIN_CLI_STEPS} steps")
+    for name in TRAIN_CLI_KERNELS:
+        want = train_launches[name] / TRAIN_STEPS
+        check(per_step[name] == want, f"train cli: {name} {per_step[name]} "
+                                      f"a step, phase 7 {want}")
+    check(eval_launches["ingest_forward"] > 0
+          and eval_launches["ingest_noise_forward"] == 0,
+          f"train cli: the eval hook's K2 launches {dict(eval_launches)}")
+
+    # K2's noise variant: the recorded train batch and phase 2's extremes.
+    full, aff, noise = recorded[0]
+    check(full.dtype == torch.uint8 and full.shape[0] == TRAIN_B,
+          f"train cli: recorded {full.dtype} {tuple(full.shape)}")
+    big, _ = synthetic_requests(4, IMAGE_H, IMAGE_W, CROP, SEED + 13)
+    big = torch.from_numpy(big).to(dev)
+    extreme = torch.from_numpy(k2_extreme_affines(IMAGE_H, IMAGE_W,
+                                                  CROP)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    ext_noise = torch.rand((3, 3), generator=gen, device=dev) * 0.8 + 0.6
+    with torch.inference_mode():
+        for what, (x, A, f) in {
+                "train batch": (full, aff, noise),
+                "extreme": (big[:3], extreme, ext_noise)}.items():
+            for x_in in (x, x.to(torch.float32) * (1.0 / 255.0)):
+                for out_dtype in (torch.float32, torch.bfloat16):
+                    got = crop_normalize(x_in, A, CROP, out_dtype=out_dtype,
+                                         factors=f)
+                    want = crop_normalize_plain(x_in, A, CROP,
+                                                out_dtype=out_dtype,
+                                                factors=f)
+                    check(torch.equal(got, want),
+                          f"K2 noise {what} {x_in.dtype} -> {out_dtype}: "
+                          f"max error {max_err(got, want)}")
+            got = crop_normalize(x, A, CROP, out_dtype=torch.bfloat16)
+            check(torch.equal(got, crop_normalize_plain(
+                x, A, CROP, out_dtype=torch.bfloat16)),
+                f"K2 without noise on the {what}: differs from plain")
+            check(not torch.equal(got, crop_normalize(
+                x, A, CROP, out_dtype=torch.bfloat16, factors=f)),
+                f"K2 noise on the {what}: the factors changed nothing")
+    print("K2 noise: bit-equal to the plain version on the recorded train "
+          "batch and phase 2's extreme affines (uint8 and f32 in, f32 and "
+          "bf16 out); without factors bit-equal to the plain version")
+    pixels = k2_read_pixels(full, aff)
+    out_bytes = TRAIN_B * CROP * CROP * 3 * 2
+    # Per output pixel: the affine map (8 FLOP) and, per channel, the
+    # blend (11), the noise and its clip (3) and the normalisation (2).
+    entry = record_kernel(
+        {}, "K2_noise", 0.0,
+        lambda: crop_normalize(full, aff, CROP, out_dtype=torch.bfloat16,
+                               factors=noise),
+        lambda: crop_normalize_plain(full, aff, CROP,
+                                     out_dtype=torch.bfloat16,
+                                     factors=noise),
+        pixels * 3 + aff.numel() * 4 + noise.numel() * 4 + out_bytes,
+        TRAIN_B * CROP * CROP * (8 + 3 * 16))
+    entry["source_pixels_read"] = pixels
+
+    pause_ms = [round((b - a) * 1e3, 1) for a, b in pauses]
+    summary.update({
+        "steps": TRAIN_CLI_STEPS, "batch": TRAIN_B,
+        "steps_per_s": rate1, "images_per_s": rate1 * TRAIN_B,
+        "step_spans_ms": spans1, "wgan_steps_per_s": rate3,
+        "wgan_step_spans_ms": spans3, "wgan_fit_ms": wgan_wall * 1e3,
+        "wgan_busy_ms": busy_ms,
+        "wgan_busy_share": busy_ms / 1e3 / wgan_wall,
+        "eval_and_checkpoint_ms": pause_ms,
+        "peak_memory_gib": peak / 2 ** 30,
+        "eval_rows": len(evals), "losses": losses,
+        "wgan_gp_losses": losses3, "card": gpu_line()})
+    print(f"train cli: run 1 (LSGAN, batch {TRAIN_B}): a step's span "
+          f"(one start to the next, on the host clock) {spans1} ms, median "
+          f"{1e3 / rate1:.1f} ms = {rate1:.3f} steps/s = "
+          f"{rate1 * TRAIN_B:.1f} images/s; eval calls and checkpoint "
+          f"writes (left out) {pause_ms} ms; peak memory "
+          f"{summary['peak_memory_gib']:.3f} GiB; run 3 (WGAN-GP, traced): "
+          f"spans {spans3} ms ({rate3:.3f} steps/s), its fit "
+          f"{wgan_wall * 1e3:.1f} ms, device busy {busy_ms:.1f} ms "
+          f"({summary['wgan_busy_share']:.3f}); launches a step {dict((k, v) for k, v in per_step.items() if v)}"
+          f"; eval hook launches {dict(eval_launches)}; {gpu_line()}")
+    return launches, summary, entry
+
+
 def main() -> int:
     import torch
 
@@ -6203,6 +6619,10 @@ def main() -> int:
     checked.update(resnet_checked)
     stamp("phase 12")
     cli_launches, cli_summary = evaluate_cli(dev, eval_rate)
+    stamp("phase 13")
+    train_cli_launches, train_cli_summary, k2_noise = train_cli(
+        dev, train_launches)
+    checked["K2_noise"] = k2_noise
     stamp("done")
 
     entries = []
@@ -6217,6 +6637,8 @@ def main() -> int:
             # (phase 6) for K1-AoS's points and their backward,
             # evaluation (phase 5) for the others (K2, K8a, K8b)
             "launches": (resnet_train[name] if name in RESNET_KERNELS
+                         else train_cli_launches[name]
+                         if name == "K2_noise"
                          else train_launches[name] if name in TRAIN_KERNELS
                          else contact_launches[name]
                          if name in CONTACT_KERNELS
@@ -6225,7 +6647,10 @@ def main() -> int:
                          else fit_launches.get(name, eval_launches[name])),
             "launches_score": score_launches[name],
             "launches_contact": contact_launches[name],
-            "launches_train": train_launches[name],
+            "launches_train": (train_cli_launches[name]
+                               if name == "K2_noise"
+                               else train_launches[name]),
+            "launches_train_cli": train_cli_launches[name],
             "launches_fit": fit_launches.get(name, 0),
             "launches_eval": eval_launches[name],
             "launches_serve": serve_launches[name],
@@ -6240,6 +6665,7 @@ def main() -> int:
             # of the others
             "library_ms": c.get("library_ms")}
         for key in ("library_call", "box_pairs", "hits", "timed_as",
+                    "source_pixels_read",
                     "f32_max_rel_err", "backbone", "cases", "culling",
                     "device_ms", "prologue_share", "device_kernels",
                     "live_pairs", "skipped_pairs"):
@@ -6250,6 +6676,7 @@ def main() -> int:
                                                 "bound_ms")), "timing")
     print(f"ResNet: {json.dumps(resnet_summary)}")
     print(f"evaluate CLI: {json.dumps(cli_summary)}")
+    print(f"train CLI: {json.dumps(train_cli_summary)}")
     print(gpu_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 // K2 ingest: uint8 decode + affine bilinear crop + ImageNet normalisation +
-// cast, forward only.
+// cast, forward only; in training with the per-crop channel noise between
+// the crop and the normalisation.
 //
 // Replaces: shapy_tpu/data/crop.py:jax_bilinear_crop (line 96) together
 // with the preprocessing of shapy_tpu/models/heads/regressor.py
@@ -38,6 +39,13 @@
 // package. The finished tile goes through shared memory (the box's) and
 // leaves as 16-byte vectors, each of its rows contiguous in the output,
 // where the output's rows are 16-byte aligned, else element by element.
+//
+// The training variant (ingest_noise_forward) takes a (B, 3) f32 factor a
+// crop and channel and computes (clip(v * f, 0, 1) - mean) / std from the
+// bilinear sample v in [0, 1]: the JAX package's Crop -> ChannelNoise ->
+// Normalize (shapy_tpu/data/transforms.py:407-420, :526-545) in one pass.
+// It is the same kernel with kNoise set; without it the operations are
+// the ones above, so the served and evaluated crops do not move.
 //
 // Every output is bit-equal to the plain PyTorch version
 // (data/crop.py:crop_normalize_plain): the same f32 operations in the same
@@ -83,10 +91,11 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);  // round to nearest even, as torch's .to()
 }
 
-template <typename In, typename Out>
+template <typename In, typename Out, bool kNoise>
 __global__ void __launch_bounds__(kThreads)
     ingest_kernel(const In* __restrict__ images,
-                  const float* __restrict__ affines, Out* __restrict__ out,
+                  const float* __restrict__ affines,
+                  const float* __restrict__ factors, Out* __restrict__ out,
                   int H, int W, int S, Norm norm, int aligned, int vector_out) {
   static_assert(kTile * kTile * 3 * sizeof(Out) <= kBoxBytes,
                 "the finished tile leaves through the box's memory");
@@ -98,6 +107,11 @@ __global__ void __launch_bounds__(kThreads)
   const float a0 = A[0], a1 = A[1], a2 = A[2], a3 = A[3], a4 = A[4],
               a5 = A[5];
   const In* img = images + (size_t)b * H * W * 3;
+  float noise[3];
+  if (kNoise) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) noise[c] = factors[(size_t)b * 3 + c];
+  }
 
   // The footprint: where the tile's four corner pixels map.
   float lo_x = INFINITY, hi_x = -INFINITY, lo_y = INFINITY, hi_y = -INFINITY;
@@ -189,7 +203,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < 3; ++c) {
       const float top = v[0][c] * (1.f - wx) + v[1][c] * wx;
       const float bot = v[2][c] * (1.f - wx) + v[3][c] * wx;
-      const float val = top * (1.f - wy) + bot * wy;
+      float val = top * (1.f - wy) + bot * wy;
+      if (kNoise) val = fminf(fmaxf(val * noise[c], 0.f), 1.f);
       res[i][c] = (val - norm.mean[c]) / norm.std[c];
     }
   }
@@ -224,8 +239,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename In, typename Out>
-void launch(const void* images, const void* affines, void* out, int B, int H,
-            int W, int S, Norm norm, cudaStream_t stream) {
+void launch(const void* images, const void* affines, const void* factors,
+            void* out, int B, int H, int W, int S, Norm norm,
+            cudaStream_t stream) {
   const int tiles = (S + kTile - 1) / kTile;
   const dim3 grid(tiles, tiles, B);
   // Footprints are staged in 16-byte chunks where the tensor, each image
@@ -236,9 +252,37 @@ void launch(const void* images, const void* affines, void* out, int B, int H,
   // 16-byte aligned (a tile row starts 32 pixels apart).
   const int vector_out = (uintptr_t)out % 16 == 0 &&
                          (size_t)S * 3 * sizeof(Out) % 16 == 0;
-  ingest_kernel<In, Out><<<grid, kThreads, 0, stream>>>(
-      (const In*)images, (const float*)affines, (Out*)out, H, W, S, norm,
-      aligned, vector_out);
+  if (factors) {
+    ingest_kernel<In, Out, true><<<grid, kThreads, 0, stream>>>(
+        (const In*)images, (const float*)affines, (const float*)factors,
+        (Out*)out, H, W, S, norm, aligned, vector_out);
+  } else {
+    ingest_kernel<In, Out, false><<<grid, kThreads, 0, stream>>>(
+        (const In*)images, (const float*)affines, nullptr, (Out*)out, H, W,
+        S, norm, aligned, vector_out);
+  }
+}
+
+int ingest(const void* images, const void* affines, const void* factors,
+           void* out, int B, int H, int W, int out_h, int out_w, int in_kind,
+           int out_kind, Norm norm, void* stream) {
+  if (out_h != out_w) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int S = out_h;
+  if (in_kind == 0 && out_kind == 0) {
+    launch<uint8_t, float>(images, affines, factors, out, B, H, W, S, norm, s);
+  } else if (in_kind == 0 && out_kind == 1) {
+    launch<uint8_t, __nv_bfloat16>(images, affines, factors, out, B, H, W, S,
+                                   norm, s);
+  } else if (in_kind == 1 && out_kind == 0) {
+    launch<float, float>(images, affines, factors, out, B, H, W, S, norm, s);
+  } else if (in_kind == 1 && out_kind == 1) {
+    launch<float, __nv_bfloat16>(images, affines, factors, out, B, H, W, S,
+                                 norm, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -253,20 +297,21 @@ extern "C" int ingest_forward(const void* images, const void* affines,
                               float mean0, float mean1, float mean2,
                               float std0, float std1, float std2,
                               void* stream) {
-  if (out_h != out_w) return (int)cudaErrorInvalidValue;
   const Norm norm = {{mean0, mean1, mean2}, {std0, std1, std2}};
-  cudaStream_t s = (cudaStream_t)stream;
-  const int S = out_h;
-  if (in_kind == 0 && out_kind == 0) {
-    launch<uint8_t, float>(images, affines, out, B, H, W, S, norm, s);
-  } else if (in_kind == 0 && out_kind == 1) {
-    launch<uint8_t, __nv_bfloat16>(images, affines, out, B, H, W, S, norm, s);
-  } else if (in_kind == 1 && out_kind == 0) {
-    launch<float, float>(images, affines, out, B, H, W, S, norm, s);
-  } else if (in_kind == 1 && out_kind == 1) {
-    launch<float, __nv_bfloat16>(images, affines, out, B, H, W, S, norm, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return ingest(images, affines, nullptr, out, B, H, W, out_h, out_w,
+                in_kind, out_kind, norm, stream);
+}
+
+// As ingest_forward, with factors (B, 3) f32: the channel noise of each
+// crop, applied to the sample and clipped to [0, 1] before normalising.
+extern "C" int ingest_noise_forward(const void* images, const void* affines,
+                                    const void* factors, void* out, int B,
+                                    int H, int W, int out_h, int out_w,
+                                    int in_kind, int out_kind, float mean0,
+                                    float mean1, float mean2, float std0,
+                                    float std1, float std2, void* stream) {
+  if (!factors) return (int)cudaErrorInvalidValue;
+  const Norm norm = {{mean0, mean1, mean2}, {std0, std1, std2}};
+  return ingest(images, affines, factors, out, B, H, W, out_h, out_w,
+                in_kind, out_kind, norm, stream);
 }

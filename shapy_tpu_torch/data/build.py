@@ -9,22 +9,26 @@ loader is a thread-pool prefetcher.
 
 Differences from the JAX package:
 
-* The registry holds the ported datasets (``openpose``, ``hbw``,
-  ``threedpw``, ``ssp3d``); the JAX package's other names raise "not
-  ported yet". ``build_dataset`` tells the parametric-fit datasets by
-  name.
 * In full-image mode (``return_full_imgs``: the samples carry ``image``
   and ``crop_to_image`` and no ``cropped_image``), the collate stacks the
   full images zero-padded at the bottom and right to the batch's largest
   height and width as ``full_images`` (B, H, W, 3), with
-  ``crop_to_image_affines`` (B, 3, 3), for the device to crop (kernel
-  K2). Padding at the bottom and right moves no crop->image coordinate,
-  and the crop reads zeros outside an image, so the padded batch crops as
-  each image alone. Such samples give no ``images`` stack.
+  ``crop_to_image_affines`` (B, 3, 3) and, where the transforms drew
+  channel noise, its factors ``channel_noise`` (B, 3) (ones for a sample
+  without), for the device to crop (kernel K2). Padding at the bottom and
+  right moves no crop->image coordinate, and the crop reads zeros outside
+  an image, so the padded batch crops as each image alone. Such samples
+  give no ``images`` stack.
+* ``build_all_data_loaders`` takes ``image_dtype``, which the datasets
+  that read images through ``read_img`` with a choice of dtype
+  (``openpose``, ``openpose_tracks``, ``model_agencies``, the parametric
+  fits) are given: uint8 full images are a quarter of the f32 bytes.
 """
 
 from __future__ import annotations
 
+import inspect
+import itertools
 import queue
 from typing import Any, Callable, Dict, Optional, Sequence
 
@@ -34,6 +38,7 @@ from shapy_tpu_torch.data.keypoints import (
     KEYPOINT_NAMES_DICT,
     mapping_between,
 )
+from shapy_tpu_torch.data.rng import draw_key
 from shapy_tpu_torch.data.samplers import (
     EqualSampler,
     ShapeSampler,
@@ -52,16 +57,19 @@ def register_dataset(name: str):
     return deco
 
 
-# The JAX package's datasets that the port does not have yet.
-NOT_PORTED = ("model_agencies", "ehf", "curated_fits", "spin", "spinx",
-              "human36mx", "openpose_tracks")
-# The parametric-fit archives: each keeps its own native keypoint order.
-PARAMETRIC_DATASETS = ("ehf", "curated_fits", "spin", "spinx", "human36mx")
-
-
 def _populate_registry() -> None:
     from shapy_tpu_torch.data.datasets.hbw import HBWDataset
+    from shapy_tpu_torch.data.datasets.model_agencies import (
+        ModelAgencyDataset,
+    )
     from shapy_tpu_torch.data.datasets.openpose import OpenPoseDataset
+    from shapy_tpu_torch.data.datasets.openpose_tracks import (
+        OpenPoseTracksDataset,
+    )
+    from shapy_tpu_torch.data.datasets.parametric import (
+        EHFDataset,
+        ParametricFitsDataset,
+    )
     from shapy_tpu_torch.data.datasets.ssp3d import SSP3DDataset
     from shapy_tpu_torch.data.datasets.threedpw import ThreeDPWDataset
 
@@ -70,7 +78,14 @@ def _populate_registry() -> None:
             "openpose": OpenPoseDataset,
             "hbw": HBWDataset,
             "ssp3d": SSP3DDataset,
+            "model_agencies": ModelAgencyDataset,
             "threedpw": ThreeDPWDataset,
+            "ehf": EHFDataset,
+            "curated_fits": ParametricFitsDataset,
+            "spin": ParametricFitsDataset,
+            "spinx": ParametricFitsDataset,
+            "human36mx": ParametricFitsDataset,
+            "openpose_tracks": OpenPoseTracksDataset,
         }
     )
 
@@ -134,6 +149,10 @@ def collate_batch(
         out["full_images"] = pad_images([s["image"] for s in samples])
         out["crop_to_image_affines"] = np.stack(
             [np.asarray(s["crop_to_image"], np.float32) for s in samples])
+        if any("channel_noise" in s for s in samples):
+            out["channel_noise"] = np.stack(
+                [np.asarray(s.get("channel_noise", np.ones(3)), np.float32)
+                 for s in samples])
     else:
         raise ValueError("collate_batch: every sample needs a "
                          "'cropped_image', or an 'image' and its "
@@ -305,7 +324,13 @@ def collate_batch(
 
 
 class DataLoader:
-    """Thread-pool prefetching loader over (dataset(s), batch sampler)."""
+    """Thread-pool prefetching loader over (dataset(s), batch sampler).
+
+    Each fetch draws its augmentations under the key (epoch, batch,
+    slot) (``rng.draw_key``): the epochs this loader has begun, the
+    batch's place in its epoch and the sample's in its batch. The draws
+    therefore do not depend on the order in which the worker threads
+    run, and a new loader replays an old one's."""
 
     def __init__(
         self,
@@ -321,10 +346,12 @@ class DataLoader:
         self.collate_fn = collate_fn
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
+        self.epochs = 0
 
-    def _fetch(self, global_idx: int):
+    def _fetch(self, global_idx: int, key=()):
         ds = int(np.searchsorted(self.offsets, global_idx, "right") - 1)
-        return self.datasets[ds][int(global_idx - self.offsets[ds])]
+        with draw_key(*key):
+            return self.datasets[ds][int(global_idx - self.offsets[ds])]
 
     def __len__(self) -> int:
         return len(self.batch_sampler)
@@ -332,16 +359,25 @@ class DataLoader:
     def __iter__(self):
         return self.iter_batches()
 
+    def burn_epoch(self) -> None:
+        """Advance past one epoch without fetching: the sampler draws its
+        order (a shuffle advances its generator) and the epoch count
+        moves, as a fetched epoch would leave them."""
+        for _ in iter(self.batch_sampler):
+            pass
+        self.epochs += 1
+
     def iter_batches(self, skip: int = 0):
         """One epoch of batches, optionally skipping the first ``skip``
         index-batches WITHOUT fetching their data. Together with burning
-        whole epochs at the sampler level this gives resume-stable
-        training streams: the sampler's stateful shuffle rng advances
-        exactly as in an uninterrupted run, so batch ``n`` after a
-        restart is bit-identical to batch ``n`` of a fresh run
-        (Trainer.fit positions the stream at the resumed step)."""
+        whole epochs (:meth:`burn_epoch`) this gives resume-stable
+        training streams: the sampler's stateful shuffle rng and the
+        draws' keys advance exactly as in an uninterrupted run, so batch
+        ``n`` after a restart is bit-identical to batch ``n`` of a fresh
+        run (Trainer.fit positions the stream at the resumed step)."""
         from concurrent.futures import ThreadPoolExecutor
 
+        epoch, self.epochs = self.epochs, self.epochs + 1
         with ThreadPoolExecutor(self.num_workers) as pool:
             pending: "queue.Queue" = queue.Queue()
             sampler_iter = iter(self.batch_sampler)
@@ -350,13 +386,16 @@ class DataLoader:
                     next(sampler_iter)
                 except StopIteration:
                     break
+            batch_no = itertools.count(skip)
 
             def submit_next():
                 try:
                     idxs = next(sampler_iter)
                 except StopIteration:
                     return False
-                futures = [pool.submit(self._fetch, i) for i in idxs]
+                b = next(batch_no)
+                futures = [pool.submit(self._fetch, i, (epoch, b, slot))
+                           for slot, i in enumerate(idxs)]
                 pending.put(futures)
                 return True
 
@@ -418,19 +457,25 @@ class ShuffledBatchSampler:
             yield idxs
 
 
-def build_dataset(name: str, dataset_cfg: Dict, split: str, transforms):
+def build_dataset(name: str, dataset_cfg: Dict, split: str, transforms,
+                  image_dtype: Optional[str] = None):
+    """The registry's dataset ``name`` from its config section;
+    ``image_dtype`` goes to the datasets that take it."""
     if not DATASET_REGISTRY:
         _populate_registry()
     if name not in DATASET_REGISTRY:
-        if name in NOT_PORTED:
-            raise NotImplementedError(f"dataset {name!r} is not ported yet")
         raise KeyError(f"Unknown dataset: {name}")
     sub_cfg = dict(dataset_cfg.get(name) or {})
     cls = DATASET_REGISTRY[name]
-    if name in PARAMETRIC_DATASETS:
+    from shapy_tpu_torch.data.datasets.parametric import ParametricFitsDataset
+
+    if isinstance(cls, type) and issubclass(cls, ParametricFitsDataset):
         # Parametric fit archives each use their own native keypoint
         # ordering (ehf/spin/spinx/h36m registry formats).
         sub_cfg.setdefault("dataset_name", name)
+    if image_dtype is not None and "image_dtype" in inspect.signature(
+            cls.__init__).parameters:
+        sub_cfg["image_dtype"] = image_dtype
     return cls(split=split, transforms=transforms, **sub_cfg)
 
 
@@ -440,9 +485,11 @@ def build_all_data_loaders(
     target_keypoint_names: Optional[Sequence[str]] = None,
     return_full_imgs: bool = False,
     enable_augment: bool = True,
+    image_dtype: Optional[str] = None,
 ) -> Dict[str, DataLoader]:
     """Pose + shape loaders with the batch split by pose_shape_ratio
-    (reference data/build.py:306-398)."""
+    (reference data/build.py:306-398); ``image_dtype`` as in
+    :func:`build_dataset`."""
     ds_cfg = dict(exp_cfg.get("datasets") or {})
     batch_size = int(ds_cfg.get("batch_size", 32))
     ratio = float(ds_cfg.get("pose_shape_ratio", 0.5))
@@ -475,7 +522,8 @@ def build_all_data_loaders(
             return_full_imgs=return_full_imgs,
         )
         datasets = [
-            build_dataset(n, part_cfg, split, transforms) for n in names
+            build_dataset(n, part_cfg, split, transforms, image_dtype)
+            for n in names
         ]
         datasets = [d for d in datasets if len(d) > 0]
         if not datasets:

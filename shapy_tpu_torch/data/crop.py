@@ -17,7 +17,7 @@ path, which crops on the device, never calls it.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,7 +33,8 @@ IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
 REF_BBOX_SIZE = 200.0
 
 INGEST_KERNEL = CudaKernel("ingest.cu",
-                           {"ingest_forward": "ppp iiiiiii ffffff p"})
+                           {"ingest_forward": "ppp iiiiiii ffffff p",
+                            "ingest_noise_forward": "pppp iiiiiii ffffff p"})
 _IN_KINDS = {torch.uint8: 0, torch.float32: 1}
 _OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1}
 # K2's tiles (csrc/ingest.cu): a block a tile of INGEST_TILE^2 output
@@ -133,14 +134,19 @@ def bilinear_crop(images: torch.Tensor, affines: torch.Tensor,
 
 
 def crop_normalize_plain(images, affines, crop_size=256, mean=IMAGENET_MEAN,
-                         std=IMAGENET_STD, out_dtype=torch.float32):
-    """Plain version of K2: uint8 -> [0, 1], bilinear crop, ``(x - mean) /
-    std``, cast to ``out_dtype``. Pixels outside the image are 0 before
-    normalisation, so they come out as ``-mean / std``."""
+                         std=IMAGENET_STD, out_dtype=torch.float32,
+                         factors=None):
+    """Plain version of K2: uint8 -> [0, 1], bilinear crop, with
+    ``factors`` (B, 3) the channel noise ``clip(x * f, 0, 1)``, then
+    ``(x - mean) / std``, cast to ``out_dtype``. Pixels outside the image
+    are 0 before normalisation, so they come out as ``-mean / std``."""
     if not torch.is_floating_point(images):
         images = images.to(torch.float32) * (1.0 / 255.0)
     dev = images.device
     crops = bilinear_crop(images, affines, (crop_size, crop_size))
+    if factors is not None:
+        crops = torch.clamp(crops * factors.to(crops.dtype)[:, None, None],
+                            0.0, 1.0)
     mean_t = torch.tensor(mean, dtype=crops.dtype, device=dev)
     std_t = torch.tensor(std, dtype=crops.dtype, device=dev)
     return ((crops - mean_t) / std_t).to(out_dtype)
@@ -198,19 +204,22 @@ def ingest_plan(affines: torch.Tensor, H: int, W: int, crop_size: int,
 
 def crop_normalize(images: torch.Tensor, affines: torch.Tensor,
                    crop_size: int = 256, mean=IMAGENET_MEAN,
-                   std=IMAGENET_STD, out_dtype: torch.dtype = torch.float32
-                   ) -> torch.Tensor:
+                   std=IMAGENET_STD, out_dtype: torch.dtype = torch.float32,
+                   factors: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Crop + normalise full images for the backbone.
 
     images (B, H, W, 3) uint8 (or f32 in [0, 1]); affines (B, 3, 3) f32
     crop->image -> (B, crop_size, crop_size, 3) NHWC in ``out_dtype``.
-    The plain version for CPU tensors, kernel K2 for CUDA tensors
-    (forward only; bit-equal to the plain version, its tiles as
-    :func:`ingest_plan` has them). ``out.permute(0, 3, 1, 2)`` is a
-    channels_last NCHW view, no copy."""
+    ``factors`` (B, 3) f32, the training's channel noise, multiplies each
+    crop's channels and clips them to [0, 1] before the normalisation
+    (the JAX package's ``ChannelNoise`` between its ``Crop`` and
+    ``Normalize``). The plain version for CPU tensors, kernel K2 for CUDA
+    tensors (forward only; bit-equal to the plain version, its tiles as
+    :func:`ingest_plan` has them; ``ingest_noise_forward`` with factors).
+    ``out.permute(0, 3, 1, 2)`` is a channels_last NCHW view, no copy."""
     if images.device.type == "cpu":
         return crop_normalize_plain(images, affines, crop_size, mean, std,
-                                    out_dtype)
+                                    out_dtype, factors)
     if images.device.type != "cuda":
         raise ValueError(f"crop_normalize: unsupported device {images.device}")
     if images.dtype not in _IN_KINDS:
@@ -223,12 +232,19 @@ def crop_normalize(images: torch.Tensor, affines: torch.Tensor,
     check_cuda_input(affines, "affines", torch.float32, (B, 3, 3), dev)
     check_no_grad(images, "images")
     check_no_grad(affines, "affines")
+    if factors is not None:
+        check_cuda_input(factors, "factors", torch.float32, (B, 3), dev)
+        check_no_grad(factors, "factors")
     out = torch.empty((B, crop_size, crop_size, 3), dtype=out_dtype,
                       device=dev)
     if B == 0:
         return out
-    INGEST_KERNEL.launch("ingest_forward", [
-        images, affines, out, B, H, W, crop_size, crop_size,
-        _IN_KINDS[images.dtype], _OUT_KINDS[out_dtype],
-        *(float(m) for m in mean), *(float(s) for s in std)])
+    args = [images, affines, out, B, H, W, crop_size, crop_size,
+            _IN_KINDS[images.dtype], _OUT_KINDS[out_dtype],
+            *(float(m) for m in mean), *(float(s) for s in std)]
+    if factors is None:
+        INGEST_KERNEL.launch("ingest_forward", args)
+    else:
+        INGEST_KERNEL.launch("ingest_noise_forward", [*args[:2], factors,
+                                                      *args[2:]])
     return out

@@ -11,18 +11,23 @@ Samples are plain dicts of fixed-size numpy arrays:
 
 Augmentations move center / scale / rotation, and the terminal ``Crop``
 applies one affine warp. ``cv2`` is imported only by the transforms that
-need it, when they act: ``Resize``, ``MotionBlur``, ``SimulateLowRes``,
-``Crop``'s host warp and its rotation of the axis-angle GT pose.
+need it, when they act: ``Resize``, ``MotionBlur``, ``SimulateLowRes``
+and ``Crop``'s host warp; where it is missing they raise an
+``ImportError`` that names the transform. ``Crop`` rotates the
+axis-angle GT pose with :func:`rodrigues`, a numpy copy of
+``cv2.Rodrigues``.
 
 One deliberate difference from the JAX package: with
 ``return_full_imgs`` the port's ``Crop`` does not warp on the host. It
 keeps the full image and ``crop_to_image``, and the device crops them
 (kernel K2, as ``apply_from_full_images`` does), so the sample has no
-``cropped_image``. The transforms that act on ``cropped_image``
-(``ChannelNoise``, ``SimulateLowRes``, ``Normalize``) then draw their
-random numbers as the JAX package's do and leave the sample as it is.
-The JAX ``Crop`` warps with ``cv2`` (its fixed-point 1/32-pixel
-coordinates) in either case; the machine with the card has no ``cv2``.
+``cropped_image``. The transforms that act on ``cropped_image`` then
+leave it to the device too: ``ChannelNoise`` keeps its drawn (3,) factors
+as ``channel_noise``, which K2 applies between the crop and the
+normalisation, and ``Normalize`` is K2's own; ``SimulateLowRes``, which
+has no device version, raises if it would act. The JAX ``Crop`` warps
+with ``cv2`` (its fixed-point 1/32-pixel coordinates) in either case; the
+machine with the card has no ``cv2``.
 """
 
 from __future__ import annotations
@@ -38,6 +43,52 @@ from shapy_tpu_torch.data.crop import IMAGENET_MEAN, IMAGENET_STD
 from shapy_tpu_torch.data.keypoints import flip_permutation, flip_pose_aa
 
 Sample = Dict[str, object]
+
+
+def _cv2(what: str):
+    """``cv2``, or an ``ImportError`` that says which transform needs it."""
+    try:
+        import cv2
+    except ImportError as exc:
+        raise ImportError(
+            f"{what} needs cv2, which is not installed; the training "
+            "config's augmentations (flip, rotation, scale, channel noise) "
+            "run without it on full images (return_full_imgs)") from exc
+    return cv2
+
+
+def rodrigues(x: np.ndarray) -> np.ndarray:
+    """``cv2.Rodrigues`` in numpy, f64: an axis-angle vector (3,) -> its
+    rotation matrix (3, 3), or a rotation matrix -> its axis-angle vector
+    (the matrix first made orthogonal by its SVD, U V^T), with OpenCV's
+    branches for angles near 0 and pi."""
+    x = np.asarray(x, np.float64)
+    if x.shape == (3, 3):
+        U, _, Vt = np.linalg.svd(x)
+        R = U @ Vt
+        r = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0],
+                      R[1, 0] - R[0, 1]])
+        s = np.sqrt((r @ r) * 0.25)
+        c = min(max((R[0, 0] + R[1, 1] + R[2, 2] - 1) * 0.5, -1.0), 1.0)
+        theta = np.arccos(c)
+        if s >= 1e-5:
+            return r * (1 / (2 * s) * theta)
+        if c > 0:
+            return np.zeros(3)
+        r = np.sqrt(np.maximum((np.diag(R) + 1) * 0.5, 0.0))
+        r[1] *= -1.0 if R[0, 1] < 0 else 1.0
+        r[2] *= -1.0 if R[0, 2] < 0 else 1.0
+        if (abs(r[0]) < abs(r[1]) and abs(r[0]) < abs(r[2])
+                and (R[1, 2] > 0) != (r[1] * r[2] > 0)):
+            r[2] = -r[2]
+        return r * (theta / np.linalg.norm(r))
+    theta = np.linalg.norm(x)
+    if theta < np.finfo(np.float64).eps:
+        return np.eye(3)
+    c, s = np.cos(theta), np.sin(theta)
+    r = x * (1.0 / theta)
+    r_x = np.array([[0, -r[2], r[1]], [r[2], 0, -r[0]], [-r[1], r[0], 0]])
+    return c * np.eye(3) + (1.0 - c) * np.outer(r, r) + s * r_x
 
 
 class Compose:
@@ -64,7 +115,7 @@ class Resize:
         longer = max(H, W)
         if longer <= self.max_size:
             return sample
-        import cv2
+        cv2 = _cv2("Resize (max_size)")
 
         ratio = self.max_size / longer
         sample["image"] = cv2.resize(
@@ -248,7 +299,7 @@ class MotionBlur:
     def __call__(self, sample: Sample, rng) -> Sample:
         if self.prob <= 0 or rng.uniform() > self.prob:
             return sample
-        import cv2
+        cv2 = _cv2("MotionBlur (motion_blur_prob)")
 
         k = int(rng.integers(self.kmin, self.kmax + 1)) | 1
         kernel = np.zeros((k, k), np.float32)
@@ -383,8 +434,6 @@ class Crop:
             # to the global-orient row of the axis-angle pose via
             # Rodrigues (global_rot.py:54-67). The canonical-shape
             # fields (v_shaped) are pose-independent and stay put.
-            import cv2
-
             c, s = (np.cos(np.deg2rad(-rot)), np.sin(np.deg2rad(-rot)))
             R = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
             j3d = sample.get("joints3d")
@@ -401,8 +450,8 @@ class Crop:
                 pose = np.asarray(pose, np.float32)
                 shape = pose.shape
                 aa = pose.reshape(-1, 3).copy()
-                per_rdg, _ = cv2.Rodrigues(aa[0].astype(np.float64))
-                resrot, _ = cv2.Rodrigues(R.astype(np.float64) @ per_rdg)
+                per_rdg = rodrigues(aa[0])
+                resrot = rodrigues(R.astype(np.float64) @ per_rdg)
                 aa[0] = resrot.reshape(3).astype(np.float32)
                 sample["gt_pose_aa"] = aa.reshape(shape)
         sample["center"] = center
@@ -428,6 +477,7 @@ class ChannelNoise:
         # Per-channel multiplicative jitter (transforms.py ChannelNoise).
         pn = rng.uniform(1 - self.noise_scale, 1 + self.noise_scale, size=3)
         if _device_crop(sample):
+            sample["channel_noise"] = pn.astype(np.float32)
             return sample
         key = "cropped_image" if "cropped_image" in sample else "image"
         sample[key] = np.clip(sample[key] * pn[None, None], 0.0, 1.0).astype(
@@ -452,9 +502,14 @@ class SimulateLowRes:
             ]
         else:
             factor = rng.uniform(self.factor_min, self.factor_max)
-        if factor <= 1.0 or _device_crop(sample):
+        if factor <= 1.0:
             return sample
-        import cv2
+        if _device_crop(sample):
+            raise ValueError(
+                "SimulateLowRes (downsample factors above 1) acts on the "
+                "host's crop, and this sample is cropped on the device "
+                "(return_full_imgs): it has no device version")
+        cv2 = _cv2("SimulateLowRes (downsample factors)")
 
         key = "cropped_image" if "cropped_image" in sample else "image"
         img = sample[key]

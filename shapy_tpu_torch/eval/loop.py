@@ -81,12 +81,13 @@ def adapt_eval_batches(loader, device: str | torch.device = "cuda"):
 def make_eval_fn(regressor, val_loaders: Dict,
                  exp_cfg: Optional[Dict] = None,
                  results_sink: Optional[Dict] = None, keypoint_names=None,
-                 **evaluator_kwargs) -> Callable:
+                 crop_size: int = 256, **evaluator_kwargs) -> Callable:
     """Returns ``eval_fn(step=0) -> {dataset: {metric: value}}``, which
     evaluates ``regressor`` with its weights at call time on the device
-    its parameters lie on. Batches with ``crop_to_image_affines`` go
-    through ``apply_from_full_images`` (256x256 crops), others through
-    ``apply(images)``. ``results_sink[step]`` (if given) records
+    its parameters lie on (in eval mode, then back in the mode it was
+    in: the trainer's eval hook). Batches with ``crop_to_image_affines``
+    go through ``apply_from_full_images`` (``crop_size`` crops), others
+    through ``apply(images)``. ``results_sink[step]`` (if given) records
     the history; ``evaluator_kwargs`` go to :func:`build_evaluator`."""
     device = regressor.param_mean.device
     evaluator = build_evaluator(exp_cfg or {}, keypoint_names=keypoint_names,
@@ -96,7 +97,8 @@ def make_eval_fn(regressor, val_loaders: Dict,
     def model_fn(images, model_batch):
         affines = (model_batch or {}).get("crop_to_image_affines")
         if affines is not None:
-            return regressor.apply_from_full_images(images, affines)
+            return regressor.apply_from_full_images(images, affines,
+                                                    crop_size)
         return regressor.apply(images)
 
     def eval_fn(step: int = 0, **run_kwargs) -> Dict[str, Dict[str, float]]:

@@ -5,7 +5,9 @@ The JAX regressor's params are a pytree ``{'backbone': {name: array},
 already torch ``state_dict`` names. Converting is flattening the pytree
 with ``.`` and transposing conv kernels HWIO -> OIHW; the MLP and
 ``param_mean`` load as they are. The body model's params (``v_template``,
-``shapedirs``, ``posedirs`` ... all of them) load by name.
+``shapedirs``, ``posedirs`` ... all of them) and the discriminators'
+(dense weights in the JAX layout, the spectral-norm ``u`` buffers among
+them) load by name.
 
 Load before :meth:`BodyRegressor.prepare_for_eval_`, which folds BN and
 so changes the backbone's keys, or before
@@ -76,3 +78,12 @@ def load_body_model_from_jax(model: nn.Module, params: Mapping) -> nn.Module:
     the same options. Every param loads; one the port lacks, or a port
     buffer the params lack, raises ``KeyError``."""
     return load_from_jax(model, params)
+
+
+def load_discriminator_from_jax(disc: nn.Module, params: Mapping
+                                ) -> nn.Module:
+    """A JAX discriminator's ``params`` (``HMRDiscriminator``'s layers with
+    their spectral-norm ``u`` vectors, or ``PoseDiscriminator``'s MLPs) ->
+    the port's discriminator of the same type and sizes. Every param and
+    every ``u`` loads; one missing or extra raises ``KeyError``."""
+    return load_from_jax(disc, params)

@@ -1,5 +1,5 @@
-"""Loss functions (port of ``shapy_tpu/losses/losses.py``): the ones the
-regressor's training losses use.
+"""Loss functions (port of ``shapy_tpu/losses/losses.py``) and their
+factory, :func:`build_loss`.
 
 Normalisation matches the JAX package, which matches the reference:
 ``keypoint_loss`` divides by the batch size by default (never by the sum
@@ -10,9 +10,11 @@ batch size, and the rotation loss is the geodesic angle
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def gmof(x: torch.Tensor, rho: float = 100.0) -> torch.Tensor:
@@ -81,3 +83,104 @@ def rotation_loss(pred: torch.Tensor, gt: torch.Tensor,
         per = per.reshape(B, -1) * weights.reshape(B, -1)
         return per.sum() / ((weights > 0).sum() + epsilon)
     return per.sum() / B
+
+
+def _edge_index(edges, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(edges), dtype=torch.long,
+                           device=device)
+
+
+def keypoint_edge_loss(pred: torch.Tensor, gt: torch.Tensor, connections,
+                       conf: Optional[torch.Tensor] = None,
+                       norm_type: str = "l1") -> torch.Tensor:
+    """Bone-vector loss over the skeleton edges ``connections`` (E, 2):
+    edge vectors instead of positions, each edge weighted by the product
+    of its two keypoints' confidences."""
+    conn = _edge_index(connections, pred.device)
+    pe = pred[:, conn[:, 1]] - pred[:, conn[:, 0]]
+    ge = gt[:, conn[:, 1]] - gt[:, conn[:, 0]]
+    edge_conf = None
+    if conf is not None:
+        edge_conf = conf[:, conn[:, 0]] * conf[:, conn[:, 1]]
+    return keypoint_loss(pe, ge, edge_conf, norm_type)
+
+
+def vertex_edge_loss(pred_verts: torch.Tensor, gt_verts: torch.Tensor,
+                     edges, norm_type: str = "l2") -> torch.Tensor:
+    """Mesh edge-vector loss: squared L2 (or L1) of the edge-vector
+    differences, summed per item, then the batch mean."""
+    e = _edge_index(edges, pred_verts.device)
+    pe = pred_verts[:, e[:, 1]] - pred_verts[:, e[:, 0]]
+    ge = gt_verts[:, e[:, 1]] - gt_verts[:, e[:, 0]]
+    diff = pe - ge
+    per_elem = diff * diff if norm_type == "l2" else diff.abs()
+    return per_elem.reshape(pred_verts.shape[0], -1).sum(-1).mean()
+
+
+def bce_loss(pred_logits: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """Binary cross-entropy on logits (log-sigmoid, stable)."""
+    logp = F.logsigmoid(pred_logits)
+    lognp = F.logsigmoid(-pred_logits)
+    return -(gt * logp + (1 - gt) * lognp).mean()
+
+
+def mse_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    return ((pred - gt) ** 2).mean()
+
+
+def l1_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    return (pred - gt).abs().mean()
+
+
+def bce_logits_loss(pred_logits: torch.Tensor, gt: torch.Tensor
+                    ) -> torch.Tensor:
+    """The 'bce-logits' factory entry: the same expression as
+    :func:`bce_loss`."""
+    return bce_loss(pred_logits, gt)
+
+
+def cross_entropy_loss(pred_logits: torch.Tensor, gt: torch.Tensor,
+                       ignore_index: int = -100) -> torch.Tensor:
+    """Cross-entropy over class logits (B, C) with int labels (B,); rows
+    labelled ``ignore_index`` drop out of the mean."""
+    logp = F.log_softmax(pred_logits, dim=-1)
+    valid = gt != ignore_index
+    safe = torch.where(valid, gt, torch.zeros_like(gt)).long()
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    denom = torch.clamp(valid.sum(), min=1)
+    return torch.where(valid, nll, torch.zeros_like(nll)).sum() / denom
+
+
+LOSS_FACTORY: Dict[str, Callable] = {
+    "keypoints": keypoint_loss,
+    "gmof": lambda p, g, c=None, rho=100.0: keypoint_loss(
+        p, g, c, "gmof", rho),
+    "l2": l2_loss,
+    "weighted-l1": weighted_l1_loss,
+    "keypoint-edge": keypoint_edge_loss,
+    "vertex-edge": vertex_edge_loss,
+    "rotation": rotation_loss,
+    "bce": bce_loss,
+    "bce-logits": bce_logits_loss,
+    "cross-entropy": cross_entropy_loss,
+    "l1": l1_loss,
+    "mse": mse_loss,
+}
+
+
+def build_loss(loss_type: str = "l2", **kwargs) -> Callable:
+    """The loss named ``loss_type``, its config keys (``norm_type``,
+    ``rho`` ...) bound; keys the loss does not take (``weight``,
+    ``type`` ...) are dropped."""
+    if loss_type not in LOSS_FACTORY:
+        raise ValueError(f"Unknown loss type: {loss_type}")
+    fn = LOSS_FACTORY[loss_type]
+    if not kwargs:
+        return fn
+
+    def bound(*args, **kw):
+        merged = {**kwargs, **kw}
+        return fn(*args, **{k: v for k, v in merged.items()
+                            if k in fn.__code__.co_varnames})
+
+    return bound

@@ -1,10 +1,11 @@
 """MLP head (port of ``shapy_tpu/models/heads/mlp.py``).
 
 Blocks of Linear named ``layer_{idx:03d}`` (the Linear at position 0),
-then ``output_layer``: the JAX param names. No activation and no
-normalisation, as the SHAPY config. In training, dropout follows every
-hidden Linear (``shapy_tpu/models/heads/mlp.py:70-74``), its masks drawn
-from an explicit ``torch.Generator``.
+then ``output_layer``: the JAX param names. No normalisation; no
+activation, as the SHAPY config, or a ReLU after every hidden Linear (the
+discriminators' MLPs). In training, dropout follows every hidden Linear
+(``shapy_tpu/models/heads/mlp.py:70-74``), its masks drawn from an
+explicit ``torch.Generator``.
 Initialisation follows the JAX package's distributions, drawn from a
 ``torch.Generator``: uniform(+-1/sqrt(fan_in)) hidden layers and a
 xavier-uniform(gain) output layer with zero bias.
@@ -23,8 +24,11 @@ class MLP(nn.Module):
     def __init__(self, input_dim: int, output_dim: int,
                  layers: Sequence[int] = (1024, 1024), gain: float = 0.01,
                  generator: Optional[torch.Generator] = None,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, activation: Optional[str] = None):
         super().__init__()
+        if activation not in (None, "relu"):
+            raise ValueError(f"MLP activation not ported: {activation}")
+        self.activation = activation
         self.num_layers = len(layers)
         self.dropout = float(dropout)
         d = input_dim
@@ -52,6 +56,8 @@ class MLP(nn.Module):
         keep = 1.0 - self.dropout
         for i in range(self.num_layers):
             x = getattr(self, f"layer_{i:03d}")(x)
+            if self.activation == "relu":
+                x = torch.relu(x)
             if drop:
                 u = torch.rand(x.shape, generator=generator, device=x.device,
                                dtype=x.dtype)

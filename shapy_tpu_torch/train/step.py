@@ -10,7 +10,8 @@ own (lr x ``bias_lr_factor``, ``weight_decay_bias``), and the multi-step,
 step and exponential schedules as a ``LambdaLR`` that the step advances
 after each update, so update k uses the rate optax gives count k.
 
-The train step differentiates the losses of a train-mode forward. BN
+The train step differentiates the losses of a train-mode forward; the
+adversarial step then updates the discriminator too. BN
 running stats are buffers, updated only by the forward's EMA (kernel K4
 on the card); ``param_mean`` stays a buffer unless ``learn_mean`` is set.
 The JAX package keeps ``param_mean`` among its params with a zeroed
@@ -175,3 +176,78 @@ def make_train_step(regressor: nn.Module, losses: Callable,
     """``step(images, batch, generator) -> loss dict``; the regressor
     must be in train mode (``prepare_for_train_``)."""
     return TrainStep(regressor, losses, state)
+
+
+class AdversarialTrainStep(TrainStep):
+    """The regressor's update, then the discriminator's, in one call (the
+    JAX ``make_adversarial_train_step``):
+
+    1. the regressor: its losses plus ``adv_loss.generator_loss`` of the
+       last stage's ``pose_key`` rotations, taken against the
+       discriminator's weights before its update (the discriminator takes
+       no gradient from it);
+    2. the discriminator: ``adv_loss.discriminator_loss`` of those
+       rotations, detached, against ``batch['real_body_pose']``, the
+       WGAN-GP's tau drawn from ``gp_generator``; then every spectral-norm
+       ``u`` moves one power-iteration step at the new weights.
+
+    ``disc_state`` is the discriminator's optimizer, schedule and step.
+    Returns the detached loss dict with ``adv_gen``, ``adv_disc`` and the
+    adversarial loss's scalar extras (``adv_gp`` ...)."""
+
+    def __init__(self, regressor: nn.Module, losses: Callable,
+                 state: TrainState, disc: nn.Module, adv_loss,
+                 disc_state: TrainState, pose_key: str = "body_pose"):
+        super().__init__(regressor, losses, state)
+        self.disc = disc
+        self.adv_loss = adv_loss
+        self.disc_state = disc_state
+        self.pose_key = pose_key
+
+    def forward(self, images, batch, generator=None):
+        out = self.regressor.apply(images, batch=batch, train=True,
+                                   generator=generator)
+        loss_dict = self.losses(out, batch)
+        fake = out[f"stage_{self.regressor.num_stages - 1:02d}"][
+            self.pose_key]
+        self.disc.requires_grad_(False)
+        try:
+            with full_f32_matmul():
+                g_adv = self.adv_loss.generator_loss(fake)
+        finally:
+            self.disc.requires_grad_(True)
+        total = loss_dict["total"] + g_adv
+        self.fake = fake.detach()
+        return dict(loss_dict, adv_gen=g_adv, total=total)
+
+    def __call__(self, images, batch, generator=None, gp_generator=None
+                 ) -> Dict[str, torch.Tensor]:
+        metrics = super().__call__(images, batch, generator)
+        fake, self.fake = self.fake, None
+        opt, sched = self.disc_state.optimizer, self.disc_state.scheduler
+        with full_f32_matmul():
+            d_loss, aux = self.adv_loss.discriminator_loss(
+                fake, batch["real_body_pose"], generator=gp_generator)
+            opt.zero_grad(set_to_none=True)
+            d_loss.backward()
+        opt.step()
+        sched.step()
+        self.disc_state.step += 1
+        with full_f32_matmul():
+            self.disc.refresh_u_()
+        metrics["adv_disc"] = d_loss.detach()
+        for k, v in aux.items():
+            if v.dim() == 0:
+                metrics[f"adv_{k}"] = v.detach()
+        return metrics
+
+
+def make_adversarial_train_step(regressor: nn.Module, losses: Callable,
+                                state: TrainState, disc: nn.Module,
+                                adv_loss, disc_state: TrainState,
+                                pose_key: str = "body_pose"
+                                ) -> AdversarialTrainStep:
+    """``step(images, batch, generator, gp_generator) -> loss dict``; the
+    batch must hold ``real_body_pose``."""
+    return AdversarialTrainStep(regressor, losses, state, disc, adv_loss,
+                                disc_state, pose_key)

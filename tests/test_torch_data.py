@@ -193,8 +193,11 @@ def test_transforms_copy_is_identical(full, train, tmp_path):
     """Every field of the pipeline's output, eval and train (every
     augmentation on, the same seeded draws), with and without
     ``return_full_imgs``; there the port's samples lack only
-    ``cropped_image`` (the device crops), and the full image stays the
-    JAX package's."""
+    ``cropped_image`` (the device crops), in training they carry the
+    channel noise's drawn factors for the device, and the full image
+    stays the JAX package's. With full images a downsample factor above
+    1 has no device version and raises, so those cases draw factor 1
+    only; a draw of 2 must raise."""
     from shapy_tpu.models.body.assets import icosphere
 
     v, _ = icosphere(1)
@@ -202,6 +205,14 @@ def test_transforms_copy_is_identical(full, train, tmp_path):
     tf = transforms.VertexFlipper.from_template(v)
     np.savez(flip, closest_faces=tf.closest_faces, bc=tf.bc)
     cfg = dict(AUGMENT, vertex_flip_correspondences=str(flip))
+    if full and train:
+        with pytest.raises(ValueError, match="SimulateLowRes"):
+            for i in range(8):
+                transforms.build_transforms(
+                    cfg, is_train=True, return_full_imgs=True)(
+                        _sample(np.random.default_rng(100 + i)),
+                        np.random.default_rng(i))
+        cfg["downsample_cat_factors"] = [1.0]
     port = transforms.build_transforms(cfg, is_train=train,
                                        return_full_imgs=full)
     ref = jtransforms.build_transforms(cfg, is_train=train,
@@ -215,6 +226,10 @@ def test_transforms_copy_is_identical(full, train, tmp_path):
             assert "cropped_image" not in got
             want.pop("cropped_image")
             assert got["image"].shape[:2] != (64, 64)
+            if train:
+                noise = got.pop("channel_noise")
+                assert noise.dtype == np.float32 and noise.shape == (3,)
+                assert np.all(np.abs(noise - 1.0) <= 0.4)
         _equal(got, want)
     _equal(transforms.VertexFlipper.from_template(v)(v),
            jtransforms.VertexFlipper.from_template(v)(v))
@@ -329,14 +344,18 @@ def test_read_img_without_cv2_names_the_file(tmp_path, monkeypatch):
 
 
 def test_registry_holds_the_ported_datasets():
+    """Every dataset of the JAX package's registry is ported, under the
+    same name and class name (names that other tests register for
+    synthetic archives aside)."""
     build._populate_registry()
-    assert set(build.DATASET_REGISTRY) == {"openpose", "hbw", "threedpw",
-                                           "ssp3d"}
     jbuild._populate_registry()
-    assert set(build.NOT_PORTED) == (set(jbuild.DATASET_REGISTRY)
-                                     - set(build.DATASET_REGISTRY))
-    for name in build.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            build.build_dataset(name, {}, "train", None)
+    names = {"openpose", "hbw", "threedpw", "ssp3d", "model_agencies",
+             "ehf", "curated_fits", "spin", "spinx", "human36mx",
+             "openpose_tracks"}
+    assert names <= set(jbuild.DATASET_REGISTRY)
+    assert names <= set(build.DATASET_REGISTRY)
+    for name in names:
+        assert (build.DATASET_REGISTRY[name].__name__
+                == jbuild.DATASET_REGISTRY[name].__name__), name
     with pytest.raises(KeyError, match="Unknown dataset"):
         build.build_dataset("nope", {}, "train", None)

@@ -240,6 +240,38 @@ def test_ingest_kernel_bit_equal_in_both_regimes(dev, case, in_dtype,
                                       out_dtype=out_dtype), got[1:])
 
 
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("in_dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("case", ["served32", "extreme", "odd37"])
+def test_ingest_noise_kernel_bit_equal(dev, case, in_dtype, out_dtype):
+    """K2's training variant (a (B, 3) channel-noise factor between the
+    crop and the normalisation) bit-equal to ``crop_normalize_plain`` with
+    the same factors, one ``ingest_noise_forward`` launch; factors of 1
+    give the crop without noise, bit for bit."""
+    images, affines, S = _ingest_case(case, dev)
+    if in_dtype == torch.float32:
+        images = images.to(torch.float32) * (1.0 / 255.0)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    factors = torch.rand((images.shape[0], 3), generator=gen,
+                         device=dev) * 0.8 + 0.6
+    before = dict(INGEST_KERNEL.counts)
+    got = crop_normalize(images, affines, S, out_dtype=out_dtype,
+                         factors=factors)
+    assert INGEST_KERNEL.counts["ingest_noise_forward"] == before[
+        "ingest_noise_forward"] + 1
+    assert INGEST_KERNEL.counts["ingest_forward"] == before[
+        "ingest_forward"]
+    assert torch.equal(got, crop_normalize_plain(
+        images, affines, S, out_dtype=out_dtype, factors=factors))
+    ones = torch.ones_like(factors)
+    assert torch.equal(
+        crop_normalize(images, affines, S, out_dtype=out_dtype,
+                       factors=ones),
+        crop_normalize(images, affines, S, out_dtype=out_dtype))
+    with pytest.raises(ValueError):
+        crop_normalize(images, affines, S, factors=factors[:, :2])
+
+
 # K3's shapes: SMPL-X at the real template's counts (served at 32, trained
 # at 48, one body), SMPL and SMPL-H, the kernel's 76 joints (the most shared
 # memory either kernel asks for: a launch refused it raises), ragged tiles.

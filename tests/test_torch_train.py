@@ -720,15 +720,49 @@ def test_merge_stream_batches_key_union():
         merge_stream_batches([])
 
 
+def test_merge_stream_batches_pads_full_images():
+    """Full-image streams: the images zero-padded to the larger height
+    and width before the concatenation (a crop reads zeros outside an
+    image, so each crops as before), and a stream without channel noise
+    fills its rows with factors of 1."""
+    a = {"full_images": torch.full((2, 5, 7, 3), 9, dtype=torch.uint8),
+         "crop_to_image_affines": torch.eye(3).repeat(2, 1, 1),
+         "channel_noise": torch.full((2, 3), 1.2)}
+    b = {"full_images": torch.full((1, 6, 4, 3), 3, dtype=torch.uint8),
+         "crop_to_image_affines": torch.eye(3)[None]}
+    m = merge_stream_batches([a, b])
+    assert m["full_images"].shape == (3, 6, 7, 3)
+    assert torch.equal(m["full_images"][:2, :5], a["full_images"])
+    assert int(m["full_images"][:2, 5:].sum()) == 0
+    assert torch.equal(m["full_images"][2, :, :4], b["full_images"][0])
+    assert int(m["full_images"][2, :, 4:].sum()) == 0
+    assert torch.equal(m["channel_noise"][2], torch.ones(3))
+
+
 def test_stream_from_empty_loader_raises():
     with pytest.raises(ValueError, match="no batches"):
         next(_stream_from([]))
 
 
 def test_trainer_refuses_what_is_not_ported():
+    """The adversarial trainer is ported: ``use_adv_training`` builds the
+    discriminator, its loss and its optimizer; what it refuses is an
+    unknown discriminator or loss type, and a batch with neither
+    ``real_body_pose`` nor GT pose rotations. A train-mode regressor
+    still refuses an eval ``apply``."""
     reg = build_flagship(subdivisions=1, mlp_layers=(8,), device="cpu")
-    with pytest.raises(NotImplementedError):
+    trainer = Trainer(reg, RegressorLosses(LOSS_CFG), device="cpu",
+                      use_adv_training=True,
+                      disc_cfg={"type": "hmr", "nzfeat": 16})
+    assert trainer.disc is not None and trainer.disc_state.step == 0
+    with pytest.raises(ValueError, match="discriminator"):
         Trainer(reg, RegressorLosses(LOSS_CFG), device="cpu",
-                use_adv_training=True)
+                use_adv_training=True, disc_cfg={"type": "nope"})
+    with pytest.raises(ValueError, match="adversarial"):
+        Trainer(reg, RegressorLosses(LOSS_CFG), device="cpu",
+                use_adv_training=True, adv_loss_cfg={"type": "nope"})
+    batch = {"images": np.zeros((1, 64, 64, 3), np.float32)}
+    with pytest.raises(ValueError, match="real_body_pose"):
+        trainer.fit({"train": [batch]}, 1)
     with pytest.raises(ValueError, match="train"):
         reg.train().apply(torch.zeros(1, 64, 64, 3))

@@ -5,7 +5,8 @@ subprocess whose working directory is that tree (the script puts ``"."``
 first on ``sys.path``, so the tree's own port and kernels are the ones
 built and timed), in the order a b b a a b ... A run's last line of
 standard output is a JSON object; each is printed with its tree, and the
-last line gives each tree's median of every number.
+last line gives each tree's median of every number. ``Tee`` copies a
+tool's standard output to its ``--out`` file.
 
 In such a subprocess (this directory is on its ``PYTHONPATH``):
 ``trace(fn)`` takes the device kernels of ``PASSES`` calls of ``fn``
@@ -380,6 +381,21 @@ def run_script(script: str, cwd: Path, args=(), timeout: int = 900):
     return subprocess.run([sys.executable, "-c", script, *args], cwd=cwd,
                           env=env, capture_output=True, text=True,
                           timeout=timeout)
+
+
+class Tee:
+    """Standard output, copied to a file (a tool's ``--out``)."""
+
+    def __init__(self, path: Path):
+        self.file = path.open("w")
+
+    def write(self, text: str) -> int:
+        sys.__stdout__.write(text)
+        return self.file.write(text)
+
+    def flush(self) -> None:
+        sys.__stdout__.flush()
+        self.file.flush()
 
 
 def in_turns(script: str, trees, rounds: int) -> int:

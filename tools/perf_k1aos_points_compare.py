@@ -41,7 +41,7 @@ import contextlib
 import sys
 from pathlib import Path
 
-from chip_harness import REPO, in_turns
+from chip_harness import REPO, Tee, in_turns
 
 RUN = r"""
 import hashlib, json, sys, time, torch
@@ -146,21 +146,6 @@ print(json.dumps(out))
 """
 
 
-class _Tee:
-    """Standard output, copied to a file."""
-
-    def __init__(self, path: Path):
-        self.file = path.open("w")
-
-    def write(self, text: str) -> int:
-        sys.__stdout__.write(text)
-        return self.file.write(text)
-
-    def flush(self) -> None:
-        sys.__stdout__.flush()
-        self.file.flush()
-
-
 def main(argv) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--rounds", type=int, default=4)
@@ -169,7 +154,7 @@ def main(argv) -> int:
     parser.add_argument("trees", nargs="+")
     args = parser.parse_args(argv)
     args.out.parent.mkdir(parents=True, exist_ok=True)
-    tee = _Tee(args.out)
+    tee = Tee(args.out)
     with contextlib.redirect_stdout(tee):
         rc = in_turns(RUN, args.trees, args.rounds)
     tee.file.close()
