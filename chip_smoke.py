@@ -298,6 +298,47 @@ Phases, each of which raises on failure (exit code 1):
    eval call or a checkpoint write left out), the device's busy share of
    run 3's traced fit and the peak memory, and times K2's noise variant at
    batch 48.
+14. The demo CLI end to end: ``cli.demo.main`` with
+   ``configs/shapy_demo.yaml`` (HRNet-W48 at 256^2 crops, 3 stages, bf16
+   backbone with BN folded) over a synthetic OpenPose folder (8 480x360
+   PPM images with OpenPose JSONs, as phase 12's). The demo's own builder
+   runs, on the flagship's synthetic SMPL-X (10475 vertices:
+   ``SHAPY_TPU_SYNTHETIC_BODY=1`` with ``exact_counts``; its measurements
+   without candidate subsets, as the JAX demo's, so K1 walks all faces),
+   its weights through ``pretrained``: a reference-layout checkpoint
+   (``{'model': state_dict}``: ``backbone.*`` with
+   ``num_batches_tracked``, ``regressor.module.*``,
+   ``regressor.mean_param``, body constants under ``model.*``) of that
+   builder's regressor with seeded weights, imported by
+   ``io.model_import.load_reference_model_checkpoint`` into a regressor of
+   other weights. ``main`` runs at batch 4 and at 1 with ``save_vis``,
+   ``save_params`` and ``save_mesh`` on, and once more at batch 4 under a
+   trace of the host's operators; ``F.conv2d`` and ``F.max_pool2d`` raise
+   throughout. Checks rc 0 and every file the JAX demo names (``{img}.npz``,
+   ``{img}.ply``, ``{img}_hd_imgs.png``, ``{img}_hd_stage_02_overlay.png``
+   (RGBA) and ``_cat.png``), each run's launches (per batch 331 K5-conv, 26
+   K5-fuse and one K1, K2, K3 and K3-chain, nothing else), no convolution
+   or pooling operator in the trace, each forward bit-equal to the seeded
+   regressor loaded directly on the same padded images, every kernel of
+   the forward against its plain version at batch 4 and at 1 on the
+   inputs the forward gave it (K5-conv's plans follow the batch; K2 and
+   K5-fuse bit-equal, each K5-conv call within phase 2's limit, the
+   backbone against the plain route as phase 2's, K3-chain and K3 1e-5,
+   K1 as phase 2's), the npz vertices and measurements equal to the
+   forward's, and batch 1
+   against batch 4 (features cosine >= 0.999 and rel L2 <= 0.05, the limit
+   between two bf16 backbones whose sums round otherwise; vertices within
+   1 cm). Then ``Evaluator.run`` on phase 5's batches with a recording
+   writer and ``render_summaries`` on: the image grids (mesh overlays, GT
+   meshes, estimated keypoints) and every mean as a scalar arrive, the BMI
+   histogram route is printed, and the launches are phase 5's with one
+   more K2 (the summary's crops in f32). Then
+   ``cli.virtual_measurements.main`` with ``render=False`` (its caption
+   needs ``cv2``, which a card's machine may lack) on the demo's npz files:
+   its printed values within half a printed unit + 1e-4 of the npz's
+   measurements. Prints which of matplotlib, tensorboard and cv2 are
+   installed, the demo's images/s at batch 4 and 1 on the host clock and
+   the host seconds a batch spent writing and rendering.
 
 The line before the last is a JSON object with one entry per kernel
 function (forward and backward separately); ``launches`` counts the
@@ -307,7 +348,8 @@ the scorer (phase 6) for K1-AoS's points and their backward, ResNet-50's
 training (phase 11) for K10 and K11, and the evaluation phase for the
 others, and phase 13's run 1 for K2's noise variant; ``launches_cli``
 counts phase 12's cold run, ``launches_train_cli`` phase 13's run 1 (its
-train steps, the eval hook's launches left out). K5-conv's and K5-fuse's times are a served forward's at batch 32,
+train steps, the eval hook's launches left out), ``launches_demo`` phase
+14's run at batch 4. K5-conv's and K5-fuse's times are a served forward's at batch 32,
 the backward kernels' and K4's backward's a train step's at batch 48;
 K10's and K11's forwards at the served batch 32, their backwards at 48.
 The last line is
@@ -318,6 +360,7 @@ the repository beside this file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import json
 import math
@@ -6498,6 +6541,662 @@ def train_cli(dev, train_launches: dict):
     return launches, summary, entry
 
 
+# Phase 14: the demo CLI end to end.
+DEMO_IMAGES = 8
+DEMO_B = 4
+# The demo's launches a batch: the served forward's (K2's crop, the
+# backbone, the body model and the measurements; the demo's builder makes
+# them without candidate subsets, as the JAX demo's, so K1 walks all
+# faces).
+DEMO_PER_BATCH = dict(K5_PER_FORWARD, K1_measure=1, K2_ingest=1,
+                      K3_skinning=1, K3chain_forward=1)
+# Batch 1 against batch 4: only the backbone's bf16 rounding can differ
+# (K5-conv's K partitions follow the batch's pixel count, so its f32 sums
+# run in other orders), so the features are held to the limit between
+# two bf16 backbones whose sums round otherwise (phase 2's route check:
+# cosine >= 0.999, rel L2 <= 0.05) and the meshes to the fit's 1 cm.
+DEMO_FEATURE_COS, DEMO_FEATURE_REL = 0.999, 0.05
+DEMO_VERTEX_TOL = 0.01  # m
+# The virtual-measurements CLI prints 2 decimals: half a printed unit,
+# plus 1e-4 for its own shape forward and K1 on one body against the
+# demo's on a batch of 4 (f32 sums in other orders).
+DEMO_VM_TOL = 0.005 + 1e-4
+
+
+def write_demo_folder(root: Path) -> None:
+    """A synthetic OpenPose demo folder: ``DEMO_IMAGES`` 480x360 PPM images
+    under ``images/`` (smooth random content, as phase 12's) and their
+    OpenPose JSONs (one person inside the image) under ``openpose/``."""
+    from shapy_tpu_torch.flagship import synthetic_requests
+
+    rng = np.random.default_rng(SEED + 14)
+    images, _ = synthetic_requests(DEMO_IMAGES, IMAGE_H, IMAGE_W, CROP,
+                                   SEED + 14)
+    for i, image in enumerate(images):
+        write_ppm(root / "images" / f"img{i}.ppm", image)
+        body = np.stack([rng.uniform(0.3, 0.7, 25) * IMAGE_W,
+                         rng.uniform(0.15, 0.85, 25) * IMAGE_H,
+                         np.full(25, 0.9)], -1)
+        kp = root / "openpose" / f"img{i}_keypoints.json"
+        kp.parent.mkdir(parents=True, exist_ok=True)
+        kp.write_text(json.dumps({"people": [
+            {"pose_keypoints_2d": body.reshape(-1).tolist()}]}))
+
+
+def write_reference_checkpoint(path: Path, regressor) -> None:
+    """``regressor``'s weights in the reference's ``Checkpointer`` layout,
+    ``{'model': state_dict}``: ``backbone.*`` with a
+    ``num_batches_tracked`` beside each BN, ``regressor.module.*`` (the
+    head), ``regressor.mean_param`` flat, and body-model constants under
+    ``model.*`` (which the import skips)."""
+    import torch
+
+    sd = {}
+    for k, v in regressor.state_dict().items():
+        if k.startswith("backbone."):
+            sd[k] = v.clone()
+            if k.endswith("running_var"):
+                sd[k[:-len("running_var")] + "num_batches_tracked"] = (
+                    torch.tensor(1000, dtype=torch.long))
+        elif k.startswith("head."):
+            sd["regressor.module." + k[len("head."):]] = v.clone()
+        elif k == "param_mean":
+            sd["regressor.mean_param"] = v.reshape(-1).clone()
+        elif k.startswith("model."):
+            sd[k] = v.clone()
+    torch.save({"model": sd, "iteration": 0}, path)
+
+
+def png_size(path: Path) -> tuple:
+    """(width, height, channels) from a PNG's IHDR."""
+    data = path.read_bytes()[:26]
+    check(data[:8] == b"\x89PNG\r\n\x1a\n" and data[12:16] == b"IHDR",
+          f"demo: {path.name} is not a PNG")
+    w, h = int.from_bytes(data[16:20], "big"), int.from_bytes(data[20:24],
+                                                              "big")
+    return w, h, {2: 3, 6: 4}[data[25]]
+
+
+class RecordingWriter:
+    """A duck-typed summary writer that keeps what it is given (no
+    ``add_figure``: the BMI bars arrive as raw bucket scalars)."""
+
+    def __init__(self):
+        self.images, self.scalars, self.flushed = {}, {}, 0
+
+    def add_image(self, tag, image, step):
+        self.images[tag] = (np.asarray(image), step)
+
+    def add_scalar(self, tag, value, step):
+        self.scalars[tag] = (float(value), step)
+
+    def flush(self):
+        self.flushed += 1
+
+
+def demo_summaries(regressor, eval_data, eval_launches) -> dict:
+    """Phase 14's evaluator leg: ``Evaluator.run`` on phase 5's batches
+    with a :class:`RecordingWriter` and ``render_summaries`` on. The image
+    grids and the scalars must arrive, and the launches must be phase 5's
+    with one more K2 (the summary's crops in f32)."""
+    import torch
+
+    from shapy_tpu_torch.eval.loop import make_eval_fn
+    from shapy_tpu_torch.flagship import REFERENCE_EVAL_CFG
+
+    writer = RecordingWriter()
+    eval_fn = make_eval_fn(regressor, {"hbw_synthetic": eval_data["batches"]},
+                           REFERENCE_EVAL_CFG,
+                           keypoint_names=regressor.model.keypoint_names,
+                           point_regressor=eval_data["p2p"],
+                           j14_regressor=eval_data["j14"],
+                           crop_size=CROP, summary_writer=writer)
+    torch.cuda.synchronize()
+    reset_launches()
+    t = time.perf_counter()
+    with eval_fn.evaluator:
+        results = eval_fn(step=7)["hbw_synthetic"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = read_launches()
+    for name, *_ in kernels():
+        want = eval_launches[name] + (name == "K2_ingest")
+        check(launches[name] == want, f"demo summaries: {launches[name]} "
+              f"{name} launches, phase 5's {eval_launches[name]} + "
+              f"{int(name == 'K2_ingest')}")
+    tags = sorted(writer.images)
+    want_tags = ["hbw_synthetic/Images", "hbw_synthetic/Images/est_keypoints",
+                 "hbw_synthetic/Images/gt_mesh"]
+    check(tags == want_tags, f"demo summaries: image tags {tags}")
+    grid, step = writer.images["hbw_synthetic/Images"]
+    check(grid.shape == (3, CROP, 4 * CROP) and grid.dtype == np.uint8
+          and step == 7 and grid.std() > 0,
+          f"demo summaries: grid {grid.shape} {grid.dtype} step {step}")
+    for name, value in results.items():
+        got = writer.scalars.get(f"hbw_synthetic/{name}")
+        check(got is not None and (got[0] == value or (
+            math.isnan(value) and math.isnan(got[0]))),
+              f"demo summaries: scalar {name} {got} vs {value}")
+    buckets = [t for t in writer.scalars if "/bmi_histogram/" in t]
+    try:  # the evaluator draws the bars with it, as the JAX package does
+        import matplotlib  # noqa: F401
+        has_mpl = True
+    except Exception:
+        has_mpl = False
+    route = ("raw bucket scalars (the writer has no add_figure)" if has_mpl
+             else "none (matplotlib is not installed)")
+    check(bool(buckets) == has_mpl, f"demo summaries: {len(buckets)} "
+          f"bucket scalars with matplotlib {has_mpl}")
+    check(writer.flushed == 1, "demo summaries: the writer was not flushed")
+    print(f"demo summaries: Evaluator.run on phase 5's {EVAL_BATCHES} "
+          f"batches with a recording writer in {wall * 1e3:.1f} ms: images "
+          f"{tags} (grid {grid.shape}), {len(writer.scalars)} scalars; BMI "
+          f"histogram route: {route} ({len(buckets)} bucket scalars); "
+          f"launches phase 5's + one K2")
+    return {"summary_ms": wall * 1e3, "bmi_route": route,
+            "image_tags": tags, "scalars": len(writer.scalars)}
+
+
+def demo_kernel_calls(direct, full, aff) -> dict:
+    """Every kernel wrapper's call in one demo forward of ``direct`` on the
+    padded full images ``full`` and their affines, with its arguments
+    (kept alive, to replay them): {"K2": [(args, kwargs)], "conv": [(x,
+    weight, bias, residual, relu, stride)], "fuse": [(x, terms)], "chain":
+    [(args, kwargs)], "skin": [args], "measure": [(vertices,
+    use_face_subsets)]}."""
+    import torch
+
+    from shapy_tpu_torch.models.backbones import hrnet, layers
+    from shapy_tpu_torch.models.body import lbs
+    from shapy_tpu_torch.models.heads import regressor as head_mod
+
+    calls = {k: [] for k in ("K2", "conv", "fuse", "chain", "skin",
+                             "measure")}
+    saved = (head_mod.crop_normalize, layers.conv2d_act, hrnet.hr_fuse,
+             lbs.batch_rigid_transform, lbs.skin)
+    crop_fn, conv_fn, fuse_fn, chain_fn, skin_fn = saved
+    meas = direct.body_measurements
+    measure_fn = meas.measure
+
+    def crop(*args, **kwargs):
+        calls["K2"].append((args, kwargs))
+        return crop_fn(*args, **kwargs)
+
+    def conv(x, weight, bias=None, residual=None, relu=False, stride=1):
+        calls["conv"].append((x, weight, bias, residual, relu, stride))
+        return conv_fn(x, weight, bias, residual, relu, stride)
+
+    def fuse(x, terms):
+        calls["fuse"].append((x, list(terms)))
+        return fuse_fn(x, terms)
+
+    def chain(*args, **kwargs):
+        calls["chain"].append((args, kwargs))
+        return chain_fn(*args, **kwargs)
+
+    def skin(*args):
+        calls["skin"].append(args)
+        return skin_fn(*args)
+
+    def measure(vertices, use_face_subsets=True):
+        calls["measure"].append((vertices, use_face_subsets))
+        return measure_fn(vertices, use_face_subsets)
+
+    (head_mod.crop_normalize, layers.conv2d_act, hrnet.hr_fuse,
+     lbs.batch_rigid_transform, lbs.skin) = crop, conv, fuse, chain, skin
+    meas.measure = measure
+    try:
+        with torch.inference_mode():
+            direct.apply_from_full_images(full, aff, CROP)
+    finally:
+        (head_mod.crop_normalize, layers.conv2d_act, hrnet.hr_fuse,
+         lbs.batch_rigid_transform, lbs.skin) = saved
+        del meas.measure
+    return calls
+
+
+def check_demo_kernels(direct, full, aff) -> dict:
+    """Phase 14, every kernel of the demo's forward against its plain
+    version on the card, at the demo's own batch (4 or 1), on the inputs
+    that batch's forward gives it (:func:`demo_kernel_calls`). K5-conv's
+    plan follows the batch (its tiles and K partitions, so the split-K
+    reduction too), so phase 2's checks at batch 32 and 2 do not cover
+    these plans. Limits as phase 2's: K2 bit-equal; each of the 331
+    K5-conv calls within ``conv2d_act_bf16_tolerance`` of the plain
+    version and of the plain epilogue on the exact sum (f64); each of the
+    26 K5-fuse calls bit-equal; the whole backbone against the plain route
+    (features cosine >= 0.999, rel L2 <= 0.05, as
+    :func:`check_backbone_routes`); K3-chain's three outputs and K3's
+    vertices within 1e-5 of the plain versions in f32 and f64; K1 (the
+    demo's walk: all faces, as its builder makes no candidate subsets)
+    mass / height rel 1e-5, circumferences 1e-5 m, plane heights 1e-6."""
+    import torch
+    import torch.nn.functional as F
+
+    from shapy_tpu_torch.core.kinematics import (
+        batch_rigid_transform,
+        batch_rigid_transform_plain,
+    )
+    from shapy_tpu_torch.data.crop import crop_normalize, crop_normalize_plain
+    from shapy_tpu_torch.measure.measurements import PLANES, measure_plain
+    from shapy_tpu_torch.models.backbones import hrnet, layers
+    from shapy_tpu_torch.models.body.lbs import skin, skin_plain
+
+    n = len(full)
+    calls = demo_kernel_calls(direct, full, aff)
+    check(len(calls["K2"]) == 1 and len(calls["chain"]) == 1
+          and len(calls["skin"]) == 1 and len(calls["measure"]) == 1,
+          f"demo kernels at batch {n}: "
+          f"{ {k: len(v) for k, v in calls.items()} } calls")
+    with torch.inference_mode():
+        args, kwargs = calls["K2"][0]
+        check(torch.equal(crop_normalize(*args, **kwargs),
+                          crop_normalize_plain(*args, **kwargs)),
+              f"demo kernels at batch {n}: K2 differs from its plain version")
+
+        check(len(calls["conv"]) == K5_PER_FORWARD["K5_conv"],
+              f"demo kernels at batch {n}: {len(calls['conv'])} convs")
+        steps = steps_exact = 0.0
+        plans = set()
+        saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            for x, w, b, r, relu, stride in calls["conv"]:
+                k, cin = w.shape[-1], x.shape[1]
+                plans.add(conv_plan_text(n, cin, w.shape[0], k, stride,
+                                         x.shape[2])[1])
+                got = layers.conv2d_act(x, w, b, r, relu, stride)
+                want = layers.conv2d_act_plain(x, w, b, r, relu, stride)
+                exact_sum = F.conv2d(x.double(), w.double(), None, stride,
+                                     k // 2)
+                terms = F.conv2d(x.abs().float(), w.abs().float(), None,
+                                 stride, k // 2)
+                exact = exact_sum.to(torch.bfloat16)
+                if b is not None:
+                    exact = exact + b[:, None, None]
+                if r is not None:
+                    exact = exact + r
+                if relu:
+                    exact = torch.relu(exact)
+                tol = layers.conv2d_act_bf16_tolerance(exact_sum.float(), b,
+                                                       r, terms, cin, k)
+                steps = max(steps, float(
+                    ((got.float() - want.float()).abs() / tol).max()))
+                steps_exact = max(steps_exact, float(
+                    ((got.float() - exact.float()).abs() / tol).max()))
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved
+        check(steps <= 1.0 and steps_exact <= 1.0,
+              f"demo kernels at batch {n}: K5-conv at {steps:.3f} of the "
+              f"tolerance from plain, {steps_exact:.3f} from the exact sum")
+
+        check(len(calls["fuse"]) == K5_PER_FORWARD["K5_fuse"],
+              f"demo kernels at batch {n}: {len(calls['fuse'])} fusions")
+        for i, (x, terms) in enumerate(calls["fuse"]):
+            check(torch.equal(hrnet.hr_fuse(x, terms),
+                              hrnet.hr_fuse_plain(x, terms)),
+                  f"demo kernels at batch {n}: fusion {i} differs")
+
+        args, kwargs = calls["K2"][0]
+        crops = crop_normalize(*args, **kwargs)
+        k5 = direct.compute_features(crops)
+        routes = (layers._conv2d_act_cuda, hrnet._hr_fuse_cuda,
+                  layers._max_pool2d_cuda)
+        layers._conv2d_act_cuda = layers.conv2d_act_plain
+        hrnet._hr_fuse_cuda = hrnet.hr_fuse_plain
+        layers._max_pool2d_cuda = layers.max_pool2d_plain
+        try:
+            plain = direct.compute_features(crops)
+        finally:
+            (layers._conv2d_act_cuda, hrnet._hr_fuse_cuda,
+             layers._max_pool2d_cuda) = routes
+        cos = float(F.cosine_similarity(k5.flatten().double(),
+                                        plain.flatten().double(), dim=0))
+        rel = float((k5 - plain).norm() / plain.norm())
+        check(bool(torch.isfinite(k5).all()) and cos >= 0.999
+              and rel <= 0.05, f"demo kernels at batch {n}: backbone "
+              f"against the plain route: cosine {cos}, rel L2 {rel}")
+
+        args, kwargs = calls["chain"][0]
+        got = batch_rigid_transform(*args, **kwargs)
+        chain_err = 0.0
+        for dtype in (torch.float32, torch.float64):
+            cast = [a.to(dtype) if torch.is_tensor(a) and a.is_floating_point()
+                    else a for a in args]
+            want = batch_rigid_transform_plain(*cast, **kwargs)
+            chain_err = max(chain_err, *(max_err(g, w)
+                                         for g, w in zip(got, want)))
+        check(chain_err <= 1e-5,
+              f"demo kernels at batch {n}: K3-chain err {chain_err}")
+
+        args = calls["skin"][0]
+        got = skin(*args)
+        skin_err = max(max_err(got, skin_plain(*[a.to(dtype) for a in args]))
+                       for dtype in (torch.float32, torch.float64))
+        check(skin_err <= 1e-5, f"demo kernels at batch {n}: K3 err "
+                                f"{skin_err} m")
+
+        meas = direct.body_measurements
+        v, use_subsets = calls["measure"][0]
+        got, got_h = meas.measure(v, use_subsets)
+        plane_faces = ([getattr(meas, f"subset_{p}") for p in PLANES]
+                       if use_subsets and meas.has_subsets else None)
+        want, want_h = measure_plain(v, meas.faces, plane_faces, meas.anchors,
+                                     meas.num_hull_directions, meas.density,
+                                     meas.slice_mode)
+        k1_rel = float(((got[:, :2] - want[:, :2]).abs()
+                        / want[:, :2].abs()).max())
+        k1_circ = max_err(got[:, 2:], want[:, 2:])
+        k1_h = max_err(got_h, want_h)
+        check(k1_rel <= 1e-5 and k1_circ <= 1e-5 and k1_h <= 1e-6,
+              f"demo kernels at batch {n}: K1 mass/height rel {k1_rel}, "
+              f"circumferences {k1_circ} m, plane heights {k1_h}")
+    walk = "subsets" if plane_faces else "all faces"
+    print(f"demo kernels at batch {n} against their plain versions: K2 "
+          f"bit-equal; K5-conv's 331 calls ({len(plans)} plans) at most "
+          f"{steps:.3f} of the tolerance from plain and {steps_exact:.3f} "
+          f"from the exact sum (limit 1); K5-fuse's 26 bit-equal; backbone "
+          f"against the plain route cosine {cos:.6f} (>= 0.999), rel L2 "
+          f"{rel:.3e} (<= 0.05); K3-chain {chain_err:.3e}, K3 {skin_err:.3e} "
+          f"m (tol 1e-5); K1 ({walk}) mass/height rel {k1_rel:.3e}, "
+          f"circumferences {k1_circ:.3e} m (tol 1e-5), plane heights "
+          f"{k1_h:.3e} (tol 1e-6)")
+    return {"conv_steps": steps, "conv_steps_exact": steps_exact,
+            "conv_plans": len(plans), "backbone_cosine": cos,
+            "backbone_rel_l2": rel, "k3chain_err": chain_err,
+            "k3_err": skin_err, "k1_rel": k1_rel, "k1_circ": k1_circ,
+            "k1_walk": walk}
+
+
+@contextlib.contextmanager
+def demo_body():
+    """The demo builder's synthetic body at the flagship's counts:
+    ``SHAPY_TPU_SYNTHETIC_BODY=1``, ``SHAPY_TPU_TEST_SUBDIV=5`` and
+    ``make_synthetic_model_data(exact_counts=True)`` (10475 vertices,
+    20908 faces), so that the CLIs' own builders run at full width."""
+    import functools
+
+    from shapy_tpu_torch.cli import demo as demo_mod
+    from shapy_tpu_torch.models.body import assets
+
+    saved_env = {k: os.environ.get(k) for k in (
+        "SHAPY_TPU_SYNTHETIC_BODY", "SHAPY_TPU_TEST_SUBDIV")}
+    os.environ.update(SHAPY_TPU_SYNTHETIC_BODY="1", SHAPY_TPU_TEST_SUBDIV="5")
+    make = assets.make_synthetic_model_data
+    exact = functools.partial(make, exact_counts=True)
+    assets.make_synthetic_model_data = exact
+    demo_mod.make_synthetic_model_data = exact
+    try:
+        yield
+    finally:
+        assets.make_synthetic_model_data = make
+        demo_mod.make_synthetic_model_data = make
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def demo_cli(dev, regressor, eval_data, eval_launches):
+    """Phase 14: ``cli.demo.main`` on ``configs/shapy_demo.yaml`` at full
+    width (HRNet-W48, 256^2 crops, 3 stages, bf16 backbone, BN folded)
+    over a synthetic OpenPose folder. The demo's own builder runs on the
+    flagship's synthetic SMPL-X (:func:`demo_body`), its weights through
+    ``pretrained``: a reference-layout checkpoint of that builder's
+    regressor with seeded weights (``spread_init_``), which the builder
+    imports into a regressor of its own (the JAX init's) weights. Runs at
+    batch 4 and at 1 with every output on, then once more at batch 4 under
+    a trace of the host's operators; ``F.conv2d`` and ``F.max_pool2d``
+    raise throughout. Each batch's forward must be bit-equal to the seeded
+    regressor's, and at both batches every kernel of the forward is held
+    to its plain version (:func:`check_demo_kernels`). Then the
+    evaluator's summaries (:func:`demo_summaries`) and the
+    virtual-measurements CLI on the demo's npz files. Returns the batch-4
+    run's launches and a summary."""
+    import importlib
+    import io
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from shapy_tpu_torch.cli import demo as demo_mod
+    from shapy_tpu_torch.cli import virtual_measurements as vm_cli
+    from shapy_tpu_torch.flagship import spread_init_
+    from shapy_tpu_torch.models.heads.regressor import BodyRegressor
+    from shapy_tpu_torch.utils.config import load_config
+
+    modules = {}
+    for name in ("matplotlib", "tensorboard", "cv2"):
+        try:
+            modules[name] = getattr(importlib.import_module(name),
+                                    "__version__", "imported")
+        except Exception as exc:  # absent, or present and broken
+            modules[name] = f"not importable ({type(exc).__name__})"
+    print(f"demo: importable here {modules}")
+    repo = Path(__file__).resolve().parent
+    summary = {"modules": modules}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t = time.perf_counter()
+        write_demo_folder(tmp / "samples")
+        ckpt = tmp / "shapy_reference.ckpt"
+        cfg = load_config({}, [str(repo / "configs" / "shapy_demo.yaml")], [
+            f"datasets.pose.openpose.data_folder={tmp / 'samples'}",
+            f"datasets.crop_size={CROP}", f"pretrained={ckpt}"])
+        with demo_body():
+            base = spread_init_(demo_mod.build_demo_regressor(
+                cfg, "", device="cpu"), seed=SEED, beta_scale=0.25)
+        check(base.model.v_template.shape[0] == 10475,
+              f"demo: the builder's body has "
+              f"{base.model.v_template.shape[0]} vertices")
+        write_reference_checkpoint(ckpt, base)
+        direct = base.to(dev).prepare_for_eval_(
+            torch.bfloat16 if dev.type == "cuda" else torch.float32)
+        del base
+        summary["setup_s"] = time.perf_counter() - t
+        calls = []
+        forward = BodyRegressor.apply_from_full_images
+
+        def recorded(self, full, aff, crop_size=256, **norm):
+            out = forward(self, full, aff, crop_size, **norm)
+            calls[-1].append((full, aff, out))
+            return out
+
+        renders = []
+        save = demo_mod._save_sample_outputs
+
+        def timed_save(*args, **kwargs):
+            t = time.perf_counter()
+            save(*args, **kwargs)
+            renders[-1].append(time.perf_counter() - t)
+
+        def refuse(*args, **kwargs):
+            raise RuntimeError("F.conv2d reached in the demo")
+
+        def run(out_dir, batch, trace=False, outputs=True):
+            calls.append([])
+            renders.append([])
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            reset_launches()
+            t = time.perf_counter()
+            ctx = (profile(activities=[ProfilerActivity.CPU]) if trace
+                   else contextlib.nullcontext())
+            with ctx as prof, contextlib.redirect_stdout(buf):
+                rc = demo_mod.main(cfg, demo_output_folder=str(out_dir),
+                                   save_vis=outputs, save_params=outputs,
+                                   save_mesh=outputs, batch_size=batch,
+                                   device=dev)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            lines = buf.getvalue().splitlines()
+            check(rc == 0, f"demo at batch {batch}: rc {rc}")
+            return lines, wall, read_launches(), prof
+
+        F = torch.nn.functional
+        conv2d, max_pool2d = F.conv2d, F.max_pool2d
+        BodyRegressor.apply_from_full_images = recorded
+        demo_mod._save_sample_outputs = timed_save
+        F.conv2d = F.max_pool2d = refuse
+        try:
+            with demo_body():
+                runs = {b: run(tmp / f"out{b}", b) for b in (DEMO_B, 1)}
+                _, _, traced_launches, prof = run(tmp / "traced", DEMO_B,
+                                                  trace=True, outputs=False)
+        finally:
+            F.conv2d, F.max_pool2d = conv2d, max_pool2d
+            demo_mod._save_sample_outputs = save
+            BodyRegressor.apply_from_full_images = forward
+        names = {e.name for e in prof.events()}
+        convs = sorted(n for n in names if "convolution" in n or "cudnn" in n
+                       or n == "aten::conv2d" or "pool" in n)
+        check(not convs, f"demo: library convolution or pooling operators "
+                         f"{convs}")
+
+        stems = [f"img{i}" for i in range(DEMO_IMAGES)]
+        want_files = sorted(
+            f"{s}{suffix}" for s in stems
+            for suffix in (".npz", ".ply", "_hd_imgs.png",
+                           "_hd_stage_02_overlay.png",
+                           "_hd_stage_02_cat.png"))
+        recorded = {}
+        for batch, (lines, wall, launches, _) in runs.items():
+            out_dir = tmp / f"out{batch}"
+            check(sorted(os.listdir(out_dir)) == want_files,
+                  f"demo at batch {batch}: files "
+                  f"{sorted(os.listdir(out_dir))}")
+            batches = -(-DEMO_IMAGES // batch)
+            for name, *_ in kernels():
+                want = DEMO_PER_BATCH.get(name, 0) * batches
+                check(launches[name] == want,
+                      f"demo at batch {batch}: {launches[name]} {name} "
+                      f"launches, expected {want}")
+            # The forward of each batch against the directly loaded
+            # regressor on the same padded images: bit-equal.
+            check(len(calls[0 if batch == DEMO_B else 1]) == batches,
+                  f"demo at batch {batch}: forwards")
+            per_image = {}
+            for full, aff, out in calls[0 if batch == DEMO_B else 1]:
+                with torch.inference_mode():
+                    want = direct.apply_from_full_images(full, aff, CROP)
+                for key in ("betas", "vertices", "joints", "v_shaped",
+                            "global_rot", "body_pose"):
+                    check(torch.equal(out["stage_02"][key],
+                                      want["stage_02"][key]),
+                          f"demo at batch {batch}: {key} differs from the "
+                          "regressor loaded directly")
+                check(torch.equal(out["features"], want["features"]),
+                      f"demo at batch {batch}: features differ")
+                for k, v in want["measurements"].items():
+                    check(torch.equal(out["measurements"][k], v),
+                          f"demo at batch {batch}: {k} differs")
+                for i in range(len(full)):
+                    per_image[len(per_image)] = {
+                        "features": out["features"][i].float().cpu(),
+                        "vertices": out["stage_02"]["vertices"][i].cpu(),
+                        "measurements": {k: float(v[i]) for k, v in
+                                         out["measurements"].items()}}
+            recorded[batch] = per_image
+            full, aff, _ = calls[0 if batch == DEMO_B else 1][0]
+            summary[f"kernels_b{batch}"] = check_demo_kernels(direct, full,
+                                                              aff)
+            # The npz files hold the forward's vertices and measurements.
+            for i, stem in enumerate(stems):
+                with np.load(out_dir / f"{stem}.npz",
+                             allow_pickle=True) as d:
+                    check(np.array_equal(d["vertices"],
+                                         per_image[i]["vertices"].numpy()),
+                          f"demo at batch {batch}: {stem}.npz vertices "
+                          "differ from the forward's")
+                    m = d["measurements"].item()
+                    check(all(float(m[k]) == v for k, v in
+                              per_image[i]["measurements"].items()),
+                          f"demo at batch {batch}: {stem}.npz measurements")
+                w, h, c = png_size(out_dir / f"{stem}_hd_stage_02_overlay.png")
+                check((w, h, c) == (IMAGE_W, IMAGE_H, 4),
+                      f"demo: overlay {w}x{h}x{c}")
+                w, h, c = png_size(out_dir / f"{stem}_hd_stage_02_cat.png")
+                check((w, h, c) == (2 * IMAGE_W, IMAGE_H, 3),
+                      f"demo: side by side {w}x{h}x{c}")
+        for name, *_ in kernels():
+            want = DEMO_PER_BATCH.get(name, 0) * (-(-DEMO_IMAGES // DEMO_B))
+            check(traced_launches[name] == want,
+                  f"demo traced: {traced_launches[name]} {name} launches")
+
+        # Batch 1 against batch 4.
+        worst = {"cos": 1.0, "rel": 0.0, "vertices": 0.0, "meas": 0.0}
+        for i in range(DEMO_IMAGES):
+            a, b = recorded[DEMO_B][i], recorded[1][i]
+            fa, fb = a["features"].double(), b["features"].double()
+            cos = float(fa @ fb / (fa.norm() * fb.norm()))
+            rel = float((fa - fb).norm() / fb.norm())
+            dv = float((a["vertices"] - b["vertices"]).abs().max())
+            dm = max(abs(a["measurements"][k] - b["measurements"][k])
+                     for k in a["measurements"])
+            worst = {"cos": min(worst["cos"], cos),
+                     "rel": max(worst["rel"], rel),
+                     "vertices": max(worst["vertices"], dv),
+                     "meas": max(worst["meas"], dm)}
+        check(worst["cos"] >= DEMO_FEATURE_COS
+              and worst["rel"] <= DEMO_FEATURE_REL,
+              f"demo: batch 1 vs {DEMO_B} features {worst}")
+        check(worst["vertices"] <= DEMO_VERTEX_TOL,
+              f"demo: batch 1 vs {DEMO_B} vertices {worst}")
+        print(f"demo: batch 1 against batch {DEMO_B}: features cosine >= "
+              f"{worst['cos']:.6f}, rel L2 <= {worst['rel']:.3e}; vertices "
+              f"within {worst['vertices']:.3e} m, measurements within "
+              f"{worst['meas']:.3e} (limits {DEMO_FEATURE_COS}, "
+              f"{DEMO_FEATURE_REL}, {DEMO_VERTEX_TOL} m)")
+
+        # The virtual-measurements CLI on the demo's npz files, on the
+        # same synthetic body.
+        buf = io.StringIO()
+        with demo_body(), contextlib.redirect_stdout(buf):
+            rc = vm_cli.main(str(tmp / f"out{DEMO_B}"), str(tmp / "vm"),
+                             render=False, device=str(dev))
+        lines = [ln for ln in buf.getvalue().splitlines()
+                 if "Virtual measurements" in ln]
+        check(rc == 0 and len(lines) == DEMO_IMAGES,
+              f"demo: virtual measurements rc {rc}, {len(lines)} lines")
+        worst_vm = 0.0
+        for i, line in enumerate(lines):
+            parts = line.split()
+            got = {parts[j].rstrip(":"): float(parts[j + 1])
+                   for j in range(2, len(parts), 3)}
+            want = recorded[DEMO_B][i]["measurements"]
+            for k, v in got.items():
+                worst_vm = max(worst_vm, abs(v - want[k]))
+        check(worst_vm <= DEMO_VM_TOL,
+              f"demo: virtual measurements {worst_vm} from the npz's")
+        print(f"demo: virtual-measurements CLI on the {DEMO_IMAGES} npz "
+              f"files: printed values within {worst_vm:.4f} of the npz "
+              f"measurements (limit {DEMO_VM_TOL})")
+
+    del direct
+    summary.update(demo_summaries(regressor, eval_data, eval_launches))
+    rates, render_s = {}, {}
+    for i, (batch, (lines, wall, _, _)) in enumerate(runs.items()):
+        thr = [ln for ln in lines if ln.startswith("Throughput:")]
+        check(len(thr) == 1, f"demo at batch {batch}: printed {lines}")
+        rates[batch] = float(thr[0].split()[1])
+        per_batch = [sum(renders[i][j:j + batch])
+                     for j in range(0, DEMO_IMAGES, batch)]
+        render_s[batch] = per_batch
+        summary[f"wall_s_b{batch}"] = wall
+    summary.update({"images_s": rates, "render_s_a_batch": render_s,
+                    "batch1_vs_4": worst, "vm_max_err": worst_vm,
+                    "card": gpu_line()})
+    print(f"demo: images/s on the host clock (the demo's own Throughput "
+          f"line: forward and copy to the host) {rates}; host seconds a "
+          f"batch spent writing and rendering {render_s}; main's wall "
+          f"{ {b: round(r[1], 2) for b, r in runs.items()} } s; "
+          f"{gpu_line()}")
+    return runs[DEMO_B][2], summary
+
+
+
 def main() -> int:
     import torch
 
@@ -6623,6 +7322,9 @@ def main() -> int:
     train_cli_launches, train_cli_summary, k2_noise = train_cli(
         dev, train_launches)
     checked["K2_noise"] = k2_noise
+    stamp("phase 14")
+    demo_launches, demo_summary = demo_cli(dev, regressor, eval_data,
+                                           eval_launches)
     stamp("done")
 
     entries = []
@@ -6658,6 +7360,7 @@ def main() -> int:
             "launches_resnet50_serve": resnet_serve[name],
             "launches_resnet50_eval": resnet_eval[name],
             "launches_cli": cli_launches[name],
+            "launches_demo": demo_launches[name],
             **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by")},
             # K4: F.batch_norm(training=True); K5-conv: F.conv2d (cuDNN);
@@ -6677,6 +7380,7 @@ def main() -> int:
     print(f"ResNet: {json.dumps(resnet_summary)}")
     print(f"evaluate CLI: {json.dumps(cli_summary)}")
     print(f"train CLI: {json.dumps(train_cli_summary)}")
+    print(f"demo CLI: {json.dumps(demo_summary)}")
     print(gpu_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -37,14 +37,6 @@ from typing import Dict
 import torch
 
 
-def _with_crop_size(batches, crop_size: int):
-    """The loader's evaluator batches with the transforms' crop size in
-    the model batch (the crop affines map pixels of that crop)."""
-    for batch in batches:
-        batch["model_batch"]["crop_size"] = crop_size
-        yield batch
-
-
 def main(exp_cfg: Dict, output_folder: str = "evaluation",
          split: str = "val", num_devices_data: int = 0,
          device: str | torch.device = "cuda") -> int:
@@ -103,8 +95,7 @@ def main(exp_cfg: Dict, output_folder: str = "evaluation",
         for part in loaders}
     results = evaluator.run(
         model_fn,
-        {part: _with_crop_size(adapt_eval_batches(loader, device),
-                               crop_sizes[part])
+        {part: adapt_eval_batches(loader, device, crop_sizes[part])
          for part, loader in loaders.items()},
         last_stage=f"stage_{regressor.num_stages - 1:02d}",
     )

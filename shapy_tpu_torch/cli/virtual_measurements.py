@@ -10,8 +10,12 @@ kernel K1 on all faces. ``SHAPY_TPU_SYNTHETIC_BODY=1`` uses the synthetic
 SMPL-X body (``SHAPY_TPU_TEST_SUBDIV`` subdivisions, 5 by default) when
 the licensed files are absent.
 
-The rendered overlay needs ``render/``, which is not ported: without
-``--no-render`` the CLI raises ``NotImplementedError``.
+Without ``--no-render`` each file also gets ``{name}.png``: the shaped
+body rendered on the host (``render_mesh_overlay``, a 512x512 white
+canvas) with the measurements line as its caption. The caption is
+``cv2.putText``'s, as in the JAX CLI, so the overlay needs ``cv2`` (where
+it is not installed, pass ``--no-render``); the PNG is written by the
+port's own writer.
 """
 
 from __future__ import annotations
@@ -22,9 +26,18 @@ import sys
 
 import numpy as np
 
-NOT_PORTED = ("the measurement overlay needs the renderer (render/), not "
-              "ported yet: ROADMAP 'Next, in order', the renderer item; "
-              "pass --no-render (render=False)")
+
+def _caption_cv2():
+    """``cv2`` for the overlay's caption, or an ``ImportError`` that says
+    so."""
+    try:
+        import cv2
+    except ImportError as exc:
+        raise ImportError(
+            "the measurement overlay's caption is drawn with cv2.putText, "
+            "and cv2 is not installed; pass --no-render (render=False)"
+        ) from exc
+    return cv2
 
 
 def main(
@@ -38,8 +51,6 @@ def main(
     render: bool = True,
     device: str = "cuda",
 ) -> int:
-    if render:
-        raise NotImplementedError(NOT_PORTED)
     import torch
 
     from shapy_tpu_torch.measure.measurements import (
@@ -87,6 +98,25 @@ def main(
             unit = "kg" if k == "mass" else "m"
             mmts_str += f"    {k}: {value:.2f} {unit}"
         print(mmts_str)
+
+        if render:
+            from shapy_tpu_torch.render import render_mesh_overlay
+            from shapy_tpu_torch.render.png import write_png
+
+            H, W = 512, 512
+            verts = v_shaped[0].cpu().numpy()
+            verts = verts - verts.mean(0)
+            verts = verts * np.asarray([1.0, -1.0, -1.0])  # y-up to image
+            verts[:, 2] += 2.5
+            canvas = np.ones((H, W, 3), np.float32)
+            img = render_mesh_overlay(canvas, verts, model.faces,
+                                      focal_length=500.0)
+            img8 = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+            cv2 = _caption_cv2()
+            cv2.putText(img8, mmts_str.strip()[:80], (4, 20),
+                        cv2.FONT_HERSHEY_SIMPLEX, 0.35, (0, 0, 0), 1)
+            write_png(os.path.join(demo_output_folder,
+                                   npz_file.replace("npz", "png")), img8)
     return 0
 
 

@@ -7,9 +7,15 @@ measurement errors. :meth:`Evaluator.run` streams the values into
 per-metric (sum, count) accumulators with gender / BMI-bucket group means
 and per-BMI-group histogram sums on the host.
 
-Not ported yet: the image summaries (``create_image_summaries``, which need
-the renderer) and the summary writer's scalars and BMI histogram figures;
-``summary_writer`` is not taken.
+With a ``summary_writer`` (duck-typed: ``add_image``, ``add_scalar``,
+optionally ``add_figure`` and ``flush``, as
+``torch.utils.tensorboard.SummaryWriter`` has them), ``run`` also logs
+each dataset's means and per-BMI-group bar figures (raw bucket scalars
+for a writer without ``add_figure``), and, with ``render_summaries``, the
+first batch's image summaries (:meth:`Evaluator.create_image_summaries`:
+mesh overlays on the host renderer, extra viewpoints from ``degrees``,
+GT meshes, keypoint skeletons). A batch of full images gets its first
+crops from one extra kernel K2 call in f32 for them.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from shapy_tpu_torch.data.crop import crop_normalize
 from shapy_tpu_torch.eval.metrics import (
     _ALIGN_MODES,
     PointError,
@@ -31,6 +38,10 @@ from shapy_tpu_torch.eval.metrics import (
 from shapy_tpu_torch.utils.device import full_f32_matmul, get_device
 
 logger = logging.getLogger(__name__)
+
+# The render pipeline's focal length (the weak-perspective camera's
+# conversion to a pinhole one).
+DEFAULT_FOCAL_LENGTH = 5000.0
 
 # BMI buckets of the per-gender/BMI group means.
 BMI_BUCKETS = ((0, 18.5), (18.5, 25.0), (25.0, 30.0), (30.0, 100.0))
@@ -150,8 +161,21 @@ class Evaluator:
         v2v_alignments: Dict[str, PointError] | None = None,
         v2v_t_alignments: Dict[str, PointError] | None = None,
         device: str | torch.device = "cuda",
+        summary_writer=None,
+        render_summaries: bool = True,
+        keypoint_names=None,
+        degrees: tuple = (),
     ):
         self.device = get_device(device)
+        self.summary_writer = summary_writer
+        # The mesh overlays ride the host rasterizer; opt out for
+        # metric-only runs.
+        self.render_summaries = render_summaries
+        # The model's joint order: skeleton edges of the keypoint grids.
+        self.keypoint_names = (
+            None if keypoint_names is None else list(keypoint_names))
+        # Extra no-background viewpoints appended to each summary row.
+        self.degrees = tuple(degrees or ())
         self.point_regressor = (None if point_regressor is None
                                 else point_regressor.to(self.device))
         self.target_point_regressor = (
@@ -170,6 +194,14 @@ class Evaluator:
         self.v2v_alignments = _default(v2v_alignments, ("translation", None))
         self.v2v_t_alignments = _default(v2v_t_alignments,
                                          ("translation", None))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *args):
+        if self.summary_writer is not None:
+            self.summary_writer.flush()
+        return False
 
     # -- per-batch metric computation (on the outputs' device) -------------
     def compute_batch_metrics(
@@ -251,22 +283,183 @@ class Evaluator:
                     metrics[f"{key}_error"] = torch.abs(meas[key] - gt)
         return metrics
 
+    # -- image summaries ----------------------------------------------------
+    def create_image_summaries(
+        self,
+        images,
+        outputs: Dict[str, Any],
+        tag: str,
+        step: int = 0,
+        last_stage: str = "stage_02",
+        max_images: int = 4,
+        mean=(0.485, 0.456, 0.406),
+        std=(0.229, 0.224, 0.225),
+        targets: Optional[Dict[str, Any]] = None,
+    ) -> Optional[np.ndarray]:
+        """The mesh-overlay image grid of the first ``max_images`` crops,
+        plus GT / estimated keypoint-skeleton grids when the model's joint
+        order (``keypoint_names``) is known, logged through the summary
+        writer; returns the grid (H, W', 3) f32.
+
+        images: (B, H, W, 3) normalised crops (numpy or tensors); outputs
+        and targets may hold tensors on any device. With the regressed
+        weak-perspective camera (``outputs['camera_parameters']``) the
+        mesh sits at z = 2f / (s S), which realises x_ndc = s (x + t) on
+        the pinhole rasterizer exactly; without it, at a fixed depth. GT
+        meshes (``targets['gt_vertices']``) are rendered GT-green with the
+        same camera."""
+        from shapy_tpu_torch.render import render_mesh_overlay
+        from shapy_tpu_torch.render.renderers import _rotate_y
+
+        stage = outputs.get(last_stage) or {}
+        vertices = stage.get("vertices")
+        faces = stage.get("faces")
+        if vertices is None or faces is None:
+            return None
+        imgs = _host(images)[:max_images]
+        verts = _host(vertices)[:max_images]
+        mean = np.asarray(mean, np.float32)
+        std = np.asarray(std, np.float32)
+
+        cam = outputs.get("camera_parameters") or {}
+        cam_scale = cam.get("scale")
+        cam_transl = cam.get("translation")
+        use_pred_cam = cam_scale is not None and cam_transl is not None
+        if use_pred_cam:
+            cam_scale = _host(cam_scale).astype(np.float64).reshape(-1)
+            cam_transl = _host(cam_transl).astype(np.float64).reshape(-1, 2)
+            if bool(cam.get("scale_first", False)):
+                # scale_first: x_ndc = s x + t  ->  shift by t / s
+                cam_transl = cam_transl / np.maximum(
+                    cam_scale[:, None], 1e-9)
+
+        gt_verts = (targets or {}).get("gt_vertices")
+        if gt_verts is not None:
+            gt_verts = _host(gt_verts)[:max_images]
+        gt_green = (146 / 255.0, 189 / 255.0, 163 / 255.0)
+
+        def center(v):
+            v = v - v.mean(0)
+            v = v * np.asarray([1.0, -1.0, -1.0])
+            v[:, 2] += 2.5
+            return v
+
+        overlays = []
+        gt_overlays = []
+        f = _host(faces)
+        for i in range(len(imgs)):
+            rgb = np.clip(imgs[i] * std + mean, 0, 1)
+            S = rgb.shape[1]
+            if use_pred_cam:
+                z = 2.0 * DEFAULT_FOCAL_LENGTH / (cam_scale[i] * S + 1e-9)
+                transl = np.asarray([cam_transl[i, 0], cam_transl[i, 1], z])
+                v_cam = verts[i] + transl[None]
+                v_gt = None if gt_verts is None else gt_verts[i] + transl
+                fl = DEFAULT_FOCAL_LENGTH
+            else:
+                v_cam = center(np.array(verts[i]))
+                v_gt = (None if gt_verts is None
+                        else center(np.array(gt_verts[i])))
+                fl = 500.0 * S / 512
+            row = [render_mesh_overlay(
+                rgb, v_cam, f, focal_length=fl,
+                shading_mode="phong", supersample=2)]
+            blank = np.zeros_like(rgb)
+            for deg in self.degrees:
+                row.append(render_mesh_overlay(
+                    blank, _rotate_y(v_cam, float(deg)), f,
+                    focal_length=fl, shading_mode="phong",
+                    supersample=2))
+            overlays.append(np.concatenate(row, axis=1))
+            if v_gt is not None:
+                gt_overlays.append(render_mesh_overlay(
+                    rgb, v_gt, f, focal_length=fl, color=gt_green,
+                    shading_mode="phong", supersample=2))
+        grid = np.concatenate(overlays, axis=1)
+        if self.summary_writer is not None:
+            self.summary_writer.add_image(
+                tag, (grid.transpose(2, 0, 1) * 255).astype(np.uint8), step)
+            if gt_overlays:
+                gt_grid = np.concatenate(gt_overlays, axis=1)
+                self.summary_writer.add_image(
+                    f"{tag}/gt_mesh",
+                    (gt_grid.transpose(2, 0, 1) * 255).astype(np.uint8),
+                    step)
+        self._keypoint_summaries(
+            imgs, outputs, targets, tag, step, last_stage, mean, std)
+        return grid
+
+    def _keypoint_summaries(
+        self, imgs, outputs, targets, tag, step, last_stage, mean, std
+    ) -> None:
+        """GT-keypoint and estimated-keypoint skeleton grids (the targets'
+        ``target_keypoints2d``; ``proj_joints`` scaled to crop pixels)."""
+        if self.keypoint_names is None or self.summary_writer is None:
+            return
+        from shapy_tpu_torch.data.keypoints import connections_for_names
+        from shapy_tpu_torch.render.skeleton import create_skel_img
+
+        connections = connections_for_names(self.keypoint_names)
+        stage = outputs.get(last_stage) or {}
+        S = imgs.shape[2]
+
+        def log_grid(kind, kp_batch, valid_batch):
+            rows = []
+            for i in range(len(imgs)):
+                rgb = np.clip(imgs[i] * std + mean, 0, 1)
+                kp_px = (np.asarray(kp_batch[i])[:, :2] + 1.0) * 0.5 * S
+                rows.append(create_skel_img(
+                    rgb, kp_px, connections,
+                    valid=valid_batch[i] if valid_batch is not None
+                    else None,
+                    names=self.keypoint_names))
+            g = np.concatenate(rows, axis=1)
+            self.summary_writer.add_image(
+                f"{tag}/{kind}", (g.transpose(2, 0, 1) * 255).astype(
+                    np.uint8), step)
+
+        gt = (targets or {}).get("target_keypoints2d")
+        if gt is not None:
+            gt = _host(gt)[:len(imgs)]
+            log_grid("gt_keypoints", gt, gt[..., -1] > 0)
+        est = stage.get("proj_joints")
+        if est is None:
+            est = outputs.get("proj_joints")
+        if est is not None:
+            log_grid("est_keypoints", _host(est)[:len(imgs)], None)
+
+    @staticmethod
+    def _summary_crops(images: torch.Tensor, model_batch: Optional[Dict],
+                       max_images: int = 4) -> torch.Tensor:
+        """The first ``max_images`` normalised crops of a batch in f32:
+        the images themselves, or, for full images with
+        ``crop_to_image_affines``, one K2 call on them."""
+        affines = (model_batch or {}).get("crop_to_image_affines")
+        if affines is None:
+            return images[:max_images].float()
+        return crop_normalize(images[:max_images], affines[:max_images],
+                              int(model_batch.get("crop_size", 256)),
+                              out_dtype=torch.float32)
+
     # -- full run ----------------------------------------------------------
     def run(
         self,
         model_fn: Callable[[torch.Tensor, Optional[Dict]], Dict],
         dataloaders: Dict[str, Any],
+        step: int = 0,
         last_stage: str = "stage_02",
         on_batch: Optional[Callable[[Dict, Dict, Dict], None]] = None,
     ) -> Dict[str, Dict[str, float]]:
         """model_fn(images, model_batch) -> regressor outputs.
         dataloaders: name -> iterable of batch dicts with 'images',
-        'targets', optional 'model_batch', 'genders', 'bmi_buckets' and
-        'bmi_hist_groups'. ``on_batch(outputs, targets, metrics)``, if
+        'targets', optional 'model_batch' (full images come with
+        'crop_to_image_affines' and 'crop_size'), 'genders', 'bmi_buckets'
+        and 'bmi_hist_groups'. ``on_batch(outputs, targets, metrics)``, if
         given, sees each batch's tensors. Returns {dataset:
         {metric[/group]: mean}} and keeps the per-BMI-group histogram
         means in ``self.bmi_histograms`` ({dataset: {metric: (6,) array,
-        NaN for empty groups}})."""
+        NaN for empty groups}}). With a summary writer, logs at ``step``
+        (see the module's docstring)."""
         results: Dict[str, Dict[str, float]] = {}
         self.bmi_histograms: Dict[str, Dict[str, np.ndarray]] = {}
         for ds_name, loader in dataloaders.items():
@@ -274,6 +467,7 @@ class Evaluator:
                 MetricAccumulator)
             hist_sums: Dict[str, np.ndarray] = {}
             hist_counts: Dict[str, np.ndarray] = {}
+            first_batch = True
             for batch in loader:
                 targets = batch.get("targets", {})
                 with torch.inference_mode():
@@ -283,6 +477,14 @@ class Evaluator:
                         outputs, targets, last_stage=last_stage)
                     if on_batch is not None:
                         on_batch(outputs, targets, metrics)
+                    if (first_batch and self.render_summaries
+                            and self.summary_writer is not None):
+                        self.create_image_summaries(
+                            self._summary_crops(batch["images"],
+                                                batch.get("model_batch")),
+                            outputs, tag=f"{ds_name}/Images", step=step,
+                            last_stage=last_stage, targets=targets)
+                        first_batch = False
                     names = list(metrics)
                     # one device -> host copy per batch
                     host = (torch.stack([metrics[n].float() for n in names])
@@ -321,7 +523,67 @@ class Evaluator:
                                sums / np.maximum(hist_counts[name], 1),
                                np.nan)
                 for name, sums in hist_sums.items()}
+
+            if self.summary_writer is not None:
+                for name, val in ds_result.items():
+                    self.summary_writer.add_scalar(f"{ds_name}/{name}", val,
+                                                   step)
+                self._write_bmi_histograms(hist_sums, hist_counts, step,
+                                           ds_name)
         return results
+
+    def _write_bmi_histograms(
+        self,
+        hist_sums: Dict[str, np.ndarray],
+        hist_counts: Dict[str, np.ndarray],
+        step: int,
+        ds_name: str = "",
+    ) -> None:
+        """Per-metric BMI-group bar figures (per-group mean * 1000, ylim
+        [0, 300], tick labels '<20' ... '>40', an empty group 0), tagged
+        '{dataset}/bmi histogram {metric}'; a writer without
+        ``add_figure`` gets the bars as scalars
+        '{dataset}/bmi_histogram/{metric}/{group}'. Needs matplotlib, as
+        the JAX package does: without it nothing is logged here."""
+        if not hist_sums or self.summary_writer is None:
+            return
+        try:
+            import matplotlib
+
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+        except Exception:
+            logger.info("matplotlib is not installed: no BMI histograms")
+            return
+        for name, sums in hist_sums.items():
+            counts = hist_counts[name]
+            means = np.where(
+                counts > 0, sums / np.maximum(counts, 1) * 1000.0, 0.0)
+            fig = plt.figure()
+            plt.ylim([0, 300])
+            plt.bar(np.arange(len(BMI_HIST_NAMES)), means,
+                    tick_label=list(BMI_HIST_NAMES))
+            prefix = f"{ds_name}/" if ds_name else ""
+            try:
+                self.summary_writer.add_figure(
+                    f"{prefix}bmi histogram {name}", fig, step)
+            except AttributeError:
+                # Writers without figure support get the raw buckets.
+                for gi, gname in enumerate(BMI_HIST_NAMES):
+                    self.summary_writer.add_scalar(
+                        f"{prefix}bmi_histogram/{name}/{gname}",
+                        means[gi], step)
+            plt.close("all")
+
+
+def _host(x) -> np.ndarray:
+    """A tensor on any device (bf16 widened to f32) or an array -> numpy."""
+    if torch.is_tensor(x):
+        x = x.detach()
+        if x.dtype == torch.bfloat16:
+            x = x.float()
+        return x.cpu().numpy()
+    return np.asarray(x)
 
 
 def _load_j14(path: str) -> np.ndarray:
@@ -401,4 +663,5 @@ def build_evaluator(exp_cfg: Optional[Dict] = None, keypoint_names=None,
     if kwargs.get("j14_regressor") is None and j14_path and os.path.exists(
             j14_path):
         kwargs["j14_regressor"] = _load_j14(j14_path)
-    return Evaluator(device=device, **kwargs)
+    kwargs.setdefault("degrees", tuple(cfg.get("degrees") or ()))
+    return Evaluator(device=device, keypoint_names=keypoint_names, **kwargs)

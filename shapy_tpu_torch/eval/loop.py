@@ -39,14 +39,16 @@ def _host(x) -> np.ndarray:
     return np.asarray(x, np.float64).reshape(-1)
 
 
-def adapt_eval_batches(loader, device: str | torch.device = "cuda"):
+def adapt_eval_batches(loader, device: str | torch.device = "cuda",
+                       crop_size: Optional[int] = None):
     """Collate output -> the batch dicts ``Evaluator.run`` consumes, with
     every tensor on ``device``.
 
     Besides the JAX package's fields, a batch may carry full images
     (uint8, or f32 in [0, 1]) with ``crop_to_image_affines`` (B, 3, 3):
     the images (the collate's padded ``full_images`` where the batch has
-    no ``images``) become the batch's ``images``, the affines go to the
+    no ``images``) become the batch's ``images``, the affines (and
+    ``crop_size``, the side of the crops they map, where given) go to the
     model batch, and the model then crops on the device (kernel K2)."""
     device = torch.device(device)
     for batch in loader:
@@ -61,6 +63,8 @@ def adapt_eval_batches(loader, device: str | torch.device = "cuda"):
         if "crop_to_image_affines" in batch:
             model_batch["crop_to_image_affines"] = _to(
                 batch["crop_to_image_affines"], device)
+            if crop_size is not None:
+                model_batch["crop_size"] = crop_size
         out = {
             "images": _to(batch["images"] if "images" in batch
                           else batch["full_images"], device),
@@ -108,9 +112,9 @@ def make_eval_fn(regressor, val_loaders: Dict,
         try:
             results = evaluator.run(
                 model_fn,
-                {part: adapt_eval_batches(loader, device)
+                {part: adapt_eval_batches(loader, device, crop_size)
                  for part, loader in val_loaders.items()},
-                last_stage=last_stage, **run_kwargs)
+                step=step, last_stage=last_stage, **run_kwargs)
         finally:
             regressor.train(was_training)
         for ds, metrics in results.items():

@@ -1,20 +1,20 @@
-"""Software mesh rasterizer, host-side numpy (port of what
-``rasterize_mesh`` needs of ``shapy_tpu/render/rasterizer.py``): the
-light rig and material, vertex normals, the geometry pass and
-``rasterize_mesh``'s three shading modes.
+"""Software mesh rasterizer, host-side numpy (port of
+``shapy_tpu/render/rasterizer.py``): the light rig and material, vertex
+normals, the geometry pass, ``rasterize_mesh``'s three shading modes, the
+lit RGB render (``render_mesh``, Phong normals and Blinn-Phong specular,
+supersampled), the overlay (``render_mesh_overlay``) and the
+weak-perspective camera's translation (``weak_persp_to_blender``).
 
-The geometry pass runs in the shared host C++
-(``native/shapy_native.cpp:rasterize_fragments``) through the port's own
-loader, :mod:`shapy_tpu_torch.io.native`, or, asked for by name, in numpy:
-candidate pixels generated ragged per face bbox, barycentrics in one
-shot, and the z-buffer resolved by one lexsort. Both routes keep the JAX
-package's arithmetic, so each is bit-equal to the JAX package's route of
-the same name. A native build that fails raises; the numpy route is never
-taken in its place.
-
-Not ported yet: ``render_mesh``, ``shade_covered`` and
-``render_mesh_overlay`` (the lit RGB render and the overlay), with the
-renderers and the skeleton drawing.
+The geometry pass and the fragment shading run in the shared host C++
+(``native/shapy_native.cpp``: ``rasterize_fragments``,
+``shade_fragments``) through the port's own loader,
+:mod:`shapy_tpu_torch.io.native`, or, asked for by name, in numpy: for
+the geometry, candidate pixels generated ragged per face bbox,
+barycentrics in one shot and the z-buffer resolved by one lexsort; for
+the shading, :func:`_blinn_phong`. Both routes keep the JAX package's
+arithmetic, so each is bit-equal to the JAX package's route of the same
+name. A native build that fails raises; the numpy route is never taken in
+its place. Rendering is host work, off the card, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -26,6 +26,21 @@ import numpy as np
 from shapy_tpu_torch.io import native
 
 DEFAULT_FOCAL_LENGTH = 5000.0
+
+
+def weak_persp_to_blender(
+    scale: np.ndarray,
+    translation: np.ndarray,
+    bbox_size: np.ndarray,
+    focal_length: float = DEFAULT_FOCAL_LENGTH,
+):
+    """Weak-perspective (scale, transl) -> perspective camera translation
+    (N, 3): z = 2 * focal / (scale * bbox_size)."""
+    scale = np.asarray(scale).reshape(-1)
+    translation = np.asarray(translation).reshape(-1, 2)
+    bbox_size = np.asarray(bbox_size).reshape(-1)
+    z = 2.0 * focal_length / (scale * bbox_size + 1e-9)
+    return np.concatenate([translation, z[:, None]], axis=1)
 
 
 # Pyrender-like rig: an ambient floor plus three directional lights
@@ -209,6 +224,45 @@ def _raster_fragments(pts: np.ndarray, z: np.ndarray, f: np.ndarray,
     return pix[keep], fid[keep], bary[keep], zc[keep]
 
 
+def _rig_lights() -> np.ndarray:
+    """The light rig as (L, 4) f32 rows: unit direction, intensity."""
+    lights = []
+    for d, inten in _LIGHT_RIG:
+        d = np.asarray(d, np.float64)
+        lights.append(list(d / np.linalg.norm(d)) + [inten])
+    return np.asarray(lights, np.float32)
+
+
+def shade_covered(pix, fid, bary, v, f, material, base, fxy, cc, W,
+                  ortho=False, route: str = "native"):
+    """Shade covered fragments: interpolated per-pixel normals +
+    two-sided Blinn-Phong. ``base`` is (3,) or (N, 3) diffuse color.
+    ``route`` 'native' runs the threaded C++ kernel
+    (native/shapy_native.cpp:shade_fragments, f32) and raises if it
+    cannot be built; 'numpy' runs :func:`_blinn_phong` in f64."""
+    if route not in ("native", "numpy"):
+        raise ValueError(f"rasterizer route must be native|numpy: {route}")
+    vn = _vertex_normals(v, f)
+    if route == "native":
+        return native.shade_fragments(
+            pix, fid, bary, vn, f, base, _rig_lights(),
+            material.specular_color, material.shininess, _AMBIENT, fxy[0],
+            fxy[1], cc[0], cc[1], W, ortho=ortho)
+    n = (bary[:, :, None] * vn[f[fid]]).sum(1)
+    n /= np.maximum(np.linalg.norm(n, axis=1, keepdims=True), 1e-12)
+    if ortho:
+        view = np.zeros((pix.size, 3))
+        view[:, 2] = -1.0
+    else:
+        gy, gx = pix // W, pix % W
+        view = -np.stack([(gx - cc[0]) / fxy[0], (gy - cc[1]) / fxy[1],
+                          np.ones(pix.size)], axis=1)
+        view /= np.linalg.norm(view, axis=1, keepdims=True)
+    diff, spec = _blinn_phong(n, view, material)
+    base = np.broadcast_to(np.asarray(base, np.float64), (pix.size, 3))
+    return np.clip(base * diff[:, None] + spec, 0.0, 1.0)
+
+
 def _blinn_phong(n: np.ndarray, view: np.ndarray,
                  material: Material) -> Tuple[np.ndarray, np.ndarray]:
     """Per-pixel diffuse intensity and specular RGB under the light rig.
@@ -314,3 +368,114 @@ def rasterize_mesh(
     if return_depth:
         return color, mask, depth
     return color, mask
+
+
+def render_mesh(
+    vertices: np.ndarray,
+    faces: np.ndarray,
+    image_size: Tuple[int, int],
+    focal_length: float = DEFAULT_FOCAL_LENGTH,
+    camera_center: Optional[np.ndarray] = None,
+    material: Optional[Material] = None,
+    vertex_colors: Optional[np.ndarray] = None,
+    supersample: int = 1,
+    route: str = "native",
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Lit RGB render: per-pixel Phong normals + Blinn-Phong specular.
+
+    Returns (rgb (H, W, 3) in [0, 1], alpha (H, W) in [0, 1],
+    depth (H, W), +inf where empty). ``supersample`` > 1 renders at
+    N x resolution and box-filters down (anti-aliased edges; alpha becomes
+    fractional coverage). ``vertex_colors`` (V, 3) overrides the material
+    base color per vertex. ``focal_length`` may be a scalar or an (fx, fy)
+    pair (the intrinsics camera of ``GTRenderer``). ``route``: the
+    geometry pass's and the shading's, 'native' or 'numpy'."""
+    H, W = image_size
+    ss = max(int(supersample), 1)
+    if camera_center is None:
+        camera_center = np.asarray([W / 2.0, H / 2.0])
+    camera_center = np.asarray(camera_center, np.float64).reshape(2)
+    material = material or DEFAULT_MATERIAL
+
+    Hs, Ws = H * ss, W * ss
+    v = np.asarray(vertices, np.float64)
+    f = np.asarray(faces, np.int64)
+    z = np.maximum(v[:, 2], 1e-6)
+    fxy = np.broadcast_to(
+        np.asarray(focal_length, np.float64).reshape(-1), (2,)).copy()
+    fl = fxy * ss
+    cc = camera_center * ss
+    px = fl[0] * v[:, 0] / z + cc[0]
+    py = fl[1] * v[:, 1] / z + cc[1]
+    pts = np.stack([px, py], axis=1)
+
+    pix, fid, bary, zsel = _raster_fragments(pts, z, f, Hs, Ws, route)
+
+    rgb = np.zeros((Hs * Ws, 3))
+    depth = np.full(Hs * Ws, np.inf)
+    alpha = np.zeros(Hs * Ws)
+    if pix.size:
+        depth[pix] = zsel
+        alpha[pix] = 1.0
+        if vertex_colors is not None:
+            vc = np.asarray(vertex_colors, np.float64).reshape(-1, 3)
+            base = (bary[:, :, None] * vc[f[fid]]).sum(1)
+            base *= (1.0 - material.metallic)
+        else:
+            base = material.diffuse_color
+        rgb[pix] = shade_covered(pix, fid, bary, v, f, material, base,
+                                 fl, cc, Ws, route=route)
+
+    rgb = rgb.reshape(Hs, Ws, 3)
+    alpha = alpha.reshape(Hs, Ws)
+    depth = depth.reshape(Hs, Ws)
+    if ss > 1:
+        rgb = rgb.reshape(H, ss, W, ss, 3).mean((1, 3))
+        alpha = alpha.reshape(H, ss, W, ss).mean((1, 3))
+        # representative depth: min over the subpixel block (surface depth
+        # where covered, +inf where the whole block is empty)
+        depth = depth.reshape(H, ss, W, ss).min((1, 3))
+    return rgb, alpha, depth
+
+
+def render_mesh_overlay(
+    image: np.ndarray,
+    vertices: np.ndarray,
+    faces: np.ndarray,
+    transl: Optional[np.ndarray] = None,
+    focal_length: float = DEFAULT_FOCAL_LENGTH,
+    camera_center: Optional[np.ndarray] = None,
+    color: Tuple[float, float, float] = (0.65, 0.75, 0.95),
+    alpha: float = 0.9,
+    shading_mode: str = "smooth",
+    supersample: int = 1,
+    material: Optional[Material] = None,
+) -> np.ndarray:
+    """Blend a shaded mesh over an RGB image (H, W, 3) -> f32 (H, W, 3).
+    The camera's principal point is ``camera_center`` (cx, cy) in pixels,
+    the subject's bbox centre where the caller has one, else the image
+    centre. ``shading_mode='phong'`` (or a ``material``, or
+    ``supersample`` > 1) takes the lit specular path of
+    :func:`render_mesh`; otherwise :func:`rasterize_mesh`'s shading tints
+    ``color``."""
+    img = np.asarray(image, np.float32)
+    H, W = img.shape[:2]
+    v = np.asarray(vertices, np.float64)
+    if transl is not None:
+        v = v + np.asarray(transl).reshape(1, 3)
+    cc = (None if camera_center is None
+          else np.asarray(camera_center).reshape(2))
+    out = img.copy()
+    if shading_mode == "phong" or material is not None or supersample > 1:
+        mat = material or Material(base_color=color)
+        rgb, cov, _ = render_mesh(
+            v, faces, (H, W), focal_length, camera_center=cc,
+            material=mat, supersample=supersample)
+        w = (alpha * cov)[..., None].astype(np.float32)
+        return (1 - w) * out + w * rgb.astype(np.float32)
+    shading, mask = rasterize_mesh(
+        v, faces, (H, W), focal_length, camera_center=cc,
+        shading_mode=shading_mode)
+    tint = np.asarray(color, np.float32)[None, None] * shading[..., None]
+    out[mask] = (1 - alpha) * out[mask] + alpha * tint[mask]
+    return out

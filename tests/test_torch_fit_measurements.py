@@ -201,7 +201,9 @@ def _capture(fn, *args, **kwargs):
 
 def test_virtual_measurements_cli_matches_jax(tmp_path, monkeypatch):
     """Three seeded betas files through both CLIs (synthetic SMPL-X at
-    subdivisions 2): the same output lines, which print 2 decimals."""
+    subdivisions 2): the same output lines, which print 2 decimals; with
+    the overlay, the same PNGs pixel for pixel (decoded by cv2); without
+    cv2 the overlay raises naming its caption."""
     from shapy_tpu.cli import virtual_measurements as jvm_cli
 
     monkeypatch.setenv("SHAPY_TPU_SYNTHETIC_BODY", "1")
@@ -216,7 +218,20 @@ def test_virtual_measurements_cli_matches_jax(tmp_path, monkeypatch):
     _, want = _capture(jvm_cli.main, str(tmp_path), out, render=False)
     assert rc == 0 and len(got) == 6
     assert got == want
-    with pytest.raises(NotImplementedError, match="renderer"):
+    _capture(vm_cli.main, str(tmp_path), str(tmp_path / "port"),
+             device="cpu")
+    _capture(jvm_cli.main, str(tmp_path), str(tmp_path / "jax"))
+    import cv2
+
+    for i in range(3):
+        a = cv2.imread(str(tmp_path / "port" / f"body_{i}.png"),
+                       cv2.IMREAD_UNCHANGED)
+        b = cv2.imread(str(tmp_path / "jax" / f"body_{i}.png"),
+                       cv2.IMREAD_UNCHANGED)
+        assert a.shape == (512, 512, 3) and (a < 255).any()
+        np.testing.assert_array_equal(a, b)
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(ImportError, match="caption"):
         vm_cli.main(str(tmp_path), out, device="cpu")
 
 

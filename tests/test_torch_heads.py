@@ -196,8 +196,9 @@ def test_smpl_head_ignores_hand_and_face_flags(tmp_path):
 
 def test_demo_builder(tmp_path, monkeypatch):
     """``build_demo_regressor`` on the synthetic body (the JAX package's
-    environment variables); a reference checkpoint and present plugin
-    checkpoints raise (not ported), absent ones are ignored."""
+    environment variables); present plugin checkpoints raise (not ported),
+    absent ones are ignored; a reference checkpoint that exists is
+    imported (its ``regressor.mean_param`` lands in ``param_mean``)."""
     from shapy_tpu_torch.cli.demo import build_demo_regressor
 
     monkeypatch.setenv("SHAPY_TPU_SYNTHETIC_BODY", "1")
@@ -213,8 +214,12 @@ def test_demo_builder(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="B2A"):
         build_demo_regressor(cfg, device="cpu")
     cfg["network"]["smplx"]["use_b2a"] = False
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        build_demo_regressor(cfg, str(tmp_path / "m.ckpt"), "cpu")
+    mean = torch.arange(reg.param_mean.numel(), dtype=torch.float32)
+    torch.save({"model": {"regressor.mean_param": mean}},
+               tmp_path / "ref.ckpt")
+    loaded = build_demo_regressor(cfg, str(tmp_path / "ref.ckpt"), "cpu")
+    np.testing.assert_array_equal(loaded.param_mean.numpy().reshape(-1),
+                                  mean.numpy())
     cfg["network"]["smplx"]["compute_dtype"] = "float16"
     with pytest.raises(ValueError, match="compute_dtype"):
         build_demo_regressor(cfg, device="cpu")
