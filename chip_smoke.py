@@ -339,6 +339,32 @@ Phases, each of which raises on failure (exit code 1):
    measurements. Prints which of matplotlib, tensorboard and cv2 are
    installed, the demo's images/s at batch 4 and 1 on the host clock and
    the host seconds a batch spent writing and rendering.
+15. The attribute models and their plugins. ``cli.fit_regression.main``
+   with ``--train`` and then without on the synthetic database, for
+   ``configs/s2a.yaml`` (B2A) and ``configs/a2s_variations/02b_ahw2s.yaml``
+   (A2B, whw2s and BodyTalk), both genders: every printed number finite,
+   the four polynomials written as reference Lightning checkpoints, the
+   card's predictions within 1e-5 (relative to the largest) of a CPU
+   copy's. ``cli.attributes_demo.main``: S2A on a folder of betas npz
+   files with a genders YAML (the printed ratings those of the module),
+   A2S on a ratings database written as a plain pickle with rendering
+   (the printed betas within 1e-5 of the module's, a 512x512 PNG a
+   model). ``A2B.fit_nn`` (an MLP from the ratings alone, 00_a2s) on the flagship's
+   SMPL-X with v2v and the four measurement losses, 50 steps at batch 256:
+   one K1 forward and one K1 backward a step and nothing else, two K1
+   forwards in its validation, the loss falling, and K1's forward and
+   backward at the first step's 512 bodies within phase 2's limits of
+   their plain versions. The evaluation CLI on phase 12's HBW tree and
+   regressor without plugins, with B2A and A2B (``--exp-opts`` with the
+   four checkpoints) and without again: the printed metrics bit-equal,
+   the plugin run's launches the warm run's, its ``attributes``,
+   ``betas_ref`` and ``v_shaped_ref`` present and the first two within
+   1e-5 of CPU copies of the plugins on the same betas and K1 height and
+   mass. ``cli.train.main`` with ``use_b2a`` on phase 13's pose archives
+   and a synthetic model-agency archive (the config's shape stream, with
+   attribute ratings), 4 steps: an ``attributes`` loss finite and not
+   zero, the B2A weights bit-unchanged, every kernel's launches a step
+   phase 13's.
 
 The line before the last is a JSON object with one entry per kernel
 function (forward and backward separately); ``launches`` counts the
@@ -349,7 +375,7 @@ training (phase 11) for K10 and K11, and the evaluation phase for the
 others, and phase 13's run 1 for K2's noise variant; ``launches_cli``
 counts phase 12's cold run, ``launches_train_cli`` phase 13's run 1 (its
 train steps, the eval hook's launches left out), ``launches_demo`` phase
-14's run at batch 4. K5-conv's and K5-fuse's times are a served forward's at batch 32,
+14's run at batch 4, ``launches_attributes`` all of phase 15's runs. K5-conv's and K5-fuse's times are a served forward's at batch 32,
 the backward kernels' and K4's backward's a train step's at batch 48;
 K10's and K11's forwards at the served batch 32, their backwards at 48.
 The last line is
@@ -7197,6 +7223,590 @@ def demo_cli(dev, regressor, eval_data, eval_launches):
 
 
 
+# Phase 15: the attribute models, their CLIs and the regressor's plugins.
+ATTR_CONFIGS = {"b2a": "configs/s2a.yaml",
+                "a2b": "configs/a2s_variations/02b_ahw2s.yaml"}
+ATTR_GENDERS = ("female", "male")
+# fit_nn: A2S from the attributes alone (00_a2s's features) into an MLP
+# (256, 256) on the synthetic database (400 training rows), the default
+# batch (256), v2v and the four measurement losses.
+ATTR_FIT_STEPS = 50
+ATTR_FIT_CONFIG = "configs/a2s_variations/00_a2s.yaml"
+ATTR_FIT_OPTS = ("network.type=mlp", "network.mlp.layers=[256,256]")
+ATTR_DEMO_FILES, ATTR_DEMO_MODELS = 6, 4
+ATTR_TRAIN_STEPS = 4
+ATTR_AGENCY_MODELS, ATTR_AGENCY_IMAGES = 24, 2
+ATTR_TOL = 1e-5
+ATTR_CHECK_CHUNK = 64  # bodies a plain K1 check takes at once (phase 2: 48)
+NUMBER_RE = re.compile(r"[-+]?(?:\d+\.\d*|\.\d+|\d+)(?:[eE][-+]?\d+)?|nan|inf")
+
+
+def attr_config(kind: str, gender: str, *opts, path: str = "") -> dict:
+    """``ATTR_CONFIGS[kind]`` (or ``path``) for ``gender``, with ``opts``."""
+    from shapy_tpu_torch.utils.config import load_config
+
+    repo = Path(__file__).resolve().parent
+    return load_config({}, [str(repo / (path or ATTR_CONFIGS[kind]))], [
+        f"ds_gender={gender}", f"model_gender={gender}", *opts])
+
+
+def run_quietly(fn, *args, **kwargs) -> tuple:
+    """``fn``'s return value, its printed lines and the launches it made
+    (the counts set to 0 just before it)."""
+    import contextlib
+    import io
+
+    import torch
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    reset_launches()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return rc, buf.getvalue().splitlines(), read_launches()
+
+
+def attr_fit_regression(root: Path, dev, launches) -> dict:
+    """``cli.fit_regression.main`` with ``--train`` and then without, on
+    the synthetic database, for S2A (``configs/s2a.yaml``) and A2S (02b:
+    whw2s and BodyTalk) and both genders: every printed number finite; the
+    saved polynomials written as reference Lightning checkpoints
+    (``{'state_dict': {'b2a.linear.weight': ...}, 'hyper_parameters':
+    {'cfg': ...}}``); the card's predictions on the val split against a
+    CPU copy's (largest difference over the largest value, tol 1e-5).
+    Returns the checkpoints' paths by (kind, gender)."""
+    import torch
+
+    from shapy_tpu_torch.cli import fit_regression as cli
+    from shapy_tpu_torch.models.attributes.build import MODEL_DICT
+    from shapy_tpu_torch.models.attributes.polynomial import Polynomial
+    from shapy_tpu_torch.models.attributes.regression_data import (
+        RegressionDataset,
+    )
+
+    checkpoints = {}
+    for kind in ATTR_CONFIGS:
+        for gender in ATTR_GENDERS:
+            out = root / f"{kind}_{gender}"
+            cfg = attr_config(kind, gender, f"output_dir={out}",
+                              "use_synthetic_db=True")
+            printed = []
+            for train in (True, False):
+                rc, lines, counts = run_quietly(cli.main, cfg, train,
+                                                device=dev)
+                launches.update(counts)
+                check(rc == 0, f"fit_regression {kind} {gender}: rc {rc}")
+                printed += [ln for ln in lines if "checkpoint" not in ln]
+            values = [float(v) for ln in printed
+                      for v in NUMBER_RE.findall(ln.split(":", 1)[-1])]
+            check(len(values) >= 3 and all(map(math.isfinite, values)),
+                  f"fit_regression {kind} {gender}: {printed}")
+            model = MODEL_DICT[kind](cfg)
+            net = getattr(model, kind)
+            net.load_state_dict(Polynomial.load_checkpoint(
+                str(out / "last.ckpt.npz")).state_dict())
+            path = root / f"{kind}_{gender}.ckpt"
+            torch.save({"state_dict": model.state_dict(),
+                        "hyper_parameters": {"cfg": cfg}}, path)
+            checkpoints[kind, gender] = path
+            val = RegressionDataset.synthetic(
+                ds_gender=gender, model_gender=gender).db["val"]
+            x = (val[f"betas_smplx_{gender}"] if kind == "b2a" else
+                 model.preprocess(model.create_input_feature_vec(val)))
+            want = net.predict(x)
+            got = copy.deepcopy(net).to(dev).predict(x)
+            rel = float(np.abs(got - want).max() / np.abs(want).max())
+            check(rel <= ATTR_TOL, f"fit_regression {kind} {gender}: the "
+                  f"card's predictions off the CPU's by {rel}")
+            print(f"attributes: fit_regression {kind} {gender}: "
+                  f"{printed[1].strip()}, {printed[-1].strip()}; the card "
+                  f"vs a CPU copy {rel:.2e} (tol {ATTR_TOL})")
+    return checkpoints
+
+
+def attr_demo(root: Path, checkpoints: dict, dev, launches) -> None:
+    """``cli.attributes_demo.main``: S2A on a folder of betas npz files
+    with a genders YAML, A2S on a ratings database written as a plain
+    pickle, with rendering; the printed ratings (to two decimals) equal
+    to the S2A module's, the printed betas within 1e-5 of the A2S
+    module's, one 512x512 PNG a model."""
+    import pickle
+
+    from shapy_tpu_torch.cli import attributes_demo as cli
+    from shapy_tpu_torch.models.attributes.a2b import A2B
+    from shapy_tpu_torch.models.attributes.b2a import B2A
+    from shapy_tpu_torch.models.attributes.demo_data import DemoA2SData
+
+    rng = np.random.default_rng(SEED + 15)
+    betas = rng.normal(size=(ATTR_DEMO_FILES, 10)).astype(np.float32)
+    folder = root / "demo_betas"
+    folder.mkdir()
+    genders = [("female", "male")[i % 2] for i in range(ATTR_DEMO_FILES)]
+    for i, b in enumerate(betas):
+        np.savez(folder / f"img{i:02d}.npz", betas=b)
+    (root / "genders.yaml").write_text("".join(
+        f"img{i:02d}: {g}\n" for i, g in enumerate(genders)))
+    n = ATTR_DEMO_MODELS
+    (root / "ratings").mkdir()
+    with open(root / "ratings" / "modeldata_for_a2s_female.pt", "wb") as f:
+        pickle.dump({"ids": [f"model_{i}" for i in range(n)],
+                     "ratings": np.clip(rng.normal(3, 1, (n, 15)), 1, 5),
+                     "heights": rng.uniform(1.5, 1.9, n),
+                     "weight_gt": rng.uniform(50, 90, n),
+                     "bust": rng.uniform(80, 100, n),
+                     "waist": rng.uniform(60, 80, n),
+                     "hips": rng.uniform(85, 105, n)}, f)
+
+    ckpt = checkpoints["b2a", "female"]
+    cfg = attr_config("b2a", "female", f"checkpoint_path={ckpt}",
+                      f"betas_folder={folder}",
+                      f"ds_genders_path={root / 'genders.yaml'}")
+    rc, lines, counts = run_quietly(cli.main, cfg, str(root / "s2a"),
+                                    device=dev)
+    launches.update(counts)
+    model = B2A.load_from_checkpoint(str(ckpt)).to(dev)
+    female = [i for i, g in enumerate(genders) if g == "female"]
+    pred = model.predict(betas[female])
+    want = []
+    for i, row in zip(female, pred):
+        want += ["", f" Results for image img{i:02d}"] + [
+            f"{name:20s}: {float(v):.2f}"
+            for name, v in zip(model.output_names, row)]
+    check(rc == 0 and lines == want, f"attributes demo S2A: rc {rc}, "
+          f"{len(lines)} lines, {len(want)} expected")
+
+    ckpt = checkpoints["a2b", "female"]
+    cfg = attr_config("a2b", "female", f"checkpoint_path={ckpt}",
+                      f"rating_folder={root / 'ratings'}")
+    t = time.perf_counter()
+    rc, lines, counts = run_quietly(
+        cli.main, cfg, str(root / "a2s"),
+        smpl_model_path=str(root / "no_body_models"), device=dev)
+    render_s = time.perf_counter() - t
+    launches.update(counts)
+    model = A2B.load_from_checkpoint(str(ckpt)).to(dev)
+    db = DemoA2SData(rating_folder=str(root / "ratings")).db
+    pred = model.predict(model.create_input_feature_vec(db))
+    text = " ".join(lines)
+    heads = [f"Predicted betas for model_{i}" for i in range(n)]
+    got = [np.array([float(v) for v in NUMBER_RE.findall(chunk)])
+           for chunk in re.split("|".join(heads), text)[1:]]
+    err = max(float(np.abs(g - w).max()) for g, w in zip(got, pred))
+    check(rc == 0 and all(h in text for h in heads) and len(got) == n
+          and err <= ATTR_TOL, f"attributes demo A2S: rc {rc}, betas off "
+          f"by {err}")
+    for i in range(n):
+        png = root / "a2s" / f"model_{i}.png"
+        check(png.exists() and png_size(png)[:2] == (512, 512),
+              f"attributes demo A2S: {png}")
+    print(f"attributes: demo S2A {len(female)} images, lines equal to the "
+          f"module's; A2S {n} models, betas within {err:.2e} (tol "
+          f"{ATTR_TOL}) of the module's, {n} PNGs, {render_s:.1f} s with "
+          "rendering")
+
+
+def attr_fit_nn(model, dev, launches) -> None:
+    """``A2B.fit_nn`` (an MLP on 00_a2s's features) on the flagship's SMPL-X
+    with v2v and the four measurement losses, ``ATTR_FIT_STEPS`` steps at
+    the default batch: one K1 forward and one K1 backward a step (the
+    prediction and the target measured in one call), nothing else; two
+    K1 forwards in the validation; the loss falls. Then K1's forward and
+    backward at the first step's vertices against their plain versions
+    (phase 2's limits: mass / height rel 1e-5, circumferences 1e-5 m,
+    plane heights 1e-6; the backward of a seeded cotangent within 1e-4 of
+    the largest gradient of autograd through the plain version given the
+    kernel's centroids)."""
+    import torch
+
+    from shapy_tpu_torch.measure.measurements import (
+        BodyMeasurements,
+        MeasurementAnchors,
+        measure_plain,
+        saved_centroids,
+    )
+    from shapy_tpu_torch.models.attributes.a2b import A2B
+    from shapy_tpu_torch.models.attributes.regression_data import (
+        RegressionDataset,
+    )
+
+    anchors = MeasurementAnchors.synthetic(model.faces,
+                                           model.v_template.cpu().numpy())
+    meas = BodyMeasurements(anchors, model.faces, 256).to(dev)
+    cfg = attr_config("a2b", "female", *ATTR_FIT_OPTS, path=ATTR_FIT_CONFIG)
+    a2b = A2B(cfg, body_model=model, meas_module=meas,
+              generator=torch.Generator().manual_seed(SEED)).to(dev)
+    db = RegressionDataset.synthetic(ds_gender="female",
+                                     model_gender="female").db
+    first, losses, counts = [], [], []
+    measure = meas.forward_from_vertices
+
+    def recording(vertices, use_face_subsets=True):
+        if not first:
+            first.append(vertices.detach().clone())
+        return measure(vertices, use_face_subsets)
+
+    meas.forward_from_vertices = recording
+
+    def on_step(step, loss):
+        losses.append(float(loss))
+        counts.append(read_launches())
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t = time.perf_counter()
+    report = a2b.fit_nn(db, meas_weights={k: 1.0 for k in MEASURED},
+                        num_steps=ATTR_FIT_STEPS, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    total = read_launches()
+    launches.update(total)
+    del meas.forward_from_vertices
+    prev = {k: 0 for k in total}
+    for step, c in enumerate(counts):
+        delta = {k: c[k] - prev[k] for k in c if c[k] != prev[k]}
+        check(delta == {"K1_measure": 1, "K1_measure_backward": 1},
+              f"fit_nn step {step} launched {delta}")
+        prev = c
+    val = {k: total[k] - prev[k] for k in total if total[k] != prev[k]}
+    check(val == {"K1_measure": 2}, f"fit_nn validation launched {val}")
+    head, tail = np.mean(losses[:5]), np.mean(losses[-5:])
+    check(all(map(math.isfinite, losses)) and tail < head,
+          f"fit_nn loss {head} -> {tail}")
+    check(all(math.isfinite(v) for v in report["val"].values()),
+          f"fit_nn report {report}")
+
+    # The plain versions a chunk of bodies at a time (all 512 at once
+    # take more than the card's 80 GB); each body's values and gradient
+    # depend on its own vertices only.
+    v = first[0]
+    bodies = v.shape[0]
+    x = v.clone().requires_grad_()
+    outs = meas.measure(x, use_face_subsets=False)
+    cents = saved_centroids(outs[0]).detach()
+    gen = torch.Generator().manual_seed(SEED + 16)
+    g = (torch.randn((bodies, 5), generator=gen).to(dev),
+         torch.randn((bodies, 3), generator=gen).to(dev))
+    got = torch.autograd.grad(outs, x, g)[0]
+    fwd_rel = fwd_circ = fwd_h = bwd_diff = bwd_scale = 0.0
+    for start in range(0, bodies, ATTR_CHECK_CHUNK):
+        rows = slice(start, start + ATTR_CHECK_CHUNK)
+        with torch.no_grad():
+            want, want_h = measure_plain(v[rows], meas.faces, None,
+                                         meas.anchors, 256, meas.density)
+        val = outs[0][rows].detach()
+        fwd_rel = max(fwd_rel, float(((val[:, :2] - want[:, :2]).abs()
+                                      / want[:, :2].abs()).max()))
+        fwd_circ = max(fwd_circ, max_err(val[:, 2:], want[:, 2:]))
+        fwd_h = max(fwd_h, max_err(outs[1][rows], want_h))
+        xp = v[rows].clone().requires_grad_()
+        w32 = torch.autograd.grad(measure_plain(
+            xp, meas.faces, None, meas.anchors, 256, meas.density,
+            "reference", cents[rows]), xp, (g[0][rows], g[1][rows]))[0]
+        bwd_diff = max(bwd_diff, max_err(got[rows], w32))
+        bwd_scale = max(bwd_scale, float(w32.abs().max()))
+    bwd = bwd_diff / bwd_scale
+    check(fwd_rel <= 1e-5 and fwd_circ <= 1e-5 and fwd_h <= 1e-6,
+          f"fit_nn K1 forward: {fwd_rel}, {fwd_circ}, {fwd_h}")
+    check(bwd <= 1e-4, f"fit_nn K1 backward: {bwd}")
+    print(f"attributes: A2B.fit_nn {ATTR_FIT_STEPS} steps (batch "
+          f"{bodies // 2}, {bodies} bodies measured a step) in "
+          f"{wall * 1e3:.1f} ms = {ATTR_FIT_STEPS / wall:.1f} steps/s, loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f}; a step K1 1 forward 1 "
+          f"backward, validation 2 forwards; val "
+          + ", ".join(f"{k} {x:.3f}" for k, x in report["val"].items())
+          + f"; K1 at the first step's {bodies} bodies: forward mass/height "
+          f"rel {fwd_rel:.2e}, circumferences {fwd_circ:.2e} m, plane "
+          f"heights {fwd_h:.2e}; backward {bwd:.2e} of the largest "
+          f"(tol 1e-4); {gpu_line()}")
+
+
+def _snapshot(modules) -> list:
+    return [{k: t.detach().clone() for k, t in m.state_dict().items()}
+            for m in modules]
+
+
+def attr_evaluate_cli(root: Path, checkpoints: dict, dev, launches) -> None:
+    """``cli.evaluate.main`` on phase 12's synthetic HBW tree and
+    regressor, three runs: without plugins (the cold run, which caches the
+    GT measurements), with the B2A and A2B plugins (``use_b2a`` /
+    ``use_a2b`` and the four checkpoints in ``--exp-opts``), and without
+    again. The plugin run's outputs hold ``attributes``, ``betas_ref``
+    and ``v_shaped_ref``; its launches are the warm run's without
+    plugins; its printed metrics bit-equal to both other runs'; its
+    ``attributes`` and ``betas_ref`` against CPU copies of the plugins on
+    the same betas and K1 height and mass (largest difference over the
+    largest value, tol 1e-5)."""
+    import torch
+
+    from shapy_tpu_torch.cli import demo as demo_mod
+    from shapy_tpu_torch.cli import evaluate as cli
+    from shapy_tpu_torch.cli.demo import load_attribute_plugins
+    from shapy_tpu_torch.data import build as build_mod
+    from shapy_tpu_torch.data.datasets.hbw import HBWDataset
+    from shapy_tpu_torch.flagship import build_flagship_body, spread_init_
+    from shapy_tpu_torch.models.body.assets import make_synthetic_model_data
+    from shapy_tpu_torch.models.body.model import SMPLX
+    from shapy_tpu_torch.models.heads.regressor import build_body_head
+    from shapy_tpu_torch.utils.config import load_config
+    from shapy_tpu_torch.utils.device import full_f32_matmul
+
+    repo = Path(__file__).resolve().parent
+    hbw, p2p = root / "HBW", root / "p2p.pkl"
+    write_hbw_tree(hbw, SMPLX(make_synthetic_model_data(
+        "smplx", subdivisions=5, exact_counts=True)), p2p)
+    opts = [f"datasets.shape.hbw.data_folder={hbw}",
+            f"datasets.batch_size={CLI_B}", "datasets.pose_shape_ratio=0.0",
+            f"datasets.shape.transforms.crop_size={CROP}",
+            "evaluation.body.v2v_t=['scale','translation']",
+            f"evaluation.body.p2p_t.input_point_regressor_path={p2p}"]
+    plugins = [f"network.smplx.use_{k}=True" for k in ATTR_CONFIGS] + [
+        f"network.smplx.{k}_{g}s_checkpoint={checkpoints[k, g]}"
+        for k in ATTR_CONFIGS for g in ATTR_GENDERS]
+    base, built, seen = [], [], []
+
+    def builder(exp_cfg, checkpoint_path="", device="cuda"):
+        if not base:
+            body, meas = build_flagship_body(subdivisions=5,
+                                             exact_counts=True)
+            base.append(spread_init_(
+                build_body_head(exp_cfg, body_model=body, measurements=meas),
+                seed=SEED, beta_scale=0.25))
+        reg = copy.deepcopy(base[0]).to(device).attach_plugins_(
+            *load_attribute_plugins(exp_cfg["network"]["smplx"]))
+        apply = reg.apply
+
+        def recorded(images, batch=None, **kw):
+            out = apply(images, batch=batch, **kw)
+            last = out["stage_02"]
+            seen[-1].append({
+                "gender": batch["gender"].clone(),
+                "betas": last["betas"].detach().clone(),
+                "height": out["measurements"]["height"].clone(),
+                "mass": out["measurements"]["mass"].clone(),
+                "attributes": out.get("attributes"),
+                "betas_ref": last.get("betas_ref"),
+                "v_shaped_ref": "v_shaped_ref" in last})
+            return out
+
+        reg.apply = recorded
+        built.append(reg)
+        return reg
+
+    class HBWWithMeasurements(HBWDataset):
+        def __init__(self, **kwargs):
+            reg = built[-1]
+            super().__init__(measurements_module=reg.body_measurements,
+                             body_model_faces=reg.model.faces, **kwargs)
+
+    build_mod._populate_registry()
+    saved = (demo_mod.build_demo_regressor, build_mod.DATASET_REGISTRY["hbw"])
+    demo_mod.build_demo_regressor = builder
+    build_mod.DATASET_REGISTRY["hbw"] = HBWWithMeasurements
+    runs = []
+    try:
+        for i, extra in enumerate(([], plugins, [])):
+            cfg = load_config({}, [str(repo / "configs" /
+                                       "shapy_eval_shape.yaml")],
+                              opts + extra)
+            seen.append([])
+            rc, lines, counts = run_quietly(
+                cli.main, cfg, output_folder=str(root / f"eval{i}"),
+                device=dev)
+            launches.update(counts)
+            check(rc == 0, f"evaluate with plugins: run {i} rc {rc}")
+            runs.append((lines, counts))
+    finally:
+        demo_mod.build_demo_regressor, build_mod.DATASET_REGISTRY["hbw"] = \
+            saved
+    (cold, _), (lines, counts), (warm, warm_counts) = runs
+    check(lines == cold == warm and len(lines) > 5,
+          "evaluate with plugins: the printed metrics differ")
+    check(counts == warm_counts, f"evaluate with plugins: launches {counts}"
+          f" against {warm_counts} without")
+    reg = built[1]
+    cpu = {k: {g: copy.deepcopy(m).cpu() for g, m in models.items()}
+           for k, models in (("b2a", reg.b2a_models),
+                             ("a2b", reg.a2b_models))}
+    errs = {"attributes": 0.0, "betas_ref": 0.0}
+    for rec in seen[1]:
+        check(rec["attributes"] is not None and rec["betas_ref"] is not None
+              and rec["v_shaped_ref"], "evaluate with plugins: outputs")
+        gender = rec["gender"].cpu()
+        check(set(gender.tolist()) <= {1, 2}, f"genders {gender.tolist()}")
+        with torch.no_grad(), full_f32_matmul():
+            betas = rec["betas"].cpu()
+            want = {"attributes": reg._by_gender(
+                gender, *(cpu["b2a"][g](betas) for g in ("male", "female")))}
+            refs = []
+            for g, height, weight in (("male", 1.71, 71.0),
+                                      ("female", 1.59, 62.0)):
+                m = cpu["a2b"][g]
+                B = len(gender)
+                refs.append(m.a2b(m.create_input_feature_vec_tensor({
+                    "rating": torch.zeros(B, 15),
+                    "height_gt": torch.full((B,), height),
+                    "weight_gt": torch.full((B,), weight),
+                    "height_bg": rec["height"].cpu(),
+                    "weight_bg": rec["mass"].cpu()})))
+            want["betas_ref"] = reg._by_gender(gender, *refs)
+        for k, w in want.items():
+            errs[k] = max(errs[k], float((rec[k].cpu() - w).abs().max()
+                                         / max(1.0, float(w.abs().max()))))
+    check(max(errs.values()) <= ATTR_TOL, f"evaluate with plugins: the "
+          f"plugins' outputs off their CPU copies: {errs}")
+    print(f"attributes: evaluate CLI with B2A and A2B, {len(seen[1])} "
+          f"batches: printed metrics bit-equal to the runs without "
+          f"plugins, launches the same ({ {k: n for k, n in counts.items() if n} }); "
+          f"attributes / betas_ref against CPU copies "
+          f"{errs['attributes']:.2e} / {errs['betas_ref']:.2e} (tol "
+          f"{ATTR_TOL})")
+
+
+def write_agencies(root: Path, rng) -> None:
+    """A synthetic model-agency archive (the shape stream of
+    ``configs/train_shapy.yaml``): ``ATTR_AGENCY_MODELS`` models of
+    alternating gender with height, chest, waist, hips and 15 attribute
+    ratings, ``ATTR_AGENCY_IMAGES`` 320x320 PPM images each with 25 body
+    keypoints inside the image, all in the train split."""
+    import json
+
+    annotations = {}
+    for i in range(ATTR_AGENCY_MODELS):
+        key = f"model_{i:03d}"
+        images = {}
+        for j in range(ATTR_AGENCY_IMAGES):
+            fname = f"img{j}.ppm"
+            write_ppm(root / "agency" / "images" / key / fname,
+                      rng.integers(0, 256, (TRAIN_CLI_IMAGE, TRAIN_CLI_IMAGE,
+                                            3), dtype=np.uint8))
+            kp = np.stack([rng.uniform(0.3, 0.7, 25) * TRAIN_CLI_IMAGE,
+                           rng.uniform(0.15, 0.85, 25) * TRAIN_CLI_IMAGE,
+                           np.full(25, 0.9)], -1)
+            images[fname] = kp.tolist()
+        annotations[key] = {
+            "agency": "agency", "gender": ("female", "male")[i % 2],
+            "height": float(rng.uniform(1.55, 1.9)),
+            "chest": float(rng.uniform(0.8, 1.0)),
+            "waist": float(rng.uniform(0.6, 0.8)),
+            "hips": float(rng.uniform(0.85, 1.05)),
+            "attributes": rng.uniform(1, 5, 15).round(2).tolist(),
+            "images": images}
+    (root / "annotations.json").write_text(json.dumps(annotations))
+    (root / "splits.json").write_text(json.dumps(
+        {"train": sorted(annotations)}))
+
+
+def attr_train_cli(root: Path, checkpoints: dict, train_cli_launches: dict,
+                   dev, launches) -> None:
+    """``cli.train.main`` with ``use_b2a`` and the B2A checkpoints, on phase
+    13's pose archives and a synthetic model-agency archive (the config's
+    own shape stream, which carries attribute ratings),
+    ``ATTR_TRAIN_STEPS`` steps: an ``attributes`` loss finite and not
+    zero, the B2A weights bit-unchanged, and every kernel's launches a
+    step those of phase 13's steps."""
+    import ast
+
+    from shapy_tpu_torch.cli import demo as demo_mod
+    from shapy_tpu_torch.cli import train as cli
+    from shapy_tpu_torch.cli.demo import load_attribute_plugins
+    from shapy_tpu_torch.data.synthetic import (
+        generate_parametric_fits,
+        register_synthetic_datasets,
+    )
+    from shapy_tpu_torch.flagship import build_flagship_body
+    from shapy_tpu_torch.models.heads.regressor import build_body_head
+
+    model, meas = build_flagship_body(subdivisions=5, exact_counts=True)
+    body = copy.deepcopy(model).to(dev)
+    pose = [a for a in TRAIN_CLI_ARCHIVES if a[0].startswith("pose")]
+    for name, n, seed in pose:
+        generate_parametric_fits(
+            str(root / name), n, model=body, seed=seed, device=dev,
+            image_size=TRAIN_CLI_IMAGE, betas_std=1.0, pose_std=0.25)
+    register_synthetic_datasets([a[0] for a in pose])
+    del body
+    write_agencies(root / "agencies", np.random.default_rng(SEED + 17))
+    built, before = [], []
+
+    def builder(exp_cfg, checkpoint_path="", device="cuda"):
+        b2a, a2b = load_attribute_plugins(exp_cfg["network"]["smplx"])
+        reg = build_body_head(exp_cfg, body_model=copy.deepcopy(model),
+                              measurements=copy.deepcopy(meas),
+                              b2a_models=b2a, a2b_models=a2b).to(device)
+        built.append(reg)
+        before.append(_snapshot(reg._plugins()))
+        return reg
+
+    cfg = train_cli_config(root, 0, [
+        "datasets.shape.splits.train=['model_agencies']",
+        f"datasets.shape.model_agencies.data_folder={root / 'agencies'}",
+        "network.smplx.use_b2a=True", "checkpoint_steps=100",
+        *(f"network.smplx.b2a_{g}s_checkpoint={checkpoints['b2a', g]}"
+          for g in ATTR_GENDERS)])
+    saved = demo_mod.build_demo_regressor
+    demo_mod.build_demo_regressor = builder
+    try:
+        rc, lines, counts = run_quietly(
+            cli.main, cfg, output_folder=str(root / "train"),
+            num_steps=ATTR_TRAIN_STEPS, device=dev)
+    finally:
+        demo_mod.build_demo_regressor = saved
+    launches.update(counts)
+    check(rc == 0 and len(built) == 1, f"train with B2A: rc {rc}")
+    reg = built[0]
+    check(set(reg.b2a_models) == set(ATTR_GENDERS),
+          f"train with B2A: plugins {sorted(reg.b2a_models)}")
+    losses = ast.literal_eval(lines[0])
+    check(math.isfinite(losses.get("attributes", math.nan))
+          and losses["attributes"] != 0, f"train with B2A: losses {losses}")
+    differ = _equal_trees(before[0], _snapshot(reg._plugins()))
+    check(not differ, f"train with B2A: the B2A weights changed: {differ}")
+    per_step = {k: n / ATTR_TRAIN_STEPS for k, n in counts.items()}
+    want = {k: n / TRAIN_CLI_STEPS for k, n in train_cli_launches.items()}
+    check(per_step == want, f"train with B2A: launches a step {per_step}, "
+          f"phase 13 {want}")
+    print(f"attributes: train CLI with B2A, {ATTR_TRAIN_STEPS} steps: "
+          f"losses {losses}; B2A weights bit-unchanged; launches a step "
+          f"those of phase 13")
+
+
+def attributes(dev, train_cli_launches: dict):
+    """Phase 15: the attribute models, their two CLIs and the regressor's
+    plugins on the card (see the module docstring). Returns the launches
+    of the whole phase."""
+    import tempfile
+
+    import torch
+
+    from shapy_tpu_torch.flagship import build_flagship_body
+
+    launches = collections.Counter()
+    spans = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        spans[name] = round(time.perf_counter() - t, 2)
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        checkpoints = timed("fit_regression", attr_fit_regression, root, dev,
+                            launches)
+        timed("demo", attr_demo, root, checkpoints, dev, launches)
+        body = build_flagship_body(subdivisions=5, exact_counts=True)[0]
+        timed("fit_nn", attr_fit_nn, body.to(dev), dev, launches)
+        timed("evaluate", attr_evaluate_cli, root, checkpoints, dev,
+              launches)
+        timed("train", attr_train_cli, root, checkpoints, train_cli_launches,
+              dev, launches)
+    print(f"attributes: phase 15 seconds {spans}, launches "
+          f"{ {k: n for k, n in launches.items() if n} }; {gpu_line()}")
+    return {name: launches[name] for name, *_ in kernels()}
+
+
 def main() -> int:
     import torch
 
@@ -7325,6 +7935,8 @@ def main() -> int:
     stamp("phase 14")
     demo_launches, demo_summary = demo_cli(dev, regressor, eval_data,
                                            eval_launches)
+    stamp("phase 15")
+    attr_launches = attributes(dev, train_cli_launches)
     stamp("done")
 
     entries = []
@@ -7361,6 +7973,7 @@ def main() -> int:
             "launches_resnet50_eval": resnet_eval[name],
             "launches_cli": cli_launches[name],
             "launches_demo": demo_launches[name],
+            "launches_attributes": attr_launches[name],
             **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by")},
             # K4: F.batch_norm(training=True); K5-conv: F.conv2d (cuDNN);

@@ -109,10 +109,10 @@ def build_demo_regressor(exp_cfg: Dict, checkpoint_path: str = "",
     ``prepare_for_eval_``. A ``checkpoint_path`` naming a file is the
     reference's checkpoint, imported by
     :func:`~shapy_tpu_torch.io.model_import.load_reference_model_checkpoint`
-    (BN still unfolded). The B2A / A2B plugins (``use_b2a`` / ``use_a2b``
-    with both genders' checkpoints present; without them the JAX package
-    runs without the plugin, and so does the port) are not ported yet and
-    raise."""
+    (BN still unfolded). The frozen B2A / A2B plugins load where
+    ``use_b2a`` / ``use_a2b`` is set and both genders' checkpoints exist
+    (:func:`load_attribute_plugins`); otherwise the regressor runs without
+    them, as the JAX package's does."""
     device = get_device(device)
     body_cfg = dict(exp_cfg.get("body_model") or {})
     model_folder = os.path.expandvars(body_cfg.get("model_folder", ""))
@@ -144,16 +144,11 @@ def build_demo_regressor(exp_cfg: Dict, checkpoint_path: str = "",
     if dtype_name not in ("", "float32", "bfloat16", "bf16"):
         raise ValueError("network compute_dtype must be float32|bfloat16, "
                          f"got {dtype_name!r}")
-    for plugin in ("b2a", "a2b"):
-        paths = [os.path.expandvars(
-            net_sub.get(f"{plugin}_{g}_checkpoint", "") or "")
-            for g in ("males", "females")]
-        if net_sub.get(f"use_{plugin}") and all(
-                p and os.path.exists(p) for p in paths):
-            raise NotImplementedError(
-                f"the {plugin.upper()} attribute plugin is not ported yet")
+    b2a_models, a2b_models = load_attribute_plugins(net_sub)
     regressor = build_body_head(exp_cfg, body_model=body_model,
-                                measurements=measurements)
+                                measurements=measurements,
+                                b2a_models=b2a_models,
+                                a2b_models=a2b_models)
     if checkpoint_path and os.path.exists(checkpoint_path):
         from shapy_tpu_torch.io.model_import import (
             load_reference_model_checkpoint)
@@ -161,6 +156,34 @@ def build_demo_regressor(exp_cfg: Dict, checkpoint_path: str = "",
         load_reference_model_checkpoint(checkpoint_path, regressor)
     return regressor.to(device)
 
+
+
+def load_attribute_plugins(net_sub: Dict) -> tuple:
+    """The network section's frozen plugins, ``(b2a_models,
+    a2b_models)``: each a ``{'male', 'female'}`` pair loaded from
+    ``{b2a,a2b}_{males,females}_checkpoint`` (reference Lightning
+    checkpoints) where ``use_b2a`` / ``use_a2b`` is set and both files
+    exist, else empty."""
+
+    def load_pair(cls, prefix):
+        models = {}
+        for gender in ("males", "females"):
+            path = os.path.expandvars(
+                net_sub.get(f"{prefix}_{gender}_checkpoint", "") or "")
+            if path and os.path.exists(path):
+                models[gender[:-1]] = cls.load_from_checkpoint(path)
+        return models if len(models) == 2 else {}
+
+    b2a_models, a2b_models = {}, {}
+    if net_sub.get("use_b2a"):
+        from shapy_tpu_torch.models.attributes.b2a import B2A
+
+        b2a_models = load_pair(B2A, "b2a")
+    if net_sub.get("use_a2b"):
+        from shapy_tpu_torch.models.attributes.a2b import A2B
+
+        a2b_models = load_pair(A2B, "a2b")
+    return b2a_models, a2b_models
 
 
 def _to_numpy(tree):

@@ -6,8 +6,10 @@
         [--split val] [--device cpu]
 
 Layered config -> regressor (``cli.demo.build_demo_regressor``, BN
-folded, the backbone in bf16 on the card and f32 on the CPU) -> the
-split's data loaders -> ``Evaluator.run`` -> one printed line per metric
+folded, the backbone in bf16 on the card and f32 on the CPU, with the
+B2A / A2B plugins where the config enables them) -> the split's data
+loaders -> ``Evaluator.run`` (each batch's ``gender`` to the plugins) ->
+one printed line per metric
 (``name: value``, mm for the vertex, joint and circumference errors, kg
 for mass), as the JAX CLI prints them.
 
@@ -45,7 +47,7 @@ def main(exp_cfg: Dict, output_folder: str = "evaluation",
     from shapy_tpu_torch.cli.demo import build_demo_regressor
     from shapy_tpu_torch.data.build import build_all_data_loaders
     from shapy_tpu_torch.eval.evaluator import build_evaluator
-    from shapy_tpu_torch.eval.loop import adapt_eval_batches
+    from shapy_tpu_torch.eval.loop import adapt_eval_batches, gender_batch
     from shapy_tpu_torch.utils.device import get_device
 
     if num_devices_data > 1:
@@ -85,7 +87,8 @@ def main(exp_cfg: Dict, output_folder: str = "evaluation",
     def model_fn(images, model_batch):
         return regressor.apply_from_full_images(
             images, model_batch["crop_to_image_affines"],
-            model_batch["crop_size"])
+            model_batch["crop_size"],
+            batch={"gender": gender_batch(images, model_batch)})
 
     evaluator = build_evaluator(exp_cfg, keypoint_names=keypoint_names,
                                 device=device)

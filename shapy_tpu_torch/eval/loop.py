@@ -82,6 +82,18 @@ def adapt_eval_batches(loader, device: str | torch.device = "cuda",
         yield out
 
 
+def gender_batch(images: torch.Tensor, model_batch: Optional[Dict]
+                 ) -> torch.Tensor:
+    """The model batch's ``gender`` codes (1 male, 2 female), zeros where
+    it has none: the attribute plugins' routing, as the JAX package's
+    ``model_fn`` passes it."""
+    gender = (model_batch or {}).get("gender")
+    if gender is None:
+        return torch.zeros(images.shape[0], dtype=torch.int32,
+                           device=images.device)
+    return gender
+
+
 def make_eval_fn(regressor, val_loaders: Dict,
                  exp_cfg: Optional[Dict] = None,
                  results_sink: Optional[Dict] = None, keypoint_names=None,
@@ -91,7 +103,8 @@ def make_eval_fn(regressor, val_loaders: Dict,
     its parameters lie on (in eval mode, then back in the mode it was
     in: the trainer's eval hook). Batches with ``crop_to_image_affines``
     go through ``apply_from_full_images`` (``crop_size`` crops), others
-    through ``apply(images)``. ``results_sink[step]`` (if given) records
+    through ``apply(images)``, each with the batch's ``gender`` for the
+    attribute plugins. ``results_sink[step]`` (if given) records
     the history; ``evaluator_kwargs`` go to :func:`build_evaluator`."""
     device = regressor.param_mean.device
     evaluator = build_evaluator(exp_cfg or {}, keypoint_names=keypoint_names,
@@ -99,11 +112,12 @@ def make_eval_fn(regressor, val_loaders: Dict,
     last_stage = f"stage_{regressor.num_stages - 1:02d}"
 
     def model_fn(images, model_batch):
+        batch = {"gender": gender_batch(images, model_batch)}
         affines = (model_batch or {}).get("crop_to_image_affines")
         if affines is not None:
             return regressor.apply_from_full_images(images, affines,
-                                                    crop_size)
-        return regressor.apply(images)
+                                                    crop_size, batch=batch)
+        return regressor.apply(images, batch=batch)
 
     def eval_fn(step: int = 0, **run_kwargs) -> Dict[str, Dict[str, float]]:
         """``run_kwargs`` go to ``Evaluator.run`` (e.g. ``on_batch``)."""

@@ -32,9 +32,19 @@ Not yet ported, and refused with ``ValueError`` where a config asks for
 them: hand and face prediction (``predict_hands`` on SMPL+H / SMPL-X,
 ``predict_face`` on SMPL-X), MLP activations, the RNN head, HRNet's
 ``use_old_impl`` topology, ``pose_last_stage`` off, pose spaces other
-than ``cont_rot_repr``. The B2A/A2B attribute plugins are not ported:
-the regressor takes none (``cli.demo.build_demo_regressor`` refuses
-their checkpoints).
+than ``cont_rot_repr``.
+
+The frozen attribute plugins (``b2a_models`` / ``a2b_models``: a
+``{'male': ..., 'female': ...}`` pair of
+:class:`~shapy_tpu_torch.models.attributes.b2a.B2A` /
+:class:`~shapy_tpu_torch.models.attributes.a2b.A2B`) run where ``apply``'s
+``batch`` holds ``gender`` (1 male, 2 female, other rows zero): B2A puts
+``attributes`` in the output, A2B ``betas_ref`` and ``v_shaped_ref`` in
+the last stage. They are not submodules (no ``state_dict`` entry, no
+optimizer state, always eval mode, no gradient of their own), but they
+move with the regressor's ``.to``, and gradients flow through them into
+the head. They launch no kernel: A2B reads this forward's K1 height and
+mass, and ``forward_shape`` is a blend-shape product.
 ``compute_measurements`` builds the measurements from the reference's
 YAMLs when none are given, as the JAX package does.
 """
@@ -98,6 +108,8 @@ class BodyRegressor(nn.Module):
         body_model_cfg: Optional[Dict] = None,
         network_cfg: Optional[Dict] = None,
         seed: int = 0,
+        b2a_models: Optional[Dict[str, Any]] = None,
+        a2b_models: Optional[Dict[str, Any]] = None,
     ):
         super().__init__()
         network_cfg = dict(network_cfg or {})
@@ -173,6 +185,30 @@ class BodyRegressor(nn.Module):
             dropout=float(mlp_cfg.get("dropout", 0.0)))
         self.register_buffer("param_mean", torch.as_tensor(param_mean))
         self.backbone_dtype = torch.float32
+        self.num_attributes = int(network_cfg.get("num_attributes", 15))
+        self.attach_plugins_(b2a_models, a2b_models)
+
+    def attach_plugins_(self, b2a_models: Optional[Dict[str, Any]] = None,
+                        a2b_models: Optional[Dict[str, Any]] = None
+                        ) -> "BodyRegressor":
+        """Set the frozen attribute plugins (empty: none), in eval mode
+        and without gradients of their own, on the regressor's device."""
+        self.b2a_models = dict(b2a_models or {})
+        self.a2b_models = dict(a2b_models or {})
+        device = self.param_mean.device
+        for plugin in self._plugins():
+            plugin.eval().requires_grad_(False).to(device)
+        return self
+
+    def _plugins(self) -> List[nn.Module]:
+        return [*self.b2a_models.values(), *self.a2b_models.values()]
+
+    def _apply(self, fn, recurse: bool = True):
+        """``.to`` / ``.cuda`` / ... reach the attribute plugins too."""
+        super()._apply(fn, recurse)
+        for plugin in self._plugins():
+            plugin._apply(fn, recurse)
+        return self
 
     # -- space builders (extended per model family) ------------------------
     def _load_mean_poses(self) -> Dict[str, Any]:
@@ -282,19 +318,21 @@ class BodyRegressor(nn.Module):
         ``train`` must match the module's mode (``prepare_for_train_`` /
         ``prepare_for_eval_``); in training ``generator`` draws the head's
         dropout masks and the measurements walk all faces. ``batch``
-        feeds the attribute plugins, which are not ported yet."""
+        (``gender``, and for A2B ``attributes``, ``height``, ``weight``)
+        feeds the attribute plugins."""
         if train != self.training:
             raise ValueError(f"apply(train={train}) on a regressor in "
                              f"{'train' if self.training else 'eval'} mode")
         features = self.compute_features(images)
         with full_f32_matmul():
-            return self._apply_head(features, train, generator)
+            return self._apply_head(features, train, generator, batch)
 
     def _apply_head(self, features: torch.Tensor, train: bool = False,
-                    generator: Optional[torch.Generator] = None
+                    generator: Optional[torch.Generator] = None,
+                    batch: Optional[Dict[str, torch.Tensor]] = None
                     ) -> Dict[str, Any]:
-        """Head, body model (last stage only), camera and measurements,
-        all in f32."""
+        """Head, body model (last stage only), camera, measurements and
+        the attribute plugins, all in f32."""
         param_dicts = [self.decode_params(p)
                        for p in self.iterative_stages(features, generator)]
         out: Dict[str, Any] = {"features": features}
@@ -324,19 +362,67 @@ class BodyRegressor(nn.Module):
             meas_dict = {k: v["tensor"] for k, v in meas.items()}
             out["measurements"] = meas_dict
             last["measurements"] = meas_dict
+        if batch is not None and "gender" in batch:
+            gender = batch["gender"].reshape(-1).to(features.device)
+            if self.b2a_models:
+                out["attributes"] = self._by_gender(
+                    gender, *(self.b2a_models[g](last["betas"])
+                              for g in ("male", "female")))
+            if self.a2b_models and self.body_measurements is not None:
+                betas_ref = self._refined_betas(gender, batch, meas_dict)
+                last["betas_ref"] = betas_ref
+                last["v_shaped_ref"] = self.model.forward_shape(
+                    betas_ref)["v_shaped"]
         return out
+
+    @staticmethod
+    def _by_gender(gender: torch.Tensor, male: torch.Tensor,
+                   female: torch.Tensor) -> torch.Tensor:
+        """Row i from ``male`` where gender is 1, ``female`` where 2, else
+        zeros."""
+        return torch.where((gender == 1)[:, None], male,
+                           torch.where((gender == 2)[:, None], female,
+                                       torch.zeros_like(male)))
+
+    def _refined_betas(self, gender: torch.Tensor, batch: Dict,
+                       meas: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """A2B's betas from the batch's ``attributes`` (zeros where
+        absent), ``height`` / ``weight`` (each gender's population mean
+        where absent) and this forward's measured height and mass."""
+        B = gender.shape[0]
+        ref = meas["height"]
+
+        def given(key, fill):
+            if key in batch:
+                return batch[key].reshape(-1).to(ref)
+            return ref.new_full((B,), fill)
+
+        attr = (batch["attributes"].to(ref) if "attributes" in batch
+                else ref.new_zeros((B, self.num_attributes)))
+        betas = []
+        for g, height, weight in (("male", 1.71, 71.0),
+                                  ("female", 1.59, 62.0)):
+            model = self.a2b_models[g]
+            feats = model.create_input_feature_vec_tensor({
+                "rating": attr, "height_gt": given("height", height),
+                "weight_gt": given("weight", weight),
+                "height_bg": meas["height"], "weight_bg": meas["mass"]})
+            betas.append(model.a2b(feats))
+        return self._by_gender(gender, *betas)
 
     def apply_from_full_images(self, full_images: torch.Tensor,
                                crop_to_image_affines: torch.Tensor,
-                               crop_size: int = 256, **norm) -> Dict[str, Any]:
+                               crop_size: int = 256,
+                               batch: Optional[Dict[str, torch.Tensor]] = None,
+                               **norm) -> Dict[str, Any]:
         """Fused preprocessing + forward: full images (B, H, W, 3) uint8
         (or f32 in [0, 1]) + crop->image affines (B, 3, 3) are cropped,
         ImageNet-normalised and cast to the backbone's dtype (kernel K2
-        on the card), then run through :meth:`apply`. ``norm`` may give
-        ``mean`` / ``std``."""
+        on the card), then run through :meth:`apply` with ``batch``.
+        ``norm`` may give ``mean`` / ``std``."""
         crops = crop_normalize(full_images, crop_to_image_affines, crop_size,
                                out_dtype=self.backbone_dtype, **norm)
-        return self.apply(crops)
+        return self.apply(crops, batch=batch)
 
     def forward(self, images: torch.Tensor) -> Dict[str, Any]:
         return self.apply(images)
@@ -374,8 +460,8 @@ def build_body_head(cfg: Dict, **kwargs) -> BodyRegressor:
     """The regressor of ``cfg['network']['type']`` (default
     ``SMPLXRegressor``), its network config from the section of its model
     type (``network.smplx`` ...), its body config ``cfg['body_model']``;
-    ``kwargs`` (``body_model``, ``measurements``, ``seed``) go to the
-    class."""
+    ``kwargs`` (``body_model``, ``measurements``, ``seed``,
+    ``b2a_models``, ``a2b_models``) go to the class."""
     network_cfg = dict(cfg.get("network") or {})
     head_type = network_cfg.get("type", "SMPLXRegressor")
     if head_type not in BODY_HEAD_REGISTRY:

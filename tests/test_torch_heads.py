@@ -196,10 +196,13 @@ def test_smpl_head_ignores_hand_and_face_flags(tmp_path):
 
 def test_demo_builder(tmp_path, monkeypatch):
     """``build_demo_regressor`` on the synthetic body (the JAX package's
-    environment variables); present plugin checkpoints raise (not ported),
-    absent ones are ignored; a reference checkpoint that exists is
-    imported (its ``regressor.mean_param`` lands in ``param_mean``)."""
+    environment variables); absent plugin checkpoints are ignored; a pair
+    of real B2A checkpoints loads, its output that of the JAX builder's
+    ``_load_pair``; a reference checkpoint that exists is imported (its
+    ``regressor.mean_param`` lands in ``param_mean``)."""
+    from shapy_tpu.cli.demo import build_demo_regressor as jbuild_demo
     from shapy_tpu_torch.cli.demo import build_demo_regressor
+    from tests.test_torch_attr_plugins import write_plugin_checkpoints
 
     monkeypatch.setenv("SHAPY_TPU_SYNTHETIC_BODY", "1")
     monkeypatch.setenv("SHAPY_TPU_TEST_SUBDIV", "1")
@@ -207,12 +210,22 @@ def test_demo_builder(tmp_path, monkeypatch):
                use_b2a=True, b2a_males_checkpoint=str(tmp_path / "m.ckpt"),
                b2a_females_checkpoint=str(tmp_path / "f.ckpt"))
     reg = build_demo_regressor(cfg, str(tmp_path / "none.ckpt"), "cpu")
-    assert isinstance(reg, SMPLXRegressor)
+    assert isinstance(reg, SMPLXRegressor) and not reg.b2a_models
     assert reg.model.num_verts == 42 and not reg.body_measurements.has_subsets
-    (tmp_path / "m.ckpt").write_bytes(b"")
-    (tmp_path / "f.ckpt").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="B2A"):
-        build_demo_regressor(cfg, device="cpu")
+    keys = write_plugin_checkpoints(tmp_path, n_train=40)
+    cfg["network"]["smplx"].update(
+        b2a_males_checkpoint=keys["b2a_males_checkpoint"],
+        b2a_females_checkpoint=keys["b2a_females_checkpoint"])
+    reg = build_demo_regressor(cfg, device="cpu")
+    jreg = jbuild_demo(cfg)
+    assert set(reg.b2a_models) == set(jreg.b2a_models) == {"male", "female"}
+    betas = np.random.default_rng(0).normal(size=(3, 10)).astype(np.float32)
+    for g in ("male", "female"):
+        with torch.no_grad():
+            got = reg.b2a_models[g](torch.from_numpy(betas)).numpy()
+        np.testing.assert_allclose(
+            got, np.asarray(jreg.b2a_models[g](jnp.asarray(betas))),
+            rtol=1e-5, atol=1e-5)
     cfg["network"]["smplx"]["use_b2a"] = False
     mean = torch.arange(reg.param_mean.numel(), dtype=torch.float32)
     torch.save({"model": {"regressor.mean_param": mean}},
